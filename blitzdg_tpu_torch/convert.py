@@ -13,6 +13,7 @@ import torch
 
 from .context import BCMaps, DGContext2D
 from .ops.sw2d import SWPhysics
+from .ops.sw2d_blocked import BlockedMeta, BlockedOps, build_blocked_step_ops
 from .ops.sw2d_fused import FusedStepMeta, FusedStepOps, build_fused_step_ops
 
 _STATIC = ("n_order", "n_p", "k_elem", "n_faces", "n_fp")
@@ -76,9 +77,30 @@ def step_ops_from_numpy(ctx_arrays: dict, ctx_static: dict, phys_arrays: dict,
     physics' fields (``phys_arrays``: keyword arguments of
     ``physics_from_numpy``). The operators are formed in float64 from the
     given arrays and then stored in ``dtype``."""
+    ctx, phys = _host_float64(ctx_arrays, ctx_static, phys_arrays)
+    return build_fused_step_ops(ctx, phys, forcing_bu, forcing_bv,
+                                dtype=dtype, tidal=tidal, device=device)
+
+
+def _host_float64(ctx_arrays: dict, ctx_static: dict, phys_arrays: dict):
     ctx = context_from_numpy(ctx_arrays, ctx_static, device="cpu",
                              dtype=torch.float64)
     phys = physics_from_numpy(**phys_arrays, device="cpu",
                               dtype=torch.float64)
-    return build_fused_step_ops(ctx, phys, forcing_bu, forcing_bv,
-                                dtype=dtype, tidal=tidal, device=device)
+    return ctx, phys
+
+
+def blocked_step_ops_from_numpy(ctx_arrays: dict, ctx_static: dict,
+                                phys_arrays: dict, forcing_bu=None,
+                                forcing_bv=None, tidal=None,
+                                wetdry: bool = False, h_floor: float = 1e-3,
+                                device="cuda",
+                                dtype: torch.dtype = torch.float32
+                                ) -> tuple[BlockedOps, BlockedMeta]:
+    """As ``step_ops_from_numpy``, for the blocked kernels' operator set:
+    ``phys_arrays`` may carry ``sponge``, and ``wetdry``/``h_floor`` switch
+    the wet/dry branch on."""
+    ctx, phys = _host_float64(ctx_arrays, ctx_static, phys_arrays)
+    return build_blocked_step_ops(ctx, phys, forcing_bu, forcing_bv,
+                                  dtype=dtype, tidal=tidal, wetdry=wetdry,
+                                  h_floor=h_floor, device=device)

@@ -1,3 +1,6 @@
+from .blocked import (BlockedMPC, advance_plant_blocked, build_blocked_mpc,
+                      mpc_cost_blocked, solve_mpc_blocked,
+                      solve_mpc_blocked_gn)
 from .fused import (FusedMPC, advance_plant_fused, build_fused_mpc,
                     mpc_cost_fused, solve_mpc_fused)
 from .problem import MPCProblem, mpc_cost, rollout_controls
@@ -14,4 +17,10 @@ __all__ = [
     "mpc_cost_fused",
     "solve_mpc_fused",
     "advance_plant_fused",
+    "BlockedMPC",
+    "build_blocked_mpc",
+    "mpc_cost_blocked",
+    "solve_mpc_blocked",
+    "solve_mpc_blocked_gn",
+    "advance_plant_blocked",
 ]

@@ -1,8 +1,9 @@
 """MPC solvers over control sequences.
 
 Counterpart of the JAX package's ``blitzdg_tpu/mpc/solver.py``; only the
-fixed-iteration Adam solver is ported so far (not Gauss-Newton, not the
-receding-horizon loop). The Adam update is written out with the defaults
+fixed-iteration Adam solver is ported so far (not ``solve_mpc_gn``, not the
+receding-horizon loop; the blocked path's Gauss-Newton solver is in
+``mpc/blocked.py``). The Adam update is written out with the defaults
 the JAX package gets from its optimizer library: b1 = 0.9, b2 = 0.999,
 eps = 1e-8 added to sqrt(v_hat), bias correction on both moments.
 """
@@ -47,10 +48,11 @@ def adam_update(grad: torch.Tensor, state: AdamState, params: torch.Tensor,
 
 
 def adam_minimize(total: Callable, init: torch.Tensor, iters: int,
-                  learning_rate: float):
+                  learning_rate: float, final_cost: bool = True):
     """Fixed-iteration Adam over ``total(c) -> per-scenario costs``; the sum
     of the costs is differentiated. Returns (controls, final costs, history
-    stacked over iterations)."""
+    stacked over iterations); without ``final_cost`` the costs at the
+    returned controls are not evaluated and None stands in their place."""
     c = init.detach().clone()
     opt_state = adam_init(c)
     history = []
@@ -60,8 +62,10 @@ def adam_minimize(total: Callable, init: torch.Tensor, iters: int,
         (grad,) = torch.autograd.grad(costs.sum(), c)
         history.append(costs.detach())
         c, opt_state = adam_update(grad, opt_state, c.detach(), learning_rate)
-    with torch.no_grad():
-        final = total(c)
+    final = None
+    if final_cost:
+        with torch.no_grad():
+            final = total(c)
     return c, final, torch.stack(history, dim=0)
 
 

@@ -5,7 +5,9 @@ a shared library with a plain C interface and loaded with ``ctypes``. The
 sources include no PyTorch header, so a build takes seconds. All sources are
 compiled together, one ``nvcc`` process each, all started at once. Libraries
 go to ``blitzdg_tpu_torch/_build/`` under a name that carries a hash of the
-source, so an edited source is rebuilt and a stale library is never loaded.
+source and of every file under ``csrc/`` that a source can include (``*.cu``,
+``*.cuh``, ``*.h``), so an edited source or shared header is rebuilt and a
+stale library is never loaded.
 
 Nothing here runs when the module is imported: a machine without ``nvcc``
 can import the package; it cannot launch a kernel, and asking for one raises.
@@ -40,10 +42,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _digest(csrc: Path = CSRC) -> str:
+    """Hash of the compiler flags and of every source and header under
+    ``csrc``, names included: a change to any of them changes every
+    library's name."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for pattern in ("*.cu", "*.cuh", "*.h"):
+        for f in sorted(csrc.glob(pattern)):
+            h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
+    return h.hexdigest()[:12]
+
+
 def _target(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    return BUILD_DIR / f"lib{src.stem}-{_digest(src.parent)}.so"
 
 
 def build_all(verbose: bool = False) -> dict[str, Path]:
@@ -59,7 +70,8 @@ def build_all(verbose: bool = False) -> dict[str, Path]:
     procs = []
     for s in todo:
         tmp = targets[s.stem].with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(s)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(s.parent), "-Xptxas", "-v",
+               "-o", str(tmp), str(s)]
         procs.append((s, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

@@ -17,146 +17,14 @@
 //
 // The adjoint of the RHS is derived by hand (CUDA has no autodiff); the same
 // derivation, step by step, is sw2d_rollout_bwd_plain in ops/sw2d_fused.py,
-// where it is tested against torch.autograd. Tie rules: at
-// max(spdM, spdP) a tie gives half of the cotangent to each side; the
-// per-face maximum splits its cotangent evenly over the nodes that attain
-// it; max(0, x) of the star depths passes the cotangent where x > 0; the
-// velocity norm has zero gradient at the origin.
+// where it is tested against torch.autograd. The pointwise formulas (trace
+// values, fluxes, sources, their adjoints and the tie rules) live in
+// sw2d_common.cuh, shared with the blocked kernels.
 //
 // Plain C interface (extern "C" at the end), loaded with ctypes. Launches go
 // to the stream that is passed in; nothing here synchronises or allocates.
 
-#include <cuda_runtime.h>
-#include <math.h>
-
-struct SwDesc {
-  int K, Np, Nfaces, Nfp, n_ctrl;
-  int wb, has_bathy, has_tidal;
-  float g, cd, fcor;
-  float tide_h0, tide_amp, tide_omega, tide_tau;
-};
-
-struct Ops {
-  const float *Dr, *Ds, *lift, *filt;
-  const float *rx, *sx, *ry, *sy;
-  const float *nx, *ny, *fscale, *wall, *obc, *HMt, *HPt;
-  const float *Hx, *Hy, *BU, *BV;
-  const int *vmapM, *vmapP, *invM_ptr, *invM_idx, *invP_ptr, *invP_idx;
-  int K, Np, Ntr, Nfp, nV, nT, n_ctrl;
-  int wb, has_bathy, has_tidal;
-  float g, cd, fcor, tide_h0, tide_amp, tide_omega, tide_tau;
-};
-
-// The packed operator buffers: the order here is the order in which
-// FusedStepOps packs them (ops/sw2d_fused.py, _pack_buffers).
-static Ops make_ops(const SwDesc& d, const float* f, const int* i) {
-  Ops o;
-  o.K = d.K; o.Np = d.Np; o.Ntr = d.Nfaces * d.Nfp; o.Nfp = d.Nfp;
-  o.nV = d.K * d.Np; o.nT = d.K * o.Ntr; o.n_ctrl = d.n_ctrl;
-  o.wb = d.wb; o.has_bathy = d.has_bathy; o.has_tidal = d.has_tidal;
-  o.g = d.g; o.cd = d.cd; o.fcor = d.fcor;
-  o.tide_h0 = d.tide_h0; o.tide_amp = d.tide_amp;
-  o.tide_omega = d.tide_omega; o.tide_tau = d.tide_tau;
-  const int np2 = d.Np * d.Np, nV = o.nV, nT = o.nT;
-  o.Dr = f; f += np2;
-  o.Ds = f; f += np2;
-  o.lift = f; f += d.Np * o.Ntr;
-  o.filt = f; f += np2;
-  o.rx = f; f += nV;  o.sx = f; f += nV;
-  o.ry = f; f += nV;  o.sy = f; f += nV;
-  o.nx = f; f += nT;  o.ny = f; f += nT;  o.fscale = f; f += nT;
-  o.wall = f; f += nT;  o.obc = f; f += nT;
-  o.HMt = f; f += nT;  o.HPt = f; f += nT;
-  o.Hx = f; f += nV;  o.Hy = f; f += nV;
-  o.BU = f; f += d.n_ctrl * nV;
-  o.BV = f; f += d.n_ctrl * nV;
-  o.vmapM = i; i += nT;
-  o.vmapP = i; i += nT;
-  o.invM_ptr = i; i += nV + 1;
-  o.invM_idx = i; i += nT;
-  o.invP_ptr = i; i += nV + 1;
-  o.invP_idx = i; i += nT;
-  return o;
-}
-
-__device__ __forceinline__ float safe_norm(float u, float v) {
-  const float r2 = u * u + v * v;
-  return r2 > 0.0f ? sqrtf(r2) : 0.0f;
-}
-
-__device__ __forceinline__ float tidal_depth(const Ops& o, float t) {
-  if (!o.has_tidal) return 0.0f;
-  const float ramp = o.tide_tau > 0.0f ? fminf(t / o.tide_tau, 1.0f) : 1.0f;
-  return o.tide_h0 + o.tide_amp * cosf(o.tide_omega * t) * ramp;
-}
-
-// Everything a trace node needs from the state, shared by the forward flux
-// and by both passes of the adjoint.
-struct TraceVals {
-  float nx, ny;
-  float hM, hP, huM, hvM, huP, hvP;
-  float uM, vM, uP, vP;
-  float hMs, hPs;      // star depths (== hM, hP without well-balancing)
-  bool passM, passP;   // max(0, x) passed its argument
-  float spdM, spdP;
-  bool wall;
-  float obc;
-};
-
-__device__ __forceinline__ void trace_values(
-    const Ops& o, int i, const float* h, const float* hu, const float* hv,
-    float h_bc, TraceVals& tv) {
-  const int vm = o.vmapM[i], vp = o.vmapP[i];
-  tv.nx = o.nx[i]; tv.ny = o.ny[i];
-  tv.hM = h[vm];  tv.hP = h[vp];
-  tv.huM = hu[vm]; tv.hvM = hv[vm];
-  tv.huP = hu[vp]; tv.hvP = hv[vp];
-  tv.wall = o.wall[i] != 0.0f;
-  if (tv.wall) {  // reflect the normal momentum
-    const float un2 = 2.0f * (tv.huM * tv.nx + tv.hvM * tv.ny);
-    tv.huP = tv.huM - un2 * tv.nx;
-    tv.hvP = tv.hvM - un2 * tv.ny;
-  }
-  tv.obc = 0.0f;
-  if (o.has_tidal) {  // prescribed total depth on BC_OUT nodes
-    tv.obc = o.obc[i];
-    tv.hP = tv.hP + tv.obc * (h_bc - tv.hP);
-  }
-  tv.uM = tv.huM / tv.hM; tv.vM = tv.hvM / tv.hM;
-  tv.uP = tv.huP / tv.hP; tv.vP = tv.hvP / tv.hP;
-  if (o.wb) {
-    const float HM = o.HMt[i], HP = o.HPt[i];
-    const float bstar = fmaxf(-HM, -HP);
-    const float aM = tv.hM - HM - bstar, aP = tv.hP - HP - bstar;
-    tv.passM = aM > 0.0f; tv.passP = aP > 0.0f;
-    tv.hMs = fmaxf(0.0f, aM); tv.hPs = fmaxf(0.0f, aP);
-  } else {
-    tv.passM = tv.passP = true;
-    tv.hMs = tv.hM; tv.hPs = tv.hP;
-  }
-  tv.spdM = safe_norm(tv.uM, tv.vM) + sqrtf(o.g * tv.hMs);
-  tv.spdP = safe_norm(tv.uP, tv.vP) + sqrtf(o.g * tv.hPs);
-}
-
-// The jumps dq_i that the Lax-Friedrichs speed multiplies.
-__device__ __forceinline__ void trace_jumps(
-    const Ops& o, const TraceVals& tv, float& dq1, float& dq2, float& dq3) {
-  if (o.wb) {
-    dq1 = tv.hMs - tv.hPs;
-    dq2 = tv.hMs * tv.uM - tv.hPs * tv.uP;
-    dq3 = tv.hMs * tv.vM - tv.hPs * tv.vP;
-  } else {
-    dq1 = tv.hM - tv.hP;
-    dq2 = tv.huM - tv.huP;
-    dq3 = tv.hvM - tv.hvP;
-  }
-}
-
-struct Vec3 { float *a, *b, *c; };
-
-__device__ __forceinline__ Vec3 carve(float*& p, int n) {
-  Vec3 v; v.a = p; v.b = p + n; v.c = p + 2 * n; p += 3 * n; return v;
-}
+#include "sw2d_common.cuh"
 
 struct FwdScratch {
   Vec3 vflux;  // F2, F3 (= G2), G3 at volume nodes
@@ -172,53 +40,16 @@ __device__ void eval_rhs(const Ops& o, const Vec3& S, float t,
                          const float* __restrict__ ctrl, int use_filter,
                          const FwdScratch& w, const Vec3& Kout) {
   const int tid = threadIdx.x, nth = blockDim.x;
-  const float g = o.g;
   const float h_bc = tidal_depth(o, t);
 
-  for (int v = tid; v < o.nV; v += nth) {
-    const float h = S.a[v], hu = S.b[v], hv = S.c[v];
-    const float inv = 1.0f / h, p = 0.5f * g * h * h;
-    w.vflux.a[v] = hu * hu * inv + p;
-    w.vflux.b[v] = hu * hv * inv;
-    w.vflux.c[v] = hv * hv * inv + p;
-  }
+  for (int v = tid; v < o.nV; v += nth)
+    volume_fluxes(o, S.a[v], S.b[v], S.c[v], w.vflux.a[v], w.vflux.b[v],
+                  w.vflux.c[v]);
   for (int i = tid; i < o.nT; i += nth) {
     TraceVals tv;
     trace_values(o, i, S.a, S.b, S.c, h_bc, tv);
-    float F1M, F2M, F3M, G1M, G3M, F1P, F2P, F3P, G1P, G3P;
-    float c1 = 0.0f, c2 = 0.0f, c3 = 0.0f;
-    if (o.wb) {
-      const float pM = 0.5f * g * tv.hMs * tv.hMs;
-      const float pP = 0.5f * g * tv.hPs * tv.hPs;
-      F1M = tv.hMs * tv.uM; G1M = tv.hMs * tv.vM;
-      F2M = tv.hMs * tv.uM * tv.uM + pM;
-      F3M = tv.hMs * tv.uM * tv.vM;
-      G3M = tv.hMs * tv.vM * tv.vM + pM;
-      F1P = tv.hPs * tv.uP; G1P = tv.hPs * tv.vP;
-      F2P = tv.hPs * tv.uP * tv.uP + pP;
-      F3P = tv.hPs * tv.uP * tv.vP;
-      G3P = tv.hPs * tv.vP * tv.vP + pP;
-      const float corr = (tv.hM - tv.hMs) * (tv.uM * tv.nx + tv.vM * tv.ny);
-      c1 = corr; c2 = corr * tv.uM; c3 = corr * tv.vM;
-    } else {
-      const float iM = 1.0f / tv.hM, iP = 1.0f / tv.hP;
-      const float pM = 0.5f * g * tv.hM * tv.hM;
-      const float pP = 0.5f * g * tv.hP * tv.hP;
-      F1M = tv.huM; G1M = tv.hvM;
-      F2M = tv.huM * tv.huM * iM + pM;
-      F3M = tv.huM * tv.hvM * iM;
-      G3M = tv.hvM * tv.hvM * iM + pM;
-      F1P = tv.huP; G1P = tv.hvP;
-      F2P = tv.huP * tv.huP * iP + pP;
-      F3P = tv.huP * tv.hvP * iP;
-      G3P = tv.hvP * tv.hvP * iP + pP;
-    }
-    float dq1, dq2, dq3;
-    trace_jumps(o, tv, dq1, dq2, dq3);
-    w.pre.a[i] = 0.5f * ((F1M - F1P) * tv.nx + (G1M - G1P) * tv.ny) + c1;
-    w.pre.b[i] = 0.5f * ((F2M - F2P) * tv.nx + (F3M - F3P) * tv.ny) + c2;
-    w.pre.c[i] = 0.5f * ((F3M - F3P) * tv.nx + (G3M - G3P) * tv.ny) + c3;
-    w.dq.a[i] = dq1; w.dq.b[i] = dq2; w.dq.c[i] = dq3;
+    trace_flux_pre(o, tv, w.pre.a[i], w.pre.b[i], w.pre.c[i]);
+    trace_jumps(o, tv, w.dq.a[i], w.dq.b[i], w.dq.c[i]);
     w.spd[i] = fmaxf(tv.spdM, tv.spdP);
   }
   __syncthreads();
@@ -261,25 +92,7 @@ __device__ void eval_rhs(const Ops& o, const Vec3& S, float t,
     float r1 = l1 - (rx * rF1 + sx * sF1 + ry * rG1 + sy * sG1);
     float r2 = l2 - (rx * rF2 + sx * sF2 + ry * rF3 + sy * sF3);
     float r3 = l3 - (rx * rF3 + sx * sF3 + ry * rG3 + sy * sG3);
-    const float h = S.a[v], hu = S.b[v], hv = S.c[v];
-    if (o.has_bathy) {
-      r2 += g * h * o.Hx[v];
-      r3 += g * h * o.Hy[v];
-    }
-    if (o.cd != 0.0f) {
-      const float u = hu / h, vv = hv / h, nrm = safe_norm(u, vv);
-      r2 -= o.cd * nrm * u;
-      r3 -= o.cd * nrm * vv;
-    }
-    if (o.fcor != 0.0f) {
-      r2 += o.fcor * hv;
-      r3 -= o.fcor * hu;
-    }
-    for (int c = 0; c < o.n_ctrl; ++c) {
-      const float cc = ctrl[c];
-      r2 += cc * o.BU[c * o.nV + v];
-      r3 += cc * o.BV[c * o.nV + v];
-    }
+    add_sources(o, v, S.a[v], S.b[v], S.c[v], ctrl, r2, r3);
     R.a[v] = r1; R.b[v] = r2; R.c[v] = r3;
   }
   __syncthreads();
@@ -407,7 +220,6 @@ __device__ void eval_rhs_vjp(const Ops& o, const Vec3& S, float t,
                              const BwdScratch& w, const Vec3& Aout,
                              float* cpart) {
   const int tid = threadIdx.x, nth = blockDim.x;
-  const float g = o.g;
   const float h_bc = tidal_depth(o, t);
 
   // filter transpose, and the control cotangent (the control enters the
@@ -444,29 +256,9 @@ __device__ void eval_rhs_vjp(const Ops& o, const Vec3& S, float t,
       Fb1 -= dx * w1; Fb2 -= dx * w2; Fb3 -= dx * w3;
       Gb1 -= dy * w1; Gb2 -= dy * w2; Gb3 -= dy * w3;
     }
-    const float h = S.a[v], hu = S.b[v], hv = S.c[v];
-    const float inv = 1.0f / h, u = hu * inv, vv = hv * inv;
-    const float w23 = Fb3 + Gb2;
-    // F1=hu, F2=hu^2/h+p, F3=G2=hu*hv/h, G1=hv, G3=hv^2/h+p, p=g/2 h^2
-    float hub = Fb1 + 2.0f * u * Fb2 + vv * w23;
-    float hvb = Gb1 + 2.0f * vv * Gb3 + u * w23;
-    float hb = (g * h - u * u) * Fb2 + (g * h - vv * vv) * Gb3 - u * vv * w23;
-    const float w2 = w.wf.b[v], w3 = w.wf.c[v];
-    if (o.has_bathy) hb += g * (o.Hx[v] * w2 + o.Hy[v] * w3);
-    if (o.cd != 0.0f) {
-      const float nrm = safe_norm(u, vv);
-      if (nrm > 0.0f) {
-        const float a2 = -o.cd * w2, a3 = -o.cd * w3, in = 1.0f / nrm;
-        const float ub = a2 * (nrm + u * u * in) + a3 * (u * vv * in);
-        const float vb = a2 * (u * vv * in) + a3 * (nrm + vv * vv * in);
-        hub += ub * inv; hvb += vb * inv;
-        hb -= (ub * u + vb * vv) * inv;
-      }
-    }
-    if (o.fcor != 0.0f) {
-      hvb += o.fcor * w2;
-      hub -= o.fcor * w3;
-    }
+    float hb, hub, hvb;
+    volume_vjp_point(o, v, S.a[v], S.b[v], S.c[v], Fb1, Fb2, Fb3, Gb1, Gb2,
+                     Gb3, w.wf.b[v], w.wf.c[v], hb, hub, hvb);
     Aout.a[v] = hb; Aout.b[v] = hub; Aout.c[v] = hvb;
   }
   // lift transpose; first trace pass: speeds and the speed's cotangent
@@ -494,82 +286,16 @@ __device__ void eval_rhs_vjp(const Ops& o, const Vec3& S, float t,
   for (int i = tid; i < o.nT; i += nth) {
     TraceVals tv;
     trace_values(o, i, S.a, S.b, S.c, h_bc, tv);
-    const int f0 = (i / o.Nfp) * o.Nfp;
-    float lam = w.spd[f0], lsum = w.lamb[f0];
-    for (int j = 1; j < o.Nfp; ++j) {
-      lam = fmaxf(lam, w.spd[f0 + j]);
-      lsum += w.lamb[f0 + j];
-    }
-    int cnt = 0;
-    for (int j = 0; j < o.Nfp; ++j) cnt += (w.spd[f0 + j] == lam) ? 1 : 0;
-    const float spd = fmaxf(tv.spdM, tv.spdP);
-    const float sb = (spd == lam) ? lsum / (float)cnt : 0.0f;
-    const float wM = tv.spdM > tv.spdP ? 1.0f
-                     : (tv.spdM == tv.spdP ? 0.5f : 0.0f);
-    const float spdMb = sb * wM, spdPb = sb - spdMb;
-
-    const float d1 = w.dfb.a[i], d2 = w.dfb.b[i], d3 = w.dfb.c[i];
-    const float nx = tv.nx, ny = tv.ny;
-    // cotangents of the '-' side fluxes; the '+' side gets the negatives
-    const float q1 = -0.5f * lam * d1, q2 = -0.5f * lam * d2;
-    const float q3 = -0.5f * lam * d3;
-    const float Fb1 = 0.5f * nx * d1 + q2, Gb1 = 0.5f * ny * d1 + q3;
-    const float Fb2 = 0.5f * nx * d2, Gb3 = 0.5f * ny * d3;
-    const float w23 = 0.5f * nx * d3 + 0.5f * ny * d2;
-
-    float hMsb = q1, hPsb = -q1;
-    float uMb = 0.0f, vMb = 0.0f, uPb = 0.0f, vPb = 0.0f;
-    float hMb = 0.0f, hPb = 0.0f;
-    if (o.wb) {
-      const float corr_b = d1 + tv.uM * d2 + tv.vM * d3;
-      const float corr = (tv.hM - tv.hMs) * (tv.uM * nx + tv.vM * ny);
-      const float unM = tv.uM * nx + tv.vM * ny;
-      uMb += corr * d2; vMb += corr * d3;
-      hMb += corr_b * unM; hMsb -= corr_b * unM;
-      const float tb = corr_b * (tv.hM - tv.hMs);
-      uMb += tb * nx; vMb += tb * ny;
-    }
-    // fluxes from (h*, u, v):  F1=h*u, G1=h*v, F2=h*u^2+p, F3=G2=h*uv,
-    // G3=h*v^2+p, p=g/2 h*^2
-    {
-      const float hs = tv.hMs, u = tv.uM, v = tv.vM;
-      hMsb += u * Fb1 + v * Gb1 + (u * u + g * hs) * Fb2
-              + (v * v + g * hs) * Gb3 + u * v * w23;
-      uMb += hs * (Fb1 + 2.0f * u * Fb2 + v * w23);
-      vMb += hs * (Gb1 + 2.0f * v * Gb3 + u * w23);
-    }
-    {
-      const float hs = tv.hPs, u = tv.uP, v = tv.vP;
-      hPsb -= u * Fb1 + v * Gb1 + (u * u + g * hs) * Fb2
-              + (v * v + g * hs) * Gb3 + u * v * w23;
-      uPb -= hs * (Fb1 + 2.0f * u * Fb2 + v * w23);
-      vPb -= hs * (Gb1 + 2.0f * v * Gb3 + u * w23);
-    }
-    // speeds: |(u, v)| + sqrt(g h*)
-    {
-      const float nM = safe_norm(tv.uM, tv.vM);
-      if (nM > 0.0f) { uMb += spdMb * tv.uM / nM; vMb += spdMb * tv.vM / nM; }
-      if (tv.hMs > 0.0f) hMsb += spdMb * 0.5f * sqrtf(g / tv.hMs);
-      const float nP = safe_norm(tv.uP, tv.vP);
-      if (nP > 0.0f) { uPb += spdPb * tv.uP / nP; vPb += spdPb * tv.vP / nP; }
-      if (tv.hPs > 0.0f) hPsb += spdPb * 0.5f * sqrtf(g / tv.hPs);
-    }
-    if (tv.passM) hMb += hMsb;
-    if (tv.passP) hPb += hPsb;
-    // u = hu / h
-    float huMb = uMb / tv.hM, hvMb = vMb / tv.hM;
-    hMb -= (uMb * tv.uM + vMb * tv.vM) / tv.hM;
-    float huPb = uPb / tv.hP, hvPb = vPb / tv.hP;
-    hPb -= (uPb * tv.uP + vPb * tv.vP) / tv.hP;
-    hPb *= (1.0f - tv.obc);  // a prescribed depth does not see the state
-    if (tv.wall) {           // reflection: '+' momentum is a map of '-'
-      const float unb = -2.0f * (nx * huPb + ny * hvPb);
-      huMb += huPb + nx * unb;
-      hvMb += hvPb + ny * unb;
-      huPb = 0.0f; hvPb = 0.0f;
-    }
-    w.tM.a[i] = hMb; w.tM.b[i] = huMb; w.tM.c[i] = hvMb;
-    w.tP.a[i] = hPb; w.tP.b[i] = huPb; w.tP.c[i] = hvPb;
+    float lam;
+    // (this node's speed as the first pass stored it: a recomputed value
+    // may be contracted differently and miss the equality with the maximum)
+    const float sb = face_speed_share(w.spd, w.lamb, (i / o.Nfp) * o.Nfp,
+                                      o.Nfp, w.spd[i], lam);
+    float tM[3], tP[3];
+    face_vjp_point(o, tv, lam, sb, w.dfb.a[i], w.dfb.b[i], w.dfb.c[i], tM,
+                   tP);
+    w.tM.a[i] = tM[0]; w.tM.b[i] = tM[1]; w.tM.c[i] = tM[2];
+    w.tP.a[i] = tP[0]; w.tP.b[i] = tP[1]; w.tP.c[i] = tP[2];
   }
   __syncthreads();
 
@@ -680,16 +406,6 @@ __global__ void sw2d_rollout_bwd_kernel(
 // ---------------------------------------------------------------------------
 // C interface
 // ---------------------------------------------------------------------------
-
-template <typename Kern>
-static int prepare(Kern kern, size_t bytes) {
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
-}
 
 extern "C" {
 

@@ -50,6 +50,7 @@ import torch
 
 from ..config import check_matmul_precision
 from ..context import BC_OUT, BC_WALL, DGContext2D, _tree_to
+from .limiters import surface_reconstruction
 from .sw2d import SWPhysics
 
 # Threads of one block (one block per scenario). The kernels loop over nodes
@@ -74,6 +75,11 @@ class FusedStepMeta(NamedTuple):
     has_bathy: bool = False  # bed-slope sources
     # tidal BC_OUT params (h0, amp, omega, ramp_tau) or None
     tidal: tuple | None = None
+    # the switches below are set by the blocked operator set only
+    # (ops/sw2d_blocked.py); the dense kernels of this module refuse them
+    has_sponge: bool = False  # sponge relaxation after each step
+    wetdry: bool = False  # minmod surface reconstruction + positivity limiter
+    h_floor: float = 1e-3  # dry-cell depth floor of the wet/dry branch
 
     @property
     def coastal(self) -> bool:
@@ -133,9 +139,12 @@ def _inverse_map(vmap: np.ndarray, n_v: int) -> tuple[np.ndarray, np.ndarray]:
     return ptr.astype(np.int32), order.astype(np.int32)
 
 
-def _pack_buffers(arr: dict, n_v: int) -> tuple[np.ndarray, np.ndarray]:
+def _pack_buffers(arr: dict, n_v: int,
+                  extra: tuple = ()) -> tuple[np.ndarray, np.ndarray]:
+    """``extra``: names of further float fields appended after ``BV``."""
     forder = ("Dr", "Ds", "lift", "filt", "rx", "sx", "ry", "sy", "nx", "ny",
-              "fscale", "wall", "obc", "HMt", "HPt", "Hx", "Hy", "BU", "BV")
+              "fscale", "wall", "obc", "HMt", "HPt", "Hx", "Hy", "BU", "BV",
+              *extra)
     fbuf = np.concatenate(
         [np.asarray(arr[k], dtype=np.float32).reshape(-1) for k in forder])
     mptr, midx = _inverse_map(arr["vmapM"], n_v)
@@ -147,11 +156,14 @@ def _pack_buffers(arr: dict, n_v: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _ops_from_arrays(arr: dict, meta: FusedStepMeta, dtype: torch.dtype,
-                     device) -> FusedStepOps:
-    """``arr``: numpy float64/int/bool arrays keyed by field name."""
-    fbuf, ibuf = _pack_buffers(arr, meta.n_v)
+                     device, cls=None, extra: tuple = ()):
+    """``arr``: numpy float64/int/bool arrays keyed by field name. ``cls``:
+    ``FusedStepOps`` or a dataclass that extends it by the ``extra`` float
+    fields."""
+    cls = FusedStepOps if cls is None else cls
+    fbuf, ibuf = _pack_buffers(arr, meta.n_v, extra)
     fields = {}
-    for f in dataclasses.fields(FusedStepOps):
+    for f in dataclasses.fields(cls):
         if f.name in ("fbuf", "ibuf"):
             continue
         a = np.ascontiguousarray(arr[f.name])
@@ -161,7 +173,7 @@ def _ops_from_arrays(arr: dict, meta: FusedStepMeta, dtype: torch.dtype,
             fields[f.name] = torch.as_tensor(a.astype(np.int64), device=device)
         else:
             fields[f.name] = torch.as_tensor(a, dtype=dtype, device=device)
-    return FusedStepOps(
+    return cls(
         **fields,
         fbuf=torch.as_tensor(fbuf, device=device),
         ibuf=torch.as_tensor(ibuf, device=device))
@@ -172,18 +184,12 @@ def _np64(t) -> np.ndarray:
                       else t, dtype=np.float64)
 
 
-def build_fused_step_ops(
-    ctx: DGContext2D,
-    phys: SWPhysics,
-    forcing_bu: np.ndarray | None = None,  # (n_ctrl, K, Np) hu injector
-    forcing_bv: np.ndarray | None = None,
-    dtype: torch.dtype = torch.float32,
-    tidal: tuple | None = None,  # (h0, amp, omega, ramp_tau) BC_OUT forcing
-    device="cuda",
-) -> tuple[FusedStepOps, FusedStepMeta]:
-    """Freeze the operator set. Host-side, runs once at setup. Coastal
-    physics (bathymetry/WB/drag/Coriolis from ``phys``, tidal BC_OUT forcing
-    from ``tidal``) is switched on in the kernels when present."""
+def _operator_arrays(ctx: DGContext2D, phys: SWPhysics, forcing_bu,
+                     forcing_bv, tidal) -> tuple[dict, dict]:
+    """The operator set as float64 numpy arrays keyed by field name, and the
+    keyword arguments of its ``FusedStepMeta``. Shared by the dense set
+    (``build_fused_step_ops``) and the blocked set
+    (``ops/sw2d_blocked.py::build_blocked_step_ops``)."""
     K, n_p = ctx.k_elem, ctx.n_p
     n_fp, n_faces = ctx.n_fp, ctx.n_faces
     n_v, n_t = K * n_p, K * n_faces * n_fp
@@ -224,16 +230,33 @@ def build_fused_step_ops(
     if has_bathy:
         arr["Hx"] = _np64(phys.Hx).reshape(-1)
         arr["Hy"] = _np64(phys.Hy).reshape(-1)
-    if wb:
+    if phys.H is not None:  # read by the star depths (wb) and by wet/dry
         Hflat = _np64(phys.H).reshape(-1)
         arr["HMt"], arr["HPt"] = Hflat[vmapM], Hflat[vmapP]
 
-    meta = FusedStepMeta(
+    meta_kw = dict(
         k_elem=K, n_p=n_p, n_faces=n_faces, n_fp=n_fp, n_v=n_v, n_t=n_t,
         n_ctrl=n_ctrl, g=float(phys.g), cd=float(phys.cd),
         f_cor=float(phys.f_cor), wb=wb, has_bathy=has_bathy,
         tidal=tuple(float(v) for v in tidal) if tidal is not None else None,
     )
+    return arr, meta_kw
+
+
+def build_fused_step_ops(
+    ctx: DGContext2D,
+    phys: SWPhysics,
+    forcing_bu: np.ndarray | None = None,  # (n_ctrl, K, Np) hu injector
+    forcing_bv: np.ndarray | None = None,
+    dtype: torch.dtype = torch.float32,
+    tidal: tuple | None = None,  # (h0, amp, omega, ramp_tau) BC_OUT forcing
+    device="cuda",
+) -> tuple[FusedStepOps, FusedStepMeta]:
+    """Freeze the operator set. Host-side, runs once at setup. Coastal
+    physics (bathymetry/WB/drag/Coriolis from ``phys``, tidal BC_OUT forcing
+    from ``tidal``) is switched on in the kernels when present."""
+    arr, meta_kw = _operator_arrays(ctx, phys, forcing_bu, forcing_bv, tidal)
+    meta = FusedStepMeta(**meta_kw)
     return _ops_from_arrays(arr, meta, dtype, device), meta
 
 
@@ -246,6 +269,14 @@ def _safe_norm(u, v):
     pos = r2 > 0.0
     r = torch.sqrt(torch.where(pos, r2, torch.ones_like(r2)))
     return torch.where(pos, r, torch.zeros_like(r))
+
+
+def _desingularized_velocity(h, hu, hv, h_floor: float):
+    """Velocities that go to zero, not to infinity, as the depth goes to the
+    floor (Kurganov-Petrova style); equal to hu/h, hv/h above 4 h_floor."""
+    eps2 = (4.0 * h_floor) ** 2
+    inv = 2.0 * h / (h * h + torch.clamp_min(h * h, eps2))
+    return hu * inv, hv * inv
 
 
 def _tidal_depth(meta: FusedStepMeta, t: float) -> float:
@@ -283,6 +314,17 @@ def _trace_values(o: FusedStepOps, m: FusedStepMeta, h, hu, hv, t):
     hvP = torch.where(o.wall, hvM - un2 * o.ny, hvP)
     if m.tidal is not None:
         hP = hP + o.obc.to(hP.dtype) * (_tidal_depth(m, t) - hP)
+    if m.wetdry:
+        # minmod surface reconstruction of the columns, desingularized
+        # velocities (ops/sw2d_wetdry.py::sw2d_rhs_wetdry on flat arrays)
+        hMs, hPs = surface_reconstruction(hM - o.HMt, hM, hP - o.HPt, hP,
+                                          m.h_floor)
+        uM, vM = _desingularized_velocity(hM, huM, hvM, m.h_floor)
+        uP, vP = _desingularized_velocity(hP, huP, hvP, m.h_floor)
+        spdM = _safe_norm(uM, vM) + torch.sqrt(m.g * hMs)
+        spdP = _safe_norm(uP, vP) + torch.sqrt(m.g * hPs)
+        return _TraceVals(hM, hP, huM, hvM, huP, hvP, uM, vM, uP, vP, hMs,
+                          hPs, None, None, spdM, spdP)
     uM, vM = huM / hM, hvM / hM
     uP, vP = huP / hP, hvP / hP
     if m.wb:
@@ -314,7 +356,7 @@ def _rhs_plain(o: FusedStepOps, m: FusedStepMeta, h, hu, hv, t, ctrl):
     g = m.g
     tv = _trace_values(o, m, h, hu, hv, t)
     nx, ny = o.nx, o.ny
-    if m.wb:
+    if m.wb or m.wetdry:
         def flux_uv(hh, uu, vv):
             pr = 0.5 * g * hh * hh
             return (hh * uu, hh * uu * uu + pr, hh * uu * vv,
@@ -347,11 +389,16 @@ def _rhs_plain(o: FusedStepOps, m: FusedStepMeta, h, hu, hv, t, ctrl):
         d2 = d2 + corr * tv.uM
         d3 = d3 + corr * tv.vM
 
-    inv_h = 1.0 / h
     p = 0.5 * g * h * h
-    F2 = hu * hu * inv_h + p
-    G2 = hu * hv * inv_h
-    G3 = hv * hv * inv_h + p
+    if m.wetdry:
+        u, v = _desingularized_velocity(h, hu, hv, m.h_floor)
+        F2, G2, G3 = h * u * u + p, h * u * v, h * v * v + p
+    else:
+        inv_h = 1.0 / h
+        u, v = hu * inv_h, hv * inv_h
+        F2 = hu * hu * inv_h + p
+        G2 = hu * hv * inv_h
+        G3 = hv * hv * inv_h + p
 
     check_matmul_precision(h)
     rx, sx, ry, sy = (_elem(m, a[None]) for a in (o.rx, o.sx, o.ry, o.sy))
@@ -370,10 +417,14 @@ def _rhs_plain(o: FusedStepOps, m: FusedStepMeta, h, hu, hv, t, ctrl):
     rhs3 = (surf(d3) - div(G2, G3)).reshape(B, -1)
 
     if m.has_bathy:
-        rhs2 = rhs2 + g * h * o.Hx
-        rhs3 = rhs3 + g * h * o.Hy
+        if m.wetdry:  # no bed-slope forcing in dry cells
+            wet = (h > 5.0 * m.h_floor).to(h.dtype)
+            rhs2 = rhs2 + g * h * o.Hx * wet
+            rhs3 = rhs3 + g * h * o.Hy * wet
+        else:
+            rhs2 = rhs2 + g * h * o.Hx
+            rhs3 = rhs3 + g * h * o.Hy
     if m.cd != 0.0:
-        u, v = hu / h, hv / h
         nrm = _safe_norm(u, v)
         rhs2 = rhs2 - m.cd * nrm * u
         rhs3 = rhs3 - m.cd * nrm * v
@@ -629,17 +680,22 @@ class _SwDesc(ctypes.Structure):
     """Mirror of ``struct SwDesc`` in the kernels' source."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
-        "K", "Np", "Nfaces", "Nfp", "n_ctrl", "wb", "has_bathy", "has_tidal")
+        "K", "Np", "Nfaces", "Nfp", "n_ctrl", "wb", "has_bathy", "has_tidal",
+        "has_sponge", "wetdry", "blocked")
     ] + [(n, ctypes.c_float) for n in (
-        "g", "cd", "fcor", "tide_h0", "tide_amp", "tide_omega", "tide_tau")]
+        "g", "cd", "fcor", "tide_h0", "tide_amp", "tide_omega", "tide_tau",
+        "h_floor")]
 
 
-def _desc(meta: FusedStepMeta) -> _SwDesc:
+def _desc(meta: FusedStepMeta, blocked: bool = False) -> _SwDesc:
+    """``blocked``: the packed float buffer carries the blocked set's extra
+    fields (still-water depth and sponge coefficient) after ``BV``."""
     h0, amp, omega, tau = meta.tidal if meta.tidal is not None else (0.0,) * 4
     return _SwDesc(meta.k_elem, meta.n_p, meta.n_faces, meta.n_fp,
                    meta.n_ctrl, int(meta.wb), int(meta.has_bathy),
-                   int(meta.tidal is not None), meta.g, meta.cd, meta.f_cor,
-                   h0, amp, omega, tau)
+                   int(meta.tidal is not None), int(meta.has_sponge),
+                   int(meta.wetdry), int(blocked), meta.g, meta.cd,
+                   meta.f_cor, h0, amp, omega, tau, meta.h_floor)
 
 
 def _lib():
@@ -682,6 +738,9 @@ def _check_kernel_inputs(ops: FusedStepOps, meta: FusedStepMeta,
         raise TypeError(f"the CUDA kernels are float32, got {ref.dtype}")
     if ops.fbuf.device != ref.device or ops.ibuf.device != ref.device:
         raise ValueError("operator set and state lie on different devices")
+    if meta.wetdry or meta.has_sponge:
+        raise ValueError("the dense kernels have no wet/dry branch and no "
+                         "sponge; use the blocked kernels")
     lib = _lib()
     desc = _desc(meta)
     need = lib.sw2d_smem_bytes(ctypes.byref(desc), which, THREADS)
