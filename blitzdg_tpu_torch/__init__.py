@@ -8,12 +8,15 @@ package so that a reader finds each counterpart; each module's docstring
 names it. This package imports ``torch`` and ``numpy`` only: never ``jax``,
 ``flax``, ``optax`` or anything of ``blitzdg_tpu``.
 
-Two paths run through kernels so far. The dense path (small meshes, huge
+Three paths run through kernels so far. The dense path (small meshes, huge
 scenario batches): ``mpc.solve_mpc_fused`` over ``ops.sw2d_fused``, whole
 mesh per thread block. The blocked path (meshes of thousands of elements):
 ``ops.sw2d_blocked`` (``sw2d_step_blocked``, ``sw2d_rollout_blocked``,
 ``make_rollout_blocked``) and ``mpc.solve_mpc_blocked`` /
-``mpc.solve_mpc_blocked_gn`` over it, mesh split over thread blocks.
+``mpc.solve_mpc_blocked_gn`` over it, mesh split over thread blocks. The
+curved weak-form path (Gordon-Hall deformed elements, cubature volume and
+Gauss face integrals, a tracer as fourth field): ``ops.sw2d_curved_blocked``
+and ``mpc.solve_mpc_curved_blocked`` / ``mpc.solve_mpc_curved_blocked_gn``.
 
 Entry points take ``device=`` and default to ``"cuda"``; on a machine
 without CUDA the default raises, it does not fall back to the CPU.

@@ -14,7 +14,10 @@ import torch
 from .context import BCMaps, DGContext2D
 from .ops.sw2d import SWPhysics
 from .ops.sw2d_blocked import BlockedMeta, BlockedOps, build_blocked_step_ops
+from .ops.sw2d_curved_blocked import (CurvedBlockedMeta, CurvedBlockedOps,
+                                      build_curved_blocked_ops)
 from .ops.sw2d_fused import FusedStepMeta, FusedStepOps, build_fused_step_ops
+from .specgrid.cubature import CubatureContext2D, GaussFaceContext2D
 
 _STATIC = ("n_order", "n_p", "k_elem", "n_faces", "n_fp")
 _INDEX = ("fmask", "vmapM", "vmapP", "mapP", "mapB", "vmapB", "bc_table",
@@ -104,3 +107,64 @@ def blocked_step_ops_from_numpy(ctx_arrays: dict, ctx_static: dict,
     return build_blocked_step_ops(ctx, phys, forcing_bu, forcing_bv,
                                   dtype=dtype, tidal=tidal, wetdry=wetdry,
                                   h_floor=h_floor, device=device)
+
+
+def _fields_from_numpy(cls, arrays: dict, static: str, device, dtype):
+    """A frozen context ``cls`` from its fields as numpy: ``static`` names
+    the integer field, index and boolean arrays keep their kind, every other
+    array goes to ``dtype``."""
+    fields = {static: int(arrays[static])}
+    for name, a in arrays.items():
+        if name == static:
+            continue
+        if isinstance(a, dict):  # per-tag boundary lists
+            kind = bool if name == "bc_mask" else np.int64
+            fields[name] = {int(t): torch.as_tensor(np.asarray(v, dtype=kind),
+                                                    device=device)
+                            for t, v in a.items()}
+        elif name in ("mapM", "mapP"):
+            fields[name] = torch.as_tensor(np.asarray(a, dtype=np.int64),
+                                           device=device)
+        else:
+            fields[name] = torch.as_tensor(np.asarray(a, dtype=np.float64),
+                                           dtype=dtype, device=device)
+    return cls(**fields)
+
+
+def cubature_from_numpy(arrays: dict, device="cuda",
+                        dtype: torch.dtype = torch.float32
+                        ) -> CubatureContext2D:
+    """The port's cubature context from the fields of the JAX package's
+    ``CubatureContext2D``, each through ``np.asarray`` (``n_cub`` as int)."""
+    return _fields_from_numpy(CubatureContext2D, arrays, "n_cub", device,
+                              dtype)
+
+
+def gauss_from_numpy(arrays: dict, device="cuda",
+                     dtype: torch.dtype = torch.float32
+                     ) -> GaussFaceContext2D:
+    """The port's Gauss face context from the fields of the JAX package's
+    ``GaussFaceContext2D`` (``bc_idx``/``bc_mask`` as ``{tag: array}``)."""
+    return _fields_from_numpy(GaussFaceContext2D, arrays, "n_gauss", device,
+                              dtype)
+
+
+def curved_blocked_ops_from_numpy(ctx_arrays: dict, ctx_static: dict,
+                                  cub_arrays: dict, gauss_arrays: dict,
+                                  phys_arrays: dict, forcing_bu=None,
+                                  forcing_bv=None, zx=None, zy=None,
+                                  mass_mode: str = "auto",
+                                  use_filter: bool = True, device="cuda",
+                                  dtype: torch.dtype = torch.float32
+                                  ) -> tuple[CurvedBlockedOps,
+                                             CurvedBlockedMeta]:
+    """The curved kernels' operator set from the JAX contexts' fields. The
+    operators are formed in float64 from the given arrays and then stored in
+    ``dtype``."""
+    ctx, phys = _host_float64(ctx_arrays, ctx_static, phys_arrays)
+    cub = cubature_from_numpy(cub_arrays, device="cpu", dtype=torch.float64)
+    gauss = gauss_from_numpy(gauss_arrays, device="cpu", dtype=torch.float64)
+    return build_curved_blocked_ops(ctx, cub, gauss, phys, forcing_bu,
+                                    forcing_bv, zx, zy, dtype=dtype,
+                                    mass_mode=mass_mode,
+                                    use_filter=use_filter, device=device)

@@ -1,5 +1,5 @@
 from .connectivity import build_connectivity
-from .generators import box_triangles
+from .generators import box_triangles, disk_triangles
 from .gmsh import Mesh2D, build_mesh, read_gmsh
 
 __all__ = [
@@ -8,4 +8,5 @@ __all__ = [
     "read_gmsh",
     "build_connectivity",
     "box_triangles",
+    "disk_triangles",
 ]

@@ -1,6 +1,11 @@
 from .blocked import (BlockedMPC, advance_plant_blocked, build_blocked_mpc,
                       mpc_cost_blocked, solve_mpc_blocked,
                       solve_mpc_blocked_gn)
+from .curved_blocked import (CurvedBlockedMPC, advance_plant_curved_blocked,
+                             build_curved_blocked_mpc,
+                             mpc_cost_curved_blocked,
+                             solve_mpc_curved_blocked,
+                             solve_mpc_curved_blocked_gn)
 from .fused import (FusedMPC, advance_plant_fused, build_fused_mpc,
                     mpc_cost_fused, solve_mpc_fused)
 from .problem import MPCProblem, mpc_cost, rollout_controls
@@ -23,4 +28,10 @@ __all__ = [
     "solve_mpc_blocked",
     "solve_mpc_blocked_gn",
     "advance_plant_blocked",
+    "CurvedBlockedMPC",
+    "build_curved_blocked_mpc",
+    "mpc_cost_curved_blocked",
+    "solve_mpc_curved_blocked",
+    "solve_mpc_curved_blocked_gn",
+    "advance_plant_curved_blocked",
 ]

@@ -30,7 +30,7 @@ from ..ops.sw2d import SWState
 from ..ops.sw2d_blocked import (BlockedMeta, BlockedOps,
                                 build_blocked_step_ops, make_rollout_blocked,
                                 sw2d_step_blocked)
-from .problem import MPCProblem
+from .problem import MPCProblem, quadrature_row
 from .solver import MPCSolution, adam_minimize
 
 
@@ -60,11 +60,8 @@ def build_blocked_mpc(
     rollout = make_rollout_blocked(ops, meta, prob.dt, prob.steps_per_control,
                                    use_filter=prob.use_filter,
                                    forward=forward, backward=backward)
-    Vinv = ctx.Vinv.double().cpu()
-    w = (Vinv.T @ Vinv) @ torch.ones((ctx.n_p,), dtype=torch.float64)
-    wj = (w[None, :] * ctx.J.double().cpu()).reshape(-1)
     return BlockedMPC(rollout=rollout, ops=ops, meta=meta,
-                      wj=wj.to(device=device, dtype=dtype))
+                      wj=quadrature_row(ctx, dtype, device))
 
 
 def _flat(f: torch.Tensor) -> torch.Tensor:
@@ -112,6 +109,19 @@ def _init_controls(prob, bm, states0, n_controls, init_controls):
                        device=h.device)
 
 
+def _adam_solve(total, c0, iters: int, learning_rate: float) -> MPCSolution:
+    """Adam over ``total(c) -> per-scenario costs``, then the cost and the
+    gradient norm per scenario at the returned controls."""
+    controls, _, history = adam_minimize(total, c0, iters, learning_rate,
+                                         final_cost=False)
+    c = controls.detach().requires_grad_(True)
+    costs = total(c)
+    (gfin,) = torch.autograd.grad(costs.sum(), c)
+    grad_norm = torch.sqrt(torch.sum(gfin * gfin, dim=(-2, -1)))  # (B,)
+    return MPCSolution(controls=controls, cost=costs.detach(),
+                       cost_history=history, grad_norm=grad_norm)
+
+
 def solve_mpc_blocked(
     prob: MPCProblem,
     bm: BlockedMPC,
@@ -132,14 +142,7 @@ def solve_mpc_blocked(
     conditioned on."""
     c0 = _init_controls(prob, bm, states0, n_controls, init_controls)
     total = lambda c: mpc_cost_blocked(prob, bm, states0, c, targets, H_rest)
-    controls, _, history = adam_minimize(total, c0, iters, learning_rate,
-                                         final_cost=False)
-    c = controls.detach().requires_grad_(True)
-    costs = total(c)
-    (gfin,) = torch.autograd.grad(costs.sum(), c)
-    grad_norm = torch.sqrt(torch.sum(gfin * gfin, dim=(-2, -1)))  # (B,)
-    return MPCSolution(controls=controls, cost=costs.detach(),
-                       cost_history=history, grad_norm=grad_norm)
+    return _adam_solve(total, c0, iters, learning_rate)
 
 
 def _residuals_blocked(prob, bm, states0, targets, H_rest):

@@ -28,7 +28,7 @@ from ..ops.sw2d import SWState
 from ..ops.sw2d_fused import (FusedStepMeta, FusedStepOps,
                               build_fused_step_ops, make_rollout,
                               sw2d_step_fused)
-from .problem import MPCProblem
+from .problem import MPCProblem, quadrature_row
 from .solver import MPCSolution, adam_minimize
 
 
@@ -57,11 +57,8 @@ def build_fused_mpc(
     rollout = make_rollout(ops, meta, prob.dt, prob.steps_per_control,
                            use_filter=prob.use_filter, forward=forward,
                            backward=backward)
-    Vinv = ctx.Vinv.double().cpu()
-    w = (Vinv.T @ Vinv) @ torch.ones((ctx.n_p,), dtype=torch.float64)
-    wj = (w[None, :] * ctx.J.double().cpu()).reshape(-1)
     return FusedMPC(rollout=rollout, ops=ops, meta=meta,
-                    wj=wj.to(device=device, dtype=dtype))
+                    wj=quadrature_row(ctx, dtype, device))
 
 
 def mpc_cost_fused(

@@ -12,8 +12,11 @@ discretization.
    (``(B, K, Np)`` with controls ``(B, horizon, n_controls)``), where the
    JAX package vmaps an unbatched function.
 
-The JAX problem's ``remat`` flag (an XLA memory trade) has no meaning here,
-and its ``rhs_fn`` hook comes with the curved dynamics that use it.
+``rhs_fn`` replaces the built-in dynamics, e.g. by the curved weak-form RHS
+(``ops.sw2d_curved.sw2d_curved_rhs`` closed over its cubature and Gauss
+contexts); the state may then carry further fields (the tracer ``hN``): the
+cost reads ``state.h`` only and the control forcing enters h, hu, hv. The JAX
+problem's ``remat`` flag (an XLA memory trade) has no meaning here.
 """
 from __future__ import annotations
 
@@ -45,6 +48,19 @@ class MPCProblem:
     # dense-trace path: trace extraction as matrix products instead of
     # gathers; build with `build_dense_trace_ops`
     dense_ops: DenseTraceOps | None = None
+    # custom dynamics: rhs_fn(state, t) -> RHS of the state's own type
+    rhs_fn: Callable | None = None
+
+
+def quadrature_row(ctx: DGContext2D, dtype: torch.dtype,
+                   device) -> torch.Tensor:
+    """The mass-weighted quadrature weights of every node, flat (K*Np,): the
+    row sums of the mass matrix times the Jacobian, formed in float64 on the
+    host. The kernel paths' costs sum ``row * err**2``."""
+    Vinv = ctx.Vinv.double().cpu()
+    w = (Vinv.T @ Vinv) @ torch.ones((ctx.n_p,), dtype=torch.float64)
+    wj = (w[None, :] * ctx.J.double().cpu()).reshape(-1)
+    return wj.to(device=device, dtype=dtype)
 
 
 def _controlled_rhs(prob: MPCProblem, control: torch.Tensor,
@@ -52,7 +68,9 @@ def _controlled_rhs(prob: MPCProblem, control: torch.Tensor,
     """RHS with the control injected as a momentum/elevation forcing."""
 
     def rhs(state: SWState, t):
-        if prob.dense_ops is not None:
+        if prob.rhs_fn is not None:
+            base = prob.rhs_fn(state, t)
+        elif prob.dense_ops is not None:
             base = sw2d_rhs_dense(prob.ctx, prob.dense_ops, state, t, prob.phys)
         else:
             base = sw2d_rhs(prob.ctx, state, t, prob.phys)
@@ -80,7 +98,7 @@ def rollout_controls(
             state = ssprk2_step(rhs, state, t, prob.dt, post_stage=post)
             t = t + prob.dt
         traj.append(state)
-    stacked = SWState(*(torch.stack(f, dim=0) for f in zip(*traj)))
+    stacked = type(state0)(*(torch.stack(f, dim=0) for f in zip(*traj)))
     return state, stacked
 
 

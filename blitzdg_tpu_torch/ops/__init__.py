@@ -1,14 +1,21 @@
 """Shallow-water operators of the port (see each module's docstring).
 
-Two kernel paths: the dense one for small meshes (``sw2d_fused``, kernels in
-``csrc/sw2d_dense.cu``) and the element-blocked one for large meshes
-(``sw2d_blocked``, kernels in ``csrc/sw2d_blocked.cu``). The names below are
-the kernel wrappers and what builds their operator sets.
+Three kernel paths: the dense one for small meshes (``sw2d_fused``, kernels
+in ``csrc/sw2d_dense.cu``), the element-blocked one for large meshes
+(``sw2d_blocked``, kernels in ``csrc/sw2d_blocked.cu``) and the curved
+weak-form one (``sw2d_curved_blocked``, kernels in ``csrc/sw2d_curved.cu``).
+The names below are the kernel wrappers and what builds their operator sets.
 """
 from .sw2d_blocked import (BlockedMeta, BlockedOps, build_blocked_step_ops,
                            make_rollout_blocked, matmul_flops_per_step,
                            sw2d_rollout_blocked, sw2d_rollout_bwd_blocked,
                            sw2d_step_blocked)
+from .sw2d_curved_blocked import (CurvedBlockedMeta, CurvedBlockedOps,
+                                  build_curved_blocked_ops,
+                                  make_curved_rollout_blocked,
+                                  sw2d_curved_rollout_blocked,
+                                  sw2d_curved_rollout_bwd_blocked,
+                                  sw2d_curved_step_blocked)
 from .sw2d_fused import (FusedStepMeta, FusedStepOps, build_fused_step_ops,
                          make_rollout, sw2d_rollout_bwd_fused,
                          sw2d_rollout_fused, sw2d_step_fused)
@@ -19,4 +26,7 @@ __all__ = [
     "BlockedOps", "BlockedMeta", "build_blocked_step_ops",
     "make_rollout_blocked", "matmul_flops_per_step", "sw2d_step_blocked",
     "sw2d_rollout_blocked", "sw2d_rollout_bwd_blocked",
+    "CurvedBlockedOps", "CurvedBlockedMeta", "build_curved_blocked_ops",
+    "make_curved_rollout_blocked", "sw2d_curved_step_blocked",
+    "sw2d_curved_rollout_blocked", "sw2d_curved_rollout_bwd_blocked",
 ]

@@ -325,21 +325,6 @@ __global__ void sw2d_blocked_rollout_kernel(Ops o, FwdArgs a) {
 // Adjoint
 // ---------------------------------------------------------------------------
 
-// Sum over the block, the same on every run; every thread must call it.
-__device__ float block_sum(float x, float* red) {
-  for (int d = 16; d > 0; d >>= 1) x += __shfl_down_sync(0xffffffffu, x, d);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float tot = 0.0f;
-  if (threadIdx.x == 0) {
-    const int nw = (blockDim.x + 31) >> 5;
-    for (int w = 0; w < nw; ++w) tot += red[w];
-  }
-  __syncthreads();
-  return tot;  // valid in thread 0
-}
-
 // Transposed gathers at volume node v: add the cotangents of the trace nodes
 // that read it as their '-' value (slots 0..2) or '+' value (slots 3..5).
 // T: one scenario's (nT, 6) scratch.
@@ -602,31 +587,6 @@ __global__ void sw2d_blocked_barrier_probe_kernel(int n) {
 // ---------------------------------------------------------------------------
 // C interface
 // ---------------------------------------------------------------------------
-
-static int g_last_grid = 0;
-
-// One cooperative launch over at most as many blocks as are co-resident.
-static int coop_launch(const void* kern, void** args, int n_units,
-                       int threads, size_t bytes, void* stream) {
-  const int pe = prepare(kern, bytes);
-  if (pe != 0) return pe;
-  cudaError_t e;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                    bytes);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-  const int grid = n_units < per_sm * sms ? n_units : per_sm * sms;
-  g_last_grid = grid;
-  e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(threads), args,
-                                  bytes, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
 
 extern "C" {
 

@@ -3,7 +3,10 @@
 // the blocked kernels (sw2d_blocked.cu: one block per chunk of elements,
 // neighbours read from global memory): the operator set, everything a trace
 // node needs from the state, the pointwise flux, source and limiter
-// formulas, and the pointwise parts of the hand-derived adjoint.
+// formulas, and the pointwise parts of the hand-derived adjoint. The curved
+// kernels (sw2d_curved.cu) have an operator set of their own and share the
+// helpers that know nothing of it: safe_norm, face_speed_share, block_sum,
+// prepare and coop_launch.
 //
 // The same derivation, in tensor code, is ops/sw2d_fused.py (_rhs_plain,
 // _rhs_vjp_plain), where it is tested against torch.autograd. Tie rules of
@@ -426,4 +429,44 @@ static int prepare(Kern kern, size_t bytes) {
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
+}
+
+// Sum over the block, the same on every run; every thread must call it.
+__device__ float block_sum(float x, float* red) {
+  for (int d = 16; d > 0; d >>= 1) x += __shfl_down_sync(0xffffffffu, x, d);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float tot = 0.0f;
+  if (threadIdx.x == 0) {
+    const int nw = (blockDim.x + 31) >> 5;
+    for (int w = 0; w < nw; ++w) tot += red[w];
+  }
+  __syncthreads();
+  return tot;  // valid in thread 0
+}
+
+static int g_last_grid = 0;
+
+// One cooperative launch over at most as many blocks as are co-resident.
+static int coop_launch(const void* kern, void** args, int n_units,
+                       int threads, size_t bytes, void* stream) {
+  const int pe = prepare(kern, bytes);
+  if (pe != 0) return pe;
+  cudaError_t e;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return (int)cudaErrorNotSupported;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  const int grid = n_units < per_sm * sms ? n_units : per_sm * sms;
+  g_last_grid = grid;
+  e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(threads), args,
+                                  bytes, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }

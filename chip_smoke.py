@@ -5,9 +5,9 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
-(``--only dense`` or ``--only blocked`` runs one path's phases alone, for
-work on that path.) What it does, in order (any failure is an exception and
-a non-zero exit):
+(``--only dense``, ``--only blocked`` or ``--only curved`` runs one path's
+phases alone, for work on that path.) What it does, in order (any failure is
+an exception and a non-zero exit):
 
  1. refuses to run without a CUDA device;
  2. builds the CUDA kernels of ``blitzdg_tpu_torch/ops/csrc`` with nvcc;
@@ -38,7 +38,22 @@ a non-zero exit):
     ``mpc/blocked_box.py`` with the launch counters zeroed just before and
     read just after; ``blocked_cross_check`` repeats the Adam solve through
     the plain versions on the card;
- 5. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
+ 5. CURVED path (Gordon-Hall deformed disk, cubature volume and Gauss face
+    integrals, four fields): ``curved_kernels`` holds
+    ``sw2d_curved_step_blocked``, ``sw2d_curved_rollout_blocked`` and
+    ``sw2d_curved_rollout_bwd_blocked`` against their plain versions over 8
+    steps at N=3 on the large disk (K=1014, B=32; perturbed, and from the
+    exact rest start with a cotangent on the depth alone), on the small disk
+    (K=54, B=256), at N=2 (K=96) and on a straight box in the 'affine' mass
+    mode with drag, Coriolis and bed slope; ``curved_path`` drives
+    ``solve_mpc_curved_blocked`` (5 Adam iterations) on both disks,
+    ``solve_mpc_curved_blocked_gn`` (2 x 2) over a sweep of difference steps
+    and ``advance_plant_curved_blocked`` at the full configurations of
+    ``mpc/curved_disk.py``, counters zeroed just before and read just
+    after; ``curved_cross_check`` solves the same problems through
+    ``solve_mpc`` with ``rhs_fn = sw2d_curved_rhs`` (plain tensor code) and
+    compares the final costs per scenario;
+ 6. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
     card's name and power limit, and as the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -102,6 +117,18 @@ ADAM_MIN_DECREASE = 10.0  # first cost / final cost, median over scenarios
 # all scenarios are the same, so rounding differences do not average out
 # over the batch (seen: 0.99934 in every scenario): wider than COST_RATIO.
 BLK_COST_RATIO = (0.995, 1.005)
+
+# Curved kernels, forward, states near 1 (one ulp: 1.2e-7): held to 1e-5
+# over 8 steps, the blocked path's 5e-5 at states near 10 scaled to the
+# state; the adjoint is held per entry like the blocked one.
+CRV_FWD_ATOL = 1e-5
+# Final cost of a curved Adam solve, kernels vs ``solve_mpc`` over the plain
+# curved RHS, per scenario (the JAX benchmark's own cross-check is this
+# ratio's median against 0.999).
+CRV_COST_RATIO = (0.999, 1.001)
+# Difference steps of the curved Gauss-Newton solve that the path tries
+# after the solver's default (``curved_disk.FD_EPS``).
+CRV_FD_EPS_WIDER = (1e-2, 1e-1, 1.0)
 
 
 def say(obj) -> None:
@@ -886,10 +913,459 @@ def blocked_phases(dev, card: str, rng, flush) -> list:
             for name, rec in head.items()]
 
 
+# ---------------------------------------------------------------------------
+# The curved path
+# ---------------------------------------------------------------------------
+
+def curved_rhs_flops(meta, use_filter: bool = True) -> float:
+    """What one curved RHS of one scenario needs (ops/sw2d_curved_blocked.py,
+    ``_curved_rhs_plain``): the per-element products on four fields at 2 per
+    multiply-add (cubature interpolation, Dr^T and Ds^T, the Gauss
+    interpolation of each trace once, the lift, the mass inverse, the
+    filter), plus the pointwise formulas, each add, multiply, division,
+    square root and maximum counted as one. The '+' trace is a fetch of the
+    neighbour's interpolated value: interpolating it a second time, as the
+    kernels do to save a grid barrier, is no part of the function."""
+    np_, nc, nt = meta.n_p, meta.n_cub, meta.n_tr
+    fma = 3 * nc * np_ + 2 * nt * np_ + np_ * np_
+    fma += np_ * np_ if use_filter else 0
+    # cubature point: fluxes 14, four weighted pairs 24
+    # Gauss point: two flux sets 28, two speeds 18, central part 28, jumps 4,
+    # weighted flux 12; face: maximum over its NG points, NG-1
+    # node: sources up to 20, control 4 n_ctrl, stage update 8
+    point = (38 * nc + 90 * nt + (meta.n_gauss - 1) * meta.n_faces
+             + (8 + 4 * meta.n_ctrl + (20 if meta.cd or meta.f_cor else 0)
+                + (6 if meta.has_bed else 0)) * np_)
+    return meta.k_elem * (2.0 * 4 * fma + point)
+
+
+def curved_vjp_flops(meta, use_filter: bool = True) -> float:
+    """What one application of the curved RHS adjoint needs
+    (``_curved_rhs_vjp_plain``), the recompute of cubature and Gauss values
+    included; the '+' values are fetched, as in ``curved_rhs_flops``."""
+    np_, nc, nt = meta.n_p, meta.n_cub, meta.n_tr
+    # mass^T; Dr^T, Ds^T transposed, V and V^T; GI on the values, on the
+    # cotangent, and transposed
+    fma = np_ * np_ + 4 * nc * np_ + 3 * nt * np_
+    fma += np_ * np_ if use_filter else 0
+    # cubature point: weights 24, flux adjoint 36
+    # Gauss point: two speeds 18, flux cotangents 16, speed cotangent 8, two
+    # flux adjoints 72, speed part 8, two speed adjoints 24; face: the share
+    # of the speed cotangent among its largest points, 3 NG
+    # node: source adjoint up to 30, control 4 n_ctrl, lambda update 8
+    point = (60 * nc + 146 * nt + 3 * nt
+             + (8 + 4 * meta.n_ctrl + (30 if meta.cd or meta.f_cor else 0)
+                + (5 if meta.has_bed else 0)) * np_)
+    return meta.k_elem * (2.0 * 4 * fma + point)
+
+
+def check_curved_case(TC, name, ops, meta, S, ctrls, dt, spc, flush, rng,
+                      timed: bool = False, depth_only: bool = False,
+                      bwd_rtol: tuple = (BWD_RTOL_BULK, BWD_RTOL_MAX)):
+    """Compare the three curved kernels with their plain versions on one
+    case: the step, the rollout with stored trajectories, the rollout
+    without, with and without the controls, and the adjoint on the kernel's
+    own trajectories (``depth_only``: a cotangent on the depth trajectory
+    alone, None on the other three, as the MPC cost gives it). Returns the
+    records by kernel (errors always, times and bounds if asked)."""
+    B, n_cs = S[0].shape[0], ctrls.shape[1]
+    n_steps = n_cs * spc
+    finite = lambda fs: all(bool(torch.isfinite(f).all()) for f in fs)
+    out = {}
+
+    def record(kernel, err, tol, ok, **more):
+        rec = {"case": name, "kernel": kernel, "max_abs_err": err, "tol": tol,
+               "ok": bool(ok), **more}
+        out[kernel] = rec
+        return rec
+
+    # --- step ---
+    c0 = ctrls[:, 0].contiguous()
+    step = lambda f: f(ops, meta, *S, c0, dt)
+    got = step(TC.sw2d_curved_step_blocked)
+    ref = step(TC.sw2d_curved_step_blocked_plain)
+    torch.cuda.synchronize()
+    err = max_abs(got, ref)
+    rec = record("sw2d_curved_step_blocked", err, CRV_FWD_ATOL,
+                 finite(got) and err <= CRV_FWD_ATOL,
+                 grid_blocks=TC.last_grid())
+    if timed:
+        rec["ms"] = time_ms(lambda: step(TC.sw2d_curved_step_blocked), 9,
+                            flush)
+        rec["plain_ms"] = time_ms(
+            lambda: step(TC.sw2d_curved_step_blocked_plain), 2, flush)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            4.0 * (8 * B * meta.n_v + B * meta.n_ctrl),
+            B * 2 * curved_rhs_flops(meta))
+
+    # --- rollout: stored trajectories; then none, with and without the
+    # controls ---
+    roll = lambda f, c, traj: f(ops, meta, *S, c, dt, spc,
+                                n_steps=None if c is not None else n_steps,
+                                store_traj=traj)
+    got = roll(TC.sw2d_curved_rollout_blocked, ctrls, True)
+    ref = roll(TC.sw2d_curved_rollout_blocked_plain, ctrls, True)
+    torch.cuda.synchronize()
+    err = max_abs(got, ref)
+    ok = finite(got) and err <= CRV_FWD_ATOL
+    traj = tuple(f.contiguous() for f in got[:4])
+    for c in (ctrls, None):
+        g2 = roll(TC.sw2d_curved_rollout_blocked, c, False)
+        r2 = roll(TC.sw2d_curved_rollout_blocked_plain, c, False)
+        torch.cuda.synchronize()
+        e2 = max_abs(g2, r2)
+        err, ok = max(err, e2), ok and finite(g2) and e2 <= CRV_FWD_ATOL
+    rec = record("sw2d_curved_rollout_blocked", err, CRV_FWD_ATOL, ok,
+                 n_steps=n_steps)
+    if timed:
+        rec["ms"] = time_ms(
+            lambda: roll(TC.sw2d_curved_rollout_blocked, ctrls, True), 9,
+            flush)
+        rec["plain_ms"] = time_ms(
+            lambda: roll(TC.sw2d_curved_rollout_blocked_plain, ctrls, True),
+            2, flush)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            4.0 * (4 * B * meta.n_v + B * n_cs * meta.n_ctrl
+                   + 4 * B * (n_steps + 1) * meta.n_v),
+            B * n_steps * 2 * curved_rhs_flops(meta))
+
+    # --- backward rollout, on the kernel's own trajectories ---
+    tb = [torch.as_tensor(rng.standard_normal(tuple(traj[0].shape)),
+                          dtype=torch.float32, device=S[0].device)
+          for _ in range(4)]
+    if depth_only:
+        tb = [tb[0], None, None, None]
+    bwd = lambda f: f(ops, meta, traj, tb, ctrls, dt, spc)
+    gk = bwd(TC.sw2d_curved_rollout_bwd_blocked)
+    gp = bwd(TC.sw2d_curved_rollout_bwd_blocked_plain)
+    again = bwd(TC.sw2d_curved_rollout_bwd_blocked)
+    torch.cuda.synchronize()
+    per = entry_rel(gk, gp)
+    p99, worst = float(torch.quantile(per, 0.99)), float(per.max())
+    same = all(torch.equal(a, b) for a, b in zip(gk, again))
+    rec = record("sw2d_curved_rollout_bwd_blocked", max_abs(gk, gp),
+                 list(bwd_rtol),
+                 finite(gk) and same and p99 <= bwd_rtol[0]
+                 and worst <= bwd_rtol[1],
+                 max_rel_err=worst, p99_rel_err=p99,
+                 entries_above_bulk_tol=int((per > BWD_RTOL_BULK).sum()),
+                 entries=per.numel(), same_bits_on_rerun=same,
+                 cotangents=sum(t is not None for t in tb))
+    if timed:
+        rec["ms"] = time_ms(
+            lambda: bwd(TC.sw2d_curved_rollout_bwd_blocked), 9, flush)
+        rec["plain_ms"] = time_ms(
+            lambda: bwd(TC.sw2d_curved_rollout_bwd_blocked_plain), 2, flush)
+        n_tb = sum(t is not None for t in tb)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            4.0 * ((4 + n_tb) * B * (n_steps + 1) * meta.n_v
+                   + 2 * B * n_cs * meta.n_ctrl + 4 * B * meta.n_v),
+            B * n_steps * (curved_rhs_flops(meta)
+                           + 2 * curved_vjp_flops(meta)))
+    for r in out.values():
+        say(r)
+        if not r["ok"]:
+            raise RuntimeError(f"kernel out of tolerance: {r}")
+    return out
+
+
+def perturbed_curved(ctx, B, n_cs, n_ctrl, rng, device):
+    """Generic four-field (B, nV) states near the rest state h = 1: per
+    scenario a smooth bump of random height and place, a random uniform
+    current, a tracer that follows the bump, a little node-wise noise; and
+    random controls."""
+    to = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    col = lambda lo, hi: to(rng.uniform(lo, hi, (B, 1)))
+    x, y = to(ctx.x.reshape(1, -1)), to(ctx.y.reshape(1, -1))
+    n_v = x.shape[1]
+    noise = lambda: to(1e-3 * rng.standard_normal((B, n_v)))
+    bump = torch.exp(-10.0 * ((x - col(-0.4, 0.4)) ** 2
+                              + (y - col(-0.4, 0.4)) ** 2))
+    h = 1.0 + col(0.01, 0.05) * bump + noise()
+    hu = col(-0.05, 0.05) * h + noise()
+    hv = col(-0.05, 0.05) * h + noise()
+    hN = 0.5 + 0.3 * bump + noise()
+    ctrls = to(0.3 * rng.standard_normal((B, n_cs, n_ctrl)))
+    return tuple(f.contiguous() for f in (h, hu, hv, hN)), ctrls
+
+
+def curved_phases(dev, card: str, rng, flush) -> list:
+    """The curved path: kernels against plain versions, the MPC solves on
+    both disks, and their cross-check against the plain composite. Returns
+    the kernel records of the ``kernels`` line."""
+    from blitzdg_tpu_torch.mesh import box_triangles
+    from blitzdg_tpu_torch.mpc import (advance_plant_curved_blocked,
+                                       solve_mpc,
+                                       solve_mpc_curved_blocked,
+                                       solve_mpc_curved_blocked_gn)
+    from blitzdg_tpu_torch.mpc import curved_disk as cdk
+    from blitzdg_tpu_torch.mpc.coastal_box import cfl_dt
+    from blitzdg_tpu_torch.ops import sw2d_curved_blocked as TC
+    from blitzdg_tpu_torch.ops.sw2d import SWPhysics
+    from blitzdg_tpu_torch.specgrid.cubature import (
+        build_cubature_context, build_gauss_face_context)
+    from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
+
+    n_cs, spc = cdk.HORIZON, cdk.STEPS_PER_CONTROL
+    flat = lambda f: f.reshape(f.shape[0], -1).contiguous()
+    t_set = time.perf_counter()
+    large = cdk.curved_disk_problem(**cdk.LARGE, device=dev)
+    t_large = time.perf_counter() - t_set
+    small = cdk.curved_disk_problem(**cdk.SMALL, device=dev)
+    say({"phase": "curved_setup", "seconds_large": t_large,
+         "seconds_small": time.perf_counter() - t_set - t_large,
+         "large": {"k_elem": large.bm.meta.k_elem, "dt": large.prob.dt,
+                   "batch": cdk.LARGE["batch"]},
+         "small": {"k_elem": small.bm.meta.k_elem, "dt": small.prob.dt,
+                   "batch": cdk.SMALL["batch"]},
+         "n_p": large.bm.meta.n_p, "n_cub": large.bm.meta.n_cub,
+         "n_gauss": large.bm.meta.n_gauss,
+         "mass_mode": large.bm.meta.mass_mode,
+         "elements_per_block": TC.chunk_elems(large.bm.meta)})
+
+    # ---- kernels against their plain versions ----
+    cases = []
+
+    def check(name, *a, **kw):
+        cases.append(name)
+        return check_curved_case(TC, name, *a, **kw)
+
+    meta = large.bm.meta
+    S, ctrls = perturbed_curved(large.prob.ctx, cdk.LARGE["batch"], n_cs, 2,
+                                rng, dev)
+    head = check("curved_K1014_N3", large.bm.ops, meta, S, ctrls,
+                 large.prob.dt, spc, flush, rng, timed=True)
+    # the exact start of the solves: rest state, zero controls, a cotangent
+    # on the depth trajectory alone
+    check("curved_K1014_N3_rest", large.bm.ops, meta,
+          tuple(flat(f) for f in large.states), torch.zeros_like(ctrls),
+          large.prob.dt, spc, flush, rng, depth_only=True,
+          bwd_rtol=(BWD_RTOL_REST, BWD_RTOL_REST))
+    S, ctrls = perturbed_curved(small.prob.ctx, cdk.SMALL["batch"], n_cs, 2,
+                                rng, dev)
+    head_small = check("curved_K54_N3", small.bm.ops, small.bm.meta, S, ctrls,
+                       small.prob.dt, spc, flush, rng, timed=True)
+    # another order: the kernels' instantiation for run-time sizes (the
+    # N=3 cases above run the one compiled for N=3's sizes)
+    d2 = cdk.curved_disk_problem(rings=4, snap_tol=0.3, batch=32, n_order=2,
+                                 device=dev)
+    S, ctrls = perturbed_curved(d2.prob.ctx, 32, n_cs, 2, rng, dev)
+    check("curved_K96_N2", d2.bm.ops, d2.bm.meta, S, ctrls, d2.prob.dt, spc,
+          flush, rng)
+    # straight elements: the 'affine' mass mode, with drag, Coriolis and a
+    # bed slope
+    mesh = box_triangles(8, 8)
+    n_order = cdk.N_ORDER
+    kw = dict(filter_cutoff=0.9 * n_order, filter_order=4)
+    bc64 = build_triangle_context(n_order, mesh, dtype=torch.float64,
+                                  device="cpu", **kw)
+    xs, ys, V = bc64.x.numpy(), bc64.y.numpy(), bc64.V.numpy()
+    bcub = build_cubature_context(n_order, mesh, xs, ys, V, device="cpu")
+    bgauss = build_gauss_face_context(n_order, mesh, xs, ys, V, device="cpu")
+    bump = np.exp(-8.0 * (xs ** 2 + ys ** 2))
+    bops, bmeta = TC.build_curved_blocked_ops(
+        bc64, bcub, bgauss, SWPhysics(g=9.81, cd=2e-3, f_cor=1e-2),
+        np.stack([bump, 0 * bump]), np.stack([0 * bump, bump]),
+        zx=0.1 * np.cos(xs), zy=0.05 * np.sin(2.0 * ys), device=dev)
+    if not (bmeta.mass_mode == "affine" and bmeta.has_bed and bmeta.cd
+            and bmeta.f_cor):
+        raise RuntimeError("the box case does not switch every term on")
+    S, ctrls = perturbed_curved(bc64, 32, n_cs, 2, rng, dev)
+    check("curved_box_affine_sources_K128_N3", bops, bmeta, S, ctrls,
+          cfl_dt(bc64, 9.81, 1.1, cfl=0.5), spc, flush, rng)
+    say({"phase": "curved_kernels", "ok": True, "cases": cases})
+
+    # ---- the main path: Adam on both disks, Gauss-Newton, plant advance ----
+    wrappers = (TC.sw2d_curved_step_blocked, TC.sw2d_curved_rollout_blocked,
+                TC.sw2d_curved_rollout_bwd_blocked)
+    counts = lambda: {w.__name__: w.launches for w in wrappers}
+    adam = lambda d, iters: solve_mpc_curved_blocked(
+        d.prob, d.bm, d.states, d.targets, 2, iters=iters,
+        learning_rate=cdk.LEARNING_RATE, H_rest=cdk.H_REST)
+    gauss_newton = lambda d, fd_eps: solve_mpc_curved_blocked_gn(
+        d.prob, d.bm, d.states, d.targets, 2, gn_iters=cdk.GN_ITERS,
+        cg_iters=cdk.CG_ITERS, fd_eps=fd_eps, H_rest=cdk.H_REST)
+    # warm-up: allocator, autograd (its first gradient with given cotangents
+    # imports a symbolic-shapes module, seconds on the host)
+    adam(large, 1)
+    adam(small, 1)
+    gauss_newton(large, cdk.FD_EPS)
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    sol = adam(large, cdk.ADAM_ITERS)
+    torch.cuda.synchronize()
+    adam_s = time.perf_counter() - t0
+    adam_launches = counts()
+    t0 = time.perf_counter()
+    sol_small = adam(small, cdk.ADAM_ITERS)
+    torch.cuda.synchronize()
+    small_s = time.perf_counter() - t0
+    gn_runs = {"large": [], "small": []}
+    for name, d in (("large", large), ("small", small)):
+        for fd_eps in (cdk.FD_EPS, *CRV_FD_EPS_WIDER):
+            t0 = time.perf_counter()
+            gn = gauss_newton(d, fd_eps)
+            torch.cuda.synchronize()
+            gn_runs[name].append((fd_eps, gn, time.perf_counter() - t0))
+    plant = advance_plant_curved_blocked(large.prob, large.bm, large.states,
+                                         sol.controls[:, 0])
+    torch.cuda.synchronize()
+    launches = counts()
+
+    # Adam: one rollout and one adjoint per iteration, one more of each for
+    # the gradient norm. Gauss-Newton, per outer iteration: the linearization
+    # (1 rollout), J^T r (1 adjoint), the curvature probe (1 rollout), per CG
+    # step one difference rollout and one adjoint, the trial point
+    # (1 rollout); one rollout and one adjoint at the end.
+    gi, ci, n_gn = cdk.GN_ITERS, cdk.CG_ITERS, 2 * (1 + len(CRV_FD_EPS_WIDER))
+    per_adam = cdk.ADAM_ITERS + 1
+    expect_adam = {"sw2d_curved_step_blocked": 0,
+                   "sw2d_curved_rollout_blocked": per_adam,
+                   "sw2d_curved_rollout_bwd_blocked": per_adam}
+    expect = {"sw2d_curved_step_blocked": spc,
+              "sw2d_curved_rollout_blocked": 2 * per_adam
+              + n_gn * (gi * (3 + ci) + 1),
+              "sw2d_curved_rollout_bwd_blocked": 2 * per_adam
+              + n_gn * (gi * (1 + ci) + 1)}
+    with torch.no_grad():
+        traj = large.bm.rollout(*(flat(f) for f in large.states),
+                                sol.controls.contiguous())
+    plant_err = max_abs([flat(f) for f in plant], [t[:, spc] for t in traj])
+    finite = lambda *ts: all(bool(torch.isfinite(t).all()) for t in ts)
+    # Both solvers start from zero controls. Gauss-Newton takes no step that
+    # raises the cost, but sums it from residuals: equal to 1e-4 relative. A
+    # difference step counts as one that improves where the median cost goes
+    # down by more than a half per cent (the optimum lies one per cent below
+    # the start on the large disk).
+    gn_report, improved, below_adam, gn_ok = {}, {}, {}, True
+    for name, adam_sol in (("large", sol), ("small", sol_small)):
+        start = adam_sol.cost_history[0]
+        gn_report[name], improved[name], below_adam[name] = [], [], []
+        for fd_eps, gn, secs in gn_runs[name]:
+            rel = gn.cost / start
+            gn_ok = (gn_ok and finite(gn.cost_history, gn.cost, gn.controls,
+                                      gn.grad_norm)
+                     and float(rel.max()) <= 1.0 + 1e-4)
+            if float(rel.median()) < 0.995:
+                improved[name].append(fd_eps)
+            if float((gn.cost / adam_sol.cost).median()) < 1.0:
+                below_adam[name].append(fd_eps)
+            gn_report[name].append({
+                "fd_eps": fd_eps, "seconds": secs,
+                "start_cost": float(start.median()),
+                "final_cost": float(gn.cost.median()),
+                "final_cost_vs_start": float(rel.median()),
+                "final_cost_vs_adam":
+                    float((gn.cost / adam_sol.cost).median()),
+                "grad_norm": float(gn.grad_norm.median()),
+                "scenarios_that_moved": int(
+                    (gn.controls.abs().amax(dim=(1, 2)) > 0).sum())})
+    decrease = float((sol.cost_history[0] / sol.cost).median())
+    decrease_small = float((sol_small.cost_history[0]
+                            / sol_small.cost).median())
+    # Adam's denominator sqrt(v) + 1e-8 swallows gradients of 1e-9: on the
+    # large disk (short horizon: 8 steps of 3.7e-4) five iterations move the
+    # controls by 1e-2 and the cost by less than float32 resolves, so there
+    # the solve is held to "within 1e-4 of the start" and the decrease is
+    # shown by Gauss-Newton; on the small disk Adam's cost must go down.
+    path_ok = (finite(sol.cost_history, sol.cost, sol.controls, sol.grad_norm,
+                      sol_small.cost_history, sol_small.cost,
+                      sol_small.controls, sol_small.grad_norm)
+               and tuple(sol.controls.shape) == (cdk.LARGE["batch"], n_cs, 2)
+               and tuple(sol_small.controls.shape)
+               == (cdk.SMALL["batch"], n_cs, 2)
+               and decrease >= 1.0 - 1e-4 and decrease_small > 1.0
+               and float(sol.grad_norm.max()) > 0.0
+               and gn_ok and cdk.FD_EPS_FLOAT32 in improved["large"]
+               and cdk.FD_EPS_FLOAT32 in improved["small"]
+               and adam_launches == expect_adam and launches == expect
+               and plant_err <= CRV_FWD_ATOL)
+    say({"phase": "curved_path", "ok": path_ok, "card": card,
+         "n_order": cdk.N_ORDER, "n_steps": n_cs * spc,
+         "adam_iters": cdk.ADAM_ITERS,
+         "large": {"k_elem": meta.k_elem, "batch": cdk.LARGE["batch"],
+                   "adam_first_cost": float(sol.cost_history[0].median()),
+                   "adam_final_cost": float(sol.cost.median()),
+                   "adam_cost_decrease": decrease,
+                   "adam_grad_norm": float(sol.grad_norm.median()),
+                   "adam_seconds_per_solve": adam_s,
+                   "adam_scenario_solves_per_second":
+                       cdk.LARGE["batch"] / adam_s,
+                   "adam_launches": adam_launches},
+         "small": {"k_elem": small.bm.meta.k_elem,
+                   "batch": cdk.SMALL["batch"],
+                   "adam_first_cost":
+                       float(sol_small.cost_history[0].median()),
+                   "adam_final_cost": float(sol_small.cost.median()),
+                   "adam_cost_decrease": decrease_small,
+                   "adam_grad_norm": float(sol_small.grad_norm.median()),
+                   "adam_seconds_per_solve": small_s,
+                   "adam_scenario_solves_per_second":
+                       cdk.SMALL["batch"] / small_s},
+         "gauss_newton": gn_report,
+         "gauss_newton_fd_eps_that_improve": improved,
+         "gauss_newton_fd_eps_below_adam": below_adam,
+         "launches": launches, "expected_launches": expect,
+         "plant_vs_rollout_max_abs": plant_err})
+    if not path_ok:
+        raise RuntimeError("curved path failed its checks")
+
+    profile_solve("curved_profile", card,
+                  lambda: adam(large, cdk.ADAM_ITERS), adam_s)
+
+    # ---- the same solves through solve_mpc over the plain curved RHS ----
+    before = counts()
+    report, cross_ok = {}, True
+    for name, d, s_kernel in (("large", large, sol), ("small", small,
+                                                      sol_small)):
+        t0 = time.perf_counter()
+        ref = solve_mpc(d.prob, d.states, d.targets, d.control_to_forcing, 2,
+                        iters=cdk.ADAM_ITERS, learning_rate=cdk.LEARNING_RATE,
+                        H_rest=cdk.H_REST)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ratio = s_kernel.cost / ref.cost
+        rmin, rmax = float(ratio.min()), float(ratio.max())
+        cross_ok = (cross_ok and CRV_COST_RATIO[0] <= rmin
+                    and rmax <= CRV_COST_RATIO[1])
+        report[name] = {
+            "scenarios": int(ratio.numel()), "cost_ratio_min": rmin,
+            "cost_ratio_max": rmax, "plain_seconds_per_solve": secs,
+            "controls_max_abs_diff":
+                float((s_kernel.controls - ref.controls).abs().max())}
+    if before != counts():
+        raise RuntimeError("the plain-composite solve launched a kernel")
+    say({"phase": "curved_cross_check", "ok": cross_ok,
+         "tol": list(CRV_COST_RATIO), **report})
+    if not cross_ok:
+        raise RuntimeError("curved solve through the kernels disagrees with "
+                           "the solve through the plain curved RHS")
+
+    # ---- the record ----
+    src = "blitzdg_tpu_torch/ops/csrc/sw2d_curved.cu"
+    replaces = {
+        "sw2d_curved_step_blocked":
+            "blitzdg_tpu/ops/sw2d_curved_blocked.py:398",
+        "sw2d_curved_rollout_blocked":
+            "blitzdg_tpu/ops/sw2d_curved_blocked.py:454",
+        "sw2d_curved_rollout_bwd_blocked":
+            "blitzdg_tpu/ops/sw2d_curved_blocked.py:566"}
+    return [{"name": name, "route": "cuda", "source": src,
+             "replaces": replaces[name], "launches": launches[name],
+             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+             "bound_by": rec["bound_by"], "library_ms": None,
+             "device_launches_per_call": TC.DEVICE_LAUNCHES_PER_CALL,
+             "ms_small_disk": head_small[name]["ms"]}
+            for name, rec in head.items()]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("dense", "blocked"),
-                    help="run one path's phases alone (default: both)")
+    ap.add_argument("--only", choices=("dense", "blocked", "curved"),
+                    help="run one path's phases alone (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -913,7 +1389,7 @@ def main() -> int:
     say({"phase": "build", "seconds": time.perf_counter() - t0,
          "ptxas": [ln for log in _build.last_build_log.values()
                    for ln in log.splitlines()
-                   if "registers" in ln or "spill" in ln][:16]})
+                   if "registers" in ln or "spill" in ln][:32]})
 
     rng = np.random.default_rng(0)
     scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
@@ -924,6 +1400,8 @@ def main() -> int:
         kernels += dense_phases(dev, card, rng, flush)
     if args.only in (None, "blocked"):
         kernels += blocked_phases(dev, card, rng, flush)
+    if args.only in (None, "curved"):
+        kernels += curved_phases(dev, card, rng, flush)
 
     say({"phase": "total", "seconds": time.perf_counter() - t_start})
     say({"kernels": kernels})

@@ -407,5 +407,5 @@ def test_library_digest_covers_shared_headers(tmp_path):
     # the package's own sources: one digest, carried by every library's name
     names = {_build._target(s).name for s in _build.CSRC.glob("*.cu")}
     assert names == {f"lib{n}-{_build._digest()}.so"
-                     for n in ("sw2d_dense", "sw2d_blocked")}
+                     for n in ("sw2d_dense", "sw2d_blocked", "sw2d_curved")}
     assert (_build.CSRC / "sw2d_common.cuh").exists()

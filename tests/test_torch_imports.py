@@ -36,11 +36,25 @@ def test_package_has_the_slice_modules():
             # the blocked (large-mesh) path
             "utils", "parallel", "parallel.partition", "ops.limiters",
             "ops.sw2d_wetdry", "ops.sw2d_blocked", "mpc.blocked",
-            "mpc.blocked_box"}
+            "mpc.blocked_box",
+            # the curved weak-form path
+            "mesh.curved", "mesh.periodic", "specgrid.cubature",
+            "ops.sw2d_curved", "ops.sw2d_curved_blocked",
+            "mpc.curved_blocked", "mpc.curved_disk"}
     have = {m.removeprefix("blitzdg_tpu_torch.") for m in port_modules()}
     assert want <= have
-    for name in ("sw2d_dense.cu", "sw2d_blocked.cu", "sw2d_common.cuh"):
+    for name in ("sw2d_dense.cu", "sw2d_blocked.cu", "sw2d_curved.cu",
+                 "sw2d_common.cuh"):
         assert (PKG / "ops" / "csrc" / name).exists()
+
+
+def test_cubature_tables_are_the_jax_packages_byte_for_byte():
+    """The port opens its own copy of the compact cubature rules."""
+    name = "_cubature_tables.npz"
+    own = (PKG / "specgrid" / name).read_bytes()
+    assert own == (ROOT / "blitzdg_tpu" / "specgrid" / name).read_bytes()
+    src = (PKG / "specgrid" / "cubature.py").read_text()
+    assert f'os.path.join(os.path.dirname(__file__), "{name}")' in src
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -133,3 +147,47 @@ def test_blocked_entry_points_default_to_cuda():
 
 def test_matmul_precision_is_full_float32():
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_curved_entry_points_default_to_cuda():
+    """The curved path's entry points: no ``device=`` means the card, and
+    without a card that raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from blitzdg_tpu_torch import convert
+    from blitzdg_tpu_torch.mesh import box_triangles
+    from blitzdg_tpu_torch.mpc import MPCProblem, build_curved_blocked_mpc
+    from blitzdg_tpu_torch.mpc.curved_disk import (curved_disk_contexts,
+                                                   curved_disk_problem)
+    from blitzdg_tpu_torch.ops import build_curved_blocked_ops
+    from blitzdg_tpu_torch.ops.sw2d import SWPhysics
+    from blitzdg_tpu_torch.specgrid.cubature import (
+        build_cubature_context, build_gauss_face_context)
+    from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
+
+    mesh = box_triangles(2, 2)
+    ctx = build_triangle_context(1, mesh, dtype=torch.float64, device="cpu")
+    geom = (1, mesh, ctx.x.numpy(), ctx.y.numpy(), ctx.V.numpy())
+    cuda_or_nothing = pytest.raises((RuntimeError, AssertionError))
+    with cuda_or_nothing:
+        build_cubature_context(*geom)
+    with cuda_or_nothing:
+        build_gauss_face_context(*geom)
+    cub = build_cubature_context(*geom, device="cpu")
+    gauss = build_gauss_face_context(*geom, device="cpu")
+    prob = MPCProblem(ctx=ctx, phys=SWPhysics(), dt=1e-3, horizon=2)
+    bump = np.ones((1, ctx.k_elem, ctx.n_p))
+    with cuda_or_nothing:
+        build_curved_blocked_ops(ctx, cub, gauss, SWPhysics())
+    with cuda_or_nothing:
+        build_curved_blocked_mpc(prob, cub, gauss, bump, bump)
+    with cuda_or_nothing:
+        curved_disk_contexts(1, 0.3, n_order=1)
+    with cuda_or_nothing:
+        curved_disk_problem(rings=1, snap_tol=0.3, batch=2, n_order=1)
+    for fn in (convert.cubature_from_numpy, convert.gauss_from_numpy,
+               convert.curved_blocked_ops_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    bm = build_curved_blocked_mpc(prob, cub, gauss, bump, bump, device="cpu")
+    assert bm.ops.fbuf.device.type == "cpu" and bm.wj.device.type == "cpu"
+    assert bm.meta.mass_mode == "affine"
