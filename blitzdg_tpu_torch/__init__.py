@@ -8,7 +8,7 @@ package so that a reader finds each counterpart; each module's docstring
 names it. This package imports ``torch`` and ``numpy`` only: never ``jax``,
 ``flax``, ``optax`` or anything of ``blitzdg_tpu``.
 
-Three paths run through kernels so far. The dense path (small meshes, huge
+Four paths run through kernels so far. The dense path (small meshes, huge
 scenario batches): ``mpc.solve_mpc_fused`` over ``ops.sw2d_fused``, whole
 mesh per thread block. The blocked path (meshes of thousands of elements):
 ``ops.sw2d_blocked`` (``sw2d_step_blocked``, ``sw2d_rollout_blocked``,
@@ -17,6 +17,11 @@ mesh per thread block. The blocked path (meshes of thousands of elements):
 curved weak-form path (Gordon-Hall deformed elements, cubature volume and
 Gauss face integrals, a tracer as fourth field): ``ops.sw2d_curved_blocked``
 and ``mpc.solve_mpc_curved_blocked`` / ``mpc.solve_mpc_curved_blocked_gn``.
+The element-sharded path (the mesh partitioned into element shards, the
+halo exchanged between the RK stages): ``parallel.blocked_shard``
+(``make_sharded_blocked_step_fused``, ``make_sharded_blocked_step_diff``)
+over the stage kernels ``ops.sw2d_stage_blocked`` /
+``ops.sw2d_stage_bwd_blocked_v2``, and ``mpc.solve_sharded_mpc``.
 
 Entry points take ``device=`` and default to ``"cuda"``; on a machine
 without CUDA the default raises, it does not fall back to the CPU.

@@ -17,6 +17,8 @@ from .ops.sw2d_blocked import BlockedMeta, BlockedOps, build_blocked_step_ops
 from .ops.sw2d_curved_blocked import (CurvedBlockedMeta, CurvedBlockedOps,
                                       build_curved_blocked_ops)
 from .ops.sw2d_fused import FusedStepMeta, FusedStepOps, build_fused_step_ops
+from .parallel.blocked_shard import ShardedBlocked, build_sharded_blocked
+from .parallel.halo import HaloPlan
 from .specgrid.cubature import CubatureContext2D, GaussFaceContext2D
 
 _STATIC = ("n_order", "n_p", "k_elem", "n_faces", "n_fp")
@@ -168,3 +170,31 @@ def curved_blocked_ops_from_numpy(ctx_arrays: dict, ctx_static: dict,
                                     forcing_bv, zx, zy, dtype=dtype,
                                     mass_mode=mass_mode,
                                     use_filter=use_filter, device=device)
+
+
+def halo_plan_from_numpy(send_idx, psrc, pflip, offs, n_shards: int,
+                         max_send: int) -> HaloPlan:
+    """The port's ``HaloPlan`` from the JAX package's plan fields."""
+    return HaloPlan(send_idx=np.asarray(send_idx, dtype=np.int32),
+                    psrc=np.asarray(psrc, dtype=np.int32),
+                    pflip=np.asarray(pflip, dtype=bool),
+                    offs=tuple(int(d) for d in offs), n_shards=int(n_shards),
+                    max_send=int(max_send))
+
+
+def sharded_blocked_from_numpy(ctx_arrays: dict, ctx_static: dict,
+                               phys_arrays: dict, n_shards: int,
+                               forcing_bu=None, forcing_bv=None, tidal=None,
+                               wetdry: bool = False, h_floor: float = 1e-3,
+                               device="cuda",
+                               dtype: torch.dtype = torch.float32
+                               ) -> ShardedBlocked:
+    """The sharded path's per-shard operator sets from the JAX context's and
+    physics' fields (a context on a partitioned mesh, as the JAX package's
+    ``build_sharded_blocked`` takes it). The operators are formed in float64
+    from the given arrays and then stored in ``dtype``."""
+    ctx, phys = _host_float64(ctx_arrays, ctx_static, phys_arrays)
+    return build_sharded_blocked(ctx, phys, n_shards, dtype=dtype,
+                                 tidal=tidal, wetdry=wetdry, h_floor=h_floor,
+                                 forcing_bu=forcing_bu, forcing_bv=forcing_bv,
+                                 device=device)

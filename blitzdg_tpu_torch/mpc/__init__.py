@@ -9,6 +9,8 @@ from .curved_blocked import (CurvedBlockedMPC, advance_plant_curved_blocked,
 from .fused import (FusedMPC, advance_plant_fused, build_fused_mpc,
                     mpc_cost_fused, solve_mpc_fused)
 from .problem import MPCProblem, mpc_cost, rollout_controls
+from .sharded_box import (ShardedMPC, sharded_mpc_cost, sharded_mpc_problem,
+                          solve_sharded_mpc)
 from .solver import MPCSolution, solve_mpc
 
 __all__ = [
@@ -34,4 +36,8 @@ __all__ = [
     "solve_mpc_curved_blocked",
     "solve_mpc_curved_blocked_gn",
     "advance_plant_curved_blocked",
+    "ShardedMPC",
+    "sharded_mpc_problem",
+    "sharded_mpc_cost",
+    "solve_sharded_mpc",
 ]

@@ -3,6 +3,8 @@
 //   sw2d_blocked_step_kernel         one SSP-RK2 step
 //   sw2d_blocked_rollout_kernel      n_steps steps, optional stored trajectory
 //   sw2d_blocked_rollout_bwd_kernel  the reverse (adjoint) sweep
+//   sw2d_stage_kernel                one RK stage of an element-sharded set
+//   sw2d_stage_bwd_kernel            its adjoint (see the section below)
 //
 // They replace the Pallas TPU kernels _step_kernel, _rollout_kernel and
 // _rollout_bwd_kernel of blitzdg_tpu/ops/sw2d_blocked.py. Those run one
@@ -109,16 +111,24 @@ __device__ __forceinline__ W3 atw(float* a, float* b, float* c, size_t off) {
 }
 
 // Sponge relaxation toward rest (h = H where there is bathymetry, no flow),
-// then the store of one volume node.
+// then the store of one volume node, and of the send slots that read it
+// (sb: one scenario's (n_send, 3) send buffer of a shard, or null).
 __device__ __forceinline__ void finish_node(const Ops& o, int v, float h,
                                             float hu, float hv, bool sponge,
-                                            float dt, const W3& out) {
+                                            float dt, const W3& out,
+                                            float* sb) {
   if (sponge) {
     const float fac = 1.0f / (1.0f + dt * o.SPNG[v]);
     if (o.has_bathy) { const float H = o.H[v]; h = H + (h - H) * fac; }
     hu *= fac; hv *= fac;
   }
   out.a[v] = h; out.b[v] = hu; out.c[v] = hv;
+  if (sb != nullptr) {
+    for (int q = o.send_ptr[v]; q < o.send_ptr[v + 1]; ++q) {
+      float* p = sb + 3 * o.send_idx[q];
+      p[0] = h; p[1] = hu; p[2] = hv;
+    }
+  }
 }
 
 // One RK stage of one work unit (elements e0 .. e0+ne of one scenario):
@@ -127,12 +137,15 @@ __device__ __forceinline__ void finish_node(const Ops& o, int v, float h,
 // in: the scenario's whole stage input in global memory (neighbours are read
 // from it); base, out: the scenario's fields, touched at own nodes only (they
 // may be the same buffer); copy: where to store the unit's part of `in` as
-// well, or null pointers.
+// well, or null pointers. One shard of a sharded set: rb, the scenario's
+// receive buffer (cut-face '+' values), and sb, its send buffer (written at
+// the slots that read the unit's own nodes); null otherwise.
 __device__ void stage(const Ops& o, const Scratch& s, int e0, int ne,
                       const P3& in, const P3& base, const W3& out,
                       const W3& copy, float coef, float t, float dt,
                       const float* ctrl, int use_filter, bool limit,
-                      bool sponge) {
+                      bool sponge, const float* rb = nullptr,
+                      float* sb = nullptr) {
   const int tid = threadIdx.x, nth = blockDim.x;
   const int Np = o.Np, Ntr = o.Ntr, Nfp = o.Nfp;
   const int nl = ne * Np, tl = ne * Ntr, v0 = e0 * Np, i0 = e0 * Ntr;
@@ -147,7 +160,7 @@ __device__ void stage(const Ops& o, const Scratch& s, int e0, int ne,
   }
   for (int l = tid; l < tl; l += nth) {
     TraceVals tv;
-    trace_values(o, i0 + l, in.a, in.b, in.c, h_bc, tv);
+    trace_values(o, i0 + l, in.a, in.b, in.c, h_bc, tv, rb);
     trace_flux_pre(o, tv, s.pre.a[l], s.pre.b[l], s.pre.c[l]);
     trace_jumps(o, tv, s.dq.a[l], s.dq.b[l], s.dq.c[l]);
     s.spd[l] = fmaxf(tv.spdM, tv.spdP);
@@ -218,7 +231,7 @@ __device__ void stage(const Ops& o, const Scratch& s, int e0, int ne,
     if (limit) {
       s.Out.a[l] = a; s.Out.b[l] = b; s.Out.c[l] = c;
     } else {
-      finish_node(o, v, a, b, c, sponge, dt, out);
+      finish_node(o, v, a, b, c, sponge, dt, out, sb);
     }
   }
   if (limit) {
@@ -254,7 +267,7 @@ __device__ void stage(const Ops& o, const Scratch& s, int e0, int ne,
       const float hv = hvmean + theta * (s.Out.c[l] - hvmean);
       const float taper =
           fminf(fmaxf((h - floor_) / (4.0f * floor_), 0.0f), 1.0f);
-      finish_node(o, v0 + l, h, hu * taper, hv * taper, sponge, dt, out);
+      finish_node(o, v0 + l, h, hu * taper, hv * taper, sponge, dt, out, sb);
     }
   }
   __syncthreads();  // the scratch is reused by the block's next unit
@@ -350,11 +363,11 @@ __device__ __forceinline__ void gather_traces(const Ops& o, const float* T,
 // The product is complete once every volume node has gathered its trace
 // nodes' entries of T (gather_traces), after a grid barrier.
 // S: the scenario's whole state (global); W, Avol: the scenario's fields,
-// touched at own nodes only.
+// touched at own nodes only. rb: as in stage().
 __device__ void vjp_phase(const Ops& o, const Scratch& s, int e0, int ne,
                           const P3& S, float t, const P3& W, float scale,
                           int use_filter, const W3& Avol, float* T,
-                          float* cpart) {
+                          float* cpart, const float* rb = nullptr) {
   const int tid = threadIdx.x, nth = blockDim.x;
   const int Np = o.Np, Ntr = o.Ntr, Nfp = o.Nfp;
   const int nl = ne * Np, tl = ne * Ntr, v0 = e0 * Np, i0 = e0 * Ntr;
@@ -423,7 +436,7 @@ __device__ void vjp_phase(const Ops& o, const Scratch& s, int e0, int ne,
     d1 *= fs; d2 *= fs; d3 *= fs;
     dfb.a[l] = d1; dfb.b[l] = d2; dfb.c[l] = d3;
     TraceVals tv;
-    trace_values(o, i, S.a, S.b, S.c, h_bc, tv);
+    trace_values(o, i, S.a, S.b, S.c, h_bc, tv, rb);
     float dq1, dq2, dq3;
     trace_jumps(o, tv, dq1, dq2, dq3);
     spd[l] = fmaxf(tv.spdM, tv.spdP);
@@ -434,7 +447,7 @@ __device__ void vjp_phase(const Ops& o, const Scratch& s, int e0, int ne,
   for (int l = tid; l < tl; l += nth) {
     const int i = i0 + l;
     TraceVals tv;
-    trace_values(o, i, S.a, S.b, S.c, h_bc, tv);
+    trace_values(o, i, S.a, S.b, S.c, h_bc, tv, rb);
     float lam;
     // (this node's speed as the first pass stored it: a recomputed value
     // may be contracted differently and miss the equality with the maximum)
@@ -585,6 +598,186 @@ __global__ void sw2d_blocked_barrier_probe_kernel(int n) {
 }
 
 // ---------------------------------------------------------------------------
+// One RK stage of an element-sharded set, and its adjoint
+// ---------------------------------------------------------------------------
+//
+// sw2d_stage_kernel replaces _stage_kernel / sw2d_stage_blocked (lean-I/O
+// mode) and sw2d_stage_bwd_kernel replaces _stage_bwd_kernel_v2 /
+// sw2d_stage_bwd_blocked_v2 of blitzdg_tpu/ops/sw2d_blocked.py. The TPU
+// kernels run one shard's packed mesh per program and move the halo with
+// one-hot matmuls (RG/RL in, SGEM/SL out). Here a launch covers every shard
+// of a stacked set (work unit: shard, scenario, chunk of elements; each
+// shard's operators are one row of the packed buffers), the receive buffer
+// is read where vmapP points past the shard's own nodes, and the send
+// buffer is written through the inverse of the send list by the unit that
+// owns each node. A stage reads `cur` and writes `out`, so the forward needs
+// no grid barrier: an ordinary launch. The adjoint's transposed '+' gather
+// crosses blocks: two phases around one grid barrier, as in the rollout
+// adjoint above, and the receive slots' cotangents are the receive part of
+// that gather. No atomics; the control cotangent is summed per unit and the
+// units' sums are added in a fixed order.
+//
+// Bound on the card: bytes (the states read and written outweigh one RHS
+// or one RHS adjoint per node at the card's float32 rate). At the sharded configuration's shapes a
+// stage is a few microseconds of work, so launch and host time dominate a
+// step (PERF.md).
+
+struct StageArgs {
+  const float* fops;  // (S, fstride) packed float operators, a row a shard
+  const int* iops;    // (S, istride) packed index tables
+  long long fstride, istride;
+  int S, B, E, use_filter, sponge;
+  const float *bh, *bhu, *bhv;  // (S, B, nV) axpy base
+  const float *ch, *chu, *chv;  // (S, B, nV) stage input
+  const float* rb;              // (S, B, n_recv, 3) receive buffer
+  const float* ctrl;            // (n_ctrl,), shared by all, or null
+  float *oh, *ohu, *ohv;        // (S, B, nV) out
+  float* sb;                    // (S, B, n_send, 3) out: send buffer
+  float c_dt, t;
+};
+
+// Shard sh's operator set; the reference-element operators are the block's
+// shared-memory copies (the same for every shard).
+__device__ __forceinline__ Ops shard_ops(const SwDesc& d, const float* fops,
+                                         const int* iops, long long fstride,
+                                         long long istride, int sh,
+                                         const Ops& blk) {
+  Ops o = make_ops(d, fops + sh * fstride, iops + sh * istride);
+  o.Dr = blk.Dr; o.Ds = blk.Ds; o.lift = blk.lift; o.filt = blk.filt;
+  return o;
+}
+
+__global__ void sw2d_stage_kernel(SwDesc d, StageArgs a) {
+  Ops blk = make_ops(d, a.fops, a.iops);
+  const Scratch s = setup_block(blk, a.E);
+  const int n_chunks = (blk.K + a.E - 1) / a.E;
+  const int n_units = a.S * a.B * n_chunks;
+  const W3 none = {nullptr, nullptr, nullptr};
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    const int sc = u / n_chunks, c = u - sc * n_chunks;  // sc = shard*B + b
+    const Ops o = shard_ops(d, a.fops, a.iops, a.fstride, a.istride,
+                            sc / a.B, blk);
+    const int e0 = c * a.E, ne = min(a.E, o.K - e0);
+    const size_t off = (size_t)sc * o.nV;
+    float* sb = a.sb + (size_t)sc * o.n_send * 3;
+    stage(o, s, e0, ne, at(a.ch, a.chu, a.chv, off),
+          at(a.bh, a.bhu, a.bhv, off), atw(a.oh, a.ohu, a.ohv, off), none,
+          a.c_dt, a.t, a.c_dt, a.ctrl, a.use_filter, o.wetdry != 0,
+          a.sponge != 0, a.rb + (size_t)sc * o.n_recv * 3, sb);
+    if (c == 0) {  // empty slots (the one slot of an unsharded plan): zeros
+      for (int j = threadIdx.x; j < o.n_send; j += blockDim.x)
+        if (o.send_node[j] < 0) sb[3 * j] = sb[3 * j + 1] = sb[3 * j + 2] = 0.0f;
+    }
+  }
+}
+
+struct StageBwdArgs {
+  const float* fops;
+  const int* iops;
+  long long fstride, istride;
+  int S, B, E, use_filter, sponge;
+  const float *ch, *chu, *chv;  // (S, B, nV) stage input
+  const float* rb;              // (S, B, n_recv, 3)
+  const float *lh, *lhu, *lhv;  // (S, B, nV) cotangent of the output
+  const float* lsb;             // (S, B, n_send, 3) cotangent of the send buffer
+  float *obh, *obhu, *obhv;     // (S, B, nV) out: cotangent of the base
+  float *och, *ochu, *ochv;     // (S, B, nV) out: cotangent of the input
+  float* orb;                   // (S, B, n_recv, 3) out
+  float* octl;                  // (S, B, n_ctrl) out, or null
+  float* T;                     // (S, B, nT, 6) scratch: trace cotangents
+  float* cpart;                 // (S, B, n_chunks, n_ctrl) scratch
+  float c_dt, t;
+};
+
+// With out = sponge(base + c_dt R(cur)) and sb = gather(out):
+//   lam  = lam_out + gather^T lam_sb        (the inverse send list)
+//   base cotangent = sponge factor * lam    (h only where there is bathymetry)
+//   cur cotangent, rb cotangent, control cotangent = VJP_R(cur)[c_dt * that].
+__global__ void sw2d_stage_bwd_kernel(SwDesc d, StageBwdArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  Ops blk = make_ops(d, a.fops, a.iops);
+  const Scratch s = setup_block(blk, a.E);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int n_chunks = (blk.K + a.E - 1) / a.E;
+  const int n_units = a.S * a.B * n_chunks;
+  const size_t nV = (size_t)blk.nV, nT6 = (size_t)blk.nT * 6;
+  const int nc = blk.n_ctrl, nr = blk.n_recv, ns = blk.n_send;
+
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    const int sc = u / n_chunks, c = u - sc * n_chunks;
+    const Ops o = shard_ops(d, a.fops, a.iops, a.fstride, a.istride,
+                            sc / a.B, blk);
+    const int e0 = c * a.E, ne = min(a.E, o.K - e0);
+    const int nl = ne * o.Np, v0 = e0 * o.Np;
+    const size_t off = (size_t)sc * nV;
+    const float* lsb = a.lsb + (size_t)sc * ns * 3;
+    for (int l = tid; l < nl; l += nth) {
+      const size_t v = v0 + l;
+      float l1 = a.lh[off + v], l2 = a.lhu[off + v], l3 = a.lhv[off + v];
+      for (int q = o.send_ptr[v]; q < o.send_ptr[v + 1]; ++q) {
+        const float* p = lsb + 3 * o.send_idx[q];
+        l1 += p[0]; l2 += p[1]; l3 += p[2];
+      }
+      if (a.sponge) {
+        const float fac = 1.0f / (1.0f + a.c_dt * o.SPNG[v]);
+        if (o.has_bathy) l1 *= fac;
+        l2 *= fac; l3 *= fac;
+      }
+      a.obh[off + v] = l1; a.obhu[off + v] = l2; a.obhv[off + v] = l3;
+    }
+    if (tid == 0)  // the same thread adds the block's sums in vjp_phase
+      for (int k = 0; k < nc; ++k) a.cpart[(size_t)u * nc + k] = 0.0f;
+    __syncthreads();
+    vjp_phase(o, s, e0, ne, at(a.ch, a.chu, a.chv, off), a.t,
+              at(a.obh, a.obhu, a.obhv, off), a.c_dt, a.use_filter,
+              atw(a.och, a.ochu, a.ochv, off), a.T + sc * nT6,
+              a.cpart + (size_t)u * nc, a.rb + (size_t)sc * nr * 3);
+  }
+  grid.sync();
+
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    const int sc = u / n_chunks, c = u - sc * n_chunks;
+    const Ops o = shard_ops(d, a.fops, a.iops, a.fstride, a.istride,
+                            sc / a.B, blk);
+    const int e0 = c * a.E, ne = min(a.E, o.K - e0);
+    const int nl = ne * o.Np, v0 = e0 * o.Np;
+    const size_t off = (size_t)sc * nV;
+    for (int l = tid; l < nl; l += nth) {
+      const int v = v0 + l;
+      float c1 = a.och[off + v], c2 = a.ochu[off + v], c3 = a.ochv[off + v];
+      gather_traces(o, a.T + sc * nT6, v, c1, c2, c3);
+      a.och[off + v] = c1; a.ochu[off + v] = c2; a.ochv[off + v] = c3;
+    }
+  }
+  // receive slots: the '+' cotangents of the trace nodes each slot fed
+  const int gt = blockIdx.x * nth + tid, gn = gridDim.x * nth;
+  for (int k = gt; k < a.S * a.B * nr; k += gn) {
+    const int sc = k / nr, j = k - sc * nr;
+    const long long so = (long long)(sc / a.B) * a.istride;
+    const int* ptr = blk.invP_ptr + so;
+    const int* idx = blk.invP_idx + so;
+    const float* T = a.T + sc * nT6;
+    float r0 = 0.0f, r1 = 0.0f, r2 = 0.0f;
+    for (int q = ptr[nV + j]; q < ptr[nV + j + 1]; ++q) {
+      const float* p = T + (size_t)idx[q] * 6 + 3;
+      r0 += p[0]; r1 += p[1]; r2 += p[2];
+    }
+    a.orb[3 * (size_t)k] = r0; a.orb[3 * (size_t)k + 1] = r1;
+    a.orb[3 * (size_t)k + 2] = r2;
+  }
+  // control cotangents: the units' sums, added in a fixed order
+  if (a.octl != nullptr) {
+    for (int k = gt; k < a.S * a.B * nc; k += gn) {
+      const int sc = k / nc, r = k - sc * nc;
+      float tot = 0.0f;
+      for (int c = 0; c < n_chunks; ++c)
+        tot += a.cpart[((size_t)sc * n_chunks + c) * nc + r];
+      a.octl[k] = tot;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // C interface
 // ---------------------------------------------------------------------------
 
@@ -683,6 +876,66 @@ int sw2d_blocked_rollout_bwd(const SwDesc* d, const float* fops,
   void* args[] = {&o, &a};
   return coop_launch((const void*)sw2d_blocked_rollout_bwd_kernel, args,
                      n_units, threads, bytes, stream);
+}
+
+// One RK stage on every shard of a stacked sharded set: out = base +
+// c_dt R(cur) with the cut faces' '+' values from rb, then the limiter
+// (wet/dry) and the sponge (sponge != 0), and the send buffer of out.
+// fops/iops: (S, fstride) / (S, istride); ctrl: (n_ctrl,) or null.
+int sw2d_stage(const SwDesc* d, const float* fops, const int* iops,
+               long long fstride, long long istride, int S, int B,
+               const float* bh, const float* bhu, const float* bhv,
+               const float* ch, const float* chu, const float* chv,
+               const float* rb, const float* ctrl, float* oh, float* ohu,
+               float* ohv, float* sb, float c_dt, float t, int use_filter,
+               int sponge, int E, int threads, void* stream) {
+  StageArgs a = {fops, iops, fstride, istride, S, B, E, use_filter, sponge,
+                 bh, bhu, bhv, ch, chu, chv, rb, ctrl, oh, ohu, ohv, sb,
+                 c_dt, t};
+  Ops o = make_ops(*d, nullptr, nullptr);
+  const size_t bytes = smem_floats(o, E) * sizeof(float);
+  const int n_units = S * B * ((o.K + E - 1) / E);
+  const int pe = prepare(sw2d_stage_kernel, bytes);
+  if (pe != 0) return pe;
+  g_last_grid = n_units;
+  sw2d_stage_kernel<<<n_units, threads, bytes, (cudaStream_t)stream>>>(*d, a);
+  return (int)cudaGetLastError();
+}
+
+// Floats of scratch that sw2d_stage_bwd needs in `work`.
+long long sw2d_stage_bwd_work_floats(const SwDesc* d, int S, int B, int E) {
+  const long long nT = (long long)d->K * d->Nfaces * d->Nfp;
+  const long long n_chunks = (d->K + E - 1) / E;
+  return 6LL * S * B * nT + (long long)S * B * n_chunks * d->n_ctrl;
+}
+
+// The adjoint of sw2d_stage: cotangents of (out, sb) to those of (base,
+// cur, rb) and, with octl, the control cotangent per shard and scenario.
+int sw2d_stage_bwd(const SwDesc* d, const float* fops, const int* iops,
+                   long long fstride, long long istride, int S, int B,
+                   const float* ch, const float* chu, const float* chv,
+                   const float* rb, const float* lh, const float* lhu,
+                   const float* lhv, const float* lsb, float* obh,
+                   float* obhu, float* obhv, float* och, float* ochu,
+                   float* ochv, float* orb, float* octl, float* work,
+                   float c_dt, float t, int use_filter, int sponge, int E,
+                   int threads, void* stream) {
+  Ops o = make_ops(*d, nullptr, nullptr);
+  StageBwdArgs a;
+  a.fops = fops; a.iops = iops; a.fstride = fstride; a.istride = istride;
+  a.S = S; a.B = B; a.E = E; a.use_filter = use_filter; a.sponge = sponge;
+  a.ch = ch; a.chu = chu; a.chv = chv; a.rb = rb;
+  a.lh = lh; a.lhu = lhu; a.lhv = lhv; a.lsb = lsb;
+  a.obh = obh; a.obhu = obhu; a.obhv = obhv;
+  a.och = och; a.ochu = ochu; a.ochv = ochv; a.orb = orb; a.octl = octl;
+  a.T = work; a.cpart = work + (size_t)6 * S * B * o.nT;
+  a.c_dt = c_dt; a.t = t;
+  const size_t bytes = smem_floats(o, E) * sizeof(float);
+  const int n_units = S * B * ((o.K + E - 1) / E);
+  SwDesc dd = *d;
+  void* args[] = {&dd, &a};
+  return coop_launch((const void*)sw2d_stage_bwd_kernel, args, n_units,
+                     threads, bytes, stream);
 }
 
 }  // extern "C"

@@ -29,6 +29,10 @@ struct SwDesc {
   float g, cd, fcor;
   float tide_h0, tide_amp, tide_omega, tide_tau;
   float h_floor;
+  // one shard of the element-sharded set (sw2d_blocked.cu, stage kernels):
+  // vmapP may point past the nV local nodes into n_recv receive slots, and
+  // the integer buffer ends with the n_send-slot send list; 0 elsewhere
+  int n_recv, n_send;
 };
 
 struct Ops {
@@ -38,17 +42,23 @@ struct Ops {
   const float *Hx, *Hy, *BU, *BV;
   const float *H, *SPNG;  // blocked set only
   const int *vmapM, *vmapP, *invM_ptr, *invM_idx, *invP_ptr, *invP_idx;
-  int K, Np, Ntr, Nfp, nV, nT, n_ctrl;
+  // send list: local node of each send slot (-1: an empty slot, sent as 0),
+  // and its inverse (the slots that read each local node) as CSR
+  const int *send_node, *send_ptr, *send_idx;
+  int K, Np, Ntr, Nfp, nV, nT, n_ctrl, n_recv, n_send;
   int wb, has_bathy, has_tidal, has_sponge, wetdry;
   float g, cd, fcor, tide_h0, tide_amp, tide_omega, tide_tau, h_floor;
 };
 
 // The packed operator buffers: the order here is the order in which the
-// operator sets pack them (ops/sw2d_fused.py, _pack_buffers).
-static Ops make_ops(const SwDesc& d, const float* f, const int* i) {
+// operator sets pack them (ops/sw2d_fused.py, _pack_buffers). The stage
+// kernels call it on the device, once per shard of a stacked set.
+__host__ __device__ inline Ops make_ops(const SwDesc& d, const float* f,
+                                        const int* i) {
   Ops o;
   o.K = d.K; o.Np = d.Np; o.Ntr = d.Nfaces * d.Nfp; o.Nfp = d.Nfp;
   o.nV = d.K * d.Np; o.nT = d.K * o.Ntr; o.n_ctrl = d.n_ctrl;
+  o.n_recv = d.n_recv; o.n_send = d.n_send;
   o.wb = d.wb; o.has_bathy = d.has_bathy; o.has_tidal = d.has_tidal;
   o.has_sponge = d.has_sponge; o.wetdry = d.wetdry;
   o.g = d.g; o.cd = d.cd; o.fcor = d.fcor;
@@ -77,8 +87,14 @@ static Ops make_ops(const SwDesc& d, const float* f, const int* i) {
   o.vmapP = i; i += nT;
   o.invM_ptr = i; i += nV + 1;
   o.invM_idx = i; i += nT;
-  o.invP_ptr = i; i += nV + 1;
+  o.invP_ptr = i; i += nV + 1 + d.n_recv;  // receive slots after the nodes
   o.invP_idx = i; i += nT;
+  o.send_node = o.send_ptr = o.send_idx = nullptr;
+  if (d.n_send > 0) {
+    o.send_node = i; i += d.n_send;
+    o.send_ptr = i; i += nV + 1;
+    o.send_idx = i; i += d.n_send;
+  }
   return o;
 }
 
@@ -139,15 +155,22 @@ struct TraceVals {
 };
 
 // h, hu, hv: one scenario's state, indexed by global volume node (shared or
-// global memory); i: global trace node.
+// global memory); i: global trace node. rb: one scenario's (n_recv, 3)
+// receive buffer of a shard, read where vmapP points past the local nodes
+// (cut faces), or null.
 __device__ __forceinline__ void trace_values(
     const Ops& o, int i, const float* h, const float* hu, const float* hv,
-    float h_bc, TraceVals& tv) {
+    float h_bc, TraceVals& tv, const float* rb = nullptr) {
   const int vm = o.vmapM[i], vp = o.vmapP[i];
   tv.nx = o.nx[i]; tv.ny = o.ny[i];
-  tv.hM = h[vm];  tv.hP = h[vp];
+  tv.hM = h[vm];
   tv.huM = hu[vm]; tv.hvM = hv[vm];
-  tv.huP = hu[vp]; tv.hvP = hv[vp];
+  if (rb != nullptr && vp >= o.nV) {
+    const float* r = rb + 3 * (vp - o.nV);
+    tv.hP = r[0]; tv.huP = r[1]; tv.hvP = r[2];
+  } else {
+    tv.hP = h[vp]; tv.huP = hu[vp]; tv.hvP = hv[vp];
+  }
   tv.wall = o.wall[i] != 0.0f;
   if (tv.wall) {  // reflect the normal momentum
     const float un2 = 2.0f * (tv.huM * tv.nx + tv.hvM * tv.ny);

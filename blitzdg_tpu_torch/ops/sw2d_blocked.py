@@ -4,7 +4,10 @@ their plain PyTorch versions and the differentiable rollout built on them.
 Counterpart of the JAX package's ``blitzdg_tpu/ops/sw2d_blocked.py``
 (``sw2d_step_blocked``, ``sw2d_rollout_blocked``,
 ``sw2d_rollout_bwd_blocked``, ``make_rollout_blocked``,
-``build_blocked_step_ops``, ``matmul_flops_per_step``). The dense kernels
+``build_blocked_step_ops``, ``matmul_flops_per_step``, and the element-sharded
+path's stage kernels ``sw2d_stage_blocked`` (lean-I/O mode only) and
+``sw2d_stage_bwd_blocked_v2`` over a ``ShardOps`` set, which
+``parallel/blocked_shard.py`` builds and drives). The dense kernels
 (``sw2d_fused.py``) hold one scenario's whole mesh in one block's shared
 memory, which ends near K = 200 elements. Here the mesh is split over blocks
 (work unit: scenario x chunk of elements), neighbours are read from global
@@ -41,6 +44,7 @@ For CUDA tensors it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -73,6 +77,25 @@ class BlockedOps(FusedStepOps):
 
     H: torch.Tensor  # (nV,) still-water depth (zeros on a flat bottom)
     SPNG: torch.Tensor  # (nV,) sponge coefficient (zeros without sponge)
+
+
+@dataclass(frozen=True)
+class ShardOps(BlockedOps):
+    """The operator sets of the shards of an element-sharded mesh, each
+    field stacked on a leading shard axis (``parallel/blocked_shard.py``
+    builds them). Each shard's set covers its own K_loc elements: ``vmapP``
+    points at local nodes for interior faces and at ``K_loc*Np + j`` for a
+    cut face, j being the receive slot that carries the '+' value; ``send``
+    names the local node of each send slot (-1: an empty slot, sent as 0).
+    Receive and send buffers have the same number of slots."""
+
+    send: torch.Tensor  # (S, L) int64
+
+
+def shard_view(ops: ShardOps, s: int) -> ShardOps:
+    """Shard ``s``'s operator set (every field without the shard axis)."""
+    return dataclasses.replace(ops, **{
+        f.name: getattr(ops, f.name)[s] for f in dataclasses.fields(ops)})
 
 
 def matmul_flops_per_step(meta: BlockedMeta, use_filter: bool = True) -> float:
@@ -241,6 +264,82 @@ def sw2d_rollout_bwd_blocked_plain(ops: BlockedOps, meta: BlockedMeta,
 
 
 # ---------------------------------------------------------------------------
+# One RK stage of an element-sharded set, plain versions
+# ---------------------------------------------------------------------------
+
+def _refuse_wetdry_stage_adjoint(meta: BlockedMeta):
+    if meta.wetdry:
+        raise NotImplementedError(
+            "the sharded stage has no adjoint for a wet/dry operator set: "
+            "the positivity limiter is not differentiated")
+
+
+def _send_plain(o: ShardOps, h, hu, hv):
+    """(B, L, 3) send buffer of one shard's (B, nV) state."""
+    idx = o.send.clamp_min(0)
+    keep = (o.send >= 0).to(h.dtype)
+    return torch.stack([f[:, idx] * keep for f in (h, hu, hv)], dim=-1)
+
+
+def _send_plain_vjp(o: ShardOps, lsb, n_v: int):
+    """Cotangents of the (B, nV) fields of ``_send_plain``."""
+    keep = o.send >= 0
+    idx = o.send[keep]
+    return tuple(lsb.new_zeros(lsb.shape[0], n_v).index_add(
+        1, idx, lsb[:, keep, c]) for c in range(3))
+
+
+def sw2d_stage_blocked_plain(ops: ShardOps, meta: BlockedMeta, base, cur, rb,
+                             c_dt: float, t: float = 0.0, ctrl=None,
+                             use_filter: bool = True,
+                             apply_sponge: bool = False):
+    """Plain version of ``sw2d_stage_blocked``."""
+    c = None if ctrl is None else ctrl.reshape(1, -1)
+    outs = []
+    for s in range(ops.fbuf.shape[0]):
+        o = shard_view(ops, s)
+        r = _eval_rhs_plain(o, meta, *(f[s] for f in cur), float(t), c,
+                            use_filter, rb=rb[s])
+        out = tuple(b[s] + c_dt * ri for b, ri in zip(base, r))
+        if meta.wetdry:
+            out = _limit_plain(meta, *out)
+        if apply_sponge and meta.has_sponge:  # relax toward rest
+            fac = _sponge_factor(o, c_dt)
+            h = o.H + (out[0] - o.H) * fac if meta.has_bathy else out[0]
+            out = (h, out[1] * fac, out[2] * fac)
+        outs.append((*out, _send_plain(o, *out)))
+    return tuple(torch.stack([o_[i] for o_ in outs]) for i in range(4))
+
+
+def sw2d_stage_bwd_blocked_v2_plain(ops: ShardOps, meta: BlockedMeta, cur,
+                                    rb, lam_out, lam_sb, c_dt: float,
+                                    t: float = 0.0, ctrl=None,
+                                    use_filter: bool = True,
+                                    apply_sponge: bool = False):
+    """Plain version of ``sw2d_stage_bwd_blocked_v2``: the hand adjoint of
+    ``sw2d_stage_blocked_plain`` (no autograd)."""
+    _refuse_wetdry_stage_adjoint(meta)
+    n_v = cur[0].shape[2]
+    outs = []
+    for s in range(ops.fbuf.shape[0]):
+        o = shard_view(ops, s)
+        lo = [l[s] + g for l, g in
+              zip(lam_out, _send_plain_vjp(o, lam_sb[s], n_v))]
+        if apply_sponge and meta.has_sponge:
+            fac = _sponge_factor(o, c_dt)
+            lo = [lo[0] * fac if meta.has_bathy else lo[0],
+                  lo[1] * fac, lo[2] * fac]
+        hb, hub, hvb, cb, rbb = _eval_rhs_vjp_plain(
+            o, meta, *(f[s] for f in cur), float(t), *(c_dt * l for l in lo),
+            use_filter, rb=rb[s])
+        outs.append((*lo, hb, hub, hvb, rbb, cb))
+    res = [torch.stack([o_[i] for o_ in outs]) for i in range(8)]
+    if ctrl is None:
+        res[7] = None
+    return tuple(res)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -273,8 +372,16 @@ def _lib():
         [D, P, P] + [P] * 11 + [I, I, I, I, F, F, I, I, I, P])
     lib.sw2d_blocked_rollout_bwd.argtypes = (
         [D, P, P] + [P] * 12 + [I, I, I, F, F, I, I, I, P])
+    L = ctypes.c_longlong
+    lib.sw2d_stage.argtypes = ([D, P, P, L, L, I, I] + [P] * 12
+                               + [F, F, I, I, I, I, P])
+    lib.sw2d_stage_bwd_work_floats.argtypes = [D, I, I, I]
+    lib.sw2d_stage_bwd_work_floats.restype = L
+    lib.sw2d_stage_bwd.argtypes = ([D, P, P, L, L, I, I] + [P] * 17
+                                   + [F, F, I, I, I, I, P])
     for fn in (lib.sw2d_blocked_step, lib.sw2d_blocked_rollout,
-               lib.sw2d_blocked_rollout_bwd):
+               lib.sw2d_blocked_rollout_bwd, lib.sw2d_stage,
+               lib.sw2d_stage_bwd):
         fn.restype = I
     lib._sw2d_typed = True
     return lib
@@ -290,7 +397,8 @@ def _check_kernel_inputs(ops: BlockedOps, meta: BlockedMeta,
     if ops.fbuf.device != ref.device or ops.ibuf.device != ref.device:
         raise ValueError("operator set and state lie on different devices")
     lib = _lib()
-    desc = _desc(meta, blocked=True)
+    n_halo = ops.send.shape[-1] if isinstance(ops, ShardOps) else 0
+    desc = _desc(meta, blocked=True, n_recv=n_halo, n_send=n_halo)
     E = chunk_elems(meta)
     need = lib.sw2d_blocked_smem_bytes(ctypes.byref(desc), E)
     while need > MAX_SMEM_BYTES and E > 1:  # high orders: smaller chunks
@@ -511,3 +619,116 @@ def make_rollout_blocked(ops: BlockedOps, meta: BlockedMeta, dt: float,
                 use_filter)
 
     return _Rollout.apply
+
+
+def _check_stage(ops: ShardOps, meta: BlockedMeta, fields: dict, rb):
+    """Shapes of the stage's (S, B, nV) fields and (S, B, L, 3) buffers."""
+    if not isinstance(ops, ShardOps):
+        raise TypeError("the stage kernels need a ShardOps operator set")
+    S, L = ops.send.shape
+    ref = rb
+    B = rb.shape[1]
+    _check_tensor("rb", rb, (S, B, L, 3), ref)
+    for name, t in fields.items():
+        shape = (S, B, L, 3) if name == "lam_sb" else (S, B, meta.n_v)
+        _check_tensor(name, t, shape, ref)
+    return S, B, L
+
+
+def sw2d_stage_blocked(ops: ShardOps, meta: BlockedMeta, base, cur, rb,
+                       c_dt: float, t: float = 0.0, ctrl=None,
+                       use_filter: bool = True, apply_sponge: bool = False):
+    """One RK stage on every shard of an element-sharded set:
+    ``out = base + c_dt * R(cur)``, the cut faces' '+' values read from the
+    receive buffer, then the positivity limiter (wet/dry) and, with
+    ``apply_sponge`` (the last stage of a step), the sponge; and the send
+    buffer of ``out`` for the next exchange. ``base``, ``cur``: 3-tuples of
+    (S, B, nV); ``rb``: (S, B, L, 3); ``t``: the stage time; ``ctrl``:
+    (n_ctrl,), one control vector for every scenario and shard, or None.
+    Returns (h, hu, hv, sb) with sb (S, B, L, 3).
+
+    Replaces the TPU kernel ``_stage_kernel`` / ``sw2d_stage_blocked``
+    (lean-I/O mode) of ``blitzdg_tpu/ops/sw2d_blocked.py``. Bound by
+    bytes: six state reads and three writes against one RHS per node, whose
+    operations take less time on the card than the bytes' transfer. One
+    ordinary launch covers every shard; design: see the source of the
+    kernels.
+    """
+    S, B, L = _check_stage(ops, meta, {"base_h": base[0], "base_hu": base[1],
+                                       "base_hv": base[2], "h": cur[0],
+                                       "hu": cur[1], "hv": cur[2]}, rb)
+    if ctrl is not None:
+        _check_tensor("ctrl", ctrl, (meta.n_ctrl,), rb)
+    if rb.device.type == "cpu":
+        return sw2d_stage_blocked_plain(ops, meta, base, cur, rb, c_dt, t,
+                                        ctrl, use_filter, apply_sponge)
+    lib, desc, E = _check_kernel_inputs(ops, meta, rb)
+    out = [torch.empty_like(cur[0]) for _ in range(3)]
+    sb = torch.empty_like(rb)
+    err = lib.sw2d_stage(
+        ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
+        ops.fbuf.shape[1], ops.ibuf.shape[1], S, B,
+        *(f.data_ptr() for f in base), *(f.data_ptr() for f in cur),
+        rb.data_ptr(), _ptr(ctrl), *(f.data_ptr() for f in out),
+        sb.data_ptr(), float(c_dt), float(t), int(use_filter),
+        int(apply_sponge and meta.has_sponge), E, THREADS, _stream(rb))
+    _launch_check(err, "sw2d_stage_blocked")
+    sw2d_stage_blocked.launches += 1
+    return (*out, sb)
+
+
+sw2d_stage_blocked.launches = 0
+
+
+def sw2d_stage_bwd_blocked_v2(ops: ShardOps, meta: BlockedMeta, cur, rb,
+                              lam_out, lam_sb, c_dt: float, t: float = 0.0,
+                              ctrl=None, use_filter: bool = True,
+                              apply_sponge: bool = False):
+    """Adjoint of ``sw2d_stage_blocked``: from the cotangents of
+    (out, sb) to those of (base, cur, rb) and, given ``ctrl``, the control
+    cotangent of each shard and scenario (S, B, n_ctrl); None without.
+    Returns (base_h, base_hu, base_hv, cur_h, cur_hu, cur_hv, rb, ctrl)
+    cotangents.
+
+    Replaces the TPU kernel ``_stage_bwd_kernel_v2`` /
+    ``sw2d_stage_bwd_blocked_v2`` of ``blitzdg_tpu/ops/sw2d_blocked.py``,
+    whose RHS pullback is ``jax.vjp`` traced in the kernel; here it is the
+    hand adjoint of ``sw2d_fused.py`` with the receive buffer as a further
+    gather source. Bound by bytes (the states and cotangents read and
+    written outweigh one RHS adjoint per node). One cooperative launch with one grid barrier (the transposed '+' gather
+    crosses blocks); no atomics, the same bits on a rerun.
+    """
+    _refuse_wetdry_stage_adjoint(meta)
+    S, B, L = _check_stage(ops, meta, {
+        "h": cur[0], "hu": cur[1], "hv": cur[2], "lam_h": lam_out[0],
+        "lam_hu": lam_out[1], "lam_hv": lam_out[2], "lam_sb": lam_sb}, rb)
+    if ctrl is not None:
+        _check_tensor("ctrl", ctrl, (meta.n_ctrl,), rb)
+    if rb.device.type == "cpu":
+        return sw2d_stage_bwd_blocked_v2_plain(ops, meta, cur, rb, lam_out,
+                                               lam_sb, c_dt, t, ctrl,
+                                               use_filter, apply_sponge)
+    lib, desc, E = _check_kernel_inputs(ops, meta, rb)
+    new = lambda: torch.empty_like(cur[0])
+    bb, cb = [new() for _ in range(3)], [new() for _ in range(3)]
+    rbb = torch.empty_like(rb)
+    ctl = (None if ctrl is None else
+           torch.empty((S, B, meta.n_ctrl), dtype=rb.dtype, device=rb.device))
+    work = torch.empty(lib.sw2d_stage_bwd_work_floats(ctypes.byref(desc), S, B,
+                                                       E),
+                       dtype=rb.dtype, device=rb.device)
+    err = lib.sw2d_stage_bwd(
+        ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
+        ops.fbuf.shape[1], ops.ibuf.shape[1], S, B,
+        *(f.data_ptr() for f in cur), rb.data_ptr(),
+        *(f.data_ptr() for f in lam_out), lam_sb.data_ptr(),
+        *(f.data_ptr() for f in bb), *(f.data_ptr() for f in cb),
+        rbb.data_ptr(), _ptr(ctl), work.data_ptr(), float(c_dt), float(t),
+        int(use_filter), int(apply_sponge and meta.has_sponge), E, THREADS,
+        _stream(rb))
+    _launch_check(err, "sw2d_stage_bwd_blocked_v2")
+    sw2d_stage_bwd_blocked_v2.launches += 1
+    return (*bb, *cb, rbb, ctl)
+
+
+sw2d_stage_bwd_blocked_v2.launches = 0

@@ -139,29 +139,39 @@ def _inverse_map(vmap: np.ndarray, n_v: int) -> tuple[np.ndarray, np.ndarray]:
     return ptr.astype(np.int32), order.astype(np.int32)
 
 
-def _pack_buffers(arr: dict, n_v: int,
-                  extra: tuple = ()) -> tuple[np.ndarray, np.ndarray]:
-    """``extra``: names of further float fields appended after ``BV``."""
+def _pack_buffers(arr: dict, n_v: int, extra: tuple = (),
+                  n_recv: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """``extra``: names of further float fields appended after ``BV``.
+    ``n_recv``: receive slots of one shard of a sharded set, which ``vmapP``
+    numbers after the ``n_v`` local nodes; such a set also carries its send
+    list ``arr["send"]`` (local node of each send slot, -1 for an empty
+    slot), packed with its inverse after the maps."""
     forder = ("Dr", "Ds", "lift", "filt", "rx", "sx", "ry", "sy", "nx", "ny",
               "fscale", "wall", "obc", "HMt", "HPt", "Hx", "Hy", "BU", "BV",
               *extra)
     fbuf = np.concatenate(
         [np.asarray(arr[k], dtype=np.float32).reshape(-1) for k in forder])
     mptr, midx = _inverse_map(arr["vmapM"], n_v)
-    pptr, pidx = _inverse_map(arr["vmapP"], n_v)
-    ibuf = np.concatenate([arr["vmapM"].astype(np.int32),
-                           arr["vmapP"].astype(np.int32),
-                           mptr, midx, pptr, pidx])
-    return fbuf, ibuf
+    pptr, pidx = _inverse_map(arr["vmapP"], n_v + n_recv)
+    parts = [arr["vmapM"].astype(np.int32), arr["vmapP"].astype(np.int32),
+             mptr, midx, pptr, pidx]
+    if "send" in arr:
+        send = np.asarray(arr["send"])
+        slots = np.flatnonzero(send >= 0)
+        sptr, sidx = _inverse_map(send[slots], n_v)
+        # padded to the slot count, so that every shard's buffer has one size
+        sidx = np.concatenate([slots[sidx], np.zeros(send.size - slots.size)])
+        parts += [send.astype(np.int32), sptr, sidx.astype(np.int32)]
+    return fbuf, np.concatenate(parts)
 
 
 def _ops_from_arrays(arr: dict, meta: FusedStepMeta, dtype: torch.dtype,
-                     device, cls=None, extra: tuple = ()):
+                     device, cls=None, extra: tuple = (), n_recv: int = 0):
     """``arr``: numpy float64/int/bool arrays keyed by field name. ``cls``:
     ``FusedStepOps`` or a dataclass that extends it by the ``extra`` float
-    fields."""
+    fields (and, for a shard of a sharded set, the send list)."""
     cls = FusedStepOps if cls is None else cls
-    fbuf, ibuf = _pack_buffers(arr, meta.n_v, extra)
+    fbuf, ibuf = _pack_buffers(arr, meta.n_v, extra, n_recv)
     fields = {}
     for f in dataclasses.fields(cls):
         if f.name in ("fbuf", "ibuf"):
@@ -169,7 +179,7 @@ def _ops_from_arrays(arr: dict, meta: FusedStepMeta, dtype: torch.dtype,
         a = np.ascontiguousarray(arr[f.name])
         if f.name in ("wall", "obc"):
             fields[f.name] = torch.as_tensor(a.astype(bool), device=device)
-        elif f.name in ("vmapM", "vmapP"):
+        elif f.name in ("vmapM", "vmapP", "send"):
             fields[f.name] = torch.as_tensor(a.astype(np.int64), device=device)
         else:
             fields[f.name] = torch.as_tensor(a, dtype=dtype, device=device)
@@ -304,11 +314,22 @@ class _TraceVals(NamedTuple):
     spdP: torch.Tensor
 
 
-def _trace_values(o: FusedStepOps, m: FusedStepMeta, h, hu, hv, t):
-    """Everything a trace node needs from the (B, nV) state."""
-    hM, hP = h[:, o.vmapM], h[:, o.vmapP]
+def _plus_source(h, hu, hv, rb):
+    """What the '+' gather reads: the state, followed for one shard of a
+    sharded set by its (B, L_r, 3) receive buffer."""
+    if rb is None:
+        return h, hu, hv
+    return tuple(torch.cat([f, rb[..., c]], dim=1)
+                 for c, f in enumerate((h, hu, hv)))
+
+
+def _trace_values(o: FusedStepOps, m: FusedStepMeta, h, hu, hv, t, rb=None):
+    """Everything a trace node needs from the (B, nV) state (and ``rb``, the
+    receive buffer of a shard: see ``_plus_source``)."""
+    hx, hux, hvx = _plus_source(h, hu, hv, rb)
+    hM, hP = h[:, o.vmapM], hx[:, o.vmapP]
     huM, hvM = hu[:, o.vmapM], hv[:, o.vmapM]
-    huP, hvP = hu[:, o.vmapP], hv[:, o.vmapP]
+    huP, hvP = hux[:, o.vmapP], hvx[:, o.vmapP]
     un2 = 2.0 * (huM * o.nx + hvM * o.ny)
     huP = torch.where(o.wall, huM - un2 * o.nx, huP)
     hvP = torch.where(o.wall, hvM - un2 * o.ny, hvP)
@@ -351,10 +372,12 @@ def _elem(m: FusedStepMeta, f):
     return f.reshape(f.shape[0], m.k_elem, -1)
 
 
-def _rhs_plain(o: FusedStepOps, m: FusedStepMeta, h, hu, hv, t, ctrl):
-    """One RHS on (B, nV) values; same arithmetic as the JAX kernels' _rhs."""
+def _rhs_plain(o: FusedStepOps, m: FusedStepMeta, h, hu, hv, t, ctrl,
+               rb=None):
+    """One RHS on (B, nV) values; same arithmetic as the JAX kernels' _rhs.
+    ``rb``: the receive buffer of one shard of a sharded set, or None."""
     g = m.g
-    tv = _trace_values(o, m, h, hu, hv, t)
+    tv = _trace_values(o, m, h, hu, hv, t, rb)
     nx, ny = o.nx, o.ny
     if m.wb or m.wetdry:
         def flux_uv(hh, uu, vv):
@@ -441,8 +464,8 @@ def _filter(o, m, r):
     return (_elem(m, r) @ o.filt.T).reshape(r.shape)
 
 
-def _eval_rhs_plain(o, m, h, hu, hv, t, ctrl, use_filter):
-    r = _rhs_plain(o, m, h, hu, hv, t, ctrl)
+def _eval_rhs_plain(o, m, h, hu, hv, t, ctrl, use_filter, rb=None):
+    r = _rhs_plain(o, m, h, hu, hv, t, ctrl, rb)
     return tuple(_filter(o, m, a) for a in r) if use_filter else r
 
 
@@ -480,8 +503,10 @@ def sw2d_rollout_plain(ops: FusedStepOps, meta: FusedStepMeta, h, hu, hv,
 
 
 def _rhs_vjp_plain(o: FusedStepOps, m: FusedStepMeta, h, hu, hv, t,
-                   w1, w2, w3):
-    """Hand-derived VJP of the unfiltered, unforced RHS w.r.t. (h, hu, hv).
+                   w1, w2, w3, rb=None):
+    """Hand-derived VJP of the unfiltered, unforced RHS w.r.t. (h, hu, hv)
+    and, given the receive buffer ``rb`` of a shard, w.r.t. ``rb`` as a
+    fourth cotangent (B, L_r, 3).
 
     Recomputes the forward internals from the state, then runs the chain
     rule in reverse. The kernel does the same, node by node.
@@ -489,7 +514,7 @@ def _rhs_vjp_plain(o: FusedStepOps, m: FusedStepMeta, h, hu, hv, t,
     g = m.g
     B = h.shape[0]
     nx, ny = o.nx, o.ny
-    tv = _trace_values(o, m, h, hu, hv, t)
+    tv = _trace_values(o, m, h, hu, hv, t, rb)
     if m.wb:
         dq1 = tv.hMs - tv.hPs
         dq2 = tv.hMs * tv.uM - tv.hPs * tv.uP
@@ -616,22 +641,31 @@ def _rhs_vjp_plain(o: FusedStepOps, m: FusedStepMeta, h, hu, hv, t,
     huPb = torch.where(o.wall, zero, huPb)
     hvPb = torch.where(o.wall, zero, hvPb)
 
-    # back through the gathers
+    # back through the gathers ('+' into the receive slots too, given rb)
+    n_v = h.shape[1]
+    if rb is not None:
+        hb, hub, hvb = (torch.cat([f, f.new_zeros(B, rb.shape[1])], dim=1)
+                        for f in (hb, hub, hvb))
     hb = hb.index_add(1, o.vmapM, hMb).index_add(1, o.vmapP, hPb)
     hub = hub.index_add(1, o.vmapM, huMb).index_add(1, o.vmapP, huPb)
     hvb = hvb.index_add(1, o.vmapM, hvMb).index_add(1, o.vmapP, hvPb)
-    return hb, hub, hvb
+    if rb is None:
+        return hb, hub, hvb
+    rbb = torch.stack([f[:, n_v:] for f in (hb, hub, hvb)], dim=-1)
+    return hb[:, :n_v], hub[:, :n_v], hvb[:, :n_v], rbb
 
 
-def _eval_rhs_vjp_plain(o, m, h, hu, hv, t, w1, w2, w3, use_filter):
+def _eval_rhs_vjp_plain(o, m, h, hu, hv, t, w1, w2, w3, use_filter,
+                        rb=None):
     """VJP of the filtered, control-forced RHS: state cotangents and the
-    control cotangent (B, n_ctrl)."""
+    control cotangent (B, n_ctrl); given the receive buffer ``rb`` of a
+    shard, its cotangent (B, L_r, 3) follows."""
     if use_filter:
         w1, w2, w3 = ((_elem(m, w) @ o.filt).reshape(w.shape)
                       for w in (w1, w2, w3))
     cb = w2 @ o.BU.T + w3 @ o.BV.T
-    hb, hub, hvb = _rhs_vjp_plain(o, m, h, hu, hv, t, w1, w2, w3)
-    return hb, hub, hvb, cb
+    hb, hub, hvb, *rbb = _rhs_vjp_plain(o, m, h, hu, hv, t, w1, w2, w3, rb)
+    return (hb, hub, hvb, cb, *rbb)
 
 
 def sw2d_rollout_bwd_plain(ops: FusedStepOps, meta: FusedStepMeta,
@@ -684,18 +718,21 @@ class _SwDesc(ctypes.Structure):
         "has_sponge", "wetdry", "blocked")
     ] + [(n, ctypes.c_float) for n in (
         "g", "cd", "fcor", "tide_h0", "tide_amp", "tide_omega", "tide_tau",
-        "h_floor")]
+        "h_floor")] + [(n, ctypes.c_int) for n in ("n_recv", "n_send")]
 
 
-def _desc(meta: FusedStepMeta, blocked: bool = False) -> _SwDesc:
+def _desc(meta: FusedStepMeta, blocked: bool = False, n_recv: int = 0,
+          n_send: int = 0) -> _SwDesc:
     """``blocked``: the packed float buffer carries the blocked set's extra
-    fields (still-water depth and sponge coefficient) after ``BV``."""
+    fields (still-water depth and sponge coefficient) after ``BV``.
+    ``n_recv``/``n_send``: the halo slots of one shard of a sharded set."""
     h0, amp, omega, tau = meta.tidal if meta.tidal is not None else (0.0,) * 4
     return _SwDesc(meta.k_elem, meta.n_p, meta.n_faces, meta.n_fp,
                    meta.n_ctrl, int(meta.wb), int(meta.has_bathy),
                    int(meta.tidal is not None), int(meta.has_sponge),
                    int(meta.wetdry), int(blocked), meta.g, meta.cd,
-                   meta.f_cor, h0, amp, omega, tau, meta.h_floor)
+                   meta.f_cor, h0, amp, omega, tau, meta.h_floor, n_recv,
+                   n_send)
 
 
 def _lib():

@@ -1,0 +1,263 @@
+"""The element-sharded blocked path: per-shard operator sets, the stage
+kernels and the ring exchange between the RK stages.
+
+Counterpart of the JAX package's ``blitzdg_tpu/parallel/blocked_shard.py``
+(``ShardedBlocked``, ``build_sharded_blocked``, ``initial_send_buffer``,
+``make_sharded_blocked_step_fused``, ``make_sharded_blocked_step_diff``).
+The mesh is partitioned into S contiguous element blocks
+(``parallel.partition_mesh``). Each shard runs the same stage kernel as the
+others (``ops.sw2d_blocked.sw2d_stage_blocked``, full coastal physics); only
+the cut faces' '+' values cross shards. Per SSP-RK2 stage (each stage's RHS
+needs the traces of its own input):
+
+  1. the previous stage kernel emitted a compact (S, B, L, 3) send buffer;
+  2. ``parallel.halo.ring_exchange`` turns it into the receive buffer;
+  3. one stage kernel consumes the receive buffer and computes
+     ``out = base + c dt R(cur)`` and the next send buffer.
+
+What is ported is the contract, not the TPU layout: no (p, NP, M) packing
+(states are (S, B, K_loc*Np)), no kron operators, combos, EXTM/SGEM/SL/RG/RL
+one-hot tables or filter folding. Each shard's ``ShardOps`` covers its
+K_loc elements; a cut face's ``vmapP`` points at the receive slot that
+carries its '+' value, in the JAX package's slot layout (slot j =
+offset * chunk + send slot * Nfp + node, the node reversed on flipped
+faces), and the send list pads unused slots with face row 0 as the JAX
+package does, so send buffers compare equal. The '+' bathymetry at a cut face
+is the remote element's, taken from the global trace at set-up: nothing
+coastal crosses shards at run time.
+
+Controls follow the JAX package: one vector (n_ctrl,) per step, shared by
+every scenario and shard. The differentiable step sums its control
+cotangent over scenarios, shards and (process-group transport) ranks; the
+JAX backward reshapes its per-scenario (B, n_ctrl) cotangent to (n_ctrl,),
+which holds for B = 1 only (ROADMAP C21).
+
+Not ported: ``make_sharded_blocked_step`` (superseded) and
+``initial_packed_traces``; ``pack_local``/``unpack_local`` have no
+counterpart (``split_shards``/``join_shards`` reshape flat fields);
+``make_sharded_blocked_step_rdma`` waits for its kernel (ROADMAP B9).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..context import DGContext2D
+from ..ops.sw2d import SWPhysics
+from ..ops.sw2d_blocked import (BlockedMeta, ShardOps, _send_plain,
+                                shard_view, sw2d_stage_blocked,
+                                sw2d_stage_bwd_blocked_v2)
+from ..ops.sw2d_fused import _np64, _operator_arrays, _ops_from_arrays
+from .halo import HaloPlan, RingExchange, build_halo_plan
+
+_VOLUME = ("rx", "sx", "ry", "sy", "Hx", "Hy", "H", "SPNG")
+_TRACE = ("nx", "ny", "fscale", "wall", "obc", "HMt", "HPt")
+
+
+class ShardedBlocked(NamedTuple):
+    ops: ShardOps  # the shards held here, stacked on the leading axis
+    meta: BlockedMeta  # one shard's (k_elem = k_loc)
+    plan: HaloPlan
+    n_shards: int
+    k_loc: int
+    shards: tuple  # global ids of the shards held here
+
+
+def build_sharded_blocked(
+    ctx: DGContext2D,
+    phys: SWPhysics,
+    n_shards: int,
+    dtype: torch.dtype = torch.float32,
+    tidal: tuple | None = None,  # (h0, amp, omega, ramp_tau) BC_OUT forcing
+    wetdry: bool = False,
+    h_floor: float = 1e-3,
+    forcing_bu: np.ndarray | None = None,  # (n_ctrl, K, Np) hu injector
+    forcing_bv: np.ndarray | None = None,
+    device="cuda",
+    shards=None,
+) -> ShardedBlocked:
+    """Freeze the per-shard operator sets and the halo plan (host side).
+
+    ``ctx`` must be built on a partitioned mesh (contiguous blocks, K
+    divisible by ``n_shards``: ``partition_mesh``, ``pad_context``).
+    ``shards``: the global ids of the shards to hold (default: all, for the
+    stacked transport; one rank's id for the process-group transport)."""
+    K, n_p, n_fp, nf = ctx.k_elem, ctx.n_p, ctx.n_fp, ctx.n_faces
+    if K % n_shards:
+        raise ValueError(f"K={K} is not divisible by {n_shards} shards")
+    if wetdry and phys.H is None:
+        raise ValueError("wetdry needs bathymetry (phys.H)")
+    shards = tuple(range(n_shards)) if shards is None else tuple(shards)
+    k_loc = K // n_shards
+    nvl, ntl, f_loc = k_loc * n_p, k_loc * nf * n_fp, k_loc * nf
+
+    arr, meta_kw = _operator_arrays(ctx, phys, forcing_bu, forcing_bv, tidal)
+    n_v = meta_kw["n_v"]
+    arr["H"] = _np64(phys.H).reshape(-1) if phys.H is not None else np.zeros(n_v)
+    arr["SPNG"] = (_np64(phys.sponge).reshape(-1) if phys.sponge is not None
+                   else np.zeros(n_v))
+    meta_kw.update(k_elem=k_loc, n_v=nvl, n_t=ntl, has_sponge=phys.sponge
+                   is not None, wetdry=bool(wetdry), h_floor=float(h_floor))
+    meta = BlockedMeta(**meta_kw)
+
+    plan = build_halo_plan(ctx, n_shards)
+    ms = plan.max_send
+    chunk = ms * n_fp
+    L = max(len(plan.offs) * chunk, 1)
+    fmask = ctx.fmask.cpu().numpy().reshape(nf, n_fp)
+    sets = []
+    for s in shards:
+        vs, ts = slice(s * nvl, (s + 1) * nvl), slice(s * ntl, (s + 1) * ntl)
+        a = {k: arr[k] for k in ("Dr", "Ds", "lift", "filt")}
+        a.update({k: arr[k][vs] for k in _VOLUME})
+        a.update({k: arr[k][ts] for k in _TRACE})
+        a["BU"], a["BV"] = arr["BU"][:, vs], arr["BV"][:, vs]
+        a["vmapM"] = arr["vmapM"][ts] - s * nvl
+        vp = arr["vmapP"][ts] - s * nvl
+        jn = np.arange(n_fp)
+        for r in np.flatnonzero(plan.psrc[s] >= f_loc):  # cut faces
+            di, slot = divmod(int(plan.psrc[s, r]) - f_loc, ms)
+            src = n_fp - 1 - jn if plan.pflip[s, r] else jn
+            vp[r * n_fp + jn] = nvl + di * chunk + slot * n_fp + src
+        if vp.min() < 0 or vp.max() >= nvl + L:
+            raise ValueError("a '+' trace of the shard reads outside it and "
+                             "its receive slots")
+        a["vmapP"] = vp
+        send = -np.ones(L, dtype=np.int64)
+        for di in range(len(plan.offs)):
+            for slot in range(ms):
+                kl, f = divmod(int(plan.send_idx[s, di, slot]), nf)
+                j0 = di * chunk + slot * n_fp
+                send[j0:j0 + n_fp] = kl * n_p + fmask[f]
+        a["send"] = send
+        sets.append(_ops_from_arrays(a, meta, dtype, device, cls=ShardOps,
+                                     extra=("H", "SPNG"), n_recv=L))
+    ops = ShardOps(**{f.name: torch.stack([getattr(o, f.name) for o in sets])
+                      for f in dataclasses.fields(ShardOps)})
+    return ShardedBlocked(ops=ops, meta=meta, plan=plan, n_shards=n_shards,
+                          k_loc=k_loc, shards=shards)
+
+
+def split_shards(f: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """(B, K*Np) field of the partitioned mesh -> (S, B, K_loc*Np)."""
+    B = f.shape[0]
+    return f.reshape(B, n_shards, -1).transpose(0, 1).contiguous()
+
+
+def join_shards(f: torch.Tensor) -> torch.Tensor:
+    """(S, B, K_loc*Np) -> (B, K*Np)."""
+    return f.transpose(0, 1).reshape(f.shape[1], -1)
+
+
+def initial_send_buffer(sb: ShardedBlocked, state) -> torch.Tensor:
+    """(S_here, B, L, 3) send buffer of a (S_here, B, nV) state triple: it
+    seeds the steps' carry (later buffers come from the stage kernel)."""
+    return torch.stack([
+        _send_plain(shard_view(sb.ops, i), *(f[i] for f in state))
+        for i in range(len(sb.shards))])
+
+
+def _exchange(sb: ShardedBlocked, group) -> RingExchange:
+    if group is None and len(sb.shards) != sb.n_shards:
+        raise ValueError("the stacked transport needs every shard; this set "
+                         f"holds {len(sb.shards)} of {sb.n_shards}")
+    if group is not None and len(sb.shards) != 1:
+        raise ValueError("the process-group transport holds one shard a rank")
+    return RingExchange(sb.plan, sb.meta.n_fp, group, device=sb.ops.fbuf.device)
+
+
+def make_sharded_blocked_step_fused(sb: ShardedBlocked, dt: float,
+                                    use_filter: bool = True, group=None):
+    """The sharded SSP-RK2 step. Returns ``step(carry, t=0.0, ctrl=None) ->
+    carry`` with carry = (state, send buffer): state a triple of (S_here, B,
+    nV), send buffer (S_here, B, L, 3); seed it with
+    ``initial_send_buffer``. ``ctrl``: (n_ctrl,) or None. ``group``: None for
+    the stacked transport, or the process group (one shard a rank)."""
+    ops, meta = sb.ops, sb.meta
+    ex = _exchange(sb, group)
+
+    def step(carry, t: float = 0.0, ctrl=None):
+        state, sbuf = carry
+        *s1, sb1 = sw2d_stage_blocked(ops, meta, state, state, ex(sbuf),
+                                      0.5 * dt, t, ctrl, use_filter)
+        *s2, sb2 = sw2d_stage_blocked(ops, meta, state, tuple(s1), ex(sb1),
+                                      dt, t + 0.5 * dt, ctrl, use_filter,
+                                      apply_sponge=True)
+        return tuple(s2), sb2
+
+    return step
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """Identity forward; the backward sums the cotangent over the ranks of
+    a process group (the shared control's cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.contiguous()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def make_sharded_blocked_step_diff(sb: ShardedBlocked, dt: float,
+                                   use_filter: bool = True, group=None):
+    """The differentiable sharded step: same carry and arguments as
+    ``make_sharded_blocked_step_fused``; each stage is a
+    ``torch.autograd.Function`` whose forward is ``sw2d_stage_blocked`` and
+    whose backward is ``sw2d_stage_bwd_blocked_v2``, and the exchange's
+    backward is the reverse exchange, so a rollout of steps is
+    differentiable in its initial state and its controls. The control
+    cotangent is summed over scenarios and shards (and, with ``group``, over
+    ranks: each rank then differentiates its own part of the cost). Raises for a wet/dry set: the limiter has no adjoint."""
+    if sb.meta.wetdry:
+        raise NotImplementedError(
+            "make_sharded_blocked_step_diff does not differentiate the "
+            "wet/dry positivity limiter; build with wetdry=False (or use "
+            "the non-differentiable step for wet/dry rollouts)")
+    ops, meta = sb.ops, sb.meta
+    ex = _exchange(sb, group)
+
+    def make_stage(c_dt: float, apply_sponge: bool):
+        class _Stage(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, bh, bhu, bhv, ch, chu, chv, rb, t, ctrl):
+                ctx.save_for_backward(ch, chu, chv, rb, ctrl)
+                ctx.t = t
+                return tuple(sw2d_stage_blocked(
+                    ops, meta, (bh, bhu, bhv), (ch, chu, chv), rb, c_dt, t,
+                    ctrl, use_filter, apply_sponge))
+
+            @staticmethod
+            def backward(ctx, lh, lhu, lhv, lsb):
+                ch, chu, chv, rb, ctrl = ctx.saved_tensors
+                g = sw2d_stage_bwd_blocked_v2(
+                    ops, meta, (ch, chu, chv), rb,
+                    (lh.contiguous(), lhu.contiguous(), lhv.contiguous()),
+                    lsb.contiguous(), c_dt, ctx.t, ctrl, use_filter,
+                    apply_sponge)
+                lctl = None if g[7] is None else g[7].sum(dim=(0, 1))
+                return (*g[:7], None, lctl)
+
+        return _Stage.apply
+
+    stage1, stage2 = make_stage(0.5 * dt, False), make_stage(dt, True)
+
+    def step(carry, t: float = 0.0, ctrl=None):
+        state, sbuf = carry
+        if ctrl is not None and group is not None:
+            ctrl = _SumOverRanks.apply(ctrl, group)
+        *s1, sb1 = stage1(*state, *state, ex(sbuf), t, ctrl)
+        *s2, sb2 = stage2(*state, *s1, ex(sb1), t + 0.5 * dt, ctrl)
+        return tuple(s2), sb2
+
+    return step

@@ -5,9 +5,9 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
-(``--only dense``, ``--only blocked`` or ``--only curved`` runs one path's
-phases alone, for work on that path.) What it does, in order (any failure is
-an exception and a non-zero exit):
+(``--only dense``, ``--only blocked``, ``--only curved`` or ``--only
+sharded`` runs one path's phases alone, for work on that path.) What it does,
+in order (any failure is an exception and a non-zero exit):
 
  1. refuses to run without a CUDA device;
  2. builds the CUDA kernels of ``blitzdg_tpu_torch/ops/csrc`` with nvcc;
@@ -53,7 +53,25 @@ an exception and a non-zero exit):
     after; ``curved_cross_check`` solves the same problems through
     ``solve_mpc`` with ``rhs_fn = sw2d_curved_rhs`` (plain tensor code) and
     compares the final costs per scenario;
- 6. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
+ 6. SHARDED path (the mesh partitioned into element shards, all stacked on
+    the card, the halo moved between the RK stages by the ring exchange):
+    ``sharded_kernels`` holds ``sw2d_stage_blocked`` and
+    ``sw2d_stage_bwd_blocked_v2`` against their plain versions at K=2048,
+    N=3, S=4 shards, B=8, with controls, on a perturbed state (both stages
+    of a step), on a coastal case (bathymetry, well-balancing, drag,
+    Coriolis, tidal open boundary, sponge, t0=1), forward only on a wet/dry
+    beach, and at the two shapes of the main path: full width at B=1 and the
+    example's size (K=128, N=1, S=8, B=1); ``sharded_rollout`` runs the 2048-step rollout at S=1 and
+    S=4, B=1 and B=8, with its device idle share, and holds the first 8 S=4
+    steps against the unsharded blocked rollout; ``sharded_path`` drives
+    ``solve_sharded_mpc`` (30 Adam iterations) at the example's size and at
+    full width (``mpc/sharded_box.py``), counters zeroed just before and
+    read just after, and holds the full-width control gradient against the
+    blocked path's; ``sharded_cross_check`` repeats the full-width solve
+    through the plain versions on the card and reads the rounding floor
+    (the cost through the plain versions at the hidden and at the final
+    controls);
+ 7. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
     card's name and power limit, and as the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -65,6 +83,7 @@ published peaks of one H100 SXM.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -129,6 +148,30 @@ CRV_COST_RATIO = (0.999, 1.001)
 # Difference steps of the curved Gauss-Newton solve that the path tries
 # after the solver's default (``curved_disk.FD_EPS``).
 CRV_FD_EPS_WIDER = (1e-2, 1e-1, 1.0)
+
+# Sharded path: the stage kernels are held to the blocked tolerances
+# (BLK_FWD_ATOL; the adjoint per entry, BWD_RTOL_BULK / BWD_RTOL_MAX). The
+# S=4 rollout is held to the unsharded blocked rollout over its first
+# SHD_CHECK_STEPS steps at BLK_FWD_ATOL. The example-size MPC must end below
+# SHD_EXAMPLE_RATIO of its first cost (the JAX example's own assertion); the
+# full-width control gradient must equal the blocked path's (whose kernels
+# share the stage arithmetic) per entry within SHD_GRAD_RTOL of its largest
+# entry.
+SHD_CHECK_STEPS = 8
+SHD_EXAMPLE_RATIO = 0.05
+SHD_GRAD_RTOL = 1e-4
+# Final cost of the full-width sharded Adam solve, kernels vs plain versions.
+# Wider than COST_RATIO: the solve ends at 0.65 % of its first cost, near the
+# float32 rounding of the state, which kernel and plain version round
+# differently. ``sharded_cross_check`` reads it each run (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md, sharded path): at the hidden controls the plain
+# versions miss the kernels' target by a cost of 0.0036 of the final cost
+# (the rounding floor), at the kernels' final controls the two costs differ
+# by a ratio of 1.0068, and the two solves end at a ratio of 1.0040. The
+# bound is twice the larger deviation, 0.0068.
+SHD_COST_RATIO = (0.986, 1.014)
+# Steps of the profiled window of each sharded rollout (the idle share).
+SHD_PROFILE_STEPS = 256
 
 
 def say(obj) -> None:
@@ -1362,9 +1405,399 @@ def curved_phases(dev, card: str, rng, flush) -> list:
             for name, rec in head.items()]
 
 
+# ---------------------------------------------------------------------------
+# The sharded path
+# ---------------------------------------------------------------------------
+
+def check_sharded_case(TB, BS, name, sb, state, ctrl, dt, t, sponge, flush,
+                       rng, adjoint: bool = True, timed: bool = False):
+    """Hold the two stage kernels against their plain versions on one case:
+    stage 1 (base = cur, dt/2, no sponge) and stage 2 (base != cur, dt, the
+    sponge if ``sponge``) with the receive buffers the ring exchange makes
+    of the state's send buffer; the adjoint of stage 2 under random
+    cotangents, rerun for the same bits. Returns the records by kernel."""
+    from blitzdg_tpu_torch.parallel.halo import RingExchange
+
+    ops, meta = sb.ops, sb.meta
+    S, B = state[0].shape[:2]
+    L = ops.send.shape[1]
+    ex = RingExchange(sb.plan, meta.n_fp, device=state[0].device)
+    rb = ex(BS.initial_send_buffer(sb, state))
+    finite = lambda fs: all(bool(torch.isfinite(f).all()) for f in fs)
+    out = {}
+
+    def record(kernel, err, tol, ok, **more):
+        rec = {"case": name, "kernel": kernel, "max_abs_err": err, "tol": tol,
+               "ok": bool(ok), **more}
+        out[kernel] = rec
+        return rec
+
+    st1 = lambda f: f(ops, meta, state, state, rb, 0.5 * dt, t, ctrl)
+    got1, ref1 = st1(TB.sw2d_stage_blocked), st1(TB.sw2d_stage_blocked_plain)
+    torch.cuda.synchronize()
+    cur = tuple(f.contiguous() for f in got1[:3])
+    rb2 = ex(got1[3])
+    st2 = lambda f: f(ops, meta, state, cur, rb2, dt, t + 0.5 * dt, ctrl,
+                      True, sponge)
+    got2, ref2 = st2(TB.sw2d_stage_blocked), st2(TB.sw2d_stage_blocked_plain)
+    torch.cuda.synchronize()
+    err = max(max_abs(got1, ref1), max_abs(got2, ref2))
+    n_wall = int(ops.wall.sum()) / S  # per shard
+    rec = record("sw2d_stage_blocked", err, BLK_FWD_ATOL,
+                 finite(got1) and finite(got2) and err <= BLK_FWD_ATOL,
+                 grid_blocks=TB.last_grid(), slots=L)
+    if timed:
+        rec["ms"] = time_ms(lambda: st2(TB.sw2d_stage_blocked), 9, flush)
+        rec["plain_ms"] = time_ms(lambda: st2(TB.sw2d_stage_blocked_plain), 2,
+                                  flush)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            4.0 * (9 * S * B * meta.n_v + 2 * 3 * S * B * L + meta.n_ctrl),
+            S * B * rhs_flops(meta, n_wall))
+    if adjoint:
+        g = lambda *shape: torch.as_tensor(rng.standard_normal(shape),
+                                           dtype=torch.float32,
+                                           device=state[0].device)
+        lam = tuple(g(S, B, meta.n_v) for _ in range(3))
+        lsb = g(S, B, L, 3)
+        bwd = lambda f: f(ops, meta, cur, rb2, lam, lsb, dt, t + 0.5 * dt,
+                          ctrl, True, sponge)
+        gk = bwd(TB.sw2d_stage_bwd_blocked_v2)
+        gp = bwd(TB.sw2d_stage_bwd_blocked_v2_plain)
+        again = bwd(TB.sw2d_stage_bwd_blocked_v2)
+        torch.cuda.synchronize()
+        per = entry_rel(gk, gp)
+        p99, worst = float(torch.quantile(per, 0.99)), float(per.max())
+        same = all(torch.equal(a, b) for a, b in zip(gk, again))
+        rec = record("sw2d_stage_bwd_blocked_v2", max_abs(gk, gp),
+                     [BWD_RTOL_BULK, BWD_RTOL_MAX],
+                     finite(gk) and same and p99 <= BWD_RTOL_BULK
+                     and worst <= BWD_RTOL_MAX,
+                     max_rel_err=worst, p99_rel_err=p99,
+                     entries_above_bulk_tol=int((per > BWD_RTOL_BULK).sum()),
+                     entries=per.numel(), same_bits_on_rerun=same)
+        if timed:
+            rec["ms"] = time_ms(lambda: bwd(TB.sw2d_stage_bwd_blocked_v2), 9,
+                                flush)
+            rec["plain_ms"] = time_ms(
+                lambda: bwd(TB.sw2d_stage_bwd_blocked_v2_plain), 2, flush)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                4.0 * (12 * S * B * meta.n_v + 9 * S * B * L
+                       + S * B * meta.n_ctrl),
+                S * B * vjp_flops(meta, n_wall))
+    for r in out.values():
+        say(r)
+        if not r["ok"]:
+            raise RuntimeError(f"kernel out of tolerance: {r}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_stages(BS, TB):
+    """Run the sharded steps through the plain stage versions: the steps
+    look the two wrappers up in ``parallel.blocked_shard`` at each call."""
+    saved = BS.sw2d_stage_blocked, BS.sw2d_stage_bwd_blocked_v2
+    BS.sw2d_stage_blocked = TB.sw2d_stage_blocked_plain
+    BS.sw2d_stage_bwd_blocked_v2 = TB.sw2d_stage_bwd_blocked_v2_plain
+    try:
+        yield
+    finally:
+        BS.sw2d_stage_blocked, BS.sw2d_stage_bwd_blocked_v2 = saved
+
+
+def sharded_phases(dev, card: str, rng, flush) -> list:
+    """The sharded path: stage kernels against plain versions, the long
+    sharded rollouts, the sharded MPC at both sizes with the gradient check
+    against the blocked path, and the cross-check of the full-width solve.
+    Returns the kernel records of the ``kernels`` line."""
+    from blitzdg_tpu_torch.context import BC_OUT
+    from blitzdg_tpu_torch.mesh import box_triangles
+    from blitzdg_tpu_torch.mpc import sharded_box as sbx
+    from blitzdg_tpu_torch.mpc.coastal_box import cfl_dt, retag_east_open
+    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+    from blitzdg_tpu_torch.ops.sw2d import SWPhysics
+    from blitzdg_tpu_torch.parallel import blocked_shard as BS
+    from blitzdg_tpu_torch.parallel import partition_mesh
+    from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
+    from blitzdg_tpu_torch.utils import build_sponge_coefficient
+
+    f32 = torch.float32
+    n_order, S, B = sbx.N_ORDER, 4, 8
+    t_set = time.perf_counter()
+    full = sbx.sharded_mpc_problem(sbx.FULL, device=dev)
+    say({"phase": "sharded_setup", "seconds": time.perf_counter() - t_set,
+         "k_elem": full.ctx.k_elem, "n_shards": full.sb.n_shards,
+         "k_loc": full.sb.k_loc, "n_p": full.sb.meta.n_p, "dt": full.dt,
+         "ring_offsets": list(full.sb.plan.offs),
+         "max_send": full.sb.plan.max_send,
+         "halo_slots": int(full.sb.ops.send.shape[1]),
+         "elements_per_block": TB.chunk_elems(full.sb.meta)})
+
+    # ---- stage kernels against their plain versions ----
+    def shard_state(ctx, rest, B_, n_ctrl, S_=S):
+        h, hu, hv, c = perturbed_blocked(ctx, rest, B_, 1, n_ctrl, rng, dev,
+                                         ctrl_scale=1.0)
+        return (tuple(BS.split_shards(f, S_) for f in (h, hu, hv)),
+                c[0, 0].contiguous())
+
+    cases = []
+
+    def check(name, *a, **kw):
+        cases.append(name)
+        return check_sharded_case(TB, BS, name, *a, **kw)
+
+    st, ctrl = shard_state(full.ctx, sbx.H_REST, B, 2)
+    head = check("sharded_K2048_N3_S4", full.sb, st, ctrl, full.dt, 0.0,
+                 False, flush, rng, timed=True)
+    # both sizes the main path runs: full width at its one scenario, and the
+    # example's size (N=1, two nodes a face, 8 shards: six ring offsets and
+    # flipped cut faces)
+    st, ctrl = shard_state(full.ctx, sbx.H_REST, 1, 2)
+    check("sharded_K2048_N3_S4_B1", full.sb, st, ctrl, full.dt, 0.0, False,
+          flush, rng)
+    example = sbx.sharded_mpc_problem(sbx.EXAMPLE, device=dev)
+    plan = example.sb.plan
+    flipped_cut = int((plan.pflip.astype(bool)
+                       & (plan.psrc >= plan.psrc.shape[1])).sum())
+    if len(plan.offs) < 4 or flipped_cut == 0:
+        raise RuntimeError("the example-size case has too few ring offsets "
+                           f"({plan.offs}) or no flipped cut face")
+    st, ctrl = shard_state(example.ctx, sbx.H_REST, 1, 2,
+                           example.sb.n_shards)
+    check("sharded_example_K128_N1_S8_B1", example.sb, st, ctrl, example.dt,
+          0.0, False, flush, rng)
+
+    def context(mesh):
+        return build_triangle_context(n_order, mesh, dtype=f32, device=dev,
+                                      filter_cutoff=0.9 * n_order,
+                                      filter_order=4)
+
+    # full coastal physics: bathymetry with the well-balanced star fluxes,
+    # drag, Coriolis, tidal depth on the open east side, sponge toward it,
+    # stage times from t0 = 1
+    mesh = box_triangles(*sbx.CELLS)
+    retag_east_open(mesh)
+    cc = context(partition_mesh(mesh, S)[0])
+    H = 10.0 + 2.0 * cc.x + torch.sin(2.0 * cc.y)
+    open_nodes = (cc.bc_table[:, :, None].expand(-1, -1, cc.n_fp)
+                  .reshape(cc.k_elem, -1) == BC_OUT).cpu().numpy()
+    phys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4, H=H,
+                     Hx=2.0 * torch.ones_like(H), Hy=2.0 * torch.cos(2.0 * cc.y),
+                     sponge=build_sponge_coefficient(cc, open_nodes, width=0.3,
+                                                     strength=0.5))
+    tidal = (12.0, 0.5, 2.0, 10.0)
+    csb = BS.build_sharded_blocked(cc, phys, S, tidal=tidal,
+                                   forcing_bu=sbx.injectors(cc)[0],
+                                   forcing_bv=sbx.injectors(cc)[1], device=dev)
+    cm = csb.meta
+    if not (cm.wb and cm.has_bathy and cm.has_sponge and cm.cd and cm.f_cor
+            and cm.tidal == tidal and int(csb.ops.obc.sum()) > 0):
+        raise RuntimeError("the coastal case does not switch every term on")
+    st, ctrl = shard_state(cc, H.reshape(1, -1), B, 2)
+    check("sharded_coastal_K2048_N3_S4", csb, st, ctrl,
+          cfl_dt(cc, 9.81, 13.5), 1.0, True, flush, rng)
+    del csb, cc
+
+    # wetting and drying, forward only: a sloping beach, dry beyond x = 2/3
+    wc = context(partition_mesh(box_triangles(*sbx.CELLS, xlim=(0.0, 1.0),
+                                              ylim=(0.0, 1.0)), S)[0])
+    Hb = 1.0 - 1.5 * wc.x
+    h_floor = 1e-3
+    wphys = SWPhysics(g=9.81, cd=1e-3, H=Hb, Hx=-1.5 * torch.ones_like(Hb),
+                      Hy=torch.zeros_like(Hb), well_balanced=False)
+    wsb = BS.build_sharded_blocked(wc, wphys, S, wetdry=True, h_floor=h_floor,
+                                   device=dev)
+    scen = torch.arange(B, dtype=f32, device=dev)[:, None]
+    wave = 0.05 * torch.exp(-30.0 * ((wc.x - 0.45) ** 2
+                                     + (wc.y - 0.5) ** 2)).reshape(1, -1)
+    hw = torch.clamp_min(Hb.reshape(1, -1) + (1.0 + 0.2 * scen) * wave,
+                         h_floor)
+    wet = (hw > 5.0 * h_floor).to(f32)
+    noise = lambda: torch.as_tensor(rng.standard_normal(tuple(hw.shape)),
+                                    dtype=f32, device=dev)
+    huw, hvw = wet * hw * (0.3 + 0.05 * noise()), wet * hw * 0.1 * noise()
+    if not (bool((hw <= h_floor).any()) and bool((hw > 0.5).any())):
+        raise RuntimeError("the beach has no dry or no wet region")
+    check("sharded_wetdry_beach_K2048_N3_S4", wsb,
+          tuple(BS.split_shards(f, S) for f in (hw, huw, hvw)), None,
+          cfl_dt(wc, 9.81, 1.1), 0.0, False, flush, rng, adjoint=False)
+    del wsb, wc
+    say({"phase": "sharded_kernels", "ok": True, "cases": cases,
+         "example_ring_offsets": list(plan.offs),
+         "example_flipped_cut_faces": flipped_cut})
+
+    # ---- the long sharded rollouts ----
+    stage = TB.sw2d_stage_blocked
+    for n_shards in sbx.ROLLOUT_SHARDS:
+        for batch in sbx.ROLLOUT_BATCHES:
+            r = sbx.sharded_rollout_problem(n_shards, batch, device=dev)
+            run = lambda n: sbx.sharded_rollout(r, n)
+            run(16)  # warm-up
+            torch.cuda.synchronize()
+            stage.launches = 0
+            t0 = time.perf_counter()
+            end = run(r.n_steps)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = stage.launches
+            t0 = time.perf_counter()
+            run(SHD_PROFILE_STEPS)
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+            profile_solve(f"sharded_rollout_profile_S{n_shards}_B{batch}",
+                          card, lambda: run(SHD_PROFILE_STEPS), window)
+            h_end = BS.join_shards(end[0])
+            ok = (all(bool(torch.isfinite(f).all()) for f in end)
+                  and 9.0 < float(h_end.min()) and float(h_end.max()) < 12.0
+                  and launches == 2 * r.n_steps)
+            rec = {"phase": "sharded_rollout", "card": card,
+                   "n_shards": n_shards, "batch": batch,
+                   "k_elem": r.ctx.k_elem, "n_order": n_order,
+                   "n_steps": r.n_steps, "dt": r.dt, "seconds": secs,
+                   "us_per_step": secs * 1e6 / r.n_steps,
+                   "us_per_step_per_scenario": secs * 1e6 / r.n_steps / batch,
+                   "stage_launches": launches,
+                   "h_min": float(h_end.min()), "h_max": float(h_end.max())}
+            if n_shards > 1 and batch == max(sbx.ROLLOUT_BATCHES):
+                # the first steps against the unsharded blocked rollout on
+                # the same partitioned mesh, from the same start
+                ops, meta = TB.build_blocked_step_ops(
+                    r.ctx, SWPhysics(g=9.81), device=dev)
+                want = TB.sw2d_rollout_blocked(
+                    ops, meta, *(BS.join_shards(f).contiguous()
+                                 for f in r.state),
+                    None, r.dt, n_steps=SHD_CHECK_STEPS)
+                got = run(SHD_CHECK_STEPS)
+                torch.cuda.synchronize()
+                err = max_abs([BS.join_shards(f) for f in got], want)
+                rec["vs_unsharded_blocked_max_abs"] = err
+                rec["vs_unsharded_steps"] = SHD_CHECK_STEPS
+                ok = ok and err <= BLK_FWD_ATOL
+            rec["ok"] = ok
+            say(rec)
+            if not ok:
+                raise RuntimeError("a sharded rollout failed its checks")
+            del r, end
+
+    # ---- the main path: the sharded MPC at both sizes ----
+    wrappers = (TB.sw2d_stage_blocked, TB.sw2d_stage_bwd_blocked_v2)
+    counts = lambda: {w.__name__: w.launches for w in wrappers}
+    sbx.solve_sharded_mpc(example, iters=1)  # warm-up: allocator, autograd
+    sbx.solve_sharded_mpc(full, iters=1)
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    sol_ex = sbx.solve_sharded_mpc(example)
+    torch.cuda.synchronize()
+    ex_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sol = sbx.solve_sharded_mpc(full)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    launches = counts()
+
+    # per Adam iteration one rollout (2 stages a step) and its adjoint, one
+    # more rollout for the final cost; two solves
+    per_solve = sbx.MPC_ITERS * 2 * sbx.MPC_STEPS
+    expect = {"sw2d_stage_blocked": 2 * (per_solve + 2 * sbx.MPC_STEPS),
+              "sw2d_stage_bwd_blocked_v2": 2 * per_solve}
+    # the control gradient at zero controls against the blocked path's
+    # (the same cost through make_rollout_blocked on the same mesh)
+    cs0 = torch.zeros_like(full.hidden, requires_grad=True)
+    (g_sh,) = torch.autograd.grad(sbx.sharded_mpc_cost(full, cs0), cs0)
+    ops, meta = TB.build_blocked_step_ops(full.ctx, SWPhysics(g=9.81),
+                                          *sbx.injectors(full.ctx), device=dev)
+    roll = TB.make_rollout_blocked(ops, meta, full.dt, 1)
+    c_b = torch.zeros((1, *full.hidden.shape), dtype=f32, device=dev,
+                      requires_grad=True)
+    traj = roll(*(BS.join_shards(f).contiguous() for f in full.state0), c_b)
+    cost_b = (((traj[1][:, -1] - BS.join_shards(full.target)) ** 2).sum()
+              + sbx.R_CONTROL * (c_b ** 2).sum())
+    (g_bl,) = torch.autograd.grad(cost_b, c_b)
+    torch.cuda.synchronize()
+    grad_err = float((g_sh - g_bl[0]).abs().max() / g_bl.abs().max())
+
+    finite = lambda *ts: all(bool(torch.isfinite(t).all()) for t in ts)
+    ex_ratio = float(sol_ex.cost / sol_ex.cost_history[0])
+    full_ratio = float(sol.cost / sol.cost_history[0])
+    path_ok = (finite(sol_ex.cost_history, sol_ex.controls, sol.cost_history,
+                      sol.controls, g_sh)
+               and ex_ratio < SHD_EXAMPLE_RATIO and full_ratio < 1.0
+               and grad_err <= SHD_GRAD_RTOL and launches == expect)
+    say({"phase": "sharded_path", "ok": path_ok, "card": card,
+         "adam_iters": sbx.MPC_ITERS, "n_steps": sbx.MPC_STEPS,
+         "example": {"k_elem": example.ctx.k_elem,
+                     "n_shards": example.sb.n_shards,
+                     "first_cost": float(sol_ex.cost_history[0]),
+                     "final_cost": float(sol_ex.cost),
+                     "final_over_first": ex_ratio,
+                     "max_final_over_first": SHD_EXAMPLE_RATIO,
+                     "controls_step0": sol_ex.controls[0].tolist(),
+                     "seconds_per_solve": ex_s},
+         "full": {"k_elem": full.ctx.k_elem, "n_shards": full.sb.n_shards,
+                  "first_cost": float(sol.cost_history[0]),
+                  "final_cost": float(sol.cost),
+                  "final_over_first": full_ratio,
+                  "seconds_per_solve": full_s,
+                  "grad_vs_blocked_rel_err": grad_err,
+                  "grad_tol": SHD_GRAD_RTOL},
+         "launches": launches, "expected_launches": expect})
+    if not path_ok:
+        raise RuntimeError("sharded path failed its checks")
+
+    profile_solve("sharded_profile", card, lambda: sbx.solve_sharded_mpc(full),
+                  full_s)
+
+    # ---- the same full-width solve through the plain versions ----
+    # (the kernels' target). First the rounding floor: the cost through the
+    # plain versions at the hidden controls (the kernels' cost there is the
+    # control term alone) and at the kernels' final controls.
+    with torch.no_grad():
+        hidden_kernel = float(sbx.sharded_mpc_cost(full, full.hidden))
+    before = counts()
+    with plain_stages(BS, TB):
+        with torch.no_grad():
+            hidden_plain = float(sbx.sharded_mpc_cost(full, full.hidden))
+            same_plain = float(sbx.sharded_mpc_cost(full, sol.controls))
+        t0 = time.perf_counter()
+        ref = sbx.solve_sharded_mpc(full)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    if before != counts():
+        raise RuntimeError("the plain-version solve launched a kernel")
+    ratio = float(sol.cost / ref.cost)
+    cross_ok = SHD_COST_RATIO[0] <= ratio <= SHD_COST_RATIO[1]
+    say({"phase": "sharded_cross_check", "ok": cross_ok, "cost_ratio": ratio,
+         "tol": list(SHD_COST_RATIO), "plain_seconds_per_solve": plain_s,
+         "hidden_cost_kernels": hidden_kernel,
+         "hidden_cost_plain": hidden_plain,
+         "rounding_floor_over_final_cost":
+             (hidden_plain - hidden_kernel) / float(sol.cost),
+         "same_controls_cost_ratio": float(sol.cost) / same_plain,
+         "controls_max_abs_diff":
+             float((sol.controls - ref.controls).abs().max())})
+    if not cross_ok:
+        raise RuntimeError("sharded solve through the kernels disagrees with "
+                           "the solve through the plain versions")
+
+    # ---- the record ----
+    src = "blitzdg_tpu_torch/ops/csrc/sw2d_blocked.cu"
+    replaces = {
+        "sw2d_stage_blocked": "blitzdg_tpu/ops/sw2d_blocked.py:962",
+        "sw2d_stage_bwd_blocked_v2": "blitzdg_tpu/ops/sw2d_blocked.py:1710"}
+    return [{"name": name, "route": "cuda", "source": src,
+             "replaces": replaces[name], "launches": launches[name],
+             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+             "bound_by": rec["bound_by"], "library_ms": None,
+             "device_launches_per_call": TB.DEVICE_LAUNCHES_PER_CALL}
+            for name, rec in head.items()]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("dense", "blocked", "curved"),
+    ap.add_argument("--only", choices=("dense", "blocked", "curved",
+                                       "sharded"),
                     help="run one path's phases alone (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1402,6 +1835,8 @@ def main() -> int:
         kernels += blocked_phases(dev, card, rng, flush)
     if args.only in (None, "curved"):
         kernels += curved_phases(dev, card, rng, flush)
+    if args.only in (None, "sharded"):
+        kernels += sharded_phases(dev, card, rng, flush)
 
     say({"phase": "total", "seconds": time.perf_counter() - t_start})
     say({"kernels": kernels})

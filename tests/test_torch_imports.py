@@ -40,7 +40,10 @@ def test_package_has_the_slice_modules():
             # the curved weak-form path
             "mesh.curved", "mesh.periodic", "specgrid.cubature",
             "ops.sw2d_curved", "ops.sw2d_curved_blocked",
-            "mpc.curved_blocked", "mpc.curved_disk"}
+            "mpc.curved_blocked", "mpc.curved_disk",
+            # the element-sharded path
+            "parallel.halo", "parallel.distributed", "parallel.blocked_shard",
+            "mpc.sharded_box"}
     have = {m.removeprefix("blitzdg_tpu_torch.") for m in port_modules()}
     assert want <= have
     for name in ("sw2d_dense.cu", "sw2d_blocked.cu", "sw2d_curved.cu",
@@ -191,3 +194,34 @@ def test_curved_entry_points_default_to_cuda():
     bm = build_curved_blocked_mpc(prob, cub, gauss, bump, bump, device="cpu")
     assert bm.ops.fbuf.device.type == "cpu" and bm.wj.device.type == "cpu"
     assert bm.meta.mass_mode == "affine"
+
+
+def test_sharded_entry_points_default_to_cuda():
+    """The sharded path's entry points: no ``device=`` means the card, and
+    without a card that raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from blitzdg_tpu_torch import convert
+    from blitzdg_tpu_torch.mesh import box_triangles
+    from blitzdg_tpu_torch.mpc import sharded_box as sbx
+    from blitzdg_tpu_torch.ops.sw2d import SWPhysics
+    from blitzdg_tpu_torch.parallel import (RingExchange,
+                                            build_sharded_blocked,
+                                            partition_mesh)
+    from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
+
+    mesh = partition_mesh(box_triangles(2, 2), 2)[0]
+    ctx = build_triangle_context(1, mesh, dtype=torch.float32, device="cpu")
+    cuda_or_nothing = pytest.raises((RuntimeError, AssertionError))
+    with cuda_or_nothing:
+        build_sharded_blocked(ctx, SWPhysics(), 2)
+    with cuda_or_nothing:
+        sbx.sharded_rollout_problem(2, 1, n_steps=1, n_order=1, cells=(2, 2))
+    with cuda_or_nothing:
+        sbx.sharded_mpc_problem(dict(sbx.EXAMPLE, cells=(2, 2), n_shards=2))
+    sb = build_sharded_blocked(ctx, SWPhysics(), 2, device="cpu")
+    assert sb.ops.fbuf.device.type == "cpu" and sb.ops.fbuf.shape[0] == 2
+    with cuda_or_nothing:
+        RingExchange(sb.plan, sb.meta.n_fp)
+    for fn in (convert.sharded_blocked_from_numpy,):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
