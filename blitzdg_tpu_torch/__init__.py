@@ -21,7 +21,10 @@ The element-sharded path (the mesh partitioned into element shards, the
 halo exchanged between the RK stages): ``parallel.blocked_shard``
 (``make_sharded_blocked_step_fused``, ``make_sharded_blocked_step_diff``)
 over the stage kernels ``ops.sw2d_stage_blocked`` /
-``ops.sw2d_stage_bwd_blocked_v2``, and ``mpc.solve_sharded_mpc``.
+``ops.sw2d_stage_bwd_blocked_v2``, ``mpc.solve_sharded_mpc``, and the
+one-launch step ``make_sharded_blocked_step_rdma`` over
+``ops.sw2d_step_rdma_blocked`` (both stages and the halo between them in
+one kernel).
 
 Entry points take ``device=`` and default to ``"cuda"``; on a machine
 without CUDA the default raises, it does not fall back to the CPU.

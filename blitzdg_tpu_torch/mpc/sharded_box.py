@@ -9,7 +9,8 @@ for the port with nothing cut:
    bottom, g=9.81, dt from the CFL number 0.7 at depth 11, h = 10 +
    exp(-10 (x^2+y^2)) at rest, 2048 steps at B=1 and B=8; S=1 shard (the
    bench row) or S=4 (``partition_mesh`` into 4 blocks of 512 elements,
-   which gives a real halo);
+   which gives a real halo); through the fused step (two stage launches
+   a step) or the one-launch step (``make_sharded_blocked_step_rdma``);
  - sharded MPC (``examples/mpc_sharded.py``): rest at depth 10, two
    Gaussian-bump momentum injectors, one control vector per step for 8
    steps, the target the terminal ``hu`` under the hidden controls
@@ -106,10 +107,14 @@ def sharded_rollout_problem(n_shards: int, batch: int,
                           n_steps)
 
 
-def sharded_rollout(r: ShardedRollout, n_steps: int | None = None) -> tuple:
-    """The state after ``n_steps`` (default ``r.n_steps``) fused sharded
-    steps from ``r.state``."""
-    step = make_sharded_blocked_step_fused(r.sb, r.dt)
+def sharded_rollout(r: ShardedRollout, n_steps: int | None = None,
+                    make_step: Callable = make_sharded_blocked_step_fused
+                    ) -> tuple:
+    """The state after ``n_steps`` (default ``r.n_steps``) sharded steps
+    from ``r.state``: fused steps (two stage launches a step), or the steps
+    that ``make_step`` builds (``make_sharded_blocked_step_rdma``: one launch
+    a step, the same values)."""
+    step = make_step(r.sb, r.dt)
     carry = (r.state, initial_send_buffer(r.sb, r.state))
     for i in range(r.n_steps if n_steps is None else n_steps):
         carry = step(carry, i * r.dt)

@@ -5,6 +5,9 @@
 //   sw2d_blocked_rollout_bwd_kernel  the reverse (adjoint) sweep
 //   sw2d_stage_kernel                one RK stage of an element-sharded set
 //   sw2d_stage_bwd_kernel            its adjoint (see the section below)
+//   sw2d_step_rdma_kernel            one whole SSP-RK2 step of an
+//                                    element-sharded set, the inter-stage
+//                                    halo exchanged inside the launch
 //
 // They replace the Pallas TPU kernels _step_kernel, _rollout_kernel and
 // _rollout_bwd_kernel of blitzdg_tpu/ops/sw2d_blocked.py. Those run one
@@ -110,22 +113,46 @@ __device__ __forceinline__ W3 atw(float* a, float* b, float* c, size_t off) {
   W3 r; r.a = a + off; r.b = b + off; r.c = c + off; return r;
 }
 
+// Where a shard's send slots are stored. Slot j goes to buf + 3 j (the
+// shard's own (n_send, 3) send buffer of one scenario) or, with a shard
+// table, to buf + shard[j] * stride + 3 j: slot j of the receive buffer of
+// the shard that receives it (the in-kernel exchange of the one-launch step).
+struct SendTo {
+  float* buf;              // null: no send slots are written
+  const long long* shard;  // (n_send,) receiving shard of each slot, or null
+  size_t stride;           // floats from one shard's buffer to the next
+};
+
+__device__ __forceinline__ float* send_slot(const SendTo& to, int j) {
+  float* p = to.buf + 3 * j;
+  return to.shard == nullptr ? p : p + to.shard[j] * to.stride;
+}
+
+// Zeros in the empty send slots (the one slot of an unsharded plan).
+__device__ __forceinline__ void zero_empty_slots(const Ops& o,
+                                                 const SendTo& to) {
+  for (int j = threadIdx.x; j < o.n_send; j += blockDim.x)
+    if (o.send_node[j] < 0) {
+      float* p = send_slot(to, j);
+      p[0] = p[1] = p[2] = 0.0f;
+    }
+}
+
 // Sponge relaxation toward rest (h = H where there is bathymetry, no flow),
-// then the store of one volume node, and of the send slots that read it
-// (sb: one scenario's (n_send, 3) send buffer of a shard, or null).
+// then the store of one volume node, and of the send slots that read it.
 __device__ __forceinline__ void finish_node(const Ops& o, int v, float h,
                                             float hu, float hv, bool sponge,
                                             float dt, const W3& out,
-                                            float* sb) {
+                                            const SendTo& sb) {
   if (sponge) {
     const float fac = 1.0f / (1.0f + dt * o.SPNG[v]);
     if (o.has_bathy) { const float H = o.H[v]; h = H + (h - H) * fac; }
     hu *= fac; hv *= fac;
   }
   out.a[v] = h; out.b[v] = hu; out.c[v] = hv;
-  if (sb != nullptr) {
+  if (sb.buf != nullptr) {
     for (int q = o.send_ptr[v]; q < o.send_ptr[v + 1]; ++q) {
-      float* p = sb + 3 * o.send_idx[q];
+      float* p = send_slot(sb, o.send_idx[q]);
       p[0] = h; p[1] = hu; p[2] = hv;
     }
   }
@@ -138,14 +165,14 @@ __device__ __forceinline__ void finish_node(const Ops& o, int v, float h,
 // from it); base, out: the scenario's fields, touched at own nodes only (they
 // may be the same buffer); copy: where to store the unit's part of `in` as
 // well, or null pointers. One shard of a sharded set: rb, the scenario's
-// receive buffer (cut-face '+' values), and sb, its send buffer (written at
-// the slots that read the unit's own nodes); null otherwise.
+// receive buffer (cut-face '+' values), and sb, where its send slots go
+// (written at the slots that read the unit's own nodes); none otherwise.
 __device__ void stage(const Ops& o, const Scratch& s, int e0, int ne,
                       const P3& in, const P3& base, const W3& out,
                       const W3& copy, float coef, float t, float dt,
                       const float* ctrl, int use_filter, bool limit,
                       bool sponge, const float* rb = nullptr,
-                      float* sb = nullptr) {
+                      SendTo sb = SendTo{nullptr, nullptr, 0}) {
   const int tid = threadIdx.x, nth = blockDim.x;
   const int Np = o.Np, Ntr = o.Ntr, Nfp = o.Nfp;
   const int nl = ne * Np, tl = ne * Ntr, v0 = e0 * Np, i0 = e0 * Ntr;
@@ -659,15 +686,107 @@ __global__ void sw2d_stage_kernel(SwDesc d, StageArgs a) {
                             sc / a.B, blk);
     const int e0 = c * a.E, ne = min(a.E, o.K - e0);
     const size_t off = (size_t)sc * o.nV;
-    float* sb = a.sb + (size_t)sc * o.n_send * 3;
+    const SendTo sb = {a.sb + (size_t)sc * o.n_send * 3, nullptr, 0};
     stage(o, s, e0, ne, at(a.ch, a.chu, a.chv, off),
           at(a.bh, a.bhu, a.bhv, off), atw(a.oh, a.ohu, a.ohv, off), none,
           a.c_dt, a.t, a.c_dt, a.ctrl, a.use_filter, o.wetdry != 0,
           a.sponge != 0, a.rb + (size_t)sc * o.n_recv * 3, sb);
-    if (c == 0) {  // empty slots (the one slot of an unsharded plan): zeros
-      for (int j = threadIdx.x; j < o.n_send; j += blockDim.x)
-        if (o.send_node[j] < 0) sb[3 * j] = sb[3 * j + 1] = sb[3 * j + 2] = 0.0f;
+    if (c == 0) zero_empty_slots(o, sb);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// One whole step of an element-sharded set in one launch
+// ---------------------------------------------------------------------------
+//
+// sw2d_step_rdma_kernel replaces _step_kernel_rdma / sw2d_step_rdma_blocked
+// of blitzdg_tpu/ops/sw2d_blocked.py. The TPU kernel runs one shard per
+// device: it zeroes its receive buffer, signals READY to the peers that send
+// to it, computes stage 1, waits for READY from its destinations, sends the
+// stage-1 cut-face values by one remote DMA per ring offset into the peers'
+// receive buffers and computes stage 2 from its own. Here one cooperative
+// launch covers every shard of a stacked set (work unit: shard, scenario,
+// chunk of elements, as in sw2d_stage_kernel) in two phases around ONE grid
+// barrier:
+//   1. stage 1 (c_dt = dt/2, no sponge) from the step-start state and the
+//      step-boundary receive buffer rb; s1 goes to a scratch triple, and each
+//      of s1's send slots is stored straight into slot j of the RECEIVING
+//      shard's stage-2 receive buffer rb2 (shard s, chunk d -> shard
+//      (s + offs[d]) mod S: the ring exchange's reverse source table). That
+//      is the remote copy of the TPU kernel, and how a store into a peer
+//      card's memory would go. The unit that owns a node writes its
+//      slots through the inverse send list, so every slot has one writer: no
+//      atomics, the same bits on a rerun;
+//   2. the grid barrier stands for the READY handshake and for stage 2's
+//      reads of s1 at neighbours that other units wrote;
+//   3. stage 2 (c_dt = dt, stage time t + dt/2, the sponge) from s1, base the
+//      step-start state, rb2; the output and its own send buffer for the
+//      step-boundary exchange outside.
+// Without ring offsets every slot is empty and rb2 is zeros, as the TPU
+// kernel zeroes its receive buffer. No wet/dry branch (the wrapper refuses a
+// wet/dry set, as the TPU wrapper does).
+//
+// Bound on the card: float32 operations of the two RHS evaluations against
+// one state in and one out. What it saves over two stage launches is host
+// time: one launch and one exchange a step instead of two of each.
+
+struct RdmaArgs {
+  const float* fops;
+  const int* iops;
+  long long fstride, istride;
+  int S, B, E, use_filter, sponge;
+  const float *h, *hu, *hv;     // (S, B, nV) step-start state
+  const float* rb;              // (S, B, n_recv, 3) step-boundary receive buffer
+  const float* ctrl;            // (n_ctrl,), shared by all, or null
+  const long long* dest;        // (S, n_send) receiving shard of each slot,
+                                // or null without ring offsets
+  float *s1h, *s1hu, *s1hv;     // (S, B, nV) scratch: the stage-1 state
+  float* rb2;                   // (S, B, n_recv, 3) scratch: stage 2's rb
+  float *oh, *ohu, *ohv;        // (S, B, nV) out
+  float* sb;                    // (S, B, n_send, 3) out: send buffer
+  float dt, t1, t2;             // step, the two stage times
+};
+
+__global__ void sw2d_step_rdma_kernel(SwDesc d, RdmaArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  Ops blk = make_ops(d, a.fops, a.iops);
+  const Scratch s = setup_block(blk, a.E);
+  const int n_chunks = (blk.K + a.E - 1) / a.E;
+  const int n_units = a.S * a.B * n_chunks;
+  // floats of one scenario's slot list (receive and send lists of a shard
+  // have the same slots: slot j of the sender is slot j of the receiver)
+  const size_t ls = (size_t)blk.n_send * 3;
+  const W3 none = {nullptr, nullptr, nullptr};
+  for (int phase = 0; phase < 2; ++phase) {
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+      const int sc = u / n_chunks, c = u - sc * n_chunks;  // sc = shard*B + b
+      const int sh = sc / a.B, b = sc - sh * a.B;
+      const Ops o = shard_ops(d, a.fops, a.iops, a.fstride, a.istride, sh,
+                              blk);
+      const int e0 = c * a.E, ne = min(a.E, o.K - e0);
+      const size_t off = (size_t)sc * o.nV;
+      const P3 st = at(a.h, a.hu, a.hv, off);
+      if (phase == 0) {
+        // scenario b's slots of shard 0's rb2, the table picking the
+        // shard; without one (no ring offsets), the shard's own slots
+        const SendTo push =
+            a.dest != nullptr
+                ? SendTo{a.rb2 + b * ls, a.dest + (size_t)sh * o.n_send,
+                         (size_t)a.B * ls}
+                : SendTo{a.rb2 + sc * ls, nullptr, 0};
+        stage(o, s, e0, ne, st, st, atw(a.s1h, a.s1hu, a.s1hv, off), none,
+              0.5f * a.dt, a.t1, a.dt, a.ctrl, a.use_filter, false, false,
+              a.rb + sc * ls, push);
+        if (c == 0) zero_empty_slots(o, push);
+      } else {
+        const SendTo own = {a.sb + sc * ls, nullptr, 0};
+        stage(o, s, e0, ne, at(a.s1h, a.s1hu, a.s1hv, off), st,
+              atw(a.oh, a.ohu, a.ohv, off), none, a.dt, a.t2, a.dt, a.ctrl,
+              a.use_filter, false, a.sponge != 0, a.rb2 + sc * ls, own);
+        if (c == 0) zero_empty_slots(o, own);
+      }
     }
+    if (phase == 0) grid.sync();
   }
 }
 
@@ -900,6 +1019,32 @@ int sw2d_stage(const SwDesc* d, const float* fops, const int* iops,
   g_last_grid = n_units;
   sw2d_stage_kernel<<<n_units, threads, bytes, (cudaStream_t)stream>>>(*d, a);
   return (int)cudaGetLastError();
+}
+
+// One SSP-RK2 step on every shard of a stacked sharded set in one
+// cooperative launch, the stage-1 halo pushed into rb2 inside it (see
+// sw2d_step_rdma_kernel). dest: (S, n_send) receiving shard of each send
+// slot, or null without ring offsets; s1: 3*S*B*nV floats and rb2: S*B*n_recv*3 floats of scratch;
+// t1, t2: the stage times; ctrl: (n_ctrl,) or null.
+int sw2d_step_rdma(const SwDesc* d, const float* fops, const int* iops,
+                   long long fstride, long long istride, int S, int B,
+                   const float* h, const float* hu, const float* hv,
+                   const float* rb, const float* ctrl,
+                   const long long* dest,
+                   float* s1, float* rb2, float* oh, float* ohu, float* ohv,
+                   float* sb, float dt, float t1, float t2, int use_filter,
+                   int sponge, int E, int threads, void* stream) {
+  Ops o = make_ops(*d, nullptr, nullptr);
+  const size_t n = (size_t)S * B * o.nV;
+  RdmaArgs a = {fops, iops, fstride, istride, S, B, E, use_filter, sponge,
+                h, hu, hv, rb, ctrl, dest, s1, s1 + n, s1 + 2 * n, rb2,
+                oh, ohu, ohv, sb, dt, t1, t2};
+  const size_t bytes = smem_floats(o, E) * sizeof(float);
+  const int n_units = S * B * ((o.K + E - 1) / E);
+  SwDesc dd = *d;
+  void* args[] = {&dd, &a};
+  return coop_launch((const void*)sw2d_step_rdma_kernel, args, n_units,
+                     threads, bytes, stream);
 }
 
 // Floats of scratch that sw2d_stage_bwd needs in `work`.

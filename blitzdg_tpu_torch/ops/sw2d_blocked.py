@@ -6,7 +6,8 @@ Counterpart of the JAX package's ``blitzdg_tpu/ops/sw2d_blocked.py``
 ``sw2d_rollout_bwd_blocked``, ``make_rollout_blocked``,
 ``build_blocked_step_ops``, ``matmul_flops_per_step``, and the element-sharded
 path's stage kernels ``sw2d_stage_blocked`` (lean-I/O mode only) and
-``sw2d_stage_bwd_blocked_v2`` over a ``ShardOps`` set, which
+``sw2d_stage_bwd_blocked_v2`` and its one-launch step
+``sw2d_step_rdma_blocked``, over a ``ShardOps`` set, which
 ``parallel/blocked_shard.py`` builds and drives). The dense kernels
 (``sw2d_fused.py``) hold one scenario's whole mesh in one block's shared
 memory, which ends near K = 200 elements. Here the mesh is split over blocks
@@ -379,9 +380,11 @@ def _lib():
     lib.sw2d_stage_bwd_work_floats.restype = L
     lib.sw2d_stage_bwd.argtypes = ([D, P, P, L, L, I, I] + [P] * 17
                                    + [F, F, I, I, I, I, P])
+    lib.sw2d_step_rdma.argtypes = ([D, P, P, L, L, I, I] + [P] * 12
+                                   + [F, F, F, I, I, I, I, P])
     for fn in (lib.sw2d_blocked_step, lib.sw2d_blocked_rollout,
                lib.sw2d_blocked_rollout_bwd, lib.sw2d_stage,
-               lib.sw2d_stage_bwd):
+               lib.sw2d_stage_bwd, lib.sw2d_step_rdma):
         fn.restype = I
     lib._sw2d_typed = True
     return lib
@@ -732,3 +735,122 @@ def sw2d_stage_bwd_blocked_v2(ops: ShardOps, meta: BlockedMeta, cur, rb,
 
 
 sw2d_stage_bwd_blocked_v2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# One whole SSP-RK2 step of an element-sharded set in one launch
+# ---------------------------------------------------------------------------
+
+def _refuse_wetdry_rdma(meta: BlockedMeta):
+    if meta.wetdry:
+        raise NotImplementedError(
+            "the one-launch sharded step does not limit its stages: build "
+            "the set with wetdry=False, or use the fused sharded step")
+
+
+def sw2d_step_rdma_blocked_plain(ops: ShardOps, meta: BlockedMeta, state, rb,
+                                 dt: float, ex, t: float = 0.0, ctrl=None,
+                                 use_filter: bool = True):
+    """Plain version of ``sw2d_step_rdma_blocked``: the plain stage twice,
+    the ring exchange ``ex`` of the stage-1 send buffer between them."""
+    _refuse_wetdry_rdma(meta)
+    *s1, sb1 = sw2d_stage_blocked_plain(ops, meta, state, state, rb,
+                                        0.5 * dt, t, ctrl, use_filter)
+    return sw2d_stage_blocked_plain(ops, meta, state, tuple(s1), ex(sb1), dt,
+                                    t + 0.5 * dt, ctrl, use_filter,
+                                    apply_sponge=True)
+
+
+class RdmaLaunch:
+    """``sw2d_step_rdma_blocked`` over one sharded set and its stacked ring
+    exchange ``ex`` (a ``parallel.RingExchange`` without a process group),
+    with what every launch shares made once: the descriptor, the chunk of
+    elements, the argument list's constant head, and the scratch of the last
+    batch size (the stage-1 triple and the stage-2 receive buffer), which
+    every launch on the stream reuses. The shard that receives each send
+    slot is the ring's reverse source table, ``ex.src_rev`` (on the card).
+    Call it as ``launch(state, rb, dt, t, ctrl, use_filter)``."""
+
+    def __init__(self, ops: ShardOps, meta: BlockedMeta, ex):
+        _refuse_wetdry_rdma(meta)
+        if not isinstance(ops, ShardOps):
+            raise TypeError("the stage kernels need a ShardOps operator set")
+        S, L = ops.send.shape
+        if ex.group is not None or ex.plan.n_shards != S or (
+                ex.plan.offs and tuple(ex.src_rev.shape) != (S, L)):
+            raise ValueError("the one-launch step needs the stacked ring "
+                             "exchange of its own set")
+        self.ops, self.meta, self.ex = ops, meta, ex
+        self.device, self._scratch = ops.fbuf.device, None
+        if self.device.type == "cpu":  # the plain version only
+            return
+        self.lib, self.desc, self.E = _check_kernel_inputs(ops, meta,
+                                                           ops.fbuf)
+        self.dest = _ptr(ex.src_rev)  # null without ring offsets
+        if ex.src_rev is not None and ex.src_rev.device != self.device:
+            raise ValueError("ring exchange and operator set lie on "
+                             "different devices")
+        self.head = (ctypes.byref(self.desc), ops.fbuf.data_ptr(),
+                     ops.ibuf.data_ptr(), ops.fbuf.shape[1],
+                     ops.ibuf.shape[1], S)
+
+    def _scratch_for(self, rb: torch.Tensor):
+        if self._scratch is None or self._scratch[1].shape != rb.shape:
+            S, B = rb.shape[:2]
+            self._scratch = (rb.new_empty((3, S, B, self.meta.n_v)),
+                             torch.empty_like(rb))
+        return self._scratch
+
+    def __call__(self, state, rb, dt: float, t: float = 0.0, ctrl=None,
+                 use_filter: bool = True):
+        ops, meta = self.ops, self.meta
+        S, B, L = _check_stage(ops, meta, {"h": state[0], "hu": state[1],
+                                           "hv": state[2]}, rb)
+        if ctrl is not None:
+            _check_tensor("ctrl", ctrl, (meta.n_ctrl,), rb)
+        if rb.device.type == "cpu":
+            return sw2d_step_rdma_blocked_plain(ops, meta, state, rb, dt,
+                                                self.ex, t, ctrl, use_filter)
+        if rb.device != self.device:
+            raise ValueError("operator set and state lie on different devices")
+        if rb.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernels are float32, got {rb.dtype}")
+        s1, rb2 = self._scratch_for(rb)
+        out = [torch.empty_like(state[0]) for _ in range(3)]
+        sb = torch.empty_like(rb)
+        err = self.lib.sw2d_step_rdma(
+            *self.head, B, *(f.data_ptr() for f in state), rb.data_ptr(),
+            _ptr(ctrl), self.dest, s1.data_ptr(), rb2.data_ptr(),
+            *(f.data_ptr() for f in out), sb.data_ptr(), float(dt), float(t),
+            float(t + 0.5 * dt), int(use_filter), int(meta.has_sponge),
+            self.E, THREADS, _stream(rb))
+        _launch_check(err, "sw2d_step_rdma_blocked")
+        sw2d_step_rdma_blocked.launches += 1
+        return (*out, sb)
+
+
+def sw2d_step_rdma_blocked(ops: ShardOps, meta: BlockedMeta, state, rb,
+                           dt: float, ex, t: float = 0.0, ctrl=None,
+                           use_filter: bool = True):
+    """One whole SSP-RK2 step on every shard of an element-sharded set:
+    stage 1 from ``state`` (a triple of (S, B, nV)) and the step-boundary
+    receive buffer ``rb`` (S, B, L, 3), the stacked ring exchange ``ex``
+    (the set's ``parallel.RingExchange``) of the stage-1 halo, stage 2 with
+    the sponge. ``t``: the step's start time; ``ctrl``: (n_ctrl,) shared by
+    every scenario and shard, or None. Returns (h, hu, hv, sb), sb
+    (S, B, L, 3) the send buffer of the output. A caller that steps
+    repeatedly makes one ``RdmaLaunch`` and calls it, as
+    ``parallel.make_sharded_blocked_step_rdma`` does.
+
+    Replaces the TPU kernel ``_step_kernel_rdma`` / ``sw2d_step_rdma_blocked``
+    of ``blitzdg_tpu/ops/sw2d_blocked.py``, which runs one shard per chip at
+    B = 1 and moves the inter-stage halo by remote DMA; here one cooperative
+    launch covers every shard and scenario, the halo is stored into the
+    receiving shard's slots in global memory and a grid barrier stands for
+    the READY handshake. Bound by operations (two RHS evaluations per node
+    against one state in and one out). Raises for a wet/dry set.
+    """
+    return RdmaLaunch(ops, meta, ex)(state, rb, dt, t, ctrl, use_filter)
+
+
+sw2d_step_rdma_blocked.launches = 0

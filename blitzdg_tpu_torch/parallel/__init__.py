@@ -3,7 +3,8 @@ and the element-sharded blocked path (see each module)."""
 from .blocked_shard import (ShardedBlocked, build_sharded_blocked,
                             initial_send_buffer, join_shards,
                             make_sharded_blocked_step_diff,
-                            make_sharded_blocked_step_fused, split_shards)
+                            make_sharded_blocked_step_fused,
+                            make_sharded_blocked_step_rdma, split_shards)
 from .distributed import distributed_init
 from .halo import (HaloPlan, RingExchange, build_halo_plan, halo_tables,
                    ring_exchange)
@@ -19,5 +20,6 @@ __all__ = [
     "ring_exchange", "distributed_init",
     "ShardedBlocked", "build_sharded_blocked", "initial_send_buffer",
     "make_sharded_blocked_step_fused", "make_sharded_blocked_step_diff",
+    "make_sharded_blocked_step_rdma",
     "split_shards", "join_shards",
 ]

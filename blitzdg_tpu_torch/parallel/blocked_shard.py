@@ -3,7 +3,8 @@ kernels and the ring exchange between the RK stages.
 
 Counterpart of the JAX package's ``blitzdg_tpu/parallel/blocked_shard.py``
 (``ShardedBlocked``, ``build_sharded_blocked``, ``initial_send_buffer``,
-``make_sharded_blocked_step_fused``, ``make_sharded_blocked_step_diff``).
+``make_sharded_blocked_step_fused``, ``make_sharded_blocked_step_diff``,
+``make_sharded_blocked_step_rdma``).
 The mesh is partitioned into S contiguous element blocks
 (``parallel.partition_mesh``). Each shard runs the same stage kernel as the
 others (``ops.sw2d_blocked.sw2d_stage_blocked``, full coastal physics); only
@@ -32,10 +33,18 @@ cotangent over scenarios, shards and (process-group transport) ranks; the
 JAX backward reshapes its per-scenario (B, n_ctrl) cotangent to (n_ctrl,),
 which holds for B = 1 only (ROADMAP C21).
 
+``make_sharded_blocked_step_rdma`` is the same step in one launch: one
+exchange of the carried send buffer, then one kernel that runs both stages
+and moves the inter-stage halo inside itself
+(``ops.sw2d_blocked.sw2d_step_rdma_blocked``). Its transport is the stacked
+one only: all shards on one card, the halo stored into the receiving
+shard's slots in global memory. Across cards it would need per-peer signal
+flags and stores into the peers' memory, which are still to be ported
+(ROADMAP B9); with a process group it raises.
+
 Not ported: ``make_sharded_blocked_step`` (superseded) and
 ``initial_packed_traces``; ``pack_local``/``unpack_local`` have no
-counterpart (``split_shards``/``join_shards`` reshape flat fields);
-``make_sharded_blocked_step_rdma`` waits for its kernel (ROADMAP B9).
+counterpart (``split_shards``/``join_shards`` reshape flat fields).
 """
 from __future__ import annotations
 
@@ -47,8 +56,8 @@ import torch
 
 from ..context import DGContext2D
 from ..ops.sw2d import SWPhysics
-from ..ops.sw2d_blocked import (BlockedMeta, ShardOps, _send_plain,
-                                shard_view, sw2d_stage_blocked,
+from ..ops.sw2d_blocked import (BlockedMeta, RdmaLaunch, ShardOps,
+                                _send_plain, shard_view, sw2d_stage_blocked,
                                 sw2d_stage_bwd_blocked_v2)
 from ..ops.sw2d_fused import _np64, _operator_arrays, _ops_from_arrays
 from .halo import HaloPlan, RingExchange, build_halo_plan
@@ -186,6 +195,33 @@ def make_sharded_blocked_step_fused(sb: ShardedBlocked, dt: float,
         *s2, sb2 = sw2d_stage_blocked(ops, meta, state, tuple(s1), ex(sb1),
                                       dt, t + 0.5 * dt, ctrl, use_filter,
                                       apply_sponge=True)
+        return tuple(s2), sb2
+
+    return step
+
+
+def make_sharded_blocked_step_rdma(sb: ShardedBlocked, dt: float,
+                                   use_filter: bool = True, group=None):
+    """The sharded SSP-RK2 step in one kernel launch: the same carry and
+    arguments as ``make_sharded_blocked_step_fused``, and the same values;
+    the step-boundary exchange, then ``sw2d_step_rdma_blocked`` (through
+    one ``RdmaLaunch`` made here), which exchanges the inter-stage halo
+    inside the launch. Forward only.
+
+    Raises for a wet/dry set (the kernel does not limit its stages) and for
+    a process group: the transport across cards (per-peer signal flags and
+    stores into the peers' memory) is still to be ported (ROADMAP B9)."""
+    if group is not None:
+        raise NotImplementedError(
+            "the one-launch sharded step holds every shard on one card; its "
+            "transport across cards (per-peer signal flags, stores into the "
+            "peers' memory) is still to be ported (ROADMAP B9): use "
+            "make_sharded_blocked_step_fused with a process group")
+    launch = RdmaLaunch(sb.ops, sb.meta, _exchange(sb, None))
+
+    def step(carry, t: float = 0.0, ctrl=None):
+        state, sbuf = carry
+        *s2, sb2 = launch(state, launch.ex(sbuf), dt, t, ctrl, use_filter)
         return tuple(s2), sb2
 
     return step

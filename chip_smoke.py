@@ -61,9 +61,18 @@ in order (any failure is an exception and a non-zero exit):
     of a step), on a coastal case (bathymetry, well-balancing, drag,
     Coriolis, tidal open boundary, sponge, t0=1), forward only on a wet/dry
     beach, and at the two shapes of the main path: full width at B=1 and the
-    example's size (K=128, N=1, S=8, B=1); ``sharded_rollout`` runs the 2048-step rollout at S=1 and
-    S=4, B=1 and B=8, with its device idle share, and holds the first 8 S=4
-    steps against the unsharded blocked rollout; ``sharded_path`` drives
+    example's size (K=128, N=1, S=8, B=1); it holds the one-launch step
+    kernel ``sw2d_step_rdma_blocked`` against its plain version (and reruns
+    it for the same bits) at K=2048, N=3 with controls at S=4 and S=1, each
+    at B=8 and B=1, at the example's size and on the coastal case;
+    ``sharded_rollout`` runs the 2048-step rollout at S=1 and S=4, B=1 and
+    B=8, with its device idle share, and holds the first 8 S=4 steps
+    against the unsharded blocked rollout; ``sharded_rollout_rdma`` runs
+    each of them again through the one-launch step (counters zeroed just
+    before and read just after: one step kernel a step, no stage kernel),
+    with its idle share, holds its end state against the fused rollout's
+    after all 2048 steps and the first 8 S=4, B=8 steps against the fused
+    rollout's; ``sharded_path`` drives
     ``solve_sharded_mpc`` (30 Adam iterations) at the example's size and at
     full width (``mpc/sharded_box.py``), counters zeroed just before and
     read just after, and holds the full-width control gradient against the
@@ -1491,6 +1500,56 @@ def check_sharded_case(TB, BS, name, sb, state, ctrl, dt, t, sponge, flush,
     return out
 
 
+def check_rdma_case(TB, BS, name, sb, state, ctrl, dt, t, flush,
+                    timed: bool = False):
+    """Hold the one-launch step kernel against its plain version on one
+    case (the receive buffer the ring exchange makes of the state's send
+    buffer), rerun it for the same bits and, for information, against the
+    two stage kernels with the exchange between. Returns its record."""
+    from blitzdg_tpu_torch.parallel.halo import RingExchange
+
+    ops, meta, offs = sb.ops, sb.meta, sb.plan.offs
+    S, B = state[0].shape[:2]
+    L = ops.send.shape[1]
+    ex = RingExchange(sb.plan, meta.n_fp, device=state[0].device)
+    rb = ex(BS.initial_send_buffer(sb, state))
+    launch = TB.RdmaLaunch(ops, meta, ex)
+    step = lambda: launch(state, rb, dt, t, ctrl)
+    plain = lambda: TB.sw2d_step_rdma_blocked_plain(ops, meta, state, rb, dt,
+                                                    ex, t, ctrl)
+    got = step()
+    grid = TB.last_grid()
+    ref = plain()
+    again = step()
+    *s1, sb1 = TB.sw2d_stage_blocked(ops, meta, state, state, rb, 0.5 * dt, t,
+                                     ctrl)
+    two = TB.sw2d_stage_blocked(ops, meta, state, tuple(s1), ex(sb1), dt,
+                                t + 0.5 * dt, ctrl, True, True)
+    torch.cuda.synchronize()
+    err = max_abs(got, ref)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    finite = all(bool(torch.isfinite(f).all()) for f in got)
+    rec = {"case": name, "kernel": "sw2d_step_rdma_blocked",
+           "max_abs_err": err, "tol": BLK_FWD_ATOL,
+           "ok": finite and same and err <= BLK_FWD_ATOL,
+           "same_bits_on_rerun": same,
+           "same_bits_as_two_stage_kernels": all(
+               torch.equal(a, b) for a, b in zip(got, two)),
+           "grid_blocks": grid, "n_shards": S, "batch": B, "slots": L,
+           "ring_offsets": list(offs)}
+    if timed:
+        rec["ms"] = time_ms(step, 9, flush)
+        rec["plain_ms"] = time_ms(plain, 2, flush)
+        n_wall = int(ops.wall.sum()) / S  # per shard
+        rec["bound_ms"], rec["bound_by"] = bound(
+            4.0 * (6 * S * B * meta.n_v + 2 * 3 * S * B * L + meta.n_ctrl),
+            S * B * 2 * rhs_flops(meta, n_wall))
+    say(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"kernel out of tolerance: {rec}")
+    return rec
+
+
 @contextlib.contextmanager
 def plain_stages(BS, TB):
     """Run the sharded steps through the plain stage versions: the steps
@@ -1545,15 +1604,34 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
         cases.append(name)
         return check_sharded_case(TB, BS, name, *a, **kw)
 
+    def check_rdma(name, *a, **kw):
+        cases.append(name)
+        return check_rdma_case(TB, BS, name, *a, flush, **kw)
+
     st, ctrl = shard_state(full.ctx, sbx.H_REST, B, 2)
     head = check("sharded_K2048_N3_S4", full.sb, st, ctrl, full.dt, 0.0,
                  False, flush, rng, timed=True)
-    # both sizes the main path runs: full width at its one scenario, and the
+    # the one-launch step on the same inputs, and at one shard (no ring
+    # offsets: the inter-stage receive buffer is zeros)
+    head["sw2d_step_rdma_blocked"] = check_rdma(
+        "rdma_K2048_N3_S4", full.sb, st, ctrl, full.dt, 0.0, timed=True)
+    one = BS.build_sharded_blocked(full.ctx, SWPhysics(g=9.81), 1,
+                                   forcing_bu=sbx.injectors(full.ctx)[0],
+                                   forcing_bv=sbx.injectors(full.ctx)[1],
+                                   device=dev)
+    st1, ctrl = shard_state(full.ctx, sbx.H_REST, B, 2, 1)
+    check_rdma("rdma_K2048_N3_S1", one, st1, ctrl, full.dt, 0.0)
+    # both sizes the main path runs: full width at its one scenario (the
+    # one-launch step's rollouts run S=1 and S=4 at B=1 as well), and the
     # example's size (N=1, two nodes a face, 8 shards: six ring offsets and
     # flipped cut faces)
     st, ctrl = shard_state(full.ctx, sbx.H_REST, 1, 2)
     check("sharded_K2048_N3_S4_B1", full.sb, st, ctrl, full.dt, 0.0, False,
           flush, rng)
+    check_rdma("rdma_K2048_N3_S4_B1", full.sb, st, ctrl, full.dt, 0.0)
+    st1, ctrl = shard_state(full.ctx, sbx.H_REST, 1, 2, 1)
+    check_rdma("rdma_K2048_N3_S1_B1", one, st1, ctrl, full.dt, 0.0)
+    del one, st1
     example = sbx.sharded_mpc_problem(sbx.EXAMPLE, device=dev)
     plan = example.sb.plan
     flipped_cut = int((plan.pflip.astype(bool)
@@ -1565,6 +1643,8 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
                            example.sb.n_shards)
     check("sharded_example_K128_N1_S8_B1", example.sb, st, ctrl, example.dt,
           0.0, False, flush, rng)
+    check_rdma("rdma_example_K128_N1_S8_B1", example.sb, st, ctrl,
+               example.dt, 0.0)
 
     def context(mesh):
         return build_triangle_context(n_order, mesh, dtype=f32, device=dev,
@@ -1595,6 +1675,8 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
     st, ctrl = shard_state(cc, H.reshape(1, -1), B, 2)
     check("sharded_coastal_K2048_N3_S4", csb, st, ctrl,
           cfl_dt(cc, 9.81, 13.5), 1.0, True, flush, rng)
+    check_rdma("rdma_coastal_K2048_N3_S4", csb, st, ctrl,
+               cfl_dt(cc, 9.81, 13.5), 1.0)
     del csb, cc
 
     # wetting and drying, forward only: a sloping beach, dry beyond x = 2/3
@@ -1625,39 +1707,58 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
          "example_ring_offsets": list(plan.offs),
          "example_flipped_cut_faces": flipped_cut})
 
-    # ---- the long sharded rollouts ----
-    stage = TB.sw2d_stage_blocked
+    # ---- the long sharded rollouts: fused steps, then one-launch steps ----
+    stage, rdma = TB.sw2d_stage_blocked, TB.sw2d_step_rdma_blocked
+
+    def long_rollout(r, phase, make_step, expect):
+        """Time ``r``'s 2048-step rollout through ``make_step``'s steps,
+        profile a window of it and check the end state and the launch
+        counts. Returns (run, end state, record)."""
+        run = lambda n: sbx.sharded_rollout(r, n, make_step)
+        run(16)  # warm-up
+        torch.cuda.synchronize()
+        rdma.launches = stage.launches = 0
+        t0 = time.perf_counter()
+        end = run(r.n_steps)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {"sw2d_stage_blocked": stage.launches,
+                  "sw2d_step_rdma_blocked": rdma.launches}
+        t0 = time.perf_counter()
+        run(SHD_PROFILE_STEPS)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+        batch = r.state[0].shape[1]
+        profile_solve(f"{phase}_profile_S{r.sb.n_shards}_B{batch}", card,
+                      lambda: run(SHD_PROFILE_STEPS), window)
+        h_end = BS.join_shards(end[0])
+        rec = {"phase": phase, "card": card, "n_shards": r.sb.n_shards,
+               "batch": batch, "k_elem": r.ctx.k_elem, "n_order": n_order,
+               "n_steps": r.n_steps, "dt": r.dt, "seconds": secs,
+               "us_per_step": secs * 1e6 / r.n_steps,
+               "us_per_step_per_scenario": secs * 1e6 / r.n_steps / batch,
+               "launches": counts,
+               "h_min": float(h_end.min()), "h_max": float(h_end.max()),
+               "ok": (all(bool(torch.isfinite(f).all()) for f in end)
+                      and 9.0 < float(h_end.min())
+                      and float(h_end.max()) < 12.0 and counts == expect)}
+        return run, end, rec
+
+    def finish(rec, what):
+        say(rec)
+        if not rec["ok"]:
+            raise RuntimeError(f"a {what} rollout failed its checks")
+
+    rdma_launches = 0
     for n_shards in sbx.ROLLOUT_SHARDS:
         for batch in sbx.ROLLOUT_BATCHES:
             r = sbx.sharded_rollout_problem(n_shards, batch, device=dev)
-            run = lambda n: sbx.sharded_rollout(r, n)
-            run(16)  # warm-up
-            torch.cuda.synchronize()
-            stage.launches = 0
-            t0 = time.perf_counter()
-            end = run(r.n_steps)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            launches = stage.launches
-            t0 = time.perf_counter()
-            run(SHD_PROFILE_STEPS)
-            torch.cuda.synchronize()
-            window = time.perf_counter() - t0
-            profile_solve(f"sharded_rollout_profile_S{n_shards}_B{batch}",
-                          card, lambda: run(SHD_PROFILE_STEPS), window)
-            h_end = BS.join_shards(end[0])
-            ok = (all(bool(torch.isfinite(f).all()) for f in end)
-                  and 9.0 < float(h_end.min()) and float(h_end.max()) < 12.0
-                  and launches == 2 * r.n_steps)
-            rec = {"phase": "sharded_rollout", "card": card,
-                   "n_shards": n_shards, "batch": batch,
-                   "k_elem": r.ctx.k_elem, "n_order": n_order,
-                   "n_steps": r.n_steps, "dt": r.dt, "seconds": secs,
-                   "us_per_step": secs * 1e6 / r.n_steps,
-                   "us_per_step_per_scenario": secs * 1e6 / r.n_steps / batch,
-                   "stage_launches": launches,
-                   "h_min": float(h_end.min()), "h_max": float(h_end.max())}
-            if n_shards > 1 and batch == max(sbx.ROLLOUT_BATCHES):
+            check_two = n_shards > 1 and batch == max(sbx.ROLLOUT_BATCHES)
+            run, fused_end, rec = long_rollout(
+                r, "sharded_rollout", BS.make_sharded_blocked_step_fused,
+                {"sw2d_stage_blocked": 2 * r.n_steps,
+                 "sw2d_step_rdma_blocked": 0})
+            if check_two:
                 # the first steps against the unsharded blocked rollout on
                 # the same partitioned mesh, from the same start
                 ops, meta = TB.build_blocked_step_ops(
@@ -1671,12 +1772,36 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
                 err = max_abs([BS.join_shards(f) for f in got], want)
                 rec["vs_unsharded_blocked_max_abs"] = err
                 rec["vs_unsharded_steps"] = SHD_CHECK_STEPS
-                ok = ok and err <= BLK_FWD_ATOL
-            rec["ok"] = ok
-            say(rec)
-            if not ok:
-                raise RuntimeError("a sharded rollout failed its checks")
-            del r, end
+                rec["ok"] = rec["ok"] and err <= BLK_FWD_ATOL
+            finish(rec, "sharded")
+            fused_us = rec["us_per_step"]
+
+            # the same rollout, one launch a step; its end state against the
+            # fused rollout's after all r.n_steps steps
+            rrun, end, rec = long_rollout(
+                r, "sharded_rollout_rdma", BS.make_sharded_blocked_step_rdma,
+                {"sw2d_stage_blocked": 0,
+                 "sw2d_step_rdma_blocked": r.n_steps})
+            rdma_launches += rec["launches"]["sw2d_step_rdma_blocked"]
+            err = max_abs(end, fused_end)
+            rec.update(fused_us_per_step=fused_us,
+                       vs_fused_end_max_abs=err,
+                       vs_fused_end_bit_equal=all(
+                           torch.equal(a, b) for a, b in zip(end, fused_end)))
+            rec["ok"] = rec["ok"] and err <= BLK_FWD_ATOL
+            if check_two:
+                # the first steps against the fused rollout (two stage
+                # kernels a step) from the same start
+                got, want = rrun(SHD_CHECK_STEPS), run(SHD_CHECK_STEPS)
+                torch.cuda.synchronize()
+                err = max_abs(got, want)
+                rec["vs_fused_max_abs"] = err
+                rec["vs_fused_bit_equal"] = all(
+                    torch.equal(a, b) for a, b in zip(got, want))
+                rec["vs_fused_steps"] = SHD_CHECK_STEPS
+                rec["ok"] = rec["ok"] and err <= BLK_FWD_ATOL
+            finish(rec, "one-launch sharded")
+            del r, end, fused_end
 
     # ---- the main path: the sharded MPC at both sizes ----
     wrappers = (TB.sw2d_stage_blocked, TB.sw2d_stage_bwd_blocked_v2)
@@ -1784,7 +1909,10 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
     src = "blitzdg_tpu_torch/ops/csrc/sw2d_blocked.cu"
     replaces = {
         "sw2d_stage_blocked": "blitzdg_tpu/ops/sw2d_blocked.py:962",
-        "sw2d_stage_bwd_blocked_v2": "blitzdg_tpu/ops/sw2d_blocked.py:1710"}
+        "sw2d_stage_bwd_blocked_v2": "blitzdg_tpu/ops/sw2d_blocked.py:1710",
+        "sw2d_step_rdma_blocked": "blitzdg_tpu/ops/sw2d_blocked.py:1118"}
+    # the one-launch step's path is the four rollouts above
+    launches["sw2d_step_rdma_blocked"] = rdma_launches
     return [{"name": name, "route": "cuda", "source": src,
              "replaces": replaces[name], "launches": launches[name],
              "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],

@@ -205,8 +205,11 @@ def test_sharded_entry_points_default_to_cuda():
     from blitzdg_tpu_torch.mesh import box_triangles
     from blitzdg_tpu_torch.mpc import sharded_box as sbx
     from blitzdg_tpu_torch.ops.sw2d import SWPhysics
+    from blitzdg_tpu_torch.ops.sw2d_blocked import (RdmaLaunch,
+                                                    sw2d_step_rdma_blocked)
     from blitzdg_tpu_torch.parallel import (RingExchange,
                                             build_sharded_blocked,
+                                            make_sharded_blocked_step_rdma,
                                             partition_mesh)
     from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
 
@@ -223,5 +226,16 @@ def test_sharded_entry_points_default_to_cuda():
     assert sb.ops.fbuf.device.type == "cpu" and sb.ops.fbuf.shape[0] == 2
     with cuda_or_nothing:
         RingExchange(sb.plan, sb.meta.n_fp)
-    for fn in (convert.sharded_blocked_from_numpy,):
+    # the one-launch step: its ring exchange defaults to the card; on a CPU
+    # set the step runs its plain version and launches nothing
+    with cuda_or_nothing:
+        RdmaLaunch(sb.ops, sb.meta, RingExchange(sb.plan, sb.meta.n_fp))
+    before = sw2d_step_rdma_blocked.launches
+    r = sbx.sharded_rollout_problem(2, 1, n_steps=1, n_order=1, cells=(2, 2),
+                                    device="cpu")
+    end = sbx.sharded_rollout(r, 1, make_sharded_blocked_step_rdma)
+    assert end[0].device.type == "cpu" and bool(torch.isfinite(end[0]).all())
+    assert sw2d_step_rdma_blocked.launches == before
+    for fn in (convert.sharded_blocked_from_numpy,
+               sbx.sharded_rollout_problem):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
