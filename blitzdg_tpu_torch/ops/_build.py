@@ -27,7 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: dict[str, ctypes.CDLL] = {}
-# what nvcc printed for each source in the last build (ptxas -v included)
+# what nvcc printed when it built each source's current library (ptxas -v
+# included); kept beside the library, so a library built by an earlier run
+# has its log too
 last_build_log: dict[str, str] = {}
 
 
@@ -57,12 +59,20 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{_digest(src.parent)}.so"
 
 
+def _log_path(target: Path) -> Path:
+    return target.with_suffix(".log")
+
+
 def build_all(verbose: bool = False) -> dict[str, Path]:
     """Compile every source that has no current library; returns the
     library path of each source by name. Raises if any compile fails."""
     sources = sorted(CSRC.glob("*.cu"))
     targets = {s.stem: _target(s) for s in sources}
     todo = [s for s in sources if not targets[s.stem].exists()]
+    for s in sources:
+        log = _log_path(targets[s.stem])
+        if s not in todo and log.exists():
+            last_build_log[s.stem] = log.read_text()
     if not todo:
         return targets
     nvcc = _nvcc()
@@ -83,6 +93,7 @@ def build_all(verbose: bool = False) -> dict[str, Path]:
         if p.returncode != 0:
             failed.append(f"{s.name}:\n{out}")
         else:
+            _log_path(targets[s.stem]).write_text(out)
             os.replace(tmp, targets[s.stem])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -10,51 +10,96 @@
 // one scenario's mesh as (p, NP, M), stack the four fields on the lane axis,
 // apply every reference operator as kron(I_p, Op) and exchange Gauss traces
 // through roll-combination tables. None of that is carried over: states are
-// (B, K*Np) per field and the work unit is (scenario, chunk of E elements),
-// as in sw2d_blocked.cu. A block keeps the six reference operators (cubature
-// interpolation V, weak Dr^T and Ds^T, Gauss interpolation GI, filter,
-// V V^T) and its chunk's nodal state, cubature terms and Gauss fluxes in
-// shared memory. Every product of the RHS is a short FMA loop of one thread:
-//   cubature point  <- V row . nodal values            (Np FMAs a field)
-//   Gauss point     <- GI row . nodal values           (Np FMAs a field)
-//   nodal value     <- Dr^T, Ds^T rows . cubature terms, GI column . fluxes
-//   nodal value     <- mass inverse row, then filter row
+// (B, K*Np) per field.
 //
-// The '+' value at a Gauss point is an INTERPOLATED neighbour value. Forward,
-// a thread recomputes it from the neighbour's nodal values in the stage's
-// input in global memory (Np FMAs a field, the same loop that gave the
-// neighbour its own '-' value, so both sides see the same bits). That costs
-// about a tenth of a stage's arithmetic and saves a grid barrier and a
-// (B, nT, 4) round trip per stage: a stage depends on the previous stage of
-// the whole grid and on nothing else, as in sw2d_blocked.cu. One persistent
-// cooperative launch per call, 2 grid barriers per step.
+// Work unit: (a chunk of E elements) x (a tile of Bs <= 4 scenarios), one
+// thread per (element, scenario), the lanes of a block numbered element by
+// element with the scenario innermost; a ragged last chunk or tile is
+// masked. A thread runs its element's whole RHS as a scalar program: the
+// nodal accumulator (N=3: 40 floats) lives in registers, and so does the
+// nodal array that a product reads against run-time operator rows (the
+// state in the forward volume term, the mass-inverse transposed cotangent
+// in the adjoint's surface term); what else a thread keeps sits in its own
+// slots in shared memory (thread innermost, a constant stride: no bank
+// conflicts, offsets known at compile time). Operator values are read from
+// shared memory at an address that is the same for the whole warp (a
+// broadcast), so each one feeds an FMA a field. FMAs per shared-memory load
+// instruction, as the loops below issue them at N=3 (float2 loads need an
+// even Np):
+//   cubature point  <- V row . nodal values (registers)         4
+//   nodal value     <- Dr^T, Ds^T columns . weighted fluxes      4
+//   nodal value     -= GI row^T . Gauss flux (float2 loads)      8
+//   nodal value     <- mass inverse row, then filter row         4
+//   Gauss trace     <- GI row . nodal values                     4
+// and in the adjoint their transposes: filter and mass inverse 4; the
+// Gauss values of the cotangent (in registers) 4; the lifts of the '-'
+// cotangents 8 and of the gathered '+' ones 4.4 (a point's four values
+// from its slots, five float2 loads, 40 FMAs); the volume term in tiles of
+// four cubature points, a node's eight slot values (state and cotangent)
+// and three float4s of V, Dr^T and Ds^T feeding 48 FMAs (4.4), then one
+// float4 of V per 16 FMAs of the transposed interpolation. The reference
+// operators sit in shared memory once a launch (V, Dr^T and Ds^T in tiles of
+// four cubature points); the chunk's geometric factors (W rx .. W sy a
+// cubature point; normal, weight, wall flag, '+' index and reader a Gauss
+// point; the mass inverse) are copied to shared memory once a unit,
+// element innermost, and serve all the unit's scenarios. When the grid
+// holds every unit (both disks of the MPC), a block keeps one unit for the
+// whole launch and reads the geometry once.
+//
+// Gauss traces. The '-' values of every Gauss point (four fields) are
+// written once to a (nT, B) float4 buffer by the thread that owns the
+// element, right after it writes the state they belong to; after the grid
+// barrier that ends the stage, a Gauss point reads its own '-' value and
+// its '+' value (mapP) from there, a face's loads in flight together. Both
+// sides of a face see the same bits, as the adjoint's tie rules need, and
+// no point re-interpolates its neighbour. The stage that computes a state
+// writes its traces too, so a stage depends on the previous stage of the
+// whole grid only: one barrier a stage, plus one before the first stage for
+// the initial state's traces. The face maximum over a face's NG points is
+// taken inside one thread.
 //
 // Adjoint (derived by hand; tensor-code twin and its test against autograd:
-// ops/sw2d_curved_blocked.py). The transposed '+' gather crosses blocks and
-// the neighbour's cotangent cannot be recomputed locally (it hangs on the
-// neighbour's incoming cotangent through its mass inverse and filter), so
-// each RHS adjoint runs in two phases around a grid barrier: the first
-// writes, per Gauss point, the cotangents of its '-' and '+' values to a
-// global (B, nT, 8) scratch; the second sums, per Gauss point, its own row
-// and the rows of the points that read it (inverse CSR map of mapP) into
-// shared memory and applies GI^T from there. 3 barriers per step. No float
+// ops/sw2d_curved_blocked.py). The own '-' cotangent of a Gauss point is
+// lifted into the element's nodal cotangent at once; the '+' cotangent
+// belongs to the neighbour, so it goes to a (nT, B) float4 buffer and is
+// gathered after a grid barrier through the point's one reader (the inverse
+// CSR map of mapP, cached a chunk). Three phases a step, a grid barrier
+// after each:
+//   1. finish the previous step's second product (gather T2), form W,
+//      recompute s1 and its traces;
+//   2. first half of the product at s1 (T1, volume part into A); the traces
+//      of the next step's state s_{t-1};
+//   3. gather T1 into A; first half of the product at s_t (T2, into Bv).
+// Where the lanes are too few to fill the card (the small disk), two
+// threads share each (element, scenario) in phases 2 and 3: they take
+// alternate tiles of cubature points and split the Gauss points of the
+// surface's second pass, and the second adds the first's sum to its own in
+// a fixed order. The launcher takes two where the blocks of twice the
+// threads are all resident at once, by the occupancy that the device
+// reports for the kernel (sw2d_curved_bwd_parts). No float
 // atomics: a rerun gives the same bits. Control cotangents are summed per
-// work unit and reduced over the chunks in a fixed order at the end. A
-// cotangent trajectory may be a null pointer (nothing used that field): read
-// as zero.
+// (scenario, element) and reduced over the elements in a fixed order at the
+// end. A cotangent trajectory may be a null pointer (nothing used that
+// field): read as zero.
 //
 // Bound on the card: float32 operations (8 nV floats of traffic per step
-// against some two thousand operations per node). What the kernels wait for
-// is, as in sw2d_blocked.cu, latency of the short dependent loops and the
-// block barriers between a stage's six passes. Three things that each cost a
-// factor of 1.4 to 2 when they were wrong (PERF.md): the nodal passes run
-// over (field, node) pairs, so a chunk holds as many elements as give
-// 4 E Np <= blockDim; nothing is indexed by a run-time field number except
-// through a base pointer and a stride (Sh4) or selects (pick), because a
-// pointer table indexed at run time is put into local memory; and the
-// kernels are instantiated for the sizes of N=3 (Sizes: the short loops
-// unroll and the index divisions have constant divisors) beside one
-// instantiation that reads the sizes at run time, for every other order.
+// against some two thousand operations per node). The first design (one
+// thread a (field, node) pair, six block barriers a stage, units of one
+// scenario) issued about one shared-memory load per FMA, reloaded the
+// geometry for every scenario and waited at the loads; this one issues four
+// FMAs or more per shared-memory load in every product (the table above)
+// and reads the geometry once a unit. What bounds it now: the parallelism
+// the meshes give (32448 lanes at K=1014, B=32; 13824 at K=54, B=256), at
+// most eight warps an SM at the registers the nodal arrays need (over 200
+// a thread at N=3), so each thread's dependent
+// chains (the pointwise formulas' divisions and roots, the per-point Gauss
+// sums, the trace loads) show; and the instruction caches, which is why
+// every loop over nodes, cubature or Gauss points runs at run time (a few
+// unrolled twice) and only the loops inside one row are unrolled fully. ptxas spills nothing. PERF.md has
+// the numbers. The kernels are instantiated for the sizes of N=3 (Sizes:
+// the row loops unroll, slot offsets are immediates) beside one
+// instantiation that reads the sizes at run time, for every other order up
+// to MAX_NP nodes (its register arrays live in local memory).
 //
 // Plain C interface (extern "C" at the end), loaded with ctypes. Launches go
 // to the stream that is passed in; nothing here synchronises or allocates.
@@ -65,14 +110,23 @@
 
 namespace cg = cooperative_groups;
 
-extern __shared__ float smem[];
+extern __shared__ __align__(16) float smem[];
 
 #define NF 4  // h, hu, hv, hN
-// Largest block the kernels are compiled for (THREADS of the wrappers), and
-// the blocks per SM the register budget is cut to: 64 registers a thread,
-// which ptxas meets without spills; measured 6-8 % faster than 3 a SM.
-#define MAX_THREADS 256
-#define BLOCKS_PER_SM 4
+// Largest block the forward kernels are compiled for (THREADS of the
+// wrappers; the adjoint's is up to twice that, two threads a lane), and the
+// blocks per SM the register budget is cut to: up to 255 registers a
+// thread, which the nodal arrays of N=3 need.
+#define MAX_THREADS 128
+#define BLOCKS_PER_SM 2
+// Room of the run-time-size instantiation's arrays: nodes (N=6) and Gauss
+// points a face.
+#define MAX_NP 28
+#define MAX_NG 14
+// Thread stride of the threads' scratch slots in shared memory: a constant,
+// so that a slot's offset is one (an immediate where the sizes are known);
+// a block of more threads keeps its next threads' slots behind.
+#define SLOT_STRIDE 128
 
 // Mirror of _CurvedDesc in ops/sw2d_curved_blocked.py.
 struct CurvedDesc {
@@ -122,10 +176,15 @@ static COps make_cops(const CurvedDesc& d, const float* f, const int* i) {
 }
 
 // Nodes, cubature points and Gauss points per face of one element: constants
-// of the instantiation where the template gives them (loops unroll, index
-// divisions become multiplications), else read from the operator set.
+// of the instantiation where the template gives them (loops unroll, the
+// nodal arrays are registers), else read from the operator set.
 template <int NP, int NCUB, int NGP>
 struct Sizes {
+  static constexpr int CAP = NP ? NP : MAX_NP;     // room of a nodal array
+  static constexpr int GCAP = NGP ? NGP : MAX_NG;  // room of a face array
+  // a row of Np values in shared memory read two at a time (float2): where
+  // Np is even and known, each row starts 8-byte aligned
+  static constexpr bool PAIRS = NP > 0 && NP % 2 == 0;
   __device__ __forceinline__ static int Np(const COps& o) {
     return NP ? NP : o.Np;
   }
@@ -172,23 +231,6 @@ __device__ __forceinline__ W4 fields_of(float* base, size_t fs, size_t off) {
   return r;
 }
 
-// The field pointer for an index known only at run time, by selects: a
-// dynamically indexed pointer array would be put into local memory.
-__device__ __forceinline__ const float* pick(const P4& p, int f) {
-  return f == 0 ? p.f[0] : f == 1 ? p.f[1] : f == 2 ? p.f[2] : p.f[3];
-}
-
-__device__ __forceinline__ float* pick(const W4& p, int f) {
-  return f == 0 ? p.f[0] : f == 1 ? p.f[1] : f == 2 ? p.f[2] : p.f[3];
-}
-
-// Four fields of n floats each, one behind the other, in shared memory.
-struct Sh4 {
-  float* p;
-  int n;
-  __device__ __forceinline__ float* f(int i) const { return p + i * n; }
-};
-
 __device__ __forceinline__ P4 readonly(const W4& w) {
   P4 r;
   #pragma unroll
@@ -196,65 +238,202 @@ __device__ __forceinline__ P4 readonly(const W4& w) {
   return r;
 }
 
-// Per-unit scratch in shared memory; EN = E*Np, EC = E*Ncub, ET = E*NT
-// floats per field.
-struct CScratch {
-  Sh4 S;    // the chunk's nodal state
-  Sh4 A;    // forward: mass-weighted RHS | adjoint: scaled cotangent, then
-            //                              its mass-inverse transpose
-  Sh4 Bn;   // forward: unfiltered RHS    | adjoint: filter^T cotangent
-  Sh4 TR;   // forward: W (rx F + ry G)   | adjoint: cubature cotangents
-  Sh4 TS;   // forward: W (sx F + sy G)
-  Sh4 pre;  // forward: central flux, then the weighted flux | adjoint: e_i
-  Sh4 dq;   // forward: jumps qM - qP     | adjoint: '-' Gauss values
-  Sh4 Pv;   //                              adjoint: '+' Gauss values
-  float *spd, *lamb, *wM;  // per Gauss point
-  float* red;              // 32: block reduction
+// ---------------------------------------------------------------------------
+// Shared memory: the reference operators, then the unit's chunk
+// ---------------------------------------------------------------------------
+
+__host__ __device__ inline size_t al4(size_t n) { return (n + 3) & ~(size_t)3; }
+
+// Tiles of four cubature points: the cubature operators' table holds, for
+// tile t and node n, the float4s V, Dr^T and Ds^T of the tile's points
+// (zeros past Ncub).
+__host__ __device__ inline int cub_tiles(int Ncub) { return (Ncub + 3) / 4; }
+
+__host__ __device__ inline size_t cop_floats(const COps& o) {
+  return (size_t)12 * cub_tiles(o.Ncub) * o.Np + al4((size_t)o.NT * o.Np)
+         + 2 * al4((size_t)o.Np * o.Np);
+}
+
+// Per element of a chunk: four weights a cubature point; four values, the
+// '+' index and the index of the point that reads it a Gauss point; the
+// mass inverse (or 1/J).
+__host__ __device__ inline size_t chunk_floats(const COps& o, int E) {
+  return (size_t)4 * o.Ncub * E + (size_t)4 * o.NT * E
+         + 2 * al4((size_t)o.NT * E)
+         + al4((size_t)(o.affine ? 1 : o.Np * o.Np) * E);
+}
+
+// Per thread: two nodal arrays of four fields (the products' outputs); in
+// the adjoint, while a face is worked on, its '-' and '+' values and the
+// speed at each of its Gauss points, and beside them the mass-inverse
+// transposed cotangent from slot mb_slot on.
+__host__ __device__ inline int mb_slot(int Np, int NG) {
+  return 4 * Np > 9 * NG ? 4 * Np : 9 * NG;
+}
+
+__host__ __device__ inline size_t thread_floats(const COps& o) {
+  const size_t a = (size_t)8 * o.Np, b = mb_slot(o.Np, o.NG) + 4 * o.Np;
+  return al4(a > b ? a : b);
+}
+
+// parts > 1 (the adjoint's two threads an (element, scenario)): one
+// nodal array a lane to add the two threads' sums.
+__host__ __device__ inline size_t csmem_floats(const COps& o, int E,
+                                               int threads, int parts = 1) {
+  const size_t groups = (threads + SLOT_STRIDE - 1) / SLOT_STRIDE;
+  return cop_floats(o) + chunk_floats(o, E)
+         + thread_floats(o) * groups * SLOT_STRIDE
+         + (parts > 1 ? (size_t)4 * o.Np * SLOT_STRIDE : 0);
+}
+
+// What a block keeps in shared memory: the reference operators (the
+// cubature ones in tiles of four points, cub_tiles), then its chunk's data,
+// element innermost: entry r of local element e at r * E + e, then each
+// thread's own scratch, thread innermost: float r of this thread at
+// slot[r * SLOT_STRIDE] (no bank conflicts, and no thread's slots overlap
+// another's).
+struct CBlock {
+  const float4* ct;  // [(t Np + n) 3 + {0, 1, 2}]: V, Dr^T, Ds^T of tile t
+  const float *GI, *filt, *VVT;
+  float4* geo;  // [c]: W rx, W ry, W sx, W sy
+  float4* gpt;  // [j]: nx, ny, W, wall
+  int* mapP;    // [j]: the '+' Gauss point, a global index
+  int* src;     // [j]: the one Gauss point that reads it as its '+' value,
+                //      or -1: look the readers up in the inverse map
+  float* minv;  // [n Np + m]: the mass inverse ('general') | [0]: 1/J
+  float* slot;
+  float* xch;   // [r * SLOT_STRIDE + l]: lane l's exchange slots
+  int E;
 };
 
-static size_t cop_floats(const COps& o) {
-  return (size_t)3 * o.Ncub * o.Np + (size_t)o.NT * o.Np
-         + (size_t)2 * o.Np * o.Np;
-}
-
-static size_t csmem_floats(const COps& o, int E) {
-  return cop_floats(o) + (size_t)12 * E * o.Np + (size_t)8 * E * o.Ncub
-         + (size_t)15 * E * o.NT + 32;
-}
-
-__device__ __forceinline__ Sh4 carve4(float*& p, int n) {
-  Sh4 v;
-  v.p = p; v.n = n; p += NF * n;
-  return v;
-}
-
-// Copy the reference-element operators to shared memory, point the operator
-// set at the copies and carve the per-unit scratch behind them.
-__device__ CScratch setup_cblock(COps& o, int E) {
-  const int np2 = o.Np * o.Np, nc = o.Ncub * o.Np, ng = o.NT * o.Np;
+// Copy the reference operators to shared memory and carve the chunk's part
+// behind them.
+__device__ CBlock setup_cblock(const COps& o, int E) {
+  const int Np = o.Np, Ncub = o.Ncub, NT = o.NT, np2 = Np * Np;
   float* p = smem;
-  float *sV = p, *sDr = p + nc, *sDs = p + 2 * nc, *sG = p + 3 * nc;
-  float *sF = sG + ng, *sM = sF + np2;
-  p = sM + np2;
-  for (int i = threadIdx.x; i < nc; i += blockDim.x) {
-    sV[i] = o.V[i]; sDr[i] = o.DrT[i]; sDs[i] = o.DsT[i];
+  float* sR = p; p += (size_t)12 * cub_tiles(Ncub) * Np;
+  float* sG = p; p += al4((size_t)NT * Np);
+  float* sF = p; p += al4((size_t)np2);
+  float* sM = p; p += al4((size_t)np2);
+  for (int i = threadIdx.x; i < 4 * cub_tiles(Ncub) * Np;
+       i += blockDim.x) {
+    const int c = i / Np, n = i - c * Np;
+    float* r = sR + ((c >> 2) * Np + n) * 12 + (c & 3);
+    const bool in = c < Ncub;
+    r[0] = in ? o.V[i] : 0.0f;
+    r[4] = in ? o.DrT[n * Ncub + c] : 0.0f;
+    r[8] = in ? o.DsT[n * Ncub + c] : 0.0f;
   }
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) sG[i] = o.GI[i];
+  for (int i = threadIdx.x; i < NT * Np; i += blockDim.x) sG[i] = o.GI[i];
   for (int i = threadIdx.x; i < np2; i += blockDim.x) {
     sF[i] = o.filt[i]; sM[i] = o.VVT[i];
   }
-  o.V = sV; o.DrT = sDr; o.DsT = sDs; o.GI = sG; o.filt = sF; o.VVT = sM;
-  CScratch s;
-  const int EN = E * o.Np, EC = E * o.Ncub, ET = E * o.NT;
-  s.S = carve4(p, EN); s.A = carve4(p, EN); s.Bn = carve4(p, EN);
-  s.TR = carve4(p, EC); s.TS = carve4(p, EC);
-  s.pre = carve4(p, ET); s.dq = carve4(p, ET); s.Pv = carve4(p, ET);
-  s.spd = p; p += ET;
-  s.lamb = p; p += ET;
-  s.wM = p; p += ET;
-  s.red = p;
+  CBlock ch;
+  ch.ct = reinterpret_cast<const float4*>(sR); ch.GI = sG; ch.filt = sF; ch.VVT = sM;
+  ch.E = E;
+  ch.geo = reinterpret_cast<float4*>(p); p += (size_t)4 * Ncub * E;
+  ch.gpt = reinterpret_cast<float4*>(p); p += (size_t)4 * NT * E;
+  ch.mapP = reinterpret_cast<int*>(p); p += al4((size_t)NT * E);
+  ch.src = reinterpret_cast<int*>(p); p += al4((size_t)NT * E);
+  ch.minv = p; p += al4((size_t)(o.affine ? 1 : np2) * E);
+  const int groups = (blockDim.x + SLOT_STRIDE - 1) / SLOT_STRIDE;
+  const size_t T = thread_floats(o);
+  ch.slot = p + (threadIdx.x / SLOT_STRIDE) * SLOT_STRIDE * T
+            + threadIdx.x % SLOT_STRIDE;
+  ch.xch = p + T * groups * SLOT_STRIDE;
   __syncthreads();
-  return s;
+  return ch;
+}
+
+// Copy elements e0 .. e0+ne of the mesh into the chunk's part of shared
+// memory (every thread of the block calls it).
+__device__ void load_chunk(const COps& o, const CBlock& ch, int e0, int ne) {
+  const int Np = o.Np, Ncub = o.Ncub, NT = o.NT, E = ch.E;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  __syncthreads();  // the previous chunk may still be read
+  for (int i = tid; i < Ncub * E; i += nth) {
+    const int c = i / E, e = i - c * E;
+    float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (e < ne) {
+      const size_t q = (size_t)(e0 + e) * Ncub + c;
+      w = make_float4(o.WRX[q], o.WRY[q], o.WSX[q], o.WSY[q]);
+    }
+    ch.geo[i] = w;
+  }
+  for (int i = tid; i < NT * E; i += nth) {
+    const int j = i / E, e = i - j * E;
+    float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    int mp = 0, src = -1;
+    if (e < ne) {
+      const int q = (e0 + e) * NT + j;
+      w = make_float4(o.GNX[q], o.GNY[q], o.GW[q], o.WALL[q]);
+      mp = o.mapP[q];
+      if (o.invP_ptr[q + 1] - o.invP_ptr[q] == 1)
+        src = o.invP_idx[o.invP_ptr[q]];
+    }
+    ch.gpt[i] = w;
+    ch.mapP[i] = mp;
+    ch.src[i] = src;
+  }
+  if (o.affine) {
+    for (int e = tid; e < E; e += nth)
+      ch.minv[e] = e < ne ? o.INVJ[e0 + e] : 0.0f;
+  } else {
+    const int np2 = Np * Np;
+    for (int i = tid; i < np2 * E; i += nth) {
+      const int r = i / E, e = i - r * E;
+      ch.minv[i] = e < ne ? o.MINV[(size_t)(e0 + e) * np2 + r] : 0.0f;
+    }
+  }
+  __syncthreads();
+}
+
+// The work units of a launch: unit u is chunk u % n_chunks of scenario tile
+// u / n_chunks; lanes of a block: element (lane / Bs), scenario (lane % Bs).
+struct Units {
+  int E, Bs, B, K, n_chunks, n_units;
+  __device__ Units(int E_, int Bs_, int B_, int K_)
+      : E(E_), Bs(Bs_), B(B_), K(K_) {
+    n_chunks = (K + E - 1) / E;
+    n_units = n_chunks * ((B + Bs - 1) / Bs);
+  }
+};
+
+// Runs body(k, b, e) for every (element, scenario) of the unit that exists,
+// e the element's place in the chunk.
+// With G threads a lane (the adjoint's parts): body(k, b, e, l, part), l the
+// lane's place in the unit; a thread that runs several parts of a lane (a
+// block smaller than the unit's lanes x G) runs them in the order 0 .. G-1.
+template <class Body>
+__device__ __forceinline__ void for_lane_parts(const Units& U, int u, int G,
+                                               Body body) {
+  const int c = u % U.n_chunks, e0 = c * U.E, b0 = (u / U.n_chunks) * U.Bs;
+  for (int t = threadIdx.x; t < U.E * U.Bs * G; t += blockDim.x) {
+    const int l = t / G, part = t - l * G, e = l / U.Bs;
+    const int b = b0 + (l - e * U.Bs);
+    if (e0 + e < U.K && b < U.B) body(e0 + e, b, e, l, part);
+  }
+}
+
+template <class Body>
+__device__ __forceinline__ void for_lanes(const Units& U, int u, Body body) {
+  for_lane_parts(U, u, 1, [&](int k, int b, int e, int, int) { body(k, b, e); });
+}
+
+// Barrier of the two threads of a lane (adjacent in their warp).
+__device__ __forceinline__ void pair_sync() {
+  __syncwarp(3u << ((threadIdx.x & 31) & ~1u));
+}
+
+// Loads the chunk of unit u unless it is already there.
+__device__ __forceinline__ void use_chunk(const COps& o, const CBlock& ch,
+                                          const Units& U, int u, int& have) {
+  const int c = u % U.n_chunks;
+  if (c != have) {
+    const int e0 = c * U.E;
+    load_chunk(o, ch, e0, min(U.E, U.K - e0));
+    have = c;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -270,11 +449,13 @@ __device__ __forceinline__ void fluxes4(float g, const float* q, float* F,
   G[0] = q[2]; G[1] = q[1] * v; G[2] = q[2] * v + pr; G[3] = q[3] * v;
 }
 
-// Cotangent of q from the cotangents of F(q) and G(q).
+// Cotangent of q from the cotangents of F(q) and G(q). (The adjoint's
+// pointwise formulas divide with the fast reciprocal, 2 ulp: they decide no
+// tie, and their inputs are rounded further than that already.)
 __device__ __forceinline__ void fluxes4_vjp(float g, const float* q,
                                             const float* Fb, const float* Gb,
                                             float* qb) {
-  const float inv = 1.0f / q[0];
+  const float inv = __fdividef(1.0f, q[0]);
   const float u = q[1] * inv, v = q[2] * inv, c = q[3] * inv;
   const float w23 = Fb[2] + Gb[1], t4 = u * Fb[3] + v * Gb[3];
   qb[1] = Fb[0] + 2.0f * u * Fb[1] + v * w23 + c * Fb[3];
@@ -285,59 +466,23 @@ __device__ __forceinline__ void fluxes4_vjp(float g, const float* q,
 }
 
 __device__ __forceinline__ float speed4(float g, const float* q) {
-  return safe_norm(q[1] / q[0], q[2] / q[0]) + sqrtf(g * q[0]);
+  const float inv = 1.0f / q[0];
+  return safe_norm(q[1] * inv, q[2] * inv) + sqrtf(g * q[0]);
 }
 
-// Adds the cotangent of |(u, v)| + sqrt(g h) to qb[0..2].
+// Adds the cotangent of |(u, v)| + sqrt(g h) to qb[0..2] (fast reciprocal
+// and reciprocal square root, as in fluxes4_vjp; the speeds themselves,
+// which decide the ties, come from speed4).
 __device__ __forceinline__ void speed4_vjp(float g, const float* q,
                                            float sbar, float* qb) {
-  const float h = q[0], u = q[1] / h, v = q[2] / h;
-  const float nrm = safe_norm(u, v);
-  qb[0] += sbar * (0.5f * sqrtf(g / h) - nrm / h);
-  if (nrm > 0.0f) {
-    qb[1] += sbar * u / nrm / h;
-    qb[2] += sbar * v / nrm / h;
-  }
-}
-
-// '-' and '+' values of the four fields at Gauss point j of local element k
-// (global Gauss point i), the wall reflection applied. S: the chunk's nodal
-// state in shared memory; in: the scenario's whole state in global memory,
-// from which the neighbour's value is interpolated.
-template <class Z>
-__device__ __forceinline__ void gauss_values(const COps& o, const Sh4& S,
-                                             const P4& in, int k, int j, int i,
-                                             float* M, float* P, float& nx,
-                                             float& ny, bool& wall) {
-  const int Np = Z::Np(o), NT = 3 * Z::NG(o);
-  const float* gi = o.GI + j * Np;
-  #pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    float a = 0.0f;
-    for (int n = 0; n < Np; ++n) a += gi[n] * S.f(f)[k * Np + n];
-    M[f] = a;
-  }
-  const int p = o.mapP[i];
-  if (p == i) {  // boundary point
-    #pragma unroll
-    for (int f = 0; f < NF; ++f) P[f] = M[f];
-  } else {
-    const int k2 = p / NT, j2 = p - k2 * NT;
-    const float* gp = o.GI + j2 * Np;
-    #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      const float* src = in.f[f] + (size_t)k2 * Np;
-      float a = 0.0f;
-      for (int n = 0; n < Np; ++n) a += gp[n] * src[n];
-      P[f] = a;
-    }
-  }
-  nx = o.GNX[i]; ny = o.GNY[i];
-  wall = o.WALL[i] != 0.0f;
-  if (wall) {  // reflect the normal momentum
-    const float un2 = 2.0f * (M[1] * nx + M[2] * ny);
-    P[1] = M[1] - un2 * nx;
-    P[2] = M[2] - un2 * ny;
+  const float inv = __fdividef(1.0f, q[0]), u = q[1] * inv, v = q[2] * inv;
+  const float r2 = u * u + v * v, rn = r2 > 0.0f ? rsqrtf(r2) : 0.0f;
+  const float gh = g * inv;  // g / h: sqrt(g / h) = gh * rsqrt(gh)
+  qb[0] += sbar * (0.5f * gh * rsqrtf(gh) - r2 * rn * inv);
+  if (r2 > 0.0f) {
+    const float t = sbar * inv * rn;
+    qb[1] += t * u;
+    qb[2] += t * v;
   }
 }
 
@@ -378,134 +523,399 @@ __device__ __forceinline__ float source4_vjp(const COps& o, int f, int v,
 }
 
 // ---------------------------------------------------------------------------
+// Per (element, scenario): the building blocks of both kernels
+// ---------------------------------------------------------------------------
+// Loops over nodes, cubature points and Gauss points run at run time (a few
+// unrolled twice, for two independent chains); only the loops inside one
+// row, point or node (over the Np nodes and the four fields) are unrolled
+// fully, so that the nodal arrays they index stay in registers while the
+// code stays small: with one or two warps a scheduler, a kernel whose code
+// does not fit the instruction caches waits on its own instruction
+// fetches. A product whose rows run at run time writes its result to the
+// thread's slots in shared memory.
+
+// The four nodal fields of element k from one scenario's state.
+template <class Z>
+__device__ __forceinline__ void load_nodal(const COps& o, const P4& in, int k,
+                                           float (&S)[NF][Z::CAP]) {
+  const int Np = Z::Np(o), v0 = k * Np;
+  #pragma unroll
+  for (int n = 0; n < Np; ++n) {
+    #pragma unroll
+    for (int f = 0; f < NF; ++f) S[f][n] = in.f[f][v0 + n];
+  }
+}
+
+// The four nodal fields from this thread's slots r0 .. r0 + 4 Np.
+template <class Z>
+__device__ __forceinline__ void load_slots(const COps& o, const CBlock& ch,
+                                           int r0, float (&S)[NF][Z::CAP]) {
+  const int Np = Z::Np(o);
+  #pragma unroll
+  for (int n = 0; n < Np; ++n) {
+    #pragma unroll
+    for (int f = 0; f < NF; ++f) S[f][n] = ch.slot[(r0 + f * Np + n) * SLOT_STRIDE];
+  }
+}
+
+// Interpolates element k's nodal fields Y to its Gauss points and stores
+// them as its '-' traces, scenario b of the trace buffer TM (nT, B).
+template <class Z>
+__device__ __forceinline__ void store_traces(const COps& o, const CBlock& ch,
+                                             int k, int b, int B,
+                                             const float (&Y)[NF][Z::CAP],
+                                             float4* TM) {
+  const int Np = Z::Np(o), NT = 3 * Z::NG(o);
+  #pragma unroll 1
+  for (int j = 0; j < NT; ++j) {
+    const float* gi = ch.GI + j * Np;
+    float m[NF] = {0.0f, 0.0f, 0.0f, 0.0f};
+    #pragma unroll
+    for (int n = 0; n < Np; ++n) {
+      const float w = gi[n];
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) m[f] += w * Y[f][n];
+    }
+    TM[(size_t)(k * NT + j) * B + b] = make_float4(m[0], m[1], m[2], m[3]);
+  }
+}
+
+// ... of a stored state; copy: where to store the element's part of it as
+// well, or null pointers.
+template <class Z>
+__device__ void traces_of(const COps& o, const CBlock& ch, const P4& in,
+                          int k, int b, int B, float4* TM, const W4& copy) {
+  float S[NF][Z::CAP];
+  load_nodal<Z>(o, in, k, S);
+  if (copy.f[0] != nullptr) {
+    const int Np = Z::Np(o);
+    #pragma unroll
+    for (int n = 0; n < Np; ++n) {
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) copy.f[f][k * Np + n] = S[f][n];
+    }
+  }
+  store_traces<Z>(o, ch, k, b, B, S, TM);
+}
+
+// Cubature point c's column of the tiled operator table: V[c][n] at
+// [12 n], Dr^T[n][c] at [12 n + 4], Ds^T[n][c] at [12 n + 8].
+__device__ __forceinline__ const float* cub_col(const CBlock& ch, int Np,
+                                                int c) {
+  return reinterpret_cast<const float*>(ch.ct) + (c >> 2) * 12 * Np + (c & 3);
+}
+
+// Four values in this thread's slots 4 r .. 4 r + 3.
+__device__ __forceinline__ void put4(const CBlock& ch, int r, float4 v) {
+  float* p = ch.slot + 4 * r * SLOT_STRIDE;
+  p[0] = v.x; p[SLOT_STRIDE] = v.y; p[2 * SLOT_STRIDE] = v.z;
+  p[3 * SLOT_STRIDE] = v.w;
+}
+
+__device__ __forceinline__ void get4(const CBlock& ch, int r, float* q) {
+  const float* p = ch.slot + 4 * r * SLOT_STRIDE;
+  q[0] = p[0]; q[1] = p[SLOT_STRIDE]; q[2] = p[2 * SLOT_STRIDE];
+  q[3] = p[3 * SLOT_STRIDE];
+}
+
+// Reads the '-' and '+' values of face fc's NG Gauss points from the trace
+// buffer TM, the loads of four points in flight together, and leaves them in
+// this thread's slots as four-value groups 2 jj ('-') and 2 jj + 1 ('+', the
+// wall reflection applied).
+template <class Z>
+__device__ __forceinline__ void stage_face(const COps& o, const CBlock& ch,
+                                           int e, int k, int fc, int b, int B,
+                                           const float4* TM) {
+  const int NG = Z::NG(o), NT = 3 * NG, E = ch.E;
+  #pragma unroll 1
+  for (int j0 = 0; j0 < NG; j0 += 4) {
+    #pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int jj = j0 + q;
+      if (jj < NG) {
+        const int j = fc * NG + jj;
+        const float4 gp = ch.gpt[j * E + e];
+        const float4 m = TM[(size_t)(k * NT + j) * B + b];
+        float4 p = TM[(size_t)ch.mapP[j * E + e] * B + b];
+        if (gp.w != 0.0f) {  // reflect the normal momentum
+          const float un2 = 2.0f * (m.y * gp.x + m.z * gp.y);
+          p.y = m.y - un2 * gp.x;
+          p.z = m.z - un2 * gp.y;
+        }
+        put4(ch, 2 * jj, m);
+        put4(ch, 2 * jj + 1, p);
+      }
+    }
+  }
+}
+
+// The four fields of a nodal array X (registers) at a Gauss point:
+// a[f] = gi . X[f], gi the point's row of GI; each row value a broadcast
+// that feeds four FMAs.
+template <class Z>
+__device__ __forceinline__ void gauss_value(const COps& o, const float* gi,
+                                            const float (&X)[NF][Z::CAP],
+                                            float* a) {
+  const int Np = Z::Np(o);
+  #pragma unroll
+  for (int f = 0; f < NF; ++f) a[f] = 0.0f;
+  #pragma unroll
+  for (int n = 0; n < Np; ++n) {
+    const float w = gi[n];
+    #pragma unroll
+    for (int f = 0; f < NF; ++f) a[f] += w * X[f][n];
+  }
+}
+
+// acc[f][n] += gi[n] t[f] over the row gi of GI (shared memory): a lift of
+// the four values t.
+template <class Z>
+__device__ __forceinline__ void lift_row(const COps& o, const float* gi,
+                                         const float* t,
+                                         float (&acc)[NF][Z::CAP]) {
+  const int Np = Z::Np(o);
+  if (Z::PAIRS) {
+    #pragma unroll
+    for (int n = 0; n < Np; n += 2) {
+      const float2 w = *reinterpret_cast<const float2*>(gi + n);
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        acc[f][n] += w.x * t[f];
+        acc[f][n + 1] += w.y * t[f];
+      }
+    }
+  } else {
+    #pragma unroll
+    for (int n = 0; n < Np; ++n) {
+      const float w = gi[n];
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) acc[f][n] += w * t[f];
+    }
+  }
+}
+
+// Adds GI^T (the '+' cotangents that other Gauss points sent to element k's
+// Gauss points, T (nT, B)) to the nodal cotangent acc, in the fixed order of
+// the inverse map of mapP; a face's loads are issued together.
+template <class Z>
+__device__ __forceinline__ void lift_gathered(const COps& o, const CBlock& ch,
+                                              int e, int k, int b, int B,
+                                              const float4* T,
+                                              float (&acc)[NF][Z::CAP]) {
+  const int Np = Z::Np(o), NG = Z::NG(o), NT = 3 * NG;
+  #pragma unroll 1
+  for (int fc = 0; fc < 3; ++fc) {
+    #pragma unroll
+    for (int jj = 0; jj < NG; ++jj) {
+      const int q = ch.src[(fc * NG + jj) * ch.E + e];
+      put4(ch, jj, q >= 0 ? T[(size_t)q * B + b]
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+    }
+    // a point that not exactly one point reads (none on a conforming mesh):
+    // the inverse map's list
+    #pragma unroll 1
+    for (int jj = 0; jj < NG; ++jj) {
+      const int j = fc * NG + jj;
+      if (ch.src[j * ch.E + e] >= 0) continue;
+      const int i = k * NT + j;
+      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int r = o.invP_ptr[i]; r < o.invP_ptr[i + 1]; ++r) {
+        const float4 p = T[(size_t)o.invP_idx[r] * B + b];
+        s.x += p.x; s.y += p.y; s.z += p.z; s.w += p.w;
+      }
+      put4(ch, jj, s);
+    }
+    #pragma unroll 1
+    for (int jj = 0; jj < NG; ++jj) {
+      float t[NF];
+      get4(ch, jj, t);
+      lift_row<Z>(o, ch.GI + (fc * NG + jj) * Np, t, acc);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Forward
 // ---------------------------------------------------------------------------
 
-// One RK stage of one work unit (elements e0 .. e0+ne of one scenario):
-//   out = base + coef * R(in) on the unit's own nodes.
-// in: the scenario's whole stage input in global memory (neighbours are read
-// from it); base, out: the scenario's fields, touched at own nodes only (they
-// may be the same buffer); copy: where to store the unit's part of `in` as
-// well, or null pointers.
+// One RK stage of element k (local element e of the loaded chunk), scenario
+// b:   out = base + coef * R(in) at the element's nodes.
+// in, base, out: the scenario's fields (base and out may be one buffer);
+// TMin: the traces of `in` (all elements); TMout: where to store the traces
+// of `out`, or null.
 template <class Z>
-__device__ void cstage(const COps& o, const CScratch& s, int e0, int ne,
-                       const P4& in, const P4& base, const W4& out,
-                       const W4& copy, float coef, const float* ctrl,
-                       int use_filter) {
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int Np = Z::Np(o), Ncub = Z::Ncub(o), NG = Z::NG(o), NT = 3 * NG;
-  const int nl = ne * Np, cl = ne * Ncub, tl = ne * NT;
-  const int v0 = e0 * Np, c0 = e0 * Ncub, i0 = e0 * NT;
+__device__ void cstage(const COps& o, const CBlock& ch, int e, int k, int b,
+                       int B, const P4& in, const P4& base, const W4& out,
+                       float coef, const float* ctrl, int use_filter,
+                       const float4* TMin, float4* TMout) {
+  const int Np = Z::Np(o), Ncub = Z::Ncub(o), NG = Z::NG(o);
+  const int E = ch.E, v0 = k * Np, nth = SLOT_STRIDE;
   const float g = o.g;
+  float acc[NF][Z::CAP];
 
-  for (int l = tid; l < nl; l += nth) {
+  // volume: interpolate to each cubature point, weighted fluxes, and their
+  // weak divergence at once; the state and the accumulator in registers,
+  // each operator value a broadcast that feeds four FMAs (one a field)
+  {
+    float S[NF][Z::CAP];
+    load_nodal<Z>(o, in, k, S);
     #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      const float x = in.f[f][v0 + l];
-      s.S.f(f)[l] = x;
-      if (copy.f[0] != nullptr) copy.f[f][v0 + l] = x;
-    }
-  }
-  __syncthreads();
-
-  // volume: interpolate to the cubature points, weighted fluxes
-  for (int l = tid; l < cl; l += nth) {
-    const int k = l / Ncub, c = l - k * Ncub;
-    const float* vr = o.V + c * Np;
-    float q[NF] = {0.0f, 0.0f, 0.0f, 0.0f}, F[NF], G[NF];
     for (int n = 0; n < Np; ++n) {
-      const float w = vr[n];
       #pragma unroll
-      for (int f = 0; f < NF; ++f) q[f] += w * s.S.f(f)[k * Np + n];
+      for (int f = 0; f < NF; ++f) acc[f][n] = 0.0f;
     }
-    fluxes4(g, q, F, G);
-    const float wrx = o.WRX[c0 + l], wry = o.WRY[c0 + l];
-    const float wsx = o.WSX[c0 + l], wsy = o.WSY[c0 + l];
-    #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      s.TR.f(f)[l] = wrx * F[f] + wry * G[f];
-      s.TS.f(f)[l] = wsx * F[f] + wsy * G[f];
+    #pragma unroll 2
+    for (int c = 0; c < Ncub; ++c) {
+      const float* op = cub_col(ch, Np, c);
+      // two partial sums a field: half the dependent chain
+      float q[NF] = {0.0f, 0.0f, 0.0f, 0.0f}, q2[NF] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float F[NF], G[NF];
+      #pragma unroll
+      for (int n = 0; n + 1 < Np; n += 2) {
+        const float w = op[12 * n], w2 = op[12 * (n + 1)];
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          q[f] += w * S[f][n];
+          q2[f] += w2 * S[f][n + 1];
+        }
+      }
+      if (Np & 1) {
+        const float w = op[12 * (Np - 1)];
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) q[f] += w * S[f][Np - 1];
+      }
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) q[f] += q2[f];
+      fluxes4(g, q, F, G);
+      const float4 w = ch.geo[c * E + e];
+      float tr[NF], ts[NF];
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        tr[f] = w.x * F[f] + w.y * G[f];
+        ts[f] = w.z * F[f] + w.w * G[f];
+      }
+      #pragma unroll
+      for (int n = 0; n < Np; ++n) {
+        const float dr = op[12 * n + 4], ds = op[12 * n + 8];
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) acc[f][n] += dr * tr[f] + ds * ts[f];
+      }
     }
   }
-  // surface: Gauss values, central flux, jumps, speeds
-  for (int l = tid; l < tl; l += nth) {
-    const int k = l / NT, j = l - k * NT;
-    float M[NF], P[NF], FM[NF], GM[NF], FP[NF], GP[NF], nx, ny;
-    bool wall;
-    gauss_values<Z>(o, s.S, in, k, j, i0 + l, M, P, nx, ny, wall);
-    fluxes4(g, M, FM, GM);
-    fluxes4(g, P, FP, GP);
-    #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      s.pre.f(f)[l] = 0.5f * ((FM[f] + FP[f]) * nx + (GM[f] + GP[f]) * ny);
-      s.dq.f(f)[l] = M[f] - P[f];
+
+  // surface, face by face: the face's maximum speed, then central +
+  // Lax-Friedrichs flux at each point, lifted
+  #pragma unroll 1
+  for (int fc = 0; fc < 3; ++fc) {
+    stage_face<Z>(o, ch, e, k, fc, b, B, TMin);
+    float lam = 0.0f;
+    #pragma unroll 2
+    for (int jj = 0; jj < NG; ++jj) {
+      float M[NF], P[NF];
+      get4(ch, 2 * jj, M);
+      get4(ch, 2 * jj + 1, P);
+      const float sp = fmaxf(speed4(g, M), speed4(g, P));
+      lam = jj == 0 ? sp : fmaxf(lam, sp);
     }
-    s.spd[l] = fmaxf(speed4(g, M), speed4(g, P));
+    const float hl = 0.5f * lam;
+    #pragma unroll 2
+    for (int jj = 0; jj < NG; ++jj) {
+      const int j = fc * NG + jj;
+      float M[NF], P[NF], FM[NF], GM[NF], FP[NF], GP[NF], fl[NF];
+      get4(ch, 2 * jj, M);
+      get4(ch, 2 * jj + 1, P);
+      const float4 gp = ch.gpt[j * E + e];
+      fluxes4(g, M, FM, GM);
+      fluxes4(g, P, FP, GP);
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const float pre = 0.5f * ((FM[f] + FP[f]) * gp.x
+                                  + (GM[f] + GP[f]) * gp.y);
+        fl[f] = gp.z * (pre + hl * (M[f] - P[f]));
+      }
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) fl[f] = -fl[f];
+      lift_row<Z>(o, ch.GI + j * Np, fl, acc);
+    }
   }
-  __syncthreads();
 
-  // per-face maximum speed (a face lies inside one element), weighted flux
-  for (int l = tid; l < tl; l += nth) {
-    const int f0 = (l / NG) * NG;
-    float lam = s.spd[f0];
-    for (int j = 1; j < NG; ++j) lam = fmaxf(lam, s.spd[f0 + j]);
-    const float gw = o.GW[i0 + l], hl = 0.5f * lam;
-    #pragma unroll
-    for (int f = 0; f < NF; ++f)
-      s.pre.f(f)[l] = gw * (s.pre.f(f)[l] + hl * s.dq.f(f)[l]);
-  }
-  __syncthreads();
-
-  // weak divergence minus the lifted fluxes, per (field, node)
-  for (int l = tid; l < NF * nl; l += nth) {
-    const int f = l / nl, r = l - f * nl, k = r / Np, n = r - k * Np;
-    const float *dr = o.DrT + n * Ncub, *ds = o.DsT + n * Ncub;
-    const float *tr = s.TR.f(f) + k * Ncub, *ts = s.TS.f(f) + k * Ncub;
-    float a = 0.0f;
-    for (int c = 0; c < Ncub; ++c) a += dr[c] * tr[c] + ds[c] * ts[c];
-    const float* fl = s.pre.f(f) + k * NT;
-    for (int j = 0; j < NT; ++j) a -= o.GI[j * Np + n] * fl[j];
-    s.A.f(f)[r] = a;
-  }
-  __syncthreads();
-
-  // per-element mass inverse, nodal sources
-  for (int l = tid; l < NF * nl; l += nth) {
-    const int f = l / nl, r = l - f * nl, k = r / Np, n = r - k * Np;
-    const float* mm = s.A.f(f) + k * Np;
-    float a = 0.0f;
+  // per-element mass inverse, nodal sources (into slots 0 .. 4 Np)
+  const bool src = o.cd != 0.0f || o.fcor != 0.0f || o.has_bed;
+  #pragma unroll 1
+  for (int n = 0; n < Np; ++n) {
+    float a[NF] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (o.affine) {
-      for (int m = 0; m < Np; ++m) a += o.VVT[n * Np + m] * mm[m];
-      a *= o.INVJ[e0 + k];
+      #pragma unroll
+      for (int m = 0; m < Np; ++m) {
+        const float w = ch.VVT[n * Np + m];
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) a[f] += w * acc[f][m];
+      }
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) a[f] *= ch.minv[e];
     } else {
-      const float* mi = o.MINV + ((size_t)(e0 + k) * Np + n) * Np;
-      for (int m = 0; m < Np; ++m) a += mi[m] * mm[m];
+      #pragma unroll
+      for (int m = 0; m < Np; ++m) {
+        const float w = ch.minv[(n * Np + m) * E + e];
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) a[f] += w * acc[f][m];
+      }
     }
-    if (f == 1 || f == 2)
-      a += source4(o, f, v0 + r, s.S.f(0)[r], s.S.f(1)[r], s.S.f(2)[r]);
-    s.Bn.f(f)[r] = a;
+    if (src) {
+      const int v = v0 + n;
+      const float h = in.f[0][v], hu = in.f[1][v], hv = in.f[2][v];
+      a[1] += source4(o, 1, v, h, hu, hv);
+      a[2] += source4(o, 2, v, h, hu, hv);
+    }
+    #pragma unroll
+    for (int f = 0; f < NF; ++f) ch.slot[(f * Np + n) * nth] = a[f];
   }
-  __syncthreads();
 
-  // modal filter, control forcing, stage update
-  for (int l = tid; l < NF * nl; l += nth) {
-    const int f = l / nl, r = l - f * nl, k = r / Np, n = r - k * Np;
-    const int v = v0 + r;
-    float a;
-    if (use_filter) {
-      const float* rr = s.Bn.f(f) + k * Np;
-      a = 0.0f;
-      for (int m = 0; m < Np; ++m) a += o.filt[n * Np + m] * rr[m];
-    } else {
-      a = s.Bn.f(f)[r];
+  // modal filter (into slots 4 Np .. 8 Np)
+  float R[NF][Z::CAP];
+  if (use_filter) {
+    load_slots<Z>(o, ch, 0, R);
+    #pragma unroll 1
+    for (int n = 0; n < Np; ++n) {
+      float a[NF] = {0.0f, 0.0f, 0.0f, 0.0f};
+      #pragma unroll
+      for (int m = 0; m < Np; ++m) {
+        const float w = ch.filt[n * Np + m];
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) a[f] += w * R[f][m];
+      }
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) ch.slot[((NF + f) * Np + n) * nth] = a[f];
     }
-    if (ctrl != nullptr && (f == 1 || f == 2)) {
-      const float* inj = f == 1 ? o.BU : o.BV;
-      for (int c = 0; c < o.n_ctrl; ++c) a += ctrl[c] * inj[(size_t)c * o.nV + v];
-    }
-    pick(out, f)[v] = pick(base, f)[v] + coef * a;
   }
-  __syncthreads();  // the scratch is reused by the block's next unit
+  // control forcing and stage update; the global loads issued together
+  float fu[Z::CAP], fv[Z::CAP];
+  #pragma unroll
+  for (int n = 0; n < Np; ++n) fu[n] = fv[n] = 0.0f;
+  if (ctrl != nullptr) {
+    for (int c = 0; c < o.n_ctrl; ++c) {
+      const float cc = ctrl[c];
+      #pragma unroll
+      for (int n = 0; n < Np; ++n) {
+        fu[n] += cc * o.BU[(size_t)c * o.nV + v0 + n];
+        fv[n] += cc * o.BV[(size_t)c * o.nV + v0 + n];
+      }
+    }
+  }
+  load_nodal<Z>(o, base, k, R);
+  const int r0 = use_filter ? NF * Np : 0;
+  #pragma unroll
+  for (int n = 0; n < Np; ++n) {
+    #pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      float a = ch.slot[(r0 + f * Np + n) * nth];
+      if (f == 1) a += fu[n];
+      if (f == 2) a += fv[n];
+      R[f][n] += coef * a;
+      out.f[f][v0 + n] = R[f][n];
+    }
+  }
+  if (TMout != nullptr) store_traces<Z>(o, ch, k, b, B, R, TMout);
 }
 
 struct CFwdArgs {
@@ -514,48 +924,58 @@ struct CFwdArgs {
   float* o[NF];         // (B, nV) final fields, the resident state buffer
   float* s1[NF];        // (B, nV) stage scratch
   float* t[NF];         // (B, n_steps+1, nV) trajectories or null
-  int B, n_steps, n_cs, spc, E, use_filter;
+  float4 *TMa, *TMb;    // (nT, B) traces: of the step-start state, of s1
+  int B, n_steps, n_cs, spc, E, Bs, use_filter;
   float dt;
 };
 
 // n_steps SSP-RK2 steps: u1 = u + dt/2 R(u); u <- u + dt R(u1), with a grid
-// barrier after each stage.
+// barrier after the initial traces and after each stage but the last.
 template <class Z>
 __device__ void cforward_body(const COps& og, const CFwdArgs& a) {
   cg::grid_group grid = cg::this_grid();
-  COps o = og;
-  const CScratch s = setup_cblock(o, a.E);
-  const int n_chunks = (o.K + a.E - 1) / a.E, n_units = a.B * n_chunks;
+  const COps& o = og;
+  const CBlock ch = setup_cblock(o, a.E);
+  const Units U(a.E, a.Bs, a.B, o.K);
   const size_t nV = (size_t)o.nV, trow = (size_t)(a.n_steps + 1) * nV;
   const bool traj = a.t[0] != nullptr;
+  const int B = a.B;
   W4 none;
   #pragma unroll
   for (int f = 0; f < NF; ++f) none.f[f] = nullptr;
 
+  // the initial state's traces (and, stored, row 0 of the trajectory)
+  for (int u = blockIdx.x; u < U.n_units; u += gridDim.x)
+    for_lanes(U, u, [&](int k, int b, int) {
+      traces_of<Z>(o, ch, at4(a.s0, b * nV), k, b, B, a.TMa,
+                   traj ? atw4(a.t, b * trow) : none);
+    });
+  grid.sync();
+
+  int have = -1;
   for (int t = 0; t < a.n_steps; ++t) {
     for (int phase = 0; phase < 2; ++phase) {
-      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-        const int b = u / n_chunks, c = u - b * n_chunks;
-        const int e0 = c * a.E, ne = min(a.E, o.K - e0);
-        P4 cur;  // the step-start state
-        if (t == 0) cur = at4(a.s0, b * nV);
-        else if (traj) cur = at4(a.t, b * trow + t * nV);
-        else cur = at4(a.o, b * nV);
-        const W4 s1 = atw4(a.s1, b * nV);
-        const float* ctrl = a.ctrls == nullptr ? nullptr
-            : a.ctrls + ((size_t)b * a.n_cs + t / a.spc) * o.n_ctrl;
-        if (phase == 0) {
-          const W4 row0 = (traj && t == 0) ? atw4(a.t, b * trow) : none;
-          cstage<Z>(o, s, e0, ne, cur, cur, s1, row0, 0.5f * a.dt, ctrl,
-                 a.use_filter);
-        } else {
-          const W4 nxt = traj ? atw4(a.t, b * trow + (t + 1) * nV)
-                              : atw4(a.o, b * nV);
-          cstage<Z>(o, s, e0, ne, readonly(s1), cur, nxt, none, a.dt, ctrl,
-                 a.use_filter);
-        }
+      const bool last = t == a.n_steps - 1 && phase == 1;
+      for (int u = blockIdx.x; u < U.n_units; u += gridDim.x) {
+        use_chunk(o, ch, U, u, have);
+        for_lanes(U, u, [&](int k, int b, int e) {
+          P4 cur;  // the step-start state
+          if (t == 0) cur = at4(a.s0, b * nV);
+          else if (traj) cur = at4(a.t, b * trow + t * nV);
+          else cur = at4(a.o, b * nV);
+          const W4 s1 = atw4(a.s1, b * nV);
+          const float* ctrl = a.ctrls == nullptr ? nullptr
+              : a.ctrls + ((size_t)b * a.n_cs + t / a.spc) * o.n_ctrl;
+          // stage 1: s1 = u + dt/2 R(u); stage 2: u' = u + dt R(s1)
+          const W4 out = phase == 0 ? s1
+              : traj ? atw4(a.t, b * trow + (t + 1) * nV) : atw4(a.o, b * nV);
+          cstage<Z>(o, ch, e, k, b, B, phase == 0 ? cur : readonly(s1), cur,
+                    out, (phase == 0 ? 0.5f : 1.0f) * a.dt, ctrl,
+                    a.use_filter, phase == 0 ? a.TMa : a.TMb,
+                    phase == 0 ? a.TMb : (last ? nullptr : a.TMa));
+        });
       }
-      grid.sync();
+      if (!last) grid.sync();
     }
   }
 }
@@ -576,210 +996,303 @@ sw2d_curved_rollout_kernel(COps o, CFwdArgs a) {
 // Adjoint
 // ---------------------------------------------------------------------------
 
-// Transposed '+' gather for one work unit: the cotangent of every Gauss
-// point's interpolated value, into s.pre. It is what the point wrote for its
-// own '-' value (slots 0..3) plus what every point that reads it as its '+'
-// value wrote (slots 4..7). T: one scenario's (nT, 8) scratch, 32-byte rows.
+// First half of the vector-Jacobian product of the filtered, control-forced
+// RHS at state S for element k (local element e), scenario b, against the
+// cotangent scale * acc (acc: the element's nodal cotangent, in registers;
+// overwritten). It
+//   adds  d/d ctrl_c  to cp[c],
+//   writes the volume, source and own-trace part of J_R(S)^T (scale acc) to
+//   Avol at the element's nodes,
+//   writes the cotangent of each of its Gauss points' '+' value to
+//   T[i, b] (nT, B).
+// The product is complete once every element has added GI^T of what the
+// Gauss points that read its traces wrote to T (lift_gathered), after a grid
+// barrier. TM: the traces of S.
 template <class Z>
-__device__ __forceinline__ void gather_gauss(const COps& o, const CScratch& s,
-                                             const float* T, int e0, int ne) {
-  const int NT = 3 * Z::NG(o), tl = ne * NT, i0 = e0 * NT;
-  const float4* T4 = reinterpret_cast<const float4*>(T);
-  for (int l = threadIdx.x; l < tl; l += blockDim.x) {
-    const int i = i0 + l;
-    float4 t = T4[(size_t)i * 2];
-    for (int q = o.invP_ptr[i]; q < o.invP_ptr[i + 1]; ++q) {
-      const float4 p = T4[(size_t)o.invP_idx[q] * 2 + 1];
-      t.x += p.x; t.y += p.y; t.z += p.z; t.w += p.w;
-    }
-    s.pre.f(0)[l] = t.x; s.pre.f(1)[l] = t.y;
-    s.pre.f(2)[l] = t.z; s.pre.f(3)[l] = t.w;
-  }
-  __syncthreads();
-}
-
-// Transposed Gauss interpolation at node n of local element k, field f, of
-// the cotangents that gather_gauss left in s.pre.
-template <class Z>
-__device__ __forceinline__ float lift_gathered(const COps& o,
-                                               const CScratch& s, int k, int n,
-                                               int f) {
-  const int Np = Z::Np(o), NT = 3 * Z::NG(o);
-  const float* t = s.pre.f(f) + k * NT;
-  float a = 0.0f;
-  for (int j = 0; j < NT; ++j) a += o.GI[j * Np + n] * t[j];
-  return a;
-}
-
-// First phase of the vector-Jacobian product of the filtered, control-forced
-// RHS at state S for one work unit, against the cotangent scale * W. It
-//   adds  d/d ctrl_c  to cpart[c],
-//   writes the volume and source part of J_R(S)^T (scale W) to Avol at the
-//   unit's nodes,
-//   writes the cotangents of the unit's Gauss values to T (nT, 8).
-// The product is complete once every volume node has gathered its element's
-// entries of T (gather_gauss), after a grid barrier.
-// S: the scenario's whole state (global); W, Avol: the scenario's fields,
-// touched at own nodes only.
-template <class Z>
-__device__ void cvjp_phase(const COps& o, const CScratch& s, int e0, int ne,
-                           const P4& S, const P4& W, float scale,
-                           int use_filter, const W4& Avol, float* T,
-                           float* cpart) {
-  const int tid = threadIdx.x, nth = blockDim.x;
+__device__ void cvjp(const COps& o, const CBlock& ch, int e, int k, int b,
+                     int B, int l, int part, int G, const P4& S,
+                     float (&acc)[NF][Z::CAP], float scale, int use_filter,
+                     const float4* TM, float4* T, const W4& Avol, float* cp) {
   const int Np = Z::Np(o), Ncub = Z::Ncub(o), NG = Z::NG(o), NT = 3 * NG;
-  const int nl = ne * Np, cl = ne * Ncub, tl = ne * NT;
-  const int v0 = e0 * Np, c0 = e0 * Ncub, i0 = e0 * NT;
+  const int E = ch.E, v0 = k * Np, i0 = k * NT, nth = SLOT_STRIDE;
   const float g = o.g;
+  // the mass inverse transposed cotangent, in this thread's slots
+  const float* mb = ch.slot + mb_slot(Np, NG) * nth;
 
-  for (int l = tid; l < nl; l += nth) {
+  #pragma unroll
+  for (int n = 0; n < Np; ++n) {
     #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      s.S.f(f)[l] = S.f[f][v0 + l];
-      s.A.f(f)[l] = W.f[f][v0 + l] * scale;
-    }
+    for (int f = 0; f < NF; ++f) acc[f][n] *= scale;
   }
-  __syncthreads();
   // the control enters after the filter: its cotangent is the product of
   // the incoming momentum cotangents with the (folded) injectors
-  for (int cc = 0; cc < o.n_ctrl; ++cc) {
-    float part = 0.0f;
-    for (int l = tid; l < nl; l += nth)
-      part += o.BU[(size_t)cc * o.nV + v0 + l] * s.A.f(1)[l]
-              + o.BV[(size_t)cc * o.nV + v0 + l] * s.A.f(2)[l];
-    const float tot = block_sum(part, s.red);
-    if (tid == 0) cpart[cc] += tot;
+  for (int c = 0; c < o.n_ctrl; ++c) {
+    float part_c = 0.0f;
+    #pragma unroll
+    for (int n = 0; n < Np; ++n)
+      part_c += o.BU[(size_t)c * o.nV + v0 + n] * acc[1][n]
+                + o.BV[(size_t)c * o.nV + v0 + n] * acc[2][n];
+    if (part == 0) cp[c] += part_c;
   }
-  // filter transpose
-  for (int l = tid; l < NF * nl; l += nth) {
-    const int f = l / nl, r = l - f * nl, k = r / Np, m = r - k * Np;
-    float a;
+  // filter transpose (into slots 0 .. 4 Np), mass inverse transpose (into
+  // slots 4 Np .. 8 Np)
+  #pragma unroll 1
+  for (int m = 0; m < Np; ++m) {
+    float a[NF];
     if (use_filter) {
-      const float* w = s.A.f(f) + k * Np;
-      a = 0.0f;
-      for (int n = 0; n < Np; ++n) a += o.filt[n * Np + m] * w[n];
-    } else {
-      a = s.A.f(f)[r];
-    }
-    s.Bn.f(f)[r] = a;
-  }
-  __syncthreads();
-  // mass inverse transpose
-  for (int l = tid; l < NF * nl; l += nth) {
-    const int f = l / nl, r = l - f * nl, k = r / Np, m = r - k * Np;
-    const float* w = s.Bn.f(f) + k * Np;
-    float a = 0.0f;
-    if (o.affine) {
-      for (int n = 0; n < Np; ++n) a += o.VVT[n * Np + m] * w[n];
-      a *= o.INVJ[e0 + k];
-    } else {
-      const float* mi = o.MINV + (size_t)(e0 + k) * Np * Np + m;
-      for (int n = 0; n < Np; ++n) a += mi[n * Np] * w[n];
-    }
-    s.A.f(f)[r] = a;
-  }
-  __syncthreads();
-
-  // volume: cotangents of the cubature values
-  for (int l = tid; l < cl; l += nth) {
-    const int k = l / Ncub, c = l - k * Ncub;
-    const float* vr = o.V + c * Np;
-    float q[NF] = {0.0f, 0.0f, 0.0f, 0.0f}, Fb[NF], Gb[NF], qb[NF];
-    for (int n = 0; n < Np; ++n) {
-      const float w = vr[n];
       #pragma unroll
-      for (int f = 0; f < NF; ++f) q[f] += w * s.S.f(f)[k * Np + n];
-    }
-    const float wrx = o.WRX[c0 + l], wry = o.WRY[c0 + l];
-    const float wsx = o.WSX[c0 + l], wsy = o.WSY[c0 + l];
-    #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      const float* mb = s.A.f(f) + k * Np;
-      float trb = 0.0f, tsb = 0.0f;
+      for (int f = 0; f < NF; ++f) a[f] = 0.0f;
+      #pragma unroll
       for (int n = 0; n < Np; ++n) {
-        trb += o.DrT[n * Ncub + c] * mb[n];
-        tsb += o.DsT[n * Ncub + c] * mb[n];
+        const float w = ch.filt[n * Np + m];
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) a[f] += w * acc[f][n];
       }
-      Fb[f] = wrx * trb + wsx * tsb;
-      Gb[f] = wry * trb + wsy * tsb;
+    } else {
+      // (acc at a run-time node: through the slots)
+      #pragma unroll
+      for (int n = 0; n < Np; ++n) {
+        if (n == m) {
+          #pragma unroll
+          for (int f = 0; f < NF; ++f) a[f] = acc[f][n];
+        }
+      }
     }
-    fluxes4_vjp(g, q, Fb, Gb, qb);
     #pragma unroll
-    for (int f = 0; f < NF; ++f) s.TR.f(f)[l] = qb[f];
+    for (int f = 0; f < NF; ++f) ch.slot[(f * Np + m) * nth] = a[f];
   }
-  // surface, first pass: Gauss values, flux cotangents, speeds and the
-  // speed's cotangent
-  for (int l = tid; l < tl; l += nth) {
-    const int k = l / NT, j = l - k * NT, i = i0 + l;
-    float M[NF], P[NF], nx, ny;
-    bool wall;
-    gauss_values<Z>(o, s.S, S, k, j, i, M, P, nx, ny, wall);
-    const float hw = 0.5f * o.GW[i];
-    float lb = 0.0f;
-    #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      const float* mb = s.A.f(f) + k * Np;
-      float a = 0.0f;
-      for (int n = 0; n < Np; ++n) a += o.GI[j * Np + n] * mb[n];
-      const float e = -hw * a;
-      s.pre.f(f)[l] = e;
-      s.dq.f(f)[l] = M[f];
-      s.Pv.f(f)[l] = P[f];
-      lb += e * (M[f] - P[f]);
+  float bn[NF][Z::CAP];
+  load_slots<Z>(o, ch, 0, bn);
+  #pragma unroll 1
+  for (int m = 0; m < Np; ++m) {
+    float a[NF] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (o.affine) {
+      #pragma unroll
+      for (int n = 0; n < Np; ++n) {
+        const float w = ch.VVT[n * Np + m];
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) a[f] += w * bn[f][n];
+      }
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) a[f] *= ch.minv[e];
+    } else {
+      #pragma unroll
+      for (int n = 0; n < Np; ++n) {
+        const float w = ch.minv[(n * Np + m) * E + e];
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) a[f] += w * bn[f][n];
+      }
     }
-    const float sM = speed4(g, M), sP = speed4(g, P);
-    s.spd[l] = fmaxf(sM, sP);
-    s.wM[l] = sM > sP ? 1.0f : (sM == sP ? 0.5f : 0.0f);
-    s.lamb[l] = lb;
+    #pragma unroll
+    for (int f = 0; f < NF; ++f) ch.slot[(mb_slot(Np, NG) + f * Np + m) * nth]
+        = a[f];
   }
-  __syncthreads();
-  // surface, second pass: the whole chain rule of the face flux
-  for (int l = tid; l < tl; l += nth) {
-    const int i = i0 + l;
-    float lam;
-    // (this point's speed as the first pass stored it, not a recomputed one)
-    const float sb = face_speed_share(s.spd, s.lamb, (l / NG) * NG, NG,
-                                      s.spd[l], lam);
-    const float nx = o.GNX[i], ny = o.GNY[i];
-    float M[NF], P[NF], Fe[NF], Ge[NF], Mb[NF], Pb[NF];
-    #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      M[f] = s.dq.f(f)[l]; P[f] = s.Pv.f(f)[l];
-      const float e = s.pre.f(f)[l];
-      Fe[f] = e * nx; Ge[f] = e * ny;
+  // the output accumulator starts with the sources' part (slots 0 .. 3 Np;
+  // part 0's sum only)
+  if (part == 0 && (o.cd != 0.0f || o.fcor != 0.0f || o.has_bed)) {
+    #pragma unroll 1
+    for (int n = 0; n < Np; ++n) {
+      const int v = v0 + n;
+      const float h = S.f[0][v], hu = S.f[1][v], hv = S.f[2][v];
+      const float w2 = ch.slot[(Np + n) * nth], w3 = ch.slot[(2 * Np + n) * nth];
+      #pragma unroll
+      for (int f = 0; f < 3; ++f)
+        ch.slot[(f * Np + n) * nth] = source4_vjp(o, f, v, h, hu, hv, w2, w3);
     }
-    fluxes4_vjp(g, M, Fe, Ge, Mb);
-    fluxes4_vjp(g, P, Fe, Ge, Pb);
     #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      const float le = lam * s.pre.f(f)[l];
-      Mb[f] += le; Pb[f] -= le;
+    for (int n = 0; n < Np; ++n) {
+      #pragma unroll
+      for (int f = 0; f < 3; ++f) acc[f][n] = ch.slot[(f * Np + n) * nth];
+      acc[3][n] = 0.0f;
     }
-    const float sMb = sb * s.wM[l];
-    speed4_vjp(g, M, sMb, Mb);
-    speed4_vjp(g, P, sb - sMb, Pb);
-    if (o.WALL[i] != 0.0f) {  // reflection: '+' momentum is a map of '-'
-      const float unb = -2.0f * (nx * Pb[1] + ny * Pb[2]);
-      Mb[1] += Pb[1] + nx * unb;
-      Mb[2] += Pb[2] + ny * unb;
-      Pb[1] = 0.0f; Pb[2] = 0.0f;
-    }
-    float* out = T + (size_t)i * 8;
+  } else {
     #pragma unroll
-    for (int f = 0; f < NF; ++f) { out[f] = Mb[f]; out[4 + f] = Pb[f]; }
+    for (int n = 0; n < Np; ++n) {
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) acc[f][n] = 0.0f;
+    }
   }
-  // volume part at the nodes: cubature interpolation transpose, sources
-  for (int l = tid; l < NF * nl; l += nth) {
-    const int f = l / nl, r = l - f * nl, k = r / Np, n = r - k * Np;
-    const float* cb = s.TR.f(f) + k * Ncub;
-    float a = 0.0f;
-    for (int c = 0; c < Ncub; ++c) a += o.V[c * Np + n] * cb[c];
-    if (f < 3)
-      a += source4_vjp(o, f, v0 + r, s.S.f(0)[r], s.S.f(1)[r], s.S.f(2)[r],
-                       s.Bn.f(1)[r], s.Bn.f(2)[r]);
-    pick(Avol, f)[v0 + r] = a;
+
+  // surface, face by face: speeds and the speed's cotangent, then the whole
+  // chain rule of the face flux. The face's values sit in slots 0 .. 8 NG
+  // (stage_face), the speeds in slots 8 NG .. 9 NG; the mass-inverse
+  // transposed cotangent in registers.
+  float* sp = ch.slot + 8 * NG * nth;
+  float mbr[NF][Z::CAP];
+  load_slots<Z>(o, ch, mb_slot(Np, NG), mbr);
+  #pragma unroll 1
+  for (int fc = 0; fc < 3; ++fc) {
+    stage_face<Z>(o, ch, e, k, fc, b, B, TM);
+    float lam = 0.0f, lsum = 0.0f;
+    #pragma unroll 2
+    for (int jj = 0; jj < NG; ++jj) {
+      const int j = fc * NG + jj;
+      float M[NF], P[NF];
+      get4(ch, 2 * jj, M);
+      get4(ch, 2 * jj + 1, P);
+      const float sM = speed4(g, M), sP = speed4(g, P);
+      const float s = fmaxf(sM, sP);
+      sp[jj * nth] = s;
+      const float* gi = ch.GI + j * Np;
+      const float hw = 0.5f * ch.gpt[j * E + e].z;
+      float lb = 0.0f;
+      float a[NF];
+      gauss_value<Z>(o, gi, mbr, a);
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) lb += -hw * a[f] * (M[f] - P[f]);
+      lam = jj == 0 ? s : fmaxf(lam, s);
+      lsum = jj == 0 ? lb : lsum + lb;
+    }
+    // the face maximum's cotangent, split evenly over the points that
+    // attain it (compared with the stored speeds)
+    int cnt = 0;
+    #pragma unroll 1
+    for (int jj = 0; jj < NG; ++jj) cnt += sp[jj * nth] == lam ? 1 : 0;
+    const float share = lsum / (float)cnt;
+    #pragma unroll 2
+    for (int jj = part; jj < NG; jj += G) {
+      const int j = fc * NG + jj;
+      float M[NF], P[NF], e4[NF], Fe[NF], Ge[NF], Mb[NF], Pb[NF];
+      get4(ch, 2 * jj, M);
+      get4(ch, 2 * jj + 1, P);
+      const float4 gp = ch.gpt[j * E + e];
+      const float* gi = ch.GI + j * Np;
+      const float hw = 0.5f * gp.z;
+      gauss_value<Z>(o, gi, mbr, e4);
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        e4[f] *= -hw;
+        Fe[f] = e4[f] * gp.x; Ge[f] = e4[f] * gp.y;
+      }
+      fluxes4_vjp(g, M, Fe, Ge, Mb);
+      fluxes4_vjp(g, P, Fe, Ge, Pb);
+      #pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const float le = lam * e4[f];
+        Mb[f] += le; Pb[f] -= le;
+      }
+      // (the tie weight of max(sM, sP): the same formulas on the same values
+      // as in the first pass)
+      const float sM = speed4(g, M), sP = speed4(g, P);
+      const float sb = sp[jj * nth] == lam ? share : 0.0f;
+      const float sMb = sb * (sM > sP ? 1.0f : (sM == sP ? 0.5f : 0.0f));
+      speed4_vjp(g, M, sMb, Mb);
+      speed4_vjp(g, P, sb - sMb, Pb);
+      if (gp.w != 0.0f) {  // reflection: '+' momentum is a map of '-'
+        const float unb = -2.0f * (gp.x * Pb[1] + gp.y * Pb[2]);
+        Mb[1] += Pb[1] + gp.x * unb;
+        Mb[2] += Pb[2] + gp.y * unb;
+        Pb[1] = 0.0f; Pb[2] = 0.0f;
+      }
+      lift_row<Z>(o, gi, Mb, acc);
+      T[(size_t)(i0 + j) * B + b] = make_float4(Pb[0], Pb[1], Pb[2], Pb[3]);
+    }
   }
-  __syncthreads();  // the scratch is reused by the block's next unit
+
+  // volume: cotangents of the cubature values, interpolation transposed, a
+  // tile of four cubature points at a time (the parts take alternate
+  // tiles). The state in slots 0 .. 4 Np, the mass-inverse transposed
+  // cotangent in its slots: a node's eight values, loaded once, and its
+  // three float4s of operators feed the tile's 48 FMAs.
+  {
+    {
+      float Sn[NF][Z::CAP];
+      load_nodal<Z>(o, S, k, Sn);
+      #pragma unroll
+      for (int n = 0; n < Np; ++n) {
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) ch.slot[(f * Np + n) * nth] = Sn[f][n];
+      }
+    }
+    const int ntile = cub_tiles(Ncub);
+    #pragma unroll 1
+    for (int t = part; t < ntile; t += G) {
+      const float4* op = ch.ct + t * 3 * Np;
+      float q[4][NF], trb[4][NF], tsb[4][NF];
+      #pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) q[i][f] = trb[i][f] = tsb[i][f] = 0.0f;
+      }
+      #pragma unroll 2
+      for (int n = 0; n < Np; ++n) {
+        const float4 v4 = op[3 * n], r4 = op[3 * n + 1], s4 = op[3 * n + 2];
+        const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+        const float dr[4] = {r4.x, r4.y, r4.z, r4.w};
+        const float ds[4] = {s4.x, s4.y, s4.z, s4.w};
+        float y[NF], x[NF];
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          y[f] = ch.slot[(f * Np + n) * nth];
+          x[f] = mb[(f * Np + n) * nth];
+        }
+        #pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          #pragma unroll
+          for (int f = 0; f < NF; ++f) {
+            q[i][f] += v[i] * y[f];
+            trb[i][f] += dr[i] * x[f];
+            tsb[i][f] += ds[i] * x[f];
+          }
+        }
+      }
+      float qb[4][NF];
+      #pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 4 * t + i;
+        if (c < Ncub) {
+          const float4 w = ch.geo[c * E + e];
+          float Fb[NF], Gb[NF];
+          #pragma unroll
+          for (int f = 0; f < NF; ++f) {
+            Fb[f] = w.x * trb[i][f] + w.z * tsb[i][f];
+            Gb[f] = w.y * trb[i][f] + w.w * tsb[i][f];
+          }
+          fluxes4_vjp(g, q[i], Fb, Gb, qb[i]);
+        } else {
+          #pragma unroll
+          for (int f = 0; f < NF; ++f) qb[i][f] = 0.0f;
+        }
+      }
+      #pragma unroll
+      for (int n = 0; n < Np; ++n) {
+        const float4 v4 = op[3 * n];
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          acc[f][n] += v4.x * qb[0][f];
+          acc[f][n] += v4.y * qb[1][f];
+          acc[f][n] += v4.z * qb[2][f];
+          acc[f][n] += v4.w * qb[3][f];
+        }
+      }
+    }
+  }
+  if (G > 1) {  // the two parts' sums, added in a fixed order by part 1
+    float* x = ch.xch + l;
+    if (part == 0) {
+      #pragma unroll
+      for (int n = 0; n < Np; ++n) {
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) x[(f * Np + n) * SLOT_STRIDE] = acc[f][n];
+      }
+    }
+    pair_sync();
+    if (part == 1) {
+      #pragma unroll
+      for (int n = 0; n < Np; ++n) {
+        #pragma unroll
+        for (int f = 0; f < NF; ++f)
+          acc[f][n] = x[(f * Np + n) * SLOT_STRIDE] + acc[f][n];
+      }
+    }
+    pair_sync();  // the exchange slots are free again
+    if (part == 0) return;
+  }
+  #pragma unroll
+  for (int n = 0; n < Np; ++n) {
+    #pragma unroll
+    for (int f = 0; f < NF; ++f) Avol.f[f][v0 + n] = acc[f][n];
+  }
 }
 
 struct CBwdArgs {
@@ -789,11 +1302,13 @@ struct CBwdArgs {
   float* xb[NF];        // (B, nV) out: initial-state cotangents
   float* cbar;          // (B, n_cs, n_ctrl) out
   // scratch, each (B, nV) per field: stage state, cotangent W of the step's
-  // output, g1 = VJP_R(s1)[dt W], volume part of VJP_R(s_t)[dt/2 g1]
+  // output, g1 = VJP_R(s1)[dt W], the first half of VJP_R(s_t)[dt/2 g1]
   float *s1, *W, *A, *Bv;
-  float *T1, *T2;  // (B, nT, 8) Gauss cotangents of the two products
-  float* cpart;    // (B, n_chunks, n_cs, n_ctrl) control partial sums
-  int B, n_cs, spc, E, use_filter;
+  float4 *TMs, *TM0, *TM1;  // (nT, B) traces of s1 and of s_t (alternating)
+  float4 *T1, *T2;          // (nT, B) '+' cotangents of the two products
+  float* cpart;             // (B, K, n_cs, n_ctrl) control partial sums
+  int B, n_cs, spc, E, Bs, use_filter;
+  int parts;                // threads a (scenario, element): 1 or 2
   float dt;
 };
 
@@ -803,104 +1318,139 @@ struct CBwdArgs {
 //   s1     = s_t + dt/2 R(s_t)                   (recomputed)
 //   g1     = VJP_R(s1)[dt W]
 //   lambda = W + g1 + VJP_R(s_t)[dt/2 g1].
-// Three phases per step, a grid barrier after each:
-//   1. finish the previous step's second product (gather T2), form W,
-//      recompute s1;
-//   2. first half of the product at s1 (T1, volume part into A);
-//   3. gather T1 into A; first half of the product at s_t (T2, Bv).
+// Three phases per step, a grid barrier after each (header of this file);
+// phases 2 and 3 share one call of cvjp (one copy of its code).
 template <class Z>
-__global__ void __launch_bounds__(MAX_THREADS, BLOCKS_PER_SM)
+__global__ void __launch_bounds__(2 * MAX_THREADS, 1)
 sw2d_curved_rollout_bwd_kernel(COps og, CBwdArgs a) {
   cg::grid_group grid = cg::this_grid();
-  COps o = og;
-  const int Np = Z::Np(o);
-  const CScratch s = setup_cblock(o, a.E);
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int n_chunks = (o.K + a.E - 1) / a.E, n_units = a.B * n_chunks;
-  const int n_steps = a.n_cs * a.spc;
-  const size_t nV = (size_t)o.nV, nT8 = (size_t)o.nT * 8;
-  const size_t fs = (size_t)a.B * nV;  // floats per field of a scratch
+  const COps& o = og;
+  const int Np = Z::Np(o), G = a.parts;
+  const CBlock ch = setup_cblock(o, a.E);
+  const Units U(a.E, a.Bs, a.B, o.K);
+  const int B = a.B, n_steps = a.n_cs * a.spc, n_cc = a.n_cs * o.n_ctrl;
+  const size_t nV = (size_t)o.nV;
+  const size_t fs = (size_t)B * nV;  // floats per field of a scratch
   const size_t trow = (size_t)(n_steps + 1) * nV;
-  const int n_cc = a.n_cs * o.n_ctrl;
   W4 none;
   #pragma unroll
   for (int f = 0; f < NF; ++f) none.f[f] = nullptr;
+  // this (scenario, element)'s control partial sums at control step j
+  auto cp = [&](int b, int k, int j) {
+    return a.cpart + (((size_t)b * o.K + k) * a.n_cs + j) * o.n_ctrl;
+  };
 
-  for (int u = blockIdx.x; u < n_units; u += gridDim.x)
-    for (int k = tid; k < n_cc; k += nth) a.cpart[(size_t)u * n_cc + k] = 0.0f;
+  for (int u = blockIdx.x; u < U.n_units; u += gridDim.x)
+    for_lane_parts(U, u, G, [&](int k, int b, int, int, int part) {
+      if (part != 0) return;
+      for (int r = 0; r < n_cc; ++r) cp(b, k, 0)[r] = 0.0f;
+      traces_of<Z>(o, ch, at4(a.t, b * trow + (n_steps - 1) * nV), k, b, B,
+                   a.TM0, none);
+    });
+  grid.sync();
 
+  int have = -1;
   for (int t = n_steps - 1; t >= -1; --t) {
+    float4* TMt = ((n_steps - 1 - t) & 1) ? a.TM1 : a.TM0;  // traces of s_t
+    float4* TMn = ((n_steps - 1 - t) & 1) ? a.TM0 : a.TM1;  // of s_{t-1}
     // ---- phase 1 (for t = -1: only the initial-state cotangent) ----
-    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-      const int b = u / n_chunks, c = u - b * n_chunks;
-      const int e0 = c * a.E, ne = min(a.E, o.K - e0);
-      const int nl = ne * Np, v0 = e0 * Np;
-      const size_t sb = b * nV;
-      const P4 tb = at4(a.tb, b * trow + (t + 1) * nV);
-      if (t < n_steps - 1) gather_gauss<Z>(o, s, a.T2 + b * nT8, e0, ne);
-      for (int l = tid; l < NF * nl; l += nth) {
-        const int f = l / nl, r = l - f * nl, k = r / Np, n = r - k * Np;
-        const int v = v0 + r;
-        const size_t at = f * fs + sb + v;
-        float lam = 0.0f;
-        if (t < n_steps - 1)
-          lam = a.Bv[at] + lift_gathered<Z>(o, s, k, n, f) + a.W[at] + a.A[at];
-        const float* tbf = pick(tb, f);
-        if (tbf != nullptr) lam += tbf[v];
-        if (t < 0) a.xb[f][sb + v] = lam;
-        else a.W[at] = lam;
-      }
-      __syncthreads();  // s.pre is read above and written by the next unit
-      if (t < 0) continue;
-      const P4 st = at4(a.t, b * trow + t * nV);
-      const float* ctrl = a.ctrls + ((size_t)b * a.n_cs + t / a.spc) * o.n_ctrl;
-      cstage<Z>(o, s, e0, ne, st, st, fields_of(a.s1, fs, sb), none,
-             0.5f * a.dt, ctrl, a.use_filter);
+    for (int u = blockIdx.x; u < U.n_units; u += gridDim.x) {
+      use_chunk(o, ch, U, u, have);
+      for_lane_parts(U, u, G, [&](int k, int b, int e, int, int part) {
+        if (part != 0) return;
+        const int v0 = k * Np;
+        const size_t sb = (size_t)b * nV;
+        float lam[NF][Z::CAP];
+        #pragma unroll
+        for (int n = 0; n < Np; ++n) {
+          #pragma unroll
+          for (int f = 0; f < NF; ++f) {
+            const size_t at = f * fs + sb + v0 + n;
+            lam[f][n] = t < n_steps - 1 ? a.Bv[at] + a.W[at] + a.A[at] : 0.0f;
+          }
+        }
+        if (t < n_steps - 1) lift_gathered<Z>(o, ch, e, k, b, B, a.T2, lam);
+        const P4 tb = at4(a.tb, b * trow + (t + 1) * nV);
+        #pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          if (tb.f[f] != nullptr) {
+            #pragma unroll
+            for (int n = 0; n < Np; ++n) lam[f][n] += tb.f[f][v0 + n];
+          }
+        }
+        #pragma unroll
+        for (int n = 0; n < Np; ++n) {
+          #pragma unroll
+          for (int f = 0; f < NF; ++f) {
+            if (t < 0) a.xb[f][sb + v0 + n] = lam[f][n];
+            else a.W[f * fs + sb + v0 + n] = lam[f][n];
+          }
+        }
+        if (t < 0) return;
+        const P4 st = at4(a.t, b * trow + t * nV);
+        const float* ctrl =
+            a.ctrls + ((size_t)b * a.n_cs + t / a.spc) * o.n_ctrl;
+        cstage<Z>(o, ch, e, k, b, B, st, st, fields_of(a.s1, fs, sb),
+                  0.5f * a.dt, ctrl, a.use_filter, TMt, a.TMs);
+      });
     }
     if (t < 0) break;
     grid.sync();
 
     const int j = t / a.spc;
-    // ---- phase 2: g1 = VJP_R(s1)[dt W], first half ----
-    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-      const int b = u / n_chunks, c = u - b * n_chunks;
-      const int e0 = c * a.E, ne = min(a.E, o.K - e0);
-      const size_t sb = b * nV;
-      cvjp_phase<Z>(o, s, e0, ne, readonly(fields_of(a.s1, fs, sb)),
-                 readonly(fields_of(a.W, fs, sb)), a.dt, a.use_filter,
-                 fields_of(a.A, fs, sb), a.T1 + b * nT8,
-                 a.cpart + ((size_t)u * a.n_cs + j) * o.n_ctrl);
-    }
-    grid.sync();
-
-    // ---- phase 3: complete g1; VJP_R(s_t)[dt/2 g1], first half ----
-    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-      const int b = u / n_chunks, c = u - b * n_chunks;
-      const int e0 = c * a.E, ne = min(a.E, o.K - e0);
-      const int nl = ne * Np, v0 = e0 * Np;
-      const size_t sb = b * nV;
-      gather_gauss<Z>(o, s, a.T1 + b * nT8, e0, ne);
-      for (int l = tid; l < NF * nl; l += nth) {
-        const int f = l / nl, r = l - f * nl, k = r / Np, n = r - k * Np;
-        a.A[f * fs + sb + v0 + r] += lift_gathered<Z>(o, s, k, n, f);
+    // ---- phase 2: g1 = VJP_R(s1)[dt W], first half; traces of s_{t-1}.
+    // ---- phase 3: complete g1; VJP_R(s_t)[dt/2 g1], first half.
+    for (int half = 0; half < 2; ++half) {
+      for (int u = blockIdx.x; u < U.n_units; u += gridDim.x) {
+        use_chunk(o, ch, U, u, have);
+        for_lane_parts(U, u, G, [&](int k, int b, int e, int l, int part) {
+          const int v0 = k * Np;
+          const size_t sb = (size_t)b * nV;
+          const W4 A = fields_of(a.A, fs, sb);
+          float w[NF][Z::CAP];
+          if (half == 0) {
+            load_nodal<Z>(o, readonly(fields_of(a.W, fs, sb)), k, w);
+          } else {
+            // part 0 completes g1 and stores it; part 1 reads it back
+            if (part == 0) {
+              load_nodal<Z>(o, readonly(A), k, w);
+              lift_gathered<Z>(o, ch, e, k, b, B, a.T1, w);
+              #pragma unroll
+              for (int n = 0; n < Np; ++n) {
+                #pragma unroll
+                for (int f = 0; f < NF; ++f) A.f[f][v0 + n] = w[f][n];
+              }
+            }
+            if (G > 1) {
+              pair_sync();
+              if (part != 0) load_nodal<Z>(o, readonly(A), k, w);
+            }
+          }
+          cvjp<Z>(o, ch, e, k, b, B, l, part, G,
+                  half == 0 ? readonly(fields_of(a.s1, fs, sb))
+                            : at4(a.t, b * trow + t * nV),
+                  w, (half == 0 ? 1.0f : 0.5f) * a.dt, a.use_filter,
+                  half == 0 ? a.TMs : TMt, half == 0 ? a.T1 : a.T2,
+                  half == 0 ? A : fields_of(a.Bv, fs, sb), cp(b, k, j));
+          if (half == 0 && t > 0 && part == 0)
+            traces_of<Z>(o, ch, at4(a.t, b * trow + (t - 1) * nV), k, b, B,
+                         TMn, none);
+        });
       }
-      __syncthreads();
-      cvjp_phase<Z>(o, s, e0, ne, at4(a.t, b * trow + t * nV),
-                 readonly(fields_of(a.A, fs, sb)), 0.5f * a.dt, a.use_filter,
-                 fields_of(a.Bv, fs, sb), a.T2 + b * nT8,
-                 a.cpart + ((size_t)u * a.n_cs + j) * o.n_ctrl);
+      grid.sync();
     }
-    grid.sync();
   }
 
-  // control cotangents: the chunks' partial sums, added in a fixed order.
+  // control cotangents: the elements' partial sums, added in a fixed order.
   // The last of them were written before the barrier that ended step 0.
-  for (int k = blockIdx.x * nth + tid; k < a.B * n_cc; k += gridDim.x * nth) {
-    const int b = k / n_cc, r = k - b * n_cc;
+  const int nth = blockDim.x;
+  for (int i = blockIdx.x * nth + threadIdx.x; i < B * n_cc;
+       i += gridDim.x * nth) {
+    const int b = i / n_cc, r = i - b * n_cc;
     float tot = 0.0f;
-    for (int c = 0; c < n_chunks; ++c)
-      tot += a.cpart[((size_t)b * n_chunks + c) * n_cc + r];
-    a.cbar[k] = tot;
+    for (int k = 0; k < o.K; ++k)
+      tot += a.cpart[((size_t)b * o.K + k) * n_cc + r];
+    a.cbar[i] = tot;
   }
 }
 
@@ -910,38 +1460,75 @@ sw2d_curved_rollout_bwd_kernel(COps og, CBwdArgs a) {
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs with chunks of E elements.
-long long sw2d_curved_smem_bytes(const CurvedDesc* d, int E) {
+// Bytes of dynamic shared memory one block of `threads` needs with chunks of
+// E elements and `parts` threads a lane (the adjoint: 1 or 2).
+long long sw2d_curved_smem_bytes(const CurvedDesc* d, int E, int parts,
+                                 int threads) {
   COps o = make_cops(*d, nullptr, nullptr);
-  return (long long)(csmem_floats(o, E) * sizeof(float));
+  return (long long)(csmem_floats(o, E, threads, parts) * sizeof(float));
 }
 
 // Blocks of the last launch (for reporting).
 int sw2d_curved_last_grid() { return g_last_grid; }
 
+static int g_last_parts = 0;
+
+// Threads a (scenario, element) of the last adjoint launch (for reporting).
+int sw2d_curved_last_parts() { return g_last_parts; }
+
+static int check_sizes(const CurvedDesc* d, int E, int Bs, int threads,
+                       int parts = 1) {
+  if (threads > MAX_THREADS * parts || E < 1 || Bs < 1)
+    return (int)cudaErrorInvalidValue;
+  if (!is_order3(*d) && (d->Np > MAX_NP || d->NG > MAX_NG))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+static int n_units_of(const CurvedDesc* d, int B, int E, int Bs) {
+  return ((d->K + E - 1) / E) * ((B + Bs - 1) / Bs);
+}
+
+// Floats of scratch that sw2d_curved_step / sw2d_curved_rollout need in
+// `work`: the stage state (4 B nV), two trace buffers (2 x 4 B nT).
+long long sw2d_curved_fwd_work_floats(const CurvedDesc* d, int B) {
+  const long long nV = (long long)d->K * d->Np;
+  const long long nT = (long long)d->K * 3 * d->NG;
+  return 4 * B * nV + 8 * B * nT;
+}
+
 static int launch_cforward(const void* kern, const CurvedDesc* d,
                            const float* fops, const int* iops, CFwdArgs a,
                            int threads, void* stream) {
-  if (threads > MAX_THREADS) return (int)cudaErrorInvalidValue;
+  const int bad = check_sizes(d, a.E, a.Bs, threads);
+  if (bad) return bad;
   COps o = make_cops(*d, fops, iops);
-  const size_t bytes = csmem_floats(o, a.E) * sizeof(float);
-  const int n_units = a.B * ((o.K + a.E - 1) / a.E);
+  const size_t bytes = csmem_floats(o, a.E, threads) * sizeof(float);
   void* args[] = {&o, &a};
-  return coop_launch(kern, args, n_units, threads, bytes, stream);
+  return coop_launch(kern, args, n_units_of(d, a.B, a.E, a.Bs), threads,
+                     bytes, stream);
 }
 
-// ctrl: (B, n_ctrl) or null. s1: 4*B*nV floats of scratch.
+static void fwd_work(CFwdArgs& a, const CurvedDesc* d, float* work, int B) {
+  const size_t n = (size_t)B * d->K * d->Np;
+  const size_t t4 = (size_t)4 * B * d->K * 3 * d->NG;
+  for (int f = 0; f < NF; ++f) a.s1[f] = work + f * n;
+  a.TMa = reinterpret_cast<float4*>(work + 4 * n);
+  a.TMb = reinterpret_cast<float4*>(work + 4 * n + t4);
+}
+
+// ctrl: (B, n_ctrl) or null. work: sw2d_curved_fwd_work_floats floats.
 int sw2d_curved_step(const CurvedDesc* d, const float* fops, const int* iops,
                      const float* h, const float* hu, const float* hv,
                      const float* hN, const float* ctrl, float* oh,
-                     float* ohu, float* ohv, float* ohN, float* s1, int B,
-                     float dt, int use_filter, int E, int threads,
+                     float* ohu, float* ohv, float* ohN, float* work, int B,
+                     float dt, int use_filter, int E, int Bs, int threads,
                      void* stream) {
-  const size_t n = (size_t)B * d->K * d->Np;
   CFwdArgs a = {{h, hu, hv, hN}, ctrl, {oh, ohu, ohv, ohN},
-                {s1, s1 + n, s1 + 2 * n, s1 + 3 * n},
                 {nullptr, nullptr, nullptr, nullptr},
-                B, 1, 1, 1, E, use_filter, dt};
+                {nullptr, nullptr, nullptr, nullptr}, nullptr, nullptr,
+                B, 1, 1, 1, E, Bs, use_filter, dt};
+  fwd_work(a, d, work, B);
   const void* kern = is_order3(*d)
       ? (const void*)sw2d_curved_step_kernel<Order3>
       : (const void*)sw2d_curved_step_kernel<AnyOrder>;
@@ -950,35 +1537,71 @@ int sw2d_curved_step(const CurvedDesc* d, const float* fops, const int* iops,
 
 // ctrls: (B, n_cs, n_ctrl) or null. With th..thN (B, n_steps+1, nV) the
 // trajectories are stored and oh..ohN are not touched; without, the final
-// fields go to oh..ohN. s1: 4*B*nV floats of scratch.
+// fields go to oh..ohN. work: sw2d_curved_fwd_work_floats floats.
 int sw2d_curved_rollout(const CurvedDesc* d, const float* fops,
                         const int* iops, const float* h, const float* hu,
                         const float* hv, const float* hN, const float* ctrls,
                         float* oh, float* ohu, float* ohv, float* ohN,
                         float* th, float* thu, float* thv, float* thN,
-                        float* s1, int B, int n_steps, int n_cs, int spc,
-                        float dt, int use_filter, int E, int threads,
+                        float* work, int B, int n_steps, int n_cs, int spc,
+                        float dt, int use_filter, int E, int Bs, int threads,
                         void* stream) {
-  const size_t n = (size_t)B * d->K * d->Np;
   CFwdArgs a = {{h, hu, hv, hN}, ctrls, {oh, ohu, ohv, ohN},
-                {s1, s1 + n, s1 + 2 * n, s1 + 3 * n}, {th, thu, thv, thN},
-                B, n_steps, n_cs, spc, E, use_filter, dt};
+                {nullptr, nullptr, nullptr, nullptr}, {th, thu, thv, thN},
+                nullptr, nullptr, B, n_steps, n_cs, spc, E, Bs, use_filter,
+                dt};
+  fwd_work(a, d, work, B);
   const void* kern = is_order3(*d)
       ? (const void*)sw2d_curved_rollout_kernel<Order3>
       : (const void*)sw2d_curved_rollout_kernel<AnyOrder>;
   return launch_cforward(kern, d, fops, iops, a, threads, stream);
 }
 
-// Floats of scratch that sw2d_curved_rollout_bwd needs in `work`.
-long long sw2d_curved_bwd_work_floats(const CurvedDesc* d, int B, int n_cs,
-                                      int E) {
+// Floats of scratch that sw2d_curved_rollout_bwd needs in `work`: four
+// (B, nV) states (x 4 fields), five (nT, B) float4 buffers, the control
+// partial sums.
+long long sw2d_curved_bwd_work_floats(const CurvedDesc* d, int B, int n_cs) {
   const long long nV = (long long)d->K * d->Np;
   const long long nT = (long long)d->K * 3 * d->NG;
-  const long long n_chunks = (d->K + E - 1) / E;
-  return 16 * B * nV + 16 * B * nT + (long long)B * n_chunks * n_cs * d->n_ctrl;
+  return 16 * B * nV + 20 * B * nT + (long long)B * d->K * n_cs * d->n_ctrl;
+}
+
+static int round32(int n) { return (n + 31) & ~31; }
+
+static const void* bwd_kernel(const CurvedDesc* d) {
+  return is_order3(*d)
+      ? (const void*)sw2d_curved_rollout_bwd_kernel<Order3>
+      : (const void*)sw2d_curved_rollout_bwd_kernel<AnyOrder>;
+}
+
+// Threads a (scenario, element) that the adjoint takes for B scenarios in
+// units of E elements x Bs scenarios: 2 where the blocks of twice the
+// threads fit shared memory and are all resident at once, by the occupancy
+// the device reports for the kernel (the lanes are too few to fill the
+// card: the small disk), else 1; a CUDA error as a negative number.
+int sw2d_curved_bwd_parts(const CurvedDesc* d, int B, int E, int Bs) {
+  const int threads = round32(E * Bs * 2);
+  if (threads > 2 * MAX_THREADS || check_sizes(d, E, Bs, threads, 2)) return 1;
+  const COps o = make_cops(*d, nullptr, nullptr);
+  const size_t bytes = csmem_floats(o, E, threads, 2) * sizeof(float);
+  int dev = 0, room = 0, sms = 0, per_sm = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return -(int)e;
+  cudaDeviceGetAttribute(&room, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (bytes > (size_t)room) return 1;
+  const void* kern = bwd_kernel(d);
+  const int pe = prepare(kern, bytes);
+  if (pe != 0) return -pe;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    bytes);
+  if (e != cudaSuccess) return -(int)e;
+  return n_units_of(d, B, E, Bs) <= per_sm * sms ? 2 : 1;
 }
 
 // tbh..tbhN: cotangent trajectories; a null pointer stands for zeros.
+// parts: threads a (scenario, element), 1 or 2, or 0 for the choice of
+// sw2d_curved_bwd_parts; the block has 32 (E Bs parts / 32) threads.
 int sw2d_curved_rollout_bwd(const CurvedDesc* d, const float* fops,
                             const int* iops, const float* th,
                             const float* thu, const float* thv,
@@ -987,11 +1610,16 @@ int sw2d_curved_rollout_bwd(const CurvedDesc* d, const float* fops,
                             const float* tbhN, const float* ctrls, float* xbh,
                             float* xbhu, float* xbhv, float* xbhN,
                             float* cbar, float* work, int B, int n_cs,
-                            int spc, float dt, int use_filter, int E,
-                            int threads, void* stream) {
-  if (threads > MAX_THREADS) return (int)cudaErrorInvalidValue;
+                            int spc, float dt, int use_filter, int E, int Bs,
+                            int parts, void* stream) {
+  if (parts == 0) parts = sw2d_curved_bwd_parts(d, B, E, Bs);
+  if (parts < 0) return -parts;
+  if (parts != 1 && parts != 2) return (int)cudaErrorInvalidValue;
+  const int threads = round32(E * Bs * parts);
+  const int bad = check_sizes(d, E, Bs, threads, parts);
+  if (bad) return bad;
   COps o = make_cops(*d, fops, iops);
-  const size_t n4 = (size_t)NF * B * o.nV, t8 = (size_t)8 * B * o.nT;
+  const size_t n4 = (size_t)NF * B * o.nV, t4 = (size_t)4 * B * o.nT;
   CBwdArgs a;
   a.t[0] = th; a.t[1] = thu; a.t[2] = thv; a.t[3] = thN;
   a.tb[0] = tbh; a.tb[1] = tbhu; a.tb[2] = tbhv; a.tb[3] = tbhN;
@@ -999,16 +1627,20 @@ int sw2d_curved_rollout_bwd(const CurvedDesc* d, const float* fops,
   a.xb[0] = xbh; a.xb[1] = xbhu; a.xb[2] = xbhv; a.xb[3] = xbhN;
   a.cbar = cbar;
   a.s1 = work; a.W = work + n4; a.A = work + 2 * n4; a.Bv = work + 3 * n4;
-  a.T1 = work + 4 * n4; a.T2 = a.T1 + t8; a.cpart = a.T2 + t8;
-  a.B = B; a.n_cs = n_cs; a.spc = spc; a.E = E; a.use_filter = use_filter;
-  a.dt = dt;
-  const size_t bytes = csmem_floats(o, E) * sizeof(float);
-  const int n_units = B * ((o.K + E - 1) / E);
+  float* tw = work + 4 * n4;
+  a.TMs = reinterpret_cast<float4*>(tw);
+  a.TM0 = reinterpret_cast<float4*>(tw + t4);
+  a.TM1 = reinterpret_cast<float4*>(tw + 2 * t4);
+  a.T1 = reinterpret_cast<float4*>(tw + 3 * t4);
+  a.T2 = reinterpret_cast<float4*>(tw + 4 * t4);
+  a.cpart = tw + 5 * t4;
+  a.B = B; a.n_cs = n_cs; a.spc = spc; a.E = E; a.Bs = Bs;
+  a.use_filter = use_filter; a.dt = dt; a.parts = parts;
+  const size_t bytes = csmem_floats(o, E, threads, parts) * sizeof(float);
   void* args[] = {&o, &a};
-  const void* kern = is_order3(*d)
-      ? (const void*)sw2d_curved_rollout_bwd_kernel<Order3>
-      : (const void*)sw2d_curved_rollout_bwd_kernel<AnyOrder>;
-  return coop_launch(kern, args, n_units, threads, bytes, stream);
+  g_last_parts = parts;
+  return coop_launch(bwd_kernel(d), args, n_units_of(d, B, E, Bs), threads,
+                     bytes, stream);
 }
 
 }  // extern "C"

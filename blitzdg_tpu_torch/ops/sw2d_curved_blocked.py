@@ -63,9 +63,22 @@ from .sw2d_fused import (MAX_SMEM_BYTES, _check_tensor, _inverse_map,
                          _launch_check, _np64, _safe_norm)
 
 N_FIELDS = 4  # h, hu, hv, hN
-# Threads of one block. The kernels loop over nodes with this stride, so any
-# multiple of 32 is valid.
-THREADS = 256
+# Largest block of the forward kernels (MAX_THREADS in their source): one
+# thread per (element, scenario) of a work unit. The adjoint's blocks may
+# have twice as many: two threads per (element, scenario) where the card
+# holds all of those blocks at once (the kernels' launcher decides, from
+# the occupancy the device reports: ``last_parts``).
+THREADS = 128
+# Thread stride of the threads' scratch slots in shared memory (SLOT_STRIDE
+# in the kernels' source).
+SLOT_STRIDE = 128
+# Scenarios of one work unit (at most): the unit's geometry, read once,
+# serves them all.
+SCEN_TILE = 4
+# Largest sizes of the run-time-size instantiation (MAX_NP, MAX_NG in the
+# kernels' source): N=6. N=3 (Np=10, Ncub=34, NG=8) has an instantiation of
+# its own.
+MAX_NP, MAX_NG = 28, 14
 # Kernel launches on the device per call of a wrapper: one persistent
 # cooperative launch each, the stages separated by grid barriers inside it.
 DEVICE_LAUNCHES_PER_CALL = 1
@@ -535,11 +548,78 @@ def _desc(meta: CurvedBlockedMeta) -> _CurvedDesc:
                        int(meta.has_bed), meta.g, meta.cd, meta.f_cor)
 
 
-def chunk_elems(meta: CurvedBlockedMeta) -> int:
-    """Elements per work unit: as many as give every thread of a block at
-    most one cubature point and one (field, node) pair per pass."""
-    per_elem = max(meta.n_cub, N_FIELDS * meta.n_p)
-    return max(1, min(meta.k_elem, THREADS // per_elem))
+class UnitShape(NamedTuple):
+    """Work units of the curved kernels: ``elems`` elements x ``scens``
+    scenarios each, one thread per (element, scenario), ``threads`` per
+    block (a multiple of 32)."""
+
+    elems: int
+    scens: int
+    threads: int
+
+
+def _al4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def smem_bytes(meta: CurvedBlockedMeta, elems: int, threads: int,
+               parts: int = 1) -> int:
+    """Dynamic shared memory of one block of ``threads`` with chunks of
+    ``elems`` elements and ``parts`` threads a lane (``csmem_floats`` in the
+    kernels' source): the reference operators; per element its cubature
+    weights, Gauss-point data, the indices of each Gauss point's '+' point
+    and of the point that reads it, and its mass inverse; per thread its
+    scratch; with two parts, per lane the slots in which they add their
+    sums."""
+    n_p, n_cub, n_tr = meta.n_p, meta.n_cub, meta.n_tr
+    ops = (12 * -(-n_cub // 4) * n_p + _al4(n_tr * n_p)
+           + 2 * _al4(n_p * n_p))
+    minv = 1 if meta.mass_mode == "affine" else n_p * n_p
+    chunk = (4 * n_cub * elems + 4 * n_tr * elems + 2 * _al4(n_tr * elems)
+             + _al4(minv * elems))
+    per_thread = _al4(max(8 * n_p, max(4 * n_p, 9 * meta.n_gauss) + 4 * n_p))
+    slots = per_thread * SLOT_STRIDE * -(-threads // SLOT_STRIDE)
+    xch = 4 * n_p * SLOT_STRIDE if parts > 1 else 0
+    return 4 * (ops + chunk + slots + xch)
+
+
+def _threads(elems: int, scens: int) -> int:
+    return 32 * -(-(elems * scens) // 32)
+
+
+def _order3(meta: CurvedBlockedMeta) -> bool:
+    return (meta.n_p, meta.n_cub, meta.n_gauss) == (10, 34, 8)
+
+
+def unit_shape(meta: CurvedBlockedMeta, batch: int) -> UnitShape:
+    """The work unit of the curved kernels for ``batch`` scenarios: tiles of
+    up to ``SCEN_TILE`` scenarios (a ragged last tile is masked) times
+    chunks of elements, as many as fill a block of ``THREADS`` and fit its
+    shared memory (fewer for high orders), evened out over the mesh so that
+    the last chunk is not mostly empty."""
+    if not _order3(meta) and (meta.n_p > MAX_NP or meta.n_gauss > MAX_NG):
+        raise ValueError(
+            f"Np={meta.n_p}, NG={meta.n_gauss}: the curved kernels take at "
+            f"most Np={MAX_NP} and NG={MAX_NG}")
+    scens = max(1, min(SCEN_TILE, batch))
+    elems = max(1, min(meta.k_elem, THREADS // scens))
+    need = lambda e: smem_bytes(meta, e, _threads(e, scens))
+    while elems > 1 and need(elems) > MAX_SMEM_BYTES:
+        elems = max(1, elems // 2)
+    if need(elems) > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"Np={meta.n_p}, Ncub={meta.n_cub} needs {need(1)} bytes of "
+            f"shared memory per block even with one element per block; a "
+            f"block can have {MAX_SMEM_BYTES}")
+    n_chunks = -(-meta.k_elem // elems)
+    elems = -(-meta.k_elem // n_chunks)
+    return UnitShape(elems, scens, _threads(elems, scens))
+
+
+def n_units(meta: CurvedBlockedMeta, batch: int) -> int:
+    """Work units of one launch for ``batch`` scenarios."""
+    u = unit_shape(meta, batch)
+    return -(-meta.k_elem // u.elems) * -(-batch // u.scens)
 
 
 def _lib():
@@ -552,17 +632,22 @@ def _lib():
         return lib
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     D = ctypes.POINTER(_CurvedDesc)
-    lib.sw2d_curved_smem_bytes.argtypes = [D, I]
+    lib.sw2d_curved_smem_bytes.argtypes = [D, I, I, I]
     lib.sw2d_curved_smem_bytes.restype = ctypes.c_longlong
-    lib.sw2d_curved_bwd_work_floats.argtypes = [D, I, I, I]
+    lib.sw2d_curved_fwd_work_floats.argtypes = [D, I]
+    lib.sw2d_curved_fwd_work_floats.restype = ctypes.c_longlong
+    lib.sw2d_curved_bwd_work_floats.argtypes = [D, I, I]
     lib.sw2d_curved_bwd_work_floats.restype = ctypes.c_longlong
     lib.sw2d_curved_last_grid.argtypes = []
     lib.sw2d_curved_last_grid.restype = I
-    lib.sw2d_curved_step.argtypes = [D, P, P] + [P] * 10 + [I, F, I, I, I, P]
+    lib.sw2d_curved_last_parts.argtypes = []
+    lib.sw2d_curved_last_parts.restype = I
+    lib.sw2d_curved_step.argtypes = (
+        [D, P, P] + [P] * 10 + [I, F, I, I, I, I, P])
     lib.sw2d_curved_rollout.argtypes = (
-        [D, P, P] + [P] * 14 + [I, I, I, I, F, I, I, I, P])
+        [D, P, P] + [P] * 14 + [I, I, I, I, F, I, I, I, I, P])
     lib.sw2d_curved_rollout_bwd.argtypes = (
-        [D, P, P] + [P] * 15 + [I, I, I, F, I, I, I, P])
+        [D, P, P] + [P] * 15 + [I, I, I, F, I, I, I, I, P])
     for fn in (lib.sw2d_curved_step, lib.sw2d_curved_rollout,
                lib.sw2d_curved_rollout_bwd):
         fn.restype = I
@@ -577,24 +662,17 @@ def _check_kernel_inputs(ops: CurvedBlockedOps, meta: CurvedBlockedMeta,
         raise TypeError(f"the CUDA kernels are float32, got {ref.dtype}")
     if ops.fbuf.device != ref.device or ops.ibuf.device != ref.device:
         raise ValueError("operator set and state lie on different devices")
-    lib = _lib()
-    desc = _desc(meta)
-    E = chunk_elems(meta)
-    need = lib.sw2d_curved_smem_bytes(ctypes.byref(desc), E)
-    while need > MAX_SMEM_BYTES and E > 1:  # high orders: smaller chunks
-        E = max(1, E // 2)
-        need = lib.sw2d_curved_smem_bytes(ctypes.byref(desc), E)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"Np={meta.n_p}, Ncub={meta.n_cub} needs {need} bytes of shared "
-            f"memory per block even with one element per block; a block can "
-            f"have {MAX_SMEM_BYTES}")
-    return lib, desc, E
+    return _lib(), _desc(meta)
 
 
 def last_grid() -> int:
     """Thread blocks of the last kernel launch of this module."""
     return int(_lib().sw2d_curved_last_grid())
+
+
+def last_parts() -> int:
+    """Threads per (element, scenario) of the last adjoint launch."""
+    return int(_lib().sw2d_curved_last_parts())
 
 
 def _check_state(meta, S) -> int:
@@ -621,8 +699,9 @@ def sw2d_curved_step_blocked(ops: CurvedBlockedOps, meta: CurvedBlockedMeta,
     of ``blitzdg_tpu/ops/sw2d_curved_blocked.py``. Bound by operations: 8 nV
     floats of traffic against some two thousand operations per node (the
     cubature and Gauss interpolations and their transposes). Work unit:
-    (scenario, chunk of elements); the two stages are separated by a grid
-    barrier inside one cooperative launch; design: the kernels' source.
+    chunk of elements x tile of scenarios (``unit_shape``), one thread per
+    (element, scenario); the stages are separated by grid barriers inside
+    one cooperative launch; design: the kernels' source.
     """
     S = (h, hu, hv, hN)
     B = _check_state(meta, S)
@@ -632,15 +711,32 @@ def sw2d_curved_step_blocked(ops: CurvedBlockedOps, meta: CurvedBlockedMeta,
     if h.device.type == "cpu":
         return sw2d_curved_step_blocked_plain(ops, meta, *S, ctrl, dt,
                                               use_filter)
-    lib, desc, E = _check_kernel_inputs(ops, meta, h)
+    out = _run_step(ops, meta, S, ctrl, dt, use_filter)
+    sw2d_curved_step_blocked.launches += 1
+    return out
+
+
+def _launch_stream(t: torch.Tensor):
+    """The stream a launch goes to: the current one of a CUDA tensor's
+    device; none for the CPU (a build of the kernels' source for the host,
+    in the tests)."""
+    return _stream(t) if t.is_cuda else None
+
+
+def _run_step(ops, meta, S, ctrl, dt, use_filter):
+    """The step kernel's launch (no checks of S beyond the kernels' own)."""
+    h, B = S[0], S[0].shape[0]
+    lib, desc = _check_kernel_inputs(ops, meta, h)
+    u = unit_shape(meta, B)
     out = [torch.empty_like(h) for _ in range(N_FIELDS)]
-    s1 = torch.empty((N_FIELDS, B, meta.n_v), dtype=h.dtype, device=h.device)
+    work = torch.empty(lib.sw2d_curved_fwd_work_floats(ctypes.byref(desc), B),
+                       dtype=h.dtype, device=h.device)
     err = lib.sw2d_curved_step(
         ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
         *(f.data_ptr() for f in S), _ptr(ctrl), *(f.data_ptr() for f in out),
-        s1.data_ptr(), B, float(dt), int(use_filter), E, THREADS, _stream(h))
+        work.data_ptr(), B, float(dt), int(use_filter), u.elems, u.scens,
+        u.threads, _launch_stream(h))
     _launch_check(err, "sw2d_curved_step_blocked")
-    sw2d_curved_step_blocked.launches += 1
     return tuple(out)
 
 
@@ -664,9 +760,10 @@ def sw2d_curved_rollout_blocked(ops: CurvedBlockedOps,
     ``sw2d_curved_rollout_blocked`` of
     ``blitzdg_tpu/ops/sw2d_curved_blocked.py``. Bound by operations:
     2 n_steps RHS evaluations against one state in and one out (plus the
-    trajectory when stored). Each stage ends in a grid barrier; the '+'
-    Gauss values are interpolated from the neighbour's nodal values, so a
-    stage needs no second barrier.
+    trajectory when stored). Each stage ends in a grid barrier; the stage
+    that writes a state writes its Gauss traces too, from which the next
+    stage reads both sides of every face, so a stage needs no second
+    barrier.
     """
     S = (h, hu, hv, hN)
     B = _check_state(meta, S)
@@ -681,9 +778,21 @@ def sw2d_curved_rollout_blocked(ops: CurvedBlockedOps,
     if h.device.type == "cpu":
         return sw2d_curved_rollout_blocked_plain(
             ops, meta, *S, ctrls, dt, spc, n_steps, use_filter, store_traj)
-    lib, desc, E = _check_kernel_inputs(ops, meta, h)
+    out = _run_rollout(ops, meta, S, ctrls, dt, spc, n_steps, use_filter,
+                       store_traj)
+    sw2d_curved_rollout_blocked.launches += 1
+    return out
+
+
+def _run_rollout(ops, meta, S, ctrls, dt, spc, n_steps, use_filter,
+                 store_traj):
+    """The rollout kernel's launch (no checks of S beyond the kernels'
+    own)."""
+    h, B = S[0], S[0].shape[0]
+    lib, desc = _check_kernel_inputs(ops, meta, h)
+    u = unit_shape(meta, B)
     new = lambda *shape: torch.empty(shape, dtype=h.dtype, device=h.device)
-    s1 = new(N_FIELDS, B, meta.n_v)
+    work = new(lib.sw2d_curved_fwd_work_floats(ctypes.byref(desc), B))
     if store_traj:
         traj = [new(B, n_steps + 1, meta.n_v) for _ in range(N_FIELDS)]
         final = [None] * N_FIELDS
@@ -693,11 +802,10 @@ def sw2d_curved_rollout_blocked(ops: CurvedBlockedOps,
     err = lib.sw2d_curved_rollout(
         ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
         *(f.data_ptr() for f in S), _ptr(ctrls), *(_ptr(f) for f in final),
-        *(_ptr(f) for f in traj), s1.data_ptr(), B, n_steps,
+        *(_ptr(f) for f in traj), work.data_ptr(), B, n_steps,
         0 if ctrls is None else ctrls.shape[1], int(spc), float(dt),
-        int(use_filter), E, THREADS, _stream(h))
+        int(use_filter), u.elems, u.scens, u.threads, _launch_stream(h))
     _launch_check(err, "sw2d_curved_rollout_blocked")
-    sw2d_curved_rollout_blocked.launches += 1
     if store_traj:
         return (*traj, *(f[:, -1] for f in traj))
     return tuple(final)
@@ -723,7 +831,9 @@ def sw2d_curved_rollout_bwd_blocked(ops: CurvedBlockedOps,
     recompute and two adjoint applications per step against one read of
     trajectory and cotangent). The transposed '+' gather crosses blocks, so
     each adjoint application runs in two phases around a grid barrier (three
-    barriers per step); sums are taken in a fixed order, no atomics.
+    barriers per step); two threads share each (element, scenario) where
+    the card holds all the blocks of twice the threads at once
+    (``last_parts``); sums are taken in a fixed order, no atomics.
     """
     traj, tb = tuple(traj), tuple(tb)
     if len(traj) != N_FIELDS or len(tb) != N_FIELDS:
@@ -742,20 +852,31 @@ def sw2d_curved_rollout_bwd_blocked(ops: CurvedBlockedOps,
     if traj[0].device.type == "cpu":
         return sw2d_curved_rollout_bwd_blocked_plain(
             ops, meta, traj, tb, ctrls, dt, spc, use_filter)
-    lib, desc, E = _check_kernel_inputs(ops, meta, traj[0])
+    out = _run_rollout_bwd(ops, meta, traj, tb, ctrls, dt, spc, use_filter)
+    sw2d_curved_rollout_bwd_blocked.launches += 1
+    return out
+
+
+def _run_rollout_bwd(ops, meta, traj, tb, ctrls, dt, spc, use_filter,
+                     parts=0):
+    """The adjoint kernel's launch (no checks of the trajectories beyond the
+    kernels' own); ``parts``: threads per (element, scenario), 1 or 2, or 0
+    for the launcher's choice from the device's occupancy."""
+    lib, desc = _check_kernel_inputs(ops, meta, traj[0])
+    B, n_cs = traj[0].shape[0], ctrls.shape[1]
+    u = unit_shape(meta, B)
     new = lambda *shape: torch.empty(shape, dtype=traj[0].dtype,
                                      device=traj[0].device)
     xb = [new(B, meta.n_v) for _ in range(N_FIELDS)]
     cb = torch.empty_like(ctrls)
-    work = new(lib.sw2d_curved_bwd_work_floats(ctypes.byref(desc), B, n_cs, E))
+    work = new(lib.sw2d_curved_bwd_work_floats(ctypes.byref(desc), B, n_cs))
     err = lib.sw2d_curved_rollout_bwd(
         ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
         *(f.data_ptr() for f in traj), *(_ptr(f) for f in tb),
         ctrls.data_ptr(), *(f.data_ptr() for f in xb), cb.data_ptr(),
-        work.data_ptr(), B, n_cs, int(spc), float(dt), int(use_filter), E,
-        THREADS, _stream(traj[0]))
+        work.data_ptr(), B, n_cs, int(spc), float(dt), int(use_filter),
+        u.elems, u.scens, int(parts), _launch_stream(traj[0]))
     _launch_check(err, "sw2d_curved_rollout_bwd_blocked")
-    sw2d_curved_rollout_bwd_blocked.launches += 1
     return (*xb, cb)
 
 

@@ -10,7 +10,11 @@ sharded`` runs one path's phases alone, for work on that path.) What it does,
 in order (any failure is an exception and a non-zero exit):
 
  1. refuses to run without a CUDA device;
- 2. builds the CUDA kernels of ``blitzdg_tpu_torch/ops/csrc`` with nvcc;
+ 2. builds the CUDA kernels of ``blitzdg_tpu_torch/ops/csrc`` with nvcc and
+    prints what ptxas reports (registers, stack, spills) of the curved
+    kernels (a library built by an earlier run keeps its report beside
+    it); it fails at the end of the run if either instantiation of a
+    curved rollout kernel spills or has no report;
  3. DENSE path (small meshes, one block per scenario). Holds each kernel
     (``sw2d_step_fused``, ``sw2d_rollout_fused``, ``sw2d_rollout_bwd_fused``)
     against its plain PyTorch version on the card, at the headline shape
@@ -44,8 +48,9 @@ in order (any failure is an exception and a non-zero exit):
     ``sw2d_curved_rollout_bwd_blocked`` against their plain versions over 8
     steps at N=3 on the large disk (K=1014, B=32; perturbed, and from the
     exact rest start with a cotangent on the depth alone), on the small disk
-    (K=54, B=256), at N=2 (K=96) and on a straight box in the 'affine' mass
-    mode with drag, Coriolis and bed slope; ``curved_path`` drives
+    (K=54, B=256, and B=5: a ragged scenario tile), at N=2 (K=96) and on a
+    straight box in the 'affine' mass mode with drag, Coriolis and bed
+    slope, each record with its grid and work units; ``curved_path`` drives
     ``solve_mpc_curved_blocked`` (5 Adam iterations) on both disks,
     ``solve_mpc_curved_blocked_gn`` (2 x 2) over a sweep of difference steps
     and ``advance_plant_curved_blocked`` at the full configurations of
@@ -98,6 +103,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -157,6 +163,8 @@ CRV_COST_RATIO = (0.999, 1.001)
 # Difference steps of the curved Gauss-Newton solve that the path tries
 # after the solver's default (``curved_disk.FD_EPS``).
 CRV_FD_EPS_WIDER = (1e-2, 1e-1, 1.0)
+# the kernels' units hold up to 4 scenarios: 5 leaves a ragged tile of one
+CRV_RAGGED_BATCH = 5
 
 # Sharded path: the stage kernels are held to the blocked tolerances
 # (BLK_FWD_ATOL; the adjoint per entry, BWD_RTOL_BULK / BWD_RTOL_MAX). The
@@ -1038,9 +1046,11 @@ def check_curved_case(TC, name, ops, meta, S, ctrls, dt, spc, flush, rng,
     ref = step(TC.sw2d_curved_step_blocked_plain)
     torch.cuda.synchronize()
     err = max_abs(got, ref)
+    unit = TC.unit_shape(meta, B)._asdict()
     rec = record("sw2d_curved_step_blocked", err, CRV_FWD_ATOL,
                  finite(got) and err <= CRV_FWD_ATOL,
-                 grid_blocks=TC.last_grid())
+                 grid_blocks=TC.last_grid(), units=TC.n_units(meta, B),
+                 unit=unit)
     if timed:
         rec["ms"] = time_ms(lambda: step(TC.sw2d_curved_step_blocked), 9,
                             flush)
@@ -1056,6 +1066,7 @@ def check_curved_case(TC, name, ops, meta, S, ctrls, dt, spc, flush, rng,
                                 n_steps=None if c is not None else n_steps,
                                 store_traj=traj)
     got = roll(TC.sw2d_curved_rollout_blocked, ctrls, True)
+    grid = TC.last_grid()
     ref = roll(TC.sw2d_curved_rollout_blocked_plain, ctrls, True)
     torch.cuda.synchronize()
     err = max_abs(got, ref)
@@ -1068,7 +1079,8 @@ def check_curved_case(TC, name, ops, meta, S, ctrls, dt, spc, flush, rng,
         e2 = max_abs(g2, r2)
         err, ok = max(err, e2), ok and finite(g2) and e2 <= CRV_FWD_ATOL
     rec = record("sw2d_curved_rollout_blocked", err, CRV_FWD_ATOL, ok,
-                 n_steps=n_steps)
+                 n_steps=n_steps, grid_blocks=grid,
+                 units=TC.n_units(meta, B), unit=unit)
     if timed:
         rec["ms"] = time_ms(
             lambda: roll(TC.sw2d_curved_rollout_blocked, ctrls, True), 9,
@@ -1089,6 +1101,7 @@ def check_curved_case(TC, name, ops, meta, S, ctrls, dt, spc, flush, rng,
         tb = [tb[0], None, None, None]
     bwd = lambda f: f(ops, meta, traj, tb, ctrls, dt, spc)
     gk = bwd(TC.sw2d_curved_rollout_bwd_blocked)
+    grid, parts = TC.last_grid(), TC.last_parts()
     gp = bwd(TC.sw2d_curved_rollout_bwd_blocked_plain)
     again = bwd(TC.sw2d_curved_rollout_bwd_blocked)
     torch.cuda.synchronize()
@@ -1102,7 +1115,9 @@ def check_curved_case(TC, name, ops, meta, S, ctrls, dt, spc, flush, rng,
                  max_rel_err=worst, p99_rel_err=p99,
                  entries_above_bulk_tol=int((per > BWD_RTOL_BULK).sum()),
                  entries=per.numel(), same_bits_on_rerun=same,
-                 cotangents=sum(t is not None for t in tb))
+                 cotangents=sum(t is not None for t in tb),
+                 grid_blocks=grid, units=TC.n_units(meta, B), unit=unit,
+                 threads_per_lane=parts)
     if timed:
         rec["ms"] = time_ms(
             lambda: bwd(TC.sw2d_curved_rollout_bwd_blocked), 9, flush)
@@ -1173,7 +1188,10 @@ def curved_phases(dev, card: str, rng, flush) -> list:
          "n_p": large.bm.meta.n_p, "n_cub": large.bm.meta.n_cub,
          "n_gauss": large.bm.meta.n_gauss,
          "mass_mode": large.bm.meta.mass_mode,
-         "elements_per_block": TC.chunk_elems(large.bm.meta)})
+         "unit_large": TC.unit_shape(large.bm.meta,
+                                     cdk.LARGE["batch"])._asdict(),
+         "unit_small": TC.unit_shape(small.bm.meta,
+                                     cdk.SMALL["batch"])._asdict()})
 
     # ---- kernels against their plain versions ----
     cases = []
@@ -1197,6 +1215,11 @@ def curved_phases(dev, card: str, rng, flush) -> list:
                                 rng, dev)
     head_small = check("curved_K54_N3", small.bm.ops, small.bm.meta, S, ctrls,
                        small.prob.dt, spc, flush, rng, timed=True)
+    # a batch that is no multiple of the scenario tile: the masked edge
+    S, ctrls = perturbed_curved(small.prob.ctx, CRV_RAGGED_BATCH, n_cs, 2,
+                                rng, dev)
+    check(f"curved_K54_N3_B{CRV_RAGGED_BATCH}", small.bm.ops, small.bm.meta,
+          S, ctrls, small.prob.dt, spc, flush, rng)
     # another order: the kernels' instantiation for run-time sizes (the
     # N=3 cases above run the one compiled for N=3's sizes)
     d2 = cdk.curved_disk_problem(rings=4, snap_tol=0.3, batch=32, n_order=2,
@@ -1410,7 +1433,10 @@ def curved_phases(dev, card: str, rng, flush) -> list:
              "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
              "bound_by": rec["bound_by"], "library_ms": None,
              "device_launches_per_call": TC.DEVICE_LAUNCHES_PER_CALL,
-             "ms_small_disk": head_small[name]["ms"]}
+             "ms_small_disk": head_small[name]["ms"],
+             "grid_blocks": rec["grid_blocks"], "units": rec["units"],
+             "grid_blocks_small_disk": head_small[name]["grid_blocks"],
+             "units_small_disk": head_small[name]["units"]}
             for name, rec in head.items()]
 
 
@@ -1922,6 +1948,76 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
             for name, rec in head.items()]
 
 
+def ptxas_summary(log: str) -> dict:
+    """Registers, stack frame and spill bytes of each kernel in one source's
+    ``ptxas -v`` output, by mangled name."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function '" in ln or "Function properties for" in ln:
+            name = (ln.split("'")[1] if "'" in ln else ln.split()[-1])
+            out.setdefault(name, {})
+        elif name and "bytes stack frame" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out[name]["stack_bytes"] = nums[0]
+            out[name]["spill_bytes"] = nums[1] + nums[2]
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
+
+
+def sass_mix(lib, keep=lambda name: True) -> dict:
+    """Static instruction counts of the kernels of a built library, from
+    ``cuobjdump -sass`` (the toolkit's, beside nvcc), by mangled name: all
+    instructions, FFMA, and shared-memory loads (LDS, any width). Static:
+    a loop's body counts once, whatever its trip count."""
+    from blitzdg_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        ln = ln.strip()
+        if ln.startswith("Function :"):
+            name = ln.split(":", 1)[1].strip()
+            if not keep(name):
+                name = None
+                continue
+            out[name] = {"instructions": 0, "FFMA": 0, "LDS": 0}
+        elif name and ln.startswith("/*") and "*/" in ln:
+            words = ln.split("*/", 1)[1].split()
+            if not words or words[0].startswith("/*"):
+                continue  # the encoding's second word
+            op = words[1] if words[0].startswith("@") else words[0]
+            op = op.split(".")[0]
+            out[name]["instructions"] += 1
+            if op in ("FFMA", "LDS"):
+                out[name][op] += 1
+    for v in out.values():
+        v["FFMA_per_LDS"] = v["FFMA"] / max(v["LDS"], 1)
+    return out
+
+
+# The curved rollout kernels (mangled names) in both instantiations: N=3's
+# sizes and the run-time sizes.
+CURVED_ROLLOUT_KERNELS = [
+    k + z for k in ("_Z26sw2d_curved_rollout_kernel",
+                    "_Z30sw2d_curved_rollout_bwd_kernel")
+    for z in ("I5SizesILi10ELi34ELi8EEE", "I5SizesILi0ELi0ELi0EEE")]
+
+
+def check_no_spills(curved: dict):
+    """Fails unless ptxas's report (this build's, or the one kept beside a
+    library built before) covers every instantiation of the two curved
+    rollout kernels and none of them spills."""
+    for k in CURVED_ROLLOUT_KERNELS:
+        found = [v for name, v in curved.items() if name.startswith(k)]
+        if len(found) != 1 or "spill_bytes" not in found[0]:
+            raise RuntimeError(f"no ptxas report of {k}: {found}")
+        if found[0]["spill_bytes"] > 0:
+            raise RuntimeError(f"ptxas spills in {k}: {found[0]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("dense", "blocked", "curved",
@@ -1946,11 +2042,15 @@ def main() -> int:
 
     # ---- build ----
     t0 = time.perf_counter()
-    _build.build_all()
+    libs = _build.build_all()
+    curved = ptxas_summary(_build.last_build_log.get("sw2d_curved", ""))
     say({"phase": "build", "seconds": time.perf_counter() - t0,
          "ptxas": [ln for log in _build.last_build_log.values()
                    for ln in log.splitlines()
-                   if "registers" in ln or "spill" in ln][:32]})
+                   if "registers" in ln or "spill" in ln][:32],
+         "ptxas_curved": curved,
+         "sass_curved_N3": sass_mix(libs["sw2d_curved"],
+                                    lambda n: "Li10ELi34ELi8E" in n)})
 
     rng = np.random.default_rng(0)
     scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
@@ -1967,6 +2067,8 @@ def main() -> int:
         kernels += sharded_phases(dev, card, rng, flush)
 
     say({"phase": "total", "seconds": time.perf_counter() - t_start})
+    if args.only in (None, "curved"):
+        check_no_spills(curved)
     say({"kernels": kernels})
     print(card, flush=True)
     say({"ok": True, "device": {"platform": "gpu",

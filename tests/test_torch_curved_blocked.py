@@ -20,7 +20,7 @@ Pallas kernels in interpret mode (float64), compared at the unpacked
  - the control cotangent is the product of the post-filter cotangent with
    the folded injectors; a wrapper refuses a ``use_filter`` other than the
    one the set was frozen with;
- - input checks, launch counters, chunk size, and that a CUDA-only call
+ - input checks, launch counters, work-unit size, and that a CUDA-only call
    raises here instead of taking the plain version.
 
 The port's operator set is built from the JAX contexts' numpy arrays
@@ -340,7 +340,9 @@ def test_wrappers_check_their_inputs_and_count_only_kernel_launches(disk):
                                   TC.sw2d_curved_rollout_blocked,
                                   TC.sw2d_curved_rollout_bwd_blocked)]
     assert after == before  # plain versions do not count
-    assert TC.chunk_elems(m) == TC.THREADS // max(m.n_cub, 4 * m.n_p) == 10
+    # work unit: elements x scenarios, one thread each; K=24 at B=2 is one
+    # unit of every element and both scenarios
+    assert TC.unit_shape(m, 2) == (24, 2, 64) and TC.n_units(m, 2) == 1
     assert m.n_tr == 3 * m.n_gauss and m.n_t == m.k_elem * m.n_tr
     # the packed buffers hold what the kernels' source unpacks, in order
     sizes = [getattr(o, k).numel() for k in TC._FORDER]
