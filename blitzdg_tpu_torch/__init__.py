@@ -9,8 +9,8 @@ names it. This package imports ``torch`` and ``numpy`` only: never ``jax``,
 ``flax``, ``optax`` or anything of ``blitzdg_tpu``.
 
 Four paths run through kernels so far. The dense path (small meshes, huge
-scenario batches): ``mpc.solve_mpc_fused`` over ``ops.sw2d_fused``, whole
-mesh per thread block. The blocked path (meshes of thousands of elements):
+scenario batches): ``mpc.solve_mpc_fused`` over ``ops.sw2d_fused``, a
+tile of scenarios' whole meshes per thread block, a thread an element. The blocked path (meshes of thousands of elements):
 ``ops.sw2d_blocked`` (``sw2d_step_blocked``, ``sw2d_rollout_blocked``,
 ``make_rollout_blocked``) and ``mpc.solve_mpc_blocked`` /
 ``mpc.solve_mpc_blocked_gn`` over it, mesh split over thread blocks. The

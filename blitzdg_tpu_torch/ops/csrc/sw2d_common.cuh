@@ -1,12 +1,12 @@
 // Shallow-water device functions shared by the dense kernels
-// (sw2d_dense.cu: one block per scenario, whole mesh in shared memory) and
-// the blocked kernels (sw2d_blocked.cu: one block per chunk of elements,
-// neighbours read from global memory): the operator set, everything a trace
-// node needs from the state, the pointwise flux, source and limiter
-// formulas, and the pointwise parts of the hand-derived adjoint. The curved
-// kernels (sw2d_curved.cu) have an operator set of their own and share the
-// helpers that know nothing of it: safe_norm, face_speed_share, block_sum,
-// prepare and coop_launch.
+// (sw2d_dense.cu: one thread per element and scenario, a tile of scenarios
+// in shared memory) and the blocked kernels (sw2d_blocked.cu: one block per
+// chunk of elements, neighbours read from global memory): the operator
+// set, everything a trace node needs from the state, the pointwise flux,
+// source and limiter formulas, and the pointwise parts of the
+// hand-derived adjoint. The curved kernels (sw2d_curved.cu) have an
+// operator set of their own and share the helpers that know nothing of
+// it: safe_norm, face_speed_share, block_sum, prepare and coop_launch.
 //
 // The same derivation, in tensor code, is ops/sw2d_fused.py (_rhs_plain,
 // _rhs_vjp_plain), where it is tested against torch.autograd. Tie rules of
@@ -436,6 +436,147 @@ __device__ __forceinline__ float face_speed_share(
   int cnt = 0;
   for (int j = 0; j < Nfp; ++j) cnt += (spd[f0 + j] == lam) ? 1 : 0;
   return (my_spd == lam) ? lsum / (float)cnt : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// The same formulas for kernels that hold one element of one scenario in a
+// thread (sw2d_dense.cu): the node's geometry comes in as values, read once
+// from the kernel's own tables, instead of through Ops by node index.
+// ---------------------------------------------------------------------------
+
+// add_sources of a node with its bed slopes (Hx, Hy), its control injectors
+// bc[c] = (BU, BV) of control c, and its velocities u = hu / h, vv = hv / h
+// (flat and well-balanced regimes; the dense kernels have no wet/dry
+// branch). ctrl: n_ctrl values, or null.
+__device__ __forceinline__ void add_sources_at(
+    const Ops& o, float h, float hu, float hv, float u, float vv, float Hx,
+    float Hy, const float* ctrl, const float2* bc, int n_ctrl, float& r2,
+    float& r3) {
+  if (o.has_bathy) {
+    r2 += o.g * h * Hx;
+    r3 += o.g * h * Hy;
+  }
+  if (o.cd != 0.0f) {
+    const float nrm = safe_norm(u, vv);
+    r2 -= o.cd * nrm * u;
+    r3 -= o.cd * nrm * vv;
+  }
+  if (o.fcor != 0.0f) {
+    r2 += o.fcor * hv;
+    r3 -= o.fcor * hu;
+  }
+  if (ctrl != nullptr) {
+    for (int c = 0; c < n_ctrl; ++c) {
+      r2 += ctrl[c] * bc[c].x;
+      r3 += ctrl[c] * bc[c].y;
+    }
+  }
+}
+
+// volume_vjp_point with the node's bed slopes given, dividing with the fast
+// reciprocal and reciprocal square root (2 ulp): it decides no tie.
+__device__ __forceinline__ void volume_vjp_fast(
+    const Ops& o, float Hx, float Hy, float h, float hu, float hv, float Fb1,
+    float Fb2, float Fb3, float Gb1, float Gb2, float Gb3, float w2, float w3,
+    float& hb, float& hub, float& hvb) {
+  const float g = o.g;
+  const float inv = __fdividef(1.0f, h), u = hu * inv, vv = hv * inv;
+  const float w23 = Fb3 + Gb2;
+  hub = Fb1 + 2.0f * u * Fb2 + vv * w23;
+  hvb = Gb1 + 2.0f * vv * Gb3 + u * w23;
+  hb = (g * h - u * u) * Fb2 + (g * h - vv * vv) * Gb3 - u * vv * w23;
+  if (o.has_bathy) hb += g * (Hx * w2 + Hy * w3);
+  if (o.cd != 0.0f) {
+    const float r2 = u * u + vv * vv;
+    if (r2 > 0.0f) {
+      const float in = rsqrtf(r2), nrm = r2 * in;
+      const float a2 = -o.cd * w2, a3 = -o.cd * w3;
+      const float ub = a2 * (nrm + u * u * in) + a3 * (u * vv * in);
+      const float vb = a2 * (u * vv * in) + a3 * (nrm + vv * vv * in);
+      hub += ub * inv; hvb += vb * inv;
+      hb -= (ub * u + vb * vv) * inv;
+    }
+  }
+  if (o.fcor != 0.0f) {
+    hvb += o.fcor * w2;
+    hub -= o.fcor * w3;
+  }
+}
+
+// face_vjp_point with fast reciprocals and reciprocal square roots (2 ulp)
+// in the chain rule. The tie rules it applies compare the speeds in tv,
+// which the caller computed exactly, so nothing here decides a tie.
+// hsg: 0.5 sqrt(g).
+__device__ __forceinline__ void face_vjp_fast(
+    const Ops& o, const TraceVals& tv, float lam, float sb, float d1,
+    float d2, float d3, float hsg, float* tM, float* tP) {
+  const float g = o.g;
+  const float wM = tv.spdM > tv.spdP ? 1.0f
+                   : (tv.spdM == tv.spdP ? 0.5f : 0.0f);
+  const float spdMb = sb * wM, spdPb = sb - spdMb;
+  const float nx = tv.nx, ny = tv.ny;
+  const float q1 = -0.5f * lam * d1, q2 = -0.5f * lam * d2;
+  const float q3 = -0.5f * lam * d3;
+  const float Fb1 = 0.5f * nx * d1 + q2, Gb1 = 0.5f * ny * d1 + q3;
+  const float Fb2 = 0.5f * nx * d2, Gb3 = 0.5f * ny * d3;
+  const float w23 = 0.5f * nx * d3 + 0.5f * ny * d2;
+
+  float hMsb = q1, hPsb = -q1;
+  float uMb = 0.0f, vMb = 0.0f, uPb = 0.0f, vPb = 0.0f;
+  float hMb = 0.0f, hPb = 0.0f;
+  if (o.wb) {
+    const float corr_b = d1 + tv.uM * d2 + tv.vM * d3;
+    const float corr = (tv.hM - tv.hMs) * (tv.uM * nx + tv.vM * ny);
+    const float unM = tv.uM * nx + tv.vM * ny;
+    uMb += corr * d2; vMb += corr * d3;
+    hMb += corr_b * unM; hMsb -= corr_b * unM;
+    const float tb = corr_b * (tv.hM - tv.hMs);
+    uMb += tb * nx; vMb += tb * ny;
+  }
+  {
+    const float hs = tv.hMs, u = tv.uM, v = tv.vM;
+    hMsb += u * Fb1 + v * Gb1 + (u * u + g * hs) * Fb2
+            + (v * v + g * hs) * Gb3 + u * v * w23;
+    uMb += hs * (Fb1 + 2.0f * u * Fb2 + v * w23);
+    vMb += hs * (Gb1 + 2.0f * v * Gb3 + u * w23);
+  }
+  {
+    const float hs = tv.hPs, u = tv.uP, v = tv.vP;
+    hPsb -= u * Fb1 + v * Gb1 + (u * u + g * hs) * Fb2
+            + (v * v + g * hs) * Gb3 + u * v * w23;
+    uPb -= hs * (Fb1 + 2.0f * u * Fb2 + v * w23);
+    vPb -= hs * (Gb1 + 2.0f * v * Gb3 + u * w23);
+  }
+  {
+    const float r2M = tv.uM * tv.uM + tv.vM * tv.vM;
+    if (r2M > 0.0f) {
+      const float rn = spdMb * rsqrtf(r2M);
+      uMb += rn * tv.uM; vMb += rn * tv.vM;
+    }
+    if (tv.hMs > 0.0f) hMsb += spdMb * hsg * rsqrtf(tv.hMs);
+    const float r2P = tv.uP * tv.uP + tv.vP * tv.vP;
+    if (r2P > 0.0f) {
+      const float rn = spdPb * rsqrtf(r2P);
+      uPb += rn * tv.uP; vPb += rn * tv.vP;
+    }
+    if (tv.hPs > 0.0f) hPsb += spdPb * hsg * rsqrtf(tv.hPs);
+  }
+  if (tv.passM) hMb += hMsb;
+  if (tv.passP) hPb += hPsb;
+  const float iM = __fdividef(1.0f, tv.hM), iP = __fdividef(1.0f, tv.hP);
+  float huMb = uMb * iM, hvMb = vMb * iM;
+  hMb -= (uMb * tv.uM + vMb * tv.vM) * iM;
+  float huPb = uPb * iP, hvPb = vPb * iP;
+  hPb -= (uPb * tv.uP + vPb * tv.vP) * iP;
+  hPb *= (1.0f - tv.obc);
+  if (tv.wall) {
+    const float unb = -2.0f * (nx * huPb + ny * hvPb);
+    huMb += huPb + nx * unb;
+    hvMb += hvPb + ny * unb;
+    huPb = 0.0f; hvPb = 0.0f;
+  }
+  tM[0] = hMb; tM[1] = huMb; tM[2] = hvMb;
+  tP[0] = hPb; tP[1] = huPb; tP[2] = hvPb;
 }
 
 struct Vec3 { float *a, *b, *c; };

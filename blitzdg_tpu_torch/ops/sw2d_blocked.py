@@ -9,8 +9,8 @@ path's stage kernels ``sw2d_stage_blocked`` (lean-I/O mode only) and
 ``sw2d_stage_bwd_blocked_v2`` and its one-launch step
 ``sw2d_step_rdma_blocked``, over a ``ShardOps`` set, which
 ``parallel/blocked_shard.py`` builds and drives). The dense kernels
-(``sw2d_fused.py``) hold one scenario's whole mesh in one block's shared
-memory, which ends near K = 200 elements. Here the mesh is split over blocks
+(``sw2d_fused.py``) hold one scenario's whole mesh in one block, a
+thread an element, which ends at a few hundred elements. Here the mesh is split over blocks
 (work unit: scenario x chunk of elements), neighbours are read from global
 memory, and grid-wide barriers separate the RK stages inside one persistent
 cooperative launch (``csrc/sw2d_blocked.cu``).

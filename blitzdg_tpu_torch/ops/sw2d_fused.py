@@ -4,8 +4,9 @@ PyTorch versions and the differentiable rollout built on them.
 Counterpart of the JAX package's ``blitzdg_tpu/ops/sw2d_pallas.py``. One
 SSP-RK2 step is 2 RHS evaluations + modal filter + axpy updates; a rollout
 is the whole horizon; the backward rollout is its adjoint sweep. Each is one
-kernel launch in which the state never leaves the SM (``csrc/sw2d_dense.cu``,
-built by ``_build.py``).
+kernel launch in which the state never leaves the SM: one thread per
+(element, scenario), the state in registers (``csrc/sw2d_dense.cu``, built
+by ``_build.py``).
 
 Physics, as in the JAX kernels: wall reflection, tidal BC_OUT forcing
 hP = h0 + amp*cos(omega t)*ramp, hydrostatic-reconstruction well-balanced
@@ -53,10 +54,9 @@ from ..context import BC_OUT, BC_WALL, DGContext2D, _tree_to
 from .limiters import surface_reconstruction
 from .sw2d import SWPhysics
 
-# Threads of one block (one block per scenario). The kernels loop over nodes
-# with this stride, so any multiple of 32 is valid.
-THREADS = 128
-# Dynamic shared memory one block can have on an H100.
+# Dynamic shared memory one block can have on an H100: the unit sizing of
+# the blocked and curved wrappers reads it. The dense kernels' launcher asks
+# the device itself and picks its tile of scenarios there.
 MAX_SMEM_BYTES = 232448
 
 
@@ -747,10 +747,14 @@ def _lib():
     D = ctypes.POINTER(_SwDesc)
     lib.sw2d_smem_bytes.argtypes = [D, I, I]
     lib.sw2d_smem_bytes.restype = ctypes.c_longlong
-    lib.sw2d_step.argtypes = [D, P, P] + [P] * 7 + [I, F, F, I, I, P]
-    lib.sw2d_rollout.argtypes = [D, P, P] + [P] * 7 + [I, I, I, F, F, I, I, P]
+    lib.sw2d_dense_tile.argtypes = [D, I, I]
+    lib.sw2d_dense_tile.restype = I
+    lib.sw2d_dense_last_tile.argtypes = []
+    lib.sw2d_dense_last_tile.restype = I
+    lib.sw2d_step.argtypes = [D, P, P] + [P] * 7 + [I, F, F, I, P]
+    lib.sw2d_rollout.argtypes = [D, P, P] + [P] * 7 + [I, I, I, F, F, I, P]
     lib.sw2d_rollout_bwd.argtypes = (
-        [D, P, P] + [P] * 11 + [I, I, I, F, F, I, I, P])
+        [D, P, P] + [P] * 11 + [I, I, I, F, F, I, P])
     for fn in (lib.sw2d_step, lib.sw2d_rollout, lib.sw2d_rollout_bwd):
         fn.restype = I
     lib._sw2d_typed = True
@@ -768,6 +772,10 @@ def _check_tensor(name: str, t: torch.Tensor, shape: tuple, ref: torch.Tensor):
         raise ValueError(f"{name}: the kernel needs a contiguous tensor")
 
 
+# which kernel, as the launcher numbers them
+_STEP, _ROLLOUT, _BWD = 0, 1, 2
+
+
 def _check_kernel_inputs(ops: FusedStepOps, meta: FusedStepMeta,
                          ref: torch.Tensor, which: int):
     """What the kernels do not take raises here (no fallback)."""
@@ -780,17 +788,80 @@ def _check_kernel_inputs(ops: FusedStepOps, meta: FusedStepMeta,
                          "sponge; use the blocked kernels")
     lib = _lib()
     desc = _desc(meta)
-    need = lib.sw2d_smem_bytes(ctypes.byref(desc), which, THREADS)
-    if need > MAX_SMEM_BYTES:
+    tile = lib.sw2d_dense_tile(ctypes.byref(desc), ref.shape[0], which)
+    if tile < 0:
+        raise RuntimeError(f"CUDA error {-tile} while sizing the launch")
+    if tile == 0:
         raise ValueError(
-            f"K={meta.k_elem}, Np={meta.n_p} needs {need} bytes of shared "
-            f"memory per block; a block can have {MAX_SMEM_BYTES}")
+            f"K={meta.k_elem}, Np={meta.n_p}: one scenario's mesh does not "
+            "fit one block of the dense kernels (a thread per element); use "
+            "the blocked kernels")
     return lib, desc
 
 
 def _launch_check(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _launch_stream(t: torch.Tensor):
+    """The stream a launch goes to: the current one of a CUDA tensor's
+    device; none for the CPU (a build of the kernels' source for the host,
+    in the tests)."""
+    return torch.cuda.current_stream(t.device).cuda_stream if t.is_cuda \
+        else None
+
+
+def last_tile() -> int:
+    """Scenarios a block of the last dense kernel launch took."""
+    return int(_lib().sw2d_dense_last_tile())
+
+
+def _run_step(ops, meta, h, hu, hv, ctrl, dt, use_filter, t0):
+    """The step kernel's launch (the shapes checked by the caller)."""
+    lib, desc = _check_kernel_inputs(ops, meta, h, _STEP)
+    oh, ohu, ohv = (torch.empty_like(h) for _ in range(3))
+    err = lib.sw2d_step(
+        ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
+        h.data_ptr(), hu.data_ptr(), hv.data_ptr(), ctrl.data_ptr(),
+        oh.data_ptr(), ohu.data_ptr(), ohv.data_ptr(), h.shape[0], float(dt),
+        float(t0), int(use_filter), _launch_stream(h))
+    _launch_check(err, "sw2d_step_fused")
+    return oh, ohu, ohv
+
+
+def _run_rollout(ops, meta, h, hu, hv, ctrls, dt, spc, use_filter, t0):
+    """The rollout kernel's launch (the shapes checked by the caller)."""
+    lib, desc = _check_kernel_inputs(ops, meta, h, _ROLLOUT)
+    B, n_cs = h.shape[0], ctrls.shape[1]
+    shape = (B, n_cs * spc + 1, meta.n_v)
+    th, thu, thv = (torch.empty(shape, dtype=h.dtype, device=h.device)
+                    for _ in range(3))
+    err = lib.sw2d_rollout(
+        ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
+        h.data_ptr(), hu.data_ptr(), hv.data_ptr(), ctrls.data_ptr(),
+        th.data_ptr(), thu.data_ptr(), thv.data_ptr(), B, n_cs, int(spc),
+        float(dt), float(t0), int(use_filter), _launch_stream(h))
+    _launch_check(err, "sw2d_rollout_fused")
+    return th, thu, thv
+
+
+def _run_rollout_bwd(ops, meta, traj, tb, ctrls, dt, spc, use_filter, t0):
+    """The adjoint kernel's launch (the shapes checked by the caller)."""
+    traj_h = traj[0]
+    lib, desc = _check_kernel_inputs(ops, meta, traj_h, _BWD)
+    B = traj_h.shape[0]
+    xb = [torch.empty((B, meta.n_v), dtype=traj_h.dtype, device=traj_h.device)
+          for _ in range(3)]
+    cb = torch.empty_like(ctrls)
+    err = lib.sw2d_rollout_bwd(
+        ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
+        *(t.data_ptr() for t in traj), *(t.data_ptr() for t in tb),
+        ctrls.data_ptr(), *(x.data_ptr() for x in xb), cb.data_ptr(), B,
+        ctrls.shape[1], int(spc), float(dt), float(t0), int(use_filter),
+        _launch_stream(traj_h))
+    _launch_check(err, "sw2d_rollout_bwd_fused")
+    return xb[0], xb[1], xb[2], cb
 
 
 def sw2d_step_fused(ops: FusedStepOps, meta: FusedStepMeta, h, hu, hv, ctrl,
@@ -801,9 +872,9 @@ def sw2d_step_fused(ops: FusedStepOps, meta: FusedStepMeta, h, hu, hv, ctrl,
     Replaces the TPU kernel ``_step_kernel`` / ``sw2d_step_pallas`` of
     ``blitzdg_tpu/ops/sw2d_pallas.py``. On the card it is bound by
     operations, not bytes: a step reads and writes 3*nV floats per scenario
-    and spends some hundred float32 operations per node on them. The design
-    keeps state, stage and fluxes in shared memory, one block per scenario,
-    so that device memory sees only the state in and the state out.
+    and spends some hundred float32 operations per node on them. One thread
+    per (element, scenario), a tile of scenarios a block, neighbours met in
+    shared memory (design: the kernels' source).
     """
     B = h.shape[0]
     for name, t in (("h", h), ("hu", hu), ("hv", hv)):
@@ -811,17 +882,9 @@ def sw2d_step_fused(ops: FusedStepOps, meta: FusedStepMeta, h, hu, hv, ctrl,
     _check_tensor("ctrl", ctrl, (B, meta.n_ctrl), h)
     if h.device.type == "cpu":
         return sw2d_step_plain(ops, meta, h, hu, hv, ctrl, dt, use_filter, t0)
-    lib, desc = _check_kernel_inputs(ops, meta, h, 0)
-    oh, ohu, ohv = (torch.empty_like(h) for _ in range(3))
-    err = lib.sw2d_step(
-        ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
-        h.data_ptr(), hu.data_ptr(), hv.data_ptr(), ctrl.data_ptr(),
-        oh.data_ptr(), ohu.data_ptr(), ohv.data_ptr(), B, float(dt),
-        float(t0), int(use_filter), THREADS,
-        torch.cuda.current_stream(h.device).cuda_stream)
-    _launch_check(err, "sw2d_step_fused")
+    out = _run_step(ops, meta, h, hu, hv, ctrl, dt, use_filter, t0)
     sw2d_step_fused.launches += 1
-    return oh, ohu, ohv
+    return out
 
 
 sw2d_step_fused.launches = 0
@@ -838,8 +901,8 @@ def sw2d_rollout_fused(ops: FusedStepOps, meta: FusedStepMeta, h, hu, hv,
     ``blitzdg_tpu/ops/sw2d_pallas.py``. Device memory must take the whole
     trajectory (3*(n_steps+1)*nV floats per scenario), but the arithmetic of
     2*n_steps RHS evaluations outweighs it: the kernel is bound by
-    operations. The state stays in shared memory across all steps and only
-    the step-start states are stored.
+    operations. Each thread keeps its element's state in registers across
+    all steps; only the step-start states are stored.
     """
     B = h.shape[0]
     for name, t in (("h", h), ("hu", hu), ("hv", hv)):
@@ -851,19 +914,9 @@ def sw2d_rollout_fused(ops: FusedStepOps, meta: FusedStepMeta, h, hu, hv,
     if h.device.type == "cpu":
         return sw2d_rollout_plain(ops, meta, h, hu, hv, ctrls, dt, spc,
                                   use_filter, t0)
-    lib, desc = _check_kernel_inputs(ops, meta, h, 0)
-    shape = (B, n_cs * spc + 1, meta.n_v)
-    th, thu, thv = (torch.empty(shape, dtype=h.dtype, device=h.device)
-                    for _ in range(3))
-    err = lib.sw2d_rollout(
-        ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
-        h.data_ptr(), hu.data_ptr(), hv.data_ptr(), ctrls.data_ptr(),
-        th.data_ptr(), thu.data_ptr(), thv.data_ptr(), B, n_cs, int(spc),
-        float(dt), float(t0), int(use_filter), THREADS,
-        torch.cuda.current_stream(h.device).cuda_stream)
-    _launch_check(err, "sw2d_rollout_fused")
+    out = _run_rollout(ops, meta, h, hu, hv, ctrls, dt, spc, use_filter, t0)
     sw2d_rollout_fused.launches += 1
-    return th, thu, thv
+    return out
 
 
 sw2d_rollout_fused.launches = 0
@@ -883,9 +936,10 @@ def sw2d_rollout_bwd_fused(ops: FusedStepOps, meta: FusedStepMeta,
     derived by hand (see ``sw2d_rollout_bwd_plain``). It must read the
     trajectory and its cotangent once (6*(n_steps+1)*nV floats per
     scenario) and does about three RHS evaluations' worth of arithmetic per
-    step: bound by operations. Per step it reloads s_t into shared memory,
-    recomputes stage 1 there and applies the RHS adjoint twice; the control
-    cotangent is summed per thread and reduced once per control block.
+    step: bound by operations. Per step each thread reloads its element of
+    s_t, recomputes stage 1 and applies the RHS adjoint twice, lambda held
+    in registers; the control cotangent is summed per thread and reduced
+    once per control interval.
     """
     B, n1, _ = traj_h.shape
     n_cs = ctrls.shape[1]
@@ -901,20 +955,11 @@ def sw2d_rollout_bwd_fused(ops: FusedStepOps, meta: FusedStepMeta,
         return sw2d_rollout_bwd_plain(ops, meta, traj_h, traj_hu, traj_hv,
                                       tb_h, tb_hu, tb_hv, ctrls, dt, spc,
                                       use_filter, t0)
-    lib, desc = _check_kernel_inputs(ops, meta, traj_h, 1)
-    xb = [torch.empty((B, meta.n_v), dtype=traj_h.dtype, device=traj_h.device)
-          for _ in range(3)]
-    cb = torch.empty_like(ctrls)
-    err = lib.sw2d_rollout_bwd(
-        ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
-        traj_h.data_ptr(), traj_hu.data_ptr(), traj_hv.data_ptr(),
-        tb_h.data_ptr(), tb_hu.data_ptr(), tb_hv.data_ptr(), ctrls.data_ptr(),
-        xb[0].data_ptr(), xb[1].data_ptr(), xb[2].data_ptr(), cb.data_ptr(),
-        B, n_cs, int(spc), float(dt), float(t0), int(use_filter), THREADS,
-        torch.cuda.current_stream(traj_h.device).cuda_stream)
-    _launch_check(err, "sw2d_rollout_bwd_fused")
+    out = _run_rollout_bwd(ops, meta, (traj_h, traj_hu, traj_hv),
+                           (tb_h, tb_hu, tb_hv), ctrls, dt, spc, use_filter,
+                           t0)
     sw2d_rollout_bwd_fused.launches += 1
-    return xb[0], xb[1], xb[2], cb
+    return out
 
 
 sw2d_rollout_bwd_fused.launches = 0

@@ -11,18 +11,21 @@ in order (any failure is an exception and a non-zero exit):
 
  1. refuses to run without a CUDA device;
  2. builds the CUDA kernels of ``blitzdg_tpu_torch/ops/csrc`` with nvcc and
-    prints what ptxas reports (registers, stack, spills) of the curved
-    kernels (a library built by an earlier run keeps its report beside
-    it); it fails at the end of the run if either instantiation of a
-    curved rollout kernel spills or has no report;
- 3. DENSE path (small meshes, one block per scenario). Holds each kernel
-    (``sw2d_step_fused``, ``sw2d_rollout_fused``, ``sw2d_rollout_bwd_fused``)
-    against its plain PyTorch version on the card, at the headline shape
-    (B=2048 scenarios, K=40 triangles, N=1, 32 SSP-RK2 steps, coastal
-    physics, float32) and on a flat-bottom and an N=2 case (tolerances: see
-    the constants below), and times kernel and plain version with CUDA
-    events. Then drives the main path: the full headline coastal MPC solve
-    (20 Adam iterations over the fused rollout and its adjoint) through
+    prints what ptxas reports (registers, stack, spills) of the curved and
+    dense kernels and their static SASS mix (a library built by an earlier
+    run keeps its report beside it); it fails at the end of the run if
+    either instantiation of a curved rollout kernel or of a dense kernel
+    (of the paths run) spills or has no report;
+ 3. DENSE path (small meshes, one thread per element and scenario). Holds
+    each kernel (``sw2d_step_fused``, ``sw2d_rollout_fused``,
+    ``sw2d_rollout_bwd_fused``) against its plain PyTorch version on the
+    card, at the headline shape (B=2048 scenarios, K=40 triangles, N=1, 32
+    SSP-RK2 steps, coastal physics, float32), from its exact rest start,
+    and on a flat-bottom and an N=2 case (tolerances: see the constants
+    below; the adjoint also gives the same bits on a rerun), and times
+    kernel and plain version with CUDA events. Then drives the main path:
+    the full headline coastal MPC solve (20 Adam iterations over the fused
+    rollout and its adjoint) through
     ``solve_mpc_fused``, then one closed-loop plant advance with the first
     optimized control through ``advance_plant_fused``. Launch counters are
     zeroed just before and read just after. Cross-checks the solve against
@@ -322,7 +325,8 @@ def check_case(F, name, ops, meta, h, hu, hv, ctrls, dt, spc, t0,
     err = max_abs(got, ref)
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     rec = {"case": name, "kernel": "sw2d_rollout_fused", "max_abs_err": err,
-           "tol": rollout_atol, "ok": finite and err <= rollout_atol}
+           "tol": rollout_atol, "tile": F.last_tile() if h.is_cuda else None,
+           "ok": finite and err <= rollout_atol}
     if timed:
         rec["ms"] = time_ms(lambda: F.sw2d_rollout_fused(
             ops, meta, h, hu, hv, ctrls, dt, spc, True, t0), 9, flush)
@@ -341,9 +345,12 @@ def check_case(F, name, ops, meta, h, hu, hv, ctrls, dt, spc, t0,
           for _ in range(3)]
     gk = F.sw2d_rollout_bwd_fused(ops, meta, *traj, *tb, ctrls, dt, spc,
                                   True, t0)
+    again = F.sw2d_rollout_bwd_fused(ops, meta, *traj, *tb, ctrls, dt, spc,
+                                     True, t0)
     gp = F.sw2d_rollout_bwd_plain(ops, meta, *traj, *tb, ctrls, dt, spc,
                                   True, t0)
     torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(gk, again))
     per = scenario_rel(gk, gp)  # (B,)
     p99, worst = float(torch.quantile(per, 0.99)), float(per.max())
     finite = all(bool(torch.isfinite(g).all()) for g in gk)
@@ -351,8 +358,10 @@ def check_case(F, name, ops, meta, h, hu, hv, ctrls, dt, spc, t0,
            "max_abs_err": max_abs(gk, gp), "max_rel_err": worst,
            "p99_rel_err": p99,
            "scenarios_above_bulk_tol": int((per > BWD_RTOL_BULK).sum()),
-           "tol": list(bwd_rtol),
-           "ok": finite and p99 <= bwd_rtol[0] and worst <= bwd_rtol[1]}
+           "tol": list(bwd_rtol), "same_bits_on_rerun": same_bits,
+           "tile": F.last_tile() if h.is_cuda else None,
+           "ok": (finite and same_bits and p99 <= bwd_rtol[0]
+                  and worst <= bwd_rtol[1])}
     if timed:
         rec["ms"] = time_ms(lambda: F.sw2d_rollout_bwd_fused(
             ops, meta, *traj, *tb, ctrls, dt, spc, True, t0), 9, flush)
@@ -1968,8 +1977,9 @@ def ptxas_summary(log: str) -> dict:
 def sass_mix(lib, keep=lambda name: True) -> dict:
     """Static instruction counts of the kernels of a built library, from
     ``cuobjdump -sass`` (the toolkit's, beside nvcc), by mangled name: all
-    instructions, FFMA, and shared-memory loads (LDS, any width). Static:
-    a loop's body counts once, whatever its trip count."""
+    instructions, FFMA, shared-memory loads (LDS, any width) and block
+    barriers (BAR). Static: a loop's body counts once, whatever its trip
+    count."""
     from blitzdg_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -1983,7 +1993,7 @@ def sass_mix(lib, keep=lambda name: True) -> dict:
             if not keep(name):
                 name = None
                 continue
-            out[name] = {"instructions": 0, "FFMA": 0, "LDS": 0}
+            out[name] = {"instructions": 0, "FFMA": 0, "LDS": 0, "BAR": 0}
         elif name and ln.startswith("/*") and "*/" in ln:
             words = ln.split("*/", 1)[1].split()
             if not words or words[0].startswith("/*"):
@@ -1991,7 +2001,7 @@ def sass_mix(lib, keep=lambda name: True) -> dict:
             op = words[1] if words[0].startswith("@") else words[0]
             op = op.split(".")[0]
             out[name]["instructions"] += 1
-            if op in ("FFMA", "LDS"):
+            if op in ("FFMA", "LDS", "BAR"):
                 out[name][op] += 1
     for v in out.values():
         v["FFMA_per_LDS"] = v["FFMA"] / max(v["LDS"], 1)
@@ -2004,14 +2014,20 @@ CURVED_ROLLOUT_KERNELS = [
     k + z for k in ("_Z26sw2d_curved_rollout_kernel",
                     "_Z30sw2d_curved_rollout_bwd_kernel")
     for z in ("I5SizesILi10ELi34ELi8EEE", "I5SizesILi0ELi0ELi0EEE")]
+# The three dense kernels in both instantiations: N=1 with two controls and
+# the run-time sizes.
+DENSE_KERNELS = [
+    k + z for k in ("_Z16sw2d_step_kernel", "_Z19sw2d_rollout_kernel",
+                    "_Z23sw2d_rollout_bwd_kernel")
+    for z in ("I6DSizesILi3ELi2ELi2EEE", "I6DSizesILi0ELi0ELi0EEE")]
 
 
-def check_no_spills(curved: dict):
+def check_no_spills(report: dict, kernels: list):
     """Fails unless ptxas's report (this build's, or the one kept beside a
-    library built before) covers every instantiation of the two curved
-    rollout kernels and none of them spills."""
-    for k in CURVED_ROLLOUT_KERNELS:
-        found = [v for name, v in curved.items() if name.startswith(k)]
+    library built before) covers every kernel named (by mangled-name
+    prefix) and none of them spills."""
+    for k in kernels:
+        found = [v for name, v in report.items() if name.startswith(k)]
         if len(found) != 1 or "spill_bytes" not in found[0]:
             raise RuntimeError(f"no ptxas report of {k}: {found}")
         if found[0]["spill_bytes"] > 0:
@@ -2044,13 +2060,16 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     curved = ptxas_summary(_build.last_build_log.get("sw2d_curved", ""))
+    dense = ptxas_summary(_build.last_build_log.get("sw2d_dense", ""))
     say({"phase": "build", "seconds": time.perf_counter() - t0,
          "ptxas": [ln for log in _build.last_build_log.values()
                    for ln in log.splitlines()
                    if "registers" in ln or "spill" in ln][:32],
-         "ptxas_curved": curved,
+         "ptxas_curved": curved, "ptxas_dense": dense,
          "sass_curved_N3": sass_mix(libs["sw2d_curved"],
-                                    lambda n: "Li10ELi34ELi8E" in n)})
+                                    lambda n: "Li10ELi34ELi8E" in n),
+         "sass_dense": sass_mix(libs["sw2d_dense"],
+                                lambda n: "_kernel" in n)})
 
     rng = np.random.default_rng(0)
     scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
@@ -2068,7 +2087,9 @@ def main() -> int:
 
     say({"phase": "total", "seconds": time.perf_counter() - t_start})
     if args.only in (None, "curved"):
-        check_no_spills(curved)
+        check_no_spills(curved, CURVED_ROLLOUT_KERNELS)
+    if args.only in (None, "dense"):
+        check_no_spills(dense, DENSE_KERNELS)
     say({"kernels": kernels})
     print(card, flush=True)
     say({"ok": True, "device": {"platform": "gpu",
