@@ -10,7 +10,9 @@ for the port with nothing cut:
    exp(-10 (x^2+y^2)) at rest, 2048 steps at B=1 and B=8; S=1 shard (the
    bench row) or S=4 (``partition_mesh`` into 4 blocks of 512 elements,
    which gives a real halo); through the fused step (two stage launches
-   a step) or the one-launch step (``make_sharded_blocked_step_rdma``);
+   a step) or the one-launch step (``make_sharded_blocked_step_rdma``), a
+   step at a time from the host (``sharded_rollout``) or replayed from one
+   CUDA graph (``capture_sharded_rollout``);
  - sharded MPC (``examples/mpc_sharded.py``): rest at depth 10, two
    Gaussian-bump momentum injectors, one control vector per step for 8
    steps, the target the terminal ``hu`` under the hidden controls
@@ -119,6 +121,60 @@ def sharded_rollout(r: ShardedRollout, n_steps: int | None = None,
     for i in range(r.n_steps if n_steps is None else n_steps):
         carry = step(carry, i * r.dt)
     return carry[0]
+
+
+def capture_sharded_rollout(r: ShardedRollout, n_steps: int | None = None,
+                            make_step: Callable =
+                            make_sharded_blocked_step_fused) -> Callable:
+    """``sharded_rollout`` recorded into one CUDA graph: every step's
+    exchange gather and kernel launch(es) of ``n_steps`` (default
+    ``r.n_steps``) steps of ``make_step``'s step, each step's time
+    ``i * r.dt`` baked into its launch. Returns ``replay(state=None)``,
+    which copies ``state`` (default ``r.state``) into the graph's static
+    input, replays the graph and returns the end state: the graph's own
+    tensors, overwritten by the next replay. The steps' outputs live in the
+    graph's memory pool. The counterpart of the JAX package's jitted
+    ``lax.scan`` over the steps: a step then costs what the card takes, not
+    the host's calls.
+
+    Needs the card: raises for a CPU problem, and a failure to capture or to
+    replay raises too (nothing falls back to the per-step loop). Before the
+    capture one step runs on a side stream, so that the kernels are built
+    and their launch plans made outside the graph; the one-launch step's
+    scratch is made there too, outside the graph's pool, and reused by
+    every recorded launch. The graph reads the step's own tensors (the
+    exchange's index tables, that scratch), so ``replay`` holds the step
+    (``replay.step``) as long as the graph. The wrappers' launch counters
+    count the launches the capture records; a replay adds nothing to
+    them."""
+    device = r.state[0].device
+    if device.type != "cuda":
+        raise RuntimeError(
+            "capture_sharded_rollout records a CUDA graph, which needs the "
+            f"card; this problem lies on {device} (use sharded_rollout)")
+    n = r.n_steps if n_steps is None else n_steps
+    step = make_step(r.sb, r.dt)
+    static = tuple(f.clone() for f in r.state)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        step((static, initial_send_buffer(r.sb, static)), 0.0)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        carry = (static, initial_send_buffer(r.sb, static))
+        for i in range(n):
+            carry = step(carry, i * r.dt)
+    end = carry[0]
+
+    def replay(state=None):
+        for dst, src in zip(static, r.state if state is None else state):
+            dst.copy_(src)
+        graph.replay()
+        return end
+
+    replay.step = step  # what the graph reads besides its pool and r
+    return replay
 
 
 class ShardedMPC(NamedTuple):

@@ -9,10 +9,12 @@
 //                                    element-sharded set, the inter-stage
 //                                    halo exchanged inside the launch
 //
-// They replace the Pallas TPU kernels _step_kernel, _rollout_kernel and
-// _rollout_bwd_kernel of blitzdg_tpu/ops/sw2d_blocked.py. Those run one
-// scenario's whole mesh on one core, packed (p, NP, M) with roll-based trace
-// exchange. Here a mesh of thousands of elements does not fit one block's
+// The first three replace the Pallas TPU kernels _step_kernel,
+// _rollout_kernel and _rollout_bwd_kernel of blitzdg_tpu/ops/sw2d_blocked.py
+// (the sharded kernels: their own sections below; the stage kernel and the
+// one-launch step share a design of their own, P lanes an element). Those
+// run one scenario's whole mesh on one core, packed (p, NP, M) with
+// roll-based trace exchange. Here a mesh of thousands of elements does not fit one block's
 // shared memory, so the work unit is (scenario, chunk of E elements): a block
 // holds its chunk's state, fluxes and jumps in shared memory and does
 // derivative, lift, filter and limiter per element with FMAs, while the '+'
@@ -125,37 +127,24 @@ struct SendTo {
 
 __device__ __forceinline__ float* send_slot(const SendTo& to, int j) {
   float* p = to.buf + 3 * j;
-  return to.shard == nullptr ? p : p + to.shard[j] * to.stride;
+  return to.shard == nullptr ? p : p + __ldg(to.shard + j) * to.stride;
 }
 
-// Zeros in the empty send slots (the one slot of an unsharded plan).
-__device__ __forceinline__ void zero_empty_slots(const Ops& o,
-                                                 const SendTo& to) {
-  for (int j = threadIdx.x; j < o.n_send; j += blockDim.x)
-    if (o.send_node[j] < 0) {
-      float* p = send_slot(to, j);
-      p[0] = p[1] = p[2] = 0.0f;
-    }
+// Sponge relaxation toward rest (h = H where there is bathymetry, no flow)
+// of volume node v.
+__device__ __forceinline__ void sponge_relax(const Ops& o, int v, float dt,
+                                             float& h, float& hu, float& hv) {
+  const float fac = 1.0f / (1.0f + dt * __ldg(o.SPNG + v));
+  if (o.has_bathy) { const float H = __ldg(o.H + v); h = H + (h - H) * fac; }
+  hu *= fac; hv *= fac;
 }
 
-// Sponge relaxation toward rest (h = H where there is bathymetry, no flow),
-// then the store of one volume node, and of the send slots that read it.
+// The sponge (if asked), then the store of one volume node.
 __device__ __forceinline__ void finish_node(const Ops& o, int v, float h,
                                             float hu, float hv, bool sponge,
-                                            float dt, const W3& out,
-                                            const SendTo& sb) {
-  if (sponge) {
-    const float fac = 1.0f / (1.0f + dt * o.SPNG[v]);
-    if (o.has_bathy) { const float H = o.H[v]; h = H + (h - H) * fac; }
-    hu *= fac; hv *= fac;
-  }
+                                            float dt, const W3& out) {
+  if (sponge) sponge_relax(o, v, dt, h, hu, hv);
   out.a[v] = h; out.b[v] = hu; out.c[v] = hv;
-  if (sb.buf != nullptr) {
-    for (int q = o.send_ptr[v]; q < o.send_ptr[v + 1]; ++q) {
-      float* p = send_slot(sb, o.send_idx[q]);
-      p[0] = h; p[1] = hu; p[2] = hv;
-    }
-  }
 }
 
 // One RK stage of one work unit (elements e0 .. e0+ne of one scenario):
@@ -164,15 +153,13 @@ __device__ __forceinline__ void finish_node(const Ops& o, int v, float h,
 // in: the scenario's whole stage input in global memory (neighbours are read
 // from it); base, out: the scenario's fields, touched at own nodes only (they
 // may be the same buffer); copy: where to store the unit's part of `in` as
-// well, or null pointers. One shard of a sharded set: rb, the scenario's
-// receive buffer (cut-face '+' values), and sb, where its send slots go
-// (written at the slots that read the unit's own nodes); none otherwise.
+// well, or null pointers. (The sharded kernels have a stage of their own,
+// qstage below.)
 __device__ void stage(const Ops& o, const Scratch& s, int e0, int ne,
                       const P3& in, const P3& base, const W3& out,
                       const W3& copy, float coef, float t, float dt,
                       const float* ctrl, int use_filter, bool limit,
-                      bool sponge, const float* rb = nullptr,
-                      SendTo sb = SendTo{nullptr, nullptr, 0}) {
+                      bool sponge) {
   const int tid = threadIdx.x, nth = blockDim.x;
   const int Np = o.Np, Ntr = o.Ntr, Nfp = o.Nfp;
   const int nl = ne * Np, tl = ne * Ntr, v0 = e0 * Np, i0 = e0 * Ntr;
@@ -187,7 +174,7 @@ __device__ void stage(const Ops& o, const Scratch& s, int e0, int ne,
   }
   for (int l = tid; l < tl; l += nth) {
     TraceVals tv;
-    trace_values(o, i0 + l, in.a, in.b, in.c, h_bc, tv, rb);
+    trace_values(o, i0 + l, in.a, in.b, in.c, h_bc, tv);
     trace_flux_pre(o, tv, s.pre.a[l], s.pre.b[l], s.pre.c[l]);
     trace_jumps(o, tv, s.dq.a[l], s.dq.b[l], s.dq.c[l]);
     s.spd[l] = fmaxf(tv.spdM, tv.spdP);
@@ -258,7 +245,7 @@ __device__ void stage(const Ops& o, const Scratch& s, int e0, int ne,
     if (limit) {
       s.Out.a[l] = a; s.Out.b[l] = b; s.Out.c[l] = c;
     } else {
-      finish_node(o, v, a, b, c, sponge, dt, out, sb);
+      finish_node(o, v, a, b, c, sponge, dt, out);
     }
   }
   if (limit) {
@@ -294,7 +281,7 @@ __device__ void stage(const Ops& o, const Scratch& s, int e0, int ne,
       const float hv = hvmean + theta * (s.Out.c[l] - hvmean);
       const float taper =
           fminf(fmaxf((h - floor_) / (4.0f * floor_), 0.0f), 1.0f);
-      finish_node(o, v0 + l, h, hu * taper, hv * taper, sponge, dt, out, sb);
+      finish_node(o, v0 + l, h, hu * taper, hv * taper, sponge, dt, out);
     }
   }
   __syncthreads();  // the scratch is reused by the block's next unit
@@ -625,35 +612,75 @@ __global__ void sw2d_blocked_barrier_probe_kernel(int n) {
 }
 
 // ---------------------------------------------------------------------------
-// One RK stage of an element-sharded set, and its adjoint
+// The element-sharded set: one RK stage (B7) and one whole step (B9)
 // ---------------------------------------------------------------------------
 //
 // sw2d_stage_kernel replaces _stage_kernel / sw2d_stage_blocked (lean-I/O
-// mode) and sw2d_stage_bwd_kernel replaces _stage_bwd_kernel_v2 /
-// sw2d_stage_bwd_blocked_v2 of blitzdg_tpu/ops/sw2d_blocked.py. The TPU
-// kernels run one shard's packed mesh per program and move the halo with
-// one-hot matmuls (RG/RL in, SGEM/SL out). Here a launch covers every shard
-// of a stacked set (work unit: shard, scenario, chunk of elements; each
-// shard's operators are one row of the packed buffers), the receive buffer
-// is read where vmapP points past the shard's own nodes, and the send
-// buffer is written through the inverse of the send list by the unit that
-// owns each node. A stage reads `cur` and writes `out`, so the forward needs
-// no grid barrier: an ordinary launch. The adjoint's transposed '+' gather
-// crosses blocks: two phases around one grid barrier, as in the rollout
-// adjoint above, and the receive slots' cotangents are the receive part of
-// that gather. No atomics; the control cotangent is summed per unit and the
-// units' sums are added in a fixed order.
+// mode) and sw2d_step_rdma_kernel replaces _step_kernel_rdma /
+// sw2d_step_rdma_blocked of blitzdg_tpu/ops/sw2d_blocked.py. The TPU kernels
+// run one shard's packed mesh a program and move the halo with one-hot
+// matmuls (the stage) or by remote DMA after a READY handshake (the step).
+// Here one launch covers every shard of a stacked set (each shard's
+// operators are one row of the packed buffers), the receive buffer is read
+// where vmapP points past the shard's own nodes, and each send slot is
+// written by the lane that owns its node, through the inverse of the send
+// list: one writer a slot, no atomics, the same bits on a rerun.
 //
-// Bound on the card: bytes (the states read and written outweigh one RHS
-// or one RHS adjoint per node at the card's float32 rate). At the sharded configuration's shapes a
-// stage is a few microseconds of work, so launch and host time dominate a
-// step (PERF.md).
+// The one-launch step runs two phases around ONE grid barrier:
+//   1. stage 1 (c_dt = dt/2, no sponge) from the step-start state and the
+//      step-boundary receive buffer rb; s1 goes to a scratch triple, and
+//      each of s1's send slots is stored straight into slot j of the
+//      RECEIVING shard's stage-2 receive buffer rb2 (shard s, chunk d ->
+//      shard (s + offs[d]) mod S: the ring exchange's reverse source
+//      table). That is the remote copy of the TPU kernel, and how a store
+//      into a peer card's memory would go;
+//   2. the grid barrier stands for the READY handshake and for stage 2's
+//      reads of s1 at neighbours that other blocks wrote;
+//   3. stage 2 (c_dt = dt, stage time t + dt/2, the sponge) from s1, base
+//      the step-start state, rb2; the output and its own send buffer for
+//      the step-boundary exchange outside.
+// Without ring offsets every slot is empty and rb2 is zeros, as the TPU
+// kernel zeroes its receive buffer. No wet/dry branch in the step (its
+// wrapper refuses a wet/dry set, as the TPU wrapper does); the stage kernel
+// has the limiter. Both kernels run the same stage code (qstage), so the
+// step gives the bits of two stage launches with the exchange between.
+//
+// Work unit: P lanes of one warp per (shard, scenario, element) item, the
+// element innermost (neighbouring items read neighbouring addresses); a
+// block holds blockDim/P items, and blocks loop over the items where the
+// grid is smaller than the work. At N=3 (Np 10, Nfp 4, three faces, with
+// or without two controls: compile-time sizes, every loop unrolled, the
+// lane's values in registers) P = Nfp = 4: lane p holds node p of each
+// face (its three trace nodes) and the volume nodes p, p+4, p+8. The face
+// maximum over a face's four nodes is two shuffles across the lanes; the
+// fluxes the derivatives need and the scaled jumps the lift needs go
+// through the item's own slots in shared memory behind a warp barrier.
+// Other orders (run-time sizes, arrays in local memory) take one lane an
+// item. A stage has no block barrier; a launch has one, after the
+// reference operators (Dr and Ds interleaved, lift, filter) are copied to
+// shared memory, where every lane reads them as broadcasts.
+//
+// The block size is chosen by the launcher (q_plan): the largest of 256,
+// 128, 64, 32 threads that still gives every SM a block (S=4 x B=1 x 512
+// elements is 8192 lanes: 256 blocks of one warp) and whose shared memory
+// fits (at N=6 one of 256 would not), and the step's grid is
+// what the device reports as co-resident. Where that grid covers every
+// item in one pass, the step keeps each lane's stage-1 nodes and its
+// step-start nodes in registers across the grid barrier; only the
+// neighbours' traces then go through global memory (L2) in stage 2.
+//
+// Bound on the card: float32 operations (the step: two RHS evaluations per
+// node against one state in and one out; a stage alone: bytes, its six
+// state reads and three writes outweighing one RHS at the card's rate).
+// The '+' traces are gathers through vmapP, whose indices do not depend on
+// the stage's data and are loaded ahead of it. The speeds that decide the
+// face maximum are computed in IEEE arithmetic (C8).
 
 struct StageArgs {
   const float* fops;  // (S, fstride) packed float operators, a row a shard
   const int* iops;    // (S, istride) packed index tables
   long long fstride, istride;
-  int S, B, E, use_filter, sponge;
+  int S, B, use_filter, sponge;
   const float *bh, *bhu, *bhv;  // (S, B, nV) axpy base
   const float *ch, *chu, *chv;  // (S, B, nV) stage input
   const float* rb;              // (S, B, n_recv, 3) receive buffer
@@ -661,6 +688,23 @@ struct StageArgs {
   float *oh, *ohu, *ohv;        // (S, B, nV) out
   float* sb;                    // (S, B, n_send, 3) out: send buffer
   float c_dt, t;
+};
+
+struct RdmaArgs {
+  const float* fops;
+  const int* iops;
+  long long fstride, istride;
+  int S, B, use_filter, sponge;
+  const float *h, *hu, *hv;     // (S, B, nV) step-start state
+  const float* rb;              // (S, B, n_recv, 3) step-boundary receive buffer
+  const float* ctrl;            // (n_ctrl,), shared by all, or null
+  const long long* dest;        // (S, n_send) receiving shard of each slot,
+                                // or null without ring offsets
+  float *s1h, *s1hu, *s1hv;     // (S, B, nV) scratch: the stage-1 state
+  float* rb2;                   // (S, B, n_recv, 3) scratch: stage 2's rb
+  float *oh, *ohu, *ohv;        // (S, B, nV) out
+  float* sb;                    // (S, B, n_send, 3) out: send buffer
+  float dt, t1, t2;             // step, the two stage times
 };
 
 // Shard sh's operator set; the reference-element operators are the block's
@@ -674,121 +718,494 @@ __device__ __forceinline__ Ops shard_ops(const SwDesc& d, const float* fops,
   return o;
 }
 
-__global__ void sw2d_stage_kernel(SwDesc d, StageArgs a) {
-  Ops blk = make_ops(d, a.fops, a.iops);
-  const Scratch s = setup_block(blk, a.E);
-  const int n_chunks = (blk.K + a.E - 1) / a.E;
-  const int n_units = a.S * a.B * n_chunks;
-  const W3 none = {nullptr, nullptr, nullptr};
-  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-    const int sc = u / n_chunks, c = u - sc * n_chunks;  // sc = shard*B + b
-    const Ops o = shard_ops(d, a.fops, a.iops, a.fstride, a.istride,
-                            sc / a.B, blk);
-    const int e0 = c * a.E, ne = min(a.E, o.K - e0);
-    const size_t off = (size_t)sc * o.nV;
-    const SendTo sb = {a.sb + (size_t)sc * o.n_send * 3, nullptr, 0};
-    stage(o, s, e0, ne, at(a.ch, a.chu, a.chv, off),
-          at(a.bh, a.bhu, a.bhv, off), atw(a.oh, a.ohu, a.ohv, off), none,
-          a.c_dt, a.t, a.c_dt, a.ctrl, a.use_filter, o.wetdry != 0,
-          a.sponge != 0, a.rb + (size_t)sc * o.n_recv * 3, sb);
-    if (c == 0) zero_empty_slots(o, sb);
-  }
+#define QMAX_THREADS 256
+// Room of the run-time-size instantiation's arrays: nodes (N=6), nodes a
+// face.
+#define QMAX_NP 28
+#define QMAX_NFP 7
+
+__host__ __device__ constexpr int qround4(int n) { return (n + 3) & ~3; }
+
+// Floats of the reference operators in shared memory: (Dr, Ds) interleaved
+// [n][m], lift [n][j], filter [n][m].
+__host__ __device__ inline int q_ops_floats(int Np, int Ntr) {
+  return qround4(3 * Np * Np + Np * Ntr);
 }
 
-// ---------------------------------------------------------------------------
-// One whole step of an element-sharded set in one launch
-// ---------------------------------------------------------------------------
-//
-// sw2d_step_rdma_kernel replaces _step_kernel_rdma / sw2d_step_rdma_blocked
-// of blitzdg_tpu/ops/sw2d_blocked.py. The TPU kernel runs one shard per
-// device: it zeroes its receive buffer, signals READY to the peers that send
-// to it, computes stage 1, waits for READY from its destinations, sends the
-// stage-1 cut-face values by one remote DMA per ring offset into the peers'
-// receive buffers and computes stage 2 from its own. Here one cooperative
-// launch covers every shard of a stacked set (work unit: shard, scenario,
-// chunk of elements, as in sw2d_stage_kernel) in two phases around ONE grid
-// barrier:
-//   1. stage 1 (c_dt = dt/2, no sponge) from the step-start state and the
-//      step-boundary receive buffer rb; s1 goes to a scratch triple, and each
-//      of s1's send slots is stored straight into slot j of the RECEIVING
-//      shard's stage-2 receive buffer rb2 (shard s, chunk d -> shard
-//      (s + offs[d]) mod S: the ring exchange's reverse source table). That
-//      is the remote copy of the TPU kernel, and how a store into a peer
-//      card's memory would go. The unit that owns a node writes its
-//      slots through the inverse send list, so every slot has one writer: no
-//      atomics, the same bits on a rerun;
-//   2. the grid barrier stands for the READY handshake and for stage 2's
-//      reads of s1 at neighbours that other units wrote;
-//   3. stage 2 (c_dt = dt, stage time t + dt/2, the sponge) from s1, base the
-//      step-start state, rb2; the output and its own send buffer for the
-//      step-boundary exchange outside.
-// Without ring offsets every slot is empty and rb2 is zeros, as the TPU
-// kernel zeroes its receive buffer. No wet/dry branch (the wrapper refuses a
-// wet/dry set, as the TPU wrapper does).
-//
-// Bound on the card: float32 operations of the two RHS evaluations against
-// one state in and one out. What it saves over two stage launches is host
-// time: one launch and one exchange a step instead of two of each.
+// Floats of one item's slots: (hu, hv, F2, F3) a node, then the filter's
+// input (r1, r2, r3) a node in the same place; G3 a node; the scaled jumps
+// (a1, a2, a3) a trace node.
+__host__ __device__ inline int q_item_floats(int Np, int Ntr) {
+  return 4 * Np + qround4(Np) + 4 * Ntr;
+}
 
-struct RdmaArgs {
-  const float* fops;
-  const int* iops;
-  long long fstride, istride;
-  int S, B, E, use_filter, sponge;
-  const float *h, *hu, *hv;     // (S, B, nV) step-start state
-  const float* rb;              // (S, B, n_recv, 3) step-boundary receive buffer
-  const float* ctrl;            // (n_ctrl,), shared by all, or null
-  const long long* dest;        // (S, n_send) receiving shard of each slot,
-                                // or null without ring offsets
-  float *s1h, *s1hu, *s1hv;     // (S, B, nV) scratch: the stage-1 state
-  float* rb2;                   // (S, B, n_recv, 3) scratch: stage 2's rb
-  float *oh, *ohu, *ohv;        // (S, B, nV) out
-  float* sb;                    // (S, B, n_send, 3) out: send buffer
-  float dt, t1, t2;             // step, the two stage times
+// Nodes, nodes a face, controls and lanes an item: constants of the
+// instantiation where the template gives them, else (0 sizes, NC < 0)
+// read at run time.
+template <int NP, int NFP, int NC, int LANES>
+struct QSizes {
+  static constexpr int P = LANES;
+  static constexpr int CNP = NP ? (NP + LANES - 1) / LANES : QMAX_NP;
+  static constexpr int CFP = NP ? NFP / LANES : QMAX_NFP;  // a face's, a lane
+  __device__ __forceinline__ static int np(const Ops& o) {
+    return NP ? NP : o.Np;
+  }
+  __device__ __forceinline__ static int nfp(const Ops& o) {
+    return NP ? NFP : o.Nfp;
+  }
+  __device__ __forceinline__ static int ntr(const Ops& o) {
+    return NP ? 3 * NFP : o.Ntr;
+  }
+  __device__ __forceinline__ static int nc(const Ops& o) {
+    return NC >= 0 ? NC : o.n_ctrl;
+  }
+  // node slots of a lane, and the nodes of a face a lane holds
+  __device__ __forceinline__ static int nslots(const Ops& o) {
+    return NP ? CNP : (o.Np + LANES - 1) / LANES;
+  }
+  __device__ __forceinline__ static int nface(const Ops& o) {
+    return NP ? CFP : o.Nfp / LANES;
+  }
+};
+typedef QSizes<10, 4, 2, 4> QOrder3Ctrl;  // N=3 with two controls
+typedef QSizes<10, 4, -1, 4> QOrder3;     // N=3, other control counts
+typedef QSizes<0, 0, -1, 1> QAnyOrder;
+
+// One lane's values at its node slots.
+template <class Z>
+struct Own {
+  float h[Z::CNP], hu[Z::CNP], hv[Z::CNP];
 };
 
-__global__ void sw2d_step_rdma_kernel(SwDesc d, RdmaArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  Ops blk = make_ops(d, a.fops, a.iops);
-  const Scratch s = setup_block(blk, a.E);
-  const int n_chunks = (blk.K + a.E - 1) / a.E;
-  const int n_units = a.S * a.B * n_chunks;
-  // floats of one scenario's slot list (receive and send lists of a shard
-  // have the same slots: slot j of the sender is slot j of the receiver)
-  const size_t ls = (size_t)blk.n_send * 3;
-  const W3 none = {nullptr, nullptr, nullptr};
-  for (int phase = 0; phase < 2; ++phase) {
-    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-      const int sc = u / n_chunks, c = u - sc * n_chunks;  // sc = shard*B + b
-      const int sh = sc / a.B, b = sc - sh * a.B;
-      const Ops o = shard_ops(d, a.fops, a.iops, a.fstride, a.istride, sh,
-                              blk);
-      const int e0 = c * a.E, ne = min(a.E, o.K - e0);
-      const size_t off = (size_t)sc * o.nV;
-      const P3 st = at(a.h, a.hu, a.hv, off);
-      if (phase == 0) {
-        // scenario b's slots of shard 0's rb2, the table picking the
-        // shard; without one (no ring offsets), the shard's own slots
-        const SendTo push =
-            a.dest != nullptr
-                ? SendTo{a.rb2 + b * ls, a.dest + (size_t)sh * o.n_send,
-                         (size_t)a.B * ls}
-                : SendTo{a.rb2 + sc * ls, nullptr, 0};
-        stage(o, s, e0, ne, st, st, atw(a.s1h, a.s1hu, a.s1hv, off), none,
-              0.5f * a.dt, a.t1, a.dt, a.ctrl, a.use_filter, false, false,
-              a.rb + sc * ls, push);
-        if (c == 0) zero_empty_slots(o, push);
-      } else {
-        const SendTo own = {a.sb + sc * ls, nullptr, 0};
-        stage(o, s, e0, ne, at(a.s1h, a.s1hu, a.s1hv, off), st,
-              atw(a.oh, a.ohu, a.ohv, off), none, a.dt, a.t2, a.dt, a.ctrl,
-              a.use_filter, false, a.sponge != 0, a.rb2 + sc * ls, own);
-        if (c == 0) zero_empty_slots(o, own);
-      }
-    }
-    if (phase == 0) grid.sync();
+// The lane's item of one pass over the items, and its shard's rows of the
+// packed buffers: every lane reads its shard's fields through the block's
+// operator set (the first shard's, the same in every lane), a float field's
+// entry j at fo + j, an index table's at io + j. Lanes past the last item
+// compute the last item again and store nothing (they take part in the
+// warp's shuffles and barriers).
+struct QLane {
+  int sc, b, e, p, fo, io, sh;
+  bool active;
+};
+
+template <class Z>
+__device__ __forceinline__ QLane q_lane(int first, int n_items, int B,
+                                        int K, long long fstride,
+                                        long long istride) {
+  QLane l;
+  int it = first + (int)threadIdx.x / Z::P;
+  l.active = it < n_items;
+  if (!l.active) it = n_items - 1;
+  l.p = (int)threadIdx.x % Z::P;
+  l.sc = it / K;
+  l.e = it - l.sc * K;
+  l.sh = l.sc / B;
+  l.b = l.sc - l.sh * B;
+  l.fo = (int)(l.sh * fstride);
+  l.io = (int)(l.sh * istride);
+  return l;
+}
+
+// The reference operators into shared memory (every thread of the block
+// must call it; a block barrier follows).
+__device__ void q_setup_ops(const Ops& o, float* s) {
+  const int Np = o.Np, Ntr = o.Ntr, np2 = Np * Np;
+  float* lf = s + 2 * np2;
+  float* fl = lf + Np * Ntr;
+  for (int i = threadIdx.x; i < np2; i += blockDim.x) {
+    s[2 * i] = o.Dr[i];
+    s[2 * i + 1] = o.Ds[i];
+    fl[i] = o.filt[i];
+  }
+  for (int i = threadIdx.x; i < Np * Ntr; i += blockDim.x) lf[i] = o.lift[i];
+}
+
+template <class Z>
+__device__ __forceinline__ void load_own(const Ops& o, int e, int p,
+                                         const P3& f, Own<Z>& x) {
+  const int Np = Z::np(o), ns = Z::nslots(o);
+#pragma unroll
+  for (int i = 0; i < ns; ++i) {
+    const int n = p + Z::P * i;
+    const int v = e * Np + (n < Np ? n : 0);
+    x.h[i] = f.a[v]; x.hu[i] = f.b[v]; x.hv[i] = f.c[v];
   }
 }
+
+// Zeros in the empty send slots (send_node < 0) of every (shard, scenario):
+// slot(sh, b, j) says where slot j goes. A grid-stride loop.
+template <class Slot>
+__device__ void q_zero_empty(const Ops& g, long long istride, int S, int B,
+                             const Slot& slot) {
+  const int L = g.n_send, n = S * B * L;
+  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < n;
+       k += gridDim.x * blockDim.x) {
+    const int sc = k / L, j = k - sc * L, sh = sc / B;
+    if (g.send_node[sh * istride + j] < 0) {
+      float* q = slot(sh, sc - sh * B, j);
+      q[0] = q[1] = q[2] = 0.0f;
+    }
+  }
+}
+
+// One RK stage of one item (element l.e of one shard and scenario) on lane
+// l.p of its P lanes:
+//   y = base + coef R(in, t), then the positivity limiter (limit) and the
+//   sponge (sponge);
+// stored at the element's nodes of `out` and at the send slots that read
+// them (`to`). in: the stage input of the shard and scenario in global
+// memory (the '-' and '+' traces are read from it, the '+' at a cut face
+// from rb); x: the lane's own nodes of `in` (from memory, or kept in
+// registers by the caller); the base: the lane's nodes in bs where BASE_REGS
+// (kept by the caller), else read from `base` at the update; y: the lane's
+// result. g: the block's operator set; scr: the item's slots in shared
+// memory; sops: the reference operators.
+template <class Z, bool BASE_REGS>
+__device__ __forceinline__ void qstage(
+    const Ops& g, const float* sops, float* scr, const QLane& l,
+    const P3& in, const Own<Z>& x, const Own<Z>& bs, const P3& base,
+    Own<Z>& y, const W3& out, const SendTo& to, const float* rb, float coef,
+    float t, float dt, const float* ctrl, int use_filter, bool limit,
+    bool sponge) {
+  constexpr int P = Z::P;
+  const int Np = Z::np(g), Ntr = Z::ntr(g), Nfp = Z::nfp(g);
+  const int ns = Z::nslots(g), nfl = Z::nface(g), nc = Z::nc(g);
+  const int e = l.e, p = l.p, v0 = e * Np, i0 = e * Ntr;
+  const float2* DS = reinterpret_cast<const float2*>(sops);
+  const float* LF = sops + 2 * Np * Np;
+  const float* FL = LF + Np * Ntr;
+  float4* X = reinterpret_cast<float4*>(scr);
+  float* G = scr + 4 * Np;
+  float4* A = reinterpret_cast<float4*>(G + qround4(Np));
+  const float h_bc = tidal_depth(g, t);
+
+  __syncwarp();  // the item's slots are free (a previous pass read them)
+  // own nodes: the volume fluxes into the item's slots
+#pragma unroll
+  for (int i = 0; i < ns; ++i) {
+    const int n = p + P * i;
+    if (n < Np) {
+      float F2, F3, G3;
+      volume_fluxes(g, x.h[i], x.hu[i], x.hv[i], F2, F3, G3);
+      X[n] = make_float4(x.hu[i], x.hv[i], F2, F3);
+      G[n] = G3;
+    }
+  }
+  // the lane's trace nodes (node p + P k of each face): their indices,
+  // then the state at both sides, each round issued at once (the tables
+  // are read-only for the launch: __ldg; the state may have been written
+  // by this launch's first phase: plain loads)
+  int vm[3][Z::CFP], vp[3][Z::CFP];
+#pragma unroll
+  for (int f = 0; f < 3; ++f)
+#pragma unroll
+    for (int k = 0; k < nfl; ++k) {
+      const int gi = l.io + i0 + f * Nfp + p + P * k;
+      vm[f][k] = __ldg(g.vmapM + gi);
+      vp[f][k] = __ldg(g.vmapP + gi);
+    }
+  float sv[3][Z::CFP][6];
+#pragma unroll
+  for (int f = 0; f < 3; ++f)
+#pragma unroll
+    for (int k = 0; k < nfl; ++k) {
+      const int m = vm[f][k], q = vp[f][k];
+      sv[f][k][0] = in.a[m]; sv[f][k][1] = in.b[m]; sv[f][k][2] = in.c[m];
+      const float* r = in.a + q;
+      const float* ru = in.b + q;
+      const float* rv = in.c + q;
+      if (q >= g.nV) {  // a cut face: the receive slot
+        r = rb + 3 * (q - g.nV); ru = r + 1; rv = r + 2;
+      }
+      sv[f][k][3] = *r; sv[f][k][4] = *ru; sv[f][k][5] = *rv;
+    }
+  // a face at a time: flux jumps and speeds, the face's maximum speed (its
+  // other nodes lie in the item's other lanes: shuffles), the jumps scaled
+  // for the lift
+  const bool depths = g.wb || g.wetdry;
+#pragma unroll
+  for (int f = 0; f < 3; ++f) {
+    float p1[Z::CFP], p2[Z::CFP], p3[Z::CFP], q1[Z::CFP], q2[Z::CFP];
+    float q3[Z::CFP], lam = 0.0f;
+#pragma unroll
+    for (int k = 0; k < nfl; ++k) {
+      const int fi = l.fo + i0 + f * Nfp + p + P * k;
+      TraceVals tv;
+      tv.nx = __ldg(g.nx + fi); tv.ny = __ldg(g.ny + fi);
+      tv.hM = sv[f][k][0]; tv.huM = sv[f][k][1]; tv.hvM = sv[f][k][2];
+      tv.hP = sv[f][k][3]; tv.huP = sv[f][k][4]; tv.hvP = sv[f][k][5];
+      trace_finish(g, h_bc, __ldg(g.wall + fi) != 0.0f,
+                   g.has_tidal ? __ldg(g.obc + fi) : 0.0f,
+                   depths ? __ldg(g.HMt + fi) : 0.0f,
+                   depths ? __ldg(g.HPt + fi) : 0.0f, tv);
+      trace_flux_pre(g, tv, p1[k], p2[k], p3[k]);
+      trace_jumps(g, tv, q1[k], q2[k], q3[k]);
+      const float sp = fmaxf(tv.spdM, tv.spdP);
+      lam = k == 0 ? sp : fmaxf(lam, sp);
+    }
+#pragma unroll
+    for (int m = 1; m < P; m <<= 1)
+      lam = fmaxf(lam, __shfl_xor_sync(0xffffffffu, lam, m, P));
+    const float hl = 0.5f * lam;
+#pragma unroll
+    for (int k = 0; k < nfl; ++k) {
+      const int j = f * Nfp + p + P * k;
+      const float fs = __ldg(g.fscale + l.fo + i0 + j);
+      A[j] = make_float4((p1[k] - hl * q1[k]) * fs, (p2[k] - hl * q2[k]) * fs,
+                         (p3[k] - hl * q3[k]) * fs, 0.0f);
+    }
+  }
+  __syncwarp();
+
+  // own nodes: lift, divergence of the fluxes, sources
+  float r1[Z::CNP], r2[Z::CNP], r3[Z::CNP];
+#pragma unroll
+  for (int i = 0; i < ns; ++i) {
+    const int n = p + P * i;
+    r1[i] = r2[i] = r3[i] = 0.0f;
+    if (n < Np) {
+      float l1 = 0.0f, l2 = 0.0f, l3 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < Ntr; ++j) {
+        const float lf = LF[n * Ntr + j];
+        const float4 a = A[j];
+        l1 += lf * a.x; l2 += lf * a.y; l3 += lf * a.z;
+      }
+      float rF1 = 0, sF1 = 0, rG1 = 0, sG1 = 0, rF2 = 0, sF2 = 0;
+      float rF3 = 0, sF3 = 0, rG3 = 0, sG3 = 0;
+#pragma unroll
+      for (int m = 0; m < Np; ++m) {
+        const float2 ds = DS[n * Np + m];
+        const float4 q = X[m];
+        const float g3 = G[m];
+        rF1 += ds.x * q.x; sF1 += ds.y * q.x; rG1 += ds.x * q.y;
+        sG1 += ds.y * q.y; rF2 += ds.x * q.z; sF2 += ds.y * q.z;
+        rF3 += ds.x * q.w; sF3 += ds.y * q.w; rG3 += ds.x * g3;
+        sG3 += ds.y * g3;
+      }
+      const int v = l.fo + v0 + n;  // in the shard's float rows
+      const float rx = __ldg(g.rx + v), sx = __ldg(g.sx + v);
+      const float ry = __ldg(g.ry + v), sy = __ldg(g.sy + v);
+      r1[i] = l1 - (rx * rF1 + sx * sF1 + ry * rG1 + sy * sG1);
+      r2[i] = l2 - (rx * rF2 + sx * sF2 + ry * rF3 + sy * sF3);
+      r3[i] = l3 - (rx * rF3 + sx * sF3 + ry * rG3 + sy * sG3);
+      add_sources(g, v, x.h[i], x.hu[i], x.hv[i], nullptr, r2[i], r3[i]);
+      if (ctrl != nullptr) {
+#pragma unroll
+        for (int c = 0; c < nc; ++c) {
+          r2[i] += ctrl[c] * __ldg(g.BU + c * g.nV + v);
+          r3[i] += ctrl[c] * __ldg(g.BV + c * g.nV + v);
+        }
+      }
+    }
+  }
+  if (use_filter) {  // modal filter through the item's slots
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < ns; ++i) {
+      const int n = p + P * i;
+      if (n < Np) X[n] = make_float4(r1[i], r2[i], r3[i], 0.0f);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < ns; ++i) {
+      const int n = p + P * i;
+      if (n < Np) {
+        float a = 0.0f, b = 0.0f, c = 0.0f;
+#pragma unroll
+        for (int m = 0; m < Np; ++m) {
+          const float fl = FL[n * Np + m];
+          const float4 q = X[m];
+          a += fl * q.x; b += fl * q.y; c += fl * q.z;
+        }
+        r1[i] = a; r2[i] = b; r3[i] = c;
+      }
+    }
+  }
+  // the stage update
+#pragma unroll
+  for (int i = 0; i < ns; ++i) {
+    const int n = p + P * i;
+    float bh = x.h[i], bhu = x.hu[i], bhv = x.hv[i];  // (unused slot)
+    if (BASE_REGS) {
+      bh = bs.h[i]; bhu = bs.hu[i]; bhv = bs.hv[i];
+    } else if (n < Np) {
+      const int v = v0 + n;
+      bh = base.a[v]; bhu = base.b[v]; bhv = base.c[v];
+    }
+    y.h[i] = bh + coef * r1[i];
+    y.hu[i] = bhu + coef * r2[i];
+    y.hv[i] = bhv + coef * r3[i];
+  }
+  if (limit) {
+    // positivity limiter: squash toward the element's arithmetic nodal mean
+    // where its minimum is below the floor, then taper near-dry momentum;
+    // the element's minimum and sums over its lanes (the same bits in each)
+    float hmin = INFINITY, sh = 0.0f, shu = 0.0f, shv = 0.0f;
+#pragma unroll
+    for (int i = 0; i < ns; ++i)
+      if (p + P * i < Np) {
+        hmin = fminf(hmin, y.h[i]);
+        sh += y.h[i]; shu += y.hu[i]; shv += y.hv[i];
+      }
+#pragma unroll
+    for (int m = 1; m < P; m <<= 1) {
+      hmin = fminf(hmin, __shfl_xor_sync(0xffffffffu, hmin, m, P));
+      sh += __shfl_xor_sync(0xffffffffu, sh, m, P);
+      shu += __shfl_xor_sync(0xffffffffu, shu, m, P);
+      shv += __shfl_xor_sync(0xffffffffu, shv, m, P);
+    }
+    const float floor_ = g.h_floor, hmean = sh / (float)Np;
+    const float humean = shu / (float)Np, hvmean = shv / (float)Np;
+    float theta = 1.0f;
+    if (hmin < floor_) {
+      const float denom = hmean - hmin;
+      theta = (hmean - floor_) / (denom > 0.0f ? denom : 1.0f);
+      theta = fminf(fmaxf(theta, 0.0f), 1.0f);
+    }
+#pragma unroll
+    for (int i = 0; i < ns; ++i) {
+      const float h = hmean + theta * (y.h[i] - hmean);
+      const float taper =
+          fminf(fmaxf((h - floor_) / (4.0f * floor_), 0.0f), 1.0f);
+      y.hu[i] = (humean + theta * (y.hu[i] - humean)) * taper;
+      y.hv[i] = (hvmean + theta * (y.hv[i] - hvmean)) * taper;
+      y.h[i] = h;
+    }
+  }
+  // the sponge, the store, the send slots
+#pragma unroll
+  for (int i = 0; i < ns; ++i) {
+    const int n = p + P * i;
+    if (n < Np) {
+      const int v = v0 + n;
+      if (sponge) sponge_relax(g, l.fo + v, dt, y.h[i], y.hu[i], y.hv[i]);
+      if (l.active) {
+        out.a[v] = y.h[i]; out.b[v] = y.hu[i]; out.c[v] = y.hv[i];
+        if (to.buf != nullptr) {
+          const int* ptr = g.send_ptr + l.io;
+          const int q1 = __ldg(ptr + v + 1);
+          for (int q = __ldg(ptr + v); q < q1; ++q) {
+            float* s = send_slot(to, __ldg(g.send_idx + l.io + q));
+            s[0] = y.h[i]; s[1] = y.hu[i]; s[2] = y.hv[i];
+          }
+        }
+      }
+    }
+  }
+}
+
+// The item's slots: after the operators, blockDim/P items a block.
+__device__ __forceinline__ float* q_item_slots(const Ops& o, int P) {
+  return smem + q_ops_floats(o.Np, o.Ntr)
+         + ((int)threadIdx.x / P) * q_item_floats(o.Np, o.Ntr);
+}
+
+template <class Z>
+__global__ void __launch_bounds__(QMAX_THREADS, 2)
+    sw2d_stage_kernel(SwDesc d, StageArgs a) {
+  const Ops g = make_ops(d, a.fops, a.iops);
+  q_setup_ops(g, smem);
+  __syncthreads();
+  const size_t ls = (size_t)d.n_send * 3;  // floats of one slot list
+  q_zero_empty(g, a.istride, a.S, a.B, [&](int sh, int b, int j) {
+    return a.sb + ((size_t)sh * a.B + b) * ls + 3 * j;
+  });
+  float* scr = q_item_slots(g, Z::P);
+  const int ipb = blockDim.x / Z::P, n_items = a.S * a.B * d.K;
+  for (int first = blockIdx.x * ipb; first < n_items;
+       first += gridDim.x * ipb) {
+    const QLane l = q_lane<Z>(first, n_items, a.B, d.K, a.fstride,
+                              a.istride);
+    const size_t off = (size_t)l.sc * g.nV;
+    const P3 cur = at(a.ch, a.chu, a.chv, off);
+    Own<Z> x, y;
+    load_own<Z>(g, l.e, l.p, cur, x);
+    qstage<Z, false>(g, smem, scr, l, cur, x, x, at(a.bh, a.bhu, a.bhv, off),
+                     y, atw(a.oh, a.ohu, a.ohv, off),
+                     SendTo{a.sb + l.sc * ls, nullptr, 0}, a.rb + l.sc * ls,
+                     a.c_dt, a.t, a.c_dt, a.ctrl, a.use_filter,
+                     g.wetdry != 0, a.sponge != 0);
+  }
+}
+
+template <class Z>
+__global__ void __launch_bounds__(QMAX_THREADS, 2)
+    sw2d_step_rdma_kernel(SwDesc d, RdmaArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const Ops g = make_ops(d, a.fops, a.iops);
+  q_setup_ops(g, smem);
+  __syncthreads();
+  // floats of one scenario's slot list (receive and send lists of a shard
+  // have the same slots: slot j of the sender is slot j of the receiver)
+  const size_t ls = (size_t)d.n_send * 3;
+  // where shard sh's stage-1 slot j of scenario b goes: slot j of the
+  // receiving shard's rb2 (the table picks the shard); without one (no
+  // ring offsets), the shard's own slots
+  auto push = [&](int sh, int b) {
+    return a.dest != nullptr
+               ? SendTo{a.rb2 + b * ls, a.dest + (size_t)sh * d.n_send,
+                        (size_t)a.B * ls}
+               : SendTo{a.rb2 + ((size_t)sh * a.B + b) * ls, nullptr, 0};
+  };
+  q_zero_empty(g, a.istride, a.S, a.B, [&](int sh, int b, int j) {
+    return send_slot(push(sh, b), j);
+  });
+  q_zero_empty(g, a.istride, a.S, a.B, [&](int sh, int b, int j) {
+    return a.sb + ((size_t)sh * a.B + b) * ls + 3 * j;
+  });
+  float* scr = q_item_slots(g, Z::P);
+  const int ipb = blockDim.x / Z::P, n_items = a.S * a.B * d.K;
+  // one pass covers every item: the lane's nodes stay in registers
+  const bool resident = (long long)gridDim.x * ipb >= n_items;
+  Own<Z> st, s1;
+  for (int first = blockIdx.x * ipb; first < n_items;
+       first += gridDim.x * ipb) {
+    const QLane l = q_lane<Z>(first, n_items, a.B, d.K, a.fstride,
+                              a.istride);
+    const size_t off = (size_t)l.sc * g.nV;
+    const P3 in = at(a.h, a.hu, a.hv, off);
+    load_own<Z>(g, l.e, l.p, in, st);
+    qstage<Z, true>(g, smem, scr, l, in, st, st, in, s1,
+                    atw(a.s1h, a.s1hu, a.s1hv, off), push(l.sh, l.b),
+                    a.rb + l.sc * ls, 0.5f * a.dt, a.t1, a.dt, a.ctrl,
+                    a.use_filter, false, false);
+  }
+  grid.sync();
+  for (int first = blockIdx.x * ipb; first < n_items;
+       first += gridDim.x * ipb) {
+    const QLane l = q_lane<Z>(first, n_items, a.B, d.K, a.fstride,
+                              a.istride);
+    const size_t off = (size_t)l.sc * g.nV;
+    const P3 in = at(a.s1h, a.s1hu, a.s1hv, off);
+    if (!resident) {
+      load_own<Z>(g, l.e, l.p, in, s1);
+      load_own<Z>(g, l.e, l.p, at(a.h, a.hu, a.hv, off), st);
+    }
+    Own<Z> y;
+    qstage<Z, true>(g, smem, scr, l, in, s1, st, in, y,
+                    atw(a.oh, a.ohu, a.ohv, off),
+                    SendTo{a.sb + l.sc * ls, nullptr, 0}, a.rb2 + l.sc * ls,
+                    a.dt, a.t2, a.dt, a.ctrl, a.use_filter, false,
+                    a.sponge != 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The adjoint of one sharded stage
+// ---------------------------------------------------------------------------
+//
+// sw2d_stage_bwd_kernel replaces _stage_bwd_kernel_v2 /
+// sw2d_stage_bwd_blocked_v2 of blitzdg_tpu/ops/sw2d_blocked.py. Work unit:
+// shard, scenario, chunk of elements (the blocked kernels' stage helpers).
+// The transposed '+' gather crosses blocks: two phases around one grid
+// barrier, as in the rollout adjoint above, and the receive slots'
+// cotangents are the receive part of that gather. No atomics; the control
+// cotangent is summed per unit and the units' sums are added in a fixed
+// order.
+//
+// Bound on the card: bytes (the states and cotangents read and written
+// outweigh one RHS adjoint per node at the card's float32 rate).
 
 struct StageBwdArgs {
   const float* fops;
@@ -900,6 +1317,122 @@ __global__ void sw2d_stage_bwd_kernel(SwDesc d, StageBwdArgs a) {
 // C interface
 // ---------------------------------------------------------------------------
 
+typedef void (*StageKern)(SwDesc, StageArgs);
+typedef void (*RdmaKern)(SwDesc, RdmaArgs);
+
+// The instantiation of the sharded kernels for a set: N=3 with two
+// controls (the MPC's), N=3 with others (a set built without injectors has
+// one, which its rollouts never read), else the run-time sizes (-1 past
+// their room).
+static int q_kind(const SwDesc& d) {
+  if (d.Nfaces != 3 || d.Np > QMAX_NP || d.Nfp > QMAX_NFP) return -1;
+  if (d.Np == 10 && d.Nfp == 4) return d.n_ctrl == 2 ? 0 : 1;
+  return 2;
+}
+
+static StageKern stage_kernel_of(const SwDesc& d) {
+  switch (q_kind(d)) {
+    case 0: return sw2d_stage_kernel<QOrder3Ctrl>;
+    case 1: return sw2d_stage_kernel<QOrder3>;
+    case 2: return sw2d_stage_kernel<QAnyOrder>;
+    default: return nullptr;
+  }
+}
+
+static RdmaKern rdma_kernel_of(const SwDesc& d) {
+  switch (q_kind(d)) {
+    case 0: return sw2d_step_rdma_kernel<QOrder3Ctrl>;
+    case 1: return sw2d_step_rdma_kernel<QOrder3>;
+    case 2: return sw2d_step_rdma_kernel<QAnyOrder>;
+    default: return nullptr;
+  }
+}
+
+// Lanes an item: a face's nodes at N=3, one otherwise.
+static int q_lanes(const SwDesc& d) { return q_kind(d) == 2 ? 1 : 4; }
+
+// Block size, grid and dynamic shared memory of the stage kernel
+// (which = 0) or of the one-launch step kernel (which = 1) for S shards of
+// B scenarios, from the occupancy the device reports: the largest block of
+// 256, 128, 64, 32 threads that still gives every SM a block and whose
+// shared memory fits the device's limit a block; the stage's
+// grid covers every item, the step's is what is co-resident (its blocks
+// loop over the rest). Sets the kernel's shared-memory limit. Run it once
+// for a shape, before any launch of that shape (it is not a stream
+// operation, and a launch issues nothing else). fstride, istride: the
+// packed buffers' row lengths. plan: threads, grid, bytes, lanes an item.
+// Returns a CUDA error.
+static int q_plan(const SwDesc& d, int S, int B, int which, int* plan,
+                  long long fstride, long long istride) {
+  // the lanes address their shard's rows with 32-bit offsets
+  if (q_kind(d) < 0 || S * fstride > 0x7fffffffLL ||
+      S * istride > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const StageKern ks = stage_kernel_of(d);
+  const RdmaKern kr = rdma_kernel_of(d);
+  const int P = q_lanes(d);
+  const long long lanes = (long long)S * B * d.K * P;
+  cudaError_t e;
+  int dev = 0, sms = 0, coop = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int threads = 32, optin = 0;
+  for (int t = QMAX_THREADS; t >= 32; t /= 2)
+    if ((lanes + t - 1) / t >= sms) { threads = t; break; }
+  const int Ntr = d.Nfaces * d.Nfp;
+  auto bytes_of = [&](int t) {
+    return sizeof(float) * (q_ops_floats(d.Np, Ntr)
+                            + (size_t)(t / P) * q_item_floats(d.Np, Ntr));
+  };
+  // high orders: a smaller block, until its shared memory fits (N=6 takes
+  // 128 threads on the H100)
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  while (threads > 32 && bytes_of(threads) > (size_t)optin) threads /= 2;
+  const size_t bytes = bytes_of(threads);
+  if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
+  const int pe = which == 0 ? prepare(ks, bytes) : prepare(kr, bytes);
+  if (pe != 0) return pe;
+  int per_sm = 0;
+  e = which == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &per_sm, ks, threads, bytes)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &per_sm, kr, threads, bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  long long grid = (lanes + threads - 1) / threads;
+  if (which == 1) {
+    cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (!coop) return (int)cudaErrorNotSupported;
+    if (grid > (long long)per_sm * sms) grid = (long long)per_sm * sms;
+  }
+  plan[0] = threads; plan[1] = (int)grid; plan[2] = (int)bytes; plan[3] = P;
+  return 0;
+}
+
+// One launch of a planned shape (cooperative for the step: its blocks meet
+// at a grid barrier); nothing but the launch, so that it can be captured
+// into a CUDA graph.
+template <class Args>
+static int q_launch(void (*kern)(SwDesc, Args), const SwDesc& d,
+                    const Args& a, const int* plan, bool coop, void* stream) {
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(plan[1]);
+  cfg.blockDim = dim3(plan[0]);
+  cfg.dynamicSmemBytes = (size_t)plan[2];
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = coop ? attr : nullptr;
+  cfg.numAttrs = coop ? 1 : 0;
+  g_last_grid = plan[1];
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, d, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 // Bytes of dynamic shared memory one block needs with chunks of E elements.
@@ -997,35 +1530,35 @@ int sw2d_blocked_rollout_bwd(const SwDesc* d, const float* fops,
                      n_units, threads, bytes, stream);
 }
 
+int sw2d_shard_plan(const SwDesc* d, int S, int B, int which,
+                    long long fstride, long long istride, int* plan) {
+  return q_plan(*d, S, B, which, plan, fstride, istride);
+}
+
 // One RK stage on every shard of a stacked sharded set: out = base +
 // c_dt R(cur) with the cut faces' '+' values from rb, then the limiter
 // (wet/dry) and the sponge (sponge != 0), and the send buffer of out.
-// fops/iops: (S, fstride) / (S, istride); ctrl: (n_ctrl,) or null.
+// fops/iops: (S, fstride) / (S, istride); ctrl: (n_ctrl,) or null; plan:
+// sw2d_shard_plan's for (S, B, 0).
 int sw2d_stage(const SwDesc* d, const float* fops, const int* iops,
                long long fstride, long long istride, int S, int B,
                const float* bh, const float* bhu, const float* bhv,
                const float* ch, const float* chu, const float* chv,
                const float* rb, const float* ctrl, float* oh, float* ohu,
                float* ohv, float* sb, float c_dt, float t, int use_filter,
-               int sponge, int E, int threads, void* stream) {
-  StageArgs a = {fops, iops, fstride, istride, S, B, E, use_filter, sponge,
+               int sponge, const int* plan, void* stream) {
+  StageArgs a = {fops, iops, fstride, istride, S, B, use_filter, sponge,
                  bh, bhu, bhv, ch, chu, chv, rb, ctrl, oh, ohu, ohv, sb,
                  c_dt, t};
-  Ops o = make_ops(*d, nullptr, nullptr);
-  const size_t bytes = smem_floats(o, E) * sizeof(float);
-  const int n_units = S * B * ((o.K + E - 1) / E);
-  const int pe = prepare(sw2d_stage_kernel, bytes);
-  if (pe != 0) return pe;
-  g_last_grid = n_units;
-  sw2d_stage_kernel<<<n_units, threads, bytes, (cudaStream_t)stream>>>(*d, a);
-  return (int)cudaGetLastError();
+  return q_launch(stage_kernel_of(*d), *d, a, plan, false, stream);
 }
 
 // One SSP-RK2 step on every shard of a stacked sharded set in one
 // cooperative launch, the stage-1 halo pushed into rb2 inside it (see
 // sw2d_step_rdma_kernel). dest: (S, n_send) receiving shard of each send
-// slot, or null without ring offsets; s1: 3*S*B*nV floats and rb2: S*B*n_recv*3 floats of scratch;
-// t1, t2: the stage times; ctrl: (n_ctrl,) or null.
+// slot, or null without ring offsets; s1: 3*S*B*nV floats and rb2:
+// S*B*n_recv*3 floats of scratch; t1, t2: the stage times; ctrl: (n_ctrl,)
+// or null; plan: sw2d_shard_plan's for (S, B, 1).
 int sw2d_step_rdma(const SwDesc* d, const float* fops, const int* iops,
                    long long fstride, long long istride, int S, int B,
                    const float* h, const float* hu, const float* hv,
@@ -1033,18 +1566,12 @@ int sw2d_step_rdma(const SwDesc* d, const float* fops, const int* iops,
                    const long long* dest,
                    float* s1, float* rb2, float* oh, float* ohu, float* ohv,
                    float* sb, float dt, float t1, float t2, int use_filter,
-                   int sponge, int E, int threads, void* stream) {
-  Ops o = make_ops(*d, nullptr, nullptr);
-  const size_t n = (size_t)S * B * o.nV;
-  RdmaArgs a = {fops, iops, fstride, istride, S, B, E, use_filter, sponge,
+                   int sponge, const int* plan, void* stream) {
+  const size_t n = (size_t)S * B * d->K * d->Np;
+  RdmaArgs a = {fops, iops, fstride, istride, S, B, use_filter, sponge,
                 h, hu, hv, rb, ctrl, dest, s1, s1 + n, s1 + 2 * n, rb2,
                 oh, ohu, ohv, sb, dt, t1, t2};
-  const size_t bytes = smem_floats(o, E) * sizeof(float);
-  const int n_units = S * B * ((o.K + E - 1) / E);
-  SwDesc dd = *d;
-  void* args[] = {&dd, &a};
-  return coop_launch((const void*)sw2d_step_rdma_kernel, args, n_units,
-                     threads, bytes, stream);
+  return q_launch(rdma_kernel_of(*d), *d, a, plan, true, stream);
 }
 
 // Floats of scratch that sw2d_stage_bwd needs in `work`.

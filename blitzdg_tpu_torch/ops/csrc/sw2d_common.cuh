@@ -154,6 +154,48 @@ struct TraceVals {
   float obc;
 };
 
+// The rest of a trace node's values once its normal (tv.nx, tv.ny) and both
+// sides' (h, hu, hv) are set: wall reflection, the tidal depth, star
+// depths, velocities and speeds. wall, obc: its flags; HM, HP: the
+// still-water depths of its two sides (read where well-balanced or wet/dry).
+__device__ __forceinline__ void trace_finish(const Ops& o, float h_bc,
+                                             bool wall, float obc, float HM,
+                                             float HP, TraceVals& tv) {
+  tv.wall = wall;
+  if (tv.wall) {  // reflect the normal momentum
+    const float un2 = 2.0f * (tv.huM * tv.nx + tv.hvM * tv.ny);
+    tv.huP = tv.huM - un2 * tv.nx;
+    tv.hvP = tv.hvM - un2 * tv.ny;
+  }
+  tv.obc = 0.0f;
+  if (o.has_tidal) {  // prescribed total depth on BC_OUT nodes
+    tv.obc = obc;
+    tv.hP = tv.hP + tv.obc * (h_bc - tv.hP);
+  }
+  tv.passM = tv.passP = true;
+  if (o.wetdry) {
+    surface_reconstruction(tv.hM - HM, tv.hM, tv.hP - HP, tv.hP, o.h_floor,
+                           tv.hMs, tv.hPs);
+    const float iM = desingularized_inv(tv.hM, o.h_floor);
+    const float iP = desingularized_inv(tv.hP, o.h_floor);
+    tv.uM = tv.huM * iM; tv.vM = tv.hvM * iM;
+    tv.uP = tv.huP * iP; tv.vP = tv.hvP * iP;
+  } else {
+    tv.uM = tv.huM / tv.hM; tv.vM = tv.hvM / tv.hM;
+    tv.uP = tv.huP / tv.hP; tv.vP = tv.hvP / tv.hP;
+    if (o.wb) {
+      const float bstar = fmaxf(-HM, -HP);
+      const float aM = tv.hM - HM - bstar, aP = tv.hP - HP - bstar;
+      tv.passM = aM > 0.0f; tv.passP = aP > 0.0f;
+      tv.hMs = fmaxf(0.0f, aM); tv.hPs = fmaxf(0.0f, aP);
+    } else {
+      tv.hMs = tv.hM; tv.hPs = tv.hP;
+    }
+  }
+  tv.spdM = safe_norm(tv.uM, tv.vM) + sqrtf(o.g * tv.hMs);
+  tv.spdP = safe_norm(tv.uP, tv.vP) + sqrtf(o.g * tv.hPs);
+}
+
 // h, hu, hv: one scenario's state, indexed by global volume node (shared or
 // global memory); i: global trace node. rb: one scenario's (n_recv, 3)
 // receive buffer of a shard, read where vmapP points past the local nodes
@@ -171,41 +213,9 @@ __device__ __forceinline__ void trace_values(
   } else {
     tv.hP = h[vp]; tv.huP = hu[vp]; tv.hvP = hv[vp];
   }
-  tv.wall = o.wall[i] != 0.0f;
-  if (tv.wall) {  // reflect the normal momentum
-    const float un2 = 2.0f * (tv.huM * tv.nx + tv.hvM * tv.ny);
-    tv.huP = tv.huM - un2 * tv.nx;
-    tv.hvP = tv.hvM - un2 * tv.ny;
-  }
-  tv.obc = 0.0f;
-  if (o.has_tidal) {  // prescribed total depth on BC_OUT nodes
-    tv.obc = o.obc[i];
-    tv.hP = tv.hP + tv.obc * (h_bc - tv.hP);
-  }
-  tv.passM = tv.passP = true;
-  if (o.wetdry) {
-    const float HM = o.HMt[i], HP = o.HPt[i];
-    surface_reconstruction(tv.hM - HM, tv.hM, tv.hP - HP, tv.hP, o.h_floor,
-                           tv.hMs, tv.hPs);
-    const float iM = desingularized_inv(tv.hM, o.h_floor);
-    const float iP = desingularized_inv(tv.hP, o.h_floor);
-    tv.uM = tv.huM * iM; tv.vM = tv.hvM * iM;
-    tv.uP = tv.huP * iP; tv.vP = tv.hvP * iP;
-  } else {
-    tv.uM = tv.huM / tv.hM; tv.vM = tv.hvM / tv.hM;
-    tv.uP = tv.huP / tv.hP; tv.vP = tv.hvP / tv.hP;
-    if (o.wb) {
-      const float HM = o.HMt[i], HP = o.HPt[i];
-      const float bstar = fmaxf(-HM, -HP);
-      const float aM = tv.hM - HM - bstar, aP = tv.hP - HP - bstar;
-      tv.passM = aM > 0.0f; tv.passP = aP > 0.0f;
-      tv.hMs = fmaxf(0.0f, aM); tv.hPs = fmaxf(0.0f, aP);
-    } else {
-      tv.hMs = tv.hM; tv.hPs = tv.hP;
-    }
-  }
-  tv.spdM = safe_norm(tv.uM, tv.vM) + sqrtf(o.g * tv.hMs);
-  tv.spdP = safe_norm(tv.uP, tv.vP) + sqrtf(o.g * tv.hPs);
+  const bool depths = o.wb || o.wetdry;
+  trace_finish(o, h_bc, o.wall[i] != 0.0f, o.has_tidal ? o.obc[i] : 0.0f,
+               depths ? o.HMt[i] : 0.0f, depths ? o.HPt[i] : 0.0f, tv);
 }
 
 // The jumps dq_i that the Lax-Friedrichs speed multiplies.

@@ -56,8 +56,8 @@ from .limiters import positivity_preserving_limiter
 from .sw2d import SWPhysics
 from .sw2d_fused import (MAX_SMEM_BYTES, FusedStepMeta, FusedStepOps, _SwDesc,
                          _check_tensor, _desc, _eval_rhs_plain,
-                         _eval_rhs_vjp_plain, _launch_check, _np64,
-                         _operator_arrays, _ops_from_arrays)
+                         _eval_rhs_vjp_plain, _launch_check, _launch_stream,
+                         _np64, _operator_arrays, _ops_from_arrays)
 
 # Threads of one block. The kernels loop over nodes with this stride, so any
 # multiple of 32 is valid.
@@ -374,17 +374,18 @@ def _lib():
     lib.sw2d_blocked_rollout_bwd.argtypes = (
         [D, P, P] + [P] * 12 + [I, I, I, F, F, I, I, I, P])
     L = ctypes.c_longlong
+    lib.sw2d_shard_plan.argtypes = [D, I, I, I, L, L, P]
     lib.sw2d_stage.argtypes = ([D, P, P, L, L, I, I] + [P] * 12
-                               + [F, F, I, I, I, I, P])
+                               + [F, F, I, I, P, P])
     lib.sw2d_stage_bwd_work_floats.argtypes = [D, I, I, I]
     lib.sw2d_stage_bwd_work_floats.restype = L
     lib.sw2d_stage_bwd.argtypes = ([D, P, P, L, L, I, I] + [P] * 17
                                    + [F, F, I, I, I, I, P])
     lib.sw2d_step_rdma.argtypes = ([D, P, P, L, L, I, I] + [P] * 12
-                                   + [F, F, F, I, I, I, I, P])
+                                   + [F, F, F, I, I, P, P])
     for fn in (lib.sw2d_blocked_step, lib.sw2d_blocked_rollout,
-               lib.sw2d_blocked_rollout_bwd, lib.sw2d_stage,
-               lib.sw2d_stage_bwd, lib.sw2d_step_rdma):
+               lib.sw2d_blocked_rollout_bwd, lib.sw2d_shard_plan,
+               lib.sw2d_stage, lib.sw2d_stage_bwd, lib.sw2d_step_rdma):
         fn.restype = I
     lib._sw2d_typed = True
     return lib
@@ -421,6 +422,45 @@ def _ptr(t):
 
 def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# The sharded kernels' launch plans by shape (descriptor, S, B, kernel, row
+# lengths of the packed buffers): made once a shape (block size, grid and
+# shared memory from the occupancy the device reports), so that a launch
+# issues nothing but the launch and can be captured into a CUDA graph.
+_STAGE, _RDMA = 0, 1
+_plans: dict = {}
+# The room of the kernels' run-time-size arrays (QMAX_NP in the source): N=6.
+SHARD_MAX_NP = 28
+
+
+def _shard_plan(lib, desc, ops: ShardOps, B: int, which: int):
+    if desc.Nfaces != 3 or desc.Np > SHARD_MAX_NP:
+        raise ValueError(
+            "the sharded stage kernels take triangles of order N <= 6 (at "
+            f"most {SHARD_MAX_NP} nodes an element); this set has "
+            f"{desc.Np} nodes, {desc.Nfaces} faces")
+    S, fs, is_ = ops.send.shape[0], ops.fbuf.shape[1], ops.ibuf.shape[1]
+    key = (bytes(desc), S, B, which, fs, is_)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = (ctypes.c_int * 4)()
+        _launch_check(lib.sw2d_shard_plan(ctypes.byref(desc), S, B, which,
+                                          fs, is_, plan), "sw2d_shard_plan")
+        _plans[key] = plan
+    return plan
+
+
+def shard_plan(ops: ShardOps, meta: BlockedMeta, batch: int,
+               step: bool = False) -> dict:
+    """The launch plan of the sharded stage kernel (or, with ``step``, of the
+    one-launch step kernel) over ``ops``'s shards at ``batch`` scenarios:
+    threads a block, blocks, bytes of shared memory a block, lanes an
+    element (needs the card)."""
+    lib, desc, _ = _check_kernel_inputs(ops, meta, ops.fbuf)
+    plan = _shard_plan(lib, desc, ops, batch, _RDMA if step else _STAGE)
+    return dict(zip(("threads", "grid", "smem_bytes", "lanes_per_element"),
+                    plan))
 
 
 def last_grid() -> int:
@@ -654,18 +694,33 @@ def sw2d_stage_blocked(ops: ShardOps, meta: BlockedMeta, base, cur, rb,
     (lean-I/O mode) of ``blitzdg_tpu/ops/sw2d_blocked.py``. Bound by
     bytes: six state reads and three writes against one RHS per node, whose
     operations take less time on the card than the bytes' transfer. One
-    ordinary launch covers every shard; design: see the source of the
-    kernels.
+    ordinary launch covers every shard, four lanes an element at N=3 (one
+    at other orders), the block size planned once a shape
+    (``shard_plan``); design: see the source of the kernels.
     """
-    S, B, L = _check_stage(ops, meta, {"base_h": base[0], "base_hu": base[1],
-                                       "base_hv": base[2], "h": cur[0],
-                                       "hu": cur[1], "hv": cur[2]}, rb)
+    _check_stage(ops, meta, {"base_h": base[0], "base_hu": base[1],
+                             "base_hv": base[2], "h": cur[0], "hu": cur[1],
+                             "hv": cur[2]}, rb)
     if ctrl is not None:
         _check_tensor("ctrl", ctrl, (meta.n_ctrl,), rb)
     if rb.device.type == "cpu":
         return sw2d_stage_blocked_plain(ops, meta, base, cur, rb, c_dt, t,
                                         ctrl, use_filter, apply_sponge)
-    lib, desc, E = _check_kernel_inputs(ops, meta, rb)
+    out = _run_stage(ops, meta, base, cur, rb, c_dt, t, ctrl, use_filter,
+                     apply_sponge)
+    sw2d_stage_blocked.launches += 1
+    return out
+
+
+sw2d_stage_blocked.launches = 0
+
+
+def _run_stage(ops: ShardOps, meta: BlockedMeta, base, cur, rb, c_dt, t,
+               ctrl, use_filter, apply_sponge):
+    """The stage kernel's launch (the shapes checked by the caller)."""
+    lib, desc, _ = _check_kernel_inputs(ops, meta, rb)
+    S, B = rb.shape[:2]
+    plan = _shard_plan(lib, desc, ops, B, _STAGE)
     out = [torch.empty_like(cur[0]) for _ in range(3)]
     sb = torch.empty_like(rb)
     err = lib.sw2d_stage(
@@ -674,13 +729,9 @@ def sw2d_stage_blocked(ops: ShardOps, meta: BlockedMeta, base, cur, rb,
         *(f.data_ptr() for f in base), *(f.data_ptr() for f in cur),
         rb.data_ptr(), _ptr(ctrl), *(f.data_ptr() for f in out),
         sb.data_ptr(), float(c_dt), float(t), int(use_filter),
-        int(apply_sponge and meta.has_sponge), E, THREADS, _stream(rb))
+        int(apply_sponge and meta.has_sponge), plan, _launch_stream(rb))
     _launch_check(err, "sw2d_stage_blocked")
-    sw2d_stage_blocked.launches += 1
     return (*out, sb)
-
-
-sw2d_stage_blocked.launches = 0
 
 
 def sw2d_stage_bwd_blocked_v2(ops: ShardOps, meta: BlockedMeta, cur, rb,
@@ -764,12 +815,15 @@ def sw2d_step_rdma_blocked_plain(ops: ShardOps, meta: BlockedMeta, state, rb,
 class RdmaLaunch:
     """``sw2d_step_rdma_blocked`` over one sharded set and its stacked ring
     exchange ``ex`` (a ``parallel.RingExchange`` without a process group),
-    with what every launch shares made once: the descriptor, the chunk of
-    elements, the argument list's constant head, and the scratch of the last
-    batch size (the stage-1 triple and the stage-2 receive buffer), which
-    every launch on the stream reuses. The shard that receives each send
-    slot is the ring's reverse source table, ``ex.src_rev`` (on the card).
-    Call it as ``launch(state, rb, dt, t, ctrl, use_filter)``."""
+    with what every launch shares made once: the descriptor, the argument
+    list's constant head, the launch plan of each batch size, and the
+    scratch of the last batch size (the stage-1 triple and the stage-2
+    receive buffer), which every launch on the stream reuses. The shard
+    that receives each send slot is the ring's reverse source table,
+    ``ex.src_rev`` (on the card). Call it as ``launch(state, rb, dt, t,
+    ctrl, use_filter)``. After the first call at a batch size a call issues
+    nothing but the launch (no device query, no synchronisation), so a
+    CUDA graph can capture it."""
 
     def __init__(self, ops: ShardOps, meta: BlockedMeta, ex):
         _refuse_wetdry_rdma(meta)
@@ -780,19 +834,11 @@ class RdmaLaunch:
                 ex.plan.offs and tuple(ex.src_rev.shape) != (S, L)):
             raise ValueError("the one-launch step needs the stacked ring "
                              "exchange of its own set")
-        self.ops, self.meta, self.ex = ops, meta, ex
-        self.device, self._scratch = ops.fbuf.device, None
-        if self.device.type == "cpu":  # the plain version only
-            return
-        self.lib, self.desc, self.E = _check_kernel_inputs(ops, meta,
-                                                           ops.fbuf)
-        self.dest = _ptr(ex.src_rev)  # null without ring offsets
-        if ex.src_rev is not None and ex.src_rev.device != self.device:
+        if ex.src_rev is not None and ex.src_rev.device != ops.fbuf.device:
             raise ValueError("ring exchange and operator set lie on "
                              "different devices")
-        self.head = (ctypes.byref(self.desc), ops.fbuf.data_ptr(),
-                     ops.ibuf.data_ptr(), ops.fbuf.shape[1],
-                     ops.ibuf.shape[1], S)
+        self.ops, self.meta, self.ex = ops, meta, ex
+        self.device, self._scratch, self._head = ops.fbuf.device, None, None
 
     def _scratch_for(self, rb: torch.Tensor):
         if self._scratch is None or self._scratch[1].shape != rb.shape:
@@ -804,8 +850,8 @@ class RdmaLaunch:
     def __call__(self, state, rb, dt: float, t: float = 0.0, ctrl=None,
                  use_filter: bool = True):
         ops, meta = self.ops, self.meta
-        S, B, L = _check_stage(ops, meta, {"h": state[0], "hu": state[1],
-                                           "hv": state[2]}, rb)
+        _check_stage(ops, meta, {"h": state[0], "hu": state[1],
+                                 "hv": state[2]}, rb)
         if ctrl is not None:
             _check_tensor("ctrl", ctrl, (meta.n_ctrl,), rb)
         if rb.device.type == "cpu":
@@ -813,19 +859,33 @@ class RdmaLaunch:
                                                 self.ex, t, ctrl, use_filter)
         if rb.device != self.device:
             raise ValueError("operator set and state lie on different devices")
+        out = self._launch(state, rb, dt, t, ctrl, use_filter)
+        sw2d_step_rdma_blocked.launches += 1
+        return out
+
+    def _launch(self, state, rb, dt, t, ctrl, use_filter):
+        """The kernel's launch (the shapes checked by the caller)."""
+        ops, meta = self.ops, self.meta
+        if self._head is None:
+            lib, desc, _ = _check_kernel_inputs(ops, meta, ops.fbuf)
+            self._head = (lib, desc, (
+                ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
+                ops.fbuf.shape[1], ops.ibuf.shape[1], ops.send.shape[0]))
         if rb.dtype != torch.float32:
             raise TypeError(f"the CUDA kernels are float32, got {rb.dtype}")
+        lib, desc, head = self._head
+        S, B = rb.shape[:2]
+        plan = _shard_plan(lib, desc, ops, B, _RDMA)
         s1, rb2 = self._scratch_for(rb)
         out = [torch.empty_like(state[0]) for _ in range(3)]
         sb = torch.empty_like(rb)
-        err = self.lib.sw2d_step_rdma(
-            *self.head, B, *(f.data_ptr() for f in state), rb.data_ptr(),
-            _ptr(ctrl), self.dest, s1.data_ptr(), rb2.data_ptr(),
+        err = lib.sw2d_step_rdma(
+            *head, B, *(f.data_ptr() for f in state), rb.data_ptr(),
+            _ptr(ctrl), _ptr(self.ex.src_rev), s1.data_ptr(), rb2.data_ptr(),
             *(f.data_ptr() for f in out), sb.data_ptr(), float(dt), float(t),
-            float(t + 0.5 * dt), int(use_filter), int(meta.has_sponge),
-            self.E, THREADS, _stream(rb))
+            float(t + 0.5 * dt), int(use_filter), int(meta.has_sponge), plan,
+            _launch_stream(rb))
         _launch_check(err, "sw2d_step_rdma_blocked")
-        sw2d_step_rdma_blocked.launches += 1
         return (*out, sb)
 
 

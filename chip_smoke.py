@@ -11,11 +11,12 @@ in order (any failure is an exception and a non-zero exit):
 
  1. refuses to run without a CUDA device;
  2. builds the CUDA kernels of ``blitzdg_tpu_torch/ops/csrc`` with nvcc and
-    prints what ptxas reports (registers, stack, spills) of the curved and
-    dense kernels and their static SASS mix (a library built by an earlier
-    run keeps its report beside it); it fails at the end of the run if
-    either instantiation of a curved rollout kernel or of a dense kernel
-    (of the paths run) spills or has no report;
+    prints what ptxas reports (registers, stack, spills) of the curved,
+    dense and sharded kernels and their static SASS mix (a library built by
+    an earlier run keeps its report beside it); it fails at the end of the
+    run if any instantiation of a curved rollout kernel, a dense kernel or
+    the sharded stage and one-launch step kernels (of the paths run) spills
+    or has no report;
  3. DENSE path (small meshes, one thread per element and scenario). Holds
     each kernel (``sw2d_step_fused``, ``sw2d_rollout_fused``,
     ``sw2d_rollout_bwd_fused``) against its plain PyTorch version on the
@@ -68,11 +69,15 @@ in order (any failure is an exception and a non-zero exit):
     N=3, S=4 shards, B=8, with controls, on a perturbed state (both stages
     of a step), on a coastal case (bathymetry, well-balancing, drag,
     Coriolis, tidal open boundary, sponge, t0=1), forward only on a wet/dry
-    beach, and at the two shapes of the main path: full width at B=1 and the
-    example's size (K=128, N=1, S=8, B=1); it holds the one-launch step
-    kernel ``sw2d_step_rdma_blocked`` against its plain version (and reruns
-    it for the same bits) at K=2048, N=3 with controls at S=4 and S=1, each
-    at B=8 and B=1, at the example's size and on the coastal case;
+    beach and at N=6 (the highest order they take), and at the two shapes
+    of the main path: full width at B=1 and the example's size (K=128, N=1,
+    S=8, B=1); it holds the one-launch step kernel
+    ``sw2d_step_rdma_blocked`` against its plain version (reruns it for the
+    same bits, and holds it bit-equal to two stage launches with the
+    exchange between) at K=2048, N=3 with controls at S=4 and S=1, each at
+    B=8 and B=1, at the example's size, on the coastal case and at N=6, and
+    times in CUDA graphs the step, its two stage launches and the exchange
+    gather between them;
     ``sharded_rollout`` runs the 2048-step rollout at S=1 and S=4, B=1 and
     B=8, with its device idle share, and holds the first 8 S=4 steps
     against the unsharded blocked rollout; ``sharded_rollout_rdma`` runs
@@ -80,7 +85,13 @@ in order (any failure is an exception and a non-zero exit):
     before and read just after: one step kernel a step, no stage kernel),
     with its idle share, holds its end state against the fused rollout's
     after all 2048 steps and the first 8 S=4, B=8 steps against the fused
-    rollout's; ``sharded_path`` drives
+    rollout's; ``sharded_rollout_graph`` captures each rollout, through
+    either step, into one CUDA graph (``capture_sharded_rollout``) and
+    replays it: its end state bit-equal to the per-step loop's (the replays
+    made after memory of the sizes of what the graph reads outside its pool
+    was taken and filled with NaN), its time a step, the capture's time and
+    the idle share of a profiled replay;
+    ``sharded_path`` drives
     ``solve_sharded_mpc`` (30 Adam iterations) at the example's size and at
     full width (``mpc/sharded_box.py``), counters zeroed just before and
     read just after, and holds the full-width control gradient against the
@@ -101,6 +112,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -276,6 +288,34 @@ def time_ms(fn, reps: int, flush) -> float:
     return statistics.median(times)
 
 
+def graph_us(fns, n: int = 100, reps: int = 5) -> float:
+    """Median time in us of one round of ``fns`` (called in order) from a
+    CUDA graph of ``n`` rounds replayed ``reps`` times, CUDA events: the
+    launches back to back with their inputs warm in L2 and no host between
+    them, as a captured rollout issues them (the gaps between launches
+    included)."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            for fn in fns:
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) * 1e3 / n)
+    return statistics.median(times)
+
+
 def max_abs(xs, ys) -> float:
     return max(float((x - y).abs().max()) for x, y in zip(xs, ys))
 
@@ -400,10 +440,10 @@ def perturbed_inputs(cb, B, n_cs, rng, device):
     return h.contiguous(), hu.contiguous(), hv.contiguous(), ctrls
 
 
-def profile_solve(phase: str, card: str, run, solve_s: float) -> None:
+def profile_solve(phase: str, card: str, run, solve_s: float) -> dict:
     """Where one solve's time goes, for information: device time by kernel
     name under torch.profiler, and the idle share against the unprofiled
-    host-clock time ``solve_s``."""
+    host-clock time ``solve_s``. Returns the record it prints."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -422,14 +462,16 @@ def profile_solve(phase: str, card: str, run, solve_s: float) -> None:
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    say({"phase": phase, "card": card,
+    rec = {"phase": phase, "card": card,
          "device_busy_ms": busy_ms if busy_ms > 0 else None,
          "solve_ms_unprofiled": solve_s * 1e3,
          "device_idle_share": (1.0 - busy_ms / (solve_s * 1e3)
                                if busy_ms > 0 else None),
          "device_kernel_launches": sum(r[2] for r in rows),
          "top_device_ms": [{"name": k[:60], "ms": us / 1e3, "calls": n}
-                           for us, k, n in rows[:8] if us > 0]})
+                           for us, k, n in rows[:8] if us > 0]}
+    say(rec)
+    return rec
 
 
 def dense_phases(dev, card: str, rng, flush) -> list:
@@ -1454,7 +1496,8 @@ def curved_phases(dev, card: str, rng, flush) -> list:
 # ---------------------------------------------------------------------------
 
 def check_sharded_case(TB, BS, name, sb, state, ctrl, dt, t, sponge, flush,
-                       rng, adjoint: bool = True, timed: bool = False):
+                       rng, adjoint: bool = True, timed: bool = False,
+                       tol: float = BLK_FWD_ATOL):
     """Hold the two stage kernels against their plain versions on one case:
     stage 1 (base = cur, dt/2, no sponge) and stage 2 (base != cur, dt, the
     sponge if ``sponge``) with the receive buffers the ring exchange makes
@@ -1487,9 +1530,10 @@ def check_sharded_case(TB, BS, name, sb, state, ctrl, dt, t, sponge, flush,
     torch.cuda.synchronize()
     err = max(max_abs(got1, ref1), max_abs(got2, ref2))
     n_wall = int(ops.wall.sum()) / S  # per shard
-    rec = record("sw2d_stage_blocked", err, BLK_FWD_ATOL,
-                 finite(got1) and finite(got2) and err <= BLK_FWD_ATOL,
-                 grid_blocks=TB.last_grid(), slots=L)
+    rec = record("sw2d_stage_blocked", err, tol,
+                 finite(got1) and finite(got2) and err <= tol,
+                 grid_blocks=TB.last_grid(), slots=L,
+                 plan=TB.shard_plan(ops, meta, B))
     if timed:
         rec["ms"] = time_ms(lambda: st2(TB.sw2d_stage_blocked), 9, flush)
         rec["plain_ms"] = time_ms(lambda: st2(TB.sw2d_stage_blocked_plain), 2,
@@ -1536,11 +1580,14 @@ def check_sharded_case(TB, BS, name, sb, state, ctrl, dt, t, sponge, flush,
 
 
 def check_rdma_case(TB, BS, name, sb, state, ctrl, dt, t, flush,
-                    timed: bool = False):
+                    timed: bool = False, tol: float = BLK_FWD_ATOL):
     """Hold the one-launch step kernel against its plain version on one
     case (the receive buffer the ring exchange makes of the state's send
-    buffer), rerun it for the same bits and, for information, against the
-    two stage kernels with the exchange between. Returns its record."""
+    buffer), rerun it for the same bits and hold it bit-equal to the two
+    stage kernels with the exchange between (both run the same stage
+    code). Times the step, the two stage launches and the exchange gather
+    between them back to back in CUDA graphs (``graph_us``). Returns its
+    record."""
     from blitzdg_tpu_torch.parallel.halo import RingExchange
 
     ops, meta, offs = sb.ops, sb.meta, sb.plan.offs
@@ -1563,15 +1610,26 @@ def check_rdma_case(TB, BS, name, sb, state, ctrl, dt, t, flush,
     torch.cuda.synchronize()
     err = max_abs(got, ref)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
+    two_same = all(torch.equal(a, b) for a, b in zip(got, two))
     finite = all(bool(torch.isfinite(f).all()) for f in got)
+    cur, rb2 = tuple(s1), ex(sb1)
+    in_graph = {
+        "step": graph_us([step]),
+        "two_stages": graph_us([
+            lambda: TB.sw2d_stage_blocked(ops, meta, state, state, rb,
+                                          0.5 * dt, t, ctrl),
+            lambda: TB.sw2d_stage_blocked(ops, meta, state, cur, rb2, dt,
+                                          t + 0.5 * dt, ctrl, True, True)]),
+        "exchange": graph_us([lambda: ex(sb1)])}
     rec = {"case": name, "kernel": "sw2d_step_rdma_blocked",
-           "max_abs_err": err, "tol": BLK_FWD_ATOL,
-           "ok": finite and same and err <= BLK_FWD_ATOL,
+           "max_abs_err": err, "tol": tol,
+           "ok": finite and same and two_same and err <= tol,
            "same_bits_on_rerun": same,
-           "same_bits_as_two_stage_kernels": all(
-               torch.equal(a, b) for a, b in zip(got, two)),
+           "same_bits_as_two_stage_kernels": two_same,
            "grid_blocks": grid, "n_shards": S, "batch": B, "slots": L,
-           "ring_offsets": list(offs)}
+           "ring_offsets": list(offs), "in_graph_us": in_graph,
+           "plan": TB.shard_plan(ops, meta, B, step=True),
+           "stage_plan": TB.shard_plan(ops, meta, B)}
     if timed:
         rec["ms"] = time_ms(step, 9, flush)
         rec["plain_ms"] = time_ms(plain, 2, flush)
@@ -1714,6 +1772,29 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
                cfl_dt(cc, 9.81, 13.5), 1.0)
     del csb, cc
 
+    # N=6, the highest order the sharded kernels take (the run-time sizes,
+    # one lane an element), forward only, at the blocked path's N=6
+    # tolerance; at 32 scenarios the items would fill blocks of 256 threads,
+    # whose shared memory (241 KB) is more than a block may have: the
+    # launcher takes 128
+    c6 = build_triangle_context(6, partition_mesh(box_triangles(*sbx.CELLS),
+                                                  S)[0], dtype=f32,
+                                device=dev, filter_cutoff=0.9 * 6,
+                                filter_order=4)
+    bu6, bv6 = sbx.injectors(c6)
+    sb6 = BS.build_sharded_blocked(c6, SWPhysics(g=9.81), S, forcing_bu=bu6,
+                                   forcing_bv=bv6, device=dev)
+    st, ctrl = shard_state(c6, sbx.H_REST, 32, 2)
+    dt6 = cfl_dt(c6, 9.81, 11.0)
+    check("sharded_K2048_N6_S4_B32", sb6, st, ctrl, dt6, 0.0, False, flush,
+          rng, adjoint=False, tol=BLK_FWD_ATOL_N6)
+    rec = check_rdma("rdma_K2048_N6_S4_B32", sb6, st, ctrl, dt6, 0.0,
+                     tol=BLK_FWD_ATOL_N6)
+    if rec["plan"]["threads"] != 128:
+        raise RuntimeError(f"N=6 at 32 scenarios: expected blocks of 128 "
+                           f"threads, got {rec['plan']}")
+    del sb6, c6
+
     # wetting and drying, forward only: a sloping beach, dry beyond x = 2/3
     wc = context(partition_mesh(box_triangles(*sbx.CELLS, xlim=(0.0, 1.0),
                                               ylim=(0.0, 1.0)), S)[0])
@@ -1784,6 +1865,83 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
         if not rec["ok"]:
             raise RuntimeError(f"a {what} rollout failed its checks")
 
+    def clobber(r):
+        """After a capture: free what nothing holds, then take memory of the
+        sizes of what the graph reads outside its pool (the one-launch
+        step's scratch, the exchange's index tables), eight tensors of each,
+        filled with NaN. A graph whose step was freed replays into them, and
+        its end state is no longer the loop's. Returns them (held until the
+        replays are done)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        S_, B_ = r.state[0].shape[:2]
+        L_ = r.sb.ops.send.shape[1]
+        # floats: the stage-1 triple, stage 2's receive buffer, an index
+        # table (int64)
+        sizes = (3 * S_ * B_ * r.sb.meta.n_v, S_ * B_ * L_ * 3, 2 * S_ * L_)
+        held = [torch.full((n,), float("nan"), dtype=f32, device=dev)
+                for n in sizes for _ in range(8)]
+        torch.cuda.synchronize()
+        return held
+
+    def graph_rollout(r, make_step, kind, loop_end, loop_us):
+        """``r``'s rollout through ``make_step``'s steps captured into one
+        CUDA graph (``capture_sharded_rollout``) and replayed: its end state
+        bit-equal to the per-step loop's (``loop_end``) on two replays made
+        after the memory the graph does not own was taken and overwritten
+        (``clobber``), the time a step of a replay (median of 3), the
+        capture's time (with the graph's instantiation and one warm-up step)
+        and launches recorded, and the idle share of a profiled replay."""
+        batch, n = r.state[0].shape[1], r.n_steps
+        rdma.launches = stage.launches = 0
+        t0 = time.perf_counter()
+        replay = sbx.capture_sharded_rollout(r, n, make_step)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        counts = {"sw2d_stage_blocked": stage.launches,
+                  "sw2d_step_rdma_blocked": rdma.launches}
+        held = clobber(r)
+        t0 = time.perf_counter()
+        end = replay()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(end, loop_end))
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            replay()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        secs = statistics.median(times)
+        prof = profile_solve(
+            f"sharded_rollout_graph_profile_{kind}_S{r.sb.n_shards}_B{batch}",
+            card, replay, secs)
+        same_again = all(torch.equal(a, b) for a, b in zip(end, loop_end))
+        del held
+        # the warm-up step before the capture, then the n steps recorded
+        per = {"rdma": {"sw2d_stage_blocked": 0, "sw2d_step_rdma_blocked": 1},
+               "fused": {"sw2d_stage_blocked": 2,
+                         "sw2d_step_rdma_blocked": 0}}[kind]
+        expect = {k: v * (n + 1) for k, v in per.items()}
+        us = secs * 1e6 / n
+        rec = {"phase": "sharded_rollout_graph", "step": kind, "card": card,
+               "n_shards": r.sb.n_shards, "batch": batch,
+               "k_elem": r.ctx.k_elem, "n_order": n_order, "n_steps": n,
+               "us_per_step": us, "loop_us_per_step": loop_us,
+               "faster_than_loop": us < loop_us,
+               "replay_seconds": times,
+               "capture_and_instantiate_seconds": capture_s,
+               "first_replay_seconds": first_s,
+               "launches_at_capture": counts,
+               "launches_recorded_per_step": per,
+               "device_idle_share": prof["device_idle_share"],
+               "device_busy_us_per_step": (
+                   None if prof["device_busy_ms"] is None
+                   else prof["device_busy_ms"] * 1e3 / n),
+               "bit_equal_to_loop": same and same_again,
+               "ok": same and same_again and counts == expect}
+        finish(rec, "captured sharded")
+
     rdma_launches = 0
     for n_shards in sbx.ROLLOUT_SHARDS:
         for batch in sbx.ROLLOUT_BATCHES:
@@ -1836,6 +1994,11 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
                 rec["vs_fused_steps"] = SHD_CHECK_STEPS
                 rec["ok"] = rec["ok"] and err <= BLK_FWD_ATOL
             finish(rec, "one-launch sharded")
+            # both rollouts again, each captured into one CUDA graph
+            graph_rollout(r, BS.make_sharded_blocked_step_rdma, "rdma", end,
+                          rec["us_per_step"])
+            graph_rollout(r, BS.make_sharded_blocked_step_fused, "fused",
+                          fused_end, fused_us)
             del r, end, fused_end
 
     # ---- the main path: the sharded MPC at both sizes ----
@@ -2022,6 +2185,14 @@ DENSE_KERNELS = [
     for z in ("I6DSizesILi3ELi2ELi2EEE", "I6DSizesILi0ELi0ELi0EEE")]
 
 
+# The sharded stage kernel and the one-launch step in their three
+# instantiations: N=3 with two controls, N=3 with others, the run-time sizes.
+SHARDED_KERNELS = [
+    k + z for k in ("_Z17sw2d_stage_kernel", "_Z21sw2d_step_rdma_kernel")
+    for z in ("I6QSizesILi10ELi4ELi2ELi4EEE", "I6QSizesILi10ELi4ELin1ELi4EEE",
+              "I6QSizesILi0ELi0ELin1ELi1EEE")]
+
+
 def check_no_spills(report: dict, kernels: list):
     """Fails unless ptxas's report (this build's, or the one kept beside a
     library built before) covers every kernel named (by mangled-name
@@ -2061,15 +2232,20 @@ def main() -> int:
     libs = _build.build_all()
     curved = ptxas_summary(_build.last_build_log.get("sw2d_curved", ""))
     dense = ptxas_summary(_build.last_build_log.get("sw2d_dense", ""))
+    blocked = ptxas_summary(_build.last_build_log.get("sw2d_blocked", ""))
     say({"phase": "build", "seconds": time.perf_counter() - t0,
          "ptxas": [ln for log in _build.last_build_log.values()
                    for ln in log.splitlines()
                    if "registers" in ln or "spill" in ln][:32],
          "ptxas_curved": curved, "ptxas_dense": dense,
+         "ptxas_sharded": {k: v for k, v in blocked.items()
+                           if "QSizes" in k},
          "sass_curved_N3": sass_mix(libs["sw2d_curved"],
                                     lambda n: "Li10ELi34ELi8E" in n),
          "sass_dense": sass_mix(libs["sw2d_dense"],
-                                lambda n: "_kernel" in n)})
+                                lambda n: "_kernel" in n),
+         "sass_sharded": sass_mix(libs["sw2d_blocked"],
+                                  lambda n: "QSizes" in n)})
 
     rng = np.random.default_rng(0)
     scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
@@ -2090,6 +2266,8 @@ def main() -> int:
         check_no_spills(curved, CURVED_ROLLOUT_KERNELS)
     if args.only in (None, "dense"):
         check_no_spills(dense, DENSE_KERNELS)
+    if args.only in (None, "sharded"):
+        check_no_spills(blocked, SHARDED_KERNELS)
     say({"kernels": kernels})
     print(card, flush=True)
     say({"ok": True, "device": {"platform": "gpu",

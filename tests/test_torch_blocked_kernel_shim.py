@@ -1,0 +1,514 @@
+"""The sharded kernels' CUDA source (``ops/csrc/sw2d_blocked.cu``: the stage
+kernel ``sw2d_stage_kernel`` and the one-launch step
+``sw2d_step_rdma_kernel``), compiled for the CPU with ``g++ -std=c++20
+-pthread`` behind a shim header, against their plain versions
+(``ops/sw2d_blocked.py``).
+
+The kernels run several lanes an element that meet in shuffles and warp
+barriers, and the step's blocks meet at a grid barrier. So every CUDA
+thread of a launch is a host thread: ``threadIdx`` and ``blockIdx`` are
+thread-local, ``__syncthreads`` is a ``std::barrier`` of the block,
+``__syncwarp`` one of the warp, ``__shfl_xor_sync`` an exchange through a
+per-warp buffer between two warp barriers, ``grid.sync()`` a
+``std::barrier`` over every thread of the launch, and shared memory is a
+buffer of the block. A cooperative launch runs all its blocks at once; an
+ordinary one runs them in turn. The shim's device reports ``shim_sms``
+multiprocessors and ``shim_per_sm`` resident blocks (set from the test
+through ``ctypes``): few, so that the step's blocks loop over the items, or
+enough for one pass (the step then keeps its lanes' nodes in registers
+across the grid barrier). The launches go through the module's own launch
+helpers (``_run_stage``, ``RdmaLaunch._launch``), so the argument lists and
+the launch plans are exercised too.
+
+Cases, on ``box_triangles(8, 8)`` partitioned: coastal physics (bathymetry
+with the well-balanced star fluxes, drag, Coriolis, tidal depth on the open
+east side from t = 1, sponge toward it) with two controls, at N=3 (the
+compile-time instance, four lanes an element) and N=1 (the run-time sizes,
+one lane), at S=4 (ring offsets and flipped cut faces) and S=1, at B=3 and
+B=1; N=3 without controls (its own instance); at N=1, B=3 the last block is
+ragged. The stage kernel also on a wet/dry beach (the limiter). The kernels
+run in float32; the reference is the plain version in float64 on the same
+float32 inputs, with ``chip_smoke.py``'s tolerance: 5e-5 absolute on states
+near 10 (float32 rounding of two RHS evaluations). Besides: the same bits
+on a rerun, and the step bit-equal to two stage launches with the ring
+exchange between (both run the same stage code).
+"""
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from blitzdg_tpu_torch.context import BC_OUT
+from blitzdg_tpu_torch.mesh import box_triangles
+from blitzdg_tpu_torch.mpc.coastal_box import cfl_dt, retag_east_open
+from blitzdg_tpu_torch.mpc.sharded_box import injectors
+from blitzdg_tpu_torch.ops import _build
+from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+from blitzdg_tpu_torch.ops.sw2d import SWPhysics
+from blitzdg_tpu_torch.parallel import blocked_shard as BS
+from blitzdg_tpu_torch.parallel import partition_mesh
+from blitzdg_tpu_torch.parallel.halo import RingExchange
+from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
+from blitzdg_tpu_torch.utils import build_sponge_coefficient
+
+F32, F64 = torch.float32, torch.float64
+FWD_ATOL = 5e-5
+
+SHIM = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <vector>
+using std::max;
+using std::min;
+#define __device__
+#define __global__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __align__(n) alignas(n)
+#define __shared__
+// (internal linkage throughout: another shim library loaded into the same
+// process must not share these)
+struct shim_dim { unsigned x, y, z; };
+static thread_local shim_dim threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0};
+static shim_dim blockDim = {1, 1, 1}, gridDim = {1, 1, 1};
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+static inline float4 make_float4(float x, float y, float z, float w) {
+  float4 r = {x, y, z, w};
+  return r;
+}
+// one block of a launch: its barrier, its warps' barriers, the exchange
+// buffer of the shuffles, its shared memory
+struct ShimBlock {
+  std::unique_ptr<std::barrier<>> bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warp;
+  std::vector<float> xch;
+  std::vector<float4> mem;
+};
+static thread_local ShimBlock* shim_blk = nullptr;
+static std::barrier<>* shim_grid = nullptr;
+#define smem (reinterpret_cast<float*>(shim_blk->mem.data()))
+static inline void __syncthreads() { shim_blk->bar->arrive_and_wait(); }
+static inline void __syncwarp(unsigned = 0xffffffffu) {
+  shim_blk->warp[threadIdx.x / 32]->arrive_and_wait();
+}
+static inline float __shfl_xor_sync(unsigned, float v, int m, int w = 32) {
+  const unsigned t = threadIdx.x, l = t & 31;
+  shim_blk->xch[t] = v;
+  __syncwarp();
+  const unsigned src = (t & ~31u) | ((l & ~(unsigned)(w - 1))
+                                     | ((l ^ (unsigned)m) & (w - 1)));
+  const float r = shim_blk->xch[src];
+  __syncwarp();
+  return r;
+}
+static inline float __shfl_down_sync(unsigned, float, int) { return 0.0f; }
+static inline float __fdividef(float a, float b) { return a / b; }
+template <class T>
+static inline T __ldg(const T* p) { return *p; }
+static inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorLaunchOutOfResources = 701,
+       cudaErrorCooperativeLaunchTooLarge = 720,
+       cudaErrorNotSupported = 801 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrCooperativeLaunch = 95,
+                      cudaDevAttrMultiProcessorCount = 16,
+                      cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+// the device that the launcher asks about: its multiprocessors and the
+// blocks of a kernel that one holds (set from the test), and the shared
+// memory a block may have (the H100's 227 KB)
+extern "C" { int shim_sms = 1, shim_per_sm = 1, shim_smem_optin = 232448; }
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+enum { cudaLaunchAttributeCooperative = 2 };
+struct cudaLaunchAttribute {
+  int id;
+  struct { int cooperative; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class K>
+static inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return 0;
+}
+static inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+static inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a,
+                                                 int) {
+  *v = a == cudaDevAttrMultiProcessorCount            ? shim_sms
+       : a == cudaDevAttrMaxSharedMemoryPerBlockOptin ? shim_smem_optin
+                                                      : 1;
+  return 0;
+}
+template <class K>
+static inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, K, int, size_t) {
+  *n = shim_per_sm;
+  return 0;
+}
+template <class K>
+static inline cudaError_t cudaLaunchCooperativeKernel(K, dim3, dim3, void**,
+                                                      size_t, cudaStream_t) {
+  return cudaErrorNotSupported;  // the kernels of the blocked rollouts
+}
+static inline cudaError_t cudaGetLastError() { return 0; }
+// a launch: each CUDA thread a host thread; a cooperative launch runs all
+// its blocks at once (they meet at grid barriers), an ordinary one runs
+// them in turn
+template <class O, class A, class O2, class A2>
+static inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                                             void (*f)(O, A), O2&& o2,
+                                             A2&& a2) {
+  const O o = o2;
+  const A a = a2;
+  bool coop = false;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    coop = coop || (cfg->attrs[i].id == cudaLaunchAttributeCooperative
+                    && cfg->attrs[i].val.cooperative);
+  const unsigned G = cfg->gridDim.x, T = cfg->blockDim.x;
+  if (T % 32 != 0) return cudaErrorInvalidValue;
+  if (coop && (int)G > shim_sms * shim_per_sm)
+    return cudaErrorCooperativeLaunchTooLarge;
+  blockDim = {T, 1, 1};
+  gridDim = {G, 1, 1};
+  auto run = [&](unsigned b0, unsigned b1) {
+    std::vector<ShimBlock> blocks(b1 - b0);
+    for (auto& b : blocks) {
+      b.bar = std::make_unique<std::barrier<>>(T);
+      for (unsigned w = 0; w < T / 32; ++w)
+        b.warp.push_back(std::make_unique<std::barrier<>>(32));
+      b.xch.assign(T, 0.0f);
+      b.mem.assign(cfg->dynamicSmemBytes / sizeof(float4) + 1,
+                   float4{0, 0, 0, 0});
+    }
+    std::barrier<> grid((b1 - b0) * T);
+    shim_grid = &grid;
+    std::vector<std::thread> ts;
+    for (unsigned blk = b0; blk < b1; ++blk)
+      for (unsigned i = 0; i < T; ++i)
+        ts.emplace_back([f, &o, &a, &blocks, blk, b0, i] {
+          threadIdx = {i, 0, 0};
+          blockIdx = {blk, 0, 0};
+          shim_blk = &blocks[blk - b0];
+          f(o, a);
+        });
+    for (auto& t : ts) t.join();
+  };
+  if (coop) run(0, G);
+  else
+    for (unsigned b = 0; b < G; ++b) run(b, b + 1);
+  return 0;
+}
+"""
+
+COOPERATIVE_GROUPS = r"""
+#pragma once
+#include "shim.h"
+namespace cooperative_groups {
+struct grid_group {
+  void sync() const { shim_grid->arrive_and_wait(); }
+};
+static inline grid_group this_grid() { return grid_group{}; }
+}  // namespace cooperative_groups
+"""
+
+
+def _shim_source(src: str) -> str:
+    """The kernels' source with shared memory a buffer of the block."""
+    decl = "extern __shared__ float smem[];"
+    assert src.count(decl) == 1
+    return src.replace(decl, "")
+
+
+@pytest.fixture(scope="module")
+def shim_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the kernel source cannot be "
+                    "compiled for the CPU")
+    d = tmp_path_factory.mktemp("blocked_shim")
+    (d / "shim.h").write_text(SHIM)
+    (d / "cuda_runtime.h").write_text('#pragma once\n#include "shim.h"\n')
+    (d / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS)
+    src = (_build.CSRC / "sw2d_blocked.cu").read_text()
+    (d / "sw2d_blocked_shim.cu").write_text(_shim_source(src))
+    lib = d / "libsw2d_blocked_shim.so"
+    cmd = [gxx, "-std=c++20", "-pthread", "-O1", "-fno-strict-aliasing",
+           "-shared", "-fPIC", "-w", "-include", str(d / "shim.h"), "-I",
+           str(d), "-I", str(_build.CSRC), "-x", "c++",
+           str(d / "sw2d_blocked_shim.cu"), "-o", str(lib)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture
+def device(shim_lib, monkeypatch):
+    """The module's launch helpers on the shim library; set the shim
+    device's multiprocessors and resident blocks through the returned
+    function (the launch plans are made anew for each setting)."""
+    monkeypatch.setattr(_build, "load", lambda name: shim_lib)
+    monkeypatch.setattr(TB, "_plans", {})
+    sms = ctypes.c_int.in_dll(shim_lib, "shim_sms")
+    per_sm = ctypes.c_int.in_dll(shim_lib, "shim_per_sm")
+
+    def set_device(n_sms, n_per_sm):
+        sms.value, per_sm.value = n_sms, n_per_sm
+        TB._plans.clear()
+
+    yield set_device
+    set_device(1, 1)
+
+
+class Case:
+    """The coastal box (or the wet/dry beach) partitioned into ``n_shards``
+    at one order, as float32 (the kernels' operator set) and float64 (the
+    reference's) sharded sets, a perturbed float32 state of ``batch``
+    scenarios and a control vector."""
+
+    def __init__(self, n_order, n_shards, batch, n_ctrl=2, wetdry=False,
+                 seed=0):
+        rng = np.random.default_rng(seed)
+        if wetdry:
+            mesh = box_triangles(8, 8, xlim=(0.0, 1.0), ylim=(0.0, 1.0))
+        else:
+            mesh = box_triangles(8, 8)
+            retag_east_open(mesh)
+        if n_shards > 1:
+            mesh = partition_mesh(mesh, n_shards)[0]
+        ctx = build_triangle_context(n_order, mesh, dtype=F64, device="cpu",
+                                     filter_cutoff=0.9 * n_order,
+                                     filter_order=4)
+        kw = {}
+        if wetdry:
+            H = 1.0 - 1.5 * ctx.x
+            phys = SWPhysics(g=9.81, cd=1e-3, H=H,
+                             Hx=-1.5 * torch.ones_like(H),
+                             Hy=torch.zeros_like(H), well_balanced=False)
+            kw.update(wetdry=True, h_floor=1e-3)
+            self.dt, self.t = cfl_dt(ctx, 9.81, 1.1), 0.0
+        else:
+            H = 10.0 + 2.0 * ctx.x + torch.sin(2.0 * ctx.y)
+            open_nodes = (ctx.bc_table[:, :, None].expand(-1, -1, ctx.n_fp)
+                          .reshape(ctx.k_elem, -1) == BC_OUT).numpy()
+            phys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4, H=H,
+                             Hx=2.0 * torch.ones_like(H),
+                             Hy=2.0 * torch.cos(2.0 * ctx.y),
+                             sponge=build_sponge_coefficient(
+                                 ctx, open_nodes, width=0.3, strength=0.5))
+            kw["tidal"] = (12.0, 0.5, 2.0, 10.0)
+            if n_ctrl:
+                bu, bv = injectors(ctx)
+                kw.update(forcing_bu=bu, forcing_bv=bv)
+            self.dt, self.t = cfl_dt(ctx, 9.81, 13.5), 1.0
+        self.sets = {dt: BS.build_sharded_blocked(ctx, phys, n_shards,
+                                                  dtype=dt, device="cpu",
+                                                  **kw)
+                     for dt in (F32, F64)}
+        sb = self.sets[F32]
+        m = sb.meta
+        # without injectors a set carries one zero injector
+        assert m.n_ctrl == (n_ctrl if n_ctrl and not wetdry else 1)
+        if n_shards > 1:
+            plan = sb.plan
+            assert len(plan.offs) >= 2 and bool(
+                (plan.pflip.astype(bool)
+                 & (plan.psrc >= plan.psrc.shape[1])).any())
+        x = ctx.x.reshape(1, -1).numpy()
+        y = ctx.y.reshape(1, -1).numpy()
+        Hn = H.reshape(1, -1).numpy()
+        col = lambda lo, hi: rng.uniform(lo, hi, (batch, 1))
+        if wetdry:
+            wave = 0.05 * np.exp(-30.0 * ((x - 0.45) ** 2 + (y - 0.5) ** 2))
+            h = np.maximum(Hn + col(1.0, 1.4) * wave, 1e-3)
+            wet = (h > 5e-3).astype(float)
+            hu = wet * h * (0.3 + 0.05 * rng.standard_normal(h.shape))
+            hv = wet * h * 0.1 * rng.standard_normal(h.shape)
+            assert (h <= 1e-3).any() and (h > 0.5).any()
+        else:
+            bump = np.exp(-10.0 * ((x - col(-0.5, 0.5)) ** 2
+                                   + (y - col(-0.5, 0.5)) ** 2))
+            noise = lambda: 0.01 * rng.standard_normal((batch, x.shape[1]))
+            h = Hn + col(0.05, 0.3) * bump + noise()
+            hu = col(-0.1, 0.1) * h + noise()
+            hv = col(-0.1, 0.1) * h + noise()
+        self.state = tuple(BS.split_shards(torch.as_tensor(f, dtype=F32),
+                                           n_shards) for f in (h, hu, hv))
+        self.ctrl = (torch.as_tensor(0.3 * rng.standard_normal(m.n_ctrl),
+                                     dtype=F32)
+                     if n_ctrl and not wetdry else None)
+        self.ex = {dt: RingExchange(self.sets[dt].plan, m.n_fp, device="cpu")
+                   for dt in (F32, F64)}
+        self.rb = self.ex[F32](BS.initial_send_buffer(sb, self.state))
+
+    def ref(self, fn, *args, **kw):
+        """The plain version in float64 on the float32 inputs, as float32."""
+        sb = self.sets[F64]
+        up = lambda a: (a.to(F64) if torch.is_tensor(a) else
+                        tuple(up(b) for b in a) if isinstance(a, tuple)
+                        else a)
+        out = fn(sb.ops, sb.meta, *(up(a) for a in args), **kw)
+        return tuple(t.to(F32) for t in out)
+
+    def stage(self, base, cur, rb, c_dt, t, sponge):
+        sb = self.sets[F32]
+        return TB._run_stage(sb.ops, sb.meta, base, cur, rb, c_dt, t,
+                             self.ctrl, True, sponge)
+
+
+def _max_abs(xs, ys):
+    return max(float((a - b).abs().max()) for a, b in zip(xs, ys))
+
+
+def _same(xs, ys):
+    return all(torch.equal(a, b) for a, b in zip(xs, ys))
+
+
+# (N, shards, batch, controls, shim device (SMs, blocks an SM))
+CASES = {
+    "N3_S4_B3": (3, 4, 3, 2, (2, 1)),    # the step's blocks loop
+    "N3_S4_B1": (3, 4, 1, 2, (4, 1)),    # one pass: nodes kept in registers
+    "N3_S1_B1_noctrl": (3, 1, 1, 0, (2, 1)),
+    "N1_S4_B3": (1, 4, 3, 2, (2, 1)),    # ragged last block
+    "N1_S1_B1": (1, 1, 1, 2, (1, 1)),
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_stage_kernel_matches_plain(device, name):
+    n, S, B, nc, dev = CASES[name]
+    device(*dev)
+    c = Case(n, S, B, nc)
+    st, dt, t = c.state, c.dt, c.t
+    got1 = c.stage(st, st, c.rb, 0.5 * dt, t, False)
+    ref1 = c.ref(TB.sw2d_stage_blocked_plain, st, st, c.rb, 0.5 * dt, t,
+                 c.ctrl, True, False)
+    assert _max_abs(got1, ref1) <= FWD_ATOL
+    cur, rb2 = tuple(got1[:3]), c.ex[F32](got1[3])
+    got2 = c.stage(st, cur, rb2, dt, t + 0.5 * dt, True)
+    ref2 = c.ref(TB.sw2d_stage_blocked_plain, st, cur, rb2, dt, t + 0.5 * dt,
+                 c.ctrl, True, True)
+    assert all(torch.isfinite(f).all() for f in got2)
+    assert _max_abs(got2, ref2) <= FWD_ATOL
+    assert _same(got2, c.stage(st, cur, rb2, dt, t + 0.5 * dt, True))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_step_kernel_matches_plain_and_two_stages(device, name):
+    n, S, B, nc, dev = CASES[name]
+    device(*dev)
+    c = Case(n, S, B, nc, seed=1)
+    sb = c.sets[F32]
+    launch = TB.RdmaLaunch(sb.ops, sb.meta, c.ex[F32])
+    got = launch._launch(c.state, c.rb, c.dt, c.t, c.ctrl, True)
+    plan = TB.shard_plan(sb.ops, sb.meta, B, step=True)
+    assert plan["lanes_per_element"] == (4 if n == 3 else 1)
+    ref = c.ref(TB.sw2d_step_rdma_blocked_plain, c.state, c.rb, c.dt,
+                c.ex[F64], c.t, c.ctrl)
+    assert all(torch.isfinite(f).all() for f in got)
+    assert _max_abs(got, ref) <= FWD_ATOL
+    assert _same(got, launch._launch(c.state, c.rb, c.dt, c.t, c.ctrl, True))
+    # two stage launches, the ring exchange between: the same bits
+    *s1, sb1 = c.stage(c.state, c.state, c.rb, 0.5 * c.dt, c.t, False)
+    two = c.stage(c.state, tuple(s1), c.ex[F32](sb1), c.dt, c.t + 0.5 * c.dt,
+                  True)
+    assert _same(got, two)
+
+
+def test_stage_kernel_limits_wetdry(device):
+    """The positivity limiter across an element's four lanes (N=3) and in
+    one lane (N=1) on a beach that is dry beyond x = 2/3."""
+    device(2, 1)
+    for n in (3, 1):
+        c = Case(n, 4, 3, wetdry=True)
+        st, dt = c.state, c.dt
+        got = c.stage(st, st, c.rb, 0.5 * dt, 0.0, False)
+        ref = c.ref(TB.sw2d_stage_blocked_plain, st, st, c.rb, 0.5 * dt, 0.0,
+                    None, True, False)
+        assert all(torch.isfinite(f).all() for f in got)
+        assert _max_abs(got, ref) <= FWD_ATOL
+
+
+def test_plan_follows_the_occupancy(device, shim_lib):
+    """The launcher's block at the sharded rollout's shapes (512 elements a
+    shard, N=3) on a device of 132 SMs: the largest block that still gives
+    every SM one; the step's grid is what is co-resident."""
+    c = Case(3, 4, 1)
+    lib = TB._lib()
+    desc = TB._desc(c.sets[F32].meta._replace(k_elem=512, n_v=5120,
+                                              n_t=6144),
+                    blocked=True, n_recv=192, n_send=192)
+    plan = (ctypes.c_int * 4)()
+
+    def threads_grid(S, B, which, per_sm):
+        device(132, per_sm)
+        assert lib.sw2d_shard_plan(ctypes.byref(desc), S, B, which, 1 << 20,
+                                   1 << 20, plan) == 0
+        return plan[0], plan[1]
+
+    # S=4, B=8: 65536 lanes, 256 blocks of 256 threads, two an SM resident
+    assert threads_grid(4, 8, TB._RDMA, 2) == (256, 256)
+    assert threads_grid(4, 8, TB._RDMA, 1) == (256, 132)  # the blocks loop
+    assert threads_grid(4, 8, TB._STAGE, 1) == (256, 256)
+    # B=1: 8192 lanes in 256 blocks of one warp
+    assert threads_grid(4, 1, TB._RDMA, 8) == (32, 256)
+    assert plan[2] == 4 * (420 + 8 * 100) and plan[3] == 4
+
+
+def test_plan_fits_shared_memory_at_high_order(device, shim_lib):
+    """At N=6 (28 nodes, the run-time sizes, one lane an element) a block
+    of 256 items would need 241 KB of shared memory, more than the 227 KB a
+    block may have: the launcher halves the block until it fits. Past N=6
+    the kernels have no room, and the wrapper says so."""
+    c = Case(1, 4, 1)
+    lib = TB._lib()
+    meta = c.sets[F32].meta
+
+    def desc_at(n_p, n_fp):
+        return TB._desc(meta._replace(k_elem=2048, n_p=n_p, n_fp=n_fp,
+                                      n_v=2048 * n_p, n_t=2048 * 3 * n_fp),
+                        blocked=True, n_recv=192, n_send=192)
+
+    desc = desc_at(28, 7)
+    plan = (ctypes.c_int * 4)()
+    optin = ctypes.c_int.in_dll(shim_lib, "shim_smem_optin").value
+    for which, per_sm, grid in ((TB._STAGE, 1, 512), (TB._RDMA, 1, 132)):
+        device(132, per_sm)  # S=4 x B=8 x 2048 elements: 65536 lanes
+        assert lib.sw2d_shard_plan(ctypes.byref(desc), 4, 8, which, 1 << 20,
+                                   1 << 20, plan) == 0
+        assert (plan[0], plan[1], plan[3]) == (128, grid, 1)
+        assert plan[2] == 4 * (2940 + 128 * 224) <= optin
+    # a device with less shared memory a block: smaller blocks still
+    ctypes.c_int.in_dll(shim_lib, "shim_smem_optin").value = 48 * 1024
+    try:
+        device(132, 1)
+        assert lib.sw2d_shard_plan(ctypes.byref(desc), 4, 8, TB._STAGE,
+                                   1 << 20, 1 << 20, plan) == 0
+        assert plan[0] == 32 and plan[2] <= 48 * 1024
+    finally:
+        ctypes.c_int.in_dll(shim_lib, "shim_smem_optin").value = optin
+    # N=7 (36 nodes): refused by the launcher and, with its reason, by the
+    # wrapper
+    assert lib.sw2d_shard_plan(ctypes.byref(desc_at(36, 8)), 4, 8,
+                               TB._STAGE, 1 << 20, 1 << 20, plan) != 0
+    with pytest.raises(ValueError, match="N <= 6"):
+        TB._shard_plan(lib, desc_at(36, 8), c.sets[F32].ops, 8, TB._STAGE)
