@@ -4,40 +4,35 @@
 //   sw2d_blocked_rollout_kernel      n_steps steps, optional stored trajectory
 //   sw2d_blocked_rollout_bwd_kernel  the reverse (adjoint) sweep
 //   sw2d_stage_kernel                one RK stage of an element-sharded set
-//   sw2d_stage_bwd_kernel            its adjoint (see the section below)
+//   sw2d_stage_bwd_kernel            its adjoint
 //   sw2d_step_rdma_kernel            one whole SSP-RK2 step of an
 //                                    element-sharded set, the inter-stage
 //                                    halo exchanged inside the launch
 //
 // The first three replace the Pallas TPU kernels _step_kernel,
 // _rollout_kernel and _rollout_bwd_kernel of blitzdg_tpu/ops/sw2d_blocked.py
-// (the sharded kernels: their own sections below; the stage kernel and the
-// one-launch step share a design of their own, P lanes an element). Those
-// run one scenario's whole mesh on one core, packed (p, NP, M) with
-// roll-based trace exchange. Here a mesh of thousands of elements does not fit one block's
-// shared memory, so the work unit is (scenario, chunk of E elements): a block
-// holds its chunk's state, fluxes and jumps in shared memory and does
-// derivative, lift, filter and limiter per element with FMAs, while the '+'
-// traces of every RHS are index gathers through vmapP from the stage's input
-// in GLOBAL memory (L2-resident at these sizes), for any element numbering.
+// (the others: their own sections below). Those run one scenario's whole
+// mesh on one core, packed (p, NP, M) with roll-based trace exchange. Here
+// a mesh of thousands of elements does not fit one block's shared memory.
 //
-// Every RK stage therefore depends on the whole grid's previous stage. The
-// design taken, fixed at build time: ONE persistent cooperative launch per
-// call (cudaLaunchCooperativeKernel; the grid is no larger than what is
+// The forward step and rollout (this section): the work unit is (scenario,
+// chunk of E elements); a block holds its chunk's state, fluxes and jumps
+// in shared memory and does derivative, lift, filter and limiter per
+// element with FMAs, while the '+' traces of every RHS are index gathers
+// through vmapP from the stage's input in GLOBAL memory (L2-resident at
+// these sizes), for any element numbering. Every RK stage depends on the
+// whole grid's previous stage: ONE persistent cooperative launch per call
+// (cudaLaunchCooperativeKernel; the grid is no larger than what is
 // co-resident, blocks loop over work units) with cooperative_groups grid
-// barriers between the phases: 2 per step forward, 3 per step in the adjoint.
-// State buffers ping-pong (a stage never writes what another block reads in
-// the same phase); with a stored trajectory its rows are the step-start
-// buffers, so nothing is copied.
+// barriers between the stages, 2 per step. State buffers ping-pong (a
+// stage never writes what another block reads in the same phase); with a
+// stored trajectory its rows are the step-start buffers, so nothing is
+// copied. The wet/dry branch (minmod reconstruction, positivity limiter)
+// exists forward only.
 //
-// Adjoint: the transposed '+' gather crosses blocks. Each RHS adjoint runs in
-// two phases: the first writes, per trace node, the cotangents of its '-' and
-// '+' side values to a global scratch; after a grid barrier the second
-// gathers them into each volume node through the inverse CSR maps. No float
-// atomics: the result does not change from run to run. Control cotangents are
-// summed per work unit and reduced over the chunks in a fixed order at the
-// end. The wet/dry branch (minmod reconstruction, positivity limiter) exists
-// forward only.
+// The sharded stage, the one-launch step and both adjoints (the rollout's
+// reverse sweep included) run on a stage of their own with P lanes an
+// element, qstage forward and qvjp backward (their sections below).
 //
 // Bound on the card: float32 operations, not bytes (one state in and one
 // out against some hundred operations per node and stage). The design keeps
@@ -59,12 +54,12 @@ extern __shared__ float smem[];
 
 // Per-unit scratch in shared memory; EN = E*Np, ET = E*Ntr floats per field.
 struct Scratch {
-  Vec3 S;      // the chunk's stage input        | adjoint: incoming cotangent
-  Vec3 vflux;  // F2, F3 (= G2), G3              | adjoint: wf
+  Vec3 S;      // the chunk's stage input
+  Vec3 vflux;  // F2, F3 (= G2), G3
   Vec3 R;      // unfiltered RHS
   Vec3 Out;    // stage output before the limiter
-  Vec3 pre;    // speed-independent flux jump, then the scaled jump | dfb
-  Vec3 dq;     // jumps                          | adjoint: spd, lamb
+  Vec3 pre;    // speed-independent flux jump, then the scaled jump
+  Vec3 dq;     // jumps
   float* spd;
   float* elem;  // 4 per element: theta, mean h, mean hu, mean hv
   float* red;   // 32: block reduction
@@ -348,262 +343,6 @@ __global__ void sw2d_blocked_rollout_kernel(Ops o, FwdArgs a) {
   forward_body(o, a);
 }
 
-// ---------------------------------------------------------------------------
-// Adjoint
-// ---------------------------------------------------------------------------
-
-// Transposed gathers at volume node v: add the cotangents of the trace nodes
-// that read it as their '-' value (slots 0..2) or '+' value (slots 3..5).
-// T: one scenario's (nT, 6) scratch.
-__device__ __forceinline__ void gather_traces(const Ops& o, const float* T,
-                                              int v, float& a, float& b,
-                                              float& c) {
-  for (int q = o.invM_ptr[v]; q < o.invM_ptr[v + 1]; ++q) {
-    const float* p = T + (size_t)o.invM_idx[q] * 6;
-    a += p[0]; b += p[1]; c += p[2];
-  }
-  for (int q = o.invP_ptr[v]; q < o.invP_ptr[v + 1]; ++q) {
-    const float* p = T + (size_t)o.invP_idx[q] * 6 + 3;
-    a += p[0]; b += p[1]; c += p[2];
-  }
-}
-
-// First phase of the vector-Jacobian product of the filtered, control-forced
-// RHS at state S for one work unit. With wf = scale * filter^T W on the
-// unit's elements it
-//   adds  d/d ctrl_c  to cpart[c],
-//   writes the volume part of J_R(S)^T wf to Avol at the unit's nodes,
-//   writes the cotangents of the unit's trace values to T (nT, 6).
-// The product is complete once every volume node has gathered its trace
-// nodes' entries of T (gather_traces), after a grid barrier.
-// S: the scenario's whole state (global); W, Avol: the scenario's fields,
-// touched at own nodes only. rb: as in stage().
-__device__ void vjp_phase(const Ops& o, const Scratch& s, int e0, int ne,
-                          const P3& S, float t, const P3& W, float scale,
-                          int use_filter, const W3& Avol, float* T,
-                          float* cpart, const float* rb = nullptr) {
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int Np = o.Np, Ntr = o.Ntr, Nfp = o.Nfp;
-  const int nl = ne * Np, tl = ne * Ntr, v0 = e0 * Np, i0 = e0 * Ntr;
-  const float h_bc = tidal_depth(o, t);
-  const Vec3 &Win = s.S, &wf = s.vflux, &dfb = s.pre;
-  float *spd = s.dq.a, *lamb = s.dq.b;
-
-  for (int l = tid; l < nl; l += nth) {
-    Win.a[l] = W.a[v0 + l]; Win.b[l] = W.b[v0 + l]; Win.c[l] = W.c[v0 + l];
-  }
-  __syncthreads();
-  // filter transpose (the control enters the RHS before the filter)
-  for (int l = tid; l < nl; l += nth) {
-    float a, b, c;
-    if (use_filter) {
-      const int k = l / Np, m = l - k * Np, le0 = k * Np;
-      a = b = c = 0.0f;
-      for (int n = 0; n < Np; ++n) {
-        const float fl = o.filt[n * Np + m];
-        a += fl * Win.a[le0 + n]; b += fl * Win.b[le0 + n];
-        c += fl * Win.c[le0 + n];
-      }
-    } else {
-      a = Win.a[l]; b = Win.b[l]; c = Win.c[l];
-    }
-    wf.a[l] = a * scale; wf.b[l] = b * scale; wf.c[l] = c * scale;
-  }
-  __syncthreads();
-  for (int cc = 0; cc < o.n_ctrl; ++cc) {
-    float part = 0.0f;
-    for (int l = tid; l < nl; l += nth)
-      part += o.BU[(size_t)cc * o.nV + v0 + l] * wf.b[l]
-              + o.BV[(size_t)cc * o.nV + v0 + l] * wf.c[l];
-    const float tot = block_sum(part, s.red);
-    if (tid == 0) cpart[cc] += tot;
-  }
-
-  // volume part: divergence transpose, volume fluxes, sources
-  for (int l = tid; l < nl; l += nth) {
-    const int k = l / Np, m = l - k * Np, le0 = k * Np, v = v0 + l;
-    float Fb1 = 0, Fb2 = 0, Fb3 = 0, Gb1 = 0, Gb2 = 0, Gb3 = 0;
-    for (int n = 0; n < Np; ++n) {
-      const float dr = o.Dr[n * Np + m], ds = o.Ds[n * Np + m];
-      const int vn = v0 + le0 + n;
-      const float dx = dr * o.rx[vn] + ds * o.sx[vn];
-      const float dy = dr * o.ry[vn] + ds * o.sy[vn];
-      const float w1 = wf.a[le0 + n], w2 = wf.b[le0 + n], w3 = wf.c[le0 + n];
-      Fb1 -= dx * w1; Fb2 -= dx * w2; Fb3 -= dx * w3;
-      Gb1 -= dy * w1; Gb2 -= dy * w2; Gb3 -= dy * w3;
-    }
-    float hb, hub, hvb;
-    volume_vjp_point(o, v, S.a[v], S.b[v], S.c[v], Fb1, Fb2, Fb3, Gb1, Gb2,
-                     Gb3, wf.b[l], wf.c[l], hb, hub, hvb);
-    Avol.a[v] = hb; Avol.b[v] = hub; Avol.c[v] = hvb;
-  }
-  // lift transpose; first trace pass: speeds and the speed's cotangent
-  for (int l = tid; l < tl; l += nth) {
-    const int k = l / Ntr, j = l - k * Ntr, le0 = k * Np, i = i0 + l;
-    float d1 = 0.0f, d2 = 0.0f, d3 = 0.0f;
-    for (int n = 0; n < Np; ++n) {
-      const float lf = o.lift[n * Ntr + j];
-      d1 += lf * wf.a[le0 + n]; d2 += lf * wf.b[le0 + n];
-      d3 += lf * wf.c[le0 + n];
-    }
-    const float fs = o.fscale[i];
-    d1 *= fs; d2 *= fs; d3 *= fs;
-    dfb.a[l] = d1; dfb.b[l] = d2; dfb.c[l] = d3;
-    TraceVals tv;
-    trace_values(o, i, S.a, S.b, S.c, h_bc, tv, rb);
-    float dq1, dq2, dq3;
-    trace_jumps(o, tv, dq1, dq2, dq3);
-    spd[l] = fmaxf(tv.spdM, tv.spdP);
-    lamb[l] = -0.5f * (dq1 * d1 + dq2 * d2 + dq3 * d3);
-  }
-  __syncthreads();
-  // second trace pass: the whole chain rule of the face flux
-  for (int l = tid; l < tl; l += nth) {
-    const int i = i0 + l;
-    TraceVals tv;
-    trace_values(o, i, S.a, S.b, S.c, h_bc, tv, rb);
-    float lam;
-    // (this node's speed as the first pass stored it: a recomputed value
-    // may be contracted differently and miss the equality with the maximum)
-    const float sb = face_speed_share(spd, lamb, (l / Nfp) * Nfp, Nfp,
-                                      spd[l], lam);
-    float* out = T + (size_t)i * 6;
-    face_vjp_point(o, tv, lam, sb, dfb.a[l], dfb.b[l], dfb.c[l], out,
-                   out + 3);
-  }
-  __syncthreads();  // the scratch is reused by the block's next unit
-}
-
-struct BwdArgs {
-  const float *th, *thu, *thv;     // (B, n_steps+1, nV) stored trajectory
-  const float *tbh, *tbhu, *tbhv;  // its cotangents
-  const float* ctrls;              // (B, n_cs, n_ctrl)
-  float *xbh, *xbhu, *xbhv;        // (B, nV) out: initial-state cotangents
-  float* cbar;                     // (B, n_cs, n_ctrl) out
-  // scratch, each (B, nV) per field: stage state, cotangent W of the step's
-  // raw output, a = VJP_R(s_half)[dt W], volume part of VJP_R(s_t)[dt/2 a]
-  float *s1, *W, *A, *Bv;
-  float *T1, *T2;  // (B, nT, 6) trace cotangents of the two products
-  float* cpart;    // (B, n_chunks, n_cs, n_ctrl) control partial sums
-  int B, n_cs, spc, E, use_filter;
-  float dt, t0;
-};
-
-// Reverse sweep. For each step t (T-1 .. 0), with s_t the stored step-start
-// state and lambda the adjoint of s_{t+1}:
-//   W      = (lambda + tbar_{t+1}) * sponge factor
-//   s_half = s_t + dt/2 R(s_t)                   (recomputed)
-//   a      = VJP_R(s_half)[dt W]
-//   lambda = W + a + VJP_R(s_t)[dt/2 a].
-// Three phases per step, a grid barrier after each:
-//   1. finish the previous step's second product (gather T2), form W,
-//      recompute s_half;
-//   2. first half of the product at s_half (T1, volume part into A);
-//   3. gather T1 into A; first half of the product at s_t (T2, Bv).
-__global__ void sw2d_blocked_rollout_bwd_kernel(Ops og, BwdArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  Ops o = og;
-  const Scratch s = setup_block(o, a.E);
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int n_chunks = (o.K + a.E - 1) / a.E, n_units = a.B * n_chunks;
-  const int n_steps = a.n_cs * a.spc;
-  const size_t nV = (size_t)o.nV, nT6 = (size_t)o.nT * 6;
-  const size_t fs = (size_t)a.B * nV;  // floats per field of a scratch
-  const size_t trow = (size_t)(n_steps + 1) * nV;
-  const int n_cc = a.n_cs * o.n_ctrl;
-  const W3 none = {nullptr, nullptr, nullptr};
-
-  for (int u = blockIdx.x; u < n_units; u += gridDim.x)
-    for (int k = tid; k < n_cc; k += nth) a.cpart[(size_t)u * n_cc + k] = 0.0f;
-
-  for (int t = n_steps - 1; t >= -1; --t) {
-    // ---- phase 1 (for t = -1: only the initial-state cotangent) ----
-    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-      const int b = u / n_chunks, c = u - b * n_chunks;
-      const int e0 = c * a.E, ne = min(a.E, o.K - e0);
-      const int nl = ne * o.Np, v0 = e0 * o.Np;
-      const size_t sb = b * nV;
-      const P3 tb = at(a.tbh, a.tbhu, a.tbhv, b * trow + (t + 1) * nV);
-      for (int l = tid; l < nl; l += nth) {
-        const int v = v0 + l;
-        float l1 = 0.0f, l2 = 0.0f, l3 = 0.0f;
-        if (t < n_steps - 1) {
-          l1 = a.Bv[sb + v]; l2 = a.Bv[fs + sb + v]; l3 = a.Bv[2 * fs + sb + v];
-          gather_traces(o, a.T2 + b * nT6, v, l1, l2, l3);
-          l1 += a.W[sb + v] + a.A[sb + v];
-          l2 += a.W[fs + sb + v] + a.A[fs + sb + v];
-          l3 += a.W[2 * fs + sb + v] + a.A[2 * fs + sb + v];
-        }
-        l1 += tb.a[v]; l2 += tb.b[v]; l3 += tb.c[v];
-        if (t < 0) {
-          a.xbh[sb + v] = l1; a.xbhu[sb + v] = l2; a.xbhv[sb + v] = l3;
-          continue;
-        }
-        if (o.has_sponge) {  // the stored s_{t+1} is the relaxed state
-          const float fac = 1.0f / (1.0f + a.dt * o.SPNG[v]);
-          if (o.has_bathy) l1 *= fac;
-          l2 *= fac; l3 *= fac;
-        }
-        a.W[sb + v] = l1; a.W[fs + sb + v] = l2; a.W[2 * fs + sb + v] = l3;
-      }
-      if (t < 0) continue;
-      const P3 st = at(a.th, a.thu, a.thv, b * trow + t * nV);
-      const float* ctrl = a.ctrls + ((size_t)b * a.n_cs + t / a.spc) * o.n_ctrl;
-      stage(o, s, e0, ne, st, st, atw(a.s1, a.s1 + fs, a.s1 + 2 * fs, sb),
-            none, 0.5f * a.dt, a.t0 + (float)t * a.dt, a.dt, ctrl,
-            a.use_filter, false, false);
-    }
-    if (t < 0) break;
-    grid.sync();
-
-    const float tt = a.t0 + (float)t * a.dt;
-    const int j = t / a.spc;
-    // ---- phase 2: a = VJP_R(s_half)[dt W], first half ----
-    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-      const int b = u / n_chunks, c = u - b * n_chunks;
-      const int e0 = c * a.E, ne = min(a.E, o.K - e0);
-      const size_t sb = b * nV;
-      vjp_phase(o, s, e0, ne, at(a.s1, a.s1 + fs, a.s1 + 2 * fs, sb),
-                tt + 0.5f * a.dt, at(a.W, a.W + fs, a.W + 2 * fs, sb), a.dt,
-                a.use_filter, atw(a.A, a.A + fs, a.A + 2 * fs, sb),
-                a.T1 + b * nT6,
-                a.cpart + ((size_t)u * a.n_cs + j) * o.n_ctrl);
-    }
-    grid.sync();
-
-    // ---- phase 3: complete a; VJP_R(s_t)[dt/2 a], first half ----
-    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-      const int b = u / n_chunks, c = u - b * n_chunks;
-      const int e0 = c * a.E, ne = min(a.E, o.K - e0);
-      const int nl = ne * o.Np, v0 = e0 * o.Np;
-      const size_t sb = b * nV;
-      for (int l = tid; l < nl; l += nth) {
-        const int v = v0 + l;
-        float a1 = a.A[sb + v], a2 = a.A[fs + sb + v], a3 = a.A[2 * fs + sb + v];
-        gather_traces(o, a.T1 + b * nT6, v, a1, a2, a3);
-        a.A[sb + v] = a1; a.A[fs + sb + v] = a2; a.A[2 * fs + sb + v] = a3;
-      }
-      __syncthreads();
-      vjp_phase(o, s, e0, ne, at(a.th, a.thu, a.thv, b * trow + t * nV), tt,
-                at(a.A, a.A + fs, a.A + 2 * fs, sb), 0.5f * a.dt,
-                a.use_filter, atw(a.Bv, a.Bv + fs, a.Bv + 2 * fs, sb),
-                a.T2 + b * nT6,
-                a.cpart + ((size_t)u * a.n_cs + j) * o.n_ctrl);
-    }
-    grid.sync();
-  }
-
-  // control cotangents: the chunks' partial sums, added in a fixed order.
-  // The last of them were written before the barrier that ended step 0.
-  for (int k = blockIdx.x * nth + tid; k < a.B * n_cc; k += gridDim.x * nth) {
-    const int b = k / n_cc, r = k - b * n_cc;
-    float tot = 0.0f;
-    for (int c = 0; c < n_chunks; ++c)
-      tot += a.cpart[((size_t)b * n_chunks + c) * n_cc + r];
-    a.cbar[k] = tot;
-  }
-}
-
 // n grid barriers and nothing else: what one barrier costs at a given grid
 // (a measuring aid; no path of the solver runs it).
 __global__ void sw2d_blocked_barrier_probe_kernel(int n) {
@@ -707,17 +446,6 @@ struct RdmaArgs {
   float dt, t1, t2;             // step, the two stage times
 };
 
-// Shard sh's operator set; the reference-element operators are the block's
-// shared-memory copies (the same for every shard).
-__device__ __forceinline__ Ops shard_ops(const SwDesc& d, const float* fops,
-                                         const int* iops, long long fstride,
-                                         long long istride, int sh,
-                                         const Ops& blk) {
-  Ops o = make_ops(d, fops + sh * fstride, iops + sh * istride);
-  o.Dr = blk.Dr; o.Ds = blk.Ds; o.lift = blk.lift; o.filt = blk.filt;
-  return o;
-}
-
 #define QMAX_THREADS 256
 // Room of the run-time-size instantiation's arrays: nodes (N=6), nodes a
 // face.
@@ -741,12 +469,17 @@ __host__ __device__ inline int q_item_floats(int Np, int Ntr) {
 
 // Nodes, nodes a face, controls and lanes an item: constants of the
 // instantiation where the template gives them, else (0 sizes, NC < 0)
-// read at run time.
+// read at run time. The lanes of a face (LPF) are min(LANES, NFP): with
+// more lanes than a face has nodes (the adjoint's wide items), each group
+// of NFP lanes takes a face, one trace node a lane.
 template <int NP, int NFP, int NC, int LANES>
 struct QSizes {
   static constexpr int P = LANES;
+  static constexpr int LPF = NP && LANES > NFP ? NFP : LANES;
   static constexpr int CNP = NP ? (NP + LANES - 1) / LANES : QMAX_NP;
-  static constexpr int CFP = NP ? NFP / LANES : QMAX_NFP;  // a face's, a lane
+  static constexpr int CFP = NP ? NFP / LPF : QMAX_NFP;  // a face's, a lane
+  // passes over the three faces: one face a pass, or all at once
+  static constexpr int NG = (3 * LPF + LANES - 1) / LANES;
   __device__ __forceinline__ static int np(const Ops& o) {
     return NP ? NP : o.Np;
   }
@@ -770,6 +503,11 @@ struct QSizes {
 typedef QSizes<10, 4, 2, 4> QOrder3Ctrl;  // N=3 with two controls
 typedef QSizes<10, 4, -1, 4> QOrder3;     // N=3, other control counts
 typedef QSizes<0, 0, -1, 1> QAnyOrder;
+// the stage adjoint's wide items at small batches: 16 lanes an element at
+// N=3; 8 at N=1 with two controls (the sharded MPC example's set)
+typedef QSizes<10, 4, 2, 16> QOrder3CtrlWide;
+typedef QSizes<10, 4, -1, 16> QOrder3Wide;
+typedef QSizes<3, 2, 2, 8> QOrder1CtrlWide;
 
 // One lane's values at its node slots.
 template <class Z>
@@ -812,11 +550,14 @@ __device__ void q_setup_ops(const Ops& o, float* s) {
   const int Np = o.Np, Ntr = o.Ntr, np2 = Np * Np;
   float* lf = s + 2 * np2;
   float* fl = lf + Np * Ntr;
+  // (unrolled: in a block of one warp the iterations' loads go out together)
+#pragma unroll 4
   for (int i = threadIdx.x; i < np2; i += blockDim.x) {
     s[2 * i] = o.Dr[i];
     s[2 * i + 1] = o.Ds[i];
     fl[i] = o.filt[i];
   }
+#pragma unroll 4
   for (int i = threadIdx.x; i < Np * Ntr; i += blockDim.x) lf[i] = o.lift[i];
 }
 
@@ -859,13 +600,15 @@ __device__ void q_zero_empty(const Ops& g, long long istride, int S, int B,
 // registers by the caller); the base: the lane's nodes in bs where BASE_REGS
 // (kept by the caller), else read from `base` at the update; y: the lane's
 // result. g: the block's operator set; scr: the item's slots in shared
-// memory; sops: the reference operators.
+// memory; sops: the reference operators; h_bc: the tidal depth at the
+// stage time (tidal_depth, once a launch or phase: its cosine has a long
+// slow path).
 template <class Z, bool BASE_REGS>
 __device__ __forceinline__ void qstage(
     const Ops& g, const float* sops, float* scr, const QLane& l,
     const P3& in, const Own<Z>& x, const Own<Z>& bs, const P3& base,
     Own<Z>& y, const W3& out, const SendTo& to, const float* rb, float coef,
-    float t, float dt, const float* ctrl, int use_filter, bool limit,
+    float h_bc, float dt, const float* ctrl, int use_filter, bool limit,
     bool sponge) {
   constexpr int P = Z::P;
   const int Np = Z::np(g), Ntr = Z::ntr(g), Nfp = Z::nfp(g);
@@ -877,7 +620,6 @@ __device__ __forceinline__ void qstage(
   float4* X = reinterpret_cast<float4*>(scr);
   float* G = scr + 4 * Np;
   float4* A = reinterpret_cast<float4*>(G + qround4(Np));
-  const float h_bc = tidal_depth(g, t);
 
   __syncwarp();  // the item's slots are free (a previous pass read them)
   // own nodes: the volume fluxes into the item's slots
@@ -1095,10 +837,10 @@ __device__ __forceinline__ void qstage(
   }
 }
 
-// The item's slots: after the operators, blockDim/P items a block.
-__device__ __forceinline__ float* q_item_slots(const Ops& o, int P) {
-  return smem + q_ops_floats(o.Np, o.Ntr)
-         + ((int)threadIdx.x / P) * q_item_floats(o.Np, o.Ntr);
+// The item's slots: after the operators (ops floats), blockDim/P items a
+// block of `item` floats each.
+__device__ __forceinline__ float* q_item_slots(int ops, int item, int P) {
+  return smem + ops + ((int)threadIdx.x / P) * item;
 }
 
 template <class Z>
@@ -1111,8 +853,10 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
   q_zero_empty(g, a.istride, a.S, a.B, [&](int sh, int b, int j) {
     return a.sb + ((size_t)sh * a.B + b) * ls + 3 * j;
   });
-  float* scr = q_item_slots(g, Z::P);
+  float* scr = q_item_slots(q_ops_floats(g.Np, g.Ntr),
+                           q_item_floats(g.Np, g.Ntr), Z::P);
   const int ipb = blockDim.x / Z::P, n_items = a.S * a.B * d.K;
+  const float h_bc = tidal_depth(g, a.t);
   for (int first = blockIdx.x * ipb; first < n_items;
        first += gridDim.x * ipb) {
     const QLane l = q_lane<Z>(first, n_items, a.B, d.K, a.fstride,
@@ -1124,7 +868,7 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
     qstage<Z, false>(g, smem, scr, l, cur, x, x, at(a.bh, a.bhu, a.bhv, off),
                      y, atw(a.oh, a.ohu, a.ohv, off),
                      SendTo{a.sb + l.sc * ls, nullptr, 0}, a.rb + l.sc * ls,
-                     a.c_dt, a.t, a.c_dt, a.ctrl, a.use_filter,
+                     a.c_dt, h_bc, a.c_dt, a.ctrl, a.use_filter,
                      g.wetdry != 0, a.sponge != 0);
   }
 }
@@ -1154,10 +898,12 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
   q_zero_empty(g, a.istride, a.S, a.B, [&](int sh, int b, int j) {
     return a.sb + ((size_t)sh * a.B + b) * ls + 3 * j;
   });
-  float* scr = q_item_slots(g, Z::P);
+  float* scr = q_item_slots(q_ops_floats(g.Np, g.Ntr),
+                           q_item_floats(g.Np, g.Ntr), Z::P);
   const int ipb = blockDim.x / Z::P, n_items = a.S * a.B * d.K;
   // one pass covers every item: the lane's nodes stay in registers
   const bool resident = (long long)gridDim.x * ipb >= n_items;
+  const float h_bc1 = tidal_depth(g, a.t1), h_bc2 = tidal_depth(g, a.t2);
   Own<Z> st, s1;
   for (int first = blockIdx.x * ipb; first < n_items;
        first += gridDim.x * ipb) {
@@ -1168,7 +914,7 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
     load_own<Z>(g, l.e, l.p, in, st);
     qstage<Z, true>(g, smem, scr, l, in, st, st, in, s1,
                     atw(a.s1h, a.s1hu, a.s1hv, off), push(l.sh, l.b),
-                    a.rb + l.sc * ls, 0.5f * a.dt, a.t1, a.dt, a.ctrl,
+                    a.rb + l.sc * ls, 0.5f * a.dt, h_bc1, a.dt, a.ctrl,
                     a.use_filter, false, false);
   }
   grid.sync();
@@ -1186,32 +932,482 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
     qstage<Z, true>(g, smem, scr, l, in, s1, st, in, y,
                     atw(a.oh, a.ohu, a.ohv, off),
                     SendTo{a.sb + l.sc * ls, nullptr, 0}, a.rb2 + l.sc * ls,
-                    a.dt, a.t2, a.dt, a.ctrl, a.use_filter, false,
+                    a.dt, h_bc2, a.dt, a.ctrl, a.use_filter, false,
                     a.sponge != 0);
   }
 }
 
 // ---------------------------------------------------------------------------
-// The adjoint of one sharded stage
+// The adjoint stage (qvjp): the adjoint of one sharded stage (B8) and the
+// reverse sweep of the blocked rollout (B6)
 // ---------------------------------------------------------------------------
 //
 // sw2d_stage_bwd_kernel replaces _stage_bwd_kernel_v2 /
-// sw2d_stage_bwd_blocked_v2 of blitzdg_tpu/ops/sw2d_blocked.py. Work unit:
-// shard, scenario, chunk of elements (the blocked kernels' stage helpers).
-// The transposed '+' gather crosses blocks: two phases around one grid
-// barrier, as in the rollout adjoint above, and the receive slots'
-// cotangents are the receive part of that gather. No atomics; the control
-// cotangent is summed per unit and the units' sums are added in a fixed
-// order.
+// sw2d_stage_bwd_blocked_v2 and sw2d_blocked_rollout_bwd_kernel replaces
+// _rollout_bwd_kernel / sw2d_rollout_bwd_blocked of
+// blitzdg_tpu/ops/sw2d_blocked.py, whose pullbacks are jax.vjp traced in
+// the kernel; here both run the hand adjoint of ops/sw2d_fused.py
+// (_rhs_vjp_plain) in qvjp, the counterpart of qstage: the same items (P
+// lanes of a warp per (shard, scenario, element), lane p holding node p of
+// each face and the volume nodes p, p+4, p+8 at N=3; one lane an item at
+// other orders), no block barrier, the face maximum, the summed speed
+// cotangent and the count of nodes at the maximum by shuffles, the item's
+// intermediate values in its slots behind warp barriers.
 //
-// Bound on the card: bytes (the states and cotangents read and written
-// outweigh one RHS adjoint per node at the card's float32 rate).
+// No scatter. A trace node's flux feeds the cotangents of its '-' node
+// (the element's own) and of its '+' node (the neighbour's). Rather than
+// writing the '+' share to memory for the neighbour to gather after a grid
+// barrier, each lane completes its own nodes: for each face it also
+// recomputes the flux adjoint of the trace node on the face's other side
+// (the mirror table names it), in the neighbour's frame, from the
+// neighbour's weights (read from wsrc) lifted through the filter and lift
+// transposes composed into one operator, and keeps the '+' share of it.
+// That is about twice the face work, against a global round trip and a
+// grid barrier. On a boundary face the '+' node is the element's own; at a
+// cut face the '+' share goes to the receive slot's cotangent, which its
+// one reading trace node's lane writes. No atomics on data: the same bits
+// on a rerun.
+//
+// B8 is one ordinary launch, planned once a shape: the base cotangent
+// (the output's plus the transposed send gather, times the sponge factor)
+// at the lane's nodes, and qvjp on it. At small batches (both shapes of
+// the sharded MPC run B=1) the SMs hold a warp or two each and an
+// element's chain sets the time: there B8 takes wide items, 16 lanes an
+// element at N=3 (a lane a trace node and a volume node, four lanes a
+// face, one pass over the faces) and 8 at N=1 with two controls. The
+// control cotangent is a sum over elements, in a fixed order: each block
+// sums its items' shares per shard-scenario (a segment), and the block
+// that completes a shard-scenario (a counter each, reset by that block)
+// adds its segments.
+//
+// B6 is one cooperative launch with two grid barriers a step. For step t
+// (T-1 .. 0), with lambda the adjoint of s_{t+1}:
+//   1. complete lambda_{t+1} = W + a + VJP_R(s_{t+1})[dt/2 a] of the step
+//      after (qvjp), W = (lambda_{t+1} + tbar_{t+1}) * sponge factor, and
+//      s_half = s_t + dt/2 R(s_t) (qstage);
+//   2. a = VJP_R(s_half)[dt W] (qvjp).
+// Phase 1 runs once more for t = -1 (the initial-state cotangent). W, a
+// and s_half go to global memory (L2) for the neighbours' recomputes, and
+// each lane reads its own nodes back from there: held in registers across
+// the barriers, they pushed the adjoint past its 128 registers into
+// spills. Control shares are added to a per-item row of each control step
+// and summed over elements after the last barrier.
+//
+// The chain rule of a trace node and of a volume node takes the fast
+// reciprocals (face_vjp_fast, volume_vjp_fast: 2 ulp); the speeds that
+// decide the ties are computed exactly (trace_finish) and compared as
+// computed (C8). The neighbour's frame of an inner face reuses this side's
+// trace values swapped (q_swap), so its face maximum and tie count are
+// this side's, bit for bit.
+//
+// Bound on the card: B8 bytes (its reads and writes outweigh one RHS
+// adjoint per node at the card's float32 rate), B6 float32 operations. The
+// neighbours' weights are gathers through the mirror table, whose indices
+// do not depend on the data and are loaded ahead of it.
+
+// Floats of the operators an adjoint launch keeps in shared memory: those
+// of qstage, then the filter and lift transposes composed, C[n][j] =
+// sum_m filt[n][m] lift[m][j] (the lift alone without the filter).
+__host__ __device__ inline int q_adj_ops_floats(int Np, int Ntr) {
+  return qround4(3 * Np * Np + 2 * Np * Ntr);
+}
+
+// Floats of one item's slots in qvjp: the weights, then the filtered
+// weights, a node; the geometric factors (rx, sx, ry, sy) a node; the
+// weights of each face's neighbour, a node; the trace nodes' cotangents
+// with their '-' node.
+__host__ __device__ inline int q_vjp_item_floats(int Np, int Ntr) {
+  return 20 * Np + 4 * Ntr;
+}
+
+// The operators into shared memory with the composed transpose, made from
+// the shared copies (a block of one warp would wait on a chain of global
+// loads); every thread of the block must call it, a block barrier follows.
+__device__ void q_setup_adjoint_ops(const Ops& o, float* s, int use_filter) {
+  q_setup_ops(o, s);
+  __syncthreads();
+  const int Np = o.Np, Ntr = o.Ntr;
+  const float* lf = s + 2 * Np * Np;
+  const float* fl = lf + Np * Ntr;
+  float* cm = s + 3 * Np * Np + Np * Ntr;
+  for (int i = threadIdx.x; i < Np * Ntr; i += blockDim.x) {
+    const int n = i / Ntr, j = i - n * Ntr;
+    float c = 0.0f;
+    if (use_filter) {
+      for (int m = 0; m < Np; ++m) c += fl[n * Np + m] * lf[m * Ntr + j];
+    } else {
+      c = lf[n * Ntr + j];
+    }
+    cm[i] = c;
+  }
+}
+
+struct F3 { float a, b, c; };
+
+// Weights read from one scenario's fields (written by this launch: plain
+// loads).
+struct WFields {
+  const float *a, *b, *c;
+  __device__ __forceinline__ F3 operator()(int v) const {
+    F3 r;
+    r.a = a[v]; r.b = b[v]; r.c = c[v];
+    return r;
+  }
+};
+
+// The base cotangent of a sharded stage at node v: the output's cotangent
+// plus those of the send slots that read the node (the transposed send
+// gather), times the sponge factor where the stage relaxes (h only where
+// there is bathymetry).
+struct StageLam {
+  const float *lh, *lhu, *lhv;  // the shard's and scenario's rows
+  const float* lsb;             // (n_send, 3) cotangent of the send buffer
+  const int *ptr, *idx;         // the shard's inverse send list
+  const float* spng;            // the shard's sponge row, or null
+  bool bathy;
+  float c_dt;
+  __device__ __forceinline__ F3 operator()(int v) const {
+    F3 r;
+    r.a = __ldg(lh + v); r.b = __ldg(lhu + v); r.c = __ldg(lhv + v);
+    const int q1 = __ldg(ptr + v + 1);
+    for (int q = __ldg(ptr + v); q < q1; ++q) {
+      const float* p = lsb + 3 * __ldg(idx + q);
+      r.a += __ldg(p); r.b += __ldg(p + 1); r.c += __ldg(p + 2);
+    }
+    if (spng != nullptr) {
+      const float fac = 1.0f / (1.0f + c_dt * __ldg(spng + v));
+      if (bathy) r.a *= fac;
+      r.b *= fac; r.c *= fac;
+    }
+    return r;
+  }
+};
+
+// A trace node's values from its raw states s (h, hu, hv of the '-' side,
+// then of the '+' side) and its normal, flags and still-water depths.
+__device__ __forceinline__ void q_trace(const Ops& g, float h_bc,
+                                        const float* s, float nx, float ny,
+                                        bool wall, float obc, float HM,
+                                        float HP, TraceVals& tv) {
+  tv.nx = nx; tv.ny = ny;
+  tv.hM = s[0]; tv.huM = s[1]; tv.hvM = s[2];
+  tv.hP = s[3]; tv.huP = s[4]; tv.hvP = s[5];
+  trace_finish(g, h_bc, wall, obc, HM, HP, tv);
+}
+
+// The values of an inner face's trace node as the element across sees
+// them, given this side's: the two sides swapped, the normal (nx, ny) the
+// other element's. Every value is this side's, bit for bit, so its speeds,
+// face maximum and tie count are this side's too.
+__device__ __forceinline__ TraceVals q_swap(const TraceVals& a, float nx,
+                                           float ny) {
+  TraceVals b;
+  b.nx = nx; b.ny = ny;
+  b.hM = a.hP; b.hP = a.hM;
+  b.huM = a.huP; b.hvM = a.hvP; b.huP = a.huM; b.hvP = a.hvM;
+  b.uM = a.uP; b.vM = a.vP; b.uP = a.uM; b.vP = a.vM;
+  b.hMs = a.hPs; b.hPs = a.hMs;
+  b.passM = a.passP; b.passP = a.passM;
+  b.spdM = a.spdP; b.spdP = a.spdM;
+  b.wall = false;
+  b.obc = 0.0f;
+  return b;
+}
+
+// The vector-Jacobian product of the filtered, control-forced RHS at state
+// `in` for one item (element l.e of one shard and scenario) on lane l.p of
+// its P lanes. With W the weights of any node of the shard and scenario
+// (wsrc(v)) and wf = scale * filter^T W:
+//   out(v, hb, hub, hvb) at each of the lane's nodes v (active lanes only):
+//          J_R(in)^T wf there, complete (the volume part, the '-' side of
+//          the element's face fluxes, the '+' side of its neighbours' face
+//          fluxes and, at a boundary face, of its own);
+//   orb  = the '+' side at the cut faces' receive slots (null: none);
+//   cdst = the item's share of d/d ctrl, written by its lane 0 (added to
+//          what is there with acc; null: not asked).
+// in: the shard and scenario's state in global memory; rb: its receive
+// buffer (null: none); h_bc: the tidal depth at the stage time (as
+// qstage takes it); scr: the item's slots
+// (q_vjp_item_floats); sops: the operators (q_setup_adjoint_ops). The
+// lane holds no value across a phase: what the phases share goes through
+// the item's slots, so the live set stays that of one face.
+template <class Z, class WSrc, class Out>
+__device__ __forceinline__ void qvjp(
+    const Ops& g, const float* sops, float* scr, const QLane& l, const P3& in,
+    const float* rb, const WSrc& wsrc, float scale, float h_bc, int use_filter,
+    const Out& out, float* orb, float* cdst, bool acc) {
+  constexpr int P = Z::P;
+  const int Np = Z::np(g), Ntr = Z::ntr(g), Nfp = Z::nfp(g);
+  const int ns = Z::nslots(g), nfl = Z::nface(g), nc = Z::nc(g);
+  const int e = l.e, p = l.p, v0 = e * Np, i0 = e * Ntr;
+  const float2* DS = reinterpret_cast<const float2*>(sops);
+  const float* LF = sops + 2 * Np * Np;
+  const float* FL = LF + Np * Ntr;
+  const float* CM = FL + Np * Np;
+  float4* X = reinterpret_cast<float4*>(scr);
+  float4* GF = X + Np;
+  float4* NW = GF + Np;
+  float4* TT = NW + 3 * Np;
+  const float hsg = 0.5f * sqrtf(g.g);
+
+  __syncwarp();  // the item's slots are free (a previous pass read them)
+  // the weights at the element's nodes and at each inner face's neighbour's
+#pragma unroll
+  for (int i = 0; i < ns; ++i) {
+    const int n = p + P * i;
+    if (n < Np) {
+      const F3 r = wsrc(v0 + n);
+      X[n] = make_float4(r.a, r.b, r.c, 0.0f);
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < 3; ++f) {
+    // a face's nodes all have a neighbour in the shard, or none
+    const int gi = l.io + i0 + f * Nfp;
+    const int m0 = __ldg(g.vmapM + gi), q0 = __ldg(g.vmapP + gi);
+    if (q0 != m0 && q0 < g.nV) {
+      const int kn = __ldg(g.mirror + gi) / Ntr;
+#pragma unroll
+      for (int i = 0; i < ns; ++i) {
+        const int n = p + P * i;
+        if (n < Np) {
+          const F3 r = wsrc(kn * Np + n);
+          NW[f * Np + n] = make_float4(r.a, r.b, r.c, 0.0f);
+        }
+      }
+    }
+  }
+  __syncwarp();
+
+  // filter transpose (the control enters the RHS before the filter), the
+  // control share; wf replaces the weights in the slots
+  Own<Z> wf;
+#pragma unroll
+  for (int i = 0; i < ns; ++i) {
+    const int n = p + P * i;
+    float a = 0.0f, b = 0.0f, c = 0.0f;
+    if (n < Np) {
+      if (use_filter) {
+#pragma unroll
+        for (int m = 0; m < Np; ++m) {
+          const float fl = FL[m * Np + n];
+          const float4 q = X[m];
+          a += fl * q.x; b += fl * q.y; c += fl * q.z;
+        }
+      } else {
+        const float4 q = X[n];
+        a = q.x; b = q.y; c = q.z;
+      }
+    }
+    wf.h[i] = a * scale; wf.hu[i] = b * scale; wf.hv[i] = c * scale;
+  }
+  if (cdst != nullptr) {
+    for (int cc = 0; cc < nc; ++cc) {
+      float part = 0.0f;
+#pragma unroll
+      for (int i = 0; i < ns; ++i) {
+        const int n = p + P * i;
+        if (n < Np) {
+          const int v = l.fo + cc * g.nV + v0 + n;
+          part += __ldg(g.BU + v) * wf.hu[i] + __ldg(g.BV + v) * wf.hv[i];
+        }
+      }
+#pragma unroll
+      for (int m = 1; m < P; m <<= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, m, P);
+      if (p == 0 && l.active) cdst[cc] = acc ? cdst[cc] + part : part;
+    }
+  }
+  __syncwarp();  // the weights are read
+#pragma unroll
+  for (int i = 0; i < ns; ++i) {
+    const int n = p + P * i;
+    if (n < Np) {
+      const int v = l.fo + v0 + n;
+      X[n] = make_float4(wf.h[i], wf.hu[i], wf.hv[i], 0.0f);
+      GF[n] = make_float4(__ldg(g.rx + v), __ldg(g.sx + v), __ldg(g.ry + v),
+                          __ldg(g.sy + v));
+    }
+  }
+  __syncwarp();
+
+  // a face a pass (wide items: each group of LPF lanes its face, one pass):
+  // the element's own flux adjoint at the lane's trace nodes of it, then,
+  // on an inner face, the neighbour's at the trace nodes across (the same
+  // values swapped, its normal and face scale, its weights lifted through
+  // the composed transposes), into the trace nodes' cotangents
+  constexpr int LPF = Z::LPF, FPP = P / LPF;  // lanes a face, faces a pass
+  const bool depths = g.wb != 0;
+  const int pf = p % LPF;  // the lane's place in its face
+#pragma unroll
+  for (int it = 0; it < Z::NG; ++it) {
+    // (lanes past the third face redo it and store nothing)
+    const bool has = it * FPP + p / LPF < 3;
+    const int f = has ? it * FPP + p / LPF : 2;
+    TraceVals tv[Z::CFP];
+    float spd[Z::CFP], d[Z::CFP][3], dn[Z::CFP][3], nxn[Z::CFP];
+    float nyn[Z::CFP];
+    int vm[Z::CFP], vp[Z::CFP];
+    float lam = 0.0f, lsum = 0.0f, lsn = 0.0f, cnt = 0.0f;
+#pragma unroll
+    for (int k = 0; k < nfl; ++k) {
+      const int j = f * Nfp + pf + LPF * k, gi = l.io + i0 + j;
+      const int fi = l.fo + i0 + j;
+      const int m = __ldg(g.vmapM + gi), q = __ldg(g.vmapP + gi);
+      vm[k] = m; vp[k] = q;
+      float sv[6];
+      sv[0] = in.a[m]; sv[1] = in.b[m]; sv[2] = in.c[m];
+      const float* r = in.a + q;
+      const float* ru = in.b + q;
+      const float* rv = in.c + q;
+      if (q >= g.nV) {  // a cut face: the receive slot
+        r = rb + 3 * (q - g.nV); ru = r + 1; rv = r + 2;
+      }
+      sv[3] = *r; sv[4] = *ru; sv[5] = *rv;
+      q_trace(g, h_bc, sv, __ldg(g.nx + fi), __ldg(g.ny + fi),
+              __ldg(g.wall + fi) != 0.0f,
+              g.has_tidal ? __ldg(g.obc + fi) : 0.0f,
+              depths ? __ldg(g.HMt + fi) : 0.0f,
+              depths ? __ldg(g.HPt + fi) : 0.0f, tv[k]);
+      // lift transpose at this trace node
+      float d1 = 0.0f, d2 = 0.0f, d3 = 0.0f;
+#pragma unroll
+      for (int mm = 0; mm < Np; ++mm) {
+        const float lf = LF[mm * Ntr + j];
+        const float4 wv = X[mm];
+        d1 += lf * wv.x; d2 += lf * wv.y; d3 += lf * wv.z;
+      }
+      const float fs = __ldg(g.fscale + fi);
+      d[k][0] = d1 * fs; d[k][1] = d2 * fs; d[k][2] = d3 * fs;
+      spd[k] = fmaxf(tv[k].spdM, tv[k].spdP);
+      float dq1, dq2, dq3;
+      trace_jumps(g, tv[k], dq1, dq2, dq3);
+      lsum += -0.5f * (dq1 * d[k][0] + dq2 * d[k][1] + dq3 * d[k][2]);
+      lam = k == 0 ? spd[k] : fmaxf(lam, spd[k]);
+    }
+    const bool inner = vp[0] != vm[0] && vp[0] < g.nV;
+#pragma unroll
+    for (int k = 0; k < nfl; ++k) {
+      // the neighbour's trace node across, its weights lifted
+      const int gi = l.io + i0 + f * Nfp + pf + LPF * k;
+      float d1 = 0.0f, d2 = 0.0f, d3 = 0.0f;
+      nxn[k] = nyn[k] = 0.0f;
+      if (inner) {
+        const int jn = __ldg(g.mirror + gi), kn = jn / Ntr;
+        const int jl = jn - kn * Ntr, fi = l.fo + jn;
+#pragma unroll
+        for (int n = 0; n < Np; ++n) {
+          const float cm = CM[n * Ntr + jl];
+          const float4 wv = NW[f * Np + n];
+          d1 += cm * wv.x; d2 += cm * wv.y; d3 += cm * wv.z;
+        }
+        const float fs = __ldg(g.fscale + fi) * scale;
+        d1 *= fs; d2 *= fs; d3 *= fs;
+        nxn[k] = __ldg(g.nx + fi); nyn[k] = __ldg(g.ny + fi);
+      }
+      dn[k][0] = d1; dn[k][1] = d2; dn[k][2] = d3;
+      float dq1, dq2, dq3;
+      trace_jumps(g, q_swap(tv[k], nxn[k], nyn[k]), dq1, dq2, dq3);
+      lsn += -0.5f * (dq1 * d1 + dq2 * d2 + dq3 * d3);
+    }
+    // the face maximum, the summed speed cotangents of both frames and the
+    // count of nodes at the maximum, over the face's lanes
+#pragma unroll
+    for (int m = 1; m < LPF; m <<= 1) {
+      lam = fmaxf(lam, __shfl_xor_sync(0xffffffffu, lam, m, LPF));
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, m, LPF);
+      lsn += __shfl_xor_sync(0xffffffffu, lsn, m, LPF);
+    }
+#pragma unroll
+    for (int k = 0; k < nfl; ++k) cnt += spd[k] == lam ? 1.0f : 0.0f;
+#pragma unroll
+    for (int m = 1; m < LPF; m <<= 1)
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, m, LPF);
+    const float share = lsum / cnt, sharen = lsn / cnt;
+#pragma unroll
+    for (int k = 0; k < nfl; ++k) {
+      // (this node's speed as computed above against the face maximum, C8)
+      const bool top = spd[k] == lam;
+      float tM[3], tP[3], T[3];
+      face_vjp_fast(g, tv[k], lam, top ? share : 0.0f, d[k][0], d[k][1],
+                    d[k][2], hsg, tM, tP);
+      T[0] = tM[0]; T[1] = tM[1]; T[2] = tM[2];
+      if (vp[k] == vm[k]) {  // a boundary face: the '+' node is this one
+        T[0] += tP[0]; T[1] += tP[1]; T[2] += tP[2];
+      } else if (vp[k] >= g.nV && l.active && has) {  // a cut face: its slot
+        float* o = orb + 3 * (vp[k] - g.nV);
+        o[0] = tP[0]; o[1] = tP[1]; o[2] = tP[2];
+      }
+      if (inner) {  // the '+' side of the flux across, this node's share
+        face_vjp_fast(g, q_swap(tv[k], nxn[k], nyn[k]), lam,
+                      top ? sharen : 0.0f, dn[k][0], dn[k][1], dn[k][2], hsg,
+                      tM, tP);
+        T[0] += tP[0]; T[1] += tP[1]; T[2] += tP[2];
+      }
+      if (has)
+        TT[f * Nfp + pf + LPF * k] =
+            make_float4(T[0], T[1], T[2], (float)(vm[k] - v0));
+    }
+  }
+  __syncwarp();
+
+  // the lane's nodes, one at a time (a loop: one node's sums live at
+  // once): divergence transpose, volume fluxes and sources, then the
+  // cotangents of the trace nodes at the node (in trace-node order)
+#pragma unroll 1
+  for (int i = 0; i < ns; ++i) {
+    const int n = p + P * i;
+    if (n < Np) {
+      float hb, hub, hvb;
+      float Fb1 = 0, Fb2 = 0, Fb3 = 0, Gb1 = 0, Gb2 = 0, Gb3 = 0;
+#pragma unroll
+      for (int m = 0; m < Np; ++m) {
+        const float2 ds = DS[m * Np + n];
+        const float4 q = GF[m];
+        const float dx = ds.x * q.x + ds.y * q.y;
+        const float dy = ds.x * q.z + ds.y * q.w;
+        const float4 wv = X[m];
+        Fb1 -= dx * wv.x; Fb2 -= dx * wv.y; Fb3 -= dx * wv.z;
+        Gb1 -= dy * wv.x; Gb2 -= dy * wv.y; Gb3 -= dy * wv.z;
+      }
+      const int v = v0 + n;
+      const bool bathy = g.has_bathy != 0;
+      const float4 w = X[n];
+      volume_vjp_fast(g, bathy ? __ldg(g.Hx + l.fo + v) : 0.0f,
+                      bathy ? __ldg(g.Hy + l.fo + v) : 0.0f, in.a[v],
+                      in.b[v], in.c[v], Fb1, Fb2, Fb3, Gb1, Gb2, Gb3, w.y,
+                      w.z, hb, hub, hvb);
+      const float fn = (float)n;
+      for (int j = 0; j < Ntr; ++j) {
+        const float4 q = TT[j];
+        if (q.w == fn) { hb += q.x; hub += q.y; hvb += q.z; }
+      }
+      if (l.active) out(v, hb, hub, hvb);
+    }
+  }
+}
+
+// A sum of `n` values src[0], src[stride], ... over the lanes of a warp:
+// lane-strided, then a butterfly (every lane gets the same bits); the
+// warp's lanes must all call it. global: src is in global memory, written
+// by other blocks of the launch (read past L1), else in shared memory.
+__device__ __forceinline__ float q_warp_sum(const float* src, int n,
+                                            size_t stride, bool global) {
+  const int lane = threadIdx.x & 31;
+  float sum = 0.0f;
+  for (int i = lane; i < n; i += 32)
+    sum += global ? __ldcg(src + i * stride) : src[i * stride];
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  return sum;
+}
 
 struct StageBwdArgs {
   const float* fops;
   const int* iops;
   long long fstride, istride;
-  int S, B, E, use_filter, sponge;
+  int S, B, use_filter, sponge;
   const float *ch, *chu, *chv;  // (S, B, nV) stage input
   const float* rb;              // (S, B, n_recv, 3)
   const float *lh, *lhu, *lhv;  // (S, B, nV) cotangent of the output
@@ -1220,8 +1416,11 @@ struct StageBwdArgs {
   float *och, *ochu, *ochv;     // (S, B, nV) out: cotangent of the input
   float* orb;                   // (S, B, n_recv, 3) out
   float* octl;                  // (S, B, n_ctrl) out, or null
-  float* T;                     // (S, B, nT, 6) scratch: trace cotangents
-  float* cpart;                 // (S, B, n_chunks, n_ctrl) scratch
+  // with octl: (S, B, segments, n_ctrl) scratch, the blocks' sums of their
+  // items' control shares, and (S, B) counters of the blocks done with each
+  // shard and scenario (0 between launches)
+  float* cpart;
+  unsigned* done;
   float c_dt, t;
 };
 
@@ -1229,87 +1428,254 @@ struct StageBwdArgs {
 //   lam  = lam_out + gather^T lam_sb        (the inverse send list)
 //   base cotangent = sponge factor * lam    (h only where there is bathymetry)
 //   cur cotangent, rb cotangent, control cotangent = VJP_R(cur)[c_dt * that].
-__global__ void sw2d_stage_bwd_kernel(SwDesc d, StageBwdArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  Ops blk = make_ops(d, a.fops, a.iops);
-  const Scratch s = setup_block(blk, a.E);
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int n_chunks = (blk.K + a.E - 1) / a.E;
-  const int n_units = a.S * a.B * n_chunks;
-  const size_t nV = (size_t)blk.nV, nT6 = (size_t)blk.nT * 6;
-  const int nc = blk.n_ctrl, nr = blk.n_recv, ns = blk.n_send;
-
-  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-    const int sc = u / n_chunks, c = u - sc * n_chunks;
-    const Ops o = shard_ops(d, a.fops, a.iops, a.fstride, a.istride,
-                            sc / a.B, blk);
-    const int e0 = c * a.E, ne = min(a.E, o.K - e0);
-    const int nl = ne * o.Np, v0 = e0 * o.Np;
-    const size_t off = (size_t)sc * nV;
-    const float* lsb = a.lsb + (size_t)sc * ns * 3;
-    for (int l = tid; l < nl; l += nth) {
-      const size_t v = v0 + l;
-      float l1 = a.lh[off + v], l2 = a.lhu[off + v], l3 = a.lhv[off + v];
-      for (int q = o.send_ptr[v]; q < o.send_ptr[v + 1]; ++q) {
-        const float* p = lsb + 3 * o.send_idx[q];
-        l1 += p[0]; l2 += p[1]; l3 += p[2];
-      }
-      if (a.sponge) {
-        const float fac = 1.0f / (1.0f + a.c_dt * o.SPNG[v]);
-        if (o.has_bathy) l1 *= fac;
-        l2 *= fac; l3 *= fac;
-      }
-      a.obh[off + v] = l1; a.obhu[off + v] = l2; a.obhv[off + v] = l3;
+// One pass: block b holds items b*ipb .. b*ipb + ipb - 1 (the launcher's
+// grid covers every item).
+template <class Z>
+__global__ void __launch_bounds__(QMAX_THREADS, 2)
+    sw2d_stage_bwd_kernel(SwDesc d, StageBwdArgs a) {
+  const Ops g = make_ops(d, a.fops, a.iops);
+  q_setup_adjoint_ops(g, smem, a.use_filter);
+  __syncthreads();
+  const size_t ls = (size_t)d.n_send * 3;  // floats of one slot list
+  // receive slots that no trace node reads: zeros (each other slot is
+  // written by the lane of its one reader)
+  const int nr = d.n_recv;
+  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < a.S * a.B * nr;
+       k += gridDim.x * blockDim.x) {
+    const int sc = k / nr, j = k - sc * nr;
+    const int* ptr = g.invP_ptr + (sc / a.B) * a.istride + g.nV + j;
+    if (__ldg(ptr + 1) == __ldg(ptr)) {
+      float* q = a.orb + sc * ls + 3 * j;
+      q[0] = q[1] = q[2] = 0.0f;
     }
-    if (tid == 0)  // the same thread adds the block's sums in vjp_phase
-      for (int k = 0; k < nc; ++k) a.cpart[(size_t)u * nc + k] = 0.0f;
-    __syncthreads();
-    vjp_phase(o, s, e0, ne, at(a.ch, a.chu, a.chv, off), a.t,
-              at(a.obh, a.obhu, a.obhv, off), a.c_dt, a.use_filter,
-              atw(a.och, a.ochu, a.ochv, off), a.T + sc * nT6,
-              a.cpart + (size_t)u * nc, a.rb + (size_t)sc * nr * 3);
+  }
+  const int ops_f = q_adj_ops_floats(g.Np, g.Ntr);
+  const int vjp_f = q_vjp_item_floats(g.Np, g.Ntr);
+  const int item_f = vjp_f + qround4(g.n_ctrl);  // the item's control share
+  float* scr = q_item_slots(ops_f, item_f, Z::P);
+  const int ipb = blockDim.x / Z::P, n_items = a.S * a.B * d.K;
+  const int first = blockIdx.x * ipb;
+  const int Np = Z::np(g), ns = Z::nslots(g), nc = Z::nc(g);
+  const float h_bc = tidal_depth(g, a.t);
+  if (first < n_items) {
+    const QLane l = q_lane<Z>(first, n_items, a.B, d.K, a.fstride,
+                              a.istride);
+    const size_t off = (size_t)l.sc * g.nV;
+    const StageLam lam = {a.lh + off, a.lhu + off, a.lhv + off,
+                          a.lsb + l.sc * ls, g.send_ptr + l.io,
+                          g.send_idx + l.io,
+                          a.sponge ? g.SPNG + l.fo : nullptr,
+                          g.has_bathy != 0, a.c_dt};
+#pragma unroll
+    for (int i = 0; i < ns; ++i) {  // the base cotangent
+      const int n = l.p + Z::P * i, v = l.e * Np + n;
+      if (n < Np && l.active) {
+        const F3 r = lam(v);
+        a.obh[off + v] = r.a; a.obhu[off + v] = r.b; a.obhv[off + v] = r.c;
+      }
+    }
+    float *och = a.och + off, *ochu = a.ochu + off, *ochv = a.ochv + off;
+    qvjp<Z>(g, smem, scr, l, at(a.ch, a.chu, a.chv, off), a.rb + l.sc * ls,
+            lam, a.c_dt, h_bc, a.use_filter,
+            [&](int v, float hb, float hub, float hvb) {
+              och[v] = hb; ochu[v] = hub; ochv[v] = hvb;
+            },
+            a.orb + l.sc * ls, a.octl == nullptr ? nullptr : scr + vjp_f,
+            false);
+  }
+  if (a.octl == nullptr) return;
+
+  // the control cotangents, in a fixed order: the block's items' shares
+  // summed per shard-scenario (segment sc, b - first block of sc), then the
+  // block that completes a shard-scenario adds its segments
+  __syncthreads();  // every item's share is in its slot
+  const int K = d.K, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int n_in = min(ipb, n_items - first);
+  const int sc_lo = first / K, n_sc = (first + n_in - 1) / K - sc_lo + 1;
+  const int max_seg = (K + ipb - 1) / ipb + 1;
+  auto seg0 = [&](int sc) { return sc * K / ipb; };  // first block of sc
+  for (int pr = warp; pr < n_sc * nc; pr += nw) {
+    const int sc = sc_lo + pr / nc, c = pr - (pr / nc) * nc;
+    const int i0 = max(first, sc * K) - first;
+    const int i1 = min(first + n_in, (sc + 1) * K) - first;
+    const float sum = q_warp_sum(smem + ops_f + i0 * item_f + vjp_f + c,
+                                 i1 - i0, item_f, false);
+    if ((threadIdx.x & 31) == 0) {
+      a.cpart[((size_t)sc * max_seg + blockIdx.x - seg0(sc)) * nc + c] = sum;
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  int* fin = reinterpret_cast<int*>(smem + ops_f);  // (the slots are free)
+  for (int k = threadIdx.x; k < n_sc; k += blockDim.x) {
+    const int sc = sc_lo + k, n_seg = ((sc + 1) * K - 1) / ipb - seg0(sc) + 1;
+    fin[k] = atomicAdd(a.done + sc, 1u) == (unsigned)(n_seg - 1);
+  }
+  __syncthreads();
+  for (int k = warp; k < n_sc; k += nw) {
+    if (!fin[k]) continue;
+    __threadfence();
+    const int sc = sc_lo + k, n_seg = ((sc + 1) * K - 1) / ipb - seg0(sc) + 1;
+    for (int c = 0; c < nc; ++c) {
+      const float sum = q_warp_sum(a.cpart + (size_t)sc * max_seg * nc + c,
+                                   n_seg, nc, true);
+      if ((threadIdx.x & 31) == 0) a.octl[sc * nc + c] = sum;
+    }
+    if ((threadIdx.x & 31) == 0) a.done[sc] = 0;
+  }
+}
+
+struct BwdArgs {
+  const float* fops;
+  const int* iops;
+  const float *th, *thu, *thv;     // (B, n_steps+1, nV) stored trajectory
+  const float *tbh, *tbhu, *tbhv;  // its cotangents
+  const float* ctrls;              // (B, n_cs, n_ctrl)
+  float *xbh, *xbhu, *xbhv;        // (B, nV) out: initial-state cotangents
+  float* cbar;                     // (B, n_cs, n_ctrl) out
+  float *sh, *W, *A;  // scratch, (3, B, nV) each: s_half, W, a
+  float* cpart;       // (B, n_cs, K, n_ctrl) scratch: items' shares
+  float* tide;        // (n_steps, 2) scratch: tidal depth at t and t + dt/2
+  int B, n_cs, spc, use_filter;
+  float dt, t0;
+};
+
+template <class Z>
+__global__ void __launch_bounds__(QMAX_THREADS, 2)
+    sw2d_blocked_rollout_bwd_kernel(SwDesc d, BwdArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const Ops g = make_ops(d, a.fops, a.iops);
+  q_setup_adjoint_ops(g, smem, a.use_filter);
+  __syncthreads();
+  const int Np = Z::np(g), ns = Z::nslots(g), nc = Z::nc(g);
+  const int n_steps = a.n_cs * a.spc;
+  const size_t nV = (size_t)g.nV, fs = (size_t)a.B * nV;
+  const size_t trow = (size_t)(n_steps + 1) * nV;
+  const size_t n_part = (size_t)a.B * a.n_cs * d.K * nc;
+  for (size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x; k < n_part;
+       k += (size_t)gridDim.x * blockDim.x)
+    a.cpart[k] = 0.0f;
+  // the tidal depths of every stage time (tidal_depth's formula with the
+  // cosine as cospif: its argument reduction is exact and short, where
+  // cosf's slow path would push this kernel into spills; the two differ
+  // by an ulp or two of the cosine)
+  const bool tidal = g.has_tidal != 0;
+  if (tidal)
+    for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < 2 * n_steps;
+         k += gridDim.x * blockDim.x) {
+      float tk = a.t0 + (float)(k >> 1) * a.dt;
+      if (k & 1) tk += 0.5f * a.dt;
+      const float ramp = g.tide_tau > 0.0f ? fminf(tk / g.tide_tau, 1.0f)
+                                           : 1.0f;
+      a.tide[k] = g.tide_h0 + g.tide_amp *
+                  cospif(g.tide_omega * tk * 0.3183098861837907f) * ramp;
+    }
+  grid.sync();
+  auto tide = [&](int k) { return tidal ? __ldcg(a.tide + k) : 0.0f; };
+  float* scr = q_item_slots(
+      q_adj_ops_floats(g.Np, g.Ntr),
+      max(q_item_floats(g.Np, g.Ntr), q_vjp_item_floats(g.Np, g.Ntr)), Z::P);
+  const int ipb = blockDim.x / Z::P, n_items = a.B * d.K;
+  const SendTo nosend = {nullptr, nullptr, 0};
+  // the share of item (scenario b, element e) of control step j
+  auto share = [&](const QLane& l, int j) {
+    return a.cpart + (((size_t)l.sc * a.n_cs + j) * d.K + l.e) * nc;
+  };
+
+  for (int t = n_steps - 1; t >= -1; --t) {
+    // ---- 1. lambda_{t+1}; W_t and s_half_t (t = -1: the initial-state
+    // cotangent) ----
+    for (int first = blockIdx.x * ipb; first < n_items;
+         first += gridDim.x * ipb) {
+      const QLane l = q_lane<Z>(first, n_items, a.B, d.K, 0, 0);
+      const size_t off = (size_t)l.sc * nV;
+      const size_t tb1 = l.sc * trow + (t + 1) * nV;
+      // W_t at node v from lambda_{t+1} there, without the tbar of s_{t+1}
+      auto finish = [&](int v, float l1, float l2, float l3) {
+        l1 += a.tbh[tb1 + v]; l2 += a.tbhu[tb1 + v]; l3 += a.tbhv[tb1 + v];
+        if (t < 0) {
+          a.xbh[off + v] = l1; a.xbhu[off + v] = l2; a.xbhv[off + v] = l3;
+          return;
+        }
+        if (g.has_sponge) {  // the stored s_{t+1} is the relaxed state
+          const float fac = 1.0f / (1.0f + a.dt * __ldg(g.SPNG + v));
+          if (g.has_bathy) l1 *= fac;
+          l2 *= fac; l3 *= fac;
+        }
+        a.W[off + v] = l1; a.W[fs + off + v] = l2; a.W[2 * fs + off + v] = l3;
+      };
+      if (t < n_steps - 1) {  // lambda = W + a + VJP_R(s_{t+1})[dt/2 a]
+        const int t1 = t + 1;
+        const WFields asrc = {a.A + off, a.A + fs + off, a.A + 2 * fs + off};
+        qvjp<Z>(g, smem, scr, l, at(a.th, a.thu, a.thv, l.sc * trow + t1 * nV),
+                nullptr, asrc, 0.5f * a.dt, tide(2 * t1), a.use_filter,
+                [&](int v, float b1, float b2, float b3) {
+                  const size_t o = off + v;
+                  finish(v, b1 + (a.W[o] + a.A[o]),
+                         b2 + (a.W[fs + o] + a.A[fs + o]),
+                         b3 + (a.W[2 * fs + o] + a.A[2 * fs + o]));
+                },
+                nullptr, share(l, t1 / a.spc), true);
+      } else {
+#pragma unroll
+        for (int i = 0; i < ns; ++i) {
+          const int n = l.p + Z::P * i;
+          if (n < Np && l.active) finish(l.e * Np + n, 0.0f, 0.0f, 0.0f);
+        }
+      }
+      if (t < 0) continue;
+      // (the base read back from the trajectory at the update: held in
+      // registers through the stage, it would push this loop into spills)
+      const P3 st = at(a.th, a.thu, a.thv, l.sc * trow + t * nV);
+      Own<Z> x, sh;
+      load_own<Z>(g, l.e, l.p, st, x);
+      qstage<Z, false>(g, smem, scr, l, st, x, x, st, sh,
+                      atw(a.sh, a.sh + fs, a.sh + 2 * fs, off), nosend,
+                      nullptr, 0.5f * a.dt, tide(2 * t), a.dt,
+                      a.ctrls + ((size_t)l.sc * a.n_cs + t / a.spc) * nc,
+                      a.use_filter, false, false);
+    }
+    grid.sync();
+    if (t < 0) break;
+
+    // ---- 2. a_t = VJP_R(s_half)[dt W_t] ----
+    for (int first = blockIdx.x * ipb; first < n_items;
+         first += gridDim.x * ipb) {
+      const QLane l = q_lane<Z>(first, n_items, a.B, d.K, 0, 0);
+      const size_t off = (size_t)l.sc * nV;
+      const WFields wsrc = {a.W + off, a.W + fs + off, a.W + 2 * fs + off};
+      float *A1 = a.A + off, *A2 = a.A + fs + off, *A3 = a.A + 2 * fs + off;
+      qvjp<Z>(g, smem, scr, l, at(a.sh, a.sh + fs, a.sh + 2 * fs, off),
+              nullptr, wsrc, a.dt, tide(2 * t + 1), a.use_filter,
+              [&](int v, float b1, float b2, float b3) {
+                A1[v] = b1; A2[v] = b2; A3[v] = b3;
+              },
+              nullptr, share(l, t / a.spc), true);
+    }
+    grid.sync();
+  }
+
+  // control cotangents: the items' shares (the last of them written before
+  // the barrier that ended step 0), added in a fixed order in two rounds
+  // around a grid barrier: each warp sums a chunk of an output's rows into
+  // the W scratch (free now), then a warp an output sums the chunks
+  const int wpb = (int)blockDim.x >> 5, n_warps = (int)gridDim.x * wpb;
+  const int warp = (int)blockIdx.x * wpb + ((int)threadIdx.x >> 5);
+  const int n_out = a.B * a.n_cs * nc, K = d.K;
+  int n_ch = max(1, min(n_warps / n_out, K));
+  n_ch = min(n_ch, (int)(3 * fs / n_out));
+  const int rows = (K + n_ch - 1) / n_ch;
+  for (int pr = warp; pr < n_out * n_ch; pr += n_warps) {
+    const int o = pr % n_out, ch = pr / n_out, r0 = ch * rows;
+    const float sum = q_warp_sum(
+        a.cpart + (size_t)(o / nc) * K * nc + (o % nc) + (size_t)r0 * nc,
+        max(0, min(rows, K - r0)), nc, true);
+    if ((threadIdx.x & 31) == 0) a.W[(size_t)o * n_ch + ch] = sum;
   }
   grid.sync();
-
-  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-    const int sc = u / n_chunks, c = u - sc * n_chunks;
-    const Ops o = shard_ops(d, a.fops, a.iops, a.fstride, a.istride,
-                            sc / a.B, blk);
-    const int e0 = c * a.E, ne = min(a.E, o.K - e0);
-    const int nl = ne * o.Np, v0 = e0 * o.Np;
-    const size_t off = (size_t)sc * nV;
-    for (int l = tid; l < nl; l += nth) {
-      const int v = v0 + l;
-      float c1 = a.och[off + v], c2 = a.ochu[off + v], c3 = a.ochv[off + v];
-      gather_traces(o, a.T + sc * nT6, v, c1, c2, c3);
-      a.och[off + v] = c1; a.ochu[off + v] = c2; a.ochv[off + v] = c3;
-    }
-  }
-  // receive slots: the '+' cotangents of the trace nodes each slot fed
-  const int gt = blockIdx.x * nth + tid, gn = gridDim.x * nth;
-  for (int k = gt; k < a.S * a.B * nr; k += gn) {
-    const int sc = k / nr, j = k - sc * nr;
-    const long long so = (long long)(sc / a.B) * a.istride;
-    const int* ptr = blk.invP_ptr + so;
-    const int* idx = blk.invP_idx + so;
-    const float* T = a.T + sc * nT6;
-    float r0 = 0.0f, r1 = 0.0f, r2 = 0.0f;
-    for (int q = ptr[nV + j]; q < ptr[nV + j + 1]; ++q) {
-      const float* p = T + (size_t)idx[q] * 6 + 3;
-      r0 += p[0]; r1 += p[1]; r2 += p[2];
-    }
-    a.orb[3 * (size_t)k] = r0; a.orb[3 * (size_t)k + 1] = r1;
-    a.orb[3 * (size_t)k + 2] = r2;
-  }
-  // control cotangents: the units' sums, added in a fixed order
-  if (a.octl != nullptr) {
-    for (int k = gt; k < a.S * a.B * nc; k += gn) {
-      const int sc = k / nc, r = k - sc * nc;
-      float tot = 0.0f;
-      for (int c = 0; c < n_chunks; ++c)
-        tot += a.cpart[((size_t)sc * n_chunks + c) * nc + r];
-      a.octl[k] = tot;
-    }
+  for (int o = warp; o < n_out; o += n_warps) {
+    const float sum = q_warp_sum(a.W + (size_t)o * n_ch, n_ch, 1, true);
+    if ((threadIdx.x & 31) == 0) a.cbar[o] = sum;
   }
 }
 
@@ -1319,31 +1685,74 @@ __global__ void sw2d_stage_bwd_kernel(SwDesc d, StageBwdArgs a) {
 
 typedef void (*StageKern)(SwDesc, StageArgs);
 typedef void (*RdmaKern)(SwDesc, RdmaArgs);
+typedef void (*StageBwdKern)(SwDesc, StageBwdArgs);
+typedef void (*BwdKern)(SwDesc, BwdArgs);
 
-// The instantiation of the sharded kernels for a set: N=3 with two
-// controls (the MPC's), N=3 with others (a set built without injectors has
-// one, which its rollouts never read), else the run-time sizes (-1 past
-// their room).
+// The instantiation of the q kernels for a set: N=3 with two controls (the
+// MPC's), N=3 with others (a set built without injectors has one, which
+// its rollouts never read), else the run-time sizes (-1 past their room).
 static int q_kind(const SwDesc& d) {
   if (d.Nfaces != 3 || d.Np > QMAX_NP || d.Nfp > QMAX_NFP) return -1;
   if (d.Np == 10 && d.Nfp == 4) return d.n_ctrl == 2 ? 0 : 1;
   return 2;
 }
 
-static StageKern stage_kernel_of(const SwDesc& d) {
+template <class K>
+static K q_pick(const SwDesc& d, K order3_ctrl, K order3, K any_order) {
   switch (q_kind(d)) {
-    case 0: return sw2d_stage_kernel<QOrder3Ctrl>;
-    case 1: return sw2d_stage_kernel<QOrder3>;
-    case 2: return sw2d_stage_kernel<QAnyOrder>;
+    case 0: return order3_ctrl;
+    case 1: return order3;
+    case 2: return any_order;
     default: return nullptr;
   }
 }
 
+static StageKern stage_kernel_of(const SwDesc& d) {
+  return q_pick<StageKern>(d, sw2d_stage_kernel<QOrder3Ctrl>,
+                           sw2d_stage_kernel<QOrder3>,
+                           sw2d_stage_kernel<QAnyOrder>);
+}
+
 static RdmaKern rdma_kernel_of(const SwDesc& d) {
-  switch (q_kind(d)) {
-    case 0: return sw2d_step_rdma_kernel<QOrder3Ctrl>;
-    case 1: return sw2d_step_rdma_kernel<QOrder3>;
-    case 2: return sw2d_step_rdma_kernel<QAnyOrder>;
+  return q_pick<RdmaKern>(d, sw2d_step_rdma_kernel<QOrder3Ctrl>,
+                          sw2d_step_rdma_kernel<QOrder3>,
+                          sw2d_step_rdma_kernel<QAnyOrder>);
+}
+
+// The N=1 set with two controls, which has a wide instantiation.
+static bool q_order1_ctrl(const SwDesc& d) {
+  return d.Nfaces == 3 && d.Np == 3 && d.Nfp == 2 && d.n_ctrl == 2;
+}
+
+// (lanes: 16 and 8 take the wide items at N=3 and at N=1)
+static StageBwdKern stage_bwd_kernel_of(const SwDesc& d, int lanes) {
+  if (lanes == 16)
+    return q_pick<StageBwdKern>(d, sw2d_stage_bwd_kernel<QOrder3CtrlWide>,
+                                sw2d_stage_bwd_kernel<QOrder3Wide>, nullptr);
+  if (lanes == 8)
+    return q_order1_ctrl(d) ? sw2d_stage_bwd_kernel<QOrder1CtrlWide> : nullptr;
+  return q_pick<StageBwdKern>(d, sw2d_stage_bwd_kernel<QOrder3Ctrl>,
+                              sw2d_stage_bwd_kernel<QOrder3>,
+                              sw2d_stage_bwd_kernel<QAnyOrder>);
+}
+
+static BwdKern rollout_bwd_kernel_of(const SwDesc& d) {
+  return q_pick<BwdKern>(d, sw2d_blocked_rollout_bwd_kernel<QOrder3Ctrl>,
+                         sw2d_blocked_rollout_bwd_kernel<QOrder3>,
+                         sw2d_blocked_rollout_bwd_kernel<QAnyOrder>);
+}
+
+// The q kernels, as the launcher numbers them: the sharded stage (B7), the
+// one-launch step (B9), the sharded stage's adjoint (B8), the blocked
+// rollout's adjoint (B6).
+enum { Q_STAGE = 0, Q_STEP = 1, Q_STAGE_BWD = 2, Q_ROLLOUT_BWD = 3 };
+
+static const void* q_kernel(const SwDesc& d, int which, int lanes) {
+  switch (which) {
+    case Q_STAGE: return (const void*)stage_kernel_of(d);
+    case Q_STEP: return (const void*)rdma_kernel_of(d);
+    case Q_STAGE_BWD: return (const void*)stage_bwd_kernel_of(d, lanes);
+    case Q_ROLLOUT_BWD: return (const void*)rollout_bwd_kernel_of(d);
     default: return nullptr;
   }
 }
@@ -1351,68 +1760,85 @@ static RdmaKern rdma_kernel_of(const SwDesc& d) {
 // Lanes an item: a face's nodes at N=3, one otherwise.
 static int q_lanes(const SwDesc& d) { return q_kind(d) == 2 ? 1 : 4; }
 
-// Block size, grid and dynamic shared memory of the stage kernel
-// (which = 0) or of the one-launch step kernel (which = 1) for S shards of
-// B scenarios, from the occupancy the device reports: the largest block of
-// 256, 128, 64, 32 threads that still gives every SM a block and whose
-// shared memory fits the device's limit a block; the stage's
-// grid covers every item, the step's is what is co-resident (its blocks
-// loop over the rest). Sets the kernel's shared-memory limit. Run it once
-// for a shape, before any launch of that shape (it is not a stream
-// operation, and a launch issues nothing else). fstride, istride: the
-// packed buffers' row lengths. plan: threads, grid, bytes, lanes an item.
-// Returns a CUDA error.
+// Shared memory of one block of `threads` threads of kernel `which`,
+// `lanes` an item.
+static size_t q_bytes(const SwDesc& d, int which, int threads, int lanes) {
+  const int Ntr = d.Nfaces * d.Nfp, items = threads / lanes;
+  int ops = q_ops_floats(d.Np, Ntr), item = q_item_floats(d.Np, Ntr);
+  if (which == Q_STAGE_BWD || which == Q_ROLLOUT_BWD) {
+    ops = q_adj_ops_floats(d.Np, Ntr);
+    const int v = q_vjp_item_floats(d.Np, Ntr);
+    // the stage adjoint's item also holds its control share
+    item = which == Q_STAGE_BWD ? v + qround4(d.n_ctrl) : (v > item ? v : item);
+  }
+  return sizeof(float) * (ops + (size_t)items * item);
+}
+
+// Block size, grid and dynamic shared memory of q kernel `which` for S
+// shards of B scenarios (S = 1 for the blocked rollout's adjoint), from
+// the occupancy the device reports: the largest block of 256, 128, 64, 32
+// threads that still gives every SM a block and whose shared memory fits
+// the device's limit a block; the grid of an ordinary launch (the stage
+// and its adjoint) covers every item, that of a cooperative one (the step,
+// the rollout's adjoint) is what is co-resident (its blocks loop over the
+// rest). The stage adjoint takes 16 lanes an element at N=3 (8 at N=1
+// with two controls) where its narrow items would give the SMs less than a
+// block of 256 threads each (both shapes of the sharded MPC's path: an
+// element's chain, not the SMs' instruction rate, sets the time there).
+// Sets the kernel's shared-memory limit. Run it once for a shape, before
+// any launch of that shape (it is not a stream operation, and a launch
+// does nothing else). fstride, istride: the packed buffers' row
+// lengths. plan: threads, grid, bytes, lanes an item. Returns a CUDA error.
 static int q_plan(const SwDesc& d, int S, int B, int which, int* plan,
                   long long fstride, long long istride) {
-  // the lanes address their shard's rows with 32-bit offsets
-  if (q_kind(d) < 0 || S * fstride > 0x7fffffffLL ||
-      S * istride > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const StageKern ks = stage_kernel_of(d);
-  const RdmaKern kr = rdma_kernel_of(d);
-  const int P = q_lanes(d);
-  const long long lanes = (long long)S * B * d.K * P;
   cudaError_t e;
-  int dev = 0, sms = 0, coop = 0;
+  int dev = 0, sms = 0, can = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int P = q_lanes(d);
+  if (which == Q_STAGE_BWD &&
+      (long long)S * B * d.K * P < (long long)sms * QMAX_THREADS) {
+    if (P == 4) P = 16;
+    else if (q_order1_ctrl(d)) P = 8;
+  }
+  // the lanes address their shard's rows with 32-bit offsets
+  const void* kern = q_kernel(d, which, P);
+  if (kern == nullptr || S * fstride > 0x7fffffffLL ||
+      S * istride > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const bool coop = which == Q_STEP || which == Q_ROLLOUT_BWD;
+  const long long lanes = (long long)S * B * d.K * P;
   int threads = 32, optin = 0;
   for (int t = QMAX_THREADS; t >= 32; t /= 2)
     if ((lanes + t - 1) / t >= sms) { threads = t; break; }
-  const int Ntr = d.Nfaces * d.Nfp;
-  auto bytes_of = [&](int t) {
-    return sizeof(float) * (q_ops_floats(d.Np, Ntr)
-                            + (size_t)(t / P) * q_item_floats(d.Np, Ntr));
-  };
   // high orders: a smaller block, until its shared memory fits (N=6 takes
-  // 128 threads on the H100)
+  // 128 threads on the H100 in the stage kernels)
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
-  while (threads > 32 && bytes_of(threads) > (size_t)optin) threads /= 2;
-  const size_t bytes = bytes_of(threads);
+  while (threads > 32 && q_bytes(d, which, threads, P) > (size_t)optin)
+    threads /= 2;
+  const size_t bytes = q_bytes(d, which, threads, P);
   if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
-  const int pe = which == 0 ? prepare(ks, bytes) : prepare(kr, bytes);
+  const int pe = prepare(kern, bytes);
   if (pe != 0) return pe;
   int per_sm = 0;
-  e = which == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       &per_sm, ks, threads, bytes)
-                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       &per_sm, kr, threads, bytes);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    bytes);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
   long long grid = (lanes + threads - 1) / threads;
-  if (which == 1) {
-    cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (!coop) return (int)cudaErrorNotSupported;
+  if (coop) {
+    cudaDeviceGetAttribute(&can, cudaDevAttrCooperativeLaunch, dev);
+    if (!can) return (int)cudaErrorNotSupported;
     if (grid > (long long)per_sm * sms) grid = (long long)per_sm * sms;
   }
   plan[0] = threads; plan[1] = (int)grid; plan[2] = (int)bytes; plan[3] = P;
   return 0;
 }
 
-// One launch of a planned shape (cooperative for the step: its blocks meet
-// at a grid barrier); nothing but the launch, so that it can be captured
-// into a CUDA graph.
+// One launch of a planned shape (cooperative for the step and the
+// rollout's adjoint: their blocks meet at grid barriers); nothing but the
+// launch, so that it can be captured into a CUDA graph.
 template <class Args>
 static int q_launch(void (*kern)(SwDesc, Args), const SwDesc& d,
                     const Args& a, const int* plan, bool coop, void* stream) {
@@ -1494,15 +1920,11 @@ int sw2d_blocked_rollout(const SwDesc* d, const float* fops, const int* iops,
                         iops, a, threads, stream);
 }
 
-// Floats of scratch that sw2d_blocked_rollout_bwd needs in `work`.
-long long sw2d_blocked_bwd_work_floats(const SwDesc* d, int B, int n_cs,
-                                       int E) {
-  const long long nV = (long long)d->K * d->Np;
-  const long long nT = (long long)d->K * d->Nfaces * d->Nfp;
-  const long long n_chunks = (d->K + E - 1) / E;
-  return 12 * B * nV + 12 * B * nT + (long long)B * n_chunks * n_cs * d->n_ctrl;
-}
-
+// The reverse sweep of a blocked rollout of B scenarios: from the stored
+// trajectory (B, n_steps+1, nV) and its cotangents to the cotangents of
+// the initial state and of the controls (B, n_cs, n_ctrl). work: 9*B*nV +
+// B*n_cs*K*n_ctrl + 2*n_cs*spc floats of scratch; plan: sw2d_shard_plan's
+// for (1, B, 3).
 int sw2d_blocked_rollout_bwd(const SwDesc* d, const float* fops,
                              const int* iops, const float* th,
                              const float* thu, const float* thv,
@@ -1511,23 +1933,19 @@ int sw2d_blocked_rollout_bwd(const SwDesc* d, const float* fops,
                              float* xbh, float* xbhu, float* xbhv,
                              float* cbar, float* work, int B, int n_cs,
                              int spc, float dt, float t0, int use_filter,
-                             int E, int threads, void* stream) {
-  Ops o = make_ops(*d, fops, iops);
-  const size_t n3 = (size_t)3 * B * o.nV, t6 = (size_t)6 * B * o.nT;
+                             const int* plan, void* stream) {
+  const size_t n3 = (size_t)3 * B * d->K * d->Np;
   BwdArgs a;
+  a.fops = fops; a.iops = iops;
   a.th = th; a.thu = thu; a.thv = thv;
   a.tbh = tbh; a.tbhu = tbhu; a.tbhv = tbhv;
   a.ctrls = ctrls;
   a.xbh = xbh; a.xbhu = xbhu; a.xbhv = xbhv; a.cbar = cbar;
-  a.s1 = work; a.W = work + n3; a.A = work + 2 * n3; a.Bv = work + 3 * n3;
-  a.T1 = work + 4 * n3; a.T2 = a.T1 + t6; a.cpart = a.T2 + t6;
-  a.B = B; a.n_cs = n_cs; a.spc = spc; a.E = E; a.use_filter = use_filter;
+  a.sh = work; a.W = work + n3; a.A = work + 2 * n3; a.cpart = work + 3 * n3;
+  a.tide = a.cpart + (size_t)B * n_cs * d->K * d->n_ctrl;
+  a.B = B; a.n_cs = n_cs; a.spc = spc; a.use_filter = use_filter;
   a.dt = dt; a.t0 = t0;
-  const size_t bytes = smem_floats(o, E) * sizeof(float);
-  const int n_units = B * ((o.K + E - 1) / E);
-  void* args[] = {&o, &a};
-  return coop_launch((const void*)sw2d_blocked_rollout_bwd_kernel, args,
-                     n_units, threads, bytes, stream);
+  return q_launch(rollout_bwd_kernel_of(*d), *d, a, plan, true, stream);
 }
 
 int sw2d_shard_plan(const SwDesc* d, int S, int B, int which,
@@ -1574,40 +1992,26 @@ int sw2d_step_rdma(const SwDesc* d, const float* fops, const int* iops,
   return q_launch(rdma_kernel_of(*d), *d, a, plan, true, stream);
 }
 
-// Floats of scratch that sw2d_stage_bwd needs in `work`.
-long long sw2d_stage_bwd_work_floats(const SwDesc* d, int S, int B, int E) {
-  const long long nT = (long long)d->K * d->Nfaces * d->Nfp;
-  const long long n_chunks = (d->K + E - 1) / E;
-  return 6LL * S * B * nT + (long long)S * B * n_chunks * d->n_ctrl;
-}
-
 // The adjoint of sw2d_stage: cotangents of (out, sb) to those of (base,
 // cur, rb) and, with octl, the control cotangent per shard and scenario.
+// With octl, cpart: S*B*(ceil(K/ipb) + 1)*n_ctrl floats of scratch (ipb:
+// the plan's threads over its lanes an item) and done: S*B counters that
+// are 0 (the launch leaves them at 0); plan: sw2d_shard_plan's for
+// (S, B, 2).
 int sw2d_stage_bwd(const SwDesc* d, const float* fops, const int* iops,
                    long long fstride, long long istride, int S, int B,
                    const float* ch, const float* chu, const float* chv,
                    const float* rb, const float* lh, const float* lhu,
                    const float* lhv, const float* lsb, float* obh,
                    float* obhu, float* obhv, float* och, float* ochu,
-                   float* ochv, float* orb, float* octl, float* work,
-                   float c_dt, float t, int use_filter, int sponge, int E,
-                   int threads, void* stream) {
-  Ops o = make_ops(*d, nullptr, nullptr);
-  StageBwdArgs a;
-  a.fops = fops; a.iops = iops; a.fstride = fstride; a.istride = istride;
-  a.S = S; a.B = B; a.E = E; a.use_filter = use_filter; a.sponge = sponge;
-  a.ch = ch; a.chu = chu; a.chv = chv; a.rb = rb;
-  a.lh = lh; a.lhu = lhu; a.lhv = lhv; a.lsb = lsb;
-  a.obh = obh; a.obhu = obhu; a.obhv = obhv;
-  a.och = och; a.ochu = ochu; a.ochv = ochv; a.orb = orb; a.octl = octl;
-  a.T = work; a.cpart = work + (size_t)6 * S * B * o.nT;
-  a.c_dt = c_dt; a.t = t;
-  const size_t bytes = smem_floats(o, E) * sizeof(float);
-  const int n_units = S * B * ((o.K + E - 1) / E);
-  SwDesc dd = *d;
-  void* args[] = {&dd, &a};
-  return coop_launch((const void*)sw2d_stage_bwd_kernel, args, n_units,
-                     threads, bytes, stream);
+                   float* ochv, float* orb, float* octl, float* cpart,
+                   unsigned* done, float c_dt, float t, int use_filter,
+                   int sponge, const int* plan, void* stream) {
+  StageBwdArgs a = {fops, iops, fstride, istride, S, B, use_filter, sponge,
+                    ch, chu, chv, rb, lh, lhu, lhv, lsb, obh, obhu, obhv,
+                    och, ochu, ochv, orb, octl, cpart, done, c_dt, t};
+  return q_launch(stage_bwd_kernel_of(*d, plan[3]), *d, a, plan, false,
+                  stream);
 }
 
 }  // extern "C"

@@ -6,7 +6,7 @@
 // source and limiter formulas, and the pointwise parts of the
 // hand-derived adjoint. The curved kernels (sw2d_curved.cu) have an
 // operator set of their own and share the helpers that know nothing of
-// it: safe_norm, face_speed_share, block_sum, prepare and coop_launch.
+// it: safe_norm, prepare and coop_launch.
 //
 // The same derivation, in tensor code, is ops/sw2d_fused.py (_rhs_plain,
 // _rhs_vjp_plain), where it is tested against torch.autograd. Tie rules of
@@ -25,7 +25,8 @@ struct SwDesc {
   int K, Np, Nfaces, Nfp, n_ctrl;
   int wb, has_bathy, has_tidal;
   int has_sponge, wetdry;
-  int blocked;  // the float buffer carries H and SPNG after BV
+  int blocked;  // the float buffer carries H and SPNG after BV, the integer
+                // buffer ends with the mirror table
   float g, cd, fcor;
   float tide_h0, tide_amp, tide_omega, tide_tau;
   float h_floor;
@@ -45,6 +46,9 @@ struct Ops {
   // send list: local node of each send slot (-1: an empty slot, sent as 0),
   // and its inverse (the slots that read each local node) as CSR
   const int *send_node, *send_ptr, *send_idx;
+  // blocked sets: the trace node that reads each trace node's '-' node as
+  // its '+' node (itself on a boundary face, -1 at a receive slot)
+  const int* mirror;
   int K, Np, Ntr, Nfp, nV, nT, n_ctrl, n_recv, n_send;
   int wb, has_bathy, has_tidal, has_sponge, wetdry;
   float g, cd, fcor, tide_h0, tide_amp, tide_omega, tide_tau, h_floor;
@@ -94,6 +98,10 @@ __host__ __device__ inline Ops make_ops(const SwDesc& d, const float* f,
     o.send_node = i; i += d.n_send;
     o.send_ptr = i; i += nV + 1;
     o.send_idx = i; i += d.n_send;
+  }
+  o.mirror = nullptr;
+  if (d.blocked) {
+    o.mirror = i; i += nT;
   }
   return o;
 }
@@ -326,165 +334,12 @@ __device__ __forceinline__ void add_sources(
 // wet/dry branch has no adjoint)
 // ---------------------------------------------------------------------------
 
-// Volume node v: from the cotangents of its six fluxes (Fb*, Gb*: the
+// Volume node: from the cotangents of its six fluxes (Fb*, Gb*: the
 // transposed divergence of the RHS cotangent) and the RHS cotangent itself
-// (w2, w3, for the sources) to the cotangent of (h, hu, hv).
-// F1=hu, F2=hu^2/h+p, F3=G2=hu*hv/h, G1=hv, G3=hv^2/h+p, p=g/2 h^2.
-__device__ __forceinline__ void volume_vjp_point(
-    const Ops& o, int v, float h, float hu, float hv, float Fb1, float Fb2,
-    float Fb3, float Gb1, float Gb2, float Gb3, float w2, float w3,
-    float& hb, float& hub, float& hvb) {
-  const float g = o.g;
-  const float inv = 1.0f / h, u = hu * inv, vv = hv * inv;
-  const float w23 = Fb3 + Gb2;
-  hub = Fb1 + 2.0f * u * Fb2 + vv * w23;
-  hvb = Gb1 + 2.0f * vv * Gb3 + u * w23;
-  hb = (g * h - u * u) * Fb2 + (g * h - vv * vv) * Gb3 - u * vv * w23;
-  if (o.has_bathy) hb += g * (o.Hx[v] * w2 + o.Hy[v] * w3);
-  if (o.cd != 0.0f) {
-    const float nrm = safe_norm(u, vv);
-    if (nrm > 0.0f) {
-      const float a2 = -o.cd * w2, a3 = -o.cd * w3, in = 1.0f / nrm;
-      const float ub = a2 * (nrm + u * u * in) + a3 * (u * vv * in);
-      const float vb = a2 * (u * vv * in) + a3 * (nrm + vv * vv * in);
-      hub += ub * inv; hvb += vb * inv;
-      hb -= (ub * u + vb * vv) * inv;
-    }
-  }
-  if (o.fcor != 0.0f) {
-    hvb += o.fcor * w2;
-    hub -= o.fcor * w3;
-  }
-}
-
-// Trace node: the whole chain rule of the face flux. d1..d3: cotangents of
-// the (unscaled) flux jumps; lam: the face speed; sb: this node's share of
-// the face speed's cotangent. Out: cotangents of the '-' traces (h, hu, hv)
-// and of the '+' traces.
-__device__ __forceinline__ void face_vjp_point(
-    const Ops& o, const TraceVals& tv, float lam, float sb, float d1,
-    float d2, float d3, float* tM, float* tP) {
-  const float g = o.g;
-  const float wM = tv.spdM > tv.spdP ? 1.0f
-                   : (tv.spdM == tv.spdP ? 0.5f : 0.0f);
-  const float spdMb = sb * wM, spdPb = sb - spdMb;
-  const float nx = tv.nx, ny = tv.ny;
-  // cotangents of the '-' side fluxes; the '+' side gets the negatives
-  const float q1 = -0.5f * lam * d1, q2 = -0.5f * lam * d2;
-  const float q3 = -0.5f * lam * d3;
-  const float Fb1 = 0.5f * nx * d1 + q2, Gb1 = 0.5f * ny * d1 + q3;
-  const float Fb2 = 0.5f * nx * d2, Gb3 = 0.5f * ny * d3;
-  const float w23 = 0.5f * nx * d3 + 0.5f * ny * d2;
-
-  float hMsb = q1, hPsb = -q1;
-  float uMb = 0.0f, vMb = 0.0f, uPb = 0.0f, vPb = 0.0f;
-  float hMb = 0.0f, hPb = 0.0f;
-  if (o.wb) {
-    const float corr_b = d1 + tv.uM * d2 + tv.vM * d3;
-    const float corr = (tv.hM - tv.hMs) * (tv.uM * nx + tv.vM * ny);
-    const float unM = tv.uM * nx + tv.vM * ny;
-    uMb += corr * d2; vMb += corr * d3;
-    hMb += corr_b * unM; hMsb -= corr_b * unM;
-    const float tb = corr_b * (tv.hM - tv.hMs);
-    uMb += tb * nx; vMb += tb * ny;
-  }
-  // fluxes from (h*, u, v):  F1=h*u, G1=h*v, F2=h*u^2+p, F3=G2=h*uv,
-  // G3=h*v^2+p, p=g/2 h*^2
-  {
-    const float hs = tv.hMs, u = tv.uM, v = tv.vM;
-    hMsb += u * Fb1 + v * Gb1 + (u * u + g * hs) * Fb2
-            + (v * v + g * hs) * Gb3 + u * v * w23;
-    uMb += hs * (Fb1 + 2.0f * u * Fb2 + v * w23);
-    vMb += hs * (Gb1 + 2.0f * v * Gb3 + u * w23);
-  }
-  {
-    const float hs = tv.hPs, u = tv.uP, v = tv.vP;
-    hPsb -= u * Fb1 + v * Gb1 + (u * u + g * hs) * Fb2
-            + (v * v + g * hs) * Gb3 + u * v * w23;
-    uPb -= hs * (Fb1 + 2.0f * u * Fb2 + v * w23);
-    vPb -= hs * (Gb1 + 2.0f * v * Gb3 + u * w23);
-  }
-  // speeds: |(u, v)| + sqrt(g h*)
-  {
-    const float nM = safe_norm(tv.uM, tv.vM);
-    if (nM > 0.0f) { uMb += spdMb * tv.uM / nM; vMb += spdMb * tv.vM / nM; }
-    if (tv.hMs > 0.0f) hMsb += spdMb * 0.5f * sqrtf(g / tv.hMs);
-    const float nP = safe_norm(tv.uP, tv.vP);
-    if (nP > 0.0f) { uPb += spdPb * tv.uP / nP; vPb += spdPb * tv.vP / nP; }
-    if (tv.hPs > 0.0f) hPsb += spdPb * 0.5f * sqrtf(g / tv.hPs);
-  }
-  if (tv.passM) hMb += hMsb;
-  if (tv.passP) hPb += hPsb;
-  // u = hu / h
-  float huMb = uMb / tv.hM, hvMb = vMb / tv.hM;
-  hMb -= (uMb * tv.uM + vMb * tv.vM) / tv.hM;
-  float huPb = uPb / tv.hP, hvPb = vPb / tv.hP;
-  hPb -= (uPb * tv.uP + vPb * tv.vP) / tv.hP;
-  hPb *= (1.0f - tv.obc);  // a prescribed depth does not see the state
-  if (tv.wall) {           // reflection: '+' momentum is a map of '-'
-    const float unb = -2.0f * (nx * huPb + ny * hvPb);
-    huMb += huPb + nx * unb;
-    hvMb += hvPb + ny * unb;
-    huPb = 0.0f; hvPb = 0.0f;
-  }
-  tM[0] = hMb; tM[1] = huMb; tM[2] = hvMb;
-  tP[0] = hPb; tP[1] = huPb; tP[2] = hvPb;
-}
-
-// This node's share of the face speed's cotangent: the face's summed
-// cotangent, split evenly over the nodes that attain the face maximum.
-// spd, lamb: per-trace-node arrays holding the face's Nfp nodes from f0 on.
-__device__ __forceinline__ float face_speed_share(
-    const float* spd, const float* lamb, int f0, int Nfp, float my_spd,
-    float& lam) {
-  lam = spd[f0];
-  float lsum = lamb[f0];
-  for (int j = 1; j < Nfp; ++j) {
-    lam = fmaxf(lam, spd[f0 + j]);
-    lsum += lamb[f0 + j];
-  }
-  int cnt = 0;
-  for (int j = 0; j < Nfp; ++j) cnt += (spd[f0 + j] == lam) ? 1 : 0;
-  return (my_spd == lam) ? lsum / (float)cnt : 0.0f;
-}
-
-// ---------------------------------------------------------------------------
-// The same formulas for kernels that hold one element of one scenario in a
-// thread (sw2d_dense.cu): the node's geometry comes in as values, read once
-// from the kernel's own tables, instead of through Ops by node index.
-// ---------------------------------------------------------------------------
-
-// add_sources of a node with its bed slopes (Hx, Hy), its control injectors
-// bc[c] = (BU, BV) of control c, and its velocities u = hu / h, vv = hv / h
-// (flat and well-balanced regimes; the dense kernels have no wet/dry
-// branch). ctrl: n_ctrl values, or null.
-__device__ __forceinline__ void add_sources_at(
-    const Ops& o, float h, float hu, float hv, float u, float vv, float Hx,
-    float Hy, const float* ctrl, const float2* bc, int n_ctrl, float& r2,
-    float& r3) {
-  if (o.has_bathy) {
-    r2 += o.g * h * Hx;
-    r3 += o.g * h * Hy;
-  }
-  if (o.cd != 0.0f) {
-    const float nrm = safe_norm(u, vv);
-    r2 -= o.cd * nrm * u;
-    r3 -= o.cd * nrm * vv;
-  }
-  if (o.fcor != 0.0f) {
-    r2 += o.fcor * hv;
-    r3 -= o.fcor * hu;
-  }
-  if (ctrl != nullptr) {
-    for (int c = 0; c < n_ctrl; ++c) {
-      r2 += ctrl[c] * bc[c].x;
-      r3 += ctrl[c] * bc[c].y;
-    }
-  }
-}
-
-// volume_vjp_point with the node's bed slopes given, dividing with the fast
-// reciprocal and reciprocal square root (2 ulp): it decides no tie.
+// (w2, w3, for the sources) to the cotangent of (h, hu, hv), given the
+// node's bed slopes (Hx, Hy). F1=hu, F2=hu^2/h+p, F3=G2=hu*hv/h, G1=hv,
+// G3=hv^2/h+p, p=g/2 h^2. Divides with the fast reciprocal and reciprocal
+// square root (2 ulp): it decides no tie.
 __device__ __forceinline__ void volume_vjp_fast(
     const Ops& o, float Hx, float Hy, float h, float hu, float hv, float Fb1,
     float Fb2, float Fb3, float Gb1, float Gb2, float Gb3, float w2, float w3,
@@ -513,10 +368,14 @@ __device__ __forceinline__ void volume_vjp_fast(
   }
 }
 
-// face_vjp_point with fast reciprocals and reciprocal square roots (2 ulp)
-// in the chain rule. The tie rules it applies compare the speeds in tv,
-// which the caller computed exactly, so nothing here decides a tie.
-// hsg: 0.5 sqrt(g).
+// Trace node: the whole chain rule of the face flux. d1..d3: cotangents of
+// the (unscaled) flux jumps; lam: the face speed; sb: this node's share of
+// the face speed's cotangent (the face's summed cotangent, split evenly
+// over the nodes that attain the face maximum). Out: cotangents of the '-'
+// traces (h, hu, hv) and of the '+' traces. Fast reciprocals and
+// reciprocal square roots (2 ulp) in the chain rule; the tie rules it
+// applies compare the speeds in tv, which the caller computed exactly, so
+// nothing here decides a tie. hsg: 0.5 sqrt(g).
 __device__ __forceinline__ void face_vjp_fast(
     const Ops& o, const TraceVals& tv, float lam, float sb, float d1,
     float d2, float d3, float hsg, float* tM, float* tP) {
@@ -589,6 +448,41 @@ __device__ __forceinline__ void face_vjp_fast(
   tP[0] = hPb; tP[1] = huPb; tP[2] = hvPb;
 }
 
+// ---------------------------------------------------------------------------
+// The same formulas for kernels that hold one element of one scenario in a
+// thread (sw2d_dense.cu): the node's geometry comes in as values, read once
+// from the kernel's own tables, instead of through Ops by node index.
+// ---------------------------------------------------------------------------
+
+// add_sources of a node with its bed slopes (Hx, Hy), its control injectors
+// bc[c] = (BU, BV) of control c, and its velocities u = hu / h, vv = hv / h
+// (flat and well-balanced regimes; the dense kernels have no wet/dry
+// branch). ctrl: n_ctrl values, or null.
+__device__ __forceinline__ void add_sources_at(
+    const Ops& o, float h, float hu, float hv, float u, float vv, float Hx,
+    float Hy, const float* ctrl, const float2* bc, int n_ctrl, float& r2,
+    float& r3) {
+  if (o.has_bathy) {
+    r2 += o.g * h * Hx;
+    r3 += o.g * h * Hy;
+  }
+  if (o.cd != 0.0f) {
+    const float nrm = safe_norm(u, vv);
+    r2 -= o.cd * nrm * u;
+    r3 -= o.cd * nrm * vv;
+  }
+  if (o.fcor != 0.0f) {
+    r2 += o.fcor * hv;
+    r3 -= o.fcor * hu;
+  }
+  if (ctrl != nullptr) {
+    for (int c = 0; c < n_ctrl; ++c) {
+      r2 += ctrl[c] * bc[c].x;
+      r3 += ctrl[c] * bc[c].y;
+    }
+  }
+}
+
 struct Vec3 { float *a, *b, *c; };
 
 __device__ __forceinline__ Vec3 carve(float*& p, int n) {
@@ -603,21 +497,6 @@ static int prepare(Kern kern, size_t bytes) {
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
-}
-
-// Sum over the block, the same on every run; every thread must call it.
-__device__ float block_sum(float x, float* red) {
-  for (int d = 16; d > 0; d >>= 1) x += __shfl_down_sync(0xffffffffu, x, d);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float tot = 0.0f;
-  if (threadIdx.x == 0) {
-    const int nw = (blockDim.x + 31) >> 5;
-    for (int w = 0; w < nw; ++w) tot += red[w];
-  }
-  __syncthreads();
-  return tot;  // valid in thread 0
 }
 
 static int g_last_grid = 0;

@@ -11,9 +11,11 @@ path's stage kernels ``sw2d_stage_blocked`` (lean-I/O mode only) and
 ``parallel/blocked_shard.py`` builds and drives). The dense kernels
 (``sw2d_fused.py``) hold one scenario's whole mesh in one block, a
 thread an element, which ends at a few hundred elements. Here the mesh is split over blocks
-(work unit: scenario x chunk of elements), neighbours are read from global
-memory, and grid-wide barriers separate the RK stages inside one persistent
-cooperative launch (``csrc/sw2d_blocked.cu``).
+and neighbours are read from global memory (``csrc/sw2d_blocked.cu``): the
+forward step and rollout take chunks of elements a block, grid-wide
+barriers separating the RK stages inside one persistent cooperative launch;
+the sharded kernels and both adjoints take a few lanes of a warp an
+element, on one stage (``qstage``) and its adjoint (``qvjp``).
 
 Physics: everything ``sw2d_fused.py`` covers (wall reflection, tidal BC_OUT
 depth at the stage time, well-balanced star fluxes over bathymetry, bed
@@ -59,11 +61,12 @@ from .sw2d_fused import (MAX_SMEM_BYTES, FusedStepMeta, FusedStepOps, _SwDesc,
                          _eval_rhs_vjp_plain, _launch_check, _launch_stream,
                          _np64, _operator_arrays, _ops_from_arrays)
 
-# Threads of one block. The kernels loop over nodes with this stride, so any
-# multiple of 32 is valid.
+# Threads of one block of the forward step and rollout. They loop over nodes
+# with this stride, so any multiple of 32 is valid. (The q kernels plan
+# their own block size: ``shard_plan``.)
 THREADS = 256
-# Kernel launches on the device per call of a wrapper: one persistent
-# cooperative launch each, the stages separated by grid barriers inside it.
+# Kernel launches on the device per call of a wrapper: one each (the
+# stages, where there are several, separated by grid barriers inside it).
 DEVICE_LAUNCHES_PER_CALL = 1
 
 # The blocked path's switches (has_sponge, wetdry, h_floor) are fields of
@@ -137,7 +140,7 @@ def build_blocked_step_ops(
                    wetdry=bool(wetdry), h_floor=float(h_floor))
     meta = BlockedMeta(**meta_kw)
     return _ops_from_arrays(arr, meta, dtype, device, cls=BlockedOps,
-                            extra=("H", "SPNG")), meta
+                            extra=("H", "SPNG"), mirror=True), meta
 
 
 # ---------------------------------------------------------------------------
@@ -362,8 +365,6 @@ def _lib():
     D = ctypes.POINTER(_SwDesc)
     lib.sw2d_blocked_smem_bytes.argtypes = [D, I]
     lib.sw2d_blocked_smem_bytes.restype = ctypes.c_longlong
-    lib.sw2d_blocked_bwd_work_floats.argtypes = [D, I, I, I]
-    lib.sw2d_blocked_bwd_work_floats.restype = ctypes.c_longlong
     lib.sw2d_blocked_last_grid.argtypes = []
     lib.sw2d_blocked_last_grid.restype = I
     lib.sw2d_blocked_barrier_probe.argtypes = [I, I, I, P]
@@ -372,15 +373,13 @@ def _lib():
     lib.sw2d_blocked_rollout.argtypes = (
         [D, P, P] + [P] * 11 + [I, I, I, I, F, F, I, I, I, P])
     lib.sw2d_blocked_rollout_bwd.argtypes = (
-        [D, P, P] + [P] * 12 + [I, I, I, F, F, I, I, I, P])
+        [D, P, P] + [P] * 12 + [I, I, I, F, F, I, P, P])
     L = ctypes.c_longlong
     lib.sw2d_shard_plan.argtypes = [D, I, I, I, L, L, P]
     lib.sw2d_stage.argtypes = ([D, P, P, L, L, I, I] + [P] * 12
                                + [F, F, I, I, P, P])
-    lib.sw2d_stage_bwd_work_floats.argtypes = [D, I, I, I]
-    lib.sw2d_stage_bwd_work_floats.restype = L
-    lib.sw2d_stage_bwd.argtypes = ([D, P, P, L, L, I, I] + [P] * 17
-                                   + [F, F, I, I, I, I, P])
+    lib.sw2d_stage_bwd.argtypes = ([D, P, P, L, L, I, I] + [P] * 18
+                                   + [F, F, I, I, P, P])
     lib.sw2d_step_rdma.argtypes = ([D, P, P, L, L, I, I] + [P] * 12
                                    + [F, F, F, I, I, P, P])
     for fn in (lib.sw2d_blocked_step, lib.sw2d_blocked_rollout,
@@ -424,23 +423,31 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-# The sharded kernels' launch plans by shape (descriptor, S, B, kernel, row
+# The q kernels' launch plans by shape (descriptor, S, B, kernel, row
 # lengths of the packed buffers): made once a shape (block size, grid and
 # shared memory from the occupancy the device reports), so that a launch
 # issues nothing but the launch and can be captured into a CUDA graph.
-_STAGE, _RDMA = 0, 1
+# The kernels, as the launcher numbers them: the sharded stage (B7), the
+# one-launch step (B9), the sharded stage's adjoint (B8), the blocked
+# rollout's adjoint (B6).
+_STAGE, _RDMA, _STAGE_BWD, _ROLLOUT_BWD = 0, 1, 2, 3
 _plans: dict = {}
 # The room of the kernels' run-time-size arrays (QMAX_NP in the source): N=6.
 SHARD_MAX_NP = 28
 
 
-def _shard_plan(lib, desc, ops: ShardOps, B: int, which: int):
+def _shard_plan(lib, desc, ops: BlockedOps, B: int, which: int):
+    """The plan of kernel ``which`` over ``ops``'s shards (one shard for a
+    ``BlockedOps`` set) at ``B`` scenarios."""
     if desc.Nfaces != 3 or desc.Np > SHARD_MAX_NP:
         raise ValueError(
-            "the sharded stage kernels take triangles of order N <= 6 (at "
-            f"most {SHARD_MAX_NP} nodes an element); this set has "
-            f"{desc.Np} nodes, {desc.Nfaces} faces")
-    S, fs, is_ = ops.send.shape[0], ops.fbuf.shape[1], ops.ibuf.shape[1]
+            "the sharded stage kernels and the blocked adjoint take "
+            f"triangles of order N <= 6 (at most {SHARD_MAX_NP} nodes an "
+            f"element); this set has {desc.Np} nodes, {desc.Nfaces} faces")
+    if isinstance(ops, ShardOps):
+        S, fs, is_ = ops.send.shape[0], ops.fbuf.shape[1], ops.ibuf.shape[1]
+    else:
+        S, fs, is_ = 1, ops.fbuf.shape[0], ops.ibuf.shape[0]
     key = (bytes(desc), S, B, which, fs, is_)
     plan = _plans.get(key)
     if plan is None:
@@ -451,16 +458,27 @@ def _shard_plan(lib, desc, ops: ShardOps, B: int, which: int):
     return plan
 
 
-def shard_plan(ops: ShardOps, meta: BlockedMeta, batch: int,
-               step: bool = False) -> dict:
-    """The launch plan of the sharded stage kernel (or, with ``step``, of the
-    one-launch step kernel) over ``ops``'s shards at ``batch`` scenarios:
-    threads a block, blocks, bytes of shared memory a block, lanes an
-    element (needs the card)."""
-    lib, desc, _ = _check_kernel_inputs(ops, meta, ops.fbuf)
-    plan = _shard_plan(lib, desc, ops, batch, _RDMA if step else _STAGE)
+def _plan_dict(plan) -> dict:
     return dict(zip(("threads", "grid", "smem_bytes", "lanes_per_element"),
                     plan))
+
+
+def shard_plan(ops: ShardOps, meta: BlockedMeta, batch: int,
+               step: bool = False, adjoint: bool = False) -> dict:
+    """The launch plan of the sharded stage kernel (with ``step``, of the
+    one-launch step kernel; with ``adjoint``, of the stage's adjoint) over
+    ``ops``'s shards at ``batch`` scenarios: threads a block, blocks, bytes
+    of shared memory a block, lanes an element (needs the card)."""
+    lib, desc, _ = _check_kernel_inputs(ops, meta, ops.fbuf)
+    which = _RDMA if step else _STAGE_BWD if adjoint else _STAGE
+    return _plan_dict(_shard_plan(lib, desc, ops, batch, which))
+
+
+def rollout_bwd_plan(ops: BlockedOps, meta: BlockedMeta, batch: int) -> dict:
+    """The launch plan of ``sw2d_rollout_bwd_blocked``'s kernel at ``batch``
+    scenarios, as ``shard_plan`` gives it (needs the card)."""
+    lib, desc, _ = _check_kernel_inputs(ops, meta, ops.fbuf)
+    return _plan_dict(_shard_plan(lib, desc, ops, batch, _ROLLOUT_BWD))
 
 
 def last_grid() -> int:
@@ -587,9 +605,13 @@ def sw2d_rollout_bwd_blocked(ops: BlockedOps, meta: BlockedMeta,
     whose pullback comes from ``jax.vjp`` traced in the kernel; here it is
     the hand-derived adjoint of ``sw2d_fused.py``. Bound by operations (one
     RHS recompute and two adjoint applications per step against one read of
-    trajectory and cotangent). The transposed '+' gather crosses blocks, so
-    each adjoint application runs in two phases around a grid barrier (three
-    barriers per step); sums are taken in a fixed order, no atomics.
+    trajectory and cotangent). One cooperative launch, the block size
+    planned once a shape (``rollout_bwd_plan``), two grid barriers a step:
+    the recompute runs on the sharded stage's code (``qstage``, four lanes
+    an element at N=3) and both products on its adjoint (``qvjp``), each
+    lane completing its own nodes (the neighbours' side of each face
+    recomputed, no scatter); sums are taken in a fixed order, no atomics.
+    Takes N <= 6 and raises above.
     """
     _refuse_wetdry_adjoint(meta)
     B, n1, _ = traj_h.shape
@@ -606,21 +628,35 @@ def sw2d_rollout_bwd_blocked(ops: BlockedOps, meta: BlockedMeta,
         return sw2d_rollout_bwd_blocked_plain(
             ops, meta, traj_h, traj_hu, traj_hv, tb_h, tb_hu, tb_hv, ctrls,
             dt, spc, t0, use_filter)
-    lib, desc, E = _check_kernel_inputs(ops, meta, traj_h)
-    new = lambda *shape: torch.empty(shape, dtype=traj_h.dtype,
-                                     device=traj_h.device)
+    out = _run_rollout_bwd(ops, meta, (traj_h, traj_hu, traj_hv),
+                           (tb_h, tb_hu, tb_hv), ctrls, dt, spc, t0,
+                           use_filter)
+    sw2d_rollout_bwd_blocked.launches += 1
+    return out
+
+
+def _run_rollout_bwd(ops: BlockedOps, meta: BlockedMeta, traj, tb, ctrls, dt,
+                     spc, t0, use_filter):
+    """The rollout adjoint kernel's launch (the shapes checked by the
+    caller)."""
+    lib, desc, _ = _check_kernel_inputs(ops, meta, traj[0])
+    B, n_cs = ctrls.shape[:2]
+    plan = _shard_plan(lib, desc, ops, B, _ROLLOUT_BWD)
+    new = lambda *shape: torch.empty(shape, dtype=traj[0].dtype,
+                                     device=traj[0].device)
     xb = [new(B, meta.n_v) for _ in range(3)]
     cb = torch.empty_like(ctrls)
-    work = new(lib.sw2d_blocked_bwd_work_floats(ctypes.byref(desc), B, n_cs, E))
+    # s_half, W and a, (3, B, nV) each; the elements' control shares; the
+    # tidal depths of the stage times
+    work = new(9 * B * meta.n_v + B * n_cs * meta.k_elem * meta.n_ctrl
+               + 2 * n_cs * spc)
     err = lib.sw2d_blocked_rollout_bwd(
         ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
-        traj_h.data_ptr(), traj_hu.data_ptr(), traj_hv.data_ptr(),
-        tb_h.data_ptr(), tb_hu.data_ptr(), tb_hv.data_ptr(), ctrls.data_ptr(),
-        xb[0].data_ptr(), xb[1].data_ptr(), xb[2].data_ptr(), cb.data_ptr(),
+        *(f.data_ptr() for f in traj), *(f.data_ptr() for f in tb),
+        ctrls.data_ptr(), *(f.data_ptr() for f in xb), cb.data_ptr(),
         work.data_ptr(), B, n_cs, int(spc), float(dt), float(t0),
-        int(use_filter), E, THREADS, _stream(traj_h))
+        int(use_filter), plan, _launch_stream(traj[0]))
     _launch_check(err, "sw2d_rollout_bwd_blocked")
-    sw2d_rollout_bwd_blocked.launches += 1
     return xb[0], xb[1], xb[2], cb
 
 
@@ -749,8 +785,13 @@ def sw2d_stage_bwd_blocked_v2(ops: ShardOps, meta: BlockedMeta, cur, rb,
     whose RHS pullback is ``jax.vjp`` traced in the kernel; here it is the
     hand adjoint of ``sw2d_fused.py`` with the receive buffer as a further
     gather source. Bound by bytes (the states and cotangents read and
-    written outweigh one RHS adjoint per node). One cooperative launch with one grid barrier (the transposed '+' gather
-    crosses blocks); no atomics, the same bits on a rerun.
+    written outweigh one RHS adjoint per node). One ordinary launch on the
+    stage's adjoint (``qvjp``: four lanes an element at N=3, sixteen at
+    small batches, where an element's chain sets the time; each lane
+    completing its own nodes, the neighbours' side of each face recomputed,
+    no scatter and no grid barrier), the block size planned once a shape
+    (``shard_plan(..., adjoint=True)``), the control sums' scratch made
+    once a shape; no atomics on data, the same bits on a rerun.
     """
     _refuse_wetdry_stage_adjoint(meta)
     S, B, L = _check_stage(ops, meta, {
@@ -762,26 +803,51 @@ def sw2d_stage_bwd_blocked_v2(ops: ShardOps, meta: BlockedMeta, cur, rb,
         return sw2d_stage_bwd_blocked_v2_plain(ops, meta, cur, rb, lam_out,
                                                lam_sb, c_dt, t, ctrl,
                                                use_filter, apply_sponge)
-    lib, desc, E = _check_kernel_inputs(ops, meta, rb)
+    out = _run_stage_bwd(ops, meta, cur, rb, lam_out, lam_sb, c_dt, t, ctrl,
+                         use_filter, apply_sponge)
+    sw2d_stage_bwd_blocked_v2.launches += 1
+    return out
+
+
+# The stage adjoint's scratch by plan (device, S, B, K, n_ctrl, items a
+# block): the blocks' sums of their items' control shares and the counters
+# of the blocks done with each shard and scenario (0 between launches),
+# made once, which every launch on the stream reuses; a CUDA graph that
+# captures a launch reads them (this dictionary keeps them).
+_stage_bwd_scratch: dict = {}
+
+
+def _run_stage_bwd(ops: ShardOps, meta: BlockedMeta, cur, rb, lam_out,
+                   lam_sb, c_dt, t, ctrl, use_filter, apply_sponge):
+    """The stage adjoint kernel's launch (the shapes checked by the
+    caller)."""
+    lib, desc, _ = _check_kernel_inputs(ops, meta, rb)
+    S, B = rb.shape[:2]
+    plan = _shard_plan(lib, desc, ops, B, _STAGE_BWD)
     new = lambda: torch.empty_like(cur[0])
     bb, cb = [new() for _ in range(3)], [new() for _ in range(3)]
     rbb = torch.empty_like(rb)
-    ctl = (None if ctrl is None else
-           torch.empty((S, B, meta.n_ctrl), dtype=rb.dtype, device=rb.device))
-    work = torch.empty(lib.sw2d_stage_bwd_work_floats(ctypes.byref(desc), S, B,
-                                                       E),
-                       dtype=rb.dtype, device=rb.device)
+    ctl = cpart = done = None
+    if ctrl is not None:
+        ctl = rb.new_empty((S, B, meta.n_ctrl))
+        ipb = plan[0] // plan[3]
+        key = (rb.device, S, B, meta.k_elem, meta.n_ctrl, ipb)
+        if key not in _stage_bwd_scratch:
+            segments = -(-meta.k_elem // ipb) + 1
+            _stage_bwd_scratch[key] = (
+                rb.new_empty(S * B * segments * meta.n_ctrl),
+                torch.zeros(S * B, dtype=torch.int32, device=rb.device))
+        cpart, done = _stage_bwd_scratch[key]
     err = lib.sw2d_stage_bwd(
         ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
         ops.fbuf.shape[1], ops.ibuf.shape[1], S, B,
         *(f.data_ptr() for f in cur), rb.data_ptr(),
         *(f.data_ptr() for f in lam_out), lam_sb.data_ptr(),
         *(f.data_ptr() for f in bb), *(f.data_ptr() for f in cb),
-        rbb.data_ptr(), _ptr(ctl), work.data_ptr(), float(c_dt), float(t),
-        int(use_filter), int(apply_sponge and meta.has_sponge), E, THREADS,
-        _stream(rb))
+        rbb.data_ptr(), _ptr(ctl), _ptr(cpart), _ptr(done), float(c_dt),
+        float(t), int(use_filter), int(apply_sponge and meta.has_sponge),
+        plan, _launch_stream(rb))
     _launch_check(err, "sw2d_stage_bwd_blocked_v2")
-    sw2d_stage_bwd_blocked_v2.launches += 1
     return (*bb, *cb, rbb, ctl)
 
 

@@ -139,13 +139,42 @@ def _inverse_map(vmap: np.ndarray, n_v: int) -> tuple[np.ndarray, np.ndarray]:
     return ptr.astype(np.int32), order.astype(np.int32)
 
 
-def _pack_buffers(arr: dict, n_v: int, extra: tuple = (),
-                  n_recv: int = 0) -> tuple[np.ndarray, np.ndarray]:
+def _mirror_map(vmapM: np.ndarray, vmapP: np.ndarray,
+                n_v: int) -> np.ndarray:
+    """The trace node j that reads trace node i's '-' node as its '+' node
+    and i's '+' node as its '-' node: the other side of i's face, as that
+    face's other element sees it; i itself on a boundary face (vmapP = vmapM
+    there); -1 where vmapP points past the ``n_v`` nodes (a receive slot of
+    a shard). The blocked adjoint recomputes the other side's flux through
+    it instead of scattering. Raises where a '+' node has no such trace
+    node (a non-conforming mesh)."""
+    vm, vp = vmapM.astype(np.int64), vmapP.astype(np.int64)
+    span = int(max(vm.max(), vp.max())) + 1
+    key = vm * span + vp
+    order = np.argsort(key, kind="stable")
+    want = vp * span + vm
+    pos = np.minimum(np.searchsorted(key[order], want), key.size - 1)
+    found = key[order][pos] == want
+    mirror = np.where(found, order[pos], -1)
+    boundary, cut = vp == vm, vp >= n_v
+    mirror[boundary] = np.flatnonzero(boundary)
+    mirror[cut] = -1
+    if not found[~cut].all():
+        raise ValueError("a '+' trace node has no trace node that reads it "
+                         "back: the blocked adjoint needs a conforming mesh")
+    return mirror
+
+
+def _pack_buffers(arr: dict, n_v: int, extra: tuple = (), n_recv: int = 0,
+                  mirror: bool = False) -> tuple[np.ndarray, np.ndarray]:
     """``extra``: names of further float fields appended after ``BV``.
     ``n_recv``: receive slots of one shard of a sharded set, which ``vmapP``
     numbers after the ``n_v`` local nodes; such a set also carries its send
     list ``arr["send"]`` (local node of each send slot, -1 for an empty
-    slot), packed with its inverse after the maps."""
+    slot), packed with its inverse after the maps. ``mirror``: append
+    ``_mirror_map`` (the blocked sets), after checking that each receive
+    slot is read by at most one trace node (its cotangent has one
+    writer)."""
     forder = ("Dr", "Ds", "lift", "filt", "rx", "sx", "ry", "sy", "nx", "ny",
               "fscale", "wall", "obc", "HMt", "HPt", "Hx", "Hy", "BU", "BV",
               *extra)
@@ -162,16 +191,23 @@ def _pack_buffers(arr: dict, n_v: int, extra: tuple = (),
         # padded to the slot count, so that every shard's buffer has one size
         sidx = np.concatenate([slots[sidx], np.zeros(send.size - slots.size)])
         parts += [send.astype(np.int32), sptr, sidx.astype(np.int32)]
+    if mirror:
+        if n_recv and (pptr[n_v + 1:] - pptr[n_v:-1]).max(initial=0) > 1:
+            raise ValueError("a receive slot is read by more than one trace "
+                             "node")
+        parts.append(_mirror_map(arr["vmapM"], arr["vmapP"], n_v)
+                     .astype(np.int32))
     return fbuf, np.concatenate(parts)
 
 
 def _ops_from_arrays(arr: dict, meta: FusedStepMeta, dtype: torch.dtype,
-                     device, cls=None, extra: tuple = (), n_recv: int = 0):
+                     device, cls=None, extra: tuple = (), n_recv: int = 0,
+                     mirror: bool = False):
     """``arr``: numpy float64/int/bool arrays keyed by field name. ``cls``:
     ``FusedStepOps`` or a dataclass that extends it by the ``extra`` float
     fields (and, for a shard of a sharded set, the send list)."""
     cls = FusedStepOps if cls is None else cls
-    fbuf, ibuf = _pack_buffers(arr, meta.n_v, extra, n_recv)
+    fbuf, ibuf = _pack_buffers(arr, meta.n_v, extra, n_recv, mirror)
     fields = {}
     for f in dataclasses.fields(cls):
         if f.name in ("fbuf", "ibuf"):

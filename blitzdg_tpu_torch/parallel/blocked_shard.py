@@ -143,7 +143,8 @@ def build_sharded_blocked(
                 send[j0:j0 + n_fp] = kl * n_p + fmask[f]
         a["send"] = send
         sets.append(_ops_from_arrays(a, meta, dtype, device, cls=ShardOps,
-                                     extra=("H", "SPNG"), n_recv=L))
+                                     extra=("H", "SPNG"), n_recv=L,
+                                     mirror=True))
     ops = ShardOps(**{f.name: torch.stack([getattr(o, f.name) for o in sets])
                       for f in dataclasses.fields(ShardOps)})
     return ShardedBlocked(ops=ops, meta=meta, plan=plan, n_shards=n_shards,

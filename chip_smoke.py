@@ -14,9 +14,9 @@ in order (any failure is an exception and a non-zero exit):
     prints what ptxas reports (registers, stack, spills) of the curved,
     dense and sharded kernels and their static SASS mix (a library built by
     an earlier run keeps its report beside it); it fails at the end of the
-    run if any instantiation of a curved rollout kernel, a dense kernel or
-    the sharded stage and one-launch step kernels (of the paths run) spills
-    or has no report;
+    run if any instantiation of a curved rollout kernel, a dense kernel,
+    the blocked rollout's adjoint or the sharded stage, its adjoint and the
+    one-launch step kernel (of the paths run) spills or has no report;
  3. DENSE path (small meshes, one thread per element and scenario). Holds
     each kernel (``sw2d_step_fused``, ``sw2d_rollout_fused``,
     ``sw2d_rollout_bwd_fused``) against its plain PyTorch version on the
@@ -71,7 +71,8 @@ in order (any failure is an exception and a non-zero exit):
     Coriolis, tidal open boundary, sponge, t0=1), forward only on a wet/dry
     beach and at N=6 (the highest order they take), and at the two shapes
     of the main path: full width at B=1 and the example's size (K=128, N=1,
-    S=8, B=1); it holds the one-launch step kernel
+    S=8, B=1), where it times the adjoint too; it holds the one-launch step
+    kernel
     ``sw2d_step_rdma_blocked`` against its plain version (reruns it for the
     same bits, and holds it bit-equal to two stage launches with the
     exchange between) at K=2048, N=3 with controls at S=4 and S=1, each at
@@ -697,7 +698,8 @@ def check_blocked_case(TB, name, ops, meta, h, hu, hv, ctrls, dt, spc,
                      and worst <= bwd_rtol[1],
                      max_rel_err=worst, p99_rel_err=p99,
                      entries_above_bulk_tol=int((per > BWD_RTOL_BULK).sum()),
-                     entries=per.numel(), same_bits_on_rerun=same)
+                     entries=per.numel(), same_bits_on_rerun=same,
+                     plan=TB.rollout_bwd_plan(ops, meta, B))
         if timed:
             rec["ms"] = time_ms(lambda: bwd(TB.sw2d_rollout_bwd_blocked), 9,
                                 flush)
@@ -1497,12 +1499,14 @@ def curved_phases(dev, card: str, rng, flush) -> list:
 
 def check_sharded_case(TB, BS, name, sb, state, ctrl, dt, t, sponge, flush,
                        rng, adjoint: bool = True, timed: bool = False,
-                       tol: float = BLK_FWD_ATOL):
+                       tol: float = BLK_FWD_ATOL, time_adjoint: bool = False):
     """Hold the two stage kernels against their plain versions on one case:
     stage 1 (base = cur, dt/2, no sponge) and stage 2 (base != cur, dt, the
     sponge if ``sponge``) with the receive buffers the ring exchange makes
     of the state's send buffer; the adjoint of stage 2 under random
-    cotangents, rerun for the same bits. Returns the records by kernel."""
+    cotangents, rerun for the same bits. Returns the records by kernel;
+    ``timed`` times every kernel and its plain version, ``time_adjoint``
+    the adjoint kernel alone."""
     from blitzdg_tpu_torch.parallel.halo import RingExchange
 
     ops, meta = sb.ops, sb.meta
@@ -1562,16 +1566,20 @@ def check_sharded_case(TB, BS, name, sb, state, ctrl, dt, t, sponge, flush,
                      and worst <= BWD_RTOL_MAX,
                      max_rel_err=worst, p99_rel_err=p99,
                      entries_above_bulk_tol=int((per > BWD_RTOL_BULK).sum()),
-                     entries=per.numel(), same_bits_on_rerun=same)
-        if timed:
+                     entries=per.numel(), same_bits_on_rerun=same,
+                     plan=TB.shard_plan(ops, meta, B, adjoint=True))
+        if timed or time_adjoint:
             rec["ms"] = time_ms(lambda: bwd(TB.sw2d_stage_bwd_blocked_v2), 9,
                                 flush)
-            rec["plain_ms"] = time_ms(
-                lambda: bwd(TB.sw2d_stage_bwd_blocked_v2_plain), 2, flush)
             rec["bound_ms"], rec["bound_by"] = bound(
                 4.0 * (12 * S * B * meta.n_v + 9 * S * B * L
                        + S * B * meta.n_ctrl),
                 S * B * vjp_flops(meta, n_wall))
+            rec["shape"] = {"S": S, "B": B, "k_loc": meta.k_elem,
+                            "n_p": meta.n_p}
+        if timed:
+            rec["plain_ms"] = time_ms(
+                lambda: bwd(TB.sw2d_stage_bwd_blocked_v2_plain), 2, flush)
     for r in out.values():
         say(r)
         if not r["ok"]:
@@ -1719,8 +1727,8 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
     # example's size (N=1, two nodes a face, 8 shards: six ring offsets and
     # flipped cut faces)
     st, ctrl = shard_state(full.ctx, sbx.H_REST, 1, 2)
-    check("sharded_K2048_N3_S4_B1", full.sb, st, ctrl, full.dt, 0.0, False,
-          flush, rng)
+    at_path = [check("sharded_K2048_N3_S4_B1", full.sb, st, ctrl, full.dt,
+                     0.0, False, flush, rng, time_adjoint=True)]
     check_rdma("rdma_K2048_N3_S4_B1", full.sb, st, ctrl, full.dt, 0.0)
     st1, ctrl = shard_state(full.ctx, sbx.H_REST, 1, 2, 1)
     check_rdma("rdma_K2048_N3_S1_B1", one, st1, ctrl, full.dt, 0.0)
@@ -1734,8 +1742,14 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
                            f"({plan.offs}) or no flipped cut face")
     st, ctrl = shard_state(example.ctx, sbx.H_REST, 1, 2,
                            example.sb.n_shards)
-    check("sharded_example_K128_N1_S8_B1", example.sb, st, ctrl, example.dt,
-          0.0, False, flush, rng)
+    at_path.append(check("sharded_example_K128_N1_S8_B1", example.sb, st,
+                         ctrl, example.dt, 0.0, False, flush, rng,
+                         time_adjoint=True))
+    # the adjoint's times at the shapes of the main path, in its record
+    at_path = [{k: r["sw2d_stage_bwd_blocked_v2"][k]
+                for k in ("case", "shape", "ms", "bound_ms", "bound_by",
+                          "plan")} for r in at_path]
+    head["sw2d_stage_bwd_blocked_v2"]["at_path_shapes"] = at_path
     check_rdma("rdma_example_K128_N1_S8_B1", example.sb, st, ctrl,
                example.dt, 0.0)
 
@@ -1773,10 +1787,10 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
     del csb, cc
 
     # N=6, the highest order the sharded kernels take (the run-time sizes,
-    # one lane an element), forward only, at the blocked path's N=6
-    # tolerance; at 32 scenarios the items would fill blocks of 256 threads,
-    # whose shared memory (241 KB) is more than a block may have: the
-    # launcher takes 128
+    # one lane an element), at the blocked path's N=6 tolerance (the
+    # adjoint: the run-time-size instance on the card); at 32 scenarios the
+    # items would fill blocks of 256 threads, whose shared memory (241 KB)
+    # is more than a block may have: the launcher takes 128
     c6 = build_triangle_context(6, partition_mesh(box_triangles(*sbx.CELLS),
                                                   S)[0], dtype=f32,
                                 device=dev, filter_cutoff=0.9 * 6,
@@ -1787,7 +1801,7 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
     st, ctrl = shard_state(c6, sbx.H_REST, 32, 2)
     dt6 = cfl_dt(c6, 9.81, 11.0)
     check("sharded_K2048_N6_S4_B32", sb6, st, ctrl, dt6, 0.0, False, flush,
-          rng, adjoint=False, tol=BLK_FWD_ATOL_N6)
+          rng, tol=BLK_FWD_ATOL_N6)
     rec = check_rdma("rdma_K2048_N6_S4_B32", sb6, st, ctrl, dt6, 0.0,
                      tol=BLK_FWD_ATOL_N6)
     if rec["plan"]["threads"] != 128:
@@ -2013,6 +2027,7 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
     sol_ex = sbx.solve_sharded_mpc(example)
     torch.cuda.synchronize()
     ex_s = time.perf_counter() - t0
+    launches_example = counts()
     t0 = time.perf_counter()
     sol = sbx.solve_sharded_mpc(full)
     torch.cuda.synchronize()
@@ -2064,9 +2079,17 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
                   "seconds_per_solve": full_s,
                   "grad_vs_blocked_rel_err": grad_err,
                   "grad_tol": SHD_GRAD_RTOL},
-         "launches": launches, "expected_launches": expect})
+         "launches": launches, "expected_launches": expect,
+         "launches_example_solve": launches_example})
     if not path_ok:
         raise RuntimeError("sharded path failed its checks")
+    # the adjoint's launches at each shape of the path: the full-width
+    # solve's and the example's
+    bwd = "sw2d_stage_bwd_blocked_v2"
+    at_path[0]["launches"] = launches[bwd] - launches_example[bwd]
+    at_path[1]["launches"] = launches_example[bwd]
+    say({"phase": "sharded_adjoint_at_path_shapes", "card": card,
+         "records": at_path})
 
     profile_solve("sharded_profile", card, lambda: sbx.solve_sharded_mpc(full),
                   full_s)
@@ -2116,7 +2139,9 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
              "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
              "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
              "bound_by": rec["bound_by"], "library_ms": None,
-             "device_launches_per_call": TB.DEVICE_LAUNCHES_PER_CALL}
+             "device_launches_per_call": TB.DEVICE_LAUNCHES_PER_CALL,
+             **({"at_path_shapes": rec["at_path_shapes"]}
+                if "at_path_shapes" in rec else {})}
             for name, rec in head.items()]
 
 
@@ -2185,12 +2210,22 @@ DENSE_KERNELS = [
     for z in ("I6DSizesILi3ELi2ELi2EEE", "I6DSizesILi0ELi0ELi0EEE")]
 
 
-# The sharded stage kernel and the one-launch step in their three
-# instantiations: N=3 with two controls, N=3 with others, the run-time sizes.
+# The q kernels in their three instantiations: N=3 with two controls, N=3
+# with others, the run-time sizes. The sharded path's: the stage kernel,
+# its adjoint (and its wide instantiations: two at N=3, 16 lanes an
+# element, one at N=1 with two controls, 8) and the one-launch step; the blocked path's: the rollout's
+# adjoint.
+Q_SIZES = ("I6QSizesILi10ELi4ELi2ELi4EEE", "I6QSizesILi10ELi4ELin1ELi4EEE",
+           "I6QSizesILi0ELi0ELin1ELi1EEE")
 SHARDED_KERNELS = [
-    k + z for k in ("_Z17sw2d_stage_kernel", "_Z21sw2d_step_rdma_kernel")
-    for z in ("I6QSizesILi10ELi4ELi2ELi4EEE", "I6QSizesILi10ELi4ELin1ELi4EEE",
-              "I6QSizesILi0ELi0ELin1ELi1EEE")]
+    k + z for k in ("_Z17sw2d_stage_kernel", "_Z21sw2d_stage_bwd_kernel",
+                    "_Z21sw2d_step_rdma_kernel")
+    for z in Q_SIZES] + [
+    "_Z21sw2d_stage_bwd_kernel" + z
+    for z in ("I6QSizesILi10ELi4ELi2ELi16EEE",
+              "I6QSizesILi10ELi4ELin1ELi16EEE", "I6QSizesILi3ELi2ELi2ELi8EEE")]
+BLOCKED_ADJOINT_KERNELS = ["_Z31sw2d_blocked_rollout_bwd_kernel" + z
+                           for z in Q_SIZES]
 
 
 def check_no_spills(report: dict, kernels: list):
@@ -2266,6 +2301,8 @@ def main() -> int:
         check_no_spills(curved, CURVED_ROLLOUT_KERNELS)
     if args.only in (None, "dense"):
         check_no_spills(dense, DENSE_KERNELS)
+    if args.only in (None, "blocked"):
+        check_no_spills(blocked, BLOCKED_ADJOINT_KERNELS)
     if args.only in (None, "sharded"):
         check_no_spills(blocked, SHARDED_KERNELS)
     say({"kernels": kernels})

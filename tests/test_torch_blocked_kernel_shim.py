@@ -60,6 +60,7 @@ FWD_ATOL = 5e-5
 SHIM = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -116,7 +117,18 @@ static inline float __shfl_down_sync(unsigned, float, int) { return 0.0f; }
 static inline float __fdividef(float a, float b) { return a / b; }
 template <class T>
 static inline T __ldg(const T* p) { return *p; }
+template <class T>
+static inline T __ldcg(const T* p) { return *p; }
+static inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+static inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
 static inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+static inline float cospif(float x) {
+  return (float)std::cos(3.14159265358979323846 * (double)x);
+}
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
@@ -286,12 +298,12 @@ class Case:
     scenarios and a control vector."""
 
     def __init__(self, n_order, n_shards, batch, n_ctrl=2, wetdry=False,
-                 seed=0):
+                 seed=0, cells=(8, 8), spread_injectors=False):
         rng = np.random.default_rng(seed)
         if wetdry:
-            mesh = box_triangles(8, 8, xlim=(0.0, 1.0), ylim=(0.0, 1.0))
+            mesh = box_triangles(*cells, xlim=(0.0, 1.0), ylim=(0.0, 1.0))
         else:
-            mesh = box_triangles(8, 8)
+            mesh = box_triangles(*cells)
             retag_east_open(mesh)
         if n_shards > 1:
             mesh = partition_mesh(mesh, n_shards)[0]
@@ -318,6 +330,8 @@ class Case:
             kw["tidal"] = (12.0, 0.5, 2.0, 10.0)
             if n_ctrl:
                 bu, bv = injectors(ctx)
+                if spread_injectors:  # every element forced
+                    bu, bv = (rng.uniform(0.5, 1.0, a.shape) for a in (bu, bv))
                 kw.update(forcing_bu=bu, forcing_bv=bv)
             self.dt, self.t = cfl_dt(ctx, 9.81, 13.5), 1.0
         self.sets = {dt: BS.build_sharded_blocked(ctx, phys, n_shards,
@@ -363,16 +377,19 @@ class Case:
     def ref(self, fn, *args, **kw):
         """The plain version in float64 on the float32 inputs, as float32."""
         sb = self.sets[F64]
-        up = lambda a: (a.to(F64) if torch.is_tensor(a) else
-                        tuple(up(b) for b in a) if isinstance(a, tuple)
-                        else a)
-        out = fn(sb.ops, sb.meta, *(up(a) for a in args), **kw)
-        return tuple(t.to(F32) for t in out)
+        out = fn(sb.ops, sb.meta, *(_up(a) for a in args), **kw)
+        return tuple(None if t is None else t.to(F32) for t in out)
 
     def stage(self, base, cur, rb, c_dt, t, sponge):
         sb = self.sets[F32]
         return TB._run_stage(sb.ops, sb.meta, base, cur, rb, c_dt, t,
                              self.ctrl, True, sponge)
+
+
+def _up(a):
+    """Tensors (in tuples too) to float64."""
+    return (a.to(F64) if torch.is_tensor(a) else
+            tuple(_up(b) for b in a) if isinstance(a, tuple) else a)
 
 
 def _max_abs(xs, ys):
@@ -390,6 +407,7 @@ CASES = {
     "N3_S1_B1_noctrl": (3, 1, 1, 0, (2, 1)),
     "N1_S4_B3": (1, 4, 3, 2, (2, 1)),    # ragged last block
     "N1_S1_B1": (1, 1, 1, 2, (1, 1)),
+    "N1_S4_B3_noctrl": (1, 4, 3, 0, (2, 1)),  # the run-time sizes in B8
 }
 
 
@@ -512,3 +530,225 @@ def test_plan_fits_shared_memory_at_high_order(device, shim_lib):
                                TB._STAGE, 1 << 20, 1 << 20, plan) != 0
     with pytest.raises(ValueError, match="N <= 6"):
         TB._shard_plan(lib, desc_at(36, 8), c.sets[F32].ops, 8, TB._STAGE)
+
+
+# ---------------------------------------------------------------------------
+# The adjoints on qvjp: the sharded stage's (B8) and the blocked rollout's
+# (B6)
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's adjoint tolerances: every entry of every cotangent
+# relative to the largest entry of its reference, 99 % within the bulk
+# bound, all within the kink bound (a near-tie of two speeds may be decided
+# either way by float32 rounding)
+BWD_RTOL_BULK, BWD_RTOL_MAX = 1e-5, 1e-3
+
+
+def _check_adjoint(got, ref):
+    assert all(torch.isfinite(f).all() for f in got)
+    per = torch.cat([((x - y).abs() / (y.abs().max() + 1e-30)).reshape(-1)
+                     for x, y in zip(got, ref)])
+    assert float(torch.quantile(per, 0.99)) <= BWD_RTOL_BULK
+    assert float(per.max()) <= BWD_RTOL_MAX
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_stage_bwd_kernel_matches_plain(device, name):
+    """B8 on stage 2's inputs (the stage-1 output and its exchanged send
+    buffer) with the sponge, under random cotangents of the output and the
+    send buffer: every cotangent, the control's per shard and scenario
+    included, against the plain version; the same bits on a rerun; the
+    launcher's plan (an ordinary launch over every item)."""
+    n, S, B, nc, dev = CASES[name]
+    device(*dev)
+    c = Case(n, S, B, nc, seed=2)
+    sb = c.sets[F32]
+    m = sb.meta
+    *s1, sb1 = c.stage(c.state, c.state, c.rb, 0.5 * c.dt, c.t, False)
+    cur, rb2 = tuple(s1), c.ex[F32](sb1)
+    L = sb.ops.send.shape[1]
+    rng = np.random.default_rng(5)
+    g = lambda *shape: torch.as_tensor(rng.standard_normal(shape), dtype=F32)
+    lam, lsb = tuple(g(S, B, m.n_v) for _ in range(3)), g(S, B, L, 3)
+    args = (cur, rb2, lam, lsb, c.dt, c.t + 0.5 * c.dt, c.ctrl, True, True)
+    got = TB._run_stage_bwd(sb.ops, m, *args)
+    ref = c.ref(TB.sw2d_stage_bwd_blocked_v2_plain, *args)
+    assert (got[7] is None) == (c.ctrl is None)
+    if c.ctrl is None:
+        got, ref = got[:7], ref[:7]
+    _check_adjoint(got, ref)
+    again = TB._run_stage_bwd(sb.ops, m, *args)
+    assert _same(got, again)
+    # where the narrow items would not give each SM a block of 256 threads
+    # (N3_S4_B1 on its device of 4 SMs, N1_S1_B1 on its one SM), 16 lanes
+    # an element at N=3 and 8 at N=1 (with its two controls), else 4 at
+    # N=3 and 1 at N=1
+    plan = TB.shard_plan(sb.ops, m, B, adjoint=True)
+    narrow = 4 if n == 3 else 1
+    small = S * B * m.k_elem * narrow < dev[0] * 256
+    wide = 16 if n == 3 else 8 if nc == 2 else narrow
+    P = wide if small else narrow
+    assert plan["lanes_per_element"] == P
+    assert plan["grid"] == -(-S * B * m.k_elem * P // plan["threads"])
+
+
+def test_stage_bwd_kernel_without_controls(device):
+    """B8 on a set with injectors, asked for no control cotangent: the
+    other cotangents are the same bits as when it is asked for."""
+    device(2, 1)
+    c = Case(3, 4, 3, seed=3)
+    sb = c.sets[F32]
+    m = sb.meta
+    rng = np.random.default_rng(6)
+    g = lambda *shape: torch.as_tensor(rng.standard_normal(shape), dtype=F32)
+    lam = tuple(g(4, 3, m.n_v) for _ in range(3))
+    lsb = g(4, 3, sb.ops.send.shape[1], 3)
+    args = (c.state, c.rb, lam, lsb, 0.5 * c.dt, c.t)
+    with_c = TB._run_stage_bwd(sb.ops, m, *args, c.ctrl, True, False)
+    without = TB._run_stage_bwd(sb.ops, m, *args, None, True, False)
+    assert without[7] is None
+    assert _same(with_c[:7], without[:7])
+    _check_adjoint(without[:7], c.ref(TB.sw2d_stage_bwd_blocked_v2_plain,
+                                      *args, None, True, False)[:7])
+
+
+@pytest.mark.parametrize("dev, lanes, grid", [((1, 1), 4, 3),
+                                              ((3, 1), 16, 9)],
+                         ids=["four_lanes", "sixteen_lanes"])
+def test_stage_bwd_control_sum_across_blocks(device, dev, lanes, grid):
+    """The control cotangent's two rounds when blocks and scenarios do not
+    line up: 72 elements a scenario in blocks of 64 items (four lanes an
+    element) or 16 (sixteen), so a block holds parts of two scenarios and a
+    scenario spans several blocks (the block that completes a scenario adds
+    its blocks' sums)."""
+    device(*dev)
+    c = Case(3, 1, 2, seed=4, cells=(6, 6), spread_injectors=True)
+    sb = c.sets[F32]
+    m = sb.meta
+    assert m.k_elem == 72
+    plan = TB.shard_plan(sb.ops, m, 2, adjoint=True)
+    assert (plan["lanes_per_element"], plan["threads"],
+            plan["grid"]) == (lanes, 256, grid)
+    rng = np.random.default_rng(7)
+    g = lambda *shape: torch.as_tensor(rng.standard_normal(shape), dtype=F32)
+    lam = tuple(g(1, 2, m.n_v) for _ in range(3))
+    lsb = g(1, 2, sb.ops.send.shape[1], 3)
+    args = (c.state, c.rb, lam, lsb, c.dt, c.t, c.ctrl, True, True)
+    got = TB._run_stage_bwd(sb.ops, m, *args)
+    _check_adjoint(got, c.ref(TB.sw2d_stage_bwd_blocked_v2_plain, *args))
+    assert _same(got, TB._run_stage_bwd(sb.ops, m, *args))
+    # each launch leaves its counters of finished blocks at 0
+    assert all(int(done.abs().sum()) == 0
+               for _, done in TB._stage_bwd_scratch.values())
+
+
+class RolloutCase:
+    """The coastal box (bathymetry with the well-balanced star fluxes, drag,
+    Coriolis, tidal depth on the open east side, sponge toward it, two
+    controls) unsharded at one order, as float32 and float64 blocked
+    operator sets; ``batch`` perturbed float32 scenarios, controls of
+    ``n_cs`` steps, the plain float32 rollout's trajectory from t0 = 1 and
+    random cotangents of it."""
+
+    def __init__(self, n_order, batch, n_cs=2, spc=2, seed=0):
+        rng = np.random.default_rng(seed)
+        mesh = box_triangles(8, 8)
+        retag_east_open(mesh)
+        ctx = build_triangle_context(n_order, mesh, dtype=F64, device="cpu",
+                                     filter_cutoff=0.9 * n_order,
+                                     filter_order=4)
+        H = 10.0 + 2.0 * ctx.x + torch.sin(2.0 * ctx.y)
+        open_nodes = (ctx.bc_table[:, :, None].expand(-1, -1, ctx.n_fp)
+                      .reshape(ctx.k_elem, -1) == BC_OUT).numpy()
+        phys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4, H=H,
+                         Hx=2.0 * torch.ones_like(H),
+                         Hy=2.0 * torch.cos(2.0 * ctx.y),
+                         sponge=build_sponge_coefficient(
+                             ctx, open_nodes, width=0.3, strength=0.5))
+        bu, bv = injectors(ctx)
+        self.sets = {dt: TB.build_blocked_step_ops(
+            ctx, phys, bu, bv, dtype=dt, tidal=(12.0, 0.5, 2.0, 10.0),
+            device="cpu") for dt in (F32, F64)}
+        ops, m = self.sets[F32]
+        assert m.wb and m.has_sponge and m.tidal is not None and m.n_ctrl == 2
+        self.dt, self.spc, self.t0 = cfl_dt(ctx, 9.81, 13.5), spc, 1.0
+        x, y = ctx.x.reshape(1, -1).numpy(), ctx.y.reshape(1, -1).numpy()
+        col = lambda lo, hi: rng.uniform(lo, hi, (batch, 1))
+        bump = np.exp(-10.0 * ((x - col(-0.5, 0.5)) ** 2
+                               + (y - col(-0.5, 0.5)) ** 2))
+        noise = lambda: 0.01 * rng.standard_normal((batch, x.shape[1]))
+        h = H.reshape(1, -1).numpy() + col(0.05, 0.3) * bump + noise()
+        hu = col(-0.1, 0.1) * h + noise()
+        hv = col(-0.1, 0.1) * h + noise()
+        state = [torch.as_tensor(f, dtype=F32) for f in (h, hu, hv)]
+        self.ctrls = torch.as_tensor(
+            0.3 * rng.standard_normal((batch, n_cs, 2)), dtype=F32)
+        self.traj = TB.sw2d_rollout_blocked_plain(
+            ops, m, *state, self.ctrls, self.dt, spc, t0=self.t0,
+            store_traj=True)[:3]
+        self.tb = tuple(torch.as_tensor(rng.standard_normal(
+            tuple(self.traj[0].shape)), dtype=F32) for _ in range(3))
+
+    def args(self):
+        return (self.traj, self.tb, self.ctrls, self.dt, self.spc, self.t0,
+                True)
+
+    def kernel(self):
+        ops, m = self.sets[F32]
+        return TB._run_rollout_bwd(ops, m, *self.args())
+
+    def ref(self):
+        ops, m = self.sets[F64]
+        out = TB.sw2d_rollout_bwd_blocked_plain(
+            ops, m, *_up(self.traj), *_up(self.tb), _up(self.ctrls), self.dt,
+            self.spc, self.t0, True)
+        return tuple(t.to(F32) for t in out)
+
+
+# (N, scenarios, shim device (SMs, blocks an SM)): at N=3 the compile-time
+# instance (four lanes an element), at N=2 the run-time sizes (one lane);
+# the grid covers the items in one pass (the lanes keep their nodes in
+# registers across the grid barriers) or the blocks loop over them
+ROLLOUT_BWD_CASES = {
+    "N3_B2_one_pass": (3, 2, (8, 1)),
+    "N3_B1_blocks_loop": (3, 1, (2, 1)),
+    "N2_B2_one_pass": (2, 2, (8, 1)),
+    "N2_B3_blocks_loop": (2, 3, (1, 1)),
+}
+
+
+@pytest.mark.parametrize("name", list(ROLLOUT_BWD_CASES))
+def test_rollout_bwd_kernel_matches_plain(device, name):
+    """B6 over 2 control steps x 2 steps of the coastal box with the sponge
+    and controls: the initial-state and control cotangents against the
+    plain version; the same bits on a rerun; the launcher's plan (a
+    cooperative launch: what is co-resident)."""
+    n, B, dev = ROLLOUT_BWD_CASES[name]
+    device(*dev)
+    c = RolloutCase(n, B, seed=n + B)
+    got, ref = c.kernel(), c.ref()
+    _check_adjoint(got, ref)
+    assert _same(got, c.kernel())
+    ops, m = c.sets[F32]
+    plan = TB.rollout_bwd_plan(ops, m, B)
+    P = 4 if n == 3 else 1
+    assert plan["lanes_per_element"] == P
+    items_per_block = plan["threads"] // P
+    assert plan["grid"] == min(dev[0] * dev[1],
+                               -(-B * m.k_elem // items_per_block))
+
+
+def test_rollout_bwd_refuses_high_order_and_wetdry(device):
+    """Past N=6 the launcher has no room and the wrapper says so; a wet/dry
+    set has no adjoint (C10)."""
+    c = Case(1, 4, 1)
+    lib = TB._lib()
+    meta = c.sets[F32].meta._replace(k_elem=128, n_p=36, n_fp=8,
+                                     n_v=128 * 36, n_t=128 * 24)
+    desc = TB._desc(meta, blocked=True)
+    ops, _ = RolloutCase(2, 1).sets[F32]
+    with pytest.raises(ValueError, match="N <= 6"):
+        TB._shard_plan(lib, desc, ops, 8, TB._ROLLOUT_BWD)
+    with pytest.raises(NotImplementedError, match="wet/dry"):
+        TB.sw2d_rollout_bwd_blocked(ops, meta._replace(wetdry=True),
+                                    *([None] * 6), None, 0.1, 1)
