@@ -1,7 +1,8 @@
 // Element-blocked shallow-water kernels for the large-mesh regime, sm_90a.
 //
-//   sw2d_blocked_step_kernel         one SSP-RK2 step
-//   sw2d_blocked_rollout_kernel      n_steps steps, optional stored trajectory
+//   sw2d_blocked_rollout_kernel      n_steps SSP-RK2 steps, optional stored
+//                                    trajectory (launched for one step, the
+//                                    step)
 //   sw2d_blocked_rollout_bwd_kernel  the reverse (adjoint) sweep
 //   sw2d_stage_kernel                one RK stage of an element-sharded set
 //   sw2d_stage_bwd_kernel            its adjoint
@@ -9,36 +10,29 @@
 //                                    element-sharded set, the inter-stage
 //                                    halo exchanged inside the launch
 //
-// The first three replace the Pallas TPU kernels _step_kernel,
+// The first two replace the Pallas TPU kernels _step_kernel,
 // _rollout_kernel and _rollout_bwd_kernel of blitzdg_tpu/ops/sw2d_blocked.py
 // (the others: their own sections below). Those run one scenario's whole
 // mesh on one core, packed (p, NP, M) with roll-based trace exchange. Here
-// a mesh of thousands of elements does not fit one block's shared memory.
+// a mesh of thousands of elements does not fit one block's shared memory:
+// it is split over the blocks of the grid, and the '+' traces of every RHS
+// are index gathers through vmapP from the stage's input in GLOBAL memory
+// (L2-resident at these sizes), for any element numbering. Every RK stage
+// depends on the whole grid's previous stage, so a kernel that runs several
+// is ONE persistent cooperative launch whose stages end in grid barriers.
 //
-// The forward step and rollout (this section): the work unit is (scenario,
-// chunk of E elements); a block holds its chunk's state, fluxes and jumps
-// in shared memory and does derivative, lift, filter and limiter per
-// element with FMAs, while the '+' traces of every RHS are index gathers
-// through vmapP from the stage's input in GLOBAL memory (L2-resident at
-// these sizes), for any element numbering. Every RK stage depends on the
-// whole grid's previous stage: ONE persistent cooperative launch per call
-// (cudaLaunchCooperativeKernel; the grid is no larger than what is
-// co-resident, blocks loop over work units) with cooperative_groups grid
-// barriers between the stages, 2 per step. State buffers ping-pong (a
-// stage never writes what another block reads in the same phase); with a
-// stored trajectory its rows are the step-start buffers, so nothing is
-// copied. The wet/dry branch (minmod reconstruction, positivity limiter)
-// exists forward only.
-//
-// The sharded stage, the one-launch step and both adjoints (the rollout's
-// reverse sweep included) run on a stage of their own with P lanes an
-// element, qstage forward and qvjp backward (their sections below).
+// Every kernel runs one RK stage, qstage, or its adjoint, qvjp, on items of
+// P lanes of a warp each: one (shard, scenario, element) an item, lane p
+// holding node p of each face and the volume nodes p, p+P, ... (their
+// sections below). The wet/dry branch (minmod reconstruction, positivity
+// limiter) exists forward only.
 //
 // Bound on the card: float32 operations, not bytes (one state in and one
-// out against some hundred operations per node and stage). The design keeps
-// the working set in L2 and shared memory, so device memory sees little
-// more than that. What the kernels wait for is latency: chained gathers
-// (vmapP, then the state) and the block barriers inside a stage; the grid
+// out against some hundred operations per node and stage), except the
+// sharded stage and its adjoint alone (bytes). The design keeps the working
+// set in L2 and shared memory, so device memory sees little more than that.
+// What the kernels wait for is latency: the gathers of the neighbours'
+// traces and an item's chain of warp barriers and shuffles; the grid
 // barriers are a small share (PERF.md has the measured shares).
 //
 // Plain C interface (extern "C" at the end), loaded with ctypes. Launches go
@@ -51,52 +45,6 @@
 namespace cg = cooperative_groups;
 
 extern __shared__ float smem[];
-
-// Per-unit scratch in shared memory; EN = E*Np, ET = E*Ntr floats per field.
-struct Scratch {
-  Vec3 S;      // the chunk's stage input
-  Vec3 vflux;  // F2, F3 (= G2), G3
-  Vec3 R;      // unfiltered RHS
-  Vec3 Out;    // stage output before the limiter
-  Vec3 pre;    // speed-independent flux jump, then the scaled jump
-  Vec3 dq;     // jumps
-  float* spd;
-  float* elem;  // 4 per element: theta, mean h, mean hu, mean hv
-  float* red;   // 32: block reduction
-};
-
-static size_t op_floats(const Ops& o) {
-  return (size_t)3 * o.Np * o.Np + (size_t)o.Np * o.Ntr;
-}
-
-static size_t smem_floats(const Ops& o, int E) {
-  return op_floats(o) + (size_t)12 * E * o.Np + (size_t)7 * E * o.Ntr
-         + (size_t)4 * E + 32;
-}
-
-// Copy the reference-element operators to shared memory, point the operator
-// set at the copies and carve the per-unit scratch behind them.
-__device__ Scratch setup_block(Ops& o, int E) {
-  const int np2 = o.Np * o.Np, nl = o.Np * o.Ntr;
-  float* p = smem;
-  float *sDr = p, *sDs = p + np2, *sF = p + 2 * np2, *sL = p + 3 * np2;
-  p += 3 * np2 + nl;
-  for (int i = threadIdx.x; i < np2; i += blockDim.x) {
-    sDr[i] = o.Dr[i]; sDs[i] = o.Ds[i]; sF[i] = o.filt[i];
-  }
-  for (int i = threadIdx.x; i < nl; i += blockDim.x) sL[i] = o.lift[i];
-  o.Dr = sDr; o.Ds = sDs; o.filt = sF; o.lift = sL;
-  Scratch s;
-  const int EN = E * o.Np, ET = E * o.Ntr;
-  s.S = carve(p, EN); s.vflux = carve(p, EN);
-  s.R = carve(p, EN); s.Out = carve(p, EN);
-  s.pre = carve(p, ET); s.dq = carve(p, ET);
-  s.spd = p; p += ET;
-  s.elem = p; p += 4 * E;
-  s.red = p;
-  __syncthreads();
-  return s;
-}
 
 struct P3 { const float *a, *b, *c; };
 struct W3 { float *a, *b, *c; };
@@ -132,215 +80,6 @@ __device__ __forceinline__ void sponge_relax(const Ops& o, int v, float dt,
   const float fac = 1.0f / (1.0f + dt * __ldg(o.SPNG + v));
   if (o.has_bathy) { const float H = __ldg(o.H + v); h = H + (h - H) * fac; }
   hu *= fac; hv *= fac;
-}
-
-// The sponge (if asked), then the store of one volume node.
-__device__ __forceinline__ void finish_node(const Ops& o, int v, float h,
-                                            float hu, float hv, bool sponge,
-                                            float dt, const W3& out) {
-  if (sponge) sponge_relax(o, v, dt, h, hu, hv);
-  out.a[v] = h; out.b[v] = hu; out.c[v] = hv;
-}
-
-// One RK stage of one work unit (elements e0 .. e0+ne of one scenario):
-//   out = base + coef * R(in, t), then the positivity limiter (limit) and the
-//   sponge (sponge), on the unit's own nodes.
-// in: the scenario's whole stage input in global memory (neighbours are read
-// from it); base, out: the scenario's fields, touched at own nodes only (they
-// may be the same buffer); copy: where to store the unit's part of `in` as
-// well, or null pointers. (The sharded kernels have a stage of their own,
-// qstage below.)
-__device__ void stage(const Ops& o, const Scratch& s, int e0, int ne,
-                      const P3& in, const P3& base, const W3& out,
-                      const W3& copy, float coef, float t, float dt,
-                      const float* ctrl, int use_filter, bool limit,
-                      bool sponge) {
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int Np = o.Np, Ntr = o.Ntr, Nfp = o.Nfp;
-  const int nl = ne * Np, tl = ne * Ntr, v0 = e0 * Np, i0 = e0 * Ntr;
-  const float h_bc = tidal_depth(o, t);
-
-  for (int l = tid; l < nl; l += nth) {
-    const int v = v0 + l;
-    const float h = in.a[v], hu = in.b[v], hv = in.c[v];
-    s.S.a[l] = h; s.S.b[l] = hu; s.S.c[l] = hv;
-    volume_fluxes(o, h, hu, hv, s.vflux.a[l], s.vflux.b[l], s.vflux.c[l]);
-    if (copy.a != nullptr) { copy.a[v] = h; copy.b[v] = hu; copy.c[v] = hv; }
-  }
-  for (int l = tid; l < tl; l += nth) {
-    TraceVals tv;
-    trace_values(o, i0 + l, in.a, in.b, in.c, h_bc, tv);
-    trace_flux_pre(o, tv, s.pre.a[l], s.pre.b[l], s.pre.c[l]);
-    trace_jumps(o, tv, s.dq.a[l], s.dq.b[l], s.dq.c[l]);
-    s.spd[l] = fmaxf(tv.spdM, tv.spdP);
-  }
-  __syncthreads();
-
-  // per-face maximum wavespeed (a face lies inside one element), then the
-  // jump scaled for the lift
-  for (int l = tid; l < tl; l += nth) {
-    const int f0 = (l / Nfp) * Nfp;
-    float lam = s.spd[f0];
-    for (int j = 1; j < Nfp; ++j) lam = fmaxf(lam, s.spd[f0 + j]);
-    const float fs = o.fscale[i0 + l], hl = 0.5f * lam;
-    s.pre.a[l] = (s.pre.a[l] - hl * s.dq.a[l]) * fs;
-    s.pre.b[l] = (s.pre.b[l] - hl * s.dq.b[l]) * fs;
-    s.pre.c[l] = (s.pre.c[l] - hl * s.dq.c[l]) * fs;
-  }
-  __syncthreads();
-
-  for (int l = tid; l < nl; l += nth) {
-    const int k = l / Np, n = l - k * Np;
-    const int le0 = k * Np, lt0 = k * Ntr, v = v0 + l;
-    float l1 = 0.0f, l2 = 0.0f, l3 = 0.0f;
-    for (int j = 0; j < Ntr; ++j) {
-      const float lf = o.lift[n * Ntr + j];
-      l1 += lf * s.pre.a[lt0 + j];
-      l2 += lf * s.pre.b[lt0 + j];
-      l3 += lf * s.pre.c[lt0 + j];
-    }
-    float rF1 = 0, sF1 = 0, rG1 = 0, sG1 = 0, rF2 = 0, sF2 = 0;
-    float rF3 = 0, sF3 = 0, rG3 = 0, sG3 = 0;
-    for (int m = 0; m < Np; ++m) {
-      const float dr = o.Dr[n * Np + m], ds = o.Ds[n * Np + m];
-      const float f1 = s.S.b[le0 + m], g1 = s.S.c[le0 + m];
-      const float f2 = s.vflux.a[le0 + m], f3 = s.vflux.b[le0 + m];
-      const float g3 = s.vflux.c[le0 + m];
-      rF1 += dr * f1; sF1 += ds * f1; rG1 += dr * g1; sG1 += ds * g1;
-      rF2 += dr * f2; sF2 += ds * f2; rF3 += dr * f3; sF3 += ds * f3;
-      rG3 += dr * g3; sG3 += ds * g3;
-    }
-    const float rx = o.rx[v], sx = o.sx[v], ry = o.ry[v], sy = o.sy[v];
-    float r1 = l1 - (rx * rF1 + sx * sF1 + ry * rG1 + sy * sG1);
-    float r2 = l2 - (rx * rF2 + sx * sF2 + ry * rF3 + sy * sF3);
-    float r3 = l3 - (rx * rF3 + sx * sF3 + ry * rG3 + sy * sG3);
-    add_sources(o, v, s.S.a[l], s.S.b[l], s.S.c[l], ctrl, r2, r3);
-    s.R.a[l] = r1; s.R.b[l] = r2; s.R.c[l] = r3;
-  }
-  __syncthreads();
-
-  // modal filter, stage update
-  for (int l = tid; l < nl; l += nth) {
-    const int k = l / Np, n = l - k * Np, le0 = k * Np, v = v0 + l;
-    float a, b, c;
-    if (use_filter) {
-      a = b = c = 0.0f;
-      for (int m = 0; m < Np; ++m) {
-        const float fl = o.filt[n * Np + m];
-        a += fl * s.R.a[le0 + m];
-        b += fl * s.R.b[le0 + m];
-        c += fl * s.R.c[le0 + m];
-      }
-    } else {
-      a = s.R.a[l]; b = s.R.b[l]; c = s.R.c[l];
-    }
-    a = base.a[v] + coef * a;
-    b = base.b[v] + coef * b;
-    c = base.c[v] + coef * c;
-    if (limit) {
-      s.Out.a[l] = a; s.Out.b[l] = b; s.Out.c[l] = c;
-    } else {
-      finish_node(o, v, a, b, c, sponge, dt, out);
-    }
-  }
-  if (limit) {
-    // positivity limiter: squash toward the element's arithmetic nodal mean
-    // where its minimum is below the floor, then taper near-dry momentum
-    __syncthreads();
-    const float floor_ = o.h_floor;
-    for (int e = tid; e < ne; e += nth) {
-      float hmin = s.Out.a[e * Np], sh = 0.0f, shu = 0.0f, shv = 0.0f;
-      for (int m = 0; m < Np; ++m) {
-        const float h = s.Out.a[e * Np + m];
-        hmin = fminf(hmin, h);
-        sh += h; shu += s.Out.b[e * Np + m]; shv += s.Out.c[e * Np + m];
-      }
-      const float hmean = sh / (float)Np;
-      float theta = 1.0f;
-      if (hmin < floor_) {
-        const float denom = hmean - hmin;
-        theta = (hmean - floor_) / (denom > 0.0f ? denom : 1.0f);
-        theta = fminf(fmaxf(theta, 0.0f), 1.0f);
-      }
-      s.elem[4 * e] = theta; s.elem[4 * e + 1] = hmean;
-      s.elem[4 * e + 2] = shu / (float)Np;
-      s.elem[4 * e + 3] = shv / (float)Np;
-    }
-    __syncthreads();
-    for (int l = tid; l < nl; l += nth) {
-      const int e = l / Np;
-      const float theta = s.elem[4 * e], hmean = s.elem[4 * e + 1];
-      const float humean = s.elem[4 * e + 2], hvmean = s.elem[4 * e + 3];
-      const float h = hmean + theta * (s.Out.a[l] - hmean);
-      const float hu = humean + theta * (s.Out.b[l] - humean);
-      const float hv = hvmean + theta * (s.Out.c[l] - hvmean);
-      const float taper =
-          fminf(fmaxf((h - floor_) / (4.0f * floor_), 0.0f), 1.0f);
-      finish_node(o, v0 + l, h, hu * taper, hv * taper, sponge, dt, out);
-    }
-  }
-  __syncthreads();  // the scratch is reused by the block's next unit
-}
-
-struct FwdArgs {
-  const float *h, *hu, *hv;  // (B, nV) initial states
-  const float* ctrls;        // (B, n_cs, n_ctrl) or null
-  float *oh, *ohu, *ohv;     // (B, nV) final state, the resident state buffer
-  float *s1h, *s1hu, *s1hv;  // (B, nV) stage scratch
-  float *th, *thu, *thv;     // (B, n_steps+1, nV) trajectory or null
-  int B, n_steps, n_cs, spc, E, use_filter;
-  float dt, t0;
-};
-
-// n_steps SSP-RK2 steps: u1 = u + dt/2 R(u, t); u <- u + dt R(u1, t + dt/2),
-// with a grid barrier after each stage.
-__device__ void forward_body(const Ops& og, const FwdArgs& a) {
-  cg::grid_group grid = cg::this_grid();
-  Ops o = og;
-  const Scratch s = setup_block(o, a.E);
-  const int n_chunks = (o.K + a.E - 1) / a.E, n_units = a.B * n_chunks;
-  const size_t nV = (size_t)o.nV, trow = (size_t)(a.n_steps + 1) * nV;
-  const bool traj = a.th != nullptr;
-  const W3 none = {nullptr, nullptr, nullptr};
-
-  for (int t = 0; t < a.n_steps; ++t) {
-    const float tt = a.t0 + (float)t * a.dt;
-    for (int phase = 0; phase < 2; ++phase) {
-      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-        const int b = u / n_chunks, c = u - b * n_chunks;
-        const int e0 = c * a.E, ne = min(a.E, o.K - e0);
-        P3 cur;  // the step-start state
-        if (t == 0) cur = at(a.h, a.hu, a.hv, b * nV);
-        else if (traj) cur = at(a.th, a.thu, a.thv, b * trow + t * nV);
-        else cur = at(a.oh, a.ohu, a.ohv, b * nV);
-        const W3 s1 = atw(a.s1h, a.s1hu, a.s1hv, b * nV);
-        const float* ctrl = a.ctrls == nullptr ? nullptr
-            : a.ctrls + ((size_t)b * a.n_cs + t / a.spc) * o.n_ctrl;
-        if (phase == 0) {
-          const W3 row0 = (traj && t == 0)
-              ? atw(a.th, a.thu, a.thv, b * trow) : none;
-          stage(o, s, e0, ne, cur, cur, s1, row0, 0.5f * a.dt, tt, a.dt,
-                ctrl, a.use_filter, o.wetdry != 0, false);
-        } else {
-          const W3 nxt = traj
-              ? atw(a.th, a.thu, a.thv, b * trow + (t + 1) * nV)
-              : atw(a.oh, a.ohu, a.ohv, b * nV);
-          const P3 in = {s1.a, s1.b, s1.c};
-          stage(o, s, e0, ne, in, cur, nxt, none, a.dt, tt + 0.5f * a.dt,
-                a.dt, ctrl, a.use_filter, o.wetdry != 0, o.has_sponge != 0);
-        }
-      }
-      grid.sync();
-    }
-  }
-}
-
-__global__ void sw2d_blocked_step_kernel(Ops o, FwdArgs a) {
-  forward_body(o, a);
-}
-
-__global__ void sw2d_blocked_rollout_kernel(Ops o, FwdArgs a) {
-  forward_body(o, a);
 }
 
 // n grid barriers and nothing else: what one barrier costs at a given grid
@@ -394,19 +133,24 @@ __global__ void sw2d_blocked_barrier_probe_kernel(int n) {
 // maximum over a face's four nodes is two shuffles across the lanes; the
 // fluxes the derivatives need and the scaled jumps the lift needs go
 // through the item's own slots in shared memory behind a warp barrier.
-// Other orders (run-time sizes, arrays in local memory) take one lane an
-// item. A stage has no block barrier; a launch has one, after the
+// At N=6 (Np 28, Nfp 7: compile-time sizes, the products unrolled by
+// parts) P = 8: lane p holds node p of each face, lane 7 none (it redoes
+// node 6, whose speed cannot move the face maximum, and stores nothing),
+// and the volume nodes p, p+8, p+16, p+24. Other orders (run-time sizes,
+// arrays in local memory) take one lane an item, and so do the adjoints
+// at N=6. A stage has no block barrier; a launch has one, after the
 // reference operators (Dr and Ds interleaved, lift, filter) are copied to
 // shared memory, where every lane reads them as broadcasts.
 //
 // The block size is chosen by the launcher (q_plan): the largest of 256,
 // 128, 64, 32 threads that still gives every SM a block (S=4 x B=1 x 512
 // elements is 8192 lanes: 256 blocks of one warp) and whose shared memory
-// fits (at N=6 one of 256 would not), and the step's grid is
+// fits (the adjoints' items at N=6 take 64), and the step's grid is
 // what the device reports as co-resident. Where that grid covers every
 // item in one pass, the step keeps each lane's stage-1 nodes and its
-// step-start nodes in registers across the grid barrier; only the
-// neighbours' traces then go through global memory (L2) in stage 2.
+// step-start nodes in registers across the grid barrier (up to N=3:
+// QSizes::KEEP); only the neighbours' traces then go through global memory
+// (L2) in stage 2.
 //
 // Bound on the card: float32 operations (the step: two RHS evaluations per
 // node against one state in and one out; a stage alone: bytes, its six
@@ -471,13 +215,26 @@ __host__ __device__ inline int q_item_floats(int Np, int Ntr) {
 // instantiation where the template gives them, else (0 sizes, NC < 0)
 // read at run time. The lanes of a face (LPF) are min(LANES, NFP): with
 // more lanes than a face has nodes (the adjoint's wide items), each group
-// of NFP lanes takes a face, one trace node a lane.
+// of NFP lanes takes a face, one trace node a lane (qvjp). qstage's lane p
+// holds nodes p + LANES k, k < CFP, of every face; where the lanes do not
+// divide a face (MASKED: N=6), the last of them lie past it on some lanes.
 template <int NP, int NFP, int NC, int LANES>
 struct QSizes {
   static constexpr int P = LANES;
   static constexpr int LPF = NP && LANES > NFP ? NFP : LANES;
   static constexpr int CNP = NP ? (NP + LANES - 1) / LANES : QMAX_NP;
-  static constexpr int CFP = NP ? NFP / LPF : QMAX_NFP;  // a face's, a lane
+  // a face's nodes, a lane
+  static constexpr int CFP = NP ? (NFP + LPF - 1) / LPF : QMAX_NFP;
+  static constexpr bool MASKED = NP && NFP % LANES != 0;
+  // whether the one-launch step's lanes may hold their step-start and
+  // stage-1 nodes through its second stage (at N=6 they and the stage's
+  // own values would pass the 128 registers and spill)
+  static constexpr bool KEEP = NP <= 10;
+  // unroll factors of qstage's products over a node's columns (MU) and its
+  // trace nodes (LU): complete at compile-time sizes up to N=3, partial at
+  // N=6 (unrolled completely, they spill), none at run-time sizes
+  static constexpr int MU = !NP ? 1 : NP > 10 ? 4 : NP;
+  static constexpr int LU = !NP ? 1 : NP > 10 ? 3 : 3 * NFP;
   // passes over the three faces: one face a pass, or all at once
   static constexpr int NG = (3 * LPF + LANES - 1) / LANES;
   __device__ __forceinline__ static int np(const Ops& o) {
@@ -502,6 +259,7 @@ struct QSizes {
 };
 typedef QSizes<10, 4, 2, 4> QOrder3Ctrl;  // N=3 with two controls
 typedef QSizes<10, 4, -1, 4> QOrder3;     // N=3, other control counts
+typedef QSizes<28, 7, -1, 8> QOrder6;     // N=6, the forward kernels
 typedef QSizes<0, 0, -1, 1> QAnyOrder;
 // the stage adjoint's wide items at small batches: 16 lanes an element at
 // N=3; 8 at N=1 with two controls (the sharded MPC example's set)
@@ -514,6 +272,19 @@ template <class Z>
 struct Own {
   float h[Z::CNP], hu[Z::CNP], hv[Z::CNP];
 };
+
+// qstage's trace node k of face-local lane p (a masked one: the face's
+// last node, which it redoes), and whether the lane holds node k.
+template <class Z>
+__device__ __forceinline__ int q_fnode(int p, int k, int Nfp) {
+  const int j = p + Z::P * k;
+  return Z::MASKED && j >= Nfp ? Nfp - 1 : j;
+}
+
+template <class Z>
+__device__ __forceinline__ bool q_fhas(int p, int k, int Nfp) {
+  return !Z::MASKED || p + Z::P * k < Nfp;
+}
 
 // The lane's item of one pass over the items, and its shard's rows of the
 // packed buffers: every lane reads its shard's fields through the block's
@@ -633,16 +404,16 @@ __device__ __forceinline__ void qstage(
       G[n] = G3;
     }
   }
-  // the lane's trace nodes (node p + P k of each face): their indices,
-  // then the state at both sides, each round issued at once (the tables
-  // are read-only for the launch: __ldg; the state may have been written
-  // by this launch's first phase: plain loads)
+  // the lane's trace nodes (q_fnode of each face): their indices, then the
+  // state at both sides, each round issued at once (the tables are
+  // read-only for the launch: __ldg; the state may have been written by
+  // this launch's first phase: plain loads)
   int vm[3][Z::CFP], vp[3][Z::CFP];
 #pragma unroll
   for (int f = 0; f < 3; ++f)
 #pragma unroll
     for (int k = 0; k < nfl; ++k) {
-      const int gi = l.io + i0 + f * Nfp + p + P * k;
+      const int gi = l.io + i0 + f * Nfp + q_fnode<Z>(p, k, Nfp);
       vm[f][k] = __ldg(g.vmapM + gi);
       vp[f][k] = __ldg(g.vmapP + gi);
     }
@@ -671,7 +442,7 @@ __device__ __forceinline__ void qstage(
     float q3[Z::CFP], lam = 0.0f;
 #pragma unroll
     for (int k = 0; k < nfl; ++k) {
-      const int fi = l.fo + i0 + f * Nfp + p + P * k;
+      const int fi = l.fo + i0 + f * Nfp + q_fnode<Z>(p, k, Nfp);
       TraceVals tv;
       tv.nx = __ldg(g.nx + fi); tv.ny = __ldg(g.ny + fi);
       tv.hM = sv[f][k][0]; tv.huM = sv[f][k][1]; tv.hvM = sv[f][k][2];
@@ -691,10 +462,12 @@ __device__ __forceinline__ void qstage(
     const float hl = 0.5f * lam;
 #pragma unroll
     for (int k = 0; k < nfl; ++k) {
-      const int j = f * Nfp + p + P * k;
+      const int j = f * Nfp + q_fnode<Z>(p, k, Nfp);
       const float fs = __ldg(g.fscale + l.fo + i0 + j);
-      A[j] = make_float4((p1[k] - hl * q1[k]) * fs, (p2[k] - hl * q2[k]) * fs,
-                         (p3[k] - hl * q3[k]) * fs, 0.0f);
+      if (q_fhas<Z>(p, k, Nfp))
+        A[j] = make_float4((p1[k] - hl * q1[k]) * fs,
+                           (p2[k] - hl * q2[k]) * fs,
+                           (p3[k] - hl * q3[k]) * fs, 0.0f);
     }
   }
   __syncwarp();
@@ -707,7 +480,7 @@ __device__ __forceinline__ void qstage(
     r1[i] = r2[i] = r3[i] = 0.0f;
     if (n < Np) {
       float l1 = 0.0f, l2 = 0.0f, l3 = 0.0f;
-#pragma unroll
+#pragma unroll (Z::LU)
       for (int j = 0; j < Ntr; ++j) {
         const float lf = LF[n * Ntr + j];
         const float4 a = A[j];
@@ -715,7 +488,7 @@ __device__ __forceinline__ void qstage(
       }
       float rF1 = 0, sF1 = 0, rG1 = 0, sG1 = 0, rF2 = 0, sF2 = 0;
       float rF3 = 0, sF3 = 0, rG3 = 0, sG3 = 0;
-#pragma unroll
+#pragma unroll (Z::MU)
       for (int m = 0; m < Np; ++m) {
         const float2 ds = DS[n * Np + m];
         const float4 q = X[m];
@@ -754,7 +527,7 @@ __device__ __forceinline__ void qstage(
       const int n = p + P * i;
       if (n < Np) {
         float a = 0.0f, b = 0.0f, c = 0.0f;
-#pragma unroll
+#pragma unroll (Z::MU)
         for (int m = 0; m < Np; ++m) {
           const float fl = FL[n * Np + m];
           const float4 q = X[m];
@@ -902,7 +675,7 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
                            q_item_floats(g.Np, g.Ntr), Z::P);
   const int ipb = blockDim.x / Z::P, n_items = a.S * a.B * d.K;
   // one pass covers every item: the lane's nodes stay in registers
-  const bool resident = (long long)gridDim.x * ipb >= n_items;
+  const bool resident = Z::KEEP && (long long)gridDim.x * ipb >= n_items;
   const float h_bc1 = tidal_depth(g, a.t1), h_bc2 = tidal_depth(g, a.t2);
   Own<Z> st, s1;
   for (int first = blockIdx.x * ipb; first < n_items;
@@ -912,10 +685,10 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
     const size_t off = (size_t)l.sc * g.nV;
     const P3 in = at(a.h, a.hu, a.hv, off);
     load_own<Z>(g, l.e, l.p, in, st);
-    qstage<Z, true>(g, smem, scr, l, in, st, st, in, s1,
-                    atw(a.s1h, a.s1hu, a.s1hv, off), push(l.sh, l.b),
-                    a.rb + l.sc * ls, 0.5f * a.dt, h_bc1, a.dt, a.ctrl,
-                    a.use_filter, false, false);
+    qstage<Z, Z::KEEP>(g, smem, scr, l, in, st, st, in, s1,
+                       atw(a.s1h, a.s1hu, a.s1hv, off), push(l.sh, l.b),
+                       a.rb + l.sc * ls, 0.5f * a.dt, h_bc1, a.dt, a.ctrl,
+                       a.use_filter, false, false);
   }
   grid.sync();
   for (int first = blockIdx.x * ipb; first < n_items;
@@ -924,16 +697,151 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
                               a.istride);
     const size_t off = (size_t)l.sc * g.nV;
     const P3 in = at(a.s1h, a.s1hu, a.s1hv, off);
+    const P3 base = at(a.h, a.hu, a.hv, off);
     if (!resident) {
       load_own<Z>(g, l.e, l.p, in, s1);
-      load_own<Z>(g, l.e, l.p, at(a.h, a.hu, a.hv, off), st);
+      if (Z::KEEP) load_own<Z>(g, l.e, l.p, base, st);
     }
     Own<Z> y;
-    qstage<Z, true>(g, smem, scr, l, in, s1, st, in, y,
-                    atw(a.oh, a.ohu, a.ohv, off),
-                    SendTo{a.sb + l.sc * ls, nullptr, 0}, a.rb2 + l.sc * ls,
-                    a.dt, h_bc2, a.dt, a.ctrl, a.use_filter, false,
-                    a.sponge != 0);
+    qstage<Z, Z::KEEP>(g, smem, scr, l, in, s1, st, base, y,
+                       atw(a.oh, a.ohu, a.ohv, off),
+                       SendTo{a.sb + l.sc * ls, nullptr, 0},
+                       a.rb2 + l.sc * ls, a.dt, h_bc2, a.dt, a.ctrl,
+                       a.use_filter, false, a.sponge != 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The blocked forward rollout (B5) and step (B4)
+// ---------------------------------------------------------------------------
+//
+// sw2d_blocked_rollout_kernel replaces _rollout_kernel /
+// sw2d_rollout_blocked of blitzdg_tpu/ops/sw2d_blocked.py and, launched
+// for one step with one control row, _step_kernel / sw2d_step_blocked: the
+// step is a rollout of one step, so it gives step t of a rollout bit for
+// bit. One cooperative launch runs n_steps SSP-RK2 steps on qstage's items
+// (one shard, the whole mesh: B x K items), two grid barriers a step:
+//   1. stage 1 (coef dt/2, stage time t, no sponge) from the step-start
+//      state into the s1 scratch;
+//   2. stage 2 (coef dt, stage time t + dt/2, the sponge) from s1, with the
+//      step-start state as its base, into the next trajectory row or, with
+//      no trajectory stored, the state buffer (read at own nodes only in
+//      that phase, so written in place).
+// On a wet/dry set the positivity limiter follows each stage (qstage's).
+// Step t takes the controls ctrls[b, t / spc].
+//
+// Each stage is the sharded stage kernel's (B7's) pass over the items: a
+// lane reads its own nodes of the stage's input, the two sides of its
+// trace nodes and, at the update, its base nodes, and holds nothing across
+// a grid barrier (held in registers, the step-start and stage-1 nodes
+// pushed the kernel into spills and cost a fifth of its time at N=3:
+// PERF.md). The blocks loop over the items where the grid is smaller than
+// the work, the same items every step.
+//
+// Stage times are formed in double, t0 + t dt and that plus dt/2, each sum
+// rounded by itself (no fused multiply-add), then rounded once to float:
+// the times a host forms for a one-step launch at t0 + t dt. The tidal
+// depth at a stage time is q_tide, which the adjoint's recompute of stage 1
+// (B6) takes too.
+
+// The stage times of step t from t0 and dt (see above).
+__device__ __forceinline__ void q_stage_times(double t0, double dt, int t,
+                                              float& t1, float& t2) {
+  const double ts = __dadd_rn(t0, __dmul_rn((double)t, dt));
+  t1 = __double2float_rn(ts);
+  t2 = __double2float_rn(__dadd_rn(ts, 0.5 * dt));
+}
+
+// The tidal depth at stage time tk: tidal_depth's formula with the cosine
+// as cospif, whose argument reduction is exact and short, where cosf's slow
+// path spills (the two differ by an ulp or two of the cosine).
+__device__ __forceinline__ float q_tide(const Ops& g, float tk) {
+  if (!g.has_tidal) return 0.0f;
+  const float ramp = g.tide_tau > 0.0f ? fminf(tk / g.tide_tau, 1.0f) : 1.0f;
+  return g.tide_h0 + g.tide_amp *
+         cospif(g.tide_omega * tk * 0.3183098861837907f) * ramp;
+}
+
+struct FwdArgs {
+  const float* fops;
+  const int* iops;
+  const float *h, *hu, *hv;  // (B, nV) initial states
+  const float* ctrls;        // (B, n_cs, n_ctrl) or null
+  float *oh, *ohu, *ohv;     // (B, nV) the state buffer: the final state
+  float *s1h, *s1hu, *s1hv;  // (B, nV) scratch: the stage-1 state
+  float *th, *thu, *thv;     // (B, n_steps+1, nV) trajectory or null
+  int B, n_steps, n_cs, spc, use_filter;
+  double dt, t0;
+};
+
+template <class Z>
+__global__ void __launch_bounds__(QMAX_THREADS, 2)
+    sw2d_blocked_rollout_kernel(SwDesc d, FwdArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const Ops g = make_ops(d, a.fops, a.iops);
+  q_setup_ops(g, smem);
+  __syncthreads();
+  float* scr = q_item_slots(q_ops_floats(g.Np, g.Ntr),
+                            q_item_floats(g.Np, g.Ntr), Z::P);
+  const int ipb = blockDim.x / Z::P, n_items = a.B * d.K;
+  const int Np = Z::np(g), ns = Z::nslots(g);
+  const size_t nV = (size_t)g.nV, trow = (size_t)(a.n_steps + 1) * nV;
+  const bool traj = a.th != nullptr, limit = g.wetdry != 0;
+  const bool sponge = g.has_sponge != 0;
+  const float dt = (float)a.dt;
+  const SendTo nosend = {nullptr, nullptr, 0};
+  // the step-start state of scenario b at step t, and where the step ends
+  auto start = [&](int b, int t) {
+    return t == 0 ? at(a.h, a.hu, a.hv, b * nV)
+           : traj ? at(a.th, a.thu, a.thv, b * trow + t * nV)
+                  : at(a.oh, a.ohu, a.ohv, b * nV);
+  };
+  auto end = [&](int b, int t) {
+    return traj ? atw(a.th, a.thu, a.thv, b * trow + (t + 1) * nV)
+                : atw(a.oh, a.ohu, a.ohv, b * nV);
+  };
+  auto ctrl_of = [&](const QLane& l, int t) -> const float* {
+    return a.ctrls == nullptr ? nullptr
+        : a.ctrls + ((size_t)l.b * a.n_cs + t / a.spc) * g.n_ctrl;
+  };
+  for (int t = 0; t < a.n_steps; ++t) {
+    float t1, t2;
+    q_stage_times(a.t0, a.dt, t, t1, t2);
+    const float hb1 = q_tide(g, t1);
+    for (int first = blockIdx.x * ipb; first < n_items;
+         first += gridDim.x * ipb) {
+      const QLane l = q_lane<Z>(first, n_items, a.B, d.K, 0, 0);
+      const P3 in = start(l.sc, t);
+      Own<Z> x, y;
+      load_own<Z>(g, l.e, l.p, in, x);
+      if (t == 0 && traj && l.active) {  // trajectory row 0
+        const W3 r0 = atw(a.th, a.thu, a.thv, l.sc * trow);
+#pragma unroll
+        for (int i = 0; i < ns; ++i) {
+          const int n = l.p + Z::P * i, v = l.e * Np + n;
+          if (n < Np) {
+            r0.a[v] = x.h[i]; r0.b[v] = x.hu[i]; r0.c[v] = x.hv[i];
+          }
+        }
+      }
+      qstage<Z, false>(g, smem, scr, l, in, x, x, in, y,
+                       atw(a.s1h, a.s1hu, a.s1hv, l.sc * nV), nosend,
+                       nullptr, 0.5f * dt, hb1, dt, ctrl_of(l, t),
+                       a.use_filter, limit, false);
+    }
+    grid.sync();
+    const float hb2 = q_tide(g, t2);
+    for (int first = blockIdx.x * ipb; first < n_items;
+         first += gridDim.x * ipb) {
+      const QLane l = q_lane<Z>(first, n_items, a.B, d.K, 0, 0);
+      const P3 in = at(a.s1h, a.s1hu, a.s1hv, l.sc * nV);
+      Own<Z> x, y;
+      load_own<Z>(g, l.e, l.p, in, x);
+      qstage<Z, false>(g, smem, scr, l, in, x, x, start(l.sc, t), y,
+                       end(l.sc, t), nosend, nullptr, dt, hb2, dt,
+                       ctrl_of(l, t), a.use_filter, limit, sponge);
+    }
+    if (t + 1 < a.n_steps) grid.sync();
   }
 }
 
@@ -1537,7 +1445,7 @@ struct BwdArgs {
   float* cpart;       // (B, n_cs, K, n_ctrl) scratch: items' shares
   float* tide;        // (n_steps, 2) scratch: tidal depth at t and t + dt/2
   int B, n_cs, spc, use_filter;
-  float dt, t0;
+  double dt, t0;
 };
 
 template <class Z>
@@ -1549,26 +1457,22 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
   __syncthreads();
   const int Np = Z::np(g), ns = Z::nslots(g), nc = Z::nc(g);
   const int n_steps = a.n_cs * a.spc;
+  const float dt = (float)a.dt;
   const size_t nV = (size_t)g.nV, fs = (size_t)a.B * nV;
   const size_t trow = (size_t)(n_steps + 1) * nV;
   const size_t n_part = (size_t)a.B * a.n_cs * d.K * nc;
   for (size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x; k < n_part;
        k += (size_t)gridDim.x * blockDim.x)
     a.cpart[k] = 0.0f;
-  // the tidal depths of every stage time (tidal_depth's formula with the
-  // cosine as cospif: its argument reduction is exact and short, where
-  // cosf's slow path would push this kernel into spills; the two differ
-  // by an ulp or two of the cosine)
+  // the tidal depths of every stage time, as the forward rollout takes
+  // them (q_stage_times, q_tide: computed once, a table)
   const bool tidal = g.has_tidal != 0;
   if (tidal)
     for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < 2 * n_steps;
          k += gridDim.x * blockDim.x) {
-      float tk = a.t0 + (float)(k >> 1) * a.dt;
-      if (k & 1) tk += 0.5f * a.dt;
-      const float ramp = g.tide_tau > 0.0f ? fminf(tk / g.tide_tau, 1.0f)
-                                           : 1.0f;
-      a.tide[k] = g.tide_h0 + g.tide_amp *
-                  cospif(g.tide_omega * tk * 0.3183098861837907f) * ramp;
+      float t1, t2;
+      q_stage_times(a.t0, a.dt, k >> 1, t1, t2);
+      a.tide[k] = q_tide(g, k & 1 ? t2 : t1);
     }
   grid.sync();
   auto tide = [&](int k) { return tidal ? __ldcg(a.tide + k) : 0.0f; };
@@ -1598,7 +1502,7 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
           return;
         }
         if (g.has_sponge) {  // the stored s_{t+1} is the relaxed state
-          const float fac = 1.0f / (1.0f + a.dt * __ldg(g.SPNG + v));
+          const float fac = 1.0f / (1.0f + dt * __ldg(g.SPNG + v));
           if (g.has_bathy) l1 *= fac;
           l2 *= fac; l3 *= fac;
         }
@@ -1608,7 +1512,7 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
         const int t1 = t + 1;
         const WFields asrc = {a.A + off, a.A + fs + off, a.A + 2 * fs + off};
         qvjp<Z>(g, smem, scr, l, at(a.th, a.thu, a.thv, l.sc * trow + t1 * nV),
-                nullptr, asrc, 0.5f * a.dt, tide(2 * t1), a.use_filter,
+                nullptr, asrc, 0.5f * dt, tide(2 * t1), a.use_filter,
                 [&](int v, float b1, float b2, float b3) {
                   const size_t o = off + v;
                   finish(v, b1 + (a.W[o] + a.A[o]),
@@ -1631,7 +1535,7 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
       load_own<Z>(g, l.e, l.p, st, x);
       qstage<Z, false>(g, smem, scr, l, st, x, x, st, sh,
                       atw(a.sh, a.sh + fs, a.sh + 2 * fs, off), nosend,
-                      nullptr, 0.5f * a.dt, tide(2 * t), a.dt,
+                      nullptr, 0.5f * dt, tide(2 * t), dt,
                       a.ctrls + ((size_t)l.sc * a.n_cs + t / a.spc) * nc,
                       a.use_filter, false, false);
     }
@@ -1646,7 +1550,7 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
       const WFields wsrc = {a.W + off, a.W + fs + off, a.W + 2 * fs + off};
       float *A1 = a.A + off, *A2 = a.A + fs + off, *A3 = a.A + 2 * fs + off;
       qvjp<Z>(g, smem, scr, l, at(a.sh, a.sh + fs, a.sh + 2 * fs, off),
-              nullptr, wsrc, a.dt, tide(2 * t + 1), a.use_filter,
+              nullptr, wsrc, dt, tide(2 * t + 1), a.use_filter,
               [&](int v, float b1, float b2, float b3) {
                 A1[v] = b1; A2[v] = b2; A3[v] = b3;
               },
@@ -1687,22 +1591,29 @@ typedef void (*StageKern)(SwDesc, StageArgs);
 typedef void (*RdmaKern)(SwDesc, RdmaArgs);
 typedef void (*StageBwdKern)(SwDesc, StageBwdArgs);
 typedef void (*BwdKern)(SwDesc, BwdArgs);
+typedef void (*FwdKern)(SwDesc, FwdArgs);
 
 // The instantiation of the q kernels for a set: N=3 with two controls (the
 // MPC's), N=3 with others (a set built without injectors has one, which
-// its rollouts never read), else the run-time sizes (-1 past their room).
+// its rollouts never read), N=6 (the forward kernels' own), else the
+// run-time sizes (-1 past their room).
 static int q_kind(const SwDesc& d) {
   if (d.Nfaces != 3 || d.Np > QMAX_NP || d.Nfp > QMAX_NFP) return -1;
   if (d.Np == 10 && d.Nfp == 4) return d.n_ctrl == 2 ? 0 : 1;
+  if (d.Np == 28 && d.Nfp == 7) return 3;
   return 2;
 }
 
+// (order6: null where the kernel takes the run-time sizes at N=6, as the
+// adjoints do)
 template <class K>
-static K q_pick(const SwDesc& d, K order3_ctrl, K order3, K any_order) {
+static K q_pick(const SwDesc& d, K order3_ctrl, K order3, K any_order,
+                K order6) {
   switch (q_kind(d)) {
     case 0: return order3_ctrl;
     case 1: return order3;
     case 2: return any_order;
+    case 3: return order6 != nullptr ? order6 : any_order;
     default: return nullptr;
   }
 }
@@ -1710,13 +1621,22 @@ static K q_pick(const SwDesc& d, K order3_ctrl, K order3, K any_order) {
 static StageKern stage_kernel_of(const SwDesc& d) {
   return q_pick<StageKern>(d, sw2d_stage_kernel<QOrder3Ctrl>,
                            sw2d_stage_kernel<QOrder3>,
-                           sw2d_stage_kernel<QAnyOrder>);
+                           sw2d_stage_kernel<QAnyOrder>,
+                           sw2d_stage_kernel<QOrder6>);
 }
 
 static RdmaKern rdma_kernel_of(const SwDesc& d) {
   return q_pick<RdmaKern>(d, sw2d_step_rdma_kernel<QOrder3Ctrl>,
                           sw2d_step_rdma_kernel<QOrder3>,
-                          sw2d_step_rdma_kernel<QAnyOrder>);
+                          sw2d_step_rdma_kernel<QAnyOrder>,
+                          sw2d_step_rdma_kernel<QOrder6>);
+}
+
+static FwdKern rollout_kernel_of(const SwDesc& d) {
+  return q_pick<FwdKern>(d, sw2d_blocked_rollout_kernel<QOrder3Ctrl>,
+                         sw2d_blocked_rollout_kernel<QOrder3>,
+                         sw2d_blocked_rollout_kernel<QAnyOrder>,
+                         sw2d_blocked_rollout_kernel<QOrder6>);
 }
 
 // The N=1 set with two controls, which has a wide instantiation.
@@ -1728,24 +1648,27 @@ static bool q_order1_ctrl(const SwDesc& d) {
 static StageBwdKern stage_bwd_kernel_of(const SwDesc& d, int lanes) {
   if (lanes == 16)
     return q_pick<StageBwdKern>(d, sw2d_stage_bwd_kernel<QOrder3CtrlWide>,
-                                sw2d_stage_bwd_kernel<QOrder3Wide>, nullptr);
+                                sw2d_stage_bwd_kernel<QOrder3Wide>, nullptr,
+                                nullptr);
   if (lanes == 8)
     return q_order1_ctrl(d) ? sw2d_stage_bwd_kernel<QOrder1CtrlWide> : nullptr;
   return q_pick<StageBwdKern>(d, sw2d_stage_bwd_kernel<QOrder3Ctrl>,
                               sw2d_stage_bwd_kernel<QOrder3>,
-                              sw2d_stage_bwd_kernel<QAnyOrder>);
+                              sw2d_stage_bwd_kernel<QAnyOrder>, nullptr);
 }
 
 static BwdKern rollout_bwd_kernel_of(const SwDesc& d) {
   return q_pick<BwdKern>(d, sw2d_blocked_rollout_bwd_kernel<QOrder3Ctrl>,
                          sw2d_blocked_rollout_bwd_kernel<QOrder3>,
-                         sw2d_blocked_rollout_bwd_kernel<QAnyOrder>);
+                         sw2d_blocked_rollout_bwd_kernel<QAnyOrder>,
+                         nullptr);
 }
 
 // The q kernels, as the launcher numbers them: the sharded stage (B7), the
 // one-launch step (B9), the sharded stage's adjoint (B8), the blocked
-// rollout's adjoint (B6).
-enum { Q_STAGE = 0, Q_STEP = 1, Q_STAGE_BWD = 2, Q_ROLLOUT_BWD = 3 };
+// rollout's adjoint (B6), the blocked rollout (B5, and B4 with one step).
+enum { Q_STAGE = 0, Q_STEP = 1, Q_STAGE_BWD = 2, Q_ROLLOUT_BWD = 3,
+       Q_ROLLOUT = 4 };
 
 static const void* q_kernel(const SwDesc& d, int which, int lanes) {
   switch (which) {
@@ -1753,12 +1676,21 @@ static const void* q_kernel(const SwDesc& d, int which, int lanes) {
     case Q_STEP: return (const void*)rdma_kernel_of(d);
     case Q_STAGE_BWD: return (const void*)stage_bwd_kernel_of(d, lanes);
     case Q_ROLLOUT_BWD: return (const void*)rollout_bwd_kernel_of(d);
+    case Q_ROLLOUT: return (const void*)rollout_kernel_of(d);
     default: return nullptr;
   }
 }
 
-// Lanes an item: a face's nodes at N=3, one otherwise.
-static int q_lanes(const SwDesc& d) { return q_kind(d) == 2 ? 1 : 4; }
+// Lanes an item of kernel `which`: a face's nodes at N=3; QOrder6's at
+// N=6 in the forward kernels; one otherwise.
+static int q_lanes(const SwDesc& d, int which) {
+  const bool adjoint = which == Q_STAGE_BWD || which == Q_ROLLOUT_BWD;
+  switch (q_kind(d)) {
+    case 2: return 1;
+    case 3: return adjoint ? 1 : QOrder6::P;
+    default: return 4;
+  }
+}
 
 // Shared memory of one block of `threads` threads of kernel `which`,
 // `lanes` an item.
@@ -1780,8 +1712,8 @@ static size_t q_bytes(const SwDesc& d, int which, int threads, int lanes) {
 // threads that still gives every SM a block and whose shared memory fits
 // the device's limit a block; the grid of an ordinary launch (the stage
 // and its adjoint) covers every item, that of a cooperative one (the step,
-// the rollout's adjoint) is what is co-resident (its blocks loop over the
-// rest). The stage adjoint takes 16 lanes an element at N=3 (8 at N=1
+// the blocked rollout and its adjoint) is what is co-resident (its blocks
+// loop over the rest). The stage adjoint takes 16 lanes an element at N=3 (8 at N=1
 // with two controls) where its narrow items would give the SMs less than a
 // block of 256 threads each (both shapes of the sharded MPC's path: an
 // element's chain, not the SMs' instruction rate, sets the time there).
@@ -1795,7 +1727,7 @@ static int q_plan(const SwDesc& d, int S, int B, int which, int* plan,
   int dev = 0, sms = 0, can = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int P = q_lanes(d);
+  int P = q_lanes(d, which);
   if (which == Q_STAGE_BWD &&
       (long long)S * B * d.K * P < (long long)sms * QMAX_THREADS) {
     if (P == 4) P = 16;
@@ -1806,7 +1738,8 @@ static int q_plan(const SwDesc& d, int S, int B, int which, int* plan,
   if (kern == nullptr || S * fstride > 0x7fffffffLL ||
       S * istride > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const bool coop = which == Q_STEP || which == Q_ROLLOUT_BWD;
+  const bool coop =
+      which == Q_STEP || which == Q_ROLLOUT_BWD || which == Q_ROLLOUT;
   const long long lanes = (long long)S * B * d.K * P;
   int threads = 32, optin = 0;
   for (int t = QMAX_THREADS; t >= 32; t /= 2)
@@ -1861,12 +1794,6 @@ static int q_launch(void (*kern)(SwDesc, Args), const SwDesc& d,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs with chunks of E elements.
-long long sw2d_blocked_smem_bytes(const SwDesc* d, int E) {
-  Ops o = make_ops(*d, nullptr, nullptr);
-  return (long long)(smem_floats(o, E) * sizeof(float));
-}
-
 // Blocks of the last launch (for reporting).
 int sw2d_blocked_last_grid() { return g_last_grid; }
 
@@ -1880,44 +1807,24 @@ int sw2d_blocked_barrier_probe(int n, int grid, int threads, void* stream) {
   return (int)cudaGetLastError();
 }
 
-static int launch_forward(const void* kern, const SwDesc* d,
-                          const float* fops, const int* iops, FwdArgs a,
-                          int threads, void* stream) {
-  Ops o = make_ops(*d, fops, iops);
-  const size_t bytes = smem_floats(o, a.E) * sizeof(float);
-  const int n_units = a.B * ((o.K + a.E - 1) / a.E);
-  void* args[] = {&o, &a};
-  return coop_launch(kern, args, n_units, threads, bytes, stream);
-}
-
-// ctrl: (B, n_ctrl) or null. s1: 3*B*nV floats of scratch.
-int sw2d_blocked_step(const SwDesc* d, const float* fops, const int* iops,
-                      const float* h, const float* hu, const float* hv,
-                      const float* ctrl, float* oh, float* ohu, float* ohv,
-                      float* s1, int B, float dt, float t0, int use_filter,
-                      int E, int threads, void* stream) {
-  const size_t n = (size_t)B * d->K * d->Np;
-  FwdArgs a = {h, hu, hv, ctrl, oh, ohu, ohv, s1, s1 + n, s1 + 2 * n,
-               nullptr, nullptr, nullptr, B, 1, 1, 1, E, use_filter, dt, t0};
-  return launch_forward((const void*)sw2d_blocked_step_kernel, d, fops, iops,
-                        a, threads, stream);
-}
-
-// ctrls: (B, n_cs, n_ctrl) or null. With th/thu/thv (B, n_steps+1, nV) the
-// trajectory is stored and oh/ohu/ohv are not touched; without, the final
-// state goes to oh/ohu/ohv. s1: 3*B*nV floats of scratch.
+// n_steps SSP-RK2 steps of B scenarios in one cooperative launch (one
+// step and one control row: the step). ctrls: (B, n_cs, n_ctrl) or null,
+// step t taking row t / spc. With th/thu/thv (B, n_steps+1, nV) the
+// step-start trajectory is stored and oh/ohu/ohv are not touched; without,
+// the final state goes to oh/ohu/ohv. s1: 3*B*nV floats of scratch; plan:
+// sw2d_shard_plan's for (1, B, 4).
 int sw2d_blocked_rollout(const SwDesc* d, const float* fops, const int* iops,
                          const float* h, const float* hu, const float* hv,
                          const float* ctrls, float* oh, float* ohu,
                          float* ohv, float* th, float* thu, float* thv,
                          float* s1, int B, int n_steps, int n_cs, int spc,
-                         float dt, float t0, int use_filter, int E,
-                         int threads, void* stream) {
+                         double dt, double t0, int use_filter,
+                         const int* plan, void* stream) {
   const size_t n = (size_t)B * d->K * d->Np;
-  FwdArgs a = {h, hu, hv, ctrls, oh, ohu, ohv, s1, s1 + n, s1 + 2 * n,
-               th, thu, thv, B, n_steps, n_cs, spc, E, use_filter, dt, t0};
-  return launch_forward((const void*)sw2d_blocked_rollout_kernel, d, fops,
-                        iops, a, threads, stream);
+  FwdArgs a = {fops, iops, h, hu, hv, ctrls, oh, ohu, ohv, s1, s1 + n,
+               s1 + 2 * n, th, thu, thv, B, n_steps, n_cs, spc, use_filter,
+               dt, t0};
+  return q_launch(rollout_kernel_of(*d), *d, a, plan, true, stream);
 }
 
 // The reverse sweep of a blocked rollout of B scenarios: from the stored
@@ -1932,7 +1839,7 @@ int sw2d_blocked_rollout_bwd(const SwDesc* d, const float* fops,
                              const float* tbhv, const float* ctrls,
                              float* xbh, float* xbhu, float* xbhv,
                              float* cbar, float* work, int B, int n_cs,
-                             int spc, float dt, float t0, int use_filter,
+                             int spc, double dt, double t0, int use_filter,
                              const int* plan, void* stream) {
   const size_t n3 = (size_t)3 * B * d->K * d->Np;
   BwdArgs a;

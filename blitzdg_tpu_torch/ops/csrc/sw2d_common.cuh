@@ -1,7 +1,7 @@
 // Shallow-water device functions shared by the dense kernels
 // (sw2d_dense.cu: one thread per element and scenario, a tile of scenarios
-// in shared memory) and the blocked kernels (sw2d_blocked.cu: one block per
-// chunk of elements, neighbours read from global memory): the operator
+// in shared memory) and the blocked kernels (sw2d_blocked.cu: a few lanes
+// of a warp an element, neighbours read from global memory): the operator
 // set, everything a trace node needs from the state, the pointwise flux,
 // source and limiter formulas, and the pointwise parts of the
 // hand-derived adjoint. The curved kernels (sw2d_curved.cu) have an
@@ -202,28 +202,6 @@ __device__ __forceinline__ void trace_finish(const Ops& o, float h_bc,
   }
   tv.spdM = safe_norm(tv.uM, tv.vM) + sqrtf(o.g * tv.hMs);
   tv.spdP = safe_norm(tv.uP, tv.vP) + sqrtf(o.g * tv.hPs);
-}
-
-// h, hu, hv: one scenario's state, indexed by global volume node (shared or
-// global memory); i: global trace node. rb: one scenario's (n_recv, 3)
-// receive buffer of a shard, read where vmapP points past the local nodes
-// (cut faces), or null.
-__device__ __forceinline__ void trace_values(
-    const Ops& o, int i, const float* h, const float* hu, const float* hv,
-    float h_bc, TraceVals& tv, const float* rb = nullptr) {
-  const int vm = o.vmapM[i], vp = o.vmapP[i];
-  tv.nx = o.nx[i]; tv.ny = o.ny[i];
-  tv.hM = h[vm];
-  tv.huM = hu[vm]; tv.hvM = hv[vm];
-  if (rb != nullptr && vp >= o.nV) {
-    const float* r = rb + 3 * (vp - o.nV);
-    tv.hP = r[0]; tv.huP = r[1]; tv.hvP = r[2];
-  } else {
-    tv.hP = h[vp]; tv.huP = hu[vp]; tv.hvP = hv[vp];
-  }
-  const bool depths = o.wb || o.wetdry;
-  trace_finish(o, h_bc, o.wall[i] != 0.0f, o.has_tidal ? o.obc[i] : 0.0f,
-               depths ? o.HMt[i] : 0.0f, depths ? o.HPt[i] : 0.0f, tv);
 }
 
 // The jumps dq_i that the Lax-Friedrichs speed multiplies.
@@ -481,12 +459,6 @@ __device__ __forceinline__ void add_sources_at(
       r3 += ctrl[c] * bc[c].y;
     }
   }
-}
-
-struct Vec3 { float *a, *b, *c; };
-
-__device__ __forceinline__ Vec3 carve(float*& p, int n) {
-  Vec3 v; v.a = p; v.b = p + n; v.c = p + 2 * n; p += 3 * n; return v;
 }
 
 template <typename Kern>

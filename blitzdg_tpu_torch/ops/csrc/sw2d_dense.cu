@@ -318,7 +318,7 @@ __device__ __forceinline__ void publish(const Ops& o, const float* r,
   }
 }
 
-// trace_values of the element's trace node j from a published state.
+// The trace values of the element's trace node j from a published state.
 template <class Z>
 __device__ __forceinline__ void trace_at(const Ops& o, const float* r,
                                          const Pub& S, int k, int j, int b,

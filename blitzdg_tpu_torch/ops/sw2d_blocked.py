@@ -10,12 +10,13 @@ path's stage kernels ``sw2d_stage_blocked`` (lean-I/O mode only) and
 ``sw2d_step_rdma_blocked``, over a ``ShardOps`` set, which
 ``parallel/blocked_shard.py`` builds and drives). The dense kernels
 (``sw2d_fused.py``) hold one scenario's whole mesh in one block, a
-thread an element, which ends at a few hundred elements. Here the mesh is split over blocks
-and neighbours are read from global memory (``csrc/sw2d_blocked.cu``): the
-forward step and rollout take chunks of elements a block, grid-wide
-barriers separating the RK stages inside one persistent cooperative launch;
-the sharded kernels and both adjoints take a few lanes of a warp an
-element, on one stage (``qstage``) and its adjoint (``qvjp``).
+thread an element, which ends at a few hundred elements. Here the mesh is
+split over blocks and neighbours are read from global memory
+(``csrc/sw2d_blocked.cu``): every kernel takes a few lanes of a warp an
+element, on one RK stage (``qstage``) and its adjoint (``qvjp``); the
+forward rollout (and the step: a rollout of one step) and the rollout's
+adjoint are one persistent cooperative launch each, grid-wide barriers
+separating the RK stages.
 
 Physics: everything ``sw2d_fused.py`` covers (wall reflection, tidal BC_OUT
 depth at the stage time, well-balanced star fluxes over bathymetry, bed
@@ -56,15 +57,11 @@ import torch
 from ..context import DGContext2D
 from .limiters import positivity_preserving_limiter
 from .sw2d import SWPhysics
-from .sw2d_fused import (MAX_SMEM_BYTES, FusedStepMeta, FusedStepOps, _SwDesc,
-                         _check_tensor, _desc, _eval_rhs_plain,
-                         _eval_rhs_vjp_plain, _launch_check, _launch_stream,
-                         _np64, _operator_arrays, _ops_from_arrays)
+from .sw2d_fused import (FusedStepMeta, FusedStepOps, _SwDesc, _check_tensor,
+                         _desc, _eval_rhs_plain, _eval_rhs_vjp_plain,
+                         _launch_check, _launch_stream, _np64,
+                         _operator_arrays, _ops_from_arrays)
 
-# Threads of one block of the forward step and rollout. They loop over nodes
-# with this stride, so any multiple of 32 is valid. (The q kernels plan
-# their own block size: ``shard_plan``.)
-THREADS = 256
 # Kernel launches on the device per call of a wrapper: one each (the
 # stages, where there are several, separated by grid barriers inside it).
 DEVICE_LAUNCHES_PER_CALL = 1
@@ -347,12 +344,6 @@ def sw2d_stage_bwd_blocked_v2_plain(ops: ShardOps, meta: BlockedMeta, cur,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def chunk_elems(meta: BlockedMeta) -> int:
-    """Elements per work unit: as many as give every thread of a block at
-    most one trace node per pass."""
-    return max(1, min(meta.k_elem, THREADS // (meta.n_faces * meta.n_fp)))
-
-
 def _lib():
     """The compiled kernels with their argument types set (built at first
     use; needs nvcc and a CUDA device)."""
@@ -363,17 +354,15 @@ def _lib():
         return lib
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     D = ctypes.POINTER(_SwDesc)
-    lib.sw2d_blocked_smem_bytes.argtypes = [D, I]
-    lib.sw2d_blocked_smem_bytes.restype = ctypes.c_longlong
     lib.sw2d_blocked_last_grid.argtypes = []
     lib.sw2d_blocked_last_grid.restype = I
     lib.sw2d_blocked_barrier_probe.argtypes = [I, I, I, P]
     lib.sw2d_blocked_barrier_probe.restype = I
-    lib.sw2d_blocked_step.argtypes = [D, P, P] + [P] * 8 + [I, F, F, I, I, I, P]
+    Dbl = ctypes.c_double
     lib.sw2d_blocked_rollout.argtypes = (
-        [D, P, P] + [P] * 11 + [I, I, I, I, F, F, I, I, I, P])
+        [D, P, P] + [P] * 11 + [I, I, I, I, Dbl, Dbl, I, P, P])
     lib.sw2d_blocked_rollout_bwd.argtypes = (
-        [D, P, P] + [P] * 12 + [I, I, I, F, F, I, P, P])
+        [D, P, P] + [P] * 12 + [I, I, I, Dbl, Dbl, I, P, P])
     L = ctypes.c_longlong
     lib.sw2d_shard_plan.argtypes = [D, I, I, I, L, L, P]
     lib.sw2d_stage.argtypes = ([D, P, P, L, L, I, I] + [P] * 12
@@ -382,7 +371,7 @@ def _lib():
                                    + [F, F, I, I, P, P])
     lib.sw2d_step_rdma.argtypes = ([D, P, P, L, L, I, I] + [P] * 12
                                    + [F, F, F, I, I, P, P])
-    for fn in (lib.sw2d_blocked_step, lib.sw2d_blocked_rollout,
+    for fn in (lib.sw2d_blocked_rollout,
                lib.sw2d_blocked_rollout_bwd, lib.sw2d_shard_plan,
                lib.sw2d_stage, lib.sw2d_stage_bwd, lib.sw2d_step_rdma):
         fn.restype = I
@@ -401,18 +390,7 @@ def _check_kernel_inputs(ops: BlockedOps, meta: BlockedMeta,
         raise ValueError("operator set and state lie on different devices")
     lib = _lib()
     n_halo = ops.send.shape[-1] if isinstance(ops, ShardOps) else 0
-    desc = _desc(meta, blocked=True, n_recv=n_halo, n_send=n_halo)
-    E = chunk_elems(meta)
-    need = lib.sw2d_blocked_smem_bytes(ctypes.byref(desc), E)
-    while need > MAX_SMEM_BYTES and E > 1:  # high orders: smaller chunks
-        E = max(1, E // 2)
-        need = lib.sw2d_blocked_smem_bytes(ctypes.byref(desc), E)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"Np={meta.n_p} needs {need} bytes of shared memory per block "
-            f"even with one element per block; a block can have "
-            f"{MAX_SMEM_BYTES}")
-    return lib, desc, E
+    return lib, _desc(meta, blocked=True, n_recv=n_halo, n_send=n_halo)
 
 
 def _ptr(t):
@@ -429,8 +407,8 @@ def _stream(t: torch.Tensor):
 # issues nothing but the launch and can be captured into a CUDA graph.
 # The kernels, as the launcher numbers them: the sharded stage (B7), the
 # one-launch step (B9), the sharded stage's adjoint (B8), the blocked
-# rollout's adjoint (B6).
-_STAGE, _RDMA, _STAGE_BWD, _ROLLOUT_BWD = 0, 1, 2, 3
+# rollout's adjoint (B6), the blocked rollout (B5; B4 a rollout of one step).
+_STAGE, _RDMA, _STAGE_BWD, _ROLLOUT_BWD, _ROLLOUT = 0, 1, 2, 3, 4
 _plans: dict = {}
 # The room of the kernels' run-time-size arrays (QMAX_NP in the source): N=6.
 SHARD_MAX_NP = 28
@@ -441,9 +419,9 @@ def _shard_plan(lib, desc, ops: BlockedOps, B: int, which: int):
     ``BlockedOps`` set) at ``B`` scenarios."""
     if desc.Nfaces != 3 or desc.Np > SHARD_MAX_NP:
         raise ValueError(
-            "the sharded stage kernels and the blocked adjoint take "
-            f"triangles of order N <= 6 (at most {SHARD_MAX_NP} nodes an "
-            f"element); this set has {desc.Np} nodes, {desc.Nfaces} faces")
+            "the blocked and sharded kernels take triangles of order N <= 6 "
+            f"(at most {SHARD_MAX_NP} nodes an element); this set has "
+            f"{desc.Np} nodes, {desc.Nfaces} faces")
     if isinstance(ops, ShardOps):
         S, fs, is_ = ops.send.shape[0], ops.fbuf.shape[1], ops.ibuf.shape[1]
     else:
@@ -469,15 +447,23 @@ def shard_plan(ops: ShardOps, meta: BlockedMeta, batch: int,
     one-launch step kernel; with ``adjoint``, of the stage's adjoint) over
     ``ops``'s shards at ``batch`` scenarios: threads a block, blocks, bytes
     of shared memory a block, lanes an element (needs the card)."""
-    lib, desc, _ = _check_kernel_inputs(ops, meta, ops.fbuf)
+    lib, desc = _check_kernel_inputs(ops, meta, ops.fbuf)
     which = _RDMA if step else _STAGE_BWD if adjoint else _STAGE
     return _plan_dict(_shard_plan(lib, desc, ops, batch, which))
+
+
+def rollout_plan(ops: BlockedOps, meta: BlockedMeta, batch: int) -> dict:
+    """The launch plan of the kernel of ``sw2d_rollout_blocked`` and
+    ``sw2d_step_blocked`` at ``batch`` scenarios, as ``shard_plan`` gives it
+    (needs the card)."""
+    lib, desc = _check_kernel_inputs(ops, meta, ops.fbuf)
+    return _plan_dict(_shard_plan(lib, desc, ops, batch, _ROLLOUT))
 
 
 def rollout_bwd_plan(ops: BlockedOps, meta: BlockedMeta, batch: int) -> dict:
     """The launch plan of ``sw2d_rollout_bwd_blocked``'s kernel at ``batch``
     scenarios, as ``shard_plan`` gives it (needs the card)."""
-    lib, desc, _ = _check_kernel_inputs(ops, meta, ops.fbuf)
+    lib, desc = _check_kernel_inputs(ops, meta, ops.fbuf)
     return _plan_dict(_shard_plan(lib, desc, ops, batch, _ROLLOUT_BWD))
 
 
@@ -486,13 +472,13 @@ def last_grid() -> int:
     return int(_lib().sw2d_blocked_last_grid())
 
 
-def barrier_probe(n_barriers: int, grid: int, device) -> None:
-    """Launch ``grid`` co-resident blocks that pass ``n_barriers`` grid
-    barriers and do nothing else: timed by a caller, it gives the cost of
-    one barrier of the kernels above (a measuring aid, not part of any
-    solver path)."""
+def barrier_probe(n_barriers: int, grid: int, threads: int, device) -> None:
+    """Launch ``grid`` co-resident blocks of ``threads`` threads that pass
+    ``n_barriers`` grid barriers and do nothing else: timed by a caller, it
+    gives the cost of one barrier of the kernels above (a measuring aid, not
+    part of any solver path)."""
     err = _lib().sw2d_blocked_barrier_probe(
-        int(n_barriers), int(grid), THREADS,
+        int(n_barriers), int(grid), int(threads),
         torch.cuda.current_stream(device).cuda_stream)
     _launch_check(err, "barrier_probe")
 
@@ -511,9 +497,10 @@ def sw2d_step_blocked(ops: BlockedOps, meta: BlockedMeta, h, hu, hv, ctrl,
 
     Replaces the TPU kernel ``_step_kernel`` / ``sw2d_step_blocked`` of
     ``blitzdg_tpu/ops/sw2d_blocked.py``. Bound by operations (6 nV floats of
-    traffic against some hundred operations per node). The mesh is split
-    over thread blocks and the two stages are separated by a grid barrier
-    inside one cooperative launch; design: see the source of the kernels.
+    traffic against some hundred operations per node). The kernel of
+    ``sw2d_rollout_blocked``, launched for one step: step t of a rollout
+    from ``t0`` is this step from ``t0 + t * dt``, bit for bit. Takes N <= 6
+    and raises above.
     """
     B = _check_state(meta, h, hu, hv)
     if ctrl is not None:
@@ -521,17 +508,10 @@ def sw2d_step_blocked(ops: BlockedOps, meta: BlockedMeta, h, hu, hv, ctrl,
     if h.device.type == "cpu":
         return sw2d_step_blocked_plain(ops, meta, h, hu, hv, ctrl, dt, t0,
                                        use_filter)
-    lib, desc, E = _check_kernel_inputs(ops, meta, h)
-    oh, ohu, ohv = (torch.empty_like(h) for _ in range(3))
-    s1 = torch.empty((3, B, meta.n_v), dtype=h.dtype, device=h.device)
-    err = lib.sw2d_blocked_step(
-        ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
-        h.data_ptr(), hu.data_ptr(), hv.data_ptr(), _ptr(ctrl),
-        oh.data_ptr(), ohu.data_ptr(), ohv.data_ptr(), s1.data_ptr(), B,
-        float(dt), float(t0), int(use_filter), E, THREADS, _stream(h))
-    _launch_check(err, "sw2d_step_blocked")
+    _, final = _run_rollout(ops, meta, (h, hu, hv), ctrl, 1, dt, 1, 1, t0,
+                            use_filter, False)
     sw2d_step_blocked.launches += 1
-    return oh, ohu, ohv
+    return final
 
 
 sw2d_step_blocked.launches = 0
@@ -551,9 +531,11 @@ def sw2d_rollout_blocked(ops: BlockedOps, meta: BlockedMeta, h, hu, hv, ctrls,
     Replaces the TPU kernel ``_rollout_kernel`` / ``sw2d_rollout_blocked``
     of ``blitzdg_tpu/ops/sw2d_blocked.py``. Bound by operations: 2 n_steps
     RHS evaluations against one state in, one out (plus the trajectory when
-    stored). The state stays in the L2 cache across steps and each stage
-    ends in a grid barrier; at B = 8 gather latency, not arithmetic, sets
-    the time (measurements: PERF.md).
+    stored). One cooperative launch on the sharded kernels' stage
+    (``qstage``: four lanes of a warp an element at N=3, eight at N=6, one
+    at other orders), two grid barriers a step, the block size planned once
+    a shape (``rollout_plan``); design: see the source of the kernels,
+    measurements: PERF.md. Takes N <= 6 and raises above.
     """
     B = _check_state(meta, h, hu, hv)
     if ctrls is not None:
@@ -567,29 +549,44 @@ def sw2d_rollout_blocked(ops: BlockedOps, meta: BlockedMeta, h, hu, hv, ctrls,
         return sw2d_rollout_blocked_plain(ops, meta, h, hu, hv, ctrls, dt,
                                           spc, n_steps, t0, use_filter,
                                           store_traj)
-    lib, desc, E = _check_kernel_inputs(ops, meta, h)
-    new = lambda *shape: torch.empty(shape, dtype=h.dtype, device=h.device)
-    s1 = new(3, B, meta.n_v)
-    if store_traj:
-        traj = [new(B, n_steps + 1, meta.n_v) for _ in range(3)]
-        final = [None] * 3
-    else:
-        traj = [None] * 3
-        final = [new(B, meta.n_v) for _ in range(3)]
-    err = lib.sw2d_blocked_rollout(
-        ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
-        h.data_ptr(), hu.data_ptr(), hv.data_ptr(), _ptr(ctrls),
-        *(_ptr(f) for f in final), *(_ptr(f) for f in traj), s1.data_ptr(),
-        B, n_steps, 0 if ctrls is None else ctrls.shape[1], int(spc),
-        float(dt), float(t0), int(use_filter), E, THREADS, _stream(h))
-    _launch_check(err, "sw2d_rollout_blocked")
+    traj, final = _run_rollout(
+        ops, meta, (h, hu, hv), ctrls,
+        0 if ctrls is None else ctrls.shape[1], dt, spc, n_steps, t0,
+        use_filter, store_traj)
     sw2d_rollout_blocked.launches += 1
     if store_traj:
         return (*traj, *(f[:, -1] for f in traj))
-    return tuple(final)
+    return final
 
 
 sw2d_rollout_blocked.launches = 0
+
+
+def _run_rollout(ops: BlockedOps, meta: BlockedMeta, state, ctrls, n_cs, dt,
+                 spc, n_steps, t0, use_filter, store_traj):
+    """The forward kernel's launch (the shapes checked by the caller):
+    ``n_steps`` steps from ``state``, ``ctrls`` (B, n_cs, n_ctrl) or None
+    (one step: (B, n_ctrl)). Returns the trajectory triple and the final
+    triple, the one not asked for as Nones."""
+    h = state[0]
+    lib, desc = _check_kernel_inputs(ops, meta, h)
+    B = h.shape[0]
+    plan = _shard_plan(lib, desc, ops, B, _ROLLOUT)
+    new = lambda *shape: torch.empty(shape, dtype=h.dtype, device=h.device)
+    s1 = new(3, B, meta.n_v)
+    if store_traj:
+        traj = tuple(new(B, n_steps + 1, meta.n_v) for _ in range(3))
+        final = (None,) * 3
+    else:
+        traj, final = (None,) * 3, tuple(new(B, meta.n_v) for _ in range(3))
+    err = lib.sw2d_blocked_rollout(
+        ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
+        *(f.data_ptr() for f in state), _ptr(ctrls),
+        *(_ptr(f) for f in final), *(_ptr(f) for f in traj), s1.data_ptr(),
+        B, n_steps, n_cs, int(spc), float(dt), float(t0), int(use_filter),
+        plan, _launch_stream(h))
+    _launch_check(err, "sw2d_rollout_blocked")
+    return traj, final
 
 
 def sw2d_rollout_bwd_blocked(ops: BlockedOps, meta: BlockedMeta,
@@ -639,7 +636,7 @@ def _run_rollout_bwd(ops: BlockedOps, meta: BlockedMeta, traj, tb, ctrls, dt,
                      spc, t0, use_filter):
     """The rollout adjoint kernel's launch (the shapes checked by the
     caller)."""
-    lib, desc, _ = _check_kernel_inputs(ops, meta, traj[0])
+    lib, desc = _check_kernel_inputs(ops, meta, traj[0])
     B, n_cs = ctrls.shape[:2]
     plan = _shard_plan(lib, desc, ops, B, _ROLLOUT_BWD)
     new = lambda *shape: torch.empty(shape, dtype=traj[0].dtype,
@@ -730,8 +727,8 @@ def sw2d_stage_blocked(ops: ShardOps, meta: BlockedMeta, base, cur, rb,
     (lean-I/O mode) of ``blitzdg_tpu/ops/sw2d_blocked.py``. Bound by
     bytes: six state reads and three writes against one RHS per node, whose
     operations take less time on the card than the bytes' transfer. One
-    ordinary launch covers every shard, four lanes an element at N=3 (one
-    at other orders), the block size planned once a shape
+    ordinary launch covers every shard, four lanes an element at N=3,
+    eight at N=6, one at other orders, the block size planned once a shape
     (``shard_plan``); design: see the source of the kernels.
     """
     _check_stage(ops, meta, {"base_h": base[0], "base_hu": base[1],
@@ -754,7 +751,7 @@ sw2d_stage_blocked.launches = 0
 def _run_stage(ops: ShardOps, meta: BlockedMeta, base, cur, rb, c_dt, t,
                ctrl, use_filter, apply_sponge):
     """The stage kernel's launch (the shapes checked by the caller)."""
-    lib, desc, _ = _check_kernel_inputs(ops, meta, rb)
+    lib, desc = _check_kernel_inputs(ops, meta, rb)
     S, B = rb.shape[:2]
     plan = _shard_plan(lib, desc, ops, B, _STAGE)
     out = [torch.empty_like(cur[0]) for _ in range(3)]
@@ -821,7 +818,7 @@ def _run_stage_bwd(ops: ShardOps, meta: BlockedMeta, cur, rb, lam_out,
                    lam_sb, c_dt, t, ctrl, use_filter, apply_sponge):
     """The stage adjoint kernel's launch (the shapes checked by the
     caller)."""
-    lib, desc, _ = _check_kernel_inputs(ops, meta, rb)
+    lib, desc = _check_kernel_inputs(ops, meta, rb)
     S, B = rb.shape[:2]
     plan = _shard_plan(lib, desc, ops, B, _STAGE_BWD)
     new = lambda: torch.empty_like(cur[0])
@@ -933,7 +930,7 @@ class RdmaLaunch:
         """The kernel's launch (the shapes checked by the caller)."""
         ops, meta = self.ops, self.meta
         if self._head is None:
-            lib, desc, _ = _check_kernel_inputs(ops, meta, ops.fbuf)
+            lib, desc = _check_kernel_inputs(ops, meta, ops.fbuf)
             self._head = (lib, desc, (
                 ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
                 ops.fbuf.shape[1], ops.ibuf.shape[1], ops.send.shape[0]))

@@ -15,8 +15,9 @@ in order (any failure is an exception and a non-zero exit):
     dense and sharded kernels and their static SASS mix (a library built by
     an earlier run keeps its report beside it); it fails at the end of the
     run if any instantiation of a curved rollout kernel, a dense kernel,
-    the blocked rollout's adjoint or the sharded stage, its adjoint and the
-    one-launch step kernel (of the paths run) spills or has no report;
+    the blocked rollout (the step's kernel too) and its adjoint or the
+    sharded stage, its adjoint and the one-launch step kernel (of the paths
+    run) spills or has no report;
  3. DENSE path (small meshes, one thread per element and scenario). Holds
     each kernel (``sw2d_step_fused``, ``sw2d_rollout_fused``,
     ``sw2d_rollout_bwd_fused``) against its plain PyTorch version on the
@@ -39,8 +40,10 @@ in order (any failure is an exception and a non-zero exit):
     at K=2048, N=3, B=8 (perturbed and exact rest state), at N=6, on a
     coastal case (bathymetry, well-balancing, drag, Coriolis, tidal open
     boundary, sponge, t0=1), on a wet/dry beach (forward only) and on a
-    shuffled, RCM-reordered mesh; ``blocked_rollout`` times the 2048-step
-    rollout at N=3 and N=6 and one grid barrier; ``blocked_path`` drives
+    shuffled, RCM-reordered mesh, each kernel the same bits on a rerun and
+    the rollout's trajectory bit-equal to the step launched for each step
+    in turn; ``blocked_rollout`` times the 2048-step rollout at N=3 and N=6
+    and one grid barrier, with the launch plan; ``blocked_path`` drives
     ``solve_mpc_blocked`` (5 Adam iterations), ``solve_mpc_blocked_gn``
     (2 x 2) and ``advance_plant_blocked`` at the full configuration of
     ``mpc/blocked_box.py`` with the launch counters zeroed just before and
@@ -621,8 +624,11 @@ def check_blocked_case(TB, name, ops, meta, h, hu, hv, ctrls, dt, spc,
     """Compare the three blocked kernels with their plain versions on one
     case: the step, the rollout with stored trajectory (and the controls, if
     any), the rollout without trajectory with and without controls, and the
-    adjoint on the kernel's own trajectory. Returns the records by kernel
-    (errors always, times and bounds if asked)."""
+    adjoint on the kernel's own trajectory. The step and the rollout also
+    give the same bits on a rerun, and the rollout's trajectory is, row for
+    row and bit for bit, the step launched for each step in turn (one
+    kernel: the step is a rollout of one step). Returns the records by
+    kernel (errors always, times and bounds if asked)."""
     B = h.shape[0]
     n_wall = int(ops.wall.sum())
     n_cs = 0 if ctrls is None else ctrls.shape[1]
@@ -639,10 +645,14 @@ def check_blocked_case(TB, name, ops, meta, h, hu, hv, ctrls, dt, spc,
     c0 = None if ctrls is None else ctrls[:, 0].contiguous()
     step = lambda f: f(ops, meta, h, hu, hv, c0, dt, t0)
     got, ref = step(TB.sw2d_step_blocked), step(TB.sw2d_step_blocked_plain)
+    again = step(TB.sw2d_step_blocked)
     torch.cuda.synchronize()
     err = max_abs(got, ref)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     rec = record("sw2d_step_blocked", err, fwd_atol,
-                 finite(got) and err <= fwd_atol, grid_blocks=TB.last_grid())
+                 finite(got) and err <= fwd_atol and same,
+                 same_bits_on_rerun=same, grid_blocks=TB.last_grid(),
+                 plan=TB.rollout_plan(ops, meta, B))
     if timed:
         rec["ms"] = time_ms(lambda: step(TB.sw2d_step_blocked), 9, flush)
         rec["plain_ms"] = time_ms(lambda: step(TB.sw2d_step_blocked_plain),
@@ -658,9 +668,18 @@ def check_blocked_case(TB, name, ops, meta, h, hu, hv, ctrls, dt, spc,
                                 t0=t0, store_traj=traj)
     got = roll(TB.sw2d_rollout_blocked, ctrls, True)
     ref = roll(TB.sw2d_rollout_blocked_plain, ctrls, True)
+    again = roll(TB.sw2d_rollout_blocked, ctrls, True)
     torch.cuda.synchronize()
     err = max_abs(got, ref)
-    ok = finite(got) and err <= fwd_atol
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    # the step launched for each step in turn, from t0 + t dt
+    st, as_steps = (h, hu, hv), True
+    for t in range(n_steps):
+        c = None if ctrls is None else ctrls[:, t // spc].contiguous()
+        st = TB.sw2d_step_blocked(ops, meta, *st, c, dt, t0 + t * dt)
+        as_steps = as_steps and all(torch.equal(a, b[:, t + 1])
+                                    for a, b in zip(st, got[:3]))
+    ok = finite(got) and err <= fwd_atol and same and as_steps
     traj = tuple(f.contiguous() for f in got[:3])
     for c in ([ctrls, None] if ctrls is not None else [None]):
         g2 = roll(TB.sw2d_rollout_blocked, c, False)
@@ -668,7 +687,8 @@ def check_blocked_case(TB, name, ops, meta, h, hu, hv, ctrls, dt, spc,
         torch.cuda.synchronize()
         e2 = max_abs(g2, r2)
         err, ok = max(err, e2), ok and finite(g2) and e2 <= fwd_atol
-    rec = record("sw2d_rollout_blocked", err, fwd_atol, ok, n_steps=n_steps)
+    rec = record("sw2d_rollout_blocked", err, fwd_atol, ok, n_steps=n_steps,
+                 same_bits_on_rerun=same, equals_step_launches=as_steps)
     if timed:
         rec["ms"] = time_ms(
             lambda: roll(TB.sw2d_rollout_blocked, ctrls, True), 9, flush)
@@ -769,7 +789,7 @@ def blocked_phases(dev, card: str, rng, flush) -> list:
     flat = lambda f: f.reshape(f.shape[0], -1).contiguous()
     say({"phase": "blocked_setup", "seconds": time.perf_counter() - t_set,
          "k_elem": meta.k_elem, "n_p": meta.n_p, "dt": dt,
-         "elements_per_block": TB.chunk_elems(meta)})
+         "rollout_plan": TB.rollout_plan(ops, meta, bbx.BATCH)})
 
     # ---- kernels against their plain versions ----
     # the MPC shape: K=2048, N=3, B=8, 4 controls x 2 steps, flat bottom
@@ -877,7 +897,8 @@ def blocked_phases(dev, card: str, rng, flush) -> list:
                                               r.dt, n_steps=r.n_steps)
         end = run()
         torch.cuda.synchronize()
-        grid = TB.last_grid()
+        plan = TB.rollout_plan(r.ops, r.meta, r.states.h.shape[0])
+        grid = plan["grid"]
         ms = time_ms(run, 5, flush)
         B = r.states.h.shape[0]
         flops = TB.matmul_flops_per_step(r.meta) * B * r.n_steps
@@ -885,8 +906,9 @@ def blocked_phases(dev, card: str, rng, flush) -> list:
               and 9.0 < float(end[0].min()) and float(end[0].max()) < 12.0)
         # what the barriers alone cost at this grid
         nb = 2 * r.n_steps
-        t_many = time_ms(lambda: TB.barrier_probe(nb + 1, grid, dev), 5, flush)
-        t_one = time_ms(lambda: TB.barrier_probe(1, grid, dev), 5, flush)
+        probe = lambda n: TB.barrier_probe(n, grid, plan["threads"], dev)
+        t_many = time_ms(lambda: probe(nb + 1), 5, flush)
+        t_one = time_ms(lambda: probe(1), 5, flush)
         say({"phase": "blocked_rollout", "ok": ok, "card": card,
              "n_order": n_order, "k_elem": r.meta.k_elem, "batch": B,
              "n_steps": r.n_steps, "dt": r.dt, "ms": ms,
@@ -894,8 +916,7 @@ def blocked_phases(dev, card: str, rng, flush) -> list:
              "us_per_step_per_scenario": ms * 1e3 / r.n_steps / B,
              "matmul_flops_per_step": TB.matmul_flops_per_step(r.meta),
              "matmul_gflops_per_s": flops / (ms * 1e-3) / 1e9,
-             "grid_blocks": grid, "work_units": B * -(-r.meta.k_elem //
-                                                     TB.chunk_elems(r.meta)),
+             "plan": plan, "items": B * r.meta.k_elem,
              "us_per_grid_barrier": (t_many - t_one) * 1e3 / nb,
              "barriers_share_of_step": (t_many - t_one) / ms,
              "h_min": float(end[0].min()), "h_max": float(end[0].max())})
@@ -1690,7 +1711,7 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
          "ring_offsets": list(full.sb.plan.offs),
          "max_send": full.sb.plan.max_send,
          "halo_slots": int(full.sb.ops.send.shape[1]),
-         "elements_per_block": TB.chunk_elems(full.sb.meta)})
+         "stage_plan": TB.shard_plan(full.sb.ops, full.sb.meta, B)})
 
     # ---- stage kernels against their plain versions ----
     def shard_state(ctx, rest, B_, n_ctrl, S_=S):
@@ -1786,11 +1807,9 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
                cfl_dt(cc, 9.81, 13.5), 1.0)
     del csb, cc
 
-    # N=6, the highest order the sharded kernels take (the run-time sizes,
-    # one lane an element), at the blocked path's N=6 tolerance (the
-    # adjoint: the run-time-size instance on the card); at 32 scenarios the
-    # items would fill blocks of 256 threads, whose shared memory (241 KB)
-    # is more than a block may have: the launcher takes 128
+    # N=6, the highest order the sharded kernels take (their compile-time
+    # instance, eight lanes an element; the adjoint: the run-time-size
+    # instance, one lane), at the blocked path's N=6 tolerance
     c6 = build_triangle_context(6, partition_mesh(box_triangles(*sbx.CELLS),
                                                   S)[0], dtype=f32,
                                 device=dev, filter_cutoff=0.9 * 6,
@@ -1804,9 +1823,10 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
           rng, tol=BLK_FWD_ATOL_N6)
     rec = check_rdma("rdma_K2048_N6_S4_B32", sb6, st, ctrl, dt6, 0.0,
                      tol=BLK_FWD_ATOL_N6)
-    if rec["plan"]["threads"] != 128:
-        raise RuntimeError(f"N=6 at 32 scenarios: expected blocks of 128 "
-                           f"threads, got {rec['plan']}")
+    if (rec["plan"]["lanes_per_element"] != 8
+            or rec["stage_plan"]["lanes_per_element"] != 8):
+        raise RuntimeError(f"N=6: expected eight lanes an element, got "
+                           f"{rec['plan']}, {rec['stage_plan']}")
     del sb6, c6
 
     # wetting and drying, forward only: a sloping beach, dry beyond x = 2/3
@@ -2211,21 +2231,27 @@ DENSE_KERNELS = [
 
 
 # The q kernels in their three instantiations: N=3 with two controls, N=3
-# with others, the run-time sizes. The sharded path's: the stage kernel,
-# its adjoint (and its wide instantiations: two at N=3, 16 lanes an
-# element, one at N=1 with two controls, 8) and the one-launch step; the blocked path's: the rollout's
-# adjoint.
+# with others, the run-time sizes; the forward ones also at N=6. The
+# sharded path's: the stage kernel, its adjoint (and its wide
+# instantiations: two at N=3, 16 lanes an element, one at N=1 with two
+# controls, 8) and the one-launch step; the blocked path's: the rollout
+# (the step's kernel too) and its adjoint.
 Q_SIZES = ("I6QSizesILi10ELi4ELi2ELi4EEE", "I6QSizesILi10ELi4ELin1ELi4EEE",
            "I6QSizesILi0ELi0ELin1ELi1EEE")
+Q_SIZES_N6 = "I6QSizesILi28ELi7ELin1ELi8EEE"
 SHARDED_KERNELS = [
     k + z for k in ("_Z17sw2d_stage_kernel", "_Z21sw2d_stage_bwd_kernel",
                     "_Z21sw2d_step_rdma_kernel")
     for z in Q_SIZES] + [
     "_Z21sw2d_stage_bwd_kernel" + z
     for z in ("I6QSizesILi10ELi4ELi2ELi16EEE",
-              "I6QSizesILi10ELi4ELin1ELi16EEE", "I6QSizesILi3ELi2ELi2ELi8EEE")]
+              "I6QSizesILi10ELi4ELin1ELi16EEE", "I6QSizesILi3ELi2ELi2ELi8EEE")
+] + [k + Q_SIZES_N6 for k in ("_Z17sw2d_stage_kernel",
+                              "_Z21sw2d_step_rdma_kernel")]
 BLOCKED_ADJOINT_KERNELS = ["_Z31sw2d_blocked_rollout_bwd_kernel" + z
                            for z in Q_SIZES]
+BLOCKED_FORWARD_KERNELS = ["_Z27sw2d_blocked_rollout_kernel" + z
+                           for z in Q_SIZES + (Q_SIZES_N6,)]
 
 
 def check_no_spills(report: dict, kernels: list):
@@ -2273,14 +2299,12 @@ def main() -> int:
                    for ln in log.splitlines()
                    if "registers" in ln or "spill" in ln][:32],
          "ptxas_curved": curved, "ptxas_dense": dense,
-         "ptxas_sharded": {k: v for k, v in blocked.items()
-                           if "QSizes" in k},
+         "ptxas_q": {k: v for k, v in blocked.items() if "QSizes" in k},
          "sass_curved_N3": sass_mix(libs["sw2d_curved"],
                                     lambda n: "Li10ELi34ELi8E" in n),
          "sass_dense": sass_mix(libs["sw2d_dense"],
                                 lambda n: "_kernel" in n),
-         "sass_sharded": sass_mix(libs["sw2d_blocked"],
-                                  lambda n: "QSizes" in n)})
+         "sass_q": sass_mix(libs["sw2d_blocked"], lambda n: "QSizes" in n)})
 
     rng = np.random.default_rng(0)
     scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
@@ -2303,6 +2327,7 @@ def main() -> int:
         check_no_spills(dense, DENSE_KERNELS)
     if args.only in (None, "blocked"):
         check_no_spills(blocked, BLOCKED_ADJOINT_KERNELS)
+        check_no_spills(blocked, BLOCKED_FORWARD_KERNELS)
     if args.only in (None, "sharded"):
         check_no_spills(blocked, SHARDED_KERNELS)
     say({"kernels": kernels})

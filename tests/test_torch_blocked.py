@@ -350,8 +350,17 @@ def test_chunking_and_operator_set_extend_the_dense_one():
                                p.ops.SPNG.float().numpy())
     np.testing.assert_allclose(p.ops.fbuf[-2 * n_v:-n_v].numpy(),
                                p.ops.H.float().numpy())
-    assert TB.chunk_elems(p.meta) == min(p.meta.k_elem, TB.THREADS // 9)
-    assert TB.chunk_elems(p.meta._replace(n_fp=200)) == 1
+    # the forward kernels are planned as a kind of the q launcher, numbered
+    # in the wrapper as in the source (the plans of each kind:
+    # test_torch_blocked_kernel_shim.py)
+    src = (_build.CSRC / "sw2d_blocked.cu").read_text()
+    enum = src[src.index("enum { Q_STAGE"):].split("}")[0][len("enum {"):]
+    kinds = {k.strip(): int(v) for k, v in
+             (e.split("=") for e in enum.split(","))}
+    assert kinds == {"Q_STAGE": TB._STAGE, "Q_STEP": TB._RDMA,
+                     "Q_STAGE_BWD": TB._STAGE_BWD,
+                     "Q_ROLLOUT_BWD": TB._ROLLOUT_BWD,
+                     "Q_ROLLOUT": TB._ROLLOUT}
 
 
 def test_wrappers_raise_on_wrong_inputs():

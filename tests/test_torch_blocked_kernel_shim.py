@@ -1,8 +1,9 @@
-"""The sharded kernels' CUDA source (``ops/csrc/sw2d_blocked.cu``: the stage
-kernel ``sw2d_stage_kernel`` and the one-launch step
-``sw2d_step_rdma_kernel``), compiled for the CPU with ``g++ -std=c++20
--pthread`` behind a shim header, against their plain versions
-(``ops/sw2d_blocked.py``).
+"""The blocked and sharded kernels' CUDA source (``ops/csrc/sw2d_blocked.cu``:
+the stage kernel ``sw2d_stage_kernel``, the one-launch step
+``sw2d_step_rdma_kernel``, the blocked rollout ``sw2d_blocked_rollout_kernel``
+(the step's kernel too) and both adjoints), compiled for the CPU with
+``g++ -std=c++20 -pthread`` behind a shim header, against their plain
+versions (``ops/sw2d_blocked.py``).
 
 The kernels run several lanes an element that meet in shuffles and warp
 barriers, and the step's blocks meet at a grid barrier. So every CUDA
@@ -17,8 +18,9 @@ multiprocessors and ``shim_per_sm`` resident blocks (set from the test
 through ``ctypes``): few, so that the step's blocks loop over the items, or
 enough for one pass (the step then keeps its lanes' nodes in registers
 across the grid barrier). The launches go through the module's own launch
-helpers (``_run_stage``, ``RdmaLaunch._launch``), so the argument lists and
-the launch plans are exercised too.
+helpers (``_run_stage``, ``RdmaLaunch._launch``, ``_run_rollout``,
+``_run_stage_bwd``, ``_run_rollout_bwd``), so the argument lists and the
+launch plans are exercised too.
 
 Cases, on ``box_triangles(8, 8)`` partitioned: coastal physics (bathymetry
 with the well-balanced star fluxes, drag, Coriolis, tidal depth on the open
@@ -26,12 +28,14 @@ east side from t = 1, sponge toward it) with two controls, at N=3 (the
 compile-time instance, four lanes an element) and N=1 (the run-time sizes,
 one lane), at S=4 (ring offsets and flipped cut faces) and S=1, at B=3 and
 B=1; N=3 without controls (its own instance); at N=1, B=3 the last block is
-ragged. The stage kernel also on a wet/dry beach (the limiter). The kernels
-run in float32; the reference is the plain version in float64 on the same
-float32 inputs, with ``chip_smoke.py``'s tolerance: 5e-5 absolute on states
-near 10 (float32 rounding of two RHS evaluations). Besides: the same bits
-on a rerun, and the step bit-equal to two stage launches with the ring
-exchange between (both run the same stage code).
+ragged; the stage and the step also at N=6 (their compile-time instance,
+eight lanes an element). The stage kernel also on a wet/dry beach (the
+limiter). The kernels run in float32; the reference is the plain version
+in float64 on the same float32 inputs, with ``chip_smoke.py``'s tolerance:
+5e-5 absolute on states near 10 (float32 rounding of two RHS evaluations),
+1e-4 at N=6. Besides: the same bits on a rerun, and the step bit-equal to
+two stage launches with the ring exchange between (both run the same stage
+code). The blocked rollout and the adjoints: their own sections below.
 """
 import ctypes
 import shutil
@@ -56,6 +60,7 @@ from blitzdg_tpu_torch.utils import build_sponge_coefficient
 
 F32, F64 = torch.float32, torch.float64
 FWD_ATOL = 5e-5
+FWD_ATOL_N6 = 1e-4  # chip_smoke.py's at N=6
 
 SHIM = r"""
 #pragma once
@@ -129,6 +134,9 @@ static inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 static inline float cospif(float x) {
   return (float)std::cos(3.14159265358979323846 * (double)x);
 }
+static inline double __dadd_rn(double a, double b) { return a + b; }
+static inline double __dmul_rn(double a, double b) { return a * b; }
+static inline float __double2float_rn(double a) { return (float)a; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
@@ -291,6 +299,74 @@ def device(shim_lib, monkeypatch):
     set_device(1, 1)
 
 
+def _context(n_order, wetdry=False, n_shards=1, cells=(8, 8)):
+    """The coastal box (its east side open) or the beach of the wet/dry
+    cases, partitioned into ``n_shards`` where more than one."""
+    if wetdry:
+        mesh = box_triangles(*cells, xlim=(0.0, 1.0), ylim=(0.0, 1.0))
+    else:
+        mesh = box_triangles(*cells)
+        retag_east_open(mesh)
+    if n_shards > 1:
+        mesh = partition_mesh(mesh, n_shards)[0]
+    return build_triangle_context(n_order, mesh, dtype=F64, device="cpu",
+                                  filter_cutoff=0.9 * n_order, filter_order=4)
+
+
+def _physics(ctx, wetdry, n_ctrl, rng, spread_injectors=False):
+    """Coastal physics (bathymetry with the well-balanced star fluxes, drag,
+    Coriolis, tidal depth on the open east side from t = 1, sponge toward
+    it; injectors of ``n_ctrl`` = 2 controls, or none) or the wet/dry
+    beach's: (phys, the operator sets' keywords, H, dt, start time)."""
+    kw = {}
+    if wetdry:
+        H = 1.0 - 1.5 * ctx.x
+        phys = SWPhysics(g=9.81, cd=1e-3, H=H, Hx=-1.5 * torch.ones_like(H),
+                         Hy=torch.zeros_like(H), well_balanced=False)
+        kw.update(wetdry=True, h_floor=1e-3)
+        return phys, kw, H, cfl_dt(ctx, 9.81, 1.1), 0.0
+    H = 10.0 + 2.0 * ctx.x + torch.sin(2.0 * ctx.y)
+    open_nodes = (ctx.bc_table[:, :, None].expand(-1, -1, ctx.n_fp)
+                  .reshape(ctx.k_elem, -1) == BC_OUT).numpy()
+    phys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4, H=H,
+                     Hx=2.0 * torch.ones_like(H),
+                     Hy=2.0 * torch.cos(2.0 * ctx.y),
+                     sponge=build_sponge_coefficient(
+                         ctx, open_nodes, width=0.3, strength=0.5))
+    kw["tidal"] = (12.0, 0.5, 2.0, 10.0)
+    if n_ctrl:
+        bu, bv = injectors(ctx)
+        if spread_injectors:  # every element forced
+            bu, bv = (rng.uniform(0.5, 1.0, a.shape) for a in (bu, bv))
+        kw.update(forcing_bu=bu, forcing_bv=bv)
+    return phys, kw, H, cfl_dt(ctx, 9.81, 13.5), 1.0
+
+
+def _scenarios(ctx, H, batch, wetdry, rng):
+    """``batch`` perturbed (h, hu, hv) rows (numpy): on the box a bump of
+    random height and place, a random current and node-wise noise; on the
+    beach a wave of random height, dry beyond x = 2/3."""
+    x = ctx.x.reshape(1, -1).numpy()
+    y = ctx.y.reshape(1, -1).numpy()
+    Hn = H.reshape(1, -1).numpy()
+    col = lambda lo, hi: rng.uniform(lo, hi, (batch, 1))
+    if wetdry:
+        wave = 0.05 * np.exp(-30.0 * ((x - 0.45) ** 2 + (y - 0.5) ** 2))
+        h = np.maximum(Hn + col(1.0, 1.4) * wave, 1e-3)
+        wet = (h > 5e-3).astype(float)
+        hu = wet * h * (0.3 + 0.05 * rng.standard_normal(h.shape))
+        hv = wet * h * 0.1 * rng.standard_normal(h.shape)
+        assert (h <= 1e-3).any() and (h > 0.5).any()
+        return h, hu, hv
+    bump = np.exp(-10.0 * ((x - col(-0.5, 0.5)) ** 2
+                           + (y - col(-0.5, 0.5)) ** 2))
+    noise = lambda: 0.01 * rng.standard_normal((batch, x.shape[1]))
+    h = Hn + col(0.05, 0.3) * bump + noise()
+    hu = col(-0.1, 0.1) * h + noise()
+    hv = col(-0.1, 0.1) * h + noise()
+    return h, hu, hv
+
+
 class Case:
     """The coastal box (or the wet/dry beach) partitioned into ``n_shards``
     at one order, as float32 (the kernels' operator set) and float64 (the
@@ -300,40 +376,9 @@ class Case:
     def __init__(self, n_order, n_shards, batch, n_ctrl=2, wetdry=False,
                  seed=0, cells=(8, 8), spread_injectors=False):
         rng = np.random.default_rng(seed)
-        if wetdry:
-            mesh = box_triangles(*cells, xlim=(0.0, 1.0), ylim=(0.0, 1.0))
-        else:
-            mesh = box_triangles(*cells)
-            retag_east_open(mesh)
-        if n_shards > 1:
-            mesh = partition_mesh(mesh, n_shards)[0]
-        ctx = build_triangle_context(n_order, mesh, dtype=F64, device="cpu",
-                                     filter_cutoff=0.9 * n_order,
-                                     filter_order=4)
-        kw = {}
-        if wetdry:
-            H = 1.0 - 1.5 * ctx.x
-            phys = SWPhysics(g=9.81, cd=1e-3, H=H,
-                             Hx=-1.5 * torch.ones_like(H),
-                             Hy=torch.zeros_like(H), well_balanced=False)
-            kw.update(wetdry=True, h_floor=1e-3)
-            self.dt, self.t = cfl_dt(ctx, 9.81, 1.1), 0.0
-        else:
-            H = 10.0 + 2.0 * ctx.x + torch.sin(2.0 * ctx.y)
-            open_nodes = (ctx.bc_table[:, :, None].expand(-1, -1, ctx.n_fp)
-                          .reshape(ctx.k_elem, -1) == BC_OUT).numpy()
-            phys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4, H=H,
-                             Hx=2.0 * torch.ones_like(H),
-                             Hy=2.0 * torch.cos(2.0 * ctx.y),
-                             sponge=build_sponge_coefficient(
-                                 ctx, open_nodes, width=0.3, strength=0.5))
-            kw["tidal"] = (12.0, 0.5, 2.0, 10.0)
-            if n_ctrl:
-                bu, bv = injectors(ctx)
-                if spread_injectors:  # every element forced
-                    bu, bv = (rng.uniform(0.5, 1.0, a.shape) for a in (bu, bv))
-                kw.update(forcing_bu=bu, forcing_bv=bv)
-            self.dt, self.t = cfl_dt(ctx, 9.81, 13.5), 1.0
+        ctx = _context(n_order, wetdry, n_shards, cells)
+        phys, kw, H, self.dt, self.t = _physics(ctx, wetdry, n_ctrl, rng,
+                                                spread_injectors)
         self.sets = {dt: BS.build_sharded_blocked(ctx, phys, n_shards,
                                                   dtype=dt, device="cpu",
                                                   **kw)
@@ -347,26 +392,9 @@ class Case:
             assert len(plan.offs) >= 2 and bool(
                 (plan.pflip.astype(bool)
                  & (plan.psrc >= plan.psrc.shape[1])).any())
-        x = ctx.x.reshape(1, -1).numpy()
-        y = ctx.y.reshape(1, -1).numpy()
-        Hn = H.reshape(1, -1).numpy()
-        col = lambda lo, hi: rng.uniform(lo, hi, (batch, 1))
-        if wetdry:
-            wave = 0.05 * np.exp(-30.0 * ((x - 0.45) ** 2 + (y - 0.5) ** 2))
-            h = np.maximum(Hn + col(1.0, 1.4) * wave, 1e-3)
-            wet = (h > 5e-3).astype(float)
-            hu = wet * h * (0.3 + 0.05 * rng.standard_normal(h.shape))
-            hv = wet * h * 0.1 * rng.standard_normal(h.shape)
-            assert (h <= 1e-3).any() and (h > 0.5).any()
-        else:
-            bump = np.exp(-10.0 * ((x - col(-0.5, 0.5)) ** 2
-                                   + (y - col(-0.5, 0.5)) ** 2))
-            noise = lambda: 0.01 * rng.standard_normal((batch, x.shape[1]))
-            h = Hn + col(0.05, 0.3) * bump + noise()
-            hu = col(-0.1, 0.1) * h + noise()
-            hv = col(-0.1, 0.1) * h + noise()
         self.state = tuple(BS.split_shards(torch.as_tensor(f, dtype=F32),
-                                           n_shards) for f in (h, hu, hv))
+                                           n_shards)
+                           for f in _scenarios(ctx, H, batch, wetdry, rng))
         self.ctrl = (torch.as_tensor(0.3 * rng.standard_normal(m.n_ctrl),
                                      dtype=F32)
                      if n_ctrl and not wetdry else None)
@@ -493,35 +521,49 @@ def test_plan_follows_the_occupancy(device, shim_lib):
 
 
 def test_plan_fits_shared_memory_at_high_order(device, shim_lib):
-    """At N=6 (28 nodes, the run-time sizes, one lane an element) a block
-    of 256 items would need 241 KB of shared memory, more than the 227 KB a
-    block may have: the launcher halves the block until it fits. Past N=6
+    """At N=6 (28 nodes, 7 a face) the forward kernels take their
+    compile-time instance, eight lanes an element, whose block of 256
+    threads fits the 227 KB a block may have; the adjoints take the
+    run-time sizes, one lane an element, whose block of 256 items would
+    not: the launcher halves the block until it fits, and on a device with
+    less shared memory it halves the forward kernels' block too. Past N=6
     the kernels have no room, and the wrapper says so."""
     c = Case(1, 4, 1)
     lib = TB._lib()
     meta = c.sets[F32].meta
 
-    def desc_at(n_p, n_fp):
+    def desc_at(n_p, n_fp, n_halo=192):
         return TB._desc(meta._replace(k_elem=2048, n_p=n_p, n_fp=n_fp,
                                       n_v=2048 * n_p, n_t=2048 * 3 * n_fp),
-                        blocked=True, n_recv=192, n_send=192)
+                        blocked=True, n_recv=n_halo, n_send=n_halo)
 
     desc = desc_at(28, 7)
     plan = (ctypes.c_int * 4)()
     optin = ctypes.c_int.in_dll(shim_lib, "shim_smem_optin").value
-    for which, per_sm, grid in ((TB._STAGE, 1, 512), (TB._RDMA, 1, 132)):
-        device(132, per_sm)  # S=4 x B=8 x 2048 elements: 65536 lanes
-        assert lib.sw2d_shard_plan(ctypes.byref(desc), 4, 8, which, 1 << 20,
+
+    def plan_of(d, S, which, per_sm):
+        device(132, per_sm)
+        assert lib.sw2d_shard_plan(ctypes.byref(d), S, 8, which, 1 << 20,
                                    1 << 20, plan) == 0
-        assert (plan[0], plan[1], plan[3]) == (128, grid, 1)
-        assert plan[2] == 4 * (2940 + 128 * 224) <= optin
+        return plan[0], plan[1], plan[3]
+
+    # S=4 x B=8 x 2048 elements: 65536 items
+    forward = 4 * (2940 + 32 * 224)
+    assert plan_of(desc, 4, TB._STAGE, 1) == (256, 2048, 8)
+    assert plan[2] == forward <= optin
+    assert plan_of(desc, 4, TB._RDMA, 1) == (256, 132, 8)
+    # the blocked rollout at B=8, K=2048 (16384 items, 512 blocks): two
+    # blocks an SM resident, so the blocks loop
+    assert plan_of(desc_at(28, 7, 0), 1, TB._ROLLOUT, 2) == (256, 264, 8)
+    assert plan[2] == forward
+    for which, grid in ((TB._STAGE_BWD, 1024), (TB._ROLLOUT_BWD, 132)):
+        assert plan_of(desc, 4, which, 1) == (64, grid, 1)
+        assert plan[2] <= optin < 4 * (3528 + 128 * 644)
     # a device with less shared memory a block: smaller blocks still
-    ctypes.c_int.in_dll(shim_lib, "shim_smem_optin").value = 48 * 1024
+    ctypes.c_int.in_dll(shim_lib, "shim_smem_optin").value = 32 * 1024
     try:
-        device(132, 1)
-        assert lib.sw2d_shard_plan(ctypes.byref(desc), 4, 8, TB._STAGE,
-                                   1 << 20, 1 << 20, plan) == 0
-        assert plan[0] == 32 and plan[2] <= 48 * 1024
+        assert plan_of(desc, 4, TB._STAGE, 1)[0] == 128
+        assert plan[2] <= 32 * 1024
     finally:
         ctypes.c_int.in_dll(shim_lib, "shim_smem_optin").value = optin
     # N=7 (36 nodes): refused by the launcher and, with its reason, by the
@@ -530,6 +572,33 @@ def test_plan_fits_shared_memory_at_high_order(device, shim_lib):
                                TB._STAGE, 1 << 20, 1 << 20, plan) != 0
     with pytest.raises(ValueError, match="N <= 6"):
         TB._shard_plan(lib, desc_at(36, 8), c.sets[F32].ops, 8, TB._STAGE)
+
+
+def test_stage_and_step_kernels_at_order_six(device):
+    """B7 and B9 at N=6 on their compile-time instance (eight lanes an
+    element, the eighth holding no trace node): stage 1 and the step
+    against their plain versions at chip_smoke.py's N=6 tolerance, the
+    step bit-equal to two stage launches with the ring exchange between,
+    eight lanes in both plans."""
+    device(2, 1)
+    c = Case(6, 4, 1, seed=5)
+    sb = c.sets[F32]
+    st, dt, t = c.state, c.dt, c.t
+    *s1, sb1 = c.stage(st, st, c.rb, 0.5 * dt, t, False)
+    ref1 = c.ref(TB.sw2d_stage_blocked_plain, st, st, c.rb, 0.5 * dt, t,
+                 c.ctrl, True, False)
+    assert _max_abs((*s1, sb1), ref1) <= FWD_ATOL_N6
+    launch = TB.RdmaLaunch(sb.ops, sb.meta, c.ex[F32])
+    got = launch._launch(st, c.rb, dt, t, c.ctrl, True)
+    ref = c.ref(TB.sw2d_step_rdma_blocked_plain, st, c.rb, dt, c.ex[F64], t,
+                c.ctrl)
+    assert all(torch.isfinite(f).all() for f in got)
+    assert _max_abs(got, ref) <= FWD_ATOL_N6
+    two = c.stage(st, tuple(s1), c.ex[F32](sb1), dt, t + 0.5 * dt, True)
+    assert _same(got, two)
+    for step in (False, True):
+        assert TB.shard_plan(sb.ops, sb.meta, 1,
+                             step=step)["lanes_per_element"] == 8
 
 
 # ---------------------------------------------------------------------------
@@ -642,7 +711,64 @@ def test_stage_bwd_control_sum_across_blocks(device, dev, lanes, grid):
                for _, done in TB._stage_bwd_scratch.values())
 
 
-class RolloutCase:
+class ForwardCase:
+    """The coastal box (with ``n_ctrl`` = 2: two controls) or the wet/dry
+    beach, unsharded at one order, as float32 and float64 blocked operator
+    sets; ``batch`` perturbed float32 scenarios; with controls, ``n_cs``
+    control steps of ``spc`` steps each, else ``n_cs * spc`` steps."""
+
+    def __init__(self, n_order, batch, n_ctrl=2, wetdry=False, n_cs=2,
+                 spc=2, seed=0):
+        rng = np.random.default_rng(seed)
+        ctx = _context(n_order, wetdry)
+        phys, kw, H, self.dt, self.t0 = _physics(ctx, wetdry, n_ctrl, rng)
+        self.sets = {dt: TB.build_blocked_step_ops(ctx, phys, dtype=dt,
+                                                   device="cpu", **kw)
+                     for dt in (F32, F64)}
+        ops, m = self.sets[F32]
+        assert m.has_sponge != wetdry and m.wetdry == wetdry
+        self.spc, self.n_steps = spc, n_cs * spc
+        self.state = tuple(torch.as_tensor(f, dtype=F32)
+                           for f in _scenarios(ctx, H, batch, wetdry, rng))
+        self.ctrls = (torch.as_tensor(0.3 * rng.standard_normal(
+            (batch, n_cs, m.n_ctrl)), dtype=F32)
+            if n_ctrl and not wetdry else None)
+        self.rng = rng  # (a subclass draws more from the same stream)
+
+    def kernel(self, store_traj=True):
+        """The rollout kernel through its launch helper: (trajectory triple,
+        final triple), the one not asked for as Nones."""
+        ops, m = self.sets[F32]
+        n_cs = 0 if self.ctrls is None else self.ctrls.shape[1]
+        return TB._run_rollout(ops, m, self.state, self.ctrls, n_cs, self.dt,
+                               self.spc, self.n_steps, self.t0, True,
+                               store_traj)
+
+    def steps(self):
+        """The step kernel launched for each step in turn (through the
+        rollout's launch helper, as ``sw2d_step_blocked`` launches it): the
+        states after each step."""
+        ops, m = self.sets[F32]
+        st, out = self.state, []
+        for t in range(self.n_steps):
+            c = (None if self.ctrls is None
+                 else self.ctrls[:, t // self.spc].contiguous())
+            st = TB._run_rollout(ops, m, st, c, 1, self.dt, 1, 1,
+                                 self.t0 + t * self.dt, True, False)[1]
+            out.append(st)
+        return out
+
+    def ref(self):
+        """The plain rollout in float64 on the float32 inputs, as float32:
+        the trajectory triple."""
+        ops, m = self.sets[F64]
+        out = TB.sw2d_rollout_blocked_plain(
+            ops, m, *_up(self.state), _up(self.ctrls), self.dt, self.spc,
+            self.n_steps, self.t0, True, store_traj=True)
+        return tuple(t.to(F32) for t in out[:3])
+
+
+class RolloutCase(ForwardCase):
     """The coastal box (bathymetry with the well-balanced star fluxes, drag,
     Coriolis, tidal depth on the open east side, sponge toward it, two
     controls) unsharded at one order, as float32 and float64 blocked
@@ -651,42 +777,13 @@ class RolloutCase:
     random cotangents of it."""
 
     def __init__(self, n_order, batch, n_cs=2, spc=2, seed=0):
-        rng = np.random.default_rng(seed)
-        mesh = box_triangles(8, 8)
-        retag_east_open(mesh)
-        ctx = build_triangle_context(n_order, mesh, dtype=F64, device="cpu",
-                                     filter_cutoff=0.9 * n_order,
-                                     filter_order=4)
-        H = 10.0 + 2.0 * ctx.x + torch.sin(2.0 * ctx.y)
-        open_nodes = (ctx.bc_table[:, :, None].expand(-1, -1, ctx.n_fp)
-                      .reshape(ctx.k_elem, -1) == BC_OUT).numpy()
-        phys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4, H=H,
-                         Hx=2.0 * torch.ones_like(H),
-                         Hy=2.0 * torch.cos(2.0 * ctx.y),
-                         sponge=build_sponge_coefficient(
-                             ctx, open_nodes, width=0.3, strength=0.5))
-        bu, bv = injectors(ctx)
-        self.sets = {dt: TB.build_blocked_step_ops(
-            ctx, phys, bu, bv, dtype=dt, tidal=(12.0, 0.5, 2.0, 10.0),
-            device="cpu") for dt in (F32, F64)}
+        super().__init__(n_order, batch, n_cs=n_cs, spc=spc, seed=seed)
         ops, m = self.sets[F32]
         assert m.wb and m.has_sponge and m.tidal is not None and m.n_ctrl == 2
-        self.dt, self.spc, self.t0 = cfl_dt(ctx, 9.81, 13.5), spc, 1.0
-        x, y = ctx.x.reshape(1, -1).numpy(), ctx.y.reshape(1, -1).numpy()
-        col = lambda lo, hi: rng.uniform(lo, hi, (batch, 1))
-        bump = np.exp(-10.0 * ((x - col(-0.5, 0.5)) ** 2
-                               + (y - col(-0.5, 0.5)) ** 2))
-        noise = lambda: 0.01 * rng.standard_normal((batch, x.shape[1]))
-        h = H.reshape(1, -1).numpy() + col(0.05, 0.3) * bump + noise()
-        hu = col(-0.1, 0.1) * h + noise()
-        hv = col(-0.1, 0.1) * h + noise()
-        state = [torch.as_tensor(f, dtype=F32) for f in (h, hu, hv)]
-        self.ctrls = torch.as_tensor(
-            0.3 * rng.standard_normal((batch, n_cs, 2)), dtype=F32)
         self.traj = TB.sw2d_rollout_blocked_plain(
-            ops, m, *state, self.ctrls, self.dt, spc, t0=self.t0,
+            ops, m, *self.state, self.ctrls, self.dt, spc, t0=self.t0,
             store_traj=True)[:3]
-        self.tb = tuple(torch.as_tensor(rng.standard_normal(
+        self.tb = tuple(torch.as_tensor(self.rng.standard_normal(
             tuple(self.traj[0].shape)), dtype=F32) for _ in range(3))
 
     def args(self):
@@ -752,3 +849,55 @@ def test_rollout_bwd_refuses_high_order_and_wetdry(device):
     with pytest.raises(NotImplementedError, match="wet/dry"):
         TB.sw2d_rollout_bwd_blocked(ops, meta._replace(wetdry=True),
                                     *([None] * 6), None, 0.1, 1)
+
+
+# ---------------------------------------------------------------------------
+# The blocked forward rollout (B5) and step (B4), on qstage
+# ---------------------------------------------------------------------------
+
+# (N, scenarios, controls, wet/dry, shim device (SMs, blocks an SM)): at N=3
+# and N=6 the compile-time instances (four and eight lanes an element), at
+# N=2 the run-time sizes (one lane); the grid covers the items in one pass
+# or the blocks loop over them
+FORWARD_CASES = {
+    "coastal_N3_B2_one_pass": (3, 2, 2, False, (4, 1)),
+    "coastal_N3_B2_blocks_loop": (3, 2, 2, False, (2, 1)),
+    "coastal_N3_B2_noctrl_one_pass": (3, 2, 0, False, (4, 1)),
+    "coastal_N2_B2_one_pass": (2, 2, 2, False, (8, 1)),
+    "coastal_N2_B3_blocks_loop": (2, 3, 2, False, (1, 1)),
+    "coastal_N6_B1_one_pass": (6, 1, 2, False, (4, 1)),
+    "coastal_N6_B1_blocks_loop": (6, 1, 2, False, (1, 1)),
+    "wetdry_N3_B2_one_pass": (3, 2, 0, True, (4, 1)),
+    "wetdry_N2_B3_blocks_loop": (2, 3, 0, True, (1, 1)),
+}
+
+
+@pytest.mark.parametrize("name", list(FORWARD_CASES))
+def test_rollout_kernel_matches_plain(device, name):
+    """B5 over 2 control steps x 2 steps (4 steps without controls) from
+    t0 = 1 on the coastal box (from 0 on the wet/dry beach, which runs the
+    limiter) with the trajectory stored, against the plain version in
+    float64; without the trajectory, its last row bit for bit; the same bits
+    on a rerun; B4 launched for each step in turn bit-equal to the
+    trajectory's rows; the launcher's plan (a cooperative launch: what is
+    co-resident)."""
+    n, B, nc, wetdry, dev = FORWARD_CASES[name]
+    device(*dev)
+    c = ForwardCase(n, B, nc, wetdry, seed=n + B)
+    traj = c.kernel()[0]
+    assert all(torch.isfinite(f).all() for f in traj)
+    assert _max_abs(traj, c.ref()) <= (FWD_ATOL_N6 if n == 6 else FWD_ATOL)
+    assert _same(traj, c.kernel()[0])
+    assert _same(c.kernel(store_traj=False)[1],
+                 tuple(f[:, -1] for f in traj))
+    for t, st in enumerate(c.steps()):
+        assert _same(st, tuple(f[:, t + 1] for f in traj))
+    ops, m = c.sets[F32]
+    plan = TB.rollout_plan(ops, m, B)
+    P = {2: 1, 3: 4, 6: 8}[n]
+    assert plan["lanes_per_element"] == P
+    items_per_block = plan["threads"] // P
+    assert plan["grid"] == min(dev[0] * dev[1],
+                               -(-B * m.k_elem // items_per_block))
+    assert (plan["grid"] * items_per_block >= B * m.k_elem) == (
+        "one_pass" in name)

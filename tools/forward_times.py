@@ -1,0 +1,130 @@
+#!/usr/bin/env python3
+"""Time the blocked forward kernels on one NVIDIA GPU at the shapes their
+paths run, for an A/B of two trees of this repository in one call.
+
+    python3 tools/forward_times.py [label]
+
+run from the root of a tree (its own package is imported). Prints one JSON
+line per shape, then one with the card's name and power limit. Shapes, on
+the blocked box (``mpc/blocked_box.py``: K=2048, flat bottom, walls):
+
+ - ``sw2d_step_blocked`` (B4) at N=3, B=8, two controls (the plant
+   advance's step);
+ - ``sw2d_rollout_blocked`` (B5) at N=3, B=8, 4 x 2 steps with the
+   trajectory stored (the MPC's rollout), and at N=6, 2 x 2 steps;
+ - ``sw2d_rollout_blocked`` over 2048 steps without controls or trajectory
+   at N=3 and N=6, B=8 (``blocked_rollout_problem``): us a step.
+
+Inputs are made from fixed seeds, as ``chip_smoke.py`` makes its timed
+cases. Two times a shape: ``ms``, CUDA events around one call of the
+wrapper, the 50 MB L2 cache flushed before each (256 MB written), median of
+9 after one warm-up (5 for the 2048-step rollouts), as ``chip_smoke.py``
+times; and ``device_ms``, the mean duration of the forward kernel over 10
+calls under ``torch.profiler`` (L2 warm, the kernel alone; 2 calls of the
+2048-step rollouts). Uses only entry points that the trees before and
+after the forward kernels' redesign share.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path.cwd()))
+
+
+def time_ms(fn, flush, reps: int) -> float:
+    fn()
+    out = []
+    for _ in range(reps):
+        flush()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def device_ms(fn, calls: int) -> float:
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if "sw2d_blocked_" in e.key and "bwd" not in e.key]
+    return sum(e.device_time_total for e in ev) / calls / 1e3
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("forward_times: no CUDA device", file=sys.stderr)
+        return 1
+    from blitzdg_tpu_torch.mpc import blocked_box as bbx
+    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+
+    label = sys.argv[1] if len(sys.argv) > 1 else str(Path.cwd())
+    dev = torch.device("cuda", 0)
+    f32 = torch.float32
+    scratch = torch.empty(64 * 1024 * 1024, dtype=f32, device=dev)
+    flush = scratch.zero_
+    rng = np.random.default_rng(0)
+    g = lambda *shape: torch.as_tensor(rng.standard_normal(shape), dtype=f32,
+                                       device=dev)
+
+    def say(kernel, shape, run, reps=9, calls=10, **more):
+        ms = time_ms(run, flush, reps)
+        print(json.dumps({"tree": label, "kernel": kernel, "shape": shape,
+                          "ms": ms, "device_ms": device_ms(run, calls),
+                          **{k: f(ms) for k, f in more.items()}}),
+              flush=True)
+
+    n_cs, spc, B = bbx.HORIZON, bbx.STEPS_PER_CONTROL, bbx.BATCH
+    for n_order, horizon in ((3, n_cs), (6, 2)):
+        box = bbx.blocked_box_problem(n_order=n_order, horizon=horizon,
+                                      device=dev)
+        ops, meta, dt = box.bm.ops, box.bm.meta, box.prob.dt
+        x = box.prob.ctx.x.reshape(1, -1)
+        h = (bbx.H_REST + 0.1 * torch.exp(-((x - x.mean()) / x.std()) ** 2)
+             + 0.01 * g(B, x.shape[1])).contiguous()
+        hu = (0.05 * h + 0.01 * g(*h.shape)).contiguous()
+        hv = (-0.05 * h + 0.01 * g(*h.shape)).contiguous()
+        ctrls = g(B, horizon, meta.n_ctrl)
+        shape = f"K{meta.k_elem}_N{n_order}_B{B}"
+        if n_order == 3:
+            c0 = ctrls[:, 0].contiguous()
+            say("sw2d_step_blocked", shape, lambda: TB.sw2d_step_blocked(
+                ops, meta, h, hu, hv, c0, dt))
+        say("sw2d_rollout_blocked", f"{shape}_{horizon}x{spc}",
+            lambda: TB.sw2d_rollout_blocked(ops, meta, h, hu, hv, ctrls, dt,
+                                            spc, store_traj=True))
+        del box, ops
+    for n_order in (3, 6):
+        r = bbx.blocked_rollout_problem(n_order=n_order, device=dev)
+        say("sw2d_rollout_blocked",
+            f"K{r.meta.k_elem}_N{n_order}_B{B}_{r.n_steps}_steps",
+            lambda: TB.sw2d_rollout_blocked(r.ops, r.meta, *r.states, None,
+                                            r.dt, n_steps=r.n_steps),
+            reps=5, calls=2,
+            us_per_step=lambda ms: ms * 1e3 / r.n_steps)
+        del r
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps({"tree": label, "card": card}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
