@@ -26,6 +26,12 @@ one-launch step ``make_sharded_blocked_step_rdma`` over
 ``ops.sw2d_step_rdma_blocked`` (both stages and the halo between them in
 one kernel).
 
+The MPC solvers (``mpc.solve_mpc``, ``mpc.solve_mpc_gn``,
+``mpc.receding_horizon``) over the plain composite rollout, and the
+elliptic solvers (``solvers``: CG, GMRES, block-Jacobi and two-level
+preconditioning; ``ops.poisson``, ``ops.sem``), are plain tensor code, as
+they are plain XLA code in the JAX package.
+
 Entry points take ``device=`` and default to ``"cuda"``; on a machine
 without CUDA the default raises, it does not fall back to the CPU.
 """

@@ -1,8 +1,8 @@
 """Device-resident DG contexts: frozen dataclasses of static-shaped tensors.
 
 Counterpart of the JAX package's ``blitzdg_tpu/context.py`` (BC constants,
-``BCMaps``, ``DGContext2D`` with ``surface_trace``, ``face_trace_structure``;
-the 1D context is not ported yet). Layout is element-major as there:
+``BCMaps``, ``DGContext1D`` and ``DGContext2D`` with ``surface_trace``,
+``face_trace_structure``). Layout is element-major as there:
 per-node fields are ``(K, Np)``, per-face-node fields ``(K, Nfaces*Nfp)``,
 reference-element operators ``(Np, Np)`` / ``(Np, Nfaces*Nfp)``.
 
@@ -88,6 +88,52 @@ class BCMaps:
 
     def to(self, device) -> "BCMaps":
         return _tree_to(self, device)
+
+
+@dataclass(frozen=True)
+class DGContext1D:
+    """Frozen 1D discretization (line segments, LGL nodes)."""
+
+    n_order: int
+    n_p: int
+    k_elem: int
+    n_faces: int  # == 2
+    n_fp: int  # == 1
+
+    # reference-element operators (Np, Np) / (Np, Nfaces*Nfp)
+    r: torch.Tensor
+    V: torch.Tensor
+    Vinv: torch.Tensor
+    Dr: torch.Tensor
+    lift: torch.Tensor
+
+    # per-element geometry, element-major (K, Np) / (K, Nfaces*Nfp)
+    x: torch.Tensor
+    J: torch.Tensor
+    rx: torch.Tensor
+    nx: torch.Tensor
+    fscale: torch.Tensor
+
+    # index maps
+    vmapM: torch.Tensor  # (K, Nfaces*Nfp) flat into (K*Np,)
+    vmapP: torch.Tensor
+    mapP: torch.Tensor  # (K, Nfaces*Nfp) flat into (K*Nfaces*Nfp,) traces
+    fmask: torch.Tensor  # (Nfaces*Nfp,) face-node ids
+    # inflow/outflow endpoints (flat trace indices / flat volume indices)
+    mapI: int
+    mapO: int
+    vmapI: int
+    vmapO: int
+
+    def to(self, device) -> "DGContext1D":
+        return _tree_to(self, device)
+
+    def surface_trace(self, u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Interior and exterior traces of a (..., K, Np) field, flattened
+        over the last two axes."""
+        fM = u[..., self.fmask.reshape(-1)].reshape(*u.shape[:-2], -1)
+        fP = fM[..., self.mapP.reshape(-1)]
+        return fM, fP
 
 
 @dataclass(frozen=True)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .context import BCMaps, DGContext2D
+from .context import BCMaps, DGContext1D, DGContext2D
 from .ops.sw2d import SWPhysics
 from .ops.sw2d_blocked import BlockedMeta, BlockedOps, build_blocked_step_ops
 from .ops.sw2d_curved_blocked import (CurvedBlockedMeta, CurvedBlockedOps,
@@ -60,6 +60,29 @@ def context_from_numpy(arrays: dict, static: dict, device="cuda",
             fields[name] = torch.as_tensor(np.asarray(a, dtype=np.float64),
                                            dtype=dtype, device=device)
     return DGContext2D(**fields)
+
+
+_STATIC_1D = ("n_order", "n_p", "k_elem", "n_faces", "n_fp", "mapI", "mapO",
+              "vmapI", "vmapO")
+_INDEX_1D = ("vmapM", "vmapP", "mapP", "fmask")
+
+
+def context1d_from_numpy(arrays: dict, device="cuda",
+                         dtype: torch.dtype = torch.float32) -> DGContext1D:
+    """Build the port's 1D context from the JAX ``DGContext1D``'s fields:
+    ``arrays`` maps every field name to its value (the integers as ints,
+    each array through ``np.asarray``)."""
+    fields = {}
+    for name, a in arrays.items():
+        if name in _STATIC_1D:
+            fields[name] = int(a)
+        elif name in _INDEX_1D:
+            fields[name] = torch.as_tensor(np.array(a, dtype=np.int64),
+                                           device=device)
+        else:
+            fields[name] = torch.as_tensor(np.array(a, dtype=np.float64),
+                                           dtype=dtype, device=device)
+    return DGContext1D(**fields)
 
 
 def physics_from_numpy(g: float = 9.81, cd: float = 0.0, f_cor: float = 0.0,

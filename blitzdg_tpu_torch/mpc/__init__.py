@@ -11,7 +11,7 @@ from .fused import (FusedMPC, advance_plant_fused, build_fused_mpc,
 from .problem import MPCProblem, mpc_cost, rollout_controls
 from .sharded_box import (ShardedMPC, sharded_mpc_cost, sharded_mpc_problem,
                           solve_sharded_mpc)
-from .solver import MPCSolution, solve_mpc
+from .solver import MPCSolution, receding_horizon, solve_mpc, solve_mpc_gn
 
 __all__ = [
     "MPCProblem",
@@ -19,6 +19,8 @@ __all__ = [
     "rollout_controls",
     "MPCSolution",
     "solve_mpc",
+    "solve_mpc_gn",
+    "receding_horizon",
     "FusedMPC",
     "build_fused_mpc",
     "mpc_cost_fused",

@@ -5,8 +5,9 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
-(``--only dense``, ``--only blocked``, ``--only curved`` or ``--only
-sharded`` runs one path's phases alone, for work on that path.) What it does,
+(``--only dense``, ``--only blocked``, ``--only curved``, ``--only
+sharded``, ``--only elliptic`` or ``--only solver`` runs one path's phases
+alone, for work on that path.) What it does,
 in order (any failure is an exception and a non-zero exit):
 
  1. refuses to run without a CUDA device;
@@ -103,7 +104,33 @@ in order (any failure is an exception and a non-zero exit):
     through the plain versions on the card and reads the rounding floor
     (the cost through the plain versions at the hidden and at the final
     controls);
- 7. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
+ 7. ELLIPTIC path (no kernel of its own: plain tensor code): the JAX
+    benchmark's Poisson configuration, N=2, float32, on
+    ``box_triangles(23, 23)`` (K=1058; the benchmark's box.msh, K=1046, is
+    not in the repository). ``elliptic_setup`` builds the context,
+    assembles the SIP operator in float64 on the host, block-Jacobi from it
+    and the two-level preconditioner; ``elliptic_gmres`` runs
+    block-Jacobi GMRES(300) on the symmetrized matrix-free operator
+    (restarts, relres, flag, Arnoldi steps and the modified Gram-Schmidt
+    launch cost); ``elliptic_cg_batched`` 64 right-hand sides at once
+    through block-Jacobi CG (per-RHS iterations, relres); and
+    ``elliptic_cg_twolevel`` one right-hand side through the two-level CG
+    beside block-Jacobi CG. Every solution is held to a float64 splu solve
+    of the assembled operator; no flag may be inf/nan or diverged. For
+    information it profiles 50 iterations of the batched CG (device events
+    only: the idle share);
+ 8. SOLVER path: ``solve_mpc_gn`` (Gauss-Newton, 2 outer x 8 CG
+    iterations) and ``receding_horizon`` (2 cycles of 5 Adam iterations)
+    at the headline shape (B=2048, K=40, N=1, 8 x 4 steps) over the plain
+    composite (``MPCProblem.rhs_fn`` = ``sw2d_rhs`` with the tidal depth),
+    counters zeroed just before and read just after (no kernel launches
+    there). Each scenario's cost history must not rise; GN's final cost
+    through ``mpc_cost_fused`` (B2) must equal the composite's per
+    scenario within COST_RATIO; each receding-horizon cycle's plant state
+    must equal ``advance_plant_fused`` (B1) from the cycle's control at
+    t0 = 0 within FWD_ATOL. For information it profiles one Gauss-Newton CG
+    step (a J v and a pullback at B=2048, device events only);
+ 9. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
     card's name and power limit, and as the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -208,6 +235,30 @@ SHD_GRAD_RTOL = 1e-4
 SHD_COST_RATIO = (0.986, 1.014)
 # Steps of the profiled window of each sharded rollout (the idle share).
 SHD_PROFILE_STEPS = 256
+
+# Elliptic path: the JAX benchmark's Poisson configuration (box.msh, K=1046,
+# N=2) on box_triangles(23, 23), K=1058 (box.msh is not in the repository):
+# GMRES(300) and CG at tol 2e-4 (the float32 floor of this operator), 64
+# right-hand sides for the batched CG, every solution within 5e-3 of a
+# float64 splu solve of the assembled operator (the benchmark's own gate).
+ELL_CELLS = 23
+ELL_ORDER = 2
+ELL_TOL = 2e-4
+ELL_RESTART = 300
+ELL_GMRES_MAXITER = 5
+ELL_NB = 64
+ELL_CG_MAXITER = 600
+ELL_SPLU_ATOL = 5e-3
+ELL_PROFILE_ITERS = 50
+# MPC solvers over the plain composite at the headline shape: Gauss-Newton
+# cut from the JAX default of 5 outer iterations to 2 (8 CG steps each, the
+# default), receding horizon 2 cycles of 5 Adam iterations. The plant is
+# held to the dense forward tolerance FWD_ATOL, GN's cost through the B2
+# kernel to COST_RATIO.
+GN_ITERS = 2
+GN_CG_ITERS = 8
+RH_CYCLES = 2
+RH_ITERS = 5
 
 
 def say(obj) -> None:
@@ -444,14 +495,19 @@ def perturbed_inputs(cb, B, n_cs, rng, device):
     return h.contiguous(), hu.contiguous(), hv.contiguous(), ctrls
 
 
-def profile_solve(phase: str, card: str, run, solve_s: float) -> dict:
+def profile_solve(phase: str, card: str, run, solve_s: float,
+                  cuda_only: bool = False) -> dict:
     """Where one solve's time goes, for information: device time by kernel
     name under torch.profiler, and the idle share against the unprofiled
-    host-clock time ``solve_s``. Returns the record it prints."""
+    host-clock time ``solve_s``. ``cuda_only`` records the device's events
+    alone (no host operator events: a fraction of the profiler's own cost
+    on runs of many small launches). Returns the record it prints."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] if cuda_only else [ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         run()
         torch.cuda.synchronize()
 
@@ -2165,6 +2221,346 @@ def sharded_phases(dev, card: str, rng, flush) -> list:
             for name, rec in head.items()]
 
 
+# ---------------------------------------------------------------------------
+# The elliptic path
+# ---------------------------------------------------------------------------
+
+def mgs_pair_us(n: int, dev, reps: int = 2000) -> float:
+    """Host-issued time in us of one modified Gram-Schmidt pair (a dot
+    product and an update, as ``solvers.krylov.gmres`` issues them) on
+    vectors of ``n`` float32 entries, CUDA events over ``reps`` pairs."""
+    v = torch.randn(n, device=dev)
+    w = torch.randn(n, device=dev)
+    for _ in range(10):
+        w = w - torch.sum(v * w, dim=-1)[..., None] * v
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        w = w - torch.sum(v * w, dim=-1)[..., None] * v
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) * 1e3 / reps
+
+
+def elliptic_phases(dev, card: str, rng, flush) -> list:
+    """The elliptic solvers at the JAX benchmark's Poisson configuration.
+    No kernel of its own: returns no kernel record."""
+    import scipy.sparse.linalg as spla
+
+    from blitzdg_tpu_torch.mesh import box_triangles
+    from blitzdg_tpu_torch.ops.poisson import (apply_mass, assemble_poisson2d,
+                                               poisson2d_op)
+    from blitzdg_tpu_torch.solvers import (CONV_DIVERGED, CONV_INF_OR_NAN,
+                                           block_jacobi_from_assembled, cg,
+                                           gmres, two_level_from_assembled)
+    from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
+
+    # ---- set-up ----
+    t0 = time.perf_counter()
+    mesh = box_triangles(ELL_CELLS, ELL_CELLS)
+    ctx = build_triangle_context(ELL_ORDER, mesh, dtype=torch.float32,
+                                 device=dev)
+    host = build_triangle_context(ELL_ORDER, mesh, dtype=torch.float64,
+                                  device="cpu")
+    t_ctx = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    OP, MM = assemble_poisson2d(host)
+    t_asm = time.perf_counter() - t0
+    K, n_p = ctx.k_elem, ctx.n_p
+    t0 = time.perf_counter()
+    bj = block_jacobi_from_assembled(OP, K, n_p, device=dev)
+    t_bj = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tl = two_level_from_assembled(host, OP, device=dev)
+    t_tl = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lu = spla.splu(OP.tocsc())
+    t_lu = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    say({"phase": "elliptic_setup", "card": card, "k_elem": K,
+         "n_order": ELL_ORDER, "n_dof": K * n_p,
+         "reduced": ["mesh: box_triangles(23, 23), K=1058, for the "
+                     "benchmark's box.msh (K=1046), which is not in the "
+                     "repository"],
+         "context_s": t_ctx, "assemble_s": t_asm, "block_jacobi_s": t_bj,
+         "two_level_s": t_tl, "splu_factor_s": t_lu, "nnz": int(OP.nnz)})
+
+    shape = (K, n_p)
+    calls = {"matvec": 0}
+
+    def mv(v):
+        calls["matvec"] += 1
+        return -poisson2d_op(ctx, v.reshape(*v.shape[:-1], *shape),
+                             symmetrize=True).reshape(v.shape)
+
+    def oracle_gap(x, rhs):
+        """max |x - splu(OP) rhs| per right-hand side (float64 host)."""
+        bh = rhs.double().cpu().numpy().reshape(-1, K * n_p)
+        xh = x.double().cpu().numpy().reshape(-1, K * n_p)
+        ref = lu.solve(bh.T).T
+        return np.abs(xh - ref).max(axis=1)
+
+    bad = (CONV_INF_OR_NAN, CONV_DIVERGED)
+    uex = torch.sin(np.pi * ctx.x) * torch.sin(np.pi * ctx.y)
+    b = apply_mass(ctx, 2.0 * np.pi ** 2 * uex).reshape(-1)
+
+    # ---- GMRES(300), block-Jacobi ----
+    kw = dict(tol=ELL_TOL, restart=ELL_RESTART, maxiter=ELL_GMRES_MAXITER,
+              precon=bj)
+    t0 = time.perf_counter()
+    gmres(mv, b, **kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    calls["matvec"] = 0
+    t0 = time.perf_counter()
+    res = gmres(mv, b, **kw)
+    torch.cuda.synchronize()
+    gmres_ms = (time.perf_counter() - t0) * 1e3
+    cycles = int(res.iters)
+    # Arnoldi steps of each cycle: the same cycles one call at a time (each
+    # call's matvecs: its initial residual, one a step, the true residual)
+    steps, x = [], None
+    for _ in range(cycles):
+        calls["matvec"] = 0
+        x = gmres(mv, b, x, **{**kw, "maxiter": 1}).x
+        steps.append(calls["matvec"] - 2)
+    pairs = sum(j * (j + 1) // 2 for j in steps)
+    pair_us = mgs_pair_us(K * n_p, dev)
+    gap = float(oracle_gap(res.x, b).max())
+    flag = int(res.flag)
+    ok = flag not in bad and gap < ELL_SPLU_ATOL
+    say({"phase": "elliptic_gmres", "ok": ok, "card": card, "ms": gmres_ms,
+         "first_call_s": first_s, "restarts": cycles,
+         "arnoldi_steps_per_cycle": steps,
+         "relres": float(res.relres), "flag": flag, "tol": ELL_TOL,
+         "max_abs_vs_splu": gap, "gate": ELL_SPLU_ATOL,
+         "mgs_pairs": pairs, "mgs_pair_us": pair_us,
+         "mgs_ms_estimate": pairs * pair_us / 1e3})
+    if not ok:
+        raise RuntimeError("elliptic GMRES failed its gate")
+
+    # ---- 64 right-hand sides through block-Jacobi CG ----
+    offs = np.random.default_rng(0).uniform(-0.5, 0.5, size=(ELL_NB, 2))
+    offs = torch.as_tensor(offs.astype(np.float32), device=dev)
+    ox, oy = offs[:, 0, None, None], offs[:, 1, None, None]
+    fs = apply_mass(ctx, 2.0 * np.pi ** 2 * torch.sin(np.pi * (ctx.x - ox))
+                    * torch.sin(np.pi * (ctx.y - oy))).reshape(ELL_NB, -1)
+    fs = fs.contiguous()
+    kw = dict(tol=ELL_TOL, maxiter=ELL_CG_MAXITER, precon=bj)
+    cg(mv, fs, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resb = cg(mv, fs, **kw)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    rel = resb.relres.double().cpu().numpy()
+    its = resb.iters.cpu().numpy()
+    flags = resb.flag.cpu().numpy()
+    gaps = oracle_gap(resb.x, fs)
+    ok = (not np.isin(flags, bad).any() and bool(np.isfinite(rel).all())
+          and float(gaps.max()) < ELL_SPLU_ATOL)
+    say({"phase": "elliptic_cg_batched", "ok": ok, "card": card,
+         "rhs": ELL_NB, "ms": batch_s * 1e3,
+         "ms_per_rhs": batch_s * 1e3 / ELL_NB,
+         "relres_max": float(rel.max()), "relres_median": float(np.median(rel)),
+         "iters_max": int(its.max()), "iters_min": int(its.min()),
+         "iters_median": float(np.median(its)),
+         "iters_spread": int(its.max() - its.min()),
+         "flags": {str(int(f)): int((flags == f).sum())
+                   for f in np.unique(flags)},
+         "max_abs_vs_splu": float(gaps.max()), "gate": ELL_SPLU_ATOL})
+    if not ok:
+        raise RuntimeError("elliptic batched CG failed its gate")
+    # the idle share over the first ELL_PROFILE_ITERS iterations (every
+    # iteration issues the same launches)
+    window = lambda: cg(mv, fs, **{**kw, "maxiter": ELL_PROFILE_ITERS})
+    window()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    profile_solve("elliptic_cg_batched_profile", card, window,
+                  time.perf_counter() - t0, cuda_only=True)
+
+    # ---- one right-hand side: two-level CG beside block-Jacobi CG ----
+    one = fs[0].contiguous()
+    rows = {}
+    for name, pre in (("two_level", tl), ("block_jacobi", bj)):
+        cg(mv, one, tol=ELL_TOL, maxiter=ELL_CG_MAXITER, precon=pre)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r1 = cg(mv, one, tol=ELL_TOL, maxiter=ELL_CG_MAXITER, precon=pre)
+        torch.cuda.synchronize()
+        rows[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                      "iters": int(r1.iters), "relres": float(r1.relres),
+                      "flag": int(r1.flag),
+                      "max_abs_vs_splu": float(oracle_gap(r1.x, one).max())}
+    ok = all(r["flag"] not in bad and r["max_abs_vs_splu"] < ELL_SPLU_ATOL
+             for r in rows.values())
+    say({"phase": "elliptic_cg_twolevel", "ok": ok, "card": card, **rows,
+         "gate": ELL_SPLU_ATOL})
+    if not ok:
+        raise RuntimeError("elliptic two-level CG failed its gate")
+    return []
+
+
+# ---------------------------------------------------------------------------
+# The MPC solvers over the plain composite
+# ---------------------------------------------------------------------------
+
+def solver_phases(dev, card: str, rng, flush) -> list:
+    """Gauss-Newton and the receding-horizon loop at the headline shape
+    over the plain composite, cross-checked against the B2 and B1 kernels.
+    They launch no kernel on their own path: returns no kernel record."""
+    import dataclasses
+
+    from blitzdg_tpu_torch.mpc import (advance_plant_fused, build_fused_mpc,
+                                       mpc_cost, mpc_cost_fused,
+                                       receding_horizon, rollout_controls,
+                                       solve_mpc_fused, solve_mpc_gn)
+    from blitzdg_tpu_torch.mpc import coastal_box as cbx
+    from blitzdg_tpu_torch.mpc.solver import _mpc_residuals
+    from blitzdg_tpu_torch.ops import sw2d_fused as F
+    from blitzdg_tpu_torch.ops.sw2d import sw2d_rhs
+
+    cb = cbx.coastal_box_problem(device=dev)
+    fm = build_fused_mpc(cb.prob, cb.forcing_bu, cb.forcing_bv,
+                         tidal=cb.tidal, device=dev)
+    ctx, phys = cb.prob.ctx, cb.prob.phys
+    tide = lambda t: F._tidal_depth(fm.meta, t)
+    prob = dataclasses.replace(
+        cb.prob, rhs_fn=lambda s, t: sw2d_rhs(ctx, s, t, phys,
+                                              tidal_forcing=tide))
+    BU = torch.as_tensor(cb.forcing_bu, dtype=torch.float32, device=dev)
+    BV = torch.as_tensor(cb.forcing_bv, dtype=torch.float32, device=dev)
+
+    def forcing(c, control, state, t):
+        return (torch.zeros_like(state.h),
+                torch.einsum("...j,jkn->...kn", control, BU),
+                torch.einsum("...j,jkn->...kn", control, BV))
+
+    wrappers = (F.sw2d_step_fused, F.sw2d_rollout_fused,
+                F.sw2d_rollout_bwd_fused)
+    B, H = cbx.BATCH, prob.horizon
+    zeros = torch.zeros((B, H, 2), device=dev)
+    with torch.no_grad():
+        cost0 = mpc_cost(prob, cb.states, zeros, cb.targets, forcing,
+                         cb.H_rest)
+
+    # ---- Gauss-Newton over the composite ----
+    gn = lambda iters: solve_mpc_gn(prob, cb.states, cb.targets, forcing, 2,
+                                    gn_iters=iters, cg_iters=GN_CG_ITERS,
+                                    H_rest=cb.H_rest)
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sol = gn(GN_ITERS)
+    torch.cuda.synchronize()
+    gn_s = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = torch.cat([cost0[None], sol.cost_history], dim=0)  # (1+it, B)
+    finite = bool(torch.isfinite(hist).all()) and bool(
+        torch.isfinite(sol.controls).all())
+    monotone = bool((hist[1:] <= hist[:-1]).all())
+    with torch.no_grad():
+        kcost = mpc_cost_fused(cb.prob, fm, cb.states, sol.controls,
+                               cb.targets, cb.H_rest)
+    ratio = kcost / sol.cost
+    rmin, rmax = float(ratio.min()), float(ratio.max())
+    # the main path's Adam solve, for comparison
+    adam = solve_mpc_fused(cb.prob, fm, cb.states, cb.targets, 2,
+                           iters=cbx.ITERS, learning_rate=cbx.LEARNING_RATE,
+                           H_rest=cb.H_rest)
+    q = lambda t: [float(v) for v in torch.quantile(
+        t.double(), torch.tensor([0.0, 0.5, 1.0], dtype=torch.float64,
+                                 device=t.device))]
+    ok = (finite and monotone and COST_RATIO[0] <= rmin
+          and rmax <= COST_RATIO[1] and all(v == 0 for v in launches.values()))
+    say({"phase": "gn_path", "ok": ok, "card": card, "batch": B,
+         "gn_iters": GN_ITERS, "cg_iters": GN_CG_ITERS,
+         "reduced": ["Gauss-Newton outer iterations 5 -> 2 (time)"],
+         "seconds": gn_s, "peak_memory_gb": peak_gb,
+         "cost_history_min_median_max": [q(hrow) for hrow in hist],
+         "cost_history_first4": hist[:, :4].T.tolist(),
+         "accepted_per_iter": [int((hist[i + 1] < hist[i]).sum())
+                               for i in range(GN_ITERS)],
+         "median_final_cost": float(sol.cost.median()),
+         "median_final_cost_adam_main_path": float(adam.cost.median()),
+         "adam_iters": cbx.ITERS,
+         "grad_norm_median": float(sol.grad_norm.median()),
+         "grad_norm_max": float(sol.grad_norm.max()),
+         "launches": launches, "finite": finite, "non_increasing": monotone,
+         "b2_cost_ratio_min": rmin, "b2_cost_ratio_max": rmax,
+         "tol": list(COST_RATIO)})
+    if not ok:
+        raise RuntimeError("Gauss-Newton path failed its checks")
+    # the idle share of one CG step of Gauss-Newton (its bulk: 8 of about
+    # 9.5 rollout-sized passes an outer iteration are J v and a pullback),
+    # through graphs recorded at GN's controls as the solver records them
+    c_req = sol.controls.detach().requires_grad_(True)
+    r = _mpc_residuals(prob, cb.states, c_req, cb.targets, forcing,
+                       cb.H_rest)
+    u = torch.zeros_like(r, requires_grad=True)
+    jtu = torch.autograd.grad(r, c_req, u, create_graph=True)[0]
+    v = torch.ones_like(c_req)
+
+    def cg_step():
+        jv = torch.autograd.grad(jtu, u, v, retain_graph=True)[0]
+        torch.autograd.grad(r, c_req, jv, retain_graph=True)
+
+    cg_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cg_step()
+    torch.cuda.synchronize()
+    profile_solve("gn_profile_cg_step", card, cg_step,
+                  time.perf_counter() - t0, cuda_only=True)
+    del r, u, jtu
+
+    # ---- receding horizon over the composite ----
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    end, applied, costs = receding_horizon(
+        prob, cb.states, cb.targets, forcing, 2, n_cycles=RH_CYCLES,
+        iters=RH_ITERS, learning_rate=cbx.LEARNING_RATE, H_rest=cb.H_rest)
+    torch.cuda.synchronize()
+    rh_s = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    # each cycle's plant step, composite against the B1 kernel, from the
+    # same state and the cycle's applied control, clock at t = 0 (C23)
+    plant = dataclasses.replace(prob, horizon=1)
+    s_comp, s_kern, errs = cb.states, cb.states, []
+    with torch.no_grad():
+        for k in range(RH_CYCLES):
+            ctl = applied[:, k].contiguous()
+            s_next, _ = rollout_controls(plant, s_comp, ctl[:, None, :],
+                                         forcing)
+            s_kern = advance_plant_fused(cb.prob, fm, s_comp, ctl, t0=0.0)
+            errs.append(max_abs(list(s_next), list(s_kern)))
+            s_comp = s_next
+    end_err = max_abs(list(end), list(s_comp))
+    ok = (tuple(applied.shape) == (B, RH_CYCLES, 2)
+          and bool(torch.isfinite(costs).all())
+          and max(errs) <= FWD_ATOL and end_err <= FWD_ATOL
+          and all(v == 0 for v in launches.values()))
+    say({"phase": "receding_horizon_path", "ok": ok, "card": card,
+         "batch": B, "n_cycles": RH_CYCLES, "iters": RH_ITERS,
+         "seconds": rh_s, "applied_shape": list(applied.shape),
+         "cost_median_per_cycle": [float(c) for c in costs.median(dim=0)
+                                   .values],
+         "plant_vs_b1_max_abs": errs, "tol": FWD_ATOL,
+         "end_state_vs_replay_max_abs": end_err, "launches": launches})
+    if not ok:
+        raise RuntimeError("receding-horizon path failed its checks")
+    return []
+
+
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame and spill bytes of each kernel in one source's
     ``ptxas -v`` output, by mangled name."""
@@ -2269,7 +2665,7 @@ def check_no_spills(report: dict, kernels: list):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("dense", "blocked", "curved",
-                                       "sharded"),
+                                       "sharded", "elliptic", "solver"),
                     help="run one path's phases alone (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2319,6 +2715,10 @@ def main() -> int:
         kernels += curved_phases(dev, card, rng, flush)
     if args.only in (None, "sharded"):
         kernels += sharded_phases(dev, card, rng, flush)
+    if args.only in (None, "elliptic"):
+        kernels += elliptic_phases(dev, card, rng, flush)
+    if args.only in (None, "solver"):
+        kernels += solver_phases(dev, card, rng, flush)
 
     say({"phase": "total", "seconds": time.perf_counter() - t_start})
     if args.only in (None, "curved"):

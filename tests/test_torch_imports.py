@@ -43,7 +43,10 @@ def test_package_has_the_slice_modules():
             "mpc.curved_blocked", "mpc.curved_disk",
             # the element-sharded path
             "parallel.halo", "parallel.distributed", "parallel.blocked_shard",
-            "mpc.sharded_box"}
+            "mpc.sharded_box",
+            # the elliptic solvers and the 1D context they need
+            "solvers", "solvers.krylov", "solvers.precon", "ops.poisson",
+            "ops.sem", "specgrid.nodes1d"}
     have = {m.removeprefix("blitzdg_tpu_torch.") for m in port_modules()}
     assert want <= have
     for name in ("sw2d_dense.cu", "sw2d_blocked.cu", "sw2d_curved.cu",
@@ -239,3 +242,42 @@ def test_sharded_entry_points_default_to_cuda():
     for fn in (convert.sharded_blocked_from_numpy,
                sbx.sharded_rollout_problem):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_elliptic_and_solver_entry_points_default_to_cuda():
+    """The elliptic path's set-up (1D context, block inverses, two-level
+    preconditioner): no ``device=`` means the card, and without a card that
+    raises; the solvers follow their inputs' device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from blitzdg_tpu_torch import convert
+    from blitzdg_tpu_torch.context import DGContext1D
+    from blitzdg_tpu_torch.mesh import box_triangles
+    from blitzdg_tpu_torch.ops.poisson import assemble_poisson2d
+    from blitzdg_tpu_torch.solvers import (block_jacobi_from_assembled, cg,
+                                           invert_blocks,
+                                           two_level_from_assembled)
+    from blitzdg_tpu_torch.specgrid import build_nodes1d
+    from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
+
+    cuda_or_nothing = pytest.raises((RuntimeError, AssertionError))
+    with cuda_or_nothing:
+        build_nodes1d(2, 4, 0.0, 1.0)
+    ctx1 = build_nodes1d(2, 4, 0.0, 1.0, device="cpu")
+    assert isinstance(ctx1, DGContext1D) and ctx1.x.device.type == "cpu"
+    ctx = build_triangle_context(1, box_triangles(2, 2), dtype=torch.float64,
+                                 device="cpu")
+    OP, _ = assemble_poisson2d(ctx)
+    with cuda_or_nothing:
+        invert_blocks(np.eye(3)[None])
+    with cuda_or_nothing:
+        block_jacobi_from_assembled(OP, ctx.k_elem, ctx.n_p)
+    with cuda_or_nothing:
+        two_level_from_assembled(ctx, OP)
+    for fn in (convert.context1d_from_numpy, block_jacobi_from_assembled,
+               two_level_from_assembled, build_nodes1d):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    pre = block_jacobi_from_assembled(OP, ctx.k_elem, ctx.n_p, device="cpu")
+    b = torch.ones(ctx.k_elem * ctx.n_p, dtype=torch.float32)
+    res = cg(lambda v: v, b, precon=pre)
+    assert res.x.device.type == "cpu"
