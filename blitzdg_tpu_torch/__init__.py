@@ -26,25 +26,36 @@ one-launch step ``make_sharded_blocked_step_rdma`` over
 ``ops.sw2d_step_rdma_blocked`` (both stages and the halo between them in
 one kernel).
 
+The blocked forward kernels also take quadrilateral elements
+(``specgrid.quad.build_quad_context`` on ``mesh.box_quads``), up to N=4.
+
 The MPC solvers (``mpc.solve_mpc``, ``mpc.solve_mpc_gn``,
-``mpc.receding_horizon``) over the plain composite rollout, and the
-elliptic solvers (``solvers``: CG, GMRES, block-Jacobi and two-level
-preconditioning; ``ops.poisson``, ``ops.sem``), are plain tensor code, as
-they are plain XLA code in the JAX package.
+``mpc.receding_horizon``) over the plain composite rollout, the elliptic
+solvers (``solvers``: CG, GMRES, block-Jacobi and two-level
+preconditioning; ``ops.poisson``, ``ops.sem``), the Boussinesq projection
+solver (``ops.ins2d``) and the 1D solvers (``ops.advec1d``,
+``ops.burgers1d`` with ``timestepping.lserk4_step`` / ``integrate``) are
+plain tensor code, as they are plain XLA code in the JAX package. Host
+set-up and output: ``io`` (CSV, VTK, checkpoints), ``mesh.write_gmsh``,
+``mesh.read_csv_mesh``, ``config.read_namelist`` and ``native`` (the C++
+mesh helpers, built with g++ at first use).
 
 Entry points take ``device=`` and default to ``"cuda"``; on a machine
 without CUDA the default raises, it does not fall back to the CPU.
 """
 from . import context, timestepping
 from .context import (BC_DIRICHLET, BC_IN, BC_NEUMAN, BC_OUT, BC_WALL,
-                      DGContext2D)
+                      DGContext1D, DGContext2D)
+from .specgrid.nodes1d import build_nodes1d
 
 __version__ = "0.1.0"
 
 __all__ = [
     "context",
     "timestepping",
+    "DGContext1D",
     "DGContext2D",
+    "build_nodes1d",
     "BC_IN",
     "BC_OUT",
     "BC_WALL",

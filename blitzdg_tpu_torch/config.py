@@ -1,4 +1,4 @@
-"""Numeric precision policy of the port.
+"""Numeric precision policy of the port, and the namelist reader.
 
 Counterpart of the precision scope in the JAX package's
 ``blitzdg_tpu/config.py`` (``dg_op``) and of ``blitzdg_tpu/ops/_mxu.py``:
@@ -20,3 +20,34 @@ def check_matmul_precision(t: torch.Tensor) -> None:
         raise RuntimeError(
             "torch.backends.cuda.matmul.allow_tf32 is True: DG operators "
             "need full float32 matrix products")
+
+
+# ---------------------------------------------------------------------------
+# Namelist configuration files
+# ---------------------------------------------------------------------------
+
+def read_namelist(path: str) -> dict:
+    """Parse a KEY = value namelist file: '#' comments, blank lines ignored,
+    keys upper-cased. Values are returned as str; use typed accessors or
+    cast at the call site."""
+    config = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = [p.strip() for p in line.split("=")]
+            if len(parts) != 2:
+                raise ValueError(f"cannot parse namelist line: {line!r}")
+            config[parts[0].upper()] = parts[1]
+    return config
+
+
+def namelist_get(config: dict, key: str, cast=str, default=None):
+    """Typed accessor with optional default."""
+    k = key.upper()
+    if k not in config:
+        if default is not None:
+            return default
+        raise KeyError(f"missing namelist key {k}")
+    return cast(config[k])

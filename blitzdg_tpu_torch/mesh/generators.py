@@ -1,8 +1,8 @@
 """Structured mesh generators (standalone test/benchmark fixtures).
 
 Host-side numpy. Counterpart of the JAX package's
-``blitzdg_tpu/mesh/generators.py``: ``box_triangles`` and ``disk_triangles``
-(``box_quads`` is not ported).
+``blitzdg_tpu/mesh/generators.py``: ``box_triangles``, ``box_quads`` and
+``disk_triangles``.
 """
 from __future__ import annotations
 
@@ -37,6 +37,22 @@ def box_triangles(nx: int, ny: int, xlim=(-1.0, 1.0), ylim=(-1.0, 1.0),
                 tris.append([v00, v10, v01])
                 tris.append([v10, v11, v01])
     return build_mesh(verts, np.asarray(tris, dtype=np.int32), default_bc)
+
+
+def box_quads(nx: int, ny: int, xlim=(-1.0, 1.0), ylim=(-1.0, 1.0),
+              default_bc: int = BC_WALL) -> Mesh2D:
+    """Uniform quadrilateral rectangle mesh (K = nx*ny)."""
+    xs = np.linspace(*xlim, nx + 1)
+    ys = np.linspace(*ylim, ny + 1)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    verts = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    def vid(i, j):
+        return i * (ny + 1) + j
+
+    quads = [[vid(i, j), vid(i + 1, j), vid(i + 1, j + 1), vid(i, j + 1)]
+             for i in range(nx) for j in range(ny)]
+    return build_mesh(verts, np.asarray(quads, dtype=np.int32), default_bc)
 
 
 def disk_triangles(n_rings: int, radius: float = 1.0,

@@ -2,13 +2,14 @@
 
 Host-side setup (numpy only). Counterpart of the JAX package's
 ``blitzdg_tpu/mesh/gmsh.py`` (``Mesh2D``, ``build_mesh``, ``set_bc_type``,
-``read_gmsh``): $MeshFormat validation (2.x ASCII, 8-byte reals), $Nodes /
+``read_gmsh``, ``write_gmsh``, ``read_csv_mesh``): $MeshFormat validation (2.x ASCII, 8-byte reals), $Nodes /
 $Elements parsing with element-type dispatch (15=point, 1=line, 2=triangle,
 3=quadrangle), CCW re-orientation via the signed determinant, then face
 connectivity and a default-Wall boundary table. Boundary *line* elements
 carrying Gmsh physical tags are matched to element faces by vertex pair so
-physical-group BCs survive. Connectivity takes the numpy path only; the
-native C++ helper of the JAX package is not ported yet.
+physical-group BCs survive. Connectivity takes the numpy path here; the
+native helper (``blitzdg_tpu_torch.native.build_connectivity``) gives the
+same tables.
 """
 from __future__ import annotations
 
@@ -158,3 +159,38 @@ def read_gmsh(path: str, default_bc: int = BC_WALL, apply_line_tags: bool = True
         if apply_line_tags:
             match_line_tags(mesh)
     return mesh
+
+
+def write_gmsh(path: str, mesh: Mesh2D) -> None:
+    """Write a Gmsh 2.2 ASCII file (round-trip support for fixtures)."""
+    with open(path, "w") as f:
+        f.write("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n")
+        f.write(f"$Nodes\n{mesh.num_verts}\n")
+        for n, (x, y) in enumerate(mesh.verts, start=1):
+            f.write(f"{n} {float(x):.17g} {float(y):.17g} 0\n")
+        f.write("$EndNodes\n$Elements\n")
+        n_lines = 0 if mesh.boundary_lines is None else len(mesh.boundary_lines)
+        f.write(f"{mesh.num_elements + n_lines}\n")
+        row = 1
+        etype = 2 if mesh.num_faces == 3 else 3
+        if mesh.boundary_lines is not None:
+            for (v0, v1), tag in zip(mesh.boundary_lines, mesh.boundary_tags):
+                f.write(f"{row} 1 2 {tag} {tag} {v0 + 1} {v1 + 1}\n")
+                row += 1
+        for k in range(mesh.num_elements):
+            vs = " ".join(str(v + 1) for v in mesh.etov[k])
+            f.write(f"{row} {etype} 2 0 0 {vs}\n")
+            row += 1
+        f.write("$EndElements\n")
+
+
+def read_csv_mesh(vertices_path: str, elements_path: str,
+                  default_bc: int = BC_WALL) -> Mesh2D:
+    """Build a mesh from whitespace-delimited vertex/element files. Vertex
+    rows are x y [z]; element rows are 0-based vertex ids (triangles or
+    quads by column count)."""
+    from ..io.csv import csvread
+
+    verts = csvread(vertices_path, float)[:, :2]
+    etov = csvread(elements_path, float).astype(np.int64)
+    return build_mesh(verts, etov, default_bc=default_bc)

@@ -38,12 +38,15 @@ def cfl_dt(ctx: DGContext2D, g: float, h_max: float, cfl: float = 0.7) -> float:
 
 
 def retag_east_open(mesh: Mesh2D) -> None:
-    """Retag the boundary faces on the east side (x = xmax) as BC_OUT."""
+    """Retag the boundary faces on the east side (x = xmax) as BC_OUT
+    (face f of an element joins its vertices f and f+1, triangles or
+    quadrilaterals)."""
     xmax = float(mesh.verts[:, 0].max())
     bc = np.asarray(mesh.bc_type).copy()
+    nf = mesh.num_faces
     for k in range(mesh.num_elements):
-        for f in range(3):
-            a, b = mesh.etov[k, f], mesh.etov[k, (f + 1) % 3]
+        for f in range(nf):
+            a, b = mesh.etov[k, f], mesh.etov[k, (f + 1) % nf]
             mx = 0.5 * (mesh.verts[a, 0] + mesh.verts[b, 0])
             if bc[k, f] > 0 and abs(mx - xmax) < 1e-9 * max(1.0, abs(xmax)):
                 bc[k, f] = BC_OUT

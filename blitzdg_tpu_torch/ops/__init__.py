@@ -5,8 +5,12 @@ in ``csrc/sw2d_dense.cu``), the element-blocked one for large meshes
 (``sw2d_blocked``, kernels in ``csrc/sw2d_blocked.cu``, with the stage and
 one-launch step kernels of the element-sharded path) and the curved
 weak-form one (``sw2d_curved_blocked``, kernels in ``csrc/sw2d_curved.cu``).
-The names below are the kernel wrappers and what builds their operator sets.
+The names below are the kernel wrappers and what builds their operator sets,
+and the 1D right-hand sides (plain tensor code, as the JAX package exports
+them).
 """
+from .advec1d import advec1d_rhs
+from .burgers1d import burgers1d_rhs, burgers_exact
 from .sw2d_blocked import (BlockedMeta, BlockedOps, ShardOps,
                            build_blocked_step_ops, make_rollout_blocked,
                            matmul_flops_per_step, sw2d_rollout_blocked,
@@ -24,6 +28,7 @@ from .sw2d_fused import (FusedStepMeta, FusedStepOps, build_fused_step_ops,
                          sw2d_rollout_fused, sw2d_step_fused)
 
 __all__ = [
+    "advec1d_rhs", "burgers1d_rhs", "burgers_exact",
     "FusedStepOps", "FusedStepMeta", "build_fused_step_ops", "make_rollout",
     "sw2d_step_fused", "sw2d_rollout_fused", "sw2d_rollout_bwd_fused",
     "BlockedOps", "BlockedMeta", "build_blocked_step_ops",

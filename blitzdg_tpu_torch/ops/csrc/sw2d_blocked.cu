@@ -192,9 +192,10 @@ struct RdmaArgs {
 
 #define QMAX_THREADS 256
 // Room of the run-time-size instantiation's arrays: nodes (N=6), nodes a
-// face.
+// face, faces (a quadrilateral's).
 #define QMAX_NP 28
 #define QMAX_NFP 7
+#define QMAX_NFACES 4
 
 __host__ __device__ constexpr int qround4(int n) { return (n + 3) & ~3; }
 
@@ -213,11 +214,15 @@ __host__ __device__ inline int q_item_floats(int Np, int Ntr) {
 
 // Nodes, nodes a face, controls and lanes an item: constants of the
 // instantiation where the template gives them, else (0 sizes, NC < 0)
-// read at run time. The lanes of a face (LPF) are min(LANES, NFP): with
-// more lanes than a face has nodes (the adjoint's wide items), each group
-// of NFP lanes takes a face, one trace node a lane (qvjp). qstage's lane p
-// holds nodes p + LANES k, k < CFP, of every face; where the lanes do not
-// divide a face (MASKED: N=6), the last of them lie past it on some lanes.
+// read at run time. Faces: three (triangles) in the compile-time
+// instances; the descriptor's in the run-time one, which qstage takes on
+// triangles and quadrilaterals alike (the adjoint, qvjp, and its NG count
+// three faces: the kernels on it refuse quadrilaterals). The lanes of a
+// face (LPF) are min(LANES, NFP): with more lanes than a face has nodes
+// (the adjoint's wide items), each group of NFP lanes takes a face, one
+// trace node a lane (qvjp). qstage's lane p holds nodes p + LANES k,
+// k < CFP, of every face; where the lanes do not divide a face (MASKED:
+// N=6), the last of them lie past it on some lanes.
 template <int NP, int NFP, int NC, int LANES>
 struct QSizes {
   static constexpr int P = LANES;
@@ -225,6 +230,8 @@ struct QSizes {
   static constexpr int CNP = NP ? (NP + LANES - 1) / LANES : QMAX_NP;
   // a face's nodes, a lane
   static constexpr int CFP = NP ? (NFP + LPF - 1) / LPF : QMAX_NFP;
+  // room of a lane's face arrays
+  static constexpr int NF = NP ? 3 : QMAX_NFACES;
   static constexpr bool MASKED = NP && NFP % LANES != 0;
   // whether the one-launch step's lanes may hold their step-start and
   // stage-1 nodes through its second stage (at N=6 they and the stage's
@@ -245,6 +252,9 @@ struct QSizes {
   }
   __device__ __forceinline__ static int ntr(const Ops& o) {
     return NP ? 3 * NFP : o.Ntr;
+  }
+  __device__ __forceinline__ static int nfaces(const Ops& o) {
+    return NP ? 3 : o.Nfaces;
   }
   __device__ __forceinline__ static int nc(const Ops& o) {
     return NC >= 0 ? NC : o.n_ctrl;
@@ -384,6 +394,7 @@ __device__ __forceinline__ void qstage(
   constexpr int P = Z::P;
   const int Np = Z::np(g), Ntr = Z::ntr(g), Nfp = Z::nfp(g);
   const int ns = Z::nslots(g), nfl = Z::nface(g), nc = Z::nc(g);
+  const int nf = Z::nfaces(g);
   const int e = l.e, p = l.p, v0 = e * Np, i0 = e * Ntr;
   const float2* DS = reinterpret_cast<const float2*>(sops);
   const float* LF = sops + 2 * Np * Np;
@@ -408,18 +419,18 @@ __device__ __forceinline__ void qstage(
   // state at both sides, each round issued at once (the tables are
   // read-only for the launch: __ldg; the state may have been written by
   // this launch's first phase: plain loads)
-  int vm[3][Z::CFP], vp[3][Z::CFP];
+  int vm[Z::NF][Z::CFP], vp[Z::NF][Z::CFP];
 #pragma unroll
-  for (int f = 0; f < 3; ++f)
+  for (int f = 0; f < nf; ++f)
 #pragma unroll
     for (int k = 0; k < nfl; ++k) {
       const int gi = l.io + i0 + f * Nfp + q_fnode<Z>(p, k, Nfp);
       vm[f][k] = __ldg(g.vmapM + gi);
       vp[f][k] = __ldg(g.vmapP + gi);
     }
-  float sv[3][Z::CFP][6];
+  float sv[Z::NF][Z::CFP][6];
 #pragma unroll
-  for (int f = 0; f < 3; ++f)
+  for (int f = 0; f < nf; ++f)
 #pragma unroll
     for (int k = 0; k < nfl; ++k) {
       const int m = vm[f][k], q = vp[f][k];
@@ -437,7 +448,7 @@ __device__ __forceinline__ void qstage(
   // for the lift
   const bool depths = g.wb || g.wetdry;
 #pragma unroll
-  for (int f = 0; f < 3; ++f) {
+  for (int f = 0; f < nf; ++f) {
     float p1[Z::CFP], p2[Z::CFP], p3[Z::CFP], q1[Z::CFP], q2[Z::CFP];
     float q3[Z::CFP], lam = 0.0f;
 #pragma unroll
@@ -729,6 +740,14 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
 //      that phase, so written in place).
 // On a wet/dry set the positivity limiter follows each stage (qstage's).
 // Step t takes the controls ctrls[b, t / spc].
+//
+// Quadrilateral elements (four faces, tensor-product nodes) run here too,
+// on the run-time-size instance (one lane an item): qstage's face loops go
+// over the descriptor's face count, and the rest of a stage (the lift over
+// Ntr = 4 Nfp trace nodes, the operators' and the item's shared memory,
+// the element-local limiter) is sized from the descriptor already. The
+// room of its arrays takes quadrilaterals up to N=4 (Np 25 <= QMAX_NP,
+// Nfp 5 <= QMAX_NFP). The compile-time instances stay triangles.
 //
 // Each stage is the sharded stage kernel's (B7's) pass over the items: a
 // lane reads its own nodes of the stage's input, the two sides of its
@@ -1593,12 +1612,22 @@ typedef void (*StageBwdKern)(SwDesc, StageBwdArgs);
 typedef void (*BwdKern)(SwDesc, BwdArgs);
 typedef void (*FwdKern)(SwDesc, FwdArgs);
 
-// The instantiation of the q kernels for a set: N=3 with two controls (the
-// MPC's), N=3 with others (a set built without injectors has one, which
-// its rollouts never read), N=6 (the forward kernels' own), else the
-// run-time sizes (-1 past their room).
-static int q_kind(const SwDesc& d) {
-  if (d.Nfaces != 3 || d.Np > QMAX_NP || d.Nfp > QMAX_NFP) return -1;
+// The q kernels, as the launcher numbers them: the sharded stage (B7), the
+// one-launch step (B9), the sharded stage's adjoint (B8), the blocked
+// rollout's adjoint (B6), the blocked rollout (B5, and B4 with one step).
+enum { Q_STAGE = 0, Q_STEP = 1, Q_STAGE_BWD = 2, Q_ROLLOUT_BWD = 3,
+       Q_ROLLOUT = 4 };
+
+// The instantiation of q kernel `which` for a set: N=3 with two controls
+// (the MPC's), N=3 with others (a set built without injectors has one,
+// which its rollouts never read), N=6 (the forward kernels' own), else the
+// run-time sizes; -1 past their room. Quadrilaterals (four faces) take the
+// run-time sizes in the blocked rollout (B5, B4) alone; every other kernel
+// refuses them (-1).
+static int q_kind(const SwDesc& d, int which) {
+  if (d.Np > QMAX_NP || d.Nfp > QMAX_NFP) return -1;
+  if (d.Nfaces == QMAX_NFACES) return which == Q_ROLLOUT ? 2 : -1;
+  if (d.Nfaces != 3) return -1;
   if (d.Np == 10 && d.Nfp == 4) return d.n_ctrl == 2 ? 0 : 1;
   if (d.Np == 28 && d.Nfp == 7) return 3;
   return 2;
@@ -1607,9 +1636,9 @@ static int q_kind(const SwDesc& d) {
 // (order6: null where the kernel takes the run-time sizes at N=6, as the
 // adjoints do)
 template <class K>
-static K q_pick(const SwDesc& d, K order3_ctrl, K order3, K any_order,
-                K order6) {
-  switch (q_kind(d)) {
+static K q_pick(const SwDesc& d, int which, K order3_ctrl, K order3,
+                K any_order, K order6) {
+  switch (q_kind(d, which)) {
     case 0: return order3_ctrl;
     case 1: return order3;
     case 2: return any_order;
@@ -1619,21 +1648,22 @@ static K q_pick(const SwDesc& d, K order3_ctrl, K order3, K any_order,
 }
 
 static StageKern stage_kernel_of(const SwDesc& d) {
-  return q_pick<StageKern>(d, sw2d_stage_kernel<QOrder3Ctrl>,
+  return q_pick<StageKern>(d, Q_STAGE, sw2d_stage_kernel<QOrder3Ctrl>,
                            sw2d_stage_kernel<QOrder3>,
                            sw2d_stage_kernel<QAnyOrder>,
                            sw2d_stage_kernel<QOrder6>);
 }
 
 static RdmaKern rdma_kernel_of(const SwDesc& d) {
-  return q_pick<RdmaKern>(d, sw2d_step_rdma_kernel<QOrder3Ctrl>,
+  return q_pick<RdmaKern>(d, Q_STEP, sw2d_step_rdma_kernel<QOrder3Ctrl>,
                           sw2d_step_rdma_kernel<QOrder3>,
                           sw2d_step_rdma_kernel<QAnyOrder>,
                           sw2d_step_rdma_kernel<QOrder6>);
 }
 
 static FwdKern rollout_kernel_of(const SwDesc& d) {
-  return q_pick<FwdKern>(d, sw2d_blocked_rollout_kernel<QOrder3Ctrl>,
+  return q_pick<FwdKern>(d, Q_ROLLOUT,
+                         sw2d_blocked_rollout_kernel<QOrder3Ctrl>,
                          sw2d_blocked_rollout_kernel<QOrder3>,
                          sw2d_blocked_rollout_kernel<QAnyOrder>,
                          sw2d_blocked_rollout_kernel<QOrder6>);
@@ -1647,28 +1677,25 @@ static bool q_order1_ctrl(const SwDesc& d) {
 // (lanes: 16 and 8 take the wide items at N=3 and at N=1)
 static StageBwdKern stage_bwd_kernel_of(const SwDesc& d, int lanes) {
   if (lanes == 16)
-    return q_pick<StageBwdKern>(d, sw2d_stage_bwd_kernel<QOrder3CtrlWide>,
+    return q_pick<StageBwdKern>(d, Q_STAGE_BWD,
+                                sw2d_stage_bwd_kernel<QOrder3CtrlWide>,
                                 sw2d_stage_bwd_kernel<QOrder3Wide>, nullptr,
                                 nullptr);
   if (lanes == 8)
     return q_order1_ctrl(d) ? sw2d_stage_bwd_kernel<QOrder1CtrlWide> : nullptr;
-  return q_pick<StageBwdKern>(d, sw2d_stage_bwd_kernel<QOrder3Ctrl>,
+  return q_pick<StageBwdKern>(d, Q_STAGE_BWD,
+                              sw2d_stage_bwd_kernel<QOrder3Ctrl>,
                               sw2d_stage_bwd_kernel<QOrder3>,
                               sw2d_stage_bwd_kernel<QAnyOrder>, nullptr);
 }
 
 static BwdKern rollout_bwd_kernel_of(const SwDesc& d) {
-  return q_pick<BwdKern>(d, sw2d_blocked_rollout_bwd_kernel<QOrder3Ctrl>,
+  return q_pick<BwdKern>(d, Q_ROLLOUT_BWD,
+                         sw2d_blocked_rollout_bwd_kernel<QOrder3Ctrl>,
                          sw2d_blocked_rollout_bwd_kernel<QOrder3>,
                          sw2d_blocked_rollout_bwd_kernel<QAnyOrder>,
                          nullptr);
 }
-
-// The q kernels, as the launcher numbers them: the sharded stage (B7), the
-// one-launch step (B9), the sharded stage's adjoint (B8), the blocked
-// rollout's adjoint (B6), the blocked rollout (B5, and B4 with one step).
-enum { Q_STAGE = 0, Q_STEP = 1, Q_STAGE_BWD = 2, Q_ROLLOUT_BWD = 3,
-       Q_ROLLOUT = 4 };
 
 static const void* q_kernel(const SwDesc& d, int which, int lanes) {
   switch (which) {
@@ -1685,7 +1712,7 @@ static const void* q_kernel(const SwDesc& d, int which, int lanes) {
 // N=6 in the forward kernels; one otherwise.
 static int q_lanes(const SwDesc& d, int which) {
   const bool adjoint = which == Q_STAGE_BWD || which == Q_ROLLOUT_BWD;
-  switch (q_kind(d)) {
+  switch (q_kind(d, which)) {
     case 2: return 1;
     case 3: return adjoint ? 1 : QOrder6::P;
     default: return 4;

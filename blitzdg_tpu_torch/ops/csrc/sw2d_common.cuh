@@ -49,7 +49,7 @@ struct Ops {
   // blocked sets: the trace node that reads each trace node's '-' node as
   // its '+' node (itself on a boundary face, -1 at a receive slot)
   const int* mirror;
-  int K, Np, Ntr, Nfp, nV, nT, n_ctrl, n_recv, n_send;
+  int K, Np, Ntr, Nfp, Nfaces, nV, nT, n_ctrl, n_recv, n_send;
   int wb, has_bathy, has_tidal, has_sponge, wetdry;
   float g, cd, fcor, tide_h0, tide_amp, tide_omega, tide_tau, h_floor;
 };
@@ -61,6 +61,7 @@ __host__ __device__ inline Ops make_ops(const SwDesc& d, const float* f,
                                         const int* i) {
   Ops o;
   o.K = d.K; o.Np = d.Np; o.Ntr = d.Nfaces * d.Nfp; o.Nfp = d.Nfp;
+  o.Nfaces = d.Nfaces;
   o.nV = d.K * d.Np; o.nT = d.K * o.Ntr; o.n_ctrl = d.n_ctrl;
   o.n_recv = d.n_recv; o.n_send = d.n_send;
   o.wb = d.wb; o.has_bathy = d.has_bathy; o.has_tidal = d.has_tidal;

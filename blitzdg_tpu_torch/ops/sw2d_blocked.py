@@ -410,14 +410,31 @@ def _stream(t: torch.Tensor):
 # rollout's adjoint (B6), the blocked rollout (B5; B4 a rollout of one step).
 _STAGE, _RDMA, _STAGE_BWD, _ROLLOUT_BWD, _ROLLOUT = 0, 1, 2, 3, 4
 _plans: dict = {}
-# The room of the kernels' run-time-size arrays (QMAX_NP in the source): N=6.
+# The room of the kernels' run-time-size arrays (QMAX_NP in the source):
+# triangles up to N=6, quadrilaterals up to N=4.
 SHARD_MAX_NP = 28
+_KERNEL_NAMES = {_STAGE: "the sharded stage (B7)",
+                 _RDMA: "the one-launch sharded step (B9)",
+                 _STAGE_BWD: "the sharded stage's adjoint (B8)",
+                 _ROLLOUT_BWD: "the blocked rollout's adjoint (B6)",
+                 _ROLLOUT: "the blocked rollout (B5, B4)"}
 
 
 def _shard_plan(lib, desc, ops: BlockedOps, B: int, which: int):
     """The plan of kernel ``which`` over ``ops``'s shards (one shard for a
-    ``BlockedOps`` set) at ``B`` scenarios."""
-    if desc.Nfaces != 3 or desc.Np > SHARD_MAX_NP:
+    ``BlockedOps`` set) at ``B`` scenarios. Quadrilateral sets go to the
+    blocked rollout (B5, and B4) alone; every other kernel raises."""
+    if desc.Nfaces == 4 and which != _ROLLOUT:
+        raise ValueError(
+            f"{_KERNEL_NAMES[which]} takes triangles only: this set has "
+            "quadrilateral elements (the blocked forward rollout and step "
+            "take them)")
+    if desc.Nfaces == 4 and desc.Np > SHARD_MAX_NP:
+        raise ValueError(
+            "the blocked rollout takes quadrilaterals of order N <= 4 (at "
+            f"most {SHARD_MAX_NP} nodes an element); this set has "
+            f"{desc.Np} nodes")
+    if desc.Nfaces not in (3, 4) or desc.Np > SHARD_MAX_NP:
         raise ValueError(
             "the blocked and sharded kernels take triangles of order N <= 6 "
             f"(at most {SHARD_MAX_NP} nodes an element); this set has "
@@ -499,8 +516,8 @@ def sw2d_step_blocked(ops: BlockedOps, meta: BlockedMeta, h, hu, hv, ctrl,
     ``blitzdg_tpu/ops/sw2d_blocked.py``. Bound by operations (6 nV floats of
     traffic against some hundred operations per node). The kernel of
     ``sw2d_rollout_blocked``, launched for one step: step t of a rollout
-    from ``t0`` is this step from ``t0 + t * dt``, bit for bit. Takes N <= 6
-    and raises above.
+    from ``t0`` is this step from ``t0 + t * dt``, bit for bit. Takes
+    triangles up to N=6 and quadrilaterals up to N=4, and raises above.
     """
     B = _check_state(meta, h, hu, hv)
     if ctrl is not None:
@@ -535,7 +552,9 @@ def sw2d_rollout_blocked(ops: BlockedOps, meta: BlockedMeta, h, hu, hv, ctrls,
     (``qstage``: four lanes of a warp an element at N=3, eight at N=6, one
     at other orders), two grid barriers a step, the block size planned once
     a shape (``rollout_plan``); design: see the source of the kernels,
-    measurements: PERF.md. Takes N <= 6 and raises above.
+    measurements: PERF.md. Takes triangles up to N=6 and quadrilaterals
+    (four faces, the run-time sizes, one lane an element) up to N=4, and
+    raises above.
     """
     B = _check_state(meta, h, hu, hv)
     if ctrls is not None:
@@ -608,7 +627,7 @@ def sw2d_rollout_bwd_blocked(ops: BlockedOps, meta: BlockedMeta,
     an element at N=3) and both products on its adjoint (``qvjp``), each
     lane completing its own nodes (the neighbours' side of each face
     recomputed, no scatter); sums are taken in a fixed order, no atomics.
-    Takes N <= 6 and raises above.
+    Takes triangles up to N=6; raises above, and for quadrilaterals.
     """
     _refuse_wetdry_adjoint(meta)
     B, n1, _ = traj_h.shape

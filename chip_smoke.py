@@ -6,8 +6,9 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 (``--only dense``, ``--only blocked``, ``--only curved``, ``--only
-sharded``, ``--only elliptic`` or ``--only solver`` runs one path's phases
-alone, for work on that path.) What it does,
+sharded``, ``--only elliptic``, ``--only solver``, ``--only quads``,
+``--only ins2d`` or ``--only dg1d`` runs one path's phases alone, for work
+on that path.) What it does,
 in order (any failure is an exception and a non-zero exit):
 
  1. refuses to run without a CUDA device;
@@ -130,7 +131,31 @@ in order (any failure is an exception and a non-zero exit):
     must equal ``advance_plant_fused`` (B1) from the cycle's control at
     t0 = 0 within FWD_ATOL. For information it profiles one Gauss-Newton CG
     step (a J v and a pullback at B=2048, device events only);
- 9. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
+ 9. QUADS path (quadrilateral elements): ``quads_sw2d`` runs
+    ``examples/sw2dquads.py``'s configuration (``box_quads(12, 12)``, K=144,
+    N=4, filter 0.9 N of order 4, CFL 0.5, float32, 10 chunks of 100
+    adaptive SSP-RK2 steps of ``sw2d_rhs``; mass drift below 1e-5, the
+    first chunk against the port's CPU float64 run, idle share);
+    ``quads_kernels`` holds B4 and B5 (2 x 2 steps with controls) on the
+    same mesh with coastal physics at B=8 against their plain versions,
+    the same bits on a rerun and B4 step by step bit-equal to B5's rows,
+    timed, and checks that B6 and the sharded stage refuse a quad set;
+    ``quads_path`` drives the example's problem at B=8 through B5 (10
+    launches of 100 steps) and B4 (10 launches), counters zeroed just
+    before and read just after, each scenario's mass drift below 1e-5, the
+    first launch against the plain version in float64; the run-time-size
+    rollout kernel must not spill;
+10. INS2D path (plain tensor code): ``examples/ins2d.py`` at
+    ``examples/ins2d.nml`` read by the port's ``read_namelist`` (K=36
+    quads, N=2, dt 2e-3, 100 steps, float32): fields finite, max|u| <= 1,
+    every projection lowering the L2 norm of div u, the kinetic energy
+    against the port's CPU float64 run; CG iterations a step, ms a step,
+    the idle share of 5 profiled steps;
+11. DG1D path (plain tensor code): ``examples/advec1d.py`` (N=4, K=30,
+    c=0.1, CFL 0.8, T=20) and ``examples/burgers1d.py`` (N=6, K=40, nu=0.1)
+    through ``integrate(lserk4_step)`` in float32, max-norm errors against
+    the exact solutions at the JAX tests' bounds, ms a step;
+12. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
     card's name and power limit, and as the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -259,6 +284,48 @@ GN_ITERS = 2
 GN_CG_ITERS = 8
 RH_CYCLES = 2
 RH_ITERS = 5
+
+# Quadrilaterals: examples/sw2dquads.py's configuration (box_quads(12, 12),
+# K=144, N=4, filter cutoff 0.9 N of order 4, CFL 0.5, flat bottom, walls,
+# a Gaussian bump) in float32, 10 chunks of 100 adaptive steps; its own
+# gate, mass drift below 1e-5; its first chunk against the port's CPU
+# float64 run at 1e-4 on h ~ 10 (float32 against float64 on the CPU:
+# 1.1e-5 after 100 steps). B4/B5 on the same mesh with coastal physics at
+# B=8, held to the plain versions at the blocked tolerance (BLK_FWD_ATOL:
+# the forward takes a face's maximum, which has no tie rule); the path
+# through them is the example's problem, B=8 bump heights, at the
+# example's first time step (the kernels take a fixed step), 10 launches of
+# 100 steps of B5 and 10 of B4, each scenario's mass drift below 1e-5, the
+# first launch within 2e-4 of the plain version in float64 (100 float32
+# steps of h ~ 11: the plain version in float32 drifts 8.1e-5 from float64
+# there, the kernel compiled for the CPU behind the test shim 9.0e-5).
+QD_CELLS = (12, 12)
+QD_ORDER = 4
+QD_CFL = 0.5
+QD_CHUNKS, QD_CHUNK_STEPS = 10, 100
+QD_MASS_DRIFT = 1e-5
+QD_CPU_ATOL = 1e-4
+QD_BATCH = 8
+QD_STEPS = 10
+QD_PATH_ATOL = 2e-4
+# ins2d: examples/ins2d.py at examples/ins2d.nml (N=2, filter 1.5 of order
+# 4, T=0.2), box_quads(6, 6) (K=36), dt 2e-3: 100 steps in float32. The
+# kinetic energy at the end against the port's CPU float64 run, relative
+# 1e-3 (float32 against float64 on the CPU: 8.3e-6). Every projection must
+# lower the mass-weighted L2 norm of div u (on the CPU it falls by a factor
+# of at most 0.99992 a step in float64 and float32 alike); the pointwise
+# maximum of div u stops falling after about 17 steps in float64 too (the
+# SIP projection does not act on the strong divergence's interface part:
+# ROADMAP C29), so it is reported, not gated.
+INS_CELLS = (6, 6)
+INS_DT = 2e-3
+INS_KE_RTOL = 1e-3
+INS_PROFILE_STEPS = 5
+# The 1D solvers through integrate(lserk4_step), float32 (the examples'):
+# max-norm errors against the exact solutions at the JAX tests' bounds
+# (float32 on the CPU: 8.4e-5 and 4.8e-6).
+ADV_ERR_BOUND = 5e-4
+BRG_ERR_BOUND = 1e-5
 
 
 def say(obj) -> None:
@@ -2561,6 +2628,372 @@ def solver_phases(dev, card: str, rng, flush) -> list:
     return []
 
 
+# ---------------------------------------------------------------------------
+# Quadrilaterals, ins2d, the 1D solvers
+# ---------------------------------------------------------------------------
+
+def quads_phases(dev, card: str, rng, flush) -> list:
+    """Quadrilateral elements: the sw2dquads example through the plain
+    tensor code (``quads_sw2d``), B4/B5 on four-face elements against their
+    plain versions (``quads_kernels``) and the example's problem through
+    them (``quads_path``). Returns the quad rows of the ``kernels`` line."""
+    from blitzdg_tpu_torch.context import BC_OUT
+    from blitzdg_tpu_torch.mesh import box_quads
+    from blitzdg_tpu_torch.mpc.coastal_box import cfl_dt, retag_east_open
+    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+    from blitzdg_tpu_torch.ops.sw2d import (SWPhysics, SWState, apply_filter,
+                                            sw2d_rhs, sw2d_timestep)
+    from blitzdg_tpu_torch.specgrid.quad import build_quad_context
+    from blitzdg_tpu_torch.timestepping import ssprk2_step
+    from blitzdg_tpu_torch.utils import build_sponge_coefficient
+
+    f32, N = torch.float32, QD_ORDER
+    kw = dict(filter_cutoff=0.9 * N, filter_order=4)
+    phys = SWPhysics(g=9.81)
+    t0 = time.perf_counter()
+    ctx = build_quad_context(N, box_quads(*QD_CELLS), dtype=f32, device=dev,
+                             **kw)
+    host = build_quad_context(N, box_quads(*QD_CELLS), dtype=torch.float64,
+                              device="cpu", **kw)
+    setup_s = time.perf_counter() - t0
+
+    def weights(c):  # the mass-weighted quadrature weights, float64 host
+        V = c.V.double().cpu().numpy()
+        w = np.linalg.inv(V @ V.T).sum(axis=0)
+        return w[None, :] * c.J.double().cpu().numpy()
+
+    wq = weights(ctx)
+    mass = lambda h: (wq * h.double().cpu().numpy().reshape(
+        -1, *wq.shape)).sum(axis=(1, 2))
+
+    def start(c, heights=(1.0,)):
+        eta = torch.exp(-10.0 * (c.x**2 + c.y**2))
+        amp = torch.tensor(heights, dtype=c.x.dtype, device=c.x.device)
+        h = 10.0 + amp[:, None, None] * eta
+        return SWState(h=h, hu=torch.zeros_like(h), hv=torch.zeros_like(h))
+
+    def chunk(c, s, t, n):
+        rhs = lambda a, b: sw2d_rhs(c, a, b, phys)
+        post = lambda f: apply_filter(c, f)
+        for _ in range(n):
+            dt = sw2d_timestep(c, s, phys.g, QD_CFL)
+            s = ssprk2_step(rhs, s, t, dt, post_stage=post)
+            t = t + dt
+        return s, t
+
+    # ---- the example through the plain tensor code ----
+    unb = lambda s: SWState(*(f[0] for f in s))
+    s = unb(start(ctx))
+    mass0 = float(mass(s.h)[0])
+    t0 = time.perf_counter()
+    ref, _ = chunk(host, unb(start(host)), torch.zeros((), dtype=torch.float64),
+                   QD_CHUNK_STEPS)
+    cpu_s = time.perf_counter() - t0
+    t = torch.zeros((), dtype=f32, device=dev)
+    chunk(ctx, s, t, 2)  # warm-up
+    torch.cuda.synchronize()
+    eta_max, first_err = [], None
+    t0 = time.perf_counter()
+    for i in range(QD_CHUNKS):
+        s, t = chunk(ctx, s, t, QD_CHUNK_STEPS)
+        eta_max.append(float((s.h - 10.0).abs().max()))  # the example's read
+        if i == 0:
+            first_err = max_abs([f.double().cpu() for f in s], list(ref))
+    run_s = time.perf_counter() - t0
+    drift = abs(float(mass(s.h)[0]) - mass0) / abs(mass0)
+    ok = (all(bool(torch.isfinite(f).all()) for f in s)
+          and all(np.isfinite(eta_max)) and drift < QD_MASS_DRIFT
+          and first_err <= QD_CPU_ATOL)
+    n_all = QD_CHUNKS * QD_CHUNK_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk(ctx, s, t, QD_CHUNK_STEPS)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    say({"phase": "quads_sw2d", "ok": ok, "card": card,
+         "k_elem": ctx.k_elem, "n_order": N, "n_p": ctx.n_p,
+         "n_faces": ctx.n_faces, "steps": n_all, "t_final": float(t),
+         "setup_s": setup_s, "ms_per_step": run_s * 1e3 / n_all,
+         "eta_max_per_chunk": eta_max, "mass_drift": drift,
+         "mass_drift_max": QD_MASS_DRIFT,
+         "first_chunk_vs_cpu_float64": first_err, "tol": QD_CPU_ATOL,
+         "cpu_float64_chunk_s": cpu_s})
+    if not ok:
+        raise RuntimeError("the quad shallow-water example failed its checks")
+    profile_solve("quads_sw2d_profile", card,
+                  lambda: chunk(ctx, s, t, QD_CHUNK_STEPS), chunk_s)
+
+    # ---- B4/B5 on quads against their plain versions ----
+    mesh = box_quads(*QD_CELLS)
+    retag_east_open(mesh)
+    cc = build_quad_context(N, mesh, dtype=f32, device=dev, **kw)
+    H = 10.0 + 2.0 * cc.x + torch.sin(2.0 * cc.y)
+    open_nodes = (cc.bc_table[:, :, None].expand(-1, -1, cc.n_fp)
+                  .reshape(cc.k_elem, -1) == BC_OUT).cpu().numpy()
+    cphys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4, H=H,
+                      Hx=2.0 * torch.ones_like(H),
+                      Hy=2.0 * torch.cos(2.0 * cc.y),
+                      sponge=build_sponge_coefficient(cc, open_nodes,
+                                                      width=0.3, strength=0.5))
+    xs, ys = cc.x.double().cpu().numpy(), cc.y.double().cpu().numpy()
+    bump = np.exp(-8.0 * (xs ** 2 + ys ** 2))
+    tidal = (12.0, 0.5, 2.0, 10.0)
+    cops, cmeta = TB.build_blocked_step_ops(
+        cc, cphys, np.stack([bump, 0 * bump]), np.stack([0 * bump, bump]),
+        tidal=tidal, device=dev)
+    if not (cmeta.n_faces == 4 and cmeta.wb and cmeta.has_sponge
+            and cmeta.tidal == tidal and int(cops.obc.sum()) > 0):
+        raise RuntimeError("the quad coastal case does not switch every "
+                           "term on")
+    h, hu, hv, ctrls = perturbed_blocked(cc, H.reshape(1, -1), QD_BATCH, 2,
+                                         2, rng, dev)
+    head = check_blocked_case(TB, f"quads_coastal_K{cc.k_elem}_N{N}", cops,
+                              cmeta, h, hu, hv, ctrls,
+                              cfl_dt(cc, 9.81, 13.5), 2, 4, 1.0, flush, rng,
+                              adjoint=False, timed=True)
+    refused = {}
+    for name, fn in (("sw2d_rollout_bwd_blocked",
+                      lambda: TB.rollout_bwd_plan(cops, cmeta, QD_BATCH)),
+                     ("sw2d_stage_blocked (plan)",
+                      lambda: TB._shard_plan(TB._lib(), TB._desc(
+                          cmeta, blocked=True), cops, 1, TB._STAGE))):
+        try:
+            fn()
+            refused[name] = False
+        except ValueError:
+            refused[name] = True
+    say({"phase": "quads_kernels", "ok": all(refused.values()),
+         "card": card, "cases": list(head), "refused_quads": refused,
+         "rollout_plan": TB.rollout_plan(cops, cmeta, QD_BATCH)})
+    if not all(refused.values()):
+        raise RuntimeError("a kernel that takes triangles only took quads")
+
+    # ---- the example's problem through B5 and B4 ----
+    ops, meta = TB.build_blocked_step_ops(ctx, phys, device=dev)
+    heights = tuple(1.0 + 0.1 * b for b in range(QD_BATCH))
+    st = tuple(f.reshape(QD_BATCH, -1).contiguous()
+               for f in start(ctx, heights))
+    dt = float(sw2d_timestep(ctx, unb(start(ctx)), phys.g, QD_CFL))
+    m0 = mass(st[0])
+    roll = lambda x, n: TB.sw2d_rollout_blocked(ops, meta, *x, None, dt,
+                                                n_steps=n)
+    # the references of the first launch: the plain version in float64 (its
+    # operator set formed from the float64 host context) and in float32
+    ops64, meta64 = TB.build_blocked_step_ops(host, phys, dtype=torch.float64,
+                                              device=dev)
+    ref64 = TB.sw2d_rollout_blocked_plain(ops64, meta64,
+                                          *(f.double() for f in st), None, dt,
+                                          n_steps=QD_CHUNK_STEPS)
+    plain32 = TB.sw2d_rollout_blocked_plain(ops, meta, *st, None, dt,
+                                            n_steps=QD_CHUNK_STEPS)
+    roll(st, 1)  # warm-up: the plan
+    torch.cuda.synchronize()
+    wrappers = (TB.sw2d_step_blocked, TB.sw2d_rollout_blocked)
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    x, first = st, None
+    for i in range(QD_CHUNKS):
+        x = roll(x, QD_CHUNK_STEPS)
+        first = x if i == 0 else first
+    torch.cuda.synchronize()
+    roll_s = time.perf_counter() - t0
+    for k in range(QD_STEPS):
+        x = TB.sw2d_step_blocked(ops, meta, *x, None, dt,
+                                 (n_all + k) * dt)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    drift = float(np.max(np.abs(mass(x[0]) - m0) / np.abs(m0)))
+    err = max_abs([f.double() for f in first], ref64)
+    ok = (all(bool(torch.isfinite(f).all()) for f in x)
+          and drift < QD_MASS_DRIFT and err <= QD_PATH_ATOL
+          and all(v > 0 for v in launches.values()))
+    say({"phase": "quads_path", "ok": ok, "card": card, "batch": QD_BATCH,
+         "k_elem": meta.k_elem, "n_order": N, "dt": dt,
+         "steps": n_all + QD_STEPS, "launches": launches,
+         "ms_per_rollout_step": roll_s * 1e3 / n_all,
+         "us_per_step_per_scenario": roll_s * 1e6 / n_all / QD_BATCH,
+         "mass_drift_max_over_scenarios": drift,
+         "first_chunk_vs_plain_float64_max_abs": err, "tol": QD_PATH_ATOL,
+         "plain_float32_vs_float64_max_abs": max_abs(
+             [f.double() for f in plain32], ref64),
+         "first_chunk_vs_plain_float32_max_abs": max_abs(first, plain32),
+         "plan": TB.rollout_plan(ops, meta, QD_BATCH)})
+    if not ok:
+        raise RuntimeError("the quad path through B4/B5 failed its checks")
+
+    src = "blitzdg_tpu_torch/ops/csrc/sw2d_blocked.cu"
+    replaces = {"sw2d_step_blocked": "blitzdg_tpu/ops/sw2d_blocked.py:1288",
+                "sw2d_rollout_blocked": "blitzdg_tpu/ops/sw2d_blocked.py:1352"}
+    return [{"name": name + "_quads", "route": "cuda", "source": src,
+             "replaces": replaces[name], "launches": launches[name],
+             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+             "bound_by": rec["bound_by"], "library_ms": None,
+             "device_launches_per_call": TB.DEVICE_LAUNCHES_PER_CALL}
+            for name, rec in head.items()]
+
+
+def ins2d_phases(dev, card: str, rng, flush) -> list:
+    """``examples/ins2d.py`` at ``examples/ins2d.nml`` (plain tensor code:
+    no kernel of its own). Returns no kernel record."""
+    from blitzdg_tpu_torch.config import namelist_get, read_namelist
+    from blitzdg_tpu_torch.mesh import box_quads
+    from blitzdg_tpu_torch.ops import ins2d as I2
+    from blitzdg_tpu_torch.specgrid.quad import build_quad_context
+
+    cfg = read_namelist(str(Path(__file__).resolve().parent / "examples"
+                            / "ins2d.nml"))
+    g = namelist_get(cfg, "gravitationalAcceleration", float, 9.81)
+    t_init = namelist_get(cfg, "initialTime", float, 0.0)
+    t_final = namelist_get(cfg, "finalTime", float, 0.2)
+    N = namelist_get(cfg, "polynomialOrder", int, 2)
+    kw = dict(filter_cutoff=namelist_get(cfg, "filterCutoff", float, 1.5),
+              filter_order=namelist_get(cfg, "filterOrder", int, 4))
+    steps = int(round((t_final - t_init) / INS_DT))
+    mesh = box_quads(*INS_CELLS)
+
+    def blob(c):
+        rho = 0.01 * torch.exp(-8.0 * (c.x**2 + c.y**2))
+        return I2.INSState(rho=rho, u=torch.zeros_like(rho),
+                           v=torch.zeros_like(rho))
+
+    def run(c, n, s=None):
+        s = blob(c) if s is None else s
+        for i in range(n):
+            s, p = I2.ins2d_step(c, s, t_init + i * INS_DT, INS_DT, g=g)
+        return s, p
+
+    ke = lambda s: float((s.u.double() ** 2 + s.v.double() ** 2).sum())
+    host = build_quad_context(N, mesh, dtype=torch.float64, device="cpu", **kw)
+    t0 = time.perf_counter()
+    ref, _ = run(host, steps)
+    cpu_s = time.perf_counter() - t0
+    ctx = build_quad_context(N, mesh, dtype=torch.float32, device=dev, **kw)
+    run(ctx, 2)  # warm-up
+
+    # CG iterations of every pressure solve, and the L2 norm (mass-
+    # weighted) and the maximum of div u before and after each projection
+    # (the module's own functions, wrapped; restored after the run)
+    iters, divs = [], []
+    orig_cg, orig_pp = I2.cg, I2.pressure_project
+    wq = I2._quad_weights(ctx)
+
+    def div_norms(c, u, v):
+        d = I2.divergence(c, u, v)
+        return torch.stack([torch.sqrt((wq * d * d).sum()), d.abs().max()])
+
+    def counting_cg(*a, **k):
+        res = orig_cg(*a, **k)
+        iters.append(res.iters)
+        return res
+
+    def recording_pp(c, u, v, dt, **k):
+        out = orig_pp(c, u, v, dt, **k)
+        divs.append(torch.cat([div_norms(c, u, v),
+                               div_norms(c, out[0], out[1])]))
+        return out
+
+    I2.cg, I2.pressure_project = counting_cg, recording_pp
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, p = run(ctx, steps)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        I2.cg, I2.pressure_project = orig_cg, orig_pp
+    it = [int(i) for i in iters]
+    d = torch.stack(divs).cpu().double().numpy()  # l2, max before; after
+    lowered = bool((d[:, 2] < d[:, 0]).all())
+    ke_gpu, ke_cpu = ke(s), ke(ref)
+    ke_rel = abs(ke_gpu - ke_cpu) / ke_cpu
+    finite = all(bool(torch.isfinite(f).all()) for f in (*s, p))
+    u_max = float(s.u.abs().max())
+    ok = (finite and u_max <= 1.0 and lowered and len(it) == steps
+          and ke_rel <= INS_KE_RTOL)
+    say({"phase": "ins2d", "ok": ok, "card": card, "k_elem": ctx.k_elem,
+         "n_order": N, "steps": steps, "dt": INS_DT, "g": g,
+         "ms_per_step": run_s * 1e3 / steps,
+         "cg_iters_per_step": {"min": min(it), "median":
+                               statistics.median(it), "max": max(it)},
+         "ke": ke_gpu, "ke_cpu_float64": ke_cpu, "ke_rel_diff": ke_rel,
+         "ke_rtol": INS_KE_RTOL, "u_max": u_max,
+         "div_l2_after_over_before_max": float((d[:, 2] / d[:, 0]).max()),
+         "every_projection_lowers_div_l2": lowered,
+         "div_max_before_last": float(d[-1, 1]),
+         "div_max_after_last": float(d[-1, 3]),
+         "projections_not_lowering_div_max": int((d[:, 3] >= d[:, 1]).sum()),
+         "cpu_float64_run_s": cpu_s,
+         "note": "ms_per_step includes four divergence norms a step"})
+    if not ok:
+        raise RuntimeError("the ins2d example failed its checks")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(ctx, INS_PROFILE_STEPS, s)
+    torch.cuda.synchronize()
+    profile_solve("ins2d_profile", card,
+                  lambda: run(ctx, INS_PROFILE_STEPS, s),
+                  time.perf_counter() - t0)
+    return []
+
+
+def dg1d_phases(dev, card: str, rng, flush) -> list:
+    """``examples/advec1d.py`` and ``examples/burgers1d.py`` through
+    ``integrate(lserk4_step, ...)`` in float32 (plain tensor code: no
+    kernel of its own). Returns no kernel record."""
+    from blitzdg_tpu_torch.ops import advec1d_rhs, burgers1d_rhs, burgers_exact
+    from blitzdg_tpu_torch.specgrid import build_nodes1d
+    from blitzdg_tpu_torch.timestepping import integrate, lserk4_step
+
+    f32 = torch.float32
+    recs, ok_all = [], True
+
+    def timed(fn):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # advection: N=4, K=30, x in [-1, 4], c=0.1, CFL 0.8, T=20
+    N, K, c, CFL, T = 4, 30, 0.1, 0.8, 20.0
+    ctx = build_nodes1d(N, K, -1.0, 4.0, dtype=f32, device=dev)
+    x = ctx.x.double().cpu().numpy()
+    dt = CFL * (x[0, 1] - x[0, 0]) / abs(c)
+    n = int(np.ceil(T / dt))
+    u, sec = timed(lambda: integrate(
+        lserk4_step, lambda v, t: advec1d_rhs(ctx, v, t, c),
+        torch.exp(-10.0 * ctx.x**2), 0.0, dt, n))
+    err = float((u - torch.exp(-10.0 * (ctx.x - c * n * dt) ** 2)).abs().max())
+    recs.append({"solver": "advec1d", "n_order": N, "k_elem": K,
+                 "steps": n, "dt": dt, "max_err": err,
+                 "bound": ADV_ERR_BOUND, "ms_per_step": sec * 1e3 / n})
+    ok_all &= bool(np.isfinite(err)) and err < ADV_ERR_BOUND
+
+    # viscous Burgers: N=6, K=40, x in [-5, 5], nu=0.1, c=0.5, CFL 0.75
+    N, K, nu, c, alpha, CFL, T = 6, 40, 0.1, 0.5, 1.0, 0.75, 0.1
+    ctx = build_nodes1d(N, K, -5.0, 5.0, dtype=f32, device=dev)
+    x = ctx.x.double().cpu().numpy()
+    md = x[0, 1] - x[0, 0]
+    dt = CFL * min(md / abs(c), md**2 / np.sqrt(nu))
+    n = int(np.ceil(T / dt))
+    u, sec = timed(lambda: integrate(
+        lserk4_step,
+        lambda v, t: burgers1d_rhs(ctx, v, t, c=c, alpha=alpha, nu=nu),
+        burgers_exact(ctx.x, 0.0, alpha, nu, c), 0.0, dt, n))
+    err = float((u - burgers_exact(ctx.x, n * dt, alpha, nu, c)).abs().max())
+    recs.append({"solver": "burgers1d", "n_order": N, "k_elem": K,
+                 "steps": n, "dt": dt, "max_err": err,
+                 "bound": BRG_ERR_BOUND, "ms_per_step": sec * 1e3 / n})
+    ok_all &= bool(np.isfinite(err)) and err < BRG_ERR_BOUND
+    say({"phase": "dg1d", "ok": ok_all, "card": card, "runs": recs})
+    if not ok_all:
+        raise RuntimeError("a 1D solver missed its error bound")
+    return []
+
+
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame and spill bytes of each kernel in one source's
     ``ptxas -v`` output, by mangled name."""
@@ -2648,6 +3081,8 @@ BLOCKED_ADJOINT_KERNELS = ["_Z31sw2d_blocked_rollout_bwd_kernel" + z
                            for z in Q_SIZES]
 BLOCKED_FORWARD_KERNELS = ["_Z27sw2d_blocked_rollout_kernel" + z
                            for z in Q_SIZES + (Q_SIZES_N6,)]
+# Quadrilaterals run the blocked rollout's run-time-size instantiation.
+QUAD_FORWARD_KERNELS = ["_Z27sw2d_blocked_rollout_kernel" + Q_SIZES[2]]
 
 
 def check_no_spills(report: dict, kernels: list):
@@ -2665,7 +3100,8 @@ def check_no_spills(report: dict, kernels: list):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("dense", "blocked", "curved",
-                                       "sharded", "elliptic", "solver"),
+                                       "sharded", "elliptic", "solver",
+                                       "quads", "ins2d", "dg1d"),
                     help="run one path's phases alone (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2719,6 +3155,12 @@ def main() -> int:
         kernels += elliptic_phases(dev, card, rng, flush)
     if args.only in (None, "solver"):
         kernels += solver_phases(dev, card, rng, flush)
+    if args.only in (None, "quads"):
+        kernels += quads_phases(dev, card, rng, flush)
+    if args.only in (None, "ins2d"):
+        kernels += ins2d_phases(dev, card, rng, flush)
+    if args.only in (None, "dg1d"):
+        kernels += dg1d_phases(dev, card, rng, flush)
 
     say({"phase": "total", "seconds": time.perf_counter() - t_start})
     if args.only in (None, "curved"):
@@ -2730,6 +3172,8 @@ def main() -> int:
         check_no_spills(blocked, BLOCKED_FORWARD_KERNELS)
     if args.only in (None, "sharded"):
         check_no_spills(blocked, SHARDED_KERNELS)
+    if args.only in (None, "quads"):
+        check_no_spills(blocked, QUAD_FORWARD_KERNELS)
     say({"kernels": kernels})
     print(card, flush=True)
     say({"ok": True, "device": {"platform": "gpu",

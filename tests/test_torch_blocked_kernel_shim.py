@@ -46,7 +46,7 @@ import pytest
 import torch
 
 from blitzdg_tpu_torch.context import BC_OUT
-from blitzdg_tpu_torch.mesh import box_triangles
+from blitzdg_tpu_torch.mesh import box_quads, box_triangles
 from blitzdg_tpu_torch.mpc.coastal_box import cfl_dt, retag_east_open
 from blitzdg_tpu_torch.mpc.sharded_box import injectors
 from blitzdg_tpu_torch.ops import _build
@@ -55,6 +55,7 @@ from blitzdg_tpu_torch.ops.sw2d import SWPhysics
 from blitzdg_tpu_torch.parallel import blocked_shard as BS
 from blitzdg_tpu_torch.parallel import partition_mesh
 from blitzdg_tpu_torch.parallel.halo import RingExchange
+from blitzdg_tpu_torch.specgrid.quad import build_quad_context
 from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
 from blitzdg_tpu_torch.utils import build_sponge_coefficient
 
@@ -299,18 +300,21 @@ def device(shim_lib, monkeypatch):
     set_device(1, 1)
 
 
-def _context(n_order, wetdry=False, n_shards=1, cells=(8, 8)):
+def _context(n_order, wetdry=False, n_shards=1, cells=(8, 8), quads=False):
     """The coastal box (its east side open) or the beach of the wet/dry
-    cases, partitioned into ``n_shards`` where more than one."""
+    cases, of triangles or (``quads``) quadrilaterals, partitioned into
+    ``n_shards`` where more than one."""
+    box = box_quads if quads else box_triangles
     if wetdry:
-        mesh = box_triangles(*cells, xlim=(0.0, 1.0), ylim=(0.0, 1.0))
+        mesh = box(*cells, xlim=(0.0, 1.0), ylim=(0.0, 1.0))
     else:
-        mesh = box_triangles(*cells)
+        mesh = box(*cells)
         retag_east_open(mesh)
     if n_shards > 1:
         mesh = partition_mesh(mesh, n_shards)[0]
-    return build_triangle_context(n_order, mesh, dtype=F64, device="cpu",
-                                  filter_cutoff=0.9 * n_order, filter_order=4)
+    build = build_quad_context if quads else build_triangle_context
+    return build(n_order, mesh, dtype=F64, device="cpu",
+                 filter_cutoff=0.9 * n_order, filter_order=4)
 
 
 def _physics(ctx, wetdry, n_ctrl, rng, spread_injectors=False):
@@ -718,9 +722,9 @@ class ForwardCase:
     control steps of ``spc`` steps each, else ``n_cs * spc`` steps."""
 
     def __init__(self, n_order, batch, n_ctrl=2, wetdry=False, n_cs=2,
-                 spc=2, seed=0):
+                 spc=2, seed=0, quads=False, cells=(8, 8)):
         rng = np.random.default_rng(seed)
-        ctx = _context(n_order, wetdry)
+        ctx = _context(n_order, wetdry, cells=cells, quads=quads)
         phys, kw, H, self.dt, self.t0 = _physics(ctx, wetdry, n_ctrl, rng)
         self.sets = {dt: TB.build_blocked_step_ops(ctx, phys, dtype=dt,
                                                    device="cpu", **kw)
@@ -901,3 +905,77 @@ def test_rollout_kernel_matches_plain(device, name):
                                -(-B * m.k_elem // items_per_block))
     assert (plan["grid"] * items_per_block >= B * m.k_elem) == (
         "one_pass" in name)
+
+
+# ---------------------------------------------------------------------------
+# B5 and B4 on quadrilaterals: the run-time-size instance, four faces
+# ---------------------------------------------------------------------------
+
+# (N, scenarios, controls, wet/dry, shim device (SMs, blocks an SM), cells)
+# on box_quads: N=2 (Nfp 3: the even split of a face maximum tied over three
+# nodes could show; it does not at these states) and N=4 (Np 25, Nfp 5: the
+# room of the run-time sizes); one pass, or blocks that loop (more than 256
+# elements and scenarios on one block)
+QUAD_CASES = {
+    "quads_coastal_N2_B2_one_pass": (2, 2, 2, False, (4, 1), (6, 6)),
+    "quads_coastal_N4_B5_blocks_loop": (4, 5, 2, False, (1, 1), (8, 8)),
+    "quads_coastal_N4_B1_noctrl_one_pass": (4, 1, 0, False, (4, 1), (6, 6)),
+    "quads_wetdry_N2_B5_blocks_loop": (2, 5, 0, True, (1, 1), (8, 8)),
+}
+
+
+@pytest.mark.parametrize("name", list(QUAD_CASES))
+def test_rollout_kernel_on_quads_matches_plain(device, name):
+    """B5 on a quadrilateral set over 2 control steps x 2 steps (4 steps
+    without controls) from t0 = 1 on the coastal box (0 on the wet/dry
+    beach) with the trajectory stored, against the plain version in float64
+    at 5e-5; without the trajectory its last row bit for bit; the same bits
+    on a rerun; B4 launched for each step in turn bit-equal to the
+    trajectory's rows; the plan: one lane an element, what is co-resident."""
+    n, B, nc, wetdry, dev, cells = QUAD_CASES[name]
+    device(*dev)
+    c = ForwardCase(n, B, nc, wetdry, seed=10 + n + B, quads=True,
+                    cells=cells)
+    ops, m = c.sets[F32]
+    assert m.n_faces == 4 and m.n_fp == n + 1
+    assert m.k_elem == cells[0] * cells[1]
+    traj = c.kernel()[0]
+    assert all(torch.isfinite(f).all() for f in traj)
+    assert _max_abs(traj, c.ref()) <= FWD_ATOL
+    assert _same(traj, c.kernel()[0])
+    assert _same(c.kernel(store_traj=False)[1],
+                 tuple(f[:, -1] for f in traj))
+    for t, st in enumerate(c.steps()):
+        assert _same(st, tuple(f[:, t + 1] for f in traj))
+    plan = TB.rollout_plan(ops, m, B)
+    assert plan["lanes_per_element"] == 1
+    assert plan["grid"] == min(dev[0] * dev[1],
+                               -(-B * m.k_elem // plan["threads"]))
+    assert (plan["grid"] * plan["threads"] >= B * m.k_elem) == (
+        "one_pass" in name)
+
+
+def test_quads_refused_by_the_other_kernels_and_above_order_four(device):
+    """A quadrilateral set: B6 (the rollout's adjoint), B7 (the sharded
+    stage), B8 (its adjoint) and B9 (the one-launch step) raise in the
+    launcher's guard, each naming itself; so does B5 at N=5 (Np 36, past
+    the run-time sizes' room). The C dispatch refuses them too."""
+    lib = TB._lib()
+    ops, m = ForwardCase(2, 1, quads=True, cells=(2, 2)).sets[F32]
+    desc = TB._desc(m, blocked=True)
+    for which, name in ((TB._ROLLOUT_BWD, "B6"), (TB._STAGE, "B7"),
+                        (TB._STAGE_BWD, "B8"), (TB._RDMA, "B9")):
+        with pytest.raises(ValueError, match=name):
+            TB._shard_plan(lib, desc, ops, 1, which)
+        plan = (ctypes.c_int * 4)()
+        assert lib.sw2d_shard_plan(ctypes.byref(desc), 1, 1, which,
+                                   ops.fbuf.shape[0], ops.ibuf.shape[0],
+                                   plan) != 0
+    assert TB._shard_plan(lib, desc, ops, 1, TB._ROLLOUT)[3] == 1
+    o5, m5 = ForwardCase(5, 1, quads=True, cells=(2, 2)).sets[F32]
+    with pytest.raises(ValueError, match="N <= 4"):
+        TB.rollout_plan(o5, m5, 1)
+    plan = (ctypes.c_int * 4)()
+    assert lib.sw2d_shard_plan(ctypes.byref(TB._desc(m5, blocked=True)), 1,
+                               1, TB._ROLLOUT, o5.fbuf.shape[0],
+                               o5.ibuf.shape[0], plan) != 0

@@ -6,6 +6,7 @@ running on the CPU."""
 import ast
 import inspect
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -46,12 +47,16 @@ def test_package_has_the_slice_modules():
             "mpc.sharded_box",
             # the elliptic solvers and the 1D context they need
             "solvers", "solvers.krylov", "solvers.precon", "ops.poisson",
-            "ops.sem", "specgrid.nodes1d"}
+            "ops.sem", "specgrid.nodes1d",
+            # quadrilaterals, ins2d, the 1D solvers, the host modules
+            "specgrid.quad", "ops.ins2d", "ops.advec1d", "ops.burgers1d",
+            "config", "io", "io.csv", "io.vtk", "io.checkpoint", "native"}
     have = {m.removeprefix("blitzdg_tpu_torch.") for m in port_modules()}
     assert want <= have
     for name in ("sw2d_dense.cu", "sw2d_blocked.cu", "sw2d_curved.cu",
                  "sw2d_common.cuh"):
         assert (PKG / "ops" / "csrc" / name).exists()
+    assert (PKG / "native" / "dgmesh.cpp").exists()
 
 
 def test_cubature_tables_are_the_jax_packages_byte_for_byte():
@@ -281,3 +286,84 @@ def test_elliptic_and_solver_entry_points_default_to_cuda():
     b = torch.ones(ctx.k_elem * ctx.n_p, dtype=torch.float32)
     res = cg(lambda v: v, b, precon=pre)
     assert res.x.device.type == "cpu"
+
+
+def _code_strings(path: pathlib.Path) -> list:
+    """The string constants of a module that are not docstrings."""
+    tree = ast.parse(path.read_text())
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value,
+                                                          ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PKG.rglob("*.py")) + sorted(
+        p for ext in ("*.cu", "*.cuh", "*.cpp") for p in PKG.rglob(ext)),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_port_source_opens_a_file_of_the_jax_package(path):
+    """No string a port module computes with (docstrings aside), and no
+    include of a CUDA or C++ source, names the JAX package's directory or a
+    path into it: the port reads its own copies (cubature tables,
+    dgmesh.cpp)."""
+    if path.suffix == ".py":
+        bad = [t for t in _code_strings(path)
+               if re.search(r"blitzdg_tpu(?!_torch)\b", t)]
+    else:
+        bad = [ln for ln in path.read_text().splitlines()
+               if ln.lstrip().startswith("#include")
+               and "blitzdg_tpu" in ln]
+    assert not bad, bad
+
+
+def test_new_entry_points_default_to_cuda():
+    """Quadrilaterals, ins2d, the 1D solvers, the blocked rollout on quads:
+    a context built without ``device=`` lies on the card, and without a
+    card that raises; the solvers and integrators follow their inputs'
+    device (on a CPU context: the CPU, no kernel launched)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from blitzdg_tpu_torch.mesh import Mesh2D, box_quads
+    from blitzdg_tpu_torch.ops import advec1d_rhs, build_blocked_step_ops
+    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+    from blitzdg_tpu_torch.ops.ins2d import INSState, ins2d_step
+    from blitzdg_tpu_torch.ops.sw2d import SWPhysics
+    from blitzdg_tpu_torch.specgrid import build_nodes1d
+    from blitzdg_tpu_torch.specgrid.quad import build_quad_context
+    from blitzdg_tpu_torch.timestepping import integrate, lserk4_step
+
+    cuda_or_nothing = pytest.raises((RuntimeError, AssertionError))
+    mesh = box_quads(2, 2)  # host set-up: numpy tables, no device
+    assert isinstance(mesh, Mesh2D) and isinstance(mesh.verts, np.ndarray)
+    assert "device" not in inspect.signature(box_quads).parameters
+    with cuda_or_nothing:
+        build_quad_context(1, mesh)
+    assert inspect.signature(build_quad_context).parameters[
+        "device"].default == "cuda"
+    ctx = build_quad_context(2, mesh, device="cpu",
+                             filter_cutoff=1.5, filter_order=4)
+    with cuda_or_nothing:
+        build_blocked_step_ops(ctx, SWPhysics())
+    ops, meta = build_blocked_step_ops(ctx, SWPhysics(), device="cpu")
+    before = TB.sw2d_rollout_blocked.launches
+    h = torch.full((1, meta.n_v), 10.0)
+    z = torch.zeros_like(h)
+    out = TB.sw2d_rollout_blocked(ops, meta, h, z, z, None, 1e-3, n_steps=2)
+    assert out[0].device.type == "cpu"
+    assert TB.sw2d_rollout_blocked.launches == before
+    rho = 0.01 * torch.exp(-8.0 * (ctx.x**2 + ctx.y**2))
+    st, p = ins2d_step(ctx, INSState(rho, 0 * rho, 0 * rho), 0.0, 1e-3)
+    assert st.u.device.type == "cpu" and p.device.type == "cpu"
+    with cuda_or_nothing:
+        build_nodes1d(2, 4, 0.0, 1.0)
+    c1 = build_nodes1d(2, 4, 0.0, 1.0, device="cpu")
+    u = integrate(lserk4_step, lambda v, t: advec1d_rhs(c1, v, t, 1.0),
+                  torch.exp(-c1.x**2), 0.0, 1e-3, 2)
+    assert u.device.type == "cpu"
