@@ -215,12 +215,11 @@ __host__ __device__ inline int q_item_floats(int Np, int Ntr) {
 // Nodes, nodes a face, controls and lanes an item: constants of the
 // instantiation where the template gives them, else (0 sizes, NC < 0)
 // read at run time. Faces: three (triangles) in the compile-time
-// instances; the descriptor's in the run-time one, which qstage takes on
-// triangles and quadrilaterals alike (the adjoint, qvjp, and its NG count
-// three faces: the kernels on it refuse quadrilaterals). The lanes of a
-// face (LPF) are min(LANES, NFP): with more lanes than a face has nodes
-// (the adjoint's wide items), each group of NFP lanes takes a face, one
-// trace node a lane (qvjp). qstage's lane p holds nodes p + LANES k,
+// instances; the descriptor's in the run-time one, which qstage and qvjp
+// take on triangles and quadrilaterals alike. The lanes of a face (LPF)
+// are min(LANES, NFP): with more lanes than a face has nodes (the
+// adjoint's wide items), each group of NFP lanes takes a face, one trace
+// node a lane (qvjp). qstage's lane p holds nodes p + LANES k,
 // k < CFP, of every face; where the lanes do not divide a face (MASKED:
 // N=6), the last of them lie past it on some lanes.
 template <int NP, int NFP, int NC, int LANES>
@@ -242,8 +241,6 @@ struct QSizes {
   // N=6 (unrolled completely, they spill), none at run-time sizes
   static constexpr int MU = !NP ? 1 : NP > 10 ? 4 : NP;
   static constexpr int LU = !NP ? 1 : NP > 10 ? 3 : 3 * NFP;
-  // passes over the three faces: one face a pass, or all at once
-  static constexpr int NG = (3 * LPF + LANES - 1) / LANES;
   __device__ __forceinline__ static int np(const Ops& o) {
     return NP ? NP : o.Np;
   }
@@ -265,6 +262,13 @@ struct QSizes {
   }
   __device__ __forceinline__ static int nface(const Ops& o) {
     return NP ? CFP : o.Nfp / LANES;
+  }
+  // qvjp's passes over the element's faces: one face a pass, or all at
+  // once; a constant at compile-time sizes (the pass loop unrolls), the
+  // descriptor's face count at run-time sizes (a loop, one copy of its
+  // body)
+  __device__ __forceinline__ static int ng(const Ops& o) {
+    return (nfaces(o) * LPF + LANES - 1) / LANES;
   }
 };
 typedef QSizes<10, 4, 2, 4> QOrder3Ctrl;  // N=3 with two controls
@@ -879,7 +883,11 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
 // each face and the volume nodes p, p+4, p+8 at N=3; one lane an item at
 // other orders), no block barrier, the face maximum, the summed speed
 // cotangent and the count of nodes at the maximum by shuffles, the item's
-// intermediate values in its slots behind warp barriers.
+// intermediate values in its slots behind warp barriers. Quadrilaterals
+// (four faces) take the run-time instance, as in qstage: the passes over
+// the faces, the neighbours' weights in the item's slots and the
+// per-face sums (speed cotangents, face maximum, tie count) follow the
+// descriptor's face count.
 //
 // No scatter. A trace node's flux feeds the cotangents of its '-' node
 // (the element's own) and of its '+' node (the neighbour's). Rather than
@@ -941,10 +949,11 @@ __host__ __device__ inline int q_adj_ops_floats(int Np, int Ntr) {
 
 // Floats of one item's slots in qvjp: the weights, then the filtered
 // weights, a node; the geometric factors (rx, sx, ry, sy) a node; the
-// weights of each face's neighbour, a node; the trace nodes' cotangents
-// with their '-' node.
-__host__ __device__ inline int q_vjp_item_floats(int Np, int Ntr) {
-  return 20 * Np + 4 * Ntr;
+// weights of each face's neighbour, a node (Nfaces of them); the trace
+// nodes' cotangents with their '-' node.
+__host__ __device__ inline int q_vjp_item_floats(int Np, int Ntr,
+                                                 int Nfaces) {
+  return (8 + 4 * Nfaces) * Np + 4 * Ntr;
 }
 
 // The operators into shared memory with the composed transpose, made from
@@ -1066,6 +1075,7 @@ __device__ __forceinline__ void qvjp(
   constexpr int P = Z::P;
   const int Np = Z::np(g), Ntr = Z::ntr(g), Nfp = Z::nfp(g);
   const int ns = Z::nslots(g), nfl = Z::nface(g), nc = Z::nc(g);
+  const int nf = Z::nfaces(g);
   const int e = l.e, p = l.p, v0 = e * Np, i0 = e * Ntr;
   const float2* DS = reinterpret_cast<const float2*>(sops);
   const float* LF = sops + 2 * Np * Np;
@@ -1074,7 +1084,7 @@ __device__ __forceinline__ void qvjp(
   float4* X = reinterpret_cast<float4*>(scr);
   float4* GF = X + Np;
   float4* NW = GF + Np;
-  float4* TT = NW + 3 * Np;
+  float4* TT = NW + nf * Np;
   const float hsg = 0.5f * sqrtf(g.g);
 
   __syncwarp();  // the item's slots are free (a previous pass read them)
@@ -1088,7 +1098,7 @@ __device__ __forceinline__ void qvjp(
     }
   }
 #pragma unroll
-  for (int f = 0; f < 3; ++f) {
+  for (int f = 0; f < nf; ++f) {
     // a face's nodes all have a neighbour in the shard, or none
     const int gi = l.io + i0 + f * Nfp;
     const int m0 = __ldg(g.vmapM + gi), q0 = __ldg(g.vmapP + gi);
@@ -1166,11 +1176,12 @@ __device__ __forceinline__ void qvjp(
   constexpr int LPF = Z::LPF, FPP = P / LPF;  // lanes a face, faces a pass
   const bool depths = g.wb != 0;
   const int pf = p % LPF;  // the lane's place in its face
+  const int ng = Z::ng(g);
 #pragma unroll
-  for (int it = 0; it < Z::NG; ++it) {
-    // (lanes past the third face redo it and store nothing)
-    const bool has = it * FPP + p / LPF < 3;
-    const int f = has ? it * FPP + p / LPF : 2;
+  for (int it = 0; it < ng; ++it) {
+    // (lanes past the last face redo it and store nothing)
+    const bool has = it * FPP + p / LPF < nf;
+    const int f = has ? it * FPP + p / LPF : nf - 1;
     TraceVals tv[Z::CFP];
     float spd[Z::CFP], d[Z::CFP][3], dn[Z::CFP][3], nxn[Z::CFP];
     float nyn[Z::CFP];
@@ -1377,7 +1388,7 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
     }
   }
   const int ops_f = q_adj_ops_floats(g.Np, g.Ntr);
-  const int vjp_f = q_vjp_item_floats(g.Np, g.Ntr);
+  const int vjp_f = q_vjp_item_floats(g.Np, g.Ntr, g.Nfaces);
   const int item_f = vjp_f + qround4(g.n_ctrl);  // the item's control share
   float* scr = q_item_slots(ops_f, item_f, Z::P);
   const int ipb = blockDim.x / Z::P, n_items = a.S * a.B * d.K;
@@ -1497,7 +1508,8 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
   auto tide = [&](int k) { return tidal ? __ldcg(a.tide + k) : 0.0f; };
   float* scr = q_item_slots(
       q_adj_ops_floats(g.Np, g.Ntr),
-      max(q_item_floats(g.Np, g.Ntr), q_vjp_item_floats(g.Np, g.Ntr)), Z::P);
+      max(q_item_floats(g.Np, g.Ntr),
+          q_vjp_item_floats(g.Np, g.Ntr, g.Nfaces)), Z::P);
   const int ipb = blockDim.x / Z::P, n_items = a.B * d.K;
   const SendTo nosend = {nullptr, nullptr, 0};
   // the share of item (scenario b, element e) of control step j
@@ -1618,15 +1630,14 @@ typedef void (*FwdKern)(SwDesc, FwdArgs);
 enum { Q_STAGE = 0, Q_STEP = 1, Q_STAGE_BWD = 2, Q_ROLLOUT_BWD = 3,
        Q_ROLLOUT = 4 };
 
-// The instantiation of q kernel `which` for a set: N=3 with two controls
+// The instantiation of the q kernels for a set: N=3 with two controls
 // (the MPC's), N=3 with others (a set built without injectors has one,
 // which its rollouts never read), N=6 (the forward kernels' own), else the
 // run-time sizes; -1 past their room. Quadrilaterals (four faces) take the
-// run-time sizes in the blocked rollout (B5, B4) alone; every other kernel
-// refuses them (-1).
-static int q_kind(const SwDesc& d, int which) {
+// run-time sizes in every q kernel.
+static int q_kind(const SwDesc& d) {
   if (d.Np > QMAX_NP || d.Nfp > QMAX_NFP) return -1;
-  if (d.Nfaces == QMAX_NFACES) return which == Q_ROLLOUT ? 2 : -1;
+  if (d.Nfaces == QMAX_NFACES) return 2;
   if (d.Nfaces != 3) return -1;
   if (d.Np == 10 && d.Nfp == 4) return d.n_ctrl == 2 ? 0 : 1;
   if (d.Np == 28 && d.Nfp == 7) return 3;
@@ -1636,9 +1647,9 @@ static int q_kind(const SwDesc& d, int which) {
 // (order6: null where the kernel takes the run-time sizes at N=6, as the
 // adjoints do)
 template <class K>
-static K q_pick(const SwDesc& d, int which, K order3_ctrl, K order3,
-                K any_order, K order6) {
-  switch (q_kind(d, which)) {
+static K q_pick(const SwDesc& d, K order3_ctrl, K order3, K any_order,
+                K order6) {
+  switch (q_kind(d)) {
     case 0: return order3_ctrl;
     case 1: return order3;
     case 2: return any_order;
@@ -1648,22 +1659,21 @@ static K q_pick(const SwDesc& d, int which, K order3_ctrl, K order3,
 }
 
 static StageKern stage_kernel_of(const SwDesc& d) {
-  return q_pick<StageKern>(d, Q_STAGE, sw2d_stage_kernel<QOrder3Ctrl>,
+  return q_pick<StageKern>(d, sw2d_stage_kernel<QOrder3Ctrl>,
                            sw2d_stage_kernel<QOrder3>,
                            sw2d_stage_kernel<QAnyOrder>,
                            sw2d_stage_kernel<QOrder6>);
 }
 
 static RdmaKern rdma_kernel_of(const SwDesc& d) {
-  return q_pick<RdmaKern>(d, Q_STEP, sw2d_step_rdma_kernel<QOrder3Ctrl>,
+  return q_pick<RdmaKern>(d, sw2d_step_rdma_kernel<QOrder3Ctrl>,
                           sw2d_step_rdma_kernel<QOrder3>,
                           sw2d_step_rdma_kernel<QAnyOrder>,
                           sw2d_step_rdma_kernel<QOrder6>);
 }
 
 static FwdKern rollout_kernel_of(const SwDesc& d) {
-  return q_pick<FwdKern>(d, Q_ROLLOUT,
-                         sw2d_blocked_rollout_kernel<QOrder3Ctrl>,
+  return q_pick<FwdKern>(d, sw2d_blocked_rollout_kernel<QOrder3Ctrl>,
                          sw2d_blocked_rollout_kernel<QOrder3>,
                          sw2d_blocked_rollout_kernel<QAnyOrder>,
                          sw2d_blocked_rollout_kernel<QOrder6>);
@@ -1677,21 +1687,18 @@ static bool q_order1_ctrl(const SwDesc& d) {
 // (lanes: 16 and 8 take the wide items at N=3 and at N=1)
 static StageBwdKern stage_bwd_kernel_of(const SwDesc& d, int lanes) {
   if (lanes == 16)
-    return q_pick<StageBwdKern>(d, Q_STAGE_BWD,
-                                sw2d_stage_bwd_kernel<QOrder3CtrlWide>,
+    return q_pick<StageBwdKern>(d, sw2d_stage_bwd_kernel<QOrder3CtrlWide>,
                                 sw2d_stage_bwd_kernel<QOrder3Wide>, nullptr,
                                 nullptr);
   if (lanes == 8)
     return q_order1_ctrl(d) ? sw2d_stage_bwd_kernel<QOrder1CtrlWide> : nullptr;
-  return q_pick<StageBwdKern>(d, Q_STAGE_BWD,
-                              sw2d_stage_bwd_kernel<QOrder3Ctrl>,
+  return q_pick<StageBwdKern>(d, sw2d_stage_bwd_kernel<QOrder3Ctrl>,
                               sw2d_stage_bwd_kernel<QOrder3>,
                               sw2d_stage_bwd_kernel<QAnyOrder>, nullptr);
 }
 
 static BwdKern rollout_bwd_kernel_of(const SwDesc& d) {
-  return q_pick<BwdKern>(d, Q_ROLLOUT_BWD,
-                         sw2d_blocked_rollout_bwd_kernel<QOrder3Ctrl>,
+  return q_pick<BwdKern>(d, sw2d_blocked_rollout_bwd_kernel<QOrder3Ctrl>,
                          sw2d_blocked_rollout_bwd_kernel<QOrder3>,
                          sw2d_blocked_rollout_bwd_kernel<QAnyOrder>,
                          nullptr);
@@ -1712,7 +1719,7 @@ static const void* q_kernel(const SwDesc& d, int which, int lanes) {
 // N=6 in the forward kernels; one otherwise.
 static int q_lanes(const SwDesc& d, int which) {
   const bool adjoint = which == Q_STAGE_BWD || which == Q_ROLLOUT_BWD;
-  switch (q_kind(d, which)) {
+  switch (q_kind(d)) {
     case 2: return 1;
     case 3: return adjoint ? 1 : QOrder6::P;
     default: return 4;
@@ -1726,7 +1733,7 @@ static size_t q_bytes(const SwDesc& d, int which, int threads, int lanes) {
   int ops = q_ops_floats(d.Np, Ntr), item = q_item_floats(d.Np, Ntr);
   if (which == Q_STAGE_BWD || which == Q_ROLLOUT_BWD) {
     ops = q_adj_ops_floats(d.Np, Ntr);
-    const int v = q_vjp_item_floats(d.Np, Ntr);
+    const int v = q_vjp_item_floats(d.Np, Ntr, d.Nfaces);
     // the stage adjoint's item also holds its control share
     item = which == Q_STAGE_BWD ? v + qround4(d.n_ctrl) : (v > item ? v : item);
   }

@@ -422,22 +422,17 @@ _KERNEL_NAMES = {_STAGE: "the sharded stage (B7)",
 
 def _shard_plan(lib, desc, ops: BlockedOps, B: int, which: int):
     """The plan of kernel ``which`` over ``ops``'s shards (one shard for a
-    ``BlockedOps`` set) at ``B`` scenarios. Quadrilateral sets go to the
-    blocked rollout (B5, and B4) alone; every other kernel raises."""
-    if desc.Nfaces == 4 and which != _ROLLOUT:
-        raise ValueError(
-            f"{_KERNEL_NAMES[which]} takes triangles only: this set has "
-            "quadrilateral elements (the blocked forward rollout and step "
-            "take them)")
+    ``BlockedOps`` set) at ``B`` scenarios. Every kernel takes triangles up
+    to N=6 and quadrilaterals up to N=4; above, it raises, naming itself."""
     if desc.Nfaces == 4 and desc.Np > SHARD_MAX_NP:
         raise ValueError(
-            "the blocked rollout takes quadrilaterals of order N <= 4 (at "
+            f"{_KERNEL_NAMES[which]} takes quadrilaterals of order N <= 4 (at "
             f"most {SHARD_MAX_NP} nodes an element); this set has "
             f"{desc.Np} nodes")
     if desc.Nfaces not in (3, 4) or desc.Np > SHARD_MAX_NP:
         raise ValueError(
-            "the blocked and sharded kernels take triangles of order N <= 6 "
-            f"(at most {SHARD_MAX_NP} nodes an element); this set has "
+            f"{_KERNEL_NAMES[which]} takes triangles of order N <= 6 (at "
+            f"most {SHARD_MAX_NP} nodes an element); this set has "
             f"{desc.Np} nodes, {desc.Nfaces} faces")
     if isinstance(ops, ShardOps):
         S, fs, is_ = ops.send.shape[0], ops.fbuf.shape[1], ops.ibuf.shape[1]
@@ -627,7 +622,8 @@ def sw2d_rollout_bwd_blocked(ops: BlockedOps, meta: BlockedMeta,
     an element at N=3) and both products on its adjoint (``qvjp``), each
     lane completing its own nodes (the neighbours' side of each face
     recomputed, no scatter); sums are taken in a fixed order, no atomics.
-    Takes triangles up to N=6; raises above, and for quadrilaterals.
+    Takes triangles up to N=6 and quadrilaterals (four faces, the run-time
+    sizes, one lane an element) up to N=4, and raises above.
     """
     _refuse_wetdry_adjoint(meta)
     B, n1, _ = traj_h.shape
@@ -748,7 +744,9 @@ def sw2d_stage_blocked(ops: ShardOps, meta: BlockedMeta, base, cur, rb,
     operations take less time on the card than the bytes' transfer. One
     ordinary launch covers every shard, four lanes an element at N=3,
     eight at N=6, one at other orders, the block size planned once a shape
-    (``shard_plan``); design: see the source of the kernels.
+    (``shard_plan``); design: see the source of the kernels. Takes triangles
+    up to N=6 and quadrilaterals (one lane an element) up to N=4, and
+    raises above.
     """
     _check_stage(ops, meta, {"base_h": base[0], "base_hu": base[1],
                              "base_hv": base[2], "h": cur[0], "hu": cur[1],
@@ -807,7 +805,9 @@ def sw2d_stage_bwd_blocked_v2(ops: ShardOps, meta: BlockedMeta, cur, rb,
     completing its own nodes, the neighbours' side of each face recomputed,
     no scatter and no grid barrier), the block size planned once a shape
     (``shard_plan(..., adjoint=True)``), the control sums' scratch made
-    once a shape; no atomics on data, the same bits on a rerun.
+    once a shape; no atomics on data, the same bits on a rerun. Takes
+    triangles up to N=6 and quadrilaterals (one lane an element) up to N=4,
+    and raises above.
     """
     _refuse_wetdry_stage_adjoint(meta)
     S, B, L = _check_stage(ops, meta, {
@@ -990,7 +990,9 @@ def sw2d_step_rdma_blocked(ops: ShardOps, meta: BlockedMeta, state, rb,
     launch covers every shard and scenario, the halo is stored into the
     receiving shard's slots in global memory and a grid barrier stands for
     the READY handshake. Bound by operations (two RHS evaluations per node
-    against one state in and one out). Raises for a wet/dry set.
+    against one state in and one out). Takes triangles up to N=6 and
+    quadrilaterals (one lane an element) up to N=4; raises above and for a
+    wet/dry set.
     """
     return RdmaLaunch(ops, meta, ex)(state, rb, dt, t, ctrl, use_filter)
 

@@ -1,16 +1,18 @@
-"""Multi-process initialization.
+"""Multi-process initialization and the (scenario, element) device mesh
+across processes.
 
 Counterpart of the JAX package's ``blitzdg_tpu/parallel/distributed.py``
-(``distributed_init``). The JAX package wires hosts together with
-``jax.distributed``; here one process per shard joins a ``torch.distributed``
-process group, and the sharded path's process-group transport
-(``parallel/halo.py``) runs over it. NCCL carries CUDA tensors, gloo CPU
-tensors. NCCL refuses two ranks on one card, so on a machine with one card
-the sharded path runs its stacked transport instead (all shards on the card).
+(``distributed_init``, ``make_global_mesh``). The JAX package wires hosts
+together with ``jax.distributed``; here one process per shard joins a
+``torch.distributed`` process group, and the sharded path's process-group
+transport (``parallel/halo.py``) runs over it. NCCL carries CUDA tensors,
+gloo CPU tensors. NCCL refuses two ranks on one card, so on a machine with
+one card the sharded path runs its stacked transport instead (all shards on
+the card, ``parallel.make_device_mesh``).
 
-``make_global_mesh`` has no counterpart yet: the port has no device mesh of
-(scenario, element) axes; a process group of element shards is what the
-sharded path uses.
+``make_global_mesh`` lays the ranks of the process group out as a
+(scenario, element) ``DeviceMesh``; its element group is the ``group=`` of
+the halo functions, the sharded steps and ``cg``/``gmres``.
 """
 from __future__ import annotations
 
@@ -45,3 +47,31 @@ def distributed_init(init_method: str | None = None,
         n_proc, pid = 1, 0
     return {"n_processes": n_proc, "process_id": pid,
             "n_devices_global": n_local * n_proc, "n_devices_local": n_local}
+
+
+def make_global_mesh(n_scenario: int = 1, n_element: int | None = None):
+    """(scenario, element) ``torch.distributed.device_mesh.DeviceMesh`` over
+    every rank of the initialised process group (``distributed_init``).
+
+    The element axis runs fastest, so an element group holds consecutive
+    ranks: within a host where ``n_element`` is at most its ranks, so that
+    the halo traffic of every RK stage stays on the host's links, while the
+    scenario axis (no collective a step) is the one that crosses hosts.
+    ``mesh.get_group("element")`` is the process group of this rank's
+    element shards. Its device type follows the backend: "cuda" on NCCL,
+    else "cpu".
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_global_mesh needs an initialised process "
+                           "group: call distributed_init(...) first")
+    n = dist.get_world_size()
+    if n_element is None:
+        n_element = n // n_scenario
+    if n_scenario * n_element != n:
+        raise ValueError(f"a ({n_scenario}, {n_element}) mesh does not hold "
+                         f"the {n} ranks")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, (n_scenario, n_element),
+                            mesh_dim_names=("scenario", "element"))

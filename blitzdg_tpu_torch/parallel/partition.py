@@ -4,7 +4,7 @@ Counterpart of the JAX package's ``blitzdg_tpu/parallel/partition.py``:
 ``rcb_partition``, ``graph_partition`` (recursive spectral bisection with
 balanced swap refinement), ``partition_cut``, ``compute_partition``,
 ``partition_mesh``, ``partition_block_sizes``, ``rcb_block_sizes``,
-``pad_context`` and ``rcm_order``. The element order they produce is the JAX
+``pad_context``, ``pad_elements`` (a guard) and ``rcm_order``. The element order they produce is the JAX
 package's, element for element: the shard blocks and the halo plan of the
 sharded path (``parallel/blocked_shard.py``) depend on it.
 
@@ -332,3 +332,16 @@ def rcm_order(mesh: Mesh2D) -> tuple[Mesh2D, np.ndarray]:
     new_mesh.boundary_lines = mesh.boundary_lines
     new_mesh.boundary_tags = mesh.boundary_tags
     return new_mesh, perm
+
+
+def pad_elements(mesh: Mesh2D, n_parts: int) -> Mesh2D:
+    """Padding belongs to the built context, not the mesh (degenerate
+    elements would corrupt its connectivity): returns ``mesh`` when its K
+    divides into ``n_parts``, and raises otherwise, pointing to
+    ``pad_context``."""
+    if mesh.num_elements % n_parts == 0:
+        return mesh
+    raise ValueError(
+        f"K={mesh.num_elements} not divisible by n_parts={n_parts}; "
+        "build the DG context and pad it with pad_context(ctx, "
+        "rcb_block_sizes(mesh, n_parts)) instead")

@@ -7,8 +7,8 @@ Run from the root of the repository, with no arguments:
 
 (``--only dense``, ``--only blocked``, ``--only curved``, ``--only
 sharded``, ``--only elliptic``, ``--only solver``, ``--only quads``,
-``--only ins2d`` or ``--only dg1d`` runs one path's phases alone, for work
-on that path.) What it does,
+``--only ins2d``, ``--only dg1d``, ``--only halo`` or ``--only compat``
+runs one path's phases alone, for work on that path.) What it does,
 in order (any failure is an exception and a non-zero exit):
 
  1. refuses to run without a CUDA device;
@@ -136,15 +136,23 @@ in order (any failure is an exception and a non-zero exit):
     N=4, filter 0.9 N of order 4, CFL 0.5, float32, 10 chunks of 100
     adaptive SSP-RK2 steps of ``sw2d_rhs``; mass drift below 1e-5, the
     first chunk against the port's CPU float64 run, idle share);
-    ``quads_kernels`` holds B4 and B5 (2 x 2 steps with controls) on the
-    same mesh with coastal physics at B=8 against their plain versions,
-    the same bits on a rerun and B4 step by step bit-equal to B5's rows,
-    timed, and checks that B6 and the sharded stage refuse a quad set;
+    ``quads_kernels`` holds B4, B5 and B6 (2 x 2 steps with controls) on
+    the same mesh with coastal physics at B=8 against their plain
+    versions, the same bits on a rerun and B4 step by step bit-equal to
+    B5's rows, and B7, B8 and B9 on that mesh partitioned into 4 shards
+    (B9 bit-equal to two B7 launches with the exchange between), each
+    timed, and checks that every q kernel refuses a quad set at N=5;
     ``quads_path`` drives the example's problem at B=8 through B5 (10
-    launches of 100 steps) and B4 (10 launches), counters zeroed just
-    before and read just after, each scenario's mass drift below 1e-5, the
-    first launch against the plain version in float64; the run-time-size
-    rollout kernel must not spill;
+    launches of 100 steps) and B4 (10 launches), each scenario's mass
+    drift below 1e-5, the first launch against the plain version in
+    float64; a blocked Adam solve on the quad mesh (5 iterations, B5 and
+    B6), whose final cost ``quads_cross_check`` holds to the same solve
+    through the plain versions on the card within COST_RATIO; and 8
+    sharded steps on the partitioned mesh through the fused (B7), the
+    one-launch (B9) and the differentiable step (B7, B8), bit-equal to one
+    another, against the unsharded blocked rollout and its adjoint's
+    gradient; counters zeroed just before and read just after; the
+    run-time-size instances of B4-B9 must not spill;
 10. INS2D path (plain tensor code): ``examples/ins2d.py`` at
     ``examples/ins2d.nml`` read by the port's ``read_namelist`` (K=36
     quads, N=2, dt 2e-3, 100 steps, float32): fields finite, max|u| <= 1,
@@ -155,7 +163,24 @@ in order (any failure is an exception and a non-zero exit):
     c=0.1, CFL 0.8, T=20) and ``examples/burgers1d.py`` (N=6, K=40, nu=0.1)
     through ``integrate(lserk4_step)`` in float32, max-norm errors against
     the exact solutions at the JAX tests' bounds, ms a step;
-12. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
+12. HALO path (``parallel/halo.py``, plain tensor code, every shard stacked
+    on the card): ``halo_rhs_rollout`` holds ``halo_sw2d_rhs`` on
+    ``box_triangles(32, 32)`` (K=2048, N=3) at S = 1, 2, 4 to ``sw2d_rhs``
+    (a bfloat16 halo's gap reported) and runs
+    ``examples/scaling_study.py --mode xla``'s 100 SSP-RK2 steps at dt
+    1e-4, its µs a step and idle share, its end state against the
+    unsharded rollout; ``halo_coastal_adaptive_dt`` a 10-step coastal
+    rollout with ``halo_sw2d_timestep`` at S=4; ``halo_curved``
+    ``halo_sw2d_curved_rhs`` on the large Gordon-Hall disk (K=1014, N=3)
+    at S = 2, 6 against ``sw2d_curved_rhs``; ``halo_elliptic`` the CG of
+    ``TestShardedElliptic`` on the elliptic configuration padded to S=4
+    against the unsharded CG (iterations and solution);
+13. COMPAT path (``compat.py``): the reference's advec1d numpy script
+    through ``Nodes1DProvisioner`` and its poisson2d pattern through
+    ``MeshManager``, ``TriangleNodesProvisioner`` (its context on the
+    card) and ``Poisson2DSparseMatrix``, solved with scipy and held to
+    sin(pi x) sin(pi y);
+14. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
     card's name and power limit, and as the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -308,6 +333,27 @@ QD_CPU_ATOL = 1e-4
 QD_BATCH = 8
 QD_STEPS = 10
 QD_PATH_ATOL = 2e-4
+# B6-B9 on quads: the sharded kernels on box_quads(12, 12) with the east
+# side open, partitioned into QD_SHARDS, coastal physics, two controls, at
+# the blocked and sharded tolerances. The quad Adam solve (B5, B6) is the
+# blocked MPC of mpc/blocked_box.py on the example's quad mesh, its hidden
+# controls QD_HIDDEN (scenario b scaled by 1 + b/10) and its learning rate
+# QD_LR: blocked_box's 30 and 6 scaled by 100, which scales Adam's iterates
+# by 100 and leaves its relative decrease as it is (the dynamics are linear
+# in the controls at this size), so that the tracking error stands far
+# above the float32 rounding of h ~ 10 (at 30 the error is some 30 ulp of
+# h, and float32 and float64 plain solves end at cost ratios 0.9988-1.008
+# on the CPU; at 3000 at 0.99999-1.00001). Its final cost is held to the
+# same solve through the plain versions within COST_RATIO. The sharded
+# steps drive QD_SHARD_STEPS steps: the fused and the one-launch rollouts
+# bit for bit, against the unsharded blocked rollout on the same mesh at
+# BLK_FWD_ATOL, and the differentiable steps' gradient of the end depth
+# against the blocked rollout adjoint's within SHD_GRAD_RTOL.
+QD_SHARDS = 4
+QD_HIDDEN = 3000.0
+QD_LR = 600.0
+QD_ADAM_ITERS = 5
+QD_SHARD_STEPS = 8
 # ins2d: examples/ins2d.py at examples/ins2d.nml (N=2, filter 1.5 of order
 # 4, T=0.2), box_quads(6, 6) (K=36), dt 2e-3: 100 steps in float32. The
 # kinetic energy at the end against the port's CPU float64 run, relative
@@ -326,6 +372,45 @@ INS_PROFILE_STEPS = 5
 # (float32 on the CPU: 8.4e-5 and 4.8e-6).
 ADV_ERR_BOUND = 5e-4
 BRG_ERR_BOUND = 1e-5
+# The element-sharded plain-tensor path (parallel/halo.py), stacked on the
+# card, float32: examples/scaling_study.py's --mode xla configuration
+# (box_triangles(32, 32), K=2048, N=3, flat bottom, walls, a Gaussian hump
+# at rest, 100 SSP-RK2 steps at dt 1e-4) at S = 1, 2, 4 shards (runs of
+# the blocks of one partition into 4). The halo
+# RHS against sw2d_rhs on the unsharded context, every entry within
+# HALO_RHS_RTOL of the largest (the two compute the same float32 arithmetic
+# on the same traces, and on the CPU give the same bits at every S; the
+# bound leaves room for a different order of a few sums on the card); a
+# bfloat16 halo's gap is reported, not gated (on the CPU 5-7 % of the
+# largest entry at S = 2, 4: h ~ 10 keeps 8 bits). The rollout's end state against the unsharded rollout within
+# HALO_ROLL_ATOL on h ~ 10 (100 steps). A 10-step coastal rollout
+# (well-balanced bathymetry, drag, Coriolis, tidal open east side) with the
+# adaptive dt of halo_sw2d_timestep at S=4, as tests/test_parallel.py runs
+# it, against the unsharded one: the times to HALO_ROLL_ATOL relative, the
+# states to HALO_ROLL_ATOL. The curved halo RHS on the large Gordon-Hall
+# disk (mpc/curved_disk.py, K=1014, N=3) at S = 2, 6 against
+# sw2d_curved_rhs within HALO_RHS_RTOL. The sharded CG: TestShardedElliptic
+# on the elliptic configuration (N=2, box_triangles(23, 23), K=1058,
+# padded by pad_context to S=4) in float64 (the card runs float64 too; in
+# float32 the dots' summation order moves the iteration count), tol 1e-10:
+# the same iterations as the unsharded CG and the solution within
+# HALO_CG_ATOL.
+HALO_SHARDS = (1, 2, 4)
+HALO_STEPS = 100
+HALO_DT = 1e-4
+HALO_RHS_RTOL = 1e-5
+HALO_ROLL_ATOL = 1e-4
+HALO_COASTAL_STEPS = 10
+HALO_CURVED_SHARDS = (2, 6)
+HALO_CG_TOL = 1e-10
+HALO_CG_ATOL = 1e-9
+# pyblitzdg-compatible API: the reference's advec1d numpy script through
+# Nodes1DProvisioner (its error bound ADV_ERR_BOUND), and its poisson2d
+# pattern (MeshManager, TriangleNodesProvisioner on the card,
+# Poisson2DSparseMatrix, a scipy direct solve) on box_triangles(12, 12) at
+# N=2, held to sin(pi x) sin(pi y) within CMP_POISSON_ERR (the
+# discretization error: 1.8e-3 in the same float64 host solve on the CPU).
+CMP_POISSON_ERR = 5e-3
 
 
 def say(obj) -> None:
@@ -1647,10 +1732,10 @@ def check_sharded_case(TB, BS, name, sb, state, ctrl, dt, t, sponge, flush,
     """Hold the two stage kernels against their plain versions on one case:
     stage 1 (base = cur, dt/2, no sponge) and stage 2 (base != cur, dt, the
     sponge if ``sponge``) with the receive buffers the ring exchange makes
-    of the state's send buffer; the adjoint of stage 2 under random
-    cotangents, rerun for the same bits. Returns the records by kernel;
-    ``timed`` times every kernel and its plain version, ``time_adjoint``
-    the adjoint kernel alone."""
+    of the state's send buffer, stage 2 rerun for the same bits; the
+    adjoint of stage 2 under random cotangents, rerun for the same bits.
+    Returns the records by kernel; ``timed`` times every kernel and its
+    plain version, ``time_adjoint`` the adjoint kernel alone."""
     from blitzdg_tpu_torch.parallel.halo import RingExchange
 
     ops, meta = sb.ops, sb.meta
@@ -1675,13 +1760,15 @@ def check_sharded_case(TB, BS, name, sb, state, ctrl, dt, t, sponge, flush,
     st2 = lambda f: f(ops, meta, state, cur, rb2, dt, t + 0.5 * dt, ctrl,
                       True, sponge)
     got2, ref2 = st2(TB.sw2d_stage_blocked), st2(TB.sw2d_stage_blocked_plain)
+    again = st2(TB.sw2d_stage_blocked)
     torch.cuda.synchronize()
     err = max(max_abs(got1, ref1), max_abs(got2, ref2))
+    same = all(torch.equal(a, b) for a, b in zip(got2, again))
     n_wall = int(ops.wall.sum()) / S  # per shard
     rec = record("sw2d_stage_blocked", err, tol,
-                 finite(got1) and finite(got2) and err <= tol,
-                 grid_blocks=TB.last_grid(), slots=L,
-                 plan=TB.shard_plan(ops, meta, B))
+                 finite(got1) and finite(got2) and err <= tol and same,
+                 same_bits_on_rerun=same, grid_blocks=TB.last_grid(),
+                 slots=L, plan=TB.shard_plan(ops, meta, B))
     if timed:
         rec["ms"] = time_ms(lambda: st2(TB.sw2d_stage_blocked), 9, flush)
         rec["plain_ms"] = time_ms(lambda: st2(TB.sw2d_stage_blocked_plain), 2,
@@ -2634,15 +2721,23 @@ def solver_phases(dev, card: str, rng, flush) -> list:
 
 def quads_phases(dev, card: str, rng, flush) -> list:
     """Quadrilateral elements: the sw2dquads example through the plain
-    tensor code (``quads_sw2d``), B4/B5 on four-face elements against their
-    plain versions (``quads_kernels``) and the example's problem through
-    them (``quads_path``). Returns the quad rows of the ``kernels`` line."""
+    tensor code (``quads_sw2d``), B4-B9 on four-face elements against their
+    plain versions (``quads_kernels``), the example's problem, a blocked
+    Adam solve and the sharded steps through them (``quads_path``) and the
+    solve's cross-check (``quads_cross_check``). Returns the quad rows of
+    the ``kernels`` line."""
     from blitzdg_tpu_torch.context import BC_OUT
     from blitzdg_tpu_torch.mesh import box_quads
+    from blitzdg_tpu_torch.mpc import (MPCProblem, build_blocked_mpc,
+                                       solve_mpc_blocked)
+    from blitzdg_tpu_torch.mpc import blocked_box as bbx
     from blitzdg_tpu_torch.mpc.coastal_box import cfl_dt, retag_east_open
+    from blitzdg_tpu_torch.mpc.sharded_box import injectors
     from blitzdg_tpu_torch.ops import sw2d_blocked as TB
     from blitzdg_tpu_torch.ops.sw2d import (SWPhysics, SWState, apply_filter,
                                             sw2d_rhs, sw2d_timestep)
+    from blitzdg_tpu_torch.parallel import blocked_shard as BS
+    from blitzdg_tpu_torch.parallel import partition_mesh
     from blitzdg_tpu_torch.specgrid.quad import build_quad_context
     from blitzdg_tpu_torch.timestepping import ssprk2_step
     from blitzdg_tpu_torch.utils import build_sponge_coefficient
@@ -2750,25 +2845,67 @@ def quads_phases(dev, card: str, rng, flush) -> list:
     head = check_blocked_case(TB, f"quads_coastal_K{cc.k_elem}_N{N}", cops,
                               cmeta, h, hu, hv, ctrls,
                               cfl_dt(cc, 9.81, 13.5), 2, 4, 1.0, flush, rng,
-                              adjoint=False, timed=True)
+                              timed=True)
+    # the sharded kernels on the same mesh partitioned into QD_SHARDS
+    sc = build_quad_context(N, partition_mesh(mesh, QD_SHARDS)[0], dtype=f32,
+                            device=dev, **kw)
+    Hs = 10.0 + 2.0 * sc.x + torch.sin(2.0 * sc.y)
+    open_s = (sc.bc_table[:, :, None].expand(-1, -1, sc.n_fp)
+              .reshape(sc.k_elem, -1) == BC_OUT).cpu().numpy()
+    sphys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4, H=Hs,
+                      Hx=2.0 * torch.ones_like(Hs),
+                      Hy=2.0 * torch.cos(2.0 * sc.y),
+                      sponge=build_sponge_coefficient(sc, open_s, width=0.3,
+                                                      strength=0.5))
+    sbu, sbv = injectors(sc)
+    ssb = BS.build_sharded_blocked(sc, sphys, QD_SHARDS, tidal=tidal,
+                                   forcing_bu=sbu, forcing_bv=sbv, device=dev)
+    if not (ssb.meta.n_faces == 4 and len(ssb.plan.offs) >= 2):
+        raise RuntimeError("the partitioned quad mesh has no ring offsets")
+    sdt = cfl_dt(sc, 9.81, 13.5)
+    hs, hus, hvs, sc_ctrl = perturbed_blocked(sc, Hs.reshape(1, -1),
+                                              QD_BATCH, 1, 2, rng, dev,
+                                              ctrl_scale=1.0)
+    sst = tuple(BS.split_shards(f, QD_SHARDS) for f in (hs, hus, hvs))
+    sctrl = sc_ctrl[0, 0].contiguous()
+    name = f"K{sc.k_elem}_N{N}_S{QD_SHARDS}_B{QD_BATCH}"
+    head.update(check_sharded_case(TB, BS, f"quads_sharded_coastal_{name}",
+                                   ssb, sst, sctrl, sdt, 1.0, True, flush,
+                                   rng, timed=True))
+    head["sw2d_step_rdma_blocked"] = check_rdma_case(
+        TB, BS, f"quads_rdma_coastal_{name}", ssb, sst, sctrl, sdt, 1.0,
+        flush, timed=True)
+    plans = {"rollout": TB.rollout_plan(cops, cmeta, QD_BATCH),
+             "rollout_bwd": TB.rollout_bwd_plan(cops, cmeta, QD_BATCH),
+             "stage": TB.shard_plan(ssb.ops, ssb.meta, QD_BATCH),
+             "stage_bwd": TB.shard_plan(ssb.ops, ssb.meta, QD_BATCH,
+                                        adjoint=True),
+             "step_rdma": TB.shard_plan(ssb.ops, ssb.meta, QD_BATCH,
+                                        step=True)}
+    # above N=4 (Np 36) every kernel refuses a quad set, naming itself
+    o5, m5 = TB.build_blocked_step_ops(
+        build_quad_context(5, box_quads(2, 2), dtype=f32, device=dev),
+        phys, device=dev)
     refused = {}
-    for name, fn in (("sw2d_rollout_bwd_blocked",
-                      lambda: TB.rollout_bwd_plan(cops, cmeta, QD_BATCH)),
-                     ("sw2d_stage_blocked (plan)",
-                      lambda: TB._shard_plan(TB._lib(), TB._desc(
-                          cmeta, blocked=True), cops, 1, TB._STAGE))):
+    for which, kname in TB._KERNEL_NAMES.items():
         try:
-            fn()
-            refused[name] = False
-        except ValueError:
-            refused[name] = True
-    say({"phase": "quads_kernels", "ok": all(refused.values()),
-         "card": card, "cases": list(head), "refused_quads": refused,
-         "rollout_plan": TB.rollout_plan(cops, cmeta, QD_BATCH)})
-    if not all(refused.values()):
-        raise RuntimeError("a kernel that takes triangles only took quads")
+            TB._shard_plan(TB._lib(), TB._desc(m5, blocked=True), o5, 1,
+                           which)
+            refused[kname] = False
+        except ValueError as e:
+            refused[kname] = "N <= 4" in str(e) and kname in str(e)
+    kern_ok = (all(refused.values())
+               and all(p["lanes_per_element"] == 1 for p in plans.values()))
+    say({"phase": "quads_kernels", "ok": kern_ok, "card": card,
+         "cases": sorted({r["case"] for r in head.values()}),
+         "refused_quads_n5": refused, "plans": plans})
+    if not kern_ok:
+        raise RuntimeError("a q kernel took quads above N=4, or a quad plan "
+                           "is not one lane an element")
 
-    # ---- the example's problem through B5 and B4 ----
+    # ---- the main path on quads: the example's problem through B5 and B4,
+    # the blocked Adam solve (B5, B6) and the sharded steps on the
+    # partitioned mesh (B7, B8, B9) ----
     ops, meta = TB.build_blocked_step_ops(ctx, phys, device=dev)
     heights = tuple(1.0 + 0.1 * b for b in range(QD_BATCH))
     st = tuple(f.reshape(QD_BATCH, -1).contiguous()
@@ -2786,9 +2923,65 @@ def quads_phases(dev, card: str, rng, flush) -> list:
                                           n_steps=QD_CHUNK_STEPS)
     plain32 = TB.sw2d_rollout_blocked_plain(ops, meta, *st, None, dt,
                                             n_steps=QD_CHUNK_STEPS)
-    roll(st, 1)  # warm-up: the plan
+
+    # the blocked MPC on the quad mesh: rest start, the two injectors, a
+    # reachable target (the end state under the hidden controls)
+    qdt = cfl_dt(host, 9.81, 11.0, cfl=0.7)
+    hx, hy = host.x.numpy(), host.y.numpy()
+    qbump = np.exp(-8.0 * (hx ** 2 + hy ** 2))
+    qprob = MPCProblem(ctx=ctx, phys=SWPhysics(g=9.81), dt=qdt,
+                       horizon=bbx.HORIZON,
+                       steps_per_control=bbx.STEPS_PER_CONTROL, q_eta=0.0,
+                       q_terminal=1e6, r_control=1e-8)
+    quad_mpc = lambda **fb: build_blocked_mpc(
+        qprob, np.stack([qbump, 0 * qbump]), np.stack([0 * qbump, qbump]),
+        device=dev, **fb)
+    qbm = quad_mpc()
+    qh0 = torch.full((QD_BATCH, ctx.k_elem, ctx.n_p), bbx.H_REST, dtype=f32,
+                     device=dev)
+    qstates = SWState(qh0, torch.zeros_like(qh0), torch.zeros_like(qh0))
+    scale = 1.0 + 0.1 * torch.arange(QD_BATCH, dtype=f32, device=dev)
+    hidden = QD_HIDDEN * scale[:, None, None] * torch.ones(
+        QD_BATCH, bbx.HORIZON, 2, dtype=f32, device=dev)
+    qflat = lambda f: f.reshape(QD_BATCH, -1).contiguous()
+    with torch.no_grad():
+        qth, _, _ = qbm.rollout(qflat(qh0), qflat(qstates.hu),
+                                qflat(qstates.hv), hidden)
+    qtargets = (qth[:, -1] - bbx.H_REST).reshape(qh0.shape).contiguous()
+    adam = lambda bm: solve_mpc_blocked(
+        qprob, bm, qstates, qtargets, 2, iters=QD_ADAM_ITERS,
+        learning_rate=QD_LR, H_rest=bbx.H_REST)
+
+    # the sharded steps: fused (B7), one-launch (B9), differentiable (B7,
+    # B8), QD_SHARD_STEPS steps from the sharded state above
+    fused = BS.make_sharded_blocked_step_fused(ssb, sdt)
+    rdma = BS.make_sharded_blocked_step_rdma(ssb, sdt)
+    diff = BS.make_sharded_blocked_step_diff(ssb, sdt)
+
+    def sharded_roll(step, state):
+        carry, t = (state, BS.initial_send_buffer(ssb, state)), 1.0
+        for _ in range(QD_SHARD_STEPS):
+            carry = step(carry, t, sctrl)
+            t += sdt
+        return carry
+
+    w_end = torch.as_tensor(rng.standard_normal(tuple(sst[0].shape)),
+                            dtype=f32, device=dev)
+
+    def sharded_grad():
+        h0 = sst[0].clone().requires_grad_(True)
+        (hN, _, _), _ = sharded_roll(diff, (h0, sst[1], sst[2]))
+        return torch.autograd.grad((hN * w_end).sum(), h0)[0]
+
+    adam(qbm)  # warm-up: allocator, autograd
+    roll(st, 1)
+    sharded_roll(fused, sst)
+    sharded_roll(rdma, sst)
+    sharded_grad()
     torch.cuda.synchronize()
-    wrappers = (TB.sw2d_step_blocked, TB.sw2d_rollout_blocked)
+    wrappers = (TB.sw2d_step_blocked, TB.sw2d_rollout_blocked,
+                TB.sw2d_rollout_bwd_blocked, TB.sw2d_stage_blocked,
+                TB.sw2d_stage_bwd_blocked_v2, TB.sw2d_step_rdma_blocked)
     for w in wrappers:
         w.launches = 0
     t0 = time.perf_counter()
@@ -2802,12 +2995,47 @@ def quads_phases(dev, card: str, rng, flush) -> list:
         x = TB.sw2d_step_blocked(ops, meta, *x, None, dt,
                                  (n_all + k) * dt)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = adam(qbm)
+    torch.cuda.synchronize()
+    adam_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    end_fused = sharded_roll(fused, sst)
+    end_rdma = sharded_roll(rdma, sst)
+    gsh = sharded_grad()
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in wrappers}
+
     drift = float(np.max(np.abs(mass(x[0]) - m0) / np.abs(m0)))
     err = max_abs([f.double() for f in first], ref64)
+    # the sharded rollouts against the unsharded blocked rollout (B5) on the
+    # same partitioned mesh, and the sharded gradient against its adjoint
+    # (B6); the controls one vector a step, as the sharded steps take them
+    bops, bmeta = TB.build_blocked_step_ops(sc, sphys, sbu, sbv, tidal=tidal,
+                                            device=dev)
+    join = lambda f: BS.join_shards(f).contiguous()
+    bctrl = sctrl.reshape(1, 1, -1).expand(QD_BATCH, QD_SHARD_STEPS,
+                                           -1).contiguous()
+    broll = TB.make_rollout_blocked(bops, bmeta, sdt, 1, t0=1.0)
+    bh0 = join(sst[0]).requires_grad_(True)
+    bth, _, _ = broll(bh0, join(sst[1]), join(sst[2]), bctrl)
+    bgrad = torch.autograd.grad((bth[:, -1] * join(w_end)).sum(), bh0)[0]
+    with torch.no_grad():
+        bref = TB.sw2d_rollout_blocked(bops, bmeta, join(sst[0]),
+                                       join(sst[1]), join(sst[2]), bctrl,
+                                       sdt, t0=1.0)
+    fused_vs_blocked = max_abs([join(f) for f in end_fused[0]], bref)
+    rdma_same = all(torch.equal(a, b) for a, b in zip(end_fused[0],
+                                                      end_rdma[0]))
+    grad_rel = float((join(gsh) - bgrad).abs().max() / bgrad.abs().max())
+    expect_nonzero = all(v > 0 for v in launches.values())
+    decrease = float((sol.cost_history[0] / sol.cost).median())
     ok = (all(bool(torch.isfinite(f).all()) for f in x)
           and drift < QD_MASS_DRIFT and err <= QD_PATH_ATOL
-          and all(v > 0 for v in launches.values()))
+          and expect_nonzero and bool(torch.isfinite(sol.cost).all())
+          and decrease > 1.0 and rdma_same
+          and fused_vs_blocked <= BLK_FWD_ATOL and grad_rel <= SHD_GRAD_RTOL)
     say({"phase": "quads_path", "ok": ok, "card": card, "batch": QD_BATCH,
          "k_elem": meta.k_elem, "n_order": N, "dt": dt,
          "steps": n_all + QD_STEPS, "launches": launches,
@@ -2818,13 +3046,49 @@ def quads_phases(dev, card: str, rng, flush) -> list:
          "plain_float32_vs_float64_max_abs": max_abs(
              [f.double() for f in plain32], ref64),
          "first_chunk_vs_plain_float32_max_abs": max_abs(first, plain32),
-         "plan": TB.rollout_plan(ops, meta, QD_BATCH)})
+         "plan": TB.rollout_plan(ops, meta, QD_BATCH),
+         "adam_iters": QD_ADAM_ITERS, "adam_seconds_per_solve": adam_s,
+         "adam_first_cost": float(sol.cost_history[0].median()),
+         "adam_final_cost": float(sol.cost.median()),
+         "adam_cost_decrease": decrease,
+         "sharded_steps": QD_SHARD_STEPS, "n_shards": QD_SHARDS,
+         "sharded_seconds": shard_s,
+         "sharded_fused_vs_blocked_max_abs": fused_vs_blocked,
+         "sharded_rdma_same_bits_as_fused": rdma_same,
+         "sharded_grad_vs_blocked_rel": grad_rel,
+         "grad_tol": SHD_GRAD_RTOL})
     if not ok:
-        raise RuntimeError("the quad path through B4/B5 failed its checks")
+        raise RuntimeError("the quad path through B4-B9 failed its checks")
+    profile_solve("quads_adam_profile", card, lambda: adam(qbm), adam_s)
+
+    # ---- the same Adam solve through the plain versions on the card ----
+    before = {w.__name__: w.launches for w in wrappers}
+    ref = adam(quad_mpc(forward=TB.sw2d_rollout_blocked_plain,
+                        backward=TB.sw2d_rollout_bwd_blocked_plain))
+    torch.cuda.synchronize()
+    if before != {w.__name__: w.launches for w in wrappers}:
+        raise RuntimeError("the plain-version quad solve launched a kernel")
+    ratio = sol.cost / ref.cost
+    rmin, rmax = float(ratio.min()), float(ratio.max())
+    cross_ok = COST_RATIO[0] <= rmin and rmax <= COST_RATIO[1]
+    say({"phase": "quads_cross_check", "ok": cross_ok,
+         "scenarios": QD_BATCH, "cost_ratio_min": rmin,
+         "cost_ratio_max": rmax, "tol": list(COST_RATIO)})
+    if not cross_ok:
+        raise RuntimeError("the quad Adam solve through the kernels "
+                           "disagrees with the solve through the plain "
+                           "versions")
 
     src = "blitzdg_tpu_torch/ops/csrc/sw2d_blocked.cu"
     replaces = {"sw2d_step_blocked": "blitzdg_tpu/ops/sw2d_blocked.py:1288",
-                "sw2d_rollout_blocked": "blitzdg_tpu/ops/sw2d_blocked.py:1352"}
+                "sw2d_rollout_blocked": "blitzdg_tpu/ops/sw2d_blocked.py:1352",
+                "sw2d_rollout_bwd_blocked":
+                    "blitzdg_tpu/ops/sw2d_blocked.py:1491",
+                "sw2d_stage_blocked": "blitzdg_tpu/ops/sw2d_blocked.py:962",
+                "sw2d_stage_bwd_blocked_v2":
+                    "blitzdg_tpu/ops/sw2d_blocked.py:1710",
+                "sw2d_step_rdma_blocked":
+                    "blitzdg_tpu/ops/sw2d_blocked.py:1118"}
     return [{"name": name + "_quads", "route": "cuda", "source": src,
              "replaces": replaces[name], "launches": launches[name],
              "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -2994,6 +3258,324 @@ def dg1d_phases(dev, card: str, rng, flush) -> list:
     return []
 
 
+def halo_phases(dev, card: str, rng, flush) -> list:
+    """The element-sharded plain-tensor path of ``parallel/halo.py`` (no
+    kernel of its own), every shard stacked on the card: the halo RHS
+    against the unsharded RHS (``halo_rhs``), the scaling study's rollout
+    and a coastal rollout with the sharded adaptive dt
+    (``halo_rollout``), the curved halo RHS (``halo_curved``) and the
+    sharded CG (``halo_elliptic``). Returns no kernel record."""
+    from blitzdg_tpu_torch import parallel as TP
+    from blitzdg_tpu_torch.context import BC_OUT
+    from blitzdg_tpu_torch.mesh import box_triangles, disk_triangles
+    from blitzdg_tpu_torch.mesh.curved import (circle_projection,
+                                               gordon_hall_deform,
+                                               snap_boundary_vertices)
+    from blitzdg_tpu_torch.mpc import curved_disk as cdk
+    from blitzdg_tpu_torch.mpc.coastal_box import retag_east_open
+    from blitzdg_tpu_torch.ops.poisson import apply_mass, poisson2d_op
+    from blitzdg_tpu_torch.ops.sw2d import (SWPhysics, SWState, sw2d_rhs,
+                                            sw2d_timestep)
+    from blitzdg_tpu_torch.ops.sw2d_curved import (SWStateTracer,
+                                                   sw2d_curved_rhs)
+    from blitzdg_tpu_torch.solvers import cg
+    from blitzdg_tpu_torch.solvers.krylov import CONV_SUCCESS
+    from blitzdg_tpu_torch.specgrid.cubature import (build_cubature_context,
+                                                     build_gauss_face_context)
+    from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
+    from blitzdg_tpu_torch.timestepping import ssprk2_step
+
+    f32, N = torch.float32, 3
+    rel = lambda got, ref: max(float((g.reshape(r.shape) - r).abs().max()
+                                     / r.abs().max())
+                               for g, r in zip(got, ref))
+    mesh0 = box_triangles(32, 32)
+    phys = SWPhysics(g=9.81)
+
+    # ---- the halo RHS and the scaling study's rollout at S = 1, 2, 4, on
+    # one partition into max(S) blocks (S shards: runs of those blocks) ----
+    ctx = build_triangle_context(
+        N, TP.partition_mesh(mesh0, max(HALO_SHARDS))[0], dtype=f32,
+        device=dev)
+    h = 10.0 + torch.exp(-10.0 * (ctx.x ** 2 + ctx.y ** 2))
+    moving = SWState(h, 0.3 * h, -0.2 * h)
+    ref = sw2d_rhs(ctx, moving, 0.0, phys)
+
+    def rollout(rhs, s, n=HALO_STEPS):
+        for _ in range(n):
+            s = ssprk2_step(rhs, s, 0.0, HALO_DT)
+        return s
+
+    def timed(fn):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    rest = SWState(h, torch.zeros_like(h), torch.zeros_like(h))
+    single_rhs = lambda a, t: sw2d_rhs(ctx, a, t, phys)
+    ref_end, single = timed(lambda: rollout(single_rhs, rest))
+    rows, ok = [], True
+    for S in HALO_SHARDS:
+        plan = TP.build_halo_plan(ctx, S)
+        tables = TP.halo_tables(plan, device=dev)
+        sc = TP.shard_context(ctx, S)
+        split = lambda f: f.reshape(S, -1, ctx.n_p)
+        rhs = lambda s, t, hd=None: TP.halo_sw2d_rhs(sc, s, t, phys, tables,
+                                                     plan, halo_dtype=hd)
+        sm = SWState(*map(split, moving))
+        err = rel(rhs(sm, 0.0), ref)
+        err_bf16 = rel(rhs(sm, 0.0, torch.bfloat16), ref)
+        srest = SWState(*map(split, rest))
+        end, sec = timed(lambda: rollout(rhs, srest))
+        end_err = max_abs([f.reshape(r.shape) for f, r in zip(end, ref_end)],
+                          ref_end)
+        # the idle share of a 20-step window (the profiler's own cost grows
+        # with the launches it records)
+        _, win_s = timed(lambda: rollout(rhs, srest, 20))
+        prof = profile_solve(f"halo_rollout_S{S}_profile", card,
+                             lambda: rollout(rhs, srest, 20), win_s,
+                             cuda_only=True)
+        rows.append({"n_shards": S, "ring_offsets": list(plan.offs),
+                     "max_send": plan.max_send, "rhs_rel_err": err,
+                     "rhs_rel_err_bf16_halo": err_bf16,
+                     "us_per_step": sec * 1e6 / HALO_STEPS,
+                     "end_vs_unsharded_max_abs": end_err,
+                     "device_idle_share": prof["device_idle_share"],
+                     "launches_per_step": prof["device_kernel_launches"]
+                     / 20})
+        ok &= (err <= HALO_RHS_RTOL and end_err <= HALO_ROLL_ATOL
+               and all(bool(torch.isfinite(f).all()) for f in end))
+    say({"phase": "halo_rhs_rollout", "ok": ok, "card": card,
+         "k_elem": ctx.k_elem, "n_order": N, "steps": HALO_STEPS,
+         "dt": HALO_DT, "rows": rows,
+         "unsharded_us_per_step": single * 1e6 / HALO_STEPS,
+         "rhs_rtol": HALO_RHS_RTOL, "end_atol": HALO_ROLL_ATOL})
+    if not ok:
+        raise RuntimeError("the halo RHS or rollout disagrees with the "
+                           "unsharded one")
+
+    # ---- a coastal rollout with the sharded adaptive dt, S=4 ----
+    S = 4
+    m = box_triangles(32, 32)
+    retag_east_open(m)
+    ctx = build_triangle_context(N, TP.partition_mesh(m, S)[0], dtype=f32,
+                                 device=dev)
+    plan = TP.build_halo_plan(ctx, S)
+    tables, sc = TP.halo_tables(plan, device=dev), TP.shard_context(ctx, S)
+    split = lambda f: f.reshape(S, -1, ctx.n_p)
+    H = 10.0 + 2.0 * ctx.x + torch.as_tensor(
+        rng.uniform(0.0, 1.0, (ctx.k_elem, 1)), dtype=f32, device=dev)
+    Hx, Hy = ctx.grad(H)
+    cphys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4, H=H, Hx=Hx, Hy=Hy)
+    sphys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4, H=split(H),
+                      Hx=split(Hx), Hy=split(Hy))
+    forcing = lambda t: 12.0 + 0.5 * torch.cos(0.3 * t)
+    eta = 0.1 * torch.exp(-5.0 * (ctx.x ** 2 + ctx.y ** 2))
+    s1 = SWState(H + eta, 0.05 * eta, torch.zeros_like(eta))
+    s4 = SWState(*map(split, s1))
+    t1 = t4 = torch.zeros((), dtype=f32, device=dev)
+    for _ in range(HALO_COASTAL_STEPS):
+        d4 = TP.halo_sw2d_timestep(sc, s4, 9.81, 0.3)
+        s4 = ssprk2_step(lambda a, t: TP.halo_sw2d_rhs(
+            sc, a, t, sphys, tables, plan, tidal_forcing=forcing), s4, t4, d4)
+        t4 = t4 + d4
+        d1 = sw2d_timestep(ctx, s1, 9.81, 0.3)
+        s1 = ssprk2_step(lambda a, t: sw2d_rhs(ctx, a, t, cphys,
+                                               tidal_forcing=forcing),
+                         s1, t1, d1)
+        t1 = t1 + d1
+    t_rel = abs(float(t4) - float(t1)) / float(t1)
+    c_err = max_abs([f.reshape(r.shape) for f, r in zip(s4, s1)], s1)
+    ok = t_rel <= HALO_ROLL_ATOL and c_err <= HALO_ROLL_ATOL
+    say({"phase": "halo_coastal_adaptive_dt", "ok": ok, "card": card,
+         "n_shards": S, "steps": HALO_COASTAL_STEPS, "t_end": float(t4),
+         "t_end_rel_err": t_rel, "end_vs_unsharded_max_abs": c_err,
+         "tol": HALO_ROLL_ATOL})
+    if not ok:
+        raise RuntimeError("the coastal halo rollout disagrees with the "
+                           "unsharded one")
+
+    # ---- the curved halo RHS on the large disk ----
+    t0 = time.perf_counter()
+    dmesh = disk_triangles(cdk.LARGE["rings"], radius=1.0)
+    bc = np.asarray(dmesh.bc_type).copy()
+    mids = 0.5 * (dmesh.verts[dmesh.etov]
+                  + dmesh.verts[np.roll(dmesh.etov, -1, axis=1)])
+    bc[(bc > 0) & (mids[:, :, 0] > 0.7)] = BC_OUT
+    dmesh.set_bc_type(bc)
+    dmesh = TP.partition_mesh(dmesh, max(HALO_CURVED_SHARDS))[0]
+    proj = circle_projection(0.0, 0.0, 1.0)
+    faces = snap_boundary_vertices(dmesh, proj, tol=cdk.LARGE["snap_tol"])
+    straight = build_triangle_context(N, dmesh, dtype=torch.float64,
+                                      device="cpu")
+    V = straight.V.numpy()
+    x, y, _ = gordon_hall_deform(N, dmesh, straight.x.numpy(),
+                                 straight.y.numpy(), faces, proj)
+    dctx = build_triangle_context(N, dmesh, coords=(x, y), dtype=f32,
+                                  device=dev)
+    cub = build_cubature_context(N, dmesh, x, y, V, dtype=f32, device=dev)
+    gauss = build_gauss_face_context(N, dmesh, x, y, V, dtype=f32,
+                                     device=dev)
+    setup_s = time.perf_counter() - t0
+    dphys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4)
+    dforce = lambda t: 1.0 + 0.05 * np.cos(0.3 * t)
+    deta = 0.05 * torch.exp(-5.0 * ((dctx.x - 0.2) ** 2 + dctx.y ** 2))
+    dstate = SWStateTracer(1.0 + deta, 0.02 * deta, -0.01 * deta, deta)
+    dref = sw2d_curved_rhs(dctx, cub, gauss, dstate, 0.37, dphys,
+                           tidal_forcing=dforce)
+    crv = []
+    for S in HALO_CURVED_SHARDS:
+        gplan = TP.build_gauss_halo_plan(gauss, S)
+        got = TP.halo_sw2d_curved_rhs(
+            TP.shard_context(dctx, S), TP.shard_context(cub, S),
+            TP.shard_context(gauss, S),
+            SWStateTracer(*(f.reshape(S, -1, dctx.n_p) for f in dstate)),
+            0.37, dphys, TP.halo_tables(gplan, device=dev), gplan,
+            tidal_forcing=dforce)
+        crv.append({"n_shards": S, "ring_offsets": list(gplan.offs),
+                    "rel_err": rel(got, dref)})
+    ok = all(r["rel_err"] <= HALO_RHS_RTOL for r in crv)
+    say({"phase": "halo_curved", "ok": ok, "card": card,
+         "k_elem": dctx.k_elem, "n_order": N, "rows": crv,
+         "rtol": HALO_RHS_RTOL, "setup_s": setup_s})
+    if not ok:
+        raise RuntimeError("the curved halo RHS disagrees with "
+                           "sw2d_curved_rhs")
+
+    # ---- the sharded CG on the ghost-padded elliptic configuration ----
+    f64, S = torch.float64, 4
+    emesh = box_triangles(ELL_CELLS, ELL_CELLS)
+    sizes = TP.partition_block_sizes(emesh, S)
+    ectx = build_triangle_context(ELL_ORDER, TP.partition_mesh(emesh, S)[0],
+                                  dtype=f64, device=dev)
+    pctx, real = TP.pad_context(ectx, sizes)
+    eplan = TP.build_halo_plan(pctx, S)
+    etables, esc = TP.halo_tables(eplan, device=dev), TP.shard_context(pctx, S)
+    tau = float((ectx.n_order + 1) ** 2 * ectx.fscale.max())
+    uex = torch.sin(np.pi * ectx.x) * torch.sin(np.pi * ectx.y)
+    b = -apply_mass(ectx, -2.0 * np.pi ** 2 * uex)
+    bp = torch.zeros((pctx.k_elem, ectx.n_p), dtype=f64, device=dev)
+    ridx = torch.as_tensor(np.flatnonzero(real), device=dev)
+    bp[ridx] = b
+    bs = bp.reshape(S, -1, ectx.n_p)
+    solve1 = lambda: cg(lambda v: -poisson2d_op(
+        ectx, v.reshape(b.shape), tau=tau, symmetrize=True).reshape(-1),
+        b.reshape(-1), tol=HALO_CG_TOL, maxiter=4000)
+    solve4 = lambda: cg(lambda v: -TP.halo_poisson2d_op(
+        esc, v.reshape(bs.shape), tau, etables, eplan,
+        symmetrize=True).reshape(-1), bs.reshape(-1), tol=HALO_CG_TOL,
+        maxiter=4000)
+    timed = {}
+    for key, fn in (("unsharded", solve1), ("sharded", solve4)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed[key] = (fn(), None)
+        torch.cuda.synchronize()
+        timed[key] = (timed[key][0], time.perf_counter() - t0)
+    r1, s1_ = timed["unsharded"]
+    r4, s4_ = timed["sharded"]
+    x4 = r4.x.reshape(-1, ectx.n_p)[ridx]
+    x_err = float((x4.reshape(-1) - r1.x).abs().max())
+    u_err = float((x4 - uex).abs().max())
+    ok = (int(r1.flag) == int(r4.flag) == CONV_SUCCESS
+          and int(r1.iters) == int(r4.iters) and x_err <= HALO_CG_ATOL)
+    say({"phase": "halo_elliptic", "ok": ok, "card": card,
+         "k_elem": ectx.k_elem, "k_padded": pctx.k_elem, "n_shards": S,
+         "n_order": ELL_ORDER, "dtype": "float64", "tol": HALO_CG_TOL,
+         "iters_unsharded": int(r1.iters), "iters_sharded": int(r4.iters),
+         "x_vs_unsharded_max_abs": x_err, "atol": HALO_CG_ATOL,
+         "x_vs_exact_max_abs": u_err,
+         "ms_per_iter_unsharded": s1_ * 1e3 / max(int(r1.iters), 1),
+         "ms_per_iter_sharded": s4_ * 1e3 / max(int(r4.iters), 1)})
+    if not ok:
+        raise RuntimeError("the sharded CG disagrees with the unsharded CG")
+    return []
+
+
+def compat_phases(dev, card: str, rng, flush) -> list:
+    """The pyblitzdg-compatible API (``compat.py``): the reference's
+    advec1d numpy script through ``Nodes1DProvisioner`` and its poisson2d
+    pattern through ``MeshManager``, ``TriangleNodesProvisioner`` (its
+    context on the card) and ``Poisson2DSparseMatrix``, solved with scipy.
+    Returns no kernel record."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from blitzdg_tpu_torch import compat as dg
+    from blitzdg_tpu_torch.mesh import box_triangles
+
+    t0 = time.perf_counter()
+    p = dg.Nodes1DProvisioner(4, 30, -1.0, 4.0)
+    p.buildNodes()
+    p.computeJacobian()
+    on_card = p._ctx.x.device.type == "cuda"
+    x = p.xGrid
+    Dr, rx, Lift, Fscale, nx = p.Dr, p.rx, p.Lift, p.Fscale, p.nx
+    vmapM, vmapP, mapI, mapO = p.vmapM, p.vmapP, p.mapI, p.mapO
+    c = 0.1
+
+    def computeRHS(u):
+        uVec = u.flatten("F")
+        nxVec = nx.flatten("F")
+        uM = uVec[vmapM]
+        uP = uVec[vmapP].copy()
+        uP[mapO] = uM[mapO]
+        uP[mapI] = 0.0
+        du = (uM - uP) * 0.5 * (c * nxVec - np.abs(c * nxVec))
+        duMat = np.reshape(du, (2, 30), order="F")
+        return -c * rx * (Dr @ u) + Lift @ (Fscale * duMat)
+
+    u = np.exp(-10.0 * x ** 2)
+    dt = 0.8 * (x[1, 0] - x[0, 0]) / c
+    res = np.zeros_like(u)
+    steps = int(np.ceil(20.0 / dt))
+    for _ in range(steps):
+        for i in range(5):
+            res = dg.LSERK4.rk4a[i] * res + dt * computeRHS(u)
+            u = u + dg.LSERK4.rk4b[i] * res
+    adv_err = float(np.max(np.abs(u - np.exp(-10.0 * (x - c * steps * dt)
+                                             ** 2))))
+    adv_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mesh = box_triangles(12, 12)
+    mm = dg.MeshManager()
+    mm.buildMesh(mesh.etov, np.concatenate([mesh.verts,
+                                            0 * mesh.verts[:, :1]], 1))
+    tri = dg.TriangleNodesProvisioner(2, mm)
+    view = tri.dgContext()
+    on_card = on_card and tri._ctx.x.device.type == "cuda"
+    poisson = dg.Poisson2DSparseMatrix(view, mm)
+    OP, MM = poisson.getOP(), poisson.getMM()
+    n = view.numLocalPoints * view.numElements
+    A = sp.csc_matrix((OP[:, 2], (OP[:, 0].astype(int),
+                                  OP[:, 1].astype(int))), shape=(n, n))
+    M = sp.csr_matrix((MM[:, 2], (MM[:, 0].astype(int),
+                                  MM[:, 1].astype(int))), shape=(n, n))
+    # the port's element-major (K, Np) numbering: the view's (Np, K) fields
+    # transposed
+    xs, ys = view.x.T.reshape(-1), view.y.T.reshape(-1)
+    uex = np.sin(np.pi * xs) * np.sin(np.pi * ys)
+    sol = spla.spsolve(A, M @ (2.0 * np.pi ** 2 * uex))
+    poi_err = float(np.max(np.abs(sol - uex)))
+    poi_s = time.perf_counter() - t0
+    ok = (on_card and adv_err < ADV_ERR_BOUND and poi_err < CMP_POISSON_ERR)
+    say({"phase": "compat", "ok": ok, "card": card,
+         "contexts_on_card": on_card,
+         "advec1d": {"steps": steps, "max_err": adv_err,
+                     "bound": ADV_ERR_BOUND, "seconds": adv_s},
+         "poisson2d": {"k_elem": view.numElements, "n_order": 2,
+                       "nnz": int(OP.shape[0]), "max_err": poi_err,
+                       "bound": CMP_POISSON_ERR, "seconds": poi_s}})
+    if not ok:
+        raise RuntimeError("the pyblitzdg-compatible scripts failed")
+    return []
+
+
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame and spill bytes of each kernel in one source's
     ``ptxas -v`` output, by mangled name."""
@@ -3081,8 +3663,11 @@ BLOCKED_ADJOINT_KERNELS = ["_Z31sw2d_blocked_rollout_bwd_kernel" + z
                            for z in Q_SIZES]
 BLOCKED_FORWARD_KERNELS = ["_Z27sw2d_blocked_rollout_kernel" + z
                            for z in Q_SIZES + (Q_SIZES_N6,)]
-# Quadrilaterals run the blocked rollout's run-time-size instantiation.
-QUAD_FORWARD_KERNELS = ["_Z27sw2d_blocked_rollout_kernel" + Q_SIZES[2]]
+# Quadrilaterals run every q kernel's run-time-size instantiation.
+QUAD_KERNELS = [k + Q_SIZES[2] for k in (
+    "_Z27sw2d_blocked_rollout_kernel", "_Z31sw2d_blocked_rollout_bwd_kernel",
+    "_Z17sw2d_stage_kernel", "_Z21sw2d_stage_bwd_kernel",
+    "_Z21sw2d_step_rdma_kernel")]
 
 
 def check_no_spills(report: dict, kernels: list):
@@ -3101,7 +3686,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("dense", "blocked", "curved",
                                        "sharded", "elliptic", "solver",
-                                       "quads", "ins2d", "dg1d"),
+                                       "quads", "ins2d", "dg1d", "halo",
+                                       "compat"),
                     help="run one path's phases alone (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3161,6 +3747,10 @@ def main() -> int:
         kernels += ins2d_phases(dev, card, rng, flush)
     if args.only in (None, "dg1d"):
         kernels += dg1d_phases(dev, card, rng, flush)
+    if args.only in (None, "halo"):
+        kernels += halo_phases(dev, card, rng, flush)
+    if args.only in (None, "compat"):
+        kernels += compat_phases(dev, card, rng, flush)
 
     say({"phase": "total", "seconds": time.perf_counter() - t_start})
     if args.only in (None, "curved"):
@@ -3173,7 +3763,7 @@ def main() -> int:
     if args.only in (None, "sharded"):
         check_no_spills(blocked, SHARDED_KERNELS)
     if args.only in (None, "quads"):
-        check_no_spills(blocked, QUAD_FORWARD_KERNELS)
+        check_no_spills(blocked, QUAD_KERNELS)
     say({"kernels": kernels})
     print(card, flush=True)
     say({"ok": True, "device": {"platform": "gpu",

@@ -378,9 +378,9 @@ class Case:
     scenarios and a control vector."""
 
     def __init__(self, n_order, n_shards, batch, n_ctrl=2, wetdry=False,
-                 seed=0, cells=(8, 8), spread_injectors=False):
+                 seed=0, cells=(8, 8), spread_injectors=False, quads=False):
         rng = np.random.default_rng(seed)
-        ctx = _context(n_order, wetdry, n_shards, cells)
+        ctx = _context(n_order, wetdry, n_shards, cells, quads)
         phys, kw, H, self.dt, self.t = _physics(ctx, wetdry, n_ctrl, rng,
                                                 spread_injectors)
         self.sets = {dt: BS.build_sharded_blocked(ctx, phys, n_shards,
@@ -392,10 +392,12 @@ class Case:
         # without injectors a set carries one zero injector
         assert m.n_ctrl == (n_ctrl if n_ctrl and not wetdry else 1)
         if n_shards > 1:
+            # ring offsets; on triangles flipped cut faces too (the box's
+            # quadrilaterals have none)
             plan = sb.plan
-            assert len(plan.offs) >= 2 and bool(
+            assert len(plan.offs) >= 2 and (quads or bool(
                 (plan.pflip.astype(bool)
-                 & (plan.psrc >= plan.psrc.shape[1])).any())
+                 & (plan.psrc >= plan.psrc.shape[1])).any()))
         self.state = tuple(BS.split_shards(torch.as_tensor(f, dtype=F32),
                                            n_shards)
                            for f in _scenarios(ctx, H, batch, wetdry, rng))
@@ -780,8 +782,10 @@ class RolloutCase(ForwardCase):
     ``n_cs`` steps, the plain float32 rollout's trajectory from t0 = 1 and
     random cotangents of it."""
 
-    def __init__(self, n_order, batch, n_cs=2, spc=2, seed=0):
-        super().__init__(n_order, batch, n_cs=n_cs, spc=spc, seed=seed)
+    def __init__(self, n_order, batch, n_cs=2, spc=2, seed=0, quads=False,
+                 cells=(8, 8)):
+        super().__init__(n_order, batch, n_cs=n_cs, spc=spc, seed=seed,
+                         quads=quads, cells=cells)
         ops, m = self.sets[F32]
         assert m.wb and m.has_sponge and m.tidal is not None and m.n_ctrl == 2
         self.traj = TB.sw2d_rollout_blocked_plain(
@@ -955,27 +959,131 @@ def test_rollout_kernel_on_quads_matches_plain(device, name):
         "one_pass" in name)
 
 
-def test_quads_refused_by_the_other_kernels_and_above_order_four(device):
-    """A quadrilateral set: B6 (the rollout's adjoint), B7 (the sharded
-    stage), B8 (its adjoint) and B9 (the one-launch step) raise in the
-    launcher's guard, each naming itself; so does B5 at N=5 (Np 36, past
-    the run-time sizes' room). The C dispatch refuses them too."""
+def test_quads_refused_above_order_four(device):
+    """A quadrilateral set at N=5 (Np 36, past the run-time sizes' room):
+    every q kernel raises in the launcher's guard, naming itself, and the C
+    dispatch refuses it too."""
     lib = TB._lib()
-    ops, m = ForwardCase(2, 1, quads=True, cells=(2, 2)).sets[F32]
-    desc = TB._desc(m, blocked=True)
-    for which, name in ((TB._ROLLOUT_BWD, "B6"), (TB._STAGE, "B7"),
-                        (TB._STAGE_BWD, "B8"), (TB._RDMA, "B9")):
-        with pytest.raises(ValueError, match=name):
-            TB._shard_plan(lib, desc, ops, 1, which)
+    o5, m5 = ForwardCase(5, 1, quads=True, cells=(2, 2)).sets[F32]
+    desc = TB._desc(m5, blocked=True)
+    for which, name in ((TB._ROLLOUT, "B5"), (TB._ROLLOUT_BWD, "B6"),
+                        (TB._STAGE, "B7"), (TB._STAGE_BWD, "B8"),
+                        (TB._RDMA, "B9")):
+        with pytest.raises(ValueError, match=f"{name}.*N <= 4"):
+            TB._shard_plan(lib, desc, o5, 1, which)
         plan = (ctypes.c_int * 4)()
         assert lib.sw2d_shard_plan(ctypes.byref(desc), 1, 1, which,
-                                   ops.fbuf.shape[0], ops.ibuf.shape[0],
+                                   o5.fbuf.shape[0], o5.ibuf.shape[0],
                                    plan) != 0
-    assert TB._shard_plan(lib, desc, ops, 1, TB._ROLLOUT)[3] == 1
-    o5, m5 = ForwardCase(5, 1, quads=True, cells=(2, 2)).sets[F32]
     with pytest.raises(ValueError, match="N <= 4"):
         TB.rollout_plan(o5, m5, 1)
-    plan = (ctypes.c_int * 4)()
-    assert lib.sw2d_shard_plan(ctypes.byref(TB._desc(m5, blocked=True)), 1,
-                               1, TB._ROLLOUT, o5.fbuf.shape[0],
-                               o5.ibuf.shape[0], plan) != 0
+
+
+# ---------------------------------------------------------------------------
+# B6, B7, B8 and B9 on quadrilaterals: the run-time-size instance, four
+# faces, one lane an element
+# ---------------------------------------------------------------------------
+
+# (N, shards, batch, shim device (SMs, blocks an SM)) on box_quads(8, 8)
+# partitioned, coastal physics and two controls: N=2 (Nfp 3) and N=4 (Np
+# 25, Nfp 5: the room of the run-time sizes); S=4 (ring offsets, cut faces)
+# and S=1; B=3 with a ragged last block (3 x 64 items in blocks of 32, on
+# 2 SMs the step's blocks loop) or one pass
+QUAD_SHARD_CASES = {
+    "quads_N2_S4_B3": (2, 4, 3, (2, 1)),
+    "quads_N4_S4_B3": (4, 4, 3, (2, 1)),
+    "quads_N4_S1_B3_one_pass": (4, 1, 3, (8, 1)),
+}
+
+
+@pytest.mark.parametrize("name", list(QUAD_SHARD_CASES))
+def test_stage_and_step_kernels_on_quads_match_plain(device, name):
+    """B7 (both stages of a step, the second with the sponge) and B9 on a
+    partitioned quadrilateral set against their plain versions in float64;
+    the same bits on a rerun; B9 bit-equal to two B7 launches with the ring
+    exchange between; one lane an element in both plans."""
+    n, S, B, dev = QUAD_SHARD_CASES[name]
+    device(*dev)
+    c = Case(n, S, B, seed=20 + n + S, quads=True)
+    sb = c.sets[F32]
+    assert sb.meta.n_faces == 4 and sb.meta.n_fp == n + 1
+    if S > 1:
+        assert len(sb.plan.offs) >= 2
+    st, dt, t = c.state, c.dt, c.t
+    *s1, sb1 = c.stage(st, st, c.rb, 0.5 * dt, t, False)
+    ref1 = c.ref(TB.sw2d_stage_blocked_plain, st, st, c.rb, 0.5 * dt, t,
+                 c.ctrl, True, False)
+    assert _max_abs((*s1, sb1), ref1) <= FWD_ATOL
+    cur, rb2 = tuple(s1), c.ex[F32](sb1)
+    two = c.stage(st, cur, rb2, dt, t + 0.5 * dt, True)
+    ref2 = c.ref(TB.sw2d_stage_blocked_plain, st, cur, rb2, dt, t + 0.5 * dt,
+                 c.ctrl, True, True)
+    assert all(torch.isfinite(f).all() for f in two)
+    assert _max_abs(two, ref2) <= FWD_ATOL
+    assert _same(two, c.stage(st, cur, rb2, dt, t + 0.5 * dt, True))
+    launch = TB.RdmaLaunch(sb.ops, sb.meta, c.ex[F32])
+    got = launch._launch(st, c.rb, dt, t, c.ctrl, True)
+    ref = c.ref(TB.sw2d_step_rdma_blocked_plain, st, c.rb, dt, c.ex[F64], t,
+                c.ctrl)
+    assert _max_abs(got, ref) <= FWD_ATOL
+    assert _same(got, launch._launch(st, c.rb, dt, t, c.ctrl, True))
+    assert _same(got, two)
+    for step in (False, True):
+        assert TB.shard_plan(sb.ops, sb.meta, B,
+                             step=step)["lanes_per_element"] == 1
+
+
+@pytest.mark.parametrize("name", list(QUAD_SHARD_CASES))
+def test_stage_bwd_kernel_on_quads_matches_plain(device, name):
+    """B8 on stage 2's inputs of a partitioned quadrilateral set, with the
+    sponge and the control cotangent, under random cotangents of the output
+    and the send buffer, against the plain version in float64; the same
+    bits on a rerun; one lane an element, an ordinary launch over every
+    item."""
+    n, S, B, dev = QUAD_SHARD_CASES[name]
+    device(*dev)
+    c = Case(n, S, B, seed=30 + n + S, quads=True)
+    sb = c.sets[F32]
+    m = sb.meta
+    *s1, sb1 = c.stage(c.state, c.state, c.rb, 0.5 * c.dt, c.t, False)
+    cur, rb2 = tuple(s1), c.ex[F32](sb1)
+    rng = np.random.default_rng(8)
+    g = lambda *shape: torch.as_tensor(rng.standard_normal(shape), dtype=F32)
+    lam = tuple(g(S, B, m.n_v) for _ in range(3))
+    lsb = g(S, B, sb.ops.send.shape[1], 3)
+    args = (cur, rb2, lam, lsb, c.dt, c.t + 0.5 * c.dt, c.ctrl, True, True)
+    got = TB._run_stage_bwd(sb.ops, m, *args)
+    _check_adjoint(got, c.ref(TB.sw2d_stage_bwd_blocked_v2_plain, *args))
+    assert _same(got, TB._run_stage_bwd(sb.ops, m, *args))
+    plan = TB.shard_plan(sb.ops, m, B, adjoint=True)
+    assert plan["lanes_per_element"] == 1
+    assert plan["grid"] == -(-S * B * m.k_elem // plan["threads"])
+
+
+# (N, scenarios, shim device, cells) of B6 on box_quads
+QUAD_ROLLOUT_BWD_CASES = {
+    "quads_N2_B3_blocks_loop": (2, 3, (1, 1), (8, 8)),
+    "quads_N4_B3_one_pass": (4, 3, (8, 1), (6, 6)),
+}
+
+
+@pytest.mark.parametrize("name", list(QUAD_ROLLOUT_BWD_CASES))
+def test_rollout_bwd_kernel_on_quads_matches_plain(device, name):
+    """B6 over 2 control steps x 2 steps of the coastal quadrilateral box
+    with the sponge, the tidal boundary and two controls: the initial-state
+    and control cotangents against the plain version in float64; the same
+    bits on a rerun; one lane an element, what is co-resident."""
+    n, B, dev, cells = QUAD_ROLLOUT_BWD_CASES[name]
+    device(*dev)
+    c = RolloutCase(n, B, seed=40 + n + B, quads=True, cells=cells)
+    ops, m = c.sets[F32]
+    assert m.n_faces == 4
+    got = c.kernel()
+    _check_adjoint(got, c.ref())
+    assert _same(got, c.kernel())
+    plan = TB.rollout_bwd_plan(ops, m, B)
+    assert plan["lanes_per_element"] == 1
+    assert plan["grid"] == min(dev[0] * dev[1],
+                               -(-B * m.k_elem // plan["threads"]))
+    assert (plan["grid"] * plan["threads"] >= B * m.k_elem) == (
+        "one_pass" in name)

@@ -50,7 +50,9 @@ def test_package_has_the_slice_modules():
             "ops.sem", "specgrid.nodes1d",
             # quadrilaterals, ins2d, the 1D solvers, the host modules
             "specgrid.quad", "ops.ins2d", "ops.advec1d", "ops.burgers1d",
-            "config", "io", "io.csv", "io.vtk", "io.checkpoint", "native"}
+            "config", "io", "io.csv", "io.vtk", "io.checkpoint", "native",
+            # the element-sharded plain-tensor path, the pyblitzdg API
+            "parallel.sharding", "compat"}
     have = {m.removeprefix("blitzdg_tpu_torch.") for m in port_modules()}
     assert want <= have
     for name in ("sw2d_dense.cu", "sw2d_blocked.cu", "sw2d_curved.cu",

@@ -13,7 +13,10 @@ against the JAX kernel in interpret mode and against the plain SSP-RK2 step
 at 1e-12, and the rollout over 3 steps with controls, on coastal physics and
 on a wet/dry beach, against the JAX kernel at 1e-12. The forward takes a
 face's maximum, which has no tie rule, so nothing there depends on how a
-tie splits. Also the repair of ``retag_east_open`` (it walked three faces)
+tie splits. The adjoint (B6's plain version) against ``jax.grad`` through
+the JAX kernels, and the fused sharded step (B7's plain version, twice a
+step) on a partitioned quad mesh against the JAX step under ``shard_map``,
+1e-12. Also the repair of ``retag_east_open`` (it walked three faces)
 and the assembled SIP operator on quads (the counterpart of
 ``tests/test_poisson.py::TestAssembledQuads``).
 """
@@ -329,12 +332,11 @@ def test_blocked_step_quads_matches_jax_and_plain_step():
                                    rtol=0, atol=1e-12)
 
 
-def test_blocked_rollout_quads_coastal_controls_matches_jax():
-    """B5's plain version on quads over 3 steps, a control row each, with
-    coastal physics (bathymetry with the well-balanced star fluxes, drag,
-    Coriolis, tidal depth on the open east side, sponge) from t0 = 1: every
-    trajectory row and the final state against the JAX kernel, 1e-12; the
-    step launched for each step in turn gives the rows."""
+def _coastal_quad_pair():
+    """Coastal physics on ``box_quads(4, 3)`` over the unit square at N=2
+    (bathymetry with the well-balanced star fluxes, drag, Coriolis, tidal
+    depth on the open east side, sponge, two injectors): the pair, two
+    perturbed scenarios, controls of 3 steps, dt and t0 = 1."""
     from blitzdg_tpu.utils import build_sponge_coefficient as j_sponge
 
     jm = j_box_quads(4, 3, xlim=(0.0, 1.0), ylim=(0.0, 1.0))
@@ -358,7 +360,16 @@ def test_blocked_rollout_quads_coastal_controls_matches_jax():
                    + 0.02 * b for b in range(2)])
     s = (hs, 0.1 * hs, -0.05 * hs)
     ctrls = np.random.default_rng(5).normal(0.0, 0.3, (2, 3, 2))
-    dt, t0 = 2e-3, 1.0
+    return p, s, ctrls, 2e-3, 1.0
+
+
+def test_blocked_rollout_quads_coastal_controls_matches_jax():
+    """B5's plain version on quads over 3 steps, a control row each, with
+    coastal physics (bathymetry with the well-balanced star fluxes, drag,
+    Coriolis, tidal depth on the open east side, sponge) from t0 = 1: every
+    trajectory row and the final state against the JAX kernel, 1e-12; the
+    step launched for each step in turn gives the rows."""
+    p, s, ctrls, dt, t0 = _coastal_quad_pair()
     want = JB.sw2d_rollout_blocked(p.jops, p.jmeta, *map(p.pack, s),
                                    jnp.asarray(ctrls), dt, spc=1, t0=t0,
                                    store_traj=True, interpret=True)
@@ -374,6 +385,122 @@ def test_blocked_rollout_quads_coastal_controls_matches_jax():
                                   t0 + t * dt)
         for a, b in zip(st, got[:3]):
             assert torch.equal(a, b[:, t + 1])
+
+
+def test_blocked_rollout_grad_quads_matches_jax_grad():
+    """B6's plain version on quads: the gradient of a random linear
+    functional of the trajectory through the port's ``make_rollout_blocked``
+    (its backward the plain reverse sweep) against ``jax.grad`` through the
+    JAX package's, whose backward is the JAX kernel in interpret mode, on
+    the coastal quad set over 3 steps with controls from t0 = 1; the
+    cotangents of the initial state and of the controls, 1e-12 of each
+    one's largest entry. The states carry node-wise noise, so no face's
+    maximum is tied and the packages' tie rules (C6) do not enter."""
+    p, s, ctrls, dt, t0 = _coastal_quad_pair()
+    rng = np.random.default_rng(9)
+    s = tuple(f + 1e-3 * rng.standard_normal(f.shape) for f in s)
+    w = [rng.standard_normal((2, 4) + s[0].shape[1:]) for _ in range(3)]
+    jroll = JB.make_rollout_blocked(p.jops, p.jmeta, dt, 1, t0=t0,
+                                    interpret=True)
+
+    def jloss(h, hu, hv, c):
+        traj = jroll(h, hu, hv, c)
+        return sum(jnp.sum(JB.unpack_state(p.jmeta, t) * wi)
+                   for t, wi in zip(traj, w))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(*map(p.pack, s),
+                                                 jnp.asarray(ctrls))
+    xs = [p.flat(f).requires_grad_() for f in s]
+    c = torch.as_tensor(ctrls).requires_grad_()
+    traj = TB.make_rollout_blocked(p.ops, p.meta, dt, 1, t0=t0)(*xs, c)
+    loss = sum((t * torch.as_tensor(wi).reshape(t.shape)).sum()
+               for t, wi in zip(traj, w))
+    loss.backward()
+    for x, g in zip(xs, want[:3]):
+        ref = np.asarray(JB.unpack_state(p.jmeta, g))
+        np.testing.assert_allclose(x.grad.numpy().reshape(ref.shape), ref,
+                                   rtol=0, atol=1e-12 * np.abs(ref).max())
+    ref = np.asarray(want[3])
+    np.testing.assert_allclose(c.grad.numpy(), ref, rtol=0,
+                               atol=1e-12 * np.abs(ref).max())
+
+
+def test_sharded_fused_step_quads_matches_jax():
+    """The port's fused sharded step (its stages' plain versions, the
+    stacked ring exchange) on ``partition_mesh(box_quads(8, 8), 4)`` at N=2
+    with two injectors and a control vector a step, 2 steps: the states and
+    the send buffer against the JAX package's
+    ``make_sharded_blocked_step_fused`` in interpret mode under
+    ``shard_map`` over 4 of the 8 virtual devices, 1e-12."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from blitzdg_tpu.parallel import partition_mesh as j_partition_mesh
+    from blitzdg_tpu.parallel.blocked_shard import (
+        build_sharded_blocked as j_build_sharded, initial_send_buffer as j_isb,
+        make_sharded_blocked_step_fused as j_fused, pack_local)
+    from blitzdg_tpu_torch.parallel import blocked_shard as BS
+
+    S, B, n_steps, dt = 4, 2, 2, 5e-4
+    jm, _, _ = j_partition_mesh(j_box_quads(8, 8), S)
+    jc = JQ.build_quad_context(2, jm, filter_cutoff=1.8, filter_order=4)
+    x, y = np.asarray(jc.x), np.asarray(jc.y)
+    bump = np.exp(-8.0 * (x ** 2 + y ** 2))
+    bu, bv = np.stack([bump, 0 * bump]), np.stack([0 * bump, bump])
+    rng = np.random.default_rng(12)
+    cs = 0.3 * rng.standard_normal((n_steps, 2))
+    h0 = 10.0 + np.exp(-8.0 * (x ** 2 + y ** 2))
+    state = (np.stack([h0, h0 + 0.01 * (h0 - h0.mean())]),
+             np.stack([0.05 * (h0 - h0.min()), 0.02 * (h0 - h0.min())]),
+             np.stack([np.zeros_like(h0), 0.01 * (h0 - h0.min())]))
+
+    jsb = j_build_sharded(jc, jsw.SWPhysics(g=9.81), S, dtype=jnp.float64,
+                          forcing_bu=bu, forcing_bv=bv)
+    meta, k_loc = jsb.meta, jsb.k_loc
+    step = j_fused(jsb, dt, interpret=True)
+    packed = tuple(jnp.concatenate([
+        jnp.concatenate([pack_local(meta, f[b][s * k_loc:(s + 1) * k_loc])
+                         for b in range(B)], axis=0)
+        for s in range(S)], axis=0) for f in state)
+    op_specs = jax.tree.map(lambda a: P("element", *([None] * (a.ndim - 1))),
+                            jsb.ops)
+    st, bs = P("element", None, None, None), P("element", None, None)
+
+    def roll(ops_l, cs_l, *pk):
+        def body(carry, c):
+            st_, tt = carry
+            return (step(ops_l, st_, tt, ctrl=c), tt + dt), None
+
+        ((out, sbuf), _), _ = jax.lax.scan(
+            body, ((tuple(pk), j_isb(jsb, ops_l, tuple(pk))), 0.0), cs_l)
+        return (*out, sbuf)
+
+    fn = jax.jit(jax.shard_map(
+        roll, mesh=Mesh(np.array(jax.devices()[:S]), ("element",)),
+        in_specs=(op_specs, P()) + (st,) * 3, out_specs=(st,) * 3 + (bs,),
+        check_vma=False))
+    out = fn(jsb.ops, jnp.asarray(cs), *packed)
+
+    def unpack(a):
+        a = np.asarray(a).transpose(0, 1, 3, 2).reshape(-1, meta.Kp, meta.NP)
+        return a[:, :k_loc, :meta.n_p].reshape(S, B, -1)
+
+    arrays, static = jax_arrays(jc)
+    sb = convert.sharded_blocked_from_numpy(
+        arrays, static, dict(g=9.81), S, forcing_bu=bu, forcing_bv=bv,
+        device="cpu", dtype=F64)
+    assert sb.meta.n_faces == 4 and len(sb.plan.offs) >= 2
+    sts = tuple(BS.split_shards(torch.as_tensor(f), S) for f in state)
+    carry = (sts, BS.initial_send_buffer(sb, sts))
+    fstep = BS.make_sharded_blocked_step_fused(sb, dt)
+    for i in range(n_steps):
+        carry = fstep(carry, i * dt, torch.as_tensor(cs[i]))
+    for g, want in zip(carry[0], out[:3]):
+        np.testing.assert_allclose(g.numpy(), unpack(want), rtol=0,
+                                   atol=1e-12)
+    L = carry[1].shape[2]
+    np.testing.assert_allclose(carry[1].numpy(),
+                               np.asarray(out[3]).reshape(S, B, L, 3),
+                               rtol=0, atol=1e-12)
 
 
 def test_blocked_rollout_quads_wetdry_matches_jax():
