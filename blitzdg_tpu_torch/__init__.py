@@ -24,7 +24,8 @@ over the stage kernels ``ops.sw2d_stage_blocked`` /
 ``ops.sw2d_stage_bwd_blocked_v2``, ``mpc.solve_sharded_mpc``, and the
 one-launch step ``make_sharded_blocked_step_rdma`` over
 ``ops.sw2d_step_rdma_blocked`` (both stages and the halo between them in
-one kernel).
+one kernel; across ranks over a ``parallel.PeerRing``, which maps each
+rank's device memory into its ring peers).
 
 The blocked forward kernels also take quadrilateral elements
 (``specgrid.quad.build_quad_context`` on ``mesh.box_quads``), up to N=4.

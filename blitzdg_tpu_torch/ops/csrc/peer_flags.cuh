@@ -1,0 +1,82 @@
+// Flags between ranks that store into each other's device memory: the
+// ring's table and region layout, acquire waits and release stores at
+// system scope. Shared by peer.cu (the step-boundary exchange) and the
+// one-launch step's peer mode (sw2d_blocked.cu); parallel/peer.py writes
+// the regions and the table.
+//
+// Every flag is a 64-bit epoch that only grows, so nothing is ever reset.
+// A flag lives in the memory of the rank that waits on it; the other rank
+// stores into it through its mapping of that memory (CUDA IPC on one card,
+// or over NVLink on a node with several). Each wait backs off with
+// __nanosleep and is bounded by %globaltimer: past the table's bound it
+// traps, so a lost peer is an error and never a hang.
+//
+// A region (one cudaMalloc of each rank, zeroed), byte offsets from the
+// table:
+//   0              the stage-2 receive slots, (B, L, 3) floats
+//   [PT_RBB]       the step-boundary receive slots, (B, L, 3) floats
+//   [PT_FLAGS]     the epoch (the last step launched here), then four words
+//                  a ring offset i: GO2, IN2, GOB, INB (below)
+// For ring offset i (offset d), rank r sends its chunk i to rank r + d and
+// receives chunk i from rank r - d (mod S):
+//   GO2[i]  r + d's stage-2 slots of chunk i are free (written by r + d)
+//   IN2[i]  r - d's stage-1 halo has arrived in r's stage-2 slots
+//   GOB[i]  r + d's step-boundary slots of chunk i are free
+//   INB[i]  r - d's step-boundary chunk has arrived in r's slots
+// The table (64-bit words in device memory): this rank's region, the two
+// offsets, the wait bound in ns, the number of ring offsets, the slots of
+// one offset, two unused words; then, a ring offset each, the region of the
+// rank it sends to, then the region of the rank that sends to this one.
+
+#pragma once
+
+#include <cuda/atomic>
+
+typedef unsigned long long flag_t;
+
+enum { PT_OWN = 0, PT_RBB = 1, PT_FLAGS = 2, PT_TIMEOUT = 3, PT_NOFF = 4,
+       PT_CHUNK = 5, PT_HEAD = 8 };
+enum { PEER_GO2 = 0, PEER_IN2 = 1, PEER_GOB = 2, PEER_INB = 3 };
+
+__device__ __forceinline__ long long peer_to(const long long* tab, int i) {
+  return tab[PT_HEAD + i];
+}
+
+__device__ __forceinline__ long long peer_from(const long long* tab, int i) {
+  return tab[PT_HEAD + tab[PT_NOFF] + i];
+}
+
+// Flag k of ring offset i in the region at `region`.
+__device__ __forceinline__ flag_t* peer_flag(const long long* tab,
+                                             long long region, int i, int k) {
+  return reinterpret_cast<flag_t*>(region + tab[PT_FLAGS]) + 1 + 4 * i + k;
+}
+
+__device__ __forceinline__ flag_t* peer_epoch(const long long* tab) {
+  return reinterpret_cast<flag_t*>(tab[PT_OWN] + tab[PT_FLAGS]);
+}
+
+__device__ __forceinline__ unsigned long long peer_clock_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void flag_release(flag_t* f, flag_t v) {
+  cuda::atomic_ref<flag_t, cuda::thread_scope_system>(*f).store(
+      v, cuda::std::memory_order_release);
+}
+
+// Waits until *f >= v (acquire); traps after timeout_ns.
+static __device__ __noinline__ void flag_wait(flag_t* f, flag_t v,
+                                              long long timeout_ns) {
+  cuda::atomic_ref<flag_t, cuda::thread_scope_system> r(*f);
+  if (r.load(cuda::std::memory_order_acquire) >= v) return;
+  const unsigned long long t0 = peer_clock_ns();
+  unsigned ns = 64;
+  while (r.load(cuda::std::memory_order_acquire) < v) {
+    if ((long long)(peer_clock_ns() - t0) > timeout_ns) __trap();
+    __nanosleep(ns);
+    if (ns < 8192) ns *= 2;
+  }
+}

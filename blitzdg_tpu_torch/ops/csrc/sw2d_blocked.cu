@@ -9,6 +9,8 @@
 //   sw2d_step_rdma_kernel            one whole SSP-RK2 step of an
 //                                    element-sharded set, the inter-stage
 //                                    halo exchanged inside the launch
+//   sw2d_step_rdma_peer_kernel       the same step for one shard a rank,
+//                                    the halo stored into the peers' memory
 //
 // The first two replace the Pallas TPU kernels _step_kernel,
 // _rollout_kernel and _rollout_bwd_kernel of blitzdg_tpu/ops/sw2d_blocked.py
@@ -39,6 +41,7 @@
 // to the stream that is passed in; nothing here synchronises or allocates.
 
 #include "sw2d_common.cuh"
+#include "peer_flags.cuh"
 
 #include <cooperative_groups.h>
 
@@ -61,14 +64,23 @@ __device__ __forceinline__ W3 atw(float* a, float* b, float* c, size_t off) {
 // Where a shard's send slots are stored. Slot j goes to buf + 3 j (the
 // shard's own (n_send, 3) send buffer of one scenario) or, with a shard
 // table, to buf + shard[j] * stride + 3 j: slot j of the receive buffer of
-// the shard that receives it (the in-kernel exchange of the one-launch step).
+// the shard that receives it (the in-kernel exchange of the one-launch
+// step); with a peer table (the step's peer mode, one shard a rank), to
+// peer[j / chunk] + off + 3 j: slot j of the stage-2 receive slots of the
+// rank that ring offset j / chunk sends to, in its memory.
 struct SendTo {
   float* buf;              // null: no send slots are written
   const long long* shard;  // (n_send,) receiving shard of each slot, or null
   size_t stride;           // floats from one shard's buffer to the next
+  const long long* peer;   // (n_off,) receiving ranks' regions, or null
+  int chunk;               // slots of one ring offset (peer mode)
+  size_t off;              // floats to the scenario's slots (peer mode)
 };
 
 __device__ __forceinline__ float* send_slot(const SendTo& to, int j) {
+  if (to.peer != nullptr)
+    return reinterpret_cast<float*>(__ldg(to.peer + j / to.chunk)) + to.off +
+           3 * j;
   float* p = to.buf + 3 * j;
   return to.shard == nullptr ? p : p + __ldg(to.shard + j) * to.stride;
 }
@@ -113,7 +125,9 @@ __global__ void sw2d_blocked_barrier_probe_kernel(int n) {
 //      table). That is the remote copy of the TPU kernel, and how a store
 //      into a peer card's memory would go;
 //   2. the grid barrier stands for the READY handshake and for stage 2's
-//      reads of s1 at neighbours that other blocks wrote;
+//      reads of s1 at neighbours that other blocks wrote (in the peer mode,
+//      one shard a rank, the handshakes are flags in the ranks' memory:
+//      rdma_step below);
 //   3. stage 2 (c_dt = dt, stage time t + dt/2, the sponge) from s1, base
 //      the step-start state, rb2; the output and its own send buffer for
 //      the step-boundary exchange outside.
@@ -188,6 +202,8 @@ struct RdmaArgs {
   float *oh, *ohu, *ohv;        // (S, B, nV) out
   float* sb;                    // (S, B, n_send, 3) out: send buffer
   float dt, t1, t2;             // step, the two stage times
+  const long long* peer;        // peer mode: the ring's table
+                                // (peer_flags.cuh), S = 1
 };
 
 #define QMAX_THREADS 256
@@ -661,20 +677,58 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
   }
 }
 
-template <class Z>
-__global__ void __launch_bounds__(QMAX_THREADS, 2)
-    sw2d_step_rdma_kernel(SwDesc d, RdmaArgs a) {
+// The one-launch step, in its two modes: stacked (every shard in the
+// launch, the grid barrier for READY) and, with PEER, one shard a rank
+// (a.peer: the ring's table), the halo stored into the peers' memory and
+// the handshakes through their flags (peer_flags.cuh), in this order for
+// the launch of epoch e:
+//   1. block 0 releases GO2 = e to the rank that sends to this one at each
+//      ring offset: this rank's stage-2 slots are free (the launch of epoch
+//      e - 1 has ended, its reads done); every block waits for INB >= e of
+//      each offset (the peers' step-boundary exchange, which stream order
+//      does not cover, has written rb) and for GO2 >= e (the receiving
+//      ranks' stage-2 slots are free for the stores, q_zero_empty's zeros
+//      among them);
+//   2. stage 1 and its stores into the peers' stage-2 slots, then a system
+//      fence in every thread;
+//   3. the grid barrier: stage 1's reads of rb are done, so block 0 bumps
+//      the epoch and releases GOB = e + 1 to the sending ranks (their next
+//      exchange may overwrite rb); thread i of block 0 fences and releases
+//      IN2 = e at the rank that ring offset i sends to;
+//   4. every block waits for its own IN2 >= e of each offset, then stage 2.
+// The epoch lives in device memory (the region's first flag word), read
+// and bumped by the launch, not passed in, so that a captured launch
+// replays. Both modes run the same stage code, so the bits are those of
+// two B7 launches.
+template <class Z, bool PEER>
+__device__ __forceinline__ void rdma_step(const SwDesc& d,
+                                          const RdmaArgs& a) {
   cg::grid_group grid = cg::this_grid();
   const Ops g = make_ops(d, a.fops, a.iops);
+  const long long* tab = a.peer;
+  const int n_off = PEER ? (int)tab[PT_NOFF] : 0;
+  const flag_t e = PEER ? *peer_epoch(tab) + 1 : 0;
+  if (PEER && threadIdx.x == 0) {
+    if (blockIdx.x == 0)
+      for (int i = 0; i < n_off; ++i)
+        flag_release(peer_flag(tab, peer_from(tab, i), i, PEER_GO2), e);
+    for (int i = 0; i < n_off; ++i) {
+      flag_wait(peer_flag(tab, tab[PT_OWN], i, PEER_INB), e, tab[PT_TIMEOUT]);
+      flag_wait(peer_flag(tab, tab[PT_OWN], i, PEER_GO2), e, tab[PT_TIMEOUT]);
+    }
+  }
   q_setup_ops(g, smem);
   __syncthreads();
   // floats of one scenario's slot list (receive and send lists of a shard
   // have the same slots: slot j of the sender is slot j of the receiver)
   const size_t ls = (size_t)d.n_send * 3;
   // where shard sh's stage-1 slot j of scenario b goes: slot j of the
-  // receiving shard's rb2 (the table picks the shard); without one (no
-  // ring offsets), the shard's own slots
+  // receiving shard's rb2 (the table picks the shard, or in peer mode the
+  // rank); without one (no ring offsets), the shard's own slots
   auto push = [&](int sh, int b) {
+    if (PEER && n_off > 0)
+      return SendTo{a.rb2, nullptr, 0, tab + PT_HEAD, (int)tab[PT_CHUNK],
+                    b * ls};
     return a.dest != nullptr
                ? SendTo{a.rb2 + b * ls, a.dest + (size_t)sh * d.n_send,
                         (size_t)a.B * ls}
@@ -705,7 +759,27 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
                        a.rb + l.sc * ls, 0.5f * a.dt, h_bc1, a.dt, a.ctrl,
                        a.use_filter, false, false);
   }
+  if (PEER) __threadfence_system();
   grid.sync();
+  if (PEER) {
+    if (blockIdx.x == 0) {
+      if (threadIdx.x == 0) {
+        *peer_epoch(tab) = e;
+        for (int i = 0; i < n_off; ++i)
+          flag_release(peer_flag(tab, peer_from(tab, i), i, PEER_GOB), e + 1);
+      }
+      if ((int)threadIdx.x < n_off) {
+        __threadfence_system();
+        flag_release(peer_flag(tab, peer_to(tab, threadIdx.x), threadIdx.x,
+                               PEER_IN2), e);
+      }
+    }
+    if (threadIdx.x == 0)
+      for (int i = 0; i < n_off; ++i)
+        flag_wait(peer_flag(tab, tab[PT_OWN], i, PEER_IN2), e,
+                  tab[PT_TIMEOUT]);
+    __syncthreads();
+  }
   for (int first = blockIdx.x * ipb; first < n_items;
        first += gridDim.x * ipb) {
     const QLane l = q_lane<Z>(first, n_items, a.B, d.K, a.fstride,
@@ -724,6 +798,19 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
                        a.rb2 + l.sc * ls, a.dt, h_bc2, a.dt, a.ctrl,
                        a.use_filter, false, a.sponge != 0);
   }
+}
+
+template <class Z>
+__global__ void __launch_bounds__(QMAX_THREADS, 2)
+    sw2d_step_rdma_kernel(SwDesc d, RdmaArgs a) {
+  rdma_step<Z, false>(d, a);
+}
+
+// The peer mode: one shard a rank (S = 1), the ring's table in a.peer.
+template <class Z>
+__global__ void __launch_bounds__(QMAX_THREADS, 2)
+    sw2d_step_rdma_peer_kernel(SwDesc d, RdmaArgs a) {
+  rdma_step<Z, true>(d, a);
 }
 
 // ---------------------------------------------------------------------------
@@ -1626,9 +1713,10 @@ typedef void (*FwdKern)(SwDesc, FwdArgs);
 
 // The q kernels, as the launcher numbers them: the sharded stage (B7), the
 // one-launch step (B9), the sharded stage's adjoint (B8), the blocked
-// rollout's adjoint (B6), the blocked rollout (B5, and B4 with one step).
+// rollout's adjoint (B6), the blocked rollout (B5, and B4 with one step),
+// the one-launch step's peer mode (B9 across ranks).
 enum { Q_STAGE = 0, Q_STEP = 1, Q_STAGE_BWD = 2, Q_ROLLOUT_BWD = 3,
-       Q_ROLLOUT = 4 };
+       Q_ROLLOUT = 4, Q_STEP_PEER = 5 };
 
 // The instantiation of the q kernels for a set: N=3 with two controls
 // (the MPC's), N=3 with others (a set built without injectors has one,
@@ -1672,6 +1760,13 @@ static RdmaKern rdma_kernel_of(const SwDesc& d) {
                           sw2d_step_rdma_kernel<QOrder6>);
 }
 
+static RdmaKern rdma_peer_kernel_of(const SwDesc& d) {
+  return q_pick<RdmaKern>(d, sw2d_step_rdma_peer_kernel<QOrder3Ctrl>,
+                          sw2d_step_rdma_peer_kernel<QOrder3>,
+                          sw2d_step_rdma_peer_kernel<QAnyOrder>,
+                          sw2d_step_rdma_peer_kernel<QOrder6>);
+}
+
 static FwdKern rollout_kernel_of(const SwDesc& d) {
   return q_pick<FwdKern>(d, sw2d_blocked_rollout_kernel<QOrder3Ctrl>,
                          sw2d_blocked_rollout_kernel<QOrder3>,
@@ -1711,6 +1806,7 @@ static const void* q_kernel(const SwDesc& d, int which, int lanes) {
     case Q_STAGE_BWD: return (const void*)stage_bwd_kernel_of(d, lanes);
     case Q_ROLLOUT_BWD: return (const void*)rollout_bwd_kernel_of(d);
     case Q_ROLLOUT: return (const void*)rollout_kernel_of(d);
+    case Q_STEP_PEER: return (const void*)rdma_peer_kernel_of(d);
     default: return nullptr;
   }
 }
@@ -1772,8 +1868,8 @@ static int q_plan(const SwDesc& d, int S, int B, int which, int* plan,
   if (kern == nullptr || S * fstride > 0x7fffffffLL ||
       S * istride > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const bool coop =
-      which == Q_STEP || which == Q_ROLLOUT_BWD || which == Q_ROLLOUT;
+  const bool coop = which == Q_STEP || which == Q_ROLLOUT_BWD ||
+                    which == Q_ROLLOUT || which == Q_STEP_PEER;
   const long long lanes = (long long)S * B * d.K * P;
   int threads = 32, optin = 0;
   for (int t = QMAX_THREADS; t >= 32; t /= 2)
@@ -1931,6 +2027,26 @@ int sw2d_step_rdma(const SwDesc* d, const float* fops, const int* iops,
                 h, hu, hv, rb, ctrl, dest, s1, s1 + n, s1 + 2 * n, rb2,
                 oh, ohu, ohv, sb, dt, t1, t2};
   return q_launch(rdma_kernel_of(*d), *d, a, plan, true, stream);
+}
+
+// The same step in its peer mode: this rank's one shard (S = 1) of a set
+// spread over the ranks of a ring (parallel/peer.py), the stage-1 halo
+// stored into the peers' stage-2 slots through the ring's table tab
+// (peer_flags.cuh). rb: this rank's step-boundary slots, rb2 its stage-2
+// slots (both in its region); plan: sw2d_shard_plan's for (1, B, 5).
+int sw2d_step_rdma_peer(const SwDesc* d, const float* fops, const int* iops,
+                        long long fstride, long long istride, int B,
+                        const float* h, const float* hu, const float* hv,
+                        const float* rb, const float* ctrl,
+                        const long long* tab, float* s1, float* rb2,
+                        float* oh, float* ohu, float* ohv, float* sb,
+                        float dt, float t1, float t2, int use_filter,
+                        int sponge, const int* plan, void* stream) {
+  const size_t n = (size_t)B * d->K * d->Np;
+  RdmaArgs a = {fops, iops, fstride, istride, 1, B, use_filter, sponge,
+                h, hu, hv, rb, ctrl, nullptr, s1, s1 + n, s1 + 2 * n, rb2,
+                oh, ohu, ohv, sb, dt, t1, t2, tab};
+  return q_launch(rdma_peer_kernel_of(*d), *d, a, plan, true, stream);
 }
 
 // The adjoint of sw2d_stage: cotangents of (out, sb) to those of (base,

@@ -371,9 +371,12 @@ def _lib():
                                    + [F, F, I, I, P, P])
     lib.sw2d_step_rdma.argtypes = ([D, P, P, L, L, I, I] + [P] * 12
                                    + [F, F, F, I, I, P, P])
+    lib.sw2d_step_rdma_peer.argtypes = ([D, P, P, L, L, I] + [P] * 12
+                                        + [F, F, F, I, I, P, P])
     for fn in (lib.sw2d_blocked_rollout,
                lib.sw2d_blocked_rollout_bwd, lib.sw2d_shard_plan,
-               lib.sw2d_stage, lib.sw2d_stage_bwd, lib.sw2d_step_rdma):
+               lib.sw2d_stage, lib.sw2d_stage_bwd, lib.sw2d_step_rdma,
+               lib.sw2d_step_rdma_peer):
         fn.restype = I
     lib._sw2d_typed = True
     return lib
@@ -407,8 +410,9 @@ def _stream(t: torch.Tensor):
 # issues nothing but the launch and can be captured into a CUDA graph.
 # The kernels, as the launcher numbers them: the sharded stage (B7), the
 # one-launch step (B9), the sharded stage's adjoint (B8), the blocked
-# rollout's adjoint (B6), the blocked rollout (B5; B4 a rollout of one step).
-_STAGE, _RDMA, _STAGE_BWD, _ROLLOUT_BWD, _ROLLOUT = 0, 1, 2, 3, 4
+# rollout's adjoint (B6), the blocked rollout (B5; B4 a rollout of one step),
+# the one-launch step's peer mode (B9 across ranks).
+_STAGE, _RDMA, _STAGE_BWD, _ROLLOUT_BWD, _ROLLOUT, _RDMA_PEER = range(6)
 _plans: dict = {}
 # The room of the kernels' run-time-size arrays (QMAX_NP in the source):
 # triangles up to N=6, quadrilaterals up to N=4.
@@ -417,7 +421,8 @@ _KERNEL_NAMES = {_STAGE: "the sharded stage (B7)",
                  _RDMA: "the one-launch sharded step (B9)",
                  _STAGE_BWD: "the sharded stage's adjoint (B8)",
                  _ROLLOUT_BWD: "the blocked rollout's adjoint (B6)",
-                 _ROLLOUT: "the blocked rollout (B5, B4)"}
+                 _ROLLOUT: "the blocked rollout (B5, B4)",
+                 _RDMA_PEER: "the one-launch sharded step across ranks (B9)"}
 
 
 def _shard_plan(lib, desc, ops: BlockedOps, B: int, which: int):
@@ -454,13 +459,16 @@ def _plan_dict(plan) -> dict:
 
 
 def shard_plan(ops: ShardOps, meta: BlockedMeta, batch: int,
-               step: bool = False, adjoint: bool = False) -> dict:
+               step: bool = False, adjoint: bool = False,
+               peer: bool = False) -> dict:
     """The launch plan of the sharded stage kernel (with ``step``, of the
-    one-launch step kernel; with ``adjoint``, of the stage's adjoint) over
-    ``ops``'s shards at ``batch`` scenarios: threads a block, blocks, bytes
-    of shared memory a block, lanes an element (needs the card)."""
+    one-launch step kernel, and with ``peer`` too, of its peer mode; with
+    ``adjoint``, of the stage's adjoint) over ``ops``'s shards at ``batch``
+    scenarios: threads a block, blocks, bytes of shared memory a block,
+    lanes an element (needs the card)."""
     lib, desc = _check_kernel_inputs(ops, meta, ops.fbuf)
-    which = _RDMA if step else _STAGE_BWD if adjoint else _STAGE
+    which = ((_RDMA_PEER if peer else _RDMA) if step
+             else _STAGE_BWD if adjoint else _STAGE)
     return _plan_dict(_shard_plan(lib, desc, ops, batch, which))
 
 
@@ -895,28 +903,47 @@ def sw2d_step_rdma_blocked_plain(ops: ShardOps, meta: BlockedMeta, state, rb,
 
 
 class RdmaLaunch:
-    """``sw2d_step_rdma_blocked`` over one sharded set and its stacked ring
-    exchange ``ex`` (a ``parallel.RingExchange`` without a process group),
-    with what every launch shares made once: the descriptor, the argument
-    list's constant head, the launch plan of each batch size, and the
-    scratch of the last batch size (the stage-1 triple and the stage-2
-    receive buffer), which every launch on the stream reuses. The shard
-    that receives each send slot is the ring's reverse source table,
-    ``ex.src_rev`` (on the card). Call it as ``launch(state, rb, dt, t,
-    ctrl, use_filter)``. After the first call at a batch size a call issues
-    nothing but the launch (no device query, no synchronisation), so a
-    CUDA graph can capture it."""
+    """``sw2d_step_rdma_blocked`` over one sharded set and its ring exchange
+    ``ex``, with what every launch shares made once: the descriptor, the
+    argument list's constant head, the launch plan of each batch size, and
+    the scratch of the last batch size (the stage-1 triple and, stacked,
+    the stage-2 receive buffer), which every launch on the stream reuses.
+    Call it as ``launch(state, rb, dt, t, ctrl, use_filter)``. After the
+    first call at a batch size a call issues nothing but the launch (no
+    device query, no synchronisation), so a CUDA graph can capture it.
+
+    ``ex`` is one of:
+     - the set's stacked ``parallel.RingExchange`` (every shard here): one
+       launch covers every shard, the shard that receives each send slot
+       being the ring's reverse source table ``ex.src_rev``;
+     - a ``parallel.PeerRing`` (one shard a rank, CUDA tensors): the
+       launch runs this rank's shard, stores the stage-1 halo into the
+       peers' stage-2 slots and meets them through flags in their memory;
+       ``rb`` must be the ring's step-boundary slots, as ``ex(sbuf)``
+       returns them;
+     - a ``parallel.RingExchange`` over a process group (one shard a rank):
+       CPU tensors only, the plain version with the group's exchange.
+    """
 
     def __init__(self, ops: ShardOps, meta: BlockedMeta, ex):
         _refuse_wetdry_rdma(meta)
         if not isinstance(ops, ShardOps):
             raise TypeError("the stage kernels need a ShardOps operator set")
         S, L = ops.send.shape
-        if ex.group is not None or ex.plan.n_shards != S or (
+        # a parallel.PeerRing (duck-typed: parallel imports this module)
+        self.peer = getattr(ex, "table", None) is not None
+        if self.peer or ex.group is not None:
+            if S != 1 or (ex.plan.offs and
+                          len(ex.plan.offs) * ex.chunk != L):
+                raise ValueError("across ranks the one-launch step holds "
+                                 "one shard a rank, of its ring's plan")
+        elif ex.plan.n_shards != S or (
                 ex.plan.offs and tuple(ex.src_rev.shape) != (S, L)):
             raise ValueError("the one-launch step needs the stacked ring "
                              "exchange of its own set")
-        if ex.src_rev is not None and ex.src_rev.device != ops.fbuf.device:
+        ring_dev = (ex.device if self.peer else
+                    None if ex.src_rev is None else ex.src_rev.device)
+        if ring_dev is not None and ring_dev != ops.fbuf.device:
             raise ValueError("ring exchange and operator set lie on "
                              "different devices")
         self.ops, self.meta, self.ex = ops, meta, ex
@@ -936,11 +963,16 @@ class RdmaLaunch:
                                  "hv": state[2]}, rb)
         if ctrl is not None:
             _check_tensor("ctrl", ctrl, (meta.n_ctrl,), rb)
+        if rb.device != self.device:
+            raise ValueError("operator set and state lie on different devices")
         if rb.device.type == "cpu":
             return sw2d_step_rdma_blocked_plain(ops, meta, state, rb, dt,
                                                 self.ex, t, ctrl, use_filter)
-        if rb.device != self.device:
-            raise ValueError("operator set and state lie on different devices")
+        if not self.peer and self.ex.group is not None:
+            raise ValueError(
+                "a process group's ring exchange serves CPU tensors (the "
+                "plain version); on the card the one-launch step across "
+                "ranks takes a parallel.PeerRing")
         out = self._launch(state, rb, dt, t, ctrl, use_filter)
         sw2d_step_rdma_blocked.launches += 1
         return out
@@ -952,21 +984,34 @@ class RdmaLaunch:
             lib, desc = _check_kernel_inputs(ops, meta, ops.fbuf)
             self._head = (lib, desc, (
                 ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
-                ops.fbuf.shape[1], ops.ibuf.shape[1], ops.send.shape[0]))
+                ops.fbuf.shape[1], ops.ibuf.shape[1]))
         if rb.dtype != torch.float32:
             raise TypeError(f"the CUDA kernels are float32, got {rb.dtype}")
         lib, desc, head = self._head
         S, B = rb.shape[:2]
-        plan = _shard_plan(lib, desc, ops, B, _RDMA)
-        s1, rb2 = self._scratch_for(rb)
         out = [torch.empty_like(state[0]) for _ in range(3)]
         sb = torch.empty_like(rb)
-        err = lib.sw2d_step_rdma(
-            *head, B, *(f.data_ptr() for f in state), rb.data_ptr(),
-            _ptr(ctrl), _ptr(self.ex.src_rev), s1.data_ptr(), rb2.data_ptr(),
-            *(f.data_ptr() for f in out), sb.data_ptr(), float(dt), float(t),
-            float(t + 0.5 * dt), int(use_filter), int(meta.has_sponge), plan,
-            _launch_stream(rb))
+        tail = (*(f.data_ptr() for f in out), sb.data_ptr(), float(dt),
+                float(t), float(t + 0.5 * dt), int(use_filter),
+                int(meta.has_sponge))
+        if self.peer:
+            ex = self.ex
+            if rb.data_ptr() != ex.rbb.data_ptr():
+                raise ValueError("across ranks the step reads the ring's "
+                                 "step-boundary slots: pass ring(sbuf)")
+            plan = _shard_plan(lib, desc, ops, B, _RDMA_PEER)
+            s1 = self._scratch_for(rb)[0]
+            err = lib.sw2d_step_rdma_peer(
+                *head, B, *(f.data_ptr() for f in state), rb.data_ptr(),
+                _ptr(ctrl), ex.table.data_ptr(), s1.data_ptr(),
+                ex.rb2.data_ptr(), *tail, plan, _launch_stream(rb))
+        else:
+            plan = _shard_plan(lib, desc, ops, B, _RDMA)
+            s1, rb2 = self._scratch_for(rb)
+            err = lib.sw2d_step_rdma(
+                *head, S, B, *(f.data_ptr() for f in state), rb.data_ptr(),
+                _ptr(ctrl), _ptr(self.ex.src_rev), s1.data_ptr(),
+                rb2.data_ptr(), *tail, plan, _launch_stream(rb))
         _launch_check(err, "sw2d_step_rdma_blocked")
         return (*out, sb)
 
@@ -976,9 +1021,11 @@ def sw2d_step_rdma_blocked(ops: ShardOps, meta: BlockedMeta, state, rb,
                            use_filter: bool = True):
     """One whole SSP-RK2 step on every shard of an element-sharded set:
     stage 1 from ``state`` (a triple of (S, B, nV)) and the step-boundary
-    receive buffer ``rb`` (S, B, L, 3), the stacked ring exchange ``ex``
-    (the set's ``parallel.RingExchange``) of the stage-1 halo, stage 2 with
-    the sponge. ``t``: the step's start time; ``ctrl``: (n_ctrl,) shared by
+    receive buffer ``rb`` (S, B, L, 3), the ring exchange ``ex`` of the
+    stage-1 halo (the set's stacked ``parallel.RingExchange``, or one shard
+    a rank: a ``parallel.PeerRing`` on the card, a process group's
+    ``RingExchange`` on the CPU; see ``RdmaLaunch``), stage 2 with the
+    sponge. ``t``: the step's start time; ``ctrl``: (n_ctrl,) shared by
     every scenario and shard, or None. Returns (h, hu, hv, sb), sb
     (S, B, L, 3) the send buffer of the output. A caller that steps
     repeatedly makes one ``RdmaLaunch`` and calls it, as
@@ -986,13 +1033,17 @@ def sw2d_step_rdma_blocked(ops: ShardOps, meta: BlockedMeta, state, rb,
 
     Replaces the TPU kernel ``_step_kernel_rdma`` / ``sw2d_step_rdma_blocked``
     of ``blitzdg_tpu/ops/sw2d_blocked.py``, which runs one shard per chip at
-    B = 1 and moves the inter-stage halo by remote DMA; here one cooperative
-    launch covers every shard and scenario, the halo is stored into the
-    receiving shard's slots in global memory and a grid barrier stands for
-    the READY handshake. Bound by operations (two RHS evaluations per node
-    against one state in and one out). Takes triangles up to N=6 and
-    quadrilaterals (one lane an element) up to N=4; raises above and for a
-    wet/dry set.
+    B = 1 and moves the inter-stage halo by remote DMA after a READY
+    handshake. Here, with the stacked ``ex``, one cooperative launch covers
+    every shard and scenario, the halo is stored into the receiving shard's
+    slots in global memory and a grid barrier stands for the handshake;
+    with a ``parallel.PeerRing`` (one shard a rank, ``state`` (1, B, nV))
+    the launch runs this rank's shard, stores the halo into the receiving
+    ranks' memory (CUDA IPC) and meets them through one READY and one
+    ARRIVED flag a ring offset in their memory. Bound by operations (two
+    RHS evaluations per node against one state in and one out). Takes
+    triangles up to N=6 and quadrilaterals (one lane an element) up to
+    N=4; raises above and for a wet/dry set.
     """
     return RdmaLaunch(ops, meta, ex)(state, rb, dt, t, ctrl, use_filter)
 

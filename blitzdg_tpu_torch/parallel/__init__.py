@@ -1,6 +1,7 @@
 """Element partitioning, the halo plan and exchanges, the element-sharded
-plain-tensor path, sharded contexts and meshes, process groups, and the
-element-sharded blocked path (see each module)."""
+plain-tensor path, sharded contexts and meshes, process groups, the
+element-sharded blocked path and its transport across ranks (see each
+module)."""
 from .blocked_shard import (ShardedBlocked, build_sharded_blocked,
                             initial_send_buffer, join_shards,
                             make_sharded_blocked_step_diff,
@@ -12,6 +13,7 @@ from .halo import (HaloPlan, RingExchange, build_gauss_halo_plan,
                    halo_poisson2d_op, halo_sw2d_curved_rhs, halo_sw2d_rhs,
                    halo_sw2d_timestep, halo_tables, halo_traces,
                    ring_exchange)
+from .peer import PeerRing, peer_ring_exchange
 from .partition import (compute_partition, graph_partition, pad_context,
                         pad_elements, partition_block_sizes, partition_cut,
                         partition_mesh, rcb_block_sizes, rcb_partition,
@@ -36,6 +38,6 @@ __all__ = [
     "RingExchange", "ring_exchange",
     "ShardedBlocked", "build_sharded_blocked", "initial_send_buffer",
     "make_sharded_blocked_step_fused", "make_sharded_blocked_step_diff",
-    "make_sharded_blocked_step_rdma",
+    "make_sharded_blocked_step_rdma", "PeerRing", "peer_ring_exchange",
     "split_shards", "join_shards",
 ]

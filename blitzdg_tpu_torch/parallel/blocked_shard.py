@@ -36,11 +36,13 @@ which holds for B = 1 only (ROADMAP C21).
 ``make_sharded_blocked_step_rdma`` is the same step in one launch: one
 exchange of the carried send buffer, then one kernel that runs both stages
 and moves the inter-stage halo inside itself
-(``ops.sw2d_blocked.sw2d_step_rdma_blocked``). Its transport is the stacked
-one only: all shards on one card, the halo stored into the receiving
-shard's slots in global memory. Across cards it would need per-peer signal
-flags and stores into the peers' memory, which are still to be ported
-(ROADMAP B9); with a process group it raises.
+(``ops.sw2d_blocked.sw2d_step_rdma_blocked``). Stacked, all shards are on
+one card and the halo is stored into the receiving shard's slots in global
+memory. With a process group (one shard a rank) on the card, the transport
+is a ``parallel.PeerRing``: both exchanges store into the peers' memory
+(CUDA IPC), and per-offset flags there stand for the TPU kernel's READY
+handshake; on the CPU it is the plain version over the group's
+``RingExchange``.
 
 Not ported: ``make_sharded_blocked_step`` (superseded) and
 ``initial_packed_traces``; ``pack_local``/``unpack_local`` have no
@@ -57,8 +59,8 @@ import torch
 from ..context import DGContext2D
 from ..ops.sw2d import SWPhysics
 from ..ops.sw2d_blocked import (BlockedMeta, RdmaLaunch, ShardOps,
-                                _send_plain, shard_view, sw2d_stage_blocked,
-                                sw2d_stage_bwd_blocked_v2)
+                                _refuse_wetdry_rdma, _send_plain, shard_view,
+                                sw2d_stage_blocked, sw2d_stage_bwd_blocked_v2)
 from ..ops.sw2d_fused import _np64, _operator_arrays, _ops_from_arrays
 from .halo import HaloPlan, RingExchange, build_halo_plan
 
@@ -206,25 +208,47 @@ def make_sharded_blocked_step_rdma(sb: ShardedBlocked, dt: float,
     """The sharded SSP-RK2 step in one kernel launch: the same carry and
     arguments as ``make_sharded_blocked_step_fused``, and the same values;
     the step-boundary exchange, then ``sw2d_step_rdma_blocked`` (through
-    one ``RdmaLaunch`` made here), which exchanges the inter-stage halo
-    inside the launch. Forward only.
+    one ``RdmaLaunch``), which exchanges the inter-stage halo inside the
+    launch. Forward only.
 
-    Raises for a wet/dry set (the kernel does not limit its stages) and for
-    a process group: the transport across cards (per-peer signal flags and
-    stores into the peers' memory) is still to be ported (ROADMAP B9)."""
-    if group is not None:
-        raise NotImplementedError(
-            "the one-launch sharded step holds every shard on one card; its "
-            "transport across cards (per-peer signal flags, stores into the "
-            "peers' memory) is still to be ported (ROADMAP B9): use "
-            "make_sharded_blocked_step_fused with a process group")
-    launch = RdmaLaunch(sb.ops, sb.meta, _exchange(sb, None))
+    With ``group`` on the card (one shard a rank, ``sb`` built with
+    ``shards=(rank,)``), the first step makes a ``parallel.PeerRing`` sized
+    by its carry's scenarios (a collective set-up: every rank steps), and
+    each step is two launches: ``peer_ring_exchange`` of the carried send
+    buffer into the peers' step-boundary slots, then the step's peer mode.
+    Every later carry has the same scenarios. The ring is ``step.ring``
+    (None before the first step); every rank calls ``step.ring.close()``
+    when done. On the CPU, with ``group``, the step is the plain version
+    over the group's ``RingExchange``.
+
+    Raises for a wet/dry set, as the JAX wrapper does (the kernel does not
+    limit its stages)."""
+    _refuse_wetdry_rdma(sb.meta)
+    ex = _exchange(sb, group)
+    launch = None
+    if group is not None and sb.ops.fbuf.is_cuda:
+        import torch.distributed as dist
+
+        if sb.shards != (dist.get_rank(group),):
+            raise ValueError(f"rank {dist.get_rank(group)} of the group "
+                             f"holds shard {sb.shards}: one shard a rank, "
+                             "its own")
+    else:
+        launch = RdmaLaunch(sb.ops, sb.meta, ex)
 
     def step(carry, t: float = 0.0, ctrl=None):
+        nonlocal ex, launch
         state, sbuf = carry
-        *s2, sb2 = launch(state, launch.ex(sbuf), dt, t, ctrl, use_filter)
+        if launch is None:
+            from .peer import PeerRing
+
+            ex = step.ring = PeerRing(sb.plan, sb.meta.n_fp, sbuf.shape[1],
+                                      group, device=sb.ops.fbuf.device)
+            launch = RdmaLaunch(sb.ops, sb.meta, ex)
+        *s2, sb2 = launch(state, ex(sbuf), dt, t, ctrl, use_filter)
         return tuple(s2), sb2
 
+    step.ring = None
     return step
 
 

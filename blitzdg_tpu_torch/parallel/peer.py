@@ -1,0 +1,306 @@
+"""B9's transport across ranks: ``PeerRing``, one region of device memory
+a rank that its ring peers store into, and ``peer_ring_exchange``, the
+step-boundary exchange over it.
+
+Counterpart of what the JAX package's one-launch sharded step
+(``blitzdg_tpu/ops/sw2d_blocked.py``, ``_step_kernel_rdma``, driven by
+``parallel/blocked_shard.py::make_sharded_blocked_step_rdma``) has on each
+chip: its ``comm_buf`` (the stage-2 receive slots), its barrier semaphore
+(READY) and its remote copies, and the XLA ``ppermute`` of the carried send
+buffer between steps. One shard a rank: each rank allocates one region
+(``ops/csrc/peer.cu``: ``cudaMalloc``, zeroed) that holds
+
+ - the stage-2 receive slots, (B, L, 3) floats, which the peers' step
+   launches store their stage-1 halo into;
+ - the step-boundary receive slots, (B, L, 3) floats, which the peers'
+   ``peer_ring_exchange`` stores the carried send buffer into;
+ - the flags: the epoch (the last step launched here), then one READY and
+   one ARRIVED word a ring offset for each of the two uses (the layout and
+   the protocol: ``ops/csrc/peer_flags.cuh``). The TPU kernel waits on one
+   count of READY signals, which is right only while every rank's offsets
+   are symmetric; one flag an offset needs no such rule.
+
+The region's CUDA IPC handle is all-gathered over the process group, and
+each rank opens the region of every ring peer once (the rank each offset
+sends to and the one it receives from): on one card that maps the same
+memory into another process, on a node with several cards a peer card's
+memory over NVLink. The group carries nothing else: the handles and the
+barriers of set-up and ``close``. gloo will do, and on one card it must be
+gloo, since NCCL refuses two ranks on one card. Nothing falls back to
+``torch.distributed`` point-to-point: a ring on a CPU device, or over a
+group whose size is not the plan's shard count, raises. On CPU tensors the
+sharded step takes the plain version with the group's ``RingExchange``
+instead (``parallel.make_sharded_blocked_step_rdma``).
+
+Flags are 64-bit epochs that only grow, so nothing is ever reset; every
+wait is bounded (``timeout_s``) and traps past its bound, so a lost peer is
+an error (the CUDA context is lost with it) and never a hang.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..ops import _build
+from .halo import HaloPlan
+
+# Byte alignment of the parts of a region.
+_ALIGN = 256
+
+
+def _lib():
+    """The compiled transport (``ops/csrc/peer.cu``) with its argument types
+    set (built at first use; needs nvcc and a CUDA device)."""
+    lib = _build.load("peer")
+    if getattr(lib, "_peer_typed", False):
+        return lib
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.peer_handle_bytes.argtypes = []
+    lib.peer_error_string.argtypes = [I]
+    lib.peer_error_string.restype = ctypes.c_char_p
+    lib.peer_alloc.argtypes = [I, ctypes.c_size_t, ctypes.POINTER(P)]
+    lib.peer_free.argtypes = [P]
+    lib.peer_export.argtypes = [P, ctypes.c_char_p]
+    lib.peer_open.argtypes = [I, ctypes.c_char_p, ctypes.POINTER(P)]
+    lib.peer_close.argtypes = [P]
+    lib.peer_ring_exchange.argtypes = [P, P, I, I, I, P]
+    for fn in (lib.peer_handle_bytes, lib.peer_alloc, lib.peer_free,
+               lib.peer_export, lib.peer_open, lib.peer_close,
+               lib.peer_ring_exchange):
+        fn.restype = I
+    lib._peer_typed = True
+    return lib
+
+
+def _check(lib, err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({lib.peer_error_string(err).decode()})")
+
+
+def _round(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def region_layout(batch: int, n_slots: int, n_off: int) -> dict:
+    """Byte offsets in one rank's region (``ops/csrc/peer_flags.cuh``): the
+    stage-2 receive slots at 0, the step-boundary slots at ``rbb``, the
+    ``n_flags`` flag words at ``flags``; ``bytes`` in all."""
+    slots = _round(batch * n_slots * 3 * 4)
+    n_flags = 1 + 4 * n_off
+    return {"rbb": slots, "flags": 2 * slots, "n_flags": n_flags,
+            "bytes": 2 * slots + _round(8 * n_flags)}
+
+
+class _Raw:
+    """Device memory that torch does not own, as ``__cuda_array_interface__``
+    (``torch.as_tensor`` makes a view of it without a copy)."""
+
+    def __init__(self, ptr: int, shape: tuple, typestr: str):
+        self.__cuda_array_interface__ = {
+            "shape": shape, "typestr": typestr, "data": (ptr, False),
+            "version": 3, "strides": None}
+
+
+def _view(ptr: int, shape: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """A tensor over memory at ``ptr`` that it does not own (host memory on
+    a CPU device: a build of the kernels for the host, in the tests)."""
+    n = 1
+    for s in shape:
+        n *= s
+    if device.type == "cpu":
+        size = n * torch.empty((), dtype=dtype).element_size()
+        buf = (ctypes.c_char * size).from_address(ptr)
+        return torch.frombuffer(buf, dtype=dtype).view(shape)
+    typestr = {torch.float32: "<f4", torch.int64: "<i8"}[dtype]
+    return torch.as_tensor(_Raw(ptr, shape, typestr), device=device)
+
+
+class PeerRing:
+    """This rank's region and its ring peers' regions mapped here, for one
+    shard a rank of a sharded set with halo plan ``plan`` (``n_fp`` nodes a
+    face, ``batch`` scenarios): the transport of
+    ``make_sharded_blocked_step_rdma`` across ranks.
+
+    ``group``: the process group of the ``plan.n_shards`` ranks (rank r
+    holds shard r; gloo will do); ``device``: this rank's CUDA device;
+    ``timeout_s``: the bound of every wait on a peer's flag, after which
+    the waiting kernel traps.
+
+    ``ring(sbuf)`` runs ``peer_ring_exchange`` on this rank's send buffer
+    (1, B, L, 3) and returns this rank's step-boundary slots ``rbb``
+    (1, B, L, 3), the ``rb`` of the one-launch step that follows
+    (``ops.sw2d_blocked.RdmaLaunch`` with this ring), which waits for the
+    peers' chunks before it reads them. Each exchange is followed by one
+    step; nothing else should read ``rbb``. ``rb2`` are the stage-2 receive
+    slots, ``table`` the offset-indexed table of the ring's regions in
+    device memory, ``flags`` this rank's flag words.
+
+    ``close()`` (or leaving a ``with`` block): a group barrier, the peers'
+    regions closed, a second barrier, this rank's region freed. Every rank
+    must call it; a view of the region is invalid after it."""
+
+    def __init__(self, plan: HaloPlan, n_fp: int, batch: int, group,
+                 device="cuda", timeout_s: float = 10.0):
+        import torch.distributed as dist
+
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            raise ValueError(
+                "a PeerRing maps device memory and needs a CUDA device; on "
+                "the CPU the process group's RingExchange is the transport")
+        if group is None:
+            raise ValueError("a PeerRing needs the process group of its "
+                             "ranks (gloo will do)")
+        S = plan.n_shards
+        if dist.get_world_size(group) != S:
+            raise ValueError(f"the group has {dist.get_world_size(group)} "
+                             f"ranks; the plan has {S} shards, one a rank")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        rank = dist.get_rank(group)
+        lib = _lib()
+        lay = region_layout(batch, _n_slots(plan, n_fp), len(plan.offs))
+        own = ctypes.c_void_p()
+        _check(lib, lib.peer_alloc(dev.index, lay["bytes"],
+                                   ctypes.byref(own)), "peer_alloc")
+        opened = {}
+        try:
+            handle = ctypes.create_string_buffer(lib.peer_handle_bytes())
+            _check(lib, lib.peer_export(own, handle), "peer_export")
+            handles = [None] * S
+            dist.all_gather_object(handles, handle.raw, group=group)
+            for p in sorted({(rank + s * d) % S for d in plan.offs
+                             for s in (1, -1)}):
+                ptr = ctypes.c_void_p()
+                _check(lib, lib.peer_open(dev.index, handles[p],
+                                          ctypes.byref(ptr)),
+                       f"peer_open of rank {p}'s region")
+                opened[p] = ptr.value
+            bases = dict(opened)
+            bases[rank] = own.value
+            self._setup(plan, n_fp, batch, rank, bases, dev, timeout_s)
+        except BaseException:
+            for ptr in opened.values():
+                lib.peer_close(ptr)
+            lib.peer_free(own)
+            raise
+        self.group, self._lib = group, lib
+        self._own, self._opened = own.value, opened
+        dist.barrier(group)
+
+    @classmethod
+    def over_regions(cls, plan: HaloPlan, n_fp: int, batch: int, rank: int,
+                     bases: dict, device,
+                     timeout_s: float = 10.0) -> "PeerRing":
+        """Rank ``rank``'s ring over regions of this process (``bases``:
+        address of each rank's region, laid out as ``region_layout`` says,
+        zeroed; on a CPU device, host memory for a build of the kernels for
+        the host): the S ranks of a ring in one process, each launch on its
+        own stream. Their step launches must then be resident on the card
+        together (a wait that outlasts its bound traps). The caller owns
+        the regions and their lifetime; ``close`` does nothing here."""
+        ring = cls.__new__(cls)
+        ring._setup(plan, n_fp, batch, rank, bases, torch.device(device),
+                    timeout_s)
+        ring.group, ring._lib, ring._own, ring._opened = None, None, None, {}
+        return ring
+
+    def _setup(self, plan, n_fp, batch, rank, bases, device, timeout_s):
+        S, offs = plan.n_shards, plan.offs
+        self.plan, self.n_fp, self.batch, self.rank = plan, n_fp, batch, rank
+        self.device = device
+        self.chunk = plan.max_send * n_fp
+        self.n_slots = _n_slots(plan, n_fp)
+        lay = region_layout(batch, self.n_slots, len(offs))
+        own = bases[rank]
+        words = [own, lay["rbb"], lay["flags"], int(timeout_s * 1e9),
+                 len(offs), self.chunk, 0, 0]
+        words += [bases[(rank + d) % S] for d in offs]
+        words += [bases[(rank - d) % S] for d in offs]
+        self.table = torch.tensor(words, dtype=torch.int64, device=device)
+        shape = (1, batch, self.n_slots, 3)
+        self.rb2 = _view(own, shape, torch.float32, device)
+        self.rbb = _view(own + lay["rbb"], shape, torch.float32, device)
+        self.flags = _view(own + lay["flags"], (lay["n_flags"],),
+                           torch.int64, device)
+        # GOB: the receiving ranks' step-boundary slots are free for the
+        # first exchange (epoch 1); every later release is a peer's
+        self.flags[3::4] = 1
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def __call__(self, sbuf: torch.Tensor) -> torch.Tensor:
+        return peer_ring_exchange(self, sbuf)
+
+    def _exchange(self, sbuf: torch.Tensor):
+        """The exchange kernel's launch (the shape checked by the caller)."""
+        from ..ops.sw2d_fused import _launch_stream
+
+        lib = self._lib or _lib()
+        err = lib.peer_ring_exchange(
+            self.table.data_ptr(), sbuf.data_ptr(), len(self.plan.offs),
+            self.batch, self.n_slots, _launch_stream(sbuf))
+        _check(lib, err, "peer_ring_exchange")
+
+    def close(self):
+        """Every rank: wait for this rank's launches, meet the others,
+        unmap the peers' regions, meet again, free this rank's region."""
+        if self._own is None:
+            return
+        import torch.distributed as dist
+
+        torch.cuda.synchronize(self.device)
+        dist.barrier(self.group)
+        for ptr in self._opened.values():
+            _check(self._lib, self._lib.peer_close(ptr), "peer_close")
+        self._opened = {}
+        dist.barrier(self.group)
+        _check(self._lib, self._lib.peer_free(self._own), "peer_free")
+        self._own = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _n_slots(plan: HaloPlan, n_fp: int) -> int:
+    """Slots L of a send or receive buffer (``build_sharded_blocked``'s)."""
+    return max(len(plan.offs) * plan.max_send * n_fp, 1)
+
+
+def peer_ring_exchange(ring: PeerRing, sbuf: torch.Tensor) -> torch.Tensor:
+    """The step-boundary exchange across ranks: chunk i of this rank's send
+    buffer ``sbuf`` (1, B, L, 3), every scenario, into the step-boundary
+    slots of the rank that ring offset i sends to, once that rank has
+    released them, and its ARRIVED flag there (``ops/csrc/peer.cu``, one
+    block an offset). Returns this rank's own step-boundary slots
+    ``ring.rbb``, which the peers fill: only the one-launch step that
+    follows reads them, after its wait for the peers' ARRIVED flags.
+
+    Replaces the XLA ``ppermute`` of the carried send buffer before the TPU
+    one-launch step (``blitzdg_tpu/parallel/blocked_shard.py``,
+    ``make_sharded_blocked_step_rdma``); its plain version is the process
+    group's ``parallel.RingExchange`` on CPU tensors. A ring lives on the
+    card, so a send buffer elsewhere raises."""
+    shape = (1, ring.batch, ring.n_slots, 3)
+    if tuple(sbuf.shape) != shape:
+        raise ValueError(f"sbuf: shape {tuple(sbuf.shape)}, expected {shape}")
+    if sbuf.device.type != "cuda":
+        raise ValueError("the ring exchange runs on the card; on CPU tensors "
+                         "the process group's RingExchange is the transport")
+    if sbuf.device != ring.device or sbuf.dtype != torch.float32:
+        raise ValueError(f"sbuf: {sbuf.dtype} on {sbuf.device}; the ring "
+                         f"exchanges float32 on {ring.device}")
+    if not sbuf.is_contiguous():
+        raise ValueError("sbuf: the kernel needs a contiguous tensor")
+    if ring.plan.offs:
+        ring._exchange(sbuf)
+        peer_ring_exchange.launches += 1
+    return ring.rbb
+
+
+peer_ring_exchange.launches = 0

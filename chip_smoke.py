@@ -6,9 +6,9 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 (``--only dense``, ``--only blocked``, ``--only curved``, ``--only
-sharded``, ``--only elliptic``, ``--only solver``, ``--only quads``,
-``--only ins2d``, ``--only dg1d``, ``--only halo`` or ``--only compat``
-runs one path's phases alone, for work on that path.) What it does,
+sharded``, ``--only peer``, ``--only elliptic``, ``--only solver``,
+``--only quads``, ``--only ins2d``, ``--only dg1d``, ``--only halo`` or
+``--only compat`` runs one path's phases alone, for work on that path.) What it does,
 in order (any failure is an exception and a non-zero exit):
 
  1. refuses to run without a CUDA device;
@@ -17,9 +17,10 @@ in order (any failure is an exception and a non-zero exit):
     dense and sharded kernels and their static SASS mix (a library built by
     an earlier run keeps its report beside it); it fails at the end of the
     run if any instantiation of a curved rollout kernel, a dense kernel,
-    the blocked rollout (the step's kernel too) and its adjoint or the
-    sharded stage, its adjoint and the one-launch step kernel (of the paths
-    run) spills or has no report;
+    the blocked rollout (the step's kernel too) and its adjoint, the
+    sharded stage, its adjoint and the one-launch step kernel, or the
+    step's peer mode and the step-boundary exchange (of the paths run)
+    spills or has no report;
  3. DENSE path (small meshes, one thread per element and scenario). Holds
     each kernel (``sw2d_step_fused``, ``sw2d_rollout_fused``,
     ``sw2d_rollout_bwd_fused``) against its plain PyTorch version on the
@@ -105,7 +106,30 @@ in order (any failure is an exception and a non-zero exit):
     through the plain versions on the card and reads the rounding floor
     (the cost through the plain versions at the hidden and at the final
     controls);
- 7. ELLIPTIC path (no kernel of its own: plain tensor code): the JAX
+ 7. PEER path (the one-launch step across ranks, one process a shard):
+    ``peer_S4``, ``peer_S2`` and ``peer_S4_delayed_rank`` start S worker
+    processes of this script (``--peer-worker``, each with its own
+    timeout, always ended), each on the one card in a gloo group, holding
+    one shard of the coastal K=2048, N=3 set at B=8 (as
+    ``rdma_coastal_K2048_N3_S4``) and a ``PeerRing`` (its region mapped
+    into its ring peers by CUDA IPC); each runs 64 steps of
+    ``make_sharded_blocked_step_rdma(sb, dt, group=g)`` (the exchange
+    ``peer_ring_exchange`` and the step's peer mode, counters zeroed just
+    before and read just after: 64 and 64 a rank, no stage kernel), rank 2
+    of the last case sleeping 0.5 s before every 8th step. Every rank's end
+    state and send buffer must be bit-equal to its shard of the stacked
+    one-launch rollout run here, its first step within BLK_FWD_ATOL of the
+    plain version, its last step-boundary slots bit-equal to the stacked
+    gather and to the group's plain exchange (gloo, CPU copies); no worker
+    may fail or trap. Records the card's compute mode and whether MPS
+    runs (without it the processes time-slice the card: the wall time a
+    step measures the slices), and, in ``peer_S4``, each rank's step
+    kernel and exchange alone (the other ranks idle at a barrier, its
+    flags set past any epoch), CUDA events, L2 flushed. Then
+    ``peer_S4_in_process``: the four ranks in this process on four streams
+    (``PeerRing.over_regions``), their kernels running at the same time,
+    bit-equal to the stacked rollout, and their host-clocked us a step;
+ 8. ELLIPTIC path (no kernel of its own: plain tensor code): the JAX
     benchmark's Poisson configuration, N=2, float32, on
     ``box_triangles(23, 23)`` (K=1058; the benchmark's box.msh, K=1046, is
     not in the repository). ``elliptic_setup`` builds the context,
@@ -120,7 +144,7 @@ in order (any failure is an exception and a non-zero exit):
     of the assembled operator; no flag may be inf/nan or diverged. For
     information it profiles 50 iterations of the batched CG (device events
     only: the idle share);
- 8. SOLVER path: ``solve_mpc_gn`` (Gauss-Newton, 2 outer x 8 CG
+ 9. SOLVER path: ``solve_mpc_gn`` (Gauss-Newton, 2 outer x 8 CG
     iterations) and ``receding_horizon`` (2 cycles of 5 Adam iterations)
     at the headline shape (B=2048, K=40, N=1, 8 x 4 steps) over the plain
     composite (``MPCProblem.rhs_fn`` = ``sw2d_rhs`` with the tidal depth),
@@ -131,7 +155,7 @@ in order (any failure is an exception and a non-zero exit):
     must equal ``advance_plant_fused`` (B1) from the cycle's control at
     t0 = 0 within FWD_ATOL. For information it profiles one Gauss-Newton CG
     step (a J v and a pullback at B=2048, device events only);
- 9. QUADS path (quadrilateral elements): ``quads_sw2d`` runs
+10. QUADS path (quadrilateral elements): ``quads_sw2d`` runs
     ``examples/sw2dquads.py``'s configuration (``box_quads(12, 12)``, K=144,
     N=4, filter 0.9 N of order 4, CFL 0.5, float32, 10 chunks of 100
     adaptive SSP-RK2 steps of ``sw2d_rhs``; mass drift below 1e-5, the
@@ -153,17 +177,17 @@ in order (any failure is an exception and a non-zero exit):
     another, against the unsharded blocked rollout and its adjoint's
     gradient; counters zeroed just before and read just after; the
     run-time-size instances of B4-B9 must not spill;
-10. INS2D path (plain tensor code): ``examples/ins2d.py`` at
+11. INS2D path (plain tensor code): ``examples/ins2d.py`` at
     ``examples/ins2d.nml`` read by the port's ``read_namelist`` (K=36
     quads, N=2, dt 2e-3, 100 steps, float32): fields finite, max|u| <= 1,
     every projection lowering the L2 norm of div u, the kinetic energy
     against the port's CPU float64 run; CG iterations a step, ms a step,
     the idle share of 5 profiled steps;
-11. DG1D path (plain tensor code): ``examples/advec1d.py`` (N=4, K=30,
+12. DG1D path (plain tensor code): ``examples/advec1d.py`` (N=4, K=30,
     c=0.1, CFL 0.8, T=20) and ``examples/burgers1d.py`` (N=6, K=40, nu=0.1)
     through ``integrate(lserk4_step)`` in float32, max-norm errors against
     the exact solutions at the JAX tests' bounds, ms a step;
-12. HALO path (``parallel/halo.py``, plain tensor code, every shard stacked
+13. HALO path (``parallel/halo.py``, plain tensor code, every shard stacked
     on the card): ``halo_rhs_rollout`` holds ``halo_sw2d_rhs`` on
     ``box_triangles(32, 32)`` (K=2048, N=3) at S = 1, 2, 4 to ``sw2d_rhs``
     (a bfloat16 halo's gap reported) and runs
@@ -175,12 +199,12 @@ in order (any failure is an exception and a non-zero exit):
     at S = 2, 6 against ``sw2d_curved_rhs``; ``halo_elliptic`` the CG of
     ``TestShardedElliptic`` on the elliptic configuration padded to S=4
     against the unsharded CG (iterations and solution);
-13. COMPAT path (``compat.py``): the reference's advec1d numpy script
+14. COMPAT path (``compat.py``): the reference's advec1d numpy script
     through ``Nodes1DProvisioner`` and its poisson2d pattern through
     ``MeshManager``, ``TriangleNodesProvisioner`` (its context on the
     card) and ``Poisson2DSparseMatrix``, solved with scipy and held to
     sin(pi x) sin(pi y);
-14. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
+15. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
     card's name and power limit, and as the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -193,12 +217,15 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
+import dataclasses
 import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -3576,6 +3603,435 @@ def compat_phases(dev, card: str, rng, flush) -> list:
     return []
 
 
+# ---------------------------------------------------------------------------
+# PEER path: the one-launch step across ranks, one process a shard
+# ---------------------------------------------------------------------------
+
+PEER_STEPS = 64
+PEER_BATCH = 8
+# (name, shards, delayed rank: (rank, every n-th step, seconds slept before
+# it) or None)
+PEER_CASES = (("peer_S4", 4, None), ("peer_S2", 2, None),
+              ("peer_S4_delayed_rank", 4, (2, 8, 0.5)))
+PEER_WORKER_TIMEOUT = 300  # seconds, each worker process
+PEER_TIMED_REPS = 9
+
+
+def peer_problem(S: int, dev, shards=None):
+    """The coastal set of ``rdma_coastal_K2048_N3_S4`` (K=2048, N=3,
+    bathymetry with the well-balanced star fluxes, drag, Coriolis, tidal
+    depth on the open east side, sponge toward it, two controls) on the
+    box partitioned into S shards: (context, set, still-water depth, dt).
+    ``shards``: the shards held here (one rank's, or all). The context is
+    built in float64 on the host, so that every process that builds the
+    set gets the same bits."""
+    from blitzdg_tpu_torch.context import BC_OUT
+    from blitzdg_tpu_torch.mesh import box_triangles
+    from blitzdg_tpu_torch.mpc import sharded_box as sbx
+    from blitzdg_tpu_torch.mpc.coastal_box import cfl_dt, retag_east_open
+    from blitzdg_tpu_torch.ops.sw2d import SWPhysics
+    from blitzdg_tpu_torch.parallel import blocked_shard as BS
+    from blitzdg_tpu_torch.parallel import partition_mesh
+    from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
+    from blitzdg_tpu_torch.utils import build_sponge_coefficient
+
+    n = sbx.N_ORDER
+    mesh = box_triangles(*sbx.CELLS)
+    retag_east_open(mesh)
+    cc = build_triangle_context(n, partition_mesh(mesh, S)[0],
+                                dtype=torch.float64, device="cpu",
+                                filter_cutoff=0.9 * n, filter_order=4)
+    H = 10.0 + 2.0 * cc.x + torch.sin(2.0 * cc.y)
+    open_nodes = (cc.bc_table[:, :, None].expand(-1, -1, cc.n_fp)
+                  .reshape(cc.k_elem, -1) == BC_OUT).cpu().numpy()
+    phys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4, H=H,
+                     Hx=2.0 * torch.ones_like(H),
+                     Hy=2.0 * torch.cos(2.0 * cc.y),
+                     sponge=build_sponge_coefficient(cc, open_nodes, width=0.3,
+                                                     strength=0.5))
+    bu, bv = sbx.injectors(cc)
+    sb = BS.build_sharded_blocked(cc, phys, S, tidal=(12.0, 0.5, 2.0, 10.0),
+                                  forcing_bu=bu, forcing_bv=bv, device=dev,
+                                  shards=shards)
+    return cc, sb, H, cfl_dt(cc, 9.81, 13.5)
+
+
+def peer_worker(cfg: dict) -> int:
+    """One rank of a peer case, in a process of its own: joins the gloo
+    group, builds its shard of the set on the card, runs PEER_STEPS steps of
+    ``make_sharded_blocked_step_rdma(sb, dt, group=g)`` (counters zeroed
+    just before and read just after), holds its step-boundary slots against
+    the group's plain exchange (gloo, on CPU copies), and, where asked,
+    times its step kernel and its exchange alone (every other rank idle at
+    a barrier, this rank's flags set past any epoch, so that no wait holds
+    it). Writes its results to the case's directory."""
+    import torch.distributed as dist
+
+    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+    from blitzdg_tpu_torch.parallel import blocked_shard as BS
+    from blitzdg_tpu_torch.parallel import peer as PR
+    from blitzdg_tpu_torch.parallel.halo import RingExchange
+
+    S, rank, B = cfg["S"], cfg["rank"], cfg["batch"]
+    delay = cfg["delay"]
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{cfg['port']}", world_size=S, rank=rank)
+    group = dist.group.WORLD
+    inp = torch.load(Path(cfg["dir"]) / "inputs.pt")
+    sb = peer_problem(S, dev, shards=(rank,))[1]
+    dt, t0 = inp["dt"], inp["t0"]
+    state = tuple(inp[k][rank:rank + 1].to(dev) for k in ("h", "hu", "hv"))
+    cs = inp["cs"].to(dev)
+    step = BS.make_sharded_blocked_step_rdma(sb, dt, group=group)
+    carry = (state, BS.initial_send_buffer(sb, state))
+    kern, exch = TB.sw2d_step_rdma_blocked, PR.peer_ring_exchange
+    stage = TB.sw2d_stage_blocked
+    torch.cuda.synchronize()
+    dist.barrier()
+    kern.launches = exch.launches = stage.launches = 0
+    t = t0
+    for k in range(PEER_STEPS):
+        if delay is not None and rank == delay[0] and k % delay[1] == 0:
+            time.sleep(delay[2])
+        carry = step(carry, t, cs[k])
+        t += dt
+        if k == 0:
+            # the first step also made the ring (a collective set-up):
+            # the wall clock starts after it
+            first = [f.clone() for f in (*carry[0], carry[1])]
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+        if k == PEER_STEPS - 2:
+            sbuf_prev = carry[1].clone()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    ring = step.ring
+    launches = {"sw2d_step_rdma_blocked (peer)": kern.launches,
+                "peer_ring_exchange": exch.launches,
+                "sw2d_stage_blocked": stage.launches}
+    dist.barrier()
+    # the last exchange's slots against the plain version: the process
+    # group's ring exchange (gloo point-to-point on CPU copies)
+    rbb = ring.rbb.cpu()
+    plain_rb = RingExchange(sb.plan, sb.meta.n_fp, group)(sbuf_prev.cpu())
+    out = {"final": [f.cpu() for f in (*carry[0], carry[1])],
+           "first": [f.cpu() for f in first], "rbb": rbb,
+           "exchange_vs_gloo": float((rbb - plain_rb).abs().max()),
+           "launches": launches, "wall_s": wall,
+           "device": torch.cuda.get_device_name(0)}
+    if cfg["timed"]:
+        scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                              device=dev)
+        flush = lambda: scratch.zero_()
+        launch = TB.RdmaLaunch(sb.ops, sb.meta, ring)
+        st1, sb1 = tuple(first[:3]), first[3]
+        for r in range(S):
+            if r == rank:
+                ring.flags[1:] = 1 << 60
+                torch.cuda.synchronize()
+                out["step_ms"] = time_ms(
+                    lambda: launch(st1, ring.rbb, dt, t0, cs[0]),
+                    PEER_TIMED_REPS, flush)
+                out["exchange_ms"] = time_ms(lambda: ring(sb1),
+                                             PEER_TIMED_REPS, flush)
+                out["plan"] = TB.shard_plan(sb.ops, sb.meta, B, step=True,
+                                            peer=True)
+            dist.barrier()
+    ring.close()
+    torch.save(out, Path(cfg["dir"]) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    print(f"PEER_OK rank={rank}", flush=True)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_peer_workers(S: int, case_dir: Path, delay, timed: bool) -> list:
+    """S worker processes of this script (``--peer-worker``), one a rank,
+    each on the card; waits for all (each under its own timeout), always
+    ends them, and fails unless every one exits 0. Returns their results
+    by rank."""
+    port = _free_port()
+    procs = []
+    for r in range(S):
+        cfg = {"S": S, "rank": r, "batch": PEER_BATCH, "port": port,
+               "dir": str(case_dir), "delay": delay, "timed": timed}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--peer-worker",
+             json.dumps(cfg)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=PEER_WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0 or f"PEER_OK rank={r}" not in log:
+            raise RuntimeError(f"peer worker {r} of {S} failed (exit "
+                               f"{p.returncode}):\n{log[-4000:]}")
+    return [torch.load(case_dir / f"rank{r}.pt") for r in range(S)]
+
+
+def run_peer_in_process(sb, state, cs, dt: float, t0: float, dev,
+                        n_steps: int = PEER_STEPS):
+    """The S ranks of ``sb``'s ring in this process: S regions of this
+    process, each rank's ``PeerRing`` over plain pointers into the others
+    (``PeerRing.over_regions``), its own operator set and its own stream;
+    ``n_steps`` steps enqueued rank after rank, untimed, then again on the
+    host clock (synchronised). The ranks' step launches are resident on
+    the card together and meet only through their flags: the only run in
+    which their kernels run at the same time (processes without MPS
+    time-slice the card). Returns each rank's end (h, hu, hv, sb), the
+    us a step of the timed run, rank 0's ring and launch (for timing it
+    alone) and a function that frees the regions."""
+    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+    from blitzdg_tpu_torch.parallel import blocked_shard as BS
+    from blitzdg_tpu_torch.parallel import peer as PR
+
+    S, B = sb.n_shards, state[0].shape[1]
+    lib = PR._lib()
+    lay = PR.region_layout(B, sb.ops.send.shape[1], len(sb.plan.offs))
+    bases = {}
+
+    def free():
+        torch.cuda.synchronize()
+        for p in bases.values():
+            lib.peer_free(p)
+
+    for r in range(S):
+        p = ctypes.c_void_p()
+        PR._check(lib, lib.peer_alloc(dev.index or 0, lay["bytes"],
+                                      ctypes.byref(p)), "peer_alloc")
+        bases[r] = p.value
+    rings = [PR.PeerRing.over_regions(sb.plan, sb.meta.n_fp, B, r, bases,
+                                      dev) for r in range(S)]
+    launches = [TB.RdmaLaunch(rank_ops(sb.ops, r), sb.meta, rings[r])
+                for r in range(S)]
+    streams = [torch.cuda.Stream(dev) for _ in range(S)]
+    sbuf0 = BS.initial_send_buffer(sb, state)
+
+    def run():
+        carry = [(tuple(f[r:r + 1] for f in state), sbuf0[r:r + 1])
+                 for r in range(S)]
+        t = t0
+        for k in range(n_steps):
+            for r in range(S):
+                with torch.cuda.stream(streams[r]):
+                    st, sbuf = carry[r]
+                    *s2, sb2 = launches[r](st, rings[r](sbuf), dt, t, cs[k])
+                    carry[r] = (tuple(s2), sb2)
+            t += dt
+        return carry
+
+    torch.cuda.synchronize()
+    run()
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    carry = run()
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - w0) * 1e6 / n_steps
+    ends = [(*c[0], c[1]) for c in carry]
+    return ends, us, rings[0], launches[0], free
+
+
+def _gpu_query(field: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def peer_phases(dev, card: str, rng, flush) -> list:
+    """The one-launch step across ranks on the one card: S=4, S=2 and S=4
+    with a delayed rank, each rank a process of its own (gloo group, CUDA
+    IPC regions), PEER_STEPS steps at K=2048, N=3, B=8 on the coastal set;
+    every rank's end state and send buffer bit-equal to its shard of the
+    stacked one-launch rollout run here, its first step against the plain
+    version, its last step-boundary slots bit-equal to the stacked gather,
+    its counters exact. Returns the kernel records of the ``kernels``
+    line."""
+    import tempfile
+
+    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+    from blitzdg_tpu_torch.parallel import blocked_shard as BS
+    from blitzdg_tpu_torch.parallel.halo import RingExchange
+
+    mps = subprocess.run(["pgrep", "-f", "nvidia-cuda-mps"],
+                         capture_output=True, text=True).returncode == 0
+    say({"phase": "peer_setup", "card": card,
+         "compute_mode": _gpu_query("compute_mode"), "mps_running": mps,
+         "note": "without MPS the ranks' kernels time-slice on the card: "
+                 "wall_us_per_step measures the time slices, not the "
+                 "transport"})
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {"sw2d_step_rdma_blocked (peer)": 0, "peer_ring_exchange": 0}
+    timed = None
+    refs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, S, delay in PEER_CASES:
+            if S not in refs:
+                cc, sb, H, dt = peer_problem(S, dev)
+                on_card = lambda a: a.to(dev, torch.float32)
+                xy = types.SimpleNamespace(x=on_card(cc.x), y=on_card(cc.y))
+                h, hu, hv, _ = perturbed_blocked(
+                    xy, on_card(H).reshape(1, -1), PEER_BATCH, 1, 2, rng,
+                    dev)
+                state = tuple(BS.split_shards(f, S) for f in (h, hu, hv))
+                cs = torch.as_tensor(0.3 * rng.standard_normal(
+                    (PEER_STEPS, 2)), dtype=torch.float32, device=dev)
+                t0 = 1.0
+                inputs = {"h": state[0].cpu(), "hu": state[1].cpu(),
+                          "hv": state[2].cpu(), "cs": cs.cpu(), "dt": dt,
+                          "t0": t0}
+                # the reference: the stacked one-launch rollout (the same
+                # stage code on the same inputs), and its first step
+                # through the plain version
+                ex = RingExchange(sb.plan, sb.meta.n_fp, device=dev)
+                sbuf0 = BS.initial_send_buffer(sb, state)
+                plain1 = TB.sw2d_step_rdma_blocked_plain(
+                    sb.ops, sb.meta, state, ex(sbuf0), dt, ex, t0, cs[0])
+                rstep = BS.make_sharded_blocked_step_rdma(sb, dt)
+                carry, t = (state, sbuf0), t0
+                for k in range(PEER_STEPS):
+                    carry = rstep(carry, t, cs[k])
+                    t += dt
+                    if k == PEER_STEPS - 2:
+                        last_rb = ex(carry[1])
+                torch.cuda.synchronize()
+                refs[S] = {"inputs": inputs, "sb": sb, "ex": ex,
+                           "sbuf0": sbuf0, "plain1": plain1,
+                           "final": (*carry[0], carry[1]),
+                           "last_rb": last_rb, "dt": dt, "t0": t0, "cs": cs,
+                           "state": state}
+                del cc
+            ref = refs[S]
+            case_dir = Path(tmp) / name
+            case_dir.mkdir()
+            torch.save(ref["inputs"], case_dir / "inputs.pt")
+            is_timed = timed is None and delay is None
+            t_case = time.perf_counter()
+            res = run_peer_workers(S, case_dir, delay, is_timed)
+            seconds = time.perf_counter() - t_case
+            bits, rb_bits, err1, counts, walls = [], [], 0.0, [], []
+            for r, o in enumerate(res):
+                want = [f[r:r + 1].cpu() for f in ref["final"]]
+                bits.append(all(torch.equal(a, b)
+                                for a, b in zip(o["final"], want)))
+                rb_bits.append(torch.equal(o["rbb"],
+                                           ref["last_rb"][r:r + 1].cpu()))
+                err1 = max(err1, max_abs(
+                    o["first"], [f[r:r + 1].cpu() for f in ref["plain1"]]))
+                counts.append(o["launches"])
+                walls.append(o["wall_s"] * 1e6 / (PEER_STEPS - 1))
+                for k in total:
+                    total[k] += o["launches"][k]
+            rec = {"phase": name, "n_shards": S, "steps": PEER_STEPS,
+                   "batch": PEER_BATCH, "k_elem": 2048, "n_order": 3,
+                   "delayed_rank": delay,
+                   "ring_offsets": list(ref["sb"].plan.offs),
+                   "bit_equal_to_stacked": bits,
+                   "slots_bit_equal_to_stacked_gather": rb_bits,
+                   "slots_vs_gloo_exchange": [o["exchange_vs_gloo"]
+                                              for o in res],
+                   "first_step_vs_plain_max_abs": err1, "tol": BLK_FWD_ATOL,
+                   "launches": counts,
+                   "wall_us_per_step_time_sliced": walls,
+                   "seconds": seconds, "devices": [o["device"] for o in res],
+                   "card": card}
+            ok = (all(bits) and all(rb_bits) and err1 <= BLK_FWD_ATOL
+                  and all(o["exchange_vs_gloo"] == 0.0 for o in res)
+                  and all(c == {"sw2d_step_rdma_blocked (peer)": PEER_STEPS,
+                                "peer_ring_exchange": PEER_STEPS,
+                                "sw2d_stage_blocked": 0} for c in counts))
+            if is_timed:
+                timed = (S, ref, res[0], err1)
+                rec["step_ms_alone"] = [o["step_ms"] for o in res]
+                rec["exchange_ms_alone"] = [o["exchange_ms"] for o in res]
+                rec["plan"] = res[0]["plan"]
+            rec["ok"] = ok
+            say(rec)
+            if not ok:
+                raise RuntimeError(f"the peer case {name} failed: {rec}")
+    # the S=4 ranks in this process, on four streams at once
+    ref = refs[4]
+    ends, us, _, _, free = run_peer_in_process(ref["sb"], ref["state"],
+                                               ref["cs"], ref["dt"],
+                                               ref["t0"], dev)
+    try:
+        bits = [all(torch.equal(a, b[r:r + 1])
+                    for a, b in zip(ends[r], ref["final"]))
+                for r in range(len(ends))]
+    finally:
+        free()
+    rec = {"phase": "peer_S4_in_process", "n_shards": 4, "steps": PEER_STEPS,
+           "batch": PEER_BATCH, "bit_equal_to_stacked": bits,
+           "us_per_step_host_clock": us,
+           "note": "four ranks on four streams of one process, their step "
+                   "launches resident together; eight launches a step from "
+                   "the host", "card": card, "ok": all(bits)}
+    say(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"the in-process peer case failed: {rec}")
+    # the kernels line: rank 0 of the S=4 case, alone
+    S, ref, r0, err1 = timed
+    sb, meta, B = ref["sb"], ref["sb"].meta, PEER_BATCH
+    L = sb.ops.send.shape[1]
+    ops0 = rank_ops(sb.ops, 0)
+    st0 = tuple(f[:1] for f in ref["state"])
+    rb0 = ref["ex"](ref["sbuf0"])[:1]
+    *s1, sb1 = TB.sw2d_stage_blocked_plain(sb.ops, meta, ref["state"],
+                                           ref["state"], ref["ex"](
+                                               ref["sbuf0"]),
+                                           0.5 * ref["dt"], ref["t0"],
+                                           ref["cs"][0])
+    rb2_0 = ref["ex"](sb1)[:1]
+    plain = lambda: TB.sw2d_step_rdma_blocked_plain(
+        ops0, meta, st0, rb0, ref["dt"], lambda _: rb2_0, ref["t0"],
+        ref["cs"][0])
+    plain_ms = time_ms(plain, 2, flush)
+    gather = lambda: ref["ex"](ref["sbuf0"])
+    gather_ms = time_ms(gather, PEER_TIMED_REPS, flush)
+    n_wall = int(ops0.wall.sum())
+    halo = 4.0 * 2 * 3 * B * L
+    step_bound = bound(4.0 * (6 * B * meta.n_v + 2 * 3 * B * L + meta.n_ctrl)
+                       + halo, B * 2 * rhs_flops(meta, n_wall))
+    ex_bound = bound(4.0 * 2 * 3 * B * L, 0.0)
+    return [
+        {"name": "sw2d_step_rdma_blocked (peer)", "route": "cuda",
+         "source": "blitzdg_tpu_torch/ops/csrc/sw2d_blocked.cu",
+         "replaces": "blitzdg_tpu/ops/sw2d_blocked.py:1118",
+         "launches": total["sw2d_step_rdma_blocked (peer)"],
+         "max_abs_err": err1, "ms": r0["step_ms"], "plain_ms": plain_ms,
+         "bound_ms": step_bound[0], "bound_by": step_bound[1],
+         "library_ms": None},
+        {"name": "peer_ring_exchange", "route": "cuda",
+         "source": "blitzdg_tpu_torch/ops/csrc/peer.cu",
+         "replaces": "blitzdg_tpu/parallel/blocked_shard.py:550",
+         "launches": total["peer_ring_exchange"], "max_abs_err": 0.0,
+         "ms": r0["exchange_ms"], "plain_ms": gather_ms,
+         "bound_ms": ex_bound[0], "bound_by": ex_bound[1],
+         "library_ms": None}]
+
+
+def rank_ops(ops, r: int):
+    """Shard r's operator set of a stacked set, with its shard axis (one
+    rank's set)."""
+    return dataclasses.replace(ops, **{
+        f.name: getattr(ops, f.name)[r:r + 1]
+        for f in dataclasses.fields(ops)})
+
+
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame and spill bytes of each kernel in one source's
     ``ptxas -v`` output, by mangled name."""
@@ -3670,6 +4126,13 @@ QUAD_KERNELS = [k + Q_SIZES[2] for k in (
     "_Z21sw2d_step_rdma_kernel")]
 
 
+# The one-launch step's peer mode in its four instantiations, and the
+# step-boundary exchange.
+PEER_KERNELS = ["_Z26sw2d_step_rdma_peer_kernel" + z
+                for z in Q_SIZES + (Q_SIZES_N6,)]
+PEER_EXCHANGE_KERNELS = ["_Z25peer_ring_exchange_kernel"]
+
+
 def check_no_spills(report: dict, kernels: list):
     """Fails unless ptxas's report (this build's, or the one kept beside a
     library built before) covers every kernel named (by mangled-name
@@ -3685,15 +4148,18 @@ def check_no_spills(report: dict, kernels: list):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("dense", "blocked", "curved",
-                                       "sharded", "elliptic", "solver",
-                                       "quads", "ins2d", "dg1d", "halo",
-                                       "compat"),
+                                       "sharded", "peer", "elliptic",
+                                       "solver", "quads", "ins2d", "dg1d",
+                                       "halo", "compat"),
                     help="run one path's phases alone (default: all)")
+    ap.add_argument("--peer-worker", metavar="JSON", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
               file=sys.stderr)
         return 1
+    if args.peer_worker:
+        return peer_worker(json.loads(args.peer_worker))
 
     from blitzdg_tpu_torch.ops import _build
 
@@ -3712,12 +4178,14 @@ def main() -> int:
     curved = ptxas_summary(_build.last_build_log.get("sw2d_curved", ""))
     dense = ptxas_summary(_build.last_build_log.get("sw2d_dense", ""))
     blocked = ptxas_summary(_build.last_build_log.get("sw2d_blocked", ""))
+    peer = ptxas_summary(_build.last_build_log.get("peer", ""))
     say({"phase": "build", "seconds": time.perf_counter() - t0,
          "ptxas": [ln for log in _build.last_build_log.values()
                    for ln in log.splitlines()
                    if "registers" in ln or "spill" in ln][:32],
          "ptxas_curved": curved, "ptxas_dense": dense,
          "ptxas_q": {k: v for k, v in blocked.items() if "QSizes" in k},
+         "ptxas_peer": peer,
          "sass_curved_N3": sass_mix(libs["sw2d_curved"],
                                     lambda n: "Li10ELi34ELi8E" in n),
          "sass_dense": sass_mix(libs["sw2d_dense"],
@@ -3737,6 +4205,8 @@ def main() -> int:
         kernels += curved_phases(dev, card, rng, flush)
     if args.only in (None, "sharded"):
         kernels += sharded_phases(dev, card, rng, flush)
+    if args.only in (None, "peer"):
+        kernels += peer_phases(dev, card, rng, flush)
     if args.only in (None, "elliptic"):
         kernels += elliptic_phases(dev, card, rng, flush)
     if args.only in (None, "solver"):
@@ -3762,6 +4232,9 @@ def main() -> int:
         check_no_spills(blocked, BLOCKED_FORWARD_KERNELS)
     if args.only in (None, "sharded"):
         check_no_spills(blocked, SHARDED_KERNELS)
+    if args.only in (None, "peer"):
+        check_no_spills(blocked, PEER_KERNELS)
+        check_no_spills(peer, PEER_EXCHANGE_KERNELS)
     if args.only in (None, "quads"):
         check_no_spills(blocked, QUAD_KERNELS)
     say({"kernels": kernels})

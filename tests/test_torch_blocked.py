@@ -360,7 +360,7 @@ def test_chunking_and_operator_set_extend_the_dense_one():
     assert kinds == {"Q_STAGE": TB._STAGE, "Q_STEP": TB._RDMA,
                      "Q_STAGE_BWD": TB._STAGE_BWD,
                      "Q_ROLLOUT_BWD": TB._ROLLOUT_BWD,
-                     "Q_ROLLOUT": TB._ROLLOUT}
+                     "Q_ROLLOUT": TB._ROLLOUT, "Q_STEP_PEER": TB._RDMA_PEER}
 
 
 def test_wrappers_raise_on_wrong_inputs():
@@ -416,5 +416,6 @@ def test_library_digest_covers_shared_headers(tmp_path):
     # the package's own sources: one digest, carried by every library's name
     names = {_build._target(s).name for s in _build.CSRC.glob("*.cu")}
     assert names == {f"lib{n}-{_build._digest()}.so"
-                     for n in ("sw2d_dense", "sw2d_blocked", "sw2d_curved")}
+                     for n in ("sw2d_dense", "sw2d_blocked", "sw2d_curved",
+                               "peer")}
     assert (_build.CSRC / "sw2d_common.cuh").exists()

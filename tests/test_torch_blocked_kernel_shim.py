@@ -38,8 +38,11 @@ two stage launches with the ring exchange between (both run the same stage
 code). The blocked rollout and the adjoints: their own sections below.
 """
 import ctypes
+import dataclasses
 import shutil
 import subprocess
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -54,6 +57,7 @@ from blitzdg_tpu_torch.ops import sw2d_blocked as TB
 from blitzdg_tpu_torch.ops.sw2d import SWPhysics
 from blitzdg_tpu_torch.parallel import blocked_shard as BS
 from blitzdg_tpu_torch.parallel import partition_mesh
+from blitzdg_tpu_torch.parallel import peer as PR
 from blitzdg_tpu_torch.parallel.halo import RingExchange
 from blitzdg_tpu_torch.specgrid.quad import build_quad_context
 from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
@@ -68,11 +72,14 @@ SHIM = r"""
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstddef>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <thread>
+#include <tuple>
 #include <vector>
 using std::max;
 using std::min;
@@ -80,14 +87,17 @@ using std::min;
 #define __global__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 #define __shared__
 // (internal linkage throughout: another shim library loaded into the same
 // process must not share these)
+// (thread-local, as the grid barrier is: each launch has its own, and the
+// ranks of the peer cases launch at once)
 struct shim_dim { unsigned x, y, z; };
 static thread_local shim_dim threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0};
-static shim_dim blockDim = {1, 1, 1}, gridDim = {1, 1, 1};
+static thread_local shim_dim blockDim = {1, 1, 1}, gridDim = {1, 1, 1};
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 static inline float4 make_float4(float x, float y, float z, float w) {
@@ -103,7 +113,7 @@ struct ShimBlock {
   std::vector<float4> mem;
 };
 static thread_local ShimBlock* shim_blk = nullptr;
-static std::barrier<>* shim_grid = nullptr;
+static thread_local std::barrier<>* shim_grid = nullptr;
 #define smem (reinterpret_cast<float*>(shim_blk->mem.data()))
 static inline void __syncthreads() { shim_blk->bar->arrive_and_wait(); }
 static inline void __syncwarp(unsigned = 0xffffffffu) {
@@ -128,6 +138,22 @@ static inline T __ldcg(const T* p) { return *p; }
 static inline void __threadfence() {
   std::atomic_thread_fence(std::memory_order_seq_cst);
 }
+// the peer mode's flags: a system fence a seq_cst fence, the trap an
+// exception that ends the thread's part of its launch, the global timer
+// the steady clock
+static inline void __threadfence_system() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+struct ShimTrap {};
+[[noreturn]] static inline void __trap() { throw ShimTrap{}; }
+static inline void __nanosleep(unsigned ns) {
+  std::this_thread::sleep_for(std::chrono::nanoseconds(ns));
+}
+static inline unsigned long long shim_clock_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
 static inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
@@ -141,7 +167,7 @@ static inline float __double2float_rn(double a) { return (float)a; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaErrorLaunchOutOfResources = 701,
+       cudaErrorLaunchOutOfResources = 701, cudaErrorLaunchFailure = 719,
        cudaErrorCooperativeLaunchTooLarge = 720,
        cudaErrorNotSupported = 801 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
@@ -192,15 +218,40 @@ static inline cudaError_t cudaLaunchCooperativeKernel(K, dim3, dim3, void**,
   return cudaErrorNotSupported;  // the kernels of the blocked rollouts
 }
 static inline cudaError_t cudaGetLastError() { return 0; }
+// the transport's set-up (peer.cu): host memory; no IPC on the host
+struct cudaIpcMemHandle_t { char reserved[64]; };
+enum { cudaIpcMemLazyEnablePeerAccess = 1 };
+static inline const char* cudaGetErrorString(cudaError_t) { return "shim"; }
+static inline cudaError_t cudaSetDevice(int) { return 0; }
+static inline cudaError_t cudaDeviceSynchronize() { return 0; }
+static inline cudaError_t cudaMalloc(void** p, size_t n) {
+  *p = std::calloc(n, 1);
+  return *p ? cudaSuccess : cudaErrorInvalidValue;
+}
+static inline cudaError_t cudaMemset(void* p, int v, size_t n) {
+  std::memset(p, v, n);
+  return 0;
+}
+static inline cudaError_t cudaFree(void* p) { std::free(p); return 0; }
+static inline cudaError_t cudaIpcGetMemHandle(cudaIpcMemHandle_t*, void*) {
+  return cudaErrorNotSupported;
+}
+static inline cudaError_t cudaIpcOpenMemHandle(void**, cudaIpcMemHandle_t,
+                                               unsigned) {
+  return cudaErrorNotSupported;
+}
+static inline cudaError_t cudaIpcCloseMemHandle(void*) {
+  return cudaErrorNotSupported;
+}
 // a launch: each CUDA thread a host thread; a cooperative launch runs all
 // its blocks at once (they meet at grid barriers), an ordinary one runs
-// them in turn
-template <class O, class A, class O2, class A2>
+// them in turn. A thread that traps leaves every barrier it belongs to,
+// the others run on, and the launch fails.
+template <class... P, class... A>
 static inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
-                                             void (*f)(O, A), O2&& o2,
-                                             A2&& a2) {
-  const O o = o2;
-  const A a = a2;
+                                             void (*f)(P...), A&&... args) {
+  const std::tuple<P...> params(std::forward<A>(args)...);
+  std::atomic<bool> trapped(false);
   bool coop = false;
   for (unsigned i = 0; i < cfg->numAttrs; ++i)
     coop = coop || (cfg->attrs[i].id == cudaLaunchAttributeCooperative
@@ -209,8 +260,6 @@ static inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
   if (T % 32 != 0) return cudaErrorInvalidValue;
   if (coop && (int)G > shim_sms * shim_per_sm)
     return cudaErrorCooperativeLaunchTooLarge;
-  blockDim = {T, 1, 1};
-  gridDim = {G, 1, 1};
   auto run = [&](unsigned b0, unsigned b1) {
     std::vector<ShimBlock> blocks(b1 - b0);
     for (auto& b : blocks) {
@@ -222,22 +271,32 @@ static inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
                    float4{0, 0, 0, 0});
     }
     std::barrier<> grid((b1 - b0) * T);
-    shim_grid = &grid;
     std::vector<std::thread> ts;
     for (unsigned blk = b0; blk < b1; ++blk)
       for (unsigned i = 0; i < T; ++i)
-        ts.emplace_back([f, &o, &a, &blocks, blk, b0, i] {
+        ts.emplace_back([f, &params, &blocks, &grid, &trapped, blk, b0, i,
+                         T, G] {
           threadIdx = {i, 0, 0};
           blockIdx = {blk, 0, 0};
+          blockDim = {T, 1, 1};
+          gridDim = {G, 1, 1};
           shim_blk = &blocks[blk - b0];
-          f(o, a);
+          shim_grid = &grid;
+          try {
+            std::apply(f, params);
+          } catch (const ShimTrap&) {
+            trapped = true;
+            shim_blk->bar->arrive_and_drop();
+            shim_blk->warp[i / 32]->arrive_and_drop();
+            grid.arrive_and_drop();
+          }
         });
     for (auto& t : ts) t.join();
   };
   if (coop) run(0, G);
   else
     for (unsigned b = 0; b < G; ++b) run(b, b + 1);
-  return 0;
+  return trapped ? cudaErrorLaunchFailure : cudaSuccess;
 }
 """
 
@@ -253,11 +312,37 @@ static inline grid_group this_grid() { return grid_group{}; }
 """
 
 
+# libcu++'s atomic_ref as the standard library's
+CUDA_ATOMIC = r"""
+#pragma once
+#include <atomic>
+namespace cuda {
+enum thread_scope { thread_scope_system, thread_scope_device,
+                    thread_scope_block, thread_scope_thread };
+namespace std {
+using ::std::memory_order_acquire;
+using ::std::memory_order_release;
+}  // namespace std
+template <class T, thread_scope S = thread_scope_system>
+struct atomic_ref : ::std::atomic_ref<T> {
+  explicit atomic_ref(T& t) : ::std::atomic_ref<T>(t) {}
+};
+}  // namespace cuda
+"""
+
+
 def _shim_source(src: str) -> str:
     """The kernels' source with shared memory a buffer of the block."""
     decl = "extern __shared__ float smem[];"
     assert src.count(decl) == 1
     return src.replace(decl, "")
+
+
+def _shim_flags(src: str) -> str:
+    """The flags' header with the steady clock for the global timer."""
+    timer = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));'
+    assert src.count(timer) == 1
+    return src.replace(timer, "t = shim_clock_ns();")
 
 
 @pytest.fixture(scope="module")
@@ -270,13 +355,23 @@ def shim_lib(tmp_path_factory):
     (d / "shim.h").write_text(SHIM)
     (d / "cuda_runtime.h").write_text('#pragma once\n#include "shim.h"\n')
     (d / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS)
+    (d / "cuda").mkdir()
+    (d / "cuda" / "atomic").write_text(CUDA_ATOMIC)
     src = (_build.CSRC / "sw2d_blocked.cu").read_text()
     (d / "sw2d_blocked_shim.cu").write_text(_shim_source(src))
+    # the transport's source in the same library (one translation unit:
+    # the shim's device is defined once), and the flags' header that both
+    # include (found first in this directory)
+    (d / "peer.cu").write_text((_build.CSRC / "peer.cu").read_text())
+    (d / "peer_flags.cuh").write_text(
+        _shim_flags((_build.CSRC / "peer_flags.cuh").read_text()))
+    (d / "both.cu").write_text('#include "sw2d_blocked_shim.cu"\n'
+                               '#include "peer.cu"\n')
     lib = d / "libsw2d_blocked_shim.so"
     cmd = [gxx, "-std=c++20", "-pthread", "-O1", "-fno-strict-aliasing",
            "-shared", "-fPIC", "-w", "-include", str(d / "shim.h"), "-I",
-           str(d), "-I", str(_build.CSRC), "-x", "c++",
-           str(d / "sw2d_blocked_shim.cu"), "-o", str(lib)]
+           str(d), "-I", str(_build.CSRC), "-x", "c++", str(d / "both.cu"),
+           "-o", str(lib)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     assert res.returncode == 0, res.stderr[-4000:]
     return ctypes.CDLL(str(lib))
@@ -393,11 +488,13 @@ class Case:
         assert m.n_ctrl == (n_ctrl if n_ctrl and not wetdry else 1)
         if n_shards > 1:
             # ring offsets; on triangles flipped cut faces too (the box's
-            # quadrilaterals have none)
+            # quadrilaterals have none; S=2 has the one offset 1, and the
+            # box cut in two no flipped cut face)
             plan = sb.plan
-            assert len(plan.offs) >= 2 and (quads or bool(
-                (plan.pflip.astype(bool)
-                 & (plan.psrc >= plan.psrc.shape[1])).any()))
+            assert len(plan.offs) >= min(2, n_shards - 1) and (
+                quads or n_shards == 2 or bool(
+                    (plan.pflip.astype(bool)
+                     & (plan.psrc >= plan.psrc.shape[1])).any()))
         self.state = tuple(BS.split_shards(torch.as_tensor(f, dtype=F32),
                                            n_shards)
                            for f in _scenarios(ctx, H, batch, wetdry, rng))
@@ -605,6 +702,159 @@ def test_stage_and_step_kernels_at_order_six(device):
     for step in (False, True):
         assert TB.shard_plan(sb.ops, sb.meta, 1,
                              step=step)["lanes_per_element"] == 8
+
+
+# ---------------------------------------------------------------------------
+# The one-launch step across ranks: its peer mode and the step-boundary
+# exchange (ops/csrc/peer.cu) over the flags of ops/csrc/peer_flags.cuh
+# ---------------------------------------------------------------------------
+#
+# S ranks in one process: S zeroed regions of host memory laid out as
+# ``parallel.peer.region_layout`` says, each rank's ``PeerRing`` over plain
+# pointers into the others (``PeerRing.over_regions``), each rank a host
+# thread that launches its exchange and its step in turn (the launches on
+# the shim device run their CUDA threads as host threads, each launch with
+# its own grid barrier). The ranks' launches run at once and meet only
+# through the flags: READY and ARRIVED a ring offset, the system-scope
+# acquire and release as the standard library's atomic_ref, the trap an
+# exception that fails the launch.
+
+PEER_STEPS = 3
+# (N, shards, batch, cells, shim device (SMs, blocks an SM))
+PEER_CASES = {
+    # one ring offset, rank + 1 and rank - 1 the same peer; the blocks loop
+    "N3_S2_B3": (3, 2, 3, (8, 8), (1, 1)),
+    "N1_S3_B1": (1, 3, 1, (6, 6), (2, 1)),  # run-time sizes, two offsets
+    "N3_S4_B1": (3, 4, 1, (8, 8), (2, 1)),  # three offsets, two blocks
+}
+
+
+def _rank_ops(ops, r):
+    """Shard r's operator set, with its shard axis (one rank's set)."""
+    return dataclasses.replace(ops, **{
+        f.name: getattr(ops, f.name)[r:r + 1]
+        for f in dataclasses.fields(ops)})
+
+
+class PeerCase:
+    """One case's sharded set, its stacked one-launch rollout (the
+    reference) and its ranks' rollouts over peer rings."""
+
+    def __init__(self, name):
+        n, S, B, cells, self.dev = PEER_CASES[name]
+        self.c = Case(n, S, B, cells=cells, seed=7)
+        self.S, self.B = S, B
+        sb = self.c.sets[F32]
+        self.sbuf0 = BS.initial_send_buffer(sb, self.c.state)
+
+    def stacked(self, n_steps):
+        c, sb = self.c, self.c.sets[F32]
+        launch = TB.RdmaLaunch(sb.ops, sb.meta, c.ex[F32])
+        st, sbuf, t = c.state, self.sbuf0, c.t
+        for _ in range(n_steps):
+            *st, sbuf = launch._launch(tuple(st), c.ex[F32](sbuf), c.dt, t,
+                                       c.ctrl, True)
+            t += c.dt
+        return (*st, sbuf)
+
+    def ranks(self, n_steps, delay=None, missing=(), timeout_s=30.0,
+              join_s=240.0):
+        """Each rank's (h, hu, hv, sb) after ``n_steps`` steps (None where it
+        failed or never ran), its error, its flags. ``delay``: (rank, every,
+        seconds) slept before every ``every``-th step; ``missing``: ranks
+        that never launch."""
+        c, sb = self.c, self.c.sets[F32]
+        plan, n_fp = sb.plan, sb.meta.n_fp
+        lay = PR.region_layout(self.B, sb.ops.send.shape[1], len(plan.offs))
+        regions = [torch.zeros(lay["bytes"], dtype=torch.uint8)
+                   for _ in range(self.S)]
+        bases = {r: g.data_ptr() for r, g in enumerate(regions)}
+        rings = [PR.PeerRing.over_regions(plan, n_fp, self.B, r, bases,
+                                          "cpu", timeout_s)
+                 for r in range(self.S)]
+        out, errors = [None] * self.S, [None] * self.S
+
+        def rank(r):
+            try:
+                launch = TB.RdmaLaunch(_rank_ops(sb.ops, r), sb.meta,
+                                       rings[r])
+                st = tuple(f[r:r + 1].clone() for f in c.state)
+                sbuf, t = self.sbuf0[r:r + 1].clone(), c.t
+                for k in range(n_steps):
+                    if delay and r == delay[0] and k % delay[1] == 0:
+                        time.sleep(delay[2])
+                    rings[r]._exchange(sbuf)
+                    *st, sbuf = launch._launch(tuple(st), rings[r].rbb, c.dt,
+                                               t, c.ctrl, True)
+                    t += c.dt
+                out[r] = (*st, sbuf)
+            except RuntimeError as e:
+                errors[r] = e
+
+        threads = [threading.Thread(target=rank, args=(r,), daemon=True)
+                   for r in range(self.S) if r not in missing]
+        t0 = time.monotonic()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(max(join_s - (time.monotonic() - t0), 0.0))
+        assert not any(th.is_alive() for th in threads), \
+            "a rank is still waiting: a wait that does not end"
+        flags = [ring.flags.clone() for ring in rings]
+        return out, errors, flags
+
+
+@pytest.mark.parametrize("name", list(PEER_CASES))
+def test_peer_step_matches_the_stacked_step(device, name):
+    """Each rank's state and send buffer after PEER_STEPS steps of the
+    exchange and the peer-mode step, the ranks' launches at once: bit-equal
+    to its shard of the stacked one-launch rollout, and the same bits on a
+    rerun over fresh regions. Every flag reads the last epoch (GOB one
+    ahead: the next exchange's), so no wait was skipped or doubled."""
+    pc = PeerCase(name)
+    device(*pc.dev)
+    want = pc.stacked(PEER_STEPS)
+    got, errors, flags = pc.ranks(PEER_STEPS)
+    assert errors == [None] * pc.S
+    for r in range(pc.S):
+        assert _same(got[r], [f[r:r + 1] for f in want]), f"rank {r}"
+    again = pc.ranks(PEER_STEPS)[0]
+    for r in range(pc.S):
+        assert _same(again[r], got[r])
+    n_off = len(pc.c.sets[F32].plan.offs)
+    for f in flags:
+        want_flags = [PEER_STEPS] + [PEER_STEPS, PEER_STEPS,
+                                     PEER_STEPS + 1, PEER_STEPS] * n_off
+        assert f.tolist() == want_flags
+
+
+def test_peer_step_holds_with_a_delayed_rank(device):
+    """S=4, rank 2 sleeping before every second step: the others wait at
+    its flags, and every rank's result is still its shard's bits."""
+    pc = PeerCase("N3_S4_B1")
+    device(*pc.dev)
+    want = pc.stacked(PEER_STEPS)
+    got, errors, _ = pc.ranks(PEER_STEPS, delay=(2, 2, 0.3))
+    assert errors == [None] * pc.S
+    for r in range(pc.S):
+        assert _same(got[r], [f[r:r + 1] for f in want]), f"rank {r}"
+
+
+def test_peer_step_traps_when_a_rank_never_launches(device):
+    """S=2 with rank 1 absent: rank 0's exchange finds its first slots free
+    (GOB starts at 1), its step waits for rank 1's chunk and traps after
+    the ring's bound (0.3 s), which fails the launch: an error, not a
+    hang (the test's own bound: 60 s)."""
+    pc = PeerCase("N3_S2_B3")
+    device(*pc.dev)
+    t0 = time.monotonic()
+    got, errors, flags = pc.ranks(1, missing=(1,), timeout_s=0.3, join_s=60.0)
+    assert got == [None, None] and errors[1] is None
+    assert isinstance(errors[0], RuntimeError)
+    assert "sw2d_step_rdma_blocked" in str(errors[0])
+    assert time.monotonic() - t0 < 60.0
+    # rank 0's exchange stored its chunk and released rank 1's INB
+    assert int(flags[1][4]) == 1 and int(flags[0][4]) == 0
 
 
 # ---------------------------------------------------------------------------

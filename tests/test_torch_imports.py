@@ -52,11 +52,13 @@ def test_package_has_the_slice_modules():
             "specgrid.quad", "ops.ins2d", "ops.advec1d", "ops.burgers1d",
             "config", "io", "io.csv", "io.vtk", "io.checkpoint", "native",
             # the element-sharded plain-tensor path, the pyblitzdg API
-            "parallel.sharding", "compat"}
+            "parallel.sharding", "compat",
+            # the one-launch sharded step's transport across ranks
+            "parallel.peer"}
     have = {m.removeprefix("blitzdg_tpu_torch.") for m in port_modules()}
     assert want <= have
     for name in ("sw2d_dense.cu", "sw2d_blocked.cu", "sw2d_curved.cu",
-                 "sw2d_common.cuh"):
+                 "sw2d_common.cuh", "peer.cu", "peer_flags.cuh"):
         assert (PKG / "ops" / "csrc" / name).exists()
     assert (PKG / "native" / "dgmesh.cpp").exists()
 
