@@ -228,17 +228,18 @@ __host__ __device__ inline int q_item_floats(int Np, int Ntr) {
   return 4 * Np + qround4(Np) + 4 * Ntr;
 }
 
-// Nodes, nodes a face, controls and lanes an item: constants of the
+// Nodes, nodes a face, controls, lanes an item and faces: constants of the
 // instantiation where the template gives them, else (0 sizes, NC < 0)
-// read at run time. Faces: three (triangles) in the compile-time
-// instances; the descriptor's in the run-time one, which qstage and qvjp
-// take on triangles and quadrilaterals alike. The lanes of a face (LPF)
+// read at run time. Faces: NFACES (three, triangles, or four,
+// quadrilaterals) in the compile-time instances; the descriptor's in the
+// run-time one, which qstage and qvjp take on triangles and
+// quadrilaterals alike. The lanes of a face (LPF)
 // are min(LANES, NFP): with more lanes than a face has nodes (the
 // adjoint's wide items), each group of NFP lanes takes a face, one trace
 // node a lane (qvjp). qstage's lane p holds nodes p + LANES k,
 // k < CFP, of every face; where the lanes do not divide a face (MASKED:
 // N=6), the last of them lie past it on some lanes.
-template <int NP, int NFP, int NC, int LANES>
+template <int NP, int NFP, int NC, int LANES, int NFACES = 3>
 struct QSizes {
   static constexpr int P = LANES;
   static constexpr int LPF = NP && LANES > NFP ? NFP : LANES;
@@ -246,17 +247,18 @@ struct QSizes {
   // a face's nodes, a lane
   static constexpr int CFP = NP ? (NFP + LPF - 1) / LPF : QMAX_NFP;
   // room of a lane's face arrays
-  static constexpr int NF = NP ? 3 : QMAX_NFACES;
+  static constexpr int NF = NP ? NFACES : QMAX_NFACES;
   static constexpr bool MASKED = NP && NFP % LANES != 0;
   // whether the one-launch step's lanes may hold their step-start and
   // stage-1 nodes through its second stage (at N=6 they and the stage's
   // own values would pass the 128 registers and spill)
   static constexpr bool KEEP = NP <= 10;
   // unroll factors of qstage's products over a node's columns (MU) and its
-  // trace nodes (LU): complete at compile-time sizes up to N=3, partial at
-  // N=6 (unrolled completely, they spill), none at run-time sizes
+  // trace nodes (LU): complete at compile-time sizes up to 10 nodes,
+  // partial above (N=6: unrolled completely, they spill; quadrilaterals at
+  // N=4 take the same factors), none at run-time sizes
   static constexpr int MU = !NP ? 1 : NP > 10 ? 4 : NP;
-  static constexpr int LU = !NP ? 1 : NP > 10 ? 3 : 3 * NFP;
+  static constexpr int LU = !NP ? 1 : NP > 10 ? 3 : NFACES * NFP;
   __device__ __forceinline__ static int np(const Ops& o) {
     return NP ? NP : o.Np;
   }
@@ -264,10 +266,10 @@ struct QSizes {
     return NP ? NFP : o.Nfp;
   }
   __device__ __forceinline__ static int ntr(const Ops& o) {
-    return NP ? 3 * NFP : o.Ntr;
+    return NP ? NFACES * NFP : o.Ntr;
   }
   __device__ __forceinline__ static int nfaces(const Ops& o) {
-    return NP ? 3 : o.Nfaces;
+    return NP ? NFACES : o.Nfaces;
   }
   __device__ __forceinline__ static int nc(const Ops& o) {
     return NC >= 0 ? NC : o.n_ctrl;
@@ -290,6 +292,9 @@ struct QSizes {
 typedef QSizes<10, 4, 2, 4> QOrder3Ctrl;  // N=3 with two controls
 typedef QSizes<10, 4, -1, 4> QOrder3;     // N=3, other control counts
 typedef QSizes<28, 7, -1, 8> QOrder6;     // N=6, the forward kernels
+// quadrilaterals at N=4 (Np 25, Nfp 5), the blocked rollout's: eight lanes
+// an element, lanes 5-7 masked on the faces, as at N=6
+typedef QSizes<25, 5, -1, 8, 4> QOrder4Quad;
 typedef QSizes<0, 0, -1, 1> QAnyOrder;
 // the stage adjoint's wide items at small batches: 16 lanes an element at
 // N=3; 8 at N=1 with two controls (the sharded MPC example's set)
@@ -682,20 +687,34 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
 // (a.peer: the ring's table), the halo stored into the peers' memory and
 // the handshakes through their flags (peer_flags.cuh), in this order for
 // the launch of epoch e:
-//   1. block 0 releases GO2 = e to the rank that sends to this one at each
-//      ring offset: this rank's stage-2 slots are free (the launch of epoch
-//      e - 1 has ended, its reads done); every block waits for INB >= e of
-//      each offset (the peers' step-boundary exchange, which stream order
-//      does not cover, has written rb) and for GO2 >= e (the receiving
-//      ranks' stage-2 slots are free for the stores, q_zero_empty's zeros
-//      among them);
-//   2. stage 1 and its stores into the peers' stage-2 slots, then a system
-//      fence in every thread;
+//   1. thread i of block 0 releases GO2 = e to the rank that sends to this
+//      one at ring offset i: this rank's stage-2 slots are free (the launch
+//      of epoch e - 1 has ended, its reads done); in every block, thread i
+//      waits for INB >= e of offset i (the peers' step-boundary exchange,
+//      which stream order does not cover, has written rb) and thread
+//      n_off + i for GO2 >= e of offset i (the receiving ranks' stage-2
+//      slots are free for the stores, q_zero_empty's zeros among them): the
+//      2 n_off acquire loads of a block in one round, and the block barrier
+//      after the operators' copy passes what they acquired on to the block;
+//   2. stage 1 and its stores into the peers' stage-2 slots; a block
+//      barrier, then one system fence a block (below);
 //   3. the grid barrier: stage 1's reads of rb are done, so block 0 bumps
-//      the epoch and releases GOB = e + 1 to the sending ranks (their next
-//      exchange may overwrite rb); thread i of block 0 fences and releases
-//      IN2 = e at the rank that ring offset i sends to;
-//   4. every block waits for its own IN2 >= e of each offset, then stage 2.
+//      the epoch, and its thread i releases GOB = e + 1 to the rank that
+//      sends to this one at offset i (its next exchange may overwrite rb)
+//      and IN2 = e at the rank that offset i sends to;
+//   4. in every block thread i waits for its own IN2 >= e of offset i, and
+//      a block barrier passes it on; then stage 2.
+// Memory order of the stores into a peer's memory (step 2): they must be
+// visible at system scope before IN2 is. PTX's fences and releases are
+// cumulative: a thread's fence also orders the stores of other threads
+// that it has observed, here through the block barrier (bar.sync: CTA
+// scope) and the grid barrier (the gpu-scope fences and atomics of
+// cooperative groups' grid.sync). So thread 0 of each block fences at
+// system scope after its block has met, and the release of IN2 (system
+// scope) follows the grid barrier: one fence a block, not one a thread
+// (256 against 16 384 at K_loc=512, B=8). It is the pattern of grid.sync
+// itself, which publishes a block's stores at gpu scope with one thread's
+// __threadfence after __syncthreads.
 // The epoch lives in device memory (the region's first flag word), read
 // and bumped by the launch, not passed in, so that a captured launch
 // replays. Both modes run the same stage code, so the bits are those of
@@ -708,14 +727,14 @@ __device__ __forceinline__ void rdma_step(const SwDesc& d,
   const long long* tab = a.peer;
   const int n_off = PEER ? (int)tab[PT_NOFF] : 0;
   const flag_t e = PEER ? *peer_epoch(tab) + 1 : 0;
-  if (PEER && threadIdx.x == 0) {
+  if (PEER) {
     if (blockIdx.x == 0)
-      for (int i = 0; i < n_off; ++i)
+      for (int i = threadIdx.x; i < n_off; i += blockDim.x)
         flag_release(peer_flag(tab, peer_from(tab, i), i, PEER_GO2), e);
-    for (int i = 0; i < n_off; ++i) {
-      flag_wait(peer_flag(tab, tab[PT_OWN], i, PEER_INB), e, tab[PT_TIMEOUT]);
-      flag_wait(peer_flag(tab, tab[PT_OWN], i, PEER_GO2), e, tab[PT_TIMEOUT]);
-    }
+    for (int k = threadIdx.x; k < 2 * n_off; k += blockDim.x)
+      flag_wait(peer_flag(tab, tab[PT_OWN], k % n_off,
+                          k < n_off ? PEER_INB : PEER_GO2),
+                e, tab[PT_TIMEOUT]);
   }
   q_setup_ops(g, smem);
   __syncthreads();
@@ -759,25 +778,22 @@ __device__ __forceinline__ void rdma_step(const SwDesc& d,
                        a.rb + l.sc * ls, 0.5f * a.dt, h_bc1, a.dt, a.ctrl,
                        a.use_filter, false, false);
   }
-  if (PEER) __threadfence_system();
+  if (PEER) {  // the block's stores into the peers, at system scope
+    __syncthreads();
+    if (threadIdx.x == 0) __threadfence_system();
+  }
   grid.sync();
   if (PEER) {
     if (blockIdx.x == 0) {
-      if (threadIdx.x == 0) {
-        *peer_epoch(tab) = e;
-        for (int i = 0; i < n_off; ++i)
-          flag_release(peer_flag(tab, peer_from(tab, i), i, PEER_GOB), e + 1);
-      }
-      if ((int)threadIdx.x < n_off) {
-        __threadfence_system();
-        flag_release(peer_flag(tab, peer_to(tab, threadIdx.x), threadIdx.x,
-                               PEER_IN2), e);
+      if (threadIdx.x == 0) *peer_epoch(tab) = e;
+      for (int i = threadIdx.x; i < n_off; i += blockDim.x) {
+        flag_release(peer_flag(tab, peer_from(tab, i), i, PEER_GOB), e + 1);
+        flag_release(peer_flag(tab, peer_to(tab, i), i, PEER_IN2), e);
       }
     }
-    if (threadIdx.x == 0)
-      for (int i = 0; i < n_off; ++i)
-        flag_wait(peer_flag(tab, tab[PT_OWN], i, PEER_IN2), e,
-                  tab[PT_TIMEOUT]);
+    for (int i = threadIdx.x; i < n_off; i += blockDim.x)
+      flag_wait(peer_flag(tab, tab[PT_OWN], i, PEER_IN2), e,
+                tab[PT_TIMEOUT]);
     __syncthreads();
   }
   for (int first = blockIdx.x * ipb; first < n_items;
@@ -806,7 +822,12 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
   rdma_step<Z, false>(d, a);
 }
 
-// The peer mode: one shard a rank (S = 1), the ring's table in a.peer.
+// The peer mode: one shard a rank (S = 1), the ring's table in a.peer. Its
+// items are the stacked step's (four lanes an element at N=3), so that a
+// rank's bits are its shard's of the stacked step: wider items (sixteen
+// lanes, as the stage adjoint takes at small batches) shorten a stage's
+// chain, but round differently (PERF.md), and a grid that fills the card
+// leaves no room for the other ranks of a ring that share it.
 template <class Z>
 __global__ void __launch_bounds__(QMAX_THREADS, 2)
     sw2d_step_rdma_peer_kernel(SwDesc d, RdmaArgs a) {
@@ -832,13 +853,18 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
 // On a wet/dry set the positivity limiter follows each stage (qstage's).
 // Step t takes the controls ctrls[b, t / spc].
 //
-// Quadrilateral elements (four faces, tensor-product nodes) run here too,
-// on the run-time-size instance (one lane an item): qstage's face loops go
-// over the descriptor's face count, and the rest of a stage (the lift over
-// Ntr = 4 Nfp trace nodes, the operators' and the item's shared memory,
-// the element-local limiter) is sized from the descriptor already. The
-// room of its arrays takes quadrilaterals up to N=4 (Np 25 <= QMAX_NP,
-// Nfp 5 <= QMAX_NFP). The compile-time instances stay triangles.
+// Quadrilateral elements (four faces, tensor-product nodes) run here too:
+// qstage's face loops go over four faces, and the rest of a stage (the
+// lift over Ntr = 4 Nfp trace nodes, the operators' and the item's shared
+// memory, the element-local limiter) is sized from the descriptor. At N=4
+// (Np 25, Nfp 5: the quads path's order) the instance has compile-time
+// sizes, QOrder4Quad: eight lanes an element, lane p holding node p of each
+// face (lanes 5-7 redo node 4 and store nothing) and the volume nodes p,
+// p+8, p+16, p+24, the products unrolled by parts, as at N=6. On the quads
+// path (K=144, B=8) that is 288 warps on the card's 132 SMs where one lane
+// an element gave 36. Other quadrilateral orders take the run-time-size
+// instance (one lane an item), whose arrays' room reaches N=4 (Np 25 <=
+// QMAX_NP, Nfp 5 <= QMAX_NFP).
 //
 // Each stage is the sharded stage kernel's (B7's) pass over the items: a
 // lane reads its own nodes of the stage's input, the two sides of its
@@ -1720,28 +1746,31 @@ enum { Q_STAGE = 0, Q_STEP = 1, Q_STAGE_BWD = 2, Q_ROLLOUT_BWD = 3,
 
 // The instantiation of the q kernels for a set: N=3 with two controls
 // (the MPC's), N=3 with others (a set built without injectors has one,
-// which its rollouts never read), N=6 (the forward kernels' own), else the
-// run-time sizes; -1 past their room. Quadrilaterals (four faces) take the
+// which its rollouts never read), N=6 (the forward kernels' own),
+// quadrilaterals at N=4 (the blocked rollout's own), else the run-time
+// sizes; -1 past their room. The other quadrilateral orders take the
 // run-time sizes in every q kernel.
 static int q_kind(const SwDesc& d) {
   if (d.Np > QMAX_NP || d.Nfp > QMAX_NFP) return -1;
-  if (d.Nfaces == QMAX_NFACES) return 2;
+  if (d.Nfaces == QMAX_NFACES) return d.Np == 25 && d.Nfp == 5 ? 4 : 2;
   if (d.Nfaces != 3) return -1;
   if (d.Np == 10 && d.Nfp == 4) return d.n_ctrl == 2 ? 0 : 1;
   if (d.Np == 28 && d.Nfp == 7) return 3;
   return 2;
 }
 
-// (order6: null where the kernel takes the run-time sizes at N=6, as the
-// adjoints do)
+// (order6, quad4: null where the kernel takes the run-time sizes at N=6,
+// as the adjoints do, or on quadrilaterals at N=4, as all but the blocked
+// rollout do)
 template <class K>
 static K q_pick(const SwDesc& d, K order3_ctrl, K order3, K any_order,
-                K order6) {
+                K order6, K quad4) {
   switch (q_kind(d)) {
     case 0: return order3_ctrl;
     case 1: return order3;
     case 2: return any_order;
     case 3: return order6 != nullptr ? order6 : any_order;
+    case 4: return quad4 != nullptr ? quad4 : any_order;
     default: return nullptr;
   }
 }
@@ -1750,28 +1779,29 @@ static StageKern stage_kernel_of(const SwDesc& d) {
   return q_pick<StageKern>(d, sw2d_stage_kernel<QOrder3Ctrl>,
                            sw2d_stage_kernel<QOrder3>,
                            sw2d_stage_kernel<QAnyOrder>,
-                           sw2d_stage_kernel<QOrder6>);
+                           sw2d_stage_kernel<QOrder6>, nullptr);
 }
 
 static RdmaKern rdma_kernel_of(const SwDesc& d) {
   return q_pick<RdmaKern>(d, sw2d_step_rdma_kernel<QOrder3Ctrl>,
                           sw2d_step_rdma_kernel<QOrder3>,
                           sw2d_step_rdma_kernel<QAnyOrder>,
-                          sw2d_step_rdma_kernel<QOrder6>);
+                          sw2d_step_rdma_kernel<QOrder6>, nullptr);
 }
 
 static RdmaKern rdma_peer_kernel_of(const SwDesc& d) {
   return q_pick<RdmaKern>(d, sw2d_step_rdma_peer_kernel<QOrder3Ctrl>,
                           sw2d_step_rdma_peer_kernel<QOrder3>,
                           sw2d_step_rdma_peer_kernel<QAnyOrder>,
-                          sw2d_step_rdma_peer_kernel<QOrder6>);
+                          sw2d_step_rdma_peer_kernel<QOrder6>, nullptr);
 }
 
 static FwdKern rollout_kernel_of(const SwDesc& d) {
   return q_pick<FwdKern>(d, sw2d_blocked_rollout_kernel<QOrder3Ctrl>,
                          sw2d_blocked_rollout_kernel<QOrder3>,
                          sw2d_blocked_rollout_kernel<QAnyOrder>,
-                         sw2d_blocked_rollout_kernel<QOrder6>);
+                         sw2d_blocked_rollout_kernel<QOrder6>,
+                         sw2d_blocked_rollout_kernel<QOrder4Quad>);
 }
 
 // The N=1 set with two controls, which has a wide instantiation.
@@ -1784,19 +1814,20 @@ static StageBwdKern stage_bwd_kernel_of(const SwDesc& d, int lanes) {
   if (lanes == 16)
     return q_pick<StageBwdKern>(d, sw2d_stage_bwd_kernel<QOrder3CtrlWide>,
                                 sw2d_stage_bwd_kernel<QOrder3Wide>, nullptr,
-                                nullptr);
+                                nullptr, nullptr);
   if (lanes == 8)
     return q_order1_ctrl(d) ? sw2d_stage_bwd_kernel<QOrder1CtrlWide> : nullptr;
   return q_pick<StageBwdKern>(d, sw2d_stage_bwd_kernel<QOrder3Ctrl>,
                               sw2d_stage_bwd_kernel<QOrder3>,
-                              sw2d_stage_bwd_kernel<QAnyOrder>, nullptr);
+                              sw2d_stage_bwd_kernel<QAnyOrder>, nullptr,
+                              nullptr);
 }
 
 static BwdKern rollout_bwd_kernel_of(const SwDesc& d) {
   return q_pick<BwdKern>(d, sw2d_blocked_rollout_bwd_kernel<QOrder3Ctrl>,
                          sw2d_blocked_rollout_bwd_kernel<QOrder3>,
                          sw2d_blocked_rollout_bwd_kernel<QAnyOrder>,
-                         nullptr);
+                         nullptr, nullptr);
 }
 
 static const void* q_kernel(const SwDesc& d, int which, int lanes) {
@@ -1812,12 +1843,14 @@ static const void* q_kernel(const SwDesc& d, int which, int lanes) {
 }
 
 // Lanes an item of kernel `which`: a face's nodes at N=3; QOrder6's at
-// N=6 in the forward kernels; one otherwise.
+// N=6 in the forward kernels; QOrder4Quad's on quadrilaterals at N=4 in
+// the blocked rollout; one otherwise.
 static int q_lanes(const SwDesc& d, int which) {
   const bool adjoint = which == Q_STAGE_BWD || which == Q_ROLLOUT_BWD;
   switch (q_kind(d)) {
     case 2: return 1;
     case 3: return adjoint ? 1 : QOrder6::P;
+    case 4: return which == Q_ROLLOUT ? QOrder4Quad::P : 1;
     default: return 4;
   }
 }

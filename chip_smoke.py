@@ -129,6 +129,11 @@ in order (any failure is an exception and a non-zero exit):
     ``peer_S4_in_process``: the four ranks in this process on four streams
     (``PeerRing.over_regions``), their kernels running at the same time,
     bit-equal to the stacked rollout, and their host-clocked us a step;
+    and ``peer_S4_in_process_long``: the same over 2048 steps (an eighth
+    of the set's dt, where its state stays finite), at every step one rank
+    drawn from the seed held back on its stream, each rank's state, send
+    buffer and stage-2 receive slots bit-equal to the stacked rollout's
+    after every step;
  8. ELLIPTIC path (no kernel of its own: plain tensor code): the JAX
     benchmark's Poisson configuration, N=2, float32, on
     ``box_triangles(23, 23)`` (K=1058; the benchmark's box.msh, K=1046, is
@@ -2921,14 +2926,17 @@ def quads_phases(dev, card: str, rng, flush) -> list:
             refused[kname] = False
         except ValueError as e:
             refused[kname] = "N <= 4" in str(e) and kname in str(e)
-    kern_ok = (all(refused.values())
-               and all(p["lanes_per_element"] == 1 for p in plans.values()))
+    # the blocked rollout (B5, B4) takes the N=4 instance, eight lanes an
+    # element; the others the run-time sizes, one lane
+    kern_ok = all(refused.values()) and all(
+        p["lanes_per_element"] == (8 if k == "rollout" else 1)
+        for k, p in plans.items())
     say({"phase": "quads_kernels", "ok": kern_ok, "card": card,
          "cases": sorted({r["case"] for r in head.values()}),
          "refused_quads_n5": refused, "plans": plans})
     if not kern_ok:
         raise RuntimeError("a q kernel took quads above N=4, or a quad plan "
-                           "is not one lane an element")
+                           "has other lanes an element than its instance")
 
     # ---- the main path on quads: the example's problem through B5 and B4,
     # the blocked Adam solve (B5, B6) and the sharded steps on the
@@ -3116,12 +3124,19 @@ def quads_phases(dev, card: str, rng, flush) -> list:
                     "blitzdg_tpu/ops/sw2d_blocked.py:1710",
                 "sw2d_step_rdma_blocked":
                     "blitzdg_tpu/ops/sw2d_blocked.py:1118"}
+    plan_of = {"sw2d_step_blocked": "rollout",
+               "sw2d_rollout_blocked": "rollout",
+               "sw2d_rollout_bwd_blocked": "rollout_bwd",
+               "sw2d_stage_blocked": "stage",
+               "sw2d_stage_bwd_blocked_v2": "stage_bwd",
+               "sw2d_step_rdma_blocked": "step_rdma"}
     return [{"name": name + "_quads", "route": "cuda", "source": src,
              "replaces": replaces[name], "launches": launches[name],
              "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
              "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
              "bound_by": rec["bound_by"], "library_ms": None,
-             "device_launches_per_call": TB.DEVICE_LAUNCHES_PER_CALL}
+             "device_launches_per_call": TB.DEVICE_LAUNCHES_PER_CALL,
+             "lanes_per_element": plans[plan_of[name]]["lanes_per_element"]}
             for name, rec in head.items()]
 
 
@@ -3615,6 +3630,16 @@ PEER_CASES = (("peer_S4", 4, None), ("peer_S2", 2, None),
               ("peer_S4_delayed_rank", 4, (2, 8, 0.5)))
 PEER_WORKER_TIMEOUT = 300  # seconds, each worker process
 PEER_TIMED_REPS = 9
+# the long in-process run: steps; the most cycles a rank drawn at each
+# step is held on its stream before it (about 0.1 ms at 1.98 GHz, three
+# steps of a rank alone); its dt, a fraction of the set's, so that its
+# steps span the time of 256 of the set's (over a longer time the coastal
+# set's currents grow at its open boundary until its state is no longer
+# finite, in the plain version as in the kernels, and bits would not tell
+# a stale halo from a fresh one)
+PEER_LONG_STEPS = 2048
+PEER_LONG_DELAY_CYCLES = 200_000
+PEER_LONG_DT_FRACTION = 1 / 8
 
 
 def peer_problem(S: int, dev, shards=None):
@@ -3783,25 +3808,18 @@ def run_peer_workers(S: int, case_dir: Path, delay, timed: bool) -> list:
     return [torch.load(case_dir / f"rank{r}.pt") for r in range(S)]
 
 
-def run_peer_in_process(sb, state, cs, dt: float, t0: float, dev,
-                        n_steps: int = PEER_STEPS):
+def peer_ranks_in_process(sb, batch: int, dev):
     """The S ranks of ``sb``'s ring in this process: S regions of this
     process, each rank's ``PeerRing`` over plain pointers into the others
-    (``PeerRing.over_regions``), its own operator set and its own stream;
-    ``n_steps`` steps enqueued rank after rank, untimed, then again on the
-    host clock (synchronised). The ranks' step launches are resident on
-    the card together and meet only through their flags: the only run in
-    which their kernels run at the same time (processes without MPS
-    time-slice the card). Returns each rank's end (h, hu, hv, sb), the
-    us a step of the timed run, rank 0's ring and launch (for timing it
-    alone) and a function that frees the regions."""
+    (``PeerRing.over_regions``), its own operator set and its own stream.
+    Returns the rings, the ranks' ``RdmaLaunch``es, their streams and a
+    function that frees the regions."""
     from blitzdg_tpu_torch.ops import sw2d_blocked as TB
-    from blitzdg_tpu_torch.parallel import blocked_shard as BS
     from blitzdg_tpu_torch.parallel import peer as PR
 
-    S, B = sb.n_shards, state[0].shape[1]
+    S = sb.n_shards
     lib = PR._lib()
-    lay = PR.region_layout(B, sb.ops.send.shape[1], len(sb.plan.offs))
+    lay = PR.region_layout(batch, sb.ops.send.shape[1], len(sb.plan.offs))
     bases = {}
 
     def free():
@@ -3814,11 +3832,29 @@ def run_peer_in_process(sb, state, cs, dt: float, t0: float, dev,
         PR._check(lib, lib.peer_alloc(dev.index or 0, lay["bytes"],
                                       ctypes.byref(p)), "peer_alloc")
         bases[r] = p.value
-    rings = [PR.PeerRing.over_regions(sb.plan, sb.meta.n_fp, B, r, bases,
+    rings = [PR.PeerRing.over_regions(sb.plan, sb.meta.n_fp, batch, r, bases,
                                       dev) for r in range(S)]
     launches = [TB.RdmaLaunch(rank_ops(sb.ops, r), sb.meta, rings[r])
                 for r in range(S)]
     streams = [torch.cuda.Stream(dev) for _ in range(S)]
+    return rings, launches, streams, free
+
+
+def run_peer_in_process(sb, state, cs, dt: float, t0: float, dev,
+                        n_steps: int = PEER_STEPS):
+    """The S ranks of ``sb``'s ring in this process
+    (``peer_ranks_in_process``): ``n_steps`` steps enqueued rank after
+    rank, untimed, then again on the host clock (synchronised). The ranks'
+    step launches are resident on the card together and meet only through
+    their flags: the only run in which their kernels run at the same time
+    (processes without MPS time-slice the card). Returns each rank's end
+    (h, hu, hv, sb), the us a step of the timed run, rank 0's ring and
+    launch (for timing it alone) and a function that frees the regions."""
+    from blitzdg_tpu_torch.parallel import blocked_shard as BS
+
+    S = sb.n_shards
+    rings, launches, streams, free = peer_ranks_in_process(
+        sb, state[0].shape[1], dev)
     sbuf0 = BS.initial_send_buffer(sb, state)
 
     def run():
@@ -3843,6 +3879,80 @@ def run_peer_in_process(sb, state, cs, dt: float, t0: float, dev,
     us = (time.perf_counter() - w0) * 1e6 / n_steps
     ends = [(*c[0], c[1]) for c in carry]
     return ends, us, rings[0], launches[0], free
+
+
+def bit_digest(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bits digested along its first axis: the sum of
+    each entry's words as int32, in int64 (a changed word changes it)."""
+    return t.contiguous().view(torch.int32).reshape(t.shape[0], -1).sum(
+        1, dtype=torch.int64)
+
+
+def run_peer_in_process_checked(sb, state, cs, dt: float, t0: float, dev,
+                                rng, n_steps: int = PEER_LONG_STEPS):
+    """The S ranks of ``sb``'s ring in this process for ``n_steps`` steps
+    (the controls ``cs`` cycled), at each step one rank, drawn from
+    ``rng``, held on its stream for up to ``PEER_LONG_DELAY_CYCLES``
+    before it, so that its peers wait at their flags for it in every
+    order. After each step, on each rank's stream, the bits of its state,
+    its send buffer and its stage-2 receive slots (the peers' stage-1 halo
+    that IN2 guards and its stage 2 read) are digested and held to the
+    stacked one-launch rollout's of the same step and shard. Every kernel
+    of the loop is launched once before it: a kernel's first launch loads
+    its module (CUDA's lazy loading), which waits for the context's running
+    kernels, and a rank's step that waits for a peer's then never ends.
+    Returns the steps whose digests differ, a list a rank, the steps each
+    rank was held back, and whether the stacked rollout's state stayed
+    finite."""
+    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+    from blitzdg_tpu_torch.parallel import blocked_shard as BS
+    from blitzdg_tpu_torch.parallel.halo import RingExchange
+
+    S = sb.n_shards
+    who = rng.integers(0, S, n_steps)
+    cycles = rng.integers(0, PEER_LONG_DELAY_CYCLES, n_steps)
+    sbuf0 = BS.initial_send_buffer(sb, state)
+    # the stacked rollout's digests, step by step
+    ex = RingExchange(sb.plan, sb.meta.n_fp, device=dev)
+    stacked = TB.RdmaLaunch(sb.ops, sb.meta, ex)
+    want = torch.empty((n_steps, S, 5), dtype=torch.int64, device=dev)
+    carry, t = (state, sbuf0), t0
+    for k in range(n_steps):
+        *s2, sb2 = stacked(carry[0], ex(carry[1]), dt, t, cs[k % len(cs)])
+        rb2 = stacked._scratch[1]  # the step's stage-2 receive buffer
+        want[k] = torch.stack([bit_digest(f) for f in (*s2, sb2, rb2)], 1)
+        carry, t = (tuple(s2), sb2), t + dt
+    finite = all(bool(torch.isfinite(f).all()) for f in carry[0])
+    got = torch.empty_like(want)
+    rings, launches, streams, free = peer_ranks_in_process(
+        sb, state[0].shape[1], dev)
+    try:
+        carry = [(tuple(f[r:r + 1] for f in state), sbuf0[r:r + 1])
+                 for r in range(S)]
+        for r in range(S):  # the loop's other kernels, loaded
+            got[0, r] = torch.cat([bit_digest(f) for f in (
+                *carry[r][0], carry[r][1], rings[r].rb2)])
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        t = t0
+        for k in range(n_steps):
+            for r in range(S):
+                with torch.cuda.stream(streams[r]):
+                    if r == who[k]:
+                        torch.cuda._sleep(int(cycles[k]))
+                    st, sbuf = carry[r]
+                    *s2, sb2 = launches[r](st, rings[r](sbuf), dt, t,
+                                           cs[k % len(cs)])
+                    got[k, r] = torch.cat([bit_digest(f) for f in (
+                        *s2, sb2, rings[r].rb2)])
+                    carry[r] = (tuple(s2), sb2)
+            t += dt
+        torch.cuda.synchronize()
+    finally:
+        free()
+    bad = (got != want).any(2).cpu()
+    return ([torch.nonzero(bad[:, r]).flatten().tolist() for r in range(S)],
+            np.bincount(who, minlength=S).tolist(), finite)
 
 
 def _gpu_query(field: str) -> str:
@@ -3983,6 +4093,26 @@ def peer_phases(dev, card: str, rng, flush) -> list:
     say(rec)
     if not rec["ok"]:
         raise RuntimeError(f"the in-process peer case failed: {rec}")
+    # the same, long, with a rank held back at every step, each step's bits
+    # held to the stacked rollout's
+    w0 = time.perf_counter()
+    dt_long = ref["dt"] * PEER_LONG_DT_FRACTION
+    bad, held, finite = run_peer_in_process_checked(
+        ref["sb"], ref["state"], ref["cs"], dt_long, ref["t0"], dev, rng)
+    rec = {"phase": "peer_S4_in_process_long", "n_shards": 4,
+           "steps": PEER_LONG_STEPS, "batch": PEER_BATCH, "dt": dt_long,
+           "stacked_state_finite": finite,
+           "steps_held_back_per_rank": held,
+           "most_cycles_held": PEER_LONG_DELAY_CYCLES,
+           "checked_each_step": ["h", "hu", "hv", "send buffer",
+                                 "stage-2 receive slots"],
+           "steps_not_bit_equal_to_stacked": [b[:8] for b in bad],
+           "n_steps_not_bit_equal": [len(b) for b in bad],
+           "seconds": time.perf_counter() - w0, "card": card,
+           "ok": finite and not any(bad)}
+    say(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"the long in-process peer case failed: {rec}")
     # the kernels line: rank 0 of the S=4 case, alone
     S, ref, r0, err1 = timed
     sb, meta, B = ref["sb"], ref["sb"].meta, PEER_BATCH
@@ -4014,7 +4144,8 @@ def peer_phases(dev, card: str, rng, flush) -> list:
          "launches": total["sw2d_step_rdma_blocked (peer)"],
          "max_abs_err": err1, "ms": r0["step_ms"], "plain_ms": plain_ms,
          "bound_ms": step_bound[0], "bound_by": step_bound[1],
-         "library_ms": None},
+         "library_ms": None,
+         "lanes_per_element": r0["plan"]["lanes_per_element"]},
         {"name": "peer_ring_exchange", "route": "cuda",
          "source": "blitzdg_tpu_torch/ops/csrc/peer.cu",
          "replaces": "blitzdg_tpu/parallel/blocked_shard.py:550",
@@ -4102,28 +4233,35 @@ DENSE_KERNELS = [
 # sharded path's: the stage kernel, its adjoint (and its wide
 # instantiations: two at N=3, 16 lanes an element, one at N=1 with two
 # controls, 8) and the one-launch step; the blocked path's: the rollout
-# (the step's kernel too) and its adjoint.
-Q_SIZES = ("I6QSizesILi10ELi4ELi2ELi4EEE", "I6QSizesILi10ELi4ELin1ELi4EEE",
-           "I6QSizesILi0ELi0ELin1ELi1EEE")
-Q_SIZES_N6 = "I6QSizesILi28ELi7ELin1ELi8EEE"
+# (the step's kernel too) and its adjoint. (QSizes<NP, NFP, NC, LANES,
+# NFACES>, mangled.)
+Q_SIZES = ("I6QSizesILi10ELi4ELi2ELi4ELi3EEE",
+           "I6QSizesILi10ELi4ELin1ELi4ELi3EEE",
+           "I6QSizesILi0ELi0ELin1ELi1ELi3EEE")
+Q_SIZES_N6 = "I6QSizesILi28ELi7ELin1ELi8ELi3EEE"
+Q_SIZES_WIDE_N3 = ("I6QSizesILi10ELi4ELi2ELi16ELi3EEE",
+                   "I6QSizesILi10ELi4ELin1ELi16ELi3EEE")
+# quadrilaterals at N=4, eight lanes an element (the blocked rollout's)
+Q_SIZES_QUAD_N4 = "I6QSizesILi25ELi5ELin1ELi8ELi4EEE"
 SHARDED_KERNELS = [
     k + z for k in ("_Z17sw2d_stage_kernel", "_Z21sw2d_stage_bwd_kernel",
                     "_Z21sw2d_step_rdma_kernel")
     for z in Q_SIZES] + [
     "_Z21sw2d_stage_bwd_kernel" + z
-    for z in ("I6QSizesILi10ELi4ELi2ELi16EEE",
-              "I6QSizesILi10ELi4ELin1ELi16EEE", "I6QSizesILi3ELi2ELi2ELi8EEE")
+    for z in Q_SIZES_WIDE_N3 + ("I6QSizesILi3ELi2ELi2ELi8ELi3EEE",)
 ] + [k + Q_SIZES_N6 for k in ("_Z17sw2d_stage_kernel",
                               "_Z21sw2d_step_rdma_kernel")]
 BLOCKED_ADJOINT_KERNELS = ["_Z31sw2d_blocked_rollout_bwd_kernel" + z
                            for z in Q_SIZES]
 BLOCKED_FORWARD_KERNELS = ["_Z27sw2d_blocked_rollout_kernel" + z
                            for z in Q_SIZES + (Q_SIZES_N6,)]
-# Quadrilaterals run every q kernel's run-time-size instantiation.
-QUAD_KERNELS = [k + Q_SIZES[2] for k in (
-    "_Z27sw2d_blocked_rollout_kernel", "_Z31sw2d_blocked_rollout_bwd_kernel",
-    "_Z17sw2d_stage_kernel", "_Z21sw2d_stage_bwd_kernel",
-    "_Z21sw2d_step_rdma_kernel")]
+# Quadrilaterals run the blocked rollout's N=4 instantiation and every q
+# kernel's run-time-size one.
+QUAD_KERNELS = ["_Z27sw2d_blocked_rollout_kernel" + Q_SIZES_QUAD_N4] + [
+    k + Q_SIZES[2] for k in (
+        "_Z27sw2d_blocked_rollout_kernel",
+        "_Z31sw2d_blocked_rollout_bwd_kernel", "_Z17sw2d_stage_kernel",
+        "_Z21sw2d_stage_bwd_kernel", "_Z21sw2d_step_rdma_kernel")]
 
 
 # The one-launch step's peer mode in its four instantiations, and the

@@ -747,22 +747,29 @@ class PeerCase:
         sb = self.c.sets[F32]
         self.sbuf0 = BS.initial_send_buffer(sb, self.c.state)
 
-    def stacked(self, n_steps):
+    def stacked(self, n_steps, trace=None):
+        """The stacked rollout's end; ``trace``, a list, takes each step's
+        (h, hu, hv, sb, stage-2 receive buffer)."""
         c, sb = self.c, self.c.sets[F32]
         launch = TB.RdmaLaunch(sb.ops, sb.meta, c.ex[F32])
         st, sbuf, t = c.state, self.sbuf0, c.t
         for _ in range(n_steps):
             *st, sbuf = launch._launch(tuple(st), c.ex[F32](sbuf), c.dt, t,
                                        c.ctrl, True)
+            if trace is not None:
+                trace.append((*st, sbuf, launch._scratch[1].clone()))
             t += c.dt
         return (*st, sbuf)
 
     def ranks(self, n_steps, delay=None, missing=(), timeout_s=30.0,
-              join_s=240.0):
+              join_s=240.0, trace=None):
         """Each rank's (h, hu, hv, sb) after ``n_steps`` steps (None where it
         failed or never ran), its error, its flags. ``delay``: (rank, every,
         seconds) slept before every ``every``-th step; ``missing``: ranks
-        that never launch."""
+        that never launch; ``trace``, a list a rank, takes each step's
+        (h, hu, hv, sb, stage-2 receive slots) of the rank (the slots read
+        by its thread between its step and its next, when no peer may store
+        into them)."""
         c, sb = self.c, self.c.sets[F32]
         plan, n_fp = sb.plan, sb.meta.n_fp
         lay = PR.region_layout(self.B, sb.ops.send.shape[1], len(plan.offs))
@@ -786,6 +793,8 @@ class PeerCase:
                     rings[r]._exchange(sbuf)
                     *st, sbuf = launch._launch(tuple(st), rings[r].rbb, c.dt,
                                                t, c.ctrl, True)
+                    if trace is not None:
+                        trace[r].append((*st, sbuf, rings[r].rb2.clone()))
                     t += c.dt
                 out[r] = (*st, sbuf)
             except RuntimeError as e:
@@ -830,14 +839,20 @@ def test_peer_step_matches_the_stacked_step(device, name):
 
 def test_peer_step_holds_with_a_delayed_rank(device):
     """S=4, rank 2 sleeping before every second step: the others wait at
-    its flags, and every rank's result is still its shard's bits."""
+    its flags, and after every step each rank's state, send buffer and
+    stage-2 receive slots (the peers' stage-1 halo, guarded by IN2) are
+    still its shard's bits of the stacked step's, as ``chip_smoke.py``'s
+    long in-process run holds them on the card."""
     pc = PeerCase("N3_S4_B1")
     device(*pc.dev)
-    want = pc.stacked(PEER_STEPS)
-    got, errors, _ = pc.ranks(PEER_STEPS, delay=(2, 2, 0.3))
+    want, got = [], [[] for _ in range(pc.S)]
+    pc.stacked(PEER_STEPS, trace=want)
+    _, errors, _ = pc.ranks(PEER_STEPS, delay=(2, 2, 0.3), trace=got)
     assert errors == [None] * pc.S
     for r in range(pc.S):
-        assert _same(got[r], [f[r:r + 1] for f in want]), f"rank {r}"
+        assert len(got[r]) == PEER_STEPS
+        for k in range(PEER_STEPS):
+            assert _same(got[r][k], [f[r:r + 1] for f in want[k]]), (r, k)
 
 
 def test_peer_step_traps_when_a_rank_never_launches(device):
@@ -855,6 +870,27 @@ def test_peer_step_traps_when_a_rank_never_launches(device):
     assert time.monotonic() - t0 < 60.0
     # rank 0's exchange stored its chunk and released rank 1's INB
     assert int(flags[1][4]) == 1 and int(flags[0][4]) == 0
+
+
+@pytest.mark.parametrize("name", list(PEER_CASES))
+def test_peer_plan_takes_the_stacked_steps_lanes(device, name):
+    """The peer mode's plan for one rank's shard: the stacked step's lanes
+    an element (four at N=3, one at N=1), so that a rank's bits are its
+    shard's of the stacked step, on small shards too (N3_S4_B1: 32
+    elements, 128 lanes on the shim device's 2 SMs, where the stage adjoint
+    would take sixteen); a cooperative grid of what is co-resident."""
+    pc = PeerCase(name)
+    device(*pc.dev)
+    sb = pc.c.sets[F32]
+    plan = TB.shard_plan(_rank_ops(sb.ops, 0), sb.meta, pc.B, step=True,
+                         peer=True)
+    P = {3: 4, 1: 1}[PEER_CASES[name][0]]
+    assert plan["lanes_per_element"] == P
+    assert TB.shard_plan(sb.ops, sb.meta, pc.B,
+                         step=True)["lanes_per_element"] == P
+    items = pc.B * sb.meta.k_elem
+    assert plan["grid"] == min(pc.dev[0] * pc.dev[1],
+                               -(-items * P // plan["threads"]))
 
 
 # ---------------------------------------------------------------------------
@@ -1162,19 +1198,24 @@ def test_rollout_kernel_matches_plain(device, name):
 
 
 # ---------------------------------------------------------------------------
-# B5 and B4 on quadrilaterals: the run-time-size instance, four faces
+# B5 and B4 on quadrilaterals: four faces; at N=4 the compile-time instance
+# (eight lanes an element), at N=2 the run-time sizes (one lane)
 # ---------------------------------------------------------------------------
 
 # (N, scenarios, controls, wet/dry, shim device (SMs, blocks an SM), cells)
 # on box_quads: N=2 (Nfp 3: the even split of a face maximum tied over three
-# nodes could show; it does not at these states) and N=4 (Np 25, Nfp 5: the
-# room of the run-time sizes); one pass, or blocks that loop (more than 256
-# elements and scenarios on one block)
+# nodes could show; it does not at these states) and N=4 (Np 25, Nfp 5:
+# QOrder4Quad, lanes 5-7 masked on the faces); one pass, or blocks that loop
+# (more items than the co-resident blocks hold)
 QUAD_CASES = {
     "quads_coastal_N2_B2_one_pass": (2, 2, 2, False, (4, 1), (6, 6)),
     "quads_coastal_N4_B5_blocks_loop": (4, 5, 2, False, (1, 1), (8, 8)),
-    "quads_coastal_N4_B1_noctrl_one_pass": (4, 1, 0, False, (4, 1), (6, 6)),
+    "quads_coastal_N4_B1_noctrl_one_pass": (4, 1, 0, False, (4, 3), (6, 6)),
     "quads_wetdry_N2_B5_blocks_loop": (2, 5, 0, True, (1, 1), (8, 8)),
+    "quads_coastal_N4_B1_one_pass": (4, 1, 2, False, (4, 3), (6, 6)),
+    "quads_coastal_N4_B5_noctrl_blocks_loop": (4, 5, 0, False, (2, 1),
+                                               (6, 6)),
+    "quads_wetdry_N4_B2_one_pass": (4, 2, 0, True, (4, 3), (6, 6)),
 }
 
 
@@ -1185,7 +1226,8 @@ def test_rollout_kernel_on_quads_matches_plain(device, name):
     beach) with the trajectory stored, against the plain version in float64
     at 5e-5; without the trajectory its last row bit for bit; the same bits
     on a rerun; B4 launched for each step in turn bit-equal to the
-    trajectory's rows; the plan: one lane an element, what is co-resident."""
+    trajectory's rows; the plan: eight lanes an element at N=4 (the
+    compile-time instance), one at N=2, what is co-resident."""
     n, B, nc, wetdry, dev, cells = QUAD_CASES[name]
     device(*dev)
     c = ForwardCase(n, B, nc, wetdry, seed=10 + n + B, quads=True,
@@ -1202,10 +1244,12 @@ def test_rollout_kernel_on_quads_matches_plain(device, name):
     for t, st in enumerate(c.steps()):
         assert _same(st, tuple(f[:, t + 1] for f in traj))
     plan = TB.rollout_plan(ops, m, B)
-    assert plan["lanes_per_element"] == 1
+    P = {2: 1, 4: 8}[n]
+    assert plan["lanes_per_element"] == P
+    items_per_block = plan["threads"] // P
     assert plan["grid"] == min(dev[0] * dev[1],
-                               -(-B * m.k_elem // plan["threads"]))
-    assert (plan["grid"] * plan["threads"] >= B * m.k_elem) == (
+                               -(-B * m.k_elem // items_per_block))
+    assert (plan["grid"] * items_per_block >= B * m.k_elem) == (
         "one_pass" in name)
 
 

@@ -2,7 +2,7 @@
 """Time the blocked forward kernels on one NVIDIA GPU at the shapes their
 paths run, for an A/B of two trees of this repository in one call.
 
-    python3 tools/forward_times.py [label]
+    python3 tools/forward_times.py [label] [--quads]
 
 run from the root of a tree (its own package is imported). Prints one JSON
 line per shape, then one with the card's name and power limit. Shapes, on
@@ -13,7 +13,12 @@ the blocked box (``mpc/blocked_box.py``: K=2048, flat bottom, walls):
  - ``sw2d_rollout_blocked`` (B5) at N=3, B=8, 4 x 2 steps with the
    trajectory stored (the MPC's rollout), and at N=6, 2 x 2 steps;
  - ``sw2d_rollout_blocked`` over 2048 steps without controls or trajectory
-   at N=3 and N=6, B=8 (``blocked_rollout_problem``): us a step.
+   at N=3 and N=6, B=8 (``blocked_rollout_problem``): us a step;
+ - on quadrilaterals, ``chip_smoke.py``'s ``quads_coastal_K144_N4`` case
+   (``box_quads(12, 12)``, K=144, N=4, B=8, its east side open: bathymetry,
+   drag, Coriolis, tidal depth from t0 = 1, sponge, two injectors):
+   ``sw2d_step_blocked`` (B4) and ``sw2d_rollout_blocked`` (B5) over 2 x 2
+   steps with the trajectory stored (``--quads``: these two alone).
 
 Inputs are made from fixed seeds, as ``chip_smoke.py`` makes its timed
 cases. Two times a shape: ``ms``, CUDA events around one call of the
@@ -67,6 +72,52 @@ def device_ms(fn, calls: int) -> float:
     return sum(e.device_time_total for e in ev) / calls / 1e3
 
 
+def quads(say, dev, g) -> None:
+    """B4 and B5 on the quad coastal case of ``chip_smoke.py --only
+    quads`` (its ``quads_coastal_K144_N4``)."""
+    from blitzdg_tpu_torch.context import BC_OUT
+    from blitzdg_tpu_torch.mesh import box_quads
+    from blitzdg_tpu_torch.mpc.coastal_box import cfl_dt, retag_east_open
+    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+    from blitzdg_tpu_torch.ops.sw2d import SWPhysics
+    from blitzdg_tpu_torch.specgrid.quad import build_quad_context
+    from blitzdg_tpu_torch.utils import build_sponge_coefficient
+
+    N, B, f32 = 4, 8, torch.float32
+    mesh = box_quads(12, 12)
+    retag_east_open(mesh)
+    cc = build_quad_context(N, mesh, dtype=f32, device=dev,
+                            filter_cutoff=0.9 * N, filter_order=4)
+    H = 10.0 + 2.0 * cc.x + torch.sin(2.0 * cc.y)
+    open_nodes = (cc.bc_table[:, :, None].expand(-1, -1, cc.n_fp)
+                  .reshape(cc.k_elem, -1) == BC_OUT).cpu().numpy()
+    phys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4, H=H,
+                     Hx=2.0 * torch.ones_like(H),
+                     Hy=2.0 * torch.cos(2.0 * cc.y),
+                     sponge=build_sponge_coefficient(cc, open_nodes,
+                                                     width=0.3, strength=0.5))
+    xs, ys = cc.x.double().cpu().numpy(), cc.y.double().cpu().numpy()
+    bump = np.exp(-8.0 * (xs ** 2 + ys ** 2))
+    ops, meta = TB.build_blocked_step_ops(
+        cc, phys, np.stack([bump, 0 * bump]), np.stack([0 * bump, bump]),
+        tidal=(12.0, 0.5, 2.0, 10.0), device=dev)
+    dt = cfl_dt(cc, 9.81, 13.5)
+    Hf = H.reshape(1, -1)
+    h = (Hf + 0.1 * torch.exp(-8.0 * (cc.x ** 2 + cc.y ** 2)).reshape(1, -1)
+         + 0.01 * g(B, Hf.shape[1])).contiguous()
+    hu = (0.05 * h + 0.01 * g(*h.shape)).contiguous()
+    hv = (-0.05 * h + 0.01 * g(*h.shape)).contiguous()
+    ctrls = g(B, 2, meta.n_ctrl)
+    c0 = ctrls[:, 0].contiguous()
+    shape = f"quads_K{meta.k_elem}_N{N}_B{B}"
+    plan = TB.rollout_plan(ops, meta, B)
+    say("sw2d_step_blocked", shape, lambda: TB.sw2d_step_blocked(
+        ops, meta, h, hu, hv, c0, dt, 1.0), plan=plan)
+    say("sw2d_rollout_blocked", f"{shape}_2x2",
+        lambda: TB.sw2d_rollout_blocked(ops, meta, h, hu, hv, ctrls, dt, 2,
+                                        t0=1.0, store_traj=True), plan=plan)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("forward_times: no CUDA device", file=sys.stderr)
@@ -74,7 +125,9 @@ def main() -> int:
     from blitzdg_tpu_torch.mpc import blocked_box as bbx
     from blitzdg_tpu_torch.ops import sw2d_blocked as TB
 
-    label = sys.argv[1] if len(sys.argv) > 1 else str(Path.cwd())
+    args = sys.argv[1:]
+    label = next((a for a in args if not a.startswith("--")),
+                 str(Path.cwd()))
     dev = torch.device("cuda", 0)
     f32 = torch.float32
     scratch = torch.empty(64 * 1024 * 1024, dtype=f32, device=dev)
@@ -83,15 +136,17 @@ def main() -> int:
     g = lambda *shape: torch.as_tensor(rng.standard_normal(shape), dtype=f32,
                                        device=dev)
 
-    def say(kernel, shape, run, reps=9, calls=10, **more):
+    def say(kernel, shape, run, reps=9, calls=10, plan=None, **more):
         ms = time_ms(run, flush, reps)
         print(json.dumps({"tree": label, "kernel": kernel, "shape": shape,
                           "ms": ms, "device_ms": device_ms(run, calls),
+                          **({"plan": plan} if plan else {}),
                           **{k: f(ms) for k, f in more.items()}}),
               flush=True)
 
     n_cs, spc, B = bbx.HORIZON, bbx.STEPS_PER_CONTROL, bbx.BATCH
-    for n_order, horizon in ((3, n_cs), (6, 2)):
+    for n_order, horizon in (() if "--quads" in args else ((3, n_cs),
+                                                            (6, 2))):
         box = bbx.blocked_box_problem(n_order=n_order, horizon=horizon,
                                       device=dev)
         ops, meta, dt = box.bm.ops, box.bm.meta, box.prob.dt
@@ -110,7 +165,8 @@ def main() -> int:
             lambda: TB.sw2d_rollout_blocked(ops, meta, h, hu, hv, ctrls, dt,
                                             spc, store_traj=True))
         del box, ops
-    for n_order in (3, 6):
+    quads(say, dev, g)
+    for n_order in (() if "--quads" in args else (3, 6)):
         r = bbx.blocked_rollout_problem(n_order=n_order, device=dev)
         say("sw2d_rollout_blocked",
             f"K{r.meta.k_elem}_N{n_order}_B{B}_{r.n_steps}_steps",
