@@ -5,7 +5,8 @@
 //   peer_export / peer_open /   its CUDA IPC handle, and a peer's region
 //   peer_close                  mapped into this process (on one card, or a
 //                               peer card's memory over NVLink)
-//   peer_ring_exchange_kernel   the step-boundary exchange
+//   peer_ring_exchange_kernel   the step-boundary exchange of a ring's
+//                               initial send buffer
 //
 // Regions come from cudaMalloc, not from the torch caching allocator: that
 // allocator sub-allocates (a handle names its whole segment), and its
@@ -15,15 +16,18 @@
 // peer_ring_exchange_kernel replaces the XLA ppermute of the carried send
 // buffer that precedes the TPU one-launch step in
 // blitzdg_tpu/parallel/blocked_shard.py (make_sharded_blocked_step_rdma);
-// it replaces no TPU kernel. One block a ring offset i: it waits until the
-// receiving rank's step-boundary slots of chunk i are free (GOB, released
-// by that rank's step launch once its stage 1 has read them), stores chunk
-// i of every scenario into them, fences at system scope and releases INB
-// there, which the receiving rank's next step launch waits for. The epoch
-// is read from this rank's region, where the step launch keeps it. Bound on
-// the card: bytes (B x chunk x 3 floats an offset read here and written
-// into the peer, some KB at the sharded path's shapes); what it waits for
-// is the launch and the flags.
+// it replaces no TPU kernel. A ring runs it once, before its first step:
+// every later step's exchange is the step launch's own (its stage 2 stores
+// each send slot into the receiving rank's step-boundary slots and
+// releases INB there; sw2d_blocked.cu, rdma_step), so a step is one
+// launch. One block a ring offset i: it waits until the receiving rank's
+// step-boundary slots of chunk i are free (GOB; the ring starts with them
+// free), stores chunk i of every scenario into them, fences at system
+// scope and releases INB there, which the receiving rank's first step
+// launch waits for. The epoch is read from this rank's region, where the
+// step launch keeps it. Bound on the card: bytes (B x chunk x 3 floats an
+// offset read here and written into the peer, some KB at the sharded
+// path's shapes); what it waits for is the launch and the flags.
 //
 // Plain C interface (extern "C" at the end), loaded with ctypes. The
 // exchange launches on the stream passed in; nothing here synchronises
@@ -58,6 +62,14 @@ __global__ void peer_ring_exchange_kernel(const long long* tab,
 extern "C" {
 
 int peer_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
+
+// Loads the exchange kernel into the current context now, as
+// sw2d_step_rdma_peer_load does the step's (CUDA's lazy loading would at
+// its first launch, waiting for the context's running kernels).
+int peer_load() {
+  cudaFuncAttributes attr;
+  return (int)cudaFuncGetAttributes(&attr, peer_ring_exchange_kernel);
+}
 
 const char* peer_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

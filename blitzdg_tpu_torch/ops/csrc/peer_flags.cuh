@@ -1,8 +1,9 @@
 // Flags between ranks that store into each other's device memory: the
 // ring's table and region layout, acquire waits and release stores at
-// system scope. Shared by peer.cu (the step-boundary exchange) and the
-// one-launch step's peer mode (sw2d_blocked.cu); parallel/peer.py writes
-// the regions and the table.
+// system scope. Shared by peer.cu (the exchange of a ring's initial send
+// buffer) and the one-launch step's peer mode (sw2d_blocked.cu, which
+// stores both halos: the inter-stage one and the next step's
+// step-boundary one); parallel/peer.py writes the regions and the table.
 //
 // Every flag is a 64-bit epoch that only grows, so nothing is ever reset.
 // A flag lives in the memory of the rank that waits on it; the other rank
@@ -16,13 +17,17 @@
 //   0              the stage-2 receive slots, (B, L, 3) floats
 //   [PT_RBB]       the step-boundary receive slots, (B, L, 3) floats
 //   [PT_FLAGS]     the epoch (the last step launched here), then four words
-//                  a ring offset i: GO2, IN2, GOB, INB (below)
+//                  a ring offset i: GO2, IN2, GOB, INB (below), then one
+//                  word that counts the blocks of this rank's step launch
+//                  done with stage 2 (reset by the launch itself)
 // For ring offset i (offset d), rank r sends its chunk i to rank r + d and
 // receives chunk i from rank r - d (mod S):
 //   GO2[i]  r + d's stage-2 slots of chunk i are free (written by r + d)
 //   IN2[i]  r - d's stage-1 halo has arrived in r's stage-2 slots
-//   GOB[i]  r + d's step-boundary slots of chunk i are free
-//   INB[i]  r - d's step-boundary chunk has arrived in r's slots
+//   GOB[i]  r + d's step-boundary slots of chunk i are free (its stage 1
+//           has read them)
+//   INB[i]  r - d's step-boundary chunk has arrived in r's slots (stored
+//           by r - d's step launch, or before the first step its exchange)
 // The table (64-bit words in device memory): this rank's region, the two
 // offsets, the wait bound in ns, the number of ring offsets, the slots of
 // one offset, two unused words; then, a ring offset each, the region of the
@@ -55,6 +60,13 @@ __device__ __forceinline__ flag_t* peer_flag(const long long* tab,
 __device__ __forceinline__ flag_t* peer_epoch(const long long* tab) {
   return reinterpret_cast<flag_t*>(tab[PT_OWN] + tab[PT_FLAGS]);
 }
+
+// The count of this rank's step-launch blocks done with stage 2 (its own
+// memory; the launch resets it and counts on it).
+__device__ __forceinline__ unsigned* peer_arrivals(const long long* tab) {
+  return reinterpret_cast<unsigned*>(peer_epoch(tab) + 1 + 4 * tab[PT_NOFF]);
+}
+
 
 __device__ __forceinline__ unsigned long long peer_clock_ns() {
   unsigned long long t;

@@ -130,7 +130,9 @@ __global__ void sw2d_blocked_barrier_probe_kernel(int n) {
 //      rdma_step below);
 //   3. stage 2 (c_dt = dt, stage time t + dt/2, the sponge) from s1, base
 //      the step-start state, rb2; the output and its own send buffer for
-//      the step-boundary exchange outside.
+//      the step-boundary exchange outside (in the peer mode also stored
+//      into the receiving ranks' step-boundary slots: that exchange is
+//      the launch's own, rdma_step below).
 // Without ring offsets every slot is empty and rb2 is zeros, as the TPU
 // kernel zeroes its receive buffer. No wet/dry branch in the step (its
 // wrapper refuses a wet/dry set, as the TPU wrapper does); the stage kernel
@@ -215,6 +217,11 @@ struct RdmaArgs {
 
 __host__ __device__ constexpr int qround4(int n) { return (n + 3) & ~3; }
 
+// The least power of two >= n.
+__host__ __device__ constexpr int qpow2(int n) {
+  return n <= 1 ? 1 : 2 * qpow2((n + 1) / 2);
+}
+
 // Floats of the reference operators in shared memory: (Dr, Ds) interleaved
 // [n][m], lift [n][j], filter [n][m].
 __host__ __device__ inline int q_ops_floats(int Np, int Ntr) {
@@ -233,16 +240,27 @@ __host__ __device__ inline int q_item_floats(int Np, int Ntr) {
 // read at run time. Faces: NFACES (three, triangles, or four,
 // quadrilaterals) in the compile-time instances; the descriptor's in the
 // run-time one, which qstage and qvjp take on triangles and
-// quadrilaterals alike. The lanes of a face (LPF)
-// are min(LANES, NFP): with more lanes than a face has nodes (the
-// adjoint's wide items), each group of NFP lanes takes a face, one trace
-// node a lane (qvjp). qstage's lane p holds nodes p + LANES k,
+// quadrilaterals alike. The lanes of a face in qvjp (LPF) are LANES where
+// a face has at least as many nodes, else the least power of two that
+// holds its NFP nodes: each group of LPF lanes takes a face, one trace
+// node a lane (the adjoint's wide items: several faces a pass), and where
+// LPF > NFP (N=4 on quadrilaterals: eight lanes, five nodes) lanes NFP ..
+// LPF-1 of the group are masked (FMASKED): they redo the face's last node
+// and add and store nothing. A shuffle over a face's lanes then always has
+// a width that is a power of two. qstage's lane p holds nodes p + LANES k,
 // k < CFP, of every face; where the lanes do not divide a face (MASKED:
-// N=6), the last of them lie past it on some lanes.
+// N=6, quadrilaterals at N=4), the last of them lie past it on some lanes.
 template <int NP, int NFP, int NC, int LANES, int NFACES = 3>
 struct QSizes {
   static constexpr int P = LANES;
-  static constexpr int LPF = NP && LANES > NFP ? NFP : LANES;
+  static constexpr int LPF = NP && LANES > NFP ? qpow2(NFP) : LANES;
+  static constexpr bool FMASKED = NP && NFP % LPF != 0;
+  // shuffles over an item's lanes and over a face's must have a width that
+  // is a power of two up to a warp, and a face's lanes tile the item's
+  static_assert(LANES <= 32 && (LANES & (LANES - 1)) == 0,
+                "an item's lanes: a power of two, at most a warp");
+  static_assert(LPF <= 32 && (LPF & (LPF - 1)) == 0 && LANES % LPF == 0,
+                "a face's lanes: a power of two that divides the item's");
   static constexpr int CNP = NP ? (NP + LANES - 1) / LANES : QMAX_NP;
   // a face's nodes, a lane
   static constexpr int CFP = NP ? (NFP + LPF - 1) / LPF : QMAX_NFP;
@@ -259,6 +277,15 @@ struct QSizes {
   // N=4 take the same factors), none at run-time sizes
   static constexpr int MU = !NP ? 1 : NP > 10 ? 4 : NP;
   static constexpr int LU = !NP ? 1 : NP > 10 ? 3 : NFACES * NFP;
+  // qvjp's passes over the faces: unrolled up to 10 nodes, rolled above
+  // and at run-time sizes
+  static constexpr int PU = NP && NP <= 10 ? QMAX_NFACES : 1;
+  // blocks of QMAX_THREADS an SM that the rollout adjoint's launch bounds
+  // ask for: two (128 registers a thread), or one above 10 nodes
+  // (quadrilaterals at N=4, whose eight-lane items would spill at 128:
+  // about 185 registers; the quad path's grid, 144 blocks of 64 threads,
+  // is co-resident all the same)
+  static constexpr int BWD_MIN_BLOCKS = NP > 10 ? 1 : 2;
   __device__ __forceinline__ static int np(const Ops& o) {
     return NP ? NP : o.Np;
   }
@@ -682,39 +709,85 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
   }
 }
 
+// The send slots of lane l.p's nodes of an item, as the lane has just
+// stored them into its shard's send buffer sb (one scenario's), copied
+// into slot j of the step-boundary slots of the rank that ring offset
+// j / chunk sends to (region tab[PT_HEAD + j / chunk], those slots off
+// floats into it): the peer mode's exchange of the next step's rb.
+template <class Z>
+__device__ __forceinline__ void q_send_to_peers(const Ops& g, const QLane& l,
+                                                const float* sb,
+                                                const long long* tab,
+                                                int chunk, size_t off) {
+  const int Np = Z::np(g), ns = Z::nslots(g);
+  const int* ptr = g.send_ptr + l.io;
+#pragma unroll
+  for (int i = 0; i < ns; ++i) {
+    const int n = l.p + Z::P * i;
+    if (n < Np) {
+      const int v = l.e * Np + n;
+      const int q1 = __ldg(ptr + v + 1);
+      for (int q = __ldg(ptr + v); q < q1; ++q) {
+        const int j = __ldg(g.send_idx + l.io + q);
+        const float* src = sb + 3 * j;
+        float* dst = reinterpret_cast<float*>(
+                         __ldg(tab + PT_HEAD + j / chunk)) + off + 3 * j;
+        dst[0] = src[0]; dst[1] = src[1]; dst[2] = src[2];
+      }
+    }
+  }
+}
+
 // The one-launch step, in its two modes: stacked (every shard in the
 // launch, the grid barrier for READY) and, with PEER, one shard a rank
-// (a.peer: the ring's table), the halo stored into the peers' memory and
+// (a.peer: the ring's table), both halos stored into the peers' memory and
 // the handshakes through their flags (peer_flags.cuh), in this order for
 // the launch of epoch e:
 //   1. thread i of block 0 releases GO2 = e to the rank that sends to this
 //      one at ring offset i: this rank's stage-2 slots are free (the launch
-//      of epoch e - 1 has ended, its reads done); in every block, thread i
-//      waits for INB >= e of offset i (the peers' step-boundary exchange,
-//      which stream order does not cover, has written rb) and thread
-//      n_off + i for GO2 >= e of offset i (the receiving ranks' stage-2
-//      slots are free for the stores, q_zero_empty's zeros among them): the
-//      2 n_off acquire loads of a block in one round, and the block barrier
-//      after the operators' copy passes what they acquired on to the block;
+//      of epoch e - 1 has ended, its reads done), and thread 0 resets the
+//      launch's count of blocks (step 5); in every block, thread i waits
+//      for INB >= e of offset i (the sending rank's launch of epoch e - 1,
+//      or for e = 1 its exchange of the initial send buffer, has written
+//      rb) and thread n_off + i for GO2 >= e of offset i (the receiving
+//      ranks' stage-2 slots are free for the stores, q_zero_empty's zeros
+//      among them): the 2 n_off acquire loads of a block in one round, and
+//      the block barrier after the operators' copy passes what they
+//      acquired on to the block;
 //   2. stage 1 and its stores into the peers' stage-2 slots; a block
 //      barrier, then one system fence a block (below);
 //   3. the grid barrier: stage 1's reads of rb are done, so block 0 bumps
 //      the epoch, and its thread i releases GOB = e + 1 to the rank that
-//      sends to this one at offset i (its next exchange may overwrite rb)
-//      and IN2 = e at the rank that offset i sends to;
-//   4. in every block thread i waits for its own IN2 >= e of offset i, and
-//      a block barrier passes it on; then stage 2.
+//      sends to this one at offset i (its stage 2 may overwrite rb) and
+//      IN2 = e at the rank that offset i sends to;
+//   4. in every block thread i waits for its own IN2 >= e of offset i (the
+//      peers' stage-1 halo is in rb2) and thread n_off + i for GOB >= e + 1
+//      of offset i (the receiving rank's stage 1 has read its step-boundary
+//      slots), one round again, and a block barrier passes them on;
+//   5. stage 2: its output and its own send buffer sb, each lane's send
+//      slots then copied by the lane into the step-boundary slots of the
+//      rank that the slot's ring offset sends to: the exchange of the next
+//      step's rb, folded into this launch (no launch between steps); a
+//      block barrier, one system fence a block and the block's arrival on
+//      the count; the last block to arrive releases INB = e + 1 at the rank
+//      that each offset sends to, which its launch of epoch e + 1 waits for
+//      in step 1.
+// No wait cycle: stage 2's waits are on stage-1 progress of the same epoch
+// (IN2, GOB), and stage 1's on the launch start of the same epoch (GO2)
+// and on the end of the peers' launches of the epoch before (INB).
 // Memory order of the stores into a peer's memory (step 2): they must be
-// visible at system scope before IN2 is. PTX's fences and releases are
-// cumulative: a thread's fence also orders the stores of other threads
-// that it has observed, here through the block barrier (bar.sync: CTA
-// scope) and the grid barrier (the gpu-scope fences and atomics of
-// cooperative groups' grid.sync). So thread 0 of each block fences at
-// system scope after its block has met, and the release of IN2 (system
-// scope) follows the grid barrier: one fence a block, not one a thread
+// visible at system scope before IN2 (step 5: INB) is. PTX's fences and
+// releases are cumulative: a thread's fence also orders the stores of
+// other threads that it has observed, here through the block barrier
+// (bar.sync: CTA scope) and the grid barrier (the gpu-scope fences and
+// atomics of cooperative groups' grid.sync). So thread 0 of each block
+// fences at system scope after its block has met, and the release of IN2
+// (system scope) follows the grid barrier: one fence a block, not one a thread
 // (256 against 16 384 at K_loc=512, B=8). It is the pattern of grid.sync
 // itself, which publishes a block's stores at gpu scope with one thread's
-// __threadfence after __syncthreads.
+// __threadfence after __syncthreads. Step 5 orders its stores before INB
+// the same way, with the count's atomic and the last block's fence in the
+// place of the grid barrier (every block meets it, none waits at it).
 // The epoch lives in device memory (the region's first flag word), read
 // and bumped by the launch, not passed in, so that a captured launch
 // replays. Both modes run the same stage code, so the bits are those of
@@ -728,9 +801,12 @@ __device__ __forceinline__ void rdma_step(const SwDesc& d,
   const int n_off = PEER ? (int)tab[PT_NOFF] : 0;
   const flag_t e = PEER ? *peer_epoch(tab) + 1 : 0;
   if (PEER) {
-    if (blockIdx.x == 0)
+    if (blockIdx.x == 0) {
+      // (the blocks arrive after stage 2, past the grid barrier below)
+      if (threadIdx.x == 0) *peer_arrivals(tab) = 0;
       for (int i = threadIdx.x; i < n_off; i += blockDim.x)
         flag_release(peer_flag(tab, peer_from(tab, i), i, PEER_GO2), e);
+    }
     for (int k = threadIdx.x; k < 2 * n_off; k += blockDim.x)
       flag_wait(peer_flag(tab, tab[PT_OWN], k % n_off,
                           k < n_off ? PEER_INB : PEER_GO2),
@@ -791,9 +867,10 @@ __device__ __forceinline__ void rdma_step(const SwDesc& d,
         flag_release(peer_flag(tab, peer_to(tab, i), i, PEER_IN2), e);
       }
     }
-    for (int i = threadIdx.x; i < n_off; i += blockDim.x)
-      flag_wait(peer_flag(tab, tab[PT_OWN], i, PEER_IN2), e,
-                tab[PT_TIMEOUT]);
+    for (int k = threadIdx.x; k < 2 * n_off; k += blockDim.x)
+      flag_wait(peer_flag(tab, tab[PT_OWN], k % n_off,
+                          k < n_off ? PEER_IN2 : PEER_GOB),
+                k < n_off ? e : e + 1, tab[PT_TIMEOUT]);
     __syncthreads();
   }
   for (int first = blockIdx.x * ipb; first < n_items;
@@ -813,6 +890,30 @@ __device__ __forceinline__ void rdma_step(const SwDesc& d,
                        SendTo{a.sb + l.sc * ls, nullptr, 0},
                        a.rb2 + l.sc * ls, a.dt, h_bc2, a.dt, a.ctrl,
                        a.use_filter, false, a.sponge != 0);
+    // the next step's rb: the lane's send slots of stage 2, which it has
+    // just stored into sb, into the receiving ranks' step-boundary slots
+    // (the table read here and below, not held from the launch's start:
+    // held in registers through the stage, what it gives pushed the
+    // stage's live set past 128 registers into spills)
+    if (PEER && l.active && tab[PT_NOFF] > 0)
+      q_send_to_peers<Z>(g, l, a.sb + l.sc * ls, tab, (int)tab[PT_CHUNK],
+                         (size_t)tab[PT_RBB] / sizeof(float) + l.b * ls);
+  }
+  // INB = e + 1 once every block's stores are visible at system scope: a
+  // block barrier, one system fence a block and the block's arrival on the
+  // launch's count; the last block to arrive releases (the order of a grid
+  // barrier without its wait)
+  if (PEER && tab[PT_NOFF] > 0) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence_system();
+      if (atomicAdd(peer_arrivals(tab), 1u) == gridDim.x - 1) {
+        __threadfence();
+        const flag_t next = *peer_epoch(tab) + 1;  // (block 0 stored e)
+        for (int i = 0; i < (int)tab[PT_NOFF]; ++i)
+          flag_release(peer_flag(tab, peer_to(tab, i), i, PEER_INB), next);
+      }
+    }
   }
 }
 
@@ -1000,7 +1101,14 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
 // (four faces) take the run-time instance, as in qstage: the passes over
 // the faces, the neighbours' weights in the item's slots and the
 // per-face sums (speed cotangents, face maximum, tie count) follow the
-// descriptor's face count.
+// descriptor's face count. At N=4 on quadrilaterals B6 takes B5's
+// compile-time instance, QOrder4Quad (eight lanes an element, so that its
+// recompute of stage 1 runs B5's items and gives B5's bits): qvjp then
+// takes a face a pass over all eight lanes, lane p < 5 holding trace node
+// p and lanes 5-7 masked (QSizes::FMASKED), four passes, the face sums by
+// shuffles of width eight, the products over the 25 nodes unrolled by
+// parts; 64-thread blocks of eight items (33 KB of shared memory), 144
+// blocks at K=144, B=8 where one lane an element gave 36 of one warp.
 //
 // No scatter. A trace node's flux feeds the cotangents of its '-' node
 // (the element's own) and of its '+' node (the neighbour's). Rather than
@@ -1285,12 +1393,22 @@ __device__ __forceinline__ void qvjp(
   // the element's own flux adjoint at the lane's trace nodes of it, then,
   // on an inner face, the neighbour's at the trace nodes across (the same
   // values swapped, its normal and face scale, its weights lifted through
-  // the composed transposes), into the trace nodes' cotangents
+  // the composed transposes), into the trace nodes' cotangents. A masked
+  // lane (FMASKED: its place lies past the face's nodes) redoes the face's
+  // last node, whose speed cannot move the face maximum, and adds nothing
+  // to the face's sums and tie count and stores nothing: the even split of
+  // C6/C12 counts the real nodes at the maximum.
   constexpr int LPF = Z::LPF, FPP = P / LPF;  // lanes a face, faces a pass
   const bool depths = g.wb != 0;
   const int pf = p % LPF;  // the lane's place in its face
   const int ng = Z::ng(g);
-#pragma unroll
+  // unroll factors: the products', complete up to 10 nodes, by parts above
+  // (quadrilaterals at N=4), none at run-time sizes; the passes', complete
+  // up to 10 nodes, none above (at N=4 the rolled passes took 0.192 ms on
+  // the quad path's shape, the unrolled 0.216, with 40 % more
+  // instructions: PERF.md) and at run-time sizes
+  constexpr int VU = Z::MU, PU = Z::PU;
+#pragma unroll (PU)
   for (int it = 0; it < ng; ++it) {
     // (lanes past the last face redo it and store nothing)
     const bool has = it * FPP + p / LPF < nf;
@@ -1298,11 +1416,14 @@ __device__ __forceinline__ void qvjp(
     TraceVals tv[Z::CFP];
     float spd[Z::CFP], d[Z::CFP][3], dn[Z::CFP][3], nxn[Z::CFP];
     float nyn[Z::CFP];
-    int vm[Z::CFP], vp[Z::CFP];
+    int vm[Z::CFP], vp[Z::CFP], fn[Z::CFP];
+    bool real[Z::CFP];
     float lam = 0.0f, lsum = 0.0f, lsn = 0.0f, cnt = 0.0f;
 #pragma unroll
     for (int k = 0; k < nfl; ++k) {
-      const int j = f * Nfp + pf + LPF * k, gi = l.io + i0 + j;
+      real[k] = !Z::FMASKED || pf + LPF * k < Nfp;
+      fn[k] = real[k] ? pf + LPF * k : Nfp - 1;  // the node's place
+      const int j = f * Nfp + fn[k], gi = l.io + i0 + j;
       const int fi = l.fo + i0 + j;
       const int m = __ldg(g.vmapM + gi), q = __ldg(g.vmapP + gi);
       vm[k] = m; vp[k] = q;
@@ -1322,7 +1443,7 @@ __device__ __forceinline__ void qvjp(
               depths ? __ldg(g.HPt + fi) : 0.0f, tv[k]);
       // lift transpose at this trace node
       float d1 = 0.0f, d2 = 0.0f, d3 = 0.0f;
-#pragma unroll
+#pragma unroll (VU)
       for (int mm = 0; mm < Np; ++mm) {
         const float lf = LF[mm * Ntr + j];
         const float4 wv = X[mm];
@@ -1333,20 +1454,21 @@ __device__ __forceinline__ void qvjp(
       spd[k] = fmaxf(tv[k].spdM, tv[k].spdP);
       float dq1, dq2, dq3;
       trace_jumps(g, tv[k], dq1, dq2, dq3);
-      lsum += -0.5f * (dq1 * d[k][0] + dq2 * d[k][1] + dq3 * d[k][2]);
+      if (real[k])
+        lsum += -0.5f * (dq1 * d[k][0] + dq2 * d[k][1] + dq3 * d[k][2]);
       lam = k == 0 ? spd[k] : fmaxf(lam, spd[k]);
     }
     const bool inner = vp[0] != vm[0] && vp[0] < g.nV;
 #pragma unroll
     for (int k = 0; k < nfl; ++k) {
       // the neighbour's trace node across, its weights lifted
-      const int gi = l.io + i0 + f * Nfp + pf + LPF * k;
+      const int gi = l.io + i0 + f * Nfp + fn[k];
       float d1 = 0.0f, d2 = 0.0f, d3 = 0.0f;
       nxn[k] = nyn[k] = 0.0f;
       if (inner) {
         const int jn = __ldg(g.mirror + gi), kn = jn / Ntr;
         const int jl = jn - kn * Ntr, fi = l.fo + jn;
-#pragma unroll
+#pragma unroll (VU)
         for (int n = 0; n < Np; ++n) {
           const float cm = CM[n * Ntr + jl];
           const float4 wv = NW[f * Np + n];
@@ -1359,7 +1481,7 @@ __device__ __forceinline__ void qvjp(
       dn[k][0] = d1; dn[k][1] = d2; dn[k][2] = d3;
       float dq1, dq2, dq3;
       trace_jumps(g, q_swap(tv[k], nxn[k], nyn[k]), dq1, dq2, dq3);
-      lsn += -0.5f * (dq1 * d1 + dq2 * d2 + dq3 * d3);
+      if (real[k]) lsn += -0.5f * (dq1 * d1 + dq2 * d2 + dq3 * d3);
     }
     // the face maximum, the summed speed cotangents of both frames and the
     // count of nodes at the maximum, over the face's lanes
@@ -1370,7 +1492,8 @@ __device__ __forceinline__ void qvjp(
       lsn += __shfl_xor_sync(0xffffffffu, lsn, m, LPF);
     }
 #pragma unroll
-    for (int k = 0; k < nfl; ++k) cnt += spd[k] == lam ? 1.0f : 0.0f;
+    for (int k = 0; k < nfl; ++k)
+      cnt += real[k] && spd[k] == lam ? 1.0f : 0.0f;
 #pragma unroll
     for (int m = 1; m < LPF; m <<= 1)
       cnt += __shfl_xor_sync(0xffffffffu, cnt, m, LPF);
@@ -1385,7 +1508,8 @@ __device__ __forceinline__ void qvjp(
       T[0] = tM[0]; T[1] = tM[1]; T[2] = tM[2];
       if (vp[k] == vm[k]) {  // a boundary face: the '+' node is this one
         T[0] += tP[0]; T[1] += tP[1]; T[2] += tP[2];
-      } else if (vp[k] >= g.nV && l.active && has) {  // a cut face: its slot
+      } else if (vp[k] >= g.nV && l.active && has && real[k]) {
+        // a cut face: its slot
         float* o = orb + 3 * (vp[k] - g.nV);
         o[0] = tP[0]; o[1] = tP[1]; o[2] = tP[2];
       }
@@ -1395,8 +1519,8 @@ __device__ __forceinline__ void qvjp(
                       tM, tP);
         T[0] += tP[0]; T[1] += tP[1]; T[2] += tP[2];
       }
-      if (has)
-        TT[f * Nfp + pf + LPF * k] =
+      if (has && real[k])
+        TT[f * Nfp + fn[k]] =
             make_float4(T[0], T[1], T[2], (float)(vm[k] - v0));
     }
   }
@@ -1592,7 +1716,7 @@ struct BwdArgs {
 };
 
 template <class Z>
-__global__ void __launch_bounds__(QMAX_THREADS, 2)
+__global__ void __launch_bounds__(QMAX_THREADS, Z::BWD_MIN_BLOCKS)
     sw2d_blocked_rollout_bwd_kernel(SwDesc d, BwdArgs a) {
   cg::grid_group grid = cg::this_grid();
   const Ops g = make_ops(d, a.fops, a.iops);
@@ -1747,9 +1871,9 @@ enum { Q_STAGE = 0, Q_STEP = 1, Q_STAGE_BWD = 2, Q_ROLLOUT_BWD = 3,
 // The instantiation of the q kernels for a set: N=3 with two controls
 // (the MPC's), N=3 with others (a set built without injectors has one,
 // which its rollouts never read), N=6 (the forward kernels' own),
-// quadrilaterals at N=4 (the blocked rollout's own), else the run-time
-// sizes; -1 past their room. The other quadrilateral orders take the
-// run-time sizes in every q kernel.
+// quadrilaterals at N=4 (the blocked rollout's and its adjoint's own),
+// else the run-time sizes; -1 past their room. The other quadrilateral
+// orders take the run-time sizes in every q kernel.
 static int q_kind(const SwDesc& d) {
   if (d.Np > QMAX_NP || d.Nfp > QMAX_NFP) return -1;
   if (d.Nfaces == QMAX_NFACES) return d.Np == 25 && d.Nfp == 5 ? 4 : 2;
@@ -1761,7 +1885,7 @@ static int q_kind(const SwDesc& d) {
 
 // (order6, quad4: null where the kernel takes the run-time sizes at N=6,
 // as the adjoints do, or on quadrilaterals at N=4, as all but the blocked
-// rollout do)
+// rollout and its adjoint do)
 template <class K>
 static K q_pick(const SwDesc& d, K order3_ctrl, K order3, K any_order,
                 K order6, K quad4) {
@@ -1823,11 +1947,14 @@ static StageBwdKern stage_bwd_kernel_of(const SwDesc& d, int lanes) {
                               nullptr);
 }
 
+// (quadrilaterals at N=4: B5's items, so that the recompute of stage 1 is
+// B5's bits, and qvjp's masked face mode)
 static BwdKern rollout_bwd_kernel_of(const SwDesc& d) {
   return q_pick<BwdKern>(d, sw2d_blocked_rollout_bwd_kernel<QOrder3Ctrl>,
                          sw2d_blocked_rollout_bwd_kernel<QOrder3>,
                          sw2d_blocked_rollout_bwd_kernel<QAnyOrder>,
-                         nullptr, nullptr);
+                         nullptr,
+                         sw2d_blocked_rollout_bwd_kernel<QOrder4Quad>);
 }
 
 static const void* q_kernel(const SwDesc& d, int which, int lanes) {
@@ -1844,13 +1971,15 @@ static const void* q_kernel(const SwDesc& d, int which, int lanes) {
 
 // Lanes an item of kernel `which`: a face's nodes at N=3; QOrder6's at
 // N=6 in the forward kernels; QOrder4Quad's on quadrilaterals at N=4 in
-// the blocked rollout; one otherwise.
+// the blocked rollout and its adjoint; one otherwise.
 static int q_lanes(const SwDesc& d, int which) {
   const bool adjoint = which == Q_STAGE_BWD || which == Q_ROLLOUT_BWD;
   switch (q_kind(d)) {
     case 2: return 1;
     case 3: return adjoint ? 1 : QOrder6::P;
-    case 4: return which == Q_ROLLOUT ? QOrder4Quad::P : 1;
+    case 4:
+      return which == Q_ROLLOUT || which == Q_ROLLOUT_BWD ? QOrder4Quad::P
+                                                          : 1;
     default: return 4;
   }
 }
@@ -2064,9 +2193,11 @@ int sw2d_step_rdma(const SwDesc* d, const float* fops, const int* iops,
 
 // The same step in its peer mode: this rank's one shard (S = 1) of a set
 // spread over the ranks of a ring (parallel/peer.py), the stage-1 halo
-// stored into the peers' stage-2 slots through the ring's table tab
-// (peer_flags.cuh). rb: this rank's step-boundary slots, rb2 its stage-2
-// slots (both in its region); plan: sw2d_shard_plan's for (1, B, 5).
+// stored into the peers' stage-2 slots and stage 2's send slots into their
+// step-boundary slots through the ring's table tab (peer_flags.cuh). rb:
+// this rank's step-boundary slots, rb2 its stage-2 slots (both in its
+// region); sb: this rank's send buffer as well; plan: sw2d_shard_plan's
+// for (1, B, 5).
 int sw2d_step_rdma_peer(const SwDesc* d, const float* fops, const int* iops,
                         long long fstride, long long istride, int B,
                         const float* h, const float* hu, const float* hv,
@@ -2080,6 +2211,18 @@ int sw2d_step_rdma_peer(const SwDesc* d, const float* fops, const int* iops,
                 h, hu, hv, rb, ctrl, nullptr, s1, s1 + n, s1 + 2 * n, rb2,
                 oh, ohu, ohv, sb, dt, t1, t2, tab};
   return q_launch(rdma_peer_kernel_of(*d), *d, a, plan, true, stream);
+}
+
+// Loads the peer mode's instance for a set into the current context now.
+// CUDA's lazy loading would load it at its first launch, and a load waits
+// for the context's running kernels: in a ring whose ranks share a process
+// a rank's first launch would then wait for a peer's step that waits at a
+// flag for it (a trap after the wait's bound). Returns a CUDA error.
+int sw2d_step_rdma_peer_load(const SwDesc* d) {
+  const RdmaKern k = rdma_peer_kernel_of(*d);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  return (int)cudaFuncGetAttributes(&attr, k);
 }
 
 // The adjoint of sw2d_stage: cotangents of (out, sb) to those of (base,

@@ -373,10 +373,11 @@ def _lib():
                                    + [F, F, F, I, I, P, P])
     lib.sw2d_step_rdma_peer.argtypes = ([D, P, P, L, L, I] + [P] * 12
                                         + [F, F, F, I, I, P, P])
+    lib.sw2d_step_rdma_peer_load.argtypes = [D]
     for fn in (lib.sw2d_blocked_rollout,
                lib.sw2d_blocked_rollout_bwd, lib.sw2d_shard_plan,
                lib.sw2d_stage, lib.sw2d_stage_bwd, lib.sw2d_step_rdma,
-               lib.sw2d_step_rdma_peer):
+               lib.sw2d_step_rdma_peer, lib.sw2d_step_rdma_peer_load):
         fn.restype = I
     lib._sw2d_typed = True
     return lib
@@ -556,8 +557,8 @@ def sw2d_rollout_blocked(ops: BlockedOps, meta: BlockedMeta, h, hu, hv, ctrls,
     at other orders), two grid barriers a step, the block size planned once
     a shape (``rollout_plan``); design: see the source of the kernels,
     measurements: PERF.md. Takes triangles up to N=6 and quadrilaterals
-    (four faces, the run-time sizes, one lane an element) up to N=4, and
-    raises above.
+    (four faces) up to N=4, eight lanes an element at N=4 (its
+    compile-time instance), one at other orders, and raises above.
     """
     B = _check_state(meta, h, hu, hv)
     if ctrls is not None:
@@ -630,8 +631,10 @@ def sw2d_rollout_bwd_blocked(ops: BlockedOps, meta: BlockedMeta,
     an element at N=3) and both products on its adjoint (``qvjp``), each
     lane completing its own nodes (the neighbours' side of each face
     recomputed, no scatter); sums are taken in a fixed order, no atomics.
-    Takes triangles up to N=6 and quadrilaterals (four faces, the run-time
-    sizes, one lane an element) up to N=4, and raises above.
+    Takes triangles up to N=6 and quadrilaterals (four faces) up to N=4:
+    at N=4 the blocked rollout's compile-time instance, eight lanes an
+    element (the recompute gives its bits), ``qvjp``'s faces five nodes on
+    eight lanes, three masked; one lane at other orders; raises above.
     """
     _refuse_wetdry_adjoint(meta)
     B, n1, _ = traj_h.shape
@@ -918,9 +921,12 @@ class RdmaLaunch:
        being the ring's reverse source table ``ex.src_rev``;
      - a ``parallel.PeerRing`` (one shard a rank, CUDA tensors): the
        launch runs this rank's shard, stores the stage-1 halo into the
-       peers' stage-2 slots and meets them through flags in their memory;
-       ``rb`` must be the ring's step-boundary slots, as ``ex(sbuf)``
-       returns them;
+       peers' stage-2 slots and its send slots into their step-boundary
+       slots (the next step's exchange), and meets them through flags in
+       their memory; ``rb`` must be the ring's step-boundary slots, as
+       ``ex(sbuf)`` returns them. Making it loads the peer mode's kernel
+       for the set (``PeerRing`` loads the exchange's), so that no first
+       launch of a ring step waits on CUDA's lazy loading;
      - a ``parallel.RingExchange`` over a process group (one shard a rank):
        CPU tensors only, the plain version with the group's exchange.
     """
@@ -948,6 +954,10 @@ class RdmaLaunch:
                              "different devices")
         self.ops, self.meta, self.ex = ops, meta, ex
         self.device, self._scratch, self._head = ops.fbuf.device, None, None
+        if self.peer:
+            lib, desc = _check_kernel_inputs(ops, meta, ops.fbuf)
+            _launch_check(lib.sw2d_step_rdma_peer_load(ctypes.byref(desc)),
+                          "sw2d_step_rdma_blocked")
 
     def _scratch_for(self, rb: torch.Tensor):
         if self._scratch is None or self._scratch[1].shape != rb.shape:
@@ -1005,6 +1015,9 @@ class RdmaLaunch:
                 *head, B, *(f.data_ptr() for f in state), rb.data_ptr(),
                 _ptr(ctrl), ex.table.data_ptr(), s1.data_ptr(),
                 ex.rb2.data_ptr(), *tail, plan, _launch_stream(rb))
+            _launch_check(err, "sw2d_step_rdma_blocked")
+            ex.carried = sb  # (in the peers' step-boundary slots now)
+            return (*out, sb)
         else:
             plan = _shard_plan(lib, desc, ops, B, _RDMA)
             s1, rb2 = self._scratch_for(rb)
@@ -1038,9 +1051,10 @@ def sw2d_step_rdma_blocked(ops: ShardOps, meta: BlockedMeta, state, rb,
     every shard and scenario, the halo is stored into the receiving shard's
     slots in global memory and a grid barrier stands for the handshake;
     with a ``parallel.PeerRing`` (one shard a rank, ``state`` (1, B, nV))
-    the launch runs this rank's shard, stores the halo into the receiving
-    ranks' memory (CUDA IPC) and meets them through one READY and one
-    ARRIVED flag a ring offset in their memory. Bound by operations (two
+    the launch runs this rank's shard, stores both halos (the inter-stage
+    one and the next step's step-boundary one) into the receiving ranks'
+    memory (CUDA IPC) and meets them through one READY and one ARRIVED flag
+    a ring offset for each in their memory. Bound by operations (two
     RHS evaluations per node against one state in and one out). Takes
     triangles up to N=6 and quadrilaterals (one lane an element) up to
     N=4; raises above and for a wet/dry set.

@@ -39,10 +39,12 @@ and moves the inter-stage halo inside itself
 (``ops.sw2d_blocked.sw2d_step_rdma_blocked``). Stacked, all shards are on
 one card and the halo is stored into the receiving shard's slots in global
 memory. With a process group (one shard a rank) on the card, the transport
-is a ``parallel.PeerRing``: both exchanges store into the peers' memory
-(CUDA IPC), and per-offset flags there stand for the TPU kernel's READY
-handshake; on the CPU it is the plain version over the group's
-``RingExchange``.
+is a ``parallel.PeerRing``: the step launch stores both halos into the
+peers' memory (CUDA IPC: the inter-stage one and the next step's
+step-boundary one; the ring's first step has the initial send buffer
+delivered by an exchange launch), and per-offset flags there stand for the
+TPU kernel's READY handshake; on the CPU it is the plain version over the
+group's ``RingExchange``.
 
 Not ported: ``make_sharded_blocked_step`` (superseded) and
 ``initial_packed_traces``; ``pack_local``/``unpack_local`` have no
@@ -213,13 +215,16 @@ def make_sharded_blocked_step_rdma(sb: ShardedBlocked, dt: float,
 
     With ``group`` on the card (one shard a rank, ``sb`` built with
     ``shards=(rank,)``), the first step makes a ``parallel.PeerRing`` sized
-    by its carry's scenarios (a collective set-up: every rank steps), and
-    each step is two launches: ``peer_ring_exchange`` of the carried send
-    buffer into the peers' step-boundary slots, then the step's peer mode.
-    Every later carry has the same scenarios. The ring is ``step.ring``
-    (None before the first step); every rank calls ``step.ring.close()``
-    when done. On the CPU, with ``group``, the step is the plain version
-    over the group's ``RingExchange``.
+    by its carry's scenarios (a collective set-up: every rank steps), has
+    ``peer_ring_exchange`` deliver the carried send buffer into the peers'
+    step-boundary slots and launches the step's peer mode, which stores its
+    own send buffer into them for the next step: every later step is one
+    launch, and its carry must be the one the step before returned (the
+    ring refuses another send buffer). Every later carry has the same
+    scenarios. The ring is ``step.ring`` (None before the first step);
+    every rank calls ``step.ring.close()`` when done. On the CPU, with
+    ``group``, the step is the plain version over the group's
+    ``RingExchange``.
 
     Raises for a wet/dry set, as the JAX wrapper does (the kernel does not
     limit its stages)."""

@@ -1,6 +1,7 @@
 """B9's transport across ranks: ``PeerRing``, one region of device memory
 a rank that its ring peers store into, and ``peer_ring_exchange``, the
-step-boundary exchange over it.
+step-boundary exchange over it (a launch for the ring's first step only:
+every later step's exchange is the step launch's own).
 
 Counterpart of what the JAX package's one-launch sharded step
 (``blitzdg_tpu/ops/sw2d_blocked.py``, ``_step_kernel_rdma``, driven by
@@ -13,7 +14,8 @@ buffer between steps. One shard a rank: each rank allocates one region
  - the stage-2 receive slots, (B, L, 3) floats, which the peers' step
    launches store their stage-1 halo into;
  - the step-boundary receive slots, (B, L, 3) floats, which the peers'
-   ``peer_ring_exchange`` stores the carried send buffer into;
+   step launches store their send slots into (and, before the first step,
+   their ``peer_ring_exchange`` the initial send buffer);
  - the flags: the epoch (the last step launched here), then one READY and
    one ARRIVED word a ring offset for each of the two uses (the layout and
    the protocol: ``ops/csrc/peer_flags.cuh``). The TPU kernel waits on one
@@ -65,9 +67,10 @@ def _lib():
     lib.peer_open.argtypes = [I, ctypes.c_char_p, ctypes.POINTER(P)]
     lib.peer_close.argtypes = [P]
     lib.peer_ring_exchange.argtypes = [P, P, I, I, I, P]
+    lib.peer_load.argtypes = []
     for fn in (lib.peer_handle_bytes, lib.peer_alloc, lib.peer_free,
                lib.peer_export, lib.peer_open, lib.peer_close,
-               lib.peer_ring_exchange):
+               lib.peer_ring_exchange, lib.peer_load):
         fn.restype = I
     lib._peer_typed = True
     return lib
@@ -86,11 +89,12 @@ def _round(n: int) -> int:
 def region_layout(batch: int, n_slots: int, n_off: int) -> dict:
     """Byte offsets in one rank's region (``ops/csrc/peer_flags.cuh``): the
     stage-2 receive slots at 0, the step-boundary slots at ``rbb``, the
-    ``n_flags`` flag words at ``flags``; ``bytes`` in all."""
+    ``n_flags`` flag words at ``flags`` and after them the step launch's
+    count of its blocks; ``bytes`` in all."""
     slots = _round(batch * n_slots * 3 * 4)
     n_flags = 1 + 4 * n_off
     return {"rbb": slots, "flags": 2 * slots, "n_flags": n_flags,
-            "bytes": 2 * slots + _round(8 * n_flags)}
+            "bytes": 2 * slots + _round(8 * (n_flags + 1))}
 
 
 class _Raw:
@@ -128,14 +132,24 @@ class PeerRing:
     ``timeout_s``: the bound of every wait on a peer's flag, after which
     the waiting kernel traps.
 
-    ``ring(sbuf)`` runs ``peer_ring_exchange`` on this rank's send buffer
-    (1, B, L, 3) and returns this rank's step-boundary slots ``rbb``
-    (1, B, L, 3), the ``rb`` of the one-launch step that follows
-    (``ops.sw2d_blocked.RdmaLaunch`` with this ring), which waits for the
-    peers' chunks before it reads them. Each exchange is followed by one
-    step; nothing else should read ``rbb``. ``rb2`` are the stage-2 receive
-    slots, ``table`` the offset-indexed table of the ring's regions in
-    device memory, ``flags`` this rank's flag words.
+    ``ring(sbuf)`` is ``peer_ring_exchange``: the step-boundary exchange of
+    this rank's send buffer (1, B, L, 3); it returns this rank's
+    step-boundary slots ``rbb`` (1, B, L, 3), the ``rb`` of the one-launch
+    step that follows (``ops.sw2d_blocked.RdmaLaunch`` with this ring),
+    which waits for the peers' chunks before it reads them. Only the first
+    call launches (the initial send buffer); each step then stores its own
+    send buffer into the peers' slots, so a later call takes only the
+    buffer the last step returned and launches nothing. Each exchange is
+    followed by one step; nothing else should read ``rbb``. ``rb2`` are the
+    stage-2 receive slots, ``table`` the offset-indexed table of the ring's
+    regions in device memory, ``flags`` this rank's flag words,
+    ``carried`` the send buffer last delivered (None before the first
+    call). Both constructors load the exchange kernel into the context, as
+    ``RdmaLaunch`` does the step's: no first launch of a ring step waits on
+    CUDA's lazy loading, which waits for the running kernels (any other
+    kernel that a caller launches between the steps of ranks that share a
+    process must be loaded before the ring runs, for example by one launch
+    of it, or by ``CUDA_MODULE_LOADING=EAGER``).
 
     ``close()`` (or leaving a ``with`` block): a group barrier, the peers'
     regions closed, a second barrier, this rank's region freed. Every rank
@@ -199,8 +213,10 @@ class PeerRing:
         zeroed; on a CPU device, host memory for a build of the kernels for
         the host): the S ranks of a ring in one process, each launch on its
         own stream. Their step launches must then be resident on the card
-        together (a wait that outlasts its bound traps). The caller owns
-        the regions and their lifetime; ``close`` does nothing here."""
+        together (a wait that outlasts its bound traps), and every kernel
+        that the caller launches between their steps must be loaded before
+        they run (the ring's own are: see the class). The caller owns the
+        regions and their lifetime; ``close`` does nothing here."""
         ring = cls.__new__(cls)
         ring._setup(plan, n_fp, batch, rank, bases, torch.device(device),
                     timeout_s)
@@ -228,6 +244,9 @@ class PeerRing:
         # GOB: the receiving ranks' step-boundary slots are free for the
         # first exchange (epoch 1); every later release is a peer's
         self.flags[3::4] = 1
+        self.carried = None
+        lib = _lib()
+        _check(lib, lib.peer_load(), "peer_load")
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
@@ -243,6 +262,12 @@ class PeerRing:
             self.table.data_ptr(), sbuf.data_ptr(), len(self.plan.offs),
             self.batch, self.n_slots, _launch_stream(sbuf))
         _check(lib, err, "peer_ring_exchange")
+
+    def _deliver(self, sbuf: torch.Tensor):
+        """The initial send buffer into the peers' step-boundary slots."""
+        if self.plan.offs:
+            self._exchange(sbuf)
+        self.carried = sbuf
 
     def close(self):
         """Every rank: wait for this rank's launches, meet the others,
@@ -275,11 +300,20 @@ def _n_slots(plan: HaloPlan, n_fp: int) -> int:
 def peer_ring_exchange(ring: PeerRing, sbuf: torch.Tensor) -> torch.Tensor:
     """The step-boundary exchange across ranks: chunk i of this rank's send
     buffer ``sbuf`` (1, B, L, 3), every scenario, into the step-boundary
-    slots of the rank that ring offset i sends to, once that rank has
-    released them, and its ARRIVED flag there (``ops/csrc/peer.cu``, one
-    block an offset). Returns this rank's own step-boundary slots
-    ``ring.rbb``, which the peers fill: only the one-launch step that
-    follows reads them, after its wait for the peers' ARRIVED flags.
+    slots of the rank that ring offset i sends to, and its ARRIVED flag
+    there. Returns this rank's own step-boundary slots ``ring.rbb``, which
+    the peers fill: only the one-launch step that follows reads them, after
+    its wait for the peers' ARRIVED flags.
+
+    At the ring's first call (its initial send buffer) this launches the
+    exchange kernel (``ops/csrc/peer.cu``, one block an offset), which
+    waits until each receiving rank has released its slots. After that a
+    step launch stores its own send slots into the peers' step-boundary
+    slots (its stage 2), so ``ring(sbuf)`` launches nothing: ``sbuf`` must
+    be the buffer that the ring's last step returned (or, before the first
+    step, the one delivered), and any other raises. The values are those of
+    an exchange of ``sbuf`` as long as it is not changed in place between
+    its step and the next.
 
     Replaces the XLA ``ppermute`` of the carried send buffer before the TPU
     one-launch step (``blitzdg_tpu/parallel/blocked_shard.py``,
@@ -289,6 +323,15 @@ def peer_ring_exchange(ring: PeerRing, sbuf: torch.Tensor) -> torch.Tensor:
     shape = (1, ring.batch, ring.n_slots, 3)
     if tuple(sbuf.shape) != shape:
         raise ValueError(f"sbuf: shape {tuple(sbuf.shape)}, expected {shape}")
+    last = ring.carried
+    if last is not None:
+        if (sbuf.device != last.device or sbuf.data_ptr() != last.data_ptr()
+                or sbuf.stride() != last.stride()):
+            raise ValueError(
+                "the ring's steps deliver their own send buffers: ring(sbuf) "
+                "takes the buffer its last step returned (the carry), not "
+                "another one")
+        return ring.rbb
     if sbuf.device.type != "cuda":
         raise ValueError("the ring exchange runs on the card; on CPU tensors "
                          "the process group's RingExchange is the transport")
@@ -297,8 +340,8 @@ def peer_ring_exchange(ring: PeerRing, sbuf: torch.Tensor) -> torch.Tensor:
                          f"exchanges float32 on {ring.device}")
     if not sbuf.is_contiguous():
         raise ValueError("sbuf: the kernel needs a contiguous tensor")
+    ring._deliver(sbuf)
     if ring.plan.offs:
-        ring._exchange(sbuf)
         peer_ring_exchange.launches += 1
     return ring.rbb
 

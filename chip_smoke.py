@@ -113,24 +113,33 @@ in order (any failure is an exception and a non-zero exit):
     one shard of the coastal K=2048, N=3 set at B=8 (as
     ``rdma_coastal_K2048_N3_S4``) and a ``PeerRing`` (its region mapped
     into its ring peers by CUDA IPC); each runs 64 steps of
-    ``make_sharded_blocked_step_rdma(sb, dt, group=g)`` (the exchange
-    ``peer_ring_exchange`` and the step's peer mode, counters zeroed just
-    before and read just after: 64 and 64 a rank, no stage kernel), rank 2
-    of the last case sleeping 0.5 s before every 8th step. Every rank's end
-    state and send buffer must be bit-equal to its shard of the stacked
-    one-launch rollout run here, its first step within BLK_FWD_ATOL of the
-    plain version, its last step-boundary slots bit-equal to the stacked
-    gather and to the group's plain exchange (gloo, CPU copies); no worker
-    may fail or trap. Records the card's compute mode and whether MPS
-    runs (without it the processes time-slice the card: the wall time a
-    step measures the slices), and, in ``peer_S4``, each rank's step
-    kernel and exchange alone (the other ranks idle at a barrier, its
-    flags set past any epoch), CUDA events, L2 flushed. Then
+    ``make_sharded_blocked_step_rdma(sb, dt, group=g)`` (the step's peer
+    mode, which stores its send buffer into the peers' step-boundary slots
+    itself, and before the first step the exchange ``peer_ring_exchange``
+    of the initial send buffer; counters zeroed just before and read just
+    after: 64 and 1 a rank, no stage kernel), rank 2 of the last case
+    sleeping 0.5 s before every 8th step. Every rank's end state and send
+    buffer must be bit-equal to its shard of the stacked one-launch rollout
+    run here, its first step within BLK_FWD_ATOL of the plain version, its
+    last step-boundary slots (its peers' last send buffers) bit-equal to
+    the stacked gather and to the group's plain exchange (gloo, CPU
+    copies); no worker may fail or trap. Records the card's compute mode
+    and whether MPS runs (without it the processes time-slice the card:
+    the wall time a step measures the slices), and, in ``peer_S4``, each
+    rank's step kernel and exchange alone (the other ranks idle at a
+    barrier, its flags set past any epoch), CUDA events, L2 flushed. Then
     ``peer_S4_in_process``: the four ranks in this process on four streams
     (``PeerRing.over_regions``), their kernels running at the same time,
     bit-equal to the stacked rollout, and their host-clocked us a step;
-    and ``peer_S4_in_process_long``: the same over 2048 steps (an eighth
-    of the set's dt, where its state stays finite), at every step one rank
+    ``peer_S4_fresh_process``: the same ranks' first PEER_FRESH_STEPS
+    steps in a fresh process of this script (``--peer-fresh``, lazy module
+    loading) that launches no kernel of the port before them, a rank held
+    back at each step: the ring loads its own kernels, so none traps, and
+    the end states are bit-equal to the stacked rollout's; and
+    ``peer_S4_in_process_long``: the four ranks over 2048 steps (an eighth
+    of the set's dt, a time where the state stays finite: 0.57 of the
+    time at which the set's state stops being finite, in the JAX package's
+    plain step as in the port's, ROADMAP C31), at every step one rank
     drawn from the seed held back on its stream, each rank's state, send
     buffer and stage-2 receive slots bit-equal to the stacked rollout's
     after every step;
@@ -2926,10 +2935,12 @@ def quads_phases(dev, card: str, rng, flush) -> list:
             refused[kname] = False
         except ValueError as e:
             refused[kname] = "N <= 4" in str(e) and kname in str(e)
-    # the blocked rollout (B5, B4) takes the N=4 instance, eight lanes an
-    # element; the others the run-time sizes, one lane
+    # the blocked rollout (B5, B4) and its adjoint (B6) take the N=4
+    # instance, eight lanes an element; the others the run-time sizes, one
+    # lane
     kern_ok = all(refused.values()) and all(
-        p["lanes_per_element"] == (8 if k == "rollout" else 1)
+        p["lanes_per_element"] == (8 if k in ("rollout", "rollout_bwd")
+                                   else 1)
         for k, p in plans.items())
     say({"phase": "quads_kernels", "ok": kern_ok, "card": card,
          "cases": sorted({r["case"] for r in head.values()}),
@@ -3633,23 +3644,28 @@ PEER_TIMED_REPS = 9
 # the long in-process run: steps; the most cycles a rank drawn at each
 # step is held on its stream before it (about 0.1 ms at 1.98 GHz, three
 # steps of a rank alone); its dt, a fraction of the set's, so that its
-# steps span the time of 256 of the set's (over a longer time the coastal
+# steps span the time of 256 of the set's. Over a longer time the coastal
 # set's currents grow at its open boundary until its state is no longer
-# finite, in the plain version as in the kernels, and bits would not tell
-# a stale halo from a fresh one)
+# finite: after 449 steps of the set's dt from the inputs of
+# tests/test_torch_coastal_blowup.py in float64, and after 450 in the JAX
+# package's plain step on the same inputs (ROADMAP C31), so it is the
+# reference's. 256 steps' time is 0.57 of that, where bits still tell a
+# stale halo from a fresh one.
 PEER_LONG_STEPS = 2048
 PEER_LONG_DELAY_CYCLES = 200_000
 PEER_LONG_DT_FRACTION = 1 / 8
+# the fresh-process run: steps
+PEER_FRESH_STEPS = 8
 
 
-def peer_problem(S: int, dev, shards=None):
+def peer_problem(S: int, dev, shards=None, dtype=torch.float32):
     """The coastal set of ``rdma_coastal_K2048_N3_S4`` (K=2048, N=3,
     bathymetry with the well-balanced star fluxes, drag, Coriolis, tidal
     depth on the open east side, sponge toward it, two controls) on the
     box partitioned into S shards: (context, set, still-water depth, dt).
-    ``shards``: the shards held here (one rank's, or all). The context is
-    built in float64 on the host, so that every process that builds the
-    set gets the same bits."""
+    ``shards``: the shards held here (one rank's, or all); ``dtype``: the
+    set's. The context is built in float64 on the host, so that every
+    process that builds the set gets the same bits."""
     from blitzdg_tpu_torch.context import BC_OUT
     from blitzdg_tpu_torch.mesh import box_triangles
     from blitzdg_tpu_torch.mpc import sharded_box as sbx
@@ -3675,7 +3691,8 @@ def peer_problem(S: int, dev, shards=None):
                      sponge=build_sponge_coefficient(cc, open_nodes, width=0.3,
                                                      strength=0.5))
     bu, bv = sbx.injectors(cc)
-    sb = BS.build_sharded_blocked(cc, phys, S, tidal=(12.0, 0.5, 2.0, 10.0),
+    sb = BS.build_sharded_blocked(cc, phys, S, dtype=dtype,
+                                  tidal=(12.0, 0.5, 2.0, 10.0),
                                   forcing_bu=bu, forcing_bv=bv, device=dev,
                                   shards=shards)
     return cc, sb, H, cfl_dt(cc, 9.81, 13.5)
@@ -3685,11 +3702,12 @@ def peer_worker(cfg: dict) -> int:
     """One rank of a peer case, in a process of its own: joins the gloo
     group, builds its shard of the set on the card, runs PEER_STEPS steps of
     ``make_sharded_blocked_step_rdma(sb, dt, group=g)`` (counters zeroed
-    just before and read just after), holds its step-boundary slots against
-    the group's plain exchange (gloo, on CPU copies), and, where asked,
-    times its step kernel and its exchange alone (every other rank idle at
-    a barrier, this rank's flags set past any epoch, so that no wait holds
-    it). Writes its results to the case's directory."""
+    just before and read just after), holds its step-boundary slots (its
+    peers' last send buffers) against the group's plain exchange (gloo, on
+    CPU copies), and, where asked, times its step kernel and its exchange
+    alone (every other rank idle at a barrier, this rank's flags set past
+    any epoch, so that no wait holds it). Writes its results to the case's
+    directory."""
     import torch.distributed as dist
 
     from blitzdg_tpu_torch.ops import sw2d_blocked as TB
@@ -3727,8 +3745,6 @@ def peer_worker(cfg: dict) -> int:
             first = [f.clone() for f in (*carry[0], carry[1])]
             torch.cuda.synchronize()
             w0 = time.perf_counter()
-        if k == PEER_STEPS - 2:
-            sbuf_prev = carry[1].clone()
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
     ring = step.ring
@@ -3736,10 +3752,11 @@ def peer_worker(cfg: dict) -> int:
                 "peer_ring_exchange": exch.launches,
                 "sw2d_stage_blocked": stage.launches}
     dist.barrier()
-    # the last exchange's slots against the plain version: the process
-    # group's ring exchange (gloo point-to-point on CPU copies)
+    # the step-boundary slots that the peers' last steps filled against the
+    # plain version: the process group's ring exchange of the last send
+    # buffers (gloo point-to-point on CPU copies)
     rbb = ring.rbb.cpu()
-    plain_rb = RingExchange(sb.plan, sb.meta.n_fp, group)(sbuf_prev.cpu())
+    plain_rb = RingExchange(sb.plan, sb.meta.n_fp, group)(carry[1].cpu())
     out = {"final": [f.cpu() for f in (*carry[0], carry[1])],
            "first": [f.cpu() for f in first], "rbb": rbb,
            "exchange_vs_gloo": float((rbb - plain_rb).abs().max()),
@@ -3758,7 +3775,9 @@ def peer_worker(cfg: dict) -> int:
                 out["step_ms"] = time_ms(
                     lambda: launch(st1, ring.rbb, dt, t0, cs[0]),
                     PEER_TIMED_REPS, flush)
-                out["exchange_ms"] = time_ms(lambda: ring(sb1),
+                # (the exchange kernel's launch: ring(sbuf) launches it
+                # for a ring's first step only)
+                out["exchange_ms"] = time_ms(lambda: ring._exchange(sb1),
                                              PEER_TIMED_REPS, flush)
                 out["plan"] = TB.shard_plan(sb.ops, sb.meta, B, step=True,
                                             peer=True)
@@ -3768,6 +3787,73 @@ def peer_worker(cfg: dict) -> int:
     dist.destroy_process_group()
     print(f"PEER_OK rank={rank}", flush=True)
     return 0
+
+
+def peer_fresh_worker(cfg: dict) -> int:
+    """The S=4 ring's ranks in one fresh process (this script started with
+    ``--peer-fresh``; lazy module loading): builds the set and the state on
+    the card (torch's own kernels), loads one torch kernel of its own that
+    the loop launches (``torch.cuda._sleep``), makes the rings and the
+    ranks' launches and runs PEER_FRESH_STEPS steps, at each step one rank
+    held back on its stream before it; no kernel of the port is launched
+    before the first step, so each of them is first launched inside the
+    loop, while its peers' steps wait at their flags. Writes the ranks' end
+    (h, hu, hv, sb) to the case's directory."""
+    dev = torch.device("cuda", 0)
+    inp = torch.load(Path(cfg["dir"]) / "inputs.pt")
+    S = 4
+    sb = peer_problem(S, dev)[1]
+    from blitzdg_tpu_torch.parallel import blocked_shard as BS
+
+    state = tuple(inp[k].to(dev) for k in ("h", "hu", "hv"))
+    cs, dt, t = inp["cs"].to(dev), inp["dt"], inp["t0"]
+    sbuf0 = BS.initial_send_buffer(sb, state)
+    torch.cuda._sleep(1)  # the caller's own kernel of the loop, loaded
+    torch.cuda.synchronize()
+    rings, launches, streams, free = peer_ranks_in_process(
+        sb, state[0].shape[1], dev)
+    try:
+        carry = [(tuple(f[r:r + 1] for f in state), sbuf0[r:r + 1])
+                 for r in range(S)]
+        for k in range(PEER_FRESH_STEPS):
+            for r in range(S):
+                with torch.cuda.stream(streams[r]):
+                    if r == k % S:
+                        torch.cuda._sleep(PEER_LONG_DELAY_CYCLES)
+                    st, sbuf = carry[r]
+                    *s2, sb2 = launches[r](st, rings[r](sbuf), dt, t, cs[k])
+                    carry[r] = (tuple(s2), sb2)
+            t += dt
+        torch.cuda.synchronize()
+        ends = [[f.cpu() for f in (*c[0], c[1])] for c in carry]
+    finally:
+        free()
+    torch.save(ends, Path(cfg["dir"]) / "fresh.pt")
+    print("PEER_FRESH_OK", flush=True)
+    return 0
+
+
+def run_peer_fresh(case_dir: Path) -> list:
+    """``peer_fresh_worker`` in a process of its own (lazy module loading
+    asked for), under PEER_WORKER_TIMEOUT, always ended; fails unless it
+    exits 0. Returns the ranks' ends."""
+    import os
+
+    env = dict(os.environ, CUDA_MODULE_LOADING="LAZY")
+    p = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--peer-fresh",
+         json.dumps({"dir": str(case_dir)})], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env)
+    try:
+        log = p.communicate(timeout=PEER_WORKER_TIMEOUT)[0]
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    if p.returncode != 0 or "PEER_FRESH_OK" not in log:
+        raise RuntimeError(f"the fresh-process ring failed (exit "
+                           f"{p.returncode}):\n{log[-4000:]}")
+    return torch.load(case_dir / "fresh.pt")
 
 
 def _free_port() -> int:
@@ -3844,20 +3930,20 @@ def run_peer_in_process(sb, state, cs, dt: float, t0: float, dev,
                         n_steps: int = PEER_STEPS):
     """The S ranks of ``sb``'s ring in this process
     (``peer_ranks_in_process``): ``n_steps`` steps enqueued rank after
-    rank, untimed, then again on the host clock (synchronised). The ranks'
-    step launches are resident on the card together and meet only through
-    their flags: the only run in which their kernels run at the same time
-    (processes without MPS time-slice the card). Returns each rank's end
-    (h, hu, hv, sb), the us a step of the timed run, rank 0's ring and
-    launch (for timing it alone) and a function that frees the regions."""
+    rank, untimed, then again over new rings (a ring carries its steps'
+    send buffers, so a rollout from the start takes a ring of its own) on
+    the host clock (synchronised). The ranks' step launches are resident on
+    the card together and meet only through their flags: the only run in
+    which their kernels run at the same time (processes without MPS
+    time-slice the card). Returns each rank's end (h, hu, hv, sb), the us a
+    step of the timed run, rank 0's ring and launch (for timing it alone)
+    and a function that frees the regions."""
     from blitzdg_tpu_torch.parallel import blocked_shard as BS
 
     S = sb.n_shards
-    rings, launches, streams, free = peer_ranks_in_process(
-        sb, state[0].shape[1], dev)
     sbuf0 = BS.initial_send_buffer(sb, state)
 
-    def run():
+    def run(rings, launches, streams):
         carry = [(tuple(f[r:r + 1] for f in state), sbuf0[r:r + 1])
                  for r in range(S)]
         t = t0
@@ -3871,10 +3957,17 @@ def run_peer_in_process(sb, state, cs, dt: float, t0: float, dev,
         return carry
 
     torch.cuda.synchronize()
-    run()
+    *warm, free_warm = peer_ranks_in_process(sb, state[0].shape[1], dev)
+    try:
+        run(*warm)
+        torch.cuda.synchronize()
+    finally:
+        free_warm()
+    rings, launches, streams, free = peer_ranks_in_process(
+        sb, state[0].shape[1], dev)
     torch.cuda.synchronize()
     w0 = time.perf_counter()
-    carry = run()
+    carry = run(rings, launches, streams)
     torch.cuda.synchronize()
     us = (time.perf_counter() - w0) * 1e6 / n_steps
     ends = [(*c[0], c[1]) for c in carry]
@@ -3897,10 +3990,12 @@ def run_peer_in_process_checked(sb, state, cs, dt: float, t0: float, dev,
     order. After each step, on each rank's stream, the bits of its state,
     its send buffer and its stage-2 receive slots (the peers' stage-1 halo
     that IN2 guards and its stage 2 read) are digested and held to the
-    stacked one-launch rollout's of the same step and shard. Every kernel
-    of the loop is launched once before it: a kernel's first launch loads
-    its module (CUDA's lazy loading), which waits for the context's running
-    kernels, and a rank's step that waits for a peer's then never ends.
+    stacked one-launch rollout's of the same step and shard. This caller's
+    own kernels of the loop (the digests) are launched once before it: a
+    kernel's first launch loads its module (CUDA's lazy loading), which
+    waits for the context's running kernels, and a rank's step that waits
+    for a peer's then never ends (the ring and the ranks' launches load the
+    port's kernels themselves).
     Returns the steps whose digests differ, a list a rank, the steps each
     rank was held back, and whether the stacked rollout's state stayed
     finite."""
@@ -4016,14 +4111,15 @@ def peer_phases(dev, card: str, rng, flush) -> list:
                 for k in range(PEER_STEPS):
                     carry = rstep(carry, t, cs[k])
                     t += dt
-                    if k == PEER_STEPS - 2:
-                        last_rb = ex(carry[1])
+                    if k == PEER_FRESH_STEPS - 1:
+                        fresh_end = (*carry[0], carry[1])
+                last_rb = ex(carry[1])
                 torch.cuda.synchronize()
                 refs[S] = {"inputs": inputs, "sb": sb, "ex": ex,
                            "sbuf0": sbuf0, "plain1": plain1,
                            "final": (*carry[0], carry[1]),
                            "last_rb": last_rb, "dt": dt, "t0": t0, "cs": cs,
-                           "state": state}
+                           "state": state, "fresh_end": fresh_end}
                 del cc
             ref = refs[S]
             case_dir = Path(tmp) / name
@@ -4062,7 +4158,7 @@ def peer_phases(dev, card: str, rng, flush) -> list:
             ok = (all(bits) and all(rb_bits) and err1 <= BLK_FWD_ATOL
                   and all(o["exchange_vs_gloo"] == 0.0 for o in res)
                   and all(c == {"sw2d_step_rdma_blocked (peer)": PEER_STEPS,
-                                "peer_ring_exchange": PEER_STEPS,
+                                "peer_ring_exchange": 1,
                                 "sw2d_stage_blocked": 0} for c in counts))
             if is_timed:
                 timed = (S, ref, res[0], err1)
@@ -4088,11 +4184,30 @@ def peer_phases(dev, card: str, rng, flush) -> list:
            "batch": PEER_BATCH, "bit_equal_to_stacked": bits,
            "us_per_step_host_clock": us,
            "note": "four ranks on four streams of one process, their step "
-                   "launches resident together; eight launches a step from "
-                   "the host", "card": card, "ok": all(bits)}
+                   "launches resident together; four launches a step from "
+                   "the host (the exchange kernel at the first step only)",
+           "card": card, "ok": all(bits)}
     say(rec)
     if not rec["ok"]:
         raise RuntimeError(f"the in-process peer case failed: {rec}")
+    # the same ranks' first steps in a fresh process
+    w0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(ref["inputs"], Path(tmp) / "inputs.pt")
+        fresh = run_peer_fresh(Path(tmp))
+    bits = [all(torch.equal(a, b[r:r + 1].cpu())
+                for a, b in zip(fresh[r], ref["fresh_end"]))
+            for r in range(len(fresh))]
+    rec = {"phase": "peer_S4_fresh_process", "n_shards": 4,
+           "steps": PEER_FRESH_STEPS, "batch": PEER_BATCH,
+           "module_loading": "LAZY", "bit_equal_to_stacked": bits,
+           "seconds": time.perf_counter() - w0,
+           "note": "no kernel of the port launched before the ring's first "
+                   "step; the ring and the ranks' launches load their own",
+           "card": card, "ok": all(bits)}
+    say(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"the fresh-process peer case failed: {rec}")
     # the same, long, with a rank held back at every step, each step's bits
     # held to the stacked rollout's
     w0 = time.perf_counter()
@@ -4133,7 +4248,9 @@ def peer_phases(dev, card: str, rng, flush) -> list:
     gather = lambda: ref["ex"](ref["sbuf0"])
     gather_ms = time_ms(gather, PEER_TIMED_REPS, flush)
     n_wall = int(ops0.wall.sum())
-    halo = 4.0 * 2 * 3 * B * L
+    # the halos: stage 1's stored into the peers and read back in stage 2,
+    # and stage 2's step-boundary one stored into the peers
+    halo = 4.0 * 3 * 3 * B * L
     step_bound = bound(4.0 * (6 * B * meta.n_v + 2 * 3 * B * L + meta.n_ctrl)
                        + halo, B * 2 * rhs_flops(meta, n_wall))
     ex_bound = bound(4.0 * 2 * 3 * B * L, 0.0)
@@ -4241,7 +4358,8 @@ Q_SIZES = ("I6QSizesILi10ELi4ELi2ELi4ELi3EEE",
 Q_SIZES_N6 = "I6QSizesILi28ELi7ELin1ELi8ELi3EEE"
 Q_SIZES_WIDE_N3 = ("I6QSizesILi10ELi4ELi2ELi16ELi3EEE",
                    "I6QSizesILi10ELi4ELin1ELi16ELi3EEE")
-# quadrilaterals at N=4, eight lanes an element (the blocked rollout's)
+# quadrilaterals at N=4, eight lanes an element (the blocked rollout's and
+# its adjoint's)
 Q_SIZES_QUAD_N4 = "I6QSizesILi25ELi5ELin1ELi8ELi4EEE"
 SHARDED_KERNELS = [
     k + z for k in ("_Z17sw2d_stage_kernel", "_Z21sw2d_stage_bwd_kernel",
@@ -4252,12 +4370,14 @@ SHARDED_KERNELS = [
 ] + [k + Q_SIZES_N6 for k in ("_Z17sw2d_stage_kernel",
                               "_Z21sw2d_step_rdma_kernel")]
 BLOCKED_ADJOINT_KERNELS = ["_Z31sw2d_blocked_rollout_bwd_kernel" + z
-                           for z in Q_SIZES]
+                           for z in Q_SIZES + (Q_SIZES_QUAD_N4,)]
 BLOCKED_FORWARD_KERNELS = ["_Z27sw2d_blocked_rollout_kernel" + z
                            for z in Q_SIZES + (Q_SIZES_N6,)]
-# Quadrilaterals run the blocked rollout's N=4 instantiation and every q
-# kernel's run-time-size one.
-QUAD_KERNELS = ["_Z27sw2d_blocked_rollout_kernel" + Q_SIZES_QUAD_N4] + [
+# Quadrilaterals run the N=4 instantiation of the blocked rollout and its
+# adjoint and every q kernel's run-time-size one.
+QUAD_KERNELS = [k + Q_SIZES_QUAD_N4 for k in (
+    "_Z27sw2d_blocked_rollout_kernel",
+    "_Z31sw2d_blocked_rollout_bwd_kernel")] + [
     k + Q_SIZES[2] for k in (
         "_Z27sw2d_blocked_rollout_kernel",
         "_Z31sw2d_blocked_rollout_bwd_kernel", "_Z17sw2d_stage_kernel",
@@ -4291,6 +4411,7 @@ def main() -> int:
                                        "halo", "compat"),
                     help="run one path's phases alone (default: all)")
     ap.add_argument("--peer-worker", metavar="JSON", help=argparse.SUPPRESS)
+    ap.add_argument("--peer-fresh", metavar="JSON", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -4298,6 +4419,8 @@ def main() -> int:
         return 1
     if args.peer_worker:
         return peer_worker(json.loads(args.peer_worker))
+    if args.peer_fresh:
+        return peer_fresh_worker(json.loads(args.peer_fresh))
 
     from blitzdg_tpu_torch.ops import _build
 

@@ -75,6 +75,7 @@ SHIM = r"""
 #include <chrono>
 #include <cmath>
 #include <cstddef>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <memory>
@@ -119,7 +120,13 @@ static inline void __syncthreads() { shim_blk->bar->arrive_and_wait(); }
 static inline void __syncwarp(unsigned = 0xffffffffu) {
   shim_blk->warp[threadIdx.x / 32]->arrive_and_wait();
 }
+// (a width that is not a power of two up to 32 is not valid on the card:
+// the shim aborts rather than compute something)
 static inline float __shfl_xor_sync(unsigned, float v, int m, int w = 32) {
+  if (w < 1 || w > 32 || (w & (w - 1)) != 0) {
+    std::fprintf(stderr, "__shfl_xor_sync: invalid width %d\n", w);
+    std::abort();
+  }
   const unsigned t = threadIdx.x, l = t & 31;
   shim_blk->xch[t] = v;
   __syncwarp();
@@ -196,6 +203,13 @@ struct cudaLaunchConfig_t {
 };
 template <class K>
 static inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return 0;
+}
+// (loading a kernel: the host build has nothing to load)
+struct cudaFuncAttributes { int maxThreadsPerBlock; };
+template <class K>
+static inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, K) {
+  a->maxThreadsPerBlock = 1024;
   return 0;
 }
 static inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
@@ -375,6 +389,54 @@ def shim_lib(tmp_path_factory):
     res = subprocess.run(cmd, capture_output=True, text=True)
     assert res.returncode == 0, res.stderr[-4000:]
     return ctypes.CDLL(str(lib))
+
+
+SHUFFLE_PROBE = r"""
+#include "shim.h"
+// one thread of one warp: __shfl_xor_sync of lane 1's value at width argv[1]
+int main(int argc, char** argv) {
+  ShimBlock b;
+  b.warp.push_back(std::make_unique<std::barrier<>>(1));
+  b.xch.assign(32, 2.0f);
+  shim_blk = &b;
+  const int w = std::atoi(argv[1]);
+  const float v = __shfl_xor_sync(0xffffffffu, 1.0f, 1, w);
+  return v == (w == 1 ? 1.0f : 2.0f) ? 0 : 1;  // (width 1: its own)
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def shuffle_probe(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the shim cannot be compiled")
+    d = tmp_path_factory.mktemp("shuffle_probe")
+    (d / "shim.h").write_text(SHIM)
+    (d / "probe.cc").write_text(SHUFFLE_PROBE)
+    exe = d / "probe"
+    res = subprocess.run([gxx, "-std=c++20", "-pthread", "-O1", "-w", "-I",
+                          str(d), str(d / "probe.cc"), "-o", str(exe)],
+                         capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return exe
+
+
+@pytest.mark.parametrize("width, valid", [(1, True), (2, True), (8, True),
+                                          (32, True), (0, False),
+                                          (3, False), (5, False),
+                                          (12, False), (64, False)])
+def test_shim_shuffle_aborts_on_an_invalid_width(shuffle_probe, width, valid):
+    """The shim's ``__shfl_xor_sync`` takes the card's widths (a power of
+    two up to a warp) and aborts on any other, so that a kernel asking for
+    one (a face of five nodes shuffled at width five) fails here instead
+    of computing with a width the card does not take."""
+    res = subprocess.run([str(shuffle_probe), str(width)],
+                         capture_output=True, text=True)
+    if valid:
+        assert res.returncode == 0
+    else:
+        assert res.returncode != 0 and "invalid width" in res.stderr
 
 
 @pytest.fixture
@@ -790,9 +852,15 @@ class PeerCase:
                 for k in range(n_steps):
                     if delay and r == delay[0] and k % delay[1] == 0:
                         time.sleep(delay[2])
-                    rings[r]._exchange(sbuf)
-                    *st, sbuf = launch._launch(tuple(st), rings[r].rbb, c.dt,
-                                               t, c.ctrl, True)
+                    # the initial send buffer through the exchange kernel
+                    # (PR.peer_ring_exchange's first call launches it, on
+                    # the card only); after that the step delivers its own
+                    # and the ring takes back what the step returned
+                    if k == 0:
+                        rings[r]._deliver(sbuf)
+                    rb = PR.peer_ring_exchange(rings[r], sbuf)
+                    *st, sbuf = launch._launch(tuple(st), rb, c.dt, t,
+                                               c.ctrl, True)
                     if trace is not None:
                         trace[r].append((*st, sbuf, rings[r].rb2.clone()))
                     t += c.dt
@@ -810,16 +878,21 @@ class PeerCase:
         assert not any(th.is_alive() for th in threads), \
             "a rank is still waiting: a wait that does not end"
         flags = [ring.flags.clone() for ring in rings]
+        self.rings = rings
+        self.rbb = [ring.rbb.clone() for ring in rings]
         return out, errors, flags
 
 
 @pytest.mark.parametrize("name", list(PEER_CASES))
 def test_peer_step_matches_the_stacked_step(device, name):
     """Each rank's state and send buffer after PEER_STEPS steps of the
-    exchange and the peer-mode step, the ranks' launches at once: bit-equal
-    to its shard of the stacked one-launch rollout, and the same bits on a
-    rerun over fresh regions. Every flag reads the last epoch (GOB one
-    ahead: the next exchange's), so no wait was skipped or doubled."""
+    peer-mode step (the first after the exchange of the initial send
+    buffer; each later one's step-boundary halo stored by its peers' steps),
+    the ranks' launches at once: bit-equal to its shard of the stacked
+    one-launch rollout, and the same bits on a rerun over fresh regions.
+    Every flag reads the last epoch (GOB and INB one ahead: the next step's
+    step-boundary slots, freed and filled), so no wait was skipped or
+    doubled."""
     pc = PeerCase(name)
     device(*pc.dev)
     want = pc.stacked(PEER_STEPS)
@@ -827,13 +900,18 @@ def test_peer_step_matches_the_stacked_step(device, name):
     assert errors == [None] * pc.S
     for r in range(pc.S):
         assert _same(got[r], [f[r:r + 1] for f in want]), f"rank {r}"
+    # each rank's step-boundary slots, filled by its peers' last steps: the
+    # stacked gather of the last send buffers
+    last_rb = pc.c.ex[F32](want[3])
+    for r in range(pc.S):
+        assert torch.equal(pc.rbb[r], last_rb[r:r + 1]), f"rank {r}"
     again = pc.ranks(PEER_STEPS)[0]
     for r in range(pc.S):
         assert _same(again[r], got[r])
     n_off = len(pc.c.sets[F32].plan.offs)
     for f in flags:
         want_flags = [PEER_STEPS] + [PEER_STEPS, PEER_STEPS,
-                                     PEER_STEPS + 1, PEER_STEPS] * n_off
+                                     PEER_STEPS + 1, PEER_STEPS + 1] * n_off
         assert f.tolist() == want_flags
 
 
@@ -870,6 +948,27 @@ def test_peer_step_traps_when_a_rank_never_launches(device):
     assert time.monotonic() - t0 < 60.0
     # rank 0's exchange stored its chunk and released rank 1's INB
     assert int(flags[1][4]) == 1 and int(flags[0][4]) == 0
+
+
+def test_peer_ring_takes_only_the_last_steps_send_buffer(device):
+    """After a ring's first step the step itself has stored its send buffer
+    into the peers' step-boundary slots: ``ring(sbuf)`` then launches
+    nothing and returns the slots for the send buffer that step returned,
+    and refuses any other (a copy of it, the initial one), which it could
+    not deliver."""
+    pc = PeerCase("N3_S2_B3")
+    device(*pc.dev)
+    got, errors, _ = pc.ranks(2)
+    assert errors == [None] * pc.S
+    n0 = PR.peer_ring_exchange.launches
+    for r, ring in enumerate(pc.rings):
+        last = got[r][3]
+        assert ring.carried is last
+        assert ring(last).data_ptr() == ring.rbb.data_ptr()
+        for other in (last.clone(), pc.sbuf0[r:r + 1].clone()):
+            with pytest.raises(ValueError, match="last step returned"):
+                ring(other)
+    assert PR.peer_ring_exchange.launches == n0
 
 
 @pytest.mark.parametrize("name", list(PEER_CASES))
@@ -1012,7 +1111,7 @@ class ForwardCase:
     def __init__(self, n_order, batch, n_ctrl=2, wetdry=False, n_cs=2,
                  spc=2, seed=0, quads=False, cells=(8, 8)):
         rng = np.random.default_rng(seed)
-        ctx = _context(n_order, wetdry, cells=cells, quads=quads)
+        self.ctx = ctx = _context(n_order, wetdry, cells=cells, quads=quads)
         phys, kw, H, self.dt, self.t0 = _physics(ctx, wetdry, n_ctrl, rng)
         self.sets = {dt: TB.build_blocked_step_ops(ctx, phys, dtype=dt,
                                                    device="cpu", **kw)
@@ -1063,17 +1162,32 @@ class ForwardCase:
 class RolloutCase(ForwardCase):
     """The coastal box (bathymetry with the well-balanced star fluxes, drag,
     Coriolis, tidal depth on the open east side, sponge toward it, two
-    controls) unsharded at one order, as float32 and float64 blocked
-    operator sets; ``batch`` perturbed float32 scenarios, controls of
-    ``n_cs`` steps, the plain float32 rollout's trajectory from t0 = 1 and
-    random cotangents of it."""
+    controls, or with ``n_ctrl`` = 0 the set's one zero injector) unsharded
+    at one order, as float32 and float64 blocked operator sets; ``batch``
+    perturbed float32 scenarios (with ``east_tie``, a state whose nodes on
+    the open east side all hold the same values: each east face's nodes
+    then tie at the face maximum, against the tidal depth's jump, while
+    inside the state varies along y, so that the stages after it have no
+    ties), controls of ``n_cs`` steps, the plain float32 rollout's
+    trajectory from t0 = 1 and random cotangents of it."""
 
     def __init__(self, n_order, batch, n_cs=2, spc=2, seed=0, quads=False,
-                 cells=(8, 8)):
-        super().__init__(n_order, batch, n_cs=n_cs, spc=spc, seed=seed,
-                         quads=quads, cells=cells)
+                 cells=(8, 8), n_ctrl=2, east_tie=False):
+        super().__init__(n_order, batch, n_ctrl=n_ctrl, n_cs=n_cs, spc=spc,
+                         seed=seed, quads=quads, cells=cells)
         ops, m = self.sets[F32]
-        assert m.wb and m.has_sponge and m.tidal is not None and m.n_ctrl == 2
+        assert m.wb and m.has_sponge and m.tidal is not None
+        assert m.n_ctrl == (n_ctrl or 1)
+        if not n_ctrl:  # controls of the zero injector: no effect
+            self.ctrls = torch.as_tensor(0.3 * self.rng.standard_normal(
+                (batch, n_cs, 1)), dtype=F32)
+        if east_tie:
+            x = self.ctx.x.reshape(1, -1)
+            y = self.ctx.y.reshape(1, -1)
+            h = (11.0 + 0.5 * (x.max() - x)
+                 * (1.0 + 0.5 * torch.sin(3.0 * y + 0.4))).to(F32)
+            self.state = tuple(f.expand(batch, -1).contiguous()
+                               for f in (h, 0.5 * h, -0.3 * h))
         self.traj = TB.sw2d_rollout_blocked_plain(
             ops, m, *self.state, self.ctrls, self.dt, spc, t0=self.t0,
             store_traj=True)[:3]
@@ -1354,30 +1468,68 @@ def test_stage_bwd_kernel_on_quads_matches_plain(device, name):
     assert plan["grid"] == -(-S * B * m.k_elem // plan["threads"])
 
 
-# (N, scenarios, shim device, cells) of B6 on box_quads
+# (N, scenarios, controls, shim device, cells) of B6 on box_quads: N=2 (the
+# run-time sizes, one lane an element) and N=4 (QOrder4Quad: eight lanes an
+# element, qvjp's faces masked to five of eight lanes); one pass, or blocks
+# that loop; with two controls, or the set's one zero injector
 QUAD_ROLLOUT_BWD_CASES = {
-    "quads_N2_B3_blocks_loop": (2, 3, (1, 1), (8, 8)),
-    "quads_N4_B3_one_pass": (4, 3, (8, 1), (6, 6)),
+    "quads_N2_B3_blocks_loop": (2, 3, 2, (1, 1), (8, 8)),
+    "quads_N4_B3_one_pass": (4, 3, 2, (8, 2), (6, 6)),
+    "quads_N4_B1_one_pass": (4, 1, 2, (4, 2), (6, 6)),
+    "quads_N4_B3_blocks_loop": (4, 3, 2, (1, 1), (6, 6)),
+    "quads_N4_B1_noctrl_one_pass": (4, 1, 0, (4, 2), (6, 6)),
+    "quads_N4_B3_noctrl_blocks_loop": (4, 3, 0, (2, 1), (6, 6)),
 }
+
+
+def _check_rollout_bwd_on_quads(c, n, B, dev, one_pass):
+    """B6 on a quad case against the plain version, the same bits on a
+    rerun, and its plan: eight lanes an element at N=4, one at N=2, what
+    is co-resident."""
+    ops, m = c.sets[F32]
+    assert m.n_faces == 4 and m.n_fp == n + 1
+    got = c.kernel()
+    _check_adjoint(got, c.ref())
+    assert _same(got, c.kernel())
+    plan = TB.rollout_bwd_plan(ops, m, B)
+    P = {2: 1, 4: 8}[n]
+    assert plan["lanes_per_element"] == P
+    items_per_block = plan["threads"] // P
+    assert plan["grid"] == min(dev[0] * dev[1],
+                               -(-B * m.k_elem // items_per_block))
+    assert (plan["grid"] * items_per_block >= B * m.k_elem) == one_pass
+    return got
 
 
 @pytest.mark.parametrize("name", list(QUAD_ROLLOUT_BWD_CASES))
 def test_rollout_bwd_kernel_on_quads_matches_plain(device, name):
     """B6 over 2 control steps x 2 steps of the coastal quadrilateral box
-    with the sponge, the tidal boundary and two controls: the initial-state
-    and control cotangents against the plain version in float64; the same
-    bits on a rerun; one lane an element, what is co-resident."""
-    n, B, dev, cells = QUAD_ROLLOUT_BWD_CASES[name]
+    with the sponge, the tidal boundary and two controls (or the zero
+    injector): the initial-state and control cotangents against the plain
+    version in float64; the same bits on a rerun; the plan's lanes, what is
+    co-resident."""
+    n, B, nc, dev, cells = QUAD_ROLLOUT_BWD_CASES[name]
     device(*dev)
-    c = RolloutCase(n, B, seed=40 + n + B, quads=True, cells=cells)
-    ops, m = c.sets[F32]
-    assert m.n_faces == 4
-    got = c.kernel()
-    _check_adjoint(got, c.ref())
-    assert _same(got, c.kernel())
-    plan = TB.rollout_bwd_plan(ops, m, B)
-    assert plan["lanes_per_element"] == 1
-    assert plan["grid"] == min(dev[0] * dev[1],
-                               -(-B * m.k_elem // plan["threads"]))
-    assert (plan["grid"] * plan["threads"] >= B * m.k_elem) == (
-        "one_pass" in name)
+    c = RolloutCase(n, B, seed=40 + n + B, quads=True, cells=cells,
+                    n_ctrl=nc)
+    got = _check_rollout_bwd_on_quads(c, n, B, dev, "one_pass" in name)
+    if not nc:  # the zero injector's control cotangent
+        assert float(got[3].abs().max()) == 0.0
+
+
+def test_rollout_bwd_kernel_on_quads_splits_face_ties(device):
+    """B6 at N=4 on quadrilaterals from a state that is the same at every
+    node of the open east side: on each east face all five nodes share the
+    face maximum at the initial state, against the jump to the tidal depth,
+    so the speed cotangent there is split five ways; held to the plain
+    version (the even split over the face's real nodes, C6/C12). A masked
+    lane (they redo the face's last node) counted among the nodes at the
+    maximum would split it eight ways."""
+    device(4, 2)
+    c = RolloutCase(4, 1, seed=47, quads=True, cells=(6, 6), east_tie=True)
+    x = c.ctx.x.reshape(-1)
+    east = (x == x.max()).nonzero().flatten()
+    assert len(east) == 6 * 5  # the east faces' nodes
+    for f in c.state:
+        assert float(f[0, east].max() - f[0, east].min()) == 0.0
+    _check_rollout_bwd_on_quads(c, 4, 1, (4, 2), True)

@@ -2,7 +2,7 @@
 """Time the two blocked adjoint kernels on one NVIDIA GPU at the shapes
 their paths run, for an A/B of two trees of this repository in one call.
 
-    python3 tools/adjoint_times.py [label] [--kernel NAME] [--sass]
+    python3 tools/adjoint_times.py [label] [--kernel NAME] [--sass] [--quads]
 
 run from the root of a tree (its own package is imported). Prints one JSON
 line per shape, then one with the card's name and power limit.
@@ -20,7 +20,14 @@ count of SASS instructions (``cuobjdump -sass``). Shapes:
  - ``sw2d_rollout_bwd_blocked`` (B6) on the blocked box
    (``mpc/blocked_box.py``): K=2048, N=3 (the compile-time instance) and
    N=6 (the run-time-size instance, one lane an element), B=8, 4 x 2
-   steps, random cotangents of the kernel's own trajectory.
+   steps, random cotangents of the kernel's own trajectory;
+ - with ``--quads`` (alone): B6 on ``chip_smoke.py``'s quad coastal case
+   (``quads_coastal_K144_N4``: ``box_quads(12, 12)``, K=144, N=4, B=8, its
+   east side open: bathymetry, drag, Coriolis, tidal depth from t0 = 1,
+   sponge, two injectors), 2 x 2 steps, random cotangents of the forward
+   kernel's own trajectory (``tools/forward_times.py``'s ``quad_case``,
+   which its ``--quads`` times B4 and B5 on): the shape of the quad Adam
+   solve's adjoint.
 
 Inputs are made from fixed seeds, as ``chip_smoke.py`` makes its timed
 cases. Two times a shape: ``ms``, CUDA events around one call of the
@@ -125,7 +132,8 @@ def main() -> int:
         only = args[i + 1]
         del args[i:i + 2]
     sass = "--sass" in args
-    args = [a for a in args if a != "--sass"]
+    on_quads = "--quads" in args
+    args = [a for a in args if a not in ("--sass", "--quads")]
     label = args[0] if args else str(Path.cwd())
     if sass:
         sass_report(label)
@@ -144,10 +152,30 @@ def main() -> int:
         hu, hv = 0.05 * h + 0.01 * g(*h.shape), -0.05 * h + 0.01 * g(*h.shape)
         return tuple(BS.split_shards(f.contiguous(), S) for f in (h, hu, hv))
 
-    stage_shapes = (("K2048_N3_S4_B8", sbx.FULL, 8),
-                    ("K2048_N3_S4_B1", sbx.FULL, 1),
-                    ("example_K128_N1_S8_B1", sbx.EXAMPLE, 1),
-                    ("K2048_N6_S4_B8", {**sbx.FULL, "n_order": 6}, 8))
+    if on_quads:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        from forward_times import quad_case
+
+        ops, meta, dt, st, ctrls = quad_case(dev, g)
+        spc, B = 2, st[0].shape[0]
+        traj = TB.sw2d_rollout_blocked(ops, meta, *st, ctrls, dt, spc,
+                                       t0=1.0, store_traj=True)[:3]
+        traj = tuple(f.contiguous() for f in traj)
+        tb = tuple(g(*traj[0].shape) for _ in range(3))
+        run = lambda: TB.sw2d_rollout_bwd_blocked(ops, meta, *traj, *tb,
+                                                  ctrls, dt, spc, t0=1.0)
+        ms = time_ms(run, flush)
+        print(json.dumps({"tree": label, "kernel": "sw2d_rollout_bwd_blocked",
+                          "shape": f"quads_K{meta.k_elem}_N4_B{B}_2x{spc}",
+                          "ms": ms, "device_ms": device_ms(run),
+                          "grid_blocks": TB.last_grid(),
+                          "plan": TB.rollout_bwd_plan(ops, meta, B)}),
+              flush=True)
+    stage_shapes = () if on_quads else (
+        ("K2048_N3_S4_B8", sbx.FULL, 8),
+        ("K2048_N3_S4_B1", sbx.FULL, 1),
+        ("example_K128_N1_S8_B1", sbx.EXAMPLE, 1),
+        ("K2048_N6_S4_B8", {**sbx.FULL, "n_order": 6}, 8))
     for name, cfg, B in stage_shapes:
         if only and only not in "sw2d_stage_bwd_blocked_v2":
             continue
@@ -172,7 +200,7 @@ def main() -> int:
                           "grid_blocks": TB.last_grid()}), flush=True)
         del prob, sb
 
-    for n_order in (3, 6):
+    for n_order in () if on_quads else (3, 6):
         if only and only not in "sw2d_rollout_bwd_blocked":
             continue
         box = bbx.blocked_box_problem(n_order=n_order, device=dev)

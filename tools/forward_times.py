@@ -72,9 +72,10 @@ def device_ms(fn, calls: int) -> float:
     return sum(e.device_time_total for e in ev) / calls / 1e3
 
 
-def quads(say, dev, g) -> None:
-    """B4 and B5 on the quad coastal case of ``chip_smoke.py --only
-    quads`` (its ``quads_coastal_K144_N4``)."""
+def quad_case(dev, g):
+    """The quad coastal case of ``chip_smoke.py --only quads`` (its
+    ``quads_coastal_K144_N4``): operator set, dt, a perturbed state of 8
+    scenarios and controls of 2 control steps, drawn from ``g``."""
     from blitzdg_tpu_torch.context import BC_OUT
     from blitzdg_tpu_torch.mesh import box_quads
     from blitzdg_tpu_torch.mpc.coastal_box import cfl_dt, retag_east_open
@@ -107,9 +108,17 @@ def quads(say, dev, g) -> None:
          + 0.01 * g(B, Hf.shape[1])).contiguous()
     hu = (0.05 * h + 0.01 * g(*h.shape)).contiguous()
     hv = (-0.05 * h + 0.01 * g(*h.shape)).contiguous()
-    ctrls = g(B, 2, meta.n_ctrl)
+    return ops, meta, dt, (h, hu, hv), g(B, 2, meta.n_ctrl)
+
+
+def quads(say, dev, g) -> None:
+    """B4 and B5 on the quad coastal case (``quad_case``)."""
+    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+
+    ops, meta, dt, (h, hu, hv), ctrls = quad_case(dev, g)
+    B = h.shape[0]
     c0 = ctrls[:, 0].contiguous()
-    shape = f"quads_K{meta.k_elem}_N{N}_B{B}"
+    shape = f"quads_K{meta.k_elem}_N4_B{B}"
     plan = TB.rollout_plan(ops, meta, B)
     say("sw2d_step_blocked", shape, lambda: TB.sw2d_step_blocked(
         ops, meta, h, hu, hv, c0, dt, 1.0), plan=plan)

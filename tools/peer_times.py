@@ -26,12 +26,16 @@ line per measurement, then one with the card's name and power limit.
    each launch on its own stream; the four step launches, 256 blocks of 64
    threads each, are resident together and meet only through their flags):
    64 steps (after 64 untimed), host clock around them (synchronised), us
-   a step (the host's launches included: eight a step against the stacked
-   rollout's two), each rank's end state against its shard of the stacked
-   rollout (bit for bit), and the stacked rollout's us a step by the same
-   clock. The only run in which the ranks' kernels run at the same time:
-   processes without MPS time-slice the card. Then rank 0's step alone
-   (its flags set past any epoch, the others idle), timed as above.
+   a step (the host's launches included: a step kernel a rank a step, and
+   where a tree's ring exchanges before every step, an exchange kernel
+   too), each rank's end state against its shard of the stacked rollout
+   (bit for bit), the stacked rollout's us a step by the same clock, and
+   the exchange kernel's launches a rank a step (``peer_ring_exchange``'s
+   counter over the run). The only run in which the ranks' kernels run at
+   the same time: processes without MPS time-slice the card. Then rank
+   0's step alone and its exchange kernel alone (its flags set past any
+   epoch, the others idle), each timed as above: a step of a tree costs
+   its step plus its exchanges a step.
 """
 from __future__ import annotations
 
@@ -143,6 +147,7 @@ def in_process(label: str, dev) -> None:
     import chip_smoke as C
     from blitzdg_tpu_torch.ops import sw2d_blocked as TB
     from blitzdg_tpu_torch.parallel import blocked_shard as BS
+    from blitzdg_tpu_torch.parallel import peer as PR
 
     S, B = 4, 8
     cc, sb, H, dt = C.peer_problem(S, dev)
@@ -175,8 +180,11 @@ def in_process(label: str, dev) -> None:
 
     want, stacked_us = timed_loop(stacked_loop)
     want = (*want[0], want[1])
+    n_ex = PR.peer_ring_exchange.launches
     ends, peer_us, ring0, launch0, free = C.run_peer_in_process(
         sb, state, cs, dt, 1.0, dev, STEPS)
+    # (an untimed run and a timed one, S ranks each)
+    ex_per_step = (PR.peer_ring_exchange.launches - n_ex) / (2 * S * STEPS)
     try:
         bits = [all(torch.equal(a, b[r:r + 1]) for a, b in
                     zip(ends[r], want)) for r in range(S)]
@@ -189,13 +197,21 @@ def in_process(label: str, dev) -> None:
                               device=dev)
         alone_ms = time_ms(alone, scratch.zero_)
         alone_device_ms = device_ms(alone, "sw2d_step_rdma_peer_kernel")
+        sb0 = ends[0][3]
+        exchange = lambda: ring0._exchange(sb0)
+        exchange_ms = time_ms(exchange, scratch.zero_)
+        exchange_device_ms = device_ms(exchange, "peer_ring_exchange_kernel")
         del scratch
         print(json.dumps({"tree": label, "in_process": "S4_B8_K2048_N3",
                           "steps": STEPS, "peer_us_per_step": peer_us,
                           "stacked_us_per_step": stacked_us,
                           "bit_equal_to_stacked": bits,
+                          "exchange_launches_per_rank_step": ex_per_step,
                           "rank0_alone_ms": alone_ms,
                           "rank0_alone_device_ms": alone_device_ms,
+                          "rank0_exchange_alone_ms": exchange_ms,
+                          "rank0_exchange_alone_device_ms":
+                              exchange_device_ms,
                           "peer_plan": TB.shard_plan(launch0.ops, sb.meta,
                                                      B, step=True,
                                                      peer=True)}),
