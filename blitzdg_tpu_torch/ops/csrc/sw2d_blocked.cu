@@ -152,7 +152,13 @@ __global__ void sw2d_blocked_barrier_probe_kernel(int n) {
 // At N=6 (Np 28, Nfp 7: compile-time sizes, the products unrolled by
 // parts) P = 8: lane p holds node p of each face, lane 7 none (it redoes
 // node 6, whose speed cannot move the face maximum, and stores nothing),
-// and the volume nodes p, p+8, p+16, p+24. Other orders (run-time sizes,
+// and the volume nodes p, p+8, p+16, p+24. Quadrilaterals at N=4 (Np 25,
+// Nfp 5) take QOrder4Quad in the stage kernel, eight lanes an element the
+// same way (lanes 5-7 redo node 4 of a face), and the run-time sizes in
+// the step: qstage sums a node's products in one order at every instance,
+// spells out the roundings that the compiler contracted differently in
+// the two (q_volume_fluxes), and a face maximum is exact, so the step
+// still gives two stage launches' bits. Other orders (run-time sizes,
 // arrays in local memory) take one lane an item, and so do the adjoints
 // at N=6. A stage has no block barrier; a launch has one, after the
 // reference operators (Dr and Ds interleaved, lift, filter) are copied to
@@ -280,11 +286,11 @@ struct QSizes {
   // qvjp's passes over the faces: unrolled up to 10 nodes, rolled above
   // and at run-time sizes
   static constexpr int PU = NP && NP <= 10 ? QMAX_NFACES : 1;
-  // blocks of QMAX_THREADS an SM that the rollout adjoint's launch bounds
-  // ask for: two (128 registers a thread), or one above 10 nodes
-  // (quadrilaterals at N=4, whose eight-lane items would spill at 128:
-  // about 185 registers; the quad path's grid, 144 blocks of 64 threads,
-  // is co-resident all the same)
+  // blocks of QMAX_THREADS an SM that the adjoints' launch bounds ask for:
+  // two (128 registers a thread), or one above 10 nodes (quadrilaterals at
+  // N=4, whose eight-lane items would spill at 128: about 185 registers;
+  // the quad path's grids, 144 blocks of 64 threads, are co-resident all
+  // the same)
   static constexpr int BWD_MIN_BLOCKS = NP > 10 ? 1 : 2;
   __device__ __forceinline__ static int np(const Ops& o) {
     return NP ? NP : o.Np;
@@ -319,8 +325,8 @@ struct QSizes {
 typedef QSizes<10, 4, 2, 4> QOrder3Ctrl;  // N=3 with two controls
 typedef QSizes<10, 4, -1, 4> QOrder3;     // N=3, other control counts
 typedef QSizes<28, 7, -1, 8> QOrder6;     // N=6, the forward kernels
-// quadrilaterals at N=4 (Np 25, Nfp 5), the blocked rollout's: eight lanes
-// an element, lanes 5-7 masked on the faces, as at N=6
+// quadrilaterals at N=4 (Np 25, Nfp 5), every q kernel's but the one-launch
+// step's: eight lanes an element, lanes 5-7 masked on the faces, as at N=6
 typedef QSizes<25, 5, -1, 8, 4> QOrder4Quad;
 typedef QSizes<0, 0, -1, 1> QAnyOrder;
 // the stage adjoint's wide items at small batches: 16 lanes an element at
@@ -406,6 +412,28 @@ __device__ __forceinline__ void load_own(const Ops& o, int e, int p,
   }
 }
 
+// volume_fluxes with its roundings spelled out, in the form the compiler
+// gives the run-time-size instance: the pressure's last product fused into
+// each flux, F2 = h (0.5 g h) + hu hu / h. Left to it, a compile-time
+// instance may hoist a lane's first pressure (shared with the wet/dry
+// branch) and fuse the flux's product instead: other bits, so that the
+// one-launch step (run-time sizes on quadrilaterals) would not give the
+// stage's (QOrder4Quad). Wet/dry sets, which no step takes, keep
+// volume_fluxes.
+__device__ __forceinline__ void q_volume_fluxes(const Ops& o, float h,
+                                                float hu, float hv,
+                                                float& F2, float& F3,
+                                                float& G3) {
+  if (o.wetdry) {
+    volume_fluxes(o, h, hu, hv, F2, F3, G3);
+    return;
+  }
+  const float gh = __fmul_rn(0.5f * o.g, h), inv = 1.0f / h;
+  F2 = __fmaf_rn(h, gh, __fmul_rn(__fmul_rn(hu, hu), inv));
+  F3 = __fmul_rn(__fmul_rn(hu, hv), inv);
+  G3 = __fmaf_rn(h, gh, __fmul_rn(__fmul_rn(hv, hv), inv));
+}
+
 // Zeros in the empty send slots (send_node < 0) of every (shard, scenario):
 // slot(sh, b, j) says where slot j goes. A grid-stride loop.
 template <class Slot>
@@ -462,7 +490,7 @@ __device__ __forceinline__ void qstage(
     const int n = p + P * i;
     if (n < Np) {
       float F2, F3, G3;
-      volume_fluxes(g, x.h[i], x.hu[i], x.hv[i], F2, F3, G3);
+      q_volume_fluxes(g, x.h[i], x.hu[i], x.hv[i], F2, F3, G3);
       X[n] = make_float4(x.hu[i], x.hv[i], F2, F3);
       G[n] = G3;
     }
@@ -1103,12 +1131,14 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
 // per-face sums (speed cotangents, face maximum, tie count) follow the
 // descriptor's face count. At N=4 on quadrilaterals B6 takes B5's
 // compile-time instance, QOrder4Quad (eight lanes an element, so that its
-// recompute of stage 1 runs B5's items and gives B5's bits): qvjp then
+// recompute of stage 1 runs B5's items and gives B5's bits), and B8 takes
+// it too (its cut faces' slots written by the real lanes only): qvjp then
 // takes a face a pass over all eight lanes, lane p < 5 holding trace node
 // p and lanes 5-7 masked (QSizes::FMASKED), four passes, the face sums by
 // shuffles of width eight, the products over the 25 nodes unrolled by
 // parts; 64-thread blocks of eight items (33 KB of shared memory), 144
-// blocks at K=144, B=8 where one lane an element gave 36 of one warp.
+// blocks at K=144, B=8 where one lane an element gave 36 of one warp (B8
+// on the same mesh in four shards: the same 1152 items, 144 blocks).
 //
 // No scatter. A trace node's flux feeds the cotangents of its '-' node
 // (the element's own) and of its '+' node (the neighbour's). Rather than
@@ -1606,7 +1636,7 @@ struct StageBwdArgs {
 // One pass: block b holds items b*ipb .. b*ipb + ipb - 1 (the launcher's
 // grid covers every item).
 template <class Z>
-__global__ void __launch_bounds__(QMAX_THREADS, 2)
+__global__ void __launch_bounds__(QMAX_THREADS, Z::BWD_MIN_BLOCKS)
     sw2d_stage_bwd_kernel(SwDesc d, StageBwdArgs a) {
   const Ops g = make_ops(d, a.fops, a.iops);
   q_setup_adjoint_ops(g, smem, a.use_filter);
@@ -1871,7 +1901,7 @@ enum { Q_STAGE = 0, Q_STEP = 1, Q_STAGE_BWD = 2, Q_ROLLOUT_BWD = 3,
 // The instantiation of the q kernels for a set: N=3 with two controls
 // (the MPC's), N=3 with others (a set built without injectors has one,
 // which its rollouts never read), N=6 (the forward kernels' own),
-// quadrilaterals at N=4 (the blocked rollout's and its adjoint's own),
+// quadrilaterals at N=4 (every kernel's own but the one-launch step's),
 // else the run-time sizes; -1 past their room. The other quadrilateral
 // orders take the run-time sizes in every q kernel.
 static int q_kind(const SwDesc& d) {
@@ -1884,8 +1914,8 @@ static int q_kind(const SwDesc& d) {
 }
 
 // (order6, quad4: null where the kernel takes the run-time sizes at N=6,
-// as the adjoints do, or on quadrilaterals at N=4, as all but the blocked
-// rollout and its adjoint do)
+// as the adjoints do, or on quadrilaterals at N=4, as the one-launch step
+// does)
 template <class K>
 static K q_pick(const SwDesc& d, K order3_ctrl, K order3, K any_order,
                 K order6, K quad4) {
@@ -1903,7 +1933,8 @@ static StageKern stage_kernel_of(const SwDesc& d) {
   return q_pick<StageKern>(d, sw2d_stage_kernel<QOrder3Ctrl>,
                            sw2d_stage_kernel<QOrder3>,
                            sw2d_stage_kernel<QAnyOrder>,
-                           sw2d_stage_kernel<QOrder6>, nullptr);
+                           sw2d_stage_kernel<QOrder6>,
+                           sw2d_stage_kernel<QOrder4Quad>);
 }
 
 static RdmaKern rdma_kernel_of(const SwDesc& d) {
@@ -1933,14 +1964,17 @@ static bool q_order1_ctrl(const SwDesc& d) {
   return d.Nfaces == 3 && d.Np == 3 && d.Nfp == 2 && d.n_ctrl == 2;
 }
 
-// (lanes: 16 and 8 take the wide items at N=3 and at N=1)
+// (lanes: 16 and 8 take the wide items at N=3 and at N=1; 8 also takes
+// quadrilaterals at N=4, whose items are eight lanes wide at every batch)
 static StageBwdKern stage_bwd_kernel_of(const SwDesc& d, int lanes) {
   if (lanes == 16)
     return q_pick<StageBwdKern>(d, sw2d_stage_bwd_kernel<QOrder3CtrlWide>,
                                 sw2d_stage_bwd_kernel<QOrder3Wide>, nullptr,
                                 nullptr, nullptr);
   if (lanes == 8)
-    return q_order1_ctrl(d) ? sw2d_stage_bwd_kernel<QOrder1CtrlWide> : nullptr;
+    return q_order1_ctrl(d) ? sw2d_stage_bwd_kernel<QOrder1CtrlWide>
+           : q_kind(d) == 4 ? sw2d_stage_bwd_kernel<QOrder4Quad>
+                            : nullptr;
   return q_pick<StageBwdKern>(d, sw2d_stage_bwd_kernel<QOrder3Ctrl>,
                               sw2d_stage_bwd_kernel<QOrder3>,
                               sw2d_stage_bwd_kernel<QAnyOrder>, nullptr,
@@ -1971,15 +2005,14 @@ static const void* q_kernel(const SwDesc& d, int which, int lanes) {
 
 // Lanes an item of kernel `which`: a face's nodes at N=3; QOrder6's at
 // N=6 in the forward kernels; QOrder4Quad's on quadrilaterals at N=4 in
-// the blocked rollout and its adjoint; one otherwise.
+// every kernel but the one-launch step (both modes); one otherwise.
 static int q_lanes(const SwDesc& d, int which) {
   const bool adjoint = which == Q_STAGE_BWD || which == Q_ROLLOUT_BWD;
   switch (q_kind(d)) {
     case 2: return 1;
     case 3: return adjoint ? 1 : QOrder6::P;
     case 4:
-      return which == Q_ROLLOUT || which == Q_ROLLOUT_BWD ? QOrder4Quad::P
-                                                          : 1;
+      return which == Q_STEP || which == Q_STEP_PEER ? 1 : QOrder4Quad::P;
     default: return 4;
   }
 }

@@ -756,7 +756,8 @@ def sw2d_stage_blocked(ops: ShardOps, meta: BlockedMeta, base, cur, rb,
     ordinary launch covers every shard, four lanes an element at N=3,
     eight at N=6, one at other orders, the block size planned once a shape
     (``shard_plan``); design: see the source of the kernels. Takes triangles
-    up to N=6 and quadrilaterals (one lane an element) up to N=4, and
+    up to N=6 and quadrilaterals (four faces) up to N=4, eight lanes an
+    element at N=4 (its compile-time instance), one at other orders, and
     raises above.
     """
     _check_stage(ops, meta, {"base_h": base[0], "base_hu": base[1],
@@ -817,8 +818,9 @@ def sw2d_stage_bwd_blocked_v2(ops: ShardOps, meta: BlockedMeta, cur, rb,
     no scatter and no grid barrier), the block size planned once a shape
     (``shard_plan(..., adjoint=True)``), the control sums' scratch made
     once a shape; no atomics on data, the same bits on a rerun. Takes
-    triangles up to N=6 and quadrilaterals (one lane an element) up to N=4,
-    and raises above.
+    triangles up to N=6 and quadrilaterals (four faces) up to N=4: at N=4
+    eight lanes an element, ``qvjp``'s faces five nodes on eight lanes,
+    three masked; one lane at other orders; raises above.
     """
     _refuse_wetdry_stage_adjoint(meta)
     S, B, L = _check_stage(ops, meta, {

@@ -179,7 +179,8 @@ in order (any failure is an exception and a non-zero exit):
     versions, the same bits on a rerun and B4 step by step bit-equal to
     B5's rows, and B7, B8 and B9 on that mesh partitioned into 4 shards
     (B9 bit-equal to two B7 launches with the exchange between), each
-    timed, and checks that every q kernel refuses a quad set at N=5;
+    timed, and checks that every q kernel refuses a quad set at N=5 and
+    that B4-B8 take eight lanes an element (their N=4 instance), B9 one;
     ``quads_path`` drives the example's problem at B=8 through B5 (10
     launches of 100 steps) and B4 (10 launches), each scenario's mass
     drift below 1e-5, the first launch against the plain version in
@@ -189,8 +190,11 @@ in order (any failure is an exception and a non-zero exit):
     sharded steps on the partitioned mesh through the fused (B7), the
     one-launch (B9) and the differentiable step (B7, B8), bit-equal to one
     another, against the unsharded blocked rollout and its adjoint's
-    gradient; counters zeroed just before and read just after; the
-    run-time-size instances of B4-B9 must not spill;
+    gradient; counters zeroed just before and read just after; for
+    information the Adam solve's and the sharded steps' device time by
+    kernel and idle share (``quads_adam_profile``,
+    ``quads_sharded_profile``); the N=4 instances of B4-B8 and the
+    run-time-size ones of B4-B9 must not spill;
 11. INS2D path (plain tensor code): ``examples/ins2d.py`` at
     ``examples/ins2d.nml`` read by the port's ``read_namelist`` (K=36
     quads, N=2, dt 2e-3, 100 steps, float32): fields finite, max|u| <= 1,
@@ -2935,12 +2939,11 @@ def quads_phases(dev, card: str, rng, flush) -> list:
             refused[kname] = False
         except ValueError as e:
             refused[kname] = "N <= 4" in str(e) and kname in str(e)
-    # the blocked rollout (B5, B4) and its adjoint (B6) take the N=4
-    # instance, eight lanes an element; the others the run-time sizes, one
-    # lane
+    # the blocked rollout (B5, B4), its adjoint (B6), the sharded stage
+    # (B7) and its adjoint (B8) take the N=4 instance, eight lanes an
+    # element; the one-launch step (B9) the run-time sizes, one lane
     kern_ok = all(refused.values()) and all(
-        p["lanes_per_element"] == (8 if k in ("rollout", "rollout_bwd")
-                                   else 1)
+        p["lanes_per_element"] == (1 if k == "step_rdma" else 8)
         for k, p in plans.items())
     say({"phase": "quads_kernels", "ok": kern_ok, "card": card,
          "cases": sorted({r["case"] for r in head.values()}),
@@ -3106,6 +3109,9 @@ def quads_phases(dev, card: str, rng, flush) -> list:
     if not ok:
         raise RuntimeError("the quad path through B4-B9 failed its checks")
     profile_solve("quads_adam_profile", card, lambda: adam(qbm), adam_s)
+    profile_solve("quads_sharded_profile", card,
+                  lambda: (sharded_roll(fused, sst), sharded_roll(rdma, sst),
+                           sharded_grad()), shard_s)
 
     # ---- the same Adam solve through the plain versions on the card ----
     before = {w.__name__: w.launches for w in wrappers}
@@ -4358,8 +4364,8 @@ Q_SIZES = ("I6QSizesILi10ELi4ELi2ELi4ELi3EEE",
 Q_SIZES_N6 = "I6QSizesILi28ELi7ELin1ELi8ELi3EEE"
 Q_SIZES_WIDE_N3 = ("I6QSizesILi10ELi4ELi2ELi16ELi3EEE",
                    "I6QSizesILi10ELi4ELin1ELi16ELi3EEE")
-# quadrilaterals at N=4, eight lanes an element (the blocked rollout's and
-# its adjoint's)
+# quadrilaterals at N=4, eight lanes an element (every q kernel's but the
+# one-launch step's)
 Q_SIZES_QUAD_N4 = "I6QSizesILi25ELi5ELin1ELi8ELi4EEE"
 SHARDED_KERNELS = [
     k + z for k in ("_Z17sw2d_stage_kernel", "_Z21sw2d_stage_bwd_kernel",
@@ -4373,11 +4379,13 @@ BLOCKED_ADJOINT_KERNELS = ["_Z31sw2d_blocked_rollout_bwd_kernel" + z
                            for z in Q_SIZES + (Q_SIZES_QUAD_N4,)]
 BLOCKED_FORWARD_KERNELS = ["_Z27sw2d_blocked_rollout_kernel" + z
                            for z in Q_SIZES + (Q_SIZES_N6,)]
-# Quadrilaterals run the N=4 instantiation of the blocked rollout and its
-# adjoint and every q kernel's run-time-size one.
+# Quadrilaterals run the N=4 instantiation of the blocked rollout, its
+# adjoint, the sharded stage and its adjoint, and every q kernel's
+# run-time-size one.
 QUAD_KERNELS = [k + Q_SIZES_QUAD_N4 for k in (
     "_Z27sw2d_blocked_rollout_kernel",
-    "_Z31sw2d_blocked_rollout_bwd_kernel")] + [
+    "_Z31sw2d_blocked_rollout_bwd_kernel", "_Z17sw2d_stage_kernel",
+    "_Z21sw2d_stage_bwd_kernel")] + [
     k + Q_SIZES[2] for k in (
         "_Z27sw2d_blocked_rollout_kernel",
         "_Z31sw2d_blocked_rollout_bwd_kernel", "_Z17sw2d_stage_kernel",

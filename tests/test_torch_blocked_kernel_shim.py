@@ -35,7 +35,11 @@ in float64 on the same float32 inputs, with ``chip_smoke.py``'s tolerance:
 5e-5 absolute on states near 10 (float32 rounding of two RHS evaluations),
 1e-4 at N=6. Besides: the same bits on a rerun, and the step bit-equal to
 two stage launches with the ring exchange between (both run the same stage
-code). The blocked rollout and the adjoints: their own sections below.
+code; on quadrilaterals at N=4 in two instances, the stage's eight lanes
+an element and the step's one: the shim, compiled without contraction of
+products into FMAs, cannot see an expression that the card's compiler
+contracts differently in the two, which only ``chip_smoke.py``'s gates
+can). The blocked rollout and the adjoints: their own sections below.
 """
 import ctypes
 import dataclasses
@@ -167,6 +171,10 @@ static inline unsigned atomicAdd(unsigned* p, unsigned v) {
 static inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 static inline float cospif(float x) {
   return (float)std::cos(3.14159265358979323846 * (double)x);
+}
+static inline float __fmul_rn(float a, float b) { return a * b; }
+static inline float __fmaf_rn(float a, float b, float c) {
+  return std::fma(a, b, c);
 }
 static inline double __dadd_rn(double a, double b) { return a + b; }
 static inline double __dmul_rn(double a, double b) { return a * b; }
@@ -537,7 +545,7 @@ class Case:
     def __init__(self, n_order, n_shards, batch, n_ctrl=2, wetdry=False,
                  seed=0, cells=(8, 8), spread_injectors=False, quads=False):
         rng = np.random.default_rng(seed)
-        ctx = _context(n_order, wetdry, n_shards, cells, quads)
+        self.ctx = ctx = _context(n_order, wetdry, n_shards, cells, quads)
         phys, kw, H, self.dt, self.t = _physics(ctx, wetdry, n_ctrl, rng,
                                                 spread_injectors)
         self.sets = {dt: BS.build_sharded_blocked(ctx, phys, n_shards,
@@ -1388,33 +1396,57 @@ def test_quads_refused_above_order_four(device):
 
 
 # ---------------------------------------------------------------------------
-# B6, B7, B8 and B9 on quadrilaterals: the run-time-size instance, four
-# faces, one lane an element
+# B7, B8 and B9 on quadrilaterals: four faces; B7 and B8 at N=4 on the
+# compile-time instance (eight lanes an element), B9 and N=2 on the
+# run-time sizes (one lane)
 # ---------------------------------------------------------------------------
 
-# (N, shards, batch, shim device (SMs, blocks an SM)) on box_quads(8, 8)
-# partitioned, coastal physics and two controls: N=2 (Nfp 3) and N=4 (Np
-# 25, Nfp 5: the room of the run-time sizes); S=4 (ring offsets, cut faces)
-# and S=1; B=3 with a ragged last block (3 x 64 items in blocks of 32, on
-# 2 SMs the step's blocks loop) or one pass
+# (N, shards, batch, controls, shim device (SMs, blocks an SM)) on
+# box_quads(8, 8) partitioned (16 elements a shard at S=4), coastal physics,
+# two controls or none (the set's one zero injector): N=2 (Nfp 3) and N=4
+# (Np 25, Nfp 5); S=4 (ring offsets, cut faces) and S=1. B7 and B8 are
+# ordinary launches whose grid covers every item; B9's cooperative grid
+# covers its items in one pass, or its blocks loop (blocks_loop: 320 items
+# of one lane in one block of 256 threads)
 QUAD_SHARD_CASES = {
-    "quads_N2_S4_B3": (2, 4, 3, (2, 1)),
-    "quads_N4_S4_B3": (4, 4, 3, (2, 1)),
-    "quads_N4_S1_B3_one_pass": (4, 1, 3, (8, 1)),
+    "quads_N2_S4_B3": (2, 4, 3, 2, (2, 1)),
+    "quads_N4_S4_B3": (4, 4, 3, 2, (2, 1)),
+    "quads_N4_S1_B3_one_pass": (4, 1, 3, 2, (8, 1)),
+    "quads_N4_S4_B5_blocks_loop": (4, 4, 5, 2, (1, 1)),
+    "quads_N4_S4_B3_noctrl": (4, 4, 3, 0, (2, 1)),
 }
+
+
+def _check_quad_plans(sb, n, B):
+    """The plans of B7, B8 and B9 on a quad case: eight lanes an element at
+    N=4 in the stage and its adjoint, one at N=2 and in the step; B7's and
+    B8's grids cover every item (threads // lanes items a block). Returns
+    the step's plan."""
+    m = sb.meta
+    n_items = sb.ops.send.shape[0] * B * m.k_elem
+    for adjoint in (False, True):
+        plan = TB.shard_plan(sb.ops, m, B, adjoint=adjoint)
+        P = {2: 1, 4: 8}[n]
+        assert plan["lanes_per_element"] == P
+        assert plan["grid"] == -(-n_items // (plan["threads"] // P))
+    step = TB.shard_plan(sb.ops, m, B, step=True)
+    assert step["lanes_per_element"] == 1
+    return step, n_items
 
 
 @pytest.mark.parametrize("name", list(QUAD_SHARD_CASES))
 def test_stage_and_step_kernels_on_quads_match_plain(device, name):
     """B7 (both stages of a step, the second with the sponge) and B9 on a
     partitioned quadrilateral set against their plain versions in float64;
-    the same bits on a rerun; B9 bit-equal to two B7 launches with the ring
-    exchange between; one lane an element in both plans."""
-    n, S, B, dev = QUAD_SHARD_CASES[name]
+    the same bits on a rerun; B9 (one lane an element) bit-equal to two B7
+    launches (eight lanes at N=4) with the ring exchange between; the
+    plans' lanes, B7's grid over every item, B9's blocks looping or not."""
+    n, S, B, nc, dev = QUAD_SHARD_CASES[name]
     device(*dev)
-    c = Case(n, S, B, seed=20 + n + S, quads=True)
+    c = Case(n, S, B, n_ctrl=nc, seed=20 + n + S, quads=True)
     sb = c.sets[F32]
     assert sb.meta.n_faces == 4 and sb.meta.n_fp == n + 1
+    assert (c.ctrl is None) == (nc == 0)
     if S > 1:
         assert len(sb.plan.offs) >= 2
     st, dt, t = c.state, c.dt, c.t
@@ -1436,21 +1468,21 @@ def test_stage_and_step_kernels_on_quads_match_plain(device, name):
     assert _max_abs(got, ref) <= FWD_ATOL
     assert _same(got, launch._launch(st, c.rb, dt, t, c.ctrl, True))
     assert _same(got, two)
-    for step in (False, True):
-        assert TB.shard_plan(sb.ops, sb.meta, B,
-                             step=step)["lanes_per_element"] == 1
+    step, n_items = _check_quad_plans(sb, n, B)
+    assert (step["grid"] * step["threads"] >= n_items) == (
+        "blocks_loop" not in name)
 
 
 @pytest.mark.parametrize("name", list(QUAD_SHARD_CASES))
 def test_stage_bwd_kernel_on_quads_matches_plain(device, name):
     """B8 on stage 2's inputs of a partitioned quadrilateral set, with the
-    sponge and the control cotangent, under random cotangents of the output
-    and the send buffer, against the plain version in float64; the same
-    bits on a rerun; one lane an element, an ordinary launch over every
-    item."""
-    n, S, B, dev = QUAD_SHARD_CASES[name]
+    sponge and the control cotangent (none without controls), under random
+    cotangents of the output and the send buffer, against the plain version
+    in float64; the same bits on a rerun; eight lanes an element at N=4,
+    one at N=2, an ordinary launch over every item."""
+    n, S, B, nc, dev = QUAD_SHARD_CASES[name]
     device(*dev)
-    c = Case(n, S, B, seed=30 + n + S, quads=True)
+    c = Case(n, S, B, n_ctrl=nc, seed=30 + n + S, quads=True)
     sb = c.sets[F32]
     m = sb.meta
     *s1, sb1 = c.stage(c.state, c.state, c.rb, 0.5 * c.dt, c.t, False)
@@ -1461,11 +1493,65 @@ def test_stage_bwd_kernel_on_quads_matches_plain(device, name):
     lsb = g(S, B, sb.ops.send.shape[1], 3)
     args = (cur, rb2, lam, lsb, c.dt, c.t + 0.5 * c.dt, c.ctrl, True, True)
     got = TB._run_stage_bwd(sb.ops, m, *args)
+    ref = c.ref(TB.sw2d_stage_bwd_blocked_v2_plain, *args)
+    assert (got[7] is None) == (nc == 0)
+    if not nc:
+        got, ref = got[:7], ref[:7]
+    _check_adjoint(got, ref)
+    assert _same(got, TB._run_stage_bwd(sb.ops, m, *args))
+    _check_quad_plans(sb, n, B)
+
+
+def test_stage_bwd_kernel_on_quads_splits_face_ties(device):
+    """B8 at N=4 on quadrilaterals in four shards (cut faces on x = 0 and
+    y = 0) from a state that is the same at every node of the line x = 0
+    and of the open east side x = 1: on each face along x = 0, cut faces
+    included, all five nodes of both sides share the face maximum, and so
+    do the five nodes of each east face, against the jump to the tidal
+    depth; so the speed cotangent there is split five ways, and at the cut
+    faces into the receive slots' cotangents. Held to the plain version
+    (the even split over the face's real nodes, C6/C12).
+
+    Mutation checks (made on a copy of the source): counting the masked
+    lanes (5-7, which redo the face's last node) among the nodes at the
+    maximum splits it eight ways and fails this test. Letting them write
+    the cut faces' receive slots cannot fail it, nor any test of values: a
+    masked lane redoes the last node with the same inputs and would store
+    that node's bits into that node's slot. The guard keeps one writer a
+    slot, as the launch's design has it."""
+    device(2, 1)
+    c = Case(4, 4, 1, seed=37, quads=True)
+    sb = c.sets[F32]
+    m = sb.meta
+    x, y = c.ctx.x.reshape(1, -1), c.ctx.y.reshape(1, -1)
+    h = (11.0 + 2.0 * x ** 2 * (1.0 - x)
+         * (1.0 + 0.5 * torch.sin(3.0 * y + 0.4))).to(F32)
+    state = tuple(BS.split_shards(f.contiguous(), 4)
+                  for f in (h, 0.5 * h, -0.3 * h))
+    # the faces' nodes along each line: of the eight elements on each side
+    # of x = 0, of the eight east elements
+    for line, n_nodes in ((x == 0.0, 16 * 5), (x == 1.0, 8 * 5)):
+        nodes = line.flatten().nonzero().flatten()
+        assert len(nodes) == n_nodes
+        for f in (h, 0.5 * h, -0.3 * h):
+            assert float(f[0, nodes].max() - f[0, nodes].min()) == 0.0
+    # the cut faces along x = 0: four a shard, each side's
+    xs = BS.split_shards(x.to(F32), 4)[:, 0]
+    cut = sb.ops.vmapP.reshape(4, -1) >= m.n_v
+    vm = sb.ops.vmapM.reshape(4, -1)
+    on_line = torch.stack([xs[s][vm[s]] == 0.0 for s in range(4)]) & cut
+    faces = on_line.reshape(4, m.k_elem, 4, 5).all(-1)
+    assert int(faces.sum()) == 4 * 4
+    rb = c.ex[F32](BS.initial_send_buffer(sb, state))
+    rng = np.random.default_rng(9)
+    g = lambda *shape: torch.as_tensor(rng.standard_normal(shape), dtype=F32)
+    lam = tuple(g(4, 1, m.n_v) for _ in range(3))
+    lsb = g(4, 1, sb.ops.send.shape[1], 3)
+    args = (state, rb, lam, lsb, 0.5 * c.dt, c.t, c.ctrl, True, False)
+    got = TB._run_stage_bwd(sb.ops, m, *args)
     _check_adjoint(got, c.ref(TB.sw2d_stage_bwd_blocked_v2_plain, *args))
     assert _same(got, TB._run_stage_bwd(sb.ops, m, *args))
-    plan = TB.shard_plan(sb.ops, m, B, adjoint=True)
-    assert plan["lanes_per_element"] == 1
-    assert plan["grid"] == -(-S * B * m.k_elem // plan["threads"])
+    assert TB.shard_plan(sb.ops, m, 1, adjoint=True)["lanes_per_element"] == 8
 
 
 # (N, scenarios, controls, shim device, cells) of B6 on box_quads: N=2 (the

@@ -15,8 +15,10 @@ on a wet/dry beach, against the JAX kernel at 1e-12. The forward takes a
 face's maximum, which has no tie rule, so nothing there depends on how a
 tie splits. The adjoint (B6's plain version) against ``jax.grad`` through
 the JAX kernels, and the fused sharded step (B7's plain version, twice a
-step) on a partitioned quad mesh against the JAX step under ``shard_map``,
-1e-12. Also the repair of ``retag_east_open`` (it walked three faces)
+step) on a partitioned quad mesh at N=2 against the JAX step under
+``shard_map``, 1e-12; at N=4 the differentiable sharded step (B7's and
+B8's plain versions) and its gradients against the JAX diff step and
+``jax.grad`` through it, 1e-12 and 1e-9. Also the repair of ``retag_east_open`` (it walked three faces)
 and the assembled SIP operator on quads (the counterpart of
 ``tests/test_poisson.py::TestAssembledQuads``).
 """
@@ -501,6 +503,133 @@ def test_sharded_fused_step_quads_matches_jax():
     np.testing.assert_allclose(carry[1].numpy(),
                                np.asarray(out[3]).reshape(S, B, L, 3),
                                rtol=0, atol=1e-12)
+
+
+def test_sharded_diff_step_quads_n4_matches_jax():
+    """The port's differentiable sharded step (``make_sharded_blocked_step_
+    diff``: B7's and B8's plain versions, the stacked ring exchange and its
+    reverse) on ``partition_mesh(box_quads(2, 2), 4)`` at N=4 (the order at
+    which B7 and B8 take eight lanes an element on the card), coastal
+    physics (bathymetry with the well-balanced star fluxes, drag, Coriolis,
+    tidal depth on the open east side, sponge) and two injectors, one
+    scenario (the JAX backward's control cotangent holds for B = 1 only,
+    ROADMAP C21), a control vector a step, 2 steps from t0 = 1, float64:
+    the states and the send buffer against the JAX package's
+    ``make_sharded_blocked_step_diff`` in interpret mode under ``shard_map``
+    over 4 of the 8 virtual devices, 1e-12; the gradients of a scalar cost
+    in the initial depth and the controls against ``jax.grad`` through it,
+    1e-9 of each one's largest entry. A shard holds one element, two of
+    whose faces are cut faces (on x = 0 and y = 0): three ring offsets, the
+    smallest box that has them (about 30 s, the JAX kernels interpreted)."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from blitzdg_tpu.parallel import partition_mesh as j_partition_mesh
+    from blitzdg_tpu.parallel.blocked_shard import (
+        build_sharded_blocked as j_build_sharded, initial_send_buffer as j_isb,
+        make_sharded_blocked_step_diff as j_diff, pack_local, unpack_local)
+    from blitzdg_tpu.utils import build_sponge_coefficient as j_sponge
+    from blitzdg_tpu_torch.parallel import blocked_shard as BS
+
+    S, n_steps, dt, t0, N = 4, 2, 5e-4, 1.0, 4
+    tm = box_quads(2, 2)
+    retag_east_open(tm)
+    jm = j_box_quads(2, 2)
+    jm.set_bc_type(tm.bc_type.copy())
+    jm, _, _ = j_partition_mesh(jm, S)
+    jc = JQ.build_quad_context(N, jm, filter_cutoff=0.9 * N, filter_order=4)
+    x, y = np.asarray(jc.x), np.asarray(jc.y)
+    H = 10.0 + 2.0 * x + np.sin(2.0 * y)
+    ob = np.asarray(jc.bc_table)[:, :, None].repeat(jc.n_fp, 2).reshape(
+        jc.k_elem, -1) == BC_OUT
+    phys = dict(g=9.81, cd=2.5e-3, f_cor=1e-4, H=H, Hx=2.0 * np.ones_like(H),
+                Hy=2.0 * np.cos(2.0 * y),
+                sponge=np.asarray(j_sponge(jc, ob, width=0.3, strength=0.5)))
+    bump = np.exp(-8.0 * (x ** 2 + y ** 2))
+    kw = dict(forcing_bu=np.stack([bump, 0 * bump]),
+              forcing_bv=np.stack([0 * bump, bump]),
+              tidal=(12.0, 0.5, 2.0, 10.0))
+    eta = np.exp(-8.0 * ((x - 0.2) ** 2 + (y + 0.3) ** 2))
+    state = (H + 0.3 * eta, 0.1 * eta + 0.02 * x, 0.05 * eta - 0.01 * y)
+    tgt = H + 0.1 * np.exp(-8.0 * x ** 2)
+    cs = 0.3 * np.random.default_rng(13).standard_normal((n_steps, 2))
+
+    # the JAX step: the end state, the send buffer and the cost's gradients
+    as_j = lambda v: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+    jsb = j_build_sharded(jc, jsw.SWPhysics(**{k: as_j(v)
+                                               for k, v in phys.items()}),
+                          S, dtype=jnp.float64, **kw)
+    meta, k_loc = jsb.meta, jsb.k_loc
+    step = j_diff(jsb, dt, interpret=True)
+    pk = lambda f: jnp.concatenate([pack_local(meta, f[s * k_loc:(s + 1)
+                                                       * k_loc])
+                                    for s in range(S)], axis=0)
+    vm = jsb.ops.vmask[0][None]
+    op_specs = jax.tree.map(lambda a: P("element", *([None] * (a.ndim - 1))),
+                            jsb.ops)
+    st, bs = P("element", None, None, None), P("element", None, None)
+
+    def loss_local(ops_l, c_all, h_l, hu_l, hv_l, tgt_l):
+        p3 = (h_l, hu_l, hv_l)
+
+        def body(carry, c):
+            st_, tt = carry
+            return (step(ops_l, st_, tt, ctrl=c), tt + dt), None
+
+        (((out, sbuf), _), _) = jax.lax.scan(
+            body, ((p3, j_isb(jsb, ops_l, p3)), t0), c_all)
+        loc = (jnp.sum(vm * (out[0] - tgt_l) ** 2)
+               + 0.1 * jnp.sum(vm * out[1] ** 2) + jnp.sum(vm * out[2]))
+        return jax.lax.psum(loc, "element"), (*out, sbuf)
+
+    def total(h_pk, c_all, hu_pk, hv_pk, tgt_pk):
+        fn = jax.shard_map(loss_local,
+                           mesh=Mesh(np.array(jax.devices()[:S]),
+                                     ("element",)),
+                           in_specs=(op_specs, P()) + (st,) * 4,
+                           out_specs=(P(), (st,) * 3 + (bs,)),
+                           check_vma=False)
+        return fn(jsb.ops, c_all, h_pk, hu_pk, hv_pk, tgt_pk)
+
+    (v_ref, out), (gh, gc) = jax.value_and_grad(
+        total, argnums=(0, 1), has_aux=True)(
+            pk(state[0]), jnp.asarray(cs), pk(state[1]), pk(state[2]),
+            pk(tgt))
+    unpack = lambda a: np.concatenate(
+        [np.asarray(unpack_local(meta, a[s:s + 1])) for s in range(S)],
+        axis=0).reshape(S, 1, -1)
+
+    # the port's step on the same fields
+    arrays, static = jax_arrays(jc)
+    sb = convert.sharded_blocked_from_numpy(arrays, static, phys, S,
+                                            device="cpu", dtype=F64, **kw)
+    assert sb.meta.n_faces == 4 and sb.meta.n_p == 25
+    assert sb.meta.has_sponge and sb.meta.wb and sb.meta.tidal is not None
+    assert len(sb.plan.offs) >= 2 and int((sb.ops.vmapP >= sb.meta.n_v)
+                                          .sum()) > 0
+    split = lambda f: BS.split_shards(torch.as_tensor(f).reshape(1, -1), S)
+    h0 = split(state[0]).requires_grad_(True)
+    c = torch.as_tensor(cs).requires_grad_(True)
+    sts = (h0, split(state[1]), split(state[2]))
+    carry, t = (sts, BS.initial_send_buffer(sb, sts)), t0
+    dstep = BS.make_sharded_blocked_step_diff(sb, dt)
+    for i in range(n_steps):
+        carry = dstep(carry, t, c[i])
+        t += dt
+    (h, hu, hv), sbuf = carry
+    for g, want in zip((h, hu, hv), out[:3]):
+        np.testing.assert_allclose(g.detach().numpy(), unpack(want), rtol=0,
+                                   atol=1e-12)
+    L = sbuf.shape[2]
+    np.testing.assert_allclose(sbuf.detach().numpy(),
+                               np.asarray(out[3]).reshape(S, 1, L, 3),
+                               rtol=0, atol=1e-12)
+    loss = (((h - split(tgt)) ** 2).sum() + 0.1 * (hu ** 2).sum()
+            + hv.sum())
+    np.testing.assert_allclose(loss.item(), float(v_ref), rtol=1e-12)
+    got_h, got_c = torch.autograd.grad(loss, (h0, c))
+    for g, want in ((got_h, unpack(gh)), (got_c, np.asarray(gc))):
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=1e-9 * np.abs(want).max())
 
 
 def test_blocked_rollout_quads_wetdry_matches_jax():

@@ -27,7 +27,10 @@ count of SASS instructions (``cuobjdump -sass``). Shapes:
    sponge, two injectors), 2 x 2 steps, random cotangents of the forward
    kernel's own trajectory (``tools/forward_times.py``'s ``quad_case``,
    which its ``--quads`` times B4 and B5 on): the shape of the quad Adam
-   solve's adjoint.
+   solve's adjoint; and B8 on the second stage of a step of that case's
+   sharded form (``forward_times.py``'s ``quad_shard_case``: the mesh in 4
+   shards of 36 elements, B=8, one control vector, random cotangents):
+   the shape of the quad path's differentiable sharded steps.
 
 Inputs are made from fixed seeds, as ``chip_smoke.py`` makes its timed
 cases. Two times a shape: ``ms``, CUDA events around one call of the
@@ -171,6 +174,26 @@ def main() -> int:
                           "grid_blocks": TB.last_grid(),
                           "plan": TB.rollout_bwd_plan(ops, meta, B)}),
               flush=True)
+        from forward_times import quad_shard_case
+
+        sb, dt, t, st, rb, ctrl, ex = quad_shard_case(dev, g)
+        S, meta = sb.n_shards, sb.meta
+        *s1, sb1 = TB.sw2d_stage_blocked(sb.ops, meta, st, st, rb, 0.5 * dt,
+                                         t, ctrl)
+        cur, rb2 = tuple(f.contiguous() for f in s1), ex(sb1)
+        lam = tuple(g(S, B, meta.n_v) for _ in range(3))
+        lsb = g(*rb2.shape)
+        run = lambda: TB.sw2d_stage_bwd_blocked_v2(
+            sb.ops, meta, cur, rb2, lam, lsb, dt, t + 0.5 * dt, ctrl, True,
+            True)
+        ms = time_ms(run, flush)
+        print(json.dumps({"tree": label, "kernel": "sw2d_stage_bwd_blocked_v2",
+                          "shape": f"quads_sharded_K{S * meta.k_elem}_N4_"
+                                   f"S{S}_B{B}",
+                          "ms": ms, "device_ms": device_ms(run),
+                          "grid_blocks": TB.last_grid(),
+                          "plan": TB.shard_plan(sb.ops, meta, B,
+                                                adjoint=True)}), flush=True)
     stage_shapes = () if on_quads else (
         ("K2048_N3_S4_B8", sbx.FULL, 8),
         ("K2048_N3_S4_B1", sbx.FULL, 1),

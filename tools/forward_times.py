@@ -18,7 +18,12 @@ the blocked box (``mpc/blocked_box.py``: K=2048, flat bottom, walls):
    (``box_quads(12, 12)``, K=144, N=4, B=8, its east side open: bathymetry,
    drag, Coriolis, tidal depth from t0 = 1, sponge, two injectors):
    ``sw2d_step_blocked`` (B4) and ``sw2d_rollout_blocked`` (B5) over 2 x 2
-   steps with the trajectory stored (``--quads``: these two alone).
+   steps with the trajectory stored; and its sharded case
+   (``quads_sharded_coastal_K144_N4_S4_B8``: the same mesh partitioned into
+   4 shards of 36 elements, the same physics, one control vector):
+   ``sw2d_stage_blocked`` (B7), stage 1 (dt/2, no sponge) and stage 2 (dt,
+   the sponge, the stage-1 output and its exchanged send buffer)
+   (``--quads``: these four alone).
 
 Inputs are made from fixed seeds, as ``chip_smoke.py`` makes its timed
 cases. Two times a shape: ``ms``, CUDA events around one call of the
@@ -58,7 +63,9 @@ def time_ms(fn, flush, reps: int) -> float:
     return statistics.median(out)
 
 
-def device_ms(fn, calls: int) -> float:
+def device_ms(fn, calls: int, kernel: str = "sw2d_blocked_rollout") -> float:
+    """The mean device time a call of the kernels whose name holds
+    ``kernel`` (the blocked rollout's, B4's too, by default)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -68,26 +75,34 @@ def device_ms(fn, calls: int) -> float:
             fn()
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages()
-          if "sw2d_blocked_" in e.key and "bwd" not in e.key]
+          if kernel in e.key and "bwd" not in e.key]
     return sum(e.device_time_total for e in ev) / calls / 1e3
 
 
-def quad_case(dev, g):
-    """The quad coastal case of ``chip_smoke.py --only quads`` (its
-    ``quads_coastal_K144_N4``): operator set, dt, a perturbed state of 8
-    scenarios and controls of 2 control steps, drawn from ``g``."""
+TIDE = (12.0, 0.5, 2.0, 10.0)
+
+
+def _quad_coastal(dev, g, shards: int = 1):
+    """``chip_smoke.py --only quads``'s coastal quad problem: ``box_quads(12,
+    12)`` at N=4, its east side open (partitioned into ``shards`` where more
+    than one), bathymetry, drag, Coriolis and the sponge; the context, the
+    physics, the two injectors and a perturbed state of 8 scenarios,
+    (8, nV) per field, drawn from ``g``."""
     from blitzdg_tpu_torch.context import BC_OUT
     from blitzdg_tpu_torch.mesh import box_quads
-    from blitzdg_tpu_torch.mpc.coastal_box import cfl_dt, retag_east_open
-    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+    from blitzdg_tpu_torch.mpc.coastal_box import retag_east_open
+    from blitzdg_tpu_torch.mpc.sharded_box import injectors
     from blitzdg_tpu_torch.ops.sw2d import SWPhysics
+    from blitzdg_tpu_torch.parallel import partition_mesh
     from blitzdg_tpu_torch.specgrid.quad import build_quad_context
     from blitzdg_tpu_torch.utils import build_sponge_coefficient
 
-    N, B, f32 = 4, 8, torch.float32
+    N, B = 4, 8
     mesh = box_quads(12, 12)
     retag_east_open(mesh)
-    cc = build_quad_context(N, mesh, dtype=f32, device=dev,
+    if shards > 1:
+        mesh = partition_mesh(mesh, shards)[0]
+    cc = build_quad_context(N, mesh, dtype=torch.float32, device=dev,
                             filter_cutoff=0.9 * N, filter_order=4)
     H = 10.0 + 2.0 * cc.x + torch.sin(2.0 * cc.y)
     open_nodes = (cc.bc_table[:, :, None].expand(-1, -1, cc.n_fp)
@@ -97,22 +112,51 @@ def quad_case(dev, g):
                      Hy=2.0 * torch.cos(2.0 * cc.y),
                      sponge=build_sponge_coefficient(cc, open_nodes,
                                                      width=0.3, strength=0.5))
-    xs, ys = cc.x.double().cpu().numpy(), cc.y.double().cpu().numpy()
-    bump = np.exp(-8.0 * (xs ** 2 + ys ** 2))
-    ops, meta = TB.build_blocked_step_ops(
-        cc, phys, np.stack([bump, 0 * bump]), np.stack([0 * bump, bump]),
-        tidal=(12.0, 0.5, 2.0, 10.0), device=dev)
-    dt = cfl_dt(cc, 9.81, 13.5)
     Hf = H.reshape(1, -1)
     h = (Hf + 0.1 * torch.exp(-8.0 * (cc.x ** 2 + cc.y ** 2)).reshape(1, -1)
          + 0.01 * g(B, Hf.shape[1])).contiguous()
     hu = (0.05 * h + 0.01 * g(*h.shape)).contiguous()
     hv = (-0.05 * h + 0.01 * g(*h.shape)).contiguous()
-    return ops, meta, dt, (h, hu, hv), g(B, 2, meta.n_ctrl)
+    return cc, phys, injectors(cc), (h, hu, hv)
+
+
+def quad_case(dev, g):
+    """The quad coastal case of ``chip_smoke.py --only quads`` (its
+    ``quads_coastal_K144_N4``): operator set, dt, a perturbed state of 8
+    scenarios and controls of 2 control steps, drawn from ``g``."""
+    from blitzdg_tpu_torch.mpc.coastal_box import cfl_dt
+    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+
+    cc, phys, (bu, bv), state = _quad_coastal(dev, g)
+    ops, meta = TB.build_blocked_step_ops(cc, phys, bu, bv, tidal=TIDE,
+                                          device=dev)
+    return (ops, meta, cfl_dt(cc, 9.81, 13.5), state,
+            g(state[0].shape[0], 2, meta.n_ctrl))
+
+
+def quad_shard_case(dev, g):
+    """The sharded quad case of ``chip_smoke.py --only quads`` (its
+    ``quads_sharded_coastal_K144_N4_S4_B8``): ``quad_case``'s problem on
+    its mesh partitioned into 4 shards, one control vector; the sharded
+    set, dt, the stage time t = 1, the state (S, B, K_loc Np) per field,
+    the receive buffer of its send buffer, the control and the exchange."""
+    from blitzdg_tpu_torch.mpc.coastal_box import cfl_dt
+    from blitzdg_tpu_torch.parallel import blocked_shard as BS
+    from blitzdg_tpu_torch.parallel.halo import RingExchange
+
+    S = 4
+    sc, phys, (bu, bv), state = _quad_coastal(dev, g, S)
+    sb = BS.build_sharded_blocked(sc, phys, S, tidal=TIDE, forcing_bu=bu,
+                                  forcing_bv=bv, device=dev)
+    st = tuple(BS.split_shards(f, S) for f in state)
+    ex = RingExchange(sb.plan, sb.meta.n_fp, device=dev)
+    rb = ex(BS.initial_send_buffer(sb, st))
+    return sb, cfl_dt(sc, 9.81, 13.5), 1.0, st, rb, g(sb.meta.n_ctrl), ex
 
 
 def quads(say, dev, g) -> None:
-    """B4 and B5 on the quad coastal case (``quad_case``)."""
+    """B4 and B5 on the quad coastal case (``quad_case``), B7's two
+    stages on its sharded case (``quad_shard_case``)."""
     from blitzdg_tpu_torch.ops import sw2d_blocked as TB
 
     ops, meta, dt, (h, hu, hv), ctrls = quad_case(dev, g)
@@ -125,6 +169,21 @@ def quads(say, dev, g) -> None:
     say("sw2d_rollout_blocked", f"{shape}_2x2",
         lambda: TB.sw2d_rollout_blocked(ops, meta, h, hu, hv, ctrls, dt, 2,
                                         t0=1.0, store_traj=True), plan=plan)
+    sb, dt, t, st, rb, ctrl, ex = quad_shard_case(dev, g)
+    ops, meta = sb.ops, sb.meta
+    S = sb.n_shards
+    shape = f"quads_sharded_K{S * meta.k_elem}_N4_S{S}_B{B}"
+    plan = TB.shard_plan(ops, meta, B)
+    *s1, sb1 = TB.sw2d_stage_blocked(ops, meta, st, st, rb, 0.5 * dt, t, ctrl)
+    cur, rb2 = tuple(f.contiguous() for f in s1), ex(sb1)
+    say("sw2d_stage_blocked", f"{shape}_stage1",
+        lambda: TB.sw2d_stage_blocked(ops, meta, st, st, rb, 0.5 * dt, t,
+                                      ctrl),
+        plan=plan, kernel_name="sw2d_stage_kernel")
+    say("sw2d_stage_blocked", f"{shape}_stage2",
+        lambda: TB.sw2d_stage_blocked(ops, meta, st, cur, rb2, dt,
+                                      t + 0.5 * dt, ctrl, True, True),
+        plan=plan, kernel_name="sw2d_stage_kernel")
 
 
 def main() -> int:
@@ -145,10 +204,12 @@ def main() -> int:
     g = lambda *shape: torch.as_tensor(rng.standard_normal(shape), dtype=f32,
                                        device=dev)
 
-    def say(kernel, shape, run, reps=9, calls=10, plan=None, **more):
+    def say(kernel, shape, run, reps=9, calls=10, plan=None,
+            kernel_name="sw2d_blocked_rollout", **more):
         ms = time_ms(run, flush, reps)
         print(json.dumps({"tree": label, "kernel": kernel, "shape": shape,
-                          "ms": ms, "device_ms": device_ms(run, calls),
+                          "ms": ms,
+                          "device_ms": device_ms(run, calls, kernel_name),
                           **({"plan": plan} if plan else {}),
                           **{k: f(ms) for k, f in more.items()}}),
               flush=True)
