@@ -153,16 +153,17 @@ __global__ void sw2d_blocked_barrier_probe_kernel(int n) {
 // parts) P = 8: lane p holds node p of each face, lane 7 none (it redoes
 // node 6, whose speed cannot move the face maximum, and stores nothing),
 // and the volume nodes p, p+8, p+16, p+24. Quadrilaterals at N=4 (Np 25,
-// Nfp 5) take QOrder4Quad in the stage kernel, eight lanes an element the
-// same way (lanes 5-7 redo node 4 of a face), and the run-time sizes in
-// the step: qstage sums a node's products in one order at every instance,
-// spells out the roundings that the compiler contracted differently in
-// the two (q_volume_fluxes), and a face maximum is exact, so the step
-// still gives two stage launches' bits. Other orders (run-time sizes,
-// arrays in local memory) take one lane an item, and so do the adjoints
-// at N=6. A stage has no block barrier; a launch has one, after the
-// reference operators (Dr and Ds interleaved, lift, filter) are copied to
-// shared memory, where every lane reads them as broadcasts.
+// Nfp 5) take QOrder4Quad in both kernels (and in both modes of the
+// step), eight lanes an element the same way: lanes 5-7 redo node 4 of a
+// face and store no trace slot; lane p holds the volume nodes p + 8k < 25
+// (lane 0 alone a fourth, node 24), so the stores into out, into the send
+// slots (the stage-1 halo into the receiving shard's or rank's rb2 among
+// them) and the peer mode's copies into the step-boundary slots cover
+// each node once. Other orders (run-time sizes, arrays in local memory)
+// take one lane an item, and so do the adjoints at N=6. A stage has no
+// block barrier; a launch has one, after the reference operators (Dr and
+// Ds interleaved, lift, filter) are copied to shared memory, where every
+// lane reads them as broadcasts.
 //
 // The block size is chosen by the launcher (q_plan): the largest of 256,
 // 128, 64, 32 threads that still gives every SM a block (S=4 x B=1 x 512
@@ -274,8 +275,9 @@ struct QSizes {
   static constexpr int NF = NP ? NFACES : QMAX_NFACES;
   static constexpr bool MASKED = NP && NFP % LANES != 0;
   // whether the one-launch step's lanes may hold their step-start and
-  // stage-1 nodes through its second stage (at N=6 they and the stage's
-  // own values would pass the 128 registers and spill)
+  // stage-1 nodes through its second stage (at N=6 and on quadrilaterals
+  // at N=4 they and the stage's own values would pass the 128 registers
+  // and spill: stage 2 reloads them)
   static constexpr bool KEEP = NP <= 10;
   // unroll factors of qstage's products over a node's columns (MU) and its
   // trace nodes (LU): complete at compile-time sizes up to 10 nodes,
@@ -325,8 +327,9 @@ struct QSizes {
 typedef QSizes<10, 4, 2, 4> QOrder3Ctrl;  // N=3 with two controls
 typedef QSizes<10, 4, -1, 4> QOrder3;     // N=3, other control counts
 typedef QSizes<28, 7, -1, 8> QOrder6;     // N=6, the forward kernels
-// quadrilaterals at N=4 (Np 25, Nfp 5), every q kernel's but the one-launch
-// step's: eight lanes an element, lanes 5-7 masked on the faces, as at N=6
+// quadrilaterals at N=4 (Np 25, Nfp 5), every q kernel's (the one-launch
+// step's in both modes): eight lanes an element, lanes 5-7 masked on the
+// faces, as at N=6
 typedef QSizes<25, 5, -1, 8, 4> QOrder4Quad;
 typedef QSizes<0, 0, -1, 1> QAnyOrder;
 // the stage adjoint's wide items at small batches: 16 lanes an element at
@@ -412,14 +415,14 @@ __device__ __forceinline__ void load_own(const Ops& o, int e, int p,
   }
 }
 
-// volume_fluxes with its roundings spelled out, in the form the compiler
-// gives the run-time-size instance: the pressure's last product fused into
-// each flux, F2 = h (0.5 g h) + hu hu / h. Left to it, a compile-time
-// instance may hoist a lane's first pressure (shared with the wet/dry
-// branch) and fuse the flux's product instead: other bits, so that the
-// one-launch step (run-time sizes on quadrilaterals) would not give the
-// stage's (QOrder4Quad). Wet/dry sets, which no step takes, keep
-// volume_fluxes.
+// volume_fluxes with its roundings spelled out: the pressure's last
+// product fused into each flux, F2 = h (0.5 g h) + hu hu / h. Left to it,
+// the compiler may contract these products differently in two kernels
+// that share qstage (it hoisted a lane's first pressure, shared with the
+// wet/dry branch, and fused the flux's product instead in one instance and
+// not in another), so that the one-launch step would not give two stage
+// launches' bits. Spelled out, every kernel and instance rounds them
+// alike. Wet/dry sets, which no step takes, keep volume_fluxes.
 __device__ __forceinline__ void q_volume_fluxes(const Ops& o, float h,
                                                 float hu, float hv,
                                                 float& F2, float& F3,
@@ -952,11 +955,12 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
 }
 
 // The peer mode: one shard a rank (S = 1), the ring's table in a.peer. Its
-// items are the stacked step's (four lanes an element at N=3), so that a
-// rank's bits are its shard's of the stacked step: wider items (sixteen
-// lanes, as the stage adjoint takes at small batches) shorten a stage's
-// chain, but round differently (PERF.md), and a grid that fills the card
-// leaves no room for the other ranks of a ring that share it.
+// items are the stacked step's (four lanes an element at N=3, eight at N=6
+// and on quadrilaterals at N=4), so that a rank's bits are its shard's of
+// the stacked step: wider items (sixteen lanes, as the stage adjoint takes
+// at small batches) shorten a stage's chain, but round differently
+// (PERF.md), and a grid that fills the card leaves no room for the other
+// ranks of a ring that share it.
 template <class Z>
 __global__ void __launch_bounds__(QMAX_THREADS, 2)
     sw2d_step_rdma_peer_kernel(SwDesc d, RdmaArgs a) {
@@ -1901,9 +1905,9 @@ enum { Q_STAGE = 0, Q_STEP = 1, Q_STAGE_BWD = 2, Q_ROLLOUT_BWD = 3,
 // The instantiation of the q kernels for a set: N=3 with two controls
 // (the MPC's), N=3 with others (a set built without injectors has one,
 // which its rollouts never read), N=6 (the forward kernels' own),
-// quadrilaterals at N=4 (every kernel's own but the one-launch step's),
-// else the run-time sizes; -1 past their room. The other quadrilateral
-// orders take the run-time sizes in every q kernel.
+// quadrilaterals at N=4 (every kernel's own), else the run-time sizes; -1
+// past their room. The other quadrilateral orders take the run-time sizes
+// in every q kernel.
 static int q_kind(const SwDesc& d) {
   if (d.Np > QMAX_NP || d.Nfp > QMAX_NFP) return -1;
   if (d.Nfaces == QMAX_NFACES) return d.Np == 25 && d.Nfp == 5 ? 4 : 2;
@@ -1913,9 +1917,9 @@ static int q_kind(const SwDesc& d) {
   return 2;
 }
 
-// (order6, quad4: null where the kernel takes the run-time sizes at N=6,
-// as the adjoints do, or on quadrilaterals at N=4, as the one-launch step
-// does)
+// (order6: null where the kernel takes the run-time sizes at N=6, as the
+// adjoints do; quad4: null where the kernel takes no quadrilateral set at
+// N=4 on those lanes)
 template <class K>
 static K q_pick(const SwDesc& d, K order3_ctrl, K order3, K any_order,
                 K order6, K quad4) {
@@ -1924,7 +1928,7 @@ static K q_pick(const SwDesc& d, K order3_ctrl, K order3, K any_order,
     case 1: return order3;
     case 2: return any_order;
     case 3: return order6 != nullptr ? order6 : any_order;
-    case 4: return quad4 != nullptr ? quad4 : any_order;
+    case 4: return quad4;
     default: return nullptr;
   }
 }
@@ -1941,14 +1945,16 @@ static RdmaKern rdma_kernel_of(const SwDesc& d) {
   return q_pick<RdmaKern>(d, sw2d_step_rdma_kernel<QOrder3Ctrl>,
                           sw2d_step_rdma_kernel<QOrder3>,
                           sw2d_step_rdma_kernel<QAnyOrder>,
-                          sw2d_step_rdma_kernel<QOrder6>, nullptr);
+                          sw2d_step_rdma_kernel<QOrder6>,
+                          sw2d_step_rdma_kernel<QOrder4Quad>);
 }
 
 static RdmaKern rdma_peer_kernel_of(const SwDesc& d) {
   return q_pick<RdmaKern>(d, sw2d_step_rdma_peer_kernel<QOrder3Ctrl>,
                           sw2d_step_rdma_peer_kernel<QOrder3>,
                           sw2d_step_rdma_peer_kernel<QAnyOrder>,
-                          sw2d_step_rdma_peer_kernel<QOrder6>, nullptr);
+                          sw2d_step_rdma_peer_kernel<QOrder6>,
+                          sw2d_step_rdma_peer_kernel<QOrder4Quad>);
 }
 
 static FwdKern rollout_kernel_of(const SwDesc& d) {
@@ -2005,14 +2011,13 @@ static const void* q_kernel(const SwDesc& d, int which, int lanes) {
 
 // Lanes an item of kernel `which`: a face's nodes at N=3; QOrder6's at
 // N=6 in the forward kernels; QOrder4Quad's on quadrilaterals at N=4 in
-// every kernel but the one-launch step (both modes); one otherwise.
+// every kernel (the one-launch step in both modes); one otherwise.
 static int q_lanes(const SwDesc& d, int which) {
   const bool adjoint = which == Q_STAGE_BWD || which == Q_ROLLOUT_BWD;
   switch (q_kind(d)) {
     case 2: return 1;
     case 3: return adjoint ? 1 : QOrder6::P;
-    case 4:
-      return which == Q_STEP || which == Q_STEP_PEER ? 1 : QOrder4Quad::P;
+    case 4: return QOrder4Quad::P;
     default: return 4;
   }
 }

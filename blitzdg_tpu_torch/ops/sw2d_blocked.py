@@ -1058,8 +1058,10 @@ def sw2d_step_rdma_blocked(ops: ShardOps, meta: BlockedMeta, state, rb,
     memory (CUDA IPC) and meets them through one READY and one ARRIVED flag
     a ring offset for each in their memory. Bound by operations (two
     RHS evaluations per node against one state in and one out). Takes
-    triangles up to N=6 and quadrilaterals (one lane an element) up to
-    N=4; raises above and for a wet/dry set.
+    triangles up to N=6 and quadrilaterals (four faces) up to N=4, eight
+    lanes an element at N=4 in both modes (its compile-time instance, the
+    stage kernel's), one at other orders; raises above and for a wet/dry
+    set.
     """
     return RdmaLaunch(ops, meta, ex)(state, rb, dt, t, ctrl, use_filter)
 

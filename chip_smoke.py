@@ -180,7 +180,7 @@ in order (any failure is an exception and a non-zero exit):
     B5's rows, and B7, B8 and B9 on that mesh partitioned into 4 shards
     (B9 bit-equal to two B7 launches with the exchange between), each
     timed, and checks that every q kernel refuses a quad set at N=5 and
-    that B4-B8 take eight lanes an element (their N=4 instance), B9 one;
+    that B4-B9 take eight lanes an element (their N=4 instance);
     ``quads_path`` drives the example's problem at B=8 through B5 (10
     launches of 100 steps) and B4 (10 launches), each scenario's mass
     drift below 1e-5, the first launch against the plain version in
@@ -193,8 +193,15 @@ in order (any failure is an exception and a non-zero exit):
     gradient; counters zeroed just before and read just after; for
     information the Adam solve's and the sharded steps' device time by
     kernel and idle share (``quads_adam_profile``,
-    ``quads_sharded_profile``); the N=4 instances of B4-B8 and the
-    run-time-size ones of B4-B9 must not spill;
+    ``quads_sharded_profile``); ``peer_quads_S4_in_process``: B9's peer
+    mode on the partitioned mesh, its four ranks in this process on four
+    streams (as ``peer_S4_in_process``), 64 steps from the sharded state
+    above, counters zeroed just before and read just after: every rank's
+    end state, send buffer and step-boundary slots bit-equal to its shard
+    of the stacked one-launch rollout, every state finite; then rank 0's
+    step alone (its flags set past any epoch), timed; the N=4 instances of
+    B4-B9 (B9 in both modes) and the run-time-size ones of B4-B9 must not
+    spill;
 11. INS2D path (plain tensor code): ``examples/ins2d.py`` at
     ``examples/ins2d.nml`` read by the port's ``read_namelist`` (K=36
     quads, N=2, dt 2e-3, 100 steps, float32): fields finite, max|u| <= 1,
@@ -2939,12 +2946,13 @@ def quads_phases(dev, card: str, rng, flush) -> list:
             refused[kname] = False
         except ValueError as e:
             refused[kname] = "N <= 4" in str(e) and kname in str(e)
-    # the blocked rollout (B5, B4), its adjoint (B6), the sharded stage
-    # (B7) and its adjoint (B8) take the N=4 instance, eight lanes an
-    # element; the one-launch step (B9) the run-time sizes, one lane
+    # every q kernel takes the N=4 instance, eight lanes an element: the
+    # blocked rollout (B5, B4), its adjoint (B6), the sharded stage (B7),
+    # its adjoint (B8) and the one-launch step (B9, both modes)
+    plans["step_rdma_peer"] = TB.shard_plan(rank_ops(ssb.ops, 0), ssb.meta,
+                                            QD_BATCH, step=True, peer=True)
     kern_ok = all(refused.values()) and all(
-        p["lanes_per_element"] == (1 if k == "step_rdma" else 8)
-        for k, p in plans.items())
+        p["lanes_per_element"] == 8 for p in plans.values())
     say({"phase": "quads_kernels", "ok": kern_ok, "card": card,
          "cases": sorted({r["case"] for r in head.values()}),
          "refused_quads_n5": refused, "plans": plans})
@@ -3131,6 +3139,10 @@ def quads_phases(dev, card: str, rng, flush) -> list:
                            "disagrees with the solve through the plain "
                            "versions")
 
+    # ---- B9's peer mode on the partitioned mesh, four ranks in this
+    # process ----
+    peer_row = quads_peer_in_process(TB, BS, ssb, sst, sdt, card, rng, flush)
+
     src = "blitzdg_tpu_torch/ops/csrc/sw2d_blocked.cu"
     replaces = {"sw2d_step_blocked": "blitzdg_tpu/ops/sw2d_blocked.py:1288",
                 "sw2d_rollout_blocked": "blitzdg_tpu/ops/sw2d_blocked.py:1352",
@@ -3154,7 +3166,105 @@ def quads_phases(dev, card: str, rng, flush) -> list:
              "bound_by": rec["bound_by"], "library_ms": None,
              "device_launches_per_call": TB.DEVICE_LAUNCHES_PER_CALL,
              "lanes_per_element": plans[plan_of[name]]["lanes_per_element"]}
-            for name, rec in head.items()]
+            for name, rec in head.items()] + [peer_row]
+
+
+def quads_peer_in_process(TB, BS, sb, state, dt: float, card: str, rng,
+                          flush) -> dict:
+    """``peer_quads_S4_in_process``: B9's peer mode on the quad path's
+    partitioned mesh (``sb``: K=144 in 4 shards, N=4, coastal, tidal),
+    its four ranks in this process on four streams
+    (``run_peer_in_process``), PEER_STEPS steps from ``state`` (B=8) at
+    ``dt`` from t0 = 1 with a control vector a step, the step's counter
+    zeroed just before and read just after; every rank's end state, send
+    buffer and step-boundary slots bit-equal to its shard of the stacked
+    one-launch rollout, every state finite. Then rank 0's step alone (its
+    flags set past any epoch, the others idle) from the first step's
+    inputs and its stage-2 halo as the stacked step made it: bit-equal to
+    the stacked step's shard 0, against the plain version, timed. Returns
+    its row of the ``kernels`` line."""
+    from blitzdg_tpu_torch.parallel.halo import RingExchange
+
+    S, B, meta = sb.n_shards, state[0].shape[1], sb.meta
+    dev = state[0].device
+    cs = torch.as_tensor(0.3 * rng.standard_normal((PEER_STEPS,
+                                                    meta.n_ctrl)),
+                         dtype=torch.float32, device=dev)
+    t0 = 1.0
+    # the reference: the stacked one-launch rollout, its first step's
+    # stage-2 halo kept
+    ex = RingExchange(sb.plan, meta.n_fp, device=dev)
+    sbuf0 = BS.initial_send_buffer(sb, state)
+    stacked = TB.RdmaLaunch(sb.ops, meta, ex)
+    first = stacked(state, ex(sbuf0), dt, t0, cs[0])
+    rb2_first = stacked._scratch[1][:1].clone()
+    rstep = BS.make_sharded_blocked_step_rdma(sb, dt)
+    carry, t = (state, sbuf0), t0
+    for k in range(PEER_STEPS):
+        carry = rstep(carry, t, cs[k])
+        t += dt
+    want = (*carry[0], carry[1])
+    last_rb = ex(carry[1])
+    torch.cuda.synchronize()
+    TB.sw2d_step_rdma_blocked.launches = 0
+    ends, us, rings, launches, free = run_peer_in_process(sb, state, cs, dt,
+                                                          t0, dev)
+    n_launches = TB.sw2d_step_rdma_blocked.launches
+    try:
+        bits = [all(torch.equal(a, b[r:r + 1]) for a, b in
+                    zip(ends[r], want)) for r in range(S)]
+        slots = [torch.equal(rings[r].rbb, last_rb[r:r + 1])
+                 for r in range(S)]
+        finite = all(bool(torch.isfinite(f).all())
+                     for f in (*want[:3], *(g for e in ends for g in e[:3])))
+        # rank 0 alone, from the first step's inputs
+        ring0, ops0 = rings[0], rank_ops(sb.ops, 0)
+        ring0.flags[1:] = 1 << 60
+        st0 = tuple(f[:1] for f in state)
+        rb0 = ex(sbuf0)[:1]
+        ring0.rbb.copy_(rb0)
+        ring0.rb2.copy_(rb2_first)
+        alone = lambda: launches[0](st0, ring0.rbb, dt, t0, cs[0])
+        got = alone()
+        grid = TB.last_grid()
+        alone_same = all(torch.equal(a, b[:1]) for a, b in zip(got, first))
+        plain = lambda: TB.sw2d_step_rdma_blocked_plain(
+            ops0, meta, st0, rb0, dt, lambda _: rb2_first, t0, cs[0])
+        err = max_abs(got, plain())
+        ms = time_ms(alone, 9, flush)
+        plain_ms = time_ms(plain, 2, flush)
+    finally:
+        free()
+    L = sb.ops.send.shape[1]
+    n_wall = int(ops0.wall.sum())
+    # the halos: stage 1's stored into the peers and read back in stage 2,
+    # and stage 2's step-boundary one stored into the peers
+    step_bound = bound(4.0 * (6 * B * meta.n_v + 2 * 3 * B * L + meta.n_ctrl)
+                       + 4.0 * 3 * 3 * B * L, B * 2 * rhs_flops(meta, n_wall))
+    plan = TB.shard_plan(ops0, meta, B, step=True, peer=True)
+    ok = (all(bits) and all(slots) and finite and alone_same
+          and err <= BLK_FWD_ATOL and n_launches == 2 * S * PEER_STEPS)
+    say({"phase": "peer_quads_S4_in_process", "ok": ok, "card": card,
+         "n_shards": S, "steps": PEER_STEPS, "batch": B,
+         "k_elem": S * meta.k_elem, "n_order": QD_ORDER,
+         "ring_offsets": list(sb.plan.offs), "bit_equal_to_stacked": bits,
+         "slots_bit_equal_to_stacked_gather": slots, "finite": finite,
+         "launches": n_launches, "us_per_step_host_clock": us,
+         "rank0_alone_bit_equal_to_stacked_step": alone_same,
+         "rank0_alone_vs_plain_max_abs": err, "tol": BLK_FWD_ATOL,
+         "rank0_alone_ms": ms, "plan": plan, "grid_blocks": grid,
+         "note": "four ranks on four streams of one process, their step "
+                 "launches resident together; launches: an untimed and a "
+                 "timed run of PEER_STEPS steps, four ranks each"})
+    if not ok:
+        raise RuntimeError("B9's peer mode on quads failed its checks")
+    return {"name": "sw2d_step_rdma_blocked (peer)_quads", "route": "cuda",
+            "source": "blitzdg_tpu_torch/ops/csrc/sw2d_blocked.cu",
+            "replaces": "blitzdg_tpu/ops/sw2d_blocked.py:1118",
+            "launches": n_launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": step_bound[0],
+            "bound_by": step_bound[1], "library_ms": None,
+            "lanes_per_element": plan["lanes_per_element"]}
 
 
 def ins2d_phases(dev, card: str, rng, flush) -> list:
@@ -3942,8 +4052,8 @@ def run_peer_in_process(sb, state, cs, dt: float, t0: float, dev,
     the card together and meet only through their flags: the only run in
     which their kernels run at the same time (processes without MPS
     time-slice the card). Returns each rank's end (h, hu, hv, sb), the us a
-    step of the timed run, rank 0's ring and launch (for timing it alone)
-    and a function that frees the regions."""
+    step of the timed run, the timed run's rings and ranks' launches (their
+    slots; a rank timed alone) and a function that frees the regions."""
     from blitzdg_tpu_torch.parallel import blocked_shard as BS
 
     S = sb.n_shards
@@ -3977,7 +4087,7 @@ def run_peer_in_process(sb, state, cs, dt: float, t0: float, dev,
     torch.cuda.synchronize()
     us = (time.perf_counter() - w0) * 1e6 / n_steps
     ends = [(*c[0], c[1]) for c in carry]
-    return ends, us, rings[0], launches[0], free
+    return ends, us, rings, launches, free
 
 
 def bit_digest(t: torch.Tensor) -> torch.Tensor:
@@ -4364,8 +4474,7 @@ Q_SIZES = ("I6QSizesILi10ELi4ELi2ELi4ELi3EEE",
 Q_SIZES_N6 = "I6QSizesILi28ELi7ELin1ELi8ELi3EEE"
 Q_SIZES_WIDE_N3 = ("I6QSizesILi10ELi4ELi2ELi16ELi3EEE",
                    "I6QSizesILi10ELi4ELin1ELi16ELi3EEE")
-# quadrilaterals at N=4, eight lanes an element (every q kernel's but the
-# one-launch step's)
+# quadrilaterals at N=4, eight lanes an element (every q kernel's)
 Q_SIZES_QUAD_N4 = "I6QSizesILi25ELi5ELin1ELi8ELi4EEE"
 SHARDED_KERNELS = [
     k + z for k in ("_Z17sw2d_stage_kernel", "_Z21sw2d_stage_bwd_kernel",
@@ -4379,23 +4488,23 @@ BLOCKED_ADJOINT_KERNELS = ["_Z31sw2d_blocked_rollout_bwd_kernel" + z
                            for z in Q_SIZES + (Q_SIZES_QUAD_N4,)]
 BLOCKED_FORWARD_KERNELS = ["_Z27sw2d_blocked_rollout_kernel" + z
                            for z in Q_SIZES + (Q_SIZES_N6,)]
-# Quadrilaterals run the N=4 instantiation of the blocked rollout, its
-# adjoint, the sharded stage and its adjoint, and every q kernel's
-# run-time-size one.
+# Quadrilaterals run the N=4 instantiation of every q kernel (the
+# one-launch step in both modes) and every q kernel's run-time-size one.
 QUAD_KERNELS = [k + Q_SIZES_QUAD_N4 for k in (
     "_Z27sw2d_blocked_rollout_kernel",
     "_Z31sw2d_blocked_rollout_bwd_kernel", "_Z17sw2d_stage_kernel",
-    "_Z21sw2d_stage_bwd_kernel")] + [
+    "_Z21sw2d_stage_bwd_kernel", "_Z21sw2d_step_rdma_kernel",
+    "_Z26sw2d_step_rdma_peer_kernel")] + [
     k + Q_SIZES[2] for k in (
         "_Z27sw2d_blocked_rollout_kernel",
         "_Z31sw2d_blocked_rollout_bwd_kernel", "_Z17sw2d_stage_kernel",
         "_Z21sw2d_stage_bwd_kernel", "_Z21sw2d_step_rdma_kernel")]
 
 
-# The one-launch step's peer mode in its four instantiations, and the
+# The one-launch step's peer mode in its five instantiations, and the
 # step-boundary exchange.
 PEER_KERNELS = ["_Z26sw2d_step_rdma_peer_kernel" + z
-                for z in Q_SIZES + (Q_SIZES_N6,)]
+                for z in Q_SIZES + (Q_SIZES_N6, Q_SIZES_QUAD_N4)]
 PEER_EXCHANGE_KERNELS = ["_Z25peer_ring_exchange_kernel"]
 
 

@@ -35,11 +35,11 @@ in float64 on the same float32 inputs, with ``chip_smoke.py``'s tolerance:
 5e-5 absolute on states near 10 (float32 rounding of two RHS evaluations),
 1e-4 at N=6. Besides: the same bits on a rerun, and the step bit-equal to
 two stage launches with the ring exchange between (both run the same stage
-code; on quadrilaterals at N=4 in two instances, the stage's eight lanes
-an element and the step's one: the shim, compiled without contraction of
-products into FMAs, cannot see an expression that the card's compiler
-contracts differently in the two, which only ``chip_smoke.py``'s gates
-can). The blocked rollout and the adjoints: their own sections below.
+code, on quadrilaterals at N=4 in one instance, eight lanes an element:
+the shim, compiled without contraction of products into FMAs, cannot see
+an expression that the card's compiler contracts differently in two
+kernels, which only ``chip_smoke.py``'s gates can). The blocked rollout
+and the adjoints: their own sections below.
 """
 import ctypes
 import dataclasses
@@ -790,12 +790,19 @@ def test_stage_and_step_kernels_at_order_six(device):
 # exception that fails the launch.
 
 PEER_STEPS = 3
-# (N, shards, batch, cells, shim device (SMs, blocks an SM))
+# (N, shards, batch, cells, shim device (SMs, blocks an SM), quadrilaterals)
 PEER_CASES = {
     # one ring offset, rank + 1 and rank - 1 the same peer; the blocks loop
-    "N3_S2_B3": (3, 2, 3, (8, 8), (1, 1)),
-    "N1_S3_B1": (1, 3, 1, (6, 6), (2, 1)),  # run-time sizes, two offsets
-    "N3_S4_B1": (3, 4, 1, (8, 8), (2, 1)),  # three offsets, two blocks
+    "N3_S2_B3": (3, 2, 3, (8, 8), (1, 1), False),
+    "N1_S3_B1": (1, 3, 1, (6, 6), (2, 1), False),  # run-time sizes
+    "N3_S4_B1": (3, 4, 1, (8, 8), (2, 1), False),  # three offsets
+    # quadrilaterals at N=4 (QOrder4Quad, eight lanes an element, lanes 5-7
+    # masked on the faces): three offsets, cut faces on x = 0 and y = 0, a
+    # rank's 16 items in two blocks of 64 threads, one pass
+    "quads_N4_S4_B1": (4, 4, 1, (8, 8), (2, 1), True),
+    # one offset; a rank's 96 items (768 lanes) in one block of 256
+    # threads: its blocks loop, three passes
+    "quads_N4_S2_B3_blocks_loop": (4, 2, 3, (8, 8), (1, 1), True),
 }
 
 
@@ -811,8 +818,8 @@ class PeerCase:
     reference) and its ranks' rollouts over peer rings."""
 
     def __init__(self, name):
-        n, S, B, cells, self.dev = PEER_CASES[name]
-        self.c = Case(n, S, B, cells=cells, seed=7)
+        n, S, B, cells, self.dev, quads = PEER_CASES[name]
+        self.c = Case(n, S, B, cells=cells, seed=7, quads=quads)
         self.S, self.B = S, B
         sb = self.c.sets[F32]
         self.sbuf0 = BS.initial_send_buffer(sb, self.c.state)
@@ -900,7 +907,21 @@ def test_peer_step_matches_the_stacked_step(device, name):
     one-launch rollout, and the same bits on a rerun over fresh regions.
     Every flag reads the last epoch (GOB and INB one ahead: the next step's
     step-boundary slots, freed and filled), so no wait was skipped or
-    doubled."""
+    doubled.
+
+    Mutation checks of the quad cases' eight-lane items (made on a copy of
+    the source): letting a lane past its element's 25 nodes (lanes 1-7 at
+    their fourth node slot) store its values into the send slots of the
+    last node, the stage-1 halo into the peers' stage-2 slots among them,
+    fails both quad cases here (and three of
+    ``test_stage_and_step_kernels_on_quads_match_plain``). Letting such a
+    lane copy slots in ``q_send_to_peers`` (the last node's, or with the
+    guard dropped the next element's) fails no test: the copy takes slot j
+    of the rank's own send buffer into slot j of the receiver's, so a
+    second copy carries the same bits, and only a read before the slot's
+    own lane stored it could differ, a race that the shim's threads do not
+    make happen. The guard keeps one writer a slot, as the design has
+    it."""
     pc = PeerCase(name)
     device(*pc.dev)
     want = pc.stacked(PEER_STEPS)
@@ -982,22 +1003,27 @@ def test_peer_ring_takes_only_the_last_steps_send_buffer(device):
 @pytest.mark.parametrize("name", list(PEER_CASES))
 def test_peer_plan_takes_the_stacked_steps_lanes(device, name):
     """The peer mode's plan for one rank's shard: the stacked step's lanes
-    an element (four at N=3, one at N=1), so that a rank's bits are its
-    shard's of the stacked step, on small shards too (N3_S4_B1: 32
-    elements, 128 lanes on the shim device's 2 SMs, where the stage adjoint
-    would take sixteen); a cooperative grid of what is co-resident."""
+    an element (four at N=3, one at N=1, eight on quadrilaterals at N=4),
+    so that a rank's bits are its shard's of the stacked step, on small
+    shards too (N3_S4_B1: 32 elements, 128 lanes on the shim device's 2
+    SMs, where the stage adjoint would take sixteen); a cooperative grid of
+    what is co-resident, one pass or blocks that loop as the case says."""
     pc = PeerCase(name)
     device(*pc.dev)
     sb = pc.c.sets[F32]
     plan = TB.shard_plan(_rank_ops(sb.ops, 0), sb.meta, pc.B, step=True,
                          peer=True)
-    P = {3: 4, 1: 1}[PEER_CASES[name][0]]
+    n, quads = PEER_CASES[name][0], PEER_CASES[name][5]
+    P = {(3, False): 4, (1, False): 1, (4, True): 8}[n, quads]
     assert plan["lanes_per_element"] == P
     assert TB.shard_plan(sb.ops, sb.meta, pc.B,
                          step=True)["lanes_per_element"] == P
     items = pc.B * sb.meta.k_elem
     assert plan["grid"] == min(pc.dev[0] * pc.dev[1],
                                -(-items * P // plan["threads"]))
+    if quads:  # (the quad cases say whether their blocks loop)
+        assert (plan["grid"] * plan["threads"] >= items * P) == (
+            "blocks_loop" not in name)
 
 
 # ---------------------------------------------------------------------------
@@ -1396,9 +1422,8 @@ def test_quads_refused_above_order_four(device):
 
 
 # ---------------------------------------------------------------------------
-# B7, B8 and B9 on quadrilaterals: four faces; B7 and B8 at N=4 on the
-# compile-time instance (eight lanes an element), B9 and N=2 on the
-# run-time sizes (one lane)
+# B7, B8 and B9 on quadrilaterals: four faces; at N=4 the compile-time
+# instance (eight lanes an element), at N=2 the run-time sizes (one lane)
 # ---------------------------------------------------------------------------
 
 # (N, shards, batch, controls, shim device (SMs, blocks an SM)) on
@@ -1406,31 +1431,31 @@ def test_quads_refused_above_order_four(device):
 # two controls or none (the set's one zero injector): N=2 (Nfp 3) and N=4
 # (Np 25, Nfp 5); S=4 (ring offsets, cut faces) and S=1. B7 and B8 are
 # ordinary launches whose grid covers every item; B9's cooperative grid
-# covers its items in one pass, or its blocks loop (blocks_loop: 320 items
-# of one lane in one block of 256 threads)
+# covers its items in one pass (N=4: 192 items of eight lanes in 12 blocks
+# of 128 threads), or its blocks loop (blocks_loop: 320 items of eight
+# lanes, 2560 lanes, in one block of 256 threads)
 QUAD_SHARD_CASES = {
     "quads_N2_S4_B3": (2, 4, 3, 2, (2, 1)),
-    "quads_N4_S4_B3": (4, 4, 3, 2, (2, 1)),
-    "quads_N4_S1_B3_one_pass": (4, 1, 3, 2, (8, 1)),
+    "quads_N4_S4_B3": (4, 4, 3, 2, (12, 1)),
+    "quads_N4_S1_B3_one_pass": (4, 1, 3, 2, (12, 1)),
     "quads_N4_S4_B5_blocks_loop": (4, 4, 5, 2, (1, 1)),
-    "quads_N4_S4_B3_noctrl": (4, 4, 3, 0, (2, 1)),
+    "quads_N4_S4_B3_noctrl": (4, 4, 3, 0, (12, 1)),
 }
 
 
 def _check_quad_plans(sb, n, B):
     """The plans of B7, B8 and B9 on a quad case: eight lanes an element at
-    N=4 in the stage and its adjoint, one at N=2 and in the step; B7's and
-    B8's grids cover every item (threads // lanes items a block). Returns
-    the step's plan."""
+    N=4 in all three, one at N=2; B7's and B8's grids cover every item
+    (threads // lanes items a block). Returns the step's plan."""
     m = sb.meta
     n_items = sb.ops.send.shape[0] * B * m.k_elem
+    P = {2: 1, 4: 8}[n]
     for adjoint in (False, True):
         plan = TB.shard_plan(sb.ops, m, B, adjoint=adjoint)
-        P = {2: 1, 4: 8}[n]
         assert plan["lanes_per_element"] == P
         assert plan["grid"] == -(-n_items // (plan["threads"] // P))
     step = TB.shard_plan(sb.ops, m, B, step=True)
-    assert step["lanes_per_element"] == 1
+    assert step["lanes_per_element"] == P
     return step, n_items
 
 
@@ -1438,9 +1463,10 @@ def _check_quad_plans(sb, n, B):
 def test_stage_and_step_kernels_on_quads_match_plain(device, name):
     """B7 (both stages of a step, the second with the sponge) and B9 on a
     partitioned quadrilateral set against their plain versions in float64;
-    the same bits on a rerun; B9 (one lane an element) bit-equal to two B7
-    launches (eight lanes at N=4) with the ring exchange between; the
-    plans' lanes, B7's grid over every item, B9's blocks looping or not."""
+    the same bits on a rerun; B9 bit-equal to two B7 launches with the ring
+    exchange between; the plans' lanes (eight an element at N=4), B7's
+    grid over every item, B9's lanes covering its items in one pass or
+    its blocks looping."""
     n, S, B, nc, dev = QUAD_SHARD_CASES[name]
     device(*dev)
     c = Case(n, S, B, n_ctrl=nc, seed=20 + n + S, quads=True)
@@ -1469,7 +1495,8 @@ def test_stage_and_step_kernels_on_quads_match_plain(device, name):
     assert _same(got, launch._launch(st, c.rb, dt, t, c.ctrl, True))
     assert _same(got, two)
     step, n_items = _check_quad_plans(sb, n, B)
-    assert (step["grid"] * step["threads"] >= n_items) == (
+    assert (step["grid"] * step["threads"]
+            >= n_items * step["lanes_per_element"]) == (
         "blocks_loop" not in name)
 
 

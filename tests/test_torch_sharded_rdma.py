@@ -3,12 +3,16 @@
 
  - against the JAX package's ``make_sharded_blocked_step_rdma`` (the kernel
    that moves the inter-stage halo by remote DMA), run in interpret mode with
-   race detection under ``shard_map``, over 3 steps on ``box_triangles(8, 8)``
-   at one scenario: flat at N = 1 on 8 shards (the JAX package's own case),
-   and coastal at N = 2 on 4 shards (bathymetry, well-balancing, drag,
-   Coriolis, sponge, tidal depth on the open east side from t0 = 0.02,
-   controls). States and send buffers at the unpacked (K_loc, Np) boundary:
-   1e-12;
+   race detection under ``shard_map``, over 3 steps at one scenario: on
+   ``box_triangles(8, 8)`` flat at N = 1 on 8 shards (the JAX package's own
+   case), and coastal at N = 2 on 4 shards (bathymetry, well-balancing,
+   drag, Coriolis, sponge, tidal depth on the open east side from t0 =
+   0.02, controls); on quadrilaterals, ``partition_mesh(box_quads(2, 2),
+   4)`` coastal at N = 4 (the order at which the port's step runs its
+   eight-lane instance on the card: one element a shard, two of its faces
+   cut, three ring offsets; bathymetry, drag, Coriolis, sponge, tidal
+   depth on the open east side from t0 = 1, controls). States and send
+   buffers at the unpacked (K_loc, Np) boundary: 1e-12;
  - against the port's fused sharded step (two stages, the exchange between)
    at B = 2: the same bits, as both are the plain stage composition;
  - one shard (no ring offsets): the inter-stage receive buffer is zeros;
@@ -25,17 +29,22 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 from jax.sharding import Mesh, PartitionSpec as P
 
+from blitzdg_tpu.context import BC_OUT
+from blitzdg_tpu.mesh import box_quads as j_box_quads
 from blitzdg_tpu.mesh import box_triangles as j_box
 from blitzdg_tpu.ops.sw2d import SWPhysics as JPhys
 from blitzdg_tpu.parallel import partition_mesh as j_partition_mesh
 from blitzdg_tpu.parallel.blocked_shard import (
     build_sharded_blocked as j_build_sharded, initial_send_buffer as j_isb,
     make_sharded_blocked_step_rdma as j_rdma, pack_local)
+from blitzdg_tpu.specgrid.quad import build_quad_context as j_build_quad
 from blitzdg_tpu.specgrid.triangle import build_triangle_context as j_build
+from blitzdg_tpu.utils import build_sponge_coefficient as j_sponge
 
 from torch_parity import jax_arrays
 
 from blitzdg_tpu_torch import convert
+from blitzdg_tpu_torch.mesh import box_quads
 from blitzdg_tpu_torch.mpc.coastal_box import retag_east_open
 from blitzdg_tpu_torch.ops import sw2d_blocked as TB
 from blitzdg_tpu_torch.parallel import RingExchange
@@ -45,12 +54,45 @@ N_STEPS, DT = 3, 5e-4
 F64 = torch.float64
 
 # (kind, N, shards)
-CASES = [("flat", 1, 8), ("coastal", 2, 4)]
+CASES = [("flat", 1, 8), ("coastal", 2, 4), ("quads_coastal", 4, 4)]
+
+
+def _quad_case(n_order: int, S: int):
+    """The quadrilateral case (as ``_case``): ``box_quads(2, 2)``, its east
+    side open (the port's ``retag_east_open``, which walks four faces,
+    copied into the JAX mesh), partitioned into S shards; the coastal
+    physics of ``tests/test_torch_quad.py``'s sharded quad cases."""
+    tm = box_quads(2, 2)
+    retag_east_open(tm)
+    jm = j_box_quads(2, 2)
+    jm.set_bc_type(tm.bc_type.copy())
+    jm, _, _ = j_partition_mesh(jm, S)
+    jc = j_build_quad(n_order, jm, filter_cutoff=0.9 * n_order,
+                      filter_order=4)
+    x, y = np.asarray(jc.x), np.asarray(jc.y)
+    H = 10.0 + 2.0 * x + np.sin(2.0 * y)
+    ob = np.asarray(jc.bc_table)[:, :, None].repeat(jc.n_fp, 2).reshape(
+        jc.k_elem, -1) == BC_OUT
+    phys_np = dict(g=9.81, cd=2.5e-3, f_cor=1e-4, H=H,
+                   Hx=2.0 * np.ones_like(H), Hy=2.0 * np.cos(2.0 * y),
+                   sponge=np.asarray(j_sponge(jc, ob, width=0.3,
+                                              strength=0.5)))
+    bump = np.exp(-8.0 * (x ** 2 + y ** 2))
+    kw = dict(forcing_bu=np.stack([bump, 0 * bump]),
+              forcing_bv=np.stack([0 * bump, bump]),
+              tidal=(12.0, 0.5, 2.0, 10.0))
+    eta = np.exp(-8.0 * ((x - 0.2) ** 2 + (y + 0.3) ** 2))
+    cs = 0.3 * np.random.default_rng(13).standard_normal((N_STEPS, 2))
+    return jc, phys_np, kw, 1.0, cs, ((H + 0.3 * eta)[None],
+                                      (0.1 * eta + 0.02 * x)[None],
+                                      (0.05 * eta - 0.01 * y)[None])
 
 
 def _case(kind: str, n_order: int, S: int):
     """JAX context, physics arrays, set-up keywords, stage-time origin,
     controls and the one-scenario initial state of one case."""
+    if kind == "quads_coastal":
+        return _quad_case(n_order, S)
     m = j_box(8, 8, xlim=(0.0, 1.0), ylim=(0.0, 1.0)) if kind == "coastal" \
         else j_box(8, 8)
     if kind == "coastal":
@@ -150,11 +192,15 @@ def _port_run(sb, make_step, t0, cs, state):
 @pytest.mark.parametrize("kind", [c[0] for c in CASES])
 def test_rdma_step_matches_jax(runs, kind):
     sb, t0, cs, state, (j_states, j_sbuf) = runs[kind]
-    if kind == "coastal":
+    if kind != "flat":
         m = sb.meta
         assert (m.wb and m.has_bathy and m.has_sponge and m.cd and m.f_cor
                 and m.tidal is not None and m.n_ctrl == 2
                 and bool(sb.ops.obc.any()))
+        if kind == "quads_coastal":
+            assert m.n_faces == 4 and m.n_p == 25 and m.k_elem == 1
+            assert len(sb.plan.offs) == 3
+            assert int((sb.ops.vmapP >= m.n_v).sum()) > 0  # cut faces
     else:
         assert len(sb.plan.offs) >= 4 and bool(
             (sb.plan.pflip.astype(bool)

@@ -22,8 +22,9 @@ the blocked box (``mpc/blocked_box.py``: K=2048, flat bottom, walls):
    (``quads_sharded_coastal_K144_N4_S4_B8``: the same mesh partitioned into
    4 shards of 36 elements, the same physics, one control vector):
    ``sw2d_stage_blocked`` (B7), stage 1 (dt/2, no sponge) and stage 2 (dt,
-   the sponge, the stage-1 output and its exchanged send buffer)
-   (``--quads``: these four alone).
+   the sponge, the stage-1 output and its exchanged send buffer), and
+   ``sw2d_step_rdma_blocked`` (B9, stacked: both stages and the exchange
+   in one launch) from the same inputs (``--quads``: these five alone).
 
 Inputs are made from fixed seeds, as ``chip_smoke.py`` makes its timed
 cases. Two times a shape: ``ms``, CUDA events around one call of the
@@ -156,7 +157,7 @@ def quad_shard_case(dev, g):
 
 def quads(say, dev, g) -> None:
     """B4 and B5 on the quad coastal case (``quad_case``), B7's two
-    stages on its sharded case (``quad_shard_case``)."""
+    stages and B9 on its sharded case (``quad_shard_case``)."""
     from blitzdg_tpu_torch.ops import sw2d_blocked as TB
 
     ops, meta, dt, (h, hu, hv), ctrls = quad_case(dev, g)
@@ -184,6 +185,11 @@ def quads(say, dev, g) -> None:
         lambda: TB.sw2d_stage_blocked(ops, meta, st, cur, rb2, dt,
                                       t + 0.5 * dt, ctrl, True, True),
         plan=plan, kernel_name="sw2d_stage_kernel")
+    launch = TB.RdmaLaunch(ops, meta, ex)
+    say("sw2d_step_rdma_blocked", f"{shape}_step",
+        lambda: launch(st, rb, dt, t, ctrl),
+        plan=TB.shard_plan(ops, meta, B, step=True),
+        kernel_name="sw2d_step_rdma_kernel")
 
 
 def main() -> int:

@@ -4,7 +4,7 @@ mode at ``chip_smoke.py``'s ``rdma_K2048_N3_S4`` shape, for an A/B of two
 trees of this repository in one call, and, in a tree that has it, its peer
 mode with the S ranks of a ring in one process.
 
-    python3 tools/peer_times.py [label] [--sass] [--in-process]
+    python3 tools/peer_times.py [label] [--sass] [--in-process] [--quads]
 
 run from the root of a tree (its own package is imported). Prints one JSON
 line per measurement, then one with the card's name and power limit.
@@ -35,7 +35,13 @@ line per measurement, then one with the card's name and power limit.
    the same time: processes without MPS time-slice the card. Then rank
    0's step alone and its exchange kernel alone (its flags set past any
    epoch, the others idle), each timed as above: a step of a tree costs
-   its step plus its exchanges a step.
+   its step plus its exchanges a step;
+ - ``--quads`` (in the place of the stacked step): rank 0's peer step
+   alone on ``chip_smoke.py --only quads``'s sharded quad set (K=144 in
+   S=4 shards, N=4, B=8, coastal; ``tools/forward_times.py``'s
+   ``quad_shard_case``), its four rings in this process, its flags set
+   past any epoch, timed as above (the stacked step on that set:
+   ``tools/forward_times.py --quads``).
 """
 from __future__ import annotations
 
@@ -181,8 +187,9 @@ def in_process(label: str, dev) -> None:
     want, stacked_us = timed_loop(stacked_loop)
     want = (*want[0], want[1])
     n_ex = PR.peer_ring_exchange.launches
-    ends, peer_us, ring0, launch0, free = C.run_peer_in_process(
+    ends, peer_us, rings, launches, free = C.run_peer_in_process(
         sb, state, cs, dt, 1.0, dev, STEPS)
+    ring0, launch0 = rings[0], launches[0]
     # (an untimed run and a timed one, S ranks each)
     ex_per_step = (PR.peer_ring_exchange.launches - n_ex) / (2 * S * STEPS)
     try:
@@ -220,6 +227,43 @@ def in_process(label: str, dev) -> None:
         free()
 
 
+def quads(label: str, dev, flush) -> None:
+    """A rank's peer step alone on the quad path's sharded set
+    (``forward_times.quad_shard_case``: K=144 in 4 shards of 36, N=4,
+    B=8, coastal, tidal): the four ranks' ``PeerRing``s over four regions
+    of this process (``chip_smoke.py``'s ``peer_ranks_in_process``), rank
+    0's flags set past any epoch (the others idle), its step-boundary
+    slots the ring exchange of the set's send buffer; timed as the
+    stacked step."""
+    import chip_smoke as C
+    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+    from forward_times import quad_shard_case
+
+    rng = np.random.default_rng(0)
+    g = lambda *shape: torch.as_tensor(rng.standard_normal(shape),
+                                       dtype=torch.float32, device=dev)
+    sb, dt, t, st, rb, ctrl, _ = quad_shard_case(dev, g)
+    B = st[0].shape[1]
+    rings, launches, _, free = C.peer_ranks_in_process(sb, B, dev)
+    try:
+        ring0, launch0 = rings[0], launches[0]
+        ring0.flags[1:] = 1 << 60
+        ring0.rbb.copy_(rb[:1])
+        st0 = tuple(f[:1] for f in st)
+        alone = lambda: launch0(st0, ring0.rbb, dt, t, ctrl)
+        ms = time_ms(alone, flush)
+        print(json.dumps({
+            "tree": label, "kernel": "sw2d_step_rdma_blocked (peer)",
+            "shape": f"quads_K{sb.n_shards * sb.meta.k_elem}_N4_S"
+                     f"{sb.n_shards}_B{B}_rank0_alone", "ms": ms,
+            "device_ms": device_ms(alone, "sw2d_step_rdma_peer_kernel"),
+            "grid_blocks": TB.last_grid(),
+            "peer_plan": TB.shard_plan(launch0.ops, sb.meta, B, step=True,
+                                       peer=True)}), flush=True)
+    finally:
+        free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("peer_times: no CUDA device", file=sys.stderr)
@@ -231,7 +275,10 @@ def main() -> int:
     if "--sass" in args:
         sass_report(label)
     scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
-    stacked(label, dev, scratch.zero_)
+    if "--quads" in args:
+        quads(label, dev, scratch.zero_)
+    else:
+        stacked(label, dev, scratch.zero_)
     if "--in-process" in args:
         in_process(label, dev)
     card = subprocess.run(
