@@ -20,7 +20,14 @@ for the port with nothing cut:
    iterations at learning rate 0.5, one scenario. Two sizes: the example's
    own (``EXAMPLE``: ``box_triangles(8, 8)``, N=1, filter 0.9 / order 1, 8
    shards, dt = 1e-3) and full width (``FULL``: the K=2048, N=3 box above
-   with 4 shards and the CFL dt).
+   with 4 shards and the CFL dt). Every shard stacked in one process, or,
+   as the JAX example runs on its chips, one shard a rank (``rank=``): the
+   same program on every rank, which builds its own shard, computes the
+   target with the ranks' fused step, and runs Adam over its part of the
+   cost, the parts summed over the ranks (the example's ``psum``) and the
+   controls' cotangent with them, so that every rank holds the same
+   controls. The ranks exchange through a process group (gloo, CPU
+   tensors) or, on the card, a ``parallel.StageRing``.
 
 Nothing here is random. Everything float32 unless ``dtype`` says otherwise.
 """
@@ -38,7 +45,8 @@ from ..parallel.blocked_shard import (ShardedBlocked, build_sharded_blocked,
                                       initial_send_buffer,
                                       make_sharded_blocked_step_diff,
                                       make_sharded_blocked_step_fused,
-                                      split_shards)
+                                      split_shards, sum_over_ranks_grad,
+                                      total_over_ranks)
 from ..parallel.partition import partition_mesh
 from ..specgrid.triangle import build_triangle_context
 from .coastal_box import cfl_dt
@@ -183,9 +191,12 @@ class ShardedMPC(NamedTuple):
     dt: float
     n_steps: int
     step: Callable  # the differentiable sharded step
-    state0: tuple  # (S, 1, K_loc*Np) rest start per field
-    target: torch.Tensor  # (S, 1, K_loc*Np) terminal hu under the hidden controls
+    state0: tuple  # (S_here, 1, K_loc*Np) rest start per field
+    target: torch.Tensor  # (S_here, 1, K_loc*Np) terminal hu under the hidden controls
     hidden: torch.Tensor  # (n_steps, 2)
+    # the stage ring that sharded_mpc_problem made over its group (one shard
+    # a rank on the card): every rank closes it when done
+    ring: object = None
 
 
 def _run(sb: ShardedBlocked, step, state0, cs, dt: float):
@@ -196,39 +207,67 @@ def _run(sb: ShardedBlocked, step, state0, cs, dt: float):
 
 
 def sharded_mpc_problem(size: dict = EXAMPLE, n_steps: int = MPC_STEPS,
-                        dtype: torch.dtype = torch.float32, device="cuda"
+                        dtype: torch.dtype = torch.float32, device="cuda",
+                        rank: int | None = None, group=None, ring=None
                         ) -> ShardedMPC:
-    """The sharded MPC at ``EXAMPLE`` or ``FULL`` size."""
+    """The sharded MPC at ``EXAMPLE`` or ``FULL`` size: every shard stacked
+    here (``rank`` None), or shard ``rank`` alone, one shard a rank of the
+    ``size["n_shards"]`` ranks, exchanging through ``ring`` (this rank's
+    ``parallel.StageRing``, on the card) or ``group`` (the process group:
+    on CPU tensors its point-to-point transport; on the card a
+    ``StageRing`` over it is made here, a collective, and returned as
+    ``ring``, which every rank closes when done). Every rank must make the
+    same calls on its problem in the same order."""
     ctx, dt_cfl = _context(size["cells"], size["n_order"], size["n_shards"],
                            size["filter_order"], dtype, device)
     dt = dt_cfl if size["dt"] is None else size["dt"]
     S = size["n_shards"]
     bu, bv = injectors(ctx)
+    shards = None if rank is None else (rank,)
+    if rank is None and (group is not None or ring is not None):
+        raise ValueError("a process group or ring needs the rank's shard "
+                         "(rank=)")
     sb = build_sharded_blocked(ctx, SWPhysics(g=9.81), S, dtype=dtype,
-                               forcing_bu=bu, forcing_bv=bv, device=device)
-    h0 = torch.full((S, 1, sb.meta.n_v), H_REST, dtype=dtype, device=device)
+                               forcing_bu=bu, forcing_bv=bv, device=device,
+                               shards=shards)
+    made = None
+    if rank is not None and ring is None and sb.ops.fbuf.is_cuda:
+        from ..parallel.peer import StageRing
+
+        ring = made = StageRing(sb.plan, sb.meta.n_fp, 1, group, device=device)
+    h0 = torch.full((len(sb.shards), 1, sb.meta.n_v), H_REST, dtype=dtype,
+                    device=device)
     state0 = (h0, torch.zeros_like(h0), torch.zeros_like(h0))
     hidden = torch.tensor([HIDDEN_CONTROL] * n_steps, dtype=dtype,
                           device=device)
-    fused = make_sharded_blocked_step_fused(sb, dt)
+    fused = make_sharded_blocked_step_fused(sb, dt, group=group, ring=ring)
     with torch.no_grad():
         target = _run(sb, fused, state0, hidden, dt)[1].contiguous()
-    step = make_sharded_blocked_step_diff(sb, dt)
-    return ShardedMPC(ctx, sb, dt, n_steps, step, state0, target, hidden)
+    step = make_sharded_blocked_step_diff(sb, dt, group=group, ring=ring)
+    return ShardedMPC(ctx, sb, dt, n_steps, step, state0, target, hidden,
+                      made)
 
 
 def sharded_mpc_cost(mp: ShardedMPC, cs: torch.Tensor) -> torch.Tensor:
     """sum (hu_end - target)^2 + R_CONTROL sum cs^2 over the controls
-    ``cs`` (n_steps, 2), differentiable in ``cs``."""
-    hu_end = _run(mp.sb, mp.step, mp.state0, cs, mp.dt)[1]
-    return ((hu_end - mp.target) ** 2).sum() + R_CONTROL * (cs ** 2).sum()
+    ``cs`` (n_steps, 2), differentiable in ``cs``. One shard a rank, each
+    rank's part of the first term is summed over the ranks (rank order: the
+    same bits on every rank), the control term is counted once, and the
+    controls' cotangent through the rollout is summed over the ranks, once
+    for the whole sequence."""
+    ex = mp.step.exchange
+    hu_end = _run(mp.sb, mp.step, mp.state0, sum_over_ranks_grad(cs, ex),
+                  mp.dt)[1]
+    misfit = total_over_ranks(((hu_end - mp.target) ** 2).sum(), ex)
+    return misfit + R_CONTROL * (cs ** 2).sum()
 
 
 def solve_sharded_mpc(mp: ShardedMPC, iters: int = MPC_ITERS,
                       learning_rate: float = MPC_LEARNING_RATE,
                       init_controls: torch.Tensor | None = None
                       ) -> MPCSolution:
-    """Adam from zero controls (the JAX example's loop)."""
+    """Adam from zero controls (the JAX example's loop); one shard a rank,
+    every rank runs it and holds the same controls."""
     if init_controls is None:
         init_controls = torch.zeros_like(mp.hidden)
     cs, cost, hist = adam_minimize(lambda c: sharded_mpc_cost(mp, c),

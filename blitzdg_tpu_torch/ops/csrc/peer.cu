@@ -1,17 +1,29 @@
-// Device memory that other processes map, and the step-boundary exchange
-// of the one-launch sharded step over it, sm_90a.
+// Device memory that other processes map, and the exchanges and sums
+// between ranks over it, sm_90a.
 //
 //   peer_alloc / peer_free      one zeroed cudaMalloc region of this rank
 //   peer_export / peer_open /   its CUDA IPC handle, and a peer's region
 //   peer_close                  mapped into this process (on one card, or a
 //                               peer card's memory over NVLink)
 //   peer_ring_exchange_kernel   the step-boundary exchange of a ring's
-//                               initial send buffer
+//                               initial send buffer (the one-launch step)
+//   peer_stage_exchange_kernel  the stage ring's exchange of a stage's send
+//                               buffer, and its reverse (the backward)
+//   peer_rank_sum_kernel        the stage ring's sum of a small vector over
+//                               the ranks, the same bits on every rank
 //
 // Regions come from cudaMalloc, not from the torch caching allocator: that
 // allocator sub-allocates (a handle names its whole segment), and its
 // expandable segments are cuMemCreate memory, which cudaIpcGetMemHandle
 // refuses.
+//
+// All three move a send buffer's chunks the same way (send_chunk): one
+// block a ring offset i waits until the receiving rank's slots of chunk i
+// are free (a GO flag in this rank's memory, released by the receiver),
+// stores chunk i of every scenario into them, fences at system scope and
+// releases the chunk's ARRIVED flag in the receiver's memory. The slot set
+// (where the slots lie in a region, which flags guard them, which way the
+// ring sends) is the kernel's.
 //
 // peer_ring_exchange_kernel replaces the XLA ppermute of the carried send
 // buffer that precedes the TPU one-launch step in
@@ -20,17 +32,32 @@
 // every later step's exchange is the step launch's own (its stage 2 stores
 // each send slot into the receiving rank's step-boundary slots and
 // releases INB there; sw2d_blocked.cu, rdma_step), so a step is one
-// launch. One block a ring offset i: it waits until the receiving rank's
-// step-boundary slots of chunk i are free (GOB; the ring starts with them
-// free), stores chunk i of every scenario into them, fences at system
-// scope and releases INB there, which the receiving rank's first step
-// launch waits for. The epoch is read from this rank's region, where the
-// step launch keeps it. Bound on the card: bytes (B x chunk x 3 floats an
-// offset read here and written into the peer, some KB at the sharded
+// launch. Its slot set: the step-boundary slots, GOB and INB; the epoch is
+// read from this rank's region, where the step launch keeps it; the
+// receiving rank's first step launch waits for INB.
+//
+// peer_stage_exchange_kernel replaces the XLA ppermute between the RK
+// stages of the differentiable sharded step (blitzdg_tpu/parallel/
+// blocked_shard.py, make_sharded_blocked_step_diff, its exchange) and, with
+// `rev`, its transpose in the backward sweep; no TPU kernel. Block i sends
+// chunk i (send_chunk: forward to rank + d over FGO / FIN, reverse to rank
+// - d over RGO / RIN), then waits for its own ARRIVED flag of chunk i,
+// copies the chunk from its slots into `out` (memory torch owns, so that
+// autograd may keep it) and releases the sender's GO flag. Bound on the
+// card: bytes (B x L x 3 floats read and written, some KB at the sharded
 // path's shapes); what it waits for is the launch and the flags.
 //
+// peer_rank_sum_kernel replaces the XLA psum of the sharded MPC's cost
+// (examples/mpc_sharded.py) and the sum over chips of the shared control's
+// cotangent that JAX's transpose of the replicated controls makes; no TPU
+// kernel. One block: this rank's n floats into slot `rank` of every rank's
+// sum slots (each guarded by SGO, arrival released in SIN), then, once
+// every rank's part has arrived in this rank's slots, the sum in rank order
+// 0, 1, ..., S-1 in float: every rank adds the same values in the same
+// order, so every rank holds the same bits. Bound: bytes.
+//
 // Plain C interface (extern "C" at the end), loaded with ctypes. The
-// exchange launches on the stream passed in; nothing here synchronises
+// kernels launch on the stream passed in; nothing here synchronises
 // except set-up (alloc, open, close, free).
 
 #include <cuda_runtime.h>
@@ -38,37 +65,111 @@
 
 #include "peer_flags.cuh"
 
-__global__ void peer_ring_exchange_kernel(const long long* tab,
-                                          const float* sbuf, int B, int L) {
-  const int i = blockIdx.x, cw = 3 * (int)tab[PT_CHUNK];
-  flag_t e = 0;
-  if (threadIdx.x == 0) {
-    e = *peer_epoch(tab) + 1;
-    flag_wait(peer_flag(tab, tab[PT_OWN], i, PEER_GOB), e, tab[PT_TIMEOUT]);
-  }
-  __syncthreads();
-  float* dst = reinterpret_cast<float*>(peer_to(tab, i) + tab[PT_RBB]);
+// Chunk i (cw floats a scenario) of every scenario of src (B, L, 3) into
+// the same places of dst; the block's threads share the work.
+__device__ __forceinline__ void chunk_copy(float* dst, const float* src, int i,
+                                           int cw, int B, int L) {
   for (int k = threadIdx.x; k < B * cw; k += blockDim.x) {
     const int b = k / cw;
     const size_t o = (size_t)b * L * 3 + (size_t)i * cw + (k - b * cw);
-    dst[o] = sbuf[o];
+    dst[o] = __ldcg(src + o);
+  }
+}
+
+// Chunk i of src into the receiving rank's slots `dst` once its GO flag
+// `go` (this rank's memory) reads epoch e; then, every store fenced at
+// system scope, the receiver's ARRIVED flag `arrived` set to e. Thread 0
+// waits and releases; the whole block stores.
+__device__ __forceinline__ void send_chunk(flag_t* go, flag_t* arrived,
+                                           flag_t e, long long timeout_ns,
+                                           float* dst, const float* src,
+                                           int i, int cw, int B, int L) {
+  if (threadIdx.x == 0) flag_wait(go, e, timeout_ns);
+  __syncthreads();
+  chunk_copy(dst, src, i, cw, B, L);
+  __threadfence_system();
+  __syncthreads();
+  if (threadIdx.x == 0) flag_release(arrived, e);
+}
+
+__global__ void peer_ring_exchange_kernel(const long long* tab,
+                                          const float* sbuf, int B, int L) {
+  const int i = blockIdx.x;
+  const flag_t e = *peer_epoch(tab) + 1;
+  send_chunk(peer_flag(tab, tab[PT_OWN], i, PEER_GOB),
+             peer_flag(tab, peer_to(tab, i), i, PEER_INB), e,
+             tab[PT_TIMEOUT],
+             reinterpret_cast<float*>(peer_to(tab, i) + tab[PT_RBB]), sbuf,
+             i, 3 * (int)tab[PT_CHUNK], B, L);
+}
+
+__global__ void peer_stage_exchange_kernel(const long long* tab, int rev,
+                                           const float* src, float* out,
+                                           int B, int L, flag_t e) {
+  const int i = blockIdx.x, cw = 3 * (int)tab[SR_CHUNK];
+  const long long own = tab[SR_OWN], timeout = tab[SR_TIMEOUT];
+  const long long to = rev ? sr_from(tab, i) : sr_to(tab, i);
+  const long long from = rev ? sr_to(tab, i) : sr_from(tab, i);
+  const long long slots = rev ? tab[SR_REV] : 0;
+  const int go = rev ? SR_RGO : SR_FGO, in = rev ? SR_RIN : SR_FIN;
+  send_chunk(sr_flag(tab, own, i, go), sr_flag(tab, to, i, in), e, timeout,
+             reinterpret_cast<float*>(to + slots), src, i, cw, B, L);
+  if (threadIdx.x == 0) flag_wait(sr_flag(tab, own, i, in), e, timeout);
+  __syncthreads();
+  chunk_copy(out, reinterpret_cast<const float*>(own + slots), i, cw, B, L);
+  __threadfence_system();
+  __syncthreads();
+  if (threadIdx.x == 0) flag_release(sr_flag(tab, from, i, go), e + 1);
+}
+
+__global__ void peer_rank_sum_kernel(const long long* tab, const float* x,
+                                     float* out, int n, flag_t e) {
+  const int S = (int)tab[SR_S], r = (int)tab[SR_RANK];
+  const int len = (int)tab[SR_SUMLEN];
+  const long long own = tab[SR_OWN], timeout = tab[SR_TIMEOUT];
+  // this rank's part into slot r of every rank, once each slot is free
+  for (int p = threadIdx.x; p < S; p += blockDim.x)
+    flag_wait(sr_sum_flag(tab, own, p, SR_SGO), e, timeout);
+  __syncthreads();
+  for (int k = threadIdx.x; k < S * n; k += blockDim.x) {
+    const int p = k / n, j = k - p * n;
+    reinterpret_cast<float*>(sr_rank(tab, p) + tab[SR_SUM])[r * len + j] =
+        x[j];
   }
   __threadfence_system();
   __syncthreads();
-  if (threadIdx.x == 0)
-    flag_release(peer_flag(tab, peer_to(tab, i), i, PEER_INB), e);
+  for (int p = threadIdx.x; p < S; p += blockDim.x) {
+    flag_release(sr_sum_flag(tab, sr_rank(tab, p), r, SR_SIN), e);
+    flag_wait(sr_sum_flag(tab, own, p, SR_SIN), e, timeout);
+  }
+  __syncthreads();
+  // every part here: their sum in rank order
+  const float* slot = reinterpret_cast<const float*>(own + tab[SR_SUM]);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    float acc = __ldcg(slot + j);
+    for (int p = 1; p < S; ++p) acc = acc + __ldcg(slot + p * len + j);
+    out[j] = acc;
+  }
+  __threadfence_system();
+  __syncthreads();
+  for (int p = threadIdx.x; p < S; p += blockDim.x)
+    flag_release(sr_sum_flag(tab, sr_rank(tab, p), r, SR_SGO), e + 1);
 }
 
 extern "C" {
 
 int peer_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
 
-// Loads the exchange kernel into the current context now, as
+// Loads the kernels of this file into the current context now, as
 // sw2d_step_rdma_peer_load does the step's (CUDA's lazy loading would at
-// its first launch, waiting for the context's running kernels).
+// a kernel's first launch, waiting for the context's running kernels).
 int peer_load() {
   cudaFuncAttributes attr;
-  return (int)cudaFuncGetAttributes(&attr, peer_ring_exchange_kernel);
+  cudaError_t e = cudaFuncGetAttributes(&attr, peer_ring_exchange_kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, peer_stage_exchange_kernel);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, peer_rank_sum_kernel);
+  return (int)e;
 }
 
 const char* peer_error_string(int e) {
@@ -117,6 +218,36 @@ int peer_ring_exchange(const long long* tab, const float* sbuf, int n_off,
   const cudaError_t e =
       cudaLaunchKernelEx(&cfg, peer_ring_exchange_kernel, tab, sbuf, B, L);
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The stage ring's exchange of src (B, L, 3) into out (B, L, 3) over its
+// table (n_off ring offsets), forward or (rev) reverse, epoch e of that use.
+// (threads: a block's, a multiple of 32.)
+int peer_stage_exchange(const long long* tab, int rev, const float* src,
+                        float* out, int n_off, int B, int L,
+                        unsigned long long e, int threads, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_off);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = (cudaStream_t)stream;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, peer_stage_exchange_kernel, tab, rev, src, out, B, L, (flag_t)e);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The stage ring's sum over its ranks of x (n floats, at most the table's
+// SR_SUMLEN) into out, epoch e of the sums.
+int peer_rank_sum(const long long* tab, const float* x, float* out, int n,
+                  unsigned long long e, int threads, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = (cudaStream_t)stream;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, peer_rank_sum_kernel, tab, x, out, n, (flag_t)e);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

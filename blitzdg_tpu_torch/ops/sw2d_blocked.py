@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -60,7 +61,7 @@ from .sw2d import SWPhysics
 from .sw2d_fused import (FusedStepMeta, FusedStepOps, _SwDesc, _check_tensor,
                          _desc, _eval_rhs_plain, _eval_rhs_vjp_plain,
                          _launch_check, _launch_stream, _np64,
-                         _operator_arrays, _ops_from_arrays)
+                         _operator_arrays, _ops_from_arrays, count_launches)
 
 # Kernel launches on the device per call of a wrapper: one each (the
 # stages, where there are several, separated by grid barriers inside it).
@@ -770,7 +771,7 @@ def sw2d_stage_blocked(ops: ShardOps, meta: BlockedMeta, base, cur, rb,
                                         ctrl, use_filter, apply_sponge)
     out = _run_stage(ops, meta, base, cur, rb, c_dt, t, ctrl, use_filter,
                      apply_sponge)
-    sw2d_stage_blocked.launches += 1
+    count_launches(sw2d_stage_blocked)
     return out
 
 
@@ -834,15 +835,18 @@ def sw2d_stage_bwd_blocked_v2(ops: ShardOps, meta: BlockedMeta, cur, rb,
                                                use_filter, apply_sponge)
     out = _run_stage_bwd(ops, meta, cur, rb, lam_out, lam_sb, c_dt, t, ctrl,
                          use_filter, apply_sponge)
-    sw2d_stage_bwd_blocked_v2.launches += 1
+    count_launches(sw2d_stage_bwd_blocked_v2)
     return out
 
 
-# The stage adjoint's scratch by plan (device, S, B, K, n_ctrl, items a
-# block): the blocks' sums of their items' control shares and the counters
-# of the blocks done with each shard and scenario (0 between launches),
-# made once, which every launch on the stream reuses; a CUDA graph that
-# captures a launch reads them (this dictionary keeps them).
+# The stage adjoint's scratch by stream and plan (device, stream, S, B, K,
+# n_ctrl, items a block): the blocks' sums of their items' control shares
+# and the counters of the blocks done with each shard and scenario (0
+# between launches), made once, which every launch on the stream reuses
+# (launches on two streams run at once, as the ranks of a ring in one
+# process do, and each needs its own; on the host build of the kernels,
+# in the tests, each thread); a CUDA graph that captures a launch reads
+# them (this dictionary keeps them).
 _stage_bwd_scratch: dict = {}
 
 
@@ -860,7 +864,9 @@ def _run_stage_bwd(ops: ShardOps, meta: BlockedMeta, cur, rb, lam_out,
     if ctrl is not None:
         ctl = rb.new_empty((S, B, meta.n_ctrl))
         ipb = plan[0] // plan[3]
-        key = (rb.device, S, B, meta.k_elem, meta.n_ctrl, ipb)
+        stream = (torch.cuda.current_stream(rb.device).cuda_stream
+                  if rb.is_cuda else threading.get_ident())
+        key = (rb.device, stream, S, B, meta.k_elem, meta.n_ctrl, ipb)
         if key not in _stage_bwd_scratch:
             segments = -(-meta.k_elem // ipb) + 1
             _stage_bwd_scratch[key] = (

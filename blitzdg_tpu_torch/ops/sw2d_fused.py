@@ -43,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import threading
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -838,6 +839,17 @@ def _check_kernel_inputs(ops: FusedStepOps, meta: FusedStepMeta,
 def _launch_check(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+_count_lock = threading.Lock()
+
+
+def count_launches(wrapper, n: int = 1) -> None:
+    """Adds ``n`` to a wrapper's launch counter (``wrapper.launches``) under
+    a lock: the ranks of a ring in one process launch from threads of their
+    own (and autograd's device thread), and a count must not lose one."""
+    with _count_lock:
+        wrapper.launches += n
 
 
 def _launch_stream(t: torch.Tensor):

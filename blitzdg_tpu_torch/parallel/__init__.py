@@ -6,14 +6,17 @@ from .blocked_shard import (ShardedBlocked, build_sharded_blocked,
                             initial_send_buffer, join_shards,
                             make_sharded_blocked_step_diff,
                             make_sharded_blocked_step_fused,
-                            make_sharded_blocked_step_rdma, split_shards)
+                            make_sharded_blocked_step_rdma, split_shards,
+                            sum_over_ranks_grad, total_over_ranks)
 from .distributed import distributed_init, make_global_mesh
 from .halo import (HaloPlan, RingExchange, build_gauss_halo_plan,
                    build_halo_plan, halo_comm_model, halo_face_rows,
                    halo_poisson2d_op, halo_sw2d_curved_rhs, halo_sw2d_rhs,
                    halo_sw2d_timestep, halo_tables, halo_traces,
-                   ring_exchange)
-from .peer import PeerRing, peer_ring_exchange
+                   ring_exchange, sum_over_ranks)
+from .peer import (PeerRing, StageRing, peer_rank_sum, peer_ring_exchange,
+                   peer_stage_exchange, peer_stage_exchange_reverse,
+                   rank_order_sum)
 from .partition import (compute_partition, graph_partition, pad_context,
                         pad_elements, partition_block_sizes, partition_cut,
                         partition_mesh, rcb_block_sizes, rcb_partition,
@@ -35,9 +38,11 @@ __all__ = [
     "HaloPlan", "build_halo_plan", "build_gauss_halo_plan", "halo_tables",
     "halo_comm_model", "halo_face_rows", "halo_traces", "halo_sw2d_rhs",
     "halo_poisson2d_op", "halo_sw2d_timestep", "halo_sw2d_curved_rhs",
-    "RingExchange", "ring_exchange",
+    "RingExchange", "ring_exchange", "sum_over_ranks",
     "ShardedBlocked", "build_sharded_blocked", "initial_send_buffer",
     "make_sharded_blocked_step_fused", "make_sharded_blocked_step_diff",
     "make_sharded_blocked_step_rdma", "PeerRing", "peer_ring_exchange",
-    "split_shards", "join_shards",
+    "StageRing", "peer_stage_exchange", "peer_stage_exchange_reverse",
+    "peer_rank_sum", "rank_order_sum", "sum_over_ranks_grad",
+    "total_over_ranks", "split_shards", "join_shards",
 ]

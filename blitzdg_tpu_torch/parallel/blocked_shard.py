@@ -29,9 +29,20 @@ coastal crosses shards at run time.
 
 Controls follow the JAX package: one vector (n_ctrl,) per step, shared by
 every scenario and shard. The differentiable step sums its control
-cotangent over scenarios, shards and (process-group transport) ranks; the
+cotangent over scenarios and the shards held here; one shard a rank, the
+caller sums it over the ranks (``sum_over_ranks_grad``, once for a whole
+control sequence), as JAX's transpose of the replicated controls does. The
 JAX backward reshapes its per-scenario (B, n_ctrl) cotangent to (n_ctrl,),
 which holds for B = 1 only (ROADMAP C21).
+
+One shard a rank, the fused and the differentiable step exchange through
+the process group (``batch_isend_irecv`` on CPU tensors) or, on the card,
+through this rank's ``parallel.StageRing`` (``ring=``): an exchange kernel
+a stage that stores into the peers' memory, and in the backward its
+reverse; the sums over ranks of the control cotangent go through the
+ring's sum kernel. ``sum_over_ranks_grad`` and ``total_over_ranks`` are
+the two sums with their transposes, for a cost that each rank computes in
+part (``mpc.sharded_box``).
 
 ``make_sharded_blocked_step_rdma`` is the same step in one launch: one
 exchange of the carried send buffer, then one kernel that runs both stages
@@ -64,7 +75,7 @@ from ..ops.sw2d_blocked import (BlockedMeta, RdmaLaunch, ShardOps,
                                 _refuse_wetdry_rdma, _send_plain, shard_view,
                                 sw2d_stage_blocked, sw2d_stage_bwd_blocked_v2)
 from ..ops.sw2d_fused import _np64, _operator_arrays, _ops_from_arrays
-from .halo import HaloPlan, RingExchange, build_halo_plan
+from .halo import HaloPlan, RingExchange, build_halo_plan, sum_over_ranks
 
 _VOLUME = ("rx", "sx", "ry", "sy", "Hx", "Hy", "H", "SPNG")
 _TRACE = ("nx", "ny", "fscale", "wall", "obc", "HMt", "HPt")
@@ -174,24 +185,34 @@ def initial_send_buffer(sb: ShardedBlocked, state) -> torch.Tensor:
         for i in range(len(sb.shards))])
 
 
-def _exchange(sb: ShardedBlocked, group) -> RingExchange:
-    if group is None and len(sb.shards) != sb.n_shards:
+def _exchange(sb: ShardedBlocked, group, ring=None) -> RingExchange:
+    if group is None and ring is None and len(sb.shards) != sb.n_shards:
         raise ValueError("the stacked transport needs every shard; this set "
                          f"holds {len(sb.shards)} of {sb.n_shards}")
-    if group is not None and len(sb.shards) != 1:
+    if (group is not None or ring is not None) and len(sb.shards) != 1:
         raise ValueError("the process-group transport holds one shard a rank")
-    return RingExchange(sb.plan, sb.meta.n_fp, group, device=sb.ops.fbuf.device)
+    if ring is not None and (
+            (ring.plan.n_shards, ring.plan.offs, ring.chunk, ring.rank)
+            != (sb.n_shards, sb.plan.offs, sb.plan.max_send * sb.meta.n_fp,
+                sb.shards[0])):
+        raise ValueError(f"the ring (rank {ring.rank}) is not one of this "
+                         f"set's plan and shard {sb.shards}")
+    return RingExchange(sb.plan, sb.meta.n_fp, group, device=sb.ops.fbuf.device,
+                        ring=ring)
 
 
 def make_sharded_blocked_step_fused(sb: ShardedBlocked, dt: float,
-                                    use_filter: bool = True, group=None):
+                                    use_filter: bool = True, group=None,
+                                    ring=None):
     """The sharded SSP-RK2 step. Returns ``step(carry, t=0.0, ctrl=None) ->
     carry`` with carry = (state, send buffer): state a triple of (S_here, B,
     nV), send buffer (S_here, B, L, 3); seed it with
     ``initial_send_buffer``. ``ctrl``: (n_ctrl,) or None. ``group``: None for
-    the stacked transport, or the process group (one shard a rank)."""
+    the stacked transport, or the process group (one shard a rank, CPU
+    tensors); ``ring``: this rank's ``parallel.StageRing`` (one shard a
+    rank, on the card). ``step.exchange`` is the step's ``RingExchange``."""
     ops, meta = sb.ops, sb.meta
-    ex = _exchange(sb, group)
+    ex = _exchange(sb, group, ring)
 
     def step(carry, t: float = 0.0, ctrl=None):
         state, sbuf = carry
@@ -202,6 +223,7 @@ def make_sharded_blocked_step_fused(sb: ShardedBlocked, dt: float,
                                       apply_sponge=True)
         return tuple(s2), sb2
 
+    step.exchange = ex
     return step
 
 
@@ -259,39 +281,73 @@ def make_sharded_blocked_step_rdma(sb: ShardedBlocked, dt: float,
 
 class _SumOverRanks(torch.autograd.Function):
     """Identity forward; the backward sums the cotangent over the ranks of
-    a process group (the shared control's cotangent)."""
+    an exchange's transport (the shared control's cotangent)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, ex):
+        ctx.ex = ex
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        import torch.distributed as dist
+        return sum_over_ranks(grad.contiguous(), ctx.ex), None
 
-        grad = grad.contiguous()
-        dist.all_reduce(grad, group=ctx.group)
+
+class _TotalOverRanks(torch.autograd.Function):
+    """The sum over the ranks forward (every rank holds the same bits); the
+    backward passes the cotangent on unchanged: each rank's part enters the
+    total once."""
+
+    @staticmethod
+    def forward(ctx, x, ex):
+        return sum_over_ranks(x.contiguous(), ex)
+
+    @staticmethod
+    def backward(ctx, grad):
         return grad, None
 
 
+def sum_over_ranks_grad(x: torch.Tensor, ex: RingExchange) -> torch.Tensor:
+    """``x`` itself, whose cotangent is summed over ``ex``'s ranks in the
+    backward (rank order; the same bits on every rank): the shared
+    controls, replicated on every rank, each of which differentiates its own
+    part of a cost. Stacked: ``x``."""
+    if ex.group is None and ex.ring is None:
+        return x
+    return _SumOverRanks.apply(x, ex)
+
+
+def total_over_ranks(x: torch.Tensor, ex: RingExchange) -> torch.Tensor:
+    """The sum over ``ex``'s ranks of each rank's ``x`` (rank order; the
+    same bits on every rank), whose backward gives each rank's part the
+    total's cotangent: the ``psum`` of a cost. Stacked: ``x``."""
+    if ex.group is None and ex.ring is None:
+        return x
+    return _TotalOverRanks.apply(x, ex)
+
+
 def make_sharded_blocked_step_diff(sb: ShardedBlocked, dt: float,
-                                   use_filter: bool = True, group=None):
+                                   use_filter: bool = True, group=None,
+                                   ring=None):
     """The differentiable sharded step: same carry and arguments as
     ``make_sharded_blocked_step_fused``; each stage is a
     ``torch.autograd.Function`` whose forward is ``sw2d_stage_blocked`` and
     whose backward is ``sw2d_stage_bwd_blocked_v2``, and the exchange's
     backward is the reverse exchange, so a rollout of steps is
     differentiable in its initial state and its controls. The control
-    cotangent is summed over scenarios and shards (and, with ``group``, over
-    ranks: each rank then differentiates its own part of the cost). Raises for a wet/dry set: the limiter has no adjoint."""
+    cotangent is summed over scenarios and the shards held here; one shard
+    a rank (``group`` or ``ring``), each rank differentiates its own part
+    of the cost, and the caller passes its controls through
+    ``sum_over_ranks_grad`` (once for a whole control sequence: one sum an
+    evaluation) to sum their cotangent over the ranks. Raises for a wet/dry
+    set: the limiter has no adjoint."""
     if sb.meta.wetdry:
         raise NotImplementedError(
             "make_sharded_blocked_step_diff does not differentiate the "
             "wet/dry positivity limiter; build with wetdry=False (or use "
             "the non-differentiable step for wet/dry rollouts)")
     ops, meta = sb.ops, sb.meta
-    ex = _exchange(sb, group)
+    ex = _exchange(sb, group, ring)
 
     def make_stage(c_dt: float, apply_sponge: bool):
         class _Stage(torch.autograd.Function):
@@ -320,10 +376,9 @@ def make_sharded_blocked_step_diff(sb: ShardedBlocked, dt: float,
 
     def step(carry, t: float = 0.0, ctrl=None):
         state, sbuf = carry
-        if ctrl is not None and group is not None:
-            ctrl = _SumOverRanks.apply(ctrl, group)
         *s1, sb1 = stage1(*state, *state, ex(sbuf), t, ctrl)
         *s2, sb2 = stage2(*state, *s1, ex(sb1), t + 0.5 * dt, ctrl)
         return tuple(s2), sb2
 
+    step.exchange = ex
     return step

@@ -21,7 +21,7 @@ shard (s + d) mod S. The blocked path's buffers are ``(S_here, B, L, 3)``:
 the shards held here, the scenarios, ``L = n_off * chunk`` slots (chunk d
 holds the values for offset ``offs[d]``) and the three fields.
 
-Two transports, both differentiable (the backward is the same exchange in
+Three transports, all differentiable (the backward is the same exchange in
 the reverse direction):
 
  - stacked: all S shards on one device, on a shard axis. The receive
@@ -30,7 +30,15 @@ the reverse direction):
    path's buffers, one static index gather over every offset. It is what a
    ring permutation over a mesh axis does when the whole mesh is one card.
  - process group: one shard per rank of a ``torch.distributed`` group; one
-   ``batch_isend_irecv`` round per ring offset.
+   ``batch_isend_irecv`` round per ring offset. CPU tensors (gloo).
+ - stage ring (the blocked path's buffers on the card, one shard a rank):
+   a ``parallel.StageRing``, device memory that the ranks map into each
+   other, one exchange kernel launch forward and one in the backward
+   (``peer_stage_exchange``, ``peer_stage_exchange_reverse``).
+
+``sum_over_ranks`` sums a tensor over the ranks, the same bits on every
+rank: the parts added in rank order, gathered over the process group (CPU
+tensors) or by the stage ring's sum kernel (``peer_rank_sum``).
 
 With no offsets (S = 1) the receive buffer is zeros.
 
@@ -245,17 +253,37 @@ class _StackedExchange(torch.autograd.Function):
         return _stacked(grad.contiguous(), ctx.src_rev), None, None
 
 
+class _RingStageExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, buf, ring):
+        from .peer import peer_stage_exchange
+
+        ctx.ring = ring
+        return peer_stage_exchange(ring, buf)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from .peer import peer_stage_exchange_reverse
+
+        return peer_stage_exchange_reverse(ctx.ring, grad.contiguous()), None
+
+
 class RingExchange:
     """The exchange of one plan, its static tables made once: call it with
     a send buffer ``(S_here, B, L, 3)`` to get the receive buffer.
     ``group``: None for the stacked transport (``S_here = S``), or the
-    ``torch.distributed`` process group of the S ranks (``S_here = 1``)."""
+    ``torch.distributed`` process group of the S ranks (``S_here = 1``).
+    ``ring``: a ``parallel.StageRing`` of this rank (``S_here = 1``, CUDA
+    tensors): the stage-ring transport. The process group's point-to-point
+    transport serves CPU tensors; across ranks on the card the exchange
+    takes a ring, and a buffer on the card without one raises."""
 
-    def __init__(self, plan: HaloPlan, n_fp: int, group=None, device="cuda"):
-        self.plan, self.group = plan, group
+    def __init__(self, plan: HaloPlan, n_fp: int, group=None, device="cuda",
+                 ring=None):
+        self.plan, self.group, self.ring = plan, group, ring
         self.chunk = plan.max_send * n_fp
         self.src = self.src_rev = None
-        if plan.offs and group is None:
+        if plan.offs and group is None and ring is None:
             self.src = torch.as_tensor(_stacked_source(plan, self.chunk, 1),
                                        device=device)
             self.src_rev = torch.as_tensor(
@@ -264,13 +292,34 @@ class RingExchange:
     def __call__(self, sbuf: torch.Tensor) -> torch.Tensor:
         return ring_exchange(sbuf, self)
 
+    def ring_for(self, t: torch.Tensor):
+        """The stage ring that serves ``t``, or None (the stacked transport,
+        or the process group's on CPU tensors)."""
+        if self.ring is None:
+            if self.group is not None and t.is_cuda:
+                raise ValueError(
+                    "across ranks on the card the exchange takes this rank's "
+                    "parallel.StageRing (ring=); the process group's "
+                    "point-to-point transport serves CPU tensors")
+            return None
+        if t.device != self.ring.device:
+            raise ValueError(
+                f"a tensor on {t.device} for a ring on {self.ring.device}: "
+                "the stage ring runs on the card; on CPU tensors the process "
+                "group's RingExchange is the transport")
+        return self.ring
+
 
 def ring_exchange(sbuf: torch.Tensor, ex: RingExchange) -> torch.Tensor:
     """The receive buffer of ``sbuf`` under ``ex``'s plan and transport: the
     stacked transport gathers every offset's chunk at once through the
     static tables; a process group moves each offset's chunk through
-    ``_ppermute``."""
+    ``_ppermute``; a stage ring launches its exchange kernel (its backward:
+    the reverse exchange kernel)."""
     plan = ex.plan
+    ring = ex.ring_for(sbuf)
+    if ring is not None:
+        return _RingStageExchange.apply(sbuf, ring)
     if not plan.offs:
         return torch.zeros_like(sbuf)
     if ex.group is None:
@@ -279,6 +328,30 @@ def ring_exchange(sbuf: torch.Tensor, ex: RingExchange) -> torch.Tensor:
     return torch.cat([
         _ppermute(sbuf[:, :, di * c:(di + 1) * c], d, plan.n_shards, ex.group)
         for di, d in enumerate(plan.offs)], dim=2)
+
+
+def sum_over_ranks(x: torch.Tensor, ex: RingExchange) -> torch.Tensor:
+    """``x`` summed over the ranks of ``ex``'s transport, the parts added in
+    rank order 0, 1, ..., S-1, so that every rank holds the same bits: the
+    stage ring's sum kernel (``peer_rank_sum``), or over the process group
+    an ``all_gather`` and the sum here (CPU tensors; the plain version of
+    the kernel). The stacked transport has one process: ``x`` itself. Not
+    differentiable (``parallel.blocked_shard`` pairs it with its
+    transpose)."""
+    ring = ex.ring_for(x)
+    if ring is not None:
+        from .peer import peer_rank_sum
+
+        return peer_rank_sum(ring, x.contiguous())
+    if ex.group is None:
+        return x
+    import torch.distributed as dist
+
+    from .peer import rank_order_sum
+
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(ex.group))]
+    dist.all_gather(parts, x.contiguous(), group=ex.group)
+    return rank_order_sum(parts)
 
 
 # ---------------------------------------------------------------------------

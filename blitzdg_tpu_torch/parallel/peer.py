@@ -1,7 +1,11 @@
-"""B9's transport across ranks: ``PeerRing``, one region of device memory
-a rank that its ring peers store into, and ``peer_ring_exchange``, the
-step-boundary exchange over it (a launch for the ring's first step only:
-every later step's exchange is the step launch's own).
+"""Transports across ranks over device memory that the ranks map into each
+other (CUDA IPC): ``PeerRing``, the one-launch step's (B9's), and
+``StageRing``, the differentiable sharded step's and the MPC's across ranks.
+
+``PeerRing``: one region of device memory a rank that its ring peers store
+into, and ``peer_ring_exchange``, the step-boundary exchange over it (a
+launch for the ring's first step only: every later step's exchange is the
+step launch's own).
 
 Counterpart of what the JAX package's one-launch sharded step
 (``blitzdg_tpu/ops/sw2d_blocked.py``, ``_step_kernel_rdma``, driven by
@@ -22,17 +26,31 @@ buffer between steps. One shard a rank: each rank allocates one region
    count of READY signals, which is right only while every rank's offsets
    are symmetric; one flag an offset needs no such rule.
 
-The region's CUDA IPC handle is all-gathered over the process group, and
-each rank opens the region of every ring peer once (the rank each offset
-sends to and the one it receives from): on one card that maps the same
+``StageRing``: the counterpart of the XLA collectives of the JAX package's
+sharded MPC across chips (``examples/mpc_sharded.py`` over
+``make_sharded_blocked_step_diff``): the ``ppermute`` of a stage's send
+buffer between the RK stages, its transpose in the backward sweep, and the
+``psum`` of the cost with the sum over chips of the shared controls'
+cotangent. A region a rank holds a slot set for each use (forward and
+reverse receive slots, (B, L, 3) floats each, and a sum slot a rank), with
+its own GO and ARRIVED flags; ``peer_stage_exchange``,
+``peer_stage_exchange_reverse`` and ``peer_rank_sum`` launch its kernels
+(``ops/csrc/peer.cu``), which copy what arrives into memory torch owns, so
+that autograd may keep a receive buffer: a later exchange into the same
+slots changes nothing it kept.
+
+A region's CUDA IPC handle is all-gathered over the process group, and each
+rank opens the regions it stores into once (a ``PeerRing``'s ring peers, a
+``StageRing``'s every rank, for the sums): on one card that maps the same
 memory into another process, on a node with several cards a peer card's
 memory over NVLink. The group carries nothing else: the handles and the
 barriers of set-up and ``close``. gloo will do, and on one card it must be
 gloo, since NCCL refuses two ranks on one card. Nothing falls back to
-``torch.distributed`` point-to-point: a ring on a CPU device, or over a
-group whose size is not the plan's shard count, raises. On CPU tensors the
-sharded step takes the plain version with the group's ``RingExchange``
-instead (``parallel.make_sharded_blocked_step_rdma``).
+``torch.distributed`` point-to-point or ``all_reduce``: a ring on a CPU
+device, or over a group whose size is not the plan's shard count, raises.
+On CPU tensors the sharded steps take the process group's ``RingExchange``
+instead (``parallel.make_sharded_blocked_step_rdma``,
+``make_sharded_blocked_step_fused``, ``make_sharded_blocked_step_diff``).
 
 Flags are 64-bit epochs that only grow, so nothing is ever reset; every
 wait is bounded (``timeout_s``) and traps past its bound, so a lost peer is
@@ -45,6 +63,7 @@ import ctypes
 import torch
 
 from ..ops import _build
+from ..ops.sw2d_fused import count_launches
 from .halo import HaloPlan
 
 # Byte alignment of the parts of a region.
@@ -67,10 +86,14 @@ def _lib():
     lib.peer_open.argtypes = [I, ctypes.c_char_p, ctypes.POINTER(P)]
     lib.peer_close.argtypes = [P]
     lib.peer_ring_exchange.argtypes = [P, P, I, I, I, P]
+    lib.peer_stage_exchange.argtypes = [P, I, P, P, I, I, I,
+                                        ctypes.c_ulonglong, I, P]
+    lib.peer_rank_sum.argtypes = [P, P, P, I, ctypes.c_ulonglong, I, P]
     lib.peer_load.argtypes = []
     for fn in (lib.peer_handle_bytes, lib.peer_alloc, lib.peer_free,
                lib.peer_export, lib.peer_open, lib.peer_close,
-               lib.peer_ring_exchange, lib.peer_load):
+               lib.peer_ring_exchange, lib.peer_stage_exchange,
+               lib.peer_rank_sum, lib.peer_load):
         fn.restype = I
     lib._peer_typed = True
     return lib
@@ -95,6 +118,78 @@ def region_layout(batch: int, n_slots: int, n_off: int) -> dict:
     n_flags = 1 + 4 * n_off
     return {"rbb": slots, "flags": 2 * slots, "n_flags": n_flags,
             "bytes": 2 * slots + _round(8 * (n_flags + 1))}
+
+
+def _map_regions(ring, plan: HaloPlan, group, device, nbytes: int, peers,
+                 setup):
+    """A ring's set-up across processes: this rank's region of ``nbytes``
+    (zeroed) on ``device``, its IPC handle all-gathered over ``group``, the
+    regions of ``peers(rank, S)`` opened here, then ``setup(rank, bases,
+    device)`` with every mapped region's address by rank, and a barrier.
+    Sets ``ring.group``, ``_lib``, ``_own`` and ``_opened``; on a failure
+    unmaps and frees what it made."""
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(
+            "a ring maps device memory and needs a CUDA device; on the CPU "
+            "the process group's RingExchange is the transport")
+    if group is None:
+        raise ValueError("a ring needs the process group of its ranks (gloo "
+                         "will do)")
+    S = plan.n_shards
+    if dist.get_world_size(group) != S:
+        raise ValueError(f"the group has {dist.get_world_size(group)} "
+                         f"ranks; the plan has {S} shards, one a rank")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank(group)
+    lib = _lib()
+    own = ctypes.c_void_p()
+    _check(lib, lib.peer_alloc(dev.index, nbytes, ctypes.byref(own)),
+           "peer_alloc")
+    opened = {}
+    try:
+        handle = ctypes.create_string_buffer(lib.peer_handle_bytes())
+        _check(lib, lib.peer_export(own, handle), "peer_export")
+        handles = [None] * S
+        dist.all_gather_object(handles, handle.raw, group=group)
+        for p in sorted(set(peers(rank, S)) - {rank}):
+            ptr = ctypes.c_void_p()
+            _check(lib, lib.peer_open(dev.index, handles[p],
+                                      ctypes.byref(ptr)),
+                   f"peer_open of rank {p}'s region")
+            opened[p] = ptr.value
+        bases = dict(opened)
+        bases[rank] = own.value
+        setup(rank, bases, dev)
+    except BaseException:
+        for ptr in opened.values():
+            lib.peer_close(ptr)
+        lib.peer_free(own)
+        raise
+    ring.group, ring._lib = group, lib
+    ring._own, ring._opened = own.value, opened
+    dist.barrier(group)
+
+
+def _unmap_regions(ring):
+    """Every rank: wait for this rank's launches, meet the others, unmap
+    the peers' regions, meet again, free this rank's region (nothing for a
+    ring over regions of one process)."""
+    if ring._own is None:
+        return
+    import torch.distributed as dist
+
+    torch.cuda.synchronize(ring.device)
+    dist.barrier(ring.group)
+    for ptr in ring._opened.values():
+        _check(ring._lib, ring._lib.peer_close(ptr), "peer_close")
+    ring._opened = {}
+    dist.barrier(ring.group)
+    _check(ring._lib, ring._lib.peer_free(ring._own), "peer_free")
+    ring._own = None
 
 
 class _Raw:
@@ -157,52 +252,12 @@ class PeerRing:
 
     def __init__(self, plan: HaloPlan, n_fp: int, batch: int, group,
                  device="cuda", timeout_s: float = 10.0):
-        import torch.distributed as dist
-
-        dev = torch.device(device)
-        if dev.type != "cuda":
-            raise ValueError(
-                "a PeerRing maps device memory and needs a CUDA device; on "
-                "the CPU the process group's RingExchange is the transport")
-        if group is None:
-            raise ValueError("a PeerRing needs the process group of its "
-                             "ranks (gloo will do)")
-        S = plan.n_shards
-        if dist.get_world_size(group) != S:
-            raise ValueError(f"the group has {dist.get_world_size(group)} "
-                             f"ranks; the plan has {S} shards, one a rank")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        rank = dist.get_rank(group)
-        lib = _lib()
         lay = region_layout(batch, _n_slots(plan, n_fp), len(plan.offs))
-        own = ctypes.c_void_p()
-        _check(lib, lib.peer_alloc(dev.index, lay["bytes"],
-                                   ctypes.byref(own)), "peer_alloc")
-        opened = {}
-        try:
-            handle = ctypes.create_string_buffer(lib.peer_handle_bytes())
-            _check(lib, lib.peer_export(own, handle), "peer_export")
-            handles = [None] * S
-            dist.all_gather_object(handles, handle.raw, group=group)
-            for p in sorted({(rank + s * d) % S for d in plan.offs
-                             for s in (1, -1)}):
-                ptr = ctypes.c_void_p()
-                _check(lib, lib.peer_open(dev.index, handles[p],
-                                          ctypes.byref(ptr)),
-                       f"peer_open of rank {p}'s region")
-                opened[p] = ptr.value
-            bases = dict(opened)
-            bases[rank] = own.value
-            self._setup(plan, n_fp, batch, rank, bases, dev, timeout_s)
-        except BaseException:
-            for ptr in opened.values():
-                lib.peer_close(ptr)
-            lib.peer_free(own)
-            raise
-        self.group, self._lib = group, lib
-        self._own, self._opened = own.value, opened
-        dist.barrier(group)
+        peers = lambda rank, S: {(rank + s * d) % S for d in plan.offs
+                                 for s in (1, -1)}
+        _map_regions(self, plan, group, device, lay["bytes"], peers,
+                     lambda rank, bases, dev: self._setup(
+                         plan, n_fp, batch, rank, bases, dev, timeout_s))
 
     @classmethod
     def over_regions(cls, plan: HaloPlan, n_fp: int, batch: int, rank: int,
@@ -272,18 +327,7 @@ class PeerRing:
     def close(self):
         """Every rank: wait for this rank's launches, meet the others,
         unmap the peers' regions, meet again, free this rank's region."""
-        if self._own is None:
-            return
-        import torch.distributed as dist
-
-        torch.cuda.synchronize(self.device)
-        dist.barrier(self.group)
-        for ptr in self._opened.values():
-            _check(self._lib, self._lib.peer_close(ptr), "peer_close")
-        self._opened = {}
-        dist.barrier(self.group)
-        _check(self._lib, self._lib.peer_free(self._own), "peer_free")
-        self._own = None
+        _unmap_regions(self)
 
     def __enter__(self):
         return self
@@ -347,3 +391,242 @@ def peer_ring_exchange(ring: PeerRing, sbuf: torch.Tensor) -> torch.Tensor:
 
 
 peer_ring_exchange.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The stage ring: the differentiable sharded step's exchanges and the sums
+# over ranks, one shard a rank
+# ---------------------------------------------------------------------------
+
+# floats of one rank's sum slot: a longer vector is summed in pieces
+SUM_LEN = 256
+# threads of a block of the stage ring's kernels
+THREADS = 256
+
+
+def stage_region_layout(batch: int, n_slots: int, n_off: int,
+                        n_ranks: int) -> dict:
+    """Byte offsets in one rank's stage-ring region
+    (``ops/csrc/peer_flags.cuh``): the forward receive slots at 0, the
+    reverse ones at ``rev``, the sum slots (one of ``SUM_LEN`` floats a
+    rank) at ``sum``, the ``n_flags`` flag words at ``flags``; ``bytes`` in
+    all."""
+    slots = _round(batch * n_slots * 3 * 4)
+    sums = _round(n_ranks * SUM_LEN * 4)
+    n_flags = 4 * n_off + 2 * n_ranks
+    return {"rev": slots, "sum": 2 * slots, "flags": 2 * slots + sums,
+            "n_flags": n_flags, "bytes": 2 * slots + sums + _round(8 * n_flags)}
+
+
+class StageRing:
+    """This rank's stage-ring region and every rank's region mapped here,
+    for one shard a rank of a sharded set with halo plan ``plan`` (``n_fp``
+    nodes a face, ``batch`` scenarios): the transport of
+    ``make_sharded_blocked_step_fused`` / ``_diff`` and of the sharded MPC
+    across ranks on the card (``parallel.RingExchange`` with ``ring=``).
+
+    ``group``: the process group of the ``plan.n_shards`` ranks (rank r
+    holds shard r; gloo will do); ``device``: this rank's CUDA device;
+    ``timeout_s``: the bound of every wait on a peer's flag, after which the
+    waiting kernel traps.
+
+    ``peer_stage_exchange(ring, sbuf)``: the receive buffer (1, B, L, 3) of
+    this rank's send buffer ``sbuf`` (1, B, L, 3), a new tensor;
+    ``peer_stage_exchange_reverse(ring, g)``: its transpose (each chunk
+    back to the rank it came from); ``peer_rank_sum(ring, x)``: the sum of
+    a float32 vector over the ranks, added in rank order, the same bits on
+    every rank (``SUM_LEN`` floats a launch). Every rank must make the same
+    calls of each in the same order (the epochs are counted here, a use
+    each). Both constructors load the ring's kernels into the context; any
+    other kernel that a caller launches between the calls of ranks that
+    share a process must be loaded before the ring runs (see ``PeerRing``).
+    ``table`` is the ring's table in device memory, ``flags`` this rank's
+    flag words.
+
+    ``close()`` (or leaving a ``with`` block): as ``PeerRing.close``; every
+    rank must call it."""
+
+    def __init__(self, plan: HaloPlan, n_fp: int, batch: int, group,
+                 device="cuda", timeout_s: float = 10.0):
+        lay = stage_region_layout(batch, _n_slots(plan, n_fp),
+                                  len(plan.offs), plan.n_shards)
+        _map_regions(self, plan, group, device, lay["bytes"],
+                     lambda rank, S: range(S),
+                     lambda rank, bases, dev: self._setup(
+                         plan, n_fp, batch, rank, bases, dev, timeout_s))
+
+    @classmethod
+    def over_regions(cls, plan: HaloPlan, n_fp: int, batch: int, rank: int,
+                     bases: dict, device,
+                     timeout_s: float = 10.0) -> "StageRing":
+        """Rank ``rank``'s ring over regions of this process (``bases``:
+        the address of every rank's region, laid out as
+        ``stage_region_layout`` says, zeroed; on a CPU device, host memory
+        for a build of the kernels for the host): the S ranks of a ring in
+        one process, each on its own stream (or thread). Their launches
+        must then be resident on the card together (a wait that outlasts
+        its bound traps). The caller owns the regions; ``close`` does
+        nothing here."""
+        ring = cls.__new__(cls)
+        ring._setup(plan, n_fp, batch, rank, bases, torch.device(device),
+                    timeout_s)
+        ring.group, ring._lib, ring._own, ring._opened = None, None, None, {}
+        return ring
+
+    def _setup(self, plan, n_fp, batch, rank, bases, device, timeout_s):
+        S, offs = plan.n_shards, plan.offs
+        self.plan, self.n_fp, self.batch, self.rank = plan, n_fp, batch, rank
+        self.device = device
+        self.chunk = plan.max_send * n_fp
+        self.n_slots = _n_slots(plan, n_fp)
+        lay = stage_region_layout(batch, self.n_slots, len(offs), S)
+        words = [bases[rank], int(timeout_s * 1e9), len(offs), self.chunk, S,
+                 rank, SUM_LEN, lay["flags"], lay["rev"], lay["sum"]]
+        words += [0] * (16 - len(words))
+        words += [bases[(rank + d) % S] for d in offs]
+        words += [bases[(rank - d) % S] for d in offs]
+        words += [bases[p] for p in range(S)]
+        self.table = torch.tensor(words, dtype=torch.int64, device=device)
+        self.flags = _view(bases[rank] + lay["flags"], (lay["n_flags"],),
+                           torch.int64, device)
+        # the GO flags: every slot is free for the first epoch of its use
+        n_off = len(offs)
+        self.flags[0:4 * n_off:4] = 1
+        self.flags[2:4 * n_off:4] = 1
+        self.flags[4 * n_off + 1::2] = 1
+        self.epochs = {"forward": 0, "reverse": 0, "sum": 0}
+        self.threads = THREADS
+        lib = _lib()
+        _check(lib, lib.peer_load(), "peer_load")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def _exchange(self, src: torch.Tensor, rev: bool) -> torch.Tensor:
+        """The exchange kernel's launch, forward or reverse (the shape
+        checked by the caller): a new receive buffer."""
+        from ..ops.sw2d_fused import _launch_stream
+
+        use = "reverse" if rev else "forward"
+        self.epochs[use] += 1
+        out = torch.empty_like(src)
+        lib = self._lib or _lib()
+        err = lib.peer_stage_exchange(
+            self.table.data_ptr(), int(rev), src.data_ptr(), out.data_ptr(),
+            len(self.plan.offs), self.batch, self.n_slots, self.epochs[use],
+            self.threads, _launch_stream(src))
+        _check(lib, err, "peer_stage_exchange")
+        return out
+
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum kernel's launches over a flat float32 vector, ``SUM_LEN``
+        floats a launch: a new vector."""
+        from ..ops.sw2d_fused import _launch_stream
+
+        out = torch.empty_like(x)
+        lib = self._lib or _lib()
+        for j in range(0, x.numel(), SUM_LEN):
+            n = min(SUM_LEN, x.numel() - j)
+            self.epochs["sum"] += 1
+            err = lib.peer_rank_sum(
+                self.table.data_ptr(), x[j:].data_ptr(), out[j:].data_ptr(),
+                n, self.epochs["sum"], self.threads, _launch_stream(x))
+            _check(lib, err, "peer_rank_sum")
+        return out
+
+    def close(self):
+        """Every rank: wait for this rank's launches, meet the others,
+        unmap the peers' regions, meet again, free this rank's region."""
+        _unmap_regions(self)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _check_ring_tensor(ring: StageRing, name: str, t: torch.Tensor):
+    if t.device != ring.device or t.dtype != torch.float32:
+        raise ValueError(f"{name}: {t.dtype} on {t.device}; the ring moves "
+                         f"float32 on {ring.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: the kernel needs a contiguous tensor")
+
+
+def _stage_exchange(ring: StageRing, buf: torch.Tensor, rev: bool):
+    shape = (1, ring.batch, ring.n_slots, 3)
+    if tuple(buf.shape) != shape:
+        raise ValueError(f"buffer: shape {tuple(buf.shape)}, expected {shape}")
+    _check_ring_tensor(ring, "buffer", buf)
+    if not ring.plan.offs:
+        return torch.zeros_like(buf), False
+    return ring._exchange(buf, rev), True
+
+
+def peer_stage_exchange(ring: StageRing, sbuf: torch.Tensor) -> torch.Tensor:
+    """The exchange between the RK stages across ranks: chunk i of this
+    rank's send buffer ``sbuf`` (1, B, L, 3), every scenario, into the
+    forward slots of the rank that ring offset i sends to; returns this
+    rank's receive buffer (1, B, L, 3), what its peers sent, copied out of
+    its slots into a new tensor (zeros without ring offsets). One launch
+    (``ops/csrc/peer.cu``, one block an offset), which waits until each
+    receiving rank has read the last epoch's chunk and until each chunk
+    here has arrived.
+
+    Replaces the XLA ``ppermute`` between the stages of the JAX package's
+    differentiable sharded step (``blitzdg_tpu/parallel/blocked_shard.py``,
+    ``make_sharded_blocked_step_diff``); its plain version is the stacked
+    gather (``parallel.halo._stacked`` over every rank's buffer), or the
+    process group's ``RingExchange`` on CPU tensors."""
+    out, launched = _stage_exchange(ring, sbuf, False)
+    if launched:
+        count_launches(peer_stage_exchange)
+    return out
+
+
+peer_stage_exchange.launches = 0
+
+
+def peer_stage_exchange_reverse(ring: StageRing,
+                                g: torch.Tensor) -> torch.Tensor:
+    """The transpose of ``peer_stage_exchange``: the cotangent ``g`` (1, B,
+    L, 3) of a receive buffer back to the ranks its chunks came from (chunk
+    i to the rank at ring offset -i), over the ring's reverse slots; returns
+    this rank's send-buffer cotangent (1, B, L, 3), a new tensor. One
+    launch of the same kernel. Replaces the transpose of the XLA
+    ``ppermute`` in the JAX package's backward sweep."""
+    out, launched = _stage_exchange(ring, g, True)
+    if launched:
+        count_launches(peer_stage_exchange_reverse)
+    return out
+
+
+peer_stage_exchange_reverse.launches = 0
+
+
+def peer_rank_sum(ring: StageRing, x: torch.Tensor) -> torch.Tensor:
+    """The sum over the ring's ranks of each rank's float32 tensor ``x``
+    (any shape, the same on every rank): each rank's ``x`` into its slot at
+    every rank, then at each rank the parts added in rank order 0, 1, ...,
+    S-1, so that every rank holds the same bits. One launch a ``SUM_LEN``
+    floats. Replaces the XLA ``psum`` of the JAX package's sharded MPC
+    (``examples/mpc_sharded.py``) and the sum over chips of the shared
+    controls' cotangent; its plain version is ``rank_order_sum``."""
+    _check_ring_tensor(ring, "x", x)
+    if x.numel() == 0:
+        return x.clone()
+    out = ring._sum(x.reshape(-1)).view(x.shape)
+    count_launches(peer_rank_sum, -(-x.numel() // SUM_LEN))
+    return out
+
+
+peer_rank_sum.launches = 0
+
+
+def rank_order_sum(parts) -> torch.Tensor:
+    """The plain version of the sum over ranks: ``parts[0] + parts[1] +
+    ...`` in that order (a torch reduction may add in another)."""
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc = acc + p
+    return acc

@@ -6,10 +6,11 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 (``--only dense``, ``--only blocked``, ``--only curved``, ``--only
-sharded``, ``--only peer``, ``--only elliptic``, ``--only solver``,
-``--only quads``, ``--only ins2d``, ``--only dg1d``, ``--only halo`` or
-``--only compat`` runs one path's phases alone, for work on that path.) What it does,
-in order (any failure is an exception and a non-zero exit):
+sharded``, ``--only peer``, ``--only ranks``, ``--only elliptic``, ``--only
+solver``, ``--only quads``, ``--only ins2d``, ``--only dg1d``, ``--only
+halo`` or ``--only compat`` runs one path's phases alone, for work on that
+path.) What it does, in order (any failure is an exception and a non-zero
+exit):
 
  1. refuses to run without a CUDA device;
  2. builds the CUDA kernels of ``blitzdg_tpu_torch/ops/csrc`` with nvcc and
@@ -19,8 +20,8 @@ in order (any failure is an exception and a non-zero exit):
     run if any instantiation of a curved rollout kernel, a dense kernel,
     the blocked rollout (the step's kernel too) and its adjoint, the
     sharded stage, its adjoint and the one-launch step kernel, or the
-    step's peer mode and the step-boundary exchange (of the paths run)
-    spills or has no report;
+    step's peer mode and the step-boundary exchange, or the stage ring's
+    exchange and sum (of the paths run) spills or has no report;
  3. DENSE path (small meshes, one thread per element and scenario). Holds
     each kernel (``sw2d_step_fused``, ``sw2d_rollout_fused``,
     ``sw2d_rollout_bwd_fused``) against its plain PyTorch version on the
@@ -143,7 +144,35 @@ in order (any failure is an exception and a non-zero exit):
     drawn from the seed held back on its stream, each rank's state, send
     buffer and stage-2 receive slots bit-equal to the stacked rollout's
     after every step;
- 8. ELLIPTIC path (no kernel of its own: plain tensor code): the JAX
+ 8. RANKS path (the sharded MPC one shard a rank, ``sharded_mpc_problem(
+    rank=r)``: each rank builds its own shard, computes the target with the
+    ranks' fused step and runs Adam over its part of the cost; the stages'
+    exchanges, their reverses and the sums over ranks through a
+    ``parallel.StageRing``, device memory the ranks map into each other):
+    builds the stacked problems and solves at both sizes as references;
+    ``stage_ring_kernels`` holds the ring's exchange, its reverse and its
+    sum (``ops/csrc/peer.cu``) bit-equal to their plain versions (the
+    stacked gather of every rank's buffer, the rank-order sum) at the main
+    path's shapes, four ranks on four streams, and times each of rank 0's
+    alone (its flags set past any epoch); ``sharded_mpc_S4_in_process``
+    runs the 4 ranks of the full width on threads and streams of this
+    process, and ``sharded_mpc_example_S8_in_process`` the example's 8
+    (rank 0 first alone over a ring whose flags read past any epoch, so
+    that every kernel is loaded before the ranks meet);
+    ``sharded_mpc_S4_ranks`` starts 4 worker processes of this script
+    (``--ranks-worker``, gloo group, CUDA IPC regions, each with its own
+    timeout, all ended once one fails) at full width. Each rank: its
+    problem, the gradient at zero controls, the 30-iteration solve
+    (timed), counters zeroed just before and read just after; every rank's
+    target bit-equal to its shard of the stacked target, its gradient
+    within SHD_GRAD_RTOL of the stacked diff step's, its controls, cost
+    history and final cost bit-equal to every other rank's, the final cost
+    within COST_RATIO of the stacked solve's and below the first cost (the
+    example: below SHD_EXAMPLE_RATIO of it), the launches exact; then a
+    5-iteration solve profiled for the idle share (the union of the
+    kernels' intervals against the host clock, with and without the
+    ring's kernels, whose time is mostly waits at flags);
+ 9. ELLIPTIC path (no kernel of its own: plain tensor code): the JAX
     benchmark's Poisson configuration, N=2, float32, on
     ``box_triangles(23, 23)`` (K=1058; the benchmark's box.msh, K=1046, is
     not in the repository). ``elliptic_setup`` builds the context,
@@ -158,7 +187,7 @@ in order (any failure is an exception and a non-zero exit):
     of the assembled operator; no flag may be inf/nan or diverged. For
     information it profiles 50 iterations of the batched CG (device events
     only: the idle share);
- 9. SOLVER path: ``solve_mpc_gn`` (Gauss-Newton, 2 outer x 8 CG
+10. SOLVER path: ``solve_mpc_gn`` (Gauss-Newton, 2 outer x 8 CG
     iterations) and ``receding_horizon`` (2 cycles of 5 Adam iterations)
     at the headline shape (B=2048, K=40, N=1, 8 x 4 steps) over the plain
     composite (``MPCProblem.rhs_fn`` = ``sw2d_rhs`` with the tidal depth),
@@ -169,7 +198,7 @@ in order (any failure is an exception and a non-zero exit):
     must equal ``advance_plant_fused`` (B1) from the cycle's control at
     t0 = 0 within FWD_ATOL. For information it profiles one Gauss-Newton CG
     step (a J v and a pullback at B=2048, device events only);
-10. QUADS path (quadrilateral elements): ``quads_sw2d`` runs
+11. QUADS path (quadrilateral elements): ``quads_sw2d`` runs
     ``examples/sw2dquads.py``'s configuration (``box_quads(12, 12)``, K=144,
     N=4, filter 0.9 N of order 4, CFL 0.5, float32, 10 chunks of 100
     adaptive SSP-RK2 steps of ``sw2d_rhs``; mass drift below 1e-5, the
@@ -202,17 +231,17 @@ in order (any failure is an exception and a non-zero exit):
     step alone (its flags set past any epoch), timed; the N=4 instances of
     B4-B9 (B9 in both modes) and the run-time-size ones of B4-B9 must not
     spill;
-11. INS2D path (plain tensor code): ``examples/ins2d.py`` at
+12. INS2D path (plain tensor code): ``examples/ins2d.py`` at
     ``examples/ins2d.nml`` read by the port's ``read_namelist`` (K=36
     quads, N=2, dt 2e-3, 100 steps, float32): fields finite, max|u| <= 1,
     every projection lowering the L2 norm of div u, the kinetic energy
     against the port's CPU float64 run; CG iterations a step, ms a step,
     the idle share of 5 profiled steps;
-12. DG1D path (plain tensor code): ``examples/advec1d.py`` (N=4, K=30,
+13. DG1D path (plain tensor code): ``examples/advec1d.py`` (N=4, K=30,
     c=0.1, CFL 0.8, T=20) and ``examples/burgers1d.py`` (N=6, K=40, nu=0.1)
     through ``integrate(lserk4_step)`` in float32, max-norm errors against
     the exact solutions at the JAX tests' bounds, ms a step;
-13. HALO path (``parallel/halo.py``, plain tensor code, every shard stacked
+14. HALO path (``parallel/halo.py``, plain tensor code, every shard stacked
     on the card): ``halo_rhs_rollout`` holds ``halo_sw2d_rhs`` on
     ``box_triangles(32, 32)`` (K=2048, N=3) at S = 1, 2, 4 to ``sw2d_rhs``
     (a bfloat16 halo's gap reported) and runs
@@ -224,12 +253,12 @@ in order (any failure is an exception and a non-zero exit):
     at S = 2, 6 against ``sw2d_curved_rhs``; ``halo_elliptic`` the CG of
     ``TestShardedElliptic`` on the elliptic configuration padded to S=4
     against the unsharded CG (iterations and solution);
-14. COMPAT path (``compat.py``): the reference's advec1d numpy script
+15. COMPAT path (``compat.py``): the reference's advec1d numpy script
     through ``Nodes1DProvisioner`` and its poisson2d pattern through
     ``MeshManager``, ``TriangleNodesProvisioner`` (its context on the
     card) and ``Poisson2DSparseMatrix``, solved with scipy and held to
     sin(pi x) sin(pi y);
-15. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
+16. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
     card's name and power limit, and as the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -249,6 +278,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 from pathlib import Path
@@ -4388,6 +4418,569 @@ def peer_phases(dev, card: str, rng, flush) -> list:
          "library_ms": None}]
 
 
+# ---------------------------------------------------------------------------
+# RANKS path: the sharded MPC one shard a rank, over the stage ring
+# ---------------------------------------------------------------------------
+
+RANKS_WORKER_TIMEOUT = 300  # seconds, each worker process
+# Adam iterations of the short solves that are profiled (the idle share)
+RANKS_PROFILE_ITERS = 5
+RANKS_TIMED_REPS = 9
+# the stage ring's check at the main path's shapes: floats of the summed
+# vector (the control sequence's cotangent, 8 steps x 2 controls)
+RANKS_SUM_LEN = 16
+
+
+def ranks_counters() -> dict:
+    """The launch counters of the kernels a rank of the sharded MPC may
+    launch, by name (the one-launch step's must stay 0)."""
+    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+    from blitzdg_tpu_torch.parallel import peer as PR
+
+    return {"sw2d_stage_blocked": TB.sw2d_stage_blocked,
+            "sw2d_stage_bwd_blocked_v2": TB.sw2d_stage_bwd_blocked_v2,
+            "peer_stage_exchange": PR.peer_stage_exchange,
+            "peer_stage_exchange_reverse": PR.peer_stage_exchange_reverse,
+            "peer_rank_sum": PR.peer_rank_sum,
+            "sw2d_step_rdma_blocked": TB.sw2d_step_rdma_blocked,
+            "peer_ring_exchange": PR.peer_ring_exchange}
+
+
+def ranks_expected(n_steps: int, iters: int, n_ranks: int) -> dict:
+    """The launches of ``ranks_program`` over ``n_ranks`` ranks: a rank's
+    target rollout (2 stages a step, an exchange each), the gradient at zero
+    controls and the solve's ``iters`` gradients (each a rollout, its
+    adjoint, the reverse exchanges of every stage but the first, whose send
+    buffer is the constant start's, and two sums: the cost and the
+    controls' cotangent), and the solve's final cost (a rollout, a sum)."""
+    evals = 1 + iters
+    fwd = 2 * n_steps * (1 + evals + 1)
+    per = {"sw2d_stage_blocked": fwd,
+           "sw2d_stage_bwd_blocked_v2": 2 * n_steps * evals,
+           "peer_stage_exchange": fwd,
+           "peer_stage_exchange_reverse": (2 * n_steps - 1) * evals,
+           "peer_rank_sum": 2 * evals + 1, "sw2d_step_rdma_blocked": 0,
+           "peer_ring_exchange": 0}
+    return {k: n_ranks * v for k, v in per.items()}
+
+
+def ranks_program(size: dict, rank: int, dev, barrier, sync, ring=None,
+                  group=None, iters: int | None = None):
+    """One rank's program (the same on every rank): its problem
+    (``sharded_mpc_problem(size, rank=rank)``: its shard, the target through
+    the ranks' fused step), the gradient at zero controls, then the timed
+    Adam solve, between two meetings of the ranks (``barrier``) after their
+    work was waited for (``sync``). Returns the problem and the results."""
+    from blitzdg_tpu_torch.mpc import sharded_box as sbx
+
+    iters = sbx.MPC_ITERS if iters is None else iters
+    t0 = time.perf_counter()
+    mp = sbx.sharded_mpc_problem(size, rank=rank, ring=ring, group=group,
+                                 device=dev)
+    cs0 = torch.zeros_like(mp.hidden, requires_grad=True)
+    (g0,) = torch.autograd.grad(sbx.sharded_mpc_cost(mp, cs0), cs0)
+    sync()
+    barrier()
+    w0 = time.perf_counter()
+    sol = sbx.solve_sharded_mpc(mp, iters=iters)
+    sync()
+    wall = time.perf_counter() - w0
+    barrier()
+    return mp, {"target": mp.target.cpu(), "grad0": g0.cpu(),
+                "controls": sol.controls.cpu(),
+                "history": sol.cost_history.cpu(), "final": sol.cost.cpu(),
+                "solve_s": wall, "setup_s": w0 - t0}
+
+
+def profile_union(run, solve_s: float, ready=lambda: None) -> dict:
+    """Device time of ``run()`` under torch.profiler (CUDA events only): the
+    sum of the kernels' times by name and the union of their intervals,
+    which kernels of ranks on several streams overlap in; the idle share is
+    one less the union over ``solve_s``, the unprofiled host-clock time of
+    the same run. The ring's kernels (``peer_*``) spend most of their time
+    waiting at flags, so the union is also given without them: the share
+    of the time in which no other kernel runs is the compute idle share.
+    ``ready()`` runs once the profiler has started (ranks in processes of
+    their own meet there: a rank's profiler start takes longer than its
+    peers' flag waits may)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    try:
+        ready()
+        run()
+        torch.cuda.synchronize()
+    finally:
+        prof.stop()
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        a, b = ev.time_range.start, ev.time_range.end
+        if b > a:
+            spans.append((a, b, ev.name.startswith("peer_")))
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + (b - a)
+
+    def union(keep) -> float:
+        total, end = 0.0, None
+        for a, b, ring in sorted(spans):
+            if not keep(ring):
+                continue
+            if end is None or a > end:
+                total, end = total + (b - a), b
+            elif b > end:
+                total, end = total + (b - end), b
+        return total / 1e3
+
+    idle = lambda ms: 1.0 - ms / (solve_s * 1e3) if spans else None
+    every, compute = union(lambda ring: True), union(lambda ring: not ring)
+    return {"device_union_ms": every if spans else None,
+            "device_union_ms_without_ring_kernels":
+                compute if spans else None,
+            "solve_ms_unprofiled": solve_s * 1e3,
+            "device_idle_share": idle(every),
+            "device_idle_share_compute": idle(compute),
+            "device_kernels": len(spans),
+            "top_device_ms": [{"name": k[:60], "ms": v / 1e3} for k, v in
+                              sorted(by_name.items(), key=lambda kv: -kv[1])
+                              [:6]]}
+
+
+def ranks_profile(mp, sync, barrier, profiled: bool):
+    """A short solve (RANKS_PROFILE_ITERS iterations) timed on the host
+    clock, then again under the profiler where ``profiled`` (every rank
+    runs both: the solves are collective; the ranks meet before the
+    second, once the profiler has started). The profile's record, or
+    None."""
+    from blitzdg_tpu_torch.mpc import sharded_box as sbx
+
+    run = lambda: sbx.solve_sharded_mpc(mp, iters=RANKS_PROFILE_ITERS)
+    sync()
+    barrier()
+    t0 = time.perf_counter()
+    run()
+    sync()
+    short_s = time.perf_counter() - t0
+    if not profiled:
+        barrier()
+        run()
+        sync()
+        return None
+    return profile_union(run, short_s, ready=barrier)
+
+
+def ranks_worker(cfg: dict) -> int:
+    """One rank of the sharded MPC in a process of its own: joins the gloo
+    group, runs ``ranks_program`` with the stage ring that
+    ``sharded_mpc_problem`` makes over the group (CUDA IPC), its counters
+    zeroed just before and read just after, then, for the idle share, a
+    short solve (rank 0 profiles it); writes its results to the case's
+    directory."""
+    import torch.distributed as dist
+
+    from blitzdg_tpu_torch.mpc import sharded_box as sbx
+
+    import datetime
+
+    S, rank = cfg["S"], cfg["rank"]
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    mark = lambda what: print(f"[rank {rank}] {time.perf_counter() - t0:.1f}"
+                              f" s: {what}", flush=True)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{cfg['port']}", world_size=S,
+        rank=rank, timeout=datetime.timedelta(seconds=RANKS_WORKER_TIMEOUT))
+    size = dict(getattr(sbx, cfg["size"]), n_shards=S)
+    counters = ranks_counters()
+    for f in counters.values():
+        f.launches = 0
+    mark("joined")
+    mp, res = ranks_program(size, rank, dev, dist.barrier,
+                            torch.cuda.synchronize,
+                            group=dist.group.WORLD)
+    res["launches"] = {k: f.launches for k, f in counters.items()}
+    mark(f"solved in {res['solve_s']:.2f} s")
+    res["profile"] = ranks_profile(mp, torch.cuda.synchronize, dist.barrier,
+                                   rank == 0)
+    res["device"] = torch.cuda.get_device_name(0)
+    mark("profiled")
+    mp.ring.close()
+    torch.save(res, Path(cfg["dir"]) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    print(f"RANKS_OK rank={rank}", flush=True)
+    return 0
+
+
+def run_ranks_workers(S: int, size: str, case_dir: Path) -> list:
+    """S worker processes of this script (``--ranks-worker``), one a rank,
+    each on the card, each under RANKS_WORKER_TIMEOUT; once one fails, the
+    others are given a few seconds and then ended; every one is ended in
+    the end. Fails, with every rank's log, unless every one exits 0.
+    Their results by rank."""
+    port = _free_port()
+    procs, logs = [], []
+    for r in range(S):
+        cfg = {"S": S, "rank": r, "port": port, "dir": str(case_dir),
+               "size": size}
+        log = open(case_dir / f"rank{r}.log", "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--ranks-worker",
+             json.dumps(cfg)], stdout=log, stderr=subprocess.STDOUT,
+            text=True))
+    t0 = time.perf_counter()
+    failed_at = None
+    try:
+        while any(p.poll() is None for p in procs):
+            now = time.perf_counter()
+            if failed_at is None and any(p.poll() not in (None, 0)
+                                         for p in procs):
+                failed_at = now
+            if (now - t0 > RANKS_WORKER_TIMEOUT
+                    or (failed_at is not None and now - failed_at > 20)):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    bad = [r for r, (p, t) in enumerate(zip(procs, texts))
+           if p.returncode != 0 or f"RANKS_OK rank={r}" not in t]
+    if bad:
+        raise RuntimeError(
+            f"ranks workers {bad} of {S} failed (exits "
+            f"{[p.returncode for p in procs]}):\n" + "\n".join(
+                f"--- rank {r}:\n{t[-3000:]}" for r, t in enumerate(texts)))
+    return [torch.load(case_dir / f"rank{r}.pt") for r in range(S)]
+
+
+def stage_ring_regions(plan, n_fp: int, dev):
+    """S zeroed stage-ring regions of this process (batch 1) and each rank's
+    ring over them (``StageRing.over_regions``); with a function that frees
+    the regions."""
+    from blitzdg_tpu_torch.parallel import peer as PR
+
+    S = plan.n_shards
+    lib = PR._lib()
+    lay = PR.stage_region_layout(1, PR._n_slots(plan, n_fp), len(plan.offs),
+                                 S)
+    bases = {}
+
+    def free():
+        torch.cuda.synchronize()
+        for p in bases.values():
+            lib.peer_free(p)
+
+    for r in range(S):
+        p = ctypes.c_void_p()
+        PR._check(lib, lib.peer_alloc(dev.index or 0, lay["bytes"],
+                                      ctypes.byref(p)), "peer_alloc")
+        bases[r] = p.value
+    rings = [PR.StageRing.over_regions(plan, n_fp, 1, r, bases, dev)
+             for r in range(S)]
+    return rings, free
+
+
+def run_ranks_in_process(size: dict, plan, n_fp: int, dev,
+                         iters: int | None = None, profile: bool = True):
+    """The S ranks of the sharded MPC in this process, each on a thread and
+    a stream of its own, over stage rings on regions of this process: their
+    kernels run at the same time and meet only through their flags (and
+    autograd runs each rank's backward on its stream). First rank 0 runs
+    the program alone over a ring whose flags read past any epoch (no wait
+    holds it; its values are not used), so that every kernel the program
+    launches is loaded before the ranks run together (CUDA's lazy loading
+    would load a kernel at its first launch, waiting for the context's
+    running kernels, among them peers waiting at their flags). Then the
+    ranks' program, counters zeroed just before and read just after, and
+    the profiled short solves. Returns each rank's results, the counts,
+    the profile and the wall time of the whole."""
+    S = plan.n_shards
+    warm, free_warm = stage_ring_regions(plan, n_fp, dev)
+    try:
+        warm[0].flags[:] = 1 << 60
+        torch.cuda.synchronize()
+        ranks_program(size, 0, dev, lambda: None, torch.cuda.synchronize,
+                      ring=warm[0], iters=1)
+    finally:
+        free_warm()
+    rings, free = stage_ring_regions(plan, n_fp, dev)
+    streams = [torch.cuda.Stream(dev) for _ in range(S)]
+    meet = threading.Barrier(S)
+    out, problems, errors = [None] * S, [None] * S, []
+    counters = ranks_counters()
+
+    def all_ranks(fn):
+        """``fn(r)`` on a thread a rank, on the rank's stream."""
+        def run(r):
+            try:
+                with torch.cuda.stream(streams[r]):
+                    fn(r)
+            except BaseException as e:  # noqa: BLE001 (raised below)
+                errors.append((r, repr(e)))
+                meet.abort()
+
+        threads = [threading.Thread(target=run, args=(r,), daemon=True)
+                   for r in range(S)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(RANKS_WORKER_TIMEOUT)
+        if any(th.is_alive() for th in threads):
+            raise RuntimeError("a rank's thread did not end")
+        if errors:
+            raise RuntimeError(f"ranks in process failed: {errors}")
+
+    def program(r):
+        problems[r], out[r] = ranks_program(
+            size, r, dev, meet.wait, streams[r].synchronize, ring=rings[r],
+            iters=iters)
+
+    def short(r):
+        from blitzdg_tpu_torch.mpc import sharded_box as sbx
+
+        sbx.solve_sharded_mpc(problems[r], iters=RANKS_PROFILE_ITERS)
+
+    def short_all():
+        all_ranks(short)
+        torch.cuda.synchronize()
+
+    try:
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        w0 = time.perf_counter()
+        all_ranks(program)
+        seconds = time.perf_counter() - w0
+        launches = {k: f.launches for k, f in counters.items()}
+        prof = None
+        if profile:
+            short_all()
+            t0 = time.perf_counter()
+            short_all()
+            prof = profile_union(short_all, time.perf_counter() - t0)
+    finally:
+        free()
+    return out, launches, prof, seconds
+
+
+def stage_ring_check(plan, n_fp: int, dev, rng, flush) -> dict:
+    """The stage ring's three kernels on the card at the main path's shapes
+    (B=1, the plan's receive buffer; a 16-float sum), S ranks in this
+    process on S streams, against their plain versions on the same inputs:
+    the stacked gather of every rank's buffer (forward and reverse) and the
+    rank-order sum, bit for bit. Then each kernel of rank 0 alone, its
+    flags set past any epoch (no wait holds it), CUDA events, L2 flushed,
+    beside its plain version. Launches counted here are not the main
+    path's. Returns a record by kernel name."""
+    from blitzdg_tpu_torch.parallel import peer as PR
+    from blitzdg_tpu_torch.parallel.halo import _stacked, _stacked_source
+
+    S = plan.n_shards
+    rings, free = stage_ring_regions(plan, n_fp, dev)
+    try:
+        L = rings[0].n_slots
+        bufs = torch.as_tensor(rng.standard_normal((S, 1, L, 3)),
+                               dtype=torch.float32, device=dev)
+        xs = torch.as_tensor(rng.standard_normal((S, RANKS_SUM_LEN)),
+                             dtype=torch.float32, device=dev)
+        streams = [torch.cuda.Stream(dev) for _ in range(S)]
+        torch.cuda.synchronize()
+        got = {"peer_stage_exchange": [], "peer_stage_exchange_reverse": [],
+               "peer_rank_sum": []}
+        for r in range(S):
+            with torch.cuda.stream(streams[r]):
+                got["peer_stage_exchange"].append(
+                    PR.peer_stage_exchange(rings[r], bufs[r:r + 1]))
+        for r in range(S):
+            with torch.cuda.stream(streams[r]):
+                got["peer_stage_exchange_reverse"].append(
+                    PR.peer_stage_exchange_reverse(rings[r], bufs[r:r + 1]))
+        for r in range(S):
+            with torch.cuda.stream(streams[r]):
+                got["peer_rank_sum"].append(
+                    PR.peer_rank_sum(rings[r], xs[r]))
+        torch.cuda.synchronize()
+        chunk = plan.max_send * n_fp
+        src = torch.as_tensor(_stacked_source(plan, chunk, 1), device=dev)
+        src_rev = torch.as_tensor(_stacked_source(plan, chunk, -1),
+                                  device=dev)
+        plain = {
+            "peer_stage_exchange": lambda: _stacked(bufs, src),
+            "peer_stage_exchange_reverse": lambda: _stacked(bufs, src_rev),
+            "peer_rank_sum": lambda: PR.rank_order_sum(list(xs))}
+        recs = {}
+        rings[0].flags[:] = 1 << 60
+        torch.cuda.synchronize()
+        alone = {
+            "peer_stage_exchange": lambda: rings[0]._exchange(bufs[:1],
+                                                              False),
+            "peer_stage_exchange_reverse": lambda: rings[0]._exchange(
+                bufs[:1], True),
+            "peer_rank_sum": lambda: rings[0]._sum(xs[0])}
+        for name, fn in plain.items():
+            want = fn()
+            rows = (torch.cat(got[name]) if name != "peer_rank_sum"
+                    else torch.stack(got[name]))
+            ref = want if name != "peer_rank_sum" else want.expand_as(rows)
+            n = 4 * (rows[:1].numel())
+            bnd = bound(2.0 * n, 0.0)
+            recs[name] = {
+                "max_abs_err": float((rows - ref).abs().max()),
+                "bit_equal": bool(torch.equal(rows, ref)),
+                "ms": time_ms(alone[name], RANKS_TIMED_REPS, flush),
+                "plain_ms": time_ms(fn, RANKS_TIMED_REPS, flush),
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "shape": list(rows[:1].shape)}
+    finally:
+        free()
+    return recs
+
+
+def ranks_phases(dev, card: str, rng, flush) -> list:
+    """The sharded MPC one shard a rank on the one card, over the stage
+    ring: its kernels against their plain versions; 4 ranks in this process
+    at full width (``sharded_mpc_S4_in_process``), the example's 8 ranks in
+    this process (``sharded_mpc_example_S8_in_process``) and 4 processes at
+    full width (``sharded_mpc_S4_ranks``), each held to the stacked solve
+    run here. Returns the kernel records of the ``kernels`` line."""
+    import tempfile
+
+    from blitzdg_tpu_torch.mpc import sharded_box as sbx
+
+    # the references: the stacked problems, their gradients at zero
+    # controls through the stacked differentiable step, their solves
+    refs = {}
+    for name in ("FULL", "EXAMPLE"):
+        mp = sbx.sharded_mpc_problem(getattr(sbx, name), device=dev)
+        cs0 = torch.zeros_like(mp.hidden, requires_grad=True)
+        (g0,) = torch.autograd.grad(sbx.sharded_mpc_cost(mp, cs0), cs0)
+        sbx.solve_sharded_mpc(mp, iters=1)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = sbx.solve_sharded_mpc(mp, iters=sbx.MPC_ITERS)
+        torch.cuda.synchronize()
+        refs[name] = {"mp": mp, "grad0": g0.cpu(), "sol": sol,
+                      "solve_s": time.perf_counter() - t0}
+    full, example = refs["FULL"]["mp"], refs["EXAMPLE"]["mp"]
+
+    checks = stage_ring_check(full.sb.plan, full.sb.meta.n_fp, dev, rng,
+                              flush)
+    ok = all(c["bit_equal"] for c in checks.values())
+    say({"phase": "stage_ring_kernels", "card": card, "n_shards": 4,
+         "records": checks, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"the stage ring's kernels disagree with their "
+                           f"plain versions: {checks}")
+
+    def judge(phase, name, res, launches, expect, extra):
+        ref = refs[name]
+        S = len(res)
+        want_t = ref["mp"].target.cpu()
+        tgt_bits = [torch.equal(o["target"], want_t[r:r + 1])
+                    for r, o in enumerate(res)]
+        g_ref = ref["grad0"]
+        grad_err = max(float((o["grad0"] - g_ref).abs().max()
+                             / g_ref.abs().max()) for o in res)
+        same = [all(torch.equal(o[k], res[0][k]) for k in
+                    ("controls", "history", "final", "grad0")) for o in res]
+        first = float(res[0]["history"][0])
+        final = float(res[0]["final"])
+        ratio = final / float(ref["sol"].cost)
+        limit = SHD_EXAMPLE_RATIO if name == "EXAMPLE" else 1.0
+        finite = all(bool(torch.isfinite(o[k]).all()) for o in res
+                     for k in ("controls", "history", "grad0"))
+        rec = {"phase": phase, "card": card, "size": name, "n_shards": S,
+               "k_elem": ref["mp"].ctx.k_elem, "adam_iters": sbx.MPC_ITERS,
+               "n_steps": sbx.MPC_STEPS,
+               "target_bit_equal_to_stacked": tgt_bits,
+               "grad0_vs_stacked_rel_err": grad_err,
+               "grad_tol": SHD_GRAD_RTOL,
+               "ranks_bit_equal": same,
+               "first_cost": first, "final_cost": final,
+               "final_over_first": final / first,
+               "max_final_over_first": limit,
+               "stacked_final_cost": float(ref["sol"].cost),
+               "cost_ratio_to_stacked": ratio, "tol": list(COST_RATIO),
+               "stacked_seconds_per_solve": ref["solve_s"],
+               "launches": launches, "expected_launches": expect, **extra}
+        rec["ok"] = (all(tgt_bits) and grad_err <= SHD_GRAD_RTOL
+                     and all(same) and finite
+                     and COST_RATIO[0] <= ratio <= COST_RATIO[1]
+                     and final / first < limit and launches == expect)
+        say(rec)
+        if not rec["ok"]:
+            raise RuntimeError(f"the ranks' MPC failed its checks: {rec}")
+        return launches
+
+    totals = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # four ranks in this process, full width; the example's eight
+    for phase, name, mp in (("sharded_mpc_S4_in_process", "FULL", full),
+                            ("sharded_mpc_example_S8_in_process", "EXAMPLE",
+                             example)):
+        size = getattr(sbx, name)
+        res, launches, prof, seconds = run_ranks_in_process(
+            size, mp.sb.plan, mp.sb.meta.n_fp, dev)
+        add(judge(phase, name, res, launches,
+                  ranks_expected(sbx.MPC_STEPS, sbx.MPC_ITERS,
+                                 size["n_shards"]),
+                  {"seconds_per_solve": max(o["solve_s"] for o in res),
+                   "setup_seconds": max(o["setup_s"] for o in res),
+                   "seconds": seconds, "profile": prof,
+                   "note": "the ranks on threads and streams of one "
+                           "process, their kernels resident together"}))
+
+    # four processes, full width
+    w0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_ranks_workers(4, "FULL", Path(tmp))
+    seconds = time.perf_counter() - w0
+    launches = {k: sum(o["launches"][k] for o in res)
+                for k in res[0]["launches"]}
+    per_rank_ok = all(o["launches"] == ranks_expected(sbx.MPC_STEPS,
+                                                      sbx.MPC_ITERS, 1)
+                      for o in res)
+    add(judge("sharded_mpc_S4_ranks", "FULL", res, launches,
+              ranks_expected(sbx.MPC_STEPS, sbx.MPC_ITERS, 4),
+              {"seconds_per_solve": [o["solve_s"] for o in res],
+               "setup_seconds": [o["setup_s"] for o in res],
+               "launches_exact_on_every_rank": per_rank_ok,
+               "seconds": seconds,
+               "profile_rank0": res[0]["profile"],
+               "devices": [o["device"] for o in res],
+               "note": "a rank a process, the processes time-sliced on the "
+                       "card (no MPS): the time a solve measures the "
+                       "slices; rank 0's idle share counts its own kernels"}))
+    if not per_rank_ok:
+        raise RuntimeError("a rank's launches are not its program's")
+
+    src = "blitzdg_tpu_torch/ops/csrc/peer.cu"
+    replaces = {
+        "peer_stage_exchange": "blitzdg_tpu/parallel/blocked_shard.py:647",
+        "peer_stage_exchange_reverse":
+            "blitzdg_tpu/parallel/blocked_shard.py:647",
+        "peer_rank_sum": "examples/mpc_sharded.py:123"}
+    return [{"name": name, "route": "cuda", "source": src,
+             "replaces": replaces[name], "launches": totals[name],
+             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+             "bound_by": c["bound_by"], "library_ms": None}
+            for name, c in checks.items()]
+
+
 def rank_ops(ops, r: int):
     """Shard r's operator set of a stacked set, with its shard axis (one
     rank's set)."""
@@ -4506,6 +5099,9 @@ QUAD_KERNELS = [k + Q_SIZES_QUAD_N4 for k in (
 PEER_KERNELS = ["_Z26sw2d_step_rdma_peer_kernel" + z
                 for z in Q_SIZES + (Q_SIZES_N6, Q_SIZES_QUAD_N4)]
 PEER_EXCHANGE_KERNELS = ["_Z25peer_ring_exchange_kernel"]
+# The stage ring's exchange (both directions) and its sum over ranks.
+STAGE_RING_KERNELS = ["_Z26peer_stage_exchange_kernel",
+                      "_Z20peer_rank_sum_kernel"]
 
 
 def check_no_spills(report: dict, kernels: list):
@@ -4523,12 +5119,13 @@ def check_no_spills(report: dict, kernels: list):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("dense", "blocked", "curved",
-                                       "sharded", "peer", "elliptic",
-                                       "solver", "quads", "ins2d", "dg1d",
-                                       "halo", "compat"),
+                                       "sharded", "peer", "ranks",
+                                       "elliptic", "solver", "quads",
+                                       "ins2d", "dg1d", "halo", "compat"),
                     help="run one path's phases alone (default: all)")
     ap.add_argument("--peer-worker", metavar="JSON", help=argparse.SUPPRESS)
     ap.add_argument("--peer-fresh", metavar="JSON", help=argparse.SUPPRESS)
+    ap.add_argument("--ranks-worker", metavar="JSON", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -4538,6 +5135,8 @@ def main() -> int:
         return peer_worker(json.loads(args.peer_worker))
     if args.peer_fresh:
         return peer_fresh_worker(json.loads(args.peer_fresh))
+    if args.ranks_worker:
+        return ranks_worker(json.loads(args.ranks_worker))
 
     from blitzdg_tpu_torch.ops import _build
 
@@ -4585,6 +5184,8 @@ def main() -> int:
         kernels += sharded_phases(dev, card, rng, flush)
     if args.only in (None, "peer"):
         kernels += peer_phases(dev, card, rng, flush)
+    if args.only in (None, "ranks"):
+        kernels += ranks_phases(dev, card, rng, flush)
     if args.only in (None, "elliptic"):
         kernels += elliptic_phases(dev, card, rng, flush)
     if args.only in (None, "solver"):
@@ -4613,6 +5214,9 @@ def main() -> int:
     if args.only in (None, "peer"):
         check_no_spills(blocked, PEER_KERNELS)
         check_no_spills(peer, PEER_EXCHANGE_KERNELS)
+    if args.only in (None, "ranks"):
+        check_no_spills(blocked, SHARDED_KERNELS)
+        check_no_spills(peer, STAGE_RING_KERNELS)
     if args.only in (None, "quads"):
         check_no_spills(blocked, QUAD_KERNELS)
     say({"kernels": kernels})

@@ -1136,6 +1136,42 @@ def test_stage_bwd_control_sum_across_blocks(device, dev, lanes, grid):
                for _, done in TB._stage_bwd_scratch.values())
 
 
+def test_stage_bwd_kernel_from_two_threads_at_once(device):
+    """Two ranks of a ring in one process launch B8 on sets of the same
+    shape at once (threads on the host build, streams on the card): each
+    launch needs its own control sums' scratch and counters of finished
+    blocks, and each thread's cotangents are the bits of the same launch
+    made alone. With one scratch for both (keyed by the shape alone) the
+    counters of one launch count the other's blocks, and the control
+    cotangents come out wrong."""
+    device(1, 1)
+    c = Case(3, 4, 3, seed=8)
+    sb = c.sets[F32]
+    m = sb.meta
+    rng = np.random.default_rng(9)
+    g = lambda *shape: torch.as_tensor(rng.standard_normal(shape), dtype=F32)
+    ranks = [_rank_ops(sb.ops, r) for r in range(2)]
+    args = [((tuple(f[r:r + 1] for f in c.state), c.rb[r:r + 1],
+              tuple(g(1, 3, m.n_v) for _ in range(3)),
+              g(1, 3, sb.ops.send.shape[1], 3), c.dt, c.t, c.ctrl, True,
+              True)) for r in range(2)]
+    alone = [TB._run_stage_bwd(ranks[r], m, *args[r]) for r in range(2)]
+    out = [[], []]
+
+    def rank(r):
+        for _ in range(3):
+            out[r].append(TB._run_stage_bwd(ranks[r], m, *args[r]))
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for r in range(2):
+        assert len(out[r]) == 3
+        assert all(_same(got, alone[r]) for got in out[r])
+
+
 class ForwardCase:
     """The coastal box (with ``n_ctrl`` = 2: two controls) or the wet/dry
     beach, unsharded at one order, as float32 and float64 blocked operator

@@ -3,7 +3,8 @@ shard each of ``box_triangles(6, 6)`` at N = 2 with coastal physics
 (bathymetry, drag, Coriolis, sponge, tidal depth on the open east side) and
 controls, and run 3 fused steps and 3 differentiable steps through
 ``torch.distributed`` (one ``batch_isend_irecv`` round per ring offset). Each
-process writes its shard's states, send buffer and gradients; they must equal
+process writes its shard's states, send buffer and gradients (the controls'
+cotangent summed over the ranks by ``sum_over_ranks_grad``); they must equal
 the stacked transport's results for the same S in one process to 1e-12.
 S = 2 has the one ring offset 1, where the peers rank + 1 and rank - 1 are
 the same; S = 4 has the offsets (1, 2, 3), so a send in the wrong direction
@@ -77,9 +78,11 @@ def run(sb, state, tgt, cs, group=None):
     c = cs.clone().requires_grad_(True)
     st = (h0, state[1], state[2])
     dstep = BS.make_sharded_blocked_step_diff(sb, DT, group=group)
+    # one shard a rank: the controls' cotangent summed over the ranks
+    c_all = BS.sum_over_ranks_grad(c, dstep.exchange)
     dcarry, t = (st, BS.initial_send_buffer(sb, st)), T0
     for i in range(N_STEPS):
-        dcarry = dstep(dcarry, t, c[i])
+        dcarry = dstep(dcarry, t, c_all[i])
         t += DT
     h, hu, hv = dcarry[0]
     loss = ((h - tgt) ** 2).sum() + 0.1 * (hu ** 2).sum() + hv.sum()
