@@ -8,16 +8,20 @@
 //   peer_ring_exchange_kernel   the step-boundary exchange of a ring's
 //                               initial send buffer (the one-launch step)
 //   peer_stage_exchange_kernel  the stage ring's exchange of a stage's send
-//                               buffer, and its reverse (the backward)
-//   peer_rank_sum_kernel        the stage ring's sum of a small vector over
-//                               the ranks, the same bits on every rank
+//                               buffer, and its reverse (the backward); the
+//                               halo ring's exchange of face rows, and its
+//                               reverse
+//   peer_rank_reduce_kernel     a ring's sum or maximum of a small float or
+//                               double vector over the ranks, the same bits
+//                               on every rank
 //
 // Regions come from cudaMalloc, not from the torch caching allocator: that
 // allocator sub-allocates (a handle names its whole segment), and its
 // expandable segments are cuMemCreate memory, which cudaIpcGetMemHandle
 // refuses.
 //
-// All three move a send buffer's chunks the same way (send_chunk): one
+// Both exchange kernels move a send buffer's chunks the same way
+// (send_chunk), as 4-byte words, whatever the type: one
 // block a ring offset i waits until the receiving rank's slots of chunk i
 // are free (a GO flag in this rank's memory, released by the receiver),
 // stores chunk i of every scenario into them, fences at system scope and
@@ -39,22 +43,39 @@
 // peer_stage_exchange_kernel replaces the XLA ppermute between the RK
 // stages of the differentiable sharded step (blitzdg_tpu/parallel/
 // blocked_shard.py, make_sharded_blocked_step_diff, its exchange) and, with
-// `rev`, its transpose in the backward sweep; no TPU kernel. Block i sends
-// chunk i (send_chunk: forward to rank + d over FGO / FIN, reverse to rank
-// - d over RGO / RIN), then waits for its own ARRIVED flag of chunk i,
-// copies the chunk from its slots into `out` (memory torch owns, so that
-// autograd may keep it) and releases the sender's GO flag. Bound on the
-// card: bytes (B x L x 3 floats read and written, some KB at the sharded
-// path's shapes); what it waits for is the launch and the flags.
+// `rev`, its transpose in the backward sweep; and the lax.ppermute a ring
+// offset of the element-sharded plain-tensor path's face rows
+// (blitzdg_tpu/parallel/halo.py, halo_face_rows) with its transpose, every
+// offset in one launch; no TPU kernel. The chunk's size (words a ring
+// offset) and a row's (words a scenario) are the launch's, so one kernel
+// takes the stage's (B, L, 3) floats and the halo's face rows of any
+// width and type (float32, float64, bfloat16 padded to whole words). In
+// the slots chunk i lies at i x slot_cw, slot_cw the same for every call
+// of a ring (its chunk size for a stage ring, the slot set's words over
+// the ring offsets for a halo ring): a call whose chunks are smaller than
+// the last call's never stores into another chunk's slots, which only
+// that chunk's GO flag frees. Block
+// i sends chunk i (send_chunk: forward to rank + d over FGO / FIN, reverse
+// to rank - d over RGO / RIN), then waits for its own ARRIVED flag of
+// chunk i, copies the chunk from its slots into `out` (memory torch owns,
+// so that autograd may keep it) and releases the sender's GO flag. Bound
+// on the card: bytes (some KB at the sharded paths' shapes); what it
+// waits for is the launch and the flags.
 //
-// peer_rank_sum_kernel replaces the XLA psum of the sharded MPC's cost
-// (examples/mpc_sharded.py) and the sum over chips of the shared control's
-// cotangent that JAX's transpose of the replicated controls makes; no TPU
-// kernel. One block: this rank's n floats into slot `rank` of every rank's
-// sum slots (each guarded by SGO, arrival released in SIN), then, once
-// every rank's part has arrived in this rank's slots, the sum in rank order
-// 0, 1, ..., S-1 in float: every rank adds the same values in the same
-// order, so every rank holds the same bits. Bound: bytes.
+// peer_rank_reduce_kernel<T, OP> (OP 0: sum, 1: maximum; T float or
+// double) replaces the XLA psum of the sharded MPC's cost
+// (examples/mpc_sharded.py), the sum over chips of the shared control's
+// cotangent that JAX's transpose of the replicated controls makes, the
+// psums of the Krylov loops' dots (blitzdg_tpu/solvers/krylov.py,
+// _reducers) and the lax.pmax of the element-sharded time step
+// (blitzdg_tpu/parallel/halo.py, halo_sw2d_timestep); no TPU kernel. One
+// block: this rank's n values into slot `rank` of every rank's reduction
+// slots (each guarded by SGO, arrival released in SIN), then, once every
+// rank's part has arrived in this rank's slots, the parts combined in rank
+// order 0, 1, ..., S-1 in T: every rank combines the same values in the
+// same order, so every rank holds the same bits. The maximum carries a NaN
+// of any rank to every rank (the first in rank order), as pmax does.
+// Bound: bytes.
 //
 // Plain C interface (extern "C" at the end), loaded with ctypes. The
 // kernels launch on the stream passed in; nothing here synchronises
@@ -65,28 +86,38 @@
 
 #include "peer_flags.cuh"
 
-// Chunk i (cw floats a scenario) of every scenario of src (B, L, 3) into
-// the same places of dst; the block's threads share the work.
-__device__ __forceinline__ void chunk_copy(float* dst, const float* src, int i,
-                                           int cw, int B, int L) {
+// Where chunk i of B rows lies: a row every `row` words, chunk i at
+// i x `stride` words in it.
+struct ChunkLayout {
+  int row, stride;
+};
+
+// Chunk i (cw words a row) of each of B rows of src (layout sl) into dst
+// (layout dl); the block's threads share the work.
+__device__ __forceinline__ void chunk_copy(unsigned* dst, ChunkLayout dl,
+                                           const unsigned* src,
+                                           ChunkLayout sl, int i, int cw,
+                                           int B) {
   for (int k = threadIdx.x; k < B * cw; k += blockDim.x) {
-    const int b = k / cw;
-    const size_t o = (size_t)b * L * 3 + (size_t)i * cw + (k - b * cw);
-    dst[o] = __ldcg(src + o);
+    const int b = k / cw, j = k - b * cw;
+    dst[(size_t)b * dl.row + (size_t)i * dl.stride + j] =
+        __ldcg(src + (size_t)b * sl.row + (size_t)i * sl.stride + j);
   }
 }
 
-// Chunk i of src into the receiving rank's slots `dst` once its GO flag
-// `go` (this rank's memory) reads epoch e; then, every store fenced at
-// system scope, the receiver's ARRIVED flag `arrived` set to e. Thread 0
-// waits and releases; the whole block stores.
+// Chunk i of src (layout sl) into the receiving rank's slots `dst` (layout
+// dl) once its GO flag `go` (this rank's memory) reads epoch e; then,
+// every store fenced at system scope, the receiver's ARRIVED flag
+// `arrived` set to e. Thread 0 waits and releases; the whole block stores.
 __device__ __forceinline__ void send_chunk(flag_t* go, flag_t* arrived,
                                            flag_t e, long long timeout_ns,
-                                           float* dst, const float* src,
-                                           int i, int cw, int B, int L) {
+                                           unsigned* dst, ChunkLayout dl,
+                                           const unsigned* src,
+                                           ChunkLayout sl, int i, int cw,
+                                           int B) {
   if (threadIdx.x == 0) flag_wait(go, e, timeout_ns);
   __syncthreads();
-  chunk_copy(dst, src, i, cw, B, L);
+  chunk_copy(dst, dl, src, sl, i, cw, B);
   __threadfence_system();
   __syncthreads();
   if (threadIdx.x == 0) flag_release(arrived, e);
@@ -94,38 +125,56 @@ __device__ __forceinline__ void send_chunk(flag_t* go, flag_t* arrived,
 
 __global__ void peer_ring_exchange_kernel(const long long* tab,
                                           const float* sbuf, int B, int L) {
-  const int i = blockIdx.x;
+  const int i = blockIdx.x, cw = 3 * (int)tab[PT_CHUNK];
   const flag_t e = *peer_epoch(tab) + 1;
+  const ChunkLayout lay = {3 * L, cw};
   send_chunk(peer_flag(tab, tab[PT_OWN], i, PEER_GOB),
              peer_flag(tab, peer_to(tab, i), i, PEER_INB), e,
              tab[PT_TIMEOUT],
-             reinterpret_cast<float*>(peer_to(tab, i) + tab[PT_RBB]), sbuf,
-             i, 3 * (int)tab[PT_CHUNK], B, L);
+             reinterpret_cast<unsigned*>(peer_to(tab, i) + tab[PT_RBB]), lay,
+             reinterpret_cast<const unsigned*>(sbuf), lay, i, cw, B);
 }
 
 __global__ void peer_stage_exchange_kernel(const long long* tab, int rev,
-                                           const float* src, float* out,
-                                           int B, int L, flag_t e) {
-  const int i = blockIdx.x, cw = 3 * (int)tab[SR_CHUNK];
+                                           const unsigned* src, unsigned* out,
+                                           int B, int row, int cw,
+                                           int slot_cw, flag_t e) {
+  const int i = blockIdx.x;
   const long long own = tab[SR_OWN], timeout = tab[SR_TIMEOUT];
   const long long to = rev ? sr_from(tab, i) : sr_to(tab, i);
   const long long from = rev ? sr_to(tab, i) : sr_from(tab, i);
   const long long slots = rev ? tab[SR_REV] : 0;
   const int go = rev ? SR_RGO : SR_FGO, in = rev ? SR_RIN : SR_FIN;
+  // the buffers' rows and chunks; the slots' chunk i always at the same
+  // place, whatever the call's chunk (guarded by the flags of chunk i)
+  const ChunkLayout buf = {row, cw};
+  const ChunkLayout sl = {(int)tab[SR_NOFF] * slot_cw, slot_cw};
   send_chunk(sr_flag(tab, own, i, go), sr_flag(tab, to, i, in), e, timeout,
-             reinterpret_cast<float*>(to + slots), src, i, cw, B, L);
+             reinterpret_cast<unsigned*>(to + slots), sl, src, buf, i, cw,
+             B);
   if (threadIdx.x == 0) flag_wait(sr_flag(tab, own, i, in), e, timeout);
   __syncthreads();
-  chunk_copy(out, reinterpret_cast<const float*>(own + slots), i, cw, B, L);
+  chunk_copy(out, buf, reinterpret_cast<const unsigned*>(own + slots), sl, i,
+             cw, B);
   __threadfence_system();
   __syncthreads();
   if (threadIdx.x == 0) flag_release(sr_flag(tab, from, i, go), e + 1);
 }
 
-__global__ void peer_rank_sum_kernel(const long long* tab, const float* x,
-                                     float* out, int n, flag_t e) {
+// The combination of two parts: their sum, or their maximum with a NaN
+// kept (the first operand's if both are NaN).
+template <class T, int OP>
+__device__ __forceinline__ T rank_combine(T acc, T x) {
+  if (OP == 0) return acc + x;
+  if (acc != acc) return acc;
+  return (x != x || x > acc) ? x : acc;
+}
+
+template <class T, int OP>
+__global__ void peer_rank_reduce_kernel(const long long* tab, const T* x,
+                                        T* out, int n, flag_t e) {
   const int S = (int)tab[SR_S], r = (int)tab[SR_RANK];
-  const int len = (int)tab[SR_SUMLEN];
+  const int len = (int)(tab[SR_SUMBYTES] / (long long)sizeof(T));
   const long long own = tab[SR_OWN], timeout = tab[SR_TIMEOUT];
   // this rank's part into slot r of every rank, once each slot is free
   for (int p = threadIdx.x; p < S; p += blockDim.x)
@@ -133,8 +182,7 @@ __global__ void peer_rank_sum_kernel(const long long* tab, const float* x,
   __syncthreads();
   for (int k = threadIdx.x; k < S * n; k += blockDim.x) {
     const int p = k / n, j = k - p * n;
-    reinterpret_cast<float*>(sr_rank(tab, p) + tab[SR_SUM])[r * len + j] =
-        x[j];
+    reinterpret_cast<T*>(sr_rank(tab, p) + tab[SR_SUM])[r * len + j] = x[j];
   }
   __threadfence_system();
   __syncthreads();
@@ -143,17 +191,32 @@ __global__ void peer_rank_sum_kernel(const long long* tab, const float* x,
     flag_wait(sr_sum_flag(tab, own, p, SR_SIN), e, timeout);
   }
   __syncthreads();
-  // every part here: their sum in rank order
-  const float* slot = reinterpret_cast<const float*>(own + tab[SR_SUM]);
+  // every part here: combined in rank order
+  const T* slot = reinterpret_cast<const T*>(own + tab[SR_SUM]);
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    float acc = __ldcg(slot + j);
-    for (int p = 1; p < S; ++p) acc = acc + __ldcg(slot + p * len + j);
+    T acc = __ldcg(slot + j);
+    for (int p = 1; p < S; ++p)
+      acc = rank_combine<T, OP>(acc, __ldcg(slot + p * len + j));
     out[j] = acc;
   }
   __threadfence_system();
   __syncthreads();
   for (int p = threadIdx.x; p < S; p += blockDim.x)
     flag_release(sr_sum_flag(tab, sr_rank(tab, p), r, SR_SGO), e + 1);
+}
+
+template <class T, int OP>
+static int launch_reduce(const long long* tab, const void* x, void* out,
+                         int n, flag_t e, int threads, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = (cudaStream_t)stream;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, peer_rank_reduce_kernel<T, OP>, tab, static_cast<const T*>(x),
+      static_cast<T*>(out), n, e);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -168,7 +231,14 @@ int peer_load() {
   cudaError_t e = cudaFuncGetAttributes(&attr, peer_ring_exchange_kernel);
   if (e == cudaSuccess)
     e = cudaFuncGetAttributes(&attr, peer_stage_exchange_kernel);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, peer_rank_sum_kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, peer_rank_reduce_kernel<float, 0>);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, peer_rank_reduce_kernel<float, 1>);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, peer_rank_reduce_kernel<double, 0>);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, peer_rank_reduce_kernel<double, 1>);
   return (int)e;
 }
 
@@ -221,34 +291,42 @@ int peer_ring_exchange(const long long* tab, const float* sbuf, int n_off,
   return (int)cudaGetLastError();
 }
 
-// The stage ring's exchange of src (B, L, 3) into out (B, L, 3) over its
-// table (n_off ring offsets), forward or (rev) reverse, epoch e of that use.
-// (threads: a block's, a multiple of 32.)
-int peer_stage_exchange(const long long* tab, int rev, const float* src,
-                        float* out, int n_off, int B, int L,
-                        unsigned long long e, int threads, void* stream) {
+// A ring's exchange of src into out over its table (n_off ring offsets),
+// forward or (rev) reverse, epoch e of that use: chunk i (cw words) of each
+// of B rows of `row` words, at i x cw in a row; in the slots at i x
+// slot_cw in rows of n_off x slot_cw words. (threads: a block's, a
+// multiple of 32.)
+int peer_stage_exchange(const long long* tab, int rev, const void* src,
+                        void* out, int n_off, int B, int row, int cw,
+                        int slot_cw, unsigned long long e, int threads,
+                        void* stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_off);
   cfg.blockDim = dim3(threads);
   cfg.stream = (cudaStream_t)stream;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, peer_stage_exchange_kernel, tab, rev, src, out, B, L, (flag_t)e);
+      &cfg, peer_stage_exchange_kernel, tab, rev,
+      static_cast<const unsigned*>(src), static_cast<unsigned*>(out), B, row,
+      cw, slot_cw, (flag_t)e);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The stage ring's sum over its ranks of x (n floats, at most the table's
-// SR_SUMLEN) into out, epoch e of the sums.
-int peer_rank_sum(const long long* tab, const float* x, float* out, int n,
-                  unsigned long long e, int threads, void* stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1);
-  cfg.blockDim = dim3(threads);
-  cfg.stream = (cudaStream_t)stream;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, peer_rank_sum_kernel, tab, x, out, n, (flag_t)e);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+// A ring's sum (op 0) or maximum (op 1) over its ranks of x (n values of
+// type `dtype`, 0 float or 1 double, at most the table's SR_SUMBYTES) into
+// out, epoch e of the reductions.
+int peer_rank_reduce(const long long* tab, int op, int dtype, const void* x,
+                     void* out, int n, unsigned long long e, int threads,
+                     void* stream) {
+  const flag_t f = (flag_t)e;
+  if (dtype == 0)
+    return op == 0 ? launch_reduce<float, 0>(tab, x, out, n, f, threads, stream)
+                   : launch_reduce<float, 1>(tab, x, out, n, f, threads, stream);
+  if (dtype == 1)
+    return op == 0
+               ? launch_reduce<double, 0>(tab, x, out, n, f, threads, stream)
+               : launch_reduce<double, 1>(tab, x, out, n, f, threads, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

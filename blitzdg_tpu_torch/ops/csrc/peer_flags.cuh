@@ -1,9 +1,9 @@
 // Flags between ranks that store into each other's device memory: the
 // rings' tables and region layouts, acquire waits and release stores at
 // system scope. Shared by peer.cu (the exchange of a ring's initial send
-// buffer, and the stage ring's exchanges and sums) and the one-launch
-// step's peer mode (sw2d_blocked.cu, which stores both halos: the
-// inter-stage one and the next step's step-boundary one);
+// buffer, and the stage and halo rings' exchanges and reductions) and the
+// one-launch step's peer mode (sw2d_blocked.cu, which stores both halos:
+// the inter-stage one and the next step's step-boundary one);
 // parallel/peer.py writes the regions and the tables.
 //
 // Every flag is a 64-bit epoch that only grows, so nothing is ever reset.
@@ -36,31 +36,43 @@
 
 //
 // The stage ring (the differentiable sharded step and the MPC across
-// ranks: parallel/peer.py, StageRing) has a region and a table of its own.
-// Its region (byte offsets from its table):
-//   0              the forward exchange's receive slots, (B, L, 3) floats
-//   [SR_REV]       the reverse exchange's receive slots, (B, L, 3) floats
-//   [SR_SUM]       the sum's slots, one a rank: S x SR_SUMLEN floats
+// ranks: parallel/peer.py, StageRing) and the halo ring (the
+// element-sharded plain-tensor path across ranks: HaloRing, of which the
+// stage ring is the kind sized by the blocked buffers) have a region and a
+// table of their own. Its region (byte offsets from its table):
+//   0              the forward exchange's receive slots (SR_CAP words)
+//   [SR_REV]       the reverse exchange's receive slots (SR_CAP words)
+//   [SR_SUM]       the reductions' slots, one a rank: S x SR_SUMBYTES
+//                  bytes (the sums and the maxima share them)
 //   [SR_FLAGS]     four words a ring offset i: FGO, FIN, RGO, RIN; then two
 //                  words a rank p: SIN, SGO
+// An exchange moves one chunk of words a ring offset, the chunk's size
+// given at its launch: chunk i of a row of words lies at i x (words of a
+// chunk) in the sender's buffer and at i x slot_cw in the receiver's
+// slots, slot_cw fixed for the ring (the stage exchange: rows (B, L, 3)
+// floats, a scenario a row, slot_cw its chunk; the halo exchange: one row,
+// the face rows of every offset in offset-major order, of any type,
+// padded to whole words, slot_cw the slot set's words over the ring
+// offsets, so that chunk i's slots stay chunk i's whatever the call).
 // For ring offset i (offset d), the forward exchange sends chunk i of rank
 // r to rank r + d and the reverse exchange to rank r - d:
 //   FGO[i]  r + d's forward slots of chunk i are free (written by r + d)
 //   FIN[i]  r - d's forward chunk has arrived in r's slots
 //   RGO[i]  r - d's reverse slots of chunk i are free (written by r - d)
 //   RIN[i]  r + d's reverse chunk has arrived in r's slots
-//   SIN[p]  rank p's part of the sum has arrived in r's sum slot p
-//   SGO[p]  p's sum slot r is free (p has read r's part there)
+//   SIN[p]  rank p's part of the reduction has arrived in r's slot p
+//   SGO[p]  p's reduction slot r is free (p has read r's part there)
 // Each use counts its own epochs (the caller passes the epoch: every rank
-// makes the same calls in the same order); a GO flag starts at 1, and a
+// makes the same calls in the same order; the sums and the maxima count
+// together, over their shared slots); a GO flag starts at 1, and a
 // receiver sets it to e + 1 when it has read epoch e, so a sender of epoch
 // e waits for GO >= e.
 // The table (64-bit words in device memory): this rank's region, the wait
-// bound in ns, the ring offsets, the slots of one offset, the ranks, this
-// rank, the floats of one sum slot, the offsets of the flags, reverse slots
-// and sum slots in a region, six unused words; then a ring offset each the
-// region of rank + d, then of rank - d; then the region of every rank in
-// rank order.
+// bound in ns, the ring offsets, the words of a slot set (SR_CAP), the
+// ranks, this rank, the bytes of one reduction slot, the offsets of the
+// flags, reverse slots and reduction slots in a region, six unused words;
+// then a ring offset each the region of rank + d, then of rank - d; then
+// the region of every rank in rank order.
 
 #pragma once
 
@@ -122,8 +134,8 @@ static __device__ __noinline__ void flag_wait(flag_t* f, flag_t v,
   }
 }
 
-enum { SR_OWN = 0, SR_TIMEOUT = 1, SR_NOFF = 2, SR_CHUNK = 3, SR_S = 4,
-       SR_RANK = 5, SR_SUMLEN = 6, SR_FLAGS = 7, SR_REV = 8, SR_SUM = 9,
+enum { SR_OWN = 0, SR_TIMEOUT = 1, SR_NOFF = 2, SR_CAP = 3, SR_S = 4,
+       SR_RANK = 5, SR_SUMBYTES = 6, SR_FLAGS = 7, SR_REV = 8, SR_SUM = 9,
        SR_HEAD = 16 };
 enum { SR_FGO = 0, SR_FIN = 1, SR_RGO = 2, SR_RIN = 3 };
 enum { SR_SIN = 0, SR_SGO = 1 };
@@ -140,13 +152,13 @@ __device__ __forceinline__ long long sr_rank(const long long* tab, int p) {
   return tab[SR_HEAD + 2 * tab[SR_NOFF] + p];
 }
 
-// Flag k of ring offset i in the stage ring's region at `region`.
+// Flag k of ring offset i in a stage or halo ring's region at `region`.
 __device__ __forceinline__ flag_t* sr_flag(const long long* tab,
                                            long long region, int i, int k) {
   return reinterpret_cast<flag_t*>(region + tab[SR_FLAGS]) + 4 * i + k;
 }
 
-// Flag k of rank p's part of the sum in the region at `region`.
+// Flag k of rank p's part of a reduction in the region at `region`.
 __device__ __forceinline__ flag_t* sr_sum_flag(const long long* tab,
                                                long long region, int p,
                                                int k) {

@@ -14,9 +14,11 @@ from .halo import (HaloPlan, RingExchange, build_gauss_halo_plan,
                    halo_poisson2d_op, halo_sw2d_curved_rhs, halo_sw2d_rhs,
                    halo_sw2d_timestep, halo_tables, halo_traces,
                    ring_exchange, sum_over_ranks)
-from .peer import (PeerRing, StageRing, peer_rank_sum, peer_ring_exchange,
+from .peer import (HaloRing, PeerRing, StageRing, halo_slot_bytes,
+                   peer_halo_exchange, peer_halo_exchange_reverse,
+                   peer_rank_max, peer_rank_sum, peer_ring_exchange,
                    peer_stage_exchange, peer_stage_exchange_reverse,
-                   rank_order_sum)
+                   rank_order_max, rank_order_sum)
 from .partition import (compute_partition, graph_partition, pad_context,
                         pad_elements, partition_block_sizes, partition_cut,
                         partition_mesh, rcb_block_sizes, rcb_partition,
@@ -43,6 +45,8 @@ __all__ = [
     "make_sharded_blocked_step_fused", "make_sharded_blocked_step_diff",
     "make_sharded_blocked_step_rdma", "PeerRing", "peer_ring_exchange",
     "StageRing", "peer_stage_exchange", "peer_stage_exchange_reverse",
-    "peer_rank_sum", "rank_order_sum", "sum_over_ranks_grad",
+    "peer_rank_sum", "rank_order_sum", "HaloRing", "halo_slot_bytes",
+    "peer_halo_exchange", "peer_halo_exchange_reverse", "peer_rank_max",
+    "rank_order_max", "sum_over_ranks_grad",
     "total_over_ranks", "split_shards", "join_shards",
 ]

@@ -8,10 +8,11 @@ for entry), ``halo_comm_model``, ``halo_face_rows``, ``halo_traces``,
 ``_localize_bc``, ``halo_sw2d_rhs``, ``halo_poisson2d_op``,
 ``halo_sw2d_timestep`` and ``halo_sw2d_curved_rhs``. ``ring_exchange`` (with
 ``RingExchange``, its tables) moves the blocked path's send buffers.
-``_ppermute`` is the call site of every exchange by ring offset but one: the
+``_ppermute`` is the call site of every exchange by ring offset but the
 blocked path's stacked buffers, which ``ring_exchange`` moves in one static
 gather over every offset (``_StackedExchange``), one launch where a roll an
-offset would be one each.
+offset would be one each, and the rings' exchanges, one kernel launch for
+every offset.
 
 Each shard owns a contiguous block of K / S elements. The only data another
 shard needs is the '-' trace of the faces on the cut. The plan lists, per
@@ -21,7 +22,7 @@ shard (s + d) mod S. The blocked path's buffers are ``(S_here, B, L, 3)``:
 the shards held here, the scenarios, ``L = n_off * chunk`` slots (chunk d
 holds the values for offset ``offs[d]``) and the three fields.
 
-Three transports, all differentiable (the backward is the same exchange in
+Four transports, all differentiable (the backward is the same exchange in
 the reverse direction):
 
  - stacked: all S shards on one device, on a shard axis. The receive
@@ -35,10 +36,18 @@ the reverse direction):
    a ``parallel.StageRing``, device memory that the ranks map into each
    other, one exchange kernel launch forward and one in the backward
    (``peer_stage_exchange``, ``peer_stage_exchange_reverse``).
+ - halo ring (the plain-tensor path's face rows on the card, one shard a
+   rank): a ``parallel.HaloRing`` (of which the stage ring is a kind), the
+   per-offset gathers stacked into one send buffer, one exchange kernel
+   launch for every offset forward and one in the backward
+   (``peer_halo_exchange``, ``peer_halo_exchange_reverse``).
 
 ``sum_over_ranks`` sums a tensor over the ranks, the same bits on every
 rank: the parts added in rank order, gathered over the process group (CPU
-tensors) or by the stage ring's sum kernel (``peer_rank_sum``).
+tensors) or by the ring's sum kernel (``peer_rank_sum``). Across ranks on
+the card every exchange and reduction takes a ring (``ring=``): a process
+group with CUDA tensors and no ring raises (NCCL refuses two ranks on one
+card, and nothing falls back to the CPU).
 
 With no offsets (S = 1) the receive buffer is zeros.
 
@@ -48,10 +57,10 @@ axis, the port keeps it: per-element fields are ``(S_here, K_loc, ...)``
 (``parallel.shard_context`` makes the context's), the tables
 ``(S_here, ...)`` (``halo_tables``), face rows ``(n_fields, S_here, F_loc,
 w)``; ``S_here`` is S on the stacked transport (``group=None``) and 1 on a
-process group (``group=``, in the place of ``axis_name``). The shard index
-(``lax.axis_index``) is the position on the shard axis, or the rank; the
-maximum over shards (``lax.pmax``) a max over that axis, or an
-``all_reduce`` with ``MAX``.
+process group (``group=``, in the place of ``axis_name``) or a halo ring
+(``ring=``). The shard index (``lax.axis_index``) is the position on the
+shard axis, or the rank; the maximum over shards (``lax.pmax``) a max over
+that axis, an ``all_reduce`` with ``MAX``, or the ring's ``peer_rank_max``.
 """
 from __future__ import annotations
 
@@ -268,6 +277,21 @@ class _RingStageExchange(torch.autograd.Function):
         return peer_stage_exchange_reverse(ctx.ring, grad.contiguous()), None
 
 
+class _RingHaloExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, buf, ring):
+        from .peer import peer_halo_exchange
+
+        ctx.ring = ring
+        return peer_halo_exchange(ring, buf)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from .peer import peer_halo_exchange_reverse
+
+        return peer_halo_exchange_reverse(ctx.ring, grad.contiguous()), None
+
+
 class RingExchange:
     """The exchange of one plan, its static tables made once: call it with
     a send buffer ``(S_here, B, L, 3)`` to get the receive buffer.
@@ -295,19 +319,26 @@ class RingExchange:
     def ring_for(self, t: torch.Tensor):
         """The stage ring that serves ``t``, or None (the stacked transport,
         or the process group's on CPU tensors)."""
-        if self.ring is None:
-            if self.group is not None and t.is_cuda:
-                raise ValueError(
-                    "across ranks on the card the exchange takes this rank's "
-                    "parallel.StageRing (ring=); the process group's "
-                    "point-to-point transport serves CPU tensors")
-            return None
-        if t.device != self.ring.device:
+        return _ring_for(t, self.group, self.ring)
+
+
+def _ring_for(t: torch.Tensor, group, ring):
+    """The ring (``ring=``) that serves ``t``, or None: the stacked
+    transport, or the process group's on CPU tensors. A process group with
+    a tensor on the card and no ring raises."""
+    if ring is None:
+        if group is not None and t.is_cuda:
             raise ValueError(
-                f"a tensor on {t.device} for a ring on {self.ring.device}: "
-                "the stage ring runs on the card; on CPU tensors the process "
-                "group's RingExchange is the transport")
-        return self.ring
+                "across ranks on the card the exchange takes this rank's "
+                "ring (ring=: a parallel.HaloRing or StageRing); the process "
+                "group's transport serves CPU tensors")
+        return None
+    if t.device != ring.device:
+        raise ValueError(
+            f"a tensor on {t.device} for a ring on {ring.device}: the ring "
+            "runs on the card; on CPU tensors the process group is the "
+            "transport")
+    return ring
 
 
 def ring_exchange(sbuf: torch.Tensor, ex: RingExchange) -> torch.Tensor:
@@ -359,12 +390,17 @@ def sum_over_ranks(x: torch.Tensor, ex: RingExchange) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def halo_face_rows(rows: torch.Tensor, tables, plan: HaloPlan, group=None,
-                   halo_dtype=None) -> torch.Tensor:
+                   halo_dtype=None, ring=None) -> torch.Tensor:
     """'+' face rows from the local '-' face rows ``rows`` (n_fields,
     S_here, F_loc, w): one exchange per active ring offset, then each local
     face's source row, reversed where the face is flipped. Any width: w is
     Nfp for nodal traces, NG for Gauss traces. ``tables``: ``halo_tables``
     rows of the shards held here.
+
+    ``ring``: this rank's ``parallel.HaloRing`` (one shard a rank on the
+    card, ``S_here = 1``): the offsets' gathers go into one offset-major
+    send buffer (n_off, n_fields, max_send, w), moved by one exchange
+    launch, whose backward is the reverse launch.
 
     ``halo_dtype`` (e.g. ``torch.bfloat16``) casts the shipped buffer
     alone; local faces keep their precision. The '+' trace is only the
@@ -372,15 +408,26 @@ def halo_face_rows(rows: torch.Tensor, tables, plan: HaloPlan, group=None,
     face-flux noise for half the bytes: opt-in."""
     send_idx, psrc, pflip = tables
     nF, Sh, _, w = rows.shape
+    ring = _ring_for(rows, group, ring)
     parts = [rows]
-    for di, d in enumerate(plan.offs):
-        idx = send_idx[:, di].long()
-        buf = torch.gather(rows, 2, idx[None, :, :, None].expand(
-            nF, Sh, idx.shape[1], w))
+    if ring is not None and plan.offs:
+        if Sh != 1:
+            raise ValueError(f"a ring's rank holds one shard, not {Sh}")
+        idx = send_idx[0, :len(plan.offs)].long()
+        buf = rows[:, 0][:, idx].transpose(0, 1).contiguous()
         if halo_dtype is not None:
             buf = buf.to(halo_dtype)
-        parts.append(_ppermute(buf, d, plan.n_shards, group, dim=1)
-                     .to(rows.dtype))
+        recv = _RingHaloExchange.apply(buf, ring).to(rows.dtype)
+        parts.append(recv.transpose(0, 1).reshape(nF, 1, -1, w))
+    else:
+        for di, d in enumerate(plan.offs):
+            idx = send_idx[:, di].long()
+            buf = torch.gather(rows, 2, idx[None, :, :, None].expand(
+                nF, Sh, idx.shape[1], w))
+            if halo_dtype is not None:
+                buf = buf.to(halo_dtype)
+            parts.append(_ppermute(buf, d, plan.n_shards, group, dim=1)
+                         .to(rows.dtype))
     comb = torch.cat(parts, dim=2)
     src = psrc.long()
     out = torch.gather(comb, 2, src[None, :, :, None].expand(
@@ -389,22 +436,24 @@ def halo_face_rows(rows: torch.Tensor, tables, plan: HaloPlan, group=None,
 
 
 def halo_traces(fields, ctx: DGContext2D, tables, plan: HaloPlan, group=None,
-                halo_dtype=None):
+                halo_dtype=None, ring=None):
     """'-' and '+' traces of a tuple of (S_here, K_loc, Np) fields, the cut
-    faces' '+' side exchanged (``halo_face_rows``). Returns two
-    (n_fields, S_here, F_loc*Nfp) stacks."""
+    faces' '+' side exchanged (``halo_face_rows``, over ``group`` or
+    ``ring``). Returns two (n_fields, S_here, F_loc*Nfp) stacks."""
     n_fp = ctx.n_fp
     fm = ctx.fmask.reshape(-1)
     fMf = torch.stack([f[..., fm] for f in fields])
     nF, Sh = fMf.shape[:2]
     fMf = fMf.reshape(nF, Sh, -1, n_fp)
-    fP = halo_face_rows(fMf, tables, plan, group, halo_dtype)
+    fP = halo_face_rows(fMf, tables, plan, group, halo_dtype, ring)
     return fMf.reshape(nF, Sh, -1), fP.reshape(nF, Sh, -1)
 
 
-def _shard_ids(n_here: int, group, device) -> torch.Tensor:
+def _shard_ids(n_here: int, group, device, ring=None) -> torch.Tensor:
     """(S_here, 1) ids of the shards held here: the positions on the
-    stacked shard axis, or this rank of ``group``."""
+    stacked shard axis, this rank of ``ring``, or this rank of ``group``."""
+    if ring is not None:
+        return torch.full((1, 1), ring.rank, device=device)
     if group is None:
         return torch.arange(n_here, device=device)[:, None]
     import torch.distributed as dist
@@ -435,7 +484,7 @@ def _set_drop(a: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
 
 def halo_sw2d_rhs(ctx: DGContext2D, state: SWState, t, phys: SWPhysics,
                   tables, plan: HaloPlan, group=None, tidal_forcing=None,
-                  halo_dtype=None) -> SWState:
+                  halo_dtype=None, ring=None) -> SWState:
     """The shallow-water RHS of ``ops.sw2d.sw2d_rhs`` on an element-sharded
     mesh, the cut faces' '+' traces exchanged (the halo, not the domain):
     wall reflection, BC_OUT tidal forcing, hydrostatic-reconstruction
@@ -444,14 +493,16 @@ def halo_sw2d_rhs(ctx: DGContext2D, state: SWState, t, phys: SWPhysics,
 
     ``ctx``: the shards' context blocks (``shard_context``); ``state`` and
     ``phys.H/Hx/Hy`` (S_here, K_loc, Np); ``tables``: ``halo_tables`` rows;
-    ``group``: None (stacked) or the process group. ``halo_dtype``: see
-    ``halo_face_rows``. Differentiable by ``torch.autograd``."""
+    ``group``: None (stacked) or the process group; ``ring``: this rank's
+    ``parallel.HaloRing`` (one shard a rank on the card). ``halo_dtype``:
+    see ``halo_face_rows``. Differentiable by ``torch.autograd``."""
     h, hu, hv = state
     Sh, K_loc = h.shape[:2]
-    my = _shard_ids(Sh, group, h.device)
+    ring = _ring_for(h, group, ring)
+    my = _shard_ids(Sh, group, h.device, ring)
     wb = phys.H is not None and phys.well_balanced
     fields = (h, hu, hv) + ((phys.H,) if wb else ())
-    fM, fP = halo_traces(fields, ctx, tables, plan, group, halo_dtype)
+    fM, fP = halo_traces(fields, ctx, tables, plan, group, halo_dtype, ring)
     hM, huM, hvM = fM[0], fM[1], fM[2]
     hP, huP, hvP = fP[0], fP[1], fP[2]
     HMt, HPt = (fM[3], fP[3]) if wb else (None, None)
@@ -482,27 +533,30 @@ def halo_poisson2d_op(ctx: DGContext2D, u: torch.Tensor, tau, tables,
                       plan: HaloPlan, group=None,
                       dirichlet_tags=(BC_WALL, BC_DIRICHLET),
                       neumann_tags=(BC_NEUMAN,),
-                      symmetrize: bool = False) -> torch.Tensor:
+                      symmetrize: bool = False, ring=None) -> torch.Tensor:
     """The IP Laplacian of ``ops.poisson.poisson2d_op`` on an
     element-sharded mesh, its two trace exchanges (u, then the gradient
     pair) through the halo: u (S_here, K_loc, Np) -> (S_here, K_loc, Np).
     With ``solvers.cg``/``gmres`` it gives an element-sharded elliptic
     solve: on the stacked transport the flattened (S*K_loc*Np,) vector goes
     to the solver with ``group=None``; on a process group each rank's
-    block goes with ``group=``, which sums the dots over the ranks.
+    block goes with ``group=``, which sums the dots over the ranks; on the
+    card one shard a rank, with this rank's ``parallel.HaloRing``
+    (``ring=``, here and in the solver).
 
     ``tau`` is the GLOBAL penalty constant ((N+1)^2 max Fscale over the
     whole mesh), computed once at set-up, so that the sharded operator
     equals the unsharded one."""
     Sh, K_loc = u.shape[:2]
     n_tr = ctx.n_faces * ctx.n_fp
-    my = _shard_ids(Sh, group, u.device)
+    ring = _ring_for(u, group, ring)
+    my = _shard_ids(Sh, group, u.device, ring)
     local_size = K_loc * n_tr
     loc = lambda tag: _localize_bc(ctx.bc_maps.idx[tag],
                                    ctx.bc_maps.mask[tag], my, local_size)
 
     ux, uy = ctx.grad(u)
-    (uM,), (uP,) = halo_traces((u,), ctx, tables, plan, group)
+    (uM,), (uP,) = halo_traces((u,), ctx, tables, plan, group, ring=ring)
     nxf, nyf = ctx.nx.reshape(Sh, -1), ctx.ny.reshape(Sh, -1)
 
     # Dirichlet: uP = -uM (a zero trace)
@@ -516,7 +570,8 @@ def halo_poisson2d_op(ctx: DGContext2D, u: torch.Tensor, tau, tables,
     qx = ux - ((ctx.fscale * ctx.nx * du_mat * 0.5) @ ctx.lift.T)
     qy = uy - ((ctx.fscale * ctx.ny * du_mat * 0.5) @ ctx.lift.T)
 
-    (uxM, uyM), (uxP, uyP) = halo_traces((ux, uy), ctx, tables, plan, group)
+    (uxM, uyM), (uxP, uyP) = halo_traces((ux, uy), ctx, tables, plan, group,
+                                         ring=ring)
     fm = ctx.fmask.reshape(-1)
     qxM = qx[..., fm].reshape(Sh, -1)
     qyM = qy[..., fm].reshape(Sh, -1)
@@ -544,16 +599,22 @@ def halo_poisson2d_op(ctx: DGContext2D, u: torch.Tensor, tau, tables,
 
 
 def halo_sw2d_timestep(ctx: DGContext2D, state: SWState, g: float,
-                       cfl: float, group=None):
+                       cfl: float, group=None, ring=None):
     """The adaptive dt of ``ops.sw2d.sw2d_timestep`` on an element-sharded
     mesh: the largest face wavespeed of the shards held here (the '-' trace,
-    no exchange), then the maximum over the ranks of ``group`` (an
-    ``all_reduce`` with ``MAX``, not differentiated)."""
+    no exchange), then the maximum over the ranks (not differentiated): of
+    ``ring`` by its ``peer_rank_max`` (the card), or of ``group`` by an
+    ``all_reduce`` with ``MAX`` (CPU tensors)."""
     h, hu, hv = state
+    ring = _ring_for(h, group, ring)
     spd = _safe_norm(hu / h, hv / h) + torch.sqrt(g * h)
     spdM = spd[..., ctx.fmask.reshape(-1)]
     fsc = torch.max(torch.abs(ctx.fscale) * spdM)
-    if group is not None:
+    if ring is not None:
+        from .peer import peer_rank_max
+
+        fsc = peer_rank_max(ring, fsc.detach().reshape(1)).reshape(())
+    elif group is not None:
         import torch.distributed as dist
 
         fsc = fsc.detach().clone()
@@ -563,20 +624,22 @@ def halo_sw2d_timestep(ctx: DGContext2D, state: SWState, g: float,
 
 def halo_sw2d_curved_rhs(ctx: DGContext2D, cub, gauss, state, t,
                          phys: SWPhysics, tables, plan: HaloPlan, group=None,
-                         tidal_forcing=None, zx=None, zy=None):
+                         tidal_forcing=None, zx=None, zy=None, ring=None):
     """The curved weak-form RHS of ``ops.sw2d_curved.sw2d_curved_rhs``
     (four fields, the tracer too; no wet/dry) on an element-sharded mesh:
     the cubature volume integrals and the element mass inverses are the
     shards' own; only the Gauss-face '+' trace crosses the cut, through the
     halo of the Gauss plan (``build_gauss_halo_plan``). ``cub``/``gauss``:
     the shards' blocks (``shard_context``); the Gauss context's boundary
-    lists stay global and are localized here."""
+    lists stay global and are localized here. ``group`` / ``ring``: as
+    ``halo_sw2d_rhs``'s."""
     from ..ops.sw2d_curved import SWStateTracer, _fluxes
 
     h, hu, hv, hN = state
     Sh, K_loc = h.shape[:2]
     g = phys.g
-    my = _shard_ids(Sh, group, h.device)
+    ring = _ring_for(h, group, ring)
+    my = _shard_ids(Sh, group, h.device, ring)
 
     # volume: interpolate to the cubature nodes, weak derivatives (local)
     at_cub = lambda f: f @ cub.V.T
@@ -597,7 +660,7 @@ def halo_sw2d_curved_rhs(ctx: DGContext2D, cub, gauss, state, t,
     nf = ntr // NG
     gM = torch.stack([(f @ gauss.interp.T).reshape(Sh, K_loc * nf, NG)
                       for f in (h, hu, hv, hN)])
-    gP = halo_face_rows(gM, tables, plan, group)
+    gP = halo_face_rows(gM, tables, plan, group, ring=ring)
     hM, huM, hvM, hNM = gM.reshape(4, Sh, -1)
     hP, huP, hvP, hNP = gP.reshape(4, Sh, -1)
 

@@ -1,6 +1,8 @@
 """Transports across ranks over device memory that the ranks map into each
-other (CUDA IPC): ``PeerRing``, the one-launch step's (B9's), and
-``StageRing``, the differentiable sharded step's and the MPC's across ranks.
+other (CUDA IPC): ``PeerRing``, the one-launch step's (B9's), ``HaloRing``,
+the element-sharded plain-tensor path's, and ``StageRing`` (a halo ring
+whose slots hold the blocked buffers), the differentiable sharded step's
+and the MPC's across ranks.
 
 ``PeerRing``: one region of device memory a rank that its ring peers store
 into, and ``peer_ring_exchange``, the step-boundary exchange over it (a
@@ -39,9 +41,21 @@ its own GO and ARRIVED flags; ``peer_stage_exchange``,
 that autograd may keep a receive buffer: a later exchange into the same
 slots changes nothing it kept.
 
+``HaloRing``: the counterpart of the collectives of the JAX package's
+element-sharded plain-tensor path inside ``shard_map``
+(``blitzdg_tpu/parallel/halo.py``, ``blitzdg_tpu/solvers/krylov.py``): the
+``lax.ppermute`` a ring offset of ``halo_face_rows`` and its transpose, the
+``lax.pmax`` of ``halo_sw2d_timestep`` and the ``psum`` of the Krylov
+dots. The same region layout and kernels as the stage ring's, its slots
+sized in bytes (``halo_slot_bytes``): ``peer_halo_exchange`` moves a
+face-row buffer of any width and type (float32, float64, bfloat16), every
+ring offset in one launch, ``peer_halo_exchange_reverse`` its transpose,
+``peer_rank_max`` and ``peer_rank_sum`` reduce float32 or float64 tensors
+over the ranks in rank order, the same bits on every rank.
+
 A region's CUDA IPC handle is all-gathered over the process group, and each
 rank opens the regions it stores into once (a ``PeerRing``'s ring peers, a
-``StageRing``'s every rank, for the sums): on one card that maps the same
+``HaloRing``'s every rank, for the reductions): on one card that maps the same
 memory into another process, on a node with several cards a peer card's
 memory over NVLink. The group carries nothing else: the handles and the
 barriers of set-up and ``close``. gloo will do, and on one card it must be
@@ -86,14 +100,15 @@ def _lib():
     lib.peer_open.argtypes = [I, ctypes.c_char_p, ctypes.POINTER(P)]
     lib.peer_close.argtypes = [P]
     lib.peer_ring_exchange.argtypes = [P, P, I, I, I, P]
-    lib.peer_stage_exchange.argtypes = [P, I, P, P, I, I, I,
+    lib.peer_stage_exchange.argtypes = [P, I, P, P, I, I, I, I, I,
                                         ctypes.c_ulonglong, I, P]
-    lib.peer_rank_sum.argtypes = [P, P, P, I, ctypes.c_ulonglong, I, P]
+    lib.peer_rank_reduce.argtypes = [P, I, I, P, P, I, ctypes.c_ulonglong,
+                                     I, P]
     lib.peer_load.argtypes = []
     for fn in (lib.peer_handle_bytes, lib.peer_alloc, lib.peer_free,
                lib.peer_export, lib.peer_open, lib.peer_close,
                lib.peer_ring_exchange, lib.peer_stage_exchange,
-               lib.peer_rank_sum, lib.peer_load):
+               lib.peer_rank_reduce, lib.peer_load):
         fn.restype = I
     lib._peer_typed = True
     return lib
@@ -394,94 +409,126 @@ peer_ring_exchange.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# The stage ring: the differentiable sharded step's exchanges and the sums
+# The halo ring and the stage ring: exchanges of any buffer and reductions
 # over ranks, one shard a rank
 # ---------------------------------------------------------------------------
 
-# floats of one rank's sum slot: a longer vector is summed in pieces
-SUM_LEN = 256
-# threads of a block of the stage ring's kernels
+# bytes of one rank's reduction slot: a longer vector is reduced in pieces
+SUM_BYTES = 1024
+# threads of a block of the rings' exchange and reduction kernels
 THREADS = 256
+# what each use moves
+_EXCHANGE_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+_REDUCE_DTYPES = {torch.float32: 0, torch.float64: 1}
+_SUM, _MAX = 0, 1
 
 
-def stage_region_layout(batch: int, n_slots: int, n_off: int,
-                        n_ranks: int) -> dict:
-    """Byte offsets in one rank's stage-ring region
-    (``ops/csrc/peer_flags.cuh``): the forward receive slots at 0, the
-    reverse ones at ``rev``, the sum slots (one of ``SUM_LEN`` floats a
-    rank) at ``sum``, the ``n_flags`` flag words at ``flags``; ``bytes`` in
-    all."""
-    slots = _round(batch * n_slots * 3 * 4)
-    sums = _round(n_ranks * SUM_LEN * 4)
+def ring_region_layout(slot_bytes: int, n_off: int, n_ranks: int) -> dict:
+    """Byte offsets in one rank's halo- or stage-ring region
+    (``ops/csrc/peer_flags.cuh``): the forward receive slots (``slot_bytes``,
+    rounded up to whole words) at 0, the reverse ones at ``rev``, the
+    reduction slots (one of ``SUM_BYTES`` a rank) at ``sum``, the
+    ``n_flags`` flag words at ``flags``; ``bytes`` in all."""
+    slots = _round(slot_bytes)
+    sums = _round(n_ranks * SUM_BYTES)
     n_flags = 4 * n_off + 2 * n_ranks
     return {"rev": slots, "sum": 2 * slots, "flags": 2 * slots + sums,
             "n_flags": n_flags, "bytes": 2 * slots + sums + _round(8 * n_flags)}
 
 
-class StageRing:
-    """This rank's stage-ring region and every rank's region mapped here,
-    for one shard a rank of a sharded set with halo plan ``plan`` (``n_fp``
-    nodes a face, ``batch`` scenarios): the transport of
-    ``make_sharded_blocked_step_fused`` / ``_diff`` and of the sharded MPC
-    across ranks on the card (``parallel.RingExchange`` with ``ring=``).
+def _stage_bytes(plan: HaloPlan, n_fp: int, batch: int) -> int:
+    """Bytes of the blocked path's send buffer (B, L, 3) floats."""
+    return batch * _n_slots(plan, n_fp) * 3 * 4
 
+
+def stage_region_layout(batch: int, n_slots: int, n_off: int,
+                        n_ranks: int) -> dict:
+    """``ring_region_layout`` of a stage ring: slots of the blocked path's
+    (B, L, 3) floats."""
+    return ring_region_layout(batch * n_slots * 3 * 4, n_off, n_ranks)
+
+
+def _chunk_words(per: int, itemsize: int) -> int:
+    """4-byte words of a chunk of ``per`` values of ``itemsize`` bytes."""
+    return -(-per * itemsize // 4)
+
+
+def halo_slot_bytes(plan: HaloPlan, width: int, n_fields: int,
+                    dtype: torch.dtype) -> int:
+    """Bytes of the largest face-row send buffer of ``plan`` that a halo
+    ring is to carry: ``n_fields`` fields of rows ``width`` wide (Nfp for
+    nodal traces, NG for Gauss traces) in ``dtype``, every ring offset's
+    ``max_send`` rows, each offset's chunk padded to whole words."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    per = n_fields * plan.max_send * width
+    return max(len(plan.offs), 1) * _chunk_words(per, itemsize) * 4
+
+
+class HaloRing:
+    """This rank's ring region and every rank's region mapped here, for one
+    shard a rank of an element-sharded set with halo plan ``plan``: the
+    transport of the element-sharded plain-tensor path across ranks on the
+    card (``parallel.halo_sw2d_rhs`` and the other halo functions, and
+    ``solvers.cg`` / ``gmres``, with ``ring=``).
+
+    ``slot_bytes``: the capacity of each of the two exchange slot sets, at
+    least the largest buffer an exchange moves (``halo_slot_bytes``);
     ``group``: the process group of the ``plan.n_shards`` ranks (rank r
     holds shard r; gloo will do); ``device``: this rank's CUDA device;
     ``timeout_s``: the bound of every wait on a peer's flag, after which the
     waiting kernel traps.
 
-    ``peer_stage_exchange(ring, sbuf)``: the receive buffer (1, B, L, 3) of
-    this rank's send buffer ``sbuf`` (1, B, L, 3), a new tensor;
-    ``peer_stage_exchange_reverse(ring, g)``: its transpose (each chunk
-    back to the rank it came from); ``peer_rank_sum(ring, x)``: the sum of
-    a float32 vector over the ranks, added in rank order, the same bits on
-    every rank (``SUM_LEN`` floats a launch). Every rank must make the same
-    calls of each in the same order (the epochs are counted here, a use
-    each). Both constructors load the ring's kernels into the context; any
-    other kernel that a caller launches between the calls of ranks that
-    share a process must be loaded before the ring runs (see ``PeerRing``).
-    ``table`` is the ring's table in device memory, ``flags`` this rank's
-    flag words.
+    ``peer_halo_exchange(ring, buf)``: the receive buffer of this rank's
+    face-row send buffer ``buf`` (n_off, ...), every ring offset in one
+    launch, a new tensor; ``peer_halo_exchange_reverse(ring, g)``: its
+    transpose; ``peer_rank_sum(ring, x)`` and ``peer_rank_max(ring, x)``:
+    the sum and the maximum of a float32 or float64 tensor over the ranks,
+    combined in rank order, the same bits on every rank (``SUM_BYTES`` a
+    launch). Every rank must make the same calls of each in the same order
+    (the epochs are counted here, a use each: ``forward``, ``reverse``, and
+    ``sum`` for the sums and the maxima, which share their slots). Both
+    constructors load the ring's kernels into the context; any other kernel
+    that a caller launches between the calls of ranks that share a process
+    must be loaded before the ring runs (see ``PeerRing``). ``table`` is the
+    ring's table in device memory, ``flags`` this rank's flag words.
 
     ``close()`` (or leaving a ``with`` block): as ``PeerRing.close``; every
     rank must call it."""
 
-    def __init__(self, plan: HaloPlan, n_fp: int, batch: int, group,
+    def __init__(self, plan: HaloPlan, slot_bytes: int, group,
                  device="cuda", timeout_s: float = 10.0):
-        lay = stage_region_layout(batch, _n_slots(plan, n_fp),
-                                  len(plan.offs), plan.n_shards)
+        lay = ring_region_layout(slot_bytes, len(plan.offs), plan.n_shards)
         _map_regions(self, plan, group, device, lay["bytes"],
                      lambda rank, S: range(S),
                      lambda rank, bases, dev: self._setup(
-                         plan, n_fp, batch, rank, bases, dev, timeout_s))
+                         plan, slot_bytes, rank, bases, dev, timeout_s))
 
     @classmethod
-    def over_regions(cls, plan: HaloPlan, n_fp: int, batch: int, rank: int,
+    def over_regions(cls, plan: HaloPlan, slot_bytes: int, rank: int,
                      bases: dict, device,
-                     timeout_s: float = 10.0) -> "StageRing":
+                     timeout_s: float = 10.0) -> "HaloRing":
         """Rank ``rank``'s ring over regions of this process (``bases``:
         the address of every rank's region, laid out as
-        ``stage_region_layout`` says, zeroed; on a CPU device, host memory
+        ``ring_region_layout`` says, zeroed; on a CPU device, host memory
         for a build of the kernels for the host): the S ranks of a ring in
         one process, each on its own stream (or thread). Their launches
         must then be resident on the card together (a wait that outlasts
         its bound traps). The caller owns the regions; ``close`` does
         nothing here."""
         ring = cls.__new__(cls)
-        ring._setup(plan, n_fp, batch, rank, bases, torch.device(device),
+        ring._setup(plan, slot_bytes, rank, bases, torch.device(device),
                     timeout_s)
         ring.group, ring._lib, ring._own, ring._opened = None, None, None, {}
         return ring
 
-    def _setup(self, plan, n_fp, batch, rank, bases, device, timeout_s):
+    def _setup(self, plan, slot_bytes, rank, bases, device, timeout_s):
         S, offs = plan.n_shards, plan.offs
-        self.plan, self.n_fp, self.batch, self.rank = plan, n_fp, batch, rank
-        self.device = device
-        self.chunk = plan.max_send * n_fp
-        self.n_slots = _n_slots(plan, n_fp)
-        lay = stage_region_layout(batch, self.n_slots, len(offs), S)
-        words = [bases[rank], int(timeout_s * 1e9), len(offs), self.chunk, S,
-                 rank, SUM_LEN, lay["flags"], lay["rev"], lay["sum"]]
+        self.plan, self.rank, self.device = plan, rank, device
+        lay = ring_region_layout(slot_bytes, len(offs), S)
+        self.slot_bytes = lay["rev"]
+        words = [bases[rank], int(timeout_s * 1e9), len(offs),
+                 self.slot_bytes // 4, S, rank, SUM_BYTES, lay["flags"],
+                 lay["rev"], lay["sum"]]
         words += [0] * (16 - len(words))
         words += [bases[(rank + d) % S] for d in offs]
         words += [bases[(rank - d) % S] for d in offs]
@@ -501,36 +548,49 @@ class StageRing:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    def _exchange(self, src: torch.Tensor, rev: bool) -> torch.Tensor:
-        """The exchange kernel's launch, forward or reverse (the shape
-        checked by the caller): a new receive buffer."""
+    def _launch_exchange(self, src: torch.Tensor, out: torch.Tensor,
+                         rows: int, row: int, cw: int, slot_cw: int,
+                         rev: bool):
+        """The exchange kernel's launch, forward or reverse: chunk i (``cw``
+        words) of each of ``rows`` rows of ``row`` words of ``src`` to the
+        rank at ring offset +-i, what arrived here into ``out``; in the
+        slots chunk i lies at i x ``slot_cw`` words (the shapes checked by
+        the caller). A call must not need more than the slots hold."""
         from ..ops.sw2d_fused import _launch_stream
 
+        n_off = len(self.plan.offs)
+        if cw > slot_cw or rows * n_off * slot_cw * 4 > self.slot_bytes:
+            raise ValueError(
+                f"chunks of {cw * 4} bytes a ring offset for a ring whose "
+                f"slots hold {self.slot_bytes} over {n_off} ring offsets: "
+                "make the ring for the largest buffer it carries "
+                "(halo_slot_bytes)")
         use = "reverse" if rev else "forward"
         self.epochs[use] += 1
-        out = torch.empty_like(src)
         lib = self._lib or _lib()
         err = lib.peer_stage_exchange(
             self.table.data_ptr(), int(rev), src.data_ptr(), out.data_ptr(),
-            len(self.plan.offs), self.batch, self.n_slots, self.epochs[use],
-            self.threads, _launch_stream(src))
+            n_off, rows, row, cw, slot_cw, self.epochs[use], self.threads,
+            _launch_stream(src))
         _check(lib, err, "peer_stage_exchange")
-        return out
 
-    def _sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum kernel's launches over a flat float32 vector, ``SUM_LEN``
-        floats a launch: a new vector."""
+    def _reduce(self, x: torch.Tensor, op: int) -> torch.Tensor:
+        """The reduction kernel's launches (sum, or max) over a flat float32
+        or float64 vector, ``SUM_BYTES`` a launch: a new vector."""
         from ..ops.sw2d_fused import _launch_stream
 
         out = torch.empty_like(x)
         lib = self._lib or _lib()
-        for j in range(0, x.numel(), SUM_LEN):
-            n = min(SUM_LEN, x.numel() - j)
+        step = SUM_BYTES // x.element_size()
+        for j in range(0, x.numel(), step):
+            n = min(step, x.numel() - j)
             self.epochs["sum"] += 1
-            err = lib.peer_rank_sum(
-                self.table.data_ptr(), x[j:].data_ptr(), out[j:].data_ptr(),
-                n, self.epochs["sum"], self.threads, _launch_stream(x))
-            _check(lib, err, "peer_rank_sum")
+            err = lib.peer_rank_reduce(
+                self.table.data_ptr(), op, _REDUCE_DTYPES[x.dtype],
+                x[j:].data_ptr(), out[j:].data_ptr(), n, self.epochs["sum"],
+                self.threads, _launch_stream(x))
+            _check(lib, err, "peer_rank_max" if op == _MAX
+                   else "peer_rank_sum")
         return out
 
     def close(self):
@@ -545,10 +605,56 @@ class StageRing:
         self.close()
 
 
-def _check_ring_tensor(ring: StageRing, name: str, t: torch.Tensor):
-    if t.device != ring.device or t.dtype != torch.float32:
+class StageRing(HaloRing):
+    """A ring (``HaloRing``) whose slots hold the blocked path's buffers,
+    for one shard a rank of a sharded set with halo plan ``plan`` (``n_fp``
+    nodes a face, ``batch`` scenarios): the transport of
+    ``make_sharded_blocked_step_fused`` / ``_diff`` and of the sharded MPC
+    across ranks on the card (``parallel.RingExchange`` with ``ring=``).
+
+    ``peer_stage_exchange(ring, sbuf)``: the receive buffer (1, B, L, 3) of
+    this rank's send buffer ``sbuf`` (1, B, L, 3), a new tensor;
+    ``peer_stage_exchange_reverse(ring, g)``: its transpose (each chunk
+    back to the rank it came from); ``peer_rank_sum(ring, x)``: as the
+    halo ring's. The rest as ``HaloRing``."""
+
+    def __init__(self, plan: HaloPlan, n_fp: int, batch: int, group,
+                 device="cuda", timeout_s: float = 10.0):
+        super().__init__(plan, _stage_bytes(plan, n_fp, batch), group,
+                         device, timeout_s)
+        self._shape(plan, n_fp, batch)
+
+    @classmethod
+    def over_regions(cls, plan: HaloPlan, n_fp: int, batch: int, rank: int,
+                     bases: dict, device,
+                     timeout_s: float = 10.0) -> "StageRing":
+        """Rank ``rank``'s ring over regions of this process, laid out as
+        ``stage_region_layout`` says (see ``HaloRing.over_regions``)."""
+        ring = super().over_regions(plan, _stage_bytes(plan, n_fp, batch),
+                                    rank, bases, device, timeout_s)
+        ring._shape(plan, n_fp, batch)
+        return ring
+
+    def _shape(self, plan, n_fp, batch):
+        self.n_fp, self.batch = n_fp, batch
+        self.chunk = plan.max_send * n_fp
+        self.n_slots = _n_slots(plan, n_fp)
+
+    def _exchange(self, src: torch.Tensor, rev: bool) -> torch.Tensor:
+        """The exchange kernel's launch over a (1, B, L, 3) buffer, forward
+        or reverse: a new receive buffer."""
+        out = torch.empty_like(src)
+        self._launch_exchange(src, out, self.batch, 3 * self.n_slots,
+                              3 * self.chunk, 3 * self.chunk, rev)
+        return out
+
+
+def _check_ring_tensor(ring: HaloRing, name: str, t: torch.Tensor,
+                       dtypes=(torch.float32,)):
+    if t.device != ring.device or t.dtype not in dtypes:
+        names = ", ".join(str(d).replace("torch.", "") for d in dtypes)
         raise ValueError(f"{name}: {t.dtype} on {t.device}; the ring moves "
-                         f"float32 on {ring.device}")
+                         f"{names} on {ring.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: the kernel needs a contiguous tensor")
 
@@ -604,23 +710,100 @@ def peer_stage_exchange_reverse(ring: StageRing,
 peer_stage_exchange_reverse.launches = 0
 
 
-def peer_rank_sum(ring: StageRing, x: torch.Tensor) -> torch.Tensor:
-    """The sum over the ring's ranks of each rank's float32 tensor ``x``
-    (any shape, the same on every rank): each rank's ``x`` into its slot at
-    every rank, then at each rank the parts added in rank order 0, 1, ...,
-    S-1, so that every rank holds the same bits. One launch a ``SUM_LEN``
-    floats. Replaces the XLA ``psum`` of the JAX package's sharded MPC
-    (``examples/mpc_sharded.py``) and the sum over chips of the shared
-    controls' cotangent; its plain version is ``rank_order_sum``."""
-    _check_ring_tensor(ring, "x", x)
+def _halo_exchange(ring: HaloRing, buf: torch.Tensor, rev: bool,
+                   counter) -> torch.Tensor:
+    n_off = len(ring.plan.offs)
+    if buf.dim() < 1 or buf.shape[0] != n_off or n_off == 0:
+        raise ValueError(f"buffer: shape {tuple(buf.shape)}; the ring's plan "
+                         f"has {n_off} ring offsets, one chunk each")
+    _check_ring_tensor(ring, "buffer", buf, _EXCHANGE_DTYPES)
+    flat = buf.reshape(n_off, -1)
+    per, item = flat.shape[1], buf.element_size()
+    cw = _chunk_words(per, item)
+    if cw * 4 != per * item:  # (bfloat16: padded to whole words)
+        flat = torch.nn.functional.pad(flat, (0, cw * 4 // item - per))
+    out = torch.empty_like(flat)
+    ring._launch_exchange(flat, out, 1, n_off * cw, cw,
+                          ring.slot_bytes // 4 // n_off, rev)
+    count_launches(counter)
+    return out[:, :per].reshape(buf.shape)
+
+
+def peer_halo_exchange(ring: HaloRing, buf: torch.Tensor) -> torch.Tensor:
+    """The face-row exchange across ranks: chunk i of this rank's send
+    buffer ``buf`` (n_off, ...), float32, float64 or bfloat16, laid out
+    offset-major (chunk i the face rows for ring offset ``plan.offs[i]``),
+    into the forward slots of the rank at ring offset +i; returns this
+    rank's receive buffer of the same shape and type (chunk i what the rank
+    at offset -i sent), a new tensor. One launch for every offset
+    (``ops/csrc/peer.cu``, the stage exchange's kernel, one block an
+    offset, each chunk padded to whole 4-byte words); a buffer larger than
+    the ring's slots raises.
+
+    Replaces the ``lax.ppermute`` a ring offset of the JAX package's
+    ``halo_face_rows`` (``blitzdg_tpu/parallel/halo.py``); its plain
+    version is the stacked roll of each offset's rows over the shard axis
+    (``parallel.halo._ppermute`` with no group), or the process group's
+    point-to-point rounds on CPU tensors."""
+    return _halo_exchange(ring, buf, False, peer_halo_exchange)
+
+
+peer_halo_exchange.launches = 0
+
+
+def peer_halo_exchange_reverse(ring: HaloRing,
+                               g: torch.Tensor) -> torch.Tensor:
+    """The transpose of ``peer_halo_exchange``: the cotangent ``g`` of a
+    receive buffer, chunk i back to the rank at ring offset -i that sent it,
+    over the ring's reverse slots; returns this rank's send-buffer
+    cotangent, a new tensor. One launch of the same kernel. Replaces the
+    transpose of ``halo_face_rows``'s ``ppermute`` in the JAX package's
+    backward; its plain version is the stacked roll by -d."""
+    return _halo_exchange(ring, g, True, peer_halo_exchange_reverse)
+
+
+peer_halo_exchange_reverse.launches = 0
+
+
+def _rank_reduce(ring: HaloRing, x: torch.Tensor, op: int,
+                 counter) -> torch.Tensor:
+    _check_ring_tensor(ring, "x", x, tuple(_REDUCE_DTYPES))
     if x.numel() == 0:
         return x.clone()
-    out = ring._sum(x.reshape(-1)).view(x.shape)
-    count_launches(peer_rank_sum, -(-x.numel() // SUM_LEN))
+    out = ring._reduce(x.reshape(-1), op).view(x.shape)
+    count_launches(counter, -(-x.numel() * x.element_size() // SUM_BYTES))
     return out
 
 
+def peer_rank_sum(ring: HaloRing, x: torch.Tensor) -> torch.Tensor:
+    """The sum over the ring's ranks of each rank's float32 or float64
+    tensor ``x`` (any shape, the same on every rank): each rank's ``x`` into
+    its slot at every rank, then at each rank the parts added in rank order
+    0, 1, ..., S-1, so that every rank holds the same bits. One launch a
+    ``SUM_BYTES``. Replaces the XLA ``psum`` of the JAX package's sharded
+    MPC (``examples/mpc_sharded.py``), the sum over chips of the shared
+    controls' cotangent, and the ``psum`` of the Krylov loops' dots
+    (``blitzdg_tpu/solvers/krylov.py``, ``_reducers``); its plain version
+    is ``rank_order_sum``."""
+    return _rank_reduce(ring, x, _SUM, peer_rank_sum)
+
+
 peer_rank_sum.launches = 0
+
+
+def peer_rank_max(ring: HaloRing, x: torch.Tensor) -> torch.Tensor:
+    """The maximum over the ring's ranks of each rank's float32 or float64
+    tensor ``x``, entry by entry, the parts combined in rank order, the
+    same bits on every rank; a NaN on any rank is the result on every rank
+    (the first in rank order), as XLA's ``pmax``. One launch a
+    ``SUM_BYTES``, over the slots and epochs of the sums. Replaces the
+    ``lax.pmax`` of the JAX package's ``halo_sw2d_timestep``
+    (``blitzdg_tpu/parallel/halo.py``); its plain version is
+    ``rank_order_max``."""
+    return _rank_reduce(ring, x, _MAX, peer_rank_max)
+
+
+peer_rank_max.launches = 0
 
 
 def rank_order_sum(parts) -> torch.Tensor:
@@ -629,4 +812,16 @@ def rank_order_sum(parts) -> torch.Tensor:
     acc = parts[0].clone()
     for p in parts[1:]:
         acc = acc + p
+    return acc
+
+
+def rank_order_max(parts) -> torch.Tensor:
+    """The plain version of the maximum over ranks: the parts combined in
+    rank order, a NaN kept where one comes (the first), else the larger
+    (the earlier of two equal ones); equal in value to ``torch.amax`` over
+    the stacked parts."""
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc = torch.where(torch.isnan(acc) | ~(torch.isnan(p) | (p > acc)),
+                          acc, p)
     return acc

@@ -27,7 +27,12 @@ device-to-host copy of the new column an Arnoldi step.
 split (each rank holds its slice of ``n``); every dot product and norm then
 sums its local partial with one ``all_reduce``, and the stagnation test
 counts violations across the ranks (the counterpart of ``axis_name`` under
-``shard_map``).
+``shard_map``). That serves CPU tensors. On the card, one slice a rank,
+``ring``: this rank's ``parallel.HaloRing``, whose sum kernel
+(``peer_rank_sum``) adds the ranks' partials in rank order in the vectors'
+dtype, so that every rank holds the same bits and takes the same loop
+decisions; the violation counts are summed in float64, which is exact.
+Vectors on the card with a ``group`` and no ``ring`` raise.
 """
 from __future__ import annotations
 
@@ -54,12 +59,30 @@ class SolveResult(NamedTuple):
     flag: torch.Tensor
 
 
-def _reducers(group=None):
+def _reducers(group=None, ring=None, like=None):
     """(dot, norm, all) reductions over the last axis: local, or summed over
-    the ranks of ``group``."""
+    the ranks of ``ring`` (its sum kernel) or of ``group`` (``all_reduce``;
+    refused for ``like``, the right-hand side, on the card)."""
     def local_dot(a, b):
         return torch.sum(a * b, dim=-1)
 
+    if ring is not None:
+        from ..parallel.peer import peer_rank_sum
+
+        def ring_dot(a, b):
+            return peer_rank_sum(ring, local_dot(a, b).contiguous())
+
+        def ring_all(pred):
+            bad = torch.sum(~pred, dim=-1).to(torch.float64)
+            return peer_rank_sum(ring, bad) == 0
+
+        return ring_dot, lambda a: torch.sqrt(ring_dot(a, a)), ring_all
+
+    if group is not None and like is not None and like.is_cuda:
+        raise ValueError(
+            "across ranks on the card the solver's sums take this rank's "
+            "ring (ring=: a parallel.HaloRing); the process group's "
+            "all_reduce serves CPU tensors")
     if group is None:
         return (local_dot, lambda a: torch.sqrt(local_dot(a, a)),
                 lambda pred: torch.all(pred, dim=-1))
@@ -113,6 +136,7 @@ def cg(
     maxiter: int = 1000,
     precon: Callable | None = None,
     group=None,
+    ring=None,
 ) -> SolveResult:
     """Preconditioned conjugate gradients for SPD operators.
 
@@ -120,8 +144,9 @@ def cg(
     non-positive or non-finite pAp, or when the residual norm has grown
     past 1e4 times its best, returning the best iterate seen. The exit
     reports the true relative residual ||b - A x|| / ||b|| (one more
-    matvec)."""
-    dot, norm, _ = _reducers(group)
+    matvec). ``group`` / ``ring``: the vectors split over ranks (see the
+    module)."""
+    dot, norm, _ = _reducers(group, ring, b)
     if x0 is None:
         x0 = torch.zeros_like(b)
     if precon is None:
@@ -195,6 +220,7 @@ def gmres(
     div_tol: float = 1e5,
     stg_tol: float = 1e-12,
     group=None,
+    ring=None,
 ) -> SolveResult:
     """Right-preconditioned restarted GMRES(m).
 
@@ -207,9 +233,10 @@ def gmres(
     inf/nan, diverged (||r|| >= div_tol ||r0||), stagnation (no component
     with x_j != 0 moved by more than stg_tol |x_j| in a cycle), true-rnrm
     (the last cycle's recurrence claimed convergence, the true residual
-    disagrees), maxits.
+    disagrees), maxits. ``group`` / ``ring``: the vectors split over ranks
+    (see the module).
     """
-    dot, norm, all_ = _reducers(group)
+    dot, norm, all_ = _reducers(group, ring, b)
     if x0 is None:
         x0 = torch.zeros_like(b)
     if precon is None:

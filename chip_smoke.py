@@ -8,8 +8,8 @@ Run from the root of the repository, with no arguments:
 (``--only dense``, ``--only blocked``, ``--only curved``, ``--only
 sharded``, ``--only peer``, ``--only ranks``, ``--only elliptic``, ``--only
 solver``, ``--only quads``, ``--only ins2d``, ``--only dg1d``, ``--only
-halo`` or ``--only compat`` runs one path's phases alone, for work on that
-path.) What it does, in order (any failure is an exception and a non-zero
+halo``, ``--only compat`` or ``--only halo_ranks`` runs one path's phases
+alone, for work on that path.) What it does, in order (any failure is an exception and a non-zero
 exit):
 
  1. refuses to run without a CUDA device;
@@ -21,7 +21,8 @@ exit):
     the blocked rollout (the step's kernel too) and its adjoint, the
     sharded stage, its adjoint and the one-launch step kernel, or the
     step's peer mode and the step-boundary exchange, or the stage ring's
-    exchange and sum (of the paths run) spills or has no report;
+    exchange and sum, or the halo ring's maximum and float64 sum (of the
+    paths run) spills or has no report;
  3. DENSE path (small meshes, one thread per element and scenario). Holds
     each kernel (``sw2d_step_fused``, ``sw2d_rollout_fused``,
     ``sw2d_rollout_bwd_fused``) against its plain PyTorch version on the
@@ -157,8 +158,10 @@ exit):
     alone (its flags set past any epoch); ``sharded_mpc_S4_in_process``
     runs the 4 ranks of the full width on threads and streams of this
     process, and ``sharded_mpc_example_S8_in_process`` the example's 8
-    (rank 0 first alone over a ring whose flags read past any epoch, so
-    that every kernel is loaded before the ranks meet);
+    (each rank first alone over a ring whose flags read past any epoch, so
+    that every kernel is loaded before the ranks meet; the ranks' hosts
+    meet before each launch of a ring kernel; each rank's step
+    waits for its stream at each rollout's start, ``paced``);
     ``sharded_mpc_S4_ranks`` starts 4 worker processes of this script
     (``--ranks-worker``, gloo group, CUDA IPC regions, each with its own
     timeout, all ended once one fails) at full width. Each rank: its
@@ -258,7 +261,32 @@ exit):
     ``MeshManager``, ``TriangleNodesProvisioner`` (its context on the
     card) and ``Poisson2DSparseMatrix``, solved with scipy and held to
     sin(pi x) sin(pi y);
-16. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
+16. HALO RANKS path (``parallel/halo.py`` one shard a rank over a
+    ``parallel.HaloRing``, device memory the ranks map into each other;
+    the Krylov dots through its sum): ``halo_ring_kernels`` holds the
+    face-row exchange, its reverse (float32, float64, bfloat16), the
+    maximum (float32, float64) and the float64 sum (``ops/csrc/peer.cu``)
+    bit-equal to their plain versions (the stacked roll of each offset's
+    rows, the rank-order maximum and sum) at the scaling study's S=4
+    shapes, four ranks on four streams, and times each of rank 0's alone
+    (its flags set past any epoch); ``halo_rhs_S2_ranks_in_process`` and
+    ``halo_rhs_S4_ranks_in_process`` run ``examples/scaling_study.py
+    --mode xla``'s RHS and 100-step rollout (K=2048, N=3) with full and
+    bfloat16 halos, the ranks on threads and streams of this process (each
+    rank first alone over a ring whose flags read past any epoch, which
+    loads every kernel the program launches; the hosts meet before each
+    ring launch), at S=4 also the RHS gradient
+    through the reverse exchange, with the idle share of a 20-step window
+    with and without the ring's kernels; ``halo_rhs_S4_ranks`` the same in
+    4 worker processes of this script (``--halo-worker``, gloo group, CUDA
+    IPC regions), 20 steps; ``halo_coastal_adaptive_dt_ranks`` 10 coastal
+    steps with ``halo_sw2d_timestep`` at S=4; ``halo_curved_ranks`` the
+    large disk's curved RHS at S = 2, 6 ranks; ``halo_elliptic_ranks`` CG
+    and GMRES on the float64 elliptic configuration padded to S=4. Each is
+    held to the stacked transport run here (the gates: beside
+    HALO_RANKS_SHARDS below), counters zeroed just before and read just
+    after;
+17. prints one JSON line per phase, the ``{"kernels": [...]}`` line, the
     card's name and power limit, and as the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -3457,6 +3485,80 @@ def dg1d_phases(dev, card: str, rng, flush) -> list:
     return []
 
 
+def halo_disk_case(dev, dtype=torch.float32):
+    """The large Gordon-Hall disk (``mpc/curved_disk.py``, K=1014, N=3) with
+    an open eastern arc, partitioned into max(HALO_CURVED_SHARDS) blocks,
+    in ``dtype`` on ``dev``: its context, cubature and Gauss-face contexts,
+    a moving four-field state, the physics and the tidal forcing."""
+    from blitzdg_tpu_torch import parallel as TP
+    from blitzdg_tpu_torch.context import BC_OUT
+    from blitzdg_tpu_torch.mesh import disk_triangles
+    from blitzdg_tpu_torch.mesh.curved import (circle_projection,
+                                               gordon_hall_deform,
+                                               snap_boundary_vertices)
+    from blitzdg_tpu_torch.mpc import curved_disk as cdk
+    from blitzdg_tpu_torch.ops.sw2d import SWPhysics
+    from blitzdg_tpu_torch.ops.sw2d_curved import SWStateTracer
+    from blitzdg_tpu_torch.specgrid.cubature import (build_cubature_context,
+                                                     build_gauss_face_context)
+    from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
+
+    N = 3
+    dmesh = disk_triangles(cdk.LARGE["rings"], radius=1.0)
+    bc = np.asarray(dmesh.bc_type).copy()
+    mids = 0.5 * (dmesh.verts[dmesh.etov]
+                  + dmesh.verts[np.roll(dmesh.etov, -1, axis=1)])
+    bc[(bc > 0) & (mids[:, :, 0] > 0.7)] = BC_OUT
+    dmesh.set_bc_type(bc)
+    dmesh = TP.partition_mesh(dmesh, max(HALO_CURVED_SHARDS))[0]
+    proj = circle_projection(0.0, 0.0, 1.0)
+    faces = snap_boundary_vertices(dmesh, proj, tol=cdk.LARGE["snap_tol"])
+    straight = build_triangle_context(N, dmesh, dtype=torch.float64,
+                                      device="cpu")
+    V = straight.V.numpy()
+    x, y, _ = gordon_hall_deform(N, dmesh, straight.x.numpy(),
+                                 straight.y.numpy(), faces, proj)
+    dctx = build_triangle_context(N, dmesh, coords=(x, y), dtype=dtype,
+                                  device=dev)
+    cub = build_cubature_context(N, dmesh, x, y, V, dtype=dtype, device=dev)
+    gauss = build_gauss_face_context(N, dmesh, x, y, V, dtype=dtype,
+                                     device=dev)
+    dphys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4)
+    dforce = lambda t: 1.0 + 0.05 * np.cos(0.3 * t)
+    deta = 0.05 * torch.exp(-5.0 * ((dctx.x - 0.2) ** 2 + dctx.y ** 2))
+    dstate = SWStateTracer(1.0 + deta, 0.02 * deta, -0.01 * deta, deta)
+    return dctx, cub, gauss, dstate, dphys, dforce
+
+
+def halo_elliptic_case(dev, S: int = 4) -> dict:
+    """The elliptic configuration (N=ELL_ORDER, box_triangles(ELL_CELLS,
+    ELL_CELLS), K=1058) in float64 on ``dev``, partitioned into S and
+    ghost-padded by ``pad_context``: the context, the padded one, its halo
+    plan, the global penalty, the right-hand side of the manufactured
+    solution unsharded (``b``) and padded into the shards (``bs``, (S,
+    K_loc, Np)), the real elements' rows, the exact solution."""
+    from blitzdg_tpu_torch import parallel as TP
+    from blitzdg_tpu_torch.mesh import box_triangles
+    from blitzdg_tpu_torch.ops.poisson import apply_mass
+    from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
+
+    f64 = torch.float64
+    emesh = box_triangles(ELL_CELLS, ELL_CELLS)
+    sizes = TP.partition_block_sizes(emesh, S)
+    ectx = build_triangle_context(ELL_ORDER, TP.partition_mesh(emesh, S)[0],
+                                  dtype=f64, device=dev)
+    pctx, real = TP.pad_context(ectx, sizes)
+    tau = float((ectx.n_order + 1) ** 2 * ectx.fscale.max())
+    uex = torch.sin(np.pi * ectx.x) * torch.sin(np.pi * ectx.y)
+    b = -apply_mass(ectx, -2.0 * np.pi ** 2 * uex)
+    bp = torch.zeros((pctx.k_elem, ectx.n_p), dtype=f64, device=dev)
+    ridx = torch.as_tensor(np.flatnonzero(real), device=dev)
+    bp[ridx] = b
+    return {"S": S, "ctx": ectx, "pctx": pctx,
+            "plan": TP.build_halo_plan(pctx, S), "tau": tau, "b": b,
+            "bs": bp.reshape(S, -1, ectx.n_p), "ridx": ridx, "uex": uex}
+
+
 def halo_phases(dev, card: str, rng, flush) -> list:
     """The element-sharded plain-tensor path of ``parallel/halo.py`` (no
     kernel of its own), every shard stacked on the card: the halo RHS
@@ -3465,22 +3567,15 @@ def halo_phases(dev, card: str, rng, flush) -> list:
     (``halo_rollout``), the curved halo RHS (``halo_curved``) and the
     sharded CG (``halo_elliptic``). Returns no kernel record."""
     from blitzdg_tpu_torch import parallel as TP
-    from blitzdg_tpu_torch.context import BC_OUT
-    from blitzdg_tpu_torch.mesh import box_triangles, disk_triangles
-    from blitzdg_tpu_torch.mesh.curved import (circle_projection,
-                                               gordon_hall_deform,
-                                               snap_boundary_vertices)
-    from blitzdg_tpu_torch.mpc import curved_disk as cdk
+    from blitzdg_tpu_torch.mesh import box_triangles
     from blitzdg_tpu_torch.mpc.coastal_box import retag_east_open
-    from blitzdg_tpu_torch.ops.poisson import apply_mass, poisson2d_op
+    from blitzdg_tpu_torch.ops.poisson import poisson2d_op
     from blitzdg_tpu_torch.ops.sw2d import (SWPhysics, SWState, sw2d_rhs,
                                             sw2d_timestep)
     from blitzdg_tpu_torch.ops.sw2d_curved import (SWStateTracer,
                                                    sw2d_curved_rhs)
     from blitzdg_tpu_torch.solvers import cg
     from blitzdg_tpu_torch.solvers.krylov import CONV_SUCCESS
-    from blitzdg_tpu_torch.specgrid.cubature import (build_cubature_context,
-                                                     build_gauss_face_context)
     from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
     from blitzdg_tpu_torch.timestepping import ssprk2_step
 
@@ -3599,30 +3694,8 @@ def halo_phases(dev, card: str, rng, flush) -> list:
 
     # ---- the curved halo RHS on the large disk ----
     t0 = time.perf_counter()
-    dmesh = disk_triangles(cdk.LARGE["rings"], radius=1.0)
-    bc = np.asarray(dmesh.bc_type).copy()
-    mids = 0.5 * (dmesh.verts[dmesh.etov]
-                  + dmesh.verts[np.roll(dmesh.etov, -1, axis=1)])
-    bc[(bc > 0) & (mids[:, :, 0] > 0.7)] = BC_OUT
-    dmesh.set_bc_type(bc)
-    dmesh = TP.partition_mesh(dmesh, max(HALO_CURVED_SHARDS))[0]
-    proj = circle_projection(0.0, 0.0, 1.0)
-    faces = snap_boundary_vertices(dmesh, proj, tol=cdk.LARGE["snap_tol"])
-    straight = build_triangle_context(N, dmesh, dtype=torch.float64,
-                                      device="cpu")
-    V = straight.V.numpy()
-    x, y, _ = gordon_hall_deform(N, dmesh, straight.x.numpy(),
-                                 straight.y.numpy(), faces, proj)
-    dctx = build_triangle_context(N, dmesh, coords=(x, y), dtype=f32,
-                                  device=dev)
-    cub = build_cubature_context(N, dmesh, x, y, V, dtype=f32, device=dev)
-    gauss = build_gauss_face_context(N, dmesh, x, y, V, dtype=f32,
-                                     device=dev)
+    dctx, cub, gauss, dstate, dphys, dforce = halo_disk_case(dev)
     setup_s = time.perf_counter() - t0
-    dphys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4)
-    dforce = lambda t: 1.0 + 0.05 * np.cos(0.3 * t)
-    deta = 0.05 * torch.exp(-5.0 * ((dctx.x - 0.2) ** 2 + dctx.y ** 2))
-    dstate = SWStateTracer(1.0 + deta, 0.02 * deta, -0.01 * deta, deta)
     dref = sw2d_curved_rhs(dctx, cub, gauss, dstate, 0.37, dphys,
                            tidal_forcing=dforce)
     crv = []
@@ -3645,21 +3718,11 @@ def halo_phases(dev, card: str, rng, flush) -> list:
                            "sw2d_curved_rhs")
 
     # ---- the sharded CG on the ghost-padded elliptic configuration ----
-    f64, S = torch.float64, 4
-    emesh = box_triangles(ELL_CELLS, ELL_CELLS)
-    sizes = TP.partition_block_sizes(emesh, S)
-    ectx = build_triangle_context(ELL_ORDER, TP.partition_mesh(emesh, S)[0],
-                                  dtype=f64, device=dev)
-    pctx, real = TP.pad_context(ectx, sizes)
-    eplan = TP.build_halo_plan(pctx, S)
+    e = halo_elliptic_case(dev)
+    S, ectx, pctx, eplan, tau, b, bs, ridx, uex = (
+        e["S"], e["ctx"], e["pctx"], e["plan"], e["tau"], e["b"], e["bs"],
+        e["ridx"], e["uex"])
     etables, esc = TP.halo_tables(eplan, device=dev), TP.shard_context(pctx, S)
-    tau = float((ectx.n_order + 1) ** 2 * ectx.fscale.max())
-    uex = torch.sin(np.pi * ectx.x) * torch.sin(np.pi * ectx.y)
-    b = -apply_mass(ectx, -2.0 * np.pi ** 2 * uex)
-    bp = torch.zeros((pctx.k_elem, ectx.n_p), dtype=f64, device=dev)
-    ridx = torch.as_tensor(np.flatnonzero(real), device=dev)
-    bp[ridx] = b
-    bs = bp.reshape(S, -1, ectx.n_p)
     solve1 = lambda: cg(lambda v: -poisson2d_op(
         ectx, v.reshape(b.shape), tau=tau, symmetrize=True).reshape(-1),
         b.reshape(-1), tol=HALO_CG_TOL, maxiter=4000)
@@ -4423,6 +4486,9 @@ def peer_phases(dev, card: str, rng, flush) -> list:
 # ---------------------------------------------------------------------------
 
 RANKS_WORKER_TIMEOUT = 300  # seconds, each worker process
+# the name of a rank's thread in this process (``on_rank_threads``), its
+# rank appended
+RANK_THREAD = "rank thread "
 # Adam iterations of the short solves that are profiled (the idle share)
 RANKS_PROFILE_ITERS = 5
 RANKS_TIMED_REPS = 9
@@ -4464,19 +4530,46 @@ def ranks_expected(n_steps: int, iters: int, n_ranks: int) -> dict:
     return {k: n_ranks * v for k, v in per.items()}
 
 
+def paced(mp, sync):
+    """The problem ``mp`` whose step first waits for this rank's work
+    (``sync``) at each rollout's start (t = 0), so that no rank's host runs
+    more than a cost evaluation and its gradient ahead of its stream. Ranks
+    on threads of one process need it: they share autograd's one device
+    thread, which launches every rank's backward, and a rank whose host ran
+    a launch queue ahead of its stream blocks that thread in a launch while
+    the ring kernel at the head of its stream waits for a peer's reverse
+    exchange, which only that thread can launch: a deadlock, which traps at
+    the ring's bound (found on the card in most runs of the four and eight
+    ranks of ``run_ranks_in_process`` before the steps were paced)."""
+    step = mp.step
+
+    def paced_step(carry, t=0.0, ctrl=None):
+        if t == 0:
+            sync()
+        return step(carry, t, ctrl)
+
+    paced_step.exchange = step.exchange
+    return mp._replace(step=paced_step)
+
+
 def ranks_program(size: dict, rank: int, dev, barrier, sync, ring=None,
-                  group=None, iters: int | None = None):
+                  group=None, iters: int | None = None,
+                  pace: bool = False):
     """One rank's program (the same on every rank): its problem
     (``sharded_mpc_problem(size, rank=rank)``: its shard, the target through
     the ranks' fused step), the gradient at zero controls, then the timed
     Adam solve, between two meetings of the ranks (``barrier``) after their
-    work was waited for (``sync``). Returns the problem and the results."""
+    work was waited for (``sync``); with ``pace`` its step waits for
+    ``sync`` at each rollout's start (``paced``: ranks in one process).
+    Returns the problem and the results."""
     from blitzdg_tpu_torch.mpc import sharded_box as sbx
 
     iters = sbx.MPC_ITERS if iters is None else iters
     t0 = time.perf_counter()
     mp = sbx.sharded_mpc_problem(size, rank=rank, ring=ring, group=group,
                                  device=dev)
+    if pace:
+        mp = paced(mp, sync)
     cs0 = torch.zeros_like(mp.hidden, requires_grad=True)
     (g0,) = torch.autograd.grad(sbx.sharded_mpc_cost(mp, cs0), cs0)
     sync()
@@ -4520,7 +4613,9 @@ def profile_union(run, solve_s: float, ready=lambda: None) -> dict:
             continue
         a, b = ev.time_range.start, ev.time_range.end
         if b > a:
-            spans.append((a, b, ev.name.startswith("peer_")))
+            # (a template kernel's name starts with its return type)
+            name = ev.name.removeprefix("void ")
+            spans.append((a, b, name.startswith("peer_")))
             by_name[ev.name] = by_name.get(ev.name, 0.0) + (b - a)
 
     def union(keep) -> float:
@@ -4613,21 +4708,23 @@ def ranks_worker(cfg: dict) -> int:
     return 0
 
 
-def run_ranks_workers(S: int, size: str, case_dir: Path) -> list:
-    """S worker processes of this script (``--ranks-worker``), one a rank,
-    each on the card, each under RANKS_WORKER_TIMEOUT; once one fails, the
-    others are given a few seconds and then ended; every one is ended in
-    the end. Fails, with every rank's log, unless every one exits 0.
-    Their results by rank."""
+def run_ranks_workers(S: int, case_dir: Path, flag: str = "--ranks-worker",
+                      tag: str = "RANKS_OK", **extra) -> list:
+    """S worker processes of this script (``flag``: ``--ranks-worker``, or
+    ``--halo-worker``; ``extra`` joins each one's configuration), one a
+    rank, each on the card, each under RANKS_WORKER_TIMEOUT; once one
+    fails, the others are given a few seconds and then ended; every one is
+    ended in the end. Fails, with every rank's log, unless every one exits
+    0 and printed ``tag``. Their results by rank."""
     port = _free_port()
     procs, logs = [], []
     for r in range(S):
         cfg = {"S": S, "rank": r, "port": port, "dir": str(case_dir),
-               "size": size}
+               **extra}
         log = open(case_dir / f"rank{r}.log", "w+")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--ranks-worker",
+            [sys.executable, str(Path(__file__).resolve()), flag,
              json.dumps(cfg)], stdout=log, stderr=subprocess.STDOUT,
             text=True))
     t0 = time.perf_counter()
@@ -4653,7 +4750,7 @@ def run_ranks_workers(S: int, size: str, case_dir: Path) -> list:
         texts.append(log.read())
         log.close()
     bad = [r for r, (p, t) in enumerate(zip(procs, texts))
-           if p.returncode != 0 or f"RANKS_OK rank={r}" not in t]
+           if p.returncode != 0 or f"{tag} rank={r}" not in t]
     if bad:
         raise RuntimeError(
             f"ranks workers {bad} of {S} failed (exits "
@@ -4662,16 +4759,13 @@ def run_ranks_workers(S: int, size: str, case_dir: Path) -> list:
     return [torch.load(case_dir / f"rank{r}.pt") for r in range(S)]
 
 
-def stage_ring_regions(plan, n_fp: int, dev):
-    """S zeroed stage-ring regions of this process (batch 1) and each rank's
-    ring over them (``StageRing.over_regions``); with a function that frees
-    the regions."""
+def ring_regions(S: int, nbytes: int, make, dev):
+    """S zeroed regions of ``nbytes`` of this process and ``make(r,
+    bases)``, rank r's ring over them, for each rank; with a function that
+    frees the regions."""
     from blitzdg_tpu_torch.parallel import peer as PR
 
-    S = plan.n_shards
     lib = PR._lib()
-    lay = PR.stage_region_layout(1, PR._n_slots(plan, n_fp), len(plan.offs),
-                                 S)
     bases = {}
 
     def free():
@@ -4681,95 +4775,173 @@ def stage_ring_regions(plan, n_fp: int, dev):
 
     for r in range(S):
         p = ctypes.c_void_p()
-        PR._check(lib, lib.peer_alloc(dev.index or 0, lay["bytes"],
+        PR._check(lib, lib.peer_alloc(dev.index or 0, nbytes,
                                       ctypes.byref(p)), "peer_alloc")
         bases[r] = p.value
-    rings = [PR.StageRing.over_regions(plan, n_fp, 1, r, bases, dev)
-             for r in range(S)]
-    return rings, free
+    return [make(r, bases) for r in range(S)], free
 
 
-def run_ranks_in_process(size: dict, plan, n_fp: int, dev,
-                         iters: int | None = None, profile: bool = True):
-    """The S ranks of the sharded MPC in this process, each on a thread and
-    a stream of its own, over stage rings on regions of this process: their
-    kernels run at the same time and meet only through their flags (and
-    autograd runs each rank's backward on its stream). First rank 0 runs
-    the program alone over a ring whose flags read past any epoch (no wait
-    holds it; its values are not used), so that every kernel the program
-    launches is loaded before the ranks run together (CUDA's lazy loading
-    would load a kernel at its first launch, waiting for the context's
-    running kernels, among them peers waiting at their flags). Then the
-    ranks' program, counters zeroed just before and read just after, and
-    the profiled short solves. Returns each rank's results, the counts,
-    the profile and the wall time of the whole."""
-    S = plan.n_shards
-    warm, free_warm = stage_ring_regions(plan, n_fp, dev)
+def stage_ring_regions(plan, n_fp: int, dev):
+    """S zeroed stage-ring regions of this process (batch 1) and each rank's
+    ring over them (``StageRing.over_regions``); with a function that frees
+    the regions."""
+    from blitzdg_tpu_torch.parallel import peer as PR
+
+    lay = PR.stage_region_layout(1, PR._n_slots(plan, n_fp), len(plan.offs),
+                                 plan.n_shards)
+    return ring_regions(
+        plan.n_shards, lay["bytes"],
+        lambda r, bases: PR.StageRing.over_regions(plan, n_fp, 1, r, bases,
+                                                   dev), dev)
+
+
+def halo_ring_regions(plan, slot_bytes: int, dev):
+    """S zeroed halo-ring regions of this process (slots of ``slot_bytes``)
+    and each rank's ring over them (``HaloRing.over_regions``); with a
+    function that frees the regions."""
+    from blitzdg_tpu_torch.parallel import peer as PR
+
+    lay = PR.ring_region_layout(slot_bytes, len(plan.offs), plan.n_shards)
+    return ring_regions(
+        plan.n_shards, lay["bytes"],
+        lambda r, bases: PR.HaloRing.over_regions(plan, slot_bytes, r, bases,
+                                                  dev), dev)
+
+
+def on_rank_threads(streams, fn, on_error=lambda: None) -> list:
+    """``fn(r)`` on a thread a rank, each on its stream ``streams[r]``;
+    ``on_error()`` when one raises (to free ranks waiting for it). Fails
+    unless every thread ends within RANKS_WORKER_TIMEOUT without an error.
+    Each rank's result."""
+    S = len(streams)
+    out, errors = [None] * S, []
+
+    def run(r):
+        try:
+            with torch.cuda.stream(streams[r]):
+                out[r] = fn(r)
+        except BaseException as e:  # noqa: BLE001 (raised below)
+            errors.append((r, repr(e)))
+            on_error()
+
+    threads = [threading.Thread(target=run, args=(r,), daemon=True,
+                                name=f"{RANK_THREAD}{r}") for r in range(S)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(RANKS_WORKER_TIMEOUT)
+    if any(th.is_alive() for th in threads):
+        raise RuntimeError("a rank's thread did not end")
+    if errors:
+        raise RuntimeError(f"ranks in process failed: {errors}")
+    return out
+
+
+def meet_before_launches(ring, meet):
+    """Rank ``ring``'s launches of its kernels made on a rank's thread
+    (``on_rank_threads``) each first wait for ``meet``, a barrier of every
+    rank's thread, so that no ring kernel is on the card before every
+    rank's host has issued all its work up to its own launch of that
+    kernel. Without it a ring kernel spinning at its flags could wait for a
+    peer whose host is held before its launch by a call that waits for the
+    card's running kernels (a first launch that loads a module, a
+    ``cudaFree`` of the caching allocator): a deadlock, which traps at the
+    ring's bound (``halo_curved_ranks`` trapped on the card in a whole
+    run before the ranks met here and warmed up each alone). The
+    launches of autograd's device thread (the reverse exchanges and sums of
+    a backward) do not meet: that one thread runs every rank's backward."""
+    for name in ("_launch_exchange", "_reduce"):
+        def met(*args, _launch=getattr(ring, name), **kw):
+            if threading.current_thread().name.startswith(RANK_THREAD):
+                meet.wait()
+            return _launch(*args, **kw)
+
+        setattr(ring, name, met)
+
+
+def ranks_in_process(regions, counters: dict, dev, program, warm,
+                     short=None):
+    """The S ranks of a ring in this process, each on a thread and a stream
+    of its own, over rings on regions of this process (``regions()``: the
+    rings and a function that frees them): their kernels run at the same
+    time and meet only through their flags (and autograd runs each rank's
+    backward on its stream), their hosts before each launch of a ring
+    kernel (``meet_before_launches``). First ``warm(r, ring, sync,
+    barrier)`` for each rank r in turn, alone and on its stream, over a
+    ring whose flags read past any epoch (no wait holds it; its values are
+    not used), so that every kernel any rank launches is loaded, and each
+    stream's caching allocator holds its blocks, before the ranks meet.
+    Then ``program(r, ring, sync, barrier)`` on every rank, the
+    ``counters`` zeroed just before and read just after; then, where
+    ``short(r, ring)`` is given, the ranks' short window timed and profiled
+    (``profile_union``). Returns each rank's results, the launches, the
+    profile and the wall seconds."""
+    warm_rings, free_warm = regions()
+    S = len(warm_rings)
+    streams = [torch.cuda.Stream(dev) for _ in range(S)]
     try:
-        warm[0].flags[:] = 1 << 60
-        torch.cuda.synchronize()
-        ranks_program(size, 0, dev, lambda: None, torch.cuda.synchronize,
-                      ring=warm[0], iters=1)
+        for r in range(S):
+            warm_rings[r].flags[:] = 1 << 60
+            torch.cuda.synchronize()
+            with torch.cuda.stream(streams[r]):
+                warm(r, warm_rings[r], streams[r].synchronize, lambda: None)
+            torch.cuda.synchronize()
     finally:
         free_warm()
-    rings, free = stage_ring_regions(plan, n_fp, dev)
-    streams = [torch.cuda.Stream(dev) for _ in range(S)]
-    meet = threading.Barrier(S)
-    out, problems, errors = [None] * S, [None] * S, []
-    counters = ranks_counters()
-
-    def all_ranks(fn):
-        """``fn(r)`` on a thread a rank, on the rank's stream."""
-        def run(r):
-            try:
-                with torch.cuda.stream(streams[r]):
-                    fn(r)
-            except BaseException as e:  # noqa: BLE001 (raised below)
-                errors.append((r, repr(e)))
-                meet.abort()
-
-        threads = [threading.Thread(target=run, args=(r,), daemon=True)
-                   for r in range(S)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(RANKS_WORKER_TIMEOUT)
-        if any(th.is_alive() for th in threads):
-            raise RuntimeError("a rank's thread did not end")
-        if errors:
-            raise RuntimeError(f"ranks in process failed: {errors}")
-
-    def program(r):
-        problems[r], out[r] = ranks_program(
-            size, r, dev, meet.wait, streams[r].synchronize, ring=rings[r],
-            iters=iters)
-
-    def short(r):
-        from blitzdg_tpu_torch.mpc import sharded_box as sbx
-
-        sbx.solve_sharded_mpc(problems[r], iters=RANKS_PROFILE_ITERS)
-
-    def short_all():
-        all_ranks(short)
-        torch.cuda.synchronize()
-
+    rings, free = regions()
+    meet, launch_meet = threading.Barrier(S), threading.Barrier(S)
+    for ring in rings:
+        meet_before_launches(ring, launch_meet)
+    abort = lambda: (meet.abort(), launch_meet.abort())
     try:
         torch.cuda.synchronize()
         for f in counters.values():
             f.launches = 0
         w0 = time.perf_counter()
-        all_ranks(program)
+        out = on_rank_threads(
+            streams, lambda r: program(r, rings[r], streams[r].synchronize,
+                                       meet.wait), on_error=abort)
         seconds = time.perf_counter() - w0
         launches = {k: f.launches for k, f in counters.items()}
         prof = None
-        if profile:
-            short_all()
+        if short is not None:
+            def run():
+                on_rank_threads(streams, lambda r: short(r, rings[r]),
+                                on_error=abort)
+                torch.cuda.synchronize()
+
+            run()
             t0 = time.perf_counter()
-            short_all()
-            prof = profile_union(short_all, time.perf_counter() - t0)
+            run()
+            prof = profile_union(run, time.perf_counter() - t0)
     finally:
         free()
     return out, launches, prof, seconds
+
+
+def run_ranks_in_process(size: dict, plan, n_fp: int, dev,
+                         iters: int | None = None, profile: bool = True):
+    """The S ranks of the sharded MPC in this process over stage rings on
+    regions of this process (``ranks_in_process``): each rank's program
+    alone first, then every rank's, paced (``paced``), then, with ``profile``,
+    the profiled short solves. Returns each rank's results, the counts, the
+    profile and the wall time of the whole."""
+    from blitzdg_tpu_torch.mpc import sharded_box as sbx
+
+    problems = [None] * plan.n_shards
+
+    def program(r, ring, sync, barrier):
+        problems[r], out = ranks_program(size, r, dev, barrier, sync,
+                                         ring=ring, iters=iters, pace=True)
+        return out
+
+    warm = lambda r, ring, sync, barrier: ranks_program(
+        size, r, dev, barrier, sync, ring=ring, iters=1)
+    short = lambda r, ring: sbx.solve_sharded_mpc(problems[r],
+                                                  iters=RANKS_PROFILE_ITERS)
+    return ranks_in_process(lambda: stage_ring_regions(plan, n_fp, dev),
+                            ranks_counters(), dev, program, warm,
+                            short if profile else None)
 
 
 def stage_ring_check(plan, n_fp: int, dev, rng, flush) -> dict:
@@ -4825,7 +4997,7 @@ def stage_ring_check(plan, n_fp: int, dev, rng, flush) -> dict:
                                                               False),
             "peer_stage_exchange_reverse": lambda: rings[0]._exchange(
                 bufs[:1], True),
-            "peer_rank_sum": lambda: rings[0]._sum(xs[0])}
+            "peer_rank_sum": lambda: rings[0]._reduce(xs[0], 0)}
         for name, fn in plain.items():
             want = fn()
             rows = (torch.cat(got[name]) if name != "peer_rank_sum"
@@ -4946,7 +5118,7 @@ def ranks_phases(dev, card: str, rng, flush) -> list:
     # four processes, full width
     w0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        res = run_ranks_workers(4, "FULL", Path(tmp))
+        res = run_ranks_workers(4, Path(tmp), size="FULL")
     seconds = time.perf_counter() - w0
     launches = {k: sum(o["launches"][k] for o in res)
                 for k in res[0]["launches"]}
@@ -4975,6 +5147,766 @@ def ranks_phases(dev, card: str, rng, flush) -> list:
         "peer_rank_sum": "examples/mpc_sharded.py:123"}
     return [{"name": name, "route": "cuda", "source": src,
              "replaces": replaces[name], "launches": totals[name],
+             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+             "bound_by": c["bound_by"], "library_ms": None}
+            for name, c in checks.items()]
+
+
+# ---------------------------------------------------------------------------
+# HALO RANKS path: the element-sharded plain-tensor path one shard a rank
+# ---------------------------------------------------------------------------
+
+# The element-sharded plain-tensor path one shard a rank over a halo ring
+# (``parallel.HaloRing``), held to the stacked transport on the same card.
+# The scaling study's full width (box_triangles(32, 32), K=2048, N=3,
+# float32, HALO_STEPS SSP-RK2 steps at HALO_DT from rest): the ranks on
+# threads and streams of this process at S = HALO_RANKS_SHARDS, with
+# full-precision and bfloat16 halos, and 4 processes for
+# HALO_RANKS_PROC_STEPS steps (the time slices make each meeting cost
+# milliseconds). Gates (the HALO_* tolerances above): the RHS within
+# HALO_RHS_RTOL of the stacked RHS's largest entry (the same arithmetic;
+# cuBLAS may pick another algorithm for one shard's batch: at S=4 a
+# split-K product, 1.8e-6 of the largest entry on the card), the end state
+# within HALO_ROLL_ATOL (with bfloat16 halos within HALO_BF16_ROLL_ATOL:
+# a difference of 1e-6 in a trace can flip its rounding to bfloat16,
+# which moves it by one bfloat16 step, 2^-7 of 8 at the depths here, 8 <
+# h < 12; the gate is one such step), every '+' face row (what the
+# exchange delivered, gathered) bit-equal to the stacked roll's; at S=4
+# the gradient of a
+# linear functional of the RHS through the reverse exchange within
+# HALO_RHS_RTOL of the stacked one's largest entry. The coastal rollout
+# with halo_sw2d_timestep at S=4: every step's dt the stacked run's bits
+# on every rank. The curved RHS on the large disk at S = HALO_CURVED_SHARDS
+# ranks, held to the same RHS in float64: each field's largest error at
+# most HALO_CURVED_NOISE times the unsharded float32 RHS's own (one shard's
+# products take other cuBLAS algorithms, and the weak form's cancellations
+# make the float32 RHS's rounding error 4e-6 to 2e-5 of each momentum and
+# depth field's largest entry and 2.6e-2 of the tracer's: a float32 and a
+# float64 run on the CPU), not within HALO_RHS_RTOL of the unsharded
+# float32 RHS, which the stacked transport meets because it runs the very
+# same products. The float64 elliptic configuration at S=4 under CG (tol
+# HALO_CG_TOL: 19 iterations, as halo_elliptic's) and GMRES(HALO_RANKS_GMRES:
+# one cycle of 30 to tol 1e-12, its relative residual 5.6e-13 in a float64
+# run of the same solve on the CPU, so that no rounding moves the flag or
+# the count): the iterations and flags of the stacked run, x within
+# HALO_CG_ATOL, the flag, the iterations and the relative residual the
+# same bits on every rank.
+HALO_RANKS_SHARDS = (2, 4)
+HALO_BF16_ROLL_ATOL = 2.0 ** -7 * 8
+HALO_CURVED_NOISE = 2.0
+HALO_RANKS_PROC_STEPS = 20
+HALO_RANKS_PROFILE_STEPS = 20
+HALO_RANKS_GMRES = {"tol": 1e-12, "restart": 30, "maxiter": 3}
+HALO_RANKS_CG_MAXITER = 4000
+
+
+def halo_ring_counters() -> dict:
+    """The launch counters of the halo ring's kernels, by name (the halo
+    path's sums are the Krylov dots', all float64)."""
+    from blitzdg_tpu_torch.parallel import peer as PR
+
+    return {"peer_halo_exchange": PR.peer_halo_exchange,
+            "peer_halo_exchange_reverse": PR.peer_halo_exchange_reverse,
+            "peer_rank_max": PR.peer_rank_max,
+            "peer_rank_sum": PR.peer_rank_sum}
+
+
+def halo_box_case(dev):
+    """The scaling study's set (``examples/scaling_study.py --mode xla``):
+    box_triangles(32, 32) partitioned into 4 blocks (runs of them for fewer
+    shards), N=3, float32 on ``dev``; a moving state (the RHS checks) and
+    the study's state at rest (the rollouts)."""
+    from blitzdg_tpu_torch import parallel as TP
+    from blitzdg_tpu_torch.mesh import box_triangles
+    from blitzdg_tpu_torch.ops.sw2d import SWState
+    from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
+
+    ctx = build_triangle_context(
+        3, TP.partition_mesh(box_triangles(32, 32), 4)[0],
+        dtype=torch.float32, device=dev)
+    h = 10.0 + torch.exp(-10.0 * (ctx.x ** 2 + ctx.y ** 2))
+    zero = torch.zeros_like(h)
+    return ctx, SWState(h, 0.3 * h, -0.2 * h), SWState(h, zero, zero)
+
+
+def halo_rank_blocks(ctx, plan, dev, ranks=None) -> list:
+    """Each rank's shard context and halo tables (None for a rank not in
+    ``ranks``)."""
+    from blitzdg_tpu_torch import parallel as TP
+
+    S = plan.n_shards
+    return [(TP.shard_context(ctx, S, r), TP.halo_tables(plan, dev, rank=r))
+            if ranks is None or r in ranks else None for r in range(S)]
+
+
+def halo_rhs_program(ctx, plan, blocks, moving, rest, hd, steps: int,
+                     grad_w=None):
+    """The scaling study's program of each rank r of ``plan`` over its ring
+    (the same on every rank): the halo RHS of the moving state, the '+'
+    face rows of its fields, with ``grad_w`` (stacked weights) the gradient
+    of a linear functional of the RHS, then, between meetings, ``steps``
+    timed SSP-RK2 steps from rest; ``hd``: the halo dtype."""
+    from blitzdg_tpu_torch import parallel as TP
+    from blitzdg_tpu_torch.ops.sw2d import SWPhysics, SWState
+    from blitzdg_tpu_torch.timestepping import ssprk2_step
+
+    S, phys = plan.n_shards, SWPhysics(g=9.81)
+    fm = ctx.fmask.reshape(-1)
+    rows = torch.stack([f[..., fm] for f in moving]).reshape(
+        3, S, -1, ctx.n_fp)
+
+    def program(r, ring, sync, barrier):
+        sc, tables = blocks[r]
+        mine = lambda fs: [f.reshape(S, -1, ctx.n_p)[r:r + 1] for f in fs]
+        rhs = lambda s, t: TP.halo_sw2d_rhs(sc, s, t, phys, tables, plan,
+                                            halo_dtype=hd, ring=ring)
+        out = {"rhs": rhs(SWState(*mine(moving)), 0.0),
+               "rows": TP.halo_face_rows(rows[:, r:r + 1], tables, plan,
+                                         halo_dtype=hd, ring=ring)}
+        if grad_w is not None:
+            st = [f.clone().requires_grad_() for f in mine(moving)]
+            loss = sum((a * w).sum() for a, w in
+                       zip(rhs(SWState(*st), 0.0), mine(grad_w)))
+            out["grad"] = torch.autograd.grad(loss, st)
+        sync()
+        barrier()
+        t0 = time.perf_counter()
+        s = SWState(*mine(rest))
+        for _ in range(steps):
+            s = ssprk2_step(rhs, s, 0.0, HALO_DT)
+        sync()
+        out["seconds"] = time.perf_counter() - t0
+        barrier()
+        out["end"] = s
+        return out
+
+    return program
+
+
+def halo_in_process(plan, slot_bytes: int, dev, program, warm, short=None):
+    """``ranks_in_process`` over halo rings of ``slot_bytes`` for ``plan``,
+    with the halo ring's counters."""
+    return ranks_in_process(lambda: halo_ring_regions(plan, slot_bytes, dev),
+                            halo_ring_counters(), dev, program, warm, short)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The bits of a float tensor, as integers (NaN compares equal)."""
+    return t.view({torch.float32: torch.int32, torch.float64: torch.int64,
+                   torch.bfloat16: torch.int16}[t.dtype])
+
+
+def halo_ring_check(plan, n_fp: int, dev, rng, flush) -> dict:
+    """The halo ring's kernels on the card at the scaling study's S=4
+    shapes (a face-row buffer of three fields, the RHS's, (n_off, 3,
+    max_send, Nfp), in float32, float64 and bfloat16; a one-value max, the
+    time step's, and a one-value float64 sum, a Krylov dot's), four ranks
+    on four streams, against their plain versions on the same inputs: the
+    stacked roll of each offset's rows over the ranks (forward and
+    reverse), ``rank_order_max`` and ``rank_order_sum``, bit for bit. Then
+    each kernel of rank 0 alone, its flags set past any epoch (no wait
+    holds it), CUDA events, L2 flushed, beside its plain version. Launches
+    counted here are not the main path's. Returns a record by kernel
+    name."""
+    from blitzdg_tpu_torch.parallel import peer as PR
+
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+    S, offs = plan.n_shards, plan.offs
+    shape = (len(offs), 3, plan.max_send, n_fp)
+    slot = PR.halo_slot_bytes(plan, n_fp, 3, f64)
+    roll = lambda b, sign: torch.stack(
+        [torch.roll(b[:, i], sign * d, 0) for i, d in enumerate(offs)], 1)
+    bufs = {dt: torch.as_tensor(rng.standard_normal((S,) + shape),
+                                device=dev).to(dt) for dt in (f32, f64, bf16)}
+    xs = {dt: torch.as_tensor(rng.standard_normal((S, 1)), device=dev).to(dt)
+          for dt in (f32, f64)}
+    calls = [(fn, bufs[dt]) for dt in (f32, f64, bf16)
+             for fn in (PR.peer_halo_exchange, PR.peer_halo_exchange_reverse)]
+    calls += [(fn, xs[dt]) for dt in (f32, f64)
+              for fn in (PR.peer_rank_max, PR.peer_rank_sum)]
+    # every call once by rank 0 alone (its flags past any epoch), so that
+    # each kernel a call launches is loaded before the ranks meet
+    warm, free_warm = halo_ring_regions(plan, slot, dev)
+    try:
+        warm[0].flags[:] = 1 << 60
+        kept = [fn(warm[0], x[0].contiguous()) for fn, x in calls]
+        torch.cuda.synchronize()
+        del kept
+    finally:
+        free_warm()
+    rings, free = halo_ring_regions(plan, slot, dev)
+    try:
+        streams = [torch.cuda.Stream(dev) for _ in range(S)]
+        torch.cuda.synchronize()
+
+        def on_ranks(fn, x):
+            """``fn`` of each rank's row of ``x``, launched on its stream
+            from this thread (the launches do not block)."""
+            got = []
+            for r in range(S):
+                with torch.cuda.stream(streams[r]):
+                    got.append(fn(rings[r], x[r].contiguous()))
+            torch.cuda.synchronize()
+            return torch.stack(got)
+
+        cases = {"peer_halo_exchange": [], "peer_halo_exchange_reverse": [],
+                 "peer_rank_max": [], "peer_rank_sum (float64)": []}
+        for dt in (f32, f64, bf16):
+            for name, fn, sign in (
+                    ("peer_halo_exchange", PR.peer_halo_exchange, 1),
+                    ("peer_halo_exchange_reverse",
+                     PR.peer_halo_exchange_reverse, -1)):
+                cases[name].append((str(dt), on_ranks(fn, bufs[dt]),
+                                    roll(bufs[dt], sign)))
+        for dt in (f32, f64):
+            cases["peer_rank_max"].append(
+                (str(dt), on_ranks(PR.peer_rank_max, xs[dt]),
+                 PR.rank_order_max(list(xs[dt])).expand(S, 1)))
+        cases["peer_rank_sum (float64)"].append(
+            (str(f64), on_ranks(PR.peer_rank_sum, xs[f64]),
+             PR.rank_order_sum(list(xs[f64])).expand(S, 1)))
+        rings[0].flags[:] = 1 << 60
+        torch.cuda.synchronize()
+        alone = {
+            "peer_halo_exchange": (
+                lambda: PR.peer_halo_exchange(rings[0], bufs[f32][0]),
+                lambda: roll(bufs[f32], 1), bufs[f32][0]),
+            "peer_halo_exchange_reverse": (
+                lambda: PR.peer_halo_exchange_reverse(rings[0],
+                                                      bufs[f32][0]),
+                lambda: roll(bufs[f32], -1), bufs[f32][0]),
+            "peer_rank_max": (
+                lambda: PR.peer_rank_max(rings[0], xs[f32][0]),
+                lambda: PR.rank_order_max(list(xs[f32])), xs[f32][0]),
+            "peer_rank_sum (float64)": (
+                lambda: PR.peer_rank_sum(rings[0], xs[f64][0]),
+                lambda: PR.rank_order_sum(list(xs[f64])), xs[f64][0])}
+        recs = {}
+        for name, got in cases.items():
+            fn, plain, x = alone[name]
+            bnd = bound(2.0 * x.numel() * x.element_size(), 0.0)
+            recs[name] = {
+                "bit_equal": {dt: bool(torch.equal(_bits(g), _bits(w)))
+                              for dt, g, w in got},
+                "max_abs_err": max(float((g.double() - w.double()).abs()
+                                         .max()) for _, g, w in got),
+                "ms": time_ms(fn, RANKS_TIMED_REPS, flush),
+                "plain_ms": time_ms(plain, RANKS_TIMED_REPS, flush),
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "timed": f"{x.dtype}, shape {list(x.shape)}"}
+    finally:
+        free()
+    return recs
+
+
+def halo_worker(cfg: dict) -> int:
+    """One rank of the scaling study's halo rollout in a process of its
+    own: joins the gloo group, makes a halo ring over it (CUDA IPC), runs
+    ``halo_rhs_program`` for HALO_RANKS_PROC_STEPS steps with full-precision
+    and with bfloat16 halos, its ring's counters zeroed just before and
+    read just after; writes its results to the case's directory."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from blitzdg_tpu_torch import parallel as TP
+    from blitzdg_tpu_torch.parallel import peer as PR
+
+    S, rank = cfg["S"], cfg["rank"]
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{cfg['port']}", world_size=S,
+        rank=rank, timeout=datetime.timedelta(seconds=RANKS_WORKER_TIMEOUT))
+    ctx, moving, rest = halo_box_case(dev)
+    plan = TP.build_halo_plan(ctx, S)
+    blocks = halo_rank_blocks(ctx, plan, dev, ranks=(rank,))
+    ring = PR.HaloRing(plan, PR.halo_slot_bytes(plan, ctx.n_fp, 3,
+                                                torch.float32),
+                       dist.group.WORLD, device=dev)
+    counters = halo_ring_counters()
+    for f in counters.values():
+        f.launches = 0
+    res = {}
+    for key, hd in (("full", None), ("bf16", torch.bfloat16)):
+        out = halo_rhs_program(ctx, plan, blocks, moving, rest, hd,
+                               HALO_RANKS_PROC_STEPS)(
+            rank, ring, torch.cuda.synchronize, dist.barrier)
+        res[key] = {"rhs": [f.cpu() for f in out["rhs"]],
+                    "rows": out["rows"].cpu(),
+                    "end": [f.cpu() for f in out["end"]],
+                    "seconds": out["seconds"]}
+    res["launches"] = {k: f.launches for k, f in counters.items()}
+    ring.close()
+    torch.save(res, Path(cfg["dir"]) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    print(f"HALO_OK rank={rank}", flush=True)
+    return 0
+
+
+def add_launches(totals: dict, launches: dict):
+    """Adds each counter's launches to ``totals``."""
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def halo_rel(got, ref) -> float:
+    """The largest difference over the fields of ``got`` and ``ref``, each
+    relative to the reference field's largest entry."""
+    return max(float((g.reshape(r.shape) - r).abs().max() / r.abs().max())
+               for g, r in zip(got, ref))
+
+
+def halo_cat(outs, key) -> list:
+    """The ranks' fields ``key`` (lists of (1, ...) tensors), each joined
+    on the shard axis."""
+    return [torch.cat([o[key][i] for o in outs])
+            for i in range(len(outs[0][key]))]
+
+
+def halo_rollout(rhs, s, n: int):
+    """``n`` SSP-RK2 steps of ``rhs`` at HALO_DT from ``s``."""
+    from blitzdg_tpu_torch.timestepping import ssprk2_step
+
+    for _ in range(n):
+        s = ssprk2_step(rhs, s, 0.0, HALO_DT)
+    return s
+
+
+def halo_rhs_ranks(dev, card: str, rng, ctx, moving, rest):
+    """The scaling study's RHS and rollout one shard a rank, S =
+    HALO_RANKS_SHARDS ranks in this process, full-precision and bfloat16
+    halos (``halo_rhs_S{S}_ranks_in_process``). Returns the launches and
+    the stacked references of the RHS and face rows by (S, halo dtype)."""
+    from blitzdg_tpu_torch import parallel as TP
+    from blitzdg_tpu_torch.ops.sw2d import SWPhysics, SWState
+    from blitzdg_tpu_torch.parallel import peer as PR
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    phys = SWPhysics(g=9.81)
+    rel, cat, rollout = halo_rel, halo_cat, halo_rollout
+    totals = {}
+    fm = ctx.fmask.reshape(-1)
+    refs = {}
+    for S in HALO_RANKS_SHARDS:
+        ref_ends = {}
+        plan = TP.build_halo_plan(ctx, S)
+        tables, sc = TP.halo_tables(plan, device=dev), TP.shard_context(ctx, S)
+        blocks = halo_rank_blocks(ctx, plan, dev)
+        split = lambda fs: SWState(*(f.reshape(S, -1, ctx.n_p) for f in fs))
+        rows = torch.stack([f[..., fm] for f in moving]).reshape(
+            3, S, -1, ctx.n_fp)
+        slot = PR.halo_slot_bytes(plan, ctx.n_fp, 3, f32)
+        for hd in (None, bf16):
+            srhs = lambda s, t: TP.halo_sw2d_rhs(sc, s, t, phys, tables,
+                                                 plan, halo_dtype=hd)
+            grad_w = None
+            if S == max(HALO_RANKS_SHARDS) and hd is None:
+                grad_w = [torch.as_tensor(rng.standard_normal(
+                    tuple(ctx.x.shape)), dtype=f32, device=dev)
+                    for _ in range(3)]
+            ref_rhs = srhs(split(moving), 0.0)
+            ref_rows = TP.halo_face_rows(rows, tables, plan, halo_dtype=hd)
+            rollout(srhs, split(rest), 2)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref_end = rollout(srhs, split(rest), HALO_STEPS)
+            torch.cuda.synchronize()
+            stacked_s = time.perf_counter() - t0
+            ref_ends[hd] = ref_end
+            atol = HALO_ROLL_ATOL if hd is None else HALO_BF16_ROLL_ATOL
+            refs[(S, hd)] = (ref_rhs, ref_rows)
+            if grad_w is not None:
+                st = [f.clone().requires_grad_() for f in split(moving)]
+                loss = sum((a * w.reshape(a.shape)).sum()
+                           for a, w in zip(srhs(SWState(*st), 0.0), grad_w))
+                ref_grad = torch.autograd.grad(loss, st)
+            prog = lambda n: halo_rhs_program(ctx, plan, blocks, moving,
+                                              rest, hd, n, grad_w)
+
+            def short(r, ring):
+                sc_r, tb_r = blocks[r]
+                rollout(lambda s, t: TP.halo_sw2d_rhs(
+                    sc_r, s, t, phys, tb_r, plan, halo_dtype=hd, ring=ring),
+                    SWState(*(f.reshape(S, -1, ctx.n_p)[r:r + 1]
+                              for f in rest)), HALO_RANKS_PROFILE_STEPS)
+
+            res, launches, prof, seconds = halo_in_process(
+                plan, slot, dev, prog(HALO_STEPS), prog(2), short)
+            add_launches(totals, launches)
+            rhs_err = rel(cat(res, "rhs"), ref_rhs)
+            end = cat(res, "end")
+            end_err = max_abs([f.reshape(r.shape) for f, r in
+                               zip(end, ref_end)], ref_end)
+            rows_bits = [bool(torch.equal(_bits(o["rows"]),
+                                          _bits(ref_rows[:, r:r + 1])))
+                         for r, o in enumerate(res)]
+            grad_err = (rel(cat(res, "grad"), ref_grad)
+                        if grad_w is not None else None)
+            expect = {k: 0 for k in launches}
+            expect["peer_halo_exchange"] = S * (
+                2 + (grad_w is not None) + 2 * HALO_STEPS)
+            expect["peer_halo_exchange_reverse"] = S * (grad_w is not None)
+            finite = all(bool(torch.isfinite(f).all()) for f in end)
+            rec = {"phase": f"halo_rhs_S{S}_ranks_in_process", "card": card,
+                   "n_shards": S, "halo_dtype": str(hd), "k_elem": ctx.k_elem,
+                   "n_order": ctx.n_order, "steps": HALO_STEPS,
+                   "dt": HALO_DT, "ring_offsets": list(plan.offs),
+                   "max_send": plan.max_send,
+                   "rhs_rel_err": rhs_err, "rhs_rtol": HALO_RHS_RTOL,
+                   "grad_rel_err": grad_err,
+                   "face_rows_bit_equal_to_stacked": rows_bits,
+                   "end_vs_stacked_max_abs": end_err, "end_atol": atol,
+                   "stacked_bf16_gap_end": (
+                       None if hd is None else max_abs(ref_end,
+                                                       ref_ends[None])),
+                   "us_per_step": max(o["seconds"] for o in res) * 1e6
+                   / HALO_STEPS,
+                   "stacked_us_per_step": stacked_s * 1e6 / HALO_STEPS,
+                   "ring_launches_per_step_a_rank": 2,
+                   "device_kernels_per_step_a_rank":
+                       prof["device_kernels"] / HALO_RANKS_PROFILE_STEPS / S,
+                   "profile": prof, "seconds": seconds,
+                   "launches": launches, "expected_launches": expect,
+                   "note": "the ranks on threads and streams of one "
+                           "process, their kernels resident together"}
+            rec["ok"] = (rhs_err <= HALO_RHS_RTOL and all(rows_bits)
+                         and end_err <= atol and finite
+                         and (grad_err is None or grad_err <= HALO_RHS_RTOL)
+                         and launches == expect)
+            say(rec)
+            if not rec["ok"]:
+                raise RuntimeError(f"the halo path one shard a rank "
+                                   f"disagrees with the stacked one: {rec}")
+
+    return totals, refs
+
+
+def halo_rhs_procs(dev, card: str, ctx, rest, refs) -> dict:
+    """The scaling study's RHS and HALO_RANKS_PROC_STEPS steps in 4 worker
+    processes of this script (``halo_rhs_S4_ranks``), held to the stacked
+    references ``refs``. Returns the launches."""
+    import tempfile
+
+    from blitzdg_tpu_torch import parallel as TP
+    from blitzdg_tpu_torch.ops.sw2d import SWPhysics, SWState
+
+    bf16, phys = torch.bfloat16, SWPhysics(g=9.81)
+    rel, cat, rollout = halo_rel, halo_cat, halo_rollout
+    S = 4
+    plan = TP.build_halo_plan(ctx, S)
+    tables, sc = TP.halo_tables(plan, device=dev), TP.shard_context(ctx, S)
+    w0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_ranks_workers(S, Path(tmp), flag="--halo-worker",
+                                tag="HALO_OK")
+    seconds = time.perf_counter() - w0
+    rows_ = []
+    ok = True
+    for key, hd in (("full", None), ("bf16", bf16)):
+        ref_rhs, ref_rows = refs[(S, hd)]
+        ref_end = rollout(lambda s, t: TP.halo_sw2d_rhs(
+            sc, s, t, phys, tables, plan, halo_dtype=hd),
+            SWState(*(f.reshape(S, -1, ctx.n_p) for f in rest)),
+            HALO_RANKS_PROC_STEPS)
+        got = [o[key] for o in res]
+        rhs_err = rel([f.to(dev) for f in cat(got, "rhs")], ref_rhs)
+        end_err = max_abs([f.to(dev).reshape(r.shape) for f, r in
+                           zip(cat(got, "end"), ref_end)], ref_end)
+        rows_bits = [bool(torch.equal(_bits(o["rows"]),
+                                      _bits(ref_rows[:, r:r + 1].cpu())))
+                     for r, o in enumerate(got)]
+        atol = HALO_ROLL_ATOL if hd is None else HALO_BF16_ROLL_ATOL
+        rows_.append({"halo_dtype": str(hd), "rhs_rel_err": rhs_err,
+                      "face_rows_bit_equal_to_stacked": rows_bits,
+                      "end_vs_stacked_max_abs": end_err, "end_atol": atol,
+                      "ms_per_step": [o["seconds"] * 1e3
+                                      / HALO_RANKS_PROC_STEPS for o in got]})
+        ok &= (rhs_err <= HALO_RHS_RTOL and all(rows_bits)
+               and end_err <= atol)
+    per_rank = {k: 0 for k in res[0]["launches"]}
+    per_rank["peer_halo_exchange"] = 2 * (2 + 2 * HALO_RANKS_PROC_STEPS)
+    launches = {k: sum(o["launches"][k] for o in res) for k in per_rank}
+    exact = all(o["launches"] == per_rank for o in res)
+    rec = {"phase": "halo_rhs_S4_ranks", "card": card, "n_shards": S,
+           "steps": HALO_RANKS_PROC_STEPS, "rows": rows_,
+           "launches": launches, "launches_exact_on_every_rank": exact,
+           "seconds": seconds, "rhs_rtol": HALO_RHS_RTOL, "ok": ok and exact,
+           "note": "a rank a process, the processes time-sliced on the card "
+                   "(no MPS): the time a step measures the slices"}
+    say(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"the halo path across processes failed: {rec}")
+
+    return launches
+
+
+def halo_coastal_ranks(dev, card: str, rng) -> dict:
+    """The coastal rollout with the adaptive dt, S=4 ranks in this process
+    (``halo_coastal_adaptive_dt_ranks``). Returns the launches."""
+    from blitzdg_tpu_torch import parallel as TP
+    from blitzdg_tpu_torch.mesh import box_triangles
+    from blitzdg_tpu_torch.mpc.coastal_box import retag_east_open
+    from blitzdg_tpu_torch.ops.sw2d import SWPhysics, SWState
+    from blitzdg_tpu_torch.parallel import peer as PR
+    from blitzdg_tpu_torch.specgrid.triangle import build_triangle_context
+    from blitzdg_tpu_torch.timestepping import ssprk2_step
+
+    f32 = torch.float32
+    S = 4
+    m = box_triangles(32, 32)
+    retag_east_open(m)
+    cctx = build_triangle_context(3, TP.partition_mesh(m, S)[0], dtype=f32,
+                                  device=dev)
+    plan = TP.build_halo_plan(cctx, S)
+    tables, sc = TP.halo_tables(plan, device=dev), TP.shard_context(cctx, S)
+    blocks = halo_rank_blocks(cctx, plan, dev)
+    split = lambda f: f.reshape(S, -1, cctx.n_p)
+    H = 10.0 + 2.0 * cctx.x + torch.as_tensor(
+        rng.uniform(0.0, 1.0, (cctx.k_elem, 1)), dtype=f32, device=dev)
+    Hx, Hy = cctx.grad(H)
+    cphys = SWPhysics(g=9.81, cd=2.5e-3, f_cor=1e-4, H=split(H),
+                      Hx=split(Hx), Hy=split(Hy))
+    forcing = lambda t: 12.0 + 0.5 * torch.cos(0.3 * t)
+    eta = 0.1 * torch.exp(-5.0 * (cctx.x ** 2 + cctx.y ** 2))
+    s0 = SWState(*map(split, (H + eta, 0.05 * eta, torch.zeros_like(eta))))
+
+    def coastal(sc_, st, ph, tb, n, ring=None):
+        t, dts = torch.zeros((), dtype=f32, device=dev), []
+        for _ in range(n):
+            dt = TP.halo_sw2d_timestep(sc_, st, 9.81, 0.3, ring=ring)
+            st = ssprk2_step(lambda a, tt: TP.halo_sw2d_rhs(
+                sc_, a, tt, ph, tb, plan, tidal_forcing=forcing, ring=ring),
+                st, t, dt)
+            t = t + dt
+            dts.append(dt)
+        return st, torch.stack(dts)
+
+    ref_st, ref_dts = coastal(sc, s0, cphys, tables, HALO_COASTAL_STEPS)
+    mine_phys = lambda r: SWPhysics(
+        g=9.81, cd=2.5e-3, f_cor=1e-4, H=cphys.H[r:r + 1],
+        Hx=cphys.Hx[r:r + 1], Hy=cphys.Hy[r:r + 1])
+    prog = lambda n: lambda r, ring, sync, barrier: coastal(
+        blocks[r][0], SWState(*(f[r:r + 1] for f in s0)), mine_phys(r),
+        blocks[r][1], n, ring)
+    res, launches, _, seconds = halo_in_process(
+        plan, PR.halo_slot_bytes(plan, cctx.n_fp, 4, f32), dev,
+        prog(HALO_COASTAL_STEPS), prog(2))
+    dt_bits = [bool(torch.equal(_bits(d), _bits(ref_dts))) for _, d in res]
+    c_err = max(max_abs([f for f in st], [f[r:r + 1] for f in ref_st])
+                for r, (st, _) in enumerate(res))
+    expect = {k: 0 for k in launches}
+    expect["peer_halo_exchange"] = S * 2 * HALO_COASTAL_STEPS
+    expect["peer_rank_max"] = S * HALO_COASTAL_STEPS
+    rec = {"phase": "halo_coastal_adaptive_dt_ranks", "card": card,
+           "n_shards": S, "steps": HALO_COASTAL_STEPS,
+           "dt_bit_equal_to_stacked": dt_bits,
+           "dts": [float(d) for d in ref_dts],
+           "end_vs_stacked_max_abs": c_err, "tol": HALO_ROLL_ATOL,
+           "launches": launches, "expected_launches": expect,
+           "seconds": seconds}
+    rec["ok"] = all(dt_bits) and c_err <= HALO_ROLL_ATOL and launches == expect
+    say(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"the coastal rollout across ranks failed: {rec}")
+
+    return launches
+
+
+def halo_curved_ranks(dev, card: str) -> dict:
+    """The curved RHS on the large disk, S = HALO_CURVED_SHARDS ranks in
+    this process (``halo_curved_ranks``). Returns the launches."""
+    from blitzdg_tpu_torch import parallel as TP
+    from blitzdg_tpu_torch.ops.sw2d_curved import (SWStateTracer,
+                                                   sw2d_curved_rhs)
+    from blitzdg_tpu_torch.parallel import peer as PR
+
+    f32, rel, totals = torch.float32, halo_rel, {}
+    dctx, cub, gauss, dstate, dphys, dforce = halo_disk_case(dev)
+    dref = sw2d_curved_rhs(dctx, cub, gauss, dstate, 0.37, dphys,
+                           tidal_forcing=dforce)
+    # the same problem in float64 (the float32 state widened): the float32
+    # RHS's own rounding error, the yardstick of the gate
+    c64 = halo_disk_case(dev, torch.float64)
+    dref64 = sw2d_curved_rhs(*c64[:3], SWStateTracer(*(
+        f.double() for f in dstate)), 0.37, dphys, tidal_forcing=dforce)
+    noise = [float((a.double() - b).abs().max())
+             for a, b in zip(dref, dref64)]
+    crv, ok = [], True
+    for S in HALO_CURVED_SHARDS:
+        gplan = TP.build_gauss_halo_plan(gauss, S)
+        gblocks = [([TP.shard_context(c, S, r) for c in (dctx, cub, gauss)],
+                    TP.halo_tables(gplan, device=dev, rank=r))
+                   for r in range(S)]
+        prog = lambda r, ring, sync, barrier: TP.halo_sw2d_curved_rhs(
+            *gblocks[r][0], SWStateTracer(*(f.reshape(S, -1, dctx.n_p)
+                                            [r:r + 1] for f in dstate)),
+            0.37, dphys, gblocks[r][1], gplan, tidal_forcing=dforce,
+            ring=ring)
+        res, launches, _, seconds = halo_in_process(
+            gplan, PR.halo_slot_bytes(gplan, gauss.n_gauss, 4, f32), dev,
+            prog, prog)
+        add_launches(totals, launches)
+        got = [torch.cat([o[i] for o in res]) for i in range(4)]
+        err64 = [float((g.reshape(b.shape).double() - b).abs().max())
+                 for g, b in zip(got, dref64)]
+        row = {"n_shards": S, "ring_offsets": list(gplan.offs),
+               "rel_err_vs_unsharded": rel(got, dref),
+               "max_abs_err_vs_float64": err64, "launches": launches,
+               "seconds": seconds}
+        crv.append(row)
+        ok &= (all(e <= HALO_CURVED_NOISE * n for e, n in zip(err64, noise))
+               and launches["peer_halo_exchange"] == S)
+    say({"phase": "halo_curved_ranks", "ok": ok, "card": card,
+         "k_elem": dctx.k_elem, "rows": crv,
+         "unsharded_max_abs_err_vs_float64": noise,
+         "noise_factor": HALO_CURVED_NOISE})
+    if not ok:
+        raise RuntimeError(f"the curved halo RHS across ranks disagrees "
+                           f"with sw2d_curved_rhs: {crv}")
+
+    return totals
+
+
+def halo_elliptic_ranks(dev, card: str) -> dict:
+    """CG and GMRES on the float64 elliptic configuration's halo Laplacian,
+    S=4 ranks in this process (``halo_elliptic_ranks``). Returns the
+    launches."""
+    from blitzdg_tpu_torch import parallel as TP
+    from blitzdg_tpu_torch.parallel import peer as PR
+    from blitzdg_tpu_torch.solvers import cg, gmres
+
+    e = halo_elliptic_case(dev)
+    S, eplan, tau, bs, pctx = e["S"], e["plan"], e["tau"], e["bs"], e["pctx"]
+    etables, esc = TP.halo_tables(eplan, device=dev), TP.shard_context(pctx, S)
+    eblocks = halo_rank_blocks(pctx, eplan, dev)
+    solvers = {"cg": (cg, {"tol": HALO_CG_TOL,
+                           "maxiter": HALO_RANKS_CG_MAXITER}),
+               "gmres": (gmres, HALO_RANKS_GMRES)}
+    refs_e = {name: solve(lambda v: -TP.halo_poisson2d_op(
+        esc, v.reshape(bs.shape), tau, etables, eplan,
+        symmetrize=True).reshape(-1), bs.reshape(-1), **kw)
+        for name, (solve, kw) in solvers.items()}
+    counters = halo_ring_counters()
+    snaps = {}
+
+    def eprog(warm):
+        def program(r, ring, sync, barrier):
+            sc_r, tb_r = eblocks[r]
+            br = bs[r:r + 1]
+            mv = lambda v: -TP.halo_poisson2d_op(
+                sc_r, v.reshape(br.shape), tau, tb_r, eplan, symmetrize=True,
+                ring=ring).reshape(-1)
+            out = {}
+            for name, (solve, kw) in solvers.items():
+                if warm:  # a few iterations load every kernel
+                    kw = dict(kw, maxiter=min(kw["maxiter"], 3 if name == "cg"
+                                              else 1))
+                sync()
+                barrier()
+                if r == 0:
+                    snaps[name] = {k: f.launches for k, f in counters.items()}
+                barrier()
+                t0 = time.perf_counter()
+                res = solve(mv, br.reshape(-1), ring=ring, **kw)
+                sync()
+                out[name] = (res, time.perf_counter() - t0)
+                barrier()
+                if r == 0:
+                    snaps[name] = {k: f.launches - snaps[name][k]
+                                   for k, f in counters.items()}
+            if warm:
+                # every width of the update's product (rows of the basis)
+                n = br.numel()
+                for k in range(1, HALO_RANKS_GMRES["restart"] + 1):
+                    torch.einsum("...k,...kn->...n", br.new_zeros(k),
+                                 br.new_zeros((k, n)))
+            return out
+        return program
+
+    res, launches, _, seconds = halo_in_process(
+        eplan, PR.halo_slot_bytes(eplan, pctx.n_fp, 2, torch.float64), dev,
+        eprog(False), eprog(True))
+    erows, ok = {}, True
+    for name, ref in refs_e.items():
+        outs = [o[name][0] for o in res]
+        x_err = max(float((o.x - ref.x.reshape(S, -1)[r]).abs().max())
+                    for r, o in enumerate(outs))
+        same = [bool(torch.equal(o.flag, outs[0].flag)
+                     and torch.equal(o.iters, outs[0].iters)
+                     and torch.equal(_bits(o.relres), _bits(outs[0].relres)))
+                for o in outs]
+        its = max(int(ref.iters), 1)
+        ring_l = snaps[name]
+        erows[name] = {
+            "iters": [int(o.iters) for o in outs],
+            "iters_stacked": int(ref.iters),
+            "flags": [int(o.flag) for o in outs],
+            "flag_stacked": int(ref.flag),
+            "relres": float(outs[0].relres),
+            "x_vs_stacked_max_abs": x_err, "atol": HALO_CG_ATOL,
+            "same_bits_on_every_rank": same,
+            "ms_per_iteration": max(o[name][1] for o in res) * 1e3 / its,
+            "ring_launches_per_iteration_a_rank": {
+                k: v / its / S for k, v in ring_l.items() if v}}
+        ok &= (all(int(o.iters) == int(ref.iters)
+                   and int(o.flag) == int(ref.flag) for o in outs)
+               and x_err <= HALO_CG_ATOL and all(same))
+    say({"phase": "halo_elliptic_ranks", "card": card, "n_shards": S,
+         "k_elem": e["ctx"].k_elem, "k_padded": pctx.k_elem,
+         "n_order": ELL_ORDER, "dtype": "float64", "solvers": erows,
+         "gmres": HALO_RANKS_GMRES, "launches": launches,
+         "seconds": seconds, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"the Krylov solves across ranks disagree with "
+                           f"the stacked ones: {erows}")
+
+    return launches
+
+
+def halo_ranks_phases(dev, card: str, rng, flush) -> list:
+    """The element-sharded plain-tensor path one shard a rank on the one
+    card, over the halo ring: its kernels against their plain versions
+    (``halo_ring_kernels``); the scaling study's RHS and rollout at S = 2, 4
+    ranks in this process, full-precision and bfloat16 halos
+    (``halo_rhs_S{S}_ranks_in_process``), and 4 processes
+    (``halo_rhs_S4_ranks``); the coastal rollout with the adaptive dt
+    (``halo_coastal_adaptive_dt_ranks``); the curved RHS
+    (``halo_curved_ranks``); CG and GMRES on the halo Laplacian
+    (``halo_elliptic_ranks``); each held to the stacked transport run here.
+    Returns the kernel records of the ``kernels`` line."""
+    from blitzdg_tpu_torch import parallel as TP
+
+    ctx, moving, rest = halo_box_case(dev)
+    # ---- the ring's kernels alone, at the S=4 plan's shapes ----
+    checks = halo_ring_check(TP.build_halo_plan(ctx, 4), ctx.n_fp, dev, rng,
+                             flush)
+    ok = all(all(c["bit_equal"].values()) for c in checks.values())
+    say({"phase": "halo_ring_kernels", "card": card, "n_shards": 4,
+         "records": checks, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"the halo ring's kernels disagree with their "
+                           f"plain versions: {checks}")
+
+    totals, refs = halo_rhs_ranks(dev, card, rng, ctx, moving, rest)
+    add_launches(totals, halo_rhs_procs(dev, card, ctx, rest, refs))
+    add_launches(totals, halo_coastal_ranks(dev, card, rng))
+    add_launches(totals, halo_curved_ranks(dev, card))
+    add_launches(totals, halo_elliptic_ranks(dev, card))
+
+    src = "blitzdg_tpu_torch/ops/csrc/peer.cu"
+    replaces = {
+        "peer_halo_exchange": "blitzdg_tpu/parallel/halo.py:198",
+        "peer_halo_exchange_reverse": "blitzdg_tpu/parallel/halo.py:198",
+        "peer_rank_max": "blitzdg_tpu/parallel/halo.py:431",
+        "peer_rank_sum (float64)": "blitzdg_tpu/solvers/krylov.py:61"}
+    # (the halo path's sums are the Krylov loops' float64 dots)
+    launched = lambda name: totals.get(name.removesuffix(" (float64)"), 0)
+    for name in replaces:
+        if launched(name) < 1:
+            raise RuntimeError(f"{name} was not launched on the halo path")
+    return [{"name": name, "route": "cuda", "source": src,
+             "replaces": replaces[name], "launches": launched(name),
              "max_abs_err": c["max_abs_err"], "ms": c["ms"],
              "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
              "bound_by": c["bound_by"], "library_ms": None}
@@ -5101,7 +6033,13 @@ PEER_KERNELS = ["_Z26sw2d_step_rdma_peer_kernel" + z
 PEER_EXCHANGE_KERNELS = ["_Z25peer_ring_exchange_kernel"]
 # The stage ring's exchange (both directions) and its sum over ranks.
 STAGE_RING_KERNELS = ["_Z26peer_stage_exchange_kernel",
-                      "_Z20peer_rank_sum_kernel"]
+                      "_Z23peer_rank_reduce_kernelIfLi0EE"]
+# The halo ring's: the same exchange kernel, the maximum in float and
+# double, the sum in double.
+HALO_RING_KERNELS = ["_Z26peer_stage_exchange_kernel",
+                     "_Z23peer_rank_reduce_kernelIfLi1EE",
+                     "_Z23peer_rank_reduce_kernelIdLi1EE",
+                     "_Z23peer_rank_reduce_kernelIdLi0EE"]
 
 
 def check_no_spills(report: dict, kernels: list):
@@ -5121,11 +6059,13 @@ def main() -> int:
     ap.add_argument("--only", choices=("dense", "blocked", "curved",
                                        "sharded", "peer", "ranks",
                                        "elliptic", "solver", "quads",
-                                       "ins2d", "dg1d", "halo", "compat"),
+                                       "ins2d", "dg1d", "halo", "compat",
+                                       "halo_ranks"),
                     help="run one path's phases alone (default: all)")
     ap.add_argument("--peer-worker", metavar="JSON", help=argparse.SUPPRESS)
     ap.add_argument("--peer-fresh", metavar="JSON", help=argparse.SUPPRESS)
     ap.add_argument("--ranks-worker", metavar="JSON", help=argparse.SUPPRESS)
+    ap.add_argument("--halo-worker", metavar="JSON", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -5137,6 +6077,8 @@ def main() -> int:
         return peer_fresh_worker(json.loads(args.peer_fresh))
     if args.ranks_worker:
         return ranks_worker(json.loads(args.ranks_worker))
+    if args.halo_worker:
+        return halo_worker(json.loads(args.halo_worker))
 
     from blitzdg_tpu_torch.ops import _build
 
@@ -5200,6 +6142,8 @@ def main() -> int:
         kernels += halo_phases(dev, card, rng, flush)
     if args.only in (None, "compat"):
         kernels += compat_phases(dev, card, rng, flush)
+    if args.only in (None, "halo_ranks"):
+        kernels += halo_ranks_phases(dev, card, rng, flush)
 
     say({"phase": "total", "seconds": time.perf_counter() - t_start})
     if args.only in (None, "curved"):
@@ -5219,6 +6163,8 @@ def main() -> int:
         check_no_spills(peer, STAGE_RING_KERNELS)
     if args.only in (None, "quads"):
         check_no_spills(blocked, QUAD_KERNELS)
+    if args.only in (None, "halo_ranks"):
+        check_no_spills(peer, HALO_RING_KERNELS)
     say({"kernels": kernels})
     print(card, flush=True)
     say({"ok": True, "device": {"platform": "gpu",
