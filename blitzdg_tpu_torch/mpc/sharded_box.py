@@ -27,7 +27,11 @@ for the port with nothing cut:
    cost, the parts summed over the ranks (the example's ``psum``) and the
    controls' cotangent with them, so that every rank holds the same
    controls. The ranks exchange through a process group (gloo, CPU
-   tensors) or, on the card, a ``parallel.StageRing``.
+   tensors) or, on the card, a ``parallel.StageRing``: each stage one
+   launch of the stage's peer mode with the exchange folded in, its
+   backward one of the adjoint's with the reverse; ranks that share a
+   process give their rings ``meet=`` (``StageRing.over_regions``), and
+   the step paces each rollout.
 
 Nothing here is random. Everything float32 unless ``dtype`` says otherwise.
 """
@@ -217,7 +221,12 @@ def sharded_mpc_problem(size: dict = EXAMPLE, n_steps: int = MPC_STEPS,
     on CPU tensors its point-to-point transport; on the card a
     ``StageRing`` over it is made here, a collective, and returned as
     ``ring``, which every rank closes when done). Every rank must make the
-    same calls on its problem in the same order."""
+    same calls on its problem in the same order. Over a ring of ranks that
+    share this process (``StageRing.over_regions``) the differentiable
+    step waits for the rank's stream at each rollout's start
+    (``make_sharded_blocked_step_diff``), so that no rank's host runs more
+    than a cost evaluation and its gradient ahead of its stream (ROADMAP
+    C34)."""
     ctx, dt_cfl = _context(size["cells"], size["n_order"], size["n_shards"],
                            size["filter_order"], dtype, device)
     dt = dt_cfl if size["dt"] is None else size["dt"]

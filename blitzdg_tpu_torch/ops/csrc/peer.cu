@@ -23,7 +23,10 @@
 // Both exchange kernels move a send buffer's chunks the same way
 // (send_chunk), as 4-byte words, whatever the type: one
 // block a ring offset i waits until the receiving rank's slots of chunk i
-// are free (a GO flag in this rank's memory, released by the receiver),
+// are free (a GO flag in this rank's memory, released by the receiver; for
+// the stage and halo rings, whose slots are two sets by the epoch's
+// parity, the set of the epoch's parity: the read of the epoch before the
+// last),
 // stores chunk i of every scenario into them, fences at system scope and
 // releases the chunk's ARRIVED flag in the receiver's memory. The slot set
 // (where the slots lie in a region, which flags guard them, which way the
@@ -54,7 +57,13 @@
 // of a ring (its chunk size for a stage ring, the slot set's words over
 // the ring offsets for a halo ring): a call whose chunks are smaller than
 // the last call's never stores into another chunk's slots, which only
-// that chunk's GO flag frees. Block
+// that chunk's GO flag frees. Epoch e takes the slot set of e's parity
+// (peer_flags.cuh), so the standalone exchange and the folded stage
+// launches of sw2d_blocked.cu (the stage ring's exchange and its reverse
+// inside B7's and B8's launches) share one sequence a use. The stage ring
+// launches it for a rollout's first exchange only, the constant start's
+// send buffer (and the reverse for a send buffer that needs its
+// cotangent); every later exchange is a folded launch's own. Block
 // i sends chunk i (send_chunk: forward to rank + d over FGO / FIN, reverse
 // to rank - d over RGO / RIN), then waits for its own ARRIVED flag of
 // chunk i, copies the chunk from its slots into `out` (memory torch owns,
@@ -106,16 +115,17 @@ __device__ __forceinline__ void chunk_copy(unsigned* dst, ChunkLayout dl,
 }
 
 // Chunk i of src (layout sl) into the receiving rank's slots `dst` (layout
-// dl) once its GO flag `go` (this rank's memory) reads epoch e; then,
+// dl) once its GO flag `go` (this rank's memory) reads `free_at`; then,
 // every store fenced at system scope, the receiver's ARRIVED flag
 // `arrived` set to e. Thread 0 waits and releases; the whole block stores.
-__device__ __forceinline__ void send_chunk(flag_t* go, flag_t* arrived,
-                                           flag_t e, long long timeout_ns,
+__device__ __forceinline__ void send_chunk(flag_t* go, flag_t free_at,
+                                           flag_t* arrived, flag_t e,
+                                           long long timeout_ns,
                                            unsigned* dst, ChunkLayout dl,
                                            const unsigned* src,
                                            ChunkLayout sl, int i, int cw,
                                            int B) {
-  if (threadIdx.x == 0) flag_wait(go, e, timeout_ns);
+  if (threadIdx.x == 0) flag_wait(go, free_at, timeout_ns);
   __syncthreads();
   chunk_copy(dst, dl, src, sl, i, cw, B);
   __threadfence_system();
@@ -128,7 +138,7 @@ __global__ void peer_ring_exchange_kernel(const long long* tab,
   const int i = blockIdx.x, cw = 3 * (int)tab[PT_CHUNK];
   const flag_t e = *peer_epoch(tab) + 1;
   const ChunkLayout lay = {3 * L, cw};
-  send_chunk(peer_flag(tab, tab[PT_OWN], i, PEER_GOB),
+  send_chunk(peer_flag(tab, tab[PT_OWN], i, PEER_GOB), e,
              peer_flag(tab, peer_to(tab, i), i, PEER_INB), e,
              tab[PT_TIMEOUT],
              reinterpret_cast<unsigned*>(peer_to(tab, i) + tab[PT_RBB]), lay,
@@ -143,19 +153,21 @@ __global__ void peer_stage_exchange_kernel(const long long* tab, int rev,
   const long long own = tab[SR_OWN], timeout = tab[SR_TIMEOUT];
   const long long to = rev ? sr_from(tab, i) : sr_to(tab, i);
   const long long from = rev ? sr_to(tab, i) : sr_from(tab, i);
-  const long long slots = rev ? tab[SR_REV] : 0;
   const int go = rev ? SR_RGO : SR_FGO, in = rev ? SR_RIN : SR_FIN;
   // the buffers' rows and chunks; the slots' chunk i always at the same
-  // place, whatever the call's chunk (guarded by the flags of chunk i)
+  // place of the epoch's slot set, whatever the call's chunk (guarded by
+  // the flags of chunk i)
   const ChunkLayout buf = {row, cw};
   const ChunkLayout sl = {(int)tab[SR_NOFF] * slot_cw, slot_cw};
-  send_chunk(sr_flag(tab, own, i, go), sr_flag(tab, to, i, in), e, timeout,
-             reinterpret_cast<unsigned*>(to + slots), sl, src, buf, i, cw,
-             B);
+  // (the slot set of e's parity is free once epoch e - 2 is read)
+  send_chunk(sr_flag(tab, own, i, go), e - 1, sr_flag(tab, to, i, in), e,
+             timeout, reinterpret_cast<unsigned*>(sr_slots(tab, to, rev, e)),
+             sl, src, buf, i, cw, B);
   if (threadIdx.x == 0) flag_wait(sr_flag(tab, own, i, in), e, timeout);
   __syncthreads();
-  chunk_copy(out, buf, reinterpret_cast<const unsigned*>(own + slots), sl, i,
-             cw, B);
+  chunk_copy(out, buf,
+             reinterpret_cast<const unsigned*>(sr_slots(tab, own, rev, e)),
+             sl, i, cw, B);
   __threadfence_system();
   __syncthreads();
   if (threadIdx.x == 0) flag_release(sr_flag(tab, from, i, go), e + 1);

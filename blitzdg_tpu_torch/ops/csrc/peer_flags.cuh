@@ -1,9 +1,11 @@
 // Flags between ranks that store into each other's device memory: the
 // rings' tables and region layouts, acquire waits and release stores at
 // system scope. Shared by peer.cu (the exchange of a ring's initial send
-// buffer, and the stage and halo rings' exchanges and reductions) and the
-// one-launch step's peer mode (sw2d_blocked.cu, which stores both halos:
-// the inter-stage one and the next step's step-boundary one);
+// buffer, and the stage and halo rings' exchanges and reductions) and
+// sw2d_blocked.cu: the one-launch step's peer mode (which stores both
+// halos: the inter-stage one and the next step's step-boundary one) and
+// the stage's and the stage adjoint's peer modes (the stage ring's
+// exchange and its reverse folded into their launches);
 // parallel/peer.py writes the regions and the tables.
 //
 // Every flag is a 64-bit epoch that only grows, so nothing is ever reset.
@@ -40,20 +42,25 @@
 // element-sharded plain-tensor path across ranks: HaloRing, of which the
 // stage ring is the kind sized by the blocked buffers) have a region and a
 // table of their own. Its region (byte offsets from its table):
-//   0              the forward exchange's receive slots (SR_CAP words)
-//   [SR_REV]       the reverse exchange's receive slots (SR_CAP words)
+//   0              the forward exchange's receive slots: two slot sets of
+//                  SR_CAP words each, one an epoch's parity
+//   [SR_REV]       the reverse exchange's receive slots: two sets likewise
 //   [SR_SUM]       the reductions' slots, one a rank: S x SR_SUMBYTES
 //                  bytes (the sums and the maxima share them)
 //   [SR_FLAGS]     four words a ring offset i: FGO, FIN, RGO, RIN; then two
 //                  words a rank p: SIN, SGO
+//   [SR_COUNT]     two words that count the blocks of this rank's folded
+//                  launch done (the stage's, then the stage adjoint's; the
+//                  last block resets its word)
 // An exchange moves one chunk of words a ring offset, the chunk's size
 // given at its launch: chunk i of a row of words lies at i x (words of a
 // chunk) in the sender's buffer and at i x slot_cw in the receiver's
 // slots, slot_cw fixed for the ring (the stage exchange: rows (B, L, 3)
-// floats, a scenario a row, slot_cw its chunk; the halo exchange: one row,
-// the face rows of every offset in offset-major order, of any type,
-// padded to whole words, slot_cw the slot set's words over the ring
-// offsets, so that chunk i's slots stay chunk i's whatever the call).
+// floats, a scenario a row, slot_cw its chunk, so that a slot set is a
+// (B, L, 3) buffer; the halo exchange: one row, the face rows of every
+// offset in offset-major order, of any type, padded to whole words,
+// slot_cw the slot set's words over the ring offsets, so that chunk i's
+// slots stay chunk i's whatever the call).
 // For ring offset i (offset d), the forward exchange sends chunk i of rank
 // r to rank r + d and the reverse exchange to rank r - d:
 //   FGO[i]  r + d's forward slots of chunk i are free (written by r + d)
@@ -64,15 +71,22 @@
 //   SGO[p]  p's reduction slot r is free (p has read r's part there)
 // Each use counts its own epochs (the caller passes the epoch: every rank
 // makes the same calls in the same order; the sums and the maxima count
-// together, over their shared slots); a GO flag starts at 1, and a
-// receiver sets it to e + 1 when it has read epoch e, so a sender of epoch
-// e waits for GO >= e.
+// together, over their shared slots). Epoch e of an exchange goes to the
+// slot set of e's parity (sr_slots). A GO flag starts at 1, and a receiver
+// sets it to e + 1 when it has read epoch e (and so every epoch before,
+// read or skipped: no rank waits for an epoch that nobody reads); a sender
+// of epoch e waits for GO >= e - 1, the read of epoch e - 2, which filled
+// the same slot set last. So a sender never waits for a read of the epoch
+// before its own: the folded stage launches of sw2d_blocked.cu (an
+// exchange's arrival read at the launch's start, the next exchange's chunk
+// stored at its end) wait only on flags that the peers' launches of the
+// round before release.
 // The table (64-bit words in device memory): this rank's region, the wait
 // bound in ns, the ring offsets, the words of a slot set (SR_CAP), the
 // ranks, this rank, the bytes of one reduction slot, the offsets of the
-// flags, reverse slots and reduction slots in a region, six unused words;
-// then a ring offset each the region of rank + d, then of rank - d; then
-// the region of every rank in rank order.
+// flags, reverse slots, reduction slots and block counts in a region, five
+// unused words; then a ring offset each the region of rank + d, then of
+// rank - d; then the region of every rank in rank order.
 
 #pragma once
 
@@ -136,7 +150,7 @@ static __device__ __noinline__ void flag_wait(flag_t* f, flag_t v,
 
 enum { SR_OWN = 0, SR_TIMEOUT = 1, SR_NOFF = 2, SR_CAP = 3, SR_S = 4,
        SR_RANK = 5, SR_SUMBYTES = 6, SR_FLAGS = 7, SR_REV = 8, SR_SUM = 9,
-       SR_HEAD = 16 };
+       SR_COUNT = 10, SR_HEAD = 16 };
 enum { SR_FGO = 0, SR_FIN = 1, SR_RGO = 2, SR_RIN = 3 };
 enum { SR_SIN = 0, SR_SGO = 1 };
 
@@ -164,4 +178,19 @@ __device__ __forceinline__ flag_t* sr_sum_flag(const long long* tab,
                                                int k) {
   return reinterpret_cast<flag_t*>(region + tab[SR_FLAGS]) +
          4 * tab[SR_NOFF] + 2 * p + k;
+}
+
+// The slot set of epoch e of one use (rev: the reverse exchange's) in the
+// region at `region`: the set of e's parity.
+__device__ __forceinline__ long long sr_slots(const long long* tab,
+                                              long long region, int rev,
+                                              flag_t e) {
+  return region + (rev ? tab[SR_REV] : 0) +
+         (long long)(e & 1) * tab[SR_CAP] * 4;
+}
+
+// This rank's count of the blocks of its folded launch done (rev: the
+// stage adjoint's), in its own memory.
+__device__ __forceinline__ unsigned* sr_count(const long long* tab, int rev) {
+  return reinterpret_cast<unsigned*>(tab[SR_OWN] + tab[SR_COUNT]) + 2 * rev;
 }

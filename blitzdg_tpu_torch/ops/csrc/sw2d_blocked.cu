@@ -11,6 +11,10 @@
 //                                    halo exchanged inside the launch
 //   sw2d_step_rdma_peer_kernel       the same step for one shard a rank,
 //                                    the halo stored into the peers' memory
+//   sw2d_stage_peer_kernel           the stage for one shard a rank, the
+//                                    stage ring's exchange folded in
+//   sw2d_stage_bwd_peer_kernel       its adjoint, the exchange's reverse
+//                                    folded in
 //
 // The first two replace the Pallas TPU kernels _step_kernel,
 // _rollout_kernel and _rollout_bwd_kernel of blitzdg_tpu/ops/sw2d_blocked.py
@@ -194,6 +198,13 @@ struct StageArgs {
   float *oh, *ohu, *ohv;        // (S, B, nV) out
   float* sb;                    // (S, B, n_send, 3) out: send buffer
   float c_dt, t;
+  // the peer mode (S = 1): the stage ring's table (peer_flags.cuh), the
+  // epoch read from the forward slots (0: none, rb given; else rb is this
+  // rank's forward slot set of e_in's parity), the epoch sent, and rbo
+  // (1, B, n_recv, 3), where the slots read are copied
+  const long long* peer;
+  float* rbo;
+  flag_t e_in, e_out;
 };
 
 struct RdmaArgs {
@@ -704,22 +715,156 @@ __device__ __forceinline__ void qstage(
   }
 }
 
+// The send slots of lane l.p's nodes of an item, as the lane has just
+// stored them into its shard's send buffer sb (one scenario's), copied
+// into slot j of the slots, off floats into its region, of the rank that
+// ring offset j / chunk sends to (region ranks[j / chunk]): the one-launch
+// step's peer mode's exchange of the next step's rb (its step-boundary
+// slots) and the stage's peer mode's exchange (the stage ring's forward
+// slots).
+template <class Z>
+__device__ __forceinline__ void q_send_to_peers(const Ops& g, const QLane& l,
+                                                const float* sb,
+                                                const long long* ranks,
+                                                int chunk, size_t off) {
+  const int Np = Z::np(g), ns = Z::nslots(g);
+  const int* ptr = g.send_ptr + l.io;
+#pragma unroll
+  for (int i = 0; i < ns; ++i) {
+    const int n = l.p + Z::P * i;
+    if (n < Np) {
+      const int v = l.e * Np + n;
+      const int q1 = __ldg(ptr + v + 1);
+      for (int q = __ldg(ptr + v); q < q1; ++q) {
+        const int j = __ldg(g.send_idx + l.io + q);
+        const float* src = sb + 3 * j;
+        float* dst = reinterpret_cast<float*>(__ldg(ranks + j / chunk)) +
+                     off + 3 * j;
+        dst[0] = src[0]; dst[1] = src[1]; dst[2] = src[2];
+      }
+    }
+  }
+}
+
 // The item's slots: after the operators (ops floats), blockDim/P items a
 // block of `item` floats each.
 __device__ __forceinline__ float* q_item_slots(int ops, int item, int P) {
   return smem + ops + ((int)threadIdx.x / P) * item;
 }
 
-template <class Z>
-__global__ void __launch_bounds__(QMAX_THREADS, 2)
-    sw2d_stage_kernel(SwDesc d, StageArgs a) {
+// Slot j of scenario b of the slot set at byte `set` in the region of the
+// rank that ring offset j / chunk names in `ranks` (a part of a stage
+// ring's table: the ranks each offset sends to, or receives from): where a
+// folded launch stores a slot of its exchange.
+__device__ __forceinline__ float* sr_peer_slot(const long long* ranks,
+                                               int chunk, long long set,
+                                               size_t ls, int b, int j) {
+  return reinterpret_cast<float*>(__ldg(ranks + j / chunk) + set) +
+         b * ls + 3 * j;
+}
+
+// The end of a folded launch (the stage's peer mode, or its adjoint's,
+// `rev`): every block's stores visible at system scope (a block barrier,
+// one system fence a block, the block's arrival on the rank's count), then
+// the last block to arrive resets the count and releases, a ring offset i
+// each, the GO flag of the epoch it read (e_in, not 0: the slot set read
+// is free) at the rank that sent it, and the arrival of the epoch it sent
+// (e_out, not 0) at the rank that receives it. The order of rdma_step's
+// step 5 (a grid barrier without its wait).
+__device__ __forceinline__ void sr_fold_end(const long long* tab, int rev,
+                                            flag_t e_in, flag_t e_out) {
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  __threadfence_system();
+  unsigned* count = sr_count(tab, rev);
+  if (atomicAdd(count, 1u) != gridDim.x - 1) return;
+  __threadfence();
+  *count = 0;
+  const int go = rev ? SR_RGO : SR_FGO, in = rev ? SR_RIN : SR_FIN;
+  for (int i = 0; i < (int)tab[SR_NOFF]; ++i) {
+    const long long sender = rev ? sr_to(tab, i) : sr_from(tab, i);
+    const long long receiver = rev ? sr_from(tab, i) : sr_to(tab, i);
+    if (e_in != 0) flag_release(sr_flag(tab, sender, i, go), e_in + 1);
+    if (e_out != 0) flag_release(sr_flag(tab, receiver, i, in), e_out);
+  }
+}
+
+// The start of a folded launch: thread k < n_off waits for the arrival of
+// chunk k of epoch e_in (not 0) in this rank's slots, thread n_off + k for
+// the GO of chunk k of epoch e_out (not 0: the receiving rank's slot set
+// of e_out's parity is free, its epoch e_out - 2 read), each a flag in
+// this rank's memory: a block's 2 n_off acquire loads in one round, not a
+// chain; the block barrier after the operators' copy passes on what they
+// acquired.
+__device__ __forceinline__ void sr_fold_start(const long long* tab, int rev,
+                                              flag_t e_in, flag_t e_out) {
+  const int n_off = (int)tab[SR_NOFF];
+  const int go = rev ? SR_RGO : SR_FGO, in = rev ? SR_RIN : SR_FIN;
+  for (int k = threadIdx.x; k < 2 * n_off; k += blockDim.x) {
+    const bool arrival = k < n_off;
+    const flag_t e = arrival ? e_in : e_out - 1;
+    if (arrival ? e_in != 0 : e_out != 0)
+      flag_wait(sr_flag(tab, tab[SR_OWN], arrival ? k : k - n_off,
+                        arrival ? in : go),
+                e, tab[SR_TIMEOUT]);
+  }
+}
+
+// The sharded stage (B7) in its two modes: stacked (every shard in the
+// launch) and, with PEER, one shard a rank (S = 1) over the stage ring
+// (a.peer: its table, peer_flags.cuh), the ring's exchange between the RK
+// stages folded into the launch. For the launch of epoch e_out:
+//   1. thread k waits for FIN >= e_in of offset k (the peers' launches
+//      that sent this rank's receive buffer have ended; e_in = 0: the
+//      buffer is given in rb, a rollout's first stage after the standalone
+//      exchange of peer.cu) and thread n_off + k for FGO >= e_out - 1 of
+//      offset k (the receiving rank's slot set of e_out's parity is free);
+//   2. the stage reads its receive buffer from this rank's forward slots
+//      of e_in's parity (the launcher passes their address as rb: a
+//      pointer chosen here and held through the stage spilled), every
+//      block copying its share of them into rbo, memory torch owns, which
+//      autograd keeps for B8;
+//   3. the stage as B7 runs it (the same items and qstage: B7's bits),
+//      each lane then copying its send slots, as it stored them into sb,
+//      into slot j of the forward slots of e_out's parity of the rank that
+//      ring offset j / chunk sends to (q_send_to_peers), the empty ones
+//      zeros;
+//   4. sr_fold_end: the last block releases FGO = e_in + 1 at each sender
+//      (its slots are read) and FIN = e_out at each receiver.
+// No wait cycle: a launch waits only on flags that the peers' launches of
+// the round before release at their ends (FIN e_in: the sender's launch
+// that sent it; FGO e_out - 1: the receiver's launch that read epoch
+// e_out - 2), never on a launch of its own round, because the slots are
+// two sets by the epoch's parity. So no launch needs its peers' launches
+// of the same round resident beside it, and a rank may run a launch ahead
+// of a slow peer. The memory order of the stores into the peers' slots
+// before FIN, and of the reads of this rank's slots before FGO, is
+// rdma_step's (below): one system fence a block after a block barrier,
+// the count's atomics, the last block's fence.
+template <class Z, bool PEER>
+__device__ __forceinline__ void stage_launch(const SwDesc& d,
+                                             const StageArgs& a) {
   const Ops g = make_ops(d, a.fops, a.iops);
+  if (PEER) sr_fold_start(a.peer, 0, a.e_in, a.e_out);
   q_setup_ops(g, smem);
   __syncthreads();
   const size_t ls = (size_t)d.n_send * 3;  // floats of one slot list
+  if (PEER && a.e_in != 0) {  // (rb: the slots; the launcher passes them)
+    const int n = a.B * (int)ls;
+    for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < n;
+         k += gridDim.x * blockDim.x)
+      a.rbo[k] = __ldcg(a.rb + k);
+  }
   q_zero_empty(g, a.istride, a.S, a.B, [&](int sh, int b, int j) {
     return a.sb + ((size_t)sh * a.B + b) * ls + 3 * j;
   });
+  if (PEER && a.peer[SR_NOFF] > 0) {
+    const int chunk = d.n_send / (int)a.peer[SR_NOFF];
+    const long long set = sr_slots(a.peer, 0, 0, a.e_out);
+    q_zero_empty(g, a.istride, a.S, a.B, [&](int sh, int b, int j) {
+      return sr_peer_slot(a.peer + SR_HEAD, chunk, set, ls, b, j);
+    });
+  }
   float* scr = q_item_slots(q_ops_floats(g.Np, g.Ntr),
                            q_item_floats(g.Np, g.Ntr), Z::P);
   const int ipb = blockDim.x / Z::P, n_items = a.S * a.B * d.K;
@@ -737,36 +882,35 @@ __global__ void __launch_bounds__(QMAX_THREADS, 2)
                      SendTo{a.sb + l.sc * ls, nullptr, 0}, a.rb + l.sc * ls,
                      a.c_dt, h_bc, a.c_dt, a.ctrl, a.use_filter,
                      g.wetdry != 0, a.sponge != 0);
-  }
-}
-
-// The send slots of lane l.p's nodes of an item, as the lane has just
-// stored them into its shard's send buffer sb (one scenario's), copied
-// into slot j of the step-boundary slots of the rank that ring offset
-// j / chunk sends to (region tab[PT_HEAD + j / chunk], those slots off
-// floats into it): the peer mode's exchange of the next step's rb.
-template <class Z>
-__device__ __forceinline__ void q_send_to_peers(const Ops& g, const QLane& l,
-                                                const float* sb,
-                                                const long long* tab,
-                                                int chunk, size_t off) {
-  const int Np = Z::np(g), ns = Z::nslots(g);
-  const int* ptr = g.send_ptr + l.io;
-#pragma unroll
-  for (int i = 0; i < ns; ++i) {
-    const int n = l.p + Z::P * i;
-    if (n < Np) {
-      const int v = l.e * Np + n;
-      const int q1 = __ldg(ptr + v + 1);
-      for (int q = __ldg(ptr + v); q < q1; ++q) {
-        const int j = __ldg(g.send_idx + l.io + q);
-        const float* src = sb + 3 * j;
-        float* dst = reinterpret_cast<float*>(
-                         __ldg(tab + PT_HEAD + j / chunk)) + off + 3 * j;
-        dst[0] = src[0]; dst[1] = src[1]; dst[2] = src[2];
-      }
+    // the table read here, not held through the stage (as rdma_step's)
+    if (PEER && l.active && a.peer[SR_NOFF] > 0) {
+      const int n_off = (int)a.peer[SR_NOFF];
+      q_send_to_peers<Z>(g, l, a.sb + l.sc * ls, a.peer + SR_HEAD,
+                         d.n_send / n_off,
+                         (size_t)sr_slots(a.peer, 0, 0, a.e_out) /
+                                 sizeof(float) + l.b * ls);
     }
   }
+  if (PEER) sr_fold_end(a.peer, 0, a.e_in, a.e_out);
+}
+
+template <class Z>
+__global__ void __launch_bounds__(QMAX_THREADS, 2)
+    sw2d_stage_kernel(SwDesc d, StageArgs a) {
+  stage_launch<Z, false>(d, a);
+}
+
+// The peer mode (S = 1): the items of the stacked stage kernel (four lanes
+// an element at N=3, eight at N=6 and on quadrilaterals at N=4), so that a
+// rank's bits are its shard's of B7 followed by the exchange. At the
+// sharded MPC's shapes (K_loc = 512, B = 1, N=3) a rank's grid is 2048
+// lanes, 64 blocks of one warp: S = 4 or 8 ranks' grids together hold at
+// most 512 of the card's 132 x 16 block slots, so every rank's launch
+// finds room beside its peers'.
+template <class Z>
+__global__ void __launch_bounds__(QMAX_THREADS, 2)
+    sw2d_stage_peer_kernel(SwDesc d, StageArgs a) {
+  stage_launch<Z, true>(d, a);
 }
 
 // The one-launch step, in its two modes: stacked (every shard in the
@@ -927,7 +1071,8 @@ __device__ __forceinline__ void rdma_step(const SwDesc& d,
     // held in registers through the stage, what it gives pushed the
     // stage's live set past 128 registers into spills)
     if (PEER && l.active && tab[PT_NOFF] > 0)
-      q_send_to_peers<Z>(g, l, a.sb + l.sc * ls, tab, (int)tab[PT_CHUNK],
+      q_send_to_peers<Z>(g, l, a.sb + l.sc * ls, tab + PT_HEAD,
+                         (int)tab[PT_CHUNK],
                          (size_t)tab[PT_RBB] / sizeof(float) + l.b * ls);
   }
   // INB = e + 1 once every block's stores are visible at system scope: a
@@ -1631,6 +1776,12 @@ struct StageBwdArgs {
   float* cpart;
   unsigned* done;
   float c_dt, t;
+  // the peer mode (S = 1): the stage ring's table, the epoch read from the
+  // reverse slots (0: none; else lsb is this rank's reverse slot set of
+  // e_in's parity) and the epoch whose orb is sent to the ranks the
+  // receive buffer came from (0: none)
+  const long long* peer;
+  flag_t e_in, e_out;
 };
 
 // With out = sponge(base + c_dt R(cur)) and sb = gather(out):
@@ -1639,10 +1790,53 @@ struct StageBwdArgs {
 //   cur cotangent, rb cotangent, control cotangent = VJP_R(cur)[c_dt * that].
 // One pass: block b holds items b*ipb .. b*ipb + ipb - 1 (the launcher's
 // grid covers every item).
-template <class Z>
-__global__ void __launch_bounds__(QMAX_THREADS, Z::BWD_MIN_BLOCKS)
-    sw2d_stage_bwd_kernel(SwDesc d, StageBwdArgs a) {
+//
+// The peer mode (PEER, S = 1), the mirror image of the stage's over the
+// stage ring's reverse slots, RGO and RIN; for the launch of reverse epoch
+// e_out:
+//   1. sr_fold_start: thread k waits for RIN >= e_in of offset k (the
+//      peers' adjoint launches of the stage that read this stage's send
+//      buffer have stored lam_sb here; e_in = 0: lam_sb is given, the
+//      stage whose send buffer carries the rollout's end) and thread
+//      n_off + k for RGO >= e_out - 1 (the sending rank's reverse slot set
+//      of e_out's parity is free);
+//   2. lam_sb is read from this rank's reverse slots of e_in's parity
+//      (their address passed as lsb by the launcher);
+//   3. B8's items and qvjp (B8's bits); then, after a block barrier, each
+//      block copies the receive-buffer cotangent orb of its items' cut
+//      faces (each slot written by the lane of its one reading trace node,
+//      in the block) into slot j of the reverse slots of e_out's parity of
+//      the rank that chunk j / chunk came from, the unread slots' zeros
+//      likewise (e_out = 0: orb stays here, the rollout's first stage,
+//      whose receive buffer the standalone exchange gave);
+//   4. sr_fold_end: the last block releases RGO = e_in + 1 at the ranks
+//      that sent lam_sb and RIN = e_out at the ranks orb goes to.
+// No wait cycle, as in the stage's peer mode: a launch waits only on flags
+// that the peers' adjoint launches of the round before (the stage after
+// it) release at their ends. The control-cotangent sums (cpart, done) are
+// B8's.
+// Whether a stage adjoint's launch sends orb over the ring (the peer mode
+// with an epoch to send and ring offsets), and where slot j of scenario b
+// goes: the reverse slots of e_out's parity of the rank that chunk
+// j / chunk came from.
+template <bool PEER>
+__device__ __forceinline__ bool q_folds_reverse(const StageBwdArgs& a) {
+  return PEER && a.e_out != 0 && a.peer[SR_NOFF] > 0;
+}
+
+__device__ __forceinline__ float* q_reverse_slot(const SwDesc& d,
+                                                 const StageBwdArgs& a,
+                                                 size_t ls, int b, int j) {
+  const int n_off = (int)a.peer[SR_NOFF];
+  return sr_peer_slot(a.peer + SR_HEAD + n_off, d.n_send / n_off,
+                      sr_slots(a.peer, 0, 1, a.e_out), ls, b, j);
+}
+
+template <class Z, bool PEER>
+__device__ __forceinline__ void stage_bwd_launch(const SwDesc& d,
+                                                 const StageBwdArgs& a) {
   const Ops g = make_ops(d, a.fops, a.iops);
+  if (PEER) sr_fold_start(a.peer, 1, a.e_in, a.e_out);
   q_setup_adjoint_ops(g, smem, a.use_filter);
   __syncthreads();
   const size_t ls = (size_t)d.n_send * 3;  // floats of one slot list
@@ -1656,6 +1850,10 @@ __global__ void __launch_bounds__(QMAX_THREADS, Z::BWD_MIN_BLOCKS)
     if (__ldg(ptr + 1) == __ldg(ptr)) {
       float* q = a.orb + sc * ls + 3 * j;
       q[0] = q[1] = q[2] = 0.0f;
+      if (q_folds_reverse<PEER>(a)) {
+        float* o = q_reverse_slot(d, a, ls, sc, j);
+        o[0] = o[1] = o[2] = 0.0f;
+      }
     }
   }
   const int ops_f = q_adj_ops_floats(g.Np, g.Ntr);
@@ -1692,6 +1890,23 @@ __global__ void __launch_bounds__(QMAX_THREADS, Z::BWD_MIN_BLOCKS)
             a.orb + l.sc * ls, a.octl == nullptr ? nullptr : scr + vjp_f,
             false);
   }
+  // the block's cut-face slots of orb to their senders (the table read
+  // here, not held through qvjp)
+  if (q_folds_reverse<PEER>(a)) {
+    __syncthreads();
+    const int Ntr = g.Ntr, n_in = max(0, min(ipb, n_items - first));
+    for (int k = threadIdx.x; k < n_in * Ntr; k += blockDim.x) {
+      const int it = first + k / Ntr, j = k - (k / Ntr) * Ntr;
+      const int b = it / d.K, e = it - b * d.K;
+      const int q = __ldg(g.vmapP + e * Ntr + j);
+      if (q >= g.nV) {
+        const float* src = a.orb + b * ls + 3 * (q - g.nV);
+        float* dst = q_reverse_slot(d, a, ls, b, q - g.nV);
+        dst[0] = src[0]; dst[1] = src[1]; dst[2] = src[2];
+      }
+    }
+  }
+  if (PEER) sr_fold_end(a.peer, 1, a.e_in, a.e_out);
   if (a.octl == nullptr) return;
 
   // the control cotangents, in a fixed order: the block's items' shares
@@ -1732,6 +1947,23 @@ __global__ void __launch_bounds__(QMAX_THREADS, Z::BWD_MIN_BLOCKS)
     }
     if ((threadIdx.x & 31) == 0) a.done[sc] = 0;
   }
+}
+
+template <class Z>
+__global__ void __launch_bounds__(QMAX_THREADS, Z::BWD_MIN_BLOCKS)
+    sw2d_stage_bwd_kernel(SwDesc d, StageBwdArgs a) {
+  stage_bwd_launch<Z, false>(d, a);
+}
+
+// The peer mode (S = 1), on B8's lanes for the shape (sixteen an element at
+// N=3 at the sharded MPC's batch of one, where a rank's 512 elements are
+// 8192 lanes, 256 blocks of one warp: S = 4 ranks' grids hold 1024 of the
+// card's block slots, about half), so that a rank's bits are its shard's
+// of B8 launched alone.
+template <class Z>
+__global__ void __launch_bounds__(QMAX_THREADS, Z::BWD_MIN_BLOCKS)
+    sw2d_stage_bwd_peer_kernel(SwDesc d, StageBwdArgs a) {
+  stage_bwd_launch<Z, true>(d, a);
 }
 
 struct BwdArgs {
@@ -1898,9 +2130,12 @@ typedef void (*FwdKern)(SwDesc, FwdArgs);
 // The q kernels, as the launcher numbers them: the sharded stage (B7), the
 // one-launch step (B9), the sharded stage's adjoint (B8), the blocked
 // rollout's adjoint (B6), the blocked rollout (B5, and B4 with one step),
-// the one-launch step's peer mode (B9 across ranks).
+// the one-launch step's peer mode (B9 across ranks), the stage's and its
+// adjoint's peer modes (B7 and B8 across ranks, the stage ring's exchange
+// and its reverse folded in).
 enum { Q_STAGE = 0, Q_STEP = 1, Q_STAGE_BWD = 2, Q_ROLLOUT_BWD = 3,
-       Q_ROLLOUT = 4, Q_STEP_PEER = 5 };
+       Q_ROLLOUT = 4, Q_STEP_PEER = 5, Q_STAGE_PEER = 6,
+       Q_STAGE_BWD_PEER = 7 };
 
 // The instantiation of the q kernels for a set: N=3 with two controls
 // (the MPC's), N=3 with others (a set built without injectors has one,
@@ -1939,6 +2174,14 @@ static StageKern stage_kernel_of(const SwDesc& d) {
                            sw2d_stage_kernel<QAnyOrder>,
                            sw2d_stage_kernel<QOrder6>,
                            sw2d_stage_kernel<QOrder4Quad>);
+}
+
+static StageKern stage_peer_kernel_of(const SwDesc& d) {
+  return q_pick<StageKern>(d, sw2d_stage_peer_kernel<QOrder3Ctrl>,
+                           sw2d_stage_peer_kernel<QOrder3>,
+                           sw2d_stage_peer_kernel<QAnyOrder>,
+                           sw2d_stage_peer_kernel<QOrder6>,
+                           sw2d_stage_peer_kernel<QOrder4Quad>);
 }
 
 static RdmaKern rdma_kernel_of(const SwDesc& d) {
@@ -1987,6 +2230,22 @@ static StageBwdKern stage_bwd_kernel_of(const SwDesc& d, int lanes) {
                               nullptr);
 }
 
+static StageBwdKern stage_bwd_peer_kernel_of(const SwDesc& d, int lanes) {
+  if (lanes == 16)
+    return q_pick<StageBwdKern>(d,
+                                sw2d_stage_bwd_peer_kernel<QOrder3CtrlWide>,
+                                sw2d_stage_bwd_peer_kernel<QOrder3Wide>,
+                                nullptr, nullptr, nullptr);
+  if (lanes == 8)
+    return q_order1_ctrl(d) ? sw2d_stage_bwd_peer_kernel<QOrder1CtrlWide>
+           : q_kind(d) == 4 ? sw2d_stage_bwd_peer_kernel<QOrder4Quad>
+                            : nullptr;
+  return q_pick<StageBwdKern>(d, sw2d_stage_bwd_peer_kernel<QOrder3Ctrl>,
+                              sw2d_stage_bwd_peer_kernel<QOrder3>,
+                              sw2d_stage_bwd_peer_kernel<QAnyOrder>, nullptr,
+                              nullptr);
+}
+
 // (quadrilaterals at N=4: B5's items, so that the recompute of stage 1 is
 // B5's bits, and qvjp's masked face mode)
 static BwdKern rollout_bwd_kernel_of(const SwDesc& d) {
@@ -2005,6 +2264,9 @@ static const void* q_kernel(const SwDesc& d, int which, int lanes) {
     case Q_ROLLOUT_BWD: return (const void*)rollout_bwd_kernel_of(d);
     case Q_ROLLOUT: return (const void*)rollout_kernel_of(d);
     case Q_STEP_PEER: return (const void*)rdma_peer_kernel_of(d);
+    case Q_STAGE_PEER: return (const void*)stage_peer_kernel_of(d);
+    case Q_STAGE_BWD_PEER:
+      return (const void*)stage_bwd_peer_kernel_of(d, lanes);
     default: return nullptr;
   }
 }
@@ -2012,8 +2274,12 @@ static const void* q_kernel(const SwDesc& d, int which, int lanes) {
 // Lanes an item of kernel `which`: a face's nodes at N=3; QOrder6's at
 // N=6 in the forward kernels; QOrder4Quad's on quadrilaterals at N=4 in
 // every kernel (the one-launch step in both modes); one otherwise.
+static bool q_stage_bwd(int which) {
+  return which == Q_STAGE_BWD || which == Q_STAGE_BWD_PEER;
+}
+
 static int q_lanes(const SwDesc& d, int which) {
-  const bool adjoint = which == Q_STAGE_BWD || which == Q_ROLLOUT_BWD;
+  const bool adjoint = q_stage_bwd(which) || which == Q_ROLLOUT_BWD;
   switch (q_kind(d)) {
     case 2: return 1;
     case 3: return adjoint ? 1 : QOrder6::P;
@@ -2027,11 +2293,11 @@ static int q_lanes(const SwDesc& d, int which) {
 static size_t q_bytes(const SwDesc& d, int which, int threads, int lanes) {
   const int Ntr = d.Nfaces * d.Nfp, items = threads / lanes;
   int ops = q_ops_floats(d.Np, Ntr), item = q_item_floats(d.Np, Ntr);
-  if (which == Q_STAGE_BWD || which == Q_ROLLOUT_BWD) {
+  if (q_stage_bwd(which) || which == Q_ROLLOUT_BWD) {
     ops = q_adj_ops_floats(d.Np, Ntr);
     const int v = q_vjp_item_floats(d.Np, Ntr, d.Nfaces);
     // the stage adjoint's item also holds its control share
-    item = which == Q_STAGE_BWD ? v + qround4(d.n_ctrl) : (v > item ? v : item);
+    item = q_stage_bwd(which) ? v + qround4(d.n_ctrl) : (v > item ? v : item);
   }
   return sizeof(float) * (ops + (size_t)items * item);
 }
@@ -2058,7 +2324,7 @@ static int q_plan(const SwDesc& d, int S, int B, int which, int* plan,
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   int P = q_lanes(d, which);
-  if (which == Q_STAGE_BWD &&
+  if (q_stage_bwd(which) &&
       (long long)S * B * d.K * P < (long long)sms * QMAX_THREADS) {
     if (P == 4) P = 16;
     else if (q_order1_ctrl(d)) P = 8;
@@ -2283,6 +2549,68 @@ int sw2d_stage_bwd(const SwDesc* d, const float* fops, const int* iops,
                     och, ochu, ochv, orb, octl, cpart, done, c_dt, t};
   return q_launch(stage_bwd_kernel_of(*d, plan[3]), *d, a, plan, false,
                   stream);
+}
+
+// The stage's peer mode: this rank's one shard (S = 1) of a set spread
+// over the ranks of a stage ring (parallel/peer.py, StageRing; its table
+// tab, peer_flags.cuh), the ring's exchange folded into the launch (see
+// sw2d_stage_peer_kernel): its receive buffer rb, with e_in (not 0) its
+// forward slots of epoch e_in's parity, copied into rbo,
+// its send buffer sb stored into the receiving ranks' slots as epoch
+// e_out. plan: sw2d_shard_plan's for (1, B, 6).
+int sw2d_stage_peer(const SwDesc* d, const float* fops, const int* iops,
+                    long long fstride, long long istride, int B,
+                    const float* bh, const float* bhu, const float* bhv,
+                    const float* ch, const float* chu, const float* chv,
+                    const float* rb, const float* ctrl, float* oh,
+                    float* ohu, float* ohv, float* sb, float* rbo,
+                    const long long* tab, unsigned long long e_in,
+                    unsigned long long e_out, float c_dt, float t,
+                    int use_filter, int sponge, const int* plan,
+                    void* stream) {
+  StageArgs a = {fops, iops, fstride, istride, 1, B, use_filter, sponge,
+                 bh, bhu, bhv, ch, chu, chv, rb, ctrl, oh, ohu, ohv, sb,
+                 c_dt, t, tab, rbo, (flag_t)e_in, (flag_t)e_out};
+  return q_launch(stage_peer_kernel_of(*d), *d, a, plan, false, stream);
+}
+
+// The stage adjoint's peer mode (see sw2d_stage_bwd_peer_kernel): lsb,
+// with e_in (not 0) this rank's reverse slots of epoch e_in's parity, orb
+// also
+// stored into the reverse slots of the ranks its chunks came from as epoch
+// e_out (e_out = 0: not); the rest as sw2d_stage_bwd at S = 1. plan:
+// sw2d_shard_plan's for (1, B, 7).
+int sw2d_stage_bwd_peer(const SwDesc* d, const float* fops, const int* iops,
+                        long long fstride, long long istride, int B,
+                        const float* ch, const float* chu, const float* chv,
+                        const float* rb, const float* lh, const float* lhu,
+                        const float* lhv, const float* lsb, float* obh,
+                        float* obhu, float* obhv, float* och, float* ochu,
+                        float* ochv, float* orb, float* octl, float* cpart,
+                        unsigned* done, const long long* tab,
+                        unsigned long long e_in, unsigned long long e_out,
+                        float c_dt, float t, int use_filter, int sponge,
+                        const int* plan, void* stream) {
+  StageBwdArgs a = {fops, iops, fstride, istride, 1, B, use_filter, sponge,
+                    ch, chu, chv, rb, lh, lhu, lhv, lsb, obh, obhu, obhv,
+                    och, ochu, ochv, orb, octl, cpart, done, c_dt, t, tab,
+                    (flag_t)e_in, (flag_t)e_out};
+  return q_launch(stage_bwd_peer_kernel_of(*d, plan[3]), *d, a, plan, false,
+                  stream);
+}
+
+// Loads the stage's and its adjoint's peer-mode instances for a set (the
+// adjoint's on `lanes` lanes an element, its plan's) into the current
+// context now, as sw2d_step_rdma_peer_load does the step's. Returns a
+// CUDA error.
+int sw2d_stage_peer_load(const SwDesc* d, int lanes) {
+  const StageKern k = stage_peer_kernel_of(*d);
+  const StageBwdKern kb = stage_bwd_peer_kernel_of(*d, lanes);
+  if (k == nullptr || kb == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, k);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kb);
+  return (int)e;
 }
 
 }  // extern "C"

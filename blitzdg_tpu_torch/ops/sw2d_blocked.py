@@ -375,10 +375,18 @@ def _lib():
     lib.sw2d_step_rdma_peer.argtypes = ([D, P, P, L, L, I] + [P] * 12
                                         + [F, F, F, I, I, P, P])
     lib.sw2d_step_rdma_peer_load.argtypes = [D]
+    U = ctypes.c_ulonglong
+    lib.sw2d_stage_peer.argtypes = ([D, P, P, L, L, I] + [P] * 14
+                                    + [U, U, F, F, I, I, P, P])
+    lib.sw2d_stage_bwd_peer.argtypes = ([D, P, P, L, L, I] + [P] * 19
+                                        + [U, U, F, F, I, I, P, P])
+    lib.sw2d_stage_peer_load.argtypes = [D, I]
     for fn in (lib.sw2d_blocked_rollout,
                lib.sw2d_blocked_rollout_bwd, lib.sw2d_shard_plan,
                lib.sw2d_stage, lib.sw2d_stage_bwd, lib.sw2d_step_rdma,
-               lib.sw2d_step_rdma_peer, lib.sw2d_step_rdma_peer_load):
+               lib.sw2d_step_rdma_peer, lib.sw2d_step_rdma_peer_load,
+               lib.sw2d_stage_peer, lib.sw2d_stage_bwd_peer,
+               lib.sw2d_stage_peer_load):
         fn.restype = I
     lib._sw2d_typed = True
     return lib
@@ -413,8 +421,10 @@ def _stream(t: torch.Tensor):
 # The kernels, as the launcher numbers them: the sharded stage (B7), the
 # one-launch step (B9), the sharded stage's adjoint (B8), the blocked
 # rollout's adjoint (B6), the blocked rollout (B5; B4 a rollout of one step),
-# the one-launch step's peer mode (B9 across ranks).
-_STAGE, _RDMA, _STAGE_BWD, _ROLLOUT_BWD, _ROLLOUT, _RDMA_PEER = range(6)
+# the one-launch step's peer mode (B9 across ranks), the stage's and its
+# adjoint's peer modes (B7 and B8 across ranks).
+(_STAGE, _RDMA, _STAGE_BWD, _ROLLOUT_BWD, _ROLLOUT, _RDMA_PEER, _STAGE_PEER,
+ _STAGE_BWD_PEER) = range(8)
 _plans: dict = {}
 # The room of the kernels' run-time-size arrays (QMAX_NP in the source):
 # triangles up to N=6, quadrilaterals up to N=4.
@@ -424,7 +434,10 @@ _KERNEL_NAMES = {_STAGE: "the sharded stage (B7)",
                  _STAGE_BWD: "the sharded stage's adjoint (B8)",
                  _ROLLOUT_BWD: "the blocked rollout's adjoint (B6)",
                  _ROLLOUT: "the blocked rollout (B5, B4)",
-                 _RDMA_PEER: "the one-launch sharded step across ranks (B9)"}
+                 _RDMA_PEER: "the one-launch sharded step across ranks (B9)",
+                 _STAGE_PEER: "the sharded stage across ranks (B7)",
+                 _STAGE_BWD_PEER: "the sharded stage's adjoint across ranks "
+                                  "(B8)"}
 
 
 def _shard_plan(lib, desc, ops: BlockedOps, B: int, which: int):
@@ -464,13 +477,14 @@ def shard_plan(ops: ShardOps, meta: BlockedMeta, batch: int,
                step: bool = False, adjoint: bool = False,
                peer: bool = False) -> dict:
     """The launch plan of the sharded stage kernel (with ``step``, of the
-    one-launch step kernel, and with ``peer`` too, of its peer mode; with
-    ``adjoint``, of the stage's adjoint) over ``ops``'s shards at ``batch``
-    scenarios: threads a block, blocks, bytes of shared memory a block,
-    lanes an element (needs the card)."""
+    one-launch step kernel; with ``adjoint``, of the stage's adjoint; with
+    ``peer`` too, of the kernel's peer mode) over ``ops``'s shards at
+    ``batch`` scenarios: threads a block, blocks, bytes of shared memory a
+    block, lanes an element (needs the card)."""
     lib, desc = _check_kernel_inputs(ops, meta, ops.fbuf)
     which = ((_RDMA_PEER if peer else _RDMA) if step
-             else _STAGE_BWD if adjoint else _STAGE)
+             else (_STAGE_BWD_PEER if peer else _STAGE_BWD) if adjoint
+             else _STAGE_PEER if peer else _STAGE)
     return _plan_dict(_shard_plan(lib, desc, ops, batch, which))
 
 
@@ -740,7 +754,8 @@ def _check_stage(ops: ShardOps, meta: BlockedMeta, fields: dict, rb):
 
 def sw2d_stage_blocked(ops: ShardOps, meta: BlockedMeta, base, cur, rb,
                        c_dt: float, t: float = 0.0, ctrl=None,
-                       use_filter: bool = True, apply_sponge: bool = False):
+                       use_filter: bool = True, apply_sponge: bool = False,
+                       ring=None):
     """One RK stage on every shard of an element-sharded set:
     ``out = base + c_dt * R(cur)``, the cut faces' '+' values read from the
     receive buffer, then the positivity limiter (wet/dry) and, with
@@ -760,7 +775,15 @@ def sw2d_stage_blocked(ops: ShardOps, meta: BlockedMeta, base, cur, rb,
     up to N=6 and quadrilaterals (four faces) up to N=4, eight lanes an
     element at N=4 (its compile-time instance), one at other orders, and
     raises above.
+
+    ``ring``: this rank's ``parallel.StageRing`` (one shard a rank):
+    ``sw2d_stage_blocked_peer``, the ring's exchange of the send buffer
+    folded into the launch; ``rb`` may then be None (the ring's slots), and
+    the receive buffer read comes back as a fifth entry.
     """
+    if ring is not None:
+        return sw2d_stage_blocked_peer(ops, meta, base, cur, rb, ring, c_dt,
+                                       t, ctrl, use_filter, apply_sponge)
     _check_stage(ops, meta, {"base_h": base[0], "base_hu": base[1],
                              "base_hv": base[2], "h": cur[0], "hu": cur[1],
                              "hv": cur[2]}, rb)
@@ -800,7 +823,8 @@ def _run_stage(ops: ShardOps, meta: BlockedMeta, base, cur, rb, c_dt, t,
 def sw2d_stage_bwd_blocked_v2(ops: ShardOps, meta: BlockedMeta, cur, rb,
                               lam_out, lam_sb, c_dt: float, t: float = 0.0,
                               ctrl=None, use_filter: bool = True,
-                              apply_sponge: bool = False):
+                              apply_sponge: bool = False, ring=None,
+                              send: bool = True):
     """Adjoint of ``sw2d_stage_blocked``: from the cotangents of
     (out, sb) to those of (base, cur, rb) and, given ``ctrl``, the control
     cotangent of each shard and scenario (S, B, n_ctrl); None without.
@@ -822,7 +846,16 @@ def sw2d_stage_bwd_blocked_v2(ops: ShardOps, meta: BlockedMeta, cur, rb,
     triangles up to N=6 and quadrilaterals (four faces) up to N=4: at N=4
     eight lanes an element, ``qvjp``'s faces five nodes on eight lanes,
     three masked; one lane at other orders; raises above.
+
+    ``ring``: this rank's ``parallel.StageRing`` (one shard a rank):
+    ``sw2d_stage_bwd_blocked_peer``, the reverse of the ring's exchange
+    folded into the launch (``lam_sb`` None: the ring's reverse slots;
+    ``send``: the receive buffer's cotangent back to its senders).
     """
+    if ring is not None:
+        return sw2d_stage_bwd_blocked_peer(ops, meta, cur, rb, lam_out,
+                                           lam_sb, ring, c_dt, t, ctrl,
+                                           use_filter, apply_sponge, send)
     _refuse_wetdry_stage_adjoint(meta)
     S, B, L = _check_stage(ops, meta, {
         "h": cur[0], "hu": cur[1], "hv": cur[2], "lam_h": lam_out[0],
@@ -851,12 +884,14 @@ _stage_bwd_scratch: dict = {}
 
 
 def _run_stage_bwd(ops: ShardOps, meta: BlockedMeta, cur, rb, lam_out,
-                   lam_sb, c_dt, t, ctrl, use_filter, apply_sponge):
+                   lam_sb, c_dt, t, ctrl, use_filter, apply_sponge,
+                   peer=None):
     """The stage adjoint kernel's launch (the shapes checked by the
-    caller)."""
+    caller); with ``peer`` = (ring, e_in, e_out), its peer mode's."""
     lib, desc = _check_kernel_inputs(ops, meta, rb)
     S, B = rb.shape[:2]
-    plan = _shard_plan(lib, desc, ops, B, _STAGE_BWD)
+    plan = _shard_plan(lib, desc, ops, B,
+                       _STAGE_BWD if peer is None else _STAGE_BWD_PEER)
     new = lambda: torch.empty_like(cur[0])
     bb, cb = [new() for _ in range(3)], [new() for _ in range(3)]
     rbb = torch.empty_like(rb)
@@ -873,20 +908,221 @@ def _run_stage_bwd(ops: ShardOps, meta: BlockedMeta, cur, rb, lam_out,
                 rb.new_empty(S * B * segments * meta.n_ctrl),
                 torch.zeros(S * B, dtype=torch.int32, device=rb.device))
         cpart, done = _stage_bwd_scratch[key]
-    err = lib.sw2d_stage_bwd(
-        ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
-        ops.fbuf.shape[1], ops.ibuf.shape[1], S, B,
-        *(f.data_ptr() for f in cur), rb.data_ptr(),
-        *(f.data_ptr() for f in lam_out), lam_sb.data_ptr(),
-        *(f.data_ptr() for f in bb), *(f.data_ptr() for f in cb),
-        rbb.data_ptr(), _ptr(ctl), _ptr(cpart), _ptr(done), float(c_dt),
-        float(t), int(use_filter), int(apply_sponge and meta.has_sponge),
-        plan, _launch_stream(rb))
-    _launch_check(err, "sw2d_stage_bwd_blocked_v2")
+    head = (ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
+            ops.fbuf.shape[1], ops.ibuf.shape[1])
+    lsb = (lam_sb.data_ptr() if lam_sb is not None
+           else peer[0]._slots(True, peer[1]))
+    mid = (*(f.data_ptr() for f in cur), rb.data_ptr(),
+           *(f.data_ptr() for f in lam_out), lsb,
+           *(f.data_ptr() for f in bb), *(f.data_ptr() for f in cb),
+           rbb.data_ptr(), _ptr(ctl), _ptr(cpart), _ptr(done))
+    tail = (float(c_dt), float(t), int(use_filter),
+            int(apply_sponge and meta.has_sponge), plan, _launch_stream(rb))
+    if peer is None:
+        err = lib.sw2d_stage_bwd(*head, S, B, *mid, *tail)
+        _launch_check(err, "sw2d_stage_bwd_blocked_v2")
+    else:
+        ring, e_in, e_out = peer
+        err = lib.sw2d_stage_bwd_peer(*head, B, *mid, ring.table.data_ptr(),
+                                      e_in, e_out, *tail)
+        _launch_check(err, "sw2d_stage_bwd_blocked_peer")
     return (*bb, *cb, rbb, ctl)
 
 
 sw2d_stage_bwd_blocked_v2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The stage and its adjoint one shard a rank, the stage ring's exchange and
+# its reverse folded into their launches
+# ---------------------------------------------------------------------------
+
+def _stacked_reverse(buf, ex):
+    """The reverse of a stacked ring exchange ``ex`` (each chunk back to the
+    shard it came from); zeros without ring offsets."""
+    if ex.src_rev is None:
+        return torch.zeros_like(buf)
+    return torch.gather(buf, 0, ex.src_rev[:, None, :, None].expand(buf.shape))
+
+
+def sw2d_stage_blocked_peer_plain(ops: ShardOps, meta: BlockedMeta, base,
+                                  cur, rb, ex, c_dt: float, t: float = 0.0,
+                                  ctrl=None, use_filter: bool = True,
+                                  apply_sponge: bool = False):
+    """Plain version of ``sw2d_stage_blocked_peer`` over every rank's shard
+    stacked (``ops`` the stacked set, ``ex`` its stacked
+    ``parallel.RingExchange``): the stage, then the stacked exchange of its
+    send buffer. Returns (h, hu, hv, sb, the receive buffer of each rank's
+    next folded launch)."""
+    *out, sb = sw2d_stage_blocked_plain(ops, meta, base, cur, rb, c_dt, t,
+                                        ctrl, use_filter, apply_sponge)
+    return (*out, sb, ex(sb))
+
+
+def sw2d_stage_bwd_blocked_peer_plain(ops: ShardOps, meta: BlockedMeta, cur,
+                                      rb, lam_out, lam_sb, ex, c_dt: float,
+                                      t: float = 0.0, ctrl=None,
+                                      use_filter: bool = True,
+                                      apply_sponge: bool = False):
+    """Plain version of ``sw2d_stage_bwd_blocked_peer`` over every rank's
+    shard stacked: the stage adjoint, then the stacked reverse exchange of
+    the receive buffer's cotangent. Returns the eight cotangents of
+    ``sw2d_stage_bwd_blocked_v2_plain`` and the send-buffer cotangent that
+    each rank's next folded adjoint launch reads."""
+    g = sw2d_stage_bwd_blocked_v2_plain(ops, meta, cur, rb, lam_out, lam_sb,
+                                        c_dt, t, ctrl, use_filter,
+                                        apply_sponge)
+    return (*g, _stacked_reverse(g[6], ex))
+
+
+def _check_peer(ops: ShardOps, meta: BlockedMeta, ring, fields: dict,
+                bufs: dict):
+    """One shard a rank over ``ring``: shapes, device and type of the
+    (1, B, nV) fields and the (1, B, L, 3) buffers (None: the ring's
+    slots), B and L the ring's. Returns the reference tensor."""
+    if not isinstance(ops, ShardOps) or ops.send.shape[0] != 1:
+        raise ValueError("across ranks the stage holds one shard a rank")
+    L = ops.send.shape[1]
+    if ring.n_slots != L:
+        raise ValueError(f"the ring's slots hold {ring.n_slots} a scenario; "
+                         f"this set sends {L}")
+    ref = fields["h"]
+    if ref.device != ring.device:
+        raise ValueError(f"a state on {ref.device} for a ring on "
+                         f"{ring.device}: the launch runs on the ring's")
+    for name, t in fields.items():
+        _check_tensor(name, t, (1, ring.batch, meta.n_v), ref)
+    for name, t in bufs.items():
+        if t is not None:
+            _check_tensor(name, t, (1, ring.batch, L, 3), ref)
+    return ref
+
+
+def load_stage_peer(ops: ShardOps, meta: BlockedMeta, batch: int) -> None:
+    """Makes the plans of the stage's and its adjoint's peer modes for
+    ``ops`` at ``batch`` scenarios and loads their instances into the
+    context, so that no first launch of a folded stage waits on CUDA's lazy
+    loading, which waits for the running kernels (a peer's spinning ring
+    kernel among them). Made once a set, where a step over a ring is built
+    (``parallel.make_sharded_blocked_step_diff``)."""
+    lib, desc = _check_kernel_inputs(ops, meta, ops.fbuf)
+    _shard_plan(lib, desc, ops, batch, _STAGE_PEER)
+    plan = _shard_plan(lib, desc, ops, batch, _STAGE_BWD_PEER)
+    _launch_check(lib.sw2d_stage_peer_load(ctypes.byref(desc), plan[3]),
+                  "sw2d_stage_blocked_peer")
+
+
+def sw2d_stage_blocked_peer(ops: ShardOps, meta: BlockedMeta, base, cur, rb,
+                            ring, c_dt: float, t: float = 0.0, ctrl=None,
+                            use_filter: bool = True,
+                            apply_sponge: bool = False):
+    """The sharded stage one shard a rank over this rank's
+    ``parallel.StageRing`` ``ring``, the ring's exchange folded into the
+    launch: the receive buffer ``rb`` (1, B, L, 3), or None: this rank's
+    forward slots, where the peers' last launches over the ring (folded
+    ones) stored their send buffers; the stage as
+    ``sw2d_stage_blocked`` computes it; its send buffer also stored into
+    the receiving ranks' forward slots, which their next folded launch
+    reads. Returns (h, hu, hv, sb, rb): ``rb`` the receive buffer read
+    (with None a new tensor torch owns, copied from the slots, which
+    autograd keeps for the adjoint). Every rank makes the same calls in the
+    same order (the ring counts the epochs); a launch on the rank's own
+    thread first meets the others' (``meet=`` of the ring).
+
+    One launch (``ops/csrc/sw2d_blocked.cu``, ``sw2d_stage_peer_kernel``):
+    it waits for the peers' chunks of the epoch it reads and for the
+    receivers' slots of the epoch it sends, both released by the peers'
+    launches of the round before (two slot sets by the epoch's parity), so
+    that no launch waits for a peer's launch of its own round. B7's items
+    and stage, so its bits are B7's followed by the exchange
+    (``peer_stage_exchange``). At the sharded MPC's shapes (K_loc = 512,
+    B = 1, N=3: ``shard_plan(..., peer=True)``: 64 blocks of 32 threads)
+    S = 4 or 8 ranks' grids take a small part of the card's block slots,
+    room for every rank's launch beside its peers'. The launch goes to the
+    ring's device, the card (a ring over host memory runs a host build of
+    the kernels, in the tests); a failed launch raises. Its plain version
+    is ``sw2d_stage_blocked_peer_plain``, the stacked stage followed by the
+    stacked exchange. Replaces the TPU stage kernel with the XLA
+    ``ppermute`` after it (``blitzdg_tpu/parallel/blocked_shard.py``,
+    ``make_sharded_blocked_step_diff``)."""
+    ref = _check_peer(ops, meta, ring,
+                      {"h": cur[0], "hu": cur[1], "hv": cur[2],
+                       "base_h": base[0], "base_hu": base[1],
+                       "base_hv": base[2]}, {"rb": rb})
+    if ctrl is not None:
+        _check_tensor("ctrl", ctrl, (meta.n_ctrl,), ref)
+    lib, desc = _check_kernel_inputs(ops, meta, ref)
+    B = ring.batch
+    plan = _shard_plan(lib, desc, ops, B, _STAGE_PEER)
+    out = [torch.empty_like(cur[0]) for _ in range(3)]
+    sb = ref.new_empty((1, B, ring.n_slots, 3))
+    rbo = torch.empty_like(sb) if rb is None else rb
+    ring._guard()
+    e_in, e_out = ring._fold_forward(rb is None)
+    err = lib.sw2d_stage_peer(
+        ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
+        ops.fbuf.shape[1], ops.ibuf.shape[1], B,
+        *(f.data_ptr() for f in base), *(f.data_ptr() for f in cur),
+        ring._slots(False, e_in) if rb is None else rb.data_ptr(),
+        _ptr(ctrl), *(f.data_ptr() for f in out), sb.data_ptr(),
+        rbo.data_ptr(), ring.table.data_ptr(), e_in, e_out, float(c_dt),
+        float(t), int(use_filter), int(apply_sponge and meta.has_sponge),
+        plan, _launch_stream(ref))
+    _launch_check(err, "sw2d_stage_blocked_peer")
+    count_launches(sw2d_stage_blocked_peer)
+    return (*out, sb, rbo)
+
+
+sw2d_stage_blocked_peer.launches = 0
+
+
+def sw2d_stage_bwd_blocked_peer(ops: ShardOps, meta: BlockedMeta, cur, rb,
+                                lam_out, lam_sb, ring, c_dt: float,
+                                t: float = 0.0, ctrl=None,
+                                use_filter: bool = True,
+                                apply_sponge: bool = False,
+                                send: bool = True):
+    """The adjoint of ``sw2d_stage_blocked_peer`` one shard a rank, the
+    reverse of the ring's exchange folded into the launch: ``lam_sb``, the
+    cotangent of the send buffer (1, B, L, 3), or None: this rank's reverse
+    slots, where the adjoint launches of the stage that read the send
+    buffer (at the ranks it went to) stored it; with ``send`` the receive
+    buffer's cotangent also stored into the reverse slots of the ranks that
+    sent it (the stage read its receive buffer from the ring's slots), which
+    the adjoint launch of their stage before reads (without, the stage's
+    receive buffer came from the standalone exchange, whose backward takes
+    the cotangent). Returns the eight cotangents of
+    ``sw2d_stage_bwd_blocked_v2`` (the receive buffer's as computed here).
+    A launch on the rank's own thread meets the others' first (autograd's
+    device thread does not meet).
+
+    One launch (``sw2d_stage_bwd_peer_kernel``): B8's items and ``qvjp``
+    (B8's bits, and its lanes for the shape: sixteen an element at the
+    sharded MPC's batch of one, 256 blocks of 32 threads a rank at K_loc =
+    512), then each block's cut-face cotangents stored into the senders'
+    slots; it waits only on flags that the peers' adjoint launches of the
+    round before release. Its plain version is
+    ``sw2d_stage_bwd_blocked_peer_plain``: B8's plain version followed by
+    the stacked reverse exchange. Replaces the TPU stage adjoint kernel
+    with the transpose of the XLA ``ppermute``."""
+    _refuse_wetdry_stage_adjoint(meta)
+    ref = _check_peer(ops, meta, ring,
+                      {"h": cur[0], "hu": cur[1], "hv": cur[2],
+                       "lam_h": lam_out[0], "lam_hu": lam_out[1],
+                       "lam_hv": lam_out[2]}, {"rb": rb, "lam_sb": lam_sb})
+    if rb is None:
+        raise ValueError("rb: the stage's receive buffer is needed")
+    if ctrl is not None:
+        _check_tensor("ctrl", ctrl, (meta.n_ctrl,), ref)
+    ring._guard()
+    e_in, e_out = ring._fold_reverse(lam_sb is None, send)
+    out = _run_stage_bwd(ops, meta, cur, rb, lam_out, lam_sb, c_dt, t, ctrl,
+                         use_filter, apply_sponge, peer=(ring, e_in, e_out))
+    count_launches(sw2d_stage_bwd_blocked_peer)
+    return out
+
+
+sw2d_stage_bwd_blocked_peer.launches = 0
 
 
 # ---------------------------------------------------------------------------

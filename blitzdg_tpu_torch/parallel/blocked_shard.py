@@ -37,12 +37,17 @@ which holds for B = 1 only (ROADMAP C21).
 
 One shard a rank, the fused and the differentiable step exchange through
 the process group (``batch_isend_irecv`` on CPU tensors) or, on the card,
-through this rank's ``parallel.StageRing`` (``ring=``): an exchange kernel
-a stage that stores into the peers' memory, and in the backward its
-reverse; the sums over ranks of the control cotangent go through the
-ring's sum kernel. ``sum_over_ranks_grad`` and ``total_over_ranks`` are
-the two sums with their transposes, for a cost that each rank computes in
-part (``mpc.sharded_box``).
+through this rank's ``parallel.StageRing`` (``ring=``): each stage is one
+launch of the stage kernel's peer mode, which reads its receive buffer
+from the ring's slots and stores its send buffer into the peers' (the
+exchange folded into the launch), and in the backward one launch of the
+adjoint's peer mode, the reverse folded in likewise; only a rollout's
+first exchange (its constant start's send buffer) is a launch of the
+ring's exchange kernel (a ring over host memory runs a host build of the
+same kernels, in the tests). The sums over ranks of the control cotangent go
+through the ring's sum kernel. ``sum_over_ranks_grad`` and
+``total_over_ranks`` are the two sums with their transposes, for a cost
+that each rank computes in part (``mpc.sharded_box``).
 
 ``make_sharded_blocked_step_rdma`` is the same step in one launch: one
 exchange of the carried send buffer, then one kernel that runs both stages
@@ -64,6 +69,7 @@ counterpart (``split_shards``/``join_shards`` reshape flat fields).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -72,7 +78,8 @@ import torch
 from ..context import DGContext2D
 from ..ops.sw2d import SWPhysics
 from ..ops.sw2d_blocked import (BlockedMeta, RdmaLaunch, ShardOps,
-                                _refuse_wetdry_rdma, _send_plain, shard_view,
+                                _refuse_wetdry_rdma, _send_plain,
+                                load_stage_peer, shard_view,
                                 sw2d_stage_blocked, sw2d_stage_bwd_blocked_v2)
 from ..ops.sw2d_fused import _np64, _operator_arrays, _ops_from_arrays
 from .halo import HaloPlan, RingExchange, build_halo_plan, sum_over_ranks
@@ -201,6 +208,28 @@ def _exchange(sb: ShardedBlocked, group, ring=None) -> RingExchange:
                         ring=ring)
 
 
+class _Carried:
+    """A folded step's record of the send buffer that its last stage launch
+    stored into the peers' forward slots (a weak reference), the ring's
+    forward epoch just after that launch, and the stage's ``_Sent``."""
+
+    __slots__ = ("sbuf", "epoch", "mark")
+
+    def __init__(self):
+        self.sbuf, self.epoch, self.mark = None, -1, None
+
+    def holds(self, ring, sbuf: torch.Tensor) -> bool:
+        """Whether the ring's forward slots hold ``sbuf``'s exchange: it is
+        the send buffer of this step's last folded launch, and no launch
+        over the ring has exchanged forward since."""
+        return (self.sbuf is not None and self.sbuf() is sbuf
+                and ring.epochs["forward"] == self.epoch)
+
+    def note(self, ring, sbuf: torch.Tensor, mark=None):
+        self.sbuf = weakref.ref(sbuf)
+        self.epoch, self.mark = ring.epochs["forward"], mark
+
+
 def make_sharded_blocked_step_fused(sb: ShardedBlocked, dt: float,
                                     use_filter: bool = True, group=None,
                                     ring=None):
@@ -210,9 +239,33 @@ def make_sharded_blocked_step_fused(sb: ShardedBlocked, dt: float,
     ``initial_send_buffer``. ``ctrl``: (n_ctrl,) or None. ``group``: None for
     the stacked transport, or the process group (one shard a rank, CPU
     tensors); ``ring``: this rank's ``parallel.StageRing`` (one shard a
-    rank, on the card). ``step.exchange`` is the step's ``RingExchange``."""
+    rank), each stage one launch of the stage's peer mode
+    (``ops.sw2d_blocked.sw2d_stage_blocked_peer``) that reads its receive
+    buffer from the ring's slots, the exchange of the rollout's first send
+    buffer (one that this step's last folded stage did not return) one
+    launch of the ring's exchange kernel. ``step.exchange`` is the step's
+    ``RingExchange``."""
     ops, meta = sb.ops, sb.meta
     ex = _exchange(sb, group, ring)
+    if ring is not None:
+        load_stage_peer(ops, meta, ring.batch)
+        carried = _Carried()
+
+        def stage(base, cur, sbuf, c_dt, t, ctrl, sponge):
+            rb = None if carried.holds(ring, sbuf) else ex(sbuf)
+            *out, sbo, _ = sw2d_stage_blocked(ops, meta, base, cur, rb, c_dt,
+                                              t, ctrl, use_filter, sponge,
+                                              ring=ring)
+            carried.note(ring, sbo)
+            return tuple(out), sbo
+
+        def folded(carry, t: float = 0.0, ctrl=None):
+            state, sbuf = carry
+            s1, sb1 = stage(state, state, sbuf, 0.5 * dt, t, ctrl, False)
+            return stage(state, s1, sb1, dt, t + 0.5 * dt, ctrl, True)
+
+        folded.exchange = ex
+        return folded
 
     def step(carry, t: float = 0.0, ctrl=None):
         state, sbuf = carry
@@ -326,6 +379,100 @@ def total_over_ranks(x: torch.Tensor, ex: RingExchange) -> torch.Tensor:
     return _TotalOverRanks.apply(x, ex)
 
 
+class _Sent:
+    """A folded stage's send buffer: the ring's reverse epoch at which the
+    backward of the stage that read it from the ring's slots stored its
+    cotangent into the senders' reverse slots (None: no such backward has
+    run since this stage's last backward), which this stage's backward
+    then reads."""
+
+    __slots__ = ("epoch",)
+
+    def __init__(self):
+        self.epoch = None
+
+
+def _folded_diff_stages(ops, meta, ring, dt, use_filter, ex):
+    """The differentiable step over ``ring`` with the ring's exchange and
+    its reverse folded into the stage launches (see
+    ``make_sharded_blocked_step_diff``)."""
+
+    def make_stage(c_dt: float, apply_sponge: bool):
+        class _PeerStage(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, bh, bhu, bhv, ch, chu, chv, link, rb, t, ctrl,
+                        src, mark):
+                # link: the previous stage's send buffer (autograd's order
+                # only) where rb is None, the ring's slots; src its _Sent
+                ctx.set_materialize_grads(False)
+                *out, sbo, rbr = sw2d_stage_blocked(
+                    ops, meta, (bh, bhu, bhv), (ch, chu, chv), rb, c_dt, t,
+                    ctrl, use_filter, apply_sponge, ring=ring)
+                ctx.save_for_backward(ch, chu, chv, rbr, ctrl)
+                ctx.t, ctx.read, ctx.src, ctx.mark = t, rb is None, src, mark
+                return (*out, sbo)
+
+            @staticmethod
+            def backward(ctx, lh, lhu, lhv, lsb):
+                ch, chu, chv, rb, ctrl = ctx.saved_tensors
+                lam = tuple(torch.zeros_like(ch) if g is None
+                            else g.contiguous() for g in (lh, lhu, lhv))
+                e, ctx.mark.epoch = ctx.mark.epoch, None
+                if e is not None:  # (from the ring's reverse slots)
+                    if lsb is not None:
+                        raise NotImplementedError(
+                            "a cost of a send buffer that a later folded "
+                            "stage read from the ring's slots: its "
+                            "cotangent comes through the ring; take the "
+                            "cost of the state, or of the rollout's last "
+                            "send buffer (ROADMAP C36)")
+                    if e != ring.epochs["reverse"]:
+                        raise RuntimeError(
+                            "another backward over this ring ran between "
+                            "two stages' backwards of one rollout: one "
+                            "rollout's backward at a time over a ring")
+                elif lsb is None:
+                    lsb = torch.zeros_like(rb)
+                else:
+                    lsb = lsb.contiguous()
+                # the receive buffer's cotangent to its senders where it
+                # came from the ring's slots and the stage before has a
+                # backward (which then reads it)
+                send = ctx.read and ctx.needs_input_grad[6]
+                g = sw2d_stage_bwd_blocked_v2(
+                    ops, meta, (ch, chu, chv), rb, lam,
+                    None if e is not None else lsb, c_dt, ctx.t, ctrl,
+                    use_filter, apply_sponge, ring=ring, send=send)
+                if send:
+                    ctx.src.epoch = ring.epochs["reverse"]
+                lctl = None if g[7] is None else g[7].sum(dim=(0, 1))
+                return (*g[:6], None, None if ctx.read else g[6], None,
+                        lctl, None, None)
+
+        return _PeerStage.apply
+
+    stage1, stage2 = make_stage(0.5 * dt, False), make_stage(dt, True)
+    carried = _Carried()
+
+    def run(fn, base, cur, sbuf, t, ctrl):
+        if carried.holds(ring, sbuf):
+            link, rb, src = sbuf, None, carried.mark
+        else:  # a rollout's start: the standalone exchange
+            ring._pace()
+            link, rb, src = None, ex(sbuf), None
+        mark = _Sent()
+        *out, sbo = fn(*base, *cur, link, rb, t, ctrl, src, mark)
+        carried.note(ring, sbo, mark)
+        return tuple(out), sbo
+
+    def step(carry, t: float = 0.0, ctrl=None):
+        state, sbuf = carry
+        s1, sb1 = run(stage1, state, state, sbuf, t, ctrl)
+        return run(stage2, state, s1, sb1, t + 0.5 * dt, ctrl)
+
+    return step
+
+
 def make_sharded_blocked_step_diff(sb: ShardedBlocked, dt: float,
                                    use_filter: bool = True, group=None,
                                    ring=None):
@@ -340,7 +487,30 @@ def make_sharded_blocked_step_diff(sb: ShardedBlocked, dt: float,
     of the cost, and the caller passes its controls through
     ``sum_over_ranks_grad`` (once for a whole control sequence: one sum an
     evaluation) to sum their cotangent over the ranks. Raises for a wet/dry
-    set: the limiter has no adjoint."""
+    set: the limiter has no adjoint.
+
+    With a ``StageRing``, each stage Function takes the previous stage's
+    send buffer only to carry autograd's order: its forward is one launch
+    of the stage's peer mode, which reads the receive buffer from the
+    ring's slots and stores its own send buffer into the peers', and its
+    backward one launch of the adjoint's peer mode, which stores the
+    receive buffer's cotangent into the senders' reverse slots where the
+    stage before has a backward, and returns no cotangent for that input:
+    the cotangent travels through the ring. A stage's backward reads its
+    send buffer's cotangent from its reverse slots where the backward of
+    the stage that read that buffer ran (the cost depends on the later
+    stages), and otherwise takes autograd's (zeros without), so a cost of
+    the state at any step of a rollout has its gradient; a cost that also
+    takes a send buffer that a later stage read raises (ROADMAP C36). A
+    rollout's first exchange (a send buffer that this step's last stage did
+    not return: the constant start's) is one launch of the ring's exchange
+    kernel, whose backward is its reverse,
+    and the rank's host first waits for its stream there when its ring is
+    one of ranks that share this process (``StageRing.over_regions``): a
+    rank then runs at most one rollout and its backward ahead of its
+    stream, which keeps autograd's one device thread, shared by the ranks,
+    from blocking in a launch behind a ring kernel that waits for it
+    (ROADMAP C34)."""
     if sb.meta.wetdry:
         raise NotImplementedError(
             "make_sharded_blocked_step_diff does not differentiate the "
@@ -348,6 +518,11 @@ def make_sharded_blocked_step_diff(sb: ShardedBlocked, dt: float,
             "the non-differentiable step for wet/dry rollouts)")
     ops, meta = sb.ops, sb.meta
     ex = _exchange(sb, group, ring)
+    if ring is not None:
+        load_stage_peer(ops, meta, ring.batch)
+        step = _folded_diff_stages(ops, meta, ring, dt, use_filter, ex)
+        step.exchange = ex
+        return step
 
     def make_stage(c_dt: float, apply_sponge: bool):
         class _Stage(torch.autograd.Function):

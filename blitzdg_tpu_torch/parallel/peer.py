@@ -33,13 +33,17 @@ sharded MPC across chips (``examples/mpc_sharded.py`` over
 ``make_sharded_blocked_step_diff``): the ``ppermute`` of a stage's send
 buffer between the RK stages, its transpose in the backward sweep, and the
 ``psum`` of the cost with the sum over chips of the shared controls'
-cotangent. A region a rank holds a slot set for each use (forward and
-reverse receive slots, (B, L, 3) floats each, and a sum slot a rank), with
-its own GO and ARRIVED flags; ``peer_stage_exchange``,
+cotangent. A region a rank holds two slot sets by the epoch's parity for
+each use (forward and reverse receive slots, (B, L, 3) floats each) and a
+sum slot a rank, with their GO and ARRIVED flags; ``peer_stage_exchange``,
 ``peer_stage_exchange_reverse`` and ``peer_rank_sum`` launch its kernels
 (``ops/csrc/peer.cu``), which copy what arrives into memory torch owns, so
 that autograd may keep a receive buffer: a later exchange into the same
-slots changes nothing it kept.
+slots changes nothing it kept. The sharded steps fold the exchange into
+the stage's launch and its reverse into the adjoint's
+(``ops.sw2d_blocked.sw2d_stage_blocked_peer``,
+``sw2d_stage_bwd_blocked_peer``, over the same slots and flags): the
+standalone exchange moves only a rollout's first send buffer.
 
 ``HaloRing``: the counterpart of the collectives of the JAX package's
 element-sharded plain-tensor path inside ``shard_map``
@@ -69,10 +73,19 @@ instead (``parallel.make_sharded_blocked_step_rdma``,
 Flags are 64-bit epochs that only grow, so nothing is ever reset; every
 wait is bounded (``timeout_s``) and traps past its bound, so a lost peer is
 an error (the CUDA context is lost with it) and never a hang.
+
+Ranks that share a process (``over_regions``) share its interpreter and
+autograd's one device thread; the stage and halo rings guard them
+(ROADMAP C34): ``meet=``, a meeting of the ranks' threads before each ring
+launch; the differentiable step's pacing of each rollout (``_pace``); and
+``warm_ranks``, each rank's program run alone first, so that no launch of
+it loads a module while a peer's ring kernel spins.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
+import weakref
 
 import torch
 
@@ -425,15 +438,20 @@ _SUM, _MAX = 0, 1
 
 def ring_region_layout(slot_bytes: int, n_off: int, n_ranks: int) -> dict:
     """Byte offsets in one rank's halo- or stage-ring region
-    (``ops/csrc/peer_flags.cuh``): the forward receive slots (``slot_bytes``,
-    rounded up to whole words) at 0, the reverse ones at ``rev``, the
-    reduction slots (one of ``SUM_BYTES`` a rank) at ``sum``, the
-    ``n_flags`` flag words at ``flags``; ``bytes`` in all."""
+    (``ops/csrc/peer_flags.cuh``): the forward receive slots at 0, two sets
+    of ``cap`` bytes (``slot_bytes`` rounded up) by the epoch's parity, the
+    reverse ones at ``rev``, the reduction slots (one of ``SUM_BYTES`` a
+    rank) at ``sum``, the ``n_flags`` flag words at ``flags``, the two
+    words that count a folded launch's blocks at ``count``; ``bytes`` in
+    all."""
     slots = _round(slot_bytes)
     sums = _round(n_ranks * SUM_BYTES)
     n_flags = 4 * n_off + 2 * n_ranks
-    return {"rev": slots, "sum": 2 * slots, "flags": 2 * slots + sums,
-            "n_flags": n_flags, "bytes": 2 * slots + sums + _round(8 * n_flags)}
+    flags = 4 * slots + sums
+    count = flags + _round(8 * n_flags)
+    return {"cap": slots, "rev": 2 * slots, "sum": 4 * slots,
+            "flags": flags, "count": count, "n_flags": n_flags,
+            "bytes": count + _round(16)}
 
 
 def _stage_bytes(plan: HaloPlan, n_fp: int, batch: int) -> int:
@@ -505,30 +523,107 @@ class HaloRing:
 
     @classmethod
     def over_regions(cls, plan: HaloPlan, slot_bytes: int, rank: int,
-                     bases: dict, device,
-                     timeout_s: float = 10.0) -> "HaloRing":
+                     bases: dict, device, timeout_s: float = 10.0,
+                     meet: threading.Barrier | None = None) -> "HaloRing":
         """Rank ``rank``'s ring over regions of this process (``bases``:
         the address of every rank's region, laid out as
         ``ring_region_layout`` says, zeroed; on a CPU device, host memory
         for a build of the kernels for the host): the S ranks of a ring in
-        one process, each on its own stream (or thread). Their launches
-        must then be resident on the card together (a wait that outlasts
-        its bound traps). The caller owns the regions; ``close`` does
-        nothing here."""
+        one process, each on its own stream. The caller owns the regions;
+        ``close`` does nothing here.
+
+        Ranks on host threads of their own share the process's interpreter
+        and autograd's one device thread, and a ring kernel that spins at
+        its flags for a peer whose host is held before its launch (by a
+        first launch that loads a module, or a ``cudaFree``: calls that wait
+        for the running kernels) traps at the ring's bound (ROADMAP C34).
+        So give every rank's ring the same ``meet``, a
+        ``threading.Barrier`` of the S threads: each launch of a kernel
+        that waits on a peer's flag (the exchanges, the reductions, the
+        folded stage launches of ``ops.sw2d_blocked``), made on the rank's
+        own thread, waits there first, so that no ring kernel is on the
+        card before every rank's host has issued its work up to its own
+        launch of that kernel. A rank's own thread is the one that last
+        launched one of its ring's kernels outside autograd's backward (or
+        that called ``bind()``); launches in a backward on another thread
+        do not meet: autograd's device thread runs every rank's backward.
+        A launch that leaves the rings of one region set on several threads
+        without a ``meet`` common to them all raises, naming ``meet=``; one
+        thread that launches every rank's kernels onto S streams needs no
+        meeting (and must not be given one: its lone wait at the meeting
+        raises after six times the ring's bound, as does a rank's wait for
+        a peer thread that stopped). Before the ranks run together,
+        ``warm_ranks`` runs each rank's program alone, so that no launch of
+        it loads a module."""
         ring = cls.__new__(cls)
         ring._setup(plan, slot_bytes, rank, bases, torch.device(device),
                     timeout_s)
         ring.group, ring._lib, ring._own, ring._opened = None, None, None, {}
+        ring._meet = meet
+        ring._set = _RegionSet.of(bases, rank)
         return ring
+
+    def bind(self):
+        """Names the calling thread this rank's own: its launches of the
+        ring's kernels meet the other ranks' (``meet``). Raises where the
+        rings of this region set are then bound to several threads without
+        a meeting of them all. A launch outside autograd's backward binds
+        its thread likewise."""
+        thread = threading.get_ident()
+        if self._set is not None:
+            self._set.bind(self.rank, thread, self._meet)
+        self._thread = thread
+
+    def _guard(self):
+        """Before a launch of a kernel that waits on a peer's flag, over
+        regions of this process: a launch outside autograd's backward from
+        another thread than this rank's binds that thread (``bind``: it may
+        raise); on this rank's own thread, the meeting of the ranks'
+        threads, bounded by six times the ring's bound."""
+        if self._set is None:
+            return
+        thread = threading.get_ident()
+        if thread != self._thread:
+            if torch._C._current_graph_task_id() != -1:
+                return  # (a backward on autograd's thread: no meeting)
+            self.bind()
+        if self._meet is None:
+            return
+        try:
+            self._meet.wait(6 * self._timeout_s)
+        except threading.BrokenBarrierError:
+            raise RuntimeError(
+                f"rank {self.rank}: the ranks' threads did not all reach "
+                f"this ring launch within {6 * self._timeout_s:g} s at "
+                "their meeting (meet=): a rank's thread stopped, or one "
+                "thread launches every rank's kernels, which needs no "
+                "meet= (ROADMAP C34)") from None
+
+    def _pace(self):
+        """A rollout's start on a ring of ranks that share this process: the
+        host waits for this rank's stream (``paces`` counts it), so that it
+        runs at most one rollout and its backward ahead of its stream. The
+        ranks share autograd's one device thread, which launches every
+        rank's backward; a rank whose host ran a launch queue ahead blocks
+        that thread in a launch while the ring kernel at the head of its
+        stream waits for a peer's backward launch, which only that thread
+        can make: a deadlock, which traps at the ring's bound (C34). Ranks
+        in processes of their own (a process group) need none."""
+        if self._set is None:
+            return
+        self.paces += 1
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _setup(self, plan, slot_bytes, rank, bases, device, timeout_s):
         S, offs = plan.n_shards, plan.offs
         self.plan, self.rank, self.device = plan, rank, device
         lay = ring_region_layout(slot_bytes, len(offs), S)
-        self.slot_bytes = lay["rev"]
+        self.slot_bytes = lay["cap"]
+        self._base, self._rev = bases[rank], lay["rev"]
         words = [bases[rank], int(timeout_s * 1e9), len(offs),
                  self.slot_bytes // 4, S, rank, SUM_BYTES, lay["flags"],
-                 lay["rev"], lay["sum"]]
+                 lay["rev"], lay["sum"], lay["count"]]
         words += [0] * (16 - len(words))
         words += [bases[(rank + d) % S] for d in offs]
         words += [bases[(rank - d) % S] for d in offs]
@@ -543,6 +638,9 @@ class HaloRing:
         self.flags[4 * n_off + 1::2] = 1
         self.epochs = {"forward": 0, "reverse": 0, "sum": 0}
         self.threads = THREADS
+        self._meet, self._set, self._thread = None, None, None
+        self._timeout_s = timeout_s
+        self.paces = 0
         lib = _lib()
         _check(lib, lib.peer_load(), "peer_load")
         if device.type == "cuda":
@@ -566,6 +664,7 @@ class HaloRing:
                 "make the ring for the largest buffer it carries "
                 "(halo_slot_bytes)")
         use = "reverse" if rev else "forward"
+        self._guard()
         self.epochs[use] += 1
         lib = self._lib or _lib()
         err = lib.peer_stage_exchange(
@@ -584,6 +683,7 @@ class HaloRing:
         step = SUM_BYTES // x.element_size()
         for j in range(0, x.numel(), step):
             n = min(step, x.numel() - j)
+            self._guard()
             self.epochs["sum"] += 1
             err = lib.peer_rank_reduce(
                 self.table.data_ptr(), op, _REDUCE_DTYPES[x.dtype],
@@ -626,12 +726,13 @@ class StageRing(HaloRing):
 
     @classmethod
     def over_regions(cls, plan: HaloPlan, n_fp: int, batch: int, rank: int,
-                     bases: dict, device,
-                     timeout_s: float = 10.0) -> "StageRing":
+                     bases: dict, device, timeout_s: float = 10.0,
+                     meet: threading.Barrier | None = None) -> "StageRing":
         """Rank ``rank``'s ring over regions of this process, laid out as
-        ``stage_region_layout`` says (see ``HaloRing.over_regions``)."""
+        ``stage_region_layout`` says (see ``HaloRing.over_regions``, and
+        ``meet=`` there)."""
         ring = super().over_regions(plan, _stage_bytes(plan, n_fp, batch),
-                                    rank, bases, device, timeout_s)
+                                    rank, bases, device, timeout_s, meet)
         ring._shape(plan, n_fp, batch)
         return ring
 
@@ -640,6 +741,36 @@ class StageRing(HaloRing):
         self.chunk = plan.max_send * n_fp
         self.n_slots = _n_slots(plan, n_fp)
 
+    def _slots(self, rev: bool, e: int) -> int:
+        """The address of this rank's slot set of epoch ``e`` of a use
+        (``peer_flags.cuh``, ``sr_slots``)."""
+        return self._base + (self._rev if rev else 0) + (e & 1) * \
+            self.slot_bytes
+
+    def _fold_forward(self, read: bool) -> tuple:
+        """The epochs of a folded stage launch: the one it reads from its
+        forward slots (0: none, its receive buffer given) and the one it
+        sends."""
+        if read and self.epochs["forward"] == 0:
+            raise ValueError("no exchange has reached the ring's slots yet: "
+                             "a rollout's first stage takes its receive "
+                             "buffer")
+        e_in = self.epochs["forward"] if read else 0
+        self.epochs["forward"] += 1
+        return e_in, self.epochs["forward"]
+
+    def _fold_reverse(self, read: bool, send: bool) -> tuple:
+        """The epochs of a folded stage adjoint's launch: the one it reads
+        from its reverse slots and the one it sends (0: none)."""
+        if read and self.epochs["reverse"] == 0:
+            raise ValueError("no reverse exchange has reached the ring's "
+                             "slots yet: the last stage's adjoint takes its "
+                             "send buffer's cotangent")
+        e_in = self.epochs["reverse"] if read else 0
+        if send:
+            self.epochs["reverse"] += 1
+        return e_in, self.epochs["reverse"] if send else 0
+
     def _exchange(self, src: torch.Tensor, rev: bool) -> torch.Tensor:
         """The exchange kernel's launch over a (1, B, L, 3) buffer, forward
         or reverse: a new receive buffer."""
@@ -647,6 +778,66 @@ class StageRing(HaloRing):
         self._launch_exchange(src, out, self.batch, 3 * self.n_slots,
                               3 * self.chunk, 3 * self.chunk, rev)
         return out
+
+
+class _RegionSet:
+    """The rings of one set of regions of this process (``over_regions``):
+    the thread and the meeting each rank's ring is bound to."""
+
+    _sets: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+    _lock = threading.Lock()
+
+    def __init__(self):
+        self.ranks = set()  # the ranks that have a ring in the set
+        self.bound = {}  # rank -> (thread, meet)
+
+    @classmethod
+    def of(cls, bases: dict, rank: int) -> "_RegionSet":
+        """The set over the regions ``bases``; a new one where rank ``rank``
+        already has a ring in it (a later set over the same addresses)."""
+        key = tuple(sorted(bases.items()))
+        with cls._lock:
+            rs = cls._sets.get(key)
+            if rs is None or rank in rs.ranks:
+                rs = cls._sets[key] = cls()
+            rs.ranks.add(rank)
+            return rs
+
+    def bind(self, rank: int, thread: int, meet):
+        with self._lock:
+            bound = {**self.bound, rank: (thread, meet)}
+            threads = {t for t, _ in bound.values()}
+            meets = {id(m) for _, m in bound.values()}
+            if len(threads) > 1 and (meet is None or len(meets) > 1):
+                raise ValueError(
+                    "the ranks of a ring in one process run on several host "
+                    "threads: give every rank's ring the same meet= (a "
+                    "threading.Barrier of the threads), or launch every "
+                    "rank's kernels from one thread (ROADMAP C34)")
+            self.bound = bound
+
+
+def warm_ranks(rings, streams, warm) -> None:
+    """The warm-up of the S ranks of a ring that share this process:
+    ``warm(r, ring)`` for each rank r in turn, alone on its stream
+    ``streams[r]``, over ``rings``, a region set of its own (not the one
+    the ranks then run on) whose flags are set past any epoch just before
+    each rank's turn, so that no wait holds a launch (the values are not
+    used). Every kernel that the rank's program launches is then loaded and
+    each stream's caching allocator holds its blocks before the ranks run
+    together: a kernel's first launch loads its module (CUDA's lazy
+    loading), which waits for the running kernels, a peer's spinning ring
+    kernel among them (C34)."""
+    for r, ring in enumerate(rings):
+        cuda = ring.device.type == "cuda"
+        ring.flags[:] = 1 << 60
+        if cuda:
+            torch.cuda.synchronize(ring.device)
+            with torch.cuda.stream(streams[r]):
+                warm(r, ring)
+            torch.cuda.synchronize(ring.device)
+        else:
+            warm(r, ring)
 
 
 def _check_ring_tensor(ring: HaloRing, name: str, t: torch.Tensor,
@@ -676,8 +867,11 @@ def peer_stage_exchange(ring: StageRing, sbuf: torch.Tensor) -> torch.Tensor:
     rank's receive buffer (1, B, L, 3), what its peers sent, copied out of
     its slots into a new tensor (zeros without ring offsets). One launch
     (``ops/csrc/peer.cu``, one block an offset), which waits until each
-    receiving rank has read the last epoch's chunk and until each chunk
-    here has arrived.
+    receiving rank has read the epoch before the last (two slot sets by
+    the epoch's parity) and until each chunk here has arrived. On the card
+    the sharded steps launch it for a rollout's first send buffer only:
+    every later exchange is folded into the stage's launch
+    (``ops.sw2d_blocked.sw2d_stage_blocked_peer``).
 
     Replaces the XLA ``ppermute`` between the stages of the JAX package's
     differentiable sharded step (``blitzdg_tpu/parallel/blocked_shard.py``,
@@ -700,7 +894,10 @@ def peer_stage_exchange_reverse(ring: StageRing,
     i to the rank at ring offset -i), over the ring's reverse slots; returns
     this rank's send-buffer cotangent (1, B, L, 3), a new tensor. One
     launch of the same kernel. Replaces the transpose of the XLA
-    ``ppermute`` in the JAX package's backward sweep."""
+    ``ppermute`` in the JAX package's backward sweep; the sharded steps on
+    the card launch it only for a rollout's first send buffer where that
+    needs its cotangent (the adjoint's launches carry every other reverse:
+    ``ops.sw2d_blocked.sw2d_stage_bwd_blocked_peer``)."""
     out, launched = _stage_exchange(ring, g, True)
     if launched:
         count_launches(peer_stage_exchange_reverse)

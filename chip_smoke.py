@@ -155,13 +155,19 @@ exit):
     sum (``ops/csrc/peer.cu``) bit-equal to their plain versions (the
     stacked gather of every rank's buffer, the rank-order sum) at the main
     path's shapes, four ranks on four streams, and times each of rank 0's
-    alone (its flags set past any epoch); ``sharded_mpc_S4_in_process``
+    alone (its flags set past any epoch); ``stage_peer_kernels`` holds the
+    stage's and its adjoint's peer modes (the exchange and its reverse
+    folded into their launches) bit-equal to B7 and B8 launched on each
+    rank's shard with the stacked exchange and its reverse between them,
+    four ranks on four streams, and times rank 0's alone;
+    ``sharded_mpc_S4_in_process``
     runs the 4 ranks of the full width on threads and streams of this
     process, and ``sharded_mpc_example_S8_in_process`` the example's 8
-    (each rank first alone over a ring whose flags read past any epoch, so
-    that every kernel is loaded before the ranks meet; the ranks' hosts
-    meet before each launch of a ring kernel; each rank's step
-    waits for its stream at each rollout's start, ``paced``);
+    (each rank first alone over a ring whose flags read past any epoch,
+    ``parallel.peer.warm_ranks``, so that every kernel is loaded before
+    the ranks meet; then the port's guard: the ranks' hosts meet before
+    each launch of a ring kernel, ``meet=`` of the rings, and each rank's
+    step waits for its stream at each rollout's start);
     ``sharded_mpc_S4_ranks`` starts 4 worker processes of this script
     (``--ranks-worker``, gloo group, CUDA IPC regions, each with its own
     timeout, all ended once one fails) at full width. Each rank: its
@@ -4505,6 +4511,8 @@ def ranks_counters() -> dict:
 
     return {"sw2d_stage_blocked": TB.sw2d_stage_blocked,
             "sw2d_stage_bwd_blocked_v2": TB.sw2d_stage_bwd_blocked_v2,
+            "sw2d_stage_blocked_peer": TB.sw2d_stage_blocked_peer,
+            "sw2d_stage_bwd_blocked_peer": TB.sw2d_stage_bwd_blocked_peer,
             "peer_stage_exchange": PR.peer_stage_exchange,
             "peer_stage_exchange_reverse": PR.peer_stage_exchange_reverse,
             "peer_rank_sum": PR.peer_rank_sum,
@@ -4514,62 +4522,42 @@ def ranks_counters() -> dict:
 
 def ranks_expected(n_steps: int, iters: int, n_ranks: int) -> dict:
     """The launches of ``ranks_program`` over ``n_ranks`` ranks: a rank's
-    target rollout (2 stages a step, an exchange each), the gradient at zero
-    controls and the solve's ``iters`` gradients (each a rollout, its
-    adjoint, the reverse exchanges of every stage but the first, whose send
-    buffer is the constant start's, and two sums: the cost and the
-    controls' cotangent), and the solve's final cost (a rollout, a sum)."""
+    target rollout, the gradient at zero controls and the solve's ``iters``
+    gradients (each a rollout, its adjoint and two sums: the cost and the
+    controls' cotangent), and the solve's final cost (a rollout, a sum).
+    A rollout is one exchange (its constant start's send buffer) and two
+    stages a step, each one launch of the stage's peer mode, the exchange
+    folded in; its adjoint two launches of the adjoint's peer mode a step,
+    the reverse folded in (the first stage's receive-buffer cotangent stays
+    with it: the constant start's send buffer needs none)."""
     evals = 1 + iters
-    fwd = 2 * n_steps * (1 + evals + 1)
-    per = {"sw2d_stage_blocked": fwd,
-           "sw2d_stage_bwd_blocked_v2": 2 * n_steps * evals,
-           "peer_stage_exchange": fwd,
-           "peer_stage_exchange_reverse": (2 * n_steps - 1) * evals,
+    rollouts = 1 + evals + 1
+    per = {"sw2d_stage_blocked": 0, "sw2d_stage_bwd_blocked_v2": 0,
+           "sw2d_stage_blocked_peer": 2 * n_steps * rollouts,
+           "sw2d_stage_bwd_blocked_peer": 2 * n_steps * evals,
+           "peer_stage_exchange": rollouts,
+           "peer_stage_exchange_reverse": 0,
            "peer_rank_sum": 2 * evals + 1, "sw2d_step_rdma_blocked": 0,
            "peer_ring_exchange": 0}
     return {k: n_ranks * v for k, v in per.items()}
 
 
-def paced(mp, sync):
-    """The problem ``mp`` whose step first waits for this rank's work
-    (``sync``) at each rollout's start (t = 0), so that no rank's host runs
-    more than a cost evaluation and its gradient ahead of its stream. Ranks
-    on threads of one process need it: they share autograd's one device
-    thread, which launches every rank's backward, and a rank whose host ran
-    a launch queue ahead of its stream blocks that thread in a launch while
-    the ring kernel at the head of its stream waits for a peer's reverse
-    exchange, which only that thread can launch: a deadlock, which traps at
-    the ring's bound (found on the card in most runs of the four and eight
-    ranks of ``run_ranks_in_process`` before the steps were paced)."""
-    step = mp.step
-
-    def paced_step(carry, t=0.0, ctrl=None):
-        if t == 0:
-            sync()
-        return step(carry, t, ctrl)
-
-    paced_step.exchange = step.exchange
-    return mp._replace(step=paced_step)
-
-
 def ranks_program(size: dict, rank: int, dev, barrier, sync, ring=None,
-                  group=None, iters: int | None = None,
-                  pace: bool = False):
+                  group=None, iters: int | None = None):
     """One rank's program (the same on every rank): its problem
     (``sharded_mpc_problem(size, rank=rank)``: its shard, the target through
     the ranks' fused step), the gradient at zero controls, then the timed
     Adam solve, between two meetings of the ranks (``barrier``) after their
-    work was waited for (``sync``); with ``pace`` its step waits for
-    ``sync`` at each rollout's start (``paced``: ranks in one process).
-    Returns the problem and the results."""
+    work was waited for (``sync``). Ranks in one process: their rings meet
+    their hosts before each ring launch and the step paces each rollout
+    (the port's guard, ``StageRing.over_regions``). Returns the problem and
+    the results."""
     from blitzdg_tpu_torch.mpc import sharded_box as sbx
 
     iters = sbx.MPC_ITERS if iters is None else iters
     t0 = time.perf_counter()
     mp = sbx.sharded_mpc_problem(size, rank=rank, ring=ring, group=group,
                                  device=dev)
-    if pace:
-        mp = paced(mp, sync)
     cs0 = torch.zeros_like(mp.hidden, requires_grad=True)
     (g0,) = torch.autograd.grad(sbx.sharded_mpc_cost(mp, cs0), cs0)
     sync()
@@ -4781,10 +4769,10 @@ def ring_regions(S: int, nbytes: int, make, dev):
     return [make(r, bases) for r in range(S)], free
 
 
-def stage_ring_regions(plan, n_fp: int, dev):
+def stage_ring_regions(plan, n_fp: int, dev, meet=None):
     """S zeroed stage-ring regions of this process (batch 1) and each rank's
-    ring over them (``StageRing.over_regions``); with a function that frees
-    the regions."""
+    ring over them (``StageRing.over_regions``, with ``meet``); with a
+    function that frees the regions."""
     from blitzdg_tpu_torch.parallel import peer as PR
 
     lay = PR.stage_region_layout(1, PR._n_slots(plan, n_fp), len(plan.offs),
@@ -4792,20 +4780,20 @@ def stage_ring_regions(plan, n_fp: int, dev):
     return ring_regions(
         plan.n_shards, lay["bytes"],
         lambda r, bases: PR.StageRing.over_regions(plan, n_fp, 1, r, bases,
-                                                   dev), dev)
+                                                   dev, meet=meet), dev)
 
 
-def halo_ring_regions(plan, slot_bytes: int, dev):
+def halo_ring_regions(plan, slot_bytes: int, dev, meet=None):
     """S zeroed halo-ring regions of this process (slots of ``slot_bytes``)
-    and each rank's ring over them (``HaloRing.over_regions``); with a
-    function that frees the regions."""
+    and each rank's ring over them (``HaloRing.over_regions``, with
+    ``meet``); with a function that frees the regions."""
     from blitzdg_tpu_torch.parallel import peer as PR
 
     lay = PR.ring_region_layout(slot_bytes, len(plan.offs), plan.n_shards)
     return ring_regions(
         plan.n_shards, lay["bytes"],
         lambda r, bases: PR.HaloRing.over_regions(plan, slot_bytes, r, bases,
-                                                  dev), dev)
+                                                  dev, meet=meet), dev)
 
 
 def on_rank_threads(streams, fn, on_error=lambda: None) -> list:
@@ -4837,77 +4825,52 @@ def on_rank_threads(streams, fn, on_error=lambda: None) -> list:
     return out
 
 
-def meet_before_launches(ring, meet):
-    """Rank ``ring``'s launches of its kernels made on a rank's thread
-    (``on_rank_threads``) each first wait for ``meet``, a barrier of every
-    rank's thread, so that no ring kernel is on the card before every
-    rank's host has issued all its work up to its own launch of that
-    kernel. Without it a ring kernel spinning at its flags could wait for a
-    peer whose host is held before its launch by a call that waits for the
-    card's running kernels (a first launch that loads a module, a
-    ``cudaFree`` of the caching allocator): a deadlock, which traps at the
-    ring's bound (``halo_curved_ranks`` trapped on the card in a whole
-    run before the ranks met here and warmed up each alone). The
-    launches of autograd's device thread (the reverse exchanges and sums of
-    a backward) do not meet: that one thread runs every rank's backward."""
-    for name in ("_launch_exchange", "_reduce"):
-        def met(*args, _launch=getattr(ring, name), **kw):
-            if threading.current_thread().name.startswith(RANK_THREAD):
-                meet.wait()
-            return _launch(*args, **kw)
-
-        setattr(ring, name, met)
-
-
 def ranks_in_process(regions, counters: dict, dev, program, warm,
                      short=None):
     """The S ranks of a ring in this process, each on a thread and a stream
-    of its own, over rings on regions of this process (``regions()``: the
-    rings and a function that frees them): their kernels run at the same
-    time and meet only through their flags (and autograd runs each rank's
-    backward on its stream), their hosts before each launch of a ring
-    kernel (``meet_before_launches``). First ``warm(r, ring, sync,
-    barrier)`` for each rank r in turn, alone and on its stream, over a
-    ring whose flags read past any epoch (no wait holds it; its values are
-    not used), so that every kernel any rank launches is loaded, and each
-    stream's caching allocator holds its blocks, before the ranks meet.
-    Then ``program(r, ring, sync, barrier)`` on every rank, the
-    ``counters`` zeroed just before and read just after; then, where
-    ``short(r, ring)`` is given, the ranks' short window timed and profiled
+    of its own, over rings on regions of this process (``regions(meet)``:
+    the rings, made with ``meet``, and a function that frees them): their
+    kernels run at the same time and meet only through their flags (and
+    autograd runs each rank's backward on its stream), their hosts before
+    each launch of a ring kernel (the port's guard: each rank's thread
+    binds its ring, whose ``meet`` is a barrier of the S threads). First
+    ``warm(r, ring, sync, barrier)`` for each rank r in turn, alone and on
+    its stream, over rings of their own (``parallel.peer.warm_ranks``), so
+    that every kernel any rank launches is loaded, and each stream's
+    caching allocator holds its blocks, before the ranks meet. Then
+    ``program(r, ring, sync, barrier)`` on every rank, the ``counters``
+    zeroed just before and read just after; then, where ``short(r, ring)``
+    is given, the ranks' short window timed and profiled
     (``profile_union``). Returns each rank's results, the launches, the
     profile and the wall seconds."""
-    warm_rings, free_warm = regions()
+    from blitzdg_tpu_torch.parallel import peer as PR
+
+    warm_rings, free_warm = regions(None)
     S = len(warm_rings)
     streams = [torch.cuda.Stream(dev) for _ in range(S)]
     try:
-        for r in range(S):
-            warm_rings[r].flags[:] = 1 << 60
-            torch.cuda.synchronize()
-            with torch.cuda.stream(streams[r]):
-                warm(r, warm_rings[r], streams[r].synchronize, lambda: None)
-            torch.cuda.synchronize()
+        PR.warm_ranks(warm_rings, streams, lambda r, ring: warm(
+            r, ring, streams[r].synchronize, lambda: None))
     finally:
         free_warm()
-    rings, free = regions()
     meet, launch_meet = threading.Barrier(S), threading.Barrier(S)
-    for ring in rings:
-        meet_before_launches(ring, launch_meet)
+    rings, free = regions(launch_meet)
     abort = lambda: (meet.abort(), launch_meet.abort())
+    on_ranks = lambda fn: on_rank_threads(
+        streams, lambda r: (rings[r].bind(), fn(r))[1], on_error=abort)
     try:
         torch.cuda.synchronize()
         for f in counters.values():
             f.launches = 0
         w0 = time.perf_counter()
-        out = on_rank_threads(
-            streams, lambda r: program(r, rings[r], streams[r].synchronize,
-                                       meet.wait), on_error=abort)
+        out = on_ranks(lambda r: program(r, rings[r], streams[r].synchronize,
+                                         meet.wait))
         seconds = time.perf_counter() - w0
         launches = {k: f.launches for k, f in counters.items()}
         prof = None
         if short is not None:
             def run():
-                on_rank_threads(streams, lambda r: short(r, rings[r]),
-                                on_error=abort)
+                on_ranks(lambda r: short(r, rings[r]))
                 torch.cuda.synchronize()
 
             run()
@@ -4923,25 +4886,25 @@ def run_ranks_in_process(size: dict, plan, n_fp: int, dev,
                          iters: int | None = None, profile: bool = True):
     """The S ranks of the sharded MPC in this process over stage rings on
     regions of this process (``ranks_in_process``): each rank's program
-    alone first, then every rank's, paced (``paced``), then, with ``profile``,
-    the profiled short solves. Returns each rank's results, the counts, the
-    profile and the wall time of the whole."""
+    alone first, then every rank's (each rank's step paced by the port),
+    then, with ``profile``, the profiled short solves. Returns each rank's
+    results, the counts, the profile and the wall time of the whole."""
     from blitzdg_tpu_torch.mpc import sharded_box as sbx
 
     problems = [None] * plan.n_shards
 
     def program(r, ring, sync, barrier):
         problems[r], out = ranks_program(size, r, dev, barrier, sync,
-                                         ring=ring, iters=iters, pace=True)
+                                         ring=ring, iters=iters)
         return out
 
     warm = lambda r, ring, sync, barrier: ranks_program(
         size, r, dev, barrier, sync, ring=ring, iters=1)
     short = lambda r, ring: sbx.solve_sharded_mpc(problems[r],
                                                   iters=RANKS_PROFILE_ITERS)
-    return ranks_in_process(lambda: stage_ring_regions(plan, n_fp, dev),
-                            ranks_counters(), dev, program, warm,
-                            short if profile else None)
+    return ranks_in_process(
+        lambda meet: stage_ring_regions(plan, n_fp, dev, meet),
+        ranks_counters(), dev, program, warm, short if profile else None)
 
 
 def stage_ring_check(plan, n_fp: int, dev, rng, flush) -> dict:
@@ -5017,6 +4980,184 @@ def stage_ring_check(plan, n_fp: int, dev, rng, flush) -> dict:
     return recs
 
 
+# stages of the folded launches' check: two steps' (stage 1: dt/2, no
+# sponge; stage 2: dt, the sponge)
+STAGE_PEER_STAGES = 4
+
+
+def stage_peer_check(mp, dev, rng, flush) -> dict:
+    """The stage's and its adjoint's peer modes (the stage ring's exchange
+    and its reverse folded into B7's and B8's launches) on the card at the
+    main path's shapes (``mp``: the full-width stacked sharded MPC; one
+    shard a rank, B=1, its two controls), from a perturbed rest state: S
+    ranks in this process on S streams, launched from this thread (a folded
+    launch waits only for its peers' launches of the round before). B7's
+    peer mode over STAGE_PEER_STAGES epochs (the first stage with its
+    receive buffer given, as after a rollout's first exchange, then each
+    reading the ring's slots), then B8's over the same stages in reverse
+    (the last stage's send-buffer cotangent given, the first keeping its
+    receive buffer's), each rank's outputs bit-equal to B7 and B8 launched
+    on its shard with the stacked exchange and its reverse between them
+    (plain PyTorch gathers). Then each peer mode of rank 0 alone, its flags
+    set past any epoch (no wait holds it), CUDA events, L2 flushed, beside
+    its plain version (the stage's or its adjoint's plain version on rank
+    0's shard and the stacked gather over the ranks) and B7's or B8's
+    launch alone on the same inputs (``unfolded_kernel_ms``). Launches
+    counted here are not the main path's. Returns a record by kernel
+    name."""
+    from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+    from blitzdg_tpu_torch.parallel.blocked_shard import initial_send_buffer
+    from blitzdg_tpu_torch.parallel.halo import (RingExchange, _stacked,
+                                                 _stacked_source)
+
+    sb, meta, dt = mp.sb, mp.sb.meta, mp.dt
+    plan, S = sb.plan, sb.n_shards
+    L = sb.ops.send.shape[1]
+    f32 = torch.float32
+    g = lambda *shape, scale=1.0: scale * torch.as_tensor(
+        rng.standard_normal(shape), dtype=f32, device=dev)
+    state = (10.0 + g(S, 1, meta.n_v, scale=0.01), g(S, 1, meta.n_v,
+                                                       scale=0.01),
+             g(S, 1, meta.n_v, scale=0.01))
+    ctrl = g(meta.n_ctrl, scale=0.3)
+    ops = [rank_ops(sb.ops, r) for r in range(S)]
+    ex = RingExchange(plan, meta.n_fp, device=dev)
+    src = torch.as_tensor(_stacked_source(plan, plan.max_send * meta.n_fp, 1),
+                          device=dev)
+    rb0 = ex(initial_send_buffer(sb, state))
+    stages = [(0.5 * dt if k % 2 == 0 else dt, 0.5 * dt * k, k % 2 == 1)
+              for k in range(STAGE_PEER_STAGES)]
+    lam = [[tuple(g(1, 1, meta.n_v) for _ in range(3)) for _ in range(S)]
+           for _ in stages]
+    lsb_end = g(S, 1, L, 3)
+    row = lambda t, r: t[r:r + 1]
+
+    # the reference: B7 and B8 on each rank's shard, the stacked gathers
+    want_f, cur, rb = [], state, rb0
+    for c_dt, t, sponge in stages:
+        outs = [TB._run_stage(ops[r], meta, tuple(row(f, r) for f in state),
+                              tuple(row(f, r) for f in cur), row(rb, r),
+                              c_dt, t, ctrl, True, sponge) for r in range(S)]
+        want_f.append((outs, rb))
+        cur = tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+        rb = _stacked(torch.cat([o[3] for o in outs]), src)
+    want_b, lsb = [None] * len(stages), lsb_end
+    for k in reversed(range(len(stages))):
+        c_dt, t, sponge = stages[k]
+        ins = state if k == 0 else tuple(
+            torch.cat([o[i] for o in want_f[k - 1][0]]) for i in range(3))
+        want_b[k] = [TB._run_stage_bwd(ops[r], meta,
+                                       tuple(row(f, r) for f in ins),
+                                       row(want_f[k][1], r), lam[k][r],
+                                       row(lsb, r), c_dt, t, ctrl, True,
+                                       sponge) for r in range(S)]
+        lsb = TB._stacked_reverse(torch.cat([x[6] for x in want_b[k]]), ex)
+    torch.cuda.synchronize()
+
+    rings, free = stage_ring_regions(plan, meta.n_fp, dev)
+    try:
+        streams = [torch.cuda.Stream(dev) for _ in range(S)]
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream(dev))
+        fwd = [[None] * S for _ in stages]
+        for k, (c_dt, t, sponge) in enumerate(stages):
+            for r in range(S):
+                with torch.cuda.stream(streams[r]):
+                    fwd[k][r] = TB.sw2d_stage_blocked_peer(
+                        ops[r], meta, tuple(row(f, r) for f in state),
+                        tuple(row(f, r) for f in state) if k == 0
+                        else tuple(fwd[k - 1][r][:3]),
+                        row(rb0, r) if k == 0 else None, rings[r], c_dt, t,
+                        ctrl, True, sponge)
+        bwd = [[None] * S for _ in stages]
+        for k in reversed(range(len(stages))):
+            c_dt, t, sponge = stages[k]
+            for r in range(S):
+                ins = (tuple(row(f, r) for f in state) if k == 0
+                       else tuple(fwd[k - 1][r][:3]))
+                with torch.cuda.stream(streams[r]):
+                    bwd[k][r] = TB.sw2d_stage_bwd_blocked_peer(
+                        ops[r], meta, ins, fwd[k][r][4], lam[k][r],
+                        row(lsb_end, r) if k == len(stages) - 1 else None,
+                        rings[r], c_dt, t, ctrl, True, sponge, send=k > 0)
+        torch.cuda.synchronize()
+        errs = {"sw2d_stage_blocked_peer": [], "sw2d_stage_bwd_blocked_peer":
+                []}
+        same = {k: True for k in errs}
+        for k in range(len(stages)):
+            for r in range(S):
+                got, ref = fwd[k][r], (*want_f[k][0][r], row(want_f[k][1], r))
+                errs["sw2d_stage_blocked_peer"].append(max_abs(got, ref))
+                same["sw2d_stage_blocked_peer"] &= all(
+                    torch.equal(a, b) for a, b in zip(got, ref))
+                got = [x for x in bwd[k][r] if x is not None]
+                ref = [x for x in want_b[k][r] if x is not None]
+                errs["sw2d_stage_bwd_blocked_peer"].append(max_abs(got, ref))
+                same["sw2d_stage_bwd_blocked_peer"] &= len(got) == len(
+                    ref) and all(torch.equal(a, b) for a, b in zip(got, ref))
+
+        # rank 0 alone at stage 2's inputs (the sponge), its flags past any
+        # epoch; the plain versions on rank 0's shard and the stacked gather
+        c_dt, t, sponge = stages[1]
+        base0 = tuple(row(f, 0) for f in state)
+        cur0, rb1 = tuple(fwd[0][0][:3]), fwd[1][0][4]
+        sbs = torch.cat([fwd[1][r][3] for r in range(S)])
+        orbs = torch.cat([bwd[1][r][6] for r in range(S)])
+        rings[0].flags[:] = 1 << 60
+        torch.cuda.synchronize()
+        n_wall = int(ops[0].wall.sum())
+        alone = {
+            "sw2d_stage_blocked_peer": lambda: TB.sw2d_stage_blocked_peer(
+                ops[0], meta, base0, cur0, None, rings[0], c_dt, t, ctrl,
+                True, sponge),
+            "sw2d_stage_bwd_blocked_peer":
+                lambda: TB.sw2d_stage_bwd_blocked_peer(
+                    ops[0], meta, cur0, rb1, lam[1][0], None, rings[0], c_dt,
+                    t, ctrl, True, sponge)}
+        plain = {
+            "sw2d_stage_blocked_peer": lambda: (TB.sw2d_stage_blocked_plain(
+                ops[0], meta, base0, cur0, rb1, c_dt, t, ctrl, True, sponge),
+                _stacked(sbs, src)),
+            "sw2d_stage_bwd_blocked_peer": lambda: (
+                TB.sw2d_stage_bwd_blocked_v2_plain(
+                    ops[0], meta, cur0, rb1, lam[1][0], row(lsb_end, 0),
+                    c_dt, t, ctrl, True, sponge),
+                TB._stacked_reverse(orbs, ex))}
+        # bytes: each input read once, each output written once (the
+        # exchange's chunks to the peers and the slots' copy for autograd
+        # among them); operations: one RHS, or one RHS adjoint, a node
+        B, nV = 1, meta.n_v
+        bounds = {
+            "sw2d_stage_blocked_peer": bound(
+                4.0 * (9 * B * nV + 4 * 3 * B * L + meta.n_ctrl),
+                B * rhs_flops(meta, n_wall)),
+            "sw2d_stage_bwd_blocked_peer": bound(
+                4.0 * (12 * B * nV + 12 * B * L + B * meta.n_ctrl),
+                B * vjp_flops(meta, n_wall))}
+        # B7 and B8 launched alone on the same inputs (the exchange apart)
+        unfolded = {
+            "sw2d_stage_blocked_peer": lambda: TB._run_stage(
+                ops[0], meta, base0, cur0, rb1, c_dt, t, ctrl, True, sponge),
+            "sw2d_stage_bwd_blocked_peer": lambda: TB._run_stage_bwd(
+                ops[0], meta, cur0, rb1, lam[1][0], row(lsb_end, 0), c_dt, t,
+                ctrl, True, sponge)}
+        recs = {}
+        for name in alone:
+            recs[name] = {
+                "max_abs_err": max(errs[name]), "bit_equal": same[name],
+                "ms": time_ms(alone[name], RANKS_TIMED_REPS, flush),
+                "unfolded_kernel_ms": time_ms(unfolded[name],
+                                              RANKS_TIMED_REPS, flush),
+                "plain_ms": time_ms(plain[name], RANKS_TIMED_REPS, flush),
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "epochs": len(stages),
+                "plan": TB.shard_plan(ops[0], meta, 1, peer=True,
+                                      adjoint="bwd" in name)}
+    finally:
+        free()
+    return recs
+
+
 def ranks_phases(dev, card: str, rng, flush) -> list:
     """The sharded MPC one shard a rank on the one card, over the stage
     ring: its kernels against their plain versions; 4 ranks in this process
@@ -5052,6 +5193,13 @@ def ranks_phases(dev, card: str, rng, flush) -> list:
     if not ok:
         raise RuntimeError(f"the stage ring's kernels disagree with their "
                            f"plain versions: {checks}")
+    folded = stage_peer_check(full, dev, rng, flush)
+    ok = all(c["bit_equal"] for c in folded.values())
+    say({"phase": "stage_peer_kernels", "card": card, "n_shards": 4,
+         "records": folded, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"the folded stage launches disagree with B7 and "
+                           f"B8 and the exchange between them: {folded}")
 
     def judge(phase, name, res, launches, expect, extra):
         ref = refs[name]
@@ -5144,13 +5292,24 @@ def ranks_phases(dev, card: str, rng, flush) -> list:
         "peer_stage_exchange": "blitzdg_tpu/parallel/blocked_shard.py:647",
         "peer_stage_exchange_reverse":
             "blitzdg_tpu/parallel/blocked_shard.py:647",
-        "peer_rank_sum": "examples/mpc_sharded.py:123"}
-    return [{"name": name, "route": "cuda", "source": src,
+        "peer_rank_sum": "examples/mpc_sharded.py:123",
+        "sw2d_stage_blocked_peer": "blitzdg_tpu/ops/sw2d_blocked.py:962",
+        "sw2d_stage_bwd_blocked_peer": "blitzdg_tpu/ops/sw2d_blocked.py:1710"}
+    notes = {"peer_stage_exchange_reverse":
+             "folded into the adjoint's peer mode on this path: "
+             "launched for a send buffer that needs its cotangent only; "
+             "held against its plain version in stage_ring_kernels"}
+    sources = {"sw2d_stage_blocked_peer":
+               "blitzdg_tpu_torch/ops/csrc/sw2d_blocked.cu",
+               "sw2d_stage_bwd_blocked_peer":
+               "blitzdg_tpu_torch/ops/csrc/sw2d_blocked.cu"}
+    return [{"name": name, "route": "cuda", "source": sources.get(name, src),
              "replaces": replaces[name], "launches": totals[name],
              "max_abs_err": c["max_abs_err"], "ms": c["ms"],
              "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-             "bound_by": c["bound_by"], "library_ms": None}
-            for name, c in checks.items()]
+             "bound_by": c["bound_by"], "library_ms": None,
+             **({"note": notes[name]} if name in notes else {})}
+            for name, c in {**checks, **folded}.items()]
 
 
 # ---------------------------------------------------------------------------
@@ -5287,8 +5446,9 @@ def halo_rhs_program(ctx, plan, blocks, moving, rest, hd, steps: int,
 def halo_in_process(plan, slot_bytes: int, dev, program, warm, short=None):
     """``ranks_in_process`` over halo rings of ``slot_bytes`` for ``plan``,
     with the halo ring's counters."""
-    return ranks_in_process(lambda: halo_ring_regions(plan, slot_bytes, dev),
-                            halo_ring_counters(), dev, program, warm, short)
+    return ranks_in_process(
+        lambda meet: halo_ring_regions(plan, slot_bytes, dev, meet),
+        halo_ring_counters(), dev, program, warm, short)
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -6034,6 +6194,14 @@ PEER_EXCHANGE_KERNELS = ["_Z25peer_ring_exchange_kernel"]
 # The stage ring's exchange (both directions) and its sum over ranks.
 STAGE_RING_KERNELS = ["_Z26peer_stage_exchange_kernel",
                       "_Z23peer_rank_reduce_kernelIfLi0EE"]
+# The stage's and its adjoint's peer modes (the exchange and its reverse
+# folded in) in every instantiation of their stacked kernels.
+STAGE_PEER_KERNELS = [
+    "_Z22sw2d_stage_peer_kernel" + z
+    for z in Q_SIZES + (Q_SIZES_N6, Q_SIZES_QUAD_N4)] + [
+    "_Z26sw2d_stage_bwd_peer_kernel" + z
+    for z in Q_SIZES + Q_SIZES_WIDE_N3 + ("I6QSizesILi3ELi2ELi2ELi8ELi3EEE",
+                                          Q_SIZES_QUAD_N4)]
 # The halo ring's: the same exchange kernel, the maximum in float and
 # double, the sum in double.
 HALO_RING_KERNELS = ["_Z26peer_stage_exchange_kernel",
@@ -6160,6 +6328,7 @@ def main() -> int:
         check_no_spills(peer, PEER_EXCHANGE_KERNELS)
     if args.only in (None, "ranks"):
         check_no_spills(blocked, SHARDED_KERNELS)
+        check_no_spills(blocked, STAGE_PEER_KERNELS)
         check_no_spills(peer, STAGE_RING_KERNELS)
     if args.only in (None, "quads"):
         check_no_spills(blocked, QUAD_KERNELS)

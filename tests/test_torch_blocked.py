@@ -360,7 +360,9 @@ def test_chunking_and_operator_set_extend_the_dense_one():
     assert kinds == {"Q_STAGE": TB._STAGE, "Q_STEP": TB._RDMA,
                      "Q_STAGE_BWD": TB._STAGE_BWD,
                      "Q_ROLLOUT_BWD": TB._ROLLOUT_BWD,
-                     "Q_ROLLOUT": TB._ROLLOUT, "Q_STEP_PEER": TB._RDMA_PEER}
+                     "Q_ROLLOUT": TB._ROLLOUT, "Q_STEP_PEER": TB._RDMA_PEER,
+                     "Q_STAGE_PEER": TB._STAGE_PEER,
+                     "Q_STAGE_BWD_PEER": TB._STAGE_BWD_PEER}
 
 
 def test_wrappers_raise_on_wrong_inputs():

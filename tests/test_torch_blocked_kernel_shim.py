@@ -369,6 +369,12 @@ def _shim_flags(src: str) -> str:
 
 @pytest.fixture(scope="module")
 def shim_lib(tmp_path_factory):
+    return build_shim_lib(tmp_path_factory)
+
+
+def build_shim_lib(tmp_path_factory):
+    """``sw2d_blocked.cu`` and ``peer.cu`` compiled with g++ behind the
+    shim header into one library, loaded."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed: the kernel source cannot be "

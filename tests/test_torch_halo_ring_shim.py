@@ -4,7 +4,8 @@ exchange, its reverse, the sum and the maximum over ranks) compiled for the
 CPU with ``g++`` behind the shim of ``test_torch_blocked_kernel_shim.py``,
 as ``test_torch_peer_stage_shim.py`` builds it: S ranks as S host threads
 over each other's host memory (``HaloRing.over_regions``), their launches
-running at once and meeting only through their flags.
+running at once and meeting only through their flags (their threads meet
+before each launch: ``meet=``, which ranks on threads of their own need).
 
  - the exchange and its reverse bit-equal to the stacked roll of each
    offset's rows over the shard axis, over several epochs, at S=2, S=3
@@ -28,6 +29,7 @@ running at once and meeting only through their flags.
    of each kernel counted.
 """
 import dataclasses
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,15 +56,18 @@ F32, F64, BF16 = torch.float32, torch.float64, torch.bfloat16
 S4 = 4  # ranks of the path's cases
 
 
-def _rings(plan, slot_bytes, timeout_s=30.0):
+def _rings(plan, slot_bytes, timeout_s=30.0, meet=True):
     """The S ranks' halo rings over zeroed host regions of this process
-    (the regions returned too: the caller keeps them alive)."""
+    (the regions returned too: the caller keeps them alive); with ``meet``
+    their threads meet before each ring launch (a barrier of S, for ranks
+    on threads of their own; without, one thread launches)."""
     S = plan.n_shards
     lay = PR.ring_region_layout(slot_bytes, len(plan.offs), S)
     regions = [torch.zeros(lay["bytes"], dtype=torch.uint8) for _ in range(S)]
     bases = {r: g.data_ptr() for r, g in enumerate(regions)}
+    barrier = threading.Barrier(S) if meet else None
     rings = [PR.HaloRing.over_regions(plan, slot_bytes, r, bases, "cpu",
-                                      timeout_s) for r in range(S)]
+                                      timeout_s, barrier) for r in range(S)]
     return rings, regions
 
 
@@ -197,10 +202,11 @@ def test_a_buffer_over_capacity_raises(lib):
 def test_a_lost_peer_traps(lib, what):
     """S=2 with rank 1 absent: rank 0's launch waits for rank 1's part,
     which never comes; past the ring's bound (0.3 s) it traps, which fails
-    the launch: an error, not a hang."""
+    the launch: an error, not a hang. (Rank 0's thread alone launches: no
+    meeting.)"""
     plan = _plan(2, (1,))
     rings, _ = _rings(plan, PR.halo_slot_bytes(plan, 3, 1, F64),
-                      timeout_s=0.3)
+                      timeout_s=0.3, meet=False)
     x = torch.ones((1, 1, plan.max_send, 3), dtype=F64)
     call = {"exchange": PR.peer_halo_exchange,
             "reverse": PR.peer_halo_exchange_reverse,

@@ -18,16 +18,21 @@ the ranks' launches run at once and meet only through their flags.
  - a rank that sleeps before its calls gives the same bits; a rank that
    never launches makes its peers' launches trap after the ring's bound,
    an error and not a hang;
+ - the ranks' threads meet before each ring launch (``meet=`` of
+   ``over_regions``, which ranks on threads of their own need);
  - the receive buffer is memory torch owns: after a second exchange into
    the same slots the first receive buffer keeps its values, and autograd
    pairs the exchange with its reverse;
  - the whole rank-local sharded MPC (``sharded_mpc_problem(rank=,
-   ring=)``, the stages through their plain versions on CPU tensors, the
-   exchanges and sums through the shim's kernels), ranks as threads, in
-   float32: the cost and the control gradient against the stacked
-   problem's, the controls bit-equal on every rank after two Adam
-   iterations, and the launch counts of each kernel.
+   ring=)``: the stages the stage's and its adjoint's peer modes, the
+   exchange folded in, a rollout's first exchange and the sums the ring's
+   kernels, all on the shim of ``sw2d_blocked.cu`` with ``peer.cu``),
+   ranks as threads, in float32: the cost and the control gradient against
+   the stacked problem's through the same stage kernels, the controls
+   bit-equal on every rank after two Adam iterations, and the launch
+   counts of each kernel.
 """
+import ctypes
 import shutil
 import subprocess
 import threading
@@ -37,10 +42,13 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_blocked_kernel_shim import CUDA_ATOMIC, SHIM, _shim_flags
+from test_torch_blocked_kernel_shim import (CUDA_ATOMIC, SHIM, _shim_flags,
+                                            build_shim_lib)
 
 from blitzdg_tpu_torch.mpc import sharded_box as sbx
 from blitzdg_tpu_torch.ops import _build
+from blitzdg_tpu_torch.ops import sw2d_blocked as TB
+from blitzdg_tpu_torch.parallel import blocked_shard as BS
 from blitzdg_tpu_torch.parallel import peer as PR
 from blitzdg_tpu_torch.parallel.halo import (HaloPlan, RingExchange,
                                              _stacked, _stacked_source)
@@ -51,8 +59,6 @@ SHIM_THREADS = 32  # a block's threads on the shim (one warp)
 
 @pytest.fixture(scope="module")
 def shim_lib(tmp_path_factory):
-    import ctypes
-
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed: the kernel source cannot be "
@@ -91,15 +97,18 @@ def _plan(S: int, offs: tuple, max_send: int = 3) -> HaloPlan:
                     max_send=max_send)
 
 
-def _rings(plan, n_fp, batch, timeout_s=30.0):
-    """The S ranks' rings over zeroed host regions of this process."""
+def _rings(plan, n_fp, batch, timeout_s=30.0, meet=True):
+    """The S ranks' rings over zeroed host regions of this process; with
+    ``meet`` their threads meet before each ring launch (a barrier of S,
+    for ranks on threads of their own; without, one thread launches)."""
     S = plan.n_shards
     lay = PR.stage_region_layout(batch, PR._n_slots(plan, n_fp),
                                  len(plan.offs), S)
     regions = [torch.zeros(lay["bytes"], dtype=torch.uint8) for _ in range(S)]
     bases = {r: g.data_ptr() for r, g in enumerate(regions)}
+    barrier = threading.Barrier(S) if meet else None
     rings = [PR.StageRing.over_regions(plan, n_fp, batch, r, bases, "cpu",
-                                       timeout_s) for r in range(S)]
+                                       timeout_s, barrier) for r in range(S)]
     return rings, regions
 
 
@@ -239,8 +248,8 @@ def test_a_lost_peer_traps(lib, what):
     """S=2 with rank 1 absent: rank 0's launch stores its part and waits
     for rank 1's, which never comes; past the ring's bound (0.3 s) it traps,
     which fails the launch: an error, not a hang (the test's own bound:
-    60 s)."""
-    rings, _ = _rings(_plan(2, (1,)), N_FP, 1, timeout_s=0.3)
+    60 s). (Rank 0's thread alone launches: no meeting.)"""
+    rings, _ = _rings(_plan(2, (1,)), N_FP, 1, timeout_s=0.3, meet=False)
     x = torch.ones((1, 1, rings[0].n_slots, 3))
     call = {"exchange": PR.peer_stage_exchange,
             "reverse": PR.peer_stage_exchange_reverse,
@@ -310,21 +319,72 @@ MPC_SIZE = dict(sbx.EXAMPLE, n_shards=4)
 MPC_STEPS, MPC_ITERS = 4, 2
 
 
-def test_rank_local_mpc_over_the_ring_kernels(lib):
+@pytest.fixture(scope="module")
+def blocked_lib(tmp_path_factory):
+    return build_shim_lib(tmp_path_factory)
+
+
+@pytest.fixture
+def blocked(blocked_lib, monkeypatch):
+    """The stage kernels' source with the ring's on the shim (two SMs of
+    one block), the ring kernels' block one warp."""
+    monkeypatch.setattr(_build, "load", lambda name: blocked_lib)
+    monkeypatch.setattr(TB, "_plans", {})
+    monkeypatch.setattr(PR, "THREADS", SHIM_THREADS)
+    ctypes.c_int.in_dll(blocked_lib, "shim_sms").value = 2
+    ctypes.c_int.in_dll(blocked_lib, "shim_per_sm").value = 1
+    return blocked_lib
+
+
+def kernel_stages(monkeypatch, counts):
+    """B7 and B8 launched on the shim for CPU tensors where a step calls
+    them without a ring (the stacked steps' stages), counted in
+    ``counts``."""
+    stage, stage_bwd = BS.sw2d_stage_blocked, BS.sw2d_stage_bwd_blocked_v2
+
+    def fwd(ops, meta, base, cur, rb, c_dt, t=0.0, ctrl=None,
+            use_filter=True, apply_sponge=False, ring=None):
+        if ring is not None:
+            return stage(ops, meta, base, cur, rb, c_dt, t, ctrl,
+                         use_filter, apply_sponge, ring=ring)
+        counts["B7"] += 1
+        return TB._run_stage(ops, meta, base, cur, rb, c_dt, t, ctrl,
+                             use_filter, apply_sponge)
+
+    def bwd(ops, meta, cur, rb, lam, lsb, c_dt, t=0.0, ctrl=None,
+            use_filter=True, apply_sponge=False, ring=None, send=True):
+        if ring is not None:
+            return stage_bwd(ops, meta, cur, rb, lam, lsb, c_dt, t, ctrl,
+                             use_filter, apply_sponge, ring=ring, send=send)
+        counts["B8"] += 1
+        return TB._run_stage_bwd(ops, meta, cur, rb, lam, lsb, c_dt, t,
+                                 ctrl, use_filter, apply_sponge)
+
+    monkeypatch.setattr(BS, "sw2d_stage_blocked", fwd)
+    monkeypatch.setattr(BS, "sw2d_stage_bwd_blocked_v2", bwd)
+
+
+def test_rank_local_mpc_over_the_ring_kernels(blocked, monkeypatch):
     """Four ranks as threads, each ``sharded_mpc_problem(MPC_SIZE,
-    rank=r, ring=its StageRing)`` on the CPU in float32 (the stages'
-    plain versions, the exchanges and sums through the shim's kernels):
-    each rank's target is its shard of the stacked target, bit for bit;
+    rank=r, ring=its StageRing)`` on the CPU in float32 (every stage a
+    launch of the stage's or its adjoint's peer mode, a rollout's first
+    exchange and the sums the ring's kernels, on the shim): each rank's
+    target is its shard of the stacked target through the same stage
+    kernels (B7 on the stacked set, the stacked exchange), bit for bit;
     the cost and control gradient at the hidden controls' half match the
     stacked problem's (float32: 1e-5 relative); after two Adam iterations
     every rank's controls and cost history have the same bits, and they
-    match the stacked solve's to 1e-5; each rank launched its exchanges,
-    reverse exchanges and sums as the program has them."""
+    match the stacked solve's to 1e-5; each rank launched its folded
+    stages, exchanges, reverse exchanges and sums as the program has
+    them."""
     S = MPC_SIZE["n_shards"]
+    counts = {"B7": 0, "B8": 0}
+    kernel_stages(monkeypatch, counts)
     ref = sbx.sharded_mpc_problem(MPC_SIZE, MPC_STEPS, device="cpu")
     rings, _ = _rings(ref.sb.plan, ref.sb.meta.n_fp, 1, timeout_s=60.0)
     c_half = 0.5 * ref.hidden
-    counters = (PR.peer_stage_exchange, PR.peer_stage_exchange_reverse,
+    counters = (TB.sw2d_stage_blocked_peer, TB.sw2d_stage_bwd_blocked_peer,
+                PR.peer_stage_exchange, PR.peer_stage_exchange_reverse,
                 PR.peer_rank_sum)
     n0 = [f.launches for f in counters]
 
@@ -339,6 +399,7 @@ def test_rank_local_mpc_over_the_ring_kernels(lib):
 
     out, errors = _on_threads(S, rank, join_s=300.0)
     assert errors == [None] * S
+    got = [f.launches - n for f, n in zip(counters, n0)]
     c = c_half.clone().requires_grad_(True)
     cost = sbx.sharded_mpc_cost(ref, c)
     (grad,) = torch.autograd.grad(cost, c)
@@ -359,12 +420,13 @@ def test_rank_local_mpc_over_the_ring_kernels(lib):
                                    rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(sr.cost_history.numpy(),
                                    sol.cost_history.numpy(), rtol=1e-5)
-    # a rank: the target rollout (2 exchanges a step); per cost evaluation
-    # 2 exchanges a step, its gradient 2 reverse a step but the first
-    # stage's (its send buffer is the constant start's), two sums; the
-    # final cost: 2 exchanges a step, one sum
+    # a rank: rollouts of the target, of each cost evaluation (its
+    # gradient's too) and of the final cost, each 2 folded stages a step
+    # and one exchange (of the constant start's send buffer, whose
+    # cotangent is not needed: no reverse); per evaluation two sums, the
+    # final cost one
     evals = 1 + MPC_ITERS
-    want = [S * (2 * MPC_STEPS * (1 + evals + 1)),
-            S * (2 * MPC_STEPS - 1) * evals,
-            S * (2 * evals + 1)]
-    assert [f.launches - n for f, n in zip(counters, n0)] == want
+    rollouts = 1 + evals + 1
+    assert got == [S * 2 * MPC_STEPS * rollouts, S * 2 * MPC_STEPS * evals,
+                   S * rollouts, 0, S * (2 * evals + 1)]
+    assert counts["B7"] and counts["B8"]
