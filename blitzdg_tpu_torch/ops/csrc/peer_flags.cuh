@@ -134,6 +134,15 @@ __device__ __forceinline__ void flag_release(flag_t* f, flag_t v) {
       v, cuda::std::memory_order_release);
 }
 
+// A relaxed store at system scope: after a fence of the same thread at
+// system scope, a release pattern (PTX memory model), so that a launch
+// that sets several flags pays one system fence and not one a flag (the
+// folded launches' end, sw2d_blocked.cu's sr_fold_end).
+__device__ __forceinline__ void flag_store(flag_t* f, flag_t v) {
+  cuda::atomic_ref<flag_t, cuda::thread_scope_system>(*f).store(
+      v, cuda::std::memory_order_relaxed);
+}
+
 // Waits until *f >= v (acquire); traps after timeout_ns.
 static __device__ __noinline__ void flag_wait(flag_t* f, flag_t v,
                                               long long timeout_ns) {

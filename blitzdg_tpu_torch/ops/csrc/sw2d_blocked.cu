@@ -205,6 +205,7 @@ struct StageArgs {
   const long long* peer;
   float* rbo;
   flag_t e_in, e_out;
+  flag_t e_skip;  // (0: none) the forward epochs this rank will not read
 };
 
 struct RdmaArgs {
@@ -764,42 +765,59 @@ __device__ __forceinline__ float* sr_peer_slot(const long long* ranks,
 }
 
 // The end of a folded launch (the stage's peer mode, or its adjoint's,
-// `rev`): every block's stores visible at system scope (a block barrier,
-// one system fence a block, the block's arrival on the rank's count), then
-// the last block to arrive resets the count and releases, a ring offset i
-// each, the GO flag of the epoch it read (e_in, not 0: the slot set read
-// is free) at the rank that sent it, and the arrival of the epoch it sent
-// (e_out, not 0) at the rank that receives it. The order of rdma_step's
-// step 5 (a grid barrier without its wait).
+// `rev`): a block barrier, then the block's arrival on the rank's count
+// after a fence at gpu scope (a release pattern: the block's reads of its
+// slots and stores into the peers' are ordered before it); the last block
+// to arrive then makes the launch's one fence at system scope (every
+// block's arrival read, so all their memory operations are ordered before
+// what follows), resets the count and stores, a ring offset i each, the
+// GO flag of the epoch it read (e_in, not 0: the slot set read is free)
+// at the rank that sent it, and the arrival of the epoch it sent (e_out,
+// not 0) at the rank that receives it, as relaxed stores at system scope
+// (flag_store): with the fence before them, release patterns that the
+// peers' acquire loads synchronize with, through the causality order,
+// which is transitive across the two scopes (PTX memory model). A system
+// fence in every block and a release (a fence each) a flag in series cost
+// 0.013 ms of the launch on the H100, this order 0.003-0.004 (PERF.md;
+// acquire-release fences in place of these two measured the same).
 __device__ __forceinline__ void sr_fold_end(const long long* tab, int rev,
                                             flag_t e_in, flag_t e_out) {
   __syncthreads();
   if (threadIdx.x != 0) return;
-  __threadfence_system();
+  __threadfence();
   unsigned* count = sr_count(tab, rev);
   if (atomicAdd(count, 1u) != gridDim.x - 1) return;
-  __threadfence();
+  __threadfence_system();
   *count = 0;
   const int go = rev ? SR_RGO : SR_FGO, in = rev ? SR_RIN : SR_FIN;
   for (int i = 0; i < (int)tab[SR_NOFF]; ++i) {
     const long long sender = rev ? sr_to(tab, i) : sr_from(tab, i);
     const long long receiver = rev ? sr_from(tab, i) : sr_to(tab, i);
-    if (e_in != 0) flag_release(sr_flag(tab, sender, i, go), e_in + 1);
-    if (e_out != 0) flag_release(sr_flag(tab, receiver, i, in), e_out);
+    if (e_in != 0) flag_store(sr_flag(tab, sender, i, go), e_in + 1);
+    if (e_out != 0) flag_store(sr_flag(tab, receiver, i, in), e_out);
   }
 }
 
-// The start of a folded launch: thread k < n_off waits for the arrival of
-// chunk k of epoch e_in (not 0) in this rank's slots, thread n_off + k for
-// the GO of chunk k of epoch e_out (not 0: the receiving rank's slot set
-// of e_out's parity is free, its epoch e_out - 2 read), each a flag in
-// this rank's memory: a block's 2 n_off acquire loads in one round, not a
-// chain; the block barrier after the operators' copy passes on what they
-// acquired.
+// The start of a folded launch: with e_skip (not 0), thread k of block 0
+// first releases GO = e_skip + 1 at the rank that sends chunk k here:
+// every epoch up to e_skip that this rank has not read, no launch will
+// (the host knows: parallel/peer.py, StageRing._fold), so its slots are
+// free; a sender's wait for the read of such an epoch would never end.
+// Then thread k < n_off waits for the arrival of chunk k of epoch e_in
+// (not 0) in this rank's slots, thread n_off + k for the GO of chunk k of
+// epoch e_out (not 0: the receiving rank's slot set of e_out's parity is
+// free, its epoch e_out - 2 read or skipped), each a flag in this rank's
+// memory: a block's 2 n_off acquire loads in one round, not a chain; the
+// block barrier after the operators' copy passes on what they acquired.
 __device__ __forceinline__ void sr_fold_start(const long long* tab, int rev,
-                                              flag_t e_in, flag_t e_out) {
+                                              flag_t e_in, flag_t e_out,
+                                              flag_t e_skip) {
   const int n_off = (int)tab[SR_NOFF];
   const int go = rev ? SR_RGO : SR_FGO, in = rev ? SR_RIN : SR_FIN;
+  if (e_skip != 0 && blockIdx.x == 0)
+    for (int k = threadIdx.x; k < n_off; k += blockDim.x)
+      flag_release(sr_flag(tab, rev ? sr_to(tab, k) : sr_from(tab, k), k, go),
+                   e_skip + 1);
   for (int k = threadIdx.x; k < 2 * n_off; k += blockDim.x) {
     const bool arrival = k < n_off;
     const flag_t e = arrival ? e_in : e_out - 1;
@@ -814,7 +832,9 @@ __device__ __forceinline__ void sr_fold_start(const long long* tab, int rev,
 // launch) and, with PEER, one shard a rank (S = 1) over the stage ring
 // (a.peer: its table, peer_flags.cuh), the ring's exchange between the RK
 // stages folded into the launch. For the launch of epoch e_out:
-//   1. thread k waits for FIN >= e_in of offset k (the peers' launches
+//   1. (with e_skip, block 0 first releases FGO past the forward epochs
+//      that no launch here will read: sr_fold_start) thread k waits for
+//      FIN >= e_in of offset k (the peers' launches
 //      that sent this rank's receive buffer have ended; e_in = 0: the
 //      buffer is given in rb, a rollout's first stage after the standalone
 //      exchange of peer.cu) and thread n_off + k for FGO >= e_out - 1 of
@@ -838,14 +858,14 @@ __device__ __forceinline__ void sr_fold_start(const long long* tab, int rev,
 // two sets by the epoch's parity. So no launch needs its peers' launches
 // of the same round resident beside it, and a rank may run a launch ahead
 // of a slow peer. The memory order of the stores into the peers' slots
-// before FIN, and of the reads of this rank's slots before FGO, is
-// rdma_step's (below): one system fence a block after a block barrier,
-// the count's atomics, the last block's fence.
+// before FIN, and of the reads of this rank's slots before FGO:
+// sr_fold_end's (a fence at gpu scope a block before its arrival on the
+// count, one system fence in the last block, the flags relaxed stores).
 template <class Z, bool PEER>
 __device__ __forceinline__ void stage_launch(const SwDesc& d,
                                              const StageArgs& a) {
   const Ops g = make_ops(d, a.fops, a.iops);
-  if (PEER) sr_fold_start(a.peer, 0, a.e_in, a.e_out);
+  if (PEER) sr_fold_start(a.peer, 0, a.e_in, a.e_out, a.e_skip);
   q_setup_ops(g, smem);
   __syncthreads();
   const size_t ls = (size_t)d.n_send * 3;  // floats of one slot list
@@ -1395,6 +1415,12 @@ struct WFields {
 // plus those of the send slots that read the node (the transposed send
 // gather), times the sponge factor where the stage relaxes (h only where
 // there is bathymetry).
+// TWO (the stage adjoint's peer mode): the send buffer's cotangent in two
+// parts, lsb (the ring's reverse slots) and lsb2 (autograd's, where a cost
+// also takes the send buffer; null: none), added slot by slot before the
+// inverse send list sums them, as the stacked steps' autograd adds the
+// two before B8 reads them.
+template <bool TWO>
 struct StageLam {
   const float *lh, *lhu, *lhv;  // the shard's and scenario's rows
   const float* lsb;             // (n_send, 3) cotangent of the send buffer
@@ -1402,13 +1428,21 @@ struct StageLam {
   const float* spng;            // the shard's sponge row, or null
   bool bathy;
   float c_dt;
+  const float* lsb2;            // (n_send, 3) with TWO: its second part
   __device__ __forceinline__ F3 operator()(int v) const {
     F3 r;
     r.a = __ldg(lh + v); r.b = __ldg(lhu + v); r.c = __ldg(lhv + v);
     const int q1 = __ldg(ptr + v + 1);
     for (int q = __ldg(ptr + v); q < q1; ++q) {
-      const float* p = lsb + 3 * __ldg(idx + q);
-      r.a += __ldg(p); r.b += __ldg(p + 1); r.c += __ldg(p + 2);
+      const int j = 3 * __ldg(idx + q);
+      float a = __ldg(lsb + j), b = __ldg(lsb + j + 1);
+      float c = __ldg(lsb + j + 2);
+      if (TWO && lsb2 != nullptr) {
+        a += __ldg(lsb2 + j);
+        b += __ldg(lsb2 + j + 1);
+        c += __ldg(lsb2 + j + 2);
+      }
+      r.a += a; r.b += b; r.c += c;
     }
     if (spng != nullptr) {
       const float fac = 1.0f / (1.0f + c_dt * __ldg(spng + v));
@@ -1782,6 +1816,8 @@ struct StageBwdArgs {
   // receive buffer came from (0: none)
   const long long* peer;
   flag_t e_in, e_out;
+  flag_t e_skip;      // (0: none) the reverse epochs this rank will not read
+  const float* lsb2;  // (1, B, n_send, 3) autograd's part of lsb, or null
 };
 
 // With out = sponge(base + c_dt R(cur)) and sb = gather(out):
@@ -1794,14 +1830,19 @@ struct StageBwdArgs {
 // The peer mode (PEER, S = 1), the mirror image of the stage's over the
 // stage ring's reverse slots, RGO and RIN; for the launch of reverse epoch
 // e_out:
-//   1. sr_fold_start: thread k waits for RIN >= e_in of offset k (the
+//   1. sr_fold_start: with e_skip, block 0 releases RGO = e_skip + 1 at
+//      the ranks that send here (reverse epochs that no backward here will
+//      read: a backward restricted by autograd to a part of the rollout
+//      left them); thread k waits for RIN >= e_in of offset k (the
 //      peers' adjoint launches of the stage that read this stage's send
 //      buffer have stored lam_sb here; e_in = 0: lam_sb is given, the
 //      stage whose send buffer carries the rollout's end) and thread
 //      n_off + k for RGO >= e_out - 1 (the sending rank's reverse slot set
 //      of e_out's parity is free);
 //   2. lam_sb is read from this rank's reverse slots of e_in's parity
-//      (their address passed as lsb by the launcher);
+//      (their address passed as lsb by the launcher), plus lsb2 where a
+//      cost also takes the send buffer (StageLam<true>: the sum forms in
+//      registers, the stacked steps' sum of the two parts);
 //   3. B8's items and qvjp (B8's bits); then, after a block barrier, each
 //      block copies the receive-buffer cotangent orb of its items' cut
 //      faces (each slot written by the lane of its one reading trace node,
@@ -1836,7 +1877,7 @@ template <class Z, bool PEER>
 __device__ __forceinline__ void stage_bwd_launch(const SwDesc& d,
                                                  const StageBwdArgs& a) {
   const Ops g = make_ops(d, a.fops, a.iops);
-  if (PEER) sr_fold_start(a.peer, 1, a.e_in, a.e_out);
+  if (PEER) sr_fold_start(a.peer, 1, a.e_in, a.e_out, a.e_skip);
   q_setup_adjoint_ops(g, smem, a.use_filter);
   __syncthreads();
   const size_t ls = (size_t)d.n_send * 3;  // floats of one slot list
@@ -1868,11 +1909,11 @@ __device__ __forceinline__ void stage_bwd_launch(const SwDesc& d,
     const QLane l = q_lane<Z>(first, n_items, a.B, d.K, a.fstride,
                               a.istride);
     const size_t off = (size_t)l.sc * g.nV;
-    const StageLam lam = {a.lh + off, a.lhu + off, a.lhv + off,
-                          a.lsb + l.sc * ls, g.send_ptr + l.io,
-                          g.send_idx + l.io,
-                          a.sponge ? g.SPNG + l.fo : nullptr,
-                          g.has_bathy != 0, a.c_dt};
+    const StageLam<PEER> lam = {
+        a.lh + off, a.lhu + off, a.lhv + off, a.lsb + l.sc * ls,
+        g.send_ptr + l.io, g.send_idx + l.io,
+        a.sponge ? g.SPNG + l.fo : nullptr, g.has_bathy != 0, a.c_dt,
+        a.lsb2 == nullptr ? nullptr : a.lsb2 + l.sc * ls};
 #pragma unroll
     for (int i = 0; i < ns; ++i) {  // the base cotangent
       const int n = l.p + Z::P * i, v = l.e * Np + n;
@@ -2555,9 +2596,10 @@ int sw2d_stage_bwd(const SwDesc* d, const float* fops, const int* iops,
 // over the ranks of a stage ring (parallel/peer.py, StageRing; its table
 // tab, peer_flags.cuh), the ring's exchange folded into the launch (see
 // sw2d_stage_peer_kernel): its receive buffer rb, with e_in (not 0) its
-// forward slots of epoch e_in's parity, copied into rbo,
-// its send buffer sb stored into the receiving ranks' slots as epoch
-// e_out. plan: sw2d_shard_plan's for (1, B, 6).
+// forward slots of epoch e_in's parity, copied into rbo, its send buffer
+// sb stored into the receiving ranks' slots as epoch e_out; with e_skip
+// (not 0) FGO released past it first (sr_fold_start). plan:
+// sw2d_shard_plan's for (1, B, 6).
 int sw2d_stage_peer(const SwDesc* d, const float* fops, const int* iops,
                     long long fstride, long long istride, int B,
                     const float* bh, const float* bhu, const float* bhv,
@@ -2565,36 +2607,40 @@ int sw2d_stage_peer(const SwDesc* d, const float* fops, const int* iops,
                     const float* rb, const float* ctrl, float* oh,
                     float* ohu, float* ohv, float* sb, float* rbo,
                     const long long* tab, unsigned long long e_in,
-                    unsigned long long e_out, float c_dt, float t,
-                    int use_filter, int sponge, const int* plan,
-                    void* stream) {
+                    unsigned long long e_out, unsigned long long e_skip,
+                    float c_dt, float t, int use_filter, int sponge,
+                    const int* plan, void* stream) {
   StageArgs a = {fops, iops, fstride, istride, 1, B, use_filter, sponge,
                  bh, bhu, bhv, ch, chu, chv, rb, ctrl, oh, ohu, ohv, sb,
-                 c_dt, t, tab, rbo, (flag_t)e_in, (flag_t)e_out};
+                 c_dt, t, tab, rbo, (flag_t)e_in, (flag_t)e_out,
+                 (flag_t)e_skip};
   return q_launch(stage_peer_kernel_of(*d), *d, a, plan, false, stream);
 }
 
 // The stage adjoint's peer mode (see sw2d_stage_bwd_peer_kernel): lsb,
-// with e_in (not 0) this rank's reverse slots of epoch e_in's parity, orb
-// also
-// stored into the reverse slots of the ranks its chunks came from as epoch
-// e_out (e_out = 0: not); the rest as sw2d_stage_bwd at S = 1. plan:
+// with e_in (not 0) this rank's reverse slots of epoch e_in's parity, plus
+// lsb2 where not null (autograd's part of the send buffer's cotangent),
+// orb also stored into the reverse slots of the ranks its chunks came from
+// as epoch e_out (e_out = 0: not); with e_skip (not 0) RGO released past
+// it first (sr_fold_start); the rest as sw2d_stage_bwd at S = 1. plan:
 // sw2d_shard_plan's for (1, B, 7).
 int sw2d_stage_bwd_peer(const SwDesc* d, const float* fops, const int* iops,
                         long long fstride, long long istride, int B,
                         const float* ch, const float* chu, const float* chv,
                         const float* rb, const float* lh, const float* lhu,
-                        const float* lhv, const float* lsb, float* obh,
-                        float* obhu, float* obhv, float* och, float* ochu,
-                        float* ochv, float* orb, float* octl, float* cpart,
+                        const float* lhv, const float* lsb,
+                        const float* lsb2, float* obh, float* obhu,
+                        float* obhv, float* och, float* ochu, float* ochv,
+                        float* orb, float* octl, float* cpart,
                         unsigned* done, const long long* tab,
                         unsigned long long e_in, unsigned long long e_out,
-                        float c_dt, float t, int use_filter, int sponge,
-                        const int* plan, void* stream) {
+                        unsigned long long e_skip, float c_dt, float t,
+                        int use_filter, int sponge, const int* plan,
+                        void* stream) {
   StageBwdArgs a = {fops, iops, fstride, istride, 1, B, use_filter, sponge,
                     ch, chu, chv, rb, lh, lhu, lhv, lsb, obh, obhu, obhv,
                     och, ochu, ochv, orb, octl, cpart, done, c_dt, t, tab,
-                    (flag_t)e_in, (flag_t)e_out};
+                    (flag_t)e_in, (flag_t)e_out, (flag_t)e_skip, lsb2};
   return q_launch(stage_bwd_peer_kernel_of(*d, plan[3]), *d, a, plan, false,
                   stream);
 }

@@ -317,10 +317,14 @@ def sw2d_stage_bwd_blocked_v2_plain(ops: ShardOps, meta: BlockedMeta, cur,
                                     rb, lam_out, lam_sb, c_dt: float,
                                     t: float = 0.0, ctrl=None,
                                     use_filter: bool = True,
-                                    apply_sponge: bool = False):
+                                    apply_sponge: bool = False,
+                                    lam_sb_add=None):
     """Plain version of ``sw2d_stage_bwd_blocked_v2``: the hand adjoint of
-    ``sw2d_stage_blocked_plain`` (no autograd)."""
+    ``sw2d_stage_blocked_plain`` (no autograd). ``lam_sb_add``: a second
+    part of the send buffer's cotangent, added to ``lam_sb`` first."""
     _refuse_wetdry_stage_adjoint(meta)
+    if lam_sb_add is not None:
+        lam_sb = lam_sb + lam_sb_add
     n_v = cur[0].shape[2]
     outs = []
     for s in range(ops.fbuf.shape[0]):
@@ -377,9 +381,9 @@ def _lib():
     lib.sw2d_step_rdma_peer_load.argtypes = [D]
     U = ctypes.c_ulonglong
     lib.sw2d_stage_peer.argtypes = ([D, P, P, L, L, I] + [P] * 14
-                                    + [U, U, F, F, I, I, P, P])
-    lib.sw2d_stage_bwd_peer.argtypes = ([D, P, P, L, L, I] + [P] * 19
-                                        + [U, U, F, F, I, I, P, P])
+                                    + [U, U, U, F, F, I, I, P, P])
+    lib.sw2d_stage_bwd_peer.argtypes = ([D, P, P, L, L, I] + [P] * 20
+                                        + [U, U, U, F, F, I, I, P, P])
     lib.sw2d_stage_peer_load.argtypes = [D, I]
     for fn in (lib.sw2d_blocked_rollout,
                lib.sw2d_blocked_rollout_bwd, lib.sw2d_shard_plan,
@@ -824,7 +828,7 @@ def sw2d_stage_bwd_blocked_v2(ops: ShardOps, meta: BlockedMeta, cur, rb,
                               lam_out, lam_sb, c_dt: float, t: float = 0.0,
                               ctrl=None, use_filter: bool = True,
                               apply_sponge: bool = False, ring=None,
-                              send: bool = True):
+                              send: bool = True, lam_sb_add=None):
     """Adjoint of ``sw2d_stage_blocked``: from the cotangents of
     (out, sb) to those of (base, cur, rb) and, given ``ctrl``, the control
     cotangent of each shard and scenario (S, B, n_ctrl); None without.
@@ -850,12 +854,16 @@ def sw2d_stage_bwd_blocked_v2(ops: ShardOps, meta: BlockedMeta, cur, rb,
     ``ring``: this rank's ``parallel.StageRing`` (one shard a rank):
     ``sw2d_stage_bwd_blocked_peer``, the reverse of the ring's exchange
     folded into the launch (``lam_sb`` None: the ring's reverse slots;
-    ``send``: the receive buffer's cotangent back to its senders).
+    ``send``: the receive buffer's cotangent back to its senders;
+    ``lam_sb_add``: a second part of the send buffer's cotangent, added in
+    the launch). Without a ring ``lam_sb_add`` is the plain version's only:
+    the stacked kernel takes one send-buffer cotangent.
     """
     if ring is not None:
         return sw2d_stage_bwd_blocked_peer(ops, meta, cur, rb, lam_out,
                                            lam_sb, ring, c_dt, t, ctrl,
-                                           use_filter, apply_sponge, send)
+                                           use_filter, apply_sponge, send,
+                                           lam_sb_add)
     _refuse_wetdry_stage_adjoint(meta)
     S, B, L = _check_stage(ops, meta, {
         "h": cur[0], "hu": cur[1], "hv": cur[2], "lam_h": lam_out[0],
@@ -865,7 +873,12 @@ def sw2d_stage_bwd_blocked_v2(ops: ShardOps, meta: BlockedMeta, cur, rb,
     if rb.device.type == "cpu":
         return sw2d_stage_bwd_blocked_v2_plain(ops, meta, cur, rb, lam_out,
                                                lam_sb, c_dt, t, ctrl,
-                                               use_filter, apply_sponge)
+                                               use_filter, apply_sponge,
+                                               lam_sb_add)
+    if lam_sb_add is not None:
+        raise ValueError("lam_sb_add: the stacked stage adjoint takes one "
+                         "send-buffer cotangent (the peer mode, ring=, takes "
+                         "two)")
     out = _run_stage_bwd(ops, meta, cur, rb, lam_out, lam_sb, c_dt, t, ctrl,
                          use_filter, apply_sponge)
     count_launches(sw2d_stage_bwd_blocked_v2)
@@ -887,7 +900,8 @@ def _run_stage_bwd(ops: ShardOps, meta: BlockedMeta, cur, rb, lam_out,
                    lam_sb, c_dt, t, ctrl, use_filter, apply_sponge,
                    peer=None):
     """The stage adjoint kernel's launch (the shapes checked by the
-    caller); with ``peer`` = (ring, e_in, e_out), its peer mode's."""
+    caller); with ``peer`` = (ring, e_in, e_out, e_skip, lam_sb_add), its
+    peer mode's."""
     lib, desc = _check_kernel_inputs(ops, meta, rb)
     S, B = rb.shape[:2]
     plan = _shard_plan(lib, desc, ops, B,
@@ -912,8 +926,9 @@ def _run_stage_bwd(ops: ShardOps, meta: BlockedMeta, cur, rb, lam_out,
             ops.fbuf.shape[1], ops.ibuf.shape[1])
     lsb = (lam_sb.data_ptr() if lam_sb is not None
            else peer[0]._slots(True, peer[1]))
+    lsb2 = () if peer is None else (_ptr(peer[4]),)
     mid = (*(f.data_ptr() for f in cur), rb.data_ptr(),
-           *(f.data_ptr() for f in lam_out), lsb,
+           *(f.data_ptr() for f in lam_out), lsb, *lsb2,
            *(f.data_ptr() for f in bb), *(f.data_ptr() for f in cb),
            rbb.data_ptr(), _ptr(ctl), _ptr(cpart), _ptr(done))
     tail = (float(c_dt), float(t), int(use_filter),
@@ -922,9 +937,9 @@ def _run_stage_bwd(ops: ShardOps, meta: BlockedMeta, cur, rb, lam_out,
         err = lib.sw2d_stage_bwd(*head, S, B, *mid, *tail)
         _launch_check(err, "sw2d_stage_bwd_blocked_v2")
     else:
-        ring, e_in, e_out = peer
+        ring, e_in, e_out, e_skip, _ = peer
         err = lib.sw2d_stage_bwd_peer(*head, B, *mid, ring.table.data_ptr(),
-                                      e_in, e_out, *tail)
+                                      e_in, e_out, e_skip, *tail)
         _launch_check(err, "sw2d_stage_bwd_blocked_peer")
     return (*bb, *cb, rbb, ctl)
 
@@ -963,15 +978,17 @@ def sw2d_stage_bwd_blocked_peer_plain(ops: ShardOps, meta: BlockedMeta, cur,
                                       rb, lam_out, lam_sb, ex, c_dt: float,
                                       t: float = 0.0, ctrl=None,
                                       use_filter: bool = True,
-                                      apply_sponge: bool = False):
+                                      apply_sponge: bool = False,
+                                      lam_sb_add=None):
     """Plain version of ``sw2d_stage_bwd_blocked_peer`` over every rank's
-    shard stacked: the stage adjoint, then the stacked reverse exchange of
-    the receive buffer's cotangent. Returns the eight cotangents of
+    shard stacked: the stage adjoint (``lam_sb_add`` added to ``lam_sb``
+    first), then the stacked reverse exchange of the receive buffer's
+    cotangent. Returns the eight cotangents of
     ``sw2d_stage_bwd_blocked_v2_plain`` and the send-buffer cotangent that
     each rank's next folded adjoint launch reads."""
     g = sw2d_stage_bwd_blocked_v2_plain(ops, meta, cur, rb, lam_out, lam_sb,
                                         c_dt, t, ctrl, use_filter,
-                                        apply_sponge)
+                                        apply_sponge, lam_sb_add)
     return (*g, _stacked_reverse(g[6], ex))
 
 
@@ -1058,14 +1075,15 @@ def sw2d_stage_blocked_peer(ops: ShardOps, meta: BlockedMeta, base, cur, rb,
     sb = ref.new_empty((1, B, ring.n_slots, 3))
     rbo = torch.empty_like(sb) if rb is None else rb
     ring._guard()
-    e_in, e_out = ring._fold_forward(rb is None)
+    e_in, e_out, e_skip = ring._fold("forward", rb is None, True)
     err = lib.sw2d_stage_peer(
         ctypes.byref(desc), ops.fbuf.data_ptr(), ops.ibuf.data_ptr(),
         ops.fbuf.shape[1], ops.ibuf.shape[1], B,
         *(f.data_ptr() for f in base), *(f.data_ptr() for f in cur),
         ring._slots(False, e_in) if rb is None else rb.data_ptr(),
         _ptr(ctrl), *(f.data_ptr() for f in out), sb.data_ptr(),
-        rbo.data_ptr(), ring.table.data_ptr(), e_in, e_out, float(c_dt),
+        rbo.data_ptr(), ring.table.data_ptr(), e_in, e_out, e_skip,
+        float(c_dt),
         float(t), int(use_filter), int(apply_sponge and meta.has_sponge),
         plan, _launch_stream(ref))
     _launch_check(err, "sw2d_stage_blocked_peer")
@@ -1081,12 +1099,14 @@ def sw2d_stage_bwd_blocked_peer(ops: ShardOps, meta: BlockedMeta, cur, rb,
                                 t: float = 0.0, ctrl=None,
                                 use_filter: bool = True,
                                 apply_sponge: bool = False,
-                                send: bool = True):
+                                send: bool = True, lam_sb_add=None):
     """The adjoint of ``sw2d_stage_blocked_peer`` one shard a rank, the
     reverse of the ring's exchange folded into the launch: ``lam_sb``, the
     cotangent of the send buffer (1, B, L, 3), or None: this rank's reverse
     slots, where the adjoint launches of the stage that read the send
-    buffer (at the ranks it went to) stored it; with ``send`` the receive
+    buffer (at the ranks it went to) stored it; ``lam_sb_add`` (1, B, L,
+    3), or None: a second part, added to it in the launch (autograd's,
+    where a cost also takes the send buffer); with ``send`` the receive
     buffer's cotangent also stored into the reverse slots of the ranks that
     sent it (the stage read its receive buffer from the ring's slots), which
     the adjoint launch of their stage before reads (without, the stage's
@@ -1109,15 +1129,17 @@ def sw2d_stage_bwd_blocked_peer(ops: ShardOps, meta: BlockedMeta, cur, rb,
     ref = _check_peer(ops, meta, ring,
                       {"h": cur[0], "hu": cur[1], "hv": cur[2],
                        "lam_h": lam_out[0], "lam_hu": lam_out[1],
-                       "lam_hv": lam_out[2]}, {"rb": rb, "lam_sb": lam_sb})
+                       "lam_hv": lam_out[2]},
+                      {"rb": rb, "lam_sb": lam_sb, "lam_sb_add": lam_sb_add})
     if rb is None:
         raise ValueError("rb: the stage's receive buffer is needed")
     if ctrl is not None:
         _check_tensor("ctrl", ctrl, (meta.n_ctrl,), ref)
     ring._guard()
-    e_in, e_out = ring._fold_reverse(lam_sb is None, send)
+    e_in, e_out, e_skip = ring._fold("reverse", lam_sb is None, send)
     out = _run_stage_bwd(ops, meta, cur, rb, lam_out, lam_sb, c_dt, t, ctrl,
-                         use_filter, apply_sponge, peer=(ring, e_in, e_out))
+                         use_filter, apply_sponge,
+                         peer=(ring, e_in, e_out, e_skip, lam_sb_add))
     count_launches(sw2d_stage_bwd_blocked_peer)
     return out
 

@@ -382,14 +382,23 @@ def total_over_ranks(x: torch.Tensor, ex: RingExchange) -> torch.Tensor:
 class _Sent:
     """A folded stage's send buffer: the ring's reverse epoch at which the
     backward of the stage that read it from the ring's slots stored its
-    cotangent into the senders' reverse slots (None: no such backward has
-    run since this stage's last backward), which this stage's backward
-    then reads."""
+    cotangent into the senders' reverse slots, and the backward (autograd's
+    graph task) that did, which this stage's backward then reads (``take``:
+    None where no such backward has run since this stage's last backward,
+    or where it ran in another backward, one that autograd restricted to a
+    part of the rollout: ``torch.autograd.grad(..., inputs=)``)."""
 
-    __slots__ = ("epoch",)
+    __slots__ = ("epoch", "task")
 
     def __init__(self):
-        self.epoch = None
+        self.epoch = self.task = None
+
+    def put(self, epoch: int):
+        self.epoch, self.task = epoch, torch._C._current_graph_task_id()
+
+    def take(self):
+        e, self.epoch = self.epoch, None
+        return e if self.task == torch._C._current_graph_task_id() else None
 
 
 def _folded_diff_stages(ops, meta, ring, dt, use_filter, ex):
@@ -417,34 +426,32 @@ def _folded_diff_stages(ops, meta, ring, dt, use_filter, ex):
                 ch, chu, chv, rb, ctrl = ctx.saved_tensors
                 lam = tuple(torch.zeros_like(ch) if g is None
                             else g.contiguous() for g in (lh, lhu, lhv))
-                e, ctx.mark.epoch = ctx.mark.epoch, None
+                lsb = None if lsb is None else lsb.contiguous()
+                e = ctx.mark.take()
                 if e is not None:  # (from the ring's reverse slots)
-                    if lsb is not None:
-                        raise NotImplementedError(
-                            "a cost of a send buffer that a later folded "
-                            "stage read from the ring's slots: its "
-                            "cotangent comes through the ring; take the "
-                            "cost of the state, or of the rollout's last "
-                            "send buffer (ROADMAP C36)")
                     if e != ring.epochs["reverse"]:
                         raise RuntimeError(
                             "another backward over this ring ran between "
                             "two stages' backwards of one rollout: one "
-                            "rollout's backward at a time over a ring")
-                elif lsb is None:
-                    lsb = torch.zeros_like(rb)
+                            "rollout's backward at a time over a ring "
+                            "(ROADMAP C35)")
+                    # autograd's part, where a cost also takes the send
+                    # buffer, is added in the launch (the ppermute
+                    # transpose's sum)
+                    lam_sb, add = None, lsb
                 else:
-                    lsb = lsb.contiguous()
+                    lam_sb = torch.zeros_like(rb) if lsb is None else lsb
+                    add = None
                 # the receive buffer's cotangent to its senders where it
                 # came from the ring's slots and the stage before has a
                 # backward (which then reads it)
                 send = ctx.read and ctx.needs_input_grad[6]
                 g = sw2d_stage_bwd_blocked_v2(
-                    ops, meta, (ch, chu, chv), rb, lam,
-                    None if e is not None else lsb, c_dt, ctx.t, ctrl,
-                    use_filter, apply_sponge, ring=ring, send=send)
+                    ops, meta, (ch, chu, chv), rb, lam, lam_sb, c_dt, ctx.t,
+                    ctrl, use_filter, apply_sponge, ring=ring, send=send,
+                    lam_sb_add=add)
                 if send:
-                    ctx.src.epoch = ring.epochs["reverse"]
+                    ctx.src.put(ring.epochs["reverse"])
                 lctl = None if g[7] is None else g[7].sum(dim=(0, 1))
                 return (*g[:6], None, None if ctx.read else g[6], None,
                         lctl, None, None)
@@ -498,10 +505,13 @@ def make_sharded_blocked_step_diff(sb: ShardedBlocked, dt: float,
     stage before has a backward, and returns no cotangent for that input:
     the cotangent travels through the ring. A stage's backward reads its
     send buffer's cotangent from its reverse slots where the backward of
-    the stage that read that buffer ran (the cost depends on the later
-    stages), and otherwise takes autograd's (zeros without), so a cost of
-    the state at any step of a rollout has its gradient; a cost that also
-    takes a send buffer that a later stage read raises (ROADMAP C36). A
+    the stage that read that buffer ran in the same backward (the cost
+    depends on the later stages), adding autograd's part where a cost also
+    takes the buffer (as the ``ppermute`` transpose adds both), and
+    otherwise takes autograd's (zeros without), so a cost of any states and
+    send buffers of a rollout has its gradient, also in a backward that
+    autograd restricts to a part of the rollout (``inputs=``; the epochs
+    that no backward reads are skipped: ``StageRing._fold``). A
     rollout's first exchange (a send buffer that this step's last stage did
     not return: the constant start's) is one launch of the ring's exchange
     kernel, whose backward is its reverse,

@@ -740,6 +740,9 @@ class StageRing(HaloRing):
         self.n_fp, self.batch = n_fp, batch
         self.chunk = plan.max_send * n_fp
         self.n_slots = _n_slots(plan, n_fp)
+        # by use, the last epoch up to which this rank has released the
+        # senders' GO flags (read, or skipped: _fold)
+        self._freed = {"forward": 0, "reverse": 0}
 
     def _slots(self, rev: bool, e: int) -> int:
         """The address of this rank's slot set of epoch ``e`` of a use
@@ -747,29 +750,35 @@ class StageRing(HaloRing):
         return self._base + (self._rev if rev else 0) + (e & 1) * \
             self.slot_bytes
 
-    def _fold_forward(self, read: bool) -> tuple:
-        """The epochs of a folded stage launch: the one it reads from its
-        forward slots (0: none, its receive buffer given) and the one it
-        sends."""
-        if read and self.epochs["forward"] == 0:
-            raise ValueError("no exchange has reached the ring's slots yet: "
-                             "a rollout's first stage takes its receive "
-                             "buffer")
-        e_in = self.epochs["forward"] if read else 0
-        self.epochs["forward"] += 1
-        return e_in, self.epochs["forward"]
-
-    def _fold_reverse(self, read: bool, send: bool) -> tuple:
-        """The epochs of a folded stage adjoint's launch: the one it reads
-        from its reverse slots and the one it sends (0: none)."""
-        if read and self.epochs["reverse"] == 0:
-            raise ValueError("no reverse exchange has reached the ring's "
-                             "slots yet: the last stage's adjoint takes its "
-                             "send buffer's cotangent")
-        e_in = self.epochs["reverse"] if read else 0
+    def _fold(self, use: str, read: bool, send: bool) -> tuple:
+        """The epochs of a folded launch over ``use`` ("forward": the
+        stage's peer mode, "reverse": its adjoint's): the one it reads from
+        its slots (0: none, its buffer given), the one it sends (0: none),
+        and the one up to which it first releases the senders' GO flags (0:
+        none): the epochs that this rank has neither read nor released and
+        that no launch will read. A folded launch reads only the latest
+        epoch of its use (what the launch before it sent; the backward
+        refuses another order, ``parallel.blocked_shard``), so every earlier
+        epoch is such, and the latest too once a launch that does not read
+        it sends. A backward that autograd restricts to a part of a rollout
+        (``torch.autograd.grad(..., inputs=)``) leaves them: its last launch
+        sends an epoch that no launch reads, and a sender's wait for the
+        read of the epoch two before its own would never end (ROADMAP
+        C35). Every rank makes the same calls, so every rank releases the
+        same."""
+        e = self.epochs[use]
+        if read and e == 0:
+            raise ValueError(
+                "no exchange has reached the ring's slots yet: a rollout's "
+                "first stage takes its receive buffer" if use == "forward"
+                else "no reverse exchange has reached the ring's slots yet: "
+                "the last stage's adjoint takes its send buffer's cotangent")
+        dead = e if send and not read else e - 1
+        skip = dead if dead > self._freed[use] else 0
+        self._freed[use] = max(self._freed[use], dead, e if read else 0)
         if send:
-            self.epochs["reverse"] += 1
-        return e_in, self.epochs["reverse"] if send else 0
+            self.epochs[use] += 1
+        return e if read else 0, self.epochs[use] if send else 0, skip
 
     def _exchange(self, src: torch.Tensor, rev: bool) -> torch.Tensor:
         """The exchange kernel's launch over a (1, B, L, 3) buffer, forward
@@ -777,6 +786,9 @@ class StageRing(HaloRing):
         out = torch.empty_like(src)
         self._launch_exchange(src, out, self.batch, 3 * self.n_slots,
                               3 * self.chunk, 3 * self.chunk, rev)
+        # (it reads the epoch it sent and frees every slot set before)
+        use = "reverse" if rev else "forward"
+        self._freed[use] = self.epochs[use]
         return out
 
 

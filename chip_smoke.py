@@ -4983,6 +4983,9 @@ def stage_ring_check(plan, n_fp: int, dev, rng, flush) -> dict:
 # stages of the folded launches' check: two steps' (stage 1: dt/2, no
 # sponge; stage 2: dt, the sponge)
 STAGE_PEER_STAGES = 4
+# launches a CUDA graph of rank 0's folded launch (and of B7's or B8's)
+# holds where its device time is taken
+STAGE_PEER_GRAPH_LAUNCHES = 50
 
 
 def stage_peer_check(mp, dev, rng, flush) -> dict:
@@ -5002,9 +5005,13 @@ def stage_peer_check(mp, dev, rng, flush) -> dict:
     set past any epoch (no wait holds it), CUDA events, L2 flushed, beside
     its plain version (the stage's or its adjoint's plain version on rank
     0's shard and the stacked gather over the ranks) and B7's or B8's
-    launch alone on the same inputs (``unfolded_kernel_ms``). Launches
-    counted here are not the main path's. Returns a record by kernel
-    name."""
+    launch alone on the same inputs (``unfolded_kernel_ms``); and the
+    device time of each, a launch of a CUDA graph of
+    STAGE_PEER_GRAPH_LAUNCHES back to back (``device_ms``,
+    ``unfolded_kernel_device_ms``: no host between the launches, the gaps
+    between them included; their difference ``fold_device_ms`` is what
+    the fold costs the card). Launches counted here are not the main
+    path's. Returns a record by kernel name."""
     from blitzdg_tpu_torch.ops import sw2d_blocked as TB
     from blitzdg_tpu_torch.parallel.blocked_shard import initial_send_buffer
     from blitzdg_tpu_torch.parallel.halo import (RingExchange, _stacked,
@@ -5143,11 +5150,19 @@ def stage_peer_check(mp, dev, rng, flush) -> dict:
                 ctrl, True, sponge)}
         recs = {}
         for name in alone:
+            # (a CUDA graph of launches back to back: the profiler, after
+            # the earlier phases' sessions in this process, drops records)
+            dev_ms = graph_us([alone[name]], n=STAGE_PEER_GRAPH_LAUNCHES) / 1e3
+            unfolded_dev_ms = graph_us([unfolded[name]],
+                                       n=STAGE_PEER_GRAPH_LAUNCHES) / 1e3
             recs[name] = {
                 "max_abs_err": max(errs[name]), "bit_equal": same[name],
                 "ms": time_ms(alone[name], RANKS_TIMED_REPS, flush),
                 "unfolded_kernel_ms": time_ms(unfolded[name],
                                               RANKS_TIMED_REPS, flush),
+                "device_ms": dev_ms,
+                "unfolded_kernel_device_ms": unfolded_dev_ms,
+                "fold_device_ms": dev_ms - unfolded_dev_ms,
                 "plain_ms": time_ms(plain[name], RANKS_TIMED_REPS, flush),
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                 "epochs": len(stages),
@@ -5156,6 +5171,112 @@ def stage_peer_check(mp, dev, rng, flush) -> dict:
     finally:
         free()
     return recs
+
+
+def fold_gate_grads(mp) -> dict:
+    """The gradients of the folded steps' two gates (ROADMAP C36, C35) on
+    a problem of the sharded MPC (stacked, or one shard a rank over its
+    ring: every rank makes the same calls), from its rest state under half
+    its hidden controls: ``c36``, of a cost of the last state plus 20
+    times the sum of the momenta in the send buffer after the first step
+    (the two parts of that buffer's cotangent of one size), which the
+    second step's first stage reads from the ring's slots (its cotangent
+    the ring's part plus autograd's), in the initial depth and the
+    controls; ``c35_restricted``, two backwards of the cost of the last
+    state that autograd restricts to the depth after the first step
+    (``inputs=``: the first step's stages do not run, so the reverse epoch
+    that the second step's first stage sends is never read); ``c35``, then
+    the whole gradient of that cost on a new rollout."""
+    from blitzdg_tpu_torch.parallel.blocked_shard import (
+        initial_send_buffer, sum_over_ranks_grad, total_over_ranks)
+
+    ex = mp.step.exchange
+
+    def rollout(h0, c):
+        cc = sum_over_ranks_grad(c, ex)
+        state = (h0, *mp.state0[1:])
+        carry, out = (state, initial_send_buffer(mp.sb, state)), []
+        for i in range(mp.n_steps):
+            carry = mp.step(carry, i * mp.dt, cc[i])
+            out.append(carry)
+        return out
+
+    def cost(out, sbuf=False):
+        h, hu, hv = out[-1][0]
+        loc = 1e3 * (hu ** 2).sum() + (h * hv).sum()
+        if sbuf:
+            loc = loc + 20.0 * out[0][1][..., 1:].sum()
+        return total_over_ranks(loc, ex)
+
+    def leaves():
+        return (mp.state0[0].clone().requires_grad_(True),
+                (0.5 * mp.hidden).requires_grad_(True))
+
+    h0, c = leaves()
+    res = {"c36": torch.autograd.grad(cost(rollout(h0, c), True), (h0, c))}
+    out = rollout(*leaves())
+    last, mid = cost(out), out[0][0][0]
+    res["c35_restricted"] = tuple(
+        torch.autograd.grad(last, (mid,), retain_graph=True)[0]
+        for _ in range(2))
+    h0, c = leaves()
+    res["c35"] = torch.autograd.grad(cost(rollout(h0, c)), (h0, c))
+    return {k: tuple(x.cpu() for x in v) for k, v in res.items()}
+
+
+def fold_gates_check(full, dev, card: str) -> None:
+    """The folded steps' gates on the card (ROADMAP C36, C35): the four
+    ranks of FULL on threads and streams of this process over stage rings
+    (the port's guard), each rank's ``fold_gate_grads`` against the stacked
+    problem's through the stacked differentiable step: every gradient
+    within SHD_GRAD_RTOL of the stacked one's largest entry (the initial
+    depth's and the restricted ones' rows joined over the ranks), the
+    controls' the same bits on every rank, the two restricted gradients
+    the same, no trap."""
+    from blitzdg_tpu_torch.mpc import sharded_box as sbx
+
+    want = fold_gate_grads(full)
+    torch.cuda.synchronize()
+
+    def program(r, ring, sync, barrier):
+        mp = sbx.sharded_mpc_problem(sbx.FULL, rank=r, ring=ring, device=dev)
+        out = fold_gate_grads(mp)
+        sync()
+        barrier()
+        return out
+
+    res, launches, _, seconds = ranks_in_process(
+        lambda meet: stage_ring_regions(full.sb.plan, full.sb.meta.n_fp, dev,
+                                        meet),
+        ranks_counters(), dev, program, program)
+    S = len(res)
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    errs = {}
+    for k, w in want.items():
+        if k == "c35_restricted":
+            errs[k] = max(rel(torch.cat([o[k][i] for o in res]), w[i])
+                          for i in range(2))
+            continue
+        errs[k + "_h0"] = rel(torch.cat([o[k][0] for o in res]), w[0])
+        errs[k + "_controls"] = max(rel(o[k][1], w[1]) for o in res)
+    same = all(torch.equal(o[k][1], res[0][k][1]) for o in res
+               for k in ("c36", "c35"))
+    same_restricted = all(torch.equal(*o["c35_restricted"]) for o in res)
+    rec = {"phase": "sharded_fold_gates_S4_in_process", "card": card,
+           "n_shards": S, "rel_err_to_stacked": errs,
+           "grad_tol": SHD_GRAD_RTOL, "controls_bit_equal_on_ranks": same,
+           "restricted_twice_bit_equal": same_restricted,
+           "launches": launches, "seconds": seconds,
+           "note": "C36: a cost also of the send buffer after the first "
+                   "step (read from the ring's slots by the second); C35: "
+                   "two backwards restricted to the depth after the first "
+                   "step (inputs=), then a whole gradient"}
+    rec["ok"] = (all(e <= SHD_GRAD_RTOL for e in errs.values()) and same
+                 and same_restricted
+                 and launches["sw2d_stage_bwd_blocked_peer"] > 0)
+    say(rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"the folded steps' gates failed: {rec}")
 
 
 def ranks_phases(dev, card: str, rng, flush) -> list:
@@ -5200,6 +5321,7 @@ def ranks_phases(dev, card: str, rng, flush) -> list:
     if not ok:
         raise RuntimeError(f"the folded stage launches disagree with B7 and "
                            f"B8 and the exchange between them: {folded}")
+    fold_gates_check(full, dev, card)
 
     def judge(phase, name, res, launches, expect, extra):
         ref = refs[name]

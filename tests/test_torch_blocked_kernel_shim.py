@@ -343,6 +343,7 @@ enum thread_scope { thread_scope_system, thread_scope_device,
                     thread_scope_block, thread_scope_thread };
 namespace std {
 using ::std::memory_order_acquire;
+using ::std::memory_order_relaxed;
 using ::std::memory_order_release;
 }  // namespace std
 template <class T, thread_scope S = thread_scope_system>

@@ -352,10 +352,12 @@ def kernel_stages(monkeypatch, counts):
                              use_filter, apply_sponge)
 
     def bwd(ops, meta, cur, rb, lam, lsb, c_dt, t=0.0, ctrl=None,
-            use_filter=True, apply_sponge=False, ring=None, send=True):
+            use_filter=True, apply_sponge=False, ring=None, send=True,
+            lam_sb_add=None):
         if ring is not None:
             return stage_bwd(ops, meta, cur, rb, lam, lsb, c_dt, t, ctrl,
-                             use_filter, apply_sponge, ring=ring, send=send)
+                             use_filter, apply_sponge, ring=ring, send=send,
+                             lam_sb_add=lam_sb_add)
         counts["B8"] += 1
         return TB._run_stage_bwd(ops, meta, cur, rb, lam, lsb, c_dt, t,
                                  ctrl, use_filter, apply_sponge)

@@ -113,10 +113,13 @@ class FoldCase:
         self.lam = [[tuple(g(1, B, m.n_v) for _ in range(3))
                      for _ in range(S)] for _ in range(N_STAGES)]
         self.lsb_end = [g(1, B, sb.ops.send.shape[1], 3) for _ in range(S)]
+        self.lsb_add = [g(1, B, sb.ops.send.shape[1], 3) for _ in range(S)]
 
-    def reference(self):
+    def reference(self, add_at=None):
         """Per stage: each rank's (h, hu, hv, sb), its receive buffer, and
-        in reverse each rank's eight cotangents."""
+        in reverse each rank's eight cotangents; with ``add_at``, that
+        stage's send-buffer cotangent has ``lsb_add`` added (a cost that
+        also takes its send buffer)."""
         c, sb = self.c, self.c.sets[F32]
         m, S = sb.meta, self.S
         row = lambda t, r: t[r:r + 1]
@@ -139,6 +142,8 @@ class FoldCase:
             ins = self.c.state if k == 0 else tuple(
                 torch.cat([o[i] for o in fwd[k - 1][0]]) for i in range(3))
             rb_k = fwd[k][1]
+            if k == add_at:
+                lsb = lsb + torch.cat(self.lsb_add)
             g_k = [TB._run_stage_bwd(self.ops[r], m,
                                      tuple(row(f, r) for f in ins),
                                      row(rb_k, r), self.lam[k][r],
@@ -149,8 +154,10 @@ class FoldCase:
                                       c.ex[F32])
         return fwd, bwd
 
-    def ranks(self, delay=None, missing=(), timeout_s=30.0, join_s=120.0):
-        """Each rank's folded stages, then its folded adjoints in reverse:
+    def ranks(self, delay=None, missing=(), timeout_s=30.0, join_s=120.0,
+              add_at=None):
+        """Each rank's folded stages, then its folded adjoints in reverse
+        (with ``add_at``, that stage's adjoint also given ``lsb_add``):
         per rank the forward outputs (h, hu, hv, sb, rb) and the
         cotangents by stage; the errors; the rings."""
         c, sb = self.c, self.c.sets[F32]
@@ -187,7 +194,8 @@ class FoldCase:
                 bwd[k] = TB.sw2d_stage_bwd_blocked_v2(
                     ops, m, ins, fwd[k][4], self.lam[k][r],
                     self.lsb_end[r] if k == N_STAGES - 1 else None, c_dt, t,
-                    c.ctrl, True, sponge, ring=ring, send=k > 0)
+                    c.ctrl, True, sponge, ring=ring, send=k > 0,
+                    lam_sb_add=self.lsb_add[r] if k == add_at else None)
             return fwd, bwd
 
         out, errors = _on_threads(self.S, rank, missing=missing,
@@ -245,6 +253,43 @@ def test_folded_stages_match_the_stage_and_the_exchange(dev, name):
                       .sum(1)], [*want[:7], want[7].sum(1)])
     orb = torch.cat([w[6] for w in want_b[k]])
     _check_adjoint([TB._stacked_reverse(orb, c.ex[F32])], [want[8]])
+
+
+@pytest.mark.parametrize("name", ["N3_S4_B1", "quads_N4_S4_B1"])
+def test_folded_adjoint_adds_a_second_cotangent(dev, name):
+    """C36 in the kernel: B8's peer mode at the third stage (its
+    send-buffer cotangent read from the reverse slots) also given a second
+    part, ``lam_sb_add``: every rank's cotangents bit-equal to B8 launched
+    on its shard with the sum of the stacked reverse exchange's and that
+    part (the stacked steps' autograd adds the two), the stages before
+    too; and the plain version given the same two parts, to the kernels'
+    tolerances."""
+    fc = FoldCase(name, seed=15)
+    dev(*fc.dev)
+    k = 2
+    want_f, want_b = fc.reference(add_at=k)
+    got, errors, rings = fc.ranks(add_at=k)
+    assert errors == [None] * fc.S
+    for r in range(fc.S):
+        for j in range(N_STAGES):
+            w = [x for x in want_b[j][r] if x is not None]
+            assert _same([x for x in got[r][1][j] if x is not None], w), \
+                (r, j)
+    c = fc.c
+    cat = lambda j, i, side=0: torch.cat([got[r][side][j][i]
+                                          for r in range(fc.S)])
+    c_dt, t, sponge = fc.stages[k]
+    lam = tuple(torch.cat([fc.lam[k][r][i] for r in range(fc.S)])
+                for i in range(3))
+    lsb = TB._stacked_reverse(torch.cat([w[6] for w in want_b[k + 1]]),
+                              c.ex[F32])
+    want = c.ref(TB.sw2d_stage_bwd_blocked_peer_plain,
+                 tuple(cat(k - 1, i) for i in range(3)), cat(k, 4), lam, lsb,
+                 c.ex[F64], c_dt, t, c.ctrl, True, sponge,
+                 lam_sb_add=torch.cat(fc.lsb_add).to(F64))
+    _check_adjoint([cat(k, i, 1) for i in range(7)]
+                   + [torch.cat([got[r][1][k][7] for r in range(fc.S)])
+                      .sum(1)], [*want[:7], want[7].sum(1)])
 
 
 def test_folded_stages_hold_with_a_delayed_rank(dev):
@@ -363,6 +408,56 @@ def _states(step, sb, state0, cs, dt):
     return out
 
 
+def _cost_grads(problem, step, sb, ex, stop, sbuf_of=None):
+    """The gradient in (h0, controls) of a cost of the state after step
+    ``stop`` (and of the send buffer after step ``sbuf_of``) of a rollout
+    of ``step`` from ``problem``'s initial state under half its hidden
+    controls; one shard a rank with ``ex`` (the rank's rows of
+    ``problem``'s state; the controls' cotangent and the cost summed over
+    the ranks), stacked with ``ex`` None."""
+    h0 = problem.state0[0].clone().requires_grad_(True)
+    c = (0.5 * problem.hidden).requires_grad_(True)
+    cc = c if ex is None else BS.sum_over_ranks_grad(c, ex)
+    out = _states(step, sb, (h0, *problem.state0[1:]), cc, problem.dt)
+    return torch.autograd.grad(_cost(out, ex, stop, sbuf_of), (h0, c))
+
+
+def _cost(out, ex, stop, sbuf_of=None):
+    """A cost of the state after step ``stop`` of a rollout's carries
+    ``out`` (and of the send buffer after step ``sbuf_of``), summed over
+    ``ex``'s ranks."""
+    h, hu, hv = out[stop - 1][0]
+    w = torch.linspace(0.5, 1.5, h.shape[-1])
+    loc = (w * hu ** 2).sum() + (h * hv).sum()
+    if sbuf_of is not None:
+        loc = loc + (out[sbuf_of - 1][1] ** 2).sum()
+    return loc if ex is None else BS.total_over_ranks(loc, ex)
+
+
+def _close(got, want, what):
+    """``got`` within 1e-5 of ``want`` (relative, and of its largest
+    entry)."""
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()),
+                               err_msg=what)
+
+
+def _check_rank_grads(out, want, S):
+    """Each rank's (h0 rows, controls) gradients ``out[r]`` against the
+    stacked ``want``: the rows joined, the controls' on every rank, the
+    same bits on every rank."""
+    _close(torch.cat([out[r][0] for r in range(S)]), want[0], "h0")
+    for r in range(S):
+        _close(out[r][1], want[1], f"controls, rank {r}")
+        assert torch.equal(out[r][1], out[0][1])
+
+
+def _rank_problem(r, ring, n):
+    """Rank r's problem of ``n`` steps over ``ring``."""
+    return sbx.sharded_mpc_problem(MPC_SIZE, n, device="cpu", rank=r,
+                                   ring=ring)
+
+
 def test_cost_of_an_early_state_after_a_whole_gradient(dev, monkeypatch):
     """Four ranks over rings with ``meet=``, three steps of the folded
     differentiable step: first the gradient of a cost of the last state
@@ -370,11 +465,12 @@ def test_cost_of_an_early_state_after_a_whole_gradient(dev, monkeypatch):
     then, on a new rollout, the gradient of a cost of the state after the
     first step alone (the later stages' backwards do not run: the first
     step's send-buffer cotangent is autograd's zeros, not the reverse
-    slots' earlier values). Both gradients, in the controls and in the
-    initial depth, within 1e-5 of the stacked steps' through the same stage
-    kernels. Then a cost of the last state that also takes the first
-    step's send buffer, which the second step read from the ring's slots:
-    its gradient raises on every rank, naming the ROADMAP item."""
+    slots' earlier values). Then a cost of the last state that also takes
+    the first step's send buffer, which the second step read from the
+    ring's slots (C36): that buffer's cotangent is the sum of the ring's
+    part and autograd's, added in B8's peer mode. Every gradient, in the
+    controls and in the initial depth, within 1e-5 of the stacked steps'
+    through the same stage kernels."""
     dev(2, 1)
     S, n = MPC_SIZE["n_shards"], 3
     counts = {"B7": 0, "B8": 0}
@@ -382,49 +478,126 @@ def test_cost_of_an_early_state_after_a_whole_gradient(dev, monkeypatch):
     ref = sbx.sharded_mpc_problem(MPC_SIZE, n, device="cpu")
     rings, regions = _rings(ref.sb.plan, ref.sb.meta.n_fp, 1,
                             timeout_s=60.0, meet=threading.Barrier(S))
-    cs = 0.5 * ref.hidden
-    w = torch.linspace(0.5, 1.5, ref.target.shape[-1])
-
-    def grads(step, sb, h_rows, rest, ex, stop, sbuf_of=None):
-        """The gradient in (h0, controls) of the cost of the state after
-        step ``stop`` (and of the send buffer after step ``sbuf_of``)."""
-        h0 = h_rows.clone().requires_grad_(True)
-        c = cs.clone().requires_grad_(True)
-        cc = c if ex is None else BS.sum_over_ranks_grad(c, ex)
-        out = _states(step, sb, (h0, *rest), cc, ref.dt)
-        h, hu, hv = out[stop - 1][0]
-        loc = (w * hu ** 2).sum() + (h * hv).sum()
-        if sbuf_of is not None:
-            loc = loc + out[sbuf_of - 1][1].sum()
-        loss = loc if ex is None else BS.total_over_ranks(loc, ex)
-        return torch.autograd.grad(loss, (h0, c))
-
-    want = [grads(ref.step, ref.sb, ref.state0[0], ref.state0[1:], None,
-                  stop) for stop in (n, 1)]
+    cases = ((n, None), (1, None), (n, 1))
+    want = [_cost_grads(ref, ref.step, ref.sb, None, *c) for c in cases]
 
     def rank(r):
-        mp = sbx.sharded_mpc_problem(MPC_SIZE, n, device="cpu", rank=r,
-                                     ring=rings[r])
-        args = (mp.step, mp.sb, mp.state0[0], mp.state0[1:],
-                mp.step.exchange)
-        got = [grads(*args, stop) for stop in (n, 1)]
-        with pytest.raises(NotImplementedError, match="C36"):
-            grads(*args, n, sbuf_of=1)
-        return got
+        mp = _rank_problem(r, rings[r], n)
+        return [_cost_grads(mp, mp.step, mp.sb, mp.step.exchange, *c)
+                for c in cases]
+
+    out, errors = _on_threads(S, rank, join_s=300.0)
+    assert errors == [None] * S
+    for k in range(len(cases)):
+        _check_rank_grads([o[k] for o in out], want[k], S)
+    # (the ring's part of the first step's send buffer: a cost of the
+    # last state alone gives that buffer another cotangent)
+    assert not torch.allclose(want[2][1], want[0][1])
+
+
+def test_restricted_backwards_then_a_whole_gradient(dev, monkeypatch):
+    """C35: four ranks, the ring's bound 2 s, three steps. On one rollout
+    two backwards that autograd restricts to the state after the first
+    step (``inputs=``: the first step's stages do not run, so the reverse
+    epoch that the second step's first stage sent is never read), then on
+    the same graph the gradient of a cost of the state after the first
+    step (its stages' backwards alone: the mark of the send buffer that
+    the restricted backwards left is not read), then on a new rollout the
+    whole gradient. No launch traps (the unread epochs are skipped, the
+    senders' GO flags released past them), and every gradient is within
+    1e-5 of the stacked steps' through the same stage kernels."""
+    dev(2, 1)
+    S, n = MPC_SIZE["n_shards"], 3
+    counts = {"B7": 0, "B8": 0}
+    kernel_stages(monkeypatch, counts)
+    ref = sbx.sharded_mpc_problem(MPC_SIZE, n, device="cpu")
+    rings, regions = _rings(ref.sb.plan, ref.sb.meta.n_fp, 1,
+                            timeout_s=2.0, meet=threading.Barrier(S))
+
+    def run(p, step, sb, ex):
+        h0 = p.state0[0].clone().requires_grad_(True)
+        c = (0.5 * p.hidden).requires_grad_(True)
+        cc = c if ex is None else BS.sum_over_ranks_grad(c, ex)
+        out = _states(step, sb, (h0, *p.state0[1:]), cc, p.dt)
+        last, mid = _cost(out, ex, n), out[0][0][0]
+        g = [torch.autograd.grad(last, (mid,), retain_graph=True)[0]
+             for _ in range(2)]
+        g.append(torch.autograd.grad(_cost(out, ex, 1), (h0, c)))
+        g.append(_cost_grads(p, step, sb, ex, n))
+        return g
+
+    want = run(ref, ref.step, ref.sb, None)
+
+    def rank(r):
+        mp = _rank_problem(r, rings[r], n)
+        return run(mp, mp.step, mp.sb, mp.step.exchange)
 
     out, errors = _on_threads(S, rank, join_s=300.0)
     assert errors == [None] * S
     for k in range(2):
-        gh = torch.cat([out[r][k][0] for r in range(S)])
-        np.testing.assert_allclose(
-            gh.numpy(), want[k][0].numpy(), rtol=1e-5,
-            atol=1e-5 * float(want[k][0].abs().max()))
-        for r in range(S):
-            gc = out[r][k][1]
-            np.testing.assert_allclose(
-                gc.numpy(), want[k][1].numpy(), rtol=1e-5,
-                atol=1e-5 * float(want[k][1].abs().max()))
-            assert torch.equal(gc, out[0][k][1])
+        _close(torch.cat([o[k] for o in out]), want[k], f"restricted {k}")
+    for k in (2, 3):
+        _check_rank_grads([o[k] for o in out], want[k], S)
+    # every reverse epoch read or released (the restricted backwards' last
+    # ones skipped by the chains after them)
+    for ring in rings:
+        assert ring._freed["reverse"] == ring.epochs["reverse"]
+
+
+def test_fold_releases_only_the_epochs_that_no_launch_reads(dev):
+    """The epochs of the folded adjoint launches (read, sent, released
+    first) over one ring: a whole chain (a start given its cotangent, a
+    launch that reads and sends, the first stage that only reads) skips
+    nothing; a chain that a restricted backward ends after a send leaves
+    its last epoch unread, which the next chain's start releases before
+    it sends; a launch that neither reads nor sends releases nothing
+    that a later launch might still read."""
+    fc = FoldCase("N3_S2_B1")
+    sb = fc.c.sets[F32]
+    rings, regions = _rings(sb.plan, sb.meta.n_fp, fc.B)
+    ring = rings[0]
+    calls = [(False, True), (True, True), (True, False),  # whole
+             (False, True), (True, True),  # restricted: epoch 4 unread
+             (False, True), (True, False),  # whole: 4 released first
+             (False, False), (True, True)]
+    got = [ring._fold("reverse", *c) for c in calls]
+    assert got == [(0, 1, 0), (1, 2, 0), (2, 0, 0), (0, 3, 0), (3, 4, 0),
+                   (0, 5, 4), (5, 0, 0), (0, 0, 0), (5, 6, 0)]
+    assert ring.epochs["reverse"] == 6 and ring._freed["reverse"] == 5
+
+
+def test_two_rollouts_in_one_cost(dev, monkeypatch):
+    """C35's first limit: one cost of two rollouts over one ring (the sum
+    of a cost of each one's last state; the second under other controls),
+    one backward. Autograd's order by sequence number runs the second
+    rollout's stages' backwards, then the first's, so no launch over the
+    ring comes between a stage's send of a cotangent and its read: the
+    gradient, within 1e-5 of the stacked steps', and no refusal."""
+    dev(2, 1)
+    S, n = MPC_SIZE["n_shards"], 2
+    counts = {"B7": 0, "B8": 0}
+    kernel_stages(monkeypatch, counts)
+    ref = sbx.sharded_mpc_problem(MPC_SIZE, n, device="cpu")
+    rings, regions = _rings(ref.sb.plan, ref.sb.meta.n_fp, 1,
+                            timeout_s=60.0, meet=threading.Barrier(S))
+
+    def run(p, step, sb, ex):
+        h0 = p.state0[0].clone().requires_grad_(True)
+        c = (0.5 * p.hidden).requires_grad_(True)
+        cc = c if ex is None else BS.sum_over_ranks_grad(c, ex)
+        loss = sum(_cost(_states(step, sb, (h0, *p.state0[1:]), a * cc,
+                                 p.dt), ex, n) for a in (1.0, 0.5))
+        return torch.autograd.grad(loss, (h0, c))
+
+    want = run(ref, ref.step, ref.sb, None)
+
+    def rank(r):
+        mp = _rank_problem(r, rings[r], n)
+        return run(mp, mp.step, mp.sb, mp.step.exchange)
+
+    out, errors = _on_threads(S, rank, join_s=300.0)
+    assert errors == [None] * S
+    _check_rank_grads(out, want, S)
 
 
 class _NoMeeting:
