@@ -20,17 +20,28 @@
 // expandable segments are cuMemCreate memory, which cudaIpcGetMemHandle
 // refuses.
 //
-// Both exchange kernels move a send buffer's chunks the same way
-// (send_chunk), as 4-byte words, whatever the type: one
-// block a ring offset i waits until the receiving rank's slots of chunk i
-// are free (a GO flag in this rank's memory, released by the receiver; for
-// the stage and halo rings, whose slots are two sets by the epoch's
-// parity, the set of the epoch's parity: the read of the epoch before the
-// last),
-// stores chunk i of every scenario into them, fences at system scope and
-// releases the chunk's ARRIVED flag in the receiver's memory. The slot set
-// (where the slots lie in a region, which flags guard them, which way the
-// ring sends) is the kernel's.
+// Both exchange kernels send a buffer's chunks the same way (send_chunk),
+// as 4-byte words, whatever the type: one block a ring offset i waits until
+// the receiving rank's slots of chunk i are free (a GO flag in this rank's
+// memory, released by the receiver; for the stage and halo rings, whose
+// slots are two sets by the epoch's parity, the set of the epoch's parity:
+// the read of the epoch before the last), stores chunk i of every scenario
+// into them and sets the chunk's ARRIVED flag in the receiver's memory
+// after block_fence. The slot set (where the slots lie in a region, which
+// flags guard them, which way the ring sends) is the kernel's.
+//
+// The order (block_fence): a block barrier, then thread 0 alone makes one
+// fence at system scope and stores the flag as a relaxed store at system
+// scope (flag_store). The barrier orders every thread's stores into the
+// peer's slots (or loads from this rank's) before thread 0's fence; the
+// fence followed by the strong store is a release pattern (PTX memory
+// model), which the peer's acquire load of the flag synchronizes with, and
+// the causality order is transitive through the barrier: the peer's reads
+// after its wait see every thread's stores, and its stores after its wait
+// come after every thread's loads. So one system fence on a block's path:
+// each system fence in series costs a launch about 0.002 ms on the H100
+// (PERF.md; sw2d_blocked.cu's sr_fold_end orders the folded launches' end
+// the same way).
 //
 // peer_ring_exchange_kernel replaces the XLA ppermute of the carried send
 // buffer that precedes the TPU one-launch step in
@@ -63,13 +74,18 @@
 // inside B7's and B8's launches) share one sequence a use. The stage ring
 // launches it for a rollout's first exchange only, the constant start's
 // send buffer (and the reverse for a send buffer that needs its
-// cotangent); every later exchange is a folded launch's own. Block
-// i sends chunk i (send_chunk: forward to rank + d over FGO / FIN, reverse
-// to rank - d over RGO / RIN), then waits for its own ARRIVED flag of
-// chunk i, copies the chunk from its slots into `out` (memory torch owns,
-// so that autograd may keep it) and releases the sender's GO flag. Bound
-// on the card: bytes (some KB at the sharded paths' shapes); what it
-// waits for is the launch and the flags.
+// cotangent); every later exchange is a folded launch's own. A launch has
+// 2 n_off blocks of two kinds, each with one system fence on its path:
+// block i < n_off sends chunk i (send_chunk: forward to rank + d over FGO /
+// FIN, reverse to rank - d over RGO / RIN); block n_off + i waits for its
+// own ARRIVED flag of chunk i, copies the chunk from its slots into `out`
+// (memory torch owns, so that autograd may keep it) and sets the sender's
+// GO flag after block_fence. So the send and the receive of a chunk
+// overlap. The sends take the low block indices: where a launch's blocks
+// run one after another (the host build of the tests), a receive never
+// waits for a send of its own launch. Bound on the card: bytes (some KB at
+// the sharded paths' shapes); what it waits for is the launch and the
+// flags.
 //
 // peer_rank_reduce_kernel<T, OP> (OP 0: sum, 1: maximum; T float or
 // double) replaces the XLA psum of the sharded MPC's cost
@@ -79,12 +95,17 @@
 // _reducers) and the lax.pmax of the element-sharded time step
 // (blitzdg_tpu/parallel/halo.py, halo_sw2d_timestep); no TPU kernel. One
 // block: this rank's n values into slot `rank` of every rank's reduction
-// slots (each guarded by SGO, arrival released in SIN), then, once every
-// rank's part has arrived in this rank's slots, the parts combined in rank
-// order 0, 1, ..., S-1 in T: every rank combines the same values in the
-// same order, so every rank holds the same bits. The maximum carries a NaN
-// of any rank to every rank (the first in rank order), as pmax does.
-// Bound: bytes.
+// slots, then, once every rank's part has arrived in this rank's slots,
+// the parts combined in rank order 0, 1, ..., S-1 in T: every rank
+// combines the same values in the same order, so every rank holds the
+// same bits. The maximum carries a NaN of any rank to every rank (the
+// first in rank order), as pmax does. One system fence a launch: the
+// arrivals (SIN) after a block barrier and thread 0's fence, as relaxed
+// stores (block_fence's order); the slots' release (SGO) of the epoch
+// before at the launch's start, as relaxed stores with no fence: the
+// launch before on this rank's stream read those slots and has ended, its
+// loads with it, so no store that a peer makes after seeing the release
+// can reach a load of it. Bound: bytes.
 //
 // Plain C interface (extern "C" at the end), loaded with ctypes. The
 // kernels launch on the stream passed in; nothing here synchronises
@@ -114,10 +135,22 @@ __device__ __forceinline__ void chunk_copy(unsigned* dst, ChunkLayout dl,
   }
 }
 
+// The end of a block's part of an exchange or a reduction: a block barrier,
+// then one fence at system scope by thread 0. True on thread 0 alone,
+// whose relaxed flag stores after it (flag_store) are then release
+// patterns (the order: the file's header); a release pattern is a fence
+// and a strong store of one thread, so no other thread may store a flag.
+__device__ __forceinline__ bool block_fence() {
+  __syncthreads();
+  if (threadIdx.x != 0) return false;
+  __threadfence_system();
+  return true;
+}
+
 // Chunk i of src (layout sl) into the receiving rank's slots `dst` (layout
-// dl) once its GO flag `go` (this rank's memory) reads `free_at`; then,
-// every store fenced at system scope, the receiver's ARRIVED flag
-// `arrived` set to e. Thread 0 waits and releases; the whole block stores.
+// dl) once its GO flag `go` (this rank's memory) reads `free_at`; then the
+// receiver's ARRIVED flag `arrived` set to e after block_fence. Thread 0
+// waits; the whole block stores.
 __device__ __forceinline__ void send_chunk(flag_t* go, flag_t free_at,
                                            flag_t* arrived, flag_t e,
                                            long long timeout_ns,
@@ -128,9 +161,7 @@ __device__ __forceinline__ void send_chunk(flag_t* go, flag_t free_at,
   if (threadIdx.x == 0) flag_wait(go, free_at, timeout_ns);
   __syncthreads();
   chunk_copy(dst, dl, src, sl, i, cw, B);
-  __threadfence_system();
-  __syncthreads();
-  if (threadIdx.x == 0) flag_release(arrived, e);
+  if (block_fence()) flag_store(arrived, e);
 }
 
 __global__ void peer_ring_exchange_kernel(const long long* tab,
@@ -149,28 +180,31 @@ __global__ void peer_stage_exchange_kernel(const long long* tab, int rev,
                                            const unsigned* src, unsigned* out,
                                            int B, int row, int cw,
                                            int slot_cw, flag_t e) {
-  const int i = blockIdx.x;
+  const int n_off = (int)tab[SR_NOFF];
+  const bool send = (int)blockIdx.x < n_off;
+  const int i = send ? (int)blockIdx.x : (int)blockIdx.x - n_off;
   const long long own = tab[SR_OWN], timeout = tab[SR_TIMEOUT];
-  const long long to = rev ? sr_from(tab, i) : sr_to(tab, i);
-  const long long from = rev ? sr_to(tab, i) : sr_from(tab, i);
   const int go = rev ? SR_RGO : SR_FGO, in = rev ? SR_RIN : SR_FIN;
   // the buffers' rows and chunks; the slots' chunk i always at the same
   // place of the epoch's slot set, whatever the call's chunk (guarded by
   // the flags of chunk i)
   const ChunkLayout buf = {row, cw};
-  const ChunkLayout sl = {(int)tab[SR_NOFF] * slot_cw, slot_cw};
-  // (the slot set of e's parity is free once epoch e - 2 is read)
-  send_chunk(sr_flag(tab, own, i, go), e - 1, sr_flag(tab, to, i, in), e,
-             timeout, reinterpret_cast<unsigned*>(sr_slots(tab, to, rev, e)),
-             sl, src, buf, i, cw, B);
+  const ChunkLayout sl = {n_off * slot_cw, slot_cw};
+  if (send) {
+    const long long to = rev ? sr_from(tab, i) : sr_to(tab, i);
+    // (the slot set of e's parity is free once epoch e - 2 is read)
+    send_chunk(sr_flag(tab, own, i, go), e - 1, sr_flag(tab, to, i, in), e,
+               timeout, reinterpret_cast<unsigned*>(sr_slots(tab, to, rev, e)),
+               sl, src, buf, i, cw, B);
+    return;
+  }
+  const long long from = rev ? sr_to(tab, i) : sr_from(tab, i);
   if (threadIdx.x == 0) flag_wait(sr_flag(tab, own, i, in), e, timeout);
   __syncthreads();
   chunk_copy(out, buf,
              reinterpret_cast<const unsigned*>(sr_slots(tab, own, rev, e)),
              sl, i, cw, B);
-  __threadfence_system();
-  __syncthreads();
-  if (threadIdx.x == 0) flag_release(sr_flag(tab, from, i, go), e + 1);
+  if (block_fence()) flag_store(sr_flag(tab, from, i, go), e + 1);
 }
 
 // The combination of two parts: their sum, or their maximum with a NaN
@@ -188,20 +222,23 @@ __global__ void peer_rank_reduce_kernel(const long long* tab, const T* x,
   const int S = (int)tab[SR_S], r = (int)tab[SR_RANK];
   const int len = (int)(tab[SR_SUMBYTES] / (long long)sizeof(T));
   const long long own = tab[SR_OWN], timeout = tab[SR_TIMEOUT];
-  // this rank's part into slot r of every rank, once each slot is free
-  for (int p = threadIdx.x; p < S; p += blockDim.x)
+  // epoch e - 1's parts read here (this rank's launch before has ended):
+  // slot p of this rank free for p's part of epoch e; then this rank's part
+  // into slot r of every rank, once each such slot is free
+  for (int p = threadIdx.x; p < S; p += blockDim.x) {
+    flag_store(sr_sum_flag(tab, sr_rank(tab, p), r, SR_SGO), e);
     flag_wait(sr_sum_flag(tab, own, p, SR_SGO), e, timeout);
+  }
   __syncthreads();
   for (int k = threadIdx.x; k < S * n; k += blockDim.x) {
     const int p = k / n, j = k - p * n;
     reinterpret_cast<T*>(sr_rank(tab, p) + tab[SR_SUM])[r * len + j] = x[j];
   }
-  __threadfence_system();
-  __syncthreads();
-  for (int p = threadIdx.x; p < S; p += blockDim.x) {
-    flag_release(sr_sum_flag(tab, sr_rank(tab, p), r, SR_SIN), e);
+  if (block_fence())
+    for (int p = 0; p < S; ++p)
+      flag_store(sr_sum_flag(tab, sr_rank(tab, p), r, SR_SIN), e);
+  for (int p = threadIdx.x; p < S; p += blockDim.x)
     flag_wait(sr_sum_flag(tab, own, p, SR_SIN), e, timeout);
-  }
   __syncthreads();
   // every part here: combined in rank order
   const T* slot = reinterpret_cast<const T*>(own + tab[SR_SUM]);
@@ -211,10 +248,6 @@ __global__ void peer_rank_reduce_kernel(const long long* tab, const T* x,
       acc = rank_combine<T, OP>(acc, __ldcg(slot + p * len + j));
     out[j] = acc;
   }
-  __threadfence_system();
-  __syncthreads();
-  for (int p = threadIdx.x; p < S; p += blockDim.x)
-    flag_release(sr_sum_flag(tab, sr_rank(tab, p), r, SR_SGO), e + 1);
 }
 
 template <class T, int OP>
@@ -313,7 +346,7 @@ int peer_stage_exchange(const long long* tab, int rev, const void* src,
                         int slot_cw, unsigned long long e, int threads,
                         void* stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_off);
+  cfg.gridDim = dim3(2 * n_off);  // a send and a receive block an offset
   cfg.blockDim = dim3(threads);
   cfg.stream = (cudaStream_t)stream;
   const cudaError_t err = cudaLaunchKernelEx(

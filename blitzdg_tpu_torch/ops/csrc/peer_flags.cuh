@@ -68,7 +68,8 @@
 //   RGO[i]  r - d's reverse slots of chunk i are free (written by r - d)
 //   RIN[i]  r + d's reverse chunk has arrived in r's slots
 //   SIN[p]  rank p's part of the reduction has arrived in r's slot p
-//   SGO[p]  p's reduction slot r is free (p has read r's part there)
+//   SGO[p]  p's reduction slot r is free (p has read r's part there; p
+//           sets it at its next reduction's start: peer.cu)
 // Each use counts its own epochs (the caller passes the epoch: every rank
 // makes the same calls in the same order; the sums and the maxima count
 // together, over their shared slots). Epoch e of an exchange goes to the
@@ -136,8 +137,9 @@ __device__ __forceinline__ void flag_release(flag_t* f, flag_t v) {
 
 // A relaxed store at system scope: after a fence of the same thread at
 // system scope, a release pattern (PTX memory model), so that a launch
-// that sets several flags pays one system fence and not one a flag (the
-// folded launches' end, sw2d_blocked.cu's sr_fold_end).
+// or a block that sets several flags pays one system fence and not one a
+// flag (the folded launches' end, sw2d_blocked.cu's sr_fold_end; the
+// rings' exchanges and reductions, peer.cu's block_fence).
 __device__ __forceinline__ void flag_store(flag_t* f, flag_t v) {
   cuda::atomic_ref<flag_t, cuda::thread_scope_system>(*f).store(
       v, cuda::std::memory_order_relaxed);

@@ -878,7 +878,8 @@ def peer_stage_exchange(ring: StageRing, sbuf: torch.Tensor) -> torch.Tensor:
     forward slots of the rank that ring offset i sends to; returns this
     rank's receive buffer (1, B, L, 3), what its peers sent, copied out of
     its slots into a new tensor (zeros without ring offsets). One launch
-    (``ops/csrc/peer.cu``, one block an offset), which waits until each
+    (``ops/csrc/peer.cu``, a send block and a receive block an offset, one
+    system fence on each block's path), which waits until each
     receiving rank has read the epoch before the last (two slot sets by
     the epoch's parity) and until each chunk here has arrived. On the card
     the sharded steps launch it for a rollout's first send buffer only:
@@ -945,9 +946,9 @@ def peer_halo_exchange(ring: HaloRing, buf: torch.Tensor) -> torch.Tensor:
     into the forward slots of the rank at ring offset +i; returns this
     rank's receive buffer of the same shape and type (chunk i what the rank
     at offset -i sent), a new tensor. One launch for every offset
-    (``ops/csrc/peer.cu``, the stage exchange's kernel, one block an
-    offset, each chunk padded to whole 4-byte words); a buffer larger than
-    the ring's slots raises.
+    (``ops/csrc/peer.cu``, the stage exchange's kernel, a send block and a
+    receive block an offset, each chunk padded to whole 4-byte words); a
+    buffer larger than the ring's slots raises.
 
     Replaces the ``lax.ppermute`` a ring offset of the JAX package's
     ``halo_face_rows`` (``blitzdg_tpu/parallel/halo.py``); its plain

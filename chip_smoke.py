@@ -155,7 +155,8 @@ exit):
     sum (``ops/csrc/peer.cu``) bit-equal to their plain versions (the
     stacked gather of every rank's buffer, the rank-order sum) at the main
     path's shapes, four ranks on four streams, and times each of rank 0's
-    alone (its flags set past any epoch); ``stage_peer_kernels`` holds the
+    alone (its flags set past any epoch: events, and its device time, a
+    launch of a CUDA graph of 50); ``stage_peer_kernels`` holds the
     stage's and its adjoint's peer modes (the exchange and its reverse
     folded into their launches) bit-equal to B7 and B8 launched on each
     rank's shard with the stacked exchange and its reverse between them,
@@ -275,7 +276,8 @@ exit):
     bit-equal to their plain versions (the stacked roll of each offset's
     rows, the rank-order maximum and sum) at the scaling study's S=4
     shapes, four ranks on four streams, and times each of rank 0's alone
-    (its flags set past any epoch); ``halo_rhs_S2_ranks_in_process`` and
+    (its flags set past any epoch: events, and its device time, a launch
+    of a CUDA graph of 50); ``halo_rhs_S2_ranks_in_process`` and
     ``halo_rhs_S4_ranks_in_process`` run ``examples/scaling_study.py
     --mode xla``'s RHS and 100-step rollout (K=2048, N=3) with full and
     bfloat16 halos, the ranks on threads and streams of this process (each
@@ -3921,8 +3923,9 @@ def peer_worker(cfg: dict) -> int:
     peers' last send buffers) against the group's plain exchange (gloo, on
     CPU copies), and, where asked, times its step kernel and its exchange
     alone (every other rank idle at a barrier, this rank's flags set past
-    any epoch, so that no wait holds it). Writes its results to the case's
-    directory."""
+    any epoch, so that no wait holds it; the exchange's device time too, a
+    launch of a CUDA graph of STAGE_PEER_GRAPH_LAUNCHES). Writes its
+    results to the case's directory."""
     import torch.distributed as dist
 
     from blitzdg_tpu_torch.ops import sw2d_blocked as TB
@@ -3994,6 +3997,9 @@ def peer_worker(cfg: dict) -> int:
                 # for a ring's first step only)
                 out["exchange_ms"] = time_ms(lambda: ring._exchange(sb1),
                                              PEER_TIMED_REPS, flush)
+                out["exchange_device_ms"] = graph_us(
+                    [lambda: ring._exchange(sb1)],
+                    n=STAGE_PEER_GRAPH_LAUNCHES) / 1e3
                 out["plan"] = TB.shard_plan(sb.ops, sb.meta, B, step=True,
                                             peer=True)
             dist.barrier()
@@ -4379,6 +4385,8 @@ def peer_phases(dev, card: str, rng, flush) -> list:
                 timed = (S, ref, res[0], err1)
                 rec["step_ms_alone"] = [o["step_ms"] for o in res]
                 rec["exchange_ms_alone"] = [o["exchange_ms"] for o in res]
+                rec["exchange_device_ms_alone"] = [o["exchange_device_ms"]
+                                                   for o in res]
                 rec["plan"] = res[0]["plan"]
             rec["ok"] = ok
             say(rec)
@@ -4482,7 +4490,8 @@ def peer_phases(dev, card: str, rng, flush) -> list:
          "source": "blitzdg_tpu_torch/ops/csrc/peer.cu",
          "replaces": "blitzdg_tpu/parallel/blocked_shard.py:550",
          "launches": total["peer_ring_exchange"], "max_abs_err": 0.0,
-         "ms": r0["exchange_ms"], "plain_ms": gather_ms,
+         "ms": r0["exchange_ms"], "device_ms": r0["exchange_device_ms"],
+         "plain_ms": gather_ms,
          "bound_ms": ex_bound[0], "bound_by": ex_bound[1],
          "library_ms": None}]
 
@@ -4914,8 +4923,10 @@ def stage_ring_check(plan, n_fp: int, dev, rng, flush) -> dict:
     the stacked gather of every rank's buffer (forward and reverse) and the
     rank-order sum, bit for bit. Then each kernel of rank 0 alone, its
     flags set past any epoch (no wait holds it), CUDA events, L2 flushed,
-    beside its plain version. Launches counted here are not the main
-    path's. Returns a record by kernel name."""
+    beside its plain version, and its device time, a launch of a CUDA
+    graph of STAGE_PEER_GRAPH_LAUNCHES back to back (``device_ms``).
+    Launches counted here are not the main path's. Returns a record by
+    kernel name."""
     from blitzdg_tpu_torch.parallel import peer as PR
     from blitzdg_tpu_torch.parallel.halo import _stacked, _stacked_source
 
@@ -4972,6 +4983,8 @@ def stage_ring_check(plan, n_fp: int, dev, rng, flush) -> dict:
                 "max_abs_err": float((rows - ref).abs().max()),
                 "bit_equal": bool(torch.equal(rows, ref)),
                 "ms": time_ms(alone[name], RANKS_TIMED_REPS, flush),
+                "device_ms": graph_us([alone[name]],
+                                      n=STAGE_PEER_GRAPH_LAUNCHES) / 1e3,
                 "plain_ms": time_ms(fn, RANKS_TIMED_REPS, flush),
                 "bound_ms": bnd[0], "bound_by": bnd[1],
                 "shape": list(rows[:1].shape)}
@@ -5428,6 +5441,7 @@ def ranks_phases(dev, card: str, rng, flush) -> list:
     return [{"name": name, "route": "cuda", "source": sources.get(name, src),
              "replaces": replaces[name], "launches": totals[name],
              "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+             "device_ms": c["device_ms"],
              "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
              "bound_by": c["bound_by"], "library_ms": None,
              **({"note": notes[name]} if name in notes else {})}
@@ -5588,9 +5602,10 @@ def halo_ring_check(plan, n_fp: int, dev, rng, flush) -> dict:
     stacked roll of each offset's rows over the ranks (forward and
     reverse), ``rank_order_max`` and ``rank_order_sum``, bit for bit. Then
     each kernel of rank 0 alone, its flags set past any epoch (no wait
-    holds it), CUDA events, L2 flushed, beside its plain version. Launches
-    counted here are not the main path's. Returns a record by kernel
-    name."""
+    holds it), CUDA events, L2 flushed, beside its plain version, and its
+    device time, a launch of a CUDA graph of STAGE_PEER_GRAPH_LAUNCHES
+    back to back (``device_ms``). Launches counted here are not the main
+    path's. Returns a record by kernel name."""
     from blitzdg_tpu_torch.parallel import peer as PR
 
     f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
@@ -5674,6 +5689,8 @@ def halo_ring_check(plan, n_fp: int, dev, rng, flush) -> dict:
                 "max_abs_err": max(float((g.double() - w.double()).abs()
                                          .max()) for _, g, w in got),
                 "ms": time_ms(fn, RANKS_TIMED_REPS, flush),
+                "device_ms": graph_us([fn],
+                                      n=STAGE_PEER_GRAPH_LAUNCHES) / 1e3,
                 "plain_ms": time_ms(plain, RANKS_TIMED_REPS, flush),
                 "bound_ms": bnd[0], "bound_by": bnd[1],
                 "timed": f"{x.dtype}, shape {list(x.shape)}"}
@@ -6190,6 +6207,7 @@ def halo_ranks_phases(dev, card: str, rng, flush) -> list:
     return [{"name": name, "route": "cuda", "source": src,
              "replaces": replaces[name], "launches": launched(name),
              "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+             "device_ms": c["device_ms"],
              "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
              "bound_by": c["bound_by"], "library_ms": None}
             for name, c in checks.items()]

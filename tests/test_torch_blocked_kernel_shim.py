@@ -116,6 +116,7 @@ struct ShimBlock {
   std::vector<std::unique_ptr<std::barrier<>>> warp;
   std::vector<float> xch;
   std::vector<float4> mem;
+  unsigned orders = 0;  // its threads' system fences and release stores
 };
 static thread_local ShimBlock* shim_blk = nullptr;
 static thread_local std::barrier<>* shim_grid = nullptr;
@@ -151,8 +152,12 @@ static inline void __threadfence() {
 }
 // the peer mode's flags: a system fence a seq_cst fence, the trap an
 // exception that ends the thread's part of its launch, the global timer
-// the steady clock
+// the steady clock. A thread counts its system fences and its release
+// stores at system scope (``shim_orders``): the ordering points on its
+// path, which a launch logs by block where ``shim_log_orders`` is set
+static thread_local unsigned shim_orders = 0;
 static inline void __threadfence_system() {
+  ++shim_orders;
   std::atomic_thread_fence(std::memory_order_seq_cst);
 }
 struct ShimTrap {};
@@ -240,6 +245,27 @@ static inline cudaError_t cudaLaunchCooperativeKernel(K, dim3, dim3, void**,
   return cudaErrorNotSupported;  // the kernels of the blocked rollouts
 }
 static inline cudaError_t cudaGetLastError() { return 0; }
+// the log of the launches' ordering points: with shim_log_orders set, each
+// block of each launch appends (blocks of its launch, its index, the
+// system fences and release stores of its threads); shim_orders_read
+// copies up to cap triples out and returns the log's triples,
+// shim_orders_clear empties it
+#include <mutex>
+static std::mutex shim_log_mutex;
+static std::vector<unsigned> shim_log;
+extern "C" {
+int shim_log_orders = 0;
+int shim_orders_read(unsigned* out, int cap) {
+  std::lock_guard<std::mutex> g(shim_log_mutex);
+  const int n = (int)shim_log.size() / 3;
+  std::copy(shim_log.begin(), shim_log.begin() + 3 * std::min(n, cap), out);
+  return n;
+}
+void shim_orders_clear() {
+  std::lock_guard<std::mutex> g(shim_log_mutex);
+  shim_log.clear();
+}
+}
 // the transport's set-up (peer.cu): host memory; no IPC on the host
 struct cudaIpcMemHandle_t { char reserved[64]; };
 enum { cudaIpcMemLazyEnablePeerAccess = 1 };
@@ -304,6 +330,7 @@ static inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
           gridDim = {G, 1, 1};
           shim_blk = &blocks[blk - b0];
           shim_grid = &grid;
+          shim_orders = 0;
           try {
             std::apply(f, params);
           } catch (const ShimTrap&) {
@@ -312,8 +339,15 @@ static inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
             shim_blk->warp[i / 32]->arrive_and_drop();
             grid.arrive_and_drop();
           }
+          __atomic_fetch_add(&shim_blk->orders, shim_orders,
+                             __ATOMIC_SEQ_CST);
         });
     for (auto& t : ts) t.join();
+    if (shim_log_orders) {
+      std::lock_guard<std::mutex> g(shim_log_mutex);
+      for (unsigned blk = b0; blk < b1; ++blk)
+        shim_log.insert(shim_log.end(), {G, blk, blocks[blk - b0].orders});
+    }
   };
   if (coop) run(0, G);
   else
@@ -346,9 +380,16 @@ using ::std::memory_order_acquire;
 using ::std::memory_order_relaxed;
 using ::std::memory_order_release;
 }  // namespace std
+// (a release store at system scope counts as an ordering point of its
+// thread: the shim's shim_orders)
 template <class T, thread_scope S = thread_scope_system>
 struct atomic_ref : ::std::atomic_ref<T> {
   explicit atomic_ref(T& t) : ::std::atomic_ref<T>(t) {}
+  void store(T v, ::std::memory_order o) const noexcept {
+    if (S == thread_scope_system && o == ::std::memory_order_release)
+      ++shim_orders;
+    ::std::atomic_ref<T>::store(v, o);
+  }
 };
 }  // namespace cuda
 """

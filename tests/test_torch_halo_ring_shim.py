@@ -28,8 +28,10 @@ before each launch: ``meet=``, which ranks on threads of their own need).
    within 1e-10 of it, the same bits on every rank), with the launches
    of each kernel counted.
 """
+import ctypes
 import dataclasses
 import threading
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -48,6 +50,7 @@ from blitzdg_tpu.ops import sw2d as jsw
 from blitzdg_tpu_torch import parallel as TP
 from blitzdg_tpu_torch.ops.sw2d import SWState
 from blitzdg_tpu_torch.parallel import peer as PR
+from blitzdg_tpu_torch.parallel.halo import _stacked, _stacked_source
 from blitzdg_tpu_torch.solvers import cg, gmres
 from blitzdg_tpu_torch.solvers.krylov import CONV_MAXITS, CONV_SUCCESS
 from blitzdg_tpu_torch.timestepping import ssprk2_step
@@ -529,3 +532,196 @@ def test_krylov_on_the_halo_laplacian(lib, wall_pair, solver):
     launched = [c.launches - n for c, n in zip(counters, n0)]
     assert launched[0] > 0 and launched[0] % (2 * S4) == 0
     assert launched[1] > 0 and launched[1] % S4 == 0
+
+
+# ---------------------------------------------------------------------------
+# Many epochs back to back, a rank ahead, and the ordering points of each
+# block's path
+# ---------------------------------------------------------------------------
+
+ROUNDS = 8  # rounds of the back-to-back case: an exchange, its reverse, a
+# sum and a maximum each
+
+
+@pytest.mark.parametrize("delayed", [0, 3])
+def test_many_epochs_back_to_back_with_a_delayed_rank(lib, delayed):
+    """S=4 (offsets 1, 2, 3), ROUNDS rounds of a float32 face-row exchange,
+    its reverse, a float64 sum and a float32 maximum, back to back, one
+    rank sleeping before a call now and then (a different time each): its
+    peers' launches wait at its flags, every exchange and reverse is
+    bit-equal to the stacked roll, every sum and maximum has the same bits
+    on every rank, those of the rank-order ones; the flags read the last
+    epoch of each use."""
+    S, offs = 4, (1, 2, 3)
+    plan = _plan(S, offs)
+    rings, _ = _rings(plan, PR.halo_slot_bytes(plan, 5, 3, F32))
+    g = torch.Generator().manual_seed(30 + delayed)
+    bufs = [torch.randn((S, 3, 3, plan.max_send, 5), generator=g)
+            for _ in range(2 * ROUNDS)]
+    xs = [(torch.randn((S, 7), generator=g, dtype=F64)
+           * 10.0 ** torch.randint(-3, 4, (S, 7), generator=g))
+          for _ in range(ROUNDS)]
+    waits = torch.rand((ROUNDS, 4), generator=g) * 0.02
+
+    def rank(r):
+        got = []
+        for k in range(ROUNDS):
+            calls = ((PR.peer_halo_exchange, bufs[2 * k][r]),
+                     (PR.peer_halo_exchange_reverse, bufs[2 * k + 1][r]),
+                     (PR.peer_rank_sum, xs[k][r]),
+                     (PR.peer_rank_max, xs[k][r].float()))
+            for j, (fn, x) in enumerate(calls):
+                if r == delayed and (k + j) % 3 == 0:
+                    time.sleep(float(waits[k, j]))
+                got.append(fn(rings[r], x.contiguous()))
+        return got
+
+    out, errors = _on_threads(S, rank)
+    assert errors == [None] * S
+    for k in range(ROUNDS):
+        want = (_stacked_roll(bufs[2 * k], offs, 1),
+                _stacked_roll(bufs[2 * k + 1], offs, -1),
+                PR.rank_order_sum(list(xs[k])),
+                PR.rank_order_max(list(xs[k].float())))
+        for r in range(S):
+            got = out[r][4 * k:4 * k + 4]
+            assert torch.equal(got[0], want[0][r]), (r, k)
+            assert torch.equal(got[1], want[1][r]), (r, k)
+            assert torch.equal(_bits(got[2]), _bits(want[2])), (r, k)
+            assert torch.equal(_bits(got[3]), _bits(want[3])), (r, k)
+    E, n_off = ROUNDS, len(offs)
+    for ring in rings:
+        f = ring.flags.tolist()
+        assert f[:4 * n_off] == [E + 1, E] * 2 * n_off
+        # SIN and SGO of every rank at the last reduction's epoch (SGO set
+        # at each reduction's start, for the parts of the one before)
+        assert f[4 * n_off:] == [2 * E] * 2 * S
+        assert ring.epochs == {"forward": E, "reverse": E, "sum": 2 * E}
+
+
+def test_a_rank_ahead_keeps_every_reductions_bits(lib):
+    """S=4, rank 0 making its 24 reductions (sums and maxima, float32 and
+    float64) back to back with no delay while ranks 1-3 sleep before each
+    call: rank 0 enters each reduction first, and its part of a reduction
+    reaches a peer's slot only once that peer has started the same
+    reduction (its launch before, which read the slot, has ended: the
+    release of the slots at a launch's start, with no fence). Every
+    result has the rank-order bits on every rank."""
+    S = 4
+    rings, _ = _rings(_plan(S, (1, 2, 3)), 64)
+    g = torch.Generator().manual_seed(41)
+    n = 24
+    dts = [F32 if k % 3 else F64 for k in range(n)]
+    xs = [(torch.randn((S, 5), generator=g, dtype=F64)
+           * 10.0 ** torch.randint(-3, 4, (S, 5), generator=g)).to(dts[k])
+          for k in range(n)]
+    waits = torch.rand((S, n), generator=g) * 0.01
+    op = lambda k: PR.peer_rank_sum if k % 2 == 0 else PR.peer_rank_max
+
+    def rank(r):
+        got = []
+        for k in range(n):
+            if r > 0:
+                time.sleep(float(waits[r, k]))
+            got.append(op(k)(rings[r], xs[k][r].contiguous()))
+        return got
+
+    out, errors = _on_threads(S, rank)
+    assert errors == [None] * S
+    for k in range(n):
+        plain = PR.rank_order_sum if k % 2 == 0 else PR.rank_order_max
+        want = plain(list(xs[k]))
+        for r in range(S):
+            assert torch.equal(_bits(out[r][k]), _bits(want)), (r, k)
+
+
+def _orders(lib, run):
+    """``run()`` with the shim's log of ordering points on: each block of
+    each launch (blocks of its launch, the system fences and release stores
+    of its threads)."""
+    flag = ctypes.c_int.in_dll(lib, "shim_log_orders")
+    lib.shim_orders_clear()
+    flag.value = 1
+    try:
+        run()
+    finally:
+        flag.value = 0
+    n = lib.shim_orders_read(None, 0)
+    buf = (ctypes.c_uint * (3 * n))()
+    lib.shim_orders_read(buf, n)
+    lib.shim_orders_clear()
+    return [(buf[3 * i], buf[3 * i + 2]) for i in range(n)]
+
+
+ORDER_KERNELS = ["halo_exchange", "halo_exchange_reverse", "stage_exchange",
+                 "stage_exchange_reverse", "sum", "max", "ring_exchange"]
+
+
+@pytest.mark.parametrize("what", ORDER_KERNELS)
+def test_one_system_fence_on_each_blocks_path(lib, what):
+    """The ring kernels' ordering points, counted on the shim (each system
+    fence and each release store at system scope of a block's threads; the
+    flags after a fence are relaxed stores): every block of an exchange (a
+    send block and a receive block a ring offset: 2 n_off blocks; the
+    step-boundary exchange a send block an offset) and the reduction's one
+    block has exactly one, where a fence in every thread and a release, a
+    fence of its own, in each phase were four in series. S=4, offsets 1, 2,
+    3, every rank one call; the results their plain versions'."""
+    S, offs = 4, (1, 2, 3)
+    plan = _plan(S, offs)
+    n_off = len(offs)
+    g = torch.Generator().manual_seed(50)
+    if what.startswith("halo"):
+        rings, _ = _rings(plan, PR.halo_slot_bytes(plan, 3, 2, F32))
+        x = torch.randn((S, n_off, 2, plan.max_send, 3), generator=g)
+        fn, sign = ((PR.peer_halo_exchange, 1) if what == "halo_exchange"
+                    else (PR.peer_halo_exchange_reverse, -1))
+        want = _stacked_roll(x, offs, sign)
+    elif what.startswith("stage"):
+        from test_torch_peer_stage_shim import _rings as stage_rings
+
+        rings, _ = stage_rings(plan, 2, 1)
+        x = torch.randn((S, 1, rings[0].n_slots, 3), generator=g)
+        rev = what.endswith("reverse")
+        fn = (PR.peer_stage_exchange_reverse if rev
+              else PR.peer_stage_exchange)
+        src = torch.as_tensor(_stacked_source(plan, plan.max_send * 2,
+                                              -1 if rev else 1))
+        want = _stacked(x.reshape(S, 1, -1, 3), src)
+        x = x.reshape(S, 1, 1, -1, 3)
+    elif what == "ring_exchange":
+        lay = PR.region_layout(1, PR._n_slots(plan, 2), n_off)
+        regions = [torch.zeros(lay["bytes"], dtype=torch.uint8)
+                   for _ in range(S)]
+        bases = {r: t.data_ptr() for r, t in enumerate(regions)}
+        rings = [PR.PeerRing.over_regions(plan, 2, 1, r, bases, "cpu", 30.0)
+                 for r in range(S)]
+        x = torch.randn((S, 1, 1, rings[0].n_slots, 3), generator=g)
+        fn = lambda ring, t: ring._exchange(t)
+        src = torch.as_tensor(_stacked_source(plan, plan.max_send * 2, 1))
+    else:
+        rings, _ = _rings(plan, 64)
+        x = torch.randn((S, 6), generator=g)
+        fn = PR.peer_rank_sum if what == "sum" else PR.peer_rank_max
+        want = (PR.rank_order_sum if what == "sum"
+                else PR.rank_order_max)(list(x))
+    got = {}
+
+    def run():
+        out, errors = _on_threads(S, lambda r: fn(rings[r], x[r].contiguous()))
+        assert errors == [None] * S
+        got["out"] = out
+
+    log = _orders(lib, run)
+    blocks = 1 if what in ("sum", "max") else (
+        n_off if what == "ring_exchange" else 2 * n_off)
+    assert log == [(blocks, 1)] * (S * blocks)
+    for r in range(S):
+        if what == "ring_exchange":
+            w = _stacked(x.reshape(S, 1, -1, 3), src)[r:r + 1]
+            assert torch.equal(rings[r].rbb, w), r
+        elif what in ("sum", "max"):
+            assert torch.equal(got["out"][r], want), r
+        else:
+            assert torch.equal(got["out"][r].reshape(want[r].shape),
+                               want[r]), r

@@ -18,6 +18,8 @@ meeting only through their flags.
    stacked reverse exchange. At S=2 and S=4 on triangles (N=3, four lanes
    an element) and on quadrilaterals at N=4 (``QOrder4Quad``, eight lanes
    an element), and with a rank that sleeps before every second launch;
+ - the standalone exchange and its reverse (``peer.cu``) between folded
+   launches over one ring, two rounds, every output the same bits;
  - a rank that never launches makes its peer's folded launch trap after
    the ring's bound: an error, not a hang;
  - the rank-local MPC with the folded steps: its target bit-equal to the
@@ -290,6 +292,72 @@ def test_folded_adjoint_adds_a_second_cotangent(dev, name):
     _check_adjoint([cat(k, i, 1) for i in range(7)]
                    + [torch.cat([got[r][1][k][7] for r in range(fc.S)])
                       .sum(1)], [*want[:7], want[7].sum(1)])
+
+
+def test_standalone_exchanges_between_folded_launches(dev):
+    """Over one ring, two rounds of: the standalone exchange of the initial
+    send buffer (``peer_stage_exchange``, ``peer.cu``'s kernel: a send
+    block and a receive block a ring offset), B7's peer mode over four
+    epochs from that receive buffer, B8's over three reverse epochs, then
+    the standalone reverse of the first stage's receive-buffer cotangent
+    (``peer_stage_exchange_reverse``). The standalone kernel and the
+    folded launches share each use's epochs and slot sets (the second
+    round's standalone exchange sends into the set of an epoch no launch
+    read), and every output of both rounds keeps the bits of B7 and B8
+    with the stacked exchange and its reverse between them."""
+    fc = FoldCase("N3_S4_B1", seed=13)
+    dev(*fc.dev)
+    want_f, want_b = fc.reference()
+    c, sb = fc.c, fc.c.sets[F32]
+    m = sb.meta
+    sbuf0 = BS.initial_send_buffer(sb, c.state)
+    rings, fc.regions = _rings(sb.plan, m.n_fp, fc.B,
+                               meet=threading.Barrier(fc.S))
+
+    def rank(r):
+        row = lambda t: t[r:r + 1]
+        ring, ops = rings[r], fc.ops[r]
+        base = tuple(row(f) for f in c.state)
+        rounds = []
+        for _ in range(2):
+            rb = first = PR.peer_stage_exchange(ring, row(sbuf0).contiguous())
+            cur, fwd = base, []
+            for c_dt, t, sponge in fc.stages:
+                out = TB.sw2d_stage_blocked(ops, m, base, cur, rb, c_dt, t,
+                                            c.ctrl, True, sponge, ring=ring)
+                fwd.append(out)
+                cur, rb = tuple(out[:3]), None
+            bwd = [None] * N_STAGES
+            for k in reversed(range(N_STAGES)):
+                c_dt, t, sponge = fc.stages[k]
+                ins = base if k == 0 else tuple(fwd[k - 1][:3])
+                bwd[k] = TB.sw2d_stage_bwd_blocked_v2(
+                    ops, m, ins, fwd[k][4], fc.lam[k][r],
+                    fc.lsb_end[r] if k == N_STAGES - 1 else None, c_dt, t,
+                    c.ctrl, True, sponge, ring=ring, send=k > 0)
+            back = PR.peer_stage_exchange_reverse(ring,
+                                                  bwd[0][6].contiguous())
+            rounds.append((first, fwd, bwd, back))
+        return rounds
+
+    out, errors = _on_threads(fc.S, rank)
+    assert errors == [None] * fc.S
+    back_want = TB._stacked_reverse(torch.cat([w[6] for w in want_b[0]]),
+                                    c.ex[F32])
+    for r in range(fc.S):
+        for first, fwd, bwd, back in out[r]:
+            assert torch.equal(first, c.rb[r:r + 1]), r
+            for k in range(N_STAGES):
+                outs, rb = want_f[k]
+                assert _same(fwd[k][:4], outs[r]), (r, k)
+                assert torch.equal(fwd[k][4], rb[r:r + 1]), (r, k)
+                assert _same([x for x in bwd[k] if x is not None],
+                             [x for x in want_b[k][r] if x is not None]), \
+                    (r, k)
+            assert torch.equal(back, back_want[r:r + 1]), r
+    for ring in rings:
+        assert ring.epochs == {"forward": 2 * (1 + N_STAGES),
+                               "reverse": 2 * N_STAGES, "sum": 0}
 
 
 def test_folded_stages_hold_with_a_delayed_rank(dev):
